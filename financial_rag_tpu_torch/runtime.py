@@ -1,0 +1,183 @@
+"""Runtime factory: assemble the served stack from configuration.
+
+Counterpart of financial_rag_tpu/runtime.py for the configuration this
+slice of the port serves: one device, flat per-model indexes, the dual
+bge/gte encoders (real checkpoints when available, the deterministic
+lexical fallback otherwise), the cross-encoder rerank, the parent stores
+and the HTTP/Null LLM provider. Cross-request micro-batching, the WSGI app,
+the auto-ingest processor and the warmups are later slices; IVF, sharded
+indexes, data-parallel encode and the on-device LLM raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from financial_rag_tpu_torch.config import FrameworkConfig
+from financial_rag_tpu_torch.device import DeviceLike, resolve_device
+from financial_rag_tpu_torch.engine import RAGEngine
+from financial_rag_tpu_torch.index.flat import FlatIndex
+from financial_rag_tpu_torch.index.persist import STR_TO_DTYPE
+from financial_rag_tpu_torch.ingest.ledger import ProcessingLedger
+from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline, collection_slug
+from financial_rag_tpu_torch.llm.provider import get_provider
+from financial_rag_tpu_torch.models.encoder import DualEncoder, Encoder
+from financial_rag_tpu_torch.models.hashing import HashingEncoder
+from financial_rag_tpu_torch.retrieval.hybrid import HybridRetriever
+from financial_rag_tpu_torch.retrieval.rerank import CrossEncoderModel, CrossEncoderReranker
+from financial_rag_tpu_torch.retrieval.retriever import ParentContextRetriever
+from financial_rag_tpu_torch.store import ChildMetaStore, ParentStore
+from financial_rag_tpu_torch.store.feedback_db import FeedbackDatabase
+from financial_rag_tpu_torch.utils import get_logger
+from financial_rag_tpu_torch.utils.embed_cache import EmbeddingCache
+from financial_rag_tpu_torch.utils.tracing import QueryTracer
+
+log = get_logger("runtime")
+
+POOLING_BY_MODEL = {"baai": "cls", "gte": "mean"}  # true checkpoint behavior
+
+
+def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
+    """Raise NotImplementedError for configurations a later slice serves."""
+    if cfg.index.kind == "ivf":
+        raise NotImplementedError("INDEX_KIND=ivf needs the IVF index and the "
+                                  "probe_scores kernel, a later slice of the port")
+    if cfg.mesh.index_shards > 1:
+        raise NotImplementedError("INDEX_SHARDS>1 needs the sharded flat index, "
+                                  "the multi-GPU slice of the port")
+    if cfg.mesh.encode_dp > 1:
+        raise NotImplementedError("ENCODE_DP>1 needs data-parallel encode, "
+                                  "the multi-GPU slice of the port")
+    if cfg.llm.provider == "local":
+        raise NotImplementedError("LLM_PROVIDER=local needs the on-device decoder "
+                                  "(causal_flash_prefill), a later slice of the port")
+    if device.type == "cuda" and cfg.index.dtype == "int8":
+        raise NotImplementedError("INDEX_DTYPE=int8 on the GPU needs the "
+                                  "bucketed_topk_fused kernel, a later slice of the port")
+
+
+def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkConfig,
+                   device: torch.device):
+    if path and Path(path).exists():
+        try:
+            enc = Encoder.from_pretrained(
+                path, pooling=pooling,
+                batch_size=cfg.encoders.encode_batch_size,
+                max_seq_len=cfg.encoders.max_seq_len,
+                device=device)
+            log.info("encoder %s: loaded checkpoint from %s", name, path)
+            return enc
+        except FileNotFoundError as e:
+            log.warning("encoder %s: %s", name, e)
+    log.warning("encoder %s: no usable checkpoint; using deterministic "
+                "lexical fallback encoder", name)
+    return HashingEncoder(dim=384, salt=hash(name) & 0xFFFF)
+
+
+@dataclass
+class Runtime:
+    config: FrameworkConfig
+    dual_encoder: DualEncoder
+    indexes: Dict[str, FlatIndex]
+    parent_store: ParentStore
+    child_meta: ChildMetaStore
+    feedback_db: FeedbackDatabase
+    pipeline: IngestionPipeline
+    hybrid: HybridRetriever
+    dense_retriever: ParentContextRetriever
+    engine: RAGEngine
+    ledger: ProcessingLedger
+    device: torch.device
+    # serializes whole index checkpoints (save_indexes docstring)
+    _save_lock: threading.Lock = field(default_factory=threading.Lock,
+                                       init=False, repr=False)
+
+    @classmethod
+    def build(cls, config: Optional[FrameworkConfig] = None,
+              data_dir: str | Path = ".", device: DeviceLike = None) -> "Runtime":
+        """``device``: the argument, else FRAG_PLATFORM (``cpu``), else
+        ``cuda``; a CUDA device without CUDA raises."""
+        device = resolve_device(device)
+        cfg = config or FrameworkConfig.from_env()
+        check_supported(cfg, device)
+        data_dir = Path(data_dir)
+        data_dir.mkdir(parents=True, exist_ok=True)
+        if cfg.serving.microbatch:
+            log.info("cross-request micro-batching is not ported yet: the port "
+                     "serves each request on its own (what the JAX batcher does "
+                     "below %d concurrent requests)", cfg.serving.microbatch_direct)
+
+        encoders = {
+            "baai": _build_encoder("baai", cfg.encoders.baai_path, "cls", cfg, device),
+            "gte": _build_encoder("gte", cfg.encoders.gte_path, "mean", cfg, device),
+        }
+        embed_cache = EmbeddingCache(max_items=4096)
+        dual = DualEncoder(encoders, fused_weights=cfg.encoders.fused_weights,
+                           cache=embed_cache)
+
+        persist = data_dir / cfg.index.persist_dir
+        index_dtype = STR_TO_DTYPE.get(cfg.index.dtype, torch.bfloat16)
+        indexes: Dict[str, FlatIndex] = {}
+        for name in dual.names:
+            coll = collection_slug(getattr(cfg.encoders, f"{name}_name", name))
+            dim = getattr(encoders[name], "dim", cfg.index.dim)
+            if (persist / f"{coll}.npz").exists():
+                indexes[name] = FlatIndex.load(persist, name=coll, dtype=index_dtype,
+                                               device=device)
+                log.info("index %s: reloaded %d vectors", coll, indexes[name].count())
+            else:
+                # capacity=0 (auto): start at one kernel tile and double on
+                # demand — the sweep streams the WHOLE allocation
+                cap = cfg.index.capacity or 1024
+                indexes[name] = FlatIndex(dim=dim, capacity=cap, dtype=index_dtype,
+                                          name=coll, device=device)
+
+        parent_store = ParentStore(data_dir / cfg.store.parents_db_path)
+        child_meta = ChildMetaStore(data_dir / "children_meta.db")
+        feedback_db = FeedbackDatabase(data_dir / cfg.store.feedback_db_path,
+                                       cache_ttl_s=cfg.serving.result_cache_ttl_s)
+        llm = get_provider(cfg.llm)
+
+        reranker_model = None
+        if cfg.rerank.enabled and cfg.rerank.model_path and Path(cfg.rerank.model_path).exists():
+            try:
+                reranker_model = CrossEncoderModel.from_pretrained(cfg.rerank.model_path,
+                                                                   device=device)
+                log.info("reranker: loaded %s", cfg.rerank.model_path)
+            except (FileNotFoundError, ValueError) as e:
+                log.warning("reranker unavailable (%s); falling back to retrieval sort", e)
+        reranker = CrossEncoderReranker(reranker_model, cfg.rerank)
+
+        pipeline = IngestionPipeline(
+            dual, parent_store, child_meta, indexes,
+            llm=llm,
+            chunk_logs_dir=data_dir / cfg.ingest.chunk_logs_dir,
+            chunk_context_enabled=cfg.llm.chunk_context_enabled)
+        hybrid = HybridRetriever(dual, indexes, child_meta,
+                                 fusion_cfg=cfg.fusion, retrieval_cfg=cfg.retrieval, llm=llm)
+        dense = ParentContextRetriever(dual, indexes, parent_store, child_meta,
+                                       rrf_k=cfg.fusion.rrf_k)
+        engine = RAGEngine(hybrid, parent_store, reranker, llm, config=cfg,
+                           feedback_db=feedback_db,
+                           tracer=QueryTracer(data_dir / cfg.store.trace_dir))
+        ledger = ProcessingLedger(data_dir / cfg.ingest.state_path)
+
+        return cls(config=cfg, dual_encoder=dual, indexes=indexes,
+                   parent_store=parent_store, child_meta=child_meta,
+                   feedback_db=feedback_db, pipeline=pipeline, hybrid=hybrid,
+                   dense_retriever=dense, engine=engine, ledger=ledger, device=device)
+
+    def save_indexes(self, data_dir: str | Path = ".") -> None:
+        # serialize whole checkpoints: each FILE is atomic (persist.py);
+        # this lock makes the npz + manifest PAIR consistent
+        with self._save_lock:
+            persist = Path(data_dir) / self.config.index.persist_dir
+            for idx in self.indexes.values():
+                idx.save(persist)
+            log.info("persisted %d indexes to %s", len(self.indexes), persist)

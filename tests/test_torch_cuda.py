@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The shapes are
+the awkward ones the main path can also produce (sequence lengths and token
+counts that are not a multiple of the kernels' tiles, padded and fully
+masked rows, one-tile corpora, dead slots, exact ties), at small batch. On
+the GPU machine, where JAX is not installed, run them without the JAX test
+configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from financial_rag_tpu_torch.ops import flash_attention as fa
+from financial_rag_tpu_torch.ops import fused_ffn as ffn
+from financial_rag_tpu_torch.ops import pool_norm as pn
+from financial_rag_tpu_torch.ops import topk
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _mask(b, s):
+    """Row 0 full, row 1 padded, the last row fully masked."""
+    mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    mask[1, s // 3:] = 0
+    mask[-1] = 0
+    return mask
+
+
+def _launches_once(mod, fn):
+    before = mod.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_norm_kernel_matches_plain(gen, dtype):
+    hidden = _randn(gen, 3, 70, 384, dtype=DTYPES[dtype])
+    mask = _mask(3, 70)
+    out = _launches_once(pn, lambda: pn.masked_mean_l2_normalize(hidden, mask))
+    ref = pn.masked_mean_l2_normalize_plain(hidden, mask)
+    assert out.dtype == torch.float32 and out.shape == (3, 384)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 100, 512])
+def test_flash_attention_kernel_matches_plain(gen, s):
+    """bf16, so 3e-2 on O(1) outputs; S = 1 and 100 leave key tiles and
+    query tiles part-filled."""
+    b, h, atol = 3, 384, 3e-2
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=12))
+    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=12)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    # the fully masked row attends uniformly: the mean of v
+    torch.testing.assert_close(out[-1].float(), v[-1].float().mean(0).expand(s, h),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("b,s", [(2, 50), (8, 64), (300, 64)])
+def test_fused_ffn_kernel_matches_plain(gen, b, s):
+    """100 tokens (padded to 128) and a query batch's 512 split the I axis
+    over many blocks and sum f32 partials; 19,200 tokens fill the card with
+    one block per tile."""
+    bf16 = torch.bfloat16
+    x = _randn(gen, b, s, 384, dtype=bf16)
+    w1 = _randn(gen, 384, 1536, dtype=bf16, scale=384 ** -0.5)
+    w2 = _randn(gen, 1536, 384, dtype=bf16, scale=1536 ** -0.5)
+    b1, b2 = _randn(gen, 1536, dtype=bf16, scale=0.1), _randn(gen, 384, dtype=bf16, scale=0.1)
+    out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+    ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+    assert out.dtype == bf16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+def test_flash_attention_kernel_rejects_float32(gen):
+    x = _randn(gen, 2, 64, 384)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(x, x, x, torch.zeros(2, 64, device="cuda"), num_heads=12)
+
+
+def test_fused_ffn_kernel_rejects_float32(gen):
+    x = _randn(gen, 64, 384)
+    w1, w2 = _randn(gen, 384, 1536), _randn(gen, 1536, 384)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ffn.fused_ffn(x, w1, _randn(gen, 1536), w2, _randn(gen, 384))
+
+
+def _grid(gen, *shape):
+    """Coordinates on a 1/64 grid: every score is exact in f32 whatever the
+    summation order, so kernel and plain version must agree bit for bit."""
+    return torch.randint(-3, 4, shape, generator=gen, device="cuda").float() / 64.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["one_tile", "dead_slots", "all_dead", "ties", "uneven_groups"])
+def test_packed_topk_kernel_matches_plain_exactly(gen, case, dtype):
+    """uneven_groups: 13 tiles and 100 queries sweep in 7 tile groups, the
+    last one short."""
+    n = {"one_tile": 1024, "uneven_groups": 13 * 1024}.get(case, 4096)
+    q, x = _grid(gen, 100 if case == "uneven_groups" else 5, 384), _grid(gen, n, 384)
+    valid = torch.ones(n, device="cuda")
+    if case == "dead_slots":
+        valid[torch.randperm(n, generator=gen, device="cuda")[:1500]] = 0.0
+    if case == "all_dead":
+        valid.zero_()
+    if case == "ties":
+        x[1024:2048] = x[:1024]
+        x[70] = x[5]
+    x = x.to(DTYPES[dtype])
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24))
+    ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, 24)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+    if case == "all_dead":
+        assert (out_i == -1).all()
+
+
+def test_packed_topk_kernel_on_unit_vectors(gen):
+    """Real-valued scores: the f32 dot order differs from the plain
+    version's, so ids may swap only between scores within one quantum."""
+    n = 8192
+    x = _randn(gen, n, 384)
+    x = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    q = _randn(gen, 70, 384)                          # 70 queries: padded to 128
+    q = q / q.norm(dim=1, keepdim=True)
+    valid = torch.ones(n, device="cuda")
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24))
+    ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, 24)
+    quantum = 2.0 ** (3 - 22)                         # 8 tiles -> bits = 3
+    same = out_i == ref_i
+    assert same.float().mean().item() >= 0.99
+    assert (out_s - ref_s).abs().max().item() <= quantum + 1e-3

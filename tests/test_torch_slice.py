@@ -1,0 +1,187 @@
+"""The port's served path end to end against the JAX package's.
+
+Both ``Runtime.build``s get the same small checkpoint directories and ingest
+the same Marker-JSON corpus; every golden question must come back with the
+same child texts in the same order and the same answer. Texts, not ids, are
+compared: child ids are clock-based snowflakes.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from financial_rag_tpu.config import FrameworkConfig as JaxFrameworkConfig
+from financial_rag_tpu.config import ModelConfig as JaxModelConfig
+from financial_rag_tpu.models import checkpoint as jckpt
+from financial_rag_tpu.runtime import Runtime as JaxRuntime
+from financial_rag_tpu_torch.config import FrameworkConfig
+from financial_rag_tpu_torch.models.encoder import Encoder
+from financial_rag_tpu_torch.runtime import Runtime, check_supported
+
+torch.set_num_threads(2)
+
+CORPUS = {
+    "lease_2022": (
+        "LEASE DEED executed between M/s Bhartiya Enterprises (the Lessor) and "
+        "Acme Trading Pvt Ltd (the Lessee). The monthly rent for the first year "
+        "shall be Rs 40,000. The monthly rent for the second year shall be "
+        "Rs 42,800. The lock-in period under this lease is 36 months from the "
+        "commencement date of 1 April 2022. A security deposit of Rs 2,40,000 "
+        "is payable on signing. " * 2
+    ),
+    "invoice_cn24": (
+        "TAX INVOICE / CREDIT NOTE No. CN/24 dated 30-Jul-22 issued by Bhartiya "
+        "Enterprises, Chakulia. Taxable value Rs 2,15,625. CGST at 9 percent: "
+        "Rs 19,406.25. SGST at 9 percent: Rs 19,406.25. Total invoice amount "
+        "Rs 2,54,434 rounded. GSTIN 20AAIPL4886F1ZQ. " * 2
+    ),
+    "salary_memo": (
+        "INTERNAL MEMO: the annual appraisal cycle concludes in March. Salary "
+        "revisions take effect from 1 April. The travel reimbursement cap is "
+        "Rs 3,500 per trip for domestic travel and requires manager approval. " * 3
+    ),
+    "insurance_policy": (
+        "FIRE INSURANCE POLICY No. FI-9981 covering the warehouse at Chakulia. "
+        "The sum insured is Rs 75,00,000. The annual premium is Rs 82,500 "
+        "payable before 15 June each year. The policy excludes flood damage. " * 2
+    ),
+    "utility_bills": (
+        "ELECTRICITY STATEMENT for March: units consumed 12,480, amount payable "
+        "Rs 1,12,320 by the due date of 21 April. Late payment surcharge is 1.5 "
+        "percent per month. Meter number JH-40213. " * 3
+    ),
+}
+
+GOLDEN = [
+    "What is the rent for the second year?",
+    "What is the lock-in period of the lease?",
+    "Who is the lessor?",
+    "What is the total invoice amount on the credit note?",
+    "What is the CGST amount?",
+    "What is the sum insured under the fire policy?",
+    "What is the annual premium for the insurance?",
+    "What is the travel reimbursement cap per trip?",
+    "How many electricity units were consumed in March?",
+]
+
+SMALL = dict(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+             vocab_size=30522, max_position=512)
+
+
+def _write_checkpoint(d, seed, classifier=False):
+    d.mkdir(parents=True)
+    cfg = JaxModelConfig(**SMALL, num_labels=1 if classifier else 0)
+    raw = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+           "intermediate_size": 128, "vocab_size": 30522, "max_position_embeddings": 512,
+           "type_vocab_size": 2, "layer_norm_eps": 1e-12}
+    if classifier:
+        raw.update(architectures=["BertForSequenceClassification"], id2label={"0": "LABEL_0"})
+    (d / "config.json").write_text(json.dumps(raw))
+    jckpt.save_params_npz(jckpt.random_params(cfg, seed=seed), d / "model.npz")
+
+
+def _config(cls, ckpt):
+    cfg = cls()
+    cfg.encoders.baai_path = str(ckpt / "bge")
+    cfg.encoders.gte_path = str(ckpt / "gte")
+    cfg.rerank.model_path = str(ckpt / "ce")
+    cfg.serving.microbatch = False
+    cfg.llm.provider = "gemini"
+    cfg.llm.gemini_api_key = None
+    return cfg
+
+
+def _ingest(rt, src):
+    for doc_id in CORPUS:
+        f = src / f"{doc_id}.json"
+        out = rt.pipeline.ingest_extracted_json(f, doc_id, source_path=str(f),
+                                                source_mtime=0.0)
+        assert "error" not in out and out["children"] > 0
+
+
+@pytest.fixture(scope="module")
+def runtimes(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice")
+    mp = pytest.MonkeyPatch()
+    mp.delenv("FRAG_PLATFORM", raising=False)
+    mp.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp / "jax_cache"))
+    ckpt = tmp / "ckpt"
+    _write_checkpoint(ckpt / "bge", seed=1)
+    _write_checkpoint(ckpt / "gte", seed=2)
+    _write_checkpoint(ckpt / "ce", seed=3, classifier=True)
+    src = tmp / "src"
+    src.mkdir()
+    for doc_id, text in CORPUS.items():
+        (src / f"{doc_id}.json").write_text(json.dumps({"blocks": [{"content": text, "page": 0}]}))
+    jrt = JaxRuntime.build(_config(JaxFrameworkConfig, ckpt), data_dir=tmp / "jax")
+    trt = Runtime.build(_config(FrameworkConfig, ckpt), data_dir=tmp / "port", device="cpu")
+    _ingest(jrt, src)
+    _ingest(trt, src)
+    yield jrt, trt
+    mp.undo()
+
+
+def test_port_runtime_loads_real_encoders_and_reranker(runtimes):
+    _, trt = runtimes
+    assert all(isinstance(e, Encoder) for e in trt.dual_encoder.encoders.values())
+    assert trt.engine.reranker.model is not None
+    assert trt.device == torch.device("cpu")
+    assert {i.backend for i in trt.indexes.values()} == {"xla"}
+
+
+@pytest.mark.parametrize("question", GOLDEN)
+def test_same_children_and_answer_as_jax(runtimes, question):
+    jrt, trt = runtimes
+    jout = jrt.engine.query(question)
+    tout = trt.engine.query(question)
+    assert jout["success"] and tout["success"]
+    jtexts = [c["text"] for c in jout["top_children_chunks"]]
+    ttexts = [c["text"] for c in tout["top_children_chunks"]]
+    assert ttexts and ttexts == jtexts
+    assert tout["answer"] == jout["answer"]
+    assert tout["query_strategy"] == jout["query_strategy"]
+    # rerank scores where the strategy reranks ("Aggregation" keeps the order)
+    jscores = [c.get("final_rerank_score") for c in jout["top_children_chunks"]]
+    tscores = [c.get("final_rerank_score") for c in tout["top_children_chunks"]]
+    assert [s is None for s in tscores] == [s is None for s in jscores]
+    if jscores[0] is not None:
+        np.testing.assert_allclose(tscores, jscores, atol=1e-3)
+
+
+def test_build_without_device_needs_cuda(tmp_path, monkeypatch):
+    monkeypatch.delenv("FRAG_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runtime.build(FrameworkConfig(), data_dir=tmp_path / "d")
+    assert not (tmp_path / "d").exists()
+
+
+def test_frag_platform_cpu_selects_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("FRAG_PLATFORM", "cpu")
+    cfg = FrameworkConfig()
+    cfg.encoders.baai_path = cfg.encoders.gte_path = cfg.rerank.model_path = None
+    rt = Runtime.build(cfg, data_dir=tmp_path)
+    assert rt.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("field,value,needle", [
+    ("index.dtype", "int8", "bucketed_topk_fused"),
+    ("index.kind", "ivf", "probe_scores"),
+    ("mesh.index_shards", 4, "sharded"),
+    ("mesh.encode_dp", 2, "data-parallel"),
+    ("llm.provider", "local", "causal_flash_prefill"),
+])
+def test_unported_configurations_raise_on_cuda(field, value, needle):
+    cfg = FrameworkConfig()
+    group, name = field.split(".")
+    setattr(getattr(cfg, group), name, value)
+    with pytest.raises(NotImplementedError, match=needle):
+        check_supported(cfg, torch.device("cuda"))
+
+
+def test_int8_index_is_served_on_the_cpu():
+    cfg = FrameworkConfig()
+    cfg.index.dtype = "int8"
+    check_supported(cfg, torch.device("cpu"))
