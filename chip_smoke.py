@@ -10,24 +10,37 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel).
-3. kernel  -- every kernel of the served path at its main-path shapes,
-              against its plain PyTorch version on the same inputs, with its
-              time, the plain version's, the library call's where one PyTorch
-              call computes the same function, and its bound (the larger of
-              bytes at 3.35 TB/s and operations at the peak rate of their
-              type).
+3. kernel  -- every kernel (K1-K8) at its main-path shapes, against its
+              plain PyTorch version on the same inputs, with its time, the
+              plain version's, the library call's where one PyTorch call
+              computes the same function, and its bound (the larger of bytes
+              at 3.35 TB/s and operations at the peak rate of their type).
 4. slice   -- full-width seeded random checkpoints (bge-small, gte-small,
               MiniLM-L-6 cross-encoder) are written to a temporary data dir;
-              Runtime.build(device="cuda") ingests a seeded Marker-JSON
-              corpus of >= 2,048 children and answers the 9 golden questions
-              through RAGEngine.query. Every launch counter is set to 0 just
-              before and read just after: each kernel must have run.
+              Runtime.build(device="cuda") (flat bf16 indexes) ingests a
+              seeded Marker-JSON corpus of >= 2,048 children and answers the
+              9 golden questions through RAGEngine.query.
 5. profile -- the golden questions, reworded past the caches, once more
               under torch.profiler: device busy and idle share, device time
               by kernel, and the package's host spans.
-6. parity  -- 16 corpus texts through the same weights on the CPU (plain
+6. ivf     -- the same checkpoints and corpus through Runtime.build with
+              INDEX_KIND=ivf (planned capacity 131,072 -> nlist 1,024,
+              list_size 256, nprobe 64): ingest, the 9 golden questions, then
+              tune_indexes() (IVF_AUTOTUNE_RECALL=0.9, sample 32); profiled
+              like phase 5.
+7. int8    -- the flat runtime's indexes are saved and its data dir copied;
+              Runtime.build there with INDEX_DTYPE=int8 reloads and
+              re-quantizes them and answers the 9 golden questions.
+8. backends -- the saved flat index loaded with backend pallas_exact and
+              pallas_bucketed (bf16) and pallas_fused (bf16 and int8): the
+              golden questions' query vectors through K6, K7, K4 and K5,
+              each against its plain version, with recall@24 against K6.
+9. parity  -- 16 corpus texts through the same weights on the CPU (plain
               versions, f32) against the card's bf16 embeddings and logits.
-7. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+10. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+
+Each path (phases 4, 6, 7, 8) sets every launch counter to 0 just before it
+and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
 available, or when the port's package is not beside this file.
@@ -36,6 +49,7 @@ available, or when the port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import shutil
@@ -48,7 +62,7 @@ import traceback
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 GOLDEN_CORPUS = {
     "lease_2022": (
@@ -119,7 +133,20 @@ KERNELS = {
                   "financial_rag_tpu/ops/fused_ffn.py:24"),
     "packed_topk_fused": ("financial_rag_tpu_torch/csrc/packed_topk.cu",
                           "financial_rag_tpu/ops/topk.py:297"),
+    "bucketed_topk_fused": ("financial_rag_tpu_torch/csrc/bucketed_topk.cu",
+                            "financial_rag_tpu/ops/topk.py:200"),
+    "topk_matmul": ("financial_rag_tpu_torch/csrc/topk_exact.cu",
+                    "financial_rag_tpu/ops/topk.py:109"),
+    "bucketed_topk": ("financial_rag_tpu_torch/csrc/bucketed_topk.cu",
+                      "financial_rag_tpu/ops/topk.py:180"),
+    "probe_scores": ("financial_rag_tpu_torch/csrc/ivf_probe.cu",
+                     "financial_rag_tpu/ops/ivf_probe.py:41"),
 }
+TOPK_KERNELS = ("packed_topk_fused", "bucketed_topk_fused", "topk_matmul", "bucketed_topk")
+# the kernels each served path must launch
+FLAT_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused")
+IVF_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "probe_scores")
+INT8_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "bucketed_topk_fused")
 
 
 def emit(obj) -> None:
@@ -128,6 +155,34 @@ def emit(obj) -> None:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def _counter_modules():
+    from financial_rag_tpu_torch.ops import flash_attention, fused_ffn, ivf_probe, pool_norm, topk
+
+    return {"masked_mean_l2_normalize": pool_norm, "flash_attention": flash_attention,
+            "fused_ffn": fused_ffn, "probe_scores": ivf_probe,
+            **{name: topk for name in TOPK_KERNELS}}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0 (the sweeps of ops/topk.py count in
+    one Counter, keyed by wrapper name)."""
+    for name, mod in _counter_modules().items():
+        if name in TOPK_KERNELS:
+            mod.LAUNCHES[name] = 0
+        else:
+            mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {name: (mod.LAUNCHES[name] if name in TOPK_KERNELS else mod.LAUNCHES)
+            for name, mod in _counter_modules().items()}
+
+
+def check_path_launched(path: tuple, launches: dict, what: str) -> None:
+    missing = [k for k in path if launches[k] <= 0]
+    check(not missing, f"{what}: kernels never launched: {missing} ({launches})")
 
 
 def check(cond: bool, what: str) -> None:
@@ -216,12 +271,6 @@ def kernel_cases(torch, F, seed):
             mask[-1] = 0
         return mask
 
-    def max_abs(tol):
-        def cmp(a, b):
-            err = (a.float() - b.float()).abs().max().item()
-            return err, err <= tol, {"tol": tol}
-        return cmp
-
     cases = []
     for b, s in ((256, 512), (8, 64)):
         hidden = randn(b, s, H, dtype=bf16)
@@ -230,7 +279,7 @@ def kernel_cases(torch, F, seed):
         cases.append(("masked_mean_l2_normalize", f"B={b},S={s},H={H},bf16",
                       lambda h=hidden, m=mask: pn.masked_mean_l2_normalize(h, m),
                       lambda h=hidden, m=mask: pn.masked_mean_l2_normalize_plain(h, m),
-                      None, max_abs(1e-5),
+                      None, max_abs_cmp(1e-5),
                       bound(live * H * 2 + b * s * 4 + b * H * 4, 2 * live * H, "f32")))
 
     for b, s in ((256, 512), (8, 64), (32, 256)):
@@ -247,7 +296,7 @@ def kernel_cases(torch, F, seed):
         cases.append(("flash_attention", f"B={b},S={s},H={H},heads={NH},bf16",
                       lambda q=q, k=k, v=v, bias=bias: fa.flash_attention(q, k, v, bias, num_heads=NH),
                       lambda q=q, k=k, v=v, bias=bias: fa.flash_attention_plain(q, k, v, bias, num_heads=NH),
-                      sdpa, max_abs(3e-2),
+                      sdpa, max_abs_cmp(3e-2),
                       bound(4 * b * s * H * 2 + b * s * 4, 4 * b * NH * s * s * hd, "bf16")))
 
     w1, w2 = randn(H, I, dtype=bf16, scale=H ** -0.5), randn(I, H, dtype=bf16, scale=0.012)
@@ -258,7 +307,7 @@ def kernel_cases(torch, F, seed):
         cases.append(("fused_ffn", f"N={n} (B={b},S={s}),H={H},I={I},bf16",
                       lambda x=x: ffn.fused_ffn(x, w1, b1, w2, b2),
                       lambda x=x: ffn.fused_ffn_plain(x, w1, b1, w2, b2),
-                      None, max_abs(3e-2),
+                      None, max_abs_cmp(3e-2),
                       bound(2 * n * H * 2 + (2 * H * I + I + H) * 2, 4 * n * H * I, "bf16")))
 
     def topk_cmp(bits, exact=False):
@@ -310,7 +359,136 @@ def kernel_cases(torch, F, seed):
                   lambda: topk.packed_topk_fused_plain(queries, x, valid, k),
                   None, topk_cmp(4, exact=True),
                   bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
+    cases += sweep_cases(torch, gen, randn)
+    cases += probe_cases(torch, gen, randn)
     return cases
+
+
+def sweep_cmp(exact: bool):
+    """Exact (int8, exact-grid data): ids and scores bit-identical. Real
+    bf16 scores sum in another f32 order than the plain version's, so >=
+    99.9% of ids identical and every differing pair within 1e-5 in score."""
+    def cmp(a, b):
+        (ks, ki), (ps, pi) = a, b
+        same = ki == pi
+        frac = same.float().mean().item()
+        diff = (ks - ps).abs()
+        err = diff.max().item()
+        worst = diff[~same].max().item() if (~same).any() else 0.0
+        ok = (frac == 1.0 and err == 0.0) if exact else (frac >= 0.999 and worst <= 1e-5)
+        return err, ok, {"ids_identical": frac, "worst_differing_pair": worst, "exact": exact}
+    return cmp
+
+
+def quantize_rows(torch, v):
+    """The index's int8 storage: per-row max-abs quantization, weight max/127."""
+    m = v.abs().amax(dim=1).clamp_min(1e-12)
+    return torch.round(v * (127.0 / m[:, None])).clamp(-127, 127).to(torch.int8), m / 127.0
+
+
+def sweep_cases(torch, gen, randn):
+    """K5, K6, K7 at the JAX package's bench shape (Bq=128, N=102,400, D=384,
+    k=24), K6 int8 at N=16,384, and one exact-grid case with duplicated rows
+    for each."""
+    from financial_rag_tpu_torch.ops import topk
+
+    dev = torch.device("cuda")
+    bq, d, k = 128, 384, 24
+    fns = {"bucketed_topk_fused": (topk.bucketed_topk_fused, topk.bucketed_topk_fused_plain),
+           "topk_matmul": (topk.topk_matmul, topk.topk_matmul_plain),
+           "bucketed_topk": (topk.bucketed_topk, topk.bucketed_topk_plain)}
+    queries = randn(bq, d)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    corpora = {}
+
+    def corpus(n, label):
+        if (n, label) not in corpora:
+            v = randn(n, d)
+            v = v / v.norm(dim=1, keepdim=True)
+            live = (torch.rand(n, generator=gen, device=dev) > 0.03).float()
+            if label == "int8":
+                x, w = quantize_rows(torch, v)
+                corpora[(n, label)] = (x, w * live)
+            else:
+                corpora[(n, label)] = (v.to(torch.bfloat16), live)
+        return corpora[(n, label)]
+
+    def case(name, n, label):
+        x, valid = corpus(n, label)
+        run, plain = fns[name]
+        esize, op = (1, "int8") if label == "int8" else (2, "bf16")
+        return (name, f"Bq={bq},N={n},D={d},k={k},{label}",
+                lambda: run(queries, x, valid, k), lambda: plain(queries, x, valid, k),
+                None, sweep_cmp(exact=label == "int8"),
+                bound(n * d * esize + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, op))
+
+    cases = [case("bucketed_topk_fused", 102400, "int8"),
+             case("bucketed_topk_fused", 102400, "bf16"),
+             case("topk_matmul", 102400, "bf16"),
+             case("topk_matmul", 16384, "int8"),
+             case("bucketed_topk", 102400, "bf16"),
+             case("bucketed_topk", 102400, "int8")]
+    corpora.clear()
+
+    # exact-grid data with repeated rows and dead slots: every score and tie
+    # is exact, so each kernel must reproduce its plain version bit for bit
+    n = 16384
+    xg = torch.randint(-3, 4, (n, d), generator=gen, device=dev).float() / 64.0
+    xg[4096:8192] = xg[:4096]
+    xg[9000] = xg[5]
+    xg = xg.to(torch.bfloat16)
+    qg = torch.randint(-3, 4, (bq, d), generator=gen, device=dev).float() / 64.0
+    vg = (torch.rand(n, generator=gen, device=dev) > 0.1).float()
+    for name, (run, plain) in fns.items():
+        cases.append((name, f"Bq={bq},N={n},D={d},k={k},bf16,exact-grid+ties",
+                      lambda run=run: run(qg, xg, vg, k), lambda plain=plain: plain(qg, xg, vg, k),
+                      None, sweep_cmp(exact=True),
+                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
+    return cases
+
+
+def probe_cases(torch, gen, randn):
+    """K8 at the JAX package's IVF bench shape (nlist 2,048 x L 256 x D 384 =
+    262,144 vectors): B=8 P=64 (a served request: 3 query variants padded
+    to 8 rows), B=16 P=4 and P=64, in bf16 and int8. Probes are distinct
+    random lists per query; the bound counts each distinct list once."""
+    from financial_rag_tpu_torch.ops import ivf_probe
+
+    dev = torch.device("cuda")
+    nlist, L, d = 2048, 256, 384
+    cases = []
+    for label in ("bf16", "int8"):
+        v = randn(nlist * L, d)
+        v = v / v.norm(dim=1, keepdim=True)
+        live = (torch.rand(nlist * L, generator=gen, device=dev) > 0.1).float()
+        if label == "int8":
+            st, w = quantize_rows(torch, v)
+            w = w * live
+        else:
+            st, w = v.to(torch.bfloat16), live
+        st, w = st.view(nlist, L, d), w.view(nlist, L)
+        esize, op = (1, "int8") if label == "int8" else (2, "bf16")
+        for b, p in ((8, 64), (16, 4), (16, 64)):
+            q = randn(b, d)
+            q = (q / q.norm(dim=1, keepdim=True))
+            q = quantize_rows(torch, q)[0] if label == "int8" else q.to(torch.bfloat16)
+            probes = torch.rand(b, nlist, generator=gen, device=dev).argsort(dim=1)[:, :p]
+            probes = probes.to(torch.int32).contiguous()
+            lists = int(probes.unique().numel())
+            moved = lists * L * (d * esize + 4) + b * p * L * 4 + b * d * esize + b * p * 4
+            cases.append(("probe_scores", f"B={b},P={p},nlist={nlist},L={L},D={d},{label}",
+                          lambda q=q, st=st, w=w, pr=probes: ivf_probe.probe_scores(q, st, w, pr),
+                          lambda q=q, st=st, w=w, pr=probes: ivf_probe.probe_scores_plain(q, st, w, pr),
+                          None, max_abs_cmp(1e-6 if label == "int8" else 1e-4),
+                          bound(moved, 2 * b * p * L * d, op)))
+    return cases
+
+
+def max_abs_cmp(tol):
+    def cmp(a, b):
+        err = (a.float() - b.float()).abs().max().item()
+        return err, err <= tol, {"tol": tol}
+    return cmp
 
 
 def phase_kernels(torch, F, seed):
@@ -389,25 +567,10 @@ def filler_documents(rng, n_docs: int, words_per_doc: int):
     return docs
 
 
-def phase_slice(torch, seed, work: Path):
+def write_corpus(work: Path, seed: int):
+    """The golden documents and 22 seeded filler documents as Marker JSON;
+    returns [(path, doc_id)]."""
     import numpy as np
-
-    from financial_rag_tpu_torch.config import FrameworkConfig
-    from financial_rag_tpu_torch.models.encoder import Encoder
-    from financial_rag_tpu_torch.ops import flash_attention as fa
-    from financial_rag_tpu_torch.ops import fused_ffn as ffn
-    from financial_rag_tpu_torch.ops import pool_norm as pn
-    from financial_rag_tpu_torch.ops import topk
-    from financial_rag_tpu_torch.runtime import Runtime
-
-    t0 = time.perf_counter()
-    paths = write_checkpoints(work / "models", seed)
-    os.environ["EMBED_BAAI_PATH"] = str(paths["bge-small"])
-    os.environ["EMBED_GTE_PATH"] = str(paths["gte-small"])
-    os.environ["CROSS_ENCODER_PATH"] = str(paths["minilm-l6-ce"])
-    cfg = FrameworkConfig.from_env()
-    cfg.llm.gemini_api_key = None              # NullLLM: no network
-    checkpoints_s = time.perf_counter() - t0
 
     src = work / "extracted"
     src.mkdir()
@@ -420,21 +583,10 @@ def phase_slice(torch, seed, work: Path):
         f = src / f"{doc_id}.json"
         f.write_text(json.dumps(doc))
         items.append((f, doc_id))
+    return items
 
-    counters = {"masked_mean_l2_normalize": pn, "flash_attention": fa, "fused_ffn": ffn,
-                "packed_topk_fused": topk}
-    for mod in counters.values():
-        mod.LAUNCHES = 0
 
-    t_build = time.perf_counter()
-    rt = Runtime.build(cfg, data_dir=work / "data", device="cuda")
-    build_s = time.perf_counter() - t_build
-    check(all(isinstance(e, Encoder) for e in rt.dual_encoder.encoders.values()),
-          "an encoder fell back to the lexical HashingEncoder")
-    check(rt.engine.reranker.model is not None, "the cross-encoder did not load")
-    check(all(i.backend == "pallas_fused" for i in rt.indexes.values()),
-          "an index is not on the packed sweep")
-
+def ingest_all(rt, items):
     t_ingest = time.perf_counter()
     results = rt.pipeline.ingest_paths(items)
     rt.pipeline.flush()
@@ -444,8 +596,13 @@ def phase_slice(torch, seed, work: Path):
     children = sum(r["children"] for r in results)
     check(children >= MIN_CHILDREN, f"only {children} children ingested")
     check(all(i.count() == children for i in rt.indexes.values()), "index counts differ")
-    ingest_launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    return children, ingest_s
 
+
+def golden_queries(rt, what: str):
+    """The 9 golden questions through RAGEngine.query: each must succeed with
+    children, none from the result cache, and the rerank must reach the
+    cross-encoder without falling back. Returns (query ms, answers)."""
     methods = []
     rerank = rt.engine.reranker.rerank_chunks
 
@@ -456,20 +613,56 @@ def phase_slice(torch, seed, work: Path):
 
     rt.engine.reranker.rerank_chunks = recording_rerank
     query_ms, answers = [], []
-    for question in GOLDEN_QUESTIONS:
-        tq = time.perf_counter()
-        out = rt.engine.query(question)
-        query_ms.append((time.perf_counter() - tq) * 1e3)
-        check(out.get("success") is True, f"query failed: {question!r}: {out.get('answer')}")
-        check(out["top_children_chunks"], f"no children for {question!r}")
-        answers.append(out)
-    check("fallback-uniform" not in methods, "the rerank fell back to uniform scores")
-    check(any(m in CROSS_ENCODER_METHODS for m in methods), "no query reached the cross-encoder")
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    try:
+        for question in GOLDEN_QUESTIONS:
+            tq = time.perf_counter()
+            out = rt.engine.query(question)
+            query_ms.append((time.perf_counter() - tq) * 1e3)
+            check(out.get("success") is True,
+                  f"{what}: query failed: {question!r}: {out.get('answer')}")
+            check(out["top_children_chunks"], f"{what}: no children for {question!r}")
+            check(not out.get("cache_hit"), f"{what}: {question!r} came from the result cache")
+            answers.append(out)
+    finally:
+        rt.engine.reranker.rerank_chunks = rerank
+    check("fallback-uniform" not in methods, f"{what}: the rerank fell back to uniform scores")
+    check(any(m in CROSS_ENCODER_METHODS for m in methods),
+          f"{what}: no query reached the cross-encoder")
+    return query_ms, answers, sorted({str(m) for m in methods})
+
+
+def phase_slice(torch, seed, work: Path):
+    from financial_rag_tpu_torch.config import FrameworkConfig
+    from financial_rag_tpu_torch.models.encoder import Encoder
+    from financial_rag_tpu_torch.runtime import Runtime
+
+    t0 = time.perf_counter()
+    paths = write_checkpoints(work / "models", seed)
+    os.environ["EMBED_BAAI_PATH"] = str(paths["bge-small"])
+    os.environ["EMBED_GTE_PATH"] = str(paths["gte-small"])
+    os.environ["CROSS_ENCODER_PATH"] = str(paths["minilm-l6-ce"])
+    cfg = FrameworkConfig.from_env()
+    cfg.llm.gemini_api_key = None              # NullLLM: no network
+    checkpoints_s = time.perf_counter() - t0
+    items = write_corpus(work, seed)
+
+    reset_launches()
+    t_build = time.perf_counter()
+    rt = Runtime.build(cfg, data_dir=work / "data", device="cuda")
+    build_s = time.perf_counter() - t_build
+    check(all(isinstance(e, Encoder) for e in rt.dual_encoder.encoders.values()),
+          "an encoder fell back to the lexical HashingEncoder")
+    check(rt.engine.reranker.model is not None, "the cross-encoder did not load")
+    check(all(i.backend == "pallas_fused" for i in rt.indexes.values()),
+          "an index is not on the packed sweep")
+
+    children, ingest_s = ingest_all(rt, items)
+    ingest_launches = read_launches()
+    query_ms, answers, methods = golden_queries(rt, "flat bf16")
+    launches = read_launches()
+    check_path_launched(FLAT_PATH, launches, "flat bf16 path")
     query_launches = {name: launches[name] - ingest_launches[name] for name in launches}
-    check(all(v > 0 for v in query_launches.values()),
-          f"a kernel never launched on the query path: {query_launches}")
+    check_path_launched(FLAT_PATH, query_launches, "flat bf16 query path")
 
     emit({"phase": "slice", "children": children, "documents": len(items),
           "index_capacity": rt.indexes["baai"].capacity,
@@ -477,17 +670,146 @@ def phase_slice(torch, seed, work: Path):
           "ingest_s": round(ingest_s, 3), "children_per_s": round(children / ingest_s, 1),
           "query_p50_ms": round(statistics.median(query_ms), 3),
           "query_max_ms": round(max(query_ms), 3), "queries": len(query_ms),
-          "reranked_methods": sorted({str(m) for m in methods}),
+          "reranked_methods": methods,
           "launches": launches, "launches_ingest": ingest_launches,
           "launches_queries": query_launches})
     texts = [c["text"] for out in answers for c in out["top_children_chunks"]]
-    return rt, paths, launches, texts
+    return rt, cfg, paths, items, launches, texts
+
+
+def phase_ivf(torch, cfg, work: Path, items):
+    """INDEX_KIND=ivf with the defaults otherwise: planned capacity 131,072
+    -> nlist 1,024, list_size 256, nprobe 64 (config.py, runtime.py)."""
+    from financial_rag_tpu_torch.index.ivf import IVFIndex
+    from financial_rag_tpu_torch.runtime import Runtime
+
+    cfg = copy.deepcopy(cfg)
+    cfg.index.kind = "ivf"
+    cfg.index.ivf_autotune_recall = 0.9
+    cfg.index.ivf_autotune_sample = 32
+    reset_launches()
+    t_build = time.perf_counter()
+    rt = Runtime.build(cfg, data_dir=work / "data_ivf", device="cuda")
+    build_s = time.perf_counter() - t_build
+    check(all(isinstance(i, IVFIndex) and i.device.type == "cuda" for i in rt.indexes.values()),
+          "an index is not an IVF index on the card")
+    shape = {n: (i.nlist, i.list_size, i.nprobe) for n, i in rt.indexes.items()}
+    check(all(v == (1024, 256, 64) for v in shape.values()), f"IVF shape {shape}")
+    children, ingest_s = ingest_all(rt, items)
+    ingest_launches = read_launches()
+    query_ms, _, methods = golden_queries(rt, "ivf")
+    launches = read_launches()
+    query_launches = {name: launches[name] - ingest_launches[name] for name in launches}
+    check_path_launched(IVF_PATH, launches, "ivf path")
+    check(query_launches["probe_scores"] > 0, f"ivf: probe_scores not on the query path "
+                                              f"({query_launches})")
+    before = launches["probe_scores"]
+    t_tune = time.perf_counter()
+    reports = rt.tune_indexes()
+    tune_s = time.perf_counter() - t_tune
+    check(set(reports) == set(rt.indexes), f"tune_indexes reported {sorted(reports)}")
+    tune_launches = read_launches()["probe_scores"] - before
+    emit({"phase": "ivf", "children": children, "ivf_shape": shape,
+          "lists_used": {n: int((i._fill > 0).sum()) for n, i in rt.indexes.items()},
+          "max_list_fill": {n: int(i._fill.max()) for n, i in rt.indexes.items()},
+          "runtime_build_s": round(build_s, 3), "ingest_s": round(ingest_s, 3),
+          "children_per_s": round(children / ingest_s, 1),
+          "query_p50_ms": round(statistics.median(query_ms), 3),
+          "query_max_ms": round(max(query_ms), 3), "queries": len(query_ms),
+          "reranked_methods": methods, "launches": launches,
+          "launches_ingest": ingest_launches, "launches_queries": query_launches,
+          "tune_s": round(tune_s, 3), "tune_probe_launches": tune_launches,
+          "tuning": {n: {k: r[k] for k in ("nprobe", "target_met", "recall_min", "queries",
+                                           "sweep", "query_source")}
+                     for n, r in reports.items()}})
+    return rt, launches
+
+
+def phase_int8(torch, rt, cfg, work: Path):
+    """The restart path: the bf16 runtime's indexes saved, its data dir
+    copied (without the feedback DB, whose result cache would answer the
+    questions), and Runtime.build there with INDEX_DTYPE=int8."""
+    from financial_rag_tpu_torch.runtime import Runtime
+
+    rt.save_indexes(work / "data")
+    shutil.copytree(work / "data", work / "data_int8",
+                    ignore=shutil.ignore_patterns("feedback.db*"))
+    cfg = copy.deepcopy(cfg)
+    cfg.index.dtype = "int8"
+    reset_launches()
+    rt8 = Runtime.build(cfg, data_dir=work / "data_int8", device="cuda")
+    check(all(i.dtype == torch.int8 and i.backend == "pallas_fused" and i.count() > 0
+              for i in rt8.indexes.values()), "the int8 runtime did not reload int8 indexes")
+    query_ms, _, methods = golden_queries(rt8, "int8")
+    launches = read_launches()
+    check_path_launched(INT8_PATH, launches, "int8 path")
+    emit({"phase": "int8", "reloaded": {n: i.count() for n, i in rt8.indexes.items()},
+          "query_p50_ms": round(statistics.median(query_ms), 3),
+          "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
+          "launches": launches})
+    return launches
+
+
+def phase_backends(torch, rt, cfg, work: Path):
+    """The saved flat (bf16) index through every backend: the golden
+    questions' query vectors through K6 (pallas_exact), K7 (pallas_bucketed),
+    K4 (pallas_fused) and K5 (pallas_fused over int8). Each kernel is held
+    to its plain version on the same inputs (ids may differ only between
+    scores within 1e-5; K5 on int8 exactly); recall@24 against K6 is
+    reported, not gated: random-weight embeddings are anisotropic."""
+    from financial_rag_tpu_torch.index.flat import FlatIndex
+    from financial_rag_tpu_torch.ingest.pipeline import collection_slug
+    from financial_rag_tpu_torch.ops import topk
+
+    persist = work / "data" / cfg.index.persist_dir
+    coll = collection_slug(getattr(cfg.encoders, "baai_name", "baai"))
+    qv = rt.dual_encoder.encoders["baai"].encode(GOLDEN_QUESTIONS)
+    variants = {"topk_matmul": dict(backend="pallas_exact"),
+                "bucketed_topk": dict(backend="pallas_bucketed"),
+                "packed_topk_fused": dict(backend="pallas_fused"),
+                "bucketed_topk_fused": dict(backend="pallas_fused", dtype=torch.int8)}
+    plains = {"topk_matmul": topk.topk_matmul_plain, "bucketed_topk": topk.bucketed_topk_plain,
+              "packed_topk_fused": topk.packed_topk_fused_plain,
+              "bucketed_topk_fused": topk.bucketed_topk_fused_plain}
+    indexes = {name: FlatIndex.load(persist, name=coll, device="cuda", **kw)
+               for name, kw in variants.items()}
+    reset_launches()
+    results = {name: idx.search(qv, 24)[0] for name, idx in indexes.items()}
+    launches = read_launches()
+    check_path_launched(tuple(variants), launches, "backends")
+    exact = results["topk_matmul"]
+    report = {}
+    for name, idx in indexes.items():
+        q = torch.from_numpy(qv).to(idx.device)
+        ks, ki = getattr(topk, name)(q, idx._vectors, idx._valid, 24)
+        ps, pi = plains[name](q, idx._vectors, idx._valid, 24)
+        same = ki == pi
+        worst = (ks - ps).abs()[~same].max().item() if (~same).any() else 0.0
+        tol = 1e-5
+        if name == "packed_topk_fused":   # K4 keeps scores to 2**(bits - 22)
+            tol += 2.0 ** (max((idx.capacity // 1024 - 1).bit_length(), 1) - 22)
+        exact_ok = name == "bucketed_topk_fused"
+        ok = (torch.equal(ki, pi) and torch.equal(ks, ps)) if exact_ok else worst <= tol
+        check(ok, f"backends: {name} differs from its plain version (worst pair {worst})")
+        recall = float(sum(len(set(a) & set(b)) / 24 for a, b in
+                           zip(results[name].tolist(), exact.tolist())) / len(exact))
+        report[name] = {"backend": idx.backend, "dtype": str(idx.dtype).replace("torch.", ""),
+                        "recall_at_24_vs_exact": recall,
+                        "ids_identical_to_plain": same.float().mean().item(),
+                        "worst_differing_pair": worst}
+    emit({"phase": "backends", "index": coll, "vectors": indexes["topk_matmul"].count(),
+          "capacity": indexes["topk_matmul"].capacity, "queries": len(qv),
+          "launches": launches, "kernels": report})
+    return launches
 
 
 def _kernel_family(name: str) -> str:
     for family, needles in (("port kernels", ("attn_fwd_kernel", "ffn_fwd_kernel",
                                               "packed_sweep_kernel", "packed_merge_kernel",
-                                              "pool_norm_kernel")),
+                                              "pool_norm_kernel", "bucketed_sweep_kernel",
+                                              "bucketed_extract_kernel", "bucketed_write_kernel",
+                                              "exact_sweep_kernel", "exact_merge_kernel",
+                                              "probe_kernel")),
                             ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                             ("copy", ("Memcpy", "Memset", "copy_"))):
         if any(n in name for n in needles):
@@ -495,7 +817,7 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def phase_profile(torch, rt):
+def phase_profile(torch, rt, label: str = "flat bf16"):
     """Where one query's time goes: the golden questions, reworded so that
     neither the result cache nor the query-embedding cache answers them, run
     once more under torch.profiler. Device busy time is the sum of the
@@ -534,10 +856,16 @@ def phase_profile(torch, rt):
     busy_ms = busy_us / 1e3
     check(busy_ms > 0, "the profiler saw no device activity")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "queries": len(questions), "wall_ms": wall_ms,
+    port = {}   # the port's kernels by bare name (no namespace, template or arguments)
+    for n, (ms, c) in by_name.items():
+        if _kernel_family(n) == "port kernels":
+            bare = n.replace("(anonymous namespace)::", "").removeprefix("void ")
+            port[bare.split("(")[0].split("<")[0]] = {"ms": ms, "calls": c}
+    emit({"phase": "profile", "runtime": label, "queries": len(questions), "wall_ms": wall_ms,
           "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
           "device_ms_by_family": families,
           "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, (ms, c) in top],
+          "port_kernel_ms": port,
           "host_span_ms": {k: v["total_s"] * 1e3 for k, v in list(spans.items())[:14]}})
 
 
@@ -607,9 +935,20 @@ def main(argv=None) -> int:
         phase_build(kernel_lib, log_dir)
         timings = phase_kernels(torch, F, args.seed)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            rt, paths, launches, texts = phase_slice(torch, args.seed, Path(tmp))
+            work = Path(tmp)
+            rt, cfg, paths, items, launches, texts = phase_slice(torch, args.seed, work)
             phase_profile(torch, rt)
+            rt_ivf, ivf_launches = phase_ivf(torch, cfg, work, items)
+            phase_profile(torch, rt_ivf, label="ivf")
+            del rt_ivf
+            int8_launches = phase_int8(torch, rt, cfg, work)
+            backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
+            # each kernel's count from the path that serves it
+            launches["bucketed_topk_fused"] = int8_launches["bucketed_topk_fused"]
+            launches["topk_matmul"] = backend_launches["topk_matmul"]
+            launches["bucketed_topk"] = backend_launches["bucketed_topk"]
+            launches["probe_scores"] = ivf_launches["probe_scores"]
     except Exception:  # noqa: BLE001 -- any failure ends the run non-zero
         traceback.print_exc()
         return 1

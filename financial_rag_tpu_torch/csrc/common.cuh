@@ -14,7 +14,7 @@
 #define FRAG_EXPORT extern "C" __attribute__((visibility("default")))
 
 // dtype codes shared with financial_rag_tpu_torch/ops/kernel_lib.py
-enum FragDtype { FRAG_F32 = 0, FRAG_BF16 = 1 };
+enum FragDtype { FRAG_F32 = 0, FRAG_BF16 = 1, FRAG_I8 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -8,11 +8,11 @@ the kernel tile and doubles on demand; persistence is an .npz of vectors +
 ids with a JSON manifest in the JAX package's format.
 
 Backends keep the JAX package's names, so manifests mean the same thing:
-``auto`` resolves to ``pallas_fused`` (the packed sweep, K4) on a CUDA
-device and to ``xla`` (the exact plain sweep) on the CPU. An int8 index on
-the packed path needs ``bucketed_topk_fused``, and ``pallas_bucketed`` /
-``pallas_exact`` need ``bucketed_topk`` / ``topk_matmul``: all three are
-later slices of the port, so those configurations raise NotImplementedError.
+``auto`` resolves to ``pallas_fused`` on a CUDA device and to ``xla`` (the
+exact plain sweep) on the CPU. ``pallas_fused`` takes the packed sweep (K4)
+for a float corpus and the bucketed sweep with the fused top-k (K5) for an
+int8 one; ``pallas_bucketed`` takes K7 and ``pallas_exact`` K6. On the CPU
+each kernel's wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -27,23 +27,20 @@ import torch
 
 from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.ops.common import round_up
-from financial_rag_tpu_torch.ops.topk import INT8_SCALE, packed_topk_fused, topk_matmul_reference
+from financial_rag_tpu_torch.ops.topk import (
+    INT8_SCALE,
+    bucketed_topk,
+    bucketed_topk_fused,
+    packed_topk_fused,
+    topk_matmul,
+    topk_matmul_reference,
+)
 from financial_rag_tpu_torch.utils import get_logger
 
 log = get_logger("index.flat")
 
 TILE = 1024  # kernel corpus tile; capacity is always a multiple
-
-_UNPORTED = {
-    "pallas_bucketed": "bucketed_topk",
-    "pallas_exact": "topk_matmul",
-}
-
-
-def _unported(what: str, kernel: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the {kernel} kernel, which is not ported to CUDA yet "
-        "(ROADMAP.md, Queue B); use INDEX_DTYPE=bfloat16/float32")
+BACKENDS = ("pallas_fused", "pallas_bucketed", "pallas_exact", "xla")
 
 
 def _encode_payload_device(v: torch.Tensor, dtype: torch.dtype):
@@ -68,7 +65,7 @@ class FlatIndex:
         capacity: int = 1 << 14,
         *,
         dtype: torch.dtype = torch.bfloat16,
-        backend: str = "auto",   # auto | pallas_fused | xla
+        backend: str = "auto",   # auto | pallas_fused | pallas_bucketed | pallas_exact | xla
         nbuckets: int = 4096,
         name: str = "children",
         device=None,
@@ -81,12 +78,8 @@ class FlatIndex:
         self.device = resolve_device(device)
         if backend == "auto":
             backend = "pallas_fused" if self.device.type == "cuda" else "xla"
-        if backend in _UNPORTED:
-            raise _unported(f"backend {backend!r}", _UNPORTED[backend])
-        if backend not in ("pallas_fused", "xla"):
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend}")
-        if backend == "pallas_fused" and dtype == torch.int8:
-            raise _unported("an int8 index on the fused sweep", "bucketed_topk_fused")
         self.backend = backend
 
         self._vectors = torch.zeros((self.capacity, dim), dtype=dtype, device=self.device)
@@ -264,9 +257,17 @@ class FlatIndex:
         self.capacity = new_cap
 
     def _dispatch(self, queries: torch.Tensor, k: int):
+        x, v = self._vectors, self._valid
         if self.backend == "pallas_fused":
-            return packed_topk_fused(queries, self._vectors, self._valid, k)
-        return topk_matmul_reference(queries, self._vectors, self._valid, k)
+            if self.dtype == torch.int8:
+                # int8 needs the per-row dequantization weight inside the dot
+                return bucketed_topk_fused(queries, x, v, k, nbuckets=self.nbuckets)
+            return packed_topk_fused(queries, x, v, k)
+        if self.backend == "pallas_bucketed":
+            return bucketed_topk(queries, x, v, k, nbuckets=self.nbuckets)
+        if self.backend == "pallas_exact":
+            return topk_matmul(queries, x, v, k)
+        return topk_matmul_reference(queries, x, v, k)
 
     # ---------------------------------------------------------- persistence
 

@@ -32,7 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +42,9 @@ _SIGNATURES = {
     "frag_fused_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "frag_packed_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    "frag_bucketed_topk": [_P] * 6 + [_I] * 8 + [_P],
+    "frag_topk_exact": [_P] * 6 + [_I] * 9 + [_P],
+    "frag_probe_scores": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,14 @@
 """Runtime factory: assemble the served stack from configuration.
 
-Counterpart of financial_rag_tpu/runtime.py for the configuration this
-slice of the port serves: one device, flat per-model indexes, the dual
-bge/gte encoders (real checkpoints when available, the deterministic
-lexical fallback otherwise), the cross-encoder rerank, the parent stores
-and the HTTP/Null LLM provider. Cross-request micro-batching, the WSGI app,
-the auto-ingest processor and the warmups are later slices; IVF, sharded
-indexes, data-parallel encode and the on-device LLM raise
-NotImplementedError.
+Counterpart of financial_rag_tpu/runtime.py for the configurations the
+port serves: one device; per-model flat indexes (bf16, f32 or int8,
+``INDEX_DTYPE``) or IVF indexes (``INDEX_KIND=ivf``, with the nprobe
+auto-tune of ``tune_indexes``); the dual bge/gte encoders (real checkpoints
+when available, the deterministic lexical fallback otherwise); the
+cross-encoder rerank; the parent stores; the HTTP/Null LLM provider.
+Cross-request micro-batching, the WSGI app, the auto-ingest processor and
+the warmups are later slices; sharded indexes, data-parallel encode and the
+on-device LLM raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from financial_rag_tpu_torch.config import FrameworkConfig
 from financial_rag_tpu_torch.device import DeviceLike, resolve_device
 from financial_rag_tpu_torch.engine import RAGEngine
 from financial_rag_tpu_torch.index.flat import FlatIndex
+from financial_rag_tpu_torch.index.ivf import IVFIndex, recommended_nlist
 from financial_rag_tpu_torch.index.persist import STR_TO_DTYPE
 from financial_rag_tpu_torch.ingest.ledger import ProcessingLedger
 from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline, collection_slug
@@ -43,11 +45,15 @@ log = get_logger("runtime")
 POOLING_BY_MODEL = {"baai": "cls", "gte": "mean"}  # true checkpoint behavior
 
 
+def _ivf_list_size(capacity: int, nlist: int) -> int:
+    """Initial posting-list size: 2x the even split of capacity, clamped to
+    [128, 4096] (lists grow on demand, so the cap only bounds the initial
+    allocation)."""
+    return min(max(capacity // max(nlist, 1) * 2, 128), 4096)
+
+
 def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
     """Raise NotImplementedError for configurations a later slice serves."""
-    if cfg.index.kind == "ivf":
-        raise NotImplementedError("INDEX_KIND=ivf needs the IVF index and the "
-                                  "probe_scores kernel, a later slice of the port")
     if cfg.mesh.index_shards > 1:
         raise NotImplementedError("INDEX_SHARDS>1 needs the sharded flat index, "
                                   "the multi-GPU slice of the port")
@@ -57,9 +63,6 @@ def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
     if cfg.llm.provider == "local":
         raise NotImplementedError("LLM_PROVIDER=local needs the on-device decoder "
                                   "(causal_flash_prefill), a later slice of the port")
-    if device.type == "cuda" and cfg.index.dtype == "int8":
-        raise NotImplementedError("INDEX_DTYPE=int8 on the GPU needs the "
-                                  "bucketed_topk_fused kernel, a later slice of the port")
 
 
 def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkConfig,
@@ -84,7 +87,7 @@ def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkC
 class Runtime:
     config: FrameworkConfig
     dual_encoder: DualEncoder
-    indexes: Dict[str, FlatIndex]
+    indexes: Dict[str, object]          # FlatIndex or IVFIndex per model
     parent_store: ParentStore
     child_meta: ChildMetaStore
     feedback_db: FeedbackDatabase
@@ -123,11 +126,24 @@ class Runtime:
 
         persist = data_dir / cfg.index.persist_dir
         index_dtype = STR_TO_DTYPE.get(cfg.index.dtype, torch.bfloat16)
-        indexes: Dict[str, FlatIndex] = {}
+        indexes: Dict[str, object] = {}
         for name in dual.names:
             coll = collection_slug(getattr(cfg.encoders, f"{name}_name", name))
             dim = getattr(encoders[name], "dim", cfg.index.dim)
-            if (persist / f"{coll}.npz").exists():
+            if cfg.index.kind == "ivf":
+                nlist = cfg.index.ivf_nlist or recommended_nlist(cfg.index.planned_capacity)
+                if (persist / f"{coll}_ivf.manifest.json").exists():
+                    indexes[name] = IVFIndex.load(persist, name=f"{coll}_ivf",
+                                                  dtype=index_dtype, device=device)
+                    log.info("ivf index %s: reloaded %d vectors", coll,
+                             indexes[name].count())
+                else:
+                    indexes[name] = IVFIndex(
+                        dim=dim, nlist=nlist,
+                        list_size=_ivf_list_size(cfg.index.planned_capacity, nlist),
+                        nprobe=cfg.index.ivf_nprobe, dtype=index_dtype,
+                        name=f"{coll}_ivf", device=device)
+            elif (persist / f"{coll}.npz").exists():
                 indexes[name] = FlatIndex.load(persist, name=coll, dtype=index_dtype,
                                                device=device)
                 log.info("index %s: reloaded %d vectors", coll, indexes[name].count())
@@ -172,6 +188,34 @@ class Runtime:
                    parent_store=parent_store, child_meta=child_meta,
                    feedback_db=feedback_db, pipeline=pipeline, hybrid=hybrid,
                    dense_retriever=dense, engine=engine, ledger=ledger, device=device)
+
+    def tune_indexes(self) -> Dict[str, dict]:
+        """Auto-tune IVF nprobe on every tunable index (no-op for flat
+        indexes and when IVF_AUTOTUNE_RECALL is unset). Returns per-index
+        tuning reports; the tuned nprobe persists via the index manifest."""
+        target = self.config.index.ivf_autotune_recall
+        if target <= 0:
+            return {}
+        reports: Dict[str, dict] = {}
+        cache = self.dual_encoder.cache
+        for name, idx in self.indexes.items():
+            if hasattr(idx, "tune_nprobe") and idx.count() and idx.is_trained:
+                # in-distribution tuning: recorded real query vectors from
+                # the serving embedding cache when enough have been seen
+                # (>= 32 so the per-sample split stays meaningful);
+                # perturbed stored vectors otherwise
+                recorded = cache.recent_queries(name) if cache is not None else None
+                if recorded is not None and len(recorded) < 32:
+                    recorded = None
+                reports[name] = idx.tune_nprobe(
+                    target_recall=target, queries=recorded,
+                    sample=self.config.index.ivf_autotune_sample,
+                    ood_guard=self.config.index.ivf_tune_ood_guard)
+                reports[name]["query_source"] = (
+                    "recorded" if recorded is not None else "perturbed-sample")
+                log.info("index %s: tuned nprobe=%d (%s queries)", name,
+                         reports[name]["nprobe"], reports[name]["query_source"])
+        return reports
 
     def save_indexes(self, data_dir: str | Path = ".") -> None:
         # serialize whole checkpoints: each FILE is atomic (persist.py);

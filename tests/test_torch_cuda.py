@@ -13,14 +13,17 @@ configuration:
 import pytest
 import torch
 
+from financial_rag_tpu_torch.index.flat import FlatIndex
+from financial_rag_tpu_torch.index.ivf import IVFIndex
 from financial_rag_tpu_torch.ops import flash_attention as fa
 from financial_rag_tpu_torch.ops import fused_ffn as ffn
+from financial_rag_tpu_torch.ops import ivf_probe
 from financial_rag_tpu_torch.ops import pool_norm as pn
 from financial_rag_tpu_torch.ops import topk
 
 pytestmark = pytest.mark.cuda
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 @pytest.fixture
@@ -45,11 +48,14 @@ def _mask(b, s):
     return mask
 
 
-def _launches_once(mod, fn):
-    before = mod.LAUNCHES
+def _launches_once(mod, fn, key=None):
+    """fn() launches the module's kernel exactly once (``key``: the
+    wrapper's entry in a module that counts several kernels)."""
+    count = (lambda: mod.LAUNCHES[key]) if key else (lambda: mod.LAUNCHES)
+    before = count()
     out = fn()
     torch.cuda.synchronize()
-    assert mod.LAUNCHES == before + 1
+    assert count() == before + 1
     return out
 
 
@@ -131,7 +137,8 @@ def test_packed_topk_kernel_matches_plain_exactly(gen, case, dtype):
         x[1024:2048] = x[:1024]
         x[70] = x[5]
     x = x.to(DTYPES[dtype])
-    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24))
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24),
+                                  "packed_topk_fused")
     ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, 24)
     assert torch.equal(out_i, ref_i)
     assert torch.equal(out_s, ref_s)
@@ -148,9 +155,139 @@ def test_packed_topk_kernel_on_unit_vectors(gen):
     q = _randn(gen, 70, 384)                          # 70 queries: padded to 128
     q = q / q.norm(dim=1, keepdim=True)
     valid = torch.ones(n, device="cuda")
-    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24))
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24),
+                                  "packed_topk_fused")
     ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, 24)
     quantum = 2.0 ** (3 - 22)                         # 8 tiles -> bits = 3
     same = out_i == ref_i
     assert same.float().mean().item() >= 0.99
     assert (out_s - ref_s).abs().max().item() <= quantum + 1e-3
+
+
+SWEEPS = {
+    "bucketed_topk_fused": (topk.bucketed_topk_fused, topk.bucketed_topk_fused_plain),
+    "bucketed_topk": (topk.bucketed_topk, topk.bucketed_topk_plain),
+    "topk_matmul": (topk.topk_matmul, topk.topk_matmul_plain),
+}
+
+
+def _sweep_case(gen, case, dtype):
+    """Exact-grid corpora (int8: integer rows with per-row weights): every
+    score and tie is exact, so kernel and plain version agree bit for bit,
+    empty slots included. uneven: 13 tiles and 100 queries, so the tile or
+    round groups end short."""
+    n = {"one_tile": 1024, "uneven": 13 * 1024}.get(case, 6144)
+    q = _grid(gen, 100 if case == "uneven" else 5, 384)
+    x = _grid(gen, n, 384)
+    valid = torch.ones(n, device="cuda")
+    if case == "dead_slots":
+        valid[torch.randperm(n, generator=gen, device="cuda")[:2000]] = 0.0
+    if case == "few_live":           # fewer live rows than k, in several tiles
+        valid.zero_()
+        valid[torch.tensor([3, 1500, 2100, 5000], device="cuda")] = 1.0
+    if case == "all_dead":
+        valid.zero_()
+    if case == "ties":
+        x[1024:2048] = x[:1024]
+        x[4096 + 5] = x[5]
+        x[70] = x[5]
+    if dtype == "int8":
+        x = (x * 64).to(torch.int8)
+        valid = valid * 0.01
+    return q, x.to(DTYPES[dtype]), valid
+
+
+@pytest.mark.parametrize("name", list(SWEEPS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", ["one_tile", "dead_slots", "few_live", "all_dead", "ties",
+                                  "uneven"])
+def test_sweep_kernels_match_plain_exactly(gen, name, dtype, case):
+    kernel, plain = SWEEPS[name]
+    q, x, valid = _sweep_case(gen, case, dtype)
+    kw = {} if name == "topk_matmul" else {"nbuckets": 2048}
+    out_s, out_i = _launches_once(topk, lambda: kernel(q, x, valid, 24, **kw), name)
+    ref_s, ref_i = plain(q, x, valid, 24, **kw)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("k", [1, 128])
+def test_exact_sweep_list_lengths(gen, k):
+    q, x, valid = _sweep_case(gen, "dead_slots", "bfloat16")
+    out = _launches_once(topk, lambda: topk.topk_matmul(q, x, valid, k), "topk_matmul")
+    ref = topk.topk_matmul_plain(q, x, valid, k)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def test_int8_sweeps_on_unit_vectors(gen):
+    """Real-valued unit vectors, int8-quantized: the int32 dot is exact, so
+    even here the kernels equal their plain versions bit for bit."""
+    n = 8192
+    v = _randn(gen, n, 384)
+    v = v / v.norm(dim=1, keepdim=True)
+    m = v.abs().amax(dim=1)
+    x = torch.round(v * (127.0 / m[:, None])).clamp(-127, 127).to(torch.int8)
+    valid = m / 127.0
+    q = _randn(gen, 70, 384)
+    for name, (kernel, plain) in SWEEPS.items():
+        out = _launches_once(topk, lambda: kernel(q, x, valid, 24), name)
+        ref = plain(q, x, valid, 24)
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0]), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_probe_kernel_matches_plain(gen, dtype):
+    nlist, L, B, P = 16, 128, 9, 5
+    if dtype == "int8":
+        storage = torch.randint(-127, 128, (nlist, L, 384), generator=gen, device="cuda").to(torch.int8)
+        q = torch.randint(-127, 128, (B, 384), generator=gen, device="cuda").to(torch.int8)
+        weights = torch.full((nlist, L), 1.0 / 127.0, device="cuda")
+    else:
+        storage = _randn(gen, nlist, L, 384, scale=384 ** -0.5).to(DTYPES[dtype])
+        q = _randn(gen, B, 384, scale=384 ** -0.5).to(DTYPES[dtype])
+        weights = torch.ones(nlist, L, device="cuda")
+    weights[:, 100:] = 0.0                              # empty slots
+    probes = torch.randint(0, nlist, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+    out = _launches_once(ivf_probe, lambda: ivf_probe.probe_scores(q, storage, weights, probes))
+    ref = ivf_probe.probe_scores_plain(q, storage, weights, probes)
+    assert out.shape == (B, P, L)
+    if dtype == "int8":
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert (out[:, :, 100:] == -1.0e5).all()
+
+
+@pytest.mark.parametrize("backend,dtype", [("pallas_fused", torch.int8),
+                                           ("pallas_bucketed", torch.bfloat16),
+                                           ("pallas_exact", torch.bfloat16),
+                                           ("pallas_exact", torch.int8)])
+def test_flat_index_backends_on_cuda_match_the_cpu(gen, backend, dtype):
+    x = _grid(gen, 3000, 384).cpu().numpy()
+    ids = list(range(1, 3001))
+    q = _grid(gen, 4, 384).cpu().numpy()
+    gpu = FlatIndex(dim=384, dtype=dtype, backend=backend, device="cuda")
+    cpu = FlatIndex(dim=384, dtype=dtype, backend=backend, device="cpu")
+    for idx in (gpu, cpu):
+        idx.upsert(ids, x)
+        idx.delete(ids[::5])
+    name = {"pallas_fused": "bucketed_topk_fused", "pallas_bucketed": "bucketed_topk",
+            "pallas_exact": "topk_matmul"}[backend]
+    got = _launches_once(topk, lambda: gpu.search(q, 24), name)
+    want = cpu.search(q, 24)
+    assert (got[0] == want[0]).all()
+
+
+def test_ivf_index_on_cuda_launches_the_probe_and_matches_the_cpu(gen):
+    x = _randn(gen, 2000, 384).cpu().numpy()
+    gpu = IVFIndex(dim=384, nlist=16, list_size=256, nprobe=4, device="cuda")
+    cpu = IVFIndex(dim=384, nlist=16, list_size=256, nprobe=4, device="cpu")
+    gpu.train(x, iters=4)
+    cpu.centroids = gpu.centroids.cpu()
+    for idx in (gpu, cpu):
+        idx.upsert(list(range(1, 2001)), x)
+    q = x[:3]
+    got = _launches_once(ivf_probe, lambda: gpu.search(q, 10))
+    want = cpu.search(q, 10)
+    assert (got[0][:, 0] == [1, 2, 3]).all()
+    assert (got[0] == want[0]).mean() >= 0.9   # bf16 sums in another order

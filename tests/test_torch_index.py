@@ -104,13 +104,35 @@ def test_saved_index_loads_across_packages(tmp_path, dtype):
     _assert_same_search(jax_loaded, tidx, q)
 
 
-def test_unported_sweeps_raise():
-    with pytest.raises(NotImplementedError, match="bucketed_topk_fused"):
-        FlatIndex(dim=64, dtype=torch.int8, backend="pallas_fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="bucketed_topk"):
-        FlatIndex(dim=64, backend="pallas_bucketed", device="cpu")
-    with pytest.raises(NotImplementedError, match="topk_matmul"):
-        FlatIndex(dim=64, backend="pallas_exact", device="cpu")
+@pytest.mark.parametrize("backend,dtype", [("pallas_fused", "int8"),
+                                           ("pallas_bucketed", "bfloat16"),
+                                           ("pallas_bucketed", "int8"),
+                                           ("pallas_exact", "float32"),
+                                           ("pallas_exact", "int8")])
+def test_kernel_backends_match_the_jax_exact_index(backend, dtype):
+    """The int8 fused sweep (K5), the bucketed (K7) and the exact (K6)
+    backends, through their CPU plain versions: on a corpus that fits the
+    buckets every backend is exact, so ids equal the JAX package's xla
+    index; after growth past 4,096 slots the bucketed ones stay near-exact."""
+    rng = np.random.default_rng(5)
+    jdt, tdt = {"int8": (jnp.int8, torch.int8)}.get(dtype) or DTYPES[dtype]
+    jidx = JaxFlatIndex(dim=64, capacity=1024, dtype=jdt, backend="xla")
+    tidx = FlatIndex(dim=64, capacity=1024, dtype=tdt, backend=backend, device="cpu")
+    ids = np.arange(1, 1801, dtype=np.int64)
+    vecs = _unit(rng, 1800)
+    for idx in (jidx, tidx):
+        idx.upsert(ids, vecs)
+        idx.delete(ids[::11])
+    q = _unit(rng, 5)
+    _assert_same_search(jidx, tidx, q)
+    more, more_vecs = np.arange(5000, 8000, dtype=np.int64), _unit(rng, 3000)
+    for idx in (jidx, tidx):
+        idx.upsert(more, more_vecs)
+    assert tidx.capacity == 8192
+    j_ids, _ = jidx.search(q, 16)
+    t_ids, _ = tidx.search(q, 16)
+    overlap = np.mean([len(set(a) & set(b)) / 16 for a, b in zip(j_ids.tolist(), t_ids.tolist())])
+    assert overlap >= (1.0 if backend == "pallas_exact" else 0.9)
 
 
 def test_packed_backend_on_cpu_matches_exact_on_small_corpus():

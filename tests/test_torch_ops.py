@@ -7,6 +7,8 @@ plain version without touching their launch counters, and must never hand
 a non-CPU tensor to it.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from financial_rag_tpu.ops import topk_matmul_reference as jax_topk_matmul_refer
 from financial_rag_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
 from financial_rag_tpu_torch.ops import flash_attention as fa
 from financial_rag_tpu_torch.ops import fused_ffn as ffn
+from financial_rag_tpu_torch.ops import ivf_probe
 from financial_rag_tpu_torch.ops import kernel_lib
 from financial_rag_tpu_torch.ops import pool_norm as pn
 from financial_rag_tpu_torch.ops import topk
@@ -272,6 +275,8 @@ def _cpu_calls():
     valid = torch.ones(2048)
     w = [t(64, 128), t(128), t(128, 64), t(64)]
     h = t(2, 64, 64)
+    storage, weights = t(4, 128, 32), torch.ones(4, 128)
+    probes = torch.tensor([[0, 3], [2, 2], [1, 0]])
     return [
         (pn, lambda: pn.masked_mean_l2_normalize(h, mask),
          lambda: pn.masked_mean_l2_normalize_plain(h, mask)),
@@ -280,14 +285,23 @@ def _cpu_calls():
         (ffn, lambda: ffn.fused_ffn(h, *w), lambda: ffn.fused_ffn_plain(h, *w)),
         (topk, lambda: topk.packed_topk_fused(q, x, valid, 10),
          lambda: topk.packed_topk_fused_plain(q, x, valid, 10)),
+        (topk, lambda: topk.bucketed_topk_fused(q, x, valid, 10),
+         lambda: topk.bucketed_topk_fused_plain(q, x, valid, 10)),
+        (topk, lambda: topk.topk_matmul(q, x, valid, 10),
+         lambda: topk.topk_matmul_plain(q, x, valid, 10)),
+        (topk, lambda: topk.bucketed_topk(q, x, valid, 10),
+         lambda: topk.bucketed_topk_plain(q, x, valid, 10)),
+        (ivf_probe, lambda: ivf_probe.probe_scores(q, storage, weights, probes),
+         lambda: ivf_probe.probe_scores_plain(q, storage, weights, probes)),
     ]
 
 
-@pytest.mark.parametrize("pos", range(4), ids=["pool_norm", "flash_attention", "fused_ffn",
-                                                "packed_topk"])
+@pytest.mark.parametrize("pos", range(8), ids=["pool_norm", "flash_attention", "fused_ffn",
+                                                "packed_topk", "bucketed_topk_fused",
+                                                "topk_matmul", "bucketed_topk", "probe_scores"])
 def test_cpu_wrapper_runs_plain_and_counts_nothing(pos):
     mod, wrapped, plain = _cpu_calls()[pos]
-    before = mod.LAUNCHES
+    before = copy.copy(mod.LAUNCHES)
     got, want = wrapped(), plain()
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
@@ -309,8 +323,14 @@ def test_non_cpu_tensor_never_reaches_the_plain_version():
         fa.flash_attention(h, h, h, mask, num_heads=12)
     with pytest.raises(ValueError, match="CUDA"):
         ffn.fused_ffn(h, w1, b1, w2, b2)
+    x, valid = h[1].repeat(16, 1), torch.ones(1024, **meta)
+    for sweep in (topk.packed_topk_fused, topk.bucketed_topk_fused, topk.bucketed_topk,
+                  topk.topk_matmul):
+        with pytest.raises(ValueError, match="CUDA"):
+            sweep(h[0], x, valid, 24)
     with pytest.raises(ValueError, match="CUDA"):
-        topk.packed_topk_fused(h[0], h[1].repeat(16, 1), torch.ones(1024, **meta), 24)
+        ivf_probe.probe_scores(h[0], x.view(8, 128, 384), valid.view(8, 128),
+                               torch.zeros(64, 3, dtype=torch.int32, **meta))
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):

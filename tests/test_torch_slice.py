@@ -119,6 +119,7 @@ def runtimes(tmp_path_factory):
     trt = Runtime.build(_config(FrameworkConfig, ckpt), data_dir=tmp / "port", device="cpu")
     _ingest(jrt, src)
     _ingest(trt, src)
+    jrt.ingest_root, trt.ingest_root = tmp / "jax", tmp / "port"
     yield jrt, trt
     mp.undo()
 
@@ -167,8 +168,6 @@ def test_frag_platform_cpu_selects_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,needle", [
-    ("index.dtype", "int8", "bucketed_topk_fused"),
-    ("index.kind", "ivf", "probe_scores"),
     ("mesh.index_shards", 4, "sharded"),
     ("mesh.encode_dp", 2, "data-parallel"),
     ("llm.provider", "local", "causal_flash_prefill"),
@@ -185,3 +184,40 @@ def test_int8_index_is_served_on_the_cpu():
     cfg = FrameworkConfig()
     cfg.index.dtype = "int8"
     check_supported(cfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("field,value", [("index.dtype", "int8"), ("index.kind", "ivf")])
+def test_int8_and_ivf_configurations_are_served_on_cuda(field, value):
+    cfg = FrameworkConfig()
+    group, name = field.split(".")
+    setattr(getattr(cfg, group), name, value)
+    check_supported(cfg, torch.device("cuda"))
+
+
+def test_int8_runtime_reloads_the_bf16_indexes_and_answers_as_jax(runtimes, tmp_path):
+    """The restart path: both packages' bf16 indexes are saved, and each
+    package's runtime built on its data dir with INDEX_DTYPE=int8 reloads and
+    re-quantizes them; the port (int8 exact sweep on the CPU) returns the
+    JAX package's child texts. The feedback DB stays behind: its result cache
+    would answer the questions without a search."""
+    import shutil
+
+    jrt, trt = runtimes
+    dirs = {}
+    for tag, rt in (("jax", jrt), ("port", trt)):
+        src = rt.ingest_root
+        rt.save_indexes(src)
+        dirs[tag] = tmp_path / tag
+        shutil.copytree(src, dirs[tag], ignore=shutil.ignore_patterns("jax_cache", "feedback.db*"))
+    ckpt = jrt.ingest_root.parent / "ckpt"
+    jcfg, tcfg = _config(JaxFrameworkConfig, ckpt), _config(FrameworkConfig, ckpt)
+    jcfg.index.dtype = tcfg.index.dtype = "int8"
+    j8 = JaxRuntime.build(jcfg, data_dir=dirs["jax"])
+    t8 = Runtime.build(tcfg, data_dir=dirs["port"], device="cpu")
+    assert all(i.dtype == torch.int8 for i in t8.indexes.values())
+    for question in GOLDEN[:4]:
+        jout, tout = j8.engine.query(question), t8.engine.query(question)
+        assert not jout.get("cache_hit") and not tout.get("cache_hit")
+        jtexts = [c["text"] for c in jout["top_children_chunks"]]
+        ttexts = [c["text"] for c in tout["top_children_chunks"]]
+        assert ttexts and ttexts == jtexts, question
