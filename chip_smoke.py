@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (financial_rag_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--log-dir DIR]
+    python3 chip_smoke.py [--seed 0] [--log-dir DIR] [--llm-new-tokens 64]
 
 Phases, each printing one JSON line:
 
@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel).
-3. kernel  -- every kernel (K1-K8) at its main-path shapes, against its
+3. kernel  -- every kernel (K1-K9) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function, and its bound (the larger of bytes
@@ -37,10 +37,19 @@ Phases, each printing one JSON line:
               each against its plain version, with recall@24 against K6.
 9. parity  -- 16 corpus texts through the same weights on the CPU (plain
               versions, f32) against the card's bf16 embeddings and logits.
-10. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+10. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B shape;
+              Runtime.build with LLM_PROVIDER=local (LLM_MAX_NEW_TOKENS from
+              --llm-new-tokens) on a copy of the flat data dir; warm() (the 4,096 prompt bucket), the 9 golden
+              questions through RAGEngine.query and 3 through query_stream,
+              none degraded; K9 launched 24 times per prefill; generate
+              against the joined stream, a generate_many wave, LLM_DTYPE=int8.
+11. profile -- the llm runtime under torch.profiler (2 questions).
+12. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
+              (bf16, K9): last-position logits, cosine >= 0.995.
+13. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8) sets every launch counter to 0 just before it
-and reads them just after: each kernel of that path must have run.
+Each path (phases 4, 6, 7, 8, 10) sets every launch counter to 0 just before
+it and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
 available, or when the port's package is not beside this file.
@@ -141,12 +150,24 @@ KERNELS = {
                       "financial_rag_tpu/ops/topk.py:180"),
     "probe_scores": ("financial_rag_tpu_torch/csrc/ivf_probe.cu",
                      "financial_rag_tpu/ops/ivf_probe.py:41"),
+    "causal_flash_prefill": ("financial_rag_tpu_torch/csrc/causal_flash.cu",
+                             "financial_rag_tpu/ops/causal_flash.py:42"),
 }
 TOPK_KERNELS = ("packed_topk_fused", "bucketed_topk_fused", "topk_matmul", "bucketed_topk")
 # the kernels each served path must launch
 FLAT_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused")
 IVF_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "probe_scores")
 INT8_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "bucketed_topk_fused")
+LLM_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused",
+            "causal_flash_prefill")
+
+# the Qwen2-0.5B shape (HF config.json of Qwen/Qwen2-0.5B), full width and depth
+QWEN2_05B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+             "vocab_size": 151936, "hidden_size": 896, "intermediate_size": 4864,
+             "num_hidden_layers": 24, "num_attention_heads": 14, "num_key_value_heads": 2,
+             "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+             "tie_word_embeddings": True, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+DEGRADED = "LLM unavailable"
 
 
 def emit(obj) -> None:
@@ -158,10 +179,12 @@ class SmokeFailure(RuntimeError):
 
 
 def _counter_modules():
-    from financial_rag_tpu_torch.ops import flash_attention, fused_ffn, ivf_probe, pool_norm, topk
+    from financial_rag_tpu_torch.ops import (causal_flash, flash_attention, fused_ffn, ivf_probe,
+                                             pool_norm, topk)
 
     return {"masked_mean_l2_normalize": pool_norm, "flash_attention": flash_attention,
             "fused_ffn": fused_ffn, "probe_scores": ivf_probe,
+            "causal_flash_prefill": causal_flash,
             **{name: topk for name in TOPK_KERNELS}}
 
 
@@ -361,6 +384,7 @@ def kernel_cases(torch, F, seed):
                   bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
     cases += sweep_cases(torch, gen, randn)
     cases += probe_cases(torch, gen, randn)
+    cases += causal_cases(torch, F, randn)
     return cases
 
 
@@ -484,6 +508,58 @@ def probe_cases(torch, gen, randn):
     return cases
 
 
+def causal_cases(torch, F, randn):
+    """K9 at the decoder's prefill shapes (Qwen2-0.5B: 14 query heads and 2
+    kv heads of 64): the answer-prompt bucket B=1 S=4,096 with 1,100
+    padding rows, the query normaliser's S=128, a generate_many wave of 3
+    rows with mixed pads, and LLM_DTYPE=float32. Real rows within 3e-2 in
+    bf16 (O(1) outputs, as for K2) and 1e-4 in f32; padding rows exactly 0.
+    The bound counts only the causal pairs at or past pad_len. Library: SDPA
+    (is_causal, enable_gqa) at pad 0, [B,H,S,D] views, a yardstick only."""
+    from financial_rag_tpu_torch.ops import causal_flash as cf
+
+    hq, hkv, d = 14, 2, 64
+    cases = []
+    for b, s, pads, dtype in ((1, 4096, (1100,), torch.bfloat16), (1, 128, (60,), torch.bfloat16),
+                              (3, 1024, (0, 300, 1023), torch.bfloat16),
+                              (1, 4096, (1100,), torch.float32)):
+        q = randn(b, s, hq * d, dtype=dtype)
+        k, v = randn(b, s, hkv * d, dtype=dtype), randn(b, s, hkv * d, dtype=dtype)
+        pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
+        label = "bf16" if dtype == torch.bfloat16 else "f32"
+        pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
+        esize = 2 if dtype == torch.bfloat16 else 4
+
+        def sdpa(q=q, k=k, v=v, b=b, s=s):
+            return F.scaled_dot_product_attention(
+                q.view(b, s, hq, d).transpose(1, 2), k.view(b, s, hkv, d).transpose(1, 2),
+                v.view(b, s, hkv, d).transpose(1, 2), is_causal=True, enable_gqa=True)
+
+        cases.append(("causal_flash_prefill",
+                      f"B={b},S={s},pads={list(pads)},heads={hq}/{hkv}x{d},{label}",
+                      lambda q=q, k=k, v=v, p=pad: cf.causal_flash_prefill(
+                          q, k, v, p, num_q_heads=hq, num_kv_heads=hkv),
+                      lambda q=q, k=k, v=v, p=pad: cf.causal_flash_prefill_plain(
+                          q, k, v, p, num_q_heads=hq, num_kv_heads=hkv),
+                      sdpa, causal_cmp(pads, 3e-2 if dtype == torch.bfloat16 else 1e-4),
+                      bound(2 * b * s * (hq + hkv) * d * esize + 4 * b, 4 * pairs * hq * d,
+                            "bf16" if dtype == torch.bfloat16 else "f32")))
+    return cases
+
+
+def causal_cmp(pads, tol):
+    """Real rows (position >= pad_len) within tol; padding rows exactly 0."""
+    def cmp(a, b):
+        err, pad_max = 0.0, 0.0
+        for row, p in enumerate(pads):
+            err = max(err, (a[row, p:].float() - b[row, p:].float()).abs().max().item())
+            if p:
+                pad_max = max(pad_max, a[row, :p].float().abs().max().item(),
+                              b[row, :p].float().abs().max().item())
+        return err, err <= tol and pad_max == 0.0, {"tol": tol, "padding_rows_max_abs": pad_max}
+    return cmp
+
+
 def max_abs_cmp(tol):
     def cmp(a, b):
         err = (a.float() - b.float()).abs().max().item()
@@ -503,7 +579,7 @@ def phase_kernels(torch, F, seed):
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain)
         lib_ms = cuda_ms(torch, library) if library is not None else None
-        if library is not None:
+        if library is not None and name != "causal_flash_prefill":   # K9's SDPA is at pad 0
             lib_err = (library().transpose(1, 2).reshape(out.shape).float() - out.float()
                        ).abs().max().item()
             detail["library_max_abs_err"] = lib_err
@@ -547,6 +623,108 @@ def write_checkpoints(root: Path, seed: int):
         save_params_npz(random_params(cfg, seed=seed + i), d / "model.npz")
         paths[name] = d
     return paths
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A ``.safetensors`` file (8-byte header length, JSON header, raw
+    little-endian bytes) from torch tensors: the GPU machine has no
+    ``safetensors`` package."""
+    import torch
+
+    codes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        raw = t.view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+CHATML_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+
+
+def write_wordlevel_tokenizer(dest: Path, words, vocab_size: int) -> int:
+    """tokenizer.json (WordLevel over ``words``, the numerals 0-99 and
+    <unk>, padded with w{i} up to ``vocab_size`` so that every model id
+    decodes to a word; Whitespace pre-tokenizer; the ChatML markers as
+    special added tokens) and a ChatML tokenizer_config.json, as the
+    ``tokenizers`` package writes them. Returns the eos id (<|im_end|>)."""
+    vocab = {}
+    for w in ["<unk>", *CHATML_SPECIALS, *sorted(set(words)), *map(str, range(100))]:
+        vocab.setdefault(w, len(vocab))
+    for i in range(len(vocab), vocab_size):
+        vocab[f"w{i}"] = i
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True} for t in CHATML_SPECIALS]
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+            "post_processor": None, "decoder": None,
+            "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}
+    (dest / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False))
+    (dest / "tokenizer_config.json").write_text(json.dumps({
+        "chat_template": "{% for m in messages %}<|im_start|>{{ m.role }}\n"
+                         "{{ m.content }}<|im_end|>\n{% endfor %}"}))
+    return vocab["<|im_end|>"]
+
+
+def prompt_words():
+    """The words of the golden and filler corpora and of the prompt
+    templates, as the Whitespace pre-tokenizer splits them."""
+    import re
+
+    from financial_rag_tpu_torch.llm.prompts import QUERY_NORMALIZE, build_answer_prompt
+
+    text = " ".join([*GOLDEN_CORPUS.values(), *FILLER_WORDS, *GOLDEN_QUESTIONS, QUERY_NORMALIZE,
+                     build_answer_prompt("q", [{"content": "c"}], ["r"]), "user assistant"])
+    return re.findall(r"\w+|[^\w\s]+", text)
+
+
+def write_llm_checkpoint(dest: Path, hf: dict, seed: int, device="cuda") -> int:
+    """A seeded random-weight Qwen2/Llama checkpoint in HF layout: config.json,
+    a bf16 model.safetensors (normal(0.02) matrices and biases, unit norms,
+    the HF initialisation) and the WordLevel tokenizer. Returns the eos id."""
+    import torch
+
+    dest.mkdir(parents=True, exist_ok=True)
+    eos = write_wordlevel_tokenizer(dest, prompt_words(), hf["vocab_size"])
+    hf = {**hf, "eos_token_id": eos, "bos_token_id": eos}
+    (dest / "config.json").write_text(json.dumps(hf))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, ff = hf["hidden_size"], hf["intermediate_size"]
+    kv = hf["num_key_value_heads"] * (h // hf["num_attention_heads"])
+
+    def normal(*shape):
+        return (torch.randn(*shape, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": normal(hf["vocab_size"], h)}
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": ones(h),
+                   p + "self_attn.q_proj.weight": normal(h, h), p + "self_attn.q_proj.bias": normal(h),
+                   p + "self_attn.k_proj.weight": normal(kv, h), p + "self_attn.k_proj.bias": normal(kv),
+                   p + "self_attn.v_proj.weight": normal(kv, h), p + "self_attn.v_proj.bias": normal(kv),
+                   p + "self_attn.o_proj.weight": normal(h, h),
+                   p + "post_attention_layernorm.weight": ones(h),
+                   p + "mlp.gate_proj.weight": normal(ff, h), p + "mlp.up_proj.weight": normal(ff, h),
+                   p + "mlp.down_proj.weight": normal(h, ff)})
+    sd["model.norm.weight"] = ones(h)
+    if not hf.get("tie_word_embeddings", False):
+        sd["lm_head.weight"] = normal(hf["vocab_size"], h)
+    write_safetensors(dest / "model.safetensors", sd)
+    return eos
 
 
 def filler_documents(rng, n_docs: int, words_per_doc: int):
@@ -809,7 +987,7 @@ def _kernel_family(name: str) -> str:
                                               "pool_norm_kernel", "bucketed_sweep_kernel",
                                               "bucketed_extract_kernel", "bucketed_write_kernel",
                                               "exact_sweep_kernel", "exact_merge_kernel",
-                                              "probe_kernel")),
+                                              "probe_kernel", "causal_fwd_")),
                             ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                             ("copy", ("Memcpy", "Memset", "copy_"))):
         if any(n in name for n in needles):
@@ -817,18 +995,19 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def phase_profile(torch, rt, label: str = "flat bf16"):
-    """Where one query's time goes: the golden questions, reworded so that
-    neither the result cache nor the query-embedding cache answers them, run
-    once more under torch.profiler. Device busy time is the sum of the
-    kernels' and copies' own device time; the rest of the wall clock the
-    card sat idle. The host spans are the package's own time_block labels."""
+def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GOLDEN_QUESTIONS)):
+    """Where one query's time goes: the first ``n_questions`` golden
+    questions, reworded so that neither the result cache nor the
+    query-embedding cache answers them, run once more under torch.profiler.
+    Device busy time is the sum of the kernels' and copies' own device
+    time; the rest of the wall clock the card sat idle. The host spans are
+    the package's own time_block labels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from financial_rag_tpu_torch.utils.timing import GLOBAL_TIMER
 
-    questions = [f"Tell me briefly: {q}" for q in GOLDEN_QUESTIONS]
+    questions = [f"Tell me briefly: {q}" for q in GOLDEN_QUESTIONS[:n_questions]]
     torch.cuda.synchronize()
     GLOBAL_TIMER.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -867,6 +1046,7 @@ def phase_profile(torch, rt, label: str = "flat bf16"):
           "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, (ms, c) in top],
           "port_kernel_ms": port,
           "host_span_ms": {k: v["total_s"] * 1e3 for k, v in list(spans.items())[:14]}})
+    return port
 
 
 def phase_parity(torch, rt, paths, texts):
@@ -902,11 +1082,215 @@ def phase_parity(torch, rt, paths, texts):
     emit(out)
 
 
+class _StepRecorder:
+    """Wraps the decoder's prefill (CUDA events around it, keyed by prompt
+    shape) and its decode steps (host clock around each verify step, which
+    ends in a device sync, and the tokens it emitted) for one phase."""
+
+    def __init__(self, torch):
+        from financial_rag_tpu_torch.models import decoder
+
+        self.torch, self.decoder = torch, decoder
+        self.prefills, self.steps = [], []
+        self._prefill, self._step = decoder._prefill, decoder._Spec.step
+
+    def __enter__(self):
+        torch, rec = self.torch, self
+
+        def prefill(params, input_ids, attention_mask, max_total, cfg):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = rec._prefill(params, input_ids, attention_mask, max_total, cfg)
+            end.record()
+            rec.prefills.append((tuple(input_ids.shape), start, end))
+            return out
+
+        def step(spec):
+            t0 = time.perf_counter()
+            emit, n = rec._step(spec)
+            rec.steps.append(((time.perf_counter() - t0) * 1e3, n))
+            return emit, n
+
+        self.decoder._prefill, self.decoder._Spec.step = prefill, step
+        return self
+
+    def __exit__(self, *exc):
+        self.decoder._prefill, self.decoder._Spec.step = self._prefill, self._step
+
+    def summary(self) -> dict:
+        self.torch.cuda.synchronize()
+        by_shape: dict = {}
+        for shape, start, end in self.prefills:
+            by_shape.setdefault(shape, []).append(start.elapsed_time(end))
+        step_ms = [ms for ms, _ in self.steps]
+        return {"prefills": len(self.prefills),
+                "prompt_buckets": sorted({shape[1] for shape in by_shape}),
+                "prefill_ms_by_shape": {f"B={b},S={s}": statistics.median(v)
+                                        for (b, s), v in sorted(by_shape.items())},
+                "verify_steps": len(self.steps),
+                "verify_step_ms_p50": statistics.median(step_ms) if step_ms else None,
+                "tokens_per_verify_step": (sum(n for _, n in self.steps) / len(self.steps)
+                                           if self.steps else None)}
+
+
+def phase_llm(torch, cfg, work: Path, seed: int, new_tokens: int):
+    """On-device answer synthesis: a seeded random-weight checkpoint at the
+    Qwen2-0.5B shape (full width and depth, bf16, WordLevel tokenizer over
+    the corpus words padded to the 151,936 ids) served through
+    Runtime.build(device="cuda") with LLM_PROVIDER=local and
+    LLM_MAX_NEW_TOKENS=``new_tokens`` on a copy of the flat data dir
+    (without the feedback DB, whose result cache would answer the
+    questions). Random weights never emit eos, so every generation runs to
+    its new-token bucket. warm() runs the 4,096 prompt bucket; the 9 golden
+    questions go through RAGEngine.query (two generations each: the query
+    normaliser and the answer, both through prompt-lookup speculation) and
+    3 through query_stream. LocalLLM and the provider swallow exceptions by
+    design, so the checks are that the model loaded, that no answer is the
+    degradation text and that no stream fell back to one-shot synthesis.
+    With random weights the normaliser rewrites each question into random
+    words: this phase tests the path, not the answers' quality."""
+    from financial_rag_tpu_torch.llm.local_llm import LocalLLM
+    from financial_rag_tpu_torch.llm.prompts import QUERY_NORMALIZE
+    from financial_rag_tpu_torch.runtime import Runtime
+
+    t0 = time.perf_counter()
+    ckpt = work / "qwen2-0.5b"
+    write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10)
+    checkpoint_s = time.perf_counter() - t0
+    shutil.copytree(work / "data", work / "data_llm",
+                    ignore=shutil.ignore_patterns("feedback.db*"))
+    cfg = copy.deepcopy(cfg)
+    cfg.llm.provider, cfg.llm.local_checkpoint = "local", str(ckpt)
+    cfg.llm.local_dtype = "bfloat16"
+    cfg.llm.local_max_new_tokens = new_tokens
+
+    reset_launches()
+    with _StepRecorder(torch) as rec:
+        t_build = time.perf_counter()
+        rt = Runtime.build(cfg, data_dir=work / "data_llm", device="cuda")
+        llm = rt.engine.llm
+        check(isinstance(llm, LocalLLM) and llm.device.type == "cuda",
+              f"the provider is {type(llm).__name__}, not a LocalLLM on the card")
+        t_warm = time.perf_counter()
+        check(llm.warm() is True and not llm._failed, "LocalLLM did not load (see the log)")
+        warm_s = time.perf_counter() - t_warm
+        build_s = t_warm - t_build
+        check(llm._params["embed"].dtype == torch.bfloat16, "the decoder is not in bf16")
+        query_ms, answers = [], []
+        for question in GOLDEN_QUESTIONS:
+            tq = time.perf_counter()
+            out = rt.engine.query(question)
+            query_ms.append((time.perf_counter() - tq) * 1e3)
+            check(out.get("success") is True and not out.get("cache_hit"),
+                  f"llm: query failed or cached: {question!r}")
+            check(bool(out["answer"]) and not out["answer"].startswith(DEGRADED),
+                  f"llm: degraded answer for {question!r}: {out['answer'][:120]!r}")
+            answers.append(out)
+        stream_ms = []
+        for question in GOLDEN_QUESTIONS[:3]:
+            tq = time.perf_counter()
+            events = list(rt.engine.query_stream(f"Please answer: {question}"))
+            stream_ms.append((time.perf_counter() - tq) * 1e3)
+            kind, final = events[-1]
+            deltas = "".join(d for k, d in events if k == "answer_delta")
+            check(kind == "complete" and final.get("success") is True, f"stream failed: {question!r}")
+            check(bool(deltas.strip()) and deltas.strip() == final["answer"],
+                  f"llm: the stream of {question!r} fell back to one-shot synthesis")
+            check(not final["answer"].startswith(DEGRADED), f"llm: degraded stream {question!r}")
+        served = rec.summary()
+    launches = read_launches()
+    check_path_launched(LLM_PATH, launches, "llm path")
+    check(launches["causal_flash_prefill"] == QWEN2_05B["num_hidden_layers"] * served["prefills"],
+          f"llm: {launches['causal_flash_prefill']} K9 launches for {served['prefills']} prefills")
+    check(4096 in served["prompt_buckets"], f"llm: no 4,096-token prefill ({served})")
+
+    # one answer prompt, one-shot against streamed; a generate_many wave of
+    # three buckets; the int8 weight-only layout
+    prompt = answers[0]["llm_prompt"]
+    one_shot = llm.generate(prompt)
+    streamed = "".join(llm.generate_stream(prompt)).strip()
+    check(bool(one_shot) and one_shot == streamed,
+          f"llm: generate and joined generate_stream differ: {one_shot!r} vs {streamed!r}")
+    wave = [prompt, QUERY_NORMALIZE.format(question=GOLDEN_QUESTIONS[0]), "rent lease amount"]
+    buckets = [llm._prep(p)[0].shape[1] for p in wave]
+    t_many = time.perf_counter()
+    many = llm.generate_many(wave)
+    many_ms = (time.perf_counter() - t_many) * 1e3
+    check(len(many) == 3 and all(isinstance(t, str) and t for t in many), f"generate_many {many}")
+    t_int8 = time.perf_counter()
+    llm8 = LocalLLM(cfg.llm, dtype="int8", device="cuda")
+    text8 = llm8.generate(prompt)
+    int8_s = time.perf_counter() - t_int8
+    check(not llm8._failed and llm8._params["layers"][0]["qkv_w"]["q"].dtype == torch.int8,
+          "llm: the int8 LocalLLM did not load")
+    check(bool(text8) and not text8.startswith(DEGRADED), f"llm: int8 answer {text8!r}")
+    emit({"phase": "llm", "model": "Qwen2-0.5B shape, random weights, bf16",
+          "checkpoint_write_s": checkpoint_s, "runtime_build_s": build_s, "warm_s": warm_s,
+          "query_p50_ms": statistics.median(query_ms), "query_max_ms": max(query_ms),
+          "queries": len(query_ms), "stream_ms": stream_ms, **served,
+          "max_new_tokens": cfg.llm.local_max_new_tokens, "spec_k": cfg.llm.local_spec_k,
+          "generate_many_buckets": buckets, "generate_many_ms": many_ms,
+          "int8_load_and_generate_s": int8_s, "launches": launches,
+          "answer_sample": answers[0]["answer"][:160]})
+    del llm8
+    torch.cuda.empty_cache()
+    return rt, ckpt, launches
+
+
+def phase_llm_profile(torch, rt):
+    """The llm runtime under the profiler, 2 questions: each generation is
+    tens of eager verify steps of ~1,450 kernels, so more would flood the
+    profiler."""
+    port = phase_profile(torch, rt, label="llm", n_questions=2)
+    check(any(n.startswith("causal_fwd_") for n in port), f"the profile saw no K9: {port}")
+
+
+def phase_decoder_parity(torch, rt, ckpt: Path):
+    """The same 0.5B weights through the port on the CPU (f32, K9's plain
+    version) against the card (bf16, K9): last-position logits of one
+    ~256-token left-padded answer prompt. The bar is cosine >= 0.995: bf16
+    activations through 24 layers drift by more than a fixed tolerance
+    would allow on 151,936 logits, while a wrong kernel or mask decorrelates
+    them. Top-1 agreement is reported, not gated."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.llm.local_llm import _load_state_dict
+    from financial_rag_tpu_torch.models import decoder
+
+    llm = rt.engine.llm
+    dcfg = llm._dcfg
+    ids = llm._tok.encode(llm._wrap(GOLDEN_CORPUS["lease_2022"] + " " + GOLDEN_QUESTIONS[0])).ids
+    ids = (ids * 4)[-200:]
+    s, pad = 256, 256 - len(ids)
+    input_ids = np.full((1, s), dcfg.eos_token_id, np.int64)
+    mask = np.zeros((1, s), np.int32)
+    input_ids[0, pad:], mask[0, pad:] = ids, 1
+    torch.set_num_threads(max(os.cpu_count() or 1, 1))
+    cpu_params = decoder.decoder_params_from_torch_state_dict(
+        _load_state_dict(ckpt), dcfg, dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        want = decoder._prefill(cpu_params, torch.from_numpy(input_ids), torch.from_numpy(mask),
+                                s, dcfg)[0][0]
+        got = decoder._prefill(llm._params, torch.from_numpy(input_ids).cuda(),
+                               torch.from_numpy(mask).cuda(), s, dcfg)[0][0].float().cpu()
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    out = {"phase": "decoder_parity", "prompt_tokens": len(ids), "bucket": s, "pad": pad,
+           "logits_cosine": cos, "top1_agree": int(got.argmax()) == int(want.argmax()),
+           "max_abs_err": float((got - want).abs().max()),
+           "logit_range": [float(want.min()), float(want.max())]}
+    emit(out)
+    check(cos >= 0.995, f"decoder logits: cosine {cos} between the card and the CPU")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", default=None,
                     help="also write the kernel build log and the kernels line here")
+    ap.add_argument("--llm-new-tokens", type=int, default=64,
+                    help="LLM_MAX_NEW_TOKENS of the llm phases (the served default is 256, "
+                         "which takes ~4 more minutes)")
     args = ap.parse_args(argv)
 
     import torch
@@ -944,7 +1328,12 @@ def main(argv=None) -> int:
             int8_launches = phase_int8(torch, rt, cfg, work)
             backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
+            rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed,
+                                                   args.llm_new_tokens)
+            phase_llm_profile(torch, rt_llm)
+            phase_decoder_parity(torch, rt_llm, ckpt)
             # each kernel's count from the path that serves it
+            launches["causal_flash_prefill"] = llm_launches["causal_flash_prefill"]
             launches["bucketed_topk_fused"] = int8_launches["bucketed_topk_fused"]
             launches["topk_matmul"] = backend_launches["topk_matmul"]
             launches["bucketed_topk"] = backend_launches["bucketed_topk"]

@@ -1,4 +1,5 @@
 from financial_rag_tpu_torch.llm.provider import LLMProvider, NullLLM, get_provider
 from financial_rag_tpu_torch.llm.gemini import GeminiProvider
+from financial_rag_tpu_torch.llm.local_llm import LocalLLM
 
-__all__ = ["LLMProvider", "NullLLM", "GeminiProvider", "get_provider"]
+__all__ = ["LLMProvider", "NullLLM", "GeminiProvider", "LocalLLM", "get_provider"]

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import List, Optional, Protocol
 
 from financial_rag_tpu_torch.config import LLMConfig
+from financial_rag_tpu_torch.device import DeviceLike
 from financial_rag_tpu_torch.llm.prompts import QUERY_NORMALIZE, build_answer_prompt, chunk_context_prompt
 from financial_rag_tpu_torch.utils import get_logger
 
@@ -111,14 +112,15 @@ def chunk_context(provider: LLMProvider, document_excerpt: str, chunk_text: str)
     return None
 
 
-def get_provider(cfg: Optional[LLMConfig] = None) -> LLMProvider:
+def get_provider(cfg: Optional[LLMConfig] = None, device: DeviceLike = None) -> LLMProvider:
+    """``device`` is where a local LLM runs (see device.resolve_device)."""
     cfg = cfg or LLMConfig()
     if cfg.provider == "gemini" and cfg.gemini_api_key:
         from financial_rag_tpu_torch.llm.gemini import GeminiProvider
 
         return GeminiProvider(cfg)
     if cfg.provider == "local" and cfg.local_checkpoint:
-        raise NotImplementedError(
-            "LLM_PROVIDER=local needs the on-device decoder (causal_flash_prefill), "
-            "a later slice of the port")
+        from financial_rag_tpu_torch.llm.local_llm import LocalLLM
+
+        return LocalLLM(cfg, device=device)   # loads lazily; degrades to NullLLM semantics
     return NullLLM()

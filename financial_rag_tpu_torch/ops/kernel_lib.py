@@ -45,6 +45,7 @@ _SIGNATURES = {
     "frag_bucketed_topk": [_P] * 6 + [_I] * 8 + [_P],
     "frag_topk_exact": [_P] * 6 + [_I] * 9 + [_P],
     "frag_probe_scores": [_P] * 5 + [_I] * 6 + [_P],
+    "frag_causal_flash": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -5,10 +5,11 @@ port serves: one device; per-model flat indexes (bf16, f32 or int8,
 ``INDEX_DTYPE``) or IVF indexes (``INDEX_KIND=ivf``, with the nprobe
 auto-tune of ``tune_indexes``); the dual bge/gte encoders (real checkpoints
 when available, the deterministic lexical fallback otherwise); the
-cross-encoder rerank; the parent stores; the HTTP/Null LLM provider.
+cross-encoder rerank; the parent stores; the HTTP/Null LLM provider or the
+on-device decoder (``LLM_PROVIDER=local``, on the runtime's device).
 Cross-request micro-batching, the WSGI app, the auto-ingest processor and
-the warmups are later slices; sharded indexes, data-parallel encode and the
-on-device LLM raise NotImplementedError.
+the warmups are later slices; sharded indexes and data-parallel encode
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,9 +61,6 @@ def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
     if cfg.mesh.encode_dp > 1:
         raise NotImplementedError("ENCODE_DP>1 needs data-parallel encode, "
                                   "the multi-GPU slice of the port")
-    if cfg.llm.provider == "local":
-        raise NotImplementedError("LLM_PROVIDER=local needs the on-device decoder "
-                                  "(causal_flash_prefill), a later slice of the port")
 
 
 def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkConfig,
@@ -158,7 +156,7 @@ class Runtime:
         child_meta = ChildMetaStore(data_dir / "children_meta.db")
         feedback_db = FeedbackDatabase(data_dir / cfg.store.feedback_db_path,
                                        cache_ttl_s=cfg.serving.result_cache_ttl_s)
-        llm = get_provider(cfg.llm)
+        llm = get_provider(cfg.llm, device=device)
 
         reranker_model = None
         if cfg.rerank.enabled and cfg.rerank.model_path and Path(cfg.rerank.model_path).exists():

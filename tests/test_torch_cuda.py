@@ -15,6 +15,8 @@ import torch
 
 from financial_rag_tpu_torch.index.flat import FlatIndex
 from financial_rag_tpu_torch.index.ivf import IVFIndex
+from financial_rag_tpu_torch.models import decoder
+from financial_rag_tpu_torch.ops import causal_flash as cf
 from financial_rag_tpu_torch.ops import flash_attention as fa
 from financial_rag_tpu_torch.ops import fused_ffn as ffn
 from financial_rag_tpu_torch.ops import ivf_probe
@@ -291,3 +293,73 @@ def test_ivf_index_on_cuda_launches_the_probe_and_matches_the_cpu(gen):
     want = cpu.search(q, 10)
     assert (got[0][:, 0] == [1, 2, 3]).all()
     assert (got[0] == want[0]).mean() >= 0.9   # bf16 sums in another order
+
+
+CAUSAL_CASES = {   # B, S, pads, query heads, kv heads, head_dim, dtype
+    "ragged": (2, 100, (0, 37), 14, 2, 64, "bfloat16"),
+    "pad_is_last_row": (1, 256, (255,), 14, 2, 64, "bfloat16"),
+    "mixed_pads_d128": (3, 300, (0, 64, 299), 14, 2, 128, "bfloat16"),
+    "group1": (2, 200, (5, 130), 4, 4, 64, "bfloat16"),
+    "group1_d128": (1, 129, (1,), 8, 8, 128, "bfloat16"),
+    "padding_tiles": (1, 300, (200,), 14, 2, 64, "bfloat16"),
+    "one_row": (1, 1, (0,), 14, 2, 64, "bfloat16"),
+    "f32_d64": (2, 190, (0, 77), 14, 2, 64, "float32"),
+    "f32_d128": (1, 70, (3,), 4, 2, 128, "float32"),
+}
+
+
+@pytest.mark.parametrize("case", list(CAUSAL_CASES))
+def test_causal_flash_kernel_matches_plain(gen, case):
+    """Real rows within 3e-2 (bf16, O(1) outputs) or 1e-4 (f32) of the plain
+    version; padding rows exactly 0. Covers S not a multiple of the 64-row
+    tiles, a pad of S-1, tiles made only of padding rows, GQA groups of 1
+    and 7, head_dim 64 and 128."""
+    b, s, pads, hq, hkv, d, dtype = CAUSAL_CASES[case]
+    q = _randn(gen, b, s, hq * d, dtype=DTYPES[dtype])
+    k, v = (_randn(gen, b, s, hkv * d, dtype=DTYPES[dtype]) for _ in range(2))
+    pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
+    out = _launches_once(cf, lambda: cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq,
+                                                             num_kv_heads=hkv))
+    ref = cf.causal_flash_prefill_plain(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    for row, p in enumerate(pads):
+        assert torch.isfinite(out[row].float()).all()
+        torch.testing.assert_close(out[row, p:].float(), ref[row, p:].float(), atol=tol, rtol=0)
+        assert (out[row, :p] == 0).all()
+
+
+def test_causal_flash_kernel_rejects_what_it_cannot_take(gen):
+    q = _randn(gen, 1, 64, 14 * 32, dtype=torch.bfloat16)
+    kv = _randn(gen, 1, 64, 2 * 32, dtype=torch.bfloat16)
+    pad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        cf.causal_flash_prefill(q, kv, kv, pad, num_q_heads=14, num_kv_heads=2)
+    q = _randn(gen, 1, 64, 14 * 64, dtype=torch.bfloat16)
+    kv = _randn(gen, 1, 64, 2 * 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        cf.causal_flash_prefill(q, kv.float(), kv, pad, num_q_heads=14, num_kv_heads=2)
+    wide = _randn(gen, 1, 64, 4 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.causal_flash_prefill(q, kv, wide[..., :128], pad, num_q_heads=14, num_kv_heads=2)
+
+
+def test_decoder_prefill_launches_k9_per_layer_and_matches_the_cpu(gen):
+    """A 3-layer decoder with head_dim 64 (GQA 2:1) in bf16 on the card
+    against the same weights in f32 on the CPU: one K9 launch per layer;
+    last-position logits of a left-padded batch agree to cosine 0.999."""
+    cfg = decoder.DecoderConfig(vocab_size=512, num_layers=3, hidden_size=256, num_heads=4,
+                                num_kv_heads=2, intermediate_size=512, attention_bias=True,
+                                eos_token_id=0)
+    cpu = decoder.random_decoder_params(cfg, seed=1)
+    gpu = decoder.random_decoder_params(cfg, seed=1, dtype=torch.bfloat16, device="cuda")
+    ids = torch.randint(1, 512, (2, 130), generator=gen, device="cuda")
+    mask = torch.ones(2, 130, dtype=torch.int32, device="cuda")
+    mask[1, :50] = 0
+    before = cf.LAUNCHES
+    got = decoder._prefill(gpu, ids, mask, 140, cfg)[0].float().cpu()
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES == before + cfg.num_layers
+    want = decoder._prefill(cpu, ids.cpu(), mask.cpu(), 140, cfg)[0]
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert (cos >= 0.999).all(), cos

@@ -170,7 +170,6 @@ def test_frag_platform_cpu_selects_the_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("field,value,needle", [
     ("mesh.index_shards", 4, "sharded"),
     ("mesh.encode_dp", 2, "data-parallel"),
-    ("llm.provider", "local", "causal_flash_prefill"),
 ])
 def test_unported_configurations_raise_on_cuda(field, value, needle):
     cfg = FrameworkConfig()
@@ -178,6 +177,13 @@ def test_unported_configurations_raise_on_cuda(field, value, needle):
     setattr(getattr(cfg, group), name, value)
     with pytest.raises(NotImplementedError, match=needle):
         check_supported(cfg, torch.device("cuda"))
+
+
+def test_local_llm_configuration_is_served_on_cuda():
+    cfg = FrameworkConfig()
+    cfg.llm.provider = "local"
+    cfg.llm.local_checkpoint = "/nonexistent"
+    check_supported(cfg, torch.device("cuda"))
 
 
 def test_int8_index_is_served_on_the_cpu():
