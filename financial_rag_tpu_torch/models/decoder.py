@@ -32,6 +32,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from financial_rag_tpu_torch.device import DeviceLike, resolve_device
 from financial_rag_tpu_torch.ops.causal_flash import causal_flash_prefill
 
 _NEG = -1e30
@@ -82,10 +83,12 @@ class DecoderConfig:
 # ------------------------------------------------------------------ params
 
 def decoder_params_from_numpy(tree: Mapping[str, Any], *, dtype: torch.dtype = torch.float32,
-                              device="cpu") -> Dict[str, Any]:
+                              device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX package's decoder pytree (``np.asarray`` over each leaf; split,
-    fused or int8 ``{"q", "s"}`` layouts) -> the port's parameters. Float
-    leaves take ``dtype``; int8 ``q`` stays int8 and its scales ``s`` f32."""
+    fused or int8 ``{"q", "s"}`` layouts) -> the port's parameters on
+    ``resolve_device(device)``. Float leaves take ``dtype``; int8 ``q`` stays
+    int8 and its scales ``s`` f32."""
+    device = resolve_device(device)
 
     def conv(a):
         if isinstance(a, Mapping):
@@ -106,7 +109,7 @@ def decoder_params_from_numpy(tree: Mapping[str, Any], *, dtype: torch.dtype = t
 
 
 def random_decoder_params(cfg: DecoderConfig, seed: int = 0, dtype: torch.dtype = torch.float32,
-                          device="cpu") -> Dict[str, Any]:
+                          device: DeviceLike = None) -> Dict[str, Any]:
     """Deterministic small-scale init from numpy: the same draws, in the same
     order, as the JAX package's random_decoder_params."""
     rng = np.random.default_rng(seed)
@@ -132,10 +135,11 @@ def random_decoder_params(cfg: DecoderConfig, seed: int = 0, dtype: torch.dtype 
 
 def decoder_params_from_torch_state_dict(sd: Mapping[str, Any], cfg: DecoderConfig,
                                          dtype: torch.dtype = torch.float32,
-                                         device="cpu") -> Dict[str, Any]:
+                                         device: DeviceLike = None) -> Dict[str, Any]:
     """HF Qwen2ForCausalLM / LlamaForCausalLM state dict (torch tensors or
-    numpy arrays) -> the port's parameters. HF stores Linear weights as
-    [out, in]; the port keeps [in, out]."""
+    numpy arrays) -> the port's parameters on ``resolve_device(device)``. HF
+    stores Linear weights as [out, in]; the port keeps [in, out]."""
+    device = resolve_device(device)
 
     def get(name: str) -> np.ndarray:
         t = sd[name]

@@ -45,7 +45,7 @@ def _pair(kind: dict, seed: int, layout: str = "split"):
     jp = jdec.random_decoder_params(jcfg, seed=seed)
     if layout == "int8_fused":
         jp = jdec.fuse_decoder_params(jdec.quantize_decoder_params(jp))
-    return jcfg, jp, tdec.DecoderConfig(**kind), tdec.decoder_params_from_numpy(_np(jp))
+    return jcfg, jp, tdec.DecoderConfig(**kind), tdec.decoder_params_from_numpy(_np(jp), device="cpu")
 
 
 def _prompt(seed, b, s, vocab, pads=()):
@@ -251,7 +251,7 @@ def test_quantize_is_bit_identical_to_jax(kind):
     assert tq["embed"].dtype == torch.float32
     # the fused int8 layout from the JAX tree equals the port's own fusion
     tf = tdec.fuse_decoder_params(tq)
-    jf = tdec.decoder_params_from_numpy(_np(jdec.fuse_decoder_params(jq)))
+    jf = tdec.decoder_params_from_numpy(_np(jdec.fuse_decoder_params(jq)), device="cpu")
     for name in ("qkv_w", "gu_w"):
         assert torch.equal(tf["layers"][1][name]["q"], jf["layers"][1][name]["q"])
         assert torch.equal(tf["layers"][1][name]["s"], jf["layers"][1][name]["s"])
@@ -276,7 +276,7 @@ def test_state_dict_params_equal_jax():
     assert tcfg == tdec.DecoderConfig(**QWEN2)
     assert tcfg.__dict__ == jcfg.__dict__
     jp = jdec.decoder_params_from_torch_state_dict(sd, jcfg)
-    tp = tdec.decoder_params_from_torch_state_dict(sd, tcfg)
+    tp = tdec.decoder_params_from_torch_state_dict(sd, tcfg, device="cpu")
     np.testing.assert_array_equal(tp["embed"].numpy(), np.asarray(jp["embed"]))
     np.testing.assert_array_equal(tp["lm_head"].numpy(), np.asarray(jp["lm_head"]))
     for name, stacked in jp["layers"].items():
@@ -287,3 +287,37 @@ def test_state_dict_params_equal_jax():
         ref = model(torch.from_numpy(ids)).logits.numpy()
     np.testing.assert_allclose(tdec.decoder_forward(tp, ids, tcfg).numpy(), ref,
                                atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("build", ["random", "numpy", "state_dict"])
+def test_param_builders_place_weights_on_the_resolved_device(build, monkeypatch):
+    """With no device the builders follow resolve_device: the card by
+    default (so a machine without one raises), the CPU under
+    FRAG_PLATFORM=cpu."""
+    cfg = tdec.DecoderConfig(**TINY_EOS)
+    tree = _np(jdec.random_decoder_params(jdec.DecoderConfig(**TINY_EOS), seed=0))
+    sd = {"model.embed_tokens.weight": tree["embed"], "model.norm.weight": tree["final_ln"]}
+    names = {"ln1": "input_layernorm", "q_w": "self_attn.q_proj", "k_w": "self_attn.k_proj",
+             "v_w": "self_attn.v_proj", "o_w": "self_attn.o_proj",
+             "ln2": "post_attention_layernorm", "gate_w": "mlp.gate_proj",
+             "up_w": "mlp.up_proj", "down_w": "mlp.down_proj"}
+    names.update(q_b="self_attn.q_proj", k_b="self_attn.k_proj", v_b="self_attn.v_proj")
+    for i in range(cfg.num_layers):
+        for k, a in tree["layers"].items():
+            kind = "bias" if k.endswith("_b") else "weight"
+            sd[f"model.layers.{i}.{names[k]}.{kind}"] = a[i].T if k.endswith("_w") else a[i]
+    if "lm_head" in tree:
+        sd["lm_head.weight"] = tree["lm_head"]
+    builders = {"random": lambda: tdec.random_decoder_params(cfg, seed=0),
+                "numpy": lambda: tdec.decoder_params_from_numpy(tree),
+                "state_dict": lambda: tdec.decoder_params_from_torch_state_dict(sd, cfg)}
+    monkeypatch.delenv("FRAG_PLATFORM", raising=False)
+    if torch.cuda.is_available():
+        assert builders[build]()["embed"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            builders[build]()
+    monkeypatch.setenv("FRAG_PLATFORM", "cpu")
+    params = builders[build]()
+    assert params["embed"].device.type == "cpu"
+    assert params["layers"][0]["q_w"].device.type == "cpu"
