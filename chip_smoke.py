@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel).
-3. kernel  -- every kernel (K1-K9) at its main-path shapes, against its
+3. kernel  -- every kernel (K1-K10) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function, and its bound (the larger of bytes
@@ -48,10 +48,20 @@ Phases, each printing one JSON line:
 12. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
               (bf16, K9): last-position logits and each layer's attention
               output by cosine, with controls that must fail.
-13. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+13. train  -- fine-tuning at full width, bf16 compute on f32 master weights:
+              contrastive steps at the bge-small shape (256 pairs x 2 x 128),
+              listwise steps at the MiniLM-L-6 shape (64 groups x 4 x 64),
+              each with K2, K10 and K3 launched once per layer and encode and
+              K1 never; one step under torch.profiler; the retrieval uplift
+              (train_uplift's defaults), which must reach 0.5.
+14. train_parity -- one contrastive step's gradients on the card (bf16) against
+              the CPU (f32, plain versions) by cosine per leaf group, with
+              wrong-K10 controls that must fail.
+15. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8, 10) sets every launch counter to 0 just before
-it and reads them just after: each kernel of that path must have run.
+Each path (phases 4, 6, 7, 8, 10, and each part of 13) sets every launch
+counter to 0 just before it and reads them just after: each kernel of that
+path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
 available, or when the port's package is not beside this file.
@@ -162,6 +172,8 @@ KERNELS = {
                      "financial_rag_tpu/ops/ivf_probe.py:41"),
     "causal_flash_prefill": ("financial_rag_tpu_torch/csrc/causal_flash.cu",
                              "financial_rag_tpu/ops/causal_flash.py:42"),
+    "flash_attention_bwd": ("financial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "financial_rag_tpu/ops/flash_attention.py:55"),
 }
 TOPK_KERNELS = ("packed_topk_fused", "bucketed_topk_fused", "topk_matmul", "bucketed_topk")
 # the kernels each served path must launch
@@ -170,6 +182,9 @@ IVF_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "probe_s
 INT8_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "bucketed_topk_fused")
 LLM_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused",
             "causal_flash_prefill")
+TRAIN_PATH = ("flash_attention", "flash_attention_bwd", "fused_ffn")
+# the counter of each kernel whose module counts more than one (K10 beside K2)
+COUNTER_ATTR = {"flash_attention_bwd": "BWD_LAUNCHES"}
 
 # the Qwen2-0.5B shape (HF config.json of Qwen/Qwen2-0.5B), full width and depth
 QWEN2_05B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
@@ -193,6 +208,7 @@ def _counter_modules():
                                              pool_norm, topk)
 
     return {"masked_mean_l2_normalize": pool_norm, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention,
             "fused_ffn": fused_ffn, "probe_scores": ivf_probe,
             "causal_flash_prefill": causal_flash,
             **{name: topk for name in TOPK_KERNELS}}
@@ -200,16 +216,17 @@ def _counter_modules():
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0 (the sweeps of ops/topk.py count in
-    one Counter, keyed by wrapper name)."""
+    one Counter, keyed by wrapper name; K10 in its module's BWD_LAUNCHES)."""
     for name, mod in _counter_modules().items():
         if name in TOPK_KERNELS:
             mod.LAUNCHES[name] = 0
         else:
-            mod.LAUNCHES = 0
+            setattr(mod, COUNTER_ATTR.get(name, "LAUNCHES"), 0)
 
 
 def read_launches() -> dict:
-    return {name: (mod.LAUNCHES[name] if name in TOPK_KERNELS else mod.LAUNCHES)
+    return {name: (mod.LAUNCHES[name] if name in TOPK_KERNELS
+                   else getattr(mod, COUNTER_ATTR.get(name, "LAUNCHES")))
             for name, mod in _counter_modules().items()}
 
 
@@ -395,6 +412,7 @@ def kernel_cases(torch, F, seed):
     cases += sweep_cases(torch, gen, randn)
     cases += probe_cases(torch, gen, randn)
     cases += causal_cases(torch, F, randn)
+    cases += attention_bwd_cases(torch, F, randn, padded_mask)
     return cases
 
 
@@ -561,6 +579,99 @@ def causal_cases(torch, F, randn):
     return cases
 
 
+class SdpaBackward:
+    """The library yardstick of K10: SDPA's backward on the same inputs
+    ([B,H,S,D] views, the bias as a bf16 mask), timed as forward+backward
+    through torch.autograd.grad minus the forward alone."""
+
+    def __init__(self, torch, F, q, k, v, bias, dout, heads: int):
+        b, s, h = q.shape
+        self.torch, self.F = torch, F
+
+        def split(x):
+            return x.view(b, s, heads, h // heads).transpose(1, 2)
+
+        self.q, self.k, self.v = (split(x).detach().requires_grad_() for x in (q, k, v))
+        self.mask = bias.to(torch.bfloat16)[:, None, None, :]
+        self.dout = split(dout)
+        self.shape = q.shape
+
+    def forward(self):
+        return self.F.scaled_dot_product_attention(self.q, self.k, self.v, attn_mask=self.mask)
+
+    def __call__(self):
+        out = self.forward()
+        grads = self.torch.autograd.grad(out, (self.q, self.k, self.v), self.dout)
+        return tuple(g.transpose(1, 2).reshape(self.shape) for g in grads)
+
+    def ms(self, cuda_ms) -> float:
+        return cuda_ms(self.torch, self) - cuda_ms(self.torch, self.forward)
+
+
+def attention_bwd_cases(torch, F, randn, padded_mask):
+    """K10 at the train path's shapes: B=256 S=128 (one encode of the
+    contrastive step: its 256 queries and its 256 documents are two
+    launches), B=512 S=128 (both encodes as one batch), B=256 S=64 (the
+    listwise step: 64 groups x 4), B=256 S=32 (the retrieval uplift's
+    training) and B=256 S=512 (K2's table shape). S=64 and S=32 are one
+    key tile, the second partly filled. Padded rows of random length and
+    one fully masked row. Each shape up to S=128 carries the mask-ignored
+    control. The bound counts q, k, v, dO and the bias read once and dq,
+    dk, dv written once, and the five S x S x 32 products of the gradient
+    over the live keys only (a masked key adds exact zeros)."""
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+
+    H, NH = 384, 12
+    hd = H // NH
+    cases = []
+    for b, s in ((256, 128), (512, 128), (256, 64), (256, 32), (256, 512)):
+        q, k, v, do = (randn(b, s, H, dtype=torch.bfloat16) for _ in range(4))
+        mask = padded_mask(b, s, fully_masked_row=True)
+        bias = torch.where(mask > 0, 0.0, -1e9).float()
+        live_pairs = s * int(mask.sum().item()) + s * s   # the masked row's keys all count
+        control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
+            q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH)) if s <= 128 else None
+        cases.append(("flash_attention_bwd", f"B={b},S={s},H={H},heads={NH},bf16",
+                      lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd(
+                          q, k, v, bias, do, num_heads=NH),
+                      lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd_plain(
+                          q, k, v, bias, do, num_heads=NH),
+                      SdpaBackward(torch, F, q, k, v, bias, do, NH),
+                      attention_bwd_cmp(NH, control),
+                      bound(7 * b * s * H * 2 + b * s * 4, 5 * 2 * NH * hd * live_pairs, "bf16")))
+    return cases
+
+
+def row_rel_err(got, want, heads: int) -> float:
+    """Largest max|got - want| over one (position, head) row of a [B,S,H]
+    gradient, as a share of max|want| over the same row; a row of exact
+    zeros in ``want`` must be exact zeros in ``got``."""
+    got, want = (t.float().reshape(-1, heads, t.shape[-1] // heads) for t in (got, want))
+    err = (got - want).abs().amax(dim=-1)
+    return (err / want.abs().amax(dim=-1)).masked_fill(err == 0, 0.0).max().item()
+
+
+def attention_bwd_cmp(heads: int, control=None):
+    """dq, dk and dv each within 2^-6 of every (position, head) row's
+    largest value (two bf16 ulps of it), as K9's check; rows of exact zeros
+    (masked keys' dk and dv) exactly zero. ``control``, the kernel run with
+    the padding mask ignored, must fail the same bound."""
+    rtol = 2.0 ** -6
+
+    def cmp(a, b):
+        rels = {name: row_rel_err(x, y, heads) for name, x, y in zip(("dq", "dk", "dv"), a, b)}
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+        detail = {"rtol": rtol, "max_row_rel_err": rels}
+        ok = max(rels.values()) <= rtol
+        if control is not None:
+            c = control()
+            crel = {name: row_rel_err(x, y, heads) for name, x, y in zip(("dq", "dk", "dv"), c, b)}
+            detail["control_mask_ignored_row_rel_err"] = crel
+            ok = ok and max(crel.values()) > rtol
+        return err, ok, detail
+    return cmp
+
+
 def causal_rel_err(a, b, pad: int, hq: int, first: int = 0) -> float:
     """Largest max|a - b| over one (position, head) output row of K9, as a
     share of max|b| over the same row, for rows at or past pad + first."""
@@ -612,7 +723,7 @@ def max_abs_cmp(tol):
 
 
 def phase_kernels(torch, F, seed):
-    """Returns {kernel name: the entry of its largest main-path shape}."""
+    """Returns {kernel name: the entry of its first (main-path) shape}."""
     results = {}
     failures = []
     for name, shape, run, plain, library, cmp, (bound_ms, bound_by) in kernel_cases(torch, F, seed):
@@ -622,8 +733,17 @@ def phase_kernels(torch, F, seed):
         err, ok, detail = cmp(out, ref)
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain)
-        lib_ms = cuda_ms(torch, library) if library is not None else None
-        if library is not None and name != "causal_flash_prefill":   # K9's SDPA is at pad 0
+        if isinstance(library, SdpaBackward):
+            lib_ms = library.ms(cuda_ms)
+            # without the fully masked last row: SDPA's log-sum-exp of scores
+            # all near -1e9 loses log(S) in f32, so its P there sums to S
+            detail["library_max_abs_err_real_rows"] = max(
+                (x[:-1].float() - y[:-1].float()).abs().max().item()
+                for x, y in zip(library(), out))
+        else:
+            lib_ms = cuda_ms(torch, library) if library is not None else None
+        if library is not None and name not in ("causal_flash_prefill", "flash_attention_bwd"):
+            # K9's SDPA is at pad 0; K10's is compared above
             lib_err = (library().transpose(1, 2).reshape(out.shape).float() - out.float()
                        ).abs().max().item()
             detail["library_max_abs_err"] = lib_err
@@ -1026,7 +1146,7 @@ def phase_backends(torch, rt, cfg, work: Path):
 
 
 def _kernel_family(name: str) -> str:
-    for family, needles in (("port kernels", ("attn_fwd_kernel", "ffn_fwd_kernel",
+    for family, needles in (("port kernels", ("attn_fwd_kernel", "attn_bwd_", "ffn_fwd_kernel",
                                               "packed_sweep_kernel", "packed_merge_kernel",
                                               "pool_norm_kernel", "bucketed_sweep_kernel",
                                               "bucketed_extract_kernel", "bucketed_write_kernel",
@@ -1039,30 +1159,14 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GOLDEN_QUESTIONS)):
-    """Where one query's time goes: the first ``n_questions`` golden
-    questions, reworded so that neither the result cache nor the
-    query-embedding cache answers them, run once more under torch.profiler.
-    Device busy time is the sum of the kernels' and copies' own device
-    time; the rest of the wall clock the card sat idle. The host spans are
-    the package's own time_block labels."""
+def device_profile(prof, wall_ms: float, spans=()) -> dict:
+    """Device busy time (the union of the kernels' and copies' own device
+    intervals), idle share of ``wall_ms``, device time by family and by
+    kernel, from one torch.profiler run. ``spans`` are the package's
+    time_block labels, which also appear on the device timeline and would
+    count their gaps as busy."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from financial_rag_tpu_torch.utils.timing import GLOBAL_TIMER
-
-    questions = [f"Tell me briefly: {q}" for q in GOLDEN_QUESTIONS[:n_questions]]
-    torch.cuda.synchronize()
-    GLOBAL_TIMER.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for q in questions:
-            check(rt.engine.query(q).get("success") is True, f"profiled query failed: {q!r}")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = GLOBAL_TIMER.summary()
-    # the device's own activities (kernels, copies); the time_block ranges
-    # also appear on the device timeline and would count their gaps as busy
     acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False) and e.name not in spans]
     by_name: dict = {}
@@ -1084,13 +1188,35 @@ def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GO
         if _kernel_family(n) == "port kernels":
             bare = n.replace("(anonymous namespace)::", "").removeprefix("void ")
             port[bare.split("(")[0].split("<")[0]] = {"ms": ms, "calls": c}
-    emit({"phase": "profile", "runtime": label, "queries": len(questions), "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "device_ms_by_family": families,
-          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, (ms, c) in top],
-          "port_kernel_ms": port,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ms_by_family": families,
+            "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, (ms, c) in top],
+            "port_kernel_ms": port}
+
+
+def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GOLDEN_QUESTIONS)):
+    """Where one query's time goes: the first ``n_questions`` golden
+    questions, reworded so that neither the result cache nor the
+    query-embedding cache answers them, run once more under torch.profiler.
+    The host spans are the package's own time_block labels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from financial_rag_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    questions = [f"Tell me briefly: {q}" for q in GOLDEN_QUESTIONS[:n_questions]]
+    torch.cuda.synchronize()
+    GLOBAL_TIMER.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in questions:
+            check(rt.engine.query(q).get("success") is True, f"profiled query failed: {q!r}")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = GLOBAL_TIMER.summary()
+    summary = device_profile(prof, wall_ms, spans)
+    emit({"phase": "profile", "runtime": label, "queries": len(questions), **summary,
           "host_span_ms": {k: v["total_s"] * 1e3 for k, v in list(spans.items())[:14]}})
-    return port
+    return summary["port_kernel_ms"]
 
 
 def phase_parity(torch, rt, paths, texts):
@@ -1375,6 +1501,261 @@ def phase_decoder_parity(torch, rt, ckpt: Path):
     check(not seen, f"decoder parity: the controls {seen} pass the gates, which cannot see them")
 
 
+# ------------------------------------------------------------- training
+
+# Card (bf16, K2/K10/K3) against CPU (f32, plain versions) gradient parity
+# (phase_train_parity): the cosine each leaf group's gradient must reach.
+# Each sits between the right kernels' reading and the controls' (PERF.md).
+TRAIN_GRAD_COSINE = 0.999
+# The loss's bar, |card - CPU|: about ten times the forward's (K2, K3)
+# readings (PERF.md). The K10 controls change only the backward, so their
+# losses equal the right kernels' and the cosines gate them.
+TRAIN_LOSS_TOL = 1e-3
+GRAD_GROUPS = {
+    "embeddings": ("embeddings/word", "embeddings/position", "embeddings/token_type"),
+    "q": ("layers/q_w", "layers/q_b"),
+    "k": ("layers/k_w",),   # k_b: softmax ignores a shift of every score, its gradient is 0
+    "v": ("layers/v_w", "layers/v_b"),
+    "o": ("layers/o_w", "layers/o_b"),
+    "ffn": ("layers/ffn_in_w", "layers/ffn_in_b", "layers/ffn_out_w", "layers/ffn_out_b"),
+    "layer_norms": ("embeddings/ln_scale", "embeddings/ln_bias", "layers/attn_ln_scale",
+                    "layers/attn_ln_bias", "layers/ffn_ln_scale", "layers/ffn_ln_bias"),
+}
+
+
+def padded_pair_batch(rng, b: int, s: int, vocab: int = 30000) -> dict:
+    """Seeded random ids; each side's rows have random lengths (row 0 full,
+    the shortest 8 tokens)."""
+    import numpy as np
+
+    out = {}
+    for side in ("q", "d"):
+        lens = rng.integers(8, s + 1, size=b)
+        lens[0], lens[-1] = s, 8
+        out[f"{side}_ids"] = rng.integers(5, vocab, size=(b, s)).astype(np.int32)
+        out[f"{side}_mask"] = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    return out
+
+
+def check_train_launches(launches: dict, steps: int, layers: int, encodes: int, what: str):
+    """K2, K10 and K3 each launched once per layer of every encode of every
+    step; K1 never (training pools with the plain mean)."""
+    want = steps * layers * encodes
+    got = {k: launches[k] for k in TRAIN_PATH}
+    check(all(v == want for v in got.values()),
+          f"{what}: K2/K10/K3 launches {got}, want {want} each")
+    check(launches["masked_mean_l2_normalize"] == 0,
+          f"{what}: K1 launched {launches['masked_mean_l2_normalize']} times in training")
+
+
+def run_steps(torch, step, params, opt_state, batch, *, warmup: int, steps: int, what: str):
+    """``warmup`` + ``steps`` train steps on one batch; each step's time by
+    CUDA events (bench_train.time_steps). Checks every loss is finite and
+    that the parameters moved."""
+    from financial_rag_tpu_torch.scripts.bench_train import time_steps
+
+    watched = params["layers"]["q_w"]
+    before = watched.detach().clone()
+    losses = []
+
+    def run():
+        _, _, loss = step(params, opt_state, batch)
+        losses.append(loss)
+
+    ms = time_steps(run, torch.device("cuda"), warmup=warmup, steps=steps)
+    losses = [float(x) for x in losses]
+    check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
+          f"{what}: a loss is not finite: {losses}")
+    moved = (watched.detach() - before).abs().max().item()
+    check(moved > 0, f"{what}: the parameters did not move")
+    return ms, losses, moved
+
+
+def phase_train(torch, seed: int):
+    """Fine-tuning at full width, bf16 compute with f32 master weights:
+    (1) contrastive steps of make_train_step at the bge-small shape, 256
+    pairs x 2 x 128 tokens (the JAX bench's batch: seeded random ids, no
+    padding), 3 warm-up and 10 timed; (2) listwise steps of
+    make_rerank_train_step at the MiniLM-L-6 shape, 64 groups x 4 x 64
+    tokens, 1 warm-up and 5 timed; (3) one contrastive step under the
+    profiler; (4) the retrieval uplift with train_uplift's defaults (200
+    steps of 256 pairs at S=32, lr 3e-4, 64 concepts, 2,048 / 256 pairs),
+    held to the JAX package's bar, uplift >= 0.5; its eval runs the serving
+    path (K1, K2, K3, K4). Returns the contrastive steps' launches."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.scripts.bench_train import bge_small_config, random_pair_batch
+    from financial_rag_tpu_torch.training import make_rerank_train_step, make_train_step
+    from financial_rag_tpu_torch.training.uplift import measure_retrieval_uplift
+
+    dev = torch.device("cuda")
+    cfg = bge_small_config()
+    step, init_state = make_train_step(cfg, device=dev)
+    check(step.compute_dtype == torch.bfloat16, "the train step does not compute in bf16")
+    params, opt_state = init_state(random_params(cfg, seed=seed))
+    check(all(t.dtype == torch.float32 for g in params.values() for t in g.values()),
+          "the master weights are not float32")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in random_pair_batch(256, 128, seed).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, losses, moved = run_steps(torch, step, params, opt_state, batch, warmup=3, steps=10,
+                                  what="contrastive")
+    launches = read_launches()
+    check_train_launches(launches, 13, cfg.num_layers, 2, "contrastive")
+    contrastive = {"shape": "bge-small (12L h384), 256 pairs x 2 x 128, bf16 / f32 masters",
+                   "step_ms_median": statistics.median(ms), "step_ms": ms,
+                   "pairs_per_s": 256 / statistics.median(ms) * 1e3,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "loss_first": losses[0], "loss_last": losses[-1],
+                   "max_param_move": moved, "launches": launches}
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    step_profile = device_profile(prof, wall_ms)
+    del params, opt_state, batch, step
+    torch.cuda.empty_cache()
+
+    rcfg = bge_small_config(layers=6, num_labels=1)
+    rstep, rinit = make_rerank_train_step(rcfg, device=dev)
+    rparams, ropt = rinit(random_params(rcfg, seed=seed + 1))
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, 65, size=(64, 4))
+    mask = (np.arange(64)[None, None, :] < lens[:, :, None]).astype(np.int32)
+    rbatch = {"ids": rng.integers(5, 30000, size=(64, 4, 64)).astype(np.int32), "mask": mask,
+              "types": ((np.arange(64)[None, None, :] >= lens[:, :, None] // 2) * mask)
+              .astype(np.int32)}
+    rbatch = {k: torch.from_numpy(v).to(dev) for k, v in rbatch.items()}
+    reset_launches()
+    rms, rlosses, rmoved = run_steps(torch, rstep, rparams, ropt, rbatch, warmup=1, steps=5,
+                                     what="listwise")
+    rlaunches = read_launches()
+    check_train_launches(rlaunches, 6, rcfg.num_layers, 1, "listwise")
+    listwise = {"shape": "MiniLM-L-6 (6L h384, 1 label), 64 groups x 4 x 64, bf16 / f32 masters",
+                "step_ms_median": statistics.median(rms), "step_ms": rms,
+                "loss_first": rlosses[0], "loss_last": rlosses[-1],
+                "max_param_move": rmoved, "launches": rlaunches}
+    del rparams, ropt, rbatch, rstep
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = measure_retrieval_uplift(cfg, device=dev, steps=200, batch_size=256, lr=3e-4,
+                                   seq_len=32, k=10, n_concepts=64, n_train=2048, n_eval=256,
+                                   seed=seed)
+    uplift_s = time.perf_counter() - t0
+    ulaunches = read_launches()
+    check_path_launched(("masked_mean_l2_normalize", "packed_topk_fused", *TRAIN_PATH),
+                        ulaunches, "uplift")
+    emit({"phase": "train", "contrastive": contrastive, "listwise": listwise,
+          "contrastive_step_profile": step_profile,
+          "uplift": {**rep, "wall_s": uplift_s, "launches": ulaunches}})
+    check(rep["uplift"] >= 0.5, f"retrieval uplift {rep['uplift']} < 0.5: {rep}")
+    return launches
+
+
+def grad_group_cosines(torch, got, want) -> dict:
+    """Cosine between the card's and the CPU's gradient of each leaf group
+    (every layer's leaves of the group flattened into one vector)."""
+    out = {}
+    for group, names in GRAD_GROUPS.items():
+        a, b = [], []
+        for name in names:
+            g, n = name.split("/")
+            a.append(got[g][n].float().cpu().flatten())
+            b.append(want[g][n].float().flatten())
+        a, b = torch.cat(a).double(), torch.cat(b).double()   # f32 sums of ~10M terms drift
+        norms = float(a.norm() * b.norm())
+        out[group] = float(a @ b) / norms if norms > 0 else 0.0   # a zero gradient: 0
+    return out
+
+
+def phase_train_parity(torch, seed: int):
+    """One contrastive step's loss and gradients on the same seeded
+    bge-small-shape weights and padded batch (8 pairs x 128 tokens): on the
+    card in bf16 (K2, K10, K3) and on the CPU in f32 (the plain versions).
+    Each leaf group's gradient cosine must reach TRAIN_GRAD_COSINE. The
+    controls rerun the card's step with K10 wrong: its dQ zeroed, dK and dV
+    swapped between heads 0 and 1, the padding mask ignored in the
+    backward; each must fail a gate, or the gates could not tell a wrong
+    K10 from a right one."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+    from financial_rag_tpu_torch.scripts.bench_train import bge_small_config
+    from financial_rag_tpu_torch.training import make_train_step
+
+    cfg = bge_small_config()
+    params = random_params(cfg, seed=seed + 2)
+    batch = padded_pair_batch(np.random.default_rng(seed + 2), 8, 128)
+    card, card_init = make_train_step(cfg, device="cuda")
+    cpu, cpu_init = make_train_step(cfg, device="cpu")
+    card_params, _ = card_init(params)
+    cpu_params, _ = cpu_init(params)
+    torch.set_num_threads(max(os.cpu_count() or 1, 1))
+    want_loss, want = cpu.value_and_grad(cpu_params, batch)
+    k10 = fa.flash_attention_bwd
+
+    def readings(backward):
+        fa.flash_attention_bwd = backward
+        try:
+            reset_launches()
+            loss, grads = card.value_and_grad(card_params, batch)
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention_bwd = k10
+        return float(loss), grads_cos(grads), read_launches()
+
+    def grads_cos(grads):
+        return grad_group_cosines(torch, grads, want)
+
+    def swap_heads(t):
+        b, s, h = t.shape
+        t = t.view(b, s, cfg.num_heads, h // cfg.num_heads).clone()
+        t[:, :, [0, 1]] = t[:, :, [1, 0]]
+        return t.view(b, s, h)
+
+    def dq_zeroed(q, k, v, bias, dout, **kw):
+        dq, dk, dv = k10(q, k, v, bias, dout, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    def dk_dv_heads_swapped(q, k, v, bias, dout, **kw):
+        dq, dk, dv = k10(q, k, v, bias, dout, **kw)
+        return dq, swap_heads(dk), swap_heads(dv)
+
+    def mask_ignored(q, k, v, bias, dout, **kw):
+        return k10(q, k, v, torch.zeros_like(bias), dout, **kw)
+
+    loss, real, launches = readings(k10)
+    check(launches["flash_attention_bwd"] == 2 * cfg.num_layers,
+          f"train parity: {launches['flash_attention_bwd']} K10 launches for one step")
+    control_runs = {name: readings(fn)[:2] for name, fn in (("dq_zeroed", dq_zeroed),
+                                                            ("dk_dv_heads_swapped", dk_dv_heads_swapped),
+                                                            ("mask_ignored", mask_ignored))}
+    controls = {name: cos for name, (_, cos) in control_runs.items()}
+    emit({"phase": "train_parity", "pairs": 8, "seq": 128,
+          "live_tokens": int(batch["q_mask"].sum() + batch["d_mask"].sum()),
+          "loss_card": loss, "loss_cpu": float(want_loss), "loss_tol": TRAIN_LOSS_TOL,
+          "grad_cosine": real, "bar": TRAIN_GRAD_COSINE, "controls": controls,
+          "control_losses": {name: cl for name, (cl, _) in control_runs.items()}})
+
+    def passes(r):
+        return all(v >= TRAIN_GRAD_COSINE for v in r.values())
+
+    check(abs(loss - float(want_loss)) <= TRAIN_LOSS_TOL,
+          f"train parity: loss {loss} vs {float(want_loss)}")
+    check(passes(real), f"train parity: gradient cosines {real}")
+    seen = [n for n, r in controls.items() if passes(r)]
+    check(not seen, f"train parity: the controls {seen} pass the gates, which cannot see them")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1420,12 +1801,17 @@ def main(argv=None) -> int:
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)
             phase_llm_profile(torch, rt_llm)
             phase_decoder_parity(torch, rt_llm, ckpt)
+            del rt, rt_llm
+            torch.cuda.empty_cache()
             # each kernel's count from the path that serves it
             launches["causal_flash_prefill"] = llm_launches["causal_flash_prefill"]
             launches["bucketed_topk_fused"] = int8_launches["bucketed_topk_fused"]
             launches["topk_matmul"] = backend_launches["topk_matmul"]
             launches["bucketed_topk"] = backend_launches["bucketed_topk"]
             launches["probe_scores"] = ivf_launches["probe_scores"]
+        train_launches = phase_train(torch, args.seed)
+        phase_train_parity(torch, args.seed)
+        launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     except Exception:  # noqa: BLE001 -- any failure ends the run non-zero
         traceback.print_exc()
         return 1

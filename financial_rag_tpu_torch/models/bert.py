@@ -11,6 +11,13 @@ run the plain PyTorch versions for CPU tensors. The JAX package's seq >= 256
 cut-off (resolve_attention_impl) was a TPU tuning and has no counterpart.
 Activations run in the compute dtype (bf16 on the GPU) with float32 layer
 norms and float32 matmul accumulation.
+
+Training runs the same forward on the float32 master tree (each matmul
+casts its weight to the compute dtype per call, as the JAX package does);
+attention and the FFN are autograd Functions (K2/K10, K3 with a
+rematerialising backward). The fused pooling kernel (K1) has no backward,
+so training pools with the plain mean (``fused_pool=False``), as the JAX
+package's training pools through XLA.
 """
 
 from __future__ import annotations
@@ -19,11 +26,13 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from financial_rag_tpu_torch.config import ModelConfig
 from financial_rag_tpu_torch.ops.flash_attention import flash_attention
 from financial_rag_tpu_torch.ops.fused_ffn import fused_ffn
-from financial_rag_tpu_torch.ops.pool_norm import masked_mean_l2_normalize
+from financial_rag_tpu_torch.ops.pool_norm import (masked_mean_l2_normalize,
+                                                   masked_mean_l2_normalize_plain)
 
 # A BertParams is a nested dict of tensors:
 # {
@@ -47,22 +56,20 @@ def prepare_params(params: BertParams, *, device, compute_dtype: torch.dtype) ->
     """Device copy of a parameter tree for inference. The matmul weights and
     biases of the layer stack are cast to the compute dtype once here (the
     JAX package casts them on every call; the values are the same), every
-    other leaf stays float32, and every leaf is contiguous."""
+    other leaf stays float32, and every leaf is contiguous and detached
+    from any training graph."""
     out: BertParams = {}
     for group, leaves in params.items():
         out[group] = {}
         for name, t in leaves.items():
             dt = compute_dtype if group == "layers" and name in MATMUL_LEAVES else torch.float32
-            out[group][name] = t.to(device=device, dtype=dt).contiguous()
+            out[group][name] = t.detach().to(device=device, dtype=dt).contiguous()
     return out
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    """In float32 (biased variance, as the JAX package), back in x's dtype."""
+    return F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps).to(x.dtype)
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -97,9 +104,11 @@ def bert_forward(
     input_ids = input_ids.long()
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    x = (emb["word"][input_ids]
+    # F.embedding rather than indexing: on the H100 the backward of indexing
+    # (indexing_backward_kernel) took 45 of a 309 ms contrastive step (PERF.md)
+    x = (F.embedding(input_ids, emb["word"])
          + emb["position"][:s][None, :, :]
-         + emb["token_type"][token_type_ids.long()])
+         + F.embedding(token_type_ids.long(), emb["token_type"]))
     x = _layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
     x = x.to(compute_dtype)
 
@@ -112,13 +121,19 @@ def bert_forward(
     return x
 
 
-def pool_hidden(hidden: torch.Tensor, attention_mask: torch.Tensor, pooling: str) -> torch.Tensor:
-    """Pool + L2-normalize -> [B, H] float32 unit vectors."""
+def pool_hidden(hidden: torch.Tensor, attention_mask: torch.Tensor, pooling: str, *,
+                fused_pool: bool = True) -> torch.Tensor:
+    """Pool + L2-normalize -> [B, H] float32 unit vectors. Mean pooling runs
+    the fused kernel (K1, no backward) unless ``fused_pool`` is False, which
+    takes K1's differentiable plain version, the formula of the JAX
+    package's XLA path."""
     if pooling == "cls":
         pooled = hidden[:, 0, :].float()
         return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     if pooling == "mean":
-        return masked_mean_l2_normalize(hidden.contiguous(), attention_mask)
+        if fused_pool:
+            return masked_mean_l2_normalize(hidden.contiguous(), attention_mask)
+        return masked_mean_l2_normalize_plain(hidden, attention_mask)
     raise ValueError(f"unknown pooling mode: {pooling}")
 
 
@@ -131,11 +146,12 @@ def bert_encode(
     config: ModelConfig,
     pooling: str = "mean",
     compute_dtype: torch.dtype = torch.float32,
+    fused_pool: bool = True,
 ) -> torch.Tensor:
     """Sentence-embedding forward: encoder stack -> pool -> L2 norm. [B, H] f32."""
     hidden = bert_forward(params, input_ids, attention_mask, token_type_ids,
                           config=config, compute_dtype=compute_dtype)
-    return pool_hidden(hidden, attention_mask, pooling)
+    return pool_hidden(hidden, attention_mask, pooling, fused_pool=fused_pool)
 
 
 def cross_encoder_forward(

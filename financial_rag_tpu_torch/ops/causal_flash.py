@@ -57,6 +57,7 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return causal_flash_prefill_plain(q, k, v, pad_len, num_q_heads=num_q_heads,
                                           num_kv_heads=num_kv_heads)
     global LAUNCHES
+    kernel_lib.require_no_grad("causal_flash_prefill", q, k, v)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("causal_flash_prefill takes q [B,S,Hq*D] and k, v [B,S,Hkv*D]")
     b, s, hq = q.shape

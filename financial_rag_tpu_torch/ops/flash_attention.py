@@ -1,9 +1,14 @@
-"""K2: fused bidirectional multi-head self-attention, forward.
+"""K2 and K10: fused bidirectional multi-head self-attention and its backward.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors and
-runs :func:`flash_attention_plain` for CPU tensors. Counterpart of the
-forward of financial_rag_tpu/ops/flash_attention.py; the backward and the
-tensor-parallel wrapper are later slices of the port (ROADMAP.md).
+``flash_attention`` is the :class:`FlashAttention` autograd Function. Its
+forward launches K2 (``csrc/flash_attention.cu``) for CUDA tensors and runs
+:func:`flash_attention_plain` for CPU tensors. Like the JAX package's custom
+VJP it saves only q, k, v and the bias, and its backward recomputes the
+probabilities: :func:`flash_attention_bwd` launches K10
+(``csrc/flash_attention_bwd.cu``) for CUDA tensors and runs
+:func:`flash_attention_bwd_plain` for CPU tensors. Counterpart of
+financial_rag_tpu/ops/flash_attention.py; the tensor-parallel wrapper is a
+later slice of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,8 +17,30 @@ import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
 
-LAUNCHES = 0
-KERNEL_HEAD_DIM = 32  # the only head width the CUDA kernel is built for
+LAUNCHES = 0        # K2, the forward
+BWD_LAUNCHES = 0    # K10, the backward
+KERNEL_HEAD_DIM = 32  # the only head width the CUDA kernels are built for
+
+
+def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B,S,H] (heads interleaved along H) -> [B,N,S,D] float32."""
+    b, s, h = x.shape
+    return x.reshape(b, s, num_heads, h // num_heads).transpose(1, 2).float()
+
+
+def _merge(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    b, n, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, n * d).to(dtype)
+
+
+def _probabilities(q, k, mask_bias, num_heads: int) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) in f32, [B,N,S,S]."""
+    b, s, h = q.shape
+    scale = 1.0 / ((h // num_heads) ** 0.5)
+    scores = (_split(q, num_heads) @ _split(k, num_heads).transpose(-1, -2) * scale
+              + mask_bias.reshape(b, 1, 1, s).float())
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,44 +48,103 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """[B,S,H] q/k/v (heads interleaved along H) + additive key bias with
     B*S elements -> [B,S,H] in q.dtype. Scores and softmax in f32; P is cast
     to v.dtype before P@V, as the TPU kernel does."""
+    p = _probabilities(q, k, mask_bias, num_heads)
+    return _merge(p.to(v.dtype).float() @ _split(v, num_heads), q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              mask_bias: torch.Tensor, dout: torch.Tensor, *,
+                              num_heads: int):
+    """(dq, dk, dv), each [B,S,H] in q.dtype, with the TPU kernel's rounding
+    points (_attn_bwd_kernel): P, dP and dS in f32; P^T and dS cast to q's
+    dtype before the products that take them; f32 accumulation."""
+    dt = q.dtype
+    scale = 1.0 / ((q.shape[-1] // num_heads) ** 0.5)
+    p = _probabilities(q, k, mask_bias, num_heads)
+    do = _split(dout.to(dt), num_heads)
+    dv = p.transpose(-1, -2).to(dt).float() @ do
+    dp = do @ _split(v, num_heads).transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = ds.to(dt).float() @ _split(k, num_heads) * scale
+    dk = ds.transpose(-1, -2).to(dt).float() @ _split(q, num_heads) * scale
+    return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
+
+
+def _kernel_inputs(name: str, q, k, v, mask_bias, num_heads: int, *extra):
+    """Checks what the kernels take; returns (the [B,S] f32 bias, device)."""
     b, s, h = q.shape
-    d = h // num_heads
-    bias = mask_bias.reshape(b, 1, 1, s).float()
+    if k.shape != q.shape or v.shape != q.shape or any(t.shape != q.shape for t in extra):
+        raise ValueError(f"{name}: q, k, v (and dout) must share one [B,S,H] shape")
+    if h != num_heads * KERNEL_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, "
+                         f"got H={h} over {num_heads} heads")
+    for i, t in enumerate((q, k, v, *extra)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} kernel takes bfloat16, input {i} is {t.dtype}")
+    bias = mask_bias.reshape(b, s).to(torch.float32).contiguous()
+    dev = kernel_lib.require_cuda(q, k, v, bias, *extra)
+    kernel_lib.require_contiguous(name, q, k, v, *extra)
+    if any(t.data_ptr() % 16 for t in (q, k, v, *extra)):
+        raise ValueError(f"{name} kernel needs 16-byte aligned inputs")
+    return bias, dev
 
-    def split(x):
-        return x.reshape(b, s, num_heads, d).transpose(1, 2).float()  # [B,N,S,D]
 
-    scores = split(q) @ split(k).transpose(-1, -2) * (1.0 / (d ** 0.5)) + bias
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
-    o = p.to(v.dtype).float() @ split(v)
-    return o.transpose(1, 2).reshape(b, s, h).to(q.dtype)
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask_bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
-    """Fused multi-head self-attention. Returns [B, S, H] in q.dtype. The
-    CUDA kernel takes bf16 at head_dim 32."""
+def _forward(q, k, v, mask_bias, num_heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask_bias, num_heads=num_heads)
     global LAUNCHES
     b, s, h = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("q, k and v must share one [B,S,H] shape")
-    if h != num_heads * KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, "
-                         f"got H={h} over {num_heads} heads")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel takes bfloat16, {name} is {t.dtype}")
-    bias = mask_bias.reshape(b, s).to(torch.float32).contiguous()
-    dev = kernel_lib.require_cuda(q, k, v, bias)
-    kernel_lib.require_contiguous("flash_attention", q, k, v)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel needs 16-byte aligned q, k and v")
+    bias, dev = _kernel_inputs("flash_attention", q, k, v, mask_bias, num_heads)
     out = torch.empty_like(q)
     kernel_lib.launch("flash_attention", "frag_flash_attention", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
                       kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, h, num_heads)
     LAUNCHES += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask_bias: torch.Tensor, dout: torch.Tensor, *,
+                        num_heads: int):
+    """(dq, dk, dv) of :func:`flash_attention` at dout, each [B,S,H] in
+    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, mask_bias, dout, num_heads=num_heads)
+    global BWD_LAUNCHES
+    kernel_lib.require_no_grad("flash_attention_bwd", q, k, v, dout)
+    b, s, h = q.shape
+    dout = dout.to(q.dtype).contiguous()
+    bias, dev = _kernel_inputs("flash_attention_bwd", q, k, v, mask_bias, num_heads, dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((3, b, num_heads, s), dtype=torch.float32, device=dev)
+    kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
+                      *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv, stats)),
+                      b, s, h, num_heads)
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 forward, K10 backward (the plain versions for CPU tensors). Saves
+    q, k, v and the bias only, as the JAX custom VJP does; the bias is the
+    padding mask made from the input ids and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_bias, num_heads: int):
+        ctx.save_for_backward(q, k, v, mask_bias)
+        ctx.num_heads = num_heads
+        return _forward(q, k, v, mask_bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask_bias = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, mask_bias, dout, num_heads=ctx.num_heads)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask_bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """Fused multi-head self-attention. Returns [B, S, H] in q.dtype.
+    Differentiable in q, k and v. The CUDA kernels take bf16 at head_dim
+    32."""
+    return FlashAttention.apply(q, k, v, mask_bias, num_heads)

@@ -1,11 +1,15 @@
-"""K3: fused BERT feed-forward, forward: gelu(x @ W1 + b1) @ W2 + b2.
+"""K3: fused BERT feed-forward, gelu(x @ W1 + b1) @ W2 + b2, and its backward.
 
-``fused_ffn`` launches ``csrc/fused_ffn.cu`` for CUDA tensors and runs
-:func:`fused_ffn_plain` for CPU tensors. Counterpart of the forward of
-financial_rag_tpu/ops/fused_ffn.py, with one deliberate difference: GELU is
-the exact erf form (the checkpoints', HF's and the JAX package's own XLA
-path), where the TPU kernel used the tanh form only because Mosaic has no
-erf. The backward is a later slice of the port (ROADMAP.md).
+``fused_ffn`` is the :class:`FusedFFN` autograd Function. Its forward
+launches ``csrc/fused_ffn.cu`` for CUDA tensors and runs
+:func:`fused_ffn_plain` for CPU tensors; its backward is
+:func:`fused_ffn_bwd`, the JAX package's rematerialising backward
+(financial_rag_tpu/ops/fused_ffn.py ``_core_bwd``, XLA there, so plain
+f32 matmuls here): it recomputes the intermediate from the saved x instead
+of keeping it. One deliberate difference from the JAX package: GELU is the
+exact erf form (the checkpoints', HF's and the JAX package's own XLA path),
+in the forward and in its derivative, where the TPU kernel used the tanh
+form only because Mosaic has no erf.
 """
 
 from __future__ import annotations
@@ -44,10 +48,25 @@ def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return y.to(dt)
 
 
-def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x [..., H] -> [..., H] in x.dtype, the [.., I] intermediate kept on
-    chip. The CUDA kernel takes bf16 at H = 384."""
+def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, dy: torch.Tensor):
+    """(dx, dw1, db1, dw2, db2), each in its input's dtype. Recomputes
+    h1 = x W1 + b1 once, in f32 from the weights as given (the f32 master
+    weights in training), and takes every gradient in f32, as _core_bwd."""
+    h_dim = x.shape[-1]
+    xf = x.reshape(-1, h_dim).float()
+    dyf = dy.reshape(-1, h_dim).float()
+    w1f, w2f = w1.float(), w2.float()
+    h1 = xf @ w1f + b1.float()
+    a = F.gelu(h1, approximate="none")
+    dh1 = torch.ops.aten.gelu_backward(dyf @ w2f.T, h1, approximate="none")
+    dx = (dh1 @ w1f.T).to(x.dtype).reshape(x.shape)
+    return (dx, (xf.T @ dh1).to(w1.dtype), dh1.sum(0).to(b1.dtype),
+            (a.T @ dyf).to(w2.dtype), dyf.sum(0).to(b2.dtype))
+
+
+def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_ffn_plain(x, w1, b1, w2, b2)
     global LAUNCHES
@@ -59,11 +78,13 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"fused_ffn kernel takes H={KERNEL_HIDDEN} and I a multiple of "
                          f"{KERNEL_CHUNK}; got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
-    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"fused_ffn kernel takes bfloat16, {name} is {t.dtype}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_ffn kernel takes bfloat16, x is {x.dtype}")
+    # the weights in x's dtype: no copy for a bf16 inference tree, one cast
+    # per call from the f32 master weights in training
+    w1, b1, w2, b2 = (t.to(x.dtype).contiguous() for t in (w1, b1, w2, b2))
     dev = kernel_lib.require_cuda(x, w1, b1, w2, b2)
-    kernel_lib.require_contiguous("fused_ffn", x, w1, b1, w2, b2)
+    kernel_lib.require_contiguous("fused_ffn", x)
     for t in (x, w1, w2):
         if t.data_ptr() % 16:
             raise ValueError("fused_ffn kernel needs 16-byte aligned x, w1 and w2")
@@ -84,3 +105,27 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       npad, h_dim, i_dim, splits)
     LAUNCHES += 1
     return out[:n].reshape(orig_shape)
+
+
+class FusedFFN(torch.autograd.Function):
+    """K3 forward (the plain version for CPU tensors), rematerialising
+    backward. Takes the weights as they are kept (f32 masters in training)
+    and casts them to x's dtype for the forward only, so the weight
+    gradients are computed and returned in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_ffn_bwd(*ctx.saved_tensors, dy)
+
+
+def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """x [..., H] -> [..., H] in x.dtype, the [.., I] intermediate kept on
+    chip. Differentiable in x and the weights. The CUDA kernel takes bf16 x
+    at H = 384 (the weights are cast to x's dtype)."""
+    return FusedFFN.apply(x, w1, b1, w2, b2)

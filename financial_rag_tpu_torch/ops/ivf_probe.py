@@ -44,6 +44,7 @@ def probe_scores(queries: torch.Tensor, storage: torch.Tensor, weights: torch.Te
     if storage.device.type == "cpu":
         return probe_scores_plain(queries, storage, weights, probes)
     global LAUNCHES
+    kernel_lib.require_no_grad("probe_scores", queries, storage, weights)
     b, d = queries.shape
     nlist, list_size, sd = storage.shape
     if sd != d or weights.shape != (nlist, list_size) or probes.ndim != 2 or probes.shape[0] != b:

@@ -39,6 +39,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "frag_pool_norm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "frag_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "frag_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
     "frag_fused_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "frag_packed_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
@@ -151,6 +152,14 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
             raise ValueError(f"kernel inputs must share one CUDA device, got "
                              f"{[str(x.device) for x in tensors]}")
     return dev
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel that has no backward: its
+    output would carry no gradient, and the graph would be cut silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an input needs a "
+                           f"gradient; call it under torch.no_grad() or on detached tensors")
 
 
 def require_contiguous(name: str, *tensors: torch.Tensor) -> None:

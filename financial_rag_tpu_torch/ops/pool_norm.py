@@ -32,6 +32,7 @@ def masked_mean_l2_normalize(hidden: torch.Tensor,
     if hidden.device.type == "cpu":
         return masked_mean_l2_normalize_plain(hidden, attention_mask)
     global LAUNCHES
+    kernel_lib.require_no_grad("masked_mean_l2_normalize", hidden, attention_mask)
     b, s, h = hidden.shape
     if attention_mask.shape != (b, s):
         raise ValueError(f"mask shape {tuple(attention_mask.shape)} != {(b, s)}")

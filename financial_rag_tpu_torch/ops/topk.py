@@ -176,6 +176,7 @@ def packed_topk_fused(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.
     f32, slots [Bq, k] int32); -1 / NEG mark empty results."""
     if corpus.device.type == "cpu":
         return packed_topk_fused_plain(queries, corpus, valid, k, block_n=block_n)
+    kernel_lib.require_no_grad("packed_topk_fused", queries, corpus, valid)
     if corpus.dtype == torch.int8:
         raise TypeError("packed_topk_fused is the float-corpus sweep; int8 corpora "
                         "take bucketed_topk_fused")
@@ -275,6 +276,7 @@ def bucketed_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, valid: torc
 def _kernel_inputs(name: str, queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor):
     """Queries quantized / cast as the corpus and padded to the query tile,
     weights as f32; checks device, dtype and shapes."""
+    kernel_lib.require_no_grad(name, queries, corpus, valid)
     bq, d = queries.shape
     n = corpus.shape[0]
     if corpus.shape[1] != d or valid.shape != (n,):

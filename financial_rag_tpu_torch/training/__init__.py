@@ -1,0 +1,25 @@
+"""Fine-tuning of the encoders and the cross-encoder on one device.
+``param_sharding_rules`` waits for the multi-GPU slice of the port."""
+
+from financial_rag_tpu_torch.training.contrastive import (
+    adamw,
+    contrastive_loss,
+    make_train_step,
+)
+from financial_rag_tpu_torch.training.data import PairBatcher, pseudo_pairs_from_children
+from financial_rag_tpu_torch.training.rerank_ft import (
+    ListwiseBatcher,
+    make_rerank_train_step,
+    mine_feedback_triples,
+)
+
+__all__ = [
+    "adamw",
+    "contrastive_loss",
+    "make_train_step",
+    "PairBatcher",
+    "pseudo_pairs_from_children",
+    "ListwiseBatcher",
+    "make_rerank_train_step",
+    "mine_feedback_triples",
+]

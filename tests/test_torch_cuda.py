@@ -368,3 +368,146 @@ def test_decoder_prefill_launches_k9_per_layer_and_matches_the_cpu(gen):
     want = decoder._prefill(cpu, ids.cpu(), mask.cpu(), 140, cfg)[0]
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     assert (cos >= 0.999).all(), cos
+
+
+# ------------------------------------------------------- training (K10, grads)
+
+
+def _row_rel_err(got, want, heads):
+    """Largest max|got - want| over one (position, head) row, as a share of
+    that row's largest |want| (rows of zeros must match exactly)."""
+    got, want = (t.float().reshape(-1, heads, t.shape[-1] // heads) for t in (got, want))
+    err = (got - want).abs().amax(dim=-1)
+    scale = want.abs().amax(dim=-1)
+    return torch.where(err == 0, torch.zeros_like(err), err / scale.clamp_min(1e-30)).max().item()
+
+
+BWD_CASES = {"s128": (4, 128), "s512": (3, 512), "s200": (3, 200), "s1": (3, 1)}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_flash_attention_bwd_kernel_matches_plain(gen, case):
+    """K10 against its plain version on the same bf16 inputs: dq, dk and dv
+    each within 2^-6 of every (position, head) row's largest value (two
+    bf16 ulps). Row 1 is padded, the last row fully masked (uniform P over
+    the real keys); S = 200 and 1 leave tiles part-filled. Masked keys get
+    exactly zero dk and dv."""
+    b, s = BWD_CASES[case]
+    q, k, v, do = (_randn(gen, b, s, 384, dtype=torch.bfloat16) for _ in range(4))
+    mask = _mask(b, s)
+    bias = torch.where(mask > 0, 0.0, -1e9).float()
+    before = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=12)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=12)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert torch.isfinite(g.float()).all(), name
+        assert _row_rel_err(g, w, 12) <= 2.0 ** -6, (name, _row_rel_err(g, w, 12))
+    if s > 3:
+        assert (got[1][1, s // 3:] == 0).all() and (got[2][1, s // 3:] == 0).all()
+
+
+def test_attention_and_ffn_gradients_on_cuda_match_the_cpu(gen):
+    """Autograd through the Functions on the card (K2 + K10, K3 + its f32
+    backward) against the same bf16 tensors and f32 weights on the CPU
+    (the plain versions, same rounding points): attention grads per row
+    within 2^-6; the FFN's f32 weight grads within 1e-4 of their largest
+    value, dx within one bf16 ulp of its largest value."""
+    b, s = 3, 100
+    q, k, v = (_randn(gen, b, s, 384, dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    w = _randn(gen, b, s, 384)
+    f_before, b_before = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = fa.flash_attention(q, k, v, bias, num_heads=12)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (f_before + 1, b_before + 1)
+    cq, ck, cv = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    cout = fa.flash_attention(cq, ck, cv, bias.cpu(), num_heads=12)
+    want = torch.autograd.grad((cout.float() * w.cpu()).sum(), (cq, ck, cv))
+    for g, wt in zip(got, want):
+        assert _row_rel_err(g.cpu(), wt, 12) <= 2.0 ** -6
+
+    x = _randn(gen, b, s, 384, dtype=torch.bfloat16).requires_grad_()
+    ws = [_randn(gen, 384, 1536, scale=384 ** -0.5), _randn(gen, 1536, scale=0.1),
+          _randn(gen, 1536, 384, scale=1536 ** -0.5), _randn(gen, 384, scale=0.1)]
+    ws = [t.requires_grad_() for t in ws]
+    f_before = ffn.LAUNCHES
+    y = ffn.fused_ffn(x, *ws)
+    got = torch.autograd.grad((y.float() * w).sum(), (x, *ws))
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES == f_before + 1
+    cx, *cws = (t.detach().cpu().requires_grad_() for t in (x, *ws))
+    cy = ffn.fused_ffn(cx, *cws)
+    want = torch.autograd.grad((cy.float() * w.cpu()).sum(), (cx, *cws))
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    scale = want[0].float().abs().max()
+    assert (got[0].float().cpu() - want[0].float()).abs().max() <= 2.0 ** -8 * scale
+    for g, wt in zip(got[1:], want[1:]):
+        assert (g.cpu() - wt).abs().max() <= 1e-4 * wt.abs().max()
+
+
+def test_kernels_without_backward_raise_on_inputs_that_need_a_gradient(gen):
+    """K1, K4 and K9 have no backward: with grad enabled and an input that
+    requires a gradient they raise instead of cutting the graph; under
+    no_grad they run."""
+    hidden = _randn(gen, 2, 64, 384, dtype=torch.bfloat16).requires_grad_()
+    mask = torch.ones(2, 64, dtype=torch.int32, device="cuda")
+    corpus = _randn(gen, 1024, 384, dtype=torch.bfloat16)
+    queries = _randn(gen, 4, 384, dtype=torch.bfloat16).requires_grad_()
+    valid = torch.ones(1024, device="cuda")
+    q = _randn(gen, 1, 64, 14 * 64, dtype=torch.bfloat16).requires_grad_()
+    kv = _randn(gen, 1, 64, 2 * 64, dtype=torch.bfloat16)
+    pad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    calls = [lambda: pn.masked_mean_l2_normalize(hidden, mask),
+             lambda: topk.packed_topk_fused(queries, corpus, valid, 8),
+             lambda: cf.causal_flash_prefill(q, kv, kv, pad, num_q_heads=14, num_kv_heads=2)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def test_contrastive_step_on_cuda_matches_the_cpu(gen):
+    """One contrastive step's loss and gradients: 2 layers at hidden 384 in
+    bf16 on the card (K2, K10, K3; 4 launches each, K1 none) against f32 on
+    the CPU, padded batch. Loss within 2e-2; each leaf group's gradient
+    cosine >= 0.99 (bf16 activations; chip_smoke.py holds the full-depth
+    step to bars set from readings and controls)."""
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.training import make_train_step
+
+    cfg = ModelConfig(name="t", hidden_size=384, num_layers=2, num_heads=12,
+                      intermediate_size=1536, vocab_size=30522, max_position=128)
+    g = torch.Generator().manual_seed(0)
+    ids = {k: torch.randint(5, 30000, (4, 40), generator=g) for k in ("q_ids", "d_ids")}
+    masks = {k: (torch.arange(40)[None, :] < torch.tensor([40, 30, 12, 5])[:, None]).int()
+             for k in ("q_mask", "d_mask")}
+    batch = {**ids, **masks}
+    params = random_params(cfg, seed=0)
+    card, _ = make_train_step(cfg, device="cuda")
+    cpu, _ = make_train_step(cfg, device="cpu")
+    counts = {m: m.LAUNCHES for m in (fa, ffn, pn)}
+    b_before = fa.BWD_LAUNCHES
+    loss, grads = card.value_and_grad(
+        {gk: {k: t.cuda().requires_grad_() for k, t in gv.items()} for gk, gv in params.items()},
+        batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES - counts[fa] == 4 and ffn.LAUNCHES - counts[ffn] == 4
+    assert fa.BWD_LAUNCHES - b_before == 4 and pn.LAUNCHES == counts[pn]
+    want_loss, want = cpu.value_and_grad(
+        {gk: {k: t.clone().requires_grad_() for k, t in gv.items()} for gk, gv in params.items()},
+        batch)
+    assert abs(float(loss) - float(want_loss)) <= 2e-2
+    for group in ("embeddings", "layers"):
+        for name in grads[group]:
+            a, b_ = grads[group][name].float().cpu().flatten(), want[group][name].flatten()
+            if b_.abs().max() == 0 or name == "k_b":   # k_b's gradient is 0 up to rounding
+                continue
+            cos = torch.nn.functional.cosine_similarity(a, b_, dim=0)
+            assert cos >= 0.99, (group, name, float(cos))
