@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel).
-3. kernel  -- every kernel (K1-K10) at its main-path shapes, against its
+3. kernel  -- every kernel (K1-K11) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function, and its bound (the larger of bytes
@@ -57,11 +57,21 @@ Phases, each printing one JSON line:
 14. train_parity -- one contrastive step's gradients on the card (bf16) against
               the CPU (f32, plain versions) by cosine per leaf group, with
               wrong-K10 controls that must fail.
-15. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+15. train_tp -- data- and tensor-parallel training through K11: 4 ranks
+              (parallel.launch.spawn; on one card they share it over gloo)
+              run contrastive steps at the bge-small shape on dp2 x tp2 and
+              dp1 x tp4 (64 pairs x 2 x 128) and listwise steps at the
+              MiniLM-L-6 shape on dp2 x tp2 (32 groups x 4 x 64); K11 once
+              per layer, encode and step on every rank, K3 and K1 never,
+              replicated leaves bit-identical across TP ranks; one dp2 x tp2
+              step's gathered gradients against phase 14's CPU step by cosine
+              and norm ratio per leaf group, with three controls that must
+              fail.
+16. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8, 10, and each part of 13) sets every launch
-counter to 0 just before it and reads them just after: each kernel of that
-path must have run.
+Each path (phases 4, 6, 7, 8, 10, and each part of 13 and 15) sets every
+launch counter to 0 just before it and reads them just after: each kernel
+of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
 available, or when the port's package is not beside this file.
@@ -72,6 +82,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import shutil
 import statistics
@@ -174,6 +185,9 @@ KERNELS = {
                              "financial_rag_tpu/ops/causal_flash.py:42"),
     "flash_attention_bwd": ("financial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
                             "financial_rag_tpu/ops/flash_attention.py:55"),
+    "flash_attention_tp": ("financial_rag_tpu_torch/csrc/flash_attention.cu + "
+                           "financial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
+                           "financial_rag_tpu/ops/flash_attention.py:168"),
 }
 TOPK_KERNELS = ("packed_topk_fused", "bucketed_topk_fused", "topk_matmul", "bucketed_topk")
 # the kernels each served path must launch
@@ -183,8 +197,10 @@ INT8_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "bucket
 LLM_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused",
             "causal_flash_prefill")
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd", "fused_ffn")
-# the counter of each kernel whose module counts more than one (K10 beside K2)
-COUNTER_ATTR = {"flash_attention_bwd": "BWD_LAUNCHES"}
+# the counter of each kernel whose module counts more than one (K10 and K11
+# beside K2; K11's backward launches count apart from its forward ones)
+COUNTER_ATTR = {"flash_attention_bwd": "BWD_LAUNCHES", "flash_attention_tp": "TP_LAUNCHES",
+                "flash_attention_tp_bwd": "TP_BWD_LAUNCHES"}
 
 # the Qwen2-0.5B shape (HF config.json of Qwen/Qwen2-0.5B), full width and depth
 QWEN2_05B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
@@ -208,7 +224,8 @@ def _counter_modules():
                                              pool_norm, topk)
 
     return {"masked_mean_l2_normalize": pool_norm, "flash_attention": flash_attention,
-            "flash_attention_bwd": flash_attention,
+            "flash_attention_bwd": flash_attention, "flash_attention_tp": flash_attention,
+            "flash_attention_tp_bwd": flash_attention,
             "fused_ffn": fused_ffn, "probe_scores": ivf_probe,
             "causal_flash_prefill": causal_flash,
             **{name: topk for name in TOPK_KERNELS}}
@@ -216,7 +233,8 @@ def _counter_modules():
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0 (the sweeps of ops/topk.py count in
-    one Counter, keyed by wrapper name; K10 in its module's BWD_LAUNCHES)."""
+    one Counter, keyed by wrapper name; K10 and K11 in COUNTER_ATTR's
+    counters of K2's module)."""
     for name, mod in _counter_modules().items():
         if name in TOPK_KERNELS:
             mod.LAUNCHES[name] = 0
@@ -413,7 +431,83 @@ def kernel_cases(torch, F, seed):
     cases += probe_cases(torch, gen, randn)
     cases += causal_cases(torch, F, randn)
     cases += attention_bwd_cases(torch, F, randn, padded_mask)
+    cases += attention_tp_cases(torch, F, randn, padded_mask)
     return cases
+
+
+class _ModelAxis:
+    """The mesh K11 is given in the kernel phase: K11 reads only the size
+    of its model axis."""
+
+    def __init__(self, tp: int):
+        self.shape = {"model": tp}
+
+
+# K11 at the local shapes one rank of the train_tp phase gives it (B, S, tp):
+# one encode of the 64 contrastive pairs on dp2 x tp2 (32 rows, 6 heads) and
+# on dp1 x tp4 (64 rows, 3 heads), and the 32 x 4 listwise rows of 64 tokens
+# on dp2 x tp2 (64 rows, 6 heads). The first is the kernels line's shape.
+TP_LOCAL_SHAPES = ((32, 128, 2), (64, 128, 4), (64, 64, 2))
+
+
+def attention_tp_cases(torch, F, randn, padded_mask):
+    """K11 (flash_attention_tp) at the local shapes of TP_LOCAL_SHAPES: 6 of
+    the 12 heads at tp2 (width 192, 384-byte rows), 3 at tp4 (width 96,
+    192-byte rows), with padded rows and a fully masked one, each within
+    2^-6 of every (position, head) row's largest value of the plain
+    version. SDPA on the local heads is the library time. The bound counts
+    the local q, k, v and out once each and the bias. K11's backward is K10
+    at the same local heads: attention_bwd_cases' checks at these shapes
+    (the mask-ignored control included), under the flash_attention_bwd
+    name."""
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+
+    NH, hd = 12, 32
+    cases = []
+    for b, s, tp in TP_LOCAL_SHAPES:
+        heads = NH // tp
+        h = heads * hd
+        q, k, v, do = (randn(b, s, h, dtype=torch.bfloat16) for _ in range(4))
+        mask = padded_mask(b, s, fully_masked_row=True)
+        bias = torch.where(mask > 0, 0.0, -1e9).float()
+
+        def sdpa(q=q, k=k, v=v, bias=bias, b=b, s=s, heads=heads):
+            split = lambda x: x.view(b, s, heads, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                split(q), split(k), split(v), attn_mask=bias.to(torch.bfloat16)[:, None, None, :])
+
+        cases.append(("flash_attention_tp", f"B={b},S={s},H={h},local heads={heads} (tp{tp}),bf16",
+                      lambda q=q, k=k, v=v, bias=bias, tp=tp: fa.flash_attention_tp(
+                          q, k, v, bias, num_heads=NH, mesh=_ModelAxis(tp)),
+                      lambda q=q, k=k, v=v, bias=bias, heads=heads: fa.flash_attention_plain(
+                          q, k, v, bias, num_heads=heads),
+                      sdpa, row_cmp(heads),
+                      bound(4 * b * s * h * 2 + b * s * 4, 4 * b * heads * s * s * hd, "bf16")))
+        live_pairs = s * int(mask.sum().item()) + s * s
+        cases.append(("flash_attention_bwd", f"B={b},S={s},H={h},heads={heads} "
+                      f"(K11's backward, tp{tp}),bf16",
+                      lambda q=q, k=k, v=v, bias=bias, do=do, heads=heads: fa.flash_attention_bwd(
+                          q, k, v, bias, do, num_heads=heads),
+                      lambda q=q, k=k, v=v, bias=bias, do=do, heads=heads:
+                      fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads),
+                      SdpaBackward(torch, F, q, k, v, bias, do, heads),
+                      attention_bwd_cmp(heads, lambda q=q, k=k, v=v, do=do, b=b, s=s, heads=heads:
+                                        fa.flash_attention_bwd(q, k, v, torch.zeros(b, s, device=q.device),
+                                                               do, num_heads=heads)),
+                      bound(7 * b * s * h * 2 + b * s * 4, 5 * 2 * heads * hd * live_pairs, "bf16")))
+    return cases
+
+
+def row_cmp(heads: int):
+    """Every (position, head) output row within 2^-6 of its largest value
+    (two bf16 ulps of it)."""
+    rtol = 2.0 ** -6
+
+    def cmp(a, b):
+        rel = row_rel_err(a, b, heads)
+        err = (a.float() - b.float()).abs().max().item()
+        return err, rel <= rtol, {"rtol": rtol, "max_row_rel_err": rel}
+    return cmp
 
 
 def sweep_cmp(exact: bool):
@@ -1537,6 +1631,18 @@ def padded_pair_batch(rng, b: int, s: int, vocab: int = 30000) -> dict:
     return out
 
 
+def listwise_batch(rng, groups: int, g: int, s: int, vocab: int = 30000) -> dict:
+    """Seeded [groups, g, s] listwise batch: each row padded to a random
+    length of 8 to s tokens, its second half segment 1."""
+    import numpy as np
+
+    lens = rng.integers(8, s + 1, size=(groups, g))
+    mask = (np.arange(s)[None, None, :] < lens[:, :, None]).astype(np.int32)
+    return {"ids": rng.integers(5, vocab, size=(groups, g, s)).astype(np.int32), "mask": mask,
+            "types": ((np.arange(s)[None, None, :] >= lens[:, :, None] // 2) * mask)
+            .astype(np.int32)}
+
+
 def check_train_launches(launches: dict, steps: int, layers: int, encodes: int, what: str):
     """K2, K10 and K3 each launched once per layer of every encode of every
     step; K1 never (training pools with the plain mean)."""
@@ -1625,13 +1731,8 @@ def phase_train(torch, seed: int):
     rcfg = bge_small_config(layers=6, num_labels=1)
     rstep, rinit = make_rerank_train_step(rcfg, device=dev)
     rparams, ropt = rinit(random_params(rcfg, seed=seed + 1))
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(8, 65, size=(64, 4))
-    mask = (np.arange(64)[None, None, :] < lens[:, :, None]).astype(np.int32)
-    rbatch = {"ids": rng.integers(5, 30000, size=(64, 4, 64)).astype(np.int32), "mask": mask,
-              "types": ((np.arange(64)[None, None, :] >= lens[:, :, None] // 2) * mask)
-              .astype(np.int32)}
-    rbatch = {k: torch.from_numpy(v).to(dev) for k, v in rbatch.items()}
+    rbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in listwise_batch(np.random.default_rng(seed), 64, 4, 64).items()}
     reset_launches()
     rms, rlosses, rmoved = run_steps(torch, rstep, rparams, ropt, rbatch, warmup=1, steps=5,
                                      what="listwise")
@@ -1660,20 +1761,32 @@ def phase_train(torch, seed: int):
     return launches
 
 
-def grad_group_cosines(torch, got, want) -> dict:
-    """Cosine between the card's and the CPU's gradient of each leaf group
-    (every layer's leaves of the group flattened into one vector)."""
-    out = {}
+def grad_groups(torch, got, want):
+    """(group, card vector, CPU vector) for each leaf group: every layer's
+    leaves of the group flattened into one float64 vector (f32 sums of ~10M
+    terms drift)."""
     for group, names in GRAD_GROUPS.items():
         a, b = [], []
         for name in names:
             g, n = name.split("/")
             a.append(got[g][n].float().cpu().flatten())
             b.append(want[g][n].float().flatten())
-        a, b = torch.cat(a).double(), torch.cat(b).double()   # f32 sums of ~10M terms drift
+        yield group, torch.cat(a).double(), torch.cat(b).double()
+
+
+def grad_group_cosines(torch, got, want) -> dict:
+    """Cosine between the card's and the CPU's gradient of each leaf group."""
+    out = {}
+    for group, a, b in grad_groups(torch, got, want):
         norms = float(a.norm() * b.norm())
         out[group] = float(a @ b) / norms if norms > 0 else 0.0   # a zero gradient: 0
     return out
+
+
+def grad_group_norm_ratios(torch, got, want) -> dict:
+    """||card|| / ||CPU|| of each leaf group's gradient."""
+    return {group: float(a.norm()) / float(b.norm()) if float(b.norm()) > 0 else 0.0
+            for group, a, b in grad_groups(torch, got, want)}
 
 
 def phase_train_parity(torch, seed: int):
@@ -1684,7 +1797,8 @@ def phase_train_parity(torch, seed: int):
     controls rerun the card's step with K10 wrong: its dQ zeroed, dK and dV
     swapped between heads 0 and 1, the padding mask ignored in the
     backward; each must fail a gate, or the gates could not tell a wrong
-    K10 from a right one."""
+    K10 from a right one. Returns the CPU step's loss and gradients, the
+    reference of phase_train_tp's parity."""
     import numpy as np
 
     from financial_rag_tpu_torch.models.checkpoint import random_params
@@ -1754,6 +1868,225 @@ def phase_train_parity(torch, seed: int):
     check(passes(real), f"train parity: gradient cosines {real}")
     seen = [n for n, r in controls.items() if passes(r)]
     check(not seen, f"train parity: the controls {seen} pass the gates, which cannot see them")
+    return float(want_loss), want
+
+
+# ------------------------------------------------------- tensor parallel
+
+TP_WORLD = 4
+# Card (bf16, K11 on dp2 x tp2) against CPU (f32, one process) gradients: the
+# cosine bar of phase_train_parity, and each leaf group's norm ratio within
+# 1 +- TP_GRAD_NORM_TOL. The ratio sees what the cosine cannot: a data
+# all-reduce that averages where it must sum scales every gradient by 1/dp.
+TP_GRAD_NORM_TOL = 0.01
+# The size of each train_tp run: full width and depth; a CPU rehearsal passes
+# a smaller plan.
+TP_PLAN = {"device": "cuda", "layers": 12, "rerank_layers": 6, "contrastive": (64, 128),
+           "listwise": (32, 4, 64), "parity": (8, 128), "warmup": 1, "steps": 3}
+# The timeout of every train_tp collective (the default group's and the meshes')
+TP_TIMEOUT_S = 300
+def _replicated_digests(params, mesh) -> dict:
+    """sha256 of every replicated leaf's bytes (the sharding rules' None)."""
+    import hashlib
+
+    from financial_rag_tpu_torch.training import param_sharding_rules
+
+    rules = param_sharding_rules(mesh)
+    return {f"{g}/{n}": hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for g, leaves in params.items() for n, t in leaves.items()
+            if rules.get(g, {}).get(n) is None}
+
+
+def train_tp_rank(rank, world, device, seed, plan):
+    """One rank of phase_train_tp, started by parallel.launch.spawn: the
+    three timed runs (launch counts set to 0 just before each and read just
+    after) and the parity step with its controls. Returns what the parent
+    checks; only rank 0 returns gradients (gathered over the model axis)."""
+    import numpy as np
+    import torch
+
+    from financial_rag_tpu_torch.models import bert
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.parallel import comm, train_mesh
+    from financial_rag_tpu_torch.scripts.bench_train import (bge_small_config, random_pair_batch,
+                                                             time_steps)
+    from financial_rag_tpu_torch.training import (contrastive, gather_params,
+                                                  make_rerank_train_step, make_train_step)
+
+    cuda = device.type == "cuda"
+    out = {"rank": rank, "device": str(device)}
+
+    def timed(name, tp, cfg, make, batch, encodes):
+        mesh = train_mesh(tp, timeout_s=TP_TIMEOUT_S)
+        step, init_state = make(cfg, mesh, device=device)
+        params, opt_state = init_state(random_params(cfg, seed=seed))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        losses = []
+
+        def run():
+            _, _, loss = step(params, opt_state, batch)
+            losses.append(loss)
+
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        ms = time_steps(run, device, warmup=plan["warmup"], steps=plan["steps"])
+        wall_s = time.perf_counter() - t0
+        out[name] = {"mesh": dict(mesh.shape), "coords": dict(mesh.coords),
+                     "attention_impl": step.attention_impl, "layers": cfg.num_layers,
+                     "encodes": encodes, "steps": plan["warmup"] + plan["steps"],
+                     "launches": read_launches(), "step_ms": ms, "wall_s": wall_s,
+                     "losses": [float(x) for x in losses],
+                     "replicated": _replicated_digests(params, mesh),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None}
+
+    cfg = bge_small_config(plan["layers"])
+    pairs, seq = plan["contrastive"]
+    timed("contrastive_dp2_tp2", 2, cfg, make_train_step, random_pair_batch(pairs, seq, seed), 2)
+    timed("contrastive_dp1_tp4", 4, cfg, make_train_step, random_pair_batch(pairs, seq, seed), 2)
+    groups, g, rseq = plan["listwise"]
+    timed("listwise_dp2_tp2", 2, bge_small_config(plan["rerank_layers"], num_labels=1),
+          make_rerank_train_step, listwise_batch(np.random.default_rng(seed), groups, g, rseq), 1)
+
+    # parity: phase_train_parity's weights and batch, one step's gradients
+    mesh = train_mesh(2, timeout_s=TP_TIMEOUT_S)
+    step, init_state = make_train_step(cfg, mesh, device=device)
+    params, _ = init_state(random_params(cfg, seed=seed + 2))
+    batch = padded_pair_batch(np.random.default_rng(seed + 2), *plan["parity"])
+    k11, copy, sync = bert.flash_attention_tp, comm.copy_to_model, contrastive.sync_grads
+    n, m = mesh.shape["model"], mesh.index("model")
+
+    def neighbour_kv(q, k, v, bias, **kw):
+        w, nb = k.shape[-1], (m + 1) % n
+        k, v = (comm.all_gather(t.float(), mesh, "model", dim=2)[..., nb * w:(nb + 1) * w]
+                .to(t.dtype).contiguous() for t in (k, v))
+        return k11(q, k, v, bias, **kw)
+
+    def copy_without_allreduce(x, mesh, axis="model"):
+        return x
+
+    parity = {}
+
+    def grads(name):
+        reset_launches()
+        loss, tree = step.value_and_grad(params, batch)
+        launches = read_launches()
+        full = gather_params(tree, mesh)
+        parity[name] = {"loss": float(loss), "launches": launches,
+                        "grads": ({gk: {k: t.float().cpu() for k, t in gv.items()}
+                                   for gk, gv in full.items()} if rank == 0 else None)}
+
+    grads("right")
+    try:
+        bert.flash_attention_tp = neighbour_kv
+        grads("neighbour_kv")
+        bert.flash_attention_tp, comm.copy_to_model = k11, copy_without_allreduce
+        grads("copy_without_allreduce")
+        comm.copy_to_model = copy
+        contrastive.sync_grads = lambda g, mesh, axis, op: sync(g, mesh, axis, "mean")
+        grads("data_mean")
+    finally:
+        bert.flash_attention_tp, comm.copy_to_model, contrastive.sync_grads = k11, copy, sync
+    out["parity"] = parity
+    return out
+
+
+def phase_train_tp(torch, seed: int, info: dict, want_loss: float, want, plan=TP_PLAN):
+    """Data- and tensor-parallel training through K11: 4 ranks started by
+    parallel.launch.spawn after the kernels are built (on one card they
+    share it over gloo, which moves every collective through the host; with
+    4 cards, one each over NCCL). Contrastive steps of the bge-small shape,
+    64 pairs x 2 x 128 tokens, on dp2 x tp2 and on dp1 x tp4; listwise
+    steps of the MiniLM-L-6 shape, 32 groups x 4 x 64, on dp2 x tp2; each 1
+    warm-up and 3 timed. Gates: K11's forward and backward launched once
+    per layer, encode and step on every rank, K3 and K1 never; every loss
+    finite; the replicated leaves bit-identical on the TP ranks of each
+    data row after the steps. Parity: one step's gradients on dp2 x tp2
+    (phase_train_parity's weights and 8 padded pairs x 128), gathered,
+    against the CPU f32 single-process step: loss within TRAIN_LOSS_TOL,
+    each leaf group's cosine >= TRAIN_GRAD_COSINE and norm ratio within 1 +-
+    TP_GRAD_NORM_TOL; K11 fed the model neighbour's k/v heads,
+    copy_to_model without its backward all-reduce, and a data all-reduce
+    that averages must each fail. Returns K11's forward and backward
+    launches over the three runs and all ranks."""
+    from financial_rag_tpu_torch.parallel import launch
+
+    backend, n_gpus = launch.choose_backend(TP_WORLD, plan["device"])
+    label = (f"{TP_WORLD} ranks sharing one {info['name']} over gloo" if backend == "gloo"
+             else f"{TP_WORLD} ranks over {backend}, {n_gpus} GPUs")
+    if plan["device"] == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(train_tp_rank, TP_WORLD, args=(seed, plan), device=plan["device"],
+                         timeout_s=TP_TIMEOUT_S, join_timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+
+    runs, k11, failures = {}, [0, 0], []
+    for name in ("contrastive_dp2_tp2", "contrastive_dp1_tp4", "listwise_dp2_tp2"):
+        per = [r[name] for r in ranks]
+        want_k11 = per[0]["layers"] * per[0]["encodes"] * per[0]["steps"]
+        for r in per:
+            got = {k: r["launches"][k] for k in ("flash_attention_tp", "flash_attention_tp_bwd",
+                                                 "fused_ffn", "masked_mean_l2_normalize")}
+            if not got["flash_attention_tp"] == got["flash_attention_tp_bwd"] == want_k11:
+                failures.append(f"{name}: K11 launches {got} on rank {r['coords']}, "
+                                f"want {want_k11}")
+            if got["fused_ffn"] or got["masked_mean_l2_normalize"]:
+                failures.append(f"{name}: K3 or K1 launched: {got}")
+            if r["attention_impl"] != "pallas_tp":
+                failures.append(f"{name}: attention {r['attention_impl']}")
+            if not all(math.isfinite(x) for x in r["losses"]):
+                failures.append(f"{name}: losses {r['losses']}")
+            k11[0] += got["flash_attention_tp"]
+            k11[1] += got["flash_attention_tp_bwd"]
+        first_of_row: dict = {}
+        differ = set()
+        for r in per:
+            ref = first_of_row.setdefault(r["coords"]["data"], r["replicated"])
+            differ |= {leaf for leaf, h in r["replicated"].items() if ref[leaf] != h}
+        if differ:
+            failures.append(f"{name}: replicated leaves differ between the TP ranks of a data "
+                            f"row: {sorted(differ)}")
+        ms = [statistics.median(r["step_ms"]) for r in per]
+        runs[name] = {"mesh": per[0]["mesh"], "timing": label,
+                      "step_ms_median_by_rank": ms, "step_ms": [r["step_ms"] for r in per],
+                      "wall_s_by_rank": [r["wall_s"] for r in per],
+                      "losses": per[0]["losses"],
+                      "losses_equal_on_all_ranks": all(r["losses"] == per[0]["losses"] for r in per),
+                      "replicated_leaves": len(per[0]["replicated"]),
+                      "replicated_differ_in_a_data_row": sorted(differ),
+                      "replicated_equal_on_all_ranks": all(r["replicated"] == per[0]["replicated"]
+                                                          for r in per),
+                      "peak_memory_bytes_by_rank": [r["peak_memory_bytes"] for r in per],
+                      "k11_launches_per_rank": want_k11}
+
+    parity = {}
+    for name, r in ranks[0]["parity"].items():
+        parity[name] = {"loss": r["loss"],
+                        "cosine": grad_group_cosines(torch, r["grads"], want),
+                        "norm_ratio": grad_group_norm_ratios(torch, r["grads"], want),
+                        "k11_launches": r["launches"]["flash_attention_tp"]}
+
+    def passes(r):
+        return (abs(r["loss"] - want_loss) <= TRAIN_LOSS_TOL
+                and all(c >= TRAIN_GRAD_COSINE for c in r["cosine"].values())
+                and all(abs(x - 1) <= TP_GRAD_NORM_TOL for x in r["norm_ratio"].values()))
+
+    emit({"phase": "train_tp", "world": TP_WORLD, "backend": backend, "timing": label,
+          "card": info["nvidia_smi"], "spawn_s": spawn_s,
+          "runs": runs, "parity": {"loss_cpu": want_loss, "loss_tol": TRAIN_LOSS_TOL,
+                                   "cosine_bar": TRAIN_GRAD_COSINE,
+                                   "norm_ratio_tol": TP_GRAD_NORM_TOL, **parity},
+          "k11_launches": k11[0], "k11_bwd_launches": k11[1]})
+    check(not failures, "train_tp: " + "; ".join(failures))
+    check(parity["right"]["k11_launches"] == 2 * plan["layers"],
+          f"train_tp parity: {parity['right']['k11_launches']} K11 launches for one step")
+    check(passes(parity["right"]), f"train_tp parity: {parity['right']}")
+    seen = [n for n, r in parity.items() if n != "right" and passes(r)]
+    check(not seen, f"train_tp parity: the controls {seen} pass the gates, which cannot see them")
+    return k11
 
 
 def main(argv=None) -> int:
@@ -1810,8 +2143,10 @@ def main(argv=None) -> int:
             launches["bucketed_topk"] = backend_launches["bucketed_topk"]
             launches["probe_scores"] = ivf_launches["probe_scores"]
         train_launches = phase_train(torch, args.seed)
-        phase_train_parity(torch, args.seed)
+        want_loss, want = phase_train_parity(torch, args.seed)
         launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+        launches["flash_attention_tp"], tp_bwd = phase_train_tp(torch, args.seed, info,
+                                                                 want_loss, want)
     except Exception:  # noqa: BLE001 -- any failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -1824,6 +2159,8 @@ def main(argv=None) -> int:
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": t["shape"]})
+        if name == "flash_attention_tp":   # its forward launches above; K10 at local heads
+            kernels[-1]["bwd_launches"] = tp_bwd
     line = {"kernels": kernels}
     if log_dir:
         (Path(log_dir) / "kernels.json").write_text(json.dumps(line, indent=1))

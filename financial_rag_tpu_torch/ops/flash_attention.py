@@ -1,4 +1,5 @@
-"""K2 and K10: fused bidirectional multi-head self-attention and its backward.
+"""K2, K10 and K11: fused bidirectional multi-head self-attention, its
+backward, and the tensor-parallel wrapper.
 
 ``flash_attention`` is the :class:`FlashAttention` autograd Function. Its
 forward launches K2 (``csrc/flash_attention.cu``) for CUDA tensors and runs
@@ -7,8 +8,16 @@ VJP it saves only q, k, v and the bias, and its backward recomputes the
 probabilities: :func:`flash_attention_bwd` launches K10
 (``csrc/flash_attention_bwd.cu``) for CUDA tensors and runs
 :func:`flash_attention_bwd_plain` for CPU tensors. Counterpart of
-financial_rag_tpu/ops/flash_attention.py; the tensor-parallel wrapper is a
-later slice of the port (ROADMAP.md).
+financial_rag_tpu/ops/flash_attention.py.
+
+:func:`flash_attention_tp` (K11) is the counterpart of the JAX
+``flash_attention_tp``, which ``shard_map``s the same Pallas kernel over the
+model axis so that each device runs its ``num_heads // tp`` local heads. In
+the port each rank is a process and its q, k and v already hold only its
+heads (the column-parallel projections of models/bert.py make them), so
+K11 is :class:`FlashAttention` (K2 forward, K10 backward) at the local head
+count, with no collective. It counts its own launches in ``TP_LAUNCHES``
+and ``TP_BWD_LAUNCHES``, beside K2's and K10's.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ from financial_rag_tpu_torch.ops import kernel_lib
 
 LAUNCHES = 0        # K2, the forward
 BWD_LAUNCHES = 0    # K10, the backward
+TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
+TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
 KERNEL_HEAD_DIM = 32  # the only head width the CUDA kernels are built for
 
 
@@ -89,10 +100,10 @@ def _kernel_inputs(name: str, q, k, v, mask_bias, num_heads: int, *extra):
     return bias, dev
 
 
-def _forward(q, k, v, mask_bias, num_heads: int) -> torch.Tensor:
+def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask_bias, num_heads=num_heads)
-    global LAUNCHES
+    global LAUNCHES, TP_LAUNCHES
     b, s, h = q.shape
     bias, dev = _kernel_inputs("flash_attention", q, k, v, mask_bias, num_heads)
     out = torch.empty_like(q)
@@ -100,17 +111,19 @@ def _forward(q, k, v, mask_bias, num_heads: int) -> torch.Tensor:
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
                       kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, h, num_heads)
     LAUNCHES += 1
+    TP_LAUNCHES += tp
     return out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_bias: torch.Tensor, dout: torch.Tensor, *,
-                        num_heads: int):
+                        num_heads: int, tp: bool = False):
     """(dq, dk, dv) of :func:`flash_attention` at dout, each [B,S,H] in
-    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32."""
+    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32. ``tp``: the
+    launch is K11's backward and counts in TP_BWD_LAUNCHES too."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask_bias, dout, num_heads=num_heads)
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, TP_BWD_LAUNCHES
     kernel_lib.require_no_grad("flash_attention_bwd", q, k, v, dout)
     b, s, h = q.shape
     dout = dout.to(q.dtype).contiguous()
@@ -121,6 +134,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv, stats)),
                       b, s, h, num_heads)
     BWD_LAUNCHES += 1
+    TP_BWD_LAUNCHES += tp
     return dq, dk, dv
 
 
@@ -130,16 +144,17 @@ class FlashAttention(torch.autograd.Function):
     padding mask made from the input ids and gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_bias, num_heads: int):
+    def forward(ctx, q, k, v, mask_bias, num_heads: int, tp: bool = False):
         ctx.save_for_backward(q, k, v, mask_bias)
-        ctx.num_heads = num_heads
-        return _forward(q, k, v, mask_bias, num_heads)
+        ctx.num_heads, ctx.tp = num_heads, tp
+        return _forward(q, k, v, mask_bias, num_heads, tp)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask_bias = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, mask_bias, dout, num_heads=ctx.num_heads)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, mask_bias, dout, num_heads=ctx.num_heads,
+                                         tp=ctx.tp)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,3 +163,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Differentiable in q, k and v. The CUDA kernels take bf16 at head_dim
     32."""
     return FlashAttention.apply(q, k, v, mask_bias, num_heads)
+
+
+def flash_attention_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask_bias: torch.Tensor, *, num_heads: int, mesh,
+                       model_axis: str = "model",
+                       head_dim: int = KERNEL_HEAD_DIM) -> torch.Tensor:
+    """K11: attention under tensor parallelism. q, k, v are this rank's
+    [B_local, S, (num_heads // tp) * head_dim] slices (its heads, in head
+    order), mask_bias the [B_local, S] key bias of its rows; returns the
+    local [B_local, S, H/tp] output. ``num_heads`` is the model's head
+    count; only ``mesh.shape[model_axis]`` is read from the mesh.
+    Differentiable in q, k and v (K10 at the local heads)."""
+    tp = mesh.shape[model_axis]
+    if num_heads % tp != 0:
+        raise ValueError(f"num_heads={num_heads} not divisible by tp={tp}")
+    local = num_heads // tp
+    if q.shape[-1] != local * head_dim:
+        raise ValueError(f"flash_attention_tp takes this rank's {local} heads of {head_dim} "
+                         f"(width {local * head_dim}), got width {q.shape[-1]}")
+    return FlashAttention.apply(q, k, v, mask_bias, local, True)

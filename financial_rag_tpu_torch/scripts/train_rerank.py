@@ -1,4 +1,4 @@
-"""Reranker fine-tuning on one GPU: the synthetic uplift measure, or
+"""Reranker fine-tuning on the GPUs: the synthetic uplift measure, or
 fine-tuning on mined user feedback.
 
     python -m financial_rag_tpu_torch.scripts.train_rerank [--steps 300]
@@ -16,8 +16,10 @@ fine-tuning on mined user feedback.
   checkpoint directory (config.json + model.npz, the JAX package's format)
   to ``--out-dir``, which CROSS_ENCODER_PATH loads in either package.
 
-bf16 compute with float32 master weights on the GPU, f32 with ``--device
-cpu``. Prints one JSON line; ``--out FILE`` also appends it to FILE.
+bf16 compute with float32 master weights on the GPU, data-parallel over
+every visible GPU (one rank each, a (n_gpus, 1) mesh, as the JAX script's;
+``--batch`` is the global batch); f32 with ``--device cpu``. Prints one
+JSON line; ``--out FILE`` also appends it to FILE.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from financial_rag_tpu_torch.config import ModelConfig
 from financial_rag_tpu_torch.device import resolve_device
+from financial_rag_tpu_torch.parallel import launch, train_mesh
 from financial_rag_tpu_torch.training.contrastive import adamw
 from financial_rag_tpu_torch.training.rerank_ft import (
     ListwiseBatcher,
@@ -41,7 +44,7 @@ from financial_rag_tpu_torch.training.rerank_ft import (
 )
 
 
-def finetune_from_feedback(args, cfg, device) -> dict:
+def finetune_from_feedback(args, cfg, device, mesh=None) -> dict:
     from financial_rag_tpu_torch.models.checkpoint import load_params, random_params
     from financial_rag_tpu_torch.store.feedback_db import FeedbackDatabase
 
@@ -53,7 +56,7 @@ def finetune_from_feedback(args, cfg, device) -> dict:
         params, cfg = load_params(args.model_path, fallback_seed=0)
     else:
         params = random_params(cfg, seed=0)
-    step, init_state = make_rerank_train_step(cfg, device=device, optimizer=adamw(args.lr))
+    step, init_state = make_rerank_train_step(cfg, mesh, device=device, optimizer=adamw(args.lr))
     params, opt_state = init_state(params)
     batcher = ListwiseBatcher(max_seq_len=args.seq)
     losses, done, epoch = [], 0, 0
@@ -65,10 +68,32 @@ def finetune_from_feedback(args, cfg, device) -> dict:
             if done >= args.steps:
                 break
         epoch += 1
-    out = save_finetuned(params, cfg, args.out_dir)
+    out = save_finetuned(params, cfg, args.out_dir, mesh)
     return {"mode": "feedback", "triples": len(triples), "groups": len(groups), "steps": done,
             "loss_first": losses[0], "loss_last": losses[-1], "checkpoint": str(out),
             "device": str(device)}
+
+
+def run(args, device, mesh=None) -> dict:
+    cfg = ModelConfig(name="minilm-ce-shape", hidden_size=args.hidden, num_layers=args.layers,
+                      num_heads=max(args.hidden // 32, 4), intermediate_size=args.hidden * 4,
+                      vocab_size=30522, max_position=512, num_labels=1)
+    if args.feedback_db:
+        return finetune_from_feedback(args, cfg, device, mesh)
+    rep, _ = measure_rerank_uplift(
+        cfg, mesh, device=device, steps=args.steps, batch_size=args.batch,
+        group_size=args.group, lr=args.lr, seq_len=args.seq, n_concepts=args.concepts,
+        n_train=args.train, n_eval=args.eval)
+    return {
+        "metric": (f"held-out rank-1 accuracy uplift from listwise reranker fine-tuning "
+                   f"({args.layers}L random init, {args.steps} steps, group={args.group})"),
+        "value": rep["rank1_after"] - rep["rank1_before"], "unit": "rank1_accuracy",
+        **rep,
+    }
+
+
+def run_rank(rank: int, world: int, device, args) -> dict:
+    return run(args, device, train_mesh(1))
 
 
 def main(argv=None) -> int:
@@ -94,23 +119,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = ModelConfig(name="minilm-ce-shape", hidden_size=args.hidden, num_layers=args.layers,
-                      num_heads=max(args.hidden // 32, 4), intermediate_size=args.hidden * 4,
-                      vocab_size=30522, max_position=512, num_labels=1)
     t0 = time.time()
-    if args.feedback_db:
-        rep = finetune_from_feedback(args, cfg, device)
-    else:
-        rep, _ = measure_rerank_uplift(
-            cfg, device=device, steps=args.steps, batch_size=args.batch,
-            group_size=args.group, lr=args.lr, seq_len=args.seq, n_concepts=args.concepts,
-            n_train=args.train, n_eval=args.eval)
-        rep = {
-            "metric": (f"held-out rank-1 accuracy uplift from listwise reranker fine-tuning "
-                       f"({args.layers}L random init, {args.steps} steps, group={args.group})"),
-            "value": rep["rank1_after"] - rep["rank1_before"], "unit": "rank1_accuracy",
-            **rep,
-        }
+    world = launch.data_parallel_world(device)
+    rep = (launch.spawn(run_rank, world, args=(args,), device=device)[0] if world > 1
+           else run(args, device))
     rep["device_name"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     rep["wall_s"] = time.time() - t0
     line = json.dumps(rep)

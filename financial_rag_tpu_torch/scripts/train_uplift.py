@@ -1,4 +1,4 @@
-"""Training -> retrieval uplift on one GPU.
+"""Training -> retrieval uplift on the GPUs.
 
     python -m financial_rag_tpu_torch.scripts.train_uplift [--steps 200] [--batch 256]
 
@@ -8,8 +8,10 @@ vocabularies for shared latent concepts, so lexical matching scores at
 chance and only a learned query/document alignment retrieves) and reports
 held-out recall@k before and after, evaluated through the port's serving
 path (Encoder forward -> FlatIndex sweep). bf16 compute with float32
-master weights on the GPU, f32 with ``--device cpu``. Prints one JSON
-line; ``--out FILE`` also appends it to FILE.
+master weights on the GPU, data-parallel over every visible GPU (one rank
+each, a (n_gpus, 1) mesh, as the JAX script's; ``--batch`` is the global
+batch); f32 with ``--device cpu``. Prints one JSON line; ``--out FILE``
+also appends it to FILE.
 """
 
 from __future__ import annotations
@@ -22,7 +24,22 @@ import torch
 
 from financial_rag_tpu_torch.config import ModelConfig
 from financial_rag_tpu_torch.device import resolve_device
+from financial_rag_tpu_torch.parallel import launch, train_mesh
 from financial_rag_tpu_torch.training.uplift import measure_retrieval_uplift
+
+
+def run(args, device, mesh=None) -> dict:
+    cfg = ModelConfig(name="bge-small-shape", hidden_size=args.hidden, num_layers=args.layers,
+                      num_heads=max(args.hidden // 32, 4), intermediate_size=args.hidden * 4,
+                      vocab_size=30522, max_position=512)
+    return measure_retrieval_uplift(
+        cfg, mesh, device=device, steps=args.steps, batch_size=args.batch, lr=args.lr,
+        seq_len=args.seq, k=args.k, n_concepts=args.concepts, n_train=args.train,
+        n_eval=args.eval)
+
+
+def run_rank(rank: int, world: int, device, args) -> dict:
+    return run(args, device, train_mesh(1))
 
 
 def main(argv=None) -> int:
@@ -42,14 +59,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = ModelConfig(name="bge-small-shape", hidden_size=args.hidden, num_layers=args.layers,
-                      num_heads=max(args.hidden // 32, 4), intermediate_size=args.hidden * 4,
-                      vocab_size=30522, max_position=512)
     t0 = time.time()
-    rep = measure_retrieval_uplift(
-        cfg, device=device, steps=args.steps, batch_size=args.batch, lr=args.lr,
-        seq_len=args.seq, k=args.k, n_concepts=args.concepts, n_train=args.train,
-        n_eval=args.eval)
+    world = launch.data_parallel_world(device)
+    rep = (launch.spawn(run_rank, world, args=(args,), device=device)[0] if world > 1
+           else run(args, device))
     rep = {
         "metric": (f"held-out recall@{args.k} uplift from contrastive fine-tuning "
                    f"({args.layers}L random init, {args.steps} steps)"),

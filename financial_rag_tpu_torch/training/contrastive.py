@@ -1,4 +1,4 @@
-"""Contrastive fine-tuning of the retrieval encoders on one GPU.
+"""Contrastive fine-tuning of the retrieval encoders on one GPU or a mesh.
 
 Counterpart of financial_rag_tpu/training/contrastive.py: in-batch-negative
 InfoNCE (the standard dual-encoder recipe behind bge/gte) as one train step
@@ -12,8 +12,19 @@ forward and K10 backward, the FFN is K3 forward with a rematerialising
 backward. Mean pooling takes the differentiable plain formula (K1 has no
 backward), as the JAX package's training pools through XLA. The optimizer
 updates the parameter tensors in place, so ``step`` returns the tree it was
-given. There is no mesh: data and tensor parallelism (and
-``param_sharding_rules``) wait for the multi-GPU slice of the port.
+given.
+
+On a (data, model) mesh (parallel/mesh.py; one process per rank) the step
+is the JAX package's GSPMD step written out: each rank takes its block of
+the batch's rows (data rank order), its shards of the parameters
+(:func:`param_sharding_rules`, :func:`shard_params`) and, with a model axis
+larger than 1, runs the ``pallas_tp`` layer (models/bert.py, K11). The loss
+uses GLOBAL negatives, as in JAX: each data rank gathers every rank's
+embeddings in rank order (parallel/comm.gather_from_data) and computes the
+same global loss. Only its own rows carry a gradient there, so the data
+axis SUMS the ranks' parameter gradients (a mean would give 1/dp of the
+gradient with the same direction). AdamW is elementwise, so it runs on the
+shards and equals the unsharded update.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from financial_rag_tpu_torch.config import ModelConfig
 from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.models.bert import bert_encode
 from financial_rag_tpu_torch.models.encoder import default_compute_dtype
+from financial_rag_tpu_torch.parallel import comm
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -49,6 +61,95 @@ def contrastive_loss(q_emb: torch.Tensor, d_emb: torch.Tensor,
     logits = (q_emb.float() @ d_emb.float().T) / temperature
     labels = torch.arange(logits.shape[0], device=logits.device)
     return 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+
+
+# The dim of each stacked layer leaf ([num_layers, ...]) that the model axis
+# splits: q/k/v/ffn_in on their output dim, o/ffn_out on their input dim
+# (the JAX rules, contrastive.py:32-58). Every other leaf is replicated.
+LAYER_SPLIT_DIMS = {"q_w": 2, "q_b": 1, "k_w": 2, "k_b": 1, "v_w": 2, "v_b": 1,
+                    "o_w": 1, "ffn_in_w": 2, "ffn_in_b": 1, "ffn_out_w": 1}
+REPLICATED_LAYER_LEAVES = ("o_b", "attn_ln_scale", "attn_ln_bias", "ffn_out_b",
+                           "ffn_ln_scale", "ffn_ln_bias")
+
+
+def param_sharding_rules(mesh=None) -> Dict[str, Any]:
+    """For each leaf of the encoder tree, the dim the model axis splits, or
+    None (replicated); leaves outside the tree (pooler, classifier) are
+    replicated too. The tree of financial_rag_tpu's PartitionSpecs, with
+    each spec's ``model`` position as an int; ``mesh`` is taken for the
+    JAX call shape, the rules do not depend on it."""
+    return {
+        "embeddings": {name: None for name in ("word", "position", "token_type",
+                                               "ln_scale", "ln_bias")},
+        "layers": {**{name: None for name in REPLICATED_LAYER_LEAVES}, **LAYER_SPLIT_DIMS},
+    }
+
+
+def _split_dim(rules, group: str, name: str):
+    return rules.get(group, {}).get(name)
+
+
+def shard_params(params, mesh, model_axis: str = "model"):
+    """This rank's slices of ``params``: each split leaf cut into
+    ``mesh.shape[model_axis]`` equal blocks along its dim, block
+    ``mesh.index(model_axis)`` kept (contiguous copies); replicated leaves
+    as they are. The identity without a model axis."""
+    tp, rules = comm.axis_size(mesh, model_axis), param_sharding_rules(mesh)
+    out = {}
+    for group, leaves in params.items():
+        out[group] = {}
+        for name, t in leaves.items():
+            t = torch.as_tensor(t)
+            dim = _split_dim(rules, group, name)
+            if dim is not None and tp > 1:
+                if t.shape[dim] % tp:
+                    raise ValueError(f"{group}/{name}: dim {dim} of {tuple(t.shape)} does not "
+                                     f"split over tp={tp}")
+                w = t.shape[dim] // tp
+                t = t.narrow(dim, mesh.index(model_axis) * w, w).contiguous()
+            out[group][name] = t
+    return out
+
+
+def gather_params(params, mesh, model_axis: str = "model"):
+    """The full tree from every model rank's shards (detached; in rank
+    order along each split dim). Every rank of the mesh must call it."""
+    tp, rules = comm.axis_size(mesh, model_axis), param_sharding_rules(mesh)
+    out = {}
+    for group, leaves in params.items():
+        out[group] = {}
+        for name, t in leaves.items():
+            dim = _split_dim(rules, group, name)
+            out[group][name] = (comm.all_gather(t, mesh, model_axis, dim)
+                                if dim is not None and tp > 1 else t.detach())
+    return out
+
+
+def local_rows(batch: Dict[str, Any], mesh, data_axis: str = "data") -> Dict[str, Any]:
+    """This data rank's block of every batch leaf's rows, in rank order."""
+    dp = comm.axis_size(mesh, data_axis)
+    if dp == 1:
+        return batch
+    i, out = mesh.index(data_axis), {}
+    for key, v in batch.items():
+        if v.shape[0] % dp:
+            raise ValueError(f"batch {key}: {v.shape[0]} rows do not split over dp={dp}")
+        b = v.shape[0] // dp
+        out[key] = v[i * b:(i + 1) * b]
+    return out
+
+
+def sync_grads(grads: List[torch.Tensor], mesh, axis: str, op: str) -> List[torch.Tensor]:
+    """All-reduce every gradient over ``axis`` in one f32 buffer."""
+    if comm.axis_size(mesh, axis) == 1:
+        return grads
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    comm.all_reduce_(flat, mesh, axis, op)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+        at += g.numel()
+    return out
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -93,19 +194,32 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, to
 
 
 def make_step(loss_fn, device: torch.device, optimizer: OptimizerFactory,
-              compute_dtype: torch.dtype):
-    """(step, init_state) around ``loss_fn(params, batch) -> scalar``.
+              compute_dtype: torch.dtype, *, mesh=None, data_axis: str = "data",
+              model_axis: str = "model", grad_reduce: str = "sum",
+              loss_reduce: Optional[str] = None):
+    """(step, init_state) around ``loss_fn(params, local_batch) -> scalar``.
     ``step.value_and_grad(params, batch)`` gives the loss and the gradient
-    tree the step applies."""
+    tree the step applies. On a mesh, ``batch`` is the global batch: each
+    rank takes its rows (:func:`local_rows`), its gradients are all-reduced
+    over the data axis by ``grad_reduce`` ("sum" or "mean"), and
+    ``loss_reduce="mean"`` averages the ranks' losses. The model ranks
+    compute the replicated leaves' gradients from the same values with
+    run-independent kernels (models/bert.py), so the replicas stay
+    identical with no model-axis collective."""
+    tp = comm.axis_size(mesh, model_axis)
 
     def value_and_grad(params, batch):
-        loss = loss_fn(params, batch_to_device(batch, device))
+        loss = loss_fn(params, batch_to_device(local_rows(batch, mesh, data_axis), device))
         # leaves the loss does not reach (a pooler the contrastive loss never
         # uses) get zeros, as jax.value_and_grad gives them: AdamW then still
         # decays them, as optax.adamw does
         grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), tree_unflatten(params, grads)
+        grads = sync_grads(list(grads), mesh, data_axis, grad_reduce)
+        loss = loss.detach().float()
+        if loss_reduce is not None:
+            loss = comm.all_reduce_(loss.clone(), mesh, data_axis, loss_reduce)
+        return loss, tree_unflatten(params, grads)
 
     def step(params, opt_state, batch):
         loss, grads = value_and_grad(params, batch)
@@ -116,40 +230,62 @@ def make_step(loss_fn, device: torch.device, optimizer: OptimizerFactory,
         return params, opt_state, loss
 
     def init_state(params):
-        params = master_params(params, device)
+        params = master_params(shard_params(params, mesh, model_axis), device)
         return params, optimizer(tree_leaves(params))
 
     step.value_and_grad = value_and_grad
-    # the JAX package's name for the fused path (K2/K10 attention, K3 FFN)
-    step.attention_impl = "pallas"
+    # the JAX package's names: the fused path (K2/K10 attention, K3 FFN), or
+    # its tensor-parallel layer (K11 attention, the XLA-style FFN)
+    step.attention_impl = "pallas_tp" if tp > 1 else "pallas"
+    step.mesh = mesh
     step.device = device
     step.compute_dtype = compute_dtype
     return step, init_state
 
 
+def tp_arg(config: ModelConfig, mesh, model_axis: str):
+    """bert's ``tp`` argument for a mesh: (mesh, model axis), or None
+    without a model axis; raises where the heads do not split over it."""
+    tp = comm.axis_size(mesh, model_axis)
+    if tp == 1:
+        return None
+    if config.num_heads % tp:
+        raise ValueError(f"num_heads={config.num_heads} not divisible by tp={tp}")
+    return (mesh, model_axis)
+
+
 def make_train_step(
     config: ModelConfig,
+    mesh=None,
     *,
     device=None,
     optimizer: Optional[OptimizerFactory] = None,
     pooling: str = "mean",
     temperature: float = 0.05,
     compute_dtype: Optional[torch.dtype] = None,
+    data_axis: str = "data",
+    model_axis: str = "model",
 ):
     """Returns (train_step, init_state). Batch dict keys: q_ids, q_mask,
-    d_ids, d_mask (all [B, S] int, numpy or torch). ``optimizer`` builds a
-    torch optimizer from the list of parameter tensors; the default,
-    ``adamw(1e-5)``, is ``optax.adamw(1e-5)``. ``init_state(params)`` takes
-    a parameter tree (any device and dtype) and returns its f32 master
-    copy on the device with the optimizer over it."""
+    d_ids, d_mask (all [B, S] int, numpy or torch; B divisible by the data
+    axis's size). ``mesh``: a parallel.Mesh, every rank of which calls the
+    step with the same global batch; None is one device. ``optimizer``
+    builds a torch optimizer from the list of parameter tensors; the
+    default, ``adamw(1e-5)``, is ``optax.adamw(1e-5)``. ``init_state(params)``
+    takes a full parameter tree (any device and dtype) and returns f32
+    master copies of this rank's shards on the device with the optimizer
+    over them."""
     device = resolve_device(device)
     dt = resolve_compute_dtype(device, compute_dtype)
+    tp = tp_arg(config, mesh, model_axis)
 
     def loss_fn(params, batch):
         q_emb = bert_encode(params, batch["q_ids"], batch["q_mask"], config=config,
-                            pooling=pooling, compute_dtype=dt, fused_pool=False)
+                            pooling=pooling, compute_dtype=dt, fused_pool=False, tp=tp)
         d_emb = bert_encode(params, batch["d_ids"], batch["d_mask"], config=config,
-                            pooling=pooling, compute_dtype=dt, fused_pool=False)
-        return contrastive_loss(q_emb, d_emb, temperature)
+                            pooling=pooling, compute_dtype=dt, fused_pool=False, tp=tp)
+        return contrastive_loss(comm.gather_from_data(q_emb, mesh, data_axis),
+                                comm.gather_from_data(d_emb, mesh, data_axis), temperature)
 
-    return make_step(loss_fn, device, optimizer or adamw(1e-5), dt)
+    return make_step(loss_fn, device, optimizer or adamw(1e-5), dt, mesh=mesh,
+                     data_axis=data_axis, model_axis=model_axis, grad_reduce="sum")

@@ -1,4 +1,4 @@
-"""Cross-encoder (reranker) fine-tuning on one GPU.
+"""Cross-encoder (reranker) fine-tuning on one GPU or a mesh.
 
 Counterpart of financial_rag_tpu/training/rerank_ft.py. (query, passage,
 label) triples are mined from the feedback DB (ratings joined with the md5
@@ -7,7 +7,10 @@ cross-encoder fine-tunes on them with a listwise softmax loss. The mining,
 grouping and batching are host code, copied. The train step is the
 contrastive step's (training/contrastive.py): float32 master weights, bf16
 compute on the GPU through K2/K10 and K3, the optimizer updating the
-parameter tensors in place; no mesh. The uplift harness evaluates held-out
+parameter tensors in place. On a (data, model) mesh it shards as the
+contrastive step does (K11 under a model axis), but the listwise loss is a
+mean over each data rank's own groups, so the data axis AVERAGES the
+ranks' gradients and losses. The uplift harness evaluates held-out
 rank-1 accuracy through the serving scorer
 (``retrieval/rerank.CrossEncoderModel.predict``) before and after, and
 ``save_finetuned`` writes a checkpoint in the JAX package's format, so
@@ -31,8 +34,10 @@ from financial_rag_tpu_torch.tokenizer import WordPieceTokenizer
 from financial_rag_tpu_torch.training.contrastive import (
     OptimizerFactory,
     adamw,
+    gather_params,
     make_step,
     resolve_compute_dtype,
+    tp_arg,
 )
 from financial_rag_tpu_torch.utils import get_logger
 
@@ -186,10 +191,13 @@ def listwise_loss(logits: torch.Tensor) -> torch.Tensor:
 
 def make_rerank_train_step(
     config: ModelConfig,
+    mesh=None,
     *,
     device=None,
     optimizer: Optional[OptimizerFactory] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    data_axis: str = "data",
+    model_axis: str = "model",
 ):
     """Returns (train_step, init_state) for listwise cross-encoder tuning.
 
@@ -197,20 +205,24 @@ def make_rerank_train_step(
     positive. The [B, G] group dim flattens into one [B*G, S] forward (the
     serving scorer's kernels and shapes) and the loss is softmax
     cross-entropy over each group's G logits. The default optimizer,
-    ``adamw(2e-5)``, is ``optax.adamw(2e-5)``.
+    ``adamw(2e-5)``, is ``optax.adamw(2e-5)``. ``mesh`` as for
+    contrastive.make_train_step (B divisible by the data axis's size).
     """
     device = resolve_device(device)
     dt = resolve_compute_dtype(device, compute_dtype)
+    tp = tp_arg(config, mesh, model_axis)
 
     def loss_fn(params, batch):
         b, g, s = batch["ids"].shape
         logits = cross_encoder_forward(
             params, batch["ids"].reshape(b * g, s), batch["mask"].reshape(b * g, s),
-            batch["types"].reshape(b * g, s), config=config, compute_dtype=dt,
+            batch["types"].reshape(b * g, s), config=config, compute_dtype=dt, tp=tp,
         ).reshape(b, g)
         return listwise_loss(logits)
 
-    return make_step(loss_fn, device, optimizer or adamw(2e-5), dt)
+    return make_step(loss_fn, device, optimizer or adamw(2e-5), dt, mesh=mesh,
+                     data_axis=data_axis, model_axis=model_axis, grad_reduce="mean",
+                     loss_reduce="mean")
 
 
 # --------------------------------------------------------------- uplift
@@ -257,6 +269,7 @@ def groups_from_task(task: dict, split: str, *, group_size: int = 4,
 
 def measure_rerank_uplift(
     config: ModelConfig,
+    mesh=None,
     *,
     device=None,
     steps: int = 150,
@@ -292,7 +305,7 @@ def measure_rerank_uplift(
                                      max_seq_len=seq_len, compute_dtype=compute_dtype,
                                      device=device)
 
-    step, init_state = make_rerank_train_step(config, device=device, optimizer=adamw(lr),
+    step, init_state = make_rerank_train_step(config, mesh, device=device, optimizer=adamw(lr),
                                               compute_dtype=compute_dtype)
     params, opt_state = init_state(params)
     batcher = ListwiseBatcher(tokenizer, max_seq_len=seq_len)
@@ -310,6 +323,7 @@ def measure_rerank_uplift(
                 break
         epoch += 1
 
+    params = gather_params(params, mesh)
     acc_after = eval_rank1_accuracy(config, params, tokenizer, eval_groups,
                                     max_seq_len=seq_len, compute_dtype=compute_dtype,
                                     device=device)
@@ -323,6 +337,7 @@ def measure_rerank_uplift(
         "group_size": group_size,
         "attention_impl": step.attention_impl,
         "device": str(device),
+        "mesh": dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1},
     }
     log.info("rerank uplift: %s", report)
     return report, params
@@ -331,14 +346,18 @@ def measure_rerank_uplift(
 # ------------------------------------------------------------ persistence
 
 
-def save_finetuned(params, config: ModelConfig, out_dir: str | Path) -> Path:
+def save_finetuned(params, config: ModelConfig, out_dir: str | Path, mesh=None) -> Path:
     """Write a loadable checkpoint dir in the JAX package's format:
     HF-style config.json (so ModelConfig.from_json and
     CrossEncoderModel.from_pretrained resolve the architecture and the
-    classification head) and model.npz with the parameter tree."""
+    classification head) and model.npz with the parameter tree. On a mesh
+    every rank calls it: the shards are gathered, and rank 0 writes."""
     from financial_rag_tpu_torch.models.checkpoint import save_params_npz
 
+    params = gather_params(params, mesh)
     out = Path(out_dir)
+    if mesh is not None and mesh.rank != 0:
+        return out
     out.mkdir(parents=True, exist_ok=True)
     cfg = {
         "architectures": ["BertForSequenceClassification"],

@@ -4,7 +4,8 @@ Counterpart of financial_rag_tpu/training/uplift.py: fine-tune a randomly
 initialized encoder on a task with learnable non-lexical structure
 (training/data.synthetic_paraphrase_task) and report held-out recall@k
 before and after, evaluated through the port's serving path (Encoder
-forward -> FlatIndex exact sweep), on one device.
+forward -> FlatIndex exact sweep), on one device or on a mesh (every rank
+trains its part of each step and evaluates the gathered parameters).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.models.checkpoint import random_params
 from financial_rag_tpu_torch.models.encoder import Encoder
 from financial_rag_tpu_torch.tokenizer import WordPieceTokenizer
-from financial_rag_tpu_torch.training.contrastive import adamw, make_train_step
+from financial_rag_tpu_torch.training.contrastive import adamw, gather_params, make_train_step
 from financial_rag_tpu_torch.training.data import PairBatcher, synthetic_paraphrase_task
 from financial_rag_tpu_torch.utils import get_logger
 
@@ -48,6 +49,7 @@ def eval_recall_at_k(config: ModelConfig, params, tokenizer, eval_pairs,
 
 def measure_retrieval_uplift(
     config: ModelConfig,
+    mesh=None,
     *,
     device=None,
     steps: int = 200,
@@ -83,7 +85,7 @@ def measure_retrieval_uplift(
     log.info("recall@%d before fine-tuning: %.4f (chance ~= %.4f)",
              k, before, k / n_eval)
 
-    step, init_state = make_train_step(config, device=device, optimizer=adamw(lr),
+    step, init_state = make_train_step(config, mesh, device=device, optimizer=adamw(lr),
                                        compute_dtype=compute_dtype)
     params, opt_state = init_state(params)
     batcher = PairBatcher(tokenizer, max_seq_len=seq_len)
@@ -102,6 +104,7 @@ def measure_retrieval_uplift(
         epoch += 1
     last_loss = float(loss) if loss is not None else None
 
+    params = gather_params(params, mesh)
     after = eval_recall_at_k(config, params, tokenizer, task["eval_pairs"], k=k,
                              seq_len=seq_len, compute_dtype=compute_dtype, device=device)
     log.info("recall@%d after %d steps: %.4f (was %.4f)", k, it, after, before)
@@ -110,6 +113,7 @@ def measure_retrieval_uplift(
                  "held-out concept combinations)"),
         "model": f"{config.num_layers}L h{config.hidden_size}",
         "device": str(device),
+        "mesh": dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1},
         "attention": step.attention_impl,
         "steps": it,
         "batch_pairs": batch_size,

@@ -10,9 +10,11 @@ configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+import torch_parallel_workers as workers
 from financial_rag_tpu_torch.index.flat import FlatIndex
 from financial_rag_tpu_torch.index.ivf import IVFIndex
 from financial_rag_tpu_torch.models import decoder
@@ -511,3 +513,130 @@ def test_contrastive_step_on_cuda_matches_the_cpu(gen):
                 continue
             cos = torch.nn.functional.cosine_similarity(a, b_, dim=0)
             assert cos >= 0.99, (group, name, float(cos))
+
+
+# ----------------------------------------------- tensor parallel (K11, gloo)
+
+
+class _ModelAxis:
+    def __init__(self, tp):
+        self.shape = {"model": tp}
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_flash_attention_tp_kernel_matches_plain_at_local_heads(gen, tp):
+    """K11 at one rank's local heads of the 12 (6 heads, width 192, 384-byte
+    rows at tp2; 3 heads, width 96, 192-byte rows at tp4), S = 200 (tiles
+    part-filled), a padded row and a fully masked one: the output and
+    dq/dk/dv through autograd each within 2^-6 of every (position, head)
+    row's largest value of the plain versions at the same head count;
+    masked keys' dk/dv exactly zero; K2, K10 and K11's counters each count
+    one launch. A slice of a wider tensor (not contiguous) is refused."""
+    b, s, heads = 3, 200, 12 // tp
+    q, k, v = (_randn(gen, b, s, heads * 32, dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    do = _randn(gen, b, s, heads * 32, dtype=torch.bfloat16)
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    counts = lambda: (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.TP_LAUNCHES, fa.TP_BWD_LAUNCHES)
+    before = counts()
+    out = fa.flash_attention_tp(q, k, v, bias, num_heads=12, mesh=_ModelAxis(tp))
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    want_out = fa.flash_attention_plain(qd, kd, vd, bias, num_heads=heads)
+    want = fa.flash_attention_bwd_plain(qd, kd, vd, bias, do, num_heads=heads)
+    assert _row_rel_err(out.detach(), want_out, heads) <= 2.0 ** -6
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        assert _row_rel_err(g, w, heads) <= 2.0 ** -6, (name, _row_rel_err(g, w, heads))
+    assert (got[1][1, s // 3:] == 0).all() and (got[2][1, s // 3:] == 0).all()
+    wide = _randn(gen, b, s, 384, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_tp(wide[..., :heads * 32], kd, vd, bias, num_heads=12,
+                              mesh=_ModelAxis(tp))
+
+
+@pytest.mark.parametrize("rows", [2, 30522])
+def test_replicated_embedding_backward_is_run_independent_on_the_card(gen, rows):
+    """The TP path's embedding lookup on the card at one dp2 x tp2 rank's
+    contrastive encode (32 x 128 ids; token types all 0, word ids with a
+    quarter of the rows one id, the rest random): the table gradient has
+    the same bits on 5 runs (CUDA's F.embedding backward does not above
+    3,072 ids; PERF.md) and agrees with F.embedding's within f32 rounding."""
+    from financial_rag_tpu_torch.models.bert import _ReplicatedEmbedding
+
+    ids = torch.randint(0, rows, (32, 128), generator=gen, device="cuda")
+    ids[:8] = 0
+    table = _randn(gen, rows, 384).requires_grad_()
+    g = _randn(gen, 32, 128, 384)
+    runs = [torch.autograd.grad(_ReplicatedEmbedding.apply(ids, table), table, g)[0]
+            for _ in range(5)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    (ref,) = torch.autograd.grad(torch.nn.functional.embedding(ids, table), table, g)
+    torch.testing.assert_close(runs[0], ref, atol=1e-4, rtol=1e-5)
+
+
+def test_row_parallel_partial_product_runs_a_bf16_gemm_to_f32_on_the_card(gen):
+    """The row-parallel partial product at one tp2 rank's FFN-out shape
+    (4,096 x 768 by 768 x 384, bf16): float32 out, within f32 summation
+    order of the upcast product, and bf16 gradients within 2^-7 of each
+    gradient's largest value of autograd's f32 ones."""
+    from financial_rag_tpu_torch.models.bert import _PartialProduct
+
+    x = _randn(gen, 32, 128, 768, dtype=torch.bfloat16).requires_grad_()
+    w = _randn(gen, 768, 384, dtype=torch.bfloat16, scale=0.05).requires_grad_()
+    g = _randn(gen, 32, 128, 384, dtype=torch.bfloat16).float()
+    out = _PartialProduct.apply(x, w)
+    assert out.dtype == torch.float32
+    xf, wf = x.detach().float().requires_grad_(), w.detach().float().requires_grad_()
+    want = xf @ wf
+    assert (out - want).abs().max() <= 1e-5 * want.abs().max()
+    for a, b in zip(torch.autograd.grad(out, (x, w), g), torch.autograd.grad(want, (xf, wf), g)):
+        assert a.dtype == torch.bfloat16
+        assert (a.float() - b).abs().max() <= 2.0 ** -7 * b.abs().max()
+
+
+def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
+    """One contrastive step on dp1 x tp2, two ranks sharing the card over
+    gloo (K11 at 6 heads, the f32 row-parallel all-reduces), against the
+    single-GPU step (K2/K10/K3) on the same bf16 weights and padded batch,
+    2 layers at hidden 384: loss within 1e-2, and each leaf group's
+    gradient cosine >= 0.999 and norm ratio within 1 +- 0.01 (the two
+    paths round at other points: the TP FFN is not K3). K11 launched once
+    per layer and encode, forward and backward, on rank 0."""
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.parallel import launch
+    from financial_rag_tpu_torch.training import make_train_step
+
+    fields = dict(name="t", hidden_size=384, num_layers=2, num_heads=12,
+                  intermediate_size=1536, vocab_size=30522, max_position=128)
+    cfg = ModelConfig(**fields)
+    rng = np.random.default_rng(0)
+    lens = np.array([40, 30, 12, 5])
+    batch = {**{k: rng.integers(5, 30000, size=(4, 40)).astype(np.int32)
+                for k in ("q_ids", "d_ids")},
+             **{k: (np.arange(40)[None, :] < lens[:, None]).astype(np.int32)
+                for k in ("q_mask", "d_mask")}}
+    params = {g: {k: t.numpy() for k, t in leaves.items()}
+              for g, leaves in random_params(cfg, seed=0).items()}
+    ranks = launch.spawn(workers.step_grads, 2, args=(fields, params, batch, 2),
+                         device="cuda", timeout_s=120, join_timeout_s=300)
+    card, init_state = make_train_step(cfg, device="cuda")
+    masters, _ = init_state(params)
+    want_loss, want = card.value_and_grad(masters, batch)
+    got = ranks[0]
+    assert got["launches"] == (4, 4)
+    assert abs(got["loss"] - float(want_loss)) <= 1e-2
+    groups = {"qkv": ("q_w", "k_w", "v_w"), "o": ("o_w",), "ffn": ("ffn_in_w", "ffn_out_w"),
+              "norms": ("attn_ln_scale", "ffn_ln_scale")}
+    for group, names in groups.items():
+        a = np.concatenate([got["grads"]["layers"][n].ravel() for n in names]).astype(np.float64)
+        w = np.concatenate([want["layers"][n].float().cpu().numpy().ravel()
+                            for n in names]).astype(np.float64)
+        cos = a @ w / (np.linalg.norm(a) * np.linalg.norm(w))
+        assert cos >= 0.999, (group, cos)
+        assert abs(np.linalg.norm(a) / np.linalg.norm(w) - 1) <= 0.01, group
+    a, w = got["grads"]["embeddings"]["word"].ravel(), want["embeddings"]["word"].float().cpu().numpy().ravel()
+    assert a @ w / (np.linalg.norm(a) * np.linalg.norm(w)) >= 0.999
