@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
               ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
-              source, in parallel).
+              source, in parallel); for each kernel of the wgmma sources
+              (K9, K10) its registers, shared memory and spills (ptxas) and
+              its HGMMA instructions (cuobjdump), which every bf16 kernel
+              there must have.
 3. kernel  -- every kernel (K1-K11) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
@@ -84,6 +87,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -303,7 +307,61 @@ def phase_device(torch):
     return info
 
 
+# the sources of the kernels redesigned for Hopper (wgmma from a cp.async
+# ring): the build phase reports their ptxas resources and requires HGMMA in
+# the SASS of every bf16 kernel they define
+WGMMA_SOURCES = ("flash_attention_bwd.cu", "causal_flash.cu")
+
+
+def ptxas_resources(log_text: str) -> dict:
+    """{source: {mangled kernel: {registers, smem_bytes, spill_stores,
+    spill_loads}}} from the -Xptxas -v lines of the build log."""
+    out, source, fn = {}, None, None
+    for line in log_text.splitlines():
+        if line.startswith("== "):
+            source, fn = line.split()[1], None
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(source, {})[fn] = {}
+            continue
+        if fn is None:
+            continue
+        entry = out[source][fn]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_hgmma_counts(library: str):
+    """{mangled kernel: number of HGMMA instructions} from cuobjdump, or None
+    where the toolkit has no cuobjdump."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not cuobjdump.exists():
+        return None
+    sass = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build(kernel_lib, log_dir):
+    """Builds the library from csrc/ and reports, for each kernel of the
+    wgmma sources, its registers, shared memory and spills (ptxas) and its
+    HGMMA instructions (cuobjdump); a bf16 kernel there without HGMMA fails."""
     t0 = time.perf_counter()
     path = kernel_lib.build()
     kernel_lib.load()
@@ -312,6 +370,23 @@ def phase_build(kernel_lib, log_dir):
     if log_dir and log:
         shutil.copy(log, Path(log_dir) / "kernel_build.log")
     emit({"phase": "build", "seconds": round(seconds, 3), "library": str(path)})
+    check(log is not None, "the build log is missing: the library must be built in this run")
+    resources = ptxas_resources(Path(log).read_text())
+    hgmma = sass_hgmma_counts(str(path))
+    names = [fn for src in WGMMA_SOURCES for fn in resources.get(src, {})]
+    missing = []
+    for src in WGMMA_SOURCES:
+        for fn, res in resources.get(src, {}).items():   # fn: the mangled kernel name
+            entry = {"phase": "build", "source": src, "kernel": fn, **res}
+            if hgmma is not None:
+                entry["hgmma"] = hgmma.get(fn, 0)
+                if "bf16" in fn or "attn_bwd" in fn:
+                    entry["wgmma_in_sass"] = entry["hgmma"] > 0
+                    if not entry["hgmma"]:
+                        missing.append(fn)
+            emit(entry)
+    check(names, f"no ptxas resource lines for {WGMMA_SOURCES} in the build log")
+    check(not missing, f"no HGMMA in the SASS of {missing}")
 
 
 def kernel_cases(torch, F, seed):
@@ -725,13 +800,13 @@ def attention_bwd_cases(torch, F, randn, padded_mask):
         live_pairs = s * int(mask.sum().item()) + s * s   # the masked row's keys all count
         control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
             q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH)) if s <= 128 else None
-        cases.append(("flash_attention_bwd", f"B={b},S={s},H={H},heads={NH},bf16",
-                      lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd(
-                          q, k, v, bias, do, num_heads=NH),
+        run = (lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd(
+            q, k, v, bias, do, num_heads=NH))
+        cases.append(("flash_attention_bwd", f"B={b},S={s},H={H},heads={NH},bf16", run,
                       lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd_plain(
                           q, k, v, bias, do, num_heads=NH),
                       SdpaBackward(torch, F, q, k, v, bias, do, NH),
-                      attention_bwd_cmp(NH, control),
+                      attention_bwd_cmp(NH, control, again=run),
                       bound(7 * b * s * H * 2 + b * s * 4, 5 * 2 * NH * hd * live_pairs, "bf16")))
     return cases
 
@@ -745,11 +820,12 @@ def row_rel_err(got, want, heads: int) -> float:
     return (err / want.abs().amax(dim=-1)).masked_fill(err == 0, 0.0).max().item()
 
 
-def attention_bwd_cmp(heads: int, control=None):
+def attention_bwd_cmp(heads: int, control=None, again=None):
     """dq, dk and dv each within 2^-6 of every (position, head) row's
     largest value (two bf16 ulps of it), as K9's check; rows of exact zeros
     (masked keys' dk and dv) exactly zero. ``control``, the kernel run with
-    the padding mask ignored, must fail the same bound."""
+    the padding mask ignored, must fail the same bound. ``again``, a second
+    launch on the same inputs, must give the same bits (K10 has no atomics)."""
     rtol = 2.0 ** -6
 
     def cmp(a, b):
@@ -757,6 +833,9 @@ def attention_bwd_cmp(heads: int, control=None):
         err = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
         detail = {"rtol": rtol, "max_row_rel_err": rels}
         ok = max(rels.values()) <= rtol
+        if again is not None:
+            detail["bit_identical_run_to_run"] = all(x.equal(y) for x, y in zip(again(), a))
+            ok = ok and detail["bit_identical_run_to_run"]
         if control is not None:
             c = control()
             crel = {name: row_rel_err(x, y, heads) for name, x, y in zip(("dq", "dk", "dv"), c, b)}

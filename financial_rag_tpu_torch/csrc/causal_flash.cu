@@ -13,163 +13,231 @@
 // it visited there; no caller reads those rows.)
 //
 // Bound on the H100: at B=1, S=4096, 14 query heads of 64 (the Qwen2-0.5B
-// answer prompt) the causal QK^T and PV are ~30 GFLOP, ~0.030 ms at 989
-// TFLOP/s bf16, against ~16.8 MB of q/k/v/out, ~0.005 ms at 3.35 TB/s: the
-// operations bound it.
+// answer prompt) the causal QK^T and PV are ~30 GFLOP at pad 0, ~0.030 ms at
+// 989 TFLOP/s bf16 (~0.016 ms at the prompt's pad of 1,100), against ~16.8
+// MB of q/k/v/out, ~0.005 ms at 3.35 TB/s: the
+// operations bound it, and the exps (one per causal score, 16 a clock on
+// each of 132 SMs) give about the same floor at head_dim 64, so the softmax
+// has to run beside the products, not after them.
 //
-// Design: K2's (csrc/flash_attention.cu). The TPU runs all heads of one
-// batch row in a grid cell and keeps the row's whole K and V in VMEM; here
-// the grid is (64-query tile, query head, batch row), heaviest causal tiles
-// first. Each of 4 warps owns 16 query rows: Q stays in registers as mma A
-// fragments, 64-key tiles of K (row-major) and V (transposed) are staged in
-// shared memory, S = QK^T and O += PV are bf16 mma.sync m16n8k16 with f32
-// accumulation, and the online softmax stays in registers. A block walks
-// key tiles from the one holding key pad_len to the last one that meets its
-// last query row (the causal skip); a tile of padding rows only writes
-// zeros. The f32 instantiation (LLM_DTYPE=float32 only) is a plain CUDA-core
-// loop: four threads per query row, 32-key tiles in shared memory. Later
-// work: share each K/V tile across the 7 query heads of a GQA group, wgmma,
-// TMA and a pipelined K/V ring.
-#include "common.cuh"
+// Design of the bf16 path (sm_90a, head_dim 64 and 128): a block serves one
+// kv head of one batch row and 128 consecutive (position, query head) rows
+// of that kv head's GQA group, packed position-major (row r: position
+// r / group, head r % group), so every K/V tile it loads is used by all
+// query heads of the group (7 for Qwen2-0.5B). One producer warp streams
+// 64-key K and V tiles by cp.async into a ring of 3 shared-memory stages
+// and publishes each through an mbarrier; two consumer warpgroups, 64 rows
+// each, take every tile: S = Q K^T (wgmma, Q and K K-major in the 128-byte
+// swizzle), the online softmax in registers with exp2 and log2(e)/sqrt(D)
+// folded into one FMA (the mask only on tiles that cross pad_len or the
+// diagonal), then O += P V (P from registers as bf16, V through the
+// transpose bit), and release the stage through a second mbarrier. The two
+// warpgroups are not in lock step, so one's softmax runs while the other's
+// products do. (Overlapping a warpgroup's own softmax with its next Q K^T
+// measured slower on the H100 at head_dim 64: ptxas serialises the wgmmas
+// of that loop.) A block walks the key tiles from the one holding key
+// pad_len to the one holding its last row's position (the causal skip);
+// blocks launch heaviest first; a block whose rows are all padding loads
+// nothing and writes zeros. The f32 instantiation (LLM_DTYPE=float32 only)
+// is a plain CUDA-core loop: four threads per query row, 32-key tiles in
+// shared memory.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kQTile = 16 * kWarps;  // query rows per block, 16 per warp
-constexpr int kKTile = 64;           // keys per shared-memory tile
-constexpr int kVLd = kKTile + 8;     // transposed V row stride (bf16): conflict-free B fragments
+using namespace hopper;
+
+constexpr int kQTile = 64;           // query rows per f32 block
+constexpr int kKTile = 64;           // keys per K/V tile
+constexpr int kWgRows = 64;          // (position, head) rows per consumer warpgroup
+constexpr int kConsumers = 2;        // consumer warpgroups per block
+constexpr int kBlockRows = kWgRows * kConsumers;
+constexpr int kBf16Threads = kConsumers * 128 + 32;   // + the producer warp
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+struct CausalTiles {
+  static constexpr int kRegionBytes = 64 * 128;          // 64 rows x 64 features (128 bytes)
+  static constexpr int kTileBytes = kRegionBytes * (D / 64);
+  static constexpr int kStages = 3;
+  static constexpr int kSmemBytes = (kConsumers + 2 * kStages) * kTileBytes + 1024;
+};
+
+// Chunk ch (16 bytes) of row r of a tile in the 128-byte swizzle: 64-feature
+// column blocks are regions of 64 rows x 128 bytes.
+__device__ __forceinline__ uint32_t sw128_chunk(int r, int ch) {
+  return (ch >> 3) * (64 * 128) + swz<3>(r * 128 + (ch & 7) * 16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads)
 causal_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ pad_len,
-                       __nv_bfloat16* __restrict__ out, int S, int Hq, int group, float scale) {
-  constexpr int kKLd = D + 8;  // K row stride (bf16): conflict-free B fragments
-  __shared__ __align__(16) __nv_bfloat16 ks[kKTile * kKLd];
-  __shared__ __align__(16) __nv_bfloat16 vt[D * kVLd];
+                       __nv_bfloat16* __restrict__ out, int S, int Hq, int group, float scale2) {
+  using T = CausalTiles<D>;
+  constexpr int kStages = T::kStages, kChunks = D / 8;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sRing = sQ + kConsumers * T::kTileBytes;  // stage st: K, then V
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQTile;  // longest causal rows launch first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row0 = q0 + warp * 16 + gid;  // this thread's rows: row0, row0+8
-  const int hq_w = Hq * D, hkv_w = (Hq / group) * D;
-  const size_t qbase = (size_t)b * S * hq_w + (size_t)h * D;
-  const size_t kbase = (size_t)b * S * hkv_w + (size_t)(h / group) * D;
+  const int b = blockIdx.z, g = blockIdx.y;
+  const int r_begin = (gridDim.x - 1 - blockIdx.x) * kBlockRows;  // heaviest rows launch first
+  const int rows = S * group;
+  const int last_pos = (min(r_begin + kBlockRows, rows) - 1) / group;
   const int pad = min(max(pad_len[b], 0), S);
+  const int k_begin = (pad / kKTile) * kKTile;
+  // keys [k_begin, last_pos] in 64-key tiles; none when every row is padding
+  const int ntiles = last_pos >= pad ? (last_pos - k_begin) / kKTile + 1 : 0;
+  const int hq_w = Hq * D, hkv_w = (Hq / group) * D;
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  const int key_end = min(q0 + kQTile, S);  // keys past the tile's last row are all masked
-  if (q0 + kQTile > pad) {                  // else every row of the tile is padding
-    uint32_t qa[D / 16][4];  // Q rows as the A operand of the k16 steps over head_dim
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * tig;
-        qa[kk][i] = r < S ? ld32(q + qbase + (size_t)r * hq_w + c) : 0u;
-      }
-
-    for (int k0 = (pad / kKTile) * kKTile; k0 < key_end; k0 += kKTile) {
-      __syncthreads();  // the previous tile is no longer read
-      for (int e = threadIdx.x; e < kKTile * (D / 8); e += kWarps * 32) {
-        const int r = e / (D / 8), c = 8 * (e % (D / 8));
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-        if (k0 + r < S) {
-          const size_t src = kbase + (size_t)(k0 + r) * hkv_w + c;
-          kv = *reinterpret_cast<const uint4*>(k + src);
-          vv = *reinterpret_cast<const uint4*>(v + src);
-        }
-        *reinterpret_cast<uint4*>(&ks[r * kKLd + c]) = kv;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-        for (int d = 0; d < 8; ++d) vt[(c + d) * kVLd + r] = ve[d];
-      }
-      __syncthreads();
-
-      // S = Q K^T for this warp's 16 rows x 64 keys, scaled, then masked
-      float s[kKTile / 8][4];
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < kKTile / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const __nv_bfloat16* kr = &ks[(8 * nt + gid) * kKLd + 16 * kk + 2 * tig];
-          mma_bf16(s[nt], qa[kk], ld32(kr), ld32(kr + 8));
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + 8 * nt + 2 * tig + (i & 1);
-          const int row = row0 + 8 * (i >> 1);
-          s[nt][i] = (key >= pad && key <= row && key < S) ? s[nt][i] * scale : -INFINITY;
-          mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-        }
-      }
-
-      // online softmax: each row's 64 scores live in the 4 threads of a
-      // group; a row with no live key so far keeps m = -inf and adds zeros
-      float m_use[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = expf(m[r] - m_use[r]);
-        m[r] = m_new;
-        l[r] *= alpha;
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          o[dt][2 * r] *= alpha;
-          o[dt][2 * r + 1] *= alpha;
-        }
-      }
-
-      // P (bf16) as the A operand over keys; O += P V
-      uint32_t pa[kKTile / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < kKTile / 8; ++nt) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = expf(s[nt][i] - m_use[i >> 1]);
-          l[i >> 1] += p[i];
-        }
-        pa[nt >> 1][2 * (nt & 1)] = pack_bf16(p[0], p[1]);
-        pa[nt >> 1][2 * (nt & 1) + 1] = pack_bf16(p[2], p[3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-        for (int kk = 0; kk < kKTile / 16; ++kk) {
-          const __nv_bfloat16* vr = &vt[(8 * dt + gid) * kVLd + 16 * kk + 2 * tig];
-          mma_bf16(o[dt], pa[kk], ld32(vr), ld32(vr + 8));
-        }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 32);              // every producer lane, once its copies landed
+      mbar_init(&empty[st], kConsumers * 128);  // every consumer thread, once its products ended
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == kConsumers * 4) {
+    // producer: K and V tile t into stage t % kStages, published one tile
+    // late so that two tiles' copies are in flight, and always before it
+    // blocks on a stage that a consumer has yet to release
+    const size_t kbase = (size_t)b * S * hkv_w + (size_t)g * D;
+    int published = 0;  // tiles 0 .. published-1 are visible to the consumers
+    auto publish = [&](auto wait_groups) {
+      wait_groups();
+      fence_proxy_async();
+      mbar_arrive(&full[published % kStages]);
+      ++published;
+    };
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kStages;
+      if (t >= kStages) {
+        if (published < t) publish([] { cp_async_wait<0>(); });
+        mbar_wait(&empty[st], (t / kStages - 1) & 1);
+      }
+      const uint32_t kt = sRing + st * 2 * T::kTileBytes, vt = kt + T::kTileBytes;
+      const int k0 = k_begin + t * kKTile;
+      for (int e = lane; e < kKTile * kChunks; e += 32) {
+        const int r = e / kChunks, ch = e % kChunks;
+        const bool ok = k0 + r < S;
+        const size_t src = kbase + (size_t)(ok ? k0 + r : 0) * hkv_w + 8 * ch;
+        cp_async16(kt + sw128_chunk(r, ch), k + src, ok);
+        cp_async16(vt + sw128_chunk(r, ch), v + src, ok);
+      }
+      cp_async_commit();
+      if (published < t) publish([] { cp_async_wait<1>(); });
+    }
+    if (published < ntiles) publish([] { cp_async_wait<0>(); });
+    return;
+  }
+
+  // consumer warpgroup w: rows r_begin + 64w .. +63
+  const int w = warp >> 2, wt = threadIdx.x & 127;
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t qt = sQ + w * T::kTileBytes;
+  for (int e = wt; e < kWgRows * kChunks; e += 128) {
+    const int lr = e / kChunks, ch = e % kChunks;
+    const int r = r_begin + w * kWgRows + lr, pos = r / group;
+    const bool ok = r < rows;
+    const size_t src = ok ? ((size_t)b * S + pos) * hq_w + (size_t)(g * group + r - pos * group) * D + 8 * ch : 0;
+    cp_async16(qt + sw128_chunk(lr, ch), q + src, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  named_barrier(1 + w, 128);
+
+  // this thread's rows (lr = 16 * warp-in-group + gid, +8): position, or -1 past the end
+  int pos[2];
+  size_t obase[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_begin + w * kWgRows + 16 * (wt >> 5) + gid + 8 * i;
+    pos[i] = r < rows ? r / group : -1;
+    obase[i] = r < rows ? ((size_t)b * S + pos[i]) * hq_w + (size_t)(g * group + r - pos[i] * group) * D : 0;
+  }
+
+  const int pos_lo = min(pos[0], pos[1]);
+  float o[D / 2], s[32];
+  zero(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m: raw (unscaled) scores
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    fence_proxy_async();
+    const uint32_t kt = sRing + st * 2 * T::kTileBytes, vt = kt + T::kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * T::kRegionBytes + (kk & 3) * 32;
+      wgmma_ss_n64(s, make_desc(qt + off, 16, 1024, kSw128), make_desc(kt + off, 16, 1024, kSw128),
+                      kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    const int k0 = k_begin + t * kKTile;
+
+    // mask only where a key of the tile can be dead for one of the rows:
+    // before pad_len, or past the lower of this thread's two positions
+    if (k0 < pad || k0 + kKTile - 1 > pos_lo) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+        if (key < pad || key > pos[(i >> 1) & 1]) s[i] = -INFINITY;
+      }
+    }
+    // online softmax; each row's 64 scores live in the 4 threads of a quad.
+    // A row with no live key so far keeps m = -inf and adds zeros.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float nm[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      nm[r] = m_new == -INFINITY ? 0.f : -m_new * scale2;
+      alpha[r] = exp2f(fmaf(m[r], scale2, nm[r]));
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f(fmaf(s[i], scale2, nm[r]));
+      l[r] += s[i];
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], s, kk);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = make_desc(vt + kk * 16 * 128, T::kRegionBytes, 1024, kSw128);
+      if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], db);
+      else wgmma_rs_n128(o, pa[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    mbar_arrive(&empty[st]);
   }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= S) continue;
-    const float inv = row < pad ? 0.f : 1.f / l[r];  // padding rows: zeros
+    if (pos[r] < 0) continue;
+    const float inv = pos[r] < pad ? 0.f : 1.f / l[r];  // padding rows: zeros
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row * hq_w + 8 * dt + 2 * tig) =
-          pack_bf16(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(out + obase[r] + 8 * nt + 2 * tig) =
+          pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
   }
 }
 
@@ -266,19 +334,30 @@ FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, c
                                   void* stream) {
   if (S < 1 || B < 1 || Hkv < 1 || Hq % Hkv || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + kQTile - 1) / kQTile, Hq, B);
   const int group = Hq / Hkv;
-  const float scale = (float)(1.0 / sqrt((double)D));
   if (dtype == FRAG_BF16) {
+    const dim3 grid((S * group + kBlockRows - 1) / kBlockRows, Hkv, B);
+    const float scale2 = (float)(1.4426950408889634 / sqrt((double)D));
     const auto* qb = static_cast<const __nv_bfloat16*>(q);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
     auto* ob = static_cast<__nv_bfloat16*>(out);
+    // above 48 KB of dynamic shared memory a kernel must opt in, once
+    static const cudaError_t opt_in[2] = {
+        cudaFuncSetAttribute(causal_fwd_bf16_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CausalTiles<64>::kSmemBytes),
+        cudaFuncSetAttribute(causal_fwd_bf16_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CausalTiles<128>::kSmemBytes)};
+    if (opt_in[D == 128] != cudaSuccess) return (int)opt_in[D == 128];
     if (D == 64)
-      causal_fwd_bf16_kernel<64><<<grid, kWarps * 32, 0, st>>>(qb, kb, vb, pad_len, ob, S, Hq, group, scale);
+      causal_fwd_bf16_kernel<64><<<grid, kBf16Threads, CausalTiles<64>::kSmemBytes, st>>>(
+          qb, kb, vb, pad_len, ob, S, Hq, group, scale2);
     else
-      causal_fwd_bf16_kernel<128><<<grid, kWarps * 32, 0, st>>>(qb, kb, vb, pad_len, ob, S, Hq, group, scale);
+      causal_fwd_bf16_kernel<128><<<grid, kBf16Threads, CausalTiles<128>::kSmemBytes, st>>>(
+          qb, kb, vb, pad_len, ob, S, Hq, group, scale2);
   } else if (dtype == FRAG_F32) {
+    const dim3 grid((S + kQTile - 1) / kQTile, Hq, B);
+    const float scale = (float)(1.0 / sqrt((double)D));
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);

@@ -6,249 +6,343 @@
 // additive [B,S] f32 key bias of the forward (0 or -1e9), and dq, dk, dv are
 // [B,S,H] bf16. It recomputes the probabilities from q, k and the bias (the
 // forward saves neither P nor its output) and applies
-//     dV = P^T dO,  dP = dO V^T,  dS = P o (dP - rowsum(dP o P)),
+//     dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),  D = rowsum(dP o P),
 //     dQ = dS K * scale,  dK = dS^T Q * scale
-// with the TPU kernel's rounding points: scores, P, dP, dS and the row sums
-// in f32; P^T and dS rounded to bf16 before the products that take them;
-// every product a bf16 mma.sync m16n8k16 with f32 accumulation.
+// with the TPU kernel's rounding points: scores, P, dP, dS and D in f32 (D
+// from the unrounded P, not from the forward's bf16 output); P^T and dS
+// rounded to bf16 before the products that take them; f32 accumulation.
 //
-// Bound on the H100: the five S x S x 32 products (QK^T, dO V^T, P^T dO,
-// dS K, dS^T Q) are 320*S*S flops per (batch row, head) against 7*S*32*2
-// bytes (q, k, v, dO in; dq, dk, dv out): ~91 flop/byte at S=128, under the
-// ~295 flop/byte ridge, so the bytes bound it there; ~366 at S=512, where the
-// tensor cores do. This design runs nine products (QK^T and dO V^T three
-// times), so at S=512 it does 1.8x the bound's operations.
+// Bound on the H100 at head_dim 32 (per (batch row, head): 7*S*64 bytes of
+// q, k, v, dO, dq, dk, dv; 5 products of 2*S*S*32 flops; exps per score):
+//   S = 32, 64, 128 (the train path): the bytes (S=128, B=256, 12 heads:
+//     0.053 ms against 0.016 ms of tensor work and 0.024 ms of exps at 2 per
+//     score, 16 a clock on each of 132 SMs);
+//   S = 512: the exps (3 per score there, 0.58 ms; tensor work 0.26 ms,
+//     bytes 0.21 ms).
 //
-// Design: the TPU holds the whole [S,S] matrix of all 12 heads of one batch
-// row in VMEM; one SM cannot at S=512. Here two kernels, each on a grid of
-// (64-row tile, head, batch row) blocks of 4 warps, each warp 16 rows:
-//   1. attn_bwd_dq_kernel, per 64-query tile. Q and dO stay in registers as
-//      mma A fragments. A first walk over 64-key tiles recomputes S = QK^T
-//      and dP = dO V^T and keeps each row's max, sum and D = rowsum(dP o P)
-//      online in f32 (D from the recomputed f32 P, not from the forward's
-//      bf16 output); it writes them to a [3,B,heads,S] f32 scratch. A second
-//      walk recomputes S and dP, forms dS and accumulates dQ = dS K in
-//      registers.
-//   2. attn_bwd_dkdv_kernel, per 64-key tile. K and V stay in registers; a
-//      walk over 64-query tiles recomputes S^T = K Q^T and dP^T = V dO^T, reads
-//      each query's max, sum and D from the scratch, and accumulates dV and
-//      dK in registers.
-// Nothing crosses blocks except the scratch, so the result does not depend on
-// the order blocks run in (no atomics). Staged tiles are row-major or
-// transposed in shared memory so that every mma B fragment is one 32-bit
-// load. Keys past S get bias -inf; queries past S get max +inf, sum 1 and
-// D 0, so they add exact zeros. A fully masked row sees every real score at
-// -1e9 and gets the uniform P over the real keys, as the plain version and
-// the TPU do. head_dim 32 only; any S >= 1 (S not a multiple of 64 included).
-// Later work: wgmma, TMA, the forward's log-sum-exp saved to skip the stats
-// walk, and one kernel for all three gradients.
-#include "common.cuh"
+// Design (sm_90a): two kernels, 128 threads (one warpgroup) per block, on a
+// grid of (64-row tile, head, batch row); every product is a wgmma m64nNk16
+// from shared-memory tiles in the 64-byte swizzle (a tile stored
+// [row][head_dim] is K-major for Q K^T and, with the transpose bit,
+// MN-major for dS K and P^T dO: nothing is transposed in memory). Operand
+// tiles arrive by cp.async into a 3-stage ring (hopper.cuh) while the
+// previous tile is multiplied. Scores are exp2 with log2(e)*scale folded
+// into one FMA; each row multiplies by 1/l once.
+//   1. attn_bwd_dq_kernel, per 64-query tile, Q and dO resident. Where the
+//      row fits in registers (S <= 128, the whole train path) its key tiles
+//      are walked once: S = QK^T and dP = dO V^T stay in registers, the
+//      row's max, sum and D follow, then dS and dQ = dS K: 3 products and
+//      one exp per score. Longer rows walk twice (max, sum and D online,
+//      then dS and dQ): 5 products, 2 exps. It writes each row's
+//      log-sum-exp and D to a [2,B,heads,S] f32 scratch.
+//   2. attn_bwd_dkdv_kernel, per 64-key tile, K and V resident; a walk over
+//      query tiles: S^T = K Q^T, dP^T = V dO^T, P^T from the scratch's
+//      log-sum-exp (one exp per score), dS^T, dV += P^T dO, dK += dS^T Q:
+//      4 products.
+// Nothing crosses blocks except the scratch, so there are no atomics and the
+// result is bit-identical from run to run. Keys past S get bias -inf;
+// queries past S get log-sum-exp +inf and D 0, so they add exact zeros.
+// The log-sum-exp is stored relative to the batch row's largest key bias
+// M: a fully masked row (every real score rounds to -1e9 * log2(e)) then
+// keeps log2(#real keys) instead of losing it to f32 rounding next to 1e9,
+// and gets the uniform P over the real keys, as the plain version and the
+// TPU do. head_dim 32 only; any S >= 1.
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kHeadDim = 32;
-constexpr int kWarps = 4;
-constexpr int kTile = 16 * kWarps;   // rows per block and per staged tile, 16 per warp
-constexpr int kLd = kHeadDim + 8;    // row-major tile stride (bf16): conflict-free B fragments
-constexpr int kTLd = kTile + 8;      // transposed tile stride (bf16): likewise
+constexpr int kTile = 64;                 // rows per block and per staged tile
+constexpr int kThreads = 128;             // one warpgroup
+constexpr int kTileBytes = kTile * kHeadDim * 2;   // 64 rows of 64 bytes
+constexpr int kStages = 3;
+constexpr int kStageBytes = 2 * kTileBytes;        // two operand tiles a stage
+constexpr int kStatBytes = 2 * kTile * 4;          // a query tile's log-sum-exp and D
+constexpr int kSmemBytes = 2 * kTileBytes + kStages * (kStageBytes + kStatBytes) + 1024;  // + alignment
+constexpr int kMaxResident = 2;           // key tiles of a row held in registers
+static_assert(kMaxResident <= kStages - 1, "the ring prologue must fetch every resident tile");
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Rows [r0, r0+64) of one head of a [B,S,H] bf16 tensor into shared memory:
-// row-major into `rm` and/or transposed into `tr`; rows past S are zeros.
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ src, size_t base, int r0,
-                                      int S, int H, __nv_bfloat16* rm, __nv_bfloat16* tr) {
-  for (int e = threadIdx.x; e < kTile * (kHeadDim / 8); e += kWarps * 32) {
-    const int r = e / (kHeadDim / 8), c = 8 * (e % (kHeadDim / 8));
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + base + (size_t)(r0 + r) * H + c);
-    if (rm) *reinterpret_cast<uint4*>(&rm[r * kLd + c]) = val;
-    if (tr) {
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int d = 0; d < 8; ++d) tr[(c + d) * kTLd + r] = ve[d];
-    }
+// Rows [r0, r0+64) of one head of a [B,S,H] bf16 tensor into a 64-byte
+// swizzled tile at `dst`; rows past S are zeros.
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __restrict__ src,
+                                          size_t base, int r0, int S, int H) {
+  for (int e = threadIdx.x; e < kTile * 4; e += kThreads) {
+    const int r = e >> 2, c = e & 3;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + swz<2>(r * 64 + c * 16), src + base + (size_t)(ok ? r0 + r : 0) * H + 8 * c, ok);
   }
 }
 
-// This warp's 16 rows (row0 = first row + gid) x 32 as mma A fragments of
-// the two k16 steps over head_dim; rows past S are zeros.
-__device__ __forceinline__ void load_rows(uint32_t (&a)[2][4], const __nv_bfloat16* __restrict__ src,
-                                          size_t base, int row0, int S, int H, int tig) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * tig;
-      a[kk][i] = r < S ? ld32(src + base + (size_t)r * H + c) : 0u;
-    }
+// K-major operand (features are the k dimension), k16 step kk
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return make_desc(tile + 32 * kk, 16, 512, kSw64);
+}
+// MN-major operand (rows are the k dimension), k16 step kk
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return make_desc(tile + 1024 * kk, kTileBytes, 512, kSw64);
 }
 
-// c[16 x 64] = a[16 x 32] times the transpose of a row-major 64 x 32 tile
-__device__ __forceinline__ void mma_rows_tile(float (&c)[kTile / 8][4], const uint32_t (&a)[2][4],
-                                              const __nv_bfloat16* tile, int gid, int tig) {
+// The largest key bias of the batch row, times log2(e), on every thread.
+__device__ __forceinline__ float bias_max(const float* __restrict__ brow, int S) {
+  __shared__ float red[kThreads / 32];
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < S; i += kThreads) mx = fmaxf(mx, brow[i] * kLog2e);
 #pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
+  for (int w = 0; w < kThreads / 32; ++w) mx = fmaxf(mx, red[w]);
+  return mx;
+}
+
+// The cp.async ring: tile t of `nloads` goes to stage t % kStages. The
+// prologue fetches tiles 0 .. kStages-2; acquire(t) waits for tile t, makes
+// it visible to wgmma, and refills the stage of tile t-1, which every
+// thread finished reading before the barrier.
+template <typename Fetch>
+__device__ __forceinline__ void ring_prologue(Fetch fetch, int nloads) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const __nv_bfloat16* r = &tile[(8 * nt + gid) * kLd + 16 * kk + 2 * tig];
-      mma_bf16(c[nt], a[kk], ld32(r), ld32(r + 8));
-    }
+  for (int t = 1; t < kStages - 1; ++t) {
+    if (t < nloads) fetch(t);
+    cp_async_commit();
   }
 }
-
-// c[16 x 32] += a[16 x 64] times a 64 x 32 matrix stored transposed (tr[d][row])
-__device__ __forceinline__ void mma_acc_tr(float (&c)[kHeadDim / 8][4], const uint32_t (&a)[kTile / 16][4],
-                                           const __nv_bfloat16* tr, int gid, int tig) {
-#pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const __nv_bfloat16* r = &tr[(8 * dt + gid) * kTLd + 16 * kk + 2 * tig];
-      mma_bf16(c[dt], a[kk], ld32(r), ld32(r + 8));
-    }
+template <typename Fetch>
+__device__ __forceinline__ void ring_acquire(Fetch fetch, int t, int nloads) {
+  cp_async_wait<kStages - 2>();
+  fence_proxy_async();
+  __syncthreads();
+  if (t + kStages - 1 < nloads) fetch(t + kStages - 1);
+  cp_async_commit();
 }
 
-// One n-tile of an f32 accumulator, rounded to bf16, into the A fragments of
-// the next product (two n-tiles of 8 columns make one k16 step).
-__device__ __forceinline__ void pack_a(uint32_t (&a)[kTile / 16][4], int nt, const float (&v)[4]) {
-  a[nt >> 1][2 * (nt & 1)] = pack_bf16(v[0], v[1]);
-  a[nt >> 1][2 * (nt & 1) + 1] = pack_bf16(v[2], v[3]);
-}
-
-// [16 x 32] f32 accumulator * scale -> bf16 rows row0, row0+8 of one head
+// f32 accumulator [64 x 32] * scale -> bf16 rows row0, row0+8 of one head
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, size_t base, int row0, int S,
-                                           int H, int tig, const float (&c)[kHeadDim / 8][4], float scale) {
+                                           int H, int tig, const float (&c)[16], float scale) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
 #pragma unroll
-    for (int dt = 0; dt < kHeadDim / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)row * H + 8 * dt + 2 * tig) =
-          pack_bf16(c[dt][2 * r] * scale, c[dt][2 * r + 1] * scale);
+    for (int nt = 0; nt < kHeadDim / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)row * H + 8 * nt + 2 * tig) =
+          pack_bf16(c[4 * nt + 2 * r] * scale, c[4 * nt + 2 * r + 1] * scale);
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// kResident > 0: the row's key tiles (at most kResident) are walked once
+// and held in registers; kResident == 0: two walks over any number of tiles.
+template <int kResident>
+__global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                    const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                   float* __restrict__ stats, int S, int H, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * kLd];       // K, row-major: S = Q K^T
-  __shared__ __align__(16) __nv_bfloat16 kt[kHeadDim * kTLd];   // K, transposed: dQ += dS K
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * kLd];       // V, row-major: dP = dO V^T
-  __shared__ float bs[kTile];
+                   float* __restrict__ stats, int S, int H, float c, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sO = sQ + kTileBytes, sRing = sQ + 2 * kTileBytes;
 
   const int b = blockIdx.z, head = blockIdx.y, heads = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int row0 = blockIdx.x * kTile + warp * 16 + gid;  // this thread's rows: row0, row0+8
   const size_t base = (size_t)b * S * H + (size_t)head * kHeadDim;
+  const float* brow = bias + (size_t)b * S;
+  const int nkt = (S + kTile - 1) / kTile;
+  const int nloads = kResident ? nkt : 2 * nkt;
 
-  uint32_t qa[2][4], da[2][4];
-  load_rows(qa, q, base, row0, S, H, tig);
-  load_rows(da, dout, base, row0, S, H, tig);
+  auto fetch = [&](int t) {
+    const uint32_t st = sRing + (t % kStages) * kStageBytes;
+    const int k0 = (t % nkt) * kTile;
+    load_tile(st, k, base, k0, S, H);
+    load_tile(st + kTileBytes, v, base, k0, S, H);
+  };
+  load_tile(sQ, q, base, blockIdx.x * kTile, S, H);
+  load_tile(sO, dout, base, blockIdx.x * kTile, S, H);
+  fetch(0);
+  cp_async_commit();
+  ring_prologue(fetch, nloads);
+  const float mb = bias_max(brow, S);
 
-  auto load_tile = [&](int k0, bool transposed) {
-    __syncthreads();  // the previous tile is no longer read
-    stage(k, base, k0, S, H, ks, transposed ? kt : nullptr);
-    stage(v, base, k0, S, H, vs, nullptr);
-    for (int e = threadIdx.x; e < kTile; e += kWarps * 32)
-      bs[e] = k0 + e < S ? bias[(size_t)b * S + k0 + e] : -INFINITY;
-    __syncthreads();
+  // S = Q K^T and dP = dO V^T of ring tile t, started, not waited for
+  auto products = [&](int t, float (&s)[32], float (&dp)[32]) {
+    const uint32_t kt = sRing + (t % kStages) * kStageBytes, vt = kt + kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(s, kmajor(sQ, kk), kmajor(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(dp, kmajor(sO, kk), kmajor(vt, kk), kk > 0);
+    wgmma_commit();
+  };
+  // this thread's 16 key columns of tile kt: bias * log2(e), -inf past S
+  auto key_bias = [&](int kt, float (&bb)[16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int key = kt * kTile + 8 * (i >> 1) + 2 * tig + (i & 1);
+      bb[i] = key < S ? brow[key] * kLog2e : -INFINITY;
+    }
+  };
+  // dQ += dS K for the K tile of ring slot t; waits for the product
+  float acc_dq[16];
+  zero(acc_dq);
+  auto add_dq = [&](int t, const float (&ds)[32]) {
+    const uint32_t kt = sRing + (t % kStages) * kStageBytes;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(a[kk], ds, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dq, a[kk], mnmajor(kt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc_dq);
   };
 
-  // walk 1: each row's max m, sum l and acc = sum exp(s - m) dP, online
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    load_tile(k0, false);
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_rows_tile(s, qa, ks, gid, tig);
-    mma_rows_tile(dp, da, vs, gid, tig);
-    float mx[2] = {-INFINITY, -INFINITY};
+  float inv[2], dsum[2];
+  if constexpr (kResident > 0) {
+    // every key tile of the row was fetched by the prologue: wait for all,
+    // then start all of their products behind one wait
+    float s[kResident][32], dp[kResident][32], bb[kResident][16];
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
+    for (int t = 0; t < kResident; ++t)
+      if (t < nkt) products(t, s[t], dp[t]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = s[nt][i] * scale + bs[8 * nt + 2 * tig + (i & 1)];
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+    for (int t = 0; t < kResident; ++t) key_bias(t, bb[t]);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < kResident; ++t) {
+      if (t < nkt) {
+        fence_acc(s[t]);
+        fence_acc(dp[t]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[t][i] = fmaf(s[t][i], c, bb[t][2 * (i >> 2) + (i & 1)]);
+          m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[t][i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[t][i] = -INFINITY, dp[t][i] = 0.f;
+      }
+    }
+    // each row's 64 * kResident scores live in the 4 threads of a quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+#pragma unroll
+    for (int t = 0; t < kResident; ++t)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float e = exp2f(s[t][i] - m[r]);
+        s[t][i] = e;
+        l[r] += e;
+        acc[r] += e * dp[t][i];
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {  // each row's 64 scores live in the 4 threads of a group
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      const float alpha = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha;
-      acc[r] *= alpha;
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv[r] = 1.f / l[r];
+      dsum[r] = quad_sum(acc[r]) * inv[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
+    for (int t = 0; t < kResident; ++t) {
+      if (t < nkt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = expf(s[nt][i] - m[i >> 1]);
-        l[i >> 1] += e;
-        acc[i >> 1] += e * dp[nt][i];
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          dp[t][i] = s[t][i] * inv[r] * (dp[t][i] - dsum[r]);
+        }
+        add_dq(t, dp[t]);
       }
+    }
+  } else {
+    // walk 1: each row's max m, sum l and acc = sum exp2(u - m) dP, online
+    for (int t = 0; t < nkt; ++t) {
+      ring_acquire(fetch, t, nloads);
+      float s[32], dp[32], bb[16];
+      products(t, s, dp);
+      key_bias(t, bb);
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = fmaf(s[i], c, bb[2 * (i >> 2) + (i & 1)]);
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // tile 0 holds key 0, so m is finite from the first tile on
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        const float alpha = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha;
+        acc[r] *= alpha;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float e = exp2f(s[i] - m[r]);
+        l[r] += e;
+        acc[r] += e * dp[i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv[r] = 1.f / l[r];
+      dsum[r] = quad_sum(acc[r]) * inv[r];
+    }
+    // walk 2: dS = P o (dP - D), dQ += dS(bf16) K
+    for (int t = nkt; t < 2 * nkt; ++t) {
+      ring_acquire(fetch, t, nloads);
+      float s[32], dp[32], bb[16];
+      products(t, s, dp);
+      key_bias(t - nkt, bb);
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = exp2f(fmaf(s[i], c, bb[2 * (i >> 2) + (i & 1)]) - m[r]) * inv[r];
+        dp[i] = p * (dp[i] - dsum[r]);
+      }
+      add_dq(t, dp);
+    }
   }
-  float dsum[2];
+
   const size_t plane = (size_t)gridDim.z * heads * S;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
-    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
-    dsum[r] = acc[r] / l[r];
     const int row = row0 + 8 * r;
     if (tig == 0 && row < S) {
       const size_t at = ((size_t)b * heads + head) * S + row;
-      stats[at] = m[r];
-      stats[plane + at] = l[r];
-      stats[2 * plane + at] = dsum[r];
+      stats[at] = (m[r] - mb) + log2f(l[r]);
+      stats[plane + at] = dsum[r];
     }
-  }
-
-  // walk 2: dS = P o (dP - D), dQ += dS(bf16) K
-  float acc_dq[kHeadDim / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_dq[dt][i] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    load_tile(k0, true);
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_rows_tile(s, qa, ks, gid, tig);
-    mma_rows_tile(dp, da, vs, gid, tig);
-    uint32_t sa[kTile / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[nt][i] * scale + bs[8 * nt + 2 * tig + (i & 1)] - m[i >> 1]) / l[i >> 1];
-        ds[i] = p * (dp[nt][i] - dsum[i >> 1]);
-      }
-      pack_a(sa, nt, ds);
-    }
-    mma_acc_tr(acc_dq, sa, kt, gid, tig);
   }
   store_rows(dq, base, row0, S, H, tig, acc_dq, scale);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
-                     float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * kLd];       // Q, row-major: S^T = K Q^T
-  __shared__ __align__(16) __nv_bfloat16 qt[kHeadDim * kTLd];   // Q, transposed: dK += dS^T Q
-  __shared__ __align__(16) __nv_bfloat16 os[kTile * kLd];       // dO, row-major: dP^T = V dO^T
-  __shared__ __align__(16) __nv_bfloat16 ot[kHeadDim * kTLd];   // dO, transposed: dV += P^T dO
-  __shared__ float ms[kTile], ls[kTile], dsums[kTile];
+                     float c, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + kTileBytes, sRing = sK + 2 * kTileBytes;
+  const uint32_t sStats = sRing + kStages * kStageBytes;  // stage st: lse[64], then D[64]
+  const float* stats_s = reinterpret_cast<const float*>(smem_raw + (sStats - smem_u32(smem_raw)));
 
   const int b = blockIdx.z, head = blockIdx.y, heads = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -256,52 +350,71 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int key0 = blockIdx.x * kTile + warp * 16 + gid;  // this thread's keys: key0, key0+8
   const size_t base = (size_t)b * S * H + (size_t)head * kHeadDim;
   const size_t plane = (size_t)gridDim.z * heads * S;
-  const float* srow = stats + ((size_t)b * heads + head) * S;
+  const float* lse = stats + ((size_t)b * heads + head) * S;
+  const float* brow = bias + (size_t)b * S;
+  const int nqt = (S + kTile - 1) / kTile;
 
-  uint32_t ka[2][4], va[2][4];
-  load_rows(ka, k, base, key0, S, H, tig);
-  load_rows(va, v, base, key0, S, H, tig);
+  // query tile t: Q and dO, and each query's log-sum-exp and D (+inf and 0
+  // past S, so that those queries add exact zeros)
+  auto fetch = [&](int t) {
+    const int st = t % kStages;
+    load_tile(sRing + st * kStageBytes, q, base, t * kTile, S, H);
+    load_tile(sRing + st * kStageBytes + kTileBytes, dout, base, t * kTile, S, H);
+    const int i = threadIdx.x & (kTile - 1), which = threadIdx.x / kTile, qi = t * kTile + i;
+    const uint32_t dst = sStats + st * kStatBytes + (which * kTile + i) * 4;
+    if (qi < S) cp_async4(dst, lse + which * plane + qi);
+    else st_shared_f32(dst, which ? 0.f : INFINITY);
+  };
+  load_tile(sK, k, base, blockIdx.x * kTile, S, H);
+  load_tile(sV, v, base, blockIdx.x * kTile, S, H);
+  fetch(0);
+  cp_async_commit();
+  ring_prologue(fetch, nqt);
+  const float mb = bias_max(brow, S);
   float kb[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    kb[r] = key0 + 8 * r < S ? bias[(size_t)b * S + key0 + 8 * r] : -INFINITY;
+  for (int r = 0; r < 2; ++r) kb[r] = key0 + 8 * r < S ? brow[key0 + 8 * r] * kLog2e : -INFINITY;
 
-  float acc_dk[kHeadDim / 8][4], acc_dv[kHeadDim / 8][4];
+  float acc_dk[16], acc_dv[16];
+  zero(acc_dk);
+  zero(acc_dv);
+  for (int t = 0; t < nqt; ++t) {
+    ring_acquire(fetch, t, nqt);
+    const uint32_t qt = sRing + (t % kStages) * kStageBytes, ot = qt + kTileBytes;
+    float st[32], dpt[32];
+    wgmma_fence();
 #pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt)
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(st, kmajor(sK, kk), kmajor(qt, kk), kk > 0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc_dk[dt][i] = acc_dv[dt][i] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    __syncthreads();  // the previous tile is no longer read
-    stage(q, base, q0, S, H, qs, qt);
-    stage(dout, base, q0, S, H, os, ot);
-    for (int e = threadIdx.x; e < kTile; e += kWarps * 32) {
-      const bool real = q0 + e < S;  // queries past S add exact zeros
-      ms[e] = real ? srow[q0 + e] : INFINITY;
-      ls[e] = real ? srow[plane + q0 + e] : 1.f;
-      dsums[e] = real ? srow[2 * plane + q0 + e] : 0.f;
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(dpt, kmajor(sV, kk), kmajor(ot, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+    const float* ls = stats_s + (t % kStages) * (kStatBytes / 4);
+    const float* ds = ls + kTile;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + 2 * tig + (i & 1);
+      const float p = exp2f((fmaf(st[i], c, kb[(i >> 1) & 1]) - mb) - ls[col]);
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - ds[col]);
     }
-    __syncthreads();
-
-    float st[kTile / 8][4], dpt[kTile / 8][4];
-    mma_rows_tile(st, ka, qs, gid, tig);
-    mma_rows_tile(dpt, va, os, gid, tig);
-    uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
+    uint32_t pa[4][4], sa[4][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * nt + 2 * tig + (i & 1);  // the query of this element
-        p[i] = expf(st[nt][i] * scale + kb[i >> 1] - ms[col]) / ls[col];
-        ds[i] = p[i] * (dpt[nt][i] - dsums[col]);
-      }
-      pack_a(pa, nt, p);
-      pack_a(sa, nt, ds);
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a(pa[kk], st, kk);
+      pack_a(sa[kk], dpt, kk);
     }
-    mma_acc_tr(acc_dv, pa, ot, gid, tig);
-    mma_acc_tr(acc_dk, sa, qt, gid, tig);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dv, pa[kk], mnmajor(ot, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dk, sa[kk], mnmajor(qt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc_dv);
+    fence_acc(acc_dk);
   }
   store_rows(dk, base, key0, S, H, tig, acc_dk, scale);
   store_rows(dv, base, key0, S, H, tig, acc_dv, 1.f);
@@ -310,8 +423,9 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }  // namespace
 
 // q/k/v/dout/dq/dk/dv [B,S,H] bf16 (H = num_heads * 32), 16-byte aligned;
-// bias [B,S] f32; stats: scratch of 3*B*num_heads*S f32 (each row's max, sum
-// and D), written by the first kernel and read by the second.
+// bias [B,S] f32; stats: scratch of 2*B*num_heads*S f32 (each query row's
+// log-sum-exp relative to its batch row's largest key bias, and D), written
+// by the first kernel and read by the second.
 FRAG_EXPORT int frag_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const float* bias, const void* dout, void* dq, void* dk,
                                          void* dv, float* stats, int B, int S, int H, int num_heads,
@@ -320,17 +434,23 @@ FRAG_EXPORT int frag_flash_attention_bwd(const void* q, const void* k, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((S + kTile - 1) / kTile, num_heads, B);
   const float scale = (float)(1.0 / sqrt((double)kHeadDim));
+  const float c = (float)(1.4426950408889634 / sqrt((double)kHeadDim));
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const auto* ob = static_cast<const __nv_bfloat16*>(dout);
-  attn_bwd_dq_kernel<<<grid, kWarps * 32, 0, st>>>(qb, kb, vb, bias, ob,
-                                                   static_cast<__nv_bfloat16*>(dq), stats, S, H,
-                                                   scale);
+  auto* dqb = static_cast<__nv_bfloat16*>(dq);
+  if (S <= kTile)
+    attn_bwd_dq_kernel<1><<<grid, kThreads, kSmemBytes, st>>>(qb, kb, vb, bias, ob, dqb, stats, S, H, c, scale);
+  else if (S <= kMaxResident * kTile)
+    attn_bwd_dq_kernel<kMaxResident><<<grid, kThreads, kSmemBytes, st>>>(qb, kb, vb, bias, ob, dqb, stats, S,
+                                                                         H, c, scale);
+  else
+    attn_bwd_dq_kernel<0><<<grid, kThreads, kSmemBytes, st>>>(qb, kb, vb, bias, ob, dqb, stats, S, H, c, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_kernel<<<grid, kWarps * 32, 0, st>>>(qb, kb, vb, bias, ob, stats,
-                                                     static_cast<__nv_bfloat16*>(dk),
-                                                     static_cast<__nv_bfloat16*>(dv), S, H, scale);
+  attn_bwd_dkdv_kernel<<<grid, kThreads, kSmemBytes, st>>>(qb, kb, vb, bias, ob, stats,
+                                                           static_cast<__nv_bfloat16*>(dk),
+                                                           static_cast<__nv_bfloat16*>(dv), S, H, c, scale);
   return (int)cudaGetLastError();
 }

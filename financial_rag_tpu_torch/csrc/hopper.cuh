@@ -1,0 +1,217 @@
+// Hopper (sm_90a) building blocks shared by the redesigned kernels K9
+// (causal_flash.cu) and K10 (flash_attention_bwd.cu).
+//
+// Tile loads: cp.async (16 bytes a thread, zero-filled past the ragged edge)
+// into a ring of shared-memory stages, not TMA. The tiles are one head's
+// rows of a tensor whose heads interleave along the last axis (64 to 256
+// bytes of every 768- or 1,792-byte row), the last tile of a sequence is
+// ragged (any S), and at the train shapes a block reads one or two tiles of
+// each operand: cp.async zero-fills the rows past S, needs no tensor map
+// built on the host for every launch, and a kernel's own threads (or one
+// producer warp) keep the next stages in flight while the current one is
+// multiplied. A stage is published to the tensor cores by the thread that
+// waited for its copies: cp.async.wait_group, then fence.proxy.async (the
+// copies are generic-proxy writes and wgmma reads through the async proxy),
+// then a block barrier or an mbarrier arrive.
+//
+// Products: wgmma m64nNk16, bf16 in, f32 accumulate. B always comes from
+// shared memory through a descriptor; A from shared memory or from
+// registers, where it is a previous product's accumulator (P, dS) rounded to
+// bf16. Accumulator layout (thread t of the warpgroup, w = t/32, lane l):
+// d[4*j + e] is row 16*w + l/4 + 8*(e/2), column 8*j + 2*(l%4) + (e%2),
+// the m16n8 C layout of each 8-column block; a register A operand is the
+// m16n8k16 A fragment, so two 8-column blocks of an accumulator make one k16
+// step (pack_a below).
+//
+// Shared-memory layouts are the canonical GMMA ones, swizzled: rows of 64
+// (SW64) or 128 (SW128) bytes, 16-byte chunk c of row r stored at chunk
+// c ^ ((byte offset >> 7) & (1 << B) - 1) with B = 2 or 3, tiles aligned to
+// 1,024 bytes. A tile stored [row][feature] serves as a K-major operand
+// (features are the k dimension: S = Q K^T) and, with the transpose bit, as
+// an MN-major one (rows are the k dimension: O = P V, dQ = dS K), so no
+// operand is ever transposed in memory.
+#pragma once
+
+#include "common.cuh"
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- cp.async -------------------------------------------------------------
+
+// 16 bytes from global to shared; zeros when !valid (src is not read then).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// 4 bytes from global to shared (always valid).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void st_shared_f32(uint32_t dst, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(dst), "f"(v) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// Order this thread's generic-proxy shared-memory writes (cp.async
+// included, once waited for) before later async-proxy reads (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk `off` (a multiple of 16 within a 1,024-byte
+// aligned tile) under the Swizzle<B,4,3> pattern of the SW32/64/128 modes.
+template <int B>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & ((1u << B) - 1)) << 4);
+}
+
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads) for `count` threads.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// ---- mbarrier -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// Make the initialised barriers visible before any thread uses them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// Block until the phase of parity `parity` has completed (a barrier starts
+// in phase 0; its n-th completion, from 0, is waited for with parity n & 1).
+// A wait that never ends is a bug: trap after 4 s instead of hanging the
+// device.
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const uint64_t start = global_ns();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (global_ns() - start > 4000000000ull) __trap();
+  }
+}
+
+// Max and sum over the 4 threads of a quad (one accumulator row's columns).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+enum Swizzle : int { kSw128 = 1, kSw64 = 2 };
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (LBO, SBO), swizzle mode; base offset 0 (tiles 1,024-aligned).
+// K-major: SBO = bytes between 8-row groups, LBO unused. MN-major: SBO =
+// bytes between 8-row groups along k, LBO = bytes between swizzle-wide
+// column blocks along N.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keep the compiler from moving reads of an accumulator above the wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Columns 16*kk .. 16*kk+15 of a [64 x N] f32 accumulator, rounded to bf16,
+// as the register A operand of the k16 step kk of the next product.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory, both
+// K-major; with accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] += A[64 x 16] * B[16 x 32], A in registers (the m16n8k16
+// A-fragment layout, 16 rows per warp), B in shared memory MN-major (a
+// tile stored [k][n], read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (the m16n8k16
+// A-fragment layout, 16 rows per warp), B in shared memory MN-major (a
+// tile stored [k][n], read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (the m16n8k16
+// A-fragment layout, 16 rows per warp), B in shared memory MN-major (a
+// tile stored [k][n], read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+}  // namespace hopper

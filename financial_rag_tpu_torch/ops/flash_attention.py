@@ -81,6 +81,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
 
 
+def bwd_scratch_shape(b: int, s: int, num_heads: int) -> tuple:
+    """K10's f32 scratch between its two kernels: each query row's
+    log-sum-exp (base 2, relative to its batch row's largest key bias) and
+    D = rowsum(dP o P)."""
+    return (2, b, num_heads, s)
+
+
 def _kernel_inputs(name: str, q, k, v, mask_bias, num_heads: int, *extra):
     """Checks what the kernels take; returns (the [B,S] f32 bias, device)."""
     b, s, h = q.shape
@@ -129,7 +136,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dout = dout.to(q.dtype).contiguous()
     bias, dev = _kernel_inputs("flash_attention_bwd", q, k, v, mask_bias, num_heads, dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((3, b, num_heads, s), dtype=torch.float32, device=dev)
+    stats = torch.empty(bwd_scratch_shape(b, s, num_heads), dtype=torch.float32, device=dev)
     kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
                       *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv, stats)),
                       b, s, h, num_heads)

@@ -88,6 +88,8 @@ def build() -> Path:
     if lib_path.exists():
         BUILD_INFO.setdefault("library", str(lib_path))
         BUILD_INFO.setdefault("seconds", 0.0)
+        if (out_dir / f"build_{digest}.log").exists():
+            BUILD_INFO.setdefault("log", str(out_dir / f"build_{digest}.log"))
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()

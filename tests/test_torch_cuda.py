@@ -304,6 +304,8 @@ CAUSAL_CASES = {   # B, S, pads, query heads, kv heads, head_dim, dtype
     "group1": (2, 200, (5, 130), 4, 4, 64, "bfloat16"),
     "group1_d128": (1, 129, (1,), 8, 8, 128, "bfloat16"),
     "padding_tiles": (1, 300, (200,), 14, 2, 64, "bfloat16"),
+    "pad_inside_packed_tile": (1, 300, (20,), 14, 2, 64, "bfloat16"),
+    "s4096_d128": (1, 4096, (1100,), 14, 2, 128, "bfloat16"),
     "one_row": (1, 1, (0,), 14, 2, 64, "bfloat16"),
     "f32_d64": (2, 190, (0, 77), 14, 2, 64, "float32"),
     "f32_d128": (1, 70, (3,), 4, 2, 128, "float32"),
@@ -317,7 +319,9 @@ def test_causal_flash_kernel_matches_plain(gen, case):
     value) or 1e-4 (f32) of its own largest value: rows that attend many
     random keys have outputs far below 1. Padding rows exactly 0. Covers S
     not a multiple of the 64-row tiles, a pad of S-1, tiles made only of
-    padding rows, GQA groups of 1 and 7, head_dim 64 and 128."""
+    padding rows, a pad that ends inside a block's 128 packed (position,
+    head) rows (18 positions of a 7-head group), GQA groups of 1 and 7,
+    head_dim 64 and 128, and the 4,096-token prompt at head_dim 128."""
     b, s, pads, hq, hkv, d, dtype = CAUSAL_CASES[case]
     q = _randn(gen, b, s, hq * d, dtype=DTYPES[dtype])
     k, v = (_randn(gen, b, s, hkv * d, dtype=DTYPES[dtype]) for _ in range(2))
@@ -384,7 +388,10 @@ def _row_rel_err(got, want, heads):
     return torch.where(err == 0, torch.zeros_like(err), err / scale.clamp_min(1e-30)).max().item()
 
 
-BWD_CASES = {"s128": (4, 128), "s512": (3, 512), "s200": (3, 200), "s1": (3, 1)}
+BWD_CASES = {  # B, S, heads
+    "s128": (4, 128, 12), "s512": (3, 512, 12), "s200": (3, 200, 12), "s1": (3, 1, 12),
+    "s129": (3, 129, 12), "s256": (3, 256, 12), "s257": (3, 257, 12),
+    "s128_6heads": (4, 128, 6), "s128_3heads": (4, 128, 3)}
 
 
 @pytest.mark.parametrize("case", list(BWD_CASES))
@@ -392,23 +399,39 @@ def test_flash_attention_bwd_kernel_matches_plain(gen, case):
     """K10 against its plain version on the same bf16 inputs: dq, dk and dv
     each within 2^-6 of every (position, head) row's largest value (two
     bf16 ulps). Row 1 is padded, the last row fully masked (uniform P over
-    the real keys); S = 200 and 1 leave tiles part-filled. Masked keys get
-    exactly zero dk and dv."""
-    b, s = BWD_CASES[case]
-    q, k, v, do = (_randn(gen, b, s, 384, dtype=torch.bfloat16) for _ in range(4))
+    the real keys); S = 200, 129, 257 and 1 leave tiles part-filled. S = 128
+    is the longest row the dQ kernel walks once (its key tiles held in
+    registers), S = 129 the shortest it walks twice; 6 and 3 heads are K11's
+    local widths. Masked keys get exactly zero dk and dv."""
+    b, s, heads = BWD_CASES[case]
+    q, k, v, do = (_randn(gen, b, s, 32 * heads, dtype=torch.bfloat16) for _ in range(4))
     mask = _mask(b, s)
     bias = torch.where(mask > 0, 0.0, -1e9).float()
     before = fa.BWD_LAUNCHES
-    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=12)
+    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
     torch.cuda.synchronize()
     assert fa.BWD_LAUNCHES == before + 1
-    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=12)
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == q.shape
         assert torch.isfinite(g.float()).all(), name
-        assert _row_rel_err(g, w, 12) <= 2.0 ** -6, (name, _row_rel_err(g, w, 12))
+        assert _row_rel_err(g, w, heads) <= 2.0 ** -6, (name, _row_rel_err(g, w, heads))
     if s > 3:
         assert (got[1][1, s // 3:] == 0).all() and (got[2][1, s // 3:] == 0).all()
+
+
+@pytest.mark.parametrize("s", [128, 512])
+def test_flash_attention_bwd_kernel_is_bit_identical_run_to_run(gen, s):
+    """K10 uses no atomics and no order that depends on scheduling: two
+    launches on the same inputs give the same bits (one-pass and two-walk
+    dQ kernels)."""
+    q, k, v, do = (_randn(gen, 8, s, 384, dtype=torch.bfloat16) for _ in range(4))
+    bias = torch.where(_mask(8, s) > 0, 0.0, -1e9).float()
+    first = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=12)
+    second = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=12)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_attention_and_ffn_gradients_on_cuda_match_the_cpu(gen):
@@ -640,3 +663,21 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
         assert abs(np.linalg.norm(a) / np.linalg.norm(w) - 1) <= 0.01, group
     a, w = got["grads"]["embeddings"]["word"].ravel(), want["embeddings"]["word"].float().cpu().numpy().ravel()
     assert a @ w / (np.linalg.norm(a) * np.linalg.norm(w)) >= 0.999
+
+
+def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
+    """scripts/kernel_ab.py against its own csrc/: every row has two times
+    for each tree, and the two builds of the same sources agree exactly."""
+    import json
+
+    from financial_rag_tpu_torch.ops import kernel_lib
+    from financial_rag_tpu_torch.scripts import kernel_ab
+
+    monkeypatch.setenv("FRAG_KERNEL_BUILD_DIR", str(tmp_path))
+    out = tmp_path / "ab.json"
+    assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(out)]) == 0
+    rows = json.loads(out.read_text())["rows"]
+    assert len(rows) == len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES)
+    for row in rows:
+        assert len(row["this_ms"]) == len(row["other_ms"]) == 2
+        assert row["max_rel_diff"] == 0.0, row

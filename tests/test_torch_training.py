@@ -158,6 +158,87 @@ def test_flash_attention_function_is_differentiable_on_the_cpu():
         assert (g - r).abs().max() <= 1e-5 * r.abs().max()
 
 
+def _row_rel_err(got, want, heads: int) -> float:
+    """chip_smoke's K10 gate: the largest max|got - want| over one (position,
+    head) row, as a share of that row's largest |want|."""
+    got, want = (t.float().reshape(-1, heads, t.shape[-1] // heads) for t in (got, want))
+    err = (got - want).abs().amax(dim=-1)
+    return torch.where(err == 0, torch.zeros_like(err),
+                       err / want.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def _bwd_with_d_from_output(q, k, v, bias, do, heads: int):
+    """flash_attention_bwd_plain with FlashAttention-2's D = rowsum(dO o O)
+    taken from the bf16 forward output instead of rowsum(dP o P) in f32."""
+    dt, scale = q.dtype, 1.0 / ((q.shape[-1] // heads) ** 0.5)
+    p = fa._probabilities(q, k, bias, heads)
+    o = fa._split(fa.flash_attention_plain(q, k, v, bias, num_heads=heads), heads)
+    dos = fa._split(do, heads)
+    dp = dos @ fa._split(v, heads).transpose(-1, -2)
+    ds = p * (dp - (dos * o).sum(dim=-1, keepdim=True))
+    dq = ds.to(dt).float() @ fa._split(k, heads) * scale
+    dk = ds.transpose(-1, -2).to(dt).float() @ fa._split(q, heads) * scale
+    dv = p.transpose(-1, -2).to(dt).float() @ dos
+    return fa._merge(dq, dt), fa._merge(dk, dt), fa._merge(dv, dt)
+
+
+def test_k10_d_from_unrounded_p_holds_the_card_bound_and_d_from_the_output_does_not():
+    """The D rule of K10: D = rowsum(dP o P) from the f32 P. On seeded bf16
+    inputs at the contrastive head shape (12 heads of 32, S = 64, padded rows
+    and a fully masked one), flash_attention_bwd_plain stays within 2^-6 of
+    each (position, head) row's largest value of the JAX Pallas VJP (interpret
+    mode), the bound the card holds K10 to. D from the bf16 forward output,
+    the FlashAttention-2 shortcut, breaks that bound on dq, so a kernel that
+    takes it cannot pass the card's gate."""
+    b, s, heads = 16, 64, 12
+    rng = np.random.default_rng(0)
+    q, k, v, do = (rng.standard_normal((b, s, heads * 32)).astype(np.float32) for _ in range(4))
+    lens = rng.integers(1, s + 1, b)
+    lens[0] = s
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    mask[-1] = 0
+    bias = np.where(mask > 0, 0.0, -1e9).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    jbias = jnp.asarray(bias)[:, None, None, :]
+    _, vjp = jax.vjp(lambda a, b_, c: jax_flash_attention(a, b_, c, jbias, num_heads=heads,
+                                                          interpret=True), jq, jk, jv)
+    want = [torch.from_numpy(np.array(_np(w))) for w in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    tbias = torch.from_numpy(bias)
+    rtol = 2.0 ** -6
+    plain = fa.flash_attention_bwd_plain(tq, tk, tv, tbias, tdo, num_heads=heads)
+    for name, g, w in zip(("dq", "dk", "dv"), plain, want):
+        assert _row_rel_err(g, w, heads) <= rtol, (name, _row_rel_err(g, w, heads))
+    shortcut = _bwd_with_d_from_output(tq, tk, tv, tbias, tdo, heads)
+    assert _row_rel_err(shortcut[0], want[0], heads) > rtol
+
+
+def test_k10_scratch_holds_two_floats_per_query_row():
+    """K10's scratch between its dQ and dK/dV kernels: each query row's
+    log-sum-exp and D, [2, B, heads, S] f32 (no per-row max and sum)."""
+    assert fa.bwd_scratch_shape(3, 129, 6) == (2, 3, 6, 129)
+    assert fa.bwd_scratch_shape(256, 512, 12) == (2, 256, 12, 512)
+
+
+def test_k10_wrapper_checks_what_the_kernel_takes():
+    """flash_attention_bwd on non-CPU tensors: shapes, head width and dtype
+    are checked before the device, and a tensor off CUDA raises (no
+    fallback to the plain version); no launch is counted."""
+    meta = dict(device="meta")
+    x = torch.empty(2, 65, 192, dtype=torch.bfloat16, **meta)
+    bias = torch.zeros(2, 65, **meta)
+    before = fa.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="one \\[B,S,H\\] shape"):
+        fa.flash_attention_bwd(x, x[:, :64], x, bias, x, num_heads=6)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa.flash_attention_bwd(x, x, x, bias, x, num_heads=3)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_bwd(x, x.float(), x, bias, x, num_heads=6)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(x, x, x, bias, x, num_heads=6)
+    assert fa.BWD_LAUNCHES == before
+
+
 # ----------------------------------------------------------------- FFN
 
 
@@ -722,3 +803,16 @@ def test_train_rerank_feedback_mode_writes_a_checkpoint_the_jax_package_loads(tm
     assert (line["mode"], line["triples"], line["groups"], line["steps"]) == ("feedback", 3, 2, 2)
     model = JaxCrossEncoderModel.from_pretrained(line["checkpoint"])
     assert model.config.num_layers == 1 and model.config.hidden_size == 64
+
+
+def test_kernel_ab_refuses_to_run_without_a_gpu(monkeypatch):
+    """The kernel A/B script times the card only: without CUDA it exits
+    before building anything."""
+    from financial_rag_tpu_torch.scripts import kernel_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(kernel_ab, "build_library", lambda *a: built.append(a))
+    with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+        kernel_ab.main(["--other", "csrc"])
+    assert not built
