@@ -10,14 +10,18 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel); for each kernel of the wgmma sources
-              (K9, K10) its registers, shared memory and spills (ptxas) and
-              its HGMMA instructions (cuobjdump), which every bf16 kernel
-              there must have.
+              (K2, K3, K9, K10) its registers, shared memory and spills
+              (ptxas) and its HGMMA instructions (cuobjdump), which every
+              product kernel there must have; none of them may spill or
+              have its wgmma serialised by ptxas (C7510-C7520).
 3. kernel  -- every kernel (K1-K11) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
-              computes the same function, and its bound (the larger of bytes
-              at 3.35 TB/s and operations at the peak rate of their type).
+              computes the same function (for K3, the three-call
+              F.linear -> F.gelu -> F.linear beside it instead), and its
+              bound (the larger of bytes at 3.35 TB/s and operations at the
+              peak rate of their type; for K2 and K11 also one exponential
+              per live score at 16 a clock per SM).
 4. slice   -- full-width seeded random checkpoints (bge-small, gte-small,
               MiniLM-L-6 cross-encoder) are written to a temporary data dir;
               Runtime.build(device="cuda") (flat bf16 indexes) ingests a
@@ -84,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import math
 import os
@@ -284,10 +289,37 @@ def cuda_ms(torch, fn, budget_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float, op_type: str):
+@functools.lru_cache(maxsize=None)
+def exp_per_s() -> float:
+    """The SFUs' exponential rate: 16 a clock on each of 132 SMs, at the
+    card's maximum SM clock as ``nvidia-smi --query-gpu=clocks.max.sm``
+    reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi clocks failed: {smi.stderr}")
+    return 16 * 132 * float(smi.stdout.split()[0]) * 1e6
+
+
+def bound(bytes_moved: float, ops: float, op_type: str, exps: float = 0.0):
+    """The larger of the bytes at the memory rate and the operations at
+    their peak rate; ``exps`` exponentials at the SFUs' rate count among the
+    operations."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    t_ops = max(ops / PEAK_OPS_PER_S[op_type], exps / exp_per_s() if exps else 0.0) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_fwd_bound(torch, mask, heads: int, head_dim: int = 32):
+    """K2's (and K11's) bound at a [B,S] padding mask: q read and the
+    output written once, K and V of the live keys only (a row with no live
+    key attends to all S), the bias; the two products and one exponential
+    per live score."""
+    b, s = mask.shape
+    lens = mask.sum(dim=1)
+    live = int(torch.where(lens > 0, lens, s).sum().item())
+    width = heads * head_dim
+    return bound(2 * b * s * width * 2 + 2 * live * width * 2 + b * s * 4,
+                 4 * heads * head_dim * s * live, "bf16", exps=heads * s * live)
 
 
 # ----------------------------------------------------------------- phases
@@ -301,30 +333,40 @@ def phase_device(torch):
     print(card, flush=True)
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": card,
+            "exp_per_s": exp_per_s(),
             "capability": list(torch.cuda.get_device_capability(0)),
             "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(info)
     return info
 
 
-# the sources of the kernels redesigned for Hopper (wgmma from a cp.async
-# ring): the build phase reports their ptxas resources and requires HGMMA in
-# the SASS of every bf16 kernel they define
-WGMMA_SOURCES = ("flash_attention_bwd.cu", "causal_flash.cu")
+# the sources of the kernels redesigned for Hopper (wgmma from a ring of
+# shared-memory stages): the build phase reports their ptxas resources and requires HGMMA in
+# the SASS of every product kernel they define (not of K9's f32 kernel or
+# K3's reduce)
+WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu")
+WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel")
 
 
 def ptxas_resources(log_text: str) -> dict:
     """{source: {mangled kernel: {registers, smem_bytes, spill_stores,
-    spill_loads}}} from the -Xptxas -v lines of the build log."""
+    spill_loads, wgmma_serialised}}} from the -Xptxas -v lines of the build
+    log; ``wgmma_serialised`` lists the codes of ptxas's notes that it
+    serialised the kernel's wgmma (C7510-C7520), where it has any."""
     out, source, fn = {}, None, None
     for line in log_text.splitlines():
         if line.startswith("== "):
             source, fn = line.split()[1], None
             continue
+        m = re.search(r"\((C75[12]\d)\)[^']*wgmma[^']*function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(source, {}).setdefault(m.group(2), {})
+            entry.setdefault("wgmma_serialised", []).append(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = m.group(1)
-            out.setdefault(source, {})[fn] = {}
+            out.setdefault(source, {}).setdefault(fn, {})
             continue
         if fn is None:
             continue
@@ -361,7 +403,9 @@ def sass_hgmma_counts(library: str):
 def phase_build(kernel_lib, log_dir):
     """Builds the library from csrc/ and reports, for each kernel of the
     wgmma sources, its registers, shared memory and spills (ptxas) and its
-    HGMMA instructions (cuobjdump); a bf16 kernel there without HGMMA fails."""
+    HGMMA instructions (cuobjdump); a product kernel there without HGMMA,
+    one that spills registers, or one whose wgmma ptxas serialised
+    (C7510-C7520), fails."""
     t0 = time.perf_counter()
     path = kernel_lib.build()
     kernel_lib.load()
@@ -374,19 +418,25 @@ def phase_build(kernel_lib, log_dir):
     resources = ptxas_resources(Path(log).read_text())
     hgmma = sass_hgmma_counts(str(path))
     names = [fn for src in WGMMA_SOURCES for fn in resources.get(src, {})]
-    missing = []
+    missing, spilled, serialised = [], [], []
     for src in WGMMA_SOURCES:
         for fn, res in resources.get(src, {}).items():   # fn: the mangled kernel name
             entry = {"phase": "build", "source": src, "kernel": fn, **res}
+            if any(key in fn for key in WGMMA_KERNELS) and res.get("spill_stores", 0):
+                spilled.append(fn)
+            if any(key in fn for key in WGMMA_KERNELS) and res.get("wgmma_serialised"):
+                serialised.append((fn, res["wgmma_serialised"]))
             if hgmma is not None:
                 entry["hgmma"] = hgmma.get(fn, 0)
-                if "bf16" in fn or "attn_bwd" in fn:
+                if any(key in fn for key in WGMMA_KERNELS):
                     entry["wgmma_in_sass"] = entry["hgmma"] > 0
                     if not entry["hgmma"]:
                         missing.append(fn)
             emit(entry)
     check(names, f"no ptxas resource lines for {WGMMA_SOURCES} in the build log")
     check(not missing, f"no HGMMA in the SASS of {missing}")
+    check(not spilled, f"ptxas spills registers in {spilled}")
+    check(not serialised, f"ptxas serialised the wgmma of {serialised}")
 
 
 def kernel_cases(torch, F, seed):
@@ -425,7 +475,7 @@ def kernel_cases(torch, F, seed):
                       None, max_abs_cmp(1e-5),
                       bound(live * H * 2 + b * s * 4 + b * H * 4, 2 * live * H, "f32")))
 
-    for b, s in ((256, 512), (8, 64), (32, 256)):
+    for b, s in ((256, 512), (256, 128), (8, 64), (32, 256)):
         q, k, v = (randn(b, s, H, dtype=bf16) for _ in range(3))
         mask = padded_mask(b, s, fully_masked_row=(b == 8))
         bias = torch.where(mask > 0, 0.0, -1e9).float()
@@ -439,18 +489,17 @@ def kernel_cases(torch, F, seed):
         cases.append(("flash_attention", f"B={b},S={s},H={H},heads={NH},bf16",
                       lambda q=q, k=k, v=v, bias=bias: fa.flash_attention(q, k, v, bias, num_heads=NH),
                       lambda q=q, k=k, v=v, bias=bias: fa.flash_attention_plain(q, k, v, bias, num_heads=NH),
-                      sdpa, max_abs_cmp(3e-2),
-                      bound(4 * b * s * H * 2 + b * s * 4, 4 * b * NH * s * s * hd, "bf16")))
+                      sdpa, max_abs_cmp(3e-2), attention_fwd_bound(torch, mask, NH)))
 
     w1, w2 = randn(H, I, dtype=bf16, scale=H ** -0.5), randn(I, H, dtype=bf16, scale=0.012)
     b1, b2 = randn(I, dtype=bf16, scale=0.1), randn(H, dtype=bf16, scale=0.1)
-    for b, s in ((256, 512), (8, 64)):
+    for b, s in ((256, 512), (256, 128), (8, 64)):
         x = randn(b, s, H, dtype=bf16)
         n = b * s
         cases.append(("fused_ffn", f"N={n} (B={b},S={s}),H={H},I={I},bf16",
                       lambda x=x: ffn.fused_ffn(x, w1, b1, w2, b2),
                       lambda x=x: ffn.fused_ffn_plain(x, w1, b1, w2, b2),
-                      None, max_abs_cmp(3e-2),
+                      ThreeCallFFN(F, x, w1, b1, w2, b2), max_abs_cmp(3e-2),
                       bound(2 * n * H * 2 + (2 * H * I + I + H) * 2, 4 * n * H * I, "bf16")))
 
     def topk_cmp(bits, exact=False):
@@ -556,8 +605,7 @@ def attention_tp_cases(torch, F, randn, padded_mask):
                           q, k, v, bias, num_heads=NH, mesh=_ModelAxis(tp)),
                       lambda q=q, k=k, v=v, bias=bias, heads=heads: fa.flash_attention_plain(
                           q, k, v, bias, num_heads=heads),
-                      sdpa, row_cmp(heads),
-                      bound(4 * b * s * h * 2 + b * s * 4, 4 * b * heads * s * s * hd, "bf16")))
+                      sdpa, row_cmp(heads), attention_fwd_bound(torch, mask, heads)))
         live_pairs = s * int(mask.sum().item()) + s * s
         cases.append(("flash_attention_bwd", f"B={b},S={s},H={h},heads={heads} "
                       f"(K11's backward, tp{tp}),bf16",
@@ -748,6 +796,21 @@ def causal_cases(torch, F, randn):
     return cases
 
 
+class ThreeCallFFN:
+    """K3's yardstick: ``F.linear`` -> ``F.gelu`` -> ``F.linear`` in bf16
+    (cuBLAS, the [N,I] intermediate written to device memory). Three PyTorch
+    calls, not one: it is timed as ``ffn_three_call_ms``, and K3's
+    ``library_ms`` stays null."""
+
+    def __init__(self, F, x, w1, b1, w2, b2):
+        self.F = F
+        self.args = (x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)
+
+    def __call__(self):
+        x, w1t, b1, w2t, b2 = self.args
+        return self.F.linear(self.F.gelu(self.F.linear(x, w1t, b1)), w2t, b2)
+
+
 class SdpaBackward:
     """The library yardstick of K10: SDPA's backward on the same inputs
     ([B,H,S,D] views, the bias as a bf16 mask), timed as forward+backward
@@ -913,9 +976,14 @@ def phase_kernels(torch, F, seed):
             detail["library_max_abs_err_real_rows"] = max(
                 (x[:-1].float() - y[:-1].float()).abs().max().item()
                 for x, y in zip(library(), out))
+        elif isinstance(library, ThreeCallFFN):
+            lib_ms = None
+            detail["ffn_three_call_ms"] = cuda_ms(torch, library)
+            detail["ffn_three_call_max_abs_err"] = (library().float() - out.float()).abs().max().item()
         else:
             lib_ms = cuda_ms(torch, library) if library is not None else None
-        if library is not None and name not in ("causal_flash_prefill", "flash_attention_bwd"):
+        if library is not None and name not in ("causal_flash_prefill", "flash_attention_bwd",
+                                                "fused_ffn"):
             # K9's SDPA is at pad 0; K10's is compared above
             lib_err = (library().transpose(1, 2).reshape(out.shape).float() - out.float()
                        ).abs().max().item()
@@ -2240,6 +2308,8 @@ def main(argv=None) -> int:
                         "shape": t["shape"]})
         if name == "flash_attention_tp":   # its forward launches above; K10 at local heads
             kernels[-1]["bwd_launches"] = tp_bwd
+        if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
+            kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
     line = {"kernels": kernels}
     if log_dir:
         (Path(log_dir) / "kernels.json").write_text(json.dumps(line, indent=1))

@@ -62,12 +62,6 @@ struct CausalTiles {
   static constexpr int kSmemBytes = (kConsumers + 2 * kStages) * kTileBytes + 1024;
 };
 
-// Chunk ch (16 bytes) of row r of a tile in the 128-byte swizzle: 64-feature
-// column blocks are regions of 64 rows x 128 bytes.
-__device__ __forceinline__ uint32_t sw128_chunk(int r, int ch) {
-  return (ch >> 3) * (64 * 128) + swz<3>(r * 128 + (ch & 7) * 16);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kBf16Threads)
 causal_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -342,13 +336,16 @@ FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, c
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
     auto* ob = static_cast<__nv_bfloat16*>(out);
-    // above 48 KB of dynamic shared memory a kernel must opt in, once
-    static const cudaError_t opt_in[2] = {
-        cudaFuncSetAttribute(causal_fwd_bf16_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             CausalTiles<64>::kSmemBytes),
-        cudaFuncSetAttribute(causal_fwd_bf16_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             CausalTiles<128>::kSmemBytes)};
-    if (opt_in[D == 128] != cudaSuccess) return (int)opt_in[D == 128];
+    // above 48 KB of dynamic shared memory a kernel must opt in, on each
+    // device it runs on (the attribute is the current device's)
+    const cudaError_t opt_in =
+        D == 64 ? cudaFuncSetAttribute(causal_fwd_bf16_kernel<64>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       CausalTiles<64>::kSmemBytes)
+                : cudaFuncSetAttribute(causal_fwd_bf16_kernel<128>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       CausalTiles<128>::kSmemBytes);
+    if (opt_in != cudaSuccess) return (int)opt_in;
     if (D == 64)
       causal_fwd_bf16_kernel<64><<<grid, kBf16Threads, CausalTiles<64>::kSmemBytes, st>>>(
           qb, kb, vb, pad_len, ob, S, Hq, group, scale2);

@@ -63,7 +63,6 @@ constexpr int kStatBytes = 2 * kTile * 4;          // a query tile's log-sum-exp
 constexpr int kSmemBytes = 2 * kTileBytes + kStages * (kStageBytes + kStatBytes) + 1024;  // + alignment
 constexpr int kMaxResident = 2;           // key tiles of a row held in registers
 static_assert(kMaxResident <= kStages - 1, "the ring prologue must fetch every resident tile");
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Rows [r0, r0+64) of one head of a [B,S,H] bf16 tensor into a 64-byte
 // swizzled tile at `dst`; rows past S are zeros.
@@ -74,15 +73,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __r
     const bool ok = r0 + r < S;
     cp_async16(dst + swz<2>(r * 64 + c * 16), src + base + (size_t)(ok ? r0 + r : 0) * H + 8 * c, ok);
   }
-}
-
-// K-major operand (features are the k dimension), k16 step kk
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return make_desc(tile + 32 * kk, 16, 512, kSw64);
-}
-// MN-major operand (rows are the k dimension), k16 step kk
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return make_desc(tile + 1024 * kk, kTileBytes, 512, kSw64);
 }
 
 // The largest key bias of the batch row, times log2(e), on every thread.
@@ -173,9 +163,9 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     const uint32_t kt = sRing + (t % kStages) * kStageBytes, vt = kt + kTileBytes;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(s, kmajor(sQ, kk), kmajor(kt, kk), kk > 0);
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(s, sw64_kmajor(sQ, kk), sw64_kmajor(kt, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(dp, kmajor(sO, kk), kmajor(vt, kk), kk > 0);
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(dp, sw64_kmajor(sO, kk), sw64_kmajor(vt, kk), kk > 0);
     wgmma_commit();
   };
   // this thread's 16 key columns of tile kt: bias * log2(e), -inf past S
@@ -196,7 +186,7 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     for (int kk = 0; kk < 4; ++kk) pack_a(a[kk], ds, kk);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dq, a[kk], mnmajor(kt, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dq, a[kk], sw64_mnmajor(kt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc_dq);
@@ -384,9 +374,9 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     float st[32], dpt[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(st, kmajor(sK, kk), kmajor(qt, kk), kk > 0);
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(st, sw64_kmajor(sK, kk), sw64_kmajor(qt, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(dpt, kmajor(sV, kk), kmajor(ot, kk), kk > 0);
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss_n64(dpt, sw64_kmajor(sV, kk), sw64_kmajor(ot, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(st);
@@ -408,9 +398,9 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dv, pa[kk], mnmajor(ot, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dv, pa[kk], sw64_mnmajor(ot, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dk, sa[kk], mnmajor(qt, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(acc_dk, sa[kk], sw64_mnmajor(qt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc_dv);

@@ -9,182 +9,217 @@
 // is cast to x's dtype before the second product, as on the TPU.
 //
 // Bound on the H100: tensor-core flops. 4*H*I flops per token against
-// 4*H bytes of x and y per token: ~1500 flop/byte, far above the ridge.
+// 4*H bytes of x and y per token: ~1500 flop/byte, far above the ridge. The
+// weights (2.36 MB) come from L2 once per token tile, so the tile has to be
+// tall enough that this stream stays under the tensor time.
 //
-// Design: one block of 8 warps per 64-token tile, the tile held in shared
-// memory for the whole block. It walks the I axis in chunks of 32; each
-// chunk's slices of W1 (H x 32) and W2 (32 x H) are copied into a
-// double-buffered shared-memory ring with cp.async, the next chunk's while
-// the current one computes, so every weight byte crosses from L2 once per
-// block. Per chunk, warp (r, c) computes rows 16r.. x columns 16c.. of
-// x@W1 with bf16 mma.sync m16n8k16 (f32 accumulate), adds b1, applies GELU,
-// rounds to bf16 into a 64 x 32 shared tile, and after one barrier
-// multiplies that tile into its 16 x H/2 slice of y, held in registers
-// across all chunks. B operands come from the row-major shared tiles through
-// ldmatrix.trans. wgmma and TMA are later work.
+// Design (sm_90a): a block takes 128 tokens, one block per SM (197 KB of
+// shared memory): two warpgroups of 64 rows, each holding its 64 x 384 f32
+// slice of y in registers (192 a thread) across the whole I axis, with no
+// block-wide barrier per chunk. Each loads its x rows once (cp.async, zeros
+// past N, the 128-byte swizzle). The I axis is walked in 32-wide chunks
+// through a ring of 2 stages: thread 0 has the TMA copy the chunk's W1
+// columns [384][32] (64-byte swizzle, 2 boxes) and W2 rows [32][384]
+// (128-byte swizzle, 6 boxes), the same layouts the products read, and
+// publishes them through the stage's full mbarrier (transaction bytes); it
+// issues chunk t+1 right after its warpgroup issued chunk t's first
+// product, once every thread released the stage through the empty
+// mbarrier. Per chunk a warpgroup runs h = x W1c (wgmma m64n32k16, x
+// K-major, W1c [k][n] read MN-major through the transpose bit), adds b1,
+// applies erf GELU and rounds to bf16 in registers, then y += h W2c with h
+// as the register A operand (the accumulator's layout is the A-fragment
+// layout: pack_a) and W2c [k][n] read MN-major (3 x wgmma m64n128k16).
+// Neither weight is transposed in memory, and h never touches shared
+// memory. The two warpgroups run free, so one's GELU overlaps the other's
+// products.
 //
-// A query-time call has few tokens (8 x 64 = 512: 8 tiles for 132 SMs), so
+// Tried on the H100 and dropped, each slower: a producer warp or warpgroup
+// (ptxas caps a block of more than 256 threads at 168 registers a thread,
+// and allocated a setmaxnreg split at that cap as well, so the
+// 192-register accumulator spilled and its wgmmas were serialised, C7512;
+// at 256 threads the kernel takes up to 255 registers and does not spill);
+// cp.async by every thread (each one's 12 copies a chunk and their
+// addresses sat on the products' issue path); strict turn-taking between
+// the warpgroups; issuing a chunk's second product together with the next
+// chunk's first (serialised, C7520); and a 2-block cluster sharing each
+// chunk by TMA multicast (half the L2 stream, but each block then waits for
+// the other's release of every stage).
+//
+// What still holds it back: the first product is m64n32k16 with x read
+// from shared memory for every 32 columns of the chunk, and each
+// warpgroup's chain of first product, GELU and second product is serial,
+// with two warpgroups an SM to overlap. Wider chunks need more shared
+// memory than the x tile leaves.
+//
+// A query-time call has few tokens (8 x 64 = 512: 4 tiles for 132 SMs), so
 // the I axis is also split over `splits` blocks per tile (grid.y). Each then
 // writes its f32 partial of y to scratch, and a second kernel sums the
 // partials in split order, adds b2 and rounds; still no [N,I] intermediate
 // in device memory. With splits == 1 the first kernel writes y itself.
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kH = 384;            // hidden width the kernel is built for
-constexpr int kTokens = 64;        // tokens per block
-constexpr int kChunk = 32;         // width of one I chunk
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kXLd = kH + 8;       // row strides (bf16) of the shared tiles: 16-byte
-constexpr int kW1Ld = kChunk + 8;  // aligned rows, conflict-free fragment loads
-constexpr int kW2Ld = kH + 8;
-constexpr int kHLd = kChunk + 8;
-constexpr int kYTiles = kH / 2 / 8;  // n8 tiles of y per warp
-constexpr size_t kSmemBytes =
-    sizeof(__nv_bfloat16) *
-    ((size_t)kTokens * kXLd + 2 * (size_t)kH * kW1Ld + 2 * (size_t)kChunk * kW2Ld +
-     (size_t)kTokens * kHLd);
+using namespace hopper;
+
+constexpr int kH = 384;                  // hidden width the kernel is built for
+constexpr int kRows = 64;                // token rows per consumer warpgroup
+constexpr int kConsumers = 2;
+constexpr int kTokens = kRows * kConsumers;  // tokens per block
+constexpr int kChunk = 32;               // width of one I chunk
+constexpr int kStages = 2;
+constexpr int kThreads = kConsumers * 128;
+constexpr int kXRegion = kRows * 128;    // 64 rows x 64 features (128 bytes), SW128
+constexpr int kXBytes = kRows * kH * 2;  // one warpgroup's x rows: 6 regions
+constexpr int kW1Bytes = kH * kChunk * 2;     // W1 chunk [384][32], SW64
+constexpr int kW2Region = kChunk * 128;       // 32 rows x 64 columns (128 bytes), SW128
+constexpr int kW2Bytes = kChunk * kH * 2;     // W2 chunk [32][384]: 6 regions
+constexpr int kStageBytes = kW1Bytes + kW2Bytes;
+constexpr int kSmemBytes = kConsumers * kXBytes + kStages * kStageBytes + 1024;  // + alignment
 constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+// erf by Abramowitz & Stegun 7.1.26, |error| <= 1.5e-7 (the rounding of h to
+// bf16 is 2^-9 relative): one reciprocal, one ex2 and 6 FMAs, about a third
+// of erff's instructions; GELU sits between the two products of every chunk
+__device__ __forceinline__ float erf_as(float x) {
+  const float a = fabsf(x);
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fmaf(0.3275911f, a, 1.f)));
+  float p = fmaf(1.061405429f, t, -1.453152027f);
+  p = fmaf(p, t, 1.421413741f);
+  p = fmaf(p, t, -0.284496736f);
+  p = fmaf(p, t, 0.254829592f);
+  return copysignf(fmaf(-p * t, ex2(-a * a * kLog2e), 1.f), x);
 }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// The B fragments of two adjacent n8 tiles of a row-major [k][n] shared tile:
-// lane l addresses row k0 + (l & 15), column n0 + 8 * (l >> 4); returns
-// {b0, b1} of tile n0 and {b0, b1} of tile n0 + 8.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 __device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752440f));
+  return 0.5f * v * (1.f + erf_as(v * 0.70710678118654752440f));
 }
+
 
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
-               const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
+ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap tm_w1,
+               const __nv_bfloat16* __restrict__ b1, const __grid_constant__ CUtensorMap tm_w2,
                const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y,
                float* __restrict__ partial, int N, int I, int splits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTokens][kXLd]
-  __nv_bfloat16* w1s = xs + kTokens * kXLd;                         // [2][kH][kW1Ld]
-  __nv_bfloat16* w2s = w1s + 2 * kH * kW1Ld;                        // [2][kChunk][kW2Ld]
-  __nv_bfloat16* hs = w2s + 2 * kChunk * kW2Ld;                     // [kTokens][kHLd]
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t sX = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sRing = sX + kConsumers * kXBytes;  // stage st: W1 chunk, then W2 chunk
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int rg = warp & 3, ch = warp >> 2;  // 16-row group, column half
-  const int ra = 16 * rg + gid;             // this thread's rows: ra, ra + 8
-  const size_t m0 = (size_t)blockIdx.x * kTokens;
-  const int span = I / splits;              // this block's range of the I axis
-  const int c_begin = blockIdx.y * span, c_end = c_begin + span;
-  // ldmatrix addressing of a 16-row k slab: row and column offset of this lane
-  const int lrow = lane & 15, lcol = 8 * (lane >> 4);
+  const int span = I / splits;  // this block's range of the I axis
+  const int c_begin = blockIdx.y * span, nchunks = span / kChunk;
+  const int m0 = blockIdx.x * kTokens;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = warp >> 2;      // warpgroup
 
-  auto load_chunk = [&](int c0, int buf) {
-    __nv_bfloat16* w1b = w1s + buf * kH * kW1Ld;
-    for (int e = tid; e < kH * (kChunk / 8); e += kThreads) {
-      const int r = e / (kChunk / 8), c = 8 * (e % (kChunk / 8));
-      cp_async16(w1b + r * kW1Ld + c, w1 + (size_t)r * I + c0 + c);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);          // thread 0's expect_tx; then the chunk's bytes
+      mbar_init(&empty[st], kThreads);  // every thread, once its products of the chunk ended
     }
-    __nv_bfloat16* w2b = w2s + buf * kChunk * kW2Ld;
-    for (int e = tid; e < kChunk * (kH / 8); e += kThreads) {
-      const int r = e / (kH / 8), c = 8 * (e % (kH / 8));
-      cp_async16(w2b + r * kW2Ld + c, w2 + (size_t)(c0 + r) * kH + c);
-    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // thread 0: chunk t's W1 columns (2 boxes of 192 x 32) and W2 rows (6
+  // boxes of 32 x 64) into stage t % kStages by TMA
+  auto fetch = [&](int t) {
+    const int st = t % kStages, c0 = c_begin + t * kChunk;
+    const uint32_t w1t = sRing + st * kStageBytes, w2t = w1t + kW1Bytes;
+    mbar_expect_tx(&full[st], kStageBytes);
+    tma_load_2d(w1t, &tm_w1, c0, 0, &full[st]);
+    tma_load_2d(w1t + kW1Bytes / 2, &tm_w1, c0, kH / 2, &full[st]);
+#pragma unroll
+    for (int j = 0; j < kH / 64; ++j) tma_load_2d(w2t + j * kW2Region, &tm_w2, 64 * j, c0, &full[st]);
   };
-
-  for (int e = tid; e < kTokens * (kH / 8); e += kThreads) {
-    const int r = e / (kH / 8), c = 8 * (e % (kH / 8));
-    cp_async16(xs + r * kXLd + c, x + (m0 + r) * kH + c);
+  if (threadIdx.x == 0) fetch(0);
+  // this warpgroup's 64 token rows, zeros past N
+  const uint32_t xt = sX + w * kXBytes;
+  for (int e = threadIdx.x & 127; e < kRows * (kH / 8); e += 128) {
+    const int r = e / (kH / 8), ch = e % (kH / 8), row = m0 + w * kRows + r;
+    const bool ok = row < N;
+    cp_async16(xt + sw128_chunk(r, ch), x + (size_t)(ok ? row : 0) * kH + 8 * ch, ok);
   }
-  load_chunk(c_begin, 0);
   cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  named_barrier(1 + w, 128);
 
-  float acc[kYTiles][4];
+  const int gid = lane >> 2, tig = lane & 3;
+  // operand descriptors, built once and advanced by each k step's offset
+  const uint64_t x_desc = make_desc(xt, 16, 1024, kSw128);
+  float acc[3][64];  // y columns 128*nb .. +127
 #pragma unroll
-  for (int nt = 0; nt < kYTiles; ++nt)
+  for (int nb = 0; nb < 3; ++nb) zero(acc[nb]);
+  for (int t = 0; t < nchunks; ++t) {
+    const int st = t % kStages;
+    const int c0 = c_begin + t * kChunk;
+    // b1 at this thread's 8 columns of the chunk, 8*(q/2) + 2*tig + q%2: h[i]
+    // is column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
+    __nv_bfloat16 bb[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    for (int q = 0; q < 8; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
+    mbar_wait(&full[st], (t / kStages) & 1);  // chunk t landed
+    const uint32_t w1t = sRing + st * kStageBytes, w2t = w1t + kW1Bytes;
+    const uint64_t w1_desc = sw64_mnmajor(w1t, 0), w2_desc = make_desc(w2t, kW2Region, 1024, kSw128);
 
-  int buf = 0;
-  for (int c0 = c_begin; c0 < c_end; c0 += kChunk, buf ^= 1) {
-    if (c0 + kChunk < c_end) load_chunk(c0 + kChunk, buf ^ 1);
-    cp_async_commit();               // possibly empty: keeps the group count regular
-    cp_async_wait_all_but_newest();  // this chunk (and the x tile) have landed
-    __syncthreads();
-
-    // h = gelu(x @ W1[:, c0:c0+32] + b1): this warp's 16 rows x 16 columns
-    const __nv_bfloat16* w1b = w1s + buf * kH * kW1Ld;
-    float h[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-    for (int kk = 0; kk < kH; kk += 16) {
-      uint32_t a[4], b[4];
+    // h = x @ W1[:, c0:c0+32]
+    float h[16];
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = ld32(xs + (ra + 8 * (i & 1)) * kXLd + kk + 8 * (i >> 1) + 2 * tig);
-      ldsm_x4_trans(b, w1b + (kk + lrow) * kW1Ld + 16 * ch + lcol);
-      mma_bf16(h[0], a, b[0], b[1]);
-      mma_bf16(h[1], a, b[2], b[3]);
+    for (int kk = 0; kk < kH / 16; ++kk)
+      wgmma_ss_n32_tb(h, desc_add(x_desc, (kk >> 2) * kXRegion + (kk & 3) * 32),
+                      desc_add(w1_desc, 1024 * kk), kk > 0);
+    wgmma_commit();
+    // meanwhile chunk t+1 into the stage chunk t-1 used, once both
+    // warpgroups released it
+    if (threadIdx.x == 0 && t + 1 < nchunks) {
+      if (t + 1 >= kStages) mbar_wait(&empty[(t + 1) % kStages], ((t + 1) / kStages - 1) & 1);
+      fetch(t + 1);
     }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = 16 * ch + 8 * nt + 2 * tig;
-      const float bb0 = __bfloat162float(b1[c0 + col]), bb1 = __bfloat162float(b1[c0 + col + 1]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<uint32_t*>(hs + (ra + 8 * r) * kHLd + col) =
-            pack_bf16(gelu_erf(h[nt][2 * r] + bb0), gelu_erf(h[nt][2 * r + 1] + bb1));
-    }
-    __syncthreads();
+    wgmma_wait<0>();
+    fence_acc(h);
 
-    // y += h @ W2[c0:c0+32, :]: this warp's 16 rows x H/2 columns
-    const __nv_bfloat16* w2b = w2s + buf * kChunk * kW2Ld;
+    // + b1, erf GELU, bf16: the A operand of the second product
 #pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      uint32_t a[4];
+    for (int i = 0; i < 16; ++i) h[i] = gelu_erf(h[i] + __bfloat162float(bb[2 * (i >> 2) + (i & 1)]));
+    uint32_t a[2][4];
+    pack_a(a[0], h, 0);
+    pack_a(a[1], h, 1);
+
+    // y += h @ W2[c0:c0+32, :]
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = ld32(hs + (ra + 8 * (i & 1)) * kHLd + kk + 8 * (i >> 1) + 2 * tig);
+    for (int kk = 0; kk < kChunk / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < kYTiles / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, w2b + (kk + lrow) * kW2Ld + (kH / 2) * ch + 16 * np + lcol);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this buffer and hs are rewritten two chunks on
+      for (int nb = 0; nb < 3; ++nb)
+        wgmma_rs_n128(acc[nb], a[kk], desc_add(w2_desc, nb * 2 * kW2Region + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
+    mbar_arrive(&empty[st]);
   }
 
+  // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column 128*nb + 8*j + 2*tig + e%2
 #pragma unroll
-  for (int nt = 0; nt < kYTiles; ++nt) {
-    const int col = (kH / 2) * ch + 8 * nt + 2 * tig;
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + w * kRows + 16 * (warp & 3) + gid + 8 * r;
+    if (row >= N) continue;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t row = m0 + ra + 8 * r;
-      if (splits == 1) {
-        *reinterpret_cast<uint32_t*>(y + row * kH + col) =
-            pack_bf16(acc[nt][2 * r] + __bfloat162float(b2[col]),
-                      acc[nt][2 * r + 1] + __bfloat162float(b2[col + 1]));
-      } else {
-        *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * kH + col) =
-            make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    for (int nb = 0; nb < 3; ++nb)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * nb + 8 * j + 2 * tig;
+        const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
+        if (splits == 1) {
+          *reinterpret_cast<uint32_t*>(y + (size_t)row * kH + col) =
+              pack_bf16(v0 + __bfloat162float(b2[col]), v1 + __bfloat162float(b2[col + 1]));
+        } else {
+          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * kH + col) =
+              make_float2(v0, v1);
+        }
       }
-    }
   }
 }
 
@@ -205,21 +240,26 @@ ffn_reduce_kernel(const float* __restrict__ partial, const __nv_bfloat16* __rest
 
 // Shapes: x/y [N,H], w1 [H,I], b1 [I], w2 [I,H], b2 [H], all bf16, row-major,
 // x, w1 and w2 16-byte aligned; partial [splits,N,H] f32 scratch (unused when
-// splits is 1). N % 64 == 0, (I / splits) % 32 == 0, H == 384.
+// splits is 1). Any N >= 1, (I / splits) % 32 == 0, H == 384.
 FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y, float* partial,
                                int N, int H, int I, int splits, void* stream) {
-  if (H != kH || N % kTokens || splits < 1 || I % splits || (I / splits) % kChunk ||
+  if (H != kH || N < 1 || splits < 1 || I % splits || (I / splits) % kChunk ||
       (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
+  // above 48 KB of dynamic shared memory a kernel must opt in, on each
+  // device it runs on (the attribute is the current device's)
+  const cudaError_t opt_in = cudaFuncSetAttribute(
+      ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  CUtensorMap tm_w1, tm_w2;  // W1 [H][I] in boxes of 192 x 32, W2 [I][H] in boxes of 32 x 64
+  if (!hopper::tensor_map_2d(&tm_w1, w1, kH, I, kH / 2, kChunk, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::tensor_map_2d(&tm_w2, w2, I, kH, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / kTokens, splits);
+  const dim3 grid((N + kTokens - 1) / kTokens, splits);
   ffn_fwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(w2),
+      static_cast<const __nv_bfloat16*>(x), tm_w1, static_cast<const __nv_bfloat16*>(b1), tm_w2,
       static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), partial, N, I,
       splits);
   cudaError_t err = cudaGetLastError();

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the redesigned kernels K9
-// (causal_flash.cu) and K10 (flash_attention_bwd.cu).
+// Hopper (sm_90a) building blocks shared by the redesigned kernels K2
+// (flash_attention.cu), K3 (fused_ffn.cu), K9 (causal_flash.cu) and K10
+// (flash_attention_bwd.cu).
 //
 // Tile loads: cp.async (16 bytes a thread, zero-filled past the ragged edge)
 // into a ring of shared-memory stages, not TMA. The tiles are one head's
@@ -12,7 +13,10 @@
 // multiplied. A stage is published to the tensor cores by the thread that
 // waited for its copies: cp.async.wait_group, then fence.proxy.async (the
 // copies are generic-proxy writes and wgmma reads through the async proxy),
-// then a block barrier or an mbarrier arrive.
+// then a block barrier or an mbarrier arrive. K3's weight chunks are the
+// exception: whole boxes of a plain row-major matrix, the same for every
+// block, so one thread has the TMA copy them (tensor_map_2d, tma_load_2d),
+// swizzled, and their bytes complete the stage's mbarrier.
 //
 // Products: wgmma m64nNk16, bf16 in, f32 accumulate. B always comes from
 // shared memory through a descriptor; A from shared memory or from
@@ -32,9 +36,13 @@
 // operand is ever transposed in memory.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link: see tensor_map_2d)
+
 #include "common.cuh"
 
 namespace hopper {
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -75,6 +83,12 @@ __device__ __forceinline__ uint32_t swz(uint32_t off) {
   return off ^ (((off >> 7) & ((1u << B) - 1)) << 4);
 }
 
+// Byte offset of 16-byte chunk ch of row r of a tile stored as regions of
+// 64 rows x 128 bytes (64 bf16 columns each) in the 128-byte swizzle.
+__device__ __forceinline__ uint32_t sw128_chunk(int r, int ch) {
+  return (ch >> 3) * (64 * 128) + swz<3>(r * 128 + (ch & 7) * 16);
+}
+
 // bar.sync on barrier `id` (1-15; 0 is __syncthreads) for `count` threads.
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
@@ -84,6 +98,12 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// Arrive on `bar` and add `bytes` to the transaction count its phase waits
+// for (the bytes the tensor copies below will deliver).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 // Make the initialised barriers visible before any thread uses them.
 __device__ __forceinline__ void mbar_init_fence() {
@@ -116,6 +136,56 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// 2^x in one MUFU.EX2 (flushes subnormal results to 0; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+// The box of a 2-D tensor map at element coordinates (c0 innermost, c1) into
+// shared memory at `dst`, swizzled as the map says; completes `bytes` of
+// `bar`'s transaction count. `map` is a __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A 2-D tensor map of a row-major bf16 [rows][cols] matrix (16-byte aligned,
+// cols * 2 a multiple of 16) read in boxes of [box_rows][box_cols] with the
+// given swizzle. The encoder is looked up at run time through the CUDA
+// runtime's entry-point query, so the library needs no link against
+// libcuda. Returns false if it refuses.
+inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t element_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+                element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Max and sum over the 4 threads of a quad (one accumulator row's columns).
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -138,6 +208,24 @@ enum Swizzle : int { kSw128 = 1, kSw64 = 2 };
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int swizzle) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)swizzle << 62);
+}
+
+// A tile of 64-byte rows (32 bf16 a row: one head's slice) in the 64-byte
+// swizzle, 1,024-aligned. K-major operand, k16 step kk (the 32 features
+// are k); MN-major operand, k16 step kk (the rows are k, 16 rows a step;
+// N = 32 is one swizzle-wide column block, so LBO is not read).
+__device__ __forceinline__ uint64_t sw64_kmajor(uint32_t tile, int kk) {
+  return make_desc(tile + 32 * kk, 16, 512, kSw64);
+}
+__device__ __forceinline__ uint64_t sw64_mnmajor(uint32_t tile, int kk) {
+  return make_desc(tile + 1024 * kk, 4096, 512, kSw64);
+}
+
+// The descriptor of the same layout `bytes` further on (a multiple of 16):
+// one add to the start-address field, which cannot carry out of its 14 bits
+// within shared memory.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -175,6 +263,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 16] * B[16 x 32], A in shared memory K-major, B in
+// shared memory MN-major (a tile stored [k][n], read through the transpose
+// bit); with accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32_tb(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

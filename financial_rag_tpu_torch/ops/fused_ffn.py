@@ -22,19 +22,26 @@ from financial_rag_tpu_torch.ops.common import round_up
 
 LAUNCHES = 0
 KERNEL_HIDDEN = 384    # the hidden width the CUDA kernel is built for
-KERNEL_TOKENS = 64     # tokens per block; N is padded to a multiple
+KERNEL_TOKENS = 128    # tokens per block; the kernel zero-fills the ragged last tile
 KERNEL_CHUNK = 32      # the intermediate width must be a multiple
+KERNEL_MIN_CHUNKS = 4  # I chunks a block walks at least when the I axis is split
 
 
 def split_count(tiles: int, chunks: int, sms: int) -> int:
     """How many blocks share one token tile's I axis: the fewest (a divisor
     of the chunk count) that give every SM a block (the kernel's shared
-    memory fits one block per SM), else one per chunk. Ingest-sized calls
-    get 1 (no partials); a query's 8 tiles get 24."""
-    for d in range(1, chunks + 1):
-        if chunks % d == 0 and tiles * d >= sms:
-            return d
-    return chunks
+    memory fits one block per SM), but no more than leave each block
+    KERNEL_MIN_CHUNKS chunks: each split writes and reads back an f32
+    partial of the tile, which at a query's few tiles costs more than the
+    chunks it saves. Ingest-sized calls get 1 (no partials); a query's 4
+    tiles of 128 tokens get 12 splits of 4 of the 48 chunks."""
+    best = 1
+    for d in range(1, chunks // KERNEL_MIN_CHUNKS + 1):
+        if chunks % d == 0:
+            best = d
+            if tiles * d >= sms:
+                break
+    return best
 
 
 def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -90,21 +97,20 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             raise ValueError("fused_ffn kernel needs 16-byte aligned x, w1 and w2")
     x2d = x.reshape(-1, h_dim)
     n = x2d.shape[0]
-    npad = round_up(max(n, 1), KERNEL_TOKENS)
-    if npad != n:
-        x2d = F.pad(x2d, (0, 0, 0, npad - n))
-    out = torch.empty((npad, h_dim), dtype=x.dtype, device=dev)
-    splits = split_count(npad // KERNEL_TOKENS, i_dim // KERNEL_CHUNK,
+    if n == 0:
+        return x.new_empty(orig_shape)
+    out = torch.empty((n, h_dim), dtype=x.dtype, device=dev)
+    splits = split_count(round_up(n, KERNEL_TOKENS) // KERNEL_TOKENS, i_dim // KERNEL_CHUNK,
                          torch.cuda.get_device_properties(dev).multi_processor_count)
-    partial = (torch.empty((splits, npad, h_dim), dtype=torch.float32, device=dev)
+    partial = (torch.empty((splits, n, h_dim), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     kernel_lib.launch("fused_ffn", "frag_fused_ffn", dev,
                       kernel_lib.ptr(x2d), kernel_lib.ptr(w1), kernel_lib.ptr(b1),
                       kernel_lib.ptr(w2), kernel_lib.ptr(b2), kernel_lib.ptr(out),
                       kernel_lib.ptr(partial) if partial is not None else None,
-                      npad, h_dim, i_dim, splits)
+                      n, h_dim, i_dim, splits)
     LAUNCHES += 1
-    return out[:n].reshape(orig_shape)
+    return out.reshape(orig_shape)
 
 
 class FusedFFN(torch.autograd.Function):

@@ -73,10 +73,10 @@ def test_pool_norm_kernel_matches_plain(gen, dtype):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("s", [1, 100, 512])
+@pytest.mark.parametrize("s", [1, 64, 100, 512])
 def test_flash_attention_kernel_matches_plain(gen, s):
     """bf16, so 3e-2 on O(1) outputs; S = 1 and 100 leave key tiles and
-    query tiles part-filled."""
+    query tiles part-filled; S = 1 and 64 take the one-warpgroup block."""
     b, h, atol = 3, 384, 3e-2
     q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
     bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
@@ -90,11 +90,69 @@ def test_flash_attention_kernel_matches_plain(gen, s):
                                atol=atol, rtol=0)
 
 
+def test_flash_attention_kernel_skips_dead_key_tiles_exactly(gen):
+    """S = 512 with long tails of padding (rows of 1, 65, 200 and 448 live
+    keys) beside a full row and a fully masked one. Padding at -1e9 lies
+    more than 2^20 (in log2 units) below each row's largest bias, so K2
+    skips those key tiles; at -3e4 it walks them, and every such score's
+    exponential is still exactly 0. Rows with a live key must come out the
+    same to the bit both ways, and within 3e-2 of the plain version; the
+    fully masked row must be the mean of v over all 512 keys."""
+    b, s, h = 6, 512, 384
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([512, 1, 65, 200, 448, 0], device="cuda")
+    live = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    skip = _launches_once(fa, lambda: fa.flash_attention(
+        q, k, v, torch.where(live, 0.0, -1e9).float(), num_heads=12))
+    walk = fa.flash_attention(q, k, v, torch.where(live, 0.0, -3e4).float(), num_heads=12)
+    assert torch.equal(skip[:-1], walk[:-1])
+    ref = fa.flash_attention_plain(q, k, v, torch.where(live, 0.0, -1e9).float(), num_heads=12)
+    torch.testing.assert_close(skip.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(skip[-1].float(), v[-1].float().mean(0).expand(s, h),
+                               atol=3e-2, rtol=0)
+
+
+def test_flash_attention_kernel_skips_leading_dead_key_tiles_exactly(gen):
+    """S = 300 with the padding in front (live keys from 130, 250 and 299 on,
+    beside a full row): key tile 0, whose copies start before the bias scan,
+    is dead in those rows, so the first live tile must take its stage after
+    those copies land. Skipped (-1e9) and walked (-3e4) padding give the
+    same bits; both within 3e-2 of the plain version."""
+    b, s, h = 4, 300, 384
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    first = torch.tensor([0, 130, 250, 299], device="cuda")
+    live = torch.arange(s, device="cuda")[None, :] >= first[:, None]
+    skip = _launches_once(fa, lambda: fa.flash_attention(
+        q, k, v, torch.where(live, 0.0, -1e9).float(), num_heads=12))
+    walk = fa.flash_attention(q, k, v, torch.where(live, 0.0, -3e4).float(), num_heads=12)
+    assert torch.equal(skip, walk)
+    ref = fa.flash_attention_plain(q, k, v, torch.where(live, 0.0, -1e9).float(), num_heads=12)
+    torch.testing.assert_close(skip.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("heads", [3, 6])
+def test_flash_attention_kernel_at_local_head_counts(gen, heads):
+    """K2 at K11's local head counts (rows of 96 and 192 values), S = 200
+    (the last key tile and the second query warpgroup part-filled), padded
+    and fully masked rows: within 3e-2 of the plain version; the fully
+    masked row is the mean of v."""
+    b, s = 3, 200
+    h = heads * 32
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=heads))
+    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=heads)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(out[-1].float(), v[-1].float().mean(0).expand(s, h),
+                               atol=3e-2, rtol=0)
+
+
 @pytest.mark.parametrize("b,s", [(2, 50), (8, 64), (300, 64)])
 def test_fused_ffn_kernel_matches_plain(gen, b, s):
-    """100 tokens (padded to 128) and a query batch's 512 split the I axis
-    over many blocks and sum f32 partials; 19,200 tokens fill the card with
-    one block per tile."""
+    """100 tokens (one ragged tile of 128) and a query batch's 512 split the
+    I axis over many blocks and sum f32 partials; 19,200 tokens fill the
+    card with one block per tile."""
     bf16 = torch.bfloat16
     x = _randn(gen, b, s, 384, dtype=bf16)
     w1 = _randn(gen, 384, 1536, dtype=bf16, scale=384 ** -0.5)
@@ -103,6 +161,26 @@ def test_fused_ffn_kernel_matches_plain(gen, b, s):
     out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
     ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
     assert out.dtype == bf16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("n", [999, 129, 17030])
+def test_fused_ffn_kernel_on_ragged_token_counts(gen, n):
+    """Token counts that are not a multiple of the 128-token tile: 999 (8
+    tiles, the I axis split, as a query-sized call takes it), 129 (a tile of
+    one token), 17,030 (134 tiles, no split). The kernel zero-fills the last
+    tile itself; within 3e-2 of the plain version."""
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = ffn.split_count(-(-n // ffn.KERNEL_TOKENS), 1536 // ffn.KERNEL_CHUNK, sms)
+    assert (splits > 1) == (n < 17030)
+    x = _randn(gen, n, 384, dtype=bf16)
+    w1 = _randn(gen, 384, 1536, dtype=bf16, scale=384 ** -0.5)
+    w2 = _randn(gen, 1536, 384, dtype=bf16, scale=1536 ** -0.5)
+    b1, b2 = _randn(gen, 1536, dtype=bf16, scale=0.1), _randn(gen, 384, dtype=bf16, scale=0.1)
+    out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+    ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
 
 
@@ -666,8 +744,10 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
 
 
 def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
-    """scripts/kernel_ab.py against its own csrc/: every row has two times
-    for each tree, and the two builds of the same sources agree exactly."""
+    """scripts/kernel_ab.py against its own csrc/: every row (K2, K3, K10,
+    K9) has two loop times and two device times for each tree (a device time
+    at most 1.5x the loop's), and the two builds of the same sources agree
+    exactly."""
     import json
 
     from financial_rag_tpu_torch.ops import kernel_lib
@@ -677,7 +757,15 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     out = tmp_path / "ab.json"
     assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(out)]) == 0
     rows = json.loads(out.read_text())["rows"]
-    assert len(rows) == len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES)
+    assert len(rows) == (len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
+                         + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES))
+    assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
+    for row in rows:
+        if row["kernel"] == "K3":   # both trees are this one: the same split
+            assert row["shape"]["splits"]["this"] == row["shape"]["splits"]["other"]
     for row in rows:
         assert len(row["this_ms"]) == len(row["other_ms"]) == 2
+        assert len(row["this_dev_ms"]) == len(row["other_dev_ms"]) == 2
+        assert all(0 < t <= 1.5 * max(row["this_ms"] + row["other_ms"])
+                   for t in row["this_dev_ms"] + row["other_dev_ms"]), row
         assert row["max_rel_diff"] == 0.0, row

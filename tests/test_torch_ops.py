@@ -143,11 +143,17 @@ def test_fused_ffn_plain_matches_xla_ffn():
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("tiles,splits", [(8, 24), (2, 48), (128, 2), (132, 1), (1024, 1)])
-def test_fused_ffn_split_count(tiles, splits):
-    """The I axis (48 chunks of 32) is split just far enough to give each of
-    132 SMs a block."""
-    assert ffn.split_count(tiles, chunks=48, sms=132) == splits
+@pytest.mark.parametrize("tiles,chunks,sms,splits", [
+    (1, 48, 132, 12), (2, 48, 132, 12), (4, 48, 132, 12), (8, 48, 132, 12), (33, 48, 132, 4),
+    (64, 48, 132, 3), (128, 48, 132, 2), (132, 48, 132, 1), (256, 48, 132, 1),
+    (1024, 48, 132, 1), (16, 48, 114, 8), (4, 16, 132, 4)])
+def test_fused_ffn_split_count(tiles, chunks, sms, splits):
+    """The I axis (48 chunks of 32 at I=1,536) is split just far enough to
+    give each SM a block of 128 tokens, but no split leaves a block fewer
+    than KERNEL_MIN_CHUNKS (4) chunks: a query's 4 tiles take 12 splits,
+    not 48 (each split writes and reads back an f32 partial of its tile)."""
+    assert ffn.KERNEL_TOKENS == 128 and ffn.KERNEL_MIN_CHUNKS == 4
+    assert ffn.split_count(tiles, chunks=chunks, sms=sms) == splits
 
 
 # --------------------------------------------------------------------- K4
