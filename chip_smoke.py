@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel); for each kernel of the wgmma sources
-              (K2, K3, K9, K10) its registers, shared memory and spills
+              (K2, K3, K4, K9, K10) its registers, shared memory and spills
               (ptxas) and its HGMMA instructions (cuobjdump), which every
               product kernel there must have; none of them may spill or
               have its wgmma serialised by ptxas (C7510-C7520).
@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function (for K3, the three-call
-              F.linear -> F.gelu -> F.linear beside it instead), and its
+              F.linear -> F.gelu -> F.linear beside it instead, for K4 the
+              two-call torch.mm -> torch.topk), and its
               bound (the larger of bytes at 3.35 TB/s and operations at the
               peak rate of their type; for K2 and K11 also one exponential
               per live score at 16 a clock per SM).
@@ -342,10 +343,11 @@ def phase_device(torch):
 
 # the sources of the kernels redesigned for Hopper (wgmma from a ring of
 # shared-memory stages): the build phase reports their ptxas resources and requires HGMMA in
-# the SASS of every product kernel they define (not of K9's f32 kernel or
-# K3's reduce)
-WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu")
-WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel")
+# the SASS of every product kernel they define (not of K9's f32 kernel, K3's
+# reduce, or K4's f32 sweep and merge)
+WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu",
+                 "packed_topk.cu")
+WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "packed_sweep_bf16")
 
 
 def ptxas_resources(log_text: str) -> dict:
@@ -465,11 +467,15 @@ def kernel_cases(torch, F, seed):
         return mask
 
     cases = []
-    for b, s in ((256, 512), (8, 64)):
+    for b, s, holed in ((256, 512, False), (68, 512, True), (8, 64, False)):
         hidden = randn(b, s, H, dtype=bf16)
-        mask = padded_mask(b, s)
-        live = int(mask.sum().item())
-        cases.append(("masked_mean_l2_normalize", f"B={b},S={s},H={H},bf16",
+        mask = padded_mask(b, s, fully_masked_row=holed)
+        if holed:   # an ingest batch with weights: holes, fractional weights
+            mask = mask * (torch.rand(b, s, generator=gen, device=dev) > 0.2).float()
+            mask[1::2] *= 0.5
+        live = int((mask != 0).sum().item())
+        label = ",holed+fractional+empty row" if holed else ""
+        cases.append(("masked_mean_l2_normalize", f"B={b},S={s},H={H},bf16{label}",
                       lambda h=hidden, m=mask: pn.masked_mean_l2_normalize(h, m),
                       lambda h=hidden, m=mask: pn.masked_mean_l2_normalize_plain(h, m),
                       None, max_abs_cmp(1e-5),
@@ -520,9 +526,13 @@ def kernel_cases(torch, F, seed):
                              "quantum": quantum}
         return cmp
 
-    bq, d, k = 128, H, 24
-    for n, dtype, label in ((102400, bf16, "bf16"), (16384, bf16, "bf16"),
-                            (16384, torch.float32, "f32")):
+    d, k = H, 24
+    # (Bq, N): the table's shape; a query batch over it; the served shape (one
+    # query per launch over the index capacity of the slice phase); a
+    # smaller corpus in bf16 and in f32
+    for bq, n, dtype, label in ((128, 102400, bf16, "bf16"), (8, 102400, bf16, "bf16"),
+                                (1, 4096, bf16, "bf16"), (128, 16384, bf16, "bf16"),
+                                (128, 16384, torch.float32, "f32")):
         x = randn(n, d)
         x = (x / x.norm(dim=1, keepdim=True)).to(dtype)
         queries = randn(bq, d)
@@ -534,7 +544,7 @@ def kernel_cases(torch, F, seed):
         cases.append(("packed_topk_fused", f"Bq={bq},N={n},D={d},k={k},{label}",
                       lambda q=queries, x=x, v=valid: topk.packed_topk_fused(q, x, v, k),
                       lambda q=queries, x=x, v=valid: topk.packed_topk_fused_plain(q, x, v, k),
-                      None, topk_cmp(bits),
+                      TwoCallTopk(torch, queries, x, k) if dtype == bf16 else None, topk_cmp(bits),
                       bound(n * d * esize + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d,
                             "bf16" if dtype == bf16 else "f32")))
 
@@ -811,6 +821,22 @@ class ThreeCallFFN:
         return self.F.linear(self.F.gelu(self.F.linear(x, w1t, b1)), w2t, b2)
 
 
+class TwoCallTopk:
+    """K4's yardstick: ``torch.mm`` of the bf16 queries and corpus to f32
+    (cuBLAS), then ``torch.topk``: an exact top-k, a superset of K4's
+    contract, in two PyTorch calls with the [Bq, N] scores written to device
+    memory. It is timed as ``topk_two_call_ms``, and K4's ``library_ms``
+    stays null."""
+
+    def __init__(self, torch, queries, corpus, k: int):
+        self.torch = torch
+        self.args = (queries.to(corpus.dtype), corpus.t(), k)
+
+    def __call__(self):
+        q, xt, k = self.args
+        return self.torch.topk(self.torch.mm(q, xt, out_dtype=self.torch.float32), k, dim=1)
+
+
 class SdpaBackward:
     """The library yardstick of K10: SDPA's backward on the same inputs
     ([B,H,S,D] views, the bias as a bf16 mask), timed as forward+backward
@@ -980,10 +1006,13 @@ def phase_kernels(torch, F, seed):
             lib_ms = None
             detail["ffn_three_call_ms"] = cuda_ms(torch, library)
             detail["ffn_three_call_max_abs_err"] = (library().float() - out.float()).abs().max().item()
+        elif isinstance(library, TwoCallTopk):
+            lib_ms = None
+            detail["topk_two_call_ms"] = cuda_ms(torch, library)
         else:
             lib_ms = cuda_ms(torch, library) if library is not None else None
         if library is not None and name not in ("causal_flash_prefill", "flash_attention_bwd",
-                                                "fused_ffn"):
+                                                "fused_ffn", "packed_topk_fused"):
             # K9's SDPA is at pad 0; K10's is compared above
             lib_err = (library().transpose(1, 2).reshape(out.shape).float() - out.float()
                        ).abs().max().item()
@@ -1388,7 +1417,7 @@ def phase_backends(torch, rt, cfg, work: Path):
 
 def _kernel_family(name: str) -> str:
     for family, needles in (("port kernels", ("attn_fwd_kernel", "attn_bwd_", "ffn_fwd_kernel",
-                                              "packed_sweep_kernel", "packed_merge_kernel",
+                                              "packed_sweep_", "packed_merge_kernel",
                                               "pool_norm_kernel", "bucketed_sweep_kernel",
                                               "bucketed_extract_kernel", "bucketed_write_kernel",
                                               "exact_sweep_kernel", "exact_merge_kernel",
@@ -2310,6 +2339,8 @@ def main(argv=None) -> int:
             kernels[-1]["bwd_launches"] = tp_bwd
         if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
+        if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms
+            kernels[-1]["topk_two_call_ms"] = t["topk_two_call_ms"]
     line = {"kernels": kernels}
     if log_dir:
         (Path(log_dir) / "kernels.json").write_text(json.dumps(line, indent=1))

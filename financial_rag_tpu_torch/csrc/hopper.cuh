@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels K2
-// (flash_attention.cu), K3 (fused_ffn.cu), K9 (causal_flash.cu) and K10
-// (flash_attention_bwd.cu).
+// (flash_attention.cu), K3 (fused_ffn.cu), K4 (packed_topk.cu), K9
+// (causal_flash.cu) and K10 (flash_attention_bwd.cu).
 //
 // Tile loads: cp.async (16 bytes a thread, zero-filled past the ragged edge)
 // into a ring of shared-memory stages, not TMA. The tiles are one head's
@@ -156,6 +156,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared memory at `dst` by the TMA, completing
+// `bytes` of `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
 // A 2-D tensor map of a row-major bf16 [rows][cols] matrix (16-byte aligned,
 // cols * 2 a multiple of 16) read in boxes of [box_rows][box_cols] with the
 // given swizzle. The encoder is looked up at run time through the CUDA
@@ -263,6 +272,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B in shared memory, both
+// K-major; with accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

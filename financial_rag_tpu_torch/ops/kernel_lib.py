@@ -170,6 +170,14 @@ def require_contiguous(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
+    vector and cp.async loads)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must start on a 16-byte boundary")
+
+
 def dtype_code(name: str, dtype: torch.dtype, allowed=(torch.float32, torch.bfloat16)) -> int:
     if dtype not in allowed:
         raise TypeError(f"{name}: dtype {dtype} not supported by the kernel "

@@ -36,9 +36,13 @@ def masked_mean_l2_normalize(hidden: torch.Tensor,
     b, s, h = hidden.shape
     if attention_mask.shape != (b, s):
         raise ValueError(f"mask shape {tuple(attention_mask.shape)} != {(b, s)}")
+    if h % 8:
+        raise ValueError(f"masked_mean_l2_normalize: H={h} must be a multiple of 8 "
+                         "(the kernel loads 16 bytes of a token at a time)")
     mask = attention_mask.to(torch.float32).contiguous()
     dev = kernel_lib.require_cuda(hidden, mask)
     kernel_lib.require_contiguous("masked_mean_l2_normalize", hidden)
+    kernel_lib.require_aligned("masked_mean_l2_normalize", hidden)
     code = kernel_lib.dtype_code("masked_mean_l2_normalize", hidden.dtype)
     out = torch.empty((b, h), dtype=torch.float32, device=dev)
     kernel_lib.launch("masked_mean_l2_normalize", "frag_pool_norm", dev,

@@ -42,6 +42,9 @@ KERNEL_COLUMNS = 16     # bucket columns per block of the bucketed CUDA sweeps
 EXACT_CHUNK = 128       # corpus columns the exact CUDA sweep scores per step
 EXACT_MAX_K = 128       # list length of the exact CUDA sweep
 EXACT_MERGE_CANDIDATES = 4096  # groups * k the exact sweep's merge holds
+PACKED_ROWS = 64        # queries per warpgroup of the packed sweep (K4); 2 a block from 128
+PACKED_COLUMNS = 32     # bucket columns per block of K4's bf16 sweep
+PACKED_MAX_D = 384      # K4's bf16 sweep zero-pads the features to this width
 
 
 def _tile_scores(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -130,6 +133,28 @@ def tile_groups(ntiles: int, base_blocks: int, sms: int) -> int:
     return -(-ntiles // groups)
 
 
+def packed_tile_groups(ntiles: int, base_blocks: int, sms: int) -> int:
+    """Consecutive corpus tiles per block of K4's sweep. A block holds a
+    whole SM (its queries and a ring of corpus tiles in shared memory), so
+    the groups stop where ``base_blocks`` x groups blocks fill the SMs once:
+    one more would start a second wave of blocks. Returns tiles_per_group."""
+    groups = min(ntiles, max(1, sms // base_blocks))
+    return -(-ntiles // groups)
+
+
+def packed_sweep_grid(bq: int, n: int, sms: int, block_n: int = 1024):
+    """K4's launch plan for Bq queries over N corpus rows: (Bqp, block_n,
+    bits, tiles_per_group, groups). Queries are tiled by 128 from Bqp = 128
+    on, else by 64; bucket columns by PACKED_COLUMNS; the scratch is
+    [groups, Bqp, block_n]."""
+    block_n, ntiles, bits = _packing(n, block_n)
+    bqp = round_up(max(bq, 1), PACKED_ROWS)
+    qtile = 2 * PACKED_ROWS if bqp >= 2 * PACKED_ROWS else PACKED_ROWS
+    base = -(-block_n // PACKED_COLUMNS) * -(-bqp // qtile)
+    per_group = packed_tile_groups(ntiles, base, sms)
+    return bqp, block_n, bits, per_group, -(-ntiles // per_group)
+
+
 def packed_topk_fused_plain(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor,
                             k: int, *, block_n: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
     """The packed sweep's contract, bit for bit through int32 views:
@@ -182,19 +207,22 @@ def packed_topk_fused(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.
                         "take bucketed_topk_fused")
     bq, d = queries.shape
     n = corpus.shape[0]
-    block_n, ntiles, bits = _packing(n, block_n)
     if corpus.shape[1] != d or valid.shape != (n,):
         raise ValueError("queries [Bq,D], corpus [N,D] and valid [N] must agree")
+    if not 1 <= k <= 256:
+        raise ValueError(f"packed_topk_fused: k={k} outside the kernel's [1, 256]")
+    if d % 16 or (corpus.dtype == torch.bfloat16 and d > PACKED_MAX_D):
+        raise ValueError(f"packed_topk_fused: D={d} must be a multiple of 16 "
+                         f"(and at most {PACKED_MAX_D} for a bf16 corpus)")
     code = kernel_lib.dtype_code("packed_topk_fused", corpus.dtype)
     vf = valid.to(torch.float32).contiguous()
     dev = kernel_lib.require_cuda(queries, corpus, vf)
     kernel_lib.require_contiguous("packed_topk_fused", corpus)
-    bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
-    q = torch.zeros((bqp, d), dtype=corpus.dtype, device=dev)
-    q[:bq] = queries
-    per_group = tile_groups(ntiles, (block_n // KERNEL_COLUMNS) * (bqp // KERNEL_QUERY_TILE),
-                            torch.cuda.get_device_properties(dev).multi_processor_count)
-    groups = -(-ntiles // per_group)
+    # the kernel reads only the Bq query rows: no padded copy
+    q = queries.to(corpus.dtype).contiguous()
+    kernel_lib.require_aligned("packed_topk_fused", q, corpus, vf)
+    bqp, block_n, bits, per_group, groups = packed_sweep_grid(
+        bq, n, torch.cuda.get_device_properties(dev).multi_processor_count, block_n)
     b1 = torch.empty((groups, bqp, block_n), dtype=torch.int32, device=dev)
     b2 = torch.empty_like(b1)
     out_s = torch.empty((bq, k), dtype=torch.float32, device=dev)

@@ -73,6 +73,40 @@ def test_pool_norm_kernel_matches_plain(gen, dtype):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 70), (68, 512), (256, 512)])
+def test_pool_norm_kernel_on_weighted_masks(gen, b, s, dtype):
+    """Padded rows with holes and fractional weights (the mask multiplies
+    h), a fully masked row (a zero vector) where B > 1: B = 68 and 256 also
+    split the tokens of a row over a cluster of CTAs (68 x 2 or 4 < 2 x
+    SMs), S = 1 and 70 take one CTA a row. Within 1e-5 of the plain
+    version."""
+    hidden = _randn(gen, b, s, 384, dtype=DTYPES[dtype])
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[0] = s
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None]).float()
+    mask *= (torch.rand(b, s, generator=gen, device="cuda") > 0.25).float()
+    mask[::2] *= torch.rand(s, generator=gen, device="cuda")
+    mask[0, 0] = 1.0
+    if b > 1:
+        mask[-1] = 0.0
+    out = _launches_once(pn, lambda: pn.masked_mean_l2_normalize(hidden, mask))
+    ref = pn.masked_mean_l2_normalize_plain(hidden, mask)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    if b > 1:
+        assert (out[-1] == 0).all()
+    again = pn.masked_mean_l2_normalize(hidden, mask)
+    assert torch.equal(out, again)   # the cluster folds in rank order: the same bits
+
+
+def test_pool_norm_kernel_rejects_what_it_cannot_take(gen):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pn.masked_mean_l2_normalize(_randn(gen, 2, 8, 36), torch.ones(2, 8, device="cuda"))
+    h = _randn(gen, 2 * 8 * 384 + 1)[1:].view(2, 8, 384)   # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        pn.masked_mean_l2_normalize(h, torch.ones(2, 8, device="cuda"))
+
+
 @pytest.mark.parametrize("s", [1, 64, 100, 512])
 def test_flash_attention_kernel_matches_plain(gen, s):
     """bf16, so 3e-2 on O(1) outputs; S = 1 and 100 leave key tiles and
@@ -226,6 +260,51 @@ def test_packed_topk_kernel_matches_plain_exactly(gen, case, dtype):
     assert torch.equal(out_s, ref_s)
     if case == "all_dead":
         assert (out_i == -1).all()
+
+
+@pytest.mark.parametrize("k", [1, 24, 256])
+@pytest.mark.parametrize("n", [16, 1024, 4096, 102400])
+@pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 129])
+def test_packed_topk_kernel_shapes_exactly(gen, bq, n, k):
+    """Exact-grid data with repeated rows and 5% dead rows at D = 384: query
+    counts on both sides of the 64- and 128-query tiles (65 and 129 leave a
+    warpgroup or a block with one live query), one tile of 16 buckets (32
+    candidates: at k = 256 the rest are empties), one and 4 tiles, the
+    table's 100, and k from 1 to 256. Bit for bit the plain version."""
+    q, x = _grid(gen, bq, 384), _grid(gen, n, 384)
+    if n >= 2048:
+        x[1024:2048] = x[:1024]
+    valid = (torch.rand(n, generator=gen, device="cuda") > 0.05).float()
+    x = x.to(torch.bfloat16)
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, k),
+                                  "packed_topk_fused")
+    ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, k)
+    assert out_s.shape == (bq, k) and out_i.shape == (bq, k)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("d", [16, 48, 208])
+def test_packed_topk_kernel_on_narrow_features(gen, d):
+    """D below the sweep's 384 features: the corpus tiles' boxes past D
+    (all of them past the first at D = 16 and 48) and the query chunks
+    past D are zeros, so the products are those of D features; bit for bit
+    the plain version on exact-grid data."""
+    q, x = _grid(gen, 70, d), _grid(gen, 4096, d).to(torch.bfloat16)
+    valid = (torch.rand(4096, generator=gen, device="cuda") > 0.05).float()
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24),
+                                  "packed_topk_fused")
+    ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, 24)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+def test_packed_topk_kernel_rejects_what_it_cannot_take(gen):
+    q, x, valid = _grid(gen, 2, 512), _grid(gen, 1024, 512).bfloat16(), torch.ones(1024, device="cuda")
+    with pytest.raises(ValueError, match="at most 384"):
+        topk.packed_topk_fused(q, x, valid, 24)
+    with pytest.raises(ValueError, match=r"\[1, 256\]"):
+        topk.packed_topk_fused(q[:, :384], x[:, :384].contiguous(), valid, 257)
 
 
 def test_packed_topk_kernel_on_unit_vectors(gen):
@@ -744,9 +823,10 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
 
 
 def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
-    """scripts/kernel_ab.py against its own csrc/: every row (K2, K3, K10,
-    K9) has two loop times and two device times for each tree (a device time
-    at most 1.5x the loop's), and the two builds of the same sources agree
+    """scripts/kernel_ab.py against its own csrc/: every row (K1, K4, K2,
+    K3, K10, K9) has two loop times and two device times for each tree (a
+    device time at most 1.5x the loop's), K4's rows also a sweep and a merge
+    device time that sum to it, and the two builds of the same sources agree
     exactly."""
     import json
 
@@ -757,12 +837,20 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     out = tmp_path / "ab.json"
     assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(out)]) == 0
     rows = json.loads(out.read_text())["rows"]
-    assert len(rows) == (len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
+    assert len(rows) == (len(kernel_ab.K1_SHAPES) + len(kernel_ab.K4_SHAPES)
+                         + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
                          + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES))
     assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
+    assert [r["kernel"] for r in rows].count("K1") == len(kernel_ab.K1_SHAPES)
     for row in rows:
         if row["kernel"] == "K3":   # both trees are this one: the same split
             assert row["shape"]["splits"]["this"] == row["shape"]["splits"]["other"]
+        if row["kernel"] == "K4":   # the same groups; sweep + merge is the whole
+            assert row["shape"]["groups"]["this"] == row["shape"]["groups"]["other"]
+            for tree in ("this", "other"):
+                for total, sweep, merge in zip(row[f"{tree}_dev_ms"], row[f"{tree}_sweep_dev_ms"],
+                                               row[f"{tree}_merge_dev_ms"]):
+                    assert sweep > 0 and merge > 0 and abs(sweep + merge - total) <= 1e-9 + 1e-6 * total
     for row in rows:
         assert len(row["this_ms"]) == len(row["other_ms"]) == 2
         assert len(row["this_dev_ms"]) == len(row["other_dev_ms"]) == 2

@@ -63,6 +63,30 @@ def test_pool_norm_plain_matches_pallas(dtype):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["holes", "fractional", "fully_masked_row"])
+def test_pool_norm_plain_matches_pallas_on_weighted_masks(case):
+    """The mask is a weight (h * m), not only a selection: holes inside a
+    row, fractional weights, and a row with no weight (a zero vector), in
+    f32, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(11)
+    b, s, h = 6, 48, 64
+    hidden = rng.standard_normal((b, s, h)).astype(np.float32)
+    mask = np.ones((b, s), np.float32)
+    mask[1, 30:] = 0.0
+    if case == "holes":
+        mask[rng.random((b, s)) < 0.3] = 0.0
+    if case == "fractional":
+        mask *= rng.uniform(0.05, 1.0, (b, s)).astype(np.float32)
+        mask[2, ::3] = 0.0
+    if case == "fully_masked_row":
+        mask[4] = 0.0
+    ref = np.asarray(jax_pool_norm(jnp.asarray(hidden), jnp.asarray(mask), interpret=True))
+    out = pn.masked_mean_l2_normalize_plain(torch.from_numpy(hidden), torch.from_numpy(mask))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=0)
+    if case == "fully_masked_row":
+        assert (out[4] == 0).all()
+
+
 # --------------------------------------------------------------------- K2
 
 
@@ -253,6 +277,129 @@ def test_packed_topk_tile_groups(ntiles, base, per_group):
     """The sweep splits its corpus tiles into groups until ~8 blocks per SM
     (132 SMs) are in flight, never below one tile per group."""
     assert topk.tile_groups(ntiles, base, sms=132) == per_group
+
+
+@pytest.mark.parametrize("ntiles,base,per_group", [
+    (100, 32, 25), (100, 64, 50), (4, 32, 1), (1, 32, 1), (16, 32, 4), (13, 32, 4),
+    (100, 128, 100), (100, 160, 100), (100, 32 * 2, 50)])
+def test_packed_sweep_tile_groups(ntiles, base, per_group):
+    """K4's sweep takes a whole SM a block, so its tile groups stop where the
+    grid fills the 132 SMs once: 32 column slices of 1,024 buckets x 1 query
+    tile leave 4 groups, 2 query tiles 2; past 132 blocks, one group."""
+    assert topk.packed_tile_groups(ntiles, base, sms=132) == per_group
+
+
+@pytest.mark.parametrize("bq,n,plan", [
+    (128, 102400, (128, 1024, 7, 25, 4)), (8, 102400, (64, 1024, 7, 25, 4)),
+    (1, 4096, (64, 1024, 2, 1, 4)), (129, 102400, (192, 1024, 7, 50, 2)),
+    (64, 16384, (64, 1024, 4, 4, 4)), (65, 1024, (128, 1024, 1, 1, 1)),
+    (3, 16, (64, 16, 1, 1, 1))])
+def test_packed_sweep_grid(bq, n, plan):
+    """(Bqp, block_n, bits, tiles_per_group, groups) of K4 on 132 SMs."""
+    assert topk.packed_sweep_grid(bq, n, sms=132) == plan
+
+
+def _packed_decomposed(queries, corpus, valid, k, tiles_per_group, cols, threads=256):
+    """K4's CUDA decomposition, in plain torch. The sweep: blocks of ``cols``
+    bucket columns x a group of ``tiles_per_group`` consecutive tiles, each
+    keeping its buckets' running top-2 (0 init, signed) over its tiles in
+    order. The merge: fold the groups' pairs in group order; 64-bit keys
+    (packed word above the inverted position, 0 if dead); ``threads``
+    threads holding buckets t = tid + threads*i, both candidates of each;
+    tau = the k-th largest live thread maximum (1 if fewer); keep the live
+    keys >= tau and rank each by counting the kept keys above it."""
+    bq, n = queries.shape[0], corpus.shape[0]
+    block_n, ntiles, bits = topk._packing(n, 1024)
+    mask, maxj = (1 << bits) - 1, ntiles - 1
+    s = topk._tile_scores(queries.to(corpus.dtype), corpus)
+    live = (valid > 0)[None, :]
+    p = torch.where(live, s + 2.0, torch.full_like(s, -2.0))
+    tile = (torch.arange(n) // block_n).to(torch.int32)
+    pb = ((p.view(torch.int32) & ~mask) | (maxj - tile)[None, :]).reshape(bq, ntiles, block_n)
+    groups = -(-ntiles // tiles_per_group)
+    b1 = torch.zeros((groups, bq, block_n), dtype=torch.int32)
+    b2 = torch.zeros_like(b1)
+    for g in range(groups):
+        for c0 in range(0, block_n, cols):
+            cs = slice(c0, min(c0 + cols, block_n))
+            for j in range(g * tiles_per_group, min(ntiles, (g + 1) * tiles_per_group)):
+                old, w = b1[g, :, cs].clone(), pb[:, j, cs]
+                b1[g, :, cs] = torch.maximum(old, w)
+                b2[g, :, cs] = torch.maximum(b2[g, :, cs], torch.minimum(old, w))
+    p1 = torch.zeros((bq, block_n), dtype=torch.int32)
+    p2 = torch.zeros_like(p1)
+    for g in range(groups):
+        p2 = torch.maximum(torch.maximum(p2, b2[g]), torch.minimum(p1, b1[g]))
+        p1 = torch.maximum(p1, b1[g])
+    packed = torch.cat([p1, p2], dim=1).to(torch.int64)                   # [b1 | b2]
+    pos = torch.arange(2 * block_n, dtype=torch.int64)
+    keys = torch.where(packed > 0, (packed << 32) | (0xFFFFFFFF - pos), torch.zeros_like(packed))
+    owner = pos % block_n % threads
+    out_s = torch.full((bq, k), topk.NEG, dtype=torch.float32)
+    out_i = torch.full((bq, k), -1, dtype=torch.int32)
+    for r in range(bq):
+        tmax = torch.zeros(threads, dtype=torch.int64).scatter_reduce(0, owner, keys[r], "amax")
+        live_max = tmax[tmax > 0].sort(descending=True).values
+        tau = int(live_max[k - 1]) if live_max.numel() >= k else 1
+        kept = keys[r][(keys[r] > 0) & (keys[r] >= tau)]
+        rank = (kept[None, :] > kept[:, None]).sum(dim=1)
+        for key, rk in zip(kept.tolist(), rank.tolist()):
+            if rk >= k:
+                continue
+            word, at = key >> 32, 0xFFFFFFFF - (key & 0xFFFFFFFF)
+            out_s[r, rk] = torch.tensor([word & ~mask], dtype=torch.int32).view(torch.float32)[0] - 2.0
+            out_i[r, rk] = (maxj - (word & mask)) * block_n + at % block_n
+    return out_s, out_i
+
+
+def _decomposition_case(name):
+    rng = np.random.default_rng(12)
+    if name == "unit_vectors":
+        n, d, nq, k = 4096, 64, 9, 24
+        q = rng.standard_normal((nq, d)).astype(np.float32)
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        valid = np.ones(n, np.float32)
+        valid[::7] = 0.0
+    else:
+        n = {"exact_grid_ties": 4096, "few_live": 2048, "n16_k40": 16}[name]
+        d, nq = 32, 5
+        k = 40 if name == "n16_k40" else 24
+        q, x = _grid_unit(rng, (nq, d)), _grid_unit(rng, (n, d))
+        valid = np.ones(n, np.float32)
+        if name == "exact_grid_ties":
+            x[1024:2048] = x[:1024]
+            x[3000] = x[5]
+            valid[rng.choice(n, 600, replace=False)] = 0.0
+        if name == "few_live":
+            valid[:] = 0.0
+            valid[rng.choice(n, 10, replace=False)] = 1.0
+    return q, x, valid, k
+
+
+@pytest.mark.parametrize("split", [(1, 32), (2, 16), (3, 64), (100, 1024)],
+                         ids=["1tile-32cols", "2tiles-16cols", "3tiles-64cols", "alltiles-1024cols"])
+@pytest.mark.parametrize("case", ["unit_vectors", "exact_grid_ties", "few_live", "n16_k40"])
+def test_packed_topk_decomposition_matches_plain_and_pallas(case, split):
+    """Any split of the tiles into consecutive groups and of the buckets into
+    column slices, with the CUDA merge's threshold-and-rank selection, gives
+    the plain version's result bit for bit, and the Pallas kernel's ids. Its
+    scores too, bit for bit, wherever every dot product is exact; on real
+    unit vectors JAX sums the dot in another order, so a score may sit one
+    quantum (2^(bits-22)) away, as in the unit-vector test above."""
+    q, x, valid, k = _decomposition_case(case)
+    tq, tx, tv = torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(valid)
+    got_s, got_i = _packed_decomposed(tq, tx, tv, k, *split)
+    want_s, want_i = topk.packed_topk_fused_plain(tq, tx, tv, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+    ref_s, ref_i = jax_packed_topk_fused(jnp.asarray(q), jnp.asarray(x), jnp.asarray(valid), k,
+                                         interpret=True)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    quantum = 2.0 ** (2 - 22) if case == "unit_vectors" else 0.0   # 4 tiles: bits = 2
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0, atol=quantum)
+    if case in ("few_live", "n16_k40"):   # fewer live candidates than k: empties
+        assert (got_i[:, -1] == -1).all() and (got_s[:, -1] == topk.NEG).all()
 
 
 def test_topk_matmul_reference_fewer_live_than_k():
