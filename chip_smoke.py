@@ -10,10 +10,10 @@ Phases, each printing one JSON line:
               prints them, go on a line of their own.
 2. build   -- the CUDA kernel library is built from csrc/ (one nvcc per
               source, in parallel); for each kernel of the wgmma sources
-              (K2, K3, K4, K9, K10) its registers, shared memory and spills
-              (ptxas) and its HGMMA instructions (cuobjdump), which every
-              product kernel there must have; none of them may spill or
-              have its wgmma serialised by ptxas (C7510-C7520).
+              (K2-K6, K9, K10) its registers, shared memory and spills
+              (ptxas) and its HGMMA / IGMMA instructions (cuobjdump),
+              which every product kernel there must have; none of them may
+              spill or have its wgmma serialised by ptxas (C7510-C7520).
 3. kernel  -- every kernel (K1-K11) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
@@ -344,10 +344,12 @@ def phase_device(torch):
 # the sources of the kernels redesigned for Hopper (wgmma from a ring of
 # shared-memory stages): the build phase reports their ptxas resources and requires HGMMA in
 # the SASS of every product kernel they define (not of K9's f32 kernel, K3's
-# reduce, or K4's f32 sweep and merge)
+# reduce, K4's f32 sweep and merge, K5's and K6's merges, or the older
+# CUDA-core / mma.sync sweeps that K7 and f32 corpora keep)
 WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu",
-                 "packed_topk.cu")
-WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "packed_sweep_bf16")
+                 "packed_topk.cu", "bucketed_topk.cu", "topk_exact.cu")
+WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "packed_sweep_bf16",
+                 "wgmma_sweep")
 
 
 def ptxas_resources(log_text: str) -> dict:
@@ -385,7 +387,8 @@ def ptxas_resources(log_text: str) -> dict:
 
 
 def sass_hgmma_counts(library: str):
-    """{mangled kernel: number of HGMMA instructions} from cuobjdump, or None
+    """{mangled kernel: number of warpgroup MMA instructions, HGMMA (bf16,
+    f16) and IGMMA (int8)} from cuobjdump, or None
     where the toolkit has no cuobjdump."""
     cuobjdump = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
     if not cuobjdump.exists():
@@ -397,7 +400,7 @@ def sass_hgmma_counts(library: str):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and ("HGMMA" in line or "IGMMA" in line):
             counts[fn] += 1
     return counts
 
@@ -405,9 +408,9 @@ def sass_hgmma_counts(library: str):
 def phase_build(kernel_lib, log_dir):
     """Builds the library from csrc/ and reports, for each kernel of the
     wgmma sources, its registers, shared memory and spills (ptxas) and its
-    HGMMA instructions (cuobjdump); a product kernel there without HGMMA,
-    one that spills registers, or one whose wgmma ptxas serialised
-    (C7510-C7520), fails."""
+    HGMMA / IGMMA instructions (cuobjdump, in the entry's ``hgmma``); a
+    product kernel there without them, one that spills registers, or one
+    whose wgmma ptxas serialised (C7510-C7520), fails."""
     t0 = time.perf_counter()
     path = kernel_lib.build()
     kernel_lib.load()
@@ -436,7 +439,7 @@ def phase_build(kernel_lib, log_dir):
                         missing.append(fn)
             emit(entry)
     check(names, f"no ptxas resource lines for {WGMMA_SOURCES} in the build log")
-    check(not missing, f"no HGMMA in the SASS of {missing}")
+    check(not missing, f"no HGMMA or IGMMA in the SASS of {missing}")
     check(not spilled, f"ptxas spills registers in {spilled}")
     check(not serialised, f"ptxas serialised the wgmma of {serialised}")
 
@@ -667,7 +670,8 @@ def quantize_rows(torch, v):
 
 def sweep_cases(torch, gen, randn):
     """K5, K6, K7 at the JAX package's bench shape (Bq=128, N=102,400, D=384,
-    k=24), K6 int8 at N=16,384, and one exact-grid case with duplicated rows
+    k=24), K5 at the int8 runtime's served shape (one query over 4,096
+    rows), K6 int8 at N=16,384, and one exact-grid case with duplicated rows
     for each."""
     from financial_rag_tpu_torch.ops import topk
 
@@ -692,18 +696,27 @@ def sweep_cases(torch, gen, randn):
                 corpora[(n, label)] = (v.to(torch.bfloat16), live)
         return corpora[(n, label)]
 
-    def case(name, n, label):
+    def case(name, n, label, yardstick=False, nq=bq):
         x, valid = corpus(n, label)
+        q = queries[:nq]
         run, plain = fns[name]
         esize, op = (1, "int8") if label == "int8" else (2, "bf16")
-        return (name, f"Bq={bq},N={n},D={d},k={k},{label}",
-                lambda: run(queries, x, valid, k), lambda: plain(queries, x, valid, k),
-                None, sweep_cmp(exact=label == "int8"),
-                bound(n * d * esize + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, op))
+        # the two-call yardsticks (not library_ms): torch.mm -> torch.topk for
+        # bf16, torch._int_mm -> weights -> torch.topk for int8 (more than 16
+        # query rows)
+        library = None
+        if yardstick:
+            library = (TwoCallInt8Topk(torch, q, x, valid, k) if label == "int8"
+                       else TwoCallTopk(torch, q, x, k))
+        return (name, f"Bq={nq},N={n},D={d},k={k},{label}",
+                lambda: run(q, x, valid, k), lambda: plain(q, x, valid, k),
+                library, sweep_cmp(exact=label == "int8"),
+                bound(n * d * esize + n * 4 + nq * d * 4 + nq * k * 8, 2 * nq * n * d, op))
 
-    cases = [case("bucketed_topk_fused", 102400, "int8"),
+    cases = [case("bucketed_topk_fused", 102400, "int8", yardstick=True),
+             case("bucketed_topk_fused", 4096, "int8", nq=1),   # the int8 runtime's launch
              case("bucketed_topk_fused", 102400, "bf16"),
-             case("topk_matmul", 102400, "bf16"),
+             case("topk_matmul", 102400, "bf16", yardstick=True),
              case("topk_matmul", 16384, "int8"),
              case("bucketed_topk", 102400, "bf16"),
              case("bucketed_topk", 102400, "int8")]
@@ -835,6 +848,25 @@ class TwoCallTopk:
     def __call__(self):
         q, xt, k = self.args
         return self.torch.topk(self.torch.mm(q, xt, out_dtype=self.torch.float32), k, dim=1)
+
+
+class TwoCallInt8Topk:
+    """K5's yardstick at the int8 index's shapes: ``torch._int_mm`` of the
+    int8 queries and corpus (cuBLASLt, int32 out; its shape rules want more
+    than 16 query rows), the rows' weights applied, then ``torch.topk``: an
+    exact top-k over the [Bq, N] scores written to device memory. Timed as
+    ``topk_two_call_ms``; K5's ``library_ms`` stays null."""
+
+    def __init__(self, torch, queries, corpus, valid, k: int):
+        from financial_rag_tpu_torch.ops import topk
+
+        self.torch = torch
+        q8, _ = topk.quantize_queries(queries, corpus.dtype)
+        self.args = (q8.contiguous(), corpus.t(), valid, k)
+
+    def __call__(self):
+        q8, xt, valid, k = self.args
+        return self.torch.topk(self.torch._int_mm(q8, xt).float() * valid, k, dim=1)
 
 
 class SdpaBackward:
@@ -1006,13 +1038,14 @@ def phase_kernels(torch, F, seed):
             lib_ms = None
             detail["ffn_three_call_ms"] = cuda_ms(torch, library)
             detail["ffn_three_call_max_abs_err"] = (library().float() - out.float()).abs().max().item()
-        elif isinstance(library, TwoCallTopk):
+        elif isinstance(library, (TwoCallTopk, TwoCallInt8Topk)):
             lib_ms = None
             detail["topk_two_call_ms"] = cuda_ms(torch, library)
         else:
             lib_ms = cuda_ms(torch, library) if library is not None else None
         if library is not None and name not in ("causal_flash_prefill", "flash_attention_bwd",
-                                                "fused_ffn", "packed_topk_fused"):
+                                                "fused_ffn", "packed_topk_fused",
+                                                "bucketed_topk_fused", "topk_matmul"):
             # K9's SDPA is at pad 0; K10's is compared above
             lib_err = (library().transpose(1, 2).reshape(out.shape).float() - out.float()
                        ).abs().max().item()
@@ -1420,7 +1453,9 @@ def _kernel_family(name: str) -> str:
                                               "packed_sweep_", "packed_merge_kernel",
                                               "pool_norm_kernel", "bucketed_sweep_kernel",
                                               "bucketed_extract_kernel", "bucketed_write_kernel",
+                                              "bucketed_wgmma_sweep_kernel",
                                               "exact_sweep_kernel", "exact_merge_kernel",
+                                              "exact_wgmma_sweep_kernel",
                                               "probe_kernel", "causal_fwd_")),
                             ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                             ("copy", ("Memcpy", "Memset", "copy_"))):

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels K2
-// (flash_attention.cu), K3 (fused_ffn.cu), K4 (packed_topk.cu), K9
-// (causal_flash.cu) and K10 (flash_attention_bwd.cu).
+// (flash_attention.cu), K3 (fused_ffn.cu), K4 (packed_topk.cu), K5
+// (bucketed_topk.cu), K6 (topk_exact.cu), K9 (causal_flash.cu) and K10
+// (flash_attention_bwd.cu).
 //
 // Tile loads: cp.async (16 bytes a thread, zero-filled past the ragged edge)
 // into a ring of shared-memory stages, not TMA. The tiles are one head's
@@ -18,12 +19,14 @@
 // block, so one thread has the TMA copy them (tensor_map_2d, tma_load_2d),
 // swizzled, and their bytes complete the stage's mbarrier.
 //
-// Products: wgmma m64nNk16, bf16 in, f32 accumulate. B always comes from
+// Products: wgmma m64nNk16, bf16 in, f32 accumulate (and m64n32k32, int8
+// in, exact int32 accumulate, for the int8 sweeps). B always comes from
 // shared memory through a descriptor; A from shared memory or from
 // registers, where it is a previous product's accumulator (P, dS) rounded to
 // bf16. Accumulator layout (thread t of the warpgroup, w = t/32, lane l):
 // d[4*j + e] is row 16*w + l/4 + 8*(e/2), column 8*j + 2*(l%4) + (e%2),
-// the m16n8 C layout of each 8-column block; a register A operand is the
+// the m16n8 C layout of each 8-column block (the int8 product's int32
+// accumulator is laid out the same way); a register A operand is the
 // m16n8k16 A fragment, so two 8-column blocks of an accumulator make one k16
 // step (pack_a below).
 //
@@ -165,13 +168,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       :: "r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
-// A 2-D tensor map of a row-major bf16 [rows][cols] matrix (16-byte aligned,
-// cols * 2 a multiple of 16) read in boxes of [box_rows][box_cols] with the
-// given swizzle. The encoder is looked up at run time through the CUDA
+// A 2-D tensor map of a row-major [rows][cols] matrix of bf16 (elem_bytes
+// 2) or 8-bit (elem_bytes 1) elements, 16-byte aligned, cols * elem_bytes a
+// multiple of 16, read in boxes of [box_rows][box_cols] with the given
+// swizzle. The encoder is looked up at run time through the CUDA
 // runtime's entry-point query, so the library needs no link against
 // libcuda. Returns false if it refuses.
 inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                          uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+                          uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle,
+                          uint32_t elem_bytes = 2) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                               CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -187,10 +192,12 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uin
   }();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t element_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+  const CUtensorMapDataType type =
+      elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
                 element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -250,6 +257,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = 0.f;
@@ -284,6 +296,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, ui
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 32] * B[32 x 32], int8 in, int32 accumulate (exact:
+// no rounding, no saturation below 2^31); A and B in shared memory, both
+// K-major, which is the only layout wgmma takes for 8-bit operands. A k32
+// step is 32 bytes of each row, as a bf16 k16 step is, so the descriptors
+// advance as theirs do. With accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32_s8(int (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

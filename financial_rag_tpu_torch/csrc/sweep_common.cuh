@@ -1,6 +1,7 @@
 // Shared pieces of the flat sweeps K5-K7 (bucketed_topk.cu, topk_exact.cu).
 //
-// tile16_scores: raw similarity of 16 query rows against 16 consecutive
+// tile16_scores (the older sweeps, which K7 and f32 corpora keep): raw
+// similarity of 16 query rows against 16 consecutive
 // corpus rows, as ops/topk.py::_tile_scores defines it: bf16 on the tensor
 // cores with f32 accumulation, int8 on the tensor cores with int32
 // accumulation (mma.sync m16n8k32, exact, converted to f32 once), f32 on the
@@ -107,12 +108,4 @@ __device__ __forceinline__ float key_score(unsigned long long key) {
 
 __device__ __forceinline__ int key_index(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
-}
-
-__device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
 }

@@ -12,9 +12,11 @@ bit for bit, ties and empty slots included:
   (``csrc/bucketed_topk.cu``): the running max of each bucket (column mod
   nbuckets), then the top-k of the bucket maxima, fused (K5, the int8
   index's sweep) or by a stable sort outside the kernel (K7, backend
-  ``pallas_bucketed``).
+  ``pallas_bucketed``). K5 over an int8 or bf16 corpus takes the Hopper
+  sweep (``bucketed_sweep_grid``); K7 and f32 corpora the older one.
 - ``topk_matmul`` (K6, ``csrc/topk_exact.cu``): the exact top-k, ties to the
-  lower corpus index (backend ``pallas_exact``).
+  lower corpus index (backend ``pallas_exact``); int8 and bf16 corpora take
+  the Hopper sweep, f32 the CUDA-core one (``exact_sweep_grid``).
 
 ``topk_matmul_reference`` is the exact sweep that the JAX package runs off
 the TPU (backend ``xla``), written as plain PyTorch. The per-query int8
@@ -38,10 +40,13 @@ INT8_SCALE = 127.0  # int8 level count; actual scales are per-vector/per-query m
 
 LAUNCHES: Counter = Counter()   # kernel launches, by wrapper name
 KERNEL_QUERY_TILE = 64  # queries are padded to a multiple for the CUDA sweeps
-KERNEL_COLUMNS = 16     # bucket columns per block of the bucketed CUDA sweeps
-EXACT_CHUNK = 128       # corpus columns the exact CUDA sweep scores per step
+KERNEL_COLUMNS = 16     # bucket columns per block of K7's (and f32 K5's) sweep
+EXACT_CHUNK = 128       # corpus columns the exact f32 CUDA sweep scores per step
 EXACT_MAX_K = 128       # list length of the exact CUDA sweep
-EXACT_MERGE_CANDIDATES = 4096  # groups * k the exact sweep's merge holds
+SWEEP_ROWS = 32         # corpus rows a tile of K5's and K6's Hopper sweeps
+EXACT_ROW_KEYS = {torch.bfloat16: 224, torch.int8: 256}  # a row's list + buffer in K6's Hopper sweep
+SWEEP_MAX_D = 384       # K5's and K6's Hopper sweeps zero-pad the features to this
+BUCKETED_MAX_BUCKETS = 4096  # K5's extract holds this many bucket maxima
 PACKED_ROWS = 64        # queries per warpgroup of the packed sweep (K4); 2 a block from 128
 PACKED_COLUMNS = 32     # bucket columns per block of K4's bf16 sweep
 PACKED_MAX_D = 384      # K4's bf16 sweep zero-pads the features to this width
@@ -301,9 +306,12 @@ def bucketed_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, valid: torc
     return _rescale(top_s, qscale), top_i
 
 
-def _kernel_inputs(name: str, queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor):
-    """Queries quantized / cast as the corpus and padded to the query tile,
-    weights as f32; checks device, dtype and shapes."""
+def _kernel_inputs(name: str, queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor,
+                   *, pad: bool = True):
+    """Queries quantized / cast as the corpus (padded with zero rows to the
+    query tile where ``pad``: the older sweeps read whole tiles; the Hopper
+    sweeps read only the Bq rows), weights as f32; checks device, dtype and
+    shapes."""
     kernel_lib.require_no_grad(name, queries, corpus, valid)
     bq, d = queries.shape
     n = corpus.shape[0]
@@ -317,22 +325,76 @@ def _kernel_inputs(name: str, queries: torch.Tensor, corpus: torch.Tensor, valid
     if d % (32 if corpus.dtype == torch.int8 else 16):
         raise ValueError(f"{name}: D={d} must be a multiple of 16 (32 for int8)")
     qq, qscale = quantize_queries(queries, corpus.dtype)
+    if not pad:
+        q = qq.contiguous()
+        kernel_lib.require_aligned(name, q, corpus, vf)
+        return q, qscale, vf, dev, code
     bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
     q = torch.zeros((bqp, d), dtype=corpus.dtype, device=dev)
     q[:bq] = qq
     return q, qscale, vf, dev, code
 
 
+def _hopper_sweep(name: str, corpus: torch.Tensor) -> bool:
+    """Whether K5 / K6 takes its Hopper sweep (int8 and bf16 corpora, D <=
+    SWEEP_MAX_D; raises beyond that) rather than the f32 one."""
+    if corpus.dtype == torch.float32:
+        return False
+    if corpus.shape[1] > SWEEP_MAX_D:
+        raise ValueError(f"{name}: D={corpus.shape[1]} above the int8/bf16 sweep's "
+                         f"{SWEEP_MAX_D} features")
+    return True
+
+
+def bucketed_sweep_grid(bq: int, n: int, nbuckets: int, sms: int):
+    """K5's launch plan for its int8 / bf16 sweep, Bq queries over N rows in
+    nbuckets buckets: (Bqp, rounds_per_group, groups). A block owns
+    SWEEP_ROWS bucket positions, 64 queries (128 from Bqp = 128 on) and a
+    group of consecutive rounds, and holds a whole SM, so the groups stop
+    where the grid fills the SMs once; the scratch is [groups, Bqp,
+    nbuckets] keys."""
+    bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
+    qtile = 2 * KERNEL_QUERY_TILE if bqp >= 2 * KERNEL_QUERY_TILE else KERNEL_QUERY_TILE
+    rounds = -(-n // nbuckets)
+    base = -(-nbuckets // SWEEP_ROWS) * -(-bqp // qtile)
+    per_group = packed_tile_groups(rounds, base, sms)
+    return bqp, per_group, -(-rounds // per_group)
+
+
+def exact_sweep_grid(bq: int, n: int, sms: int, *, f32: bool = False):
+    """K6's launch plan, Bq queries over N rows: (Bqp, rows_per_tile,
+    tiles_per_group, groups). The int8 / bf16 sweep takes 64 queries and a
+    group of consecutive SWEEP_ROWS-row tiles a block, one block an SM, so
+    the groups fill the SMs once; the f32 sweep takes EXACT_CHUNK-column
+    steps with ~8 blocks an SM in flight (``tile_groups``). The merge takes
+    any number of groups; the scratch is ``exact_scratch_keys``."""
+    bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
+    qtiles = bqp // KERNEL_QUERY_TILE
+    rows = EXACT_CHUNK if f32 else SWEEP_ROWS
+    tiles = n // rows
+    per_group = (tile_groups if f32 else packed_tile_groups)(tiles, qtiles, sms)
+    return bqp, rows, per_group, -(-tiles // per_group)
+
+
 def _bucketed_launch(name: str, queries, corpus, valid, k: int, nbuckets: int, block_n: int):
     """K5 (k > 0: [Bq, k] out) or K7 (k == 0: the [Bq, nbuckets] maxima)."""
     n = corpus.shape[0]
     nbuckets = _nbuckets(n, nbuckets, block_n)
-    q, qscale, vf, dev, code = _kernel_inputs(name, queries, corpus, valid)
-    bq, bqp = queries.shape[0], q.shape[0]
-    rounds = -(-n // nbuckets)
-    per_group = tile_groups(rounds, (nbuckets // KERNEL_COLUMNS) * (bqp // KERNEL_QUERY_TILE),
-                            torch.cuda.get_device_properties(dev).multi_processor_count)
-    groups = -(-rounds // per_group)
+    hopper = k > 0 and _hopper_sweep(name, corpus)
+    if hopper and (nbuckets % SWEEP_ROWS or nbuckets > BUCKETED_MAX_BUCKETS):
+        raise ValueError(f"{name}: nbuckets={nbuckets} must be a multiple of {SWEEP_ROWS} "
+                         f"and at most {BUCKETED_MAX_BUCKETS}")
+    q, qscale, vf, dev, code = _kernel_inputs(name, queries, corpus, valid, pad=not hopper)
+    bq = queries.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if hopper:
+        bqp, per_group, groups = bucketed_sweep_grid(bq, n, nbuckets, sms)
+    else:
+        bqp = q.shape[0]
+        rounds = -(-n // nbuckets)
+        per_group = tile_groups(rounds, (nbuckets // KERNEL_COLUMNS) * (bqp // KERNEL_QUERY_TILE),
+                                sms)
+        groups = -(-rounds // per_group)
     keys = torch.empty((groups, bqp, nbuckets), dtype=torch.int64, device=dev)
     width = k if k > 0 else nbuckets
     out_s = torch.empty((bq, width), dtype=torch.float32, device=dev)
@@ -407,12 +469,13 @@ def topk_matmul_plain(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.
     return _rescale(top_s, qscale), top_i
 
 
-def exact_groups(nchunks: int, qtiles: int, k: int, sms: int) -> int:
-    """Consecutive EXACT_CHUNK-column chunks per block of the exact CUDA
-    sweep: tile_groups' split, but at most EXACT_MERGE_CANDIDATES groups x k
-    list entries for the merge. Returns chunks_per_group."""
-    max_groups = max(1, EXACT_MERGE_CANDIDATES // k)
-    return max(tile_groups(nchunks, qtiles, sms), -(-nchunks // max_groups))
+def exact_scratch_keys(dtype, groups: int, bqp: int, kcap: int) -> int:
+    """int64 elements of K6's scratch: the f32 sweep's [groups, Bqp, kcap]
+    lists; the int8 / bf16 sweep's [groups, Bqp, EXACT_ROW_KEYS] lists and
+    buffers, followed by their [groups, Bqp] int32 lengths."""
+    if dtype == torch.float32:
+        return groups * bqp * kcap
+    return groups * bqp * EXACT_ROW_KEYS[dtype] + -(-groups * bqp // 2)
 
 
 def topk_matmul(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor,
@@ -427,20 +490,20 @@ def topk_matmul(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor
                          f"{block_n}, itself a multiple of {EXACT_CHUNK}")
     if not 1 <= k <= min(EXACT_MAX_K, n):
         raise ValueError(f"topk_matmul: k={k} outside the kernel's [1, {EXACT_MAX_K}]")
-    q, qscale, vf, dev, code = _kernel_inputs("topk_matmul", queries, corpus, valid)
-    bq, bqp = queries.shape[0], q.shape[0]
-    nchunks = n // EXACT_CHUNK
-    per_group = exact_groups(nchunks, bqp // KERNEL_QUERY_TILE, k,
-                             torch.cuda.get_device_properties(dev).multi_processor_count)
-    groups = -(-nchunks // per_group)
+    hopper = _hopper_sweep("topk_matmul", corpus)
+    q, qscale, vf, dev, code = _kernel_inputs("topk_matmul", queries, corpus, valid,
+                                              pad=not hopper)
+    bq = queries.shape[0]
+    bqp, rows, per_group, groups = exact_sweep_grid(
+        bq, n, torch.cuda.get_device_properties(dev).multi_processor_count, f32=not hopper)
     kcap = round_up(k, 32)
-    lists = torch.empty((groups, bqp, kcap), dtype=torch.int64, device=dev)
+    lists = torch.empty(exact_scratch_keys(corpus.dtype, groups, bqp, kcap), dtype=torch.int64,
+                        device=dev)
     out_s = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
     kernel_lib.launch("topk_matmul", "frag_topk_exact", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(corpus), kernel_lib.ptr(vf),
                       kernel_lib.ptr(lists), kernel_lib.ptr(out_s), kernel_lib.ptr(out_i),
-                      bq, bqp, n, q.shape[1], k, kcap, per_group * EXACT_CHUNK, n - block_n,
-                      code)
+                      bq, bqp, n, q.shape[1], k, kcap, per_group * rows, n - block_n, code)
     LAUNCHES["topk_matmul"] += 1
     return _rescale(out_s, qscale), out_i

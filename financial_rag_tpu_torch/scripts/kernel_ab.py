@@ -1,31 +1,35 @@
 """Time the redesigned kernels of two source trees in one process, A B B A.
 
-    python -m financial_rag_tpu_torch.scripts.kernel_ab --other DIR [--out FILE]
+    python -m financial_rag_tpu_torch.scripts.kernel_ab --other DIR [--out FILE] [--only K5,K6]
 
 ``DIR`` holds another checkout's ``csrc/`` (for example the parent commit's
 ``financial_rag_tpu_torch/csrc``). Both trees are built into their own
 libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
-(``frag_fused_ffn``), K4 (``frag_packed_topk``), K9 (``frag_causal_flash``)
-and K10 (``frag_flash_attention_bwd``) of each are launched on the same
-inputs at the main path's shapes, the two libraries in the order A, B, B,
-A, each timed twice: with CUDA events around a loop of launches (``*_ms``,
-which at the smallest shapes is the host's launch rate) and as the kernels'
-own device time under torch.profiler (``*_dev_ms``, which is not); K4's
-device time is also split into its sweep and its merge kernel
-(``*_sweep_dev_ms``, ``*_merge_dev_ms``). The outputs are compared:
-``max_abs_diff`` is the largest difference, ``max_rel_diff`` that as a
-share of the other tree's largest value. K4's inputs are exact-grid data,
-where every score is exact in f32, so two right trees agree to the bit.
+(``frag_fused_ffn``), K4 (``frag_packed_topk``), K5
+(``frag_bucketed_topk``), K6 (``frag_topk_exact``), K9
+(``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
+launched on the same inputs at the main path's shapes, the two libraries in
+the order A, B, B, A, each timed twice: with CUDA events around a loop of
+launches (``*_ms``, which at the smallest shapes is the host's launch rate)
+and as the kernels' own device time under torch.profiler (``*_dev_ms``,
+which is not); the device time of K4, K5 and K6 is also split into the
+sweep and the merge kernel (``*_sweep_dev_ms``, ``*_merge_dev_ms``; K5's
+merge is its extract). The outputs are compared: ``max_abs_diff`` is the
+largest difference, ``max_rel_diff`` that as a share of the other tree's
+largest value. The sweeps' inputs are exact-grid data, where every score
+is exact in f32, so two right trees agree to the bit.
 
 The C entry points are called directly. Their arguments are the same in
 both trees, but what a launch plan puts in them is each tree's own: K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
 the I axis its wrapper would choose, and scratch of that many f32 partials;
-K4 gets from each tree's ``ops/topk.py`` its tile groups and scratch of that
-many [Bqp, block_n] planes (a tree whose ``ops/topk.py`` predates
-``packed_sweep_grid`` gets the 64-query, 16-column rule of its
-``tile_groups``). K4's queries are passed padded to Bqp rows of zeros,
-which both trees take. K10's scratch is allocated at the larger of the two
+K4, K5 and K6 get from each tree's ``ops/topk.py`` their tile or round
+groups and scratch of that size (a tree whose ``ops/topk.py``
+predates ``packed_sweep_grid``, ``bucketed_sweep_grid`` or
+``exact_sweep_grid`` gets the rule of its wrapper at the time: K4's and
+K5's 64-query, 16-column ``tile_groups``, K6's ``exact_groups``). The
+sweeps' queries are passed padded to Bqp rows of zeros, which both trees
+take. K10's scratch is allocated at the larger of the two
 layouts (3 planes). Prints one JSON line with the card's name and power
 limit; the GPU only.
 """
@@ -69,9 +73,27 @@ K1_SHAPES = (("K1 table", 256, 512, "bf16"), ("ingest", 68, 512, "bf16"),
 # smoke test's index capacity), a smaller corpus, and one tile (bits 1)
 K4_SHAPES = (("K4 table", 128, 102400), ("batch of 8", 8, 102400), ("served", 1, 4096),
              ("N=16,384", 128, 16384), ("one tile", 128, 1024))
+# (label, Bq, N) of K5 at D=384, k=24, int8 (the int8 index's sweep), 4,096
+# buckets: the table's shape, a query batch, the served shape (one query
+# per launch over the smoke test's index capacity); and bf16 at the table's
+K5_SHAPES = (("K5 table", 128, 102400, "int8"), ("batch of 8", 8, 102400, "int8"),
+             ("served", 1, 4096, "int8"), ("bf16 table", 128, 102400, "bf16"))
+# (label, Bq, N, dtype, k, order) of K6 at D=384: the table's shape, int8 at
+# N=16,384, the backends phase's 9 questions over the index capacity, k=128,
+# and a corpus whose every row outscores the one before (every key passes
+# the filter)
+K6_SHAPES = (("K6 table", 128, 102400, "bf16", 24, "grid"),
+             ("int8 N=16,384", 128, 16384, "int8", 24, "grid"),
+             ("backends", 9, 4096, "bf16", 24, "grid"),
+             ("k=128", 128, 102400, "bf16", 128, "grid"),
+             ("ascending", 128, 16384, "bf16", 24, "ascending"))
 # (label, B, S, pads) of K9 at the Qwen2-0.5B head shape (14 / 2 heads of 64)
 K9_SHAPES = (("answer prompt", 1, 4096, (1100,)), ("normaliser", 1, 128, (60,)),
              ("generate_many", 3, 1024, (0, 300, 1023)))
+
+
+# the name fragments of each sweep's two kernels: its sweep and its merge
+SWEEP_PARTS = {"K4": ("sweep", "merge"), "K5": ("sweep", "extract"), "K6": ("sweep", "merge")}
 
 
 def build_library(csrc: Path, out_dir: Path):
@@ -89,7 +111,8 @@ def build_library(csrc: Path, out_dir: Path):
         else:
             os.environ["FRAG_KERNEL_BUILD_DIR"] = saved[1]
     for name in ("frag_pool_norm", "frag_flash_attention", "frag_fused_ffn", "frag_packed_topk",
-                 "frag_flash_attention_bwd", "frag_causal_flash"):
+                 "frag_bucketed_topk", "frag_topk_exact", "frag_flash_attention_bwd",
+                 "frag_causal_flash"):
         fn = getattr(lib, name)
         fn.argtypes = kernel_lib._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -164,6 +187,38 @@ def packed_plan(csrc: Path, bq: int, n: int, sms: int):
     return bqp, block_n, bits, per_group, -(-ntiles // per_group)
 
 
+def bucketed_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096):
+    """(Bqp, rounds_per_group, groups) that K5's wrapper beside ``csrc``
+    chooses for Bq queries over N int8 rows."""
+    mod = tree_module(csrc, "topk")
+    if hasattr(mod, "bucketed_sweep_grid"):
+        return mod.bucketed_sweep_grid(bq, n, nbuckets, sms)
+    # before the int8 sweep's redesign: 64-query, 16-column blocks
+    bqp = mod.round_up(max(bq, 1), mod.KERNEL_QUERY_TILE)
+    rounds = -(-n // nbuckets)
+    per_group = mod.tile_groups(
+        rounds, (nbuckets // mod.KERNEL_COLUMNS) * (bqp // mod.KERNEL_QUERY_TILE), sms)
+    return bqp, per_group, -(-rounds // per_group)
+
+
+def exact_plan(csrc: Path, bq: int, n: int, k: int, dtype, sms: int):
+    """(Bqp, cols_per_group, groups, scratch keys) that K6's wrapper beside
+    ``csrc`` chooses for Bq queries over N int8 or bf16 rows."""
+    mod = tree_module(csrc, "topk")
+    kcap = -(-k // 32) * 32
+    if hasattr(mod, "exact_sweep_grid"):
+        bqp, rows, per_group, groups = mod.exact_sweep_grid(bq, n, sms)
+        keys = (mod.exact_scratch_keys(dtype, groups, bqp, kcap)
+                if hasattr(mod, "exact_scratch_keys") else groups * bqp * kcap)
+        return bqp, per_group * rows, groups, keys
+    # before the exact sweep's redesign: 128-column chunks, merge cap
+    bqp = mod.round_up(max(bq, 1), mod.KERNEL_QUERY_TILE)
+    nchunks = n // mod.EXACT_CHUNK
+    per_group = mod.exact_groups(nchunks, bqp // mod.KERNEL_QUERY_TILE, k, sms)
+    groups = -(-nchunks // per_group)
+    return bqp, per_group * mod.EXACT_CHUNK, groups, groups * bqp * kcap
+
+
 def k1_call(lib, b: int, s: int, dtype: str, gen):
     """(run, outputs): K1 on seeded hidden states with rows padded to random
     lengths (row 0 full), through ``lib``'s C entry."""
@@ -206,6 +261,72 @@ def k4_call(lib, bq: int, n: int, plan, gen, k: int = 24):
         if lib.frag_packed_topk(*args):
             raise RuntimeError("frag_packed_topk refused the launch")
     run.tensors = (q, x, valid, b1, b2)   # args holds raw pointers into these
+    return run, [out_s, out_i]
+
+
+def sweep_inputs(bq: int, bqp: int, n: int, dtype: str, gen, order: str = "grid"):
+    """Exact-grid queries padded with zeros to Bqp rows, corpus [N, 384]
+    (int8: integer rows; bf16: the grid) with a tile repeated in the next,
+    and weights with 3% dead rows (int8: 0.01 a live row). ``ascending``:
+    row j scores j for every query."""
+    if order == "ascending":
+        j = torch.arange(n, device="cuda")[:, None]
+        x = (j - 127 * torch.arange(384, device="cuda")[None, :]).clamp(0, 127).float() / 64.0
+        qv = torch.ones(bq, 384, device="cuda") / 64.0
+    else:
+        x = torch.randint(-3, 4, (n, 384), generator=gen, device="cuda").float() / 64.0
+        if n >= 2048:
+            x[1024:2048] = x[:1024]
+        qv = torch.randint(-3, 4, (bq, 384), generator=gen, device="cuda").float() / 64.0
+    valid = (torch.rand(n, generator=gen, device="cuda") > 0.03).float()
+    if dtype == "int8":
+        x, valid = (x * 64).to(torch.int8), valid * 0.01
+        qv = qv * 64
+    else:
+        x = x.bfloat16()
+    q = torch.zeros(bqp, 384, dtype=x.dtype, device="cuda")
+    q[:bq] = qv.to(x.dtype)
+    return q, x, valid
+
+
+def k5_call(lib, bq: int, n: int, dtype: str, plan, gen, k: int = 24, nbuckets: int = 4096):
+    """(run, outputs): K5 on exact-grid data (``sweep_inputs``) with scratch
+    as ``plan`` says, through ``lib``'s C entry."""
+    p = kernel_lib.ptr
+    bqp, per_group, groups = plan
+    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen)
+    keys = torch.empty(groups, bqp, nbuckets, dtype=torch.int64, device="cuda")
+    out_s = torch.empty(bq, k, device="cuda")
+    out_i = torch.empty(bq, k, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    args = (p(q), p(x), p(valid), p(keys), p(out_s), p(out_i), bq, bqp, n, 384, nbuckets, k,
+            per_group, kernel_lib.DTYPE_CODES[x.dtype], stream)
+
+    def run():
+        if lib.frag_bucketed_topk(*args):
+            raise RuntimeError("frag_bucketed_topk refused the launch")
+    run.tensors = (q, x, valid, keys)   # args holds raw pointers into these
+    return run, [out_s, out_i]
+
+
+def k6_call(lib, bq: int, n: int, dtype: str, k: int, order: str, plan, gen):
+    """(run, outputs): K6 on ``sweep_inputs`` data with scratch as ``plan``
+    says, through ``lib``'s C entry."""
+    p = kernel_lib.ptr
+    bqp, cols_per_group, groups, keys = plan
+    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen, order)
+    kcap = -(-k // 32) * 32
+    lists = torch.empty(keys, dtype=torch.int64, device="cuda")
+    out_s = torch.empty(bq, k, device="cuda")
+    out_i = torch.empty(bq, k, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    args = (p(q), p(x), p(valid), p(lists), p(out_s), p(out_i), bq, bqp, n, 384, k, kcap,
+            cols_per_group, n - 1024, kernel_lib.DTYPE_CODES[x.dtype], stream)
+
+    def run():
+        if lib.frag_topk_exact(*args):
+            raise RuntimeError("frag_topk_exact refused the launch")
+    run.tensors = (q, x, valid, lists)   # args holds raw pointers into these
     return run, [out_s, out_i]
 
 
@@ -292,6 +413,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True, help="the other tree's csrc/ directory")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernels to time (K1,K2,K3,K4,K5,K6,K9,K10); all by default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA GPU")
@@ -313,6 +436,21 @@ def main(argv=None) -> int:
     cases += [("K4", label, {"Bq": bq, "N": n, "groups": {tree: plans[tree, bq, n][4] for tree in trees}},
                lambda tree, bq=bq, n=n: k4_call(libs[tree], bq, n, plans[tree, bq, n], gen))
               for label, bq, n in K4_SHAPES]
+    k5_plans = {(tree, bq, n): bucketed_plan(csrc, bq, n, sms)
+                for tree, csrc in trees.items() for _, bq, n, _ in K5_SHAPES}
+    cases += [("K5", label, {"Bq": bq, "N": n, "dtype": dt,
+                             "groups": {tree: k5_plans[tree, bq, n][2] for tree in trees}},
+               lambda tree, bq=bq, n=n, dt=dt: k5_call(libs[tree], bq, n, dt,
+                                                       k5_plans[tree, bq, n], gen))
+              for label, bq, n, dt in K5_SHAPES]
+    k6_plans = {(tree, label): exact_plan(
+                    csrc, bq, n, k, torch.int8 if dt == "int8" else torch.bfloat16, sms)
+                for tree, csrc in trees.items() for label, bq, n, dt, k, _ in K6_SHAPES}
+    cases += [("K6", label, {"Bq": bq, "N": n, "dtype": dt, "k": k, "order": order,
+                             "groups": {tree: k6_plans[tree, label][2] for tree in trees}},
+               lambda tree, label=label, bq=bq, n=n, dt=dt, k=k, order=order: k6_call(
+                   libs[tree], bq, n, dt, k, order, k6_plans[tree, label], gen))
+              for label, bq, n, dt, k, order in K6_SHAPES]
     cases += [("K2", label, (b, s, h), lambda tree, b=b, s=s, h=h: k2_call(libs[tree], b, s, h, gen))
               for label, b, s, h in K2_SHAPES]
     cases += [("K3", label, {"N": n, "splits": {tree: splits[tree, n] for tree in trees}},
@@ -322,6 +460,8 @@ def main(argv=None) -> int:
               for label, b, s, h in K10_SHAPES]
     cases += [("K9", label, (b, s, list(pads)), lambda tree, b=b, s=s, pads=pads: k9_call(
         libs[tree], b, s, pads, gen)) for label, b, s, pads in K9_SHAPES]
+    if args.only:
+        cases = [c for c in cases if c[0] in args.only.split(",")]
     for kernel, label, shape, make in cases:
         runs, outs = {}, {}
         for name in libs:
@@ -341,11 +481,11 @@ def main(argv=None) -> int:
                "this_dev_ms": [sum(d.values()) for d in dev["this"]],
                "other_dev_ms": [sum(d.values()) for d in dev["other"]],
                "max_rel_diff": rel, "max_abs_diff": max(diffs)}
-        if kernel == "K4":
+        if kernel in SWEEP_PARTS:
             for name in ("this", "other"):
-                for part in ("sweep", "merge"):
+                for part, key in zip(("sweep", "merge"), SWEEP_PARTS[kernel]):
                     row[f"{name}_{part}_dev_ms"] = [
-                        sum(t for kname, t in d.items() if part in kname) for d in dev[name]]
+                        sum(t for kname, t in d.items() if key in kname) for d in dev[name]]
         rows.append(row)
     line = {"card": smi, "order": "this, other, other, this", "rows": rows}
     if args.out:

@@ -1,9 +1,10 @@
-"""Time the K1 and K4 wrappers as a caller runs them, on the GPU.
+"""Time the K1, K4 and K5 wrappers as a caller runs them, on the GPU.
 
     python financial_rag_tpu_torch/scripts/wrapper_ms.py [--out FILE]
 
-Runs ``pool_norm.masked_mean_l2_normalize`` and ``topk.packed_topk_fused``
-of the ``financial_rag_tpu_torch`` package found first on ``sys.path`` (so
+Runs ``pool_norm.masked_mean_l2_normalize``, ``topk.packed_topk_fused`` and
+``topk.bucketed_topk_fused`` (over an int8 corpus, as the int8 index calls
+it) of the ``financial_rag_tpu_torch`` package found first on ``sys.path`` (so
 ``PYTHONPATH=DIR`` times another checkout's wrappers with this script) at
 the main path's shapes: each call's Python checks, casts, scratch
 allocation and ctypes launch, not only the kernels. A shape's time is the
@@ -24,9 +25,11 @@ from pathlib import Path
 
 import torch
 
-# (label, B, S) of K1 at H=384 bf16; (label, Bq, N) of K4 at D=384, k=24, bf16
+# (label, B, S) of K1 at H=384 bf16; (label, Bq, N) of K4 at D=384, k=24, bf16,
+# and of K5 at D=384, k=24 over the int8 index's per-row quantized rows
 K1_SHAPES = (("K1 table", 256, 512), ("ingest", 68, 512), ("query", 8, 64))
 K4_SHAPES = (("K4 table", 128, 102400), ("batch of 8", 8, 102400), ("served", 1, 4096))
+K5_SHAPES = (("K5 table", 128, 102400), ("served", 1, 4096))
 
 
 def host_ms(fn, calls: int = 200, runs: int = 5) -> float:
@@ -70,6 +73,16 @@ def main(argv=None) -> int:
         valid = (torch.rand(n, generator=gen, device="cuda") > 0.03).float()
         rows.append({"kernel": "K4", "case": label, "shape": [bq, n],
                      "ms": host_ms(lambda: topk.packed_topk_fused(q, x, valid, 24))})
+    for label, bq, n in K5_SHAPES:
+        v = torch.randn(n, 384, generator=gen, device="cuda")
+        v = v / v.norm(dim=1, keepdim=True)
+        m = v.abs().amax(dim=1)
+        x = torch.round(v * (127.0 / m[:, None])).clamp(-127, 127).to(torch.int8)
+        valid = (m / 127.0) * (torch.rand(n, generator=gen, device="cuda") > 0.03).float()
+        q = torch.randn(bq, 384, generator=gen, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        rows.append({"kernel": "K5", "case": label, "shape": [bq, n],
+                     "ms": host_ms(lambda: topk.bucketed_topk_fused(q, x, valid, 24))})
     line = {"card": smi, "package": str(Path(financial_rag_tpu_torch.__file__).parent),
             "rows": rows}
     if args.out:

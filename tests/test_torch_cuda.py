@@ -396,6 +396,130 @@ def test_int8_sweeps_on_unit_vectors(gen):
         assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0]), name
 
 
+def _hopper_sweep_case(gen, bq, n, dtype, d=384):
+    """Exact-grid queries and corpus with repeated rows (a tile repeated in
+    the next, and one row in the next round of 4,096 buckets) and 5% dead
+    rows; int8: integer rows with per-row weights. Every score and tie is
+    exact, so a kernel and its plain version agree bit for bit."""
+    q, x = _grid(gen, bq, d), _grid(gen, n, d)
+    if n >= 2048:
+        x[1024:2048] = x[:1024]
+    if n > 4096:
+        x[4096 + 7] = x[7]
+    valid = (torch.rand(n, generator=gen, device="cuda") > 0.05).float()
+    if dtype == "int8":
+        return q, (x * 64).to(torch.int8), valid * 0.01
+    return q, x.to(DTYPES[dtype]), valid
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 24, 128, 256])
+@pytest.mark.parametrize("n", [1024, 4096, 16384, 102400])
+@pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 200])
+def test_bucketed_fused_kernel_shapes_exactly(gen, bq, n, k, dtype):
+    """K5's Hopper sweep and extract at D = 384: query counts on both sides
+    of the 64- and 128-query tiles (65 and 200 leave a warpgroup with one or
+    eight live queries), one round of 1,024 buckets, one round of 4,096, 4
+    and 25 rounds, k from 1 to 256 (at N = 1,024, 256 of 1,024 buckets).
+    Bit for bit the plain version."""
+    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype)
+    out_s, out_i = _launches_once(topk, lambda: topk.bucketed_topk_fused(q, x, valid, k),
+                                  "bucketed_topk_fused")
+    ref_s, ref_i = topk.bucketed_topk_fused_plain(q, x, valid, k)
+    assert out_s.shape == (bq, k) and out_i.shape == (bq, k)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 24, 128])
+@pytest.mark.parametrize("n", [1024, 4096, 16384, 102400])
+@pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 200])
+def test_exact_kernel_shapes_exactly(gen, bq, n, k, dtype):
+    """K6's Hopper sweep and chunked merge at D = 384 over the same shapes
+    (at k = 128 and Bq = 1 the merge takes 16,384 candidates in 4 chunks).
+    Bit for bit the plain version."""
+    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype)
+    out_s, out_i = _launches_once(topk, lambda: topk.topk_matmul(q, x, valid, k), "topk_matmul")
+    ref_s, ref_i = topk.topk_matmul_plain(q, x, valid, k)
+    assert out_s.shape == (bq, k) and out_i.shape == (bq, k)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 384])
+@pytest.mark.parametrize("name", ["bucketed_topk_fused", "topk_matmul"])
+def test_hopper_sweeps_on_narrow_features(gen, name, d, dtype):
+    """D below the sweeps' 384 features: the corpus boxes and query chunks
+    past D are zeros. Bit for bit the plain version."""
+    kernel, plain = SWEEPS[name]
+    q, x, valid = _hopper_sweep_case(gen, 70, 16384, dtype, d=d)
+    out = _launches_once(topk, lambda: kernel(q, x, valid, 24), name)
+    ref = plain(q, x, valid, 24)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("name", ["bucketed_topk_fused", "topk_matmul"])
+def test_hopper_sweeps_on_a_few_live_rows(gen, name, dtype):
+    """Fewer live rows than k, one of them in the last 1,024-row tile and
+    one in bucket 0's column: K5's empty slots hold bucket 0's column, K6's
+    the best live row outside the last tile. Bit for bit the plain version,
+    run twice with the same bits."""
+    kernel, plain = SWEEPS[name]
+    q, x, valid = _hopper_sweep_case(gen, 65, 16384, dtype)
+    live = torch.zeros_like(valid)
+    live[torch.tensor([0, 900, 5000, 9001, 16000], device="cuda")] = 1.0
+    valid = valid.clamp(min=0.01) * live
+    out = _launches_once(topk, lambda: kernel(q, x, valid, 24), name)
+    again = kernel(q, x, valid, 24)
+    ref = plain(q, x, valid, 24)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+    assert torch.equal(again[1], out[1]) and torch.equal(again[0], out[0])
+    assert (out[0][:, 5:] == topk.NEG).all()
+
+
+@pytest.mark.parametrize("k", [1, 24, 128])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_exact_kernel_when_every_tile_beats_the_last(gen, dtype, k):
+    """The filter's worst case: every row's score is the largest so far (row
+    j scores j for every query), so every key passes the threshold and a row
+    flushes its buffer every few tiles (every 3-4 at k = 128); 3% dead rows.
+    Bit for bit the plain version, and the same bits again."""
+    n = 16384
+    j = torch.arange(n, device="cuda")[:, None]
+    f = torch.arange(384, device="cuda")[None, :]
+    x = (j - 127 * f).clamp(0, 127).float()          # row j sums to j
+    q = torch.ones(70, 384, device="cuda")
+    valid = (torch.rand(n, generator=gen, device="cuda") > 0.03).float()
+    if dtype == "int8":
+        x, valid = x.to(torch.int8), valid * 0.01
+    else:
+        x = (x / 64.0).to(torch.bfloat16)
+    out = _launches_once(topk, lambda: topk.topk_matmul(q, x, valid, k), "topk_matmul")
+    again = topk.topk_matmul(q, x, valid, k)
+    ref = topk.topk_matmul_plain(q, x, valid, k)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+    assert torch.equal(again[1], out[1]) and torch.equal(again[0], out[0])
+    assert (out[1][:, 0] > n - 64).all()
+
+
+def test_hopper_sweeps_reject_what_they_cannot_take(gen):
+    q, x = _grid(gen, 2, 512), (_grid(gen, 1024, 512) * 64).to(torch.int8)
+    valid = torch.ones(1024, device="cuda")
+    for fn in (topk.bucketed_topk_fused, topk.topk_matmul):
+        with pytest.raises(ValueError, match="above the int8/bf16 sweep's 384"):
+            fn(q, x, valid, 24)
+    x = x[:, :384].contiguous()
+    with pytest.raises(ValueError, match=r"\[1, 128\]"):
+        topk.topk_matmul(q[:, :384], x, valid, 129)
+    with pytest.raises(ValueError, match=r"\[1, 256\]"):
+        topk.bucketed_topk_fused(q[:, :384], x, valid, 257)
+    with pytest.raises(ValueError, match="32 for int8"):
+        topk.bucketed_topk_fused(q[:, :48].contiguous(), x[:, :48].contiguous(), valid, 24)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_probe_kernel_matches_plain(gen, dtype):
     nlist, L, B, P = 16, 128, 9, 5
@@ -823,11 +947,12 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
 
 
 def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
-    """scripts/kernel_ab.py against its own csrc/: every row (K1, K4, K2,
-    K3, K10, K9) has two loop times and two device times for each tree (a
-    device time at most 1.5x the loop's), K4's rows also a sweep and a merge
-    device time that sum to it, and the two builds of the same sources agree
-    exactly."""
+    """scripts/kernel_ab.py against its own csrc/: every row (K1, K4, K5,
+    K6, K2, K3, K10, K9) has two loop times and two device times for each
+    tree (a device time at most 1.5x the loop's), the rows of the sweeps K4,
+    K5 and K6 also a sweep and a merge device time that sum to it, and the
+    two builds of the same sources agree exactly; --only keeps the kernels
+    named."""
     import json
 
     from financial_rag_tpu_torch.ops import kernel_lib
@@ -838,6 +963,7 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(out)]) == 0
     rows = json.loads(out.read_text())["rows"]
     assert len(rows) == (len(kernel_ab.K1_SHAPES) + len(kernel_ab.K4_SHAPES)
+                         + len(kernel_ab.K5_SHAPES) + len(kernel_ab.K6_SHAPES)
                          + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
                          + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES))
     assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
@@ -845,7 +971,7 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     for row in rows:
         if row["kernel"] == "K3":   # both trees are this one: the same split
             assert row["shape"]["splits"]["this"] == row["shape"]["splits"]["other"]
-        if row["kernel"] == "K4":   # the same groups; sweep + merge is the whole
+        if row["kernel"] in ("K4", "K5", "K6"):   # the same groups; sweep + merge is the whole
             assert row["shape"]["groups"]["this"] == row["shape"]["groups"]["other"]
             for tree in ("this", "other"):
                 for total, sweep, merge in zip(row[f"{tree}_dev_ms"], row[f"{tree}_sweep_dev_ms"],
@@ -857,3 +983,7 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
         assert all(0 < t <= 1.5 * max(row["this_ms"] + row["other_ms"])
                    for t in row["this_dev_ms"] + row["other_dev_ms"]), row
         assert row["max_rel_diff"] == 0.0, row
+    only = tmp_path / "only.json"
+    assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(only), "--only", "K5"]) == 0
+    assert [r["kernel"] for r in json.loads(only.read_text())["rows"]] == ["K5"] * len(
+        kernel_ab.K5_SHAPES)
