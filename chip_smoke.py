@@ -22,7 +22,9 @@ Phases, each printing one JSON line:
               two-call torch.mm -> torch.topk), and its
               bound (the larger of bytes at 3.35 TB/s and operations at the
               peak rate of their type; for K2 and K11 also one exponential
-              per live score at 16 a clock per SM).
+              per live score at 16 a clock per SM). K5, K6 and K7 must
+              run their int8 / bf16 Hopper sweep and no older one
+              (torch.profiler's kernel names).
 4. slice   -- full-width seeded random checkpoints (bge-small, gte-small,
               MiniLM-L-6 cross-encoder) are written to a temporary data dir;
               Runtime.build(device="cuda") (flat bf16 indexes) ingests a
@@ -39,45 +41,56 @@ Phases, each printing one JSON line:
 7. int8    -- the flat runtime's indexes are saved and its data dir copied;
               Runtime.build there with INDEX_DTYPE=int8 reloads and
               re-quantizes them and answers the 9 golden questions.
-8. backends -- the saved flat index loaded with backend pallas_exact and
+8. serve   -- the HTTP surface: Runtime.build on another copy of the flat
+              data dir (without feedback.db, whose result cache would
+              answer), make_processor, make_app, and make_server on
+              127.0.0.1 port 0 in a thread; /health, the 9 golden
+              questions posted to /search from 3 client threads at once
+              (each with phase 4's top-5 child ids, and together with its
+              launch counts), then reworded one at a time, 3 questions to
+              /search-stream (events chunks, answer, complete), a bad query
+              (400) and an unknown path (404); HTTP p50 and max ms of both
+              beside phase 4's engine p50; the server and the app's threads
+              stopped.
+9. backends -- the saved flat index loaded with backend pallas_exact and
               pallas_bucketed (bf16) and pallas_fused (bf16 and int8): the
               golden questions' query vectors through K6, K7, K4 and K5,
               each against its plain version, with recall@24 against K6.
-9. parity  -- 16 corpus texts through the same weights on the CPU (plain
+10. parity -- 16 corpus texts through the same weights on the CPU (plain
               versions, f32) against the card's bf16 embeddings and logits.
-10. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B shape;
+11. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B shape;
               Runtime.build with LLM_PROVIDER=local (LLM_MAX_NEW_TOKENS =
               LLM_SMOKE_NEW_TOKENS) on a copy of the flat data dir; warm()
               (the 4,096 prompt bucket), the 9 golden questions through
               RAGEngine.query and 3 through query_stream, none degraded;
               K9 launched 24 times per prefill; generate against the joined
               stream, a generate_many wave, LLM_DTYPE=int8.
-11. profile -- the llm runtime under torch.profiler (2 questions).
-12. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
+12. profile -- the llm runtime under torch.profiler (2 questions).
+13. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
               (bf16, K9): last-position logits and each layer's attention
               output by cosine, with controls that must fail.
-13. train  -- fine-tuning at full width, bf16 compute on f32 master weights:
+14. train  -- fine-tuning at full width, bf16 compute on f32 master weights:
               contrastive steps at the bge-small shape (256 pairs x 2 x 128),
               listwise steps at the MiniLM-L-6 shape (64 groups x 4 x 64),
               each with K2, K10 and K3 launched once per layer and encode and
               K1 never; one step under torch.profiler; the retrieval uplift
               (train_uplift's defaults), which must reach 0.5.
-14. train_parity -- one contrastive step's gradients on the card (bf16) against
+15. train_parity -- one contrastive step's gradients on the card (bf16) against
               the CPU (f32, plain versions) by cosine per leaf group, with
               wrong-K10 controls that must fail.
-15. train_tp -- data- and tensor-parallel training through K11: 4 ranks
+16. train_tp -- data- and tensor-parallel training through K11: 4 ranks
               (parallel.launch.spawn; on one card they share it over gloo)
               run contrastive steps at the bge-small shape on dp2 x tp2 and
               dp1 x tp4 (64 pairs x 2 x 128) and listwise steps at the
               MiniLM-L-6 shape on dp2 x tp2 (32 groups x 4 x 64); K11 once
               per layer, encode and step on every rank, K3 and K1 never,
               replicated leaves bit-identical across TP ranks; one dp2 x tp2
-              step's gathered gradients against phase 14's CPU step by cosine
+              step's gathered gradients against phase 15's CPU step by cosine
               and norm ratio per leaf group, with three controls that must
               fail.
-16. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+17. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8, 10, and each part of 13 and 15) sets every
+Each path (phases 4, 6, 7, 8, 9, 11, and each part of 14 and 16) sets every
 launch counter to 0 just before it and reads them just after: each kernel
 of that path must have run.
 
@@ -99,8 +112,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
@@ -183,11 +199,14 @@ KERNELS = {
                   "financial_rag_tpu/ops/fused_ffn.py:24"),
     "packed_topk_fused": ("financial_rag_tpu_torch/csrc/packed_topk.cu",
                           "financial_rag_tpu/ops/topk.py:297"),
-    "bucketed_topk_fused": ("financial_rag_tpu_torch/csrc/bucketed_topk.cu",
+    "bucketed_topk_fused": ("financial_rag_tpu_torch/csrc/bucketed_topk.cu + "
+                            "financial_rag_tpu_torch/csrc/flat_sweep.cuh",
                             "financial_rag_tpu/ops/topk.py:200"),
-    "topk_matmul": ("financial_rag_tpu_torch/csrc/topk_exact.cu",
+    "topk_matmul": ("financial_rag_tpu_torch/csrc/topk_exact.cu + "
+                    "financial_rag_tpu_torch/csrc/flat_sweep.cuh",
                     "financial_rag_tpu/ops/topk.py:109"),
-    "bucketed_topk": ("financial_rag_tpu_torch/csrc/bucketed_topk.cu",
+    "bucketed_topk": ("financial_rag_tpu_torch/csrc/bucketed_topk.cu + "
+                      "financial_rag_tpu_torch/csrc/flat_sweep.cuh",
                       "financial_rag_tpu/ops/topk.py:180"),
     "probe_scores": ("financial_rag_tpu_torch/csrc/ivf_probe.cu",
                      "financial_rag_tpu/ops/ivf_probe.py:41"),
@@ -204,6 +223,7 @@ TOPK_KERNELS = ("packed_topk_fused", "bucketed_topk_fused", "topk_matmul", "buck
 FLAT_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused")
 IVF_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "probe_scores")
 INT8_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "bucketed_topk_fused")
+SERVE_PATH = FLAT_PATH   # the HTTP server over the flat bf16 indexes
 LLM_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "packed_topk_fused",
             "causal_flash_prefill")
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd", "fused_ffn")
@@ -344,8 +364,9 @@ def phase_device(torch):
 # the sources of the kernels redesigned for Hopper (wgmma from a ring of
 # shared-memory stages): the build phase reports their ptxas resources and requires HGMMA in
 # the SASS of every product kernel they define (not of K9's f32 kernel, K3's
-# reduce, K4's f32 sweep and merge, K5's and K6's merges, or the older
-# CUDA-core / mma.sync sweeps that K7 and f32 corpora keep)
+# reduce, K4's f32 sweep and merge, K5's extract, K6's merge, K7's write, or
+# the older CUDA-core / mma.sync sweeps that f32 corpora keep; K7's int8 and
+# bf16 sweep is K5's bucketed_wgmma_sweep_kernel)
 WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu",
                  "packed_topk.cu", "bucketed_topk.cu", "topk_exact.cu")
 WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "packed_sweep_bf16",
@@ -671,8 +692,9 @@ def quantize_rows(torch, v):
 def sweep_cases(torch, gen, randn):
     """K5, K6, K7 at the JAX package's bench shape (Bq=128, N=102,400, D=384,
     k=24), K5 at the int8 runtime's served shape (one query over 4,096
-    rows), K6 int8 at N=16,384, and one exact-grid case with duplicated rows
-    for each."""
+    rows), K6 int8 at N=16,384, K6 and K7 at the backends phase's shape (9
+    queries over 4,096 rows), K7 also in int8, and one exact-grid case with
+    duplicated rows for each."""
     from financial_rag_tpu_torch.ops import topk
 
     dev = torch.device("cuda")
@@ -708,18 +730,23 @@ def sweep_cases(torch, gen, randn):
         if yardstick:
             library = (TwoCallInt8Topk(torch, q, x, valid, k) if label == "int8"
                        else TwoCallTopk(torch, q, x, k))
+        # K7's function writes the [Bq, nbuckets] maxima (f32 and int32),
+        # the others [Bq, k]
+        width = min(4096, n) if name == "bucketed_topk" else k
         return (name, f"Bq={nq},N={n},D={d},k={k},{label}",
                 lambda: run(q, x, valid, k), lambda: plain(q, x, valid, k),
                 library, sweep_cmp(exact=label == "int8"),
-                bound(n * d * esize + n * 4 + nq * d * 4 + nq * k * 8, 2 * nq * n * d, op))
+                bound(n * d * esize + n * 4 + nq * d * 4 + nq * width * 8, 2 * nq * n * d, op))
 
     cases = [case("bucketed_topk_fused", 102400, "int8", yardstick=True),
              case("bucketed_topk_fused", 4096, "int8", nq=1),   # the int8 runtime's launch
              case("bucketed_topk_fused", 102400, "bf16"),
              case("topk_matmul", 102400, "bf16", yardstick=True),
              case("topk_matmul", 16384, "int8"),
+             case("topk_matmul", 4096, "bf16", nq=9),     # the backends phase's launch
              case("bucketed_topk", 102400, "bf16"),
-             case("bucketed_topk", 102400, "int8")]
+             case("bucketed_topk", 102400, "int8"),
+             case("bucketed_topk", 4096, "bf16", nq=9)]   # the backends phase's launch
     corpora.clear()
 
     # exact-grid data with repeated rows and dead slots: every score and tie
@@ -732,10 +759,12 @@ def sweep_cases(torch, gen, randn):
     qg = torch.randint(-3, 4, (bq, d), generator=gen, device=dev).float() / 64.0
     vg = (torch.rand(n, generator=gen, device=dev) > 0.1).float()
     for name, (run, plain) in fns.items():
+        width = 4096 if name == "bucketed_topk" else k
         cases.append((name, f"Bq={bq},N={n},D={d},k={k},bf16,exact-grid+ties",
                       lambda run=run: run(qg, xg, vg, k), lambda plain=plain: plain(qg, xg, vg, k),
                       None, sweep_cmp(exact=True),
-                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
+                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * width * 8, 2 * bq * n * d,
+                            "bf16")))
     return cases
 
 
@@ -1009,6 +1038,27 @@ def causal_cmp(pads, hq: int, bf16: bool, control=None):
     return cmp
 
 
+# the int8 / bf16 sweep each flat sweep must run on the card, and the older
+# sweeps none of them may fall back to (profiler kernel names)
+HOPPER_SWEEP = {"bucketed_topk": "bucketed_wgmma_sweep_kernel",
+                "bucketed_topk_fused": "bucketed_wgmma_sweep_kernel",
+                "topk_matmul": "exact_wgmma_sweep_kernel"}
+OLDER_SWEEPS = ("bucketed_sweep_kernel", "exact_sweep_kernel")
+
+
+def cuda_kernel_names(torch, fn) -> list:
+    """The names of the CUDA kernels one call of fn() launches, under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
 def max_abs_cmp(tol):
     def cmp(a, b):
         err = (a.float() - b.float()).abs().max().item()
@@ -1025,6 +1075,13 @@ def phase_kernels(torch, F, seed):
         torch.cuda.synchronize()
         ref = plain()
         err, ok, detail = cmp(out, ref)
+        if name in HOPPER_SWEEP:
+            names = cuda_kernel_names(torch, run)
+            detail["sweep_kernels"] = [n for n in names if "sweep" in n]
+            if not any(HOPPER_SWEEP[name] in n for n in names) or any(
+                    old in n for n in names for old in OLDER_SWEEPS):
+                failures.append(f"{name} [{shape}] did not run {HOPPER_SWEEP[name]} alone: "
+                                f"{names}")
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain)
         if isinstance(library, SdpaBackward):
@@ -1319,7 +1376,9 @@ def phase_slice(torch, seed, work: Path):
           "launches": launches, "launches_ingest": ingest_launches,
           "launches_queries": query_launches})
     texts = [c["text"] for out in answers for c in out["top_children_chunks"]]
-    return rt, cfg, paths, items, launches, texts
+    served = {"children": children, "answers": answers, "query_launches": query_launches,
+              "query_p50_ms": statistics.median(query_ms)}
+    return rt, cfg, paths, items, launches, texts, served
 
 
 def phase_ivf(torch, cfg, work: Path, items):
@@ -1391,6 +1450,140 @@ def phase_int8(torch, rt, cfg, work: Path):
     emit({"phase": "int8", "reloaded": {n: i.count() for n, i in rt8.indexes.items()},
           "query_p50_ms": round(statistics.median(query_ms), 3),
           "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
+          "launches": launches})
+    return launches
+
+
+def _http(url: str, body=None, timeout: float = 300.0):
+    """(status, body bytes, ms) of one GET, or POST of ``body`` as JSON."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, raw, (time.perf_counter() - t0) * 1e3
+
+
+SERVE_CLIENTS = 3   # client threads, 3 golden questions each
+
+
+def phase_serve(torch, cfg, work: Path, served: dict, info: dict):
+    """The HTTP surface on the card: Runtime.build on a copy of the flat
+    data dir (without feedback.db, whose result cache would answer the
+    questions), make_processor, make_app and make_server on 127.0.0.1 port
+    0, served from a thread. /health reports both collections; the 9 golden
+    questions go to /search from SERVE_CLIENTS threads at once (then,
+    reworded, one at a time), each with
+    phase 4's top-5 child ids and, all 9 together, phase 4's launch count of
+    each flat-path kernel (none lost to the worker threads); 3 to
+    /search-stream, each with the events chunks, answer, complete; a bad
+    query is 400, an unknown path 404; the flat path's kernels launched
+    over HTTP. The server and the app's
+    threads are stopped before the phase returns."""
+    from financial_rag_tpu_torch.runtime import Runtime
+    from financial_rag_tpu_torch.serving.app import make_server
+
+    data = work / "data_serve"
+    shutil.copytree(work / "data", data, ignore=shutil.ignore_patterns("feedback.db*"))
+    rt = Runtime.build(cfg, data_dir=data, device="cuda")
+    app = rt.make_app(processor=rt.make_processor(data), data_dir=data)
+    server = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, name="chip-smoke-http", daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    try:
+        status, raw, _ = _http(f"{base}/health")
+        health = json.loads(raw)
+        want = {name: served["children"] for name in rt.indexes}
+        check(status == 200 and health.get("indexes") == want,
+              f"serve: /health {status} {health}, expected indexes {want}")
+
+        reset_launches()
+        results, errors = {}, []
+
+        def client(questions):
+            try:
+                for q in questions:
+                    results[q] = _http(f"{base}/search", {"query": q})
+            except Exception as e:  # noqa: BLE001 -- reported below
+                errors.append(repr(e))
+
+        clients = [threading.Thread(target=client, args=(GOLDEN_QUESTIONS[i::SERVE_CLIENTS],))
+                   for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        search_s = time.perf_counter() - t0
+        check(not errors and not any(c.is_alive() for c in clients) and
+              len(results) == len(GOLDEN_QUESTIONS), f"serve: /search clients failed: {errors}")
+        mismatched = []
+        for q, answer in zip(GOLDEN_QUESTIONS, served["answers"]):
+            status, raw, _ = results[q]
+            body = json.loads(raw)
+            check(status == 200 and body.get("status") == "success",
+                  f"serve: /search {q!r} gave {status} {body.get('status')}")
+            got = {d["id"] for d in body["documents"][:5]}
+            wanted = {str(c["child_id"]) for c in answer["top_children_chunks"][:5]}
+            if got != wanted:
+                mismatched.append((q, sorted(got), sorted(wanted)))
+        check(not mismatched, f"serve: top-5 documents differ from RAGEngine.query's: "
+                              f"{mismatched}")
+        # the same questions did the same work as in phase 4, three at a
+        # time on the app's worker threads: no launch count may be lost
+        search_launches = read_launches()
+        lost = {k: (search_launches[k], served["query_launches"][k]) for k in SERVE_PATH
+                if search_launches[k] != served["query_launches"][k]}
+        check(not lost, f"serve: /search launch counts differ from phase 4's (got, want): {lost}")
+        # one request at a time, reworded past the result cache (as the
+        # profile phases are): the HTTP layer's own cost beside the engine's
+        sequential_ms = []
+        for q in GOLDEN_QUESTIONS:
+            status, raw, ms = _http(f"{base}/search", {"query": f"Tell me briefly: {q}"})
+            check(status == 200 and json.loads(raw).get("status") == "success",
+                  f"serve: sequential /search {q!r} gave {status}")
+            sequential_ms.append(ms)
+
+        streams = {}
+        for q in GOLDEN_QUESTIONS[:3]:
+            status, raw, ms = _http(f"{base}/search-stream", {"query": q})
+            events = [json.loads(line[6:]) for line in raw.decode().splitlines()
+                      if line.startswith("data: ")]
+            types = [e["type"] for e in events]
+            check(status == 200 and types == ["chunks", "answer", "complete"],
+                  f"serve: /search-stream {q!r} gave {status} {types}")
+            check(bool(events[0]["data"]["documents"]), f"serve: no chunks streamed for {q!r}")
+            streams[q] = round(ms, 3)
+        launches = read_launches()
+        check_path_launched(SERVE_PATH, launches, "serve path")
+
+        bad_status, _, _ = _http(f"{base}/search", {"query": ""})
+        check(bad_status == 400, f"serve: an empty query gave {bad_status}, not 400")
+        missing_status, raw, _ = _http(f"{base}/no-such-route")
+        check(missing_status == 404 and json.loads(raw) == {"error": "not found"},
+              f"serve: an unknown path gave {missing_status} {raw[:80]!r}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        app.close()
+        rt.engine.flush_background()
+    check(not thread.is_alive(), "serve: the server thread did not stop")
+    http_ms = [results[q][2] for q in GOLDEN_QUESTIONS]
+    emit({"phase": "serve", "card": info["nvidia_smi"], "port": server.server_port,
+          "clients": SERVE_CLIENTS, "questions": len(http_ms),
+          "http_p50_ms": round(statistics.median(http_ms), 3),
+          "http_max_ms": round(max(http_ms), 3),
+          "http_sequential_p50_ms": round(statistics.median(sequential_ms), 3),
+          "http_sequential_max_ms": round(max(sequential_ms), 3),
+          "engine_p50_ms": round(served["query_p50_ms"], 3),
+          "search_wall_s": round(search_s, 3), "stream_ms": streams,
+          "top5_match": len(GOLDEN_QUESTIONS), "launches_search": search_launches,
           "launches": launches})
     return launches
 
@@ -2334,12 +2527,13 @@ def main(argv=None) -> int:
         timings = phase_kernels(torch, F, args.seed)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             work = Path(tmp)
-            rt, cfg, paths, items, launches, texts = phase_slice(torch, args.seed, work)
+            rt, cfg, paths, items, launches, texts, served = phase_slice(torch, args.seed, work)
             phase_profile(torch, rt)
             rt_ivf, ivf_launches = phase_ivf(torch, cfg, work, items)
             phase_profile(torch, rt_ivf, label="ivf")
             del rt_ivf
             int8_launches = phase_int8(torch, rt, cfg, work)
+            phase_serve(torch, cfg, work, served, info)
             backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)
@@ -2376,6 +2570,8 @@ def main(argv=None) -> int:
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
         if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms
             kernels[-1]["topk_two_call_ms"] = t["topk_two_call_ms"]
+        if "sweep_kernels" in t:           # the profiler's name of the sweep that ran
+            kernels[-1]["sweep_kernels"] = t["sweep_kernels"]
     line = {"kernels": kernels}
     if log_dir:
         (Path(log_dir) / "kernels.json").write_text(json.dumps(line, indent=1))

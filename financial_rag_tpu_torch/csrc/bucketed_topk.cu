@@ -23,7 +23,7 @@
 // twice that in bf16) is read once; at Bq = 128 the dot products (2*Bq*N*D)
 // take about half the byte time at the int8 tensor-core rate.
 //
-// K5's sweep over an int8 or bf16 corpus (sm_90a, flat_sweep.cuh). It
+// K5's and K7's sweep over an int8 or bf16 corpus (sm_90a, flat_sweep.cuh). It
 // replaces a sweep whose every warp ran mma.sync on 4-byte loads straight
 // from device memory for 64 queries a block, re-read each block's 16 corpus
 // rows for those 64 queries only, and passed every round's scores through
@@ -45,9 +45,12 @@
 // in column order, so the wrapper picks the groups (bucketed_sweep_grid) to
 // fill the SMs once without changing a result: one group at N = 102,400
 // (128 blocks, 25 rounds each) and at the served N = 4,096 (128 blocks of
-// one round). f32 corpora, and K7 at every dtype, keep the older CUDA-core /
-// mma.sync sweep (bucketed_sweep_kernel below: 64 queries = 4 warps x 16,
-// 16 bucket positions a block, round groups for ~8 blocks an SM).
+// one round). K7 takes the same sweep and grid, and its write kernel folds
+// the same keys; its bound also counts the [Bq, nbuckets] maxima it writes
+// (0.0249 ms at Bq = 128, N = 102,400 in bf16 at 3.35 TB/s). f32 corpora
+// keep the older CUDA-core / mma.sync sweep (bucketed_sweep_kernel below:
+// 64 queries = 4 warps x 16, 16 bucket positions a block, round groups for
+// ~8 blocks an SM).
 //
 // K5's extract (one block of 256 threads per query, any sweep) folds the
 // groups' keys of its 16 bucket positions a thread and re-keys each live
@@ -323,7 +326,8 @@ bucketed_extract_kernel(const unsigned long long* __restrict__ keys, float* __re
   }
 }
 
-// the bucket maxima themselves, [Bq, nbuckets]
+// K7: the bucket maxima themselves, [Bq, nbuckets], from either sweep's keys
+// (4 MB of keys read and 4 MB written at Bq = 128, nbuckets = 4,096)
 __global__ void bucketed_write_kernel(const unsigned long long* __restrict__ keys,
                                       float* __restrict__ out_s, int* __restrict__ out_i, int Bqp,
                                       int nbuckets, int groups) {
@@ -347,18 +351,17 @@ void launch_sweep(const void* q, const void* x, const float* valid, unsigned lon
 
 // q, x [N,D] in the same dtype (f32 / bf16 / int8), valid [N] f32 weights,
 // scratch keys [groups,Bqp,nbuckets] u64 (group g sweeps rounds
-// g*rounds_per_group ..). K5 (k > 0) over int8 or bf16: q [>= Bq, D] (rows
-// from Bq on are not read), both 16-byte aligned, D <= 384, nbuckets % 32 ==
-// 0; out_s / out_i [Bq,k]. K5 over f32 and K7 (k == 0, out_s / out_i
-// [Bq,nbuckets]): q [Bqp,D] with rows >= Bq zero, nbuckets % 16 == 0. Bqp %
-// 64 == 0, N % 16 == 0 (N % 32 for K5's int8 and bf16 sweep), D % 16 == 0
-// (D % 32 for int8); K5 needs nbuckets <=
-// 4096, fewer than 2^20 rounds and k <= min(256, nbuckets).
+// g*rounds_per_group ..). K5 (k > 0) writes out_s / out_i [Bq,k], K7 (k ==
+// 0) [Bq,nbuckets]. Over int8 or bf16 (the Hopper sweep): q [>= Bq, D] (rows
+// from Bq on are not read), both 16-byte aligned, D <= 384, N % 32 == 0,
+// nbuckets % 32 == 0. Over f32: q [Bqp,D] with rows >= Bq zero, N % 16 == 0,
+// nbuckets % 16 == 0. Bqp % 64 == 0, D % 16 == 0 (D % 32 for int8); K5 also
+// needs nbuckets <= 4096, fewer than 2^20 rounds and k <= min(256, nbuckets).
 FRAG_EXPORT int frag_bucketed_topk(const void* q, const void* x, const float* valid,
                                    unsigned long long* keys, float* out_s, int* out_i, int Bq,
                                    int Bqp, int N, int D, int nbuckets, int k,
                                    int rounds_per_group, int dtype, void* stream) {
-  const bool hopper = k > 0 && dtype != FRAG_F32;
+  const bool hopper = dtype != FRAG_F32;
   const int rounds = nbuckets > 0 ? (N + nbuckets - 1) / nbuckets : 0;
   if (Bq < 1 || Bqp % (kWarps * 16) || Bq > Bqp || N % (hopper ? 32 : 16) || nbuckets % kCols ||
       nbuckets < kCols || D % 16 || (dtype == FRAG_I8 && D % 32) || rounds_per_group < 1 ||

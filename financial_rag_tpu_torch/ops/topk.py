@@ -12,8 +12,8 @@ bit for bit, ties and empty slots included:
   (``csrc/bucketed_topk.cu``): the running max of each bucket (column mod
   nbuckets), then the top-k of the bucket maxima, fused (K5, the int8
   index's sweep) or by a stable sort outside the kernel (K7, backend
-  ``pallas_bucketed``). K5 over an int8 or bf16 corpus takes the Hopper
-  sweep (``bucketed_sweep_grid``); K7 and f32 corpora the older one.
+  ``pallas_bucketed``). Both take the Hopper sweep over an int8 or bf16
+  corpus (``bucketed_sweep_grid``), f32 corpora the older one.
 - ``topk_matmul`` (K6, ``csrc/topk_exact.cu``): the exact top-k, ties to the
   lower corpus index (backend ``pallas_exact``); int8 and bf16 corpora take
   the Hopper sweep, f32 the CUDA-core one (``exact_sweep_grid``).
@@ -40,12 +40,12 @@ INT8_SCALE = 127.0  # int8 level count; actual scales are per-vector/per-query m
 
 LAUNCHES: Counter = Counter()   # kernel launches, by wrapper name
 KERNEL_QUERY_TILE = 64  # queries are padded to a multiple for the CUDA sweeps
-KERNEL_COLUMNS = 16     # bucket columns per block of K7's (and f32 K5's) sweep
+KERNEL_COLUMNS = 16     # bucket columns per block of K5's and K7's f32 sweep
 EXACT_CHUNK = 128       # corpus columns the exact f32 CUDA sweep scores per step
 EXACT_MAX_K = 128       # list length of the exact CUDA sweep
-SWEEP_ROWS = 32         # corpus rows a tile of K5's and K6's Hopper sweeps
+SWEEP_ROWS = 32         # corpus rows a tile of the K5-K7 Hopper sweeps
 EXACT_ROW_KEYS = {torch.bfloat16: 224, torch.int8: 256}  # a row's list + buffer in K6's Hopper sweep
-SWEEP_MAX_D = 384       # K5's and K6's Hopper sweeps zero-pad the features to this
+SWEEP_MAX_D = 384       # the K5-K7 Hopper sweeps zero-pad the features to this
 BUCKETED_MAX_BUCKETS = 4096  # K5's extract holds this many bucket maxima
 PACKED_ROWS = 64        # queries per warpgroup of the packed sweep (K4); 2 a block from 128
 PACKED_COLUMNS = 32     # bucket columns per block of K4's bf16 sweep
@@ -336,7 +336,7 @@ def _kernel_inputs(name: str, queries: torch.Tensor, corpus: torch.Tensor, valid
 
 
 def _hopper_sweep(name: str, corpus: torch.Tensor) -> bool:
-    """Whether K5 / K6 takes its Hopper sweep (int8 and bf16 corpora, D <=
+    """Whether K5-K7 take their Hopper sweep (int8 and bf16 corpora, D <=
     SWEEP_MAX_D; raises beyond that) rather than the f32 one."""
     if corpus.dtype == torch.float32:
         return False
@@ -347,7 +347,7 @@ def _hopper_sweep(name: str, corpus: torch.Tensor) -> bool:
 
 
 def bucketed_sweep_grid(bq: int, n: int, nbuckets: int, sms: int):
-    """K5's launch plan for its int8 / bf16 sweep, Bq queries over N rows in
+    """K5's and K7's launch plan for their int8 / bf16 sweep, Bq queries over N rows in
     nbuckets buckets: (Bqp, rounds_per_group, groups). A block owns
     SWEEP_ROWS bucket positions, 64 queries (128 from Bqp = 128 on) and a
     group of consecutive rounds, and holds a whole SM, so the groups stop
@@ -358,6 +358,19 @@ def bucketed_sweep_grid(bq: int, n: int, nbuckets: int, sms: int):
     rounds = -(-n // nbuckets)
     base = -(-nbuckets // SWEEP_ROWS) * -(-bqp // qtile)
     per_group = packed_tile_groups(rounds, base, sms)
+    return bqp, per_group, -(-rounds // per_group)
+
+
+def bucketed_launch_plan(bq: int, n: int, nbuckets: int, sms: int, *, hopper: bool):
+    """(Bqp, rounds_per_group, groups) of a K5 or K7 launch: the Hopper
+    sweep's ``bucketed_sweep_grid`` (int8 and bf16 corpora), else the f32
+    sweep's blocks of 64 queries and KERNEL_COLUMNS bucket positions with
+    ~8 a SM in flight (``tile_groups``)."""
+    if hopper:
+        return bucketed_sweep_grid(bq, n, nbuckets, sms)
+    bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
+    rounds = -(-n // nbuckets)
+    per_group = tile_groups(rounds, (nbuckets // KERNEL_COLUMNS) * (bqp // KERNEL_QUERY_TILE), sms)
     return bqp, per_group, -(-rounds // per_group)
 
 
@@ -380,21 +393,18 @@ def _bucketed_launch(name: str, queries, corpus, valid, k: int, nbuckets: int, b
     """K5 (k > 0: [Bq, k] out) or K7 (k == 0: the [Bq, nbuckets] maxima)."""
     n = corpus.shape[0]
     nbuckets = _nbuckets(n, nbuckets, block_n)
-    hopper = k > 0 and _hopper_sweep(name, corpus)
-    if hopper and (nbuckets % SWEEP_ROWS or nbuckets > BUCKETED_MAX_BUCKETS):
-        raise ValueError(f"{name}: nbuckets={nbuckets} must be a multiple of {SWEEP_ROWS} "
-                         f"and at most {BUCKETED_MAX_BUCKETS}")
+    hopper = _hopper_sweep(name, corpus)
+    if hopper and (nbuckets % SWEEP_ROWS or n % SWEEP_ROWS):
+        raise ValueError(f"{name}: nbuckets={nbuckets} and N={n} must be multiples of "
+                         f"{SWEEP_ROWS} for the int8/bf16 sweep")
+    if k > 0 and nbuckets > BUCKETED_MAX_BUCKETS:
+        raise ValueError(f"{name}: nbuckets={nbuckets} above the extract's "
+                         f"{BUCKETED_MAX_BUCKETS}")
     q, qscale, vf, dev, code = _kernel_inputs(name, queries, corpus, valid, pad=not hopper)
     bq = queries.shape[0]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if hopper:
-        bqp, per_group, groups = bucketed_sweep_grid(bq, n, nbuckets, sms)
-    else:
-        bqp = q.shape[0]
-        rounds = -(-n // nbuckets)
-        per_group = tile_groups(rounds, (nbuckets // KERNEL_COLUMNS) * (bqp // KERNEL_QUERY_TILE),
-                                sms)
-        groups = -(-rounds // per_group)
+    bqp, per_group, groups = bucketed_launch_plan(
+        bq, n, nbuckets, torch.cuda.get_device_properties(dev).multi_processor_count,
+        hopper=hopper)
     keys = torch.empty((groups, bqp, nbuckets), dtype=torch.int64, device=dev)
     width = k if k > 0 else nbuckets
     out_s = torch.empty((bq, width), dtype=torch.float32, device=dev)

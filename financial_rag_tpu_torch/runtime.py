@@ -6,10 +6,11 @@ port serves: one device; per-model flat indexes (bf16, f32 or int8,
 auto-tune of ``tune_indexes``); the dual bge/gte encoders (real checkpoints
 when available, the deterministic lexical fallback otherwise); the
 cross-encoder rerank; the parent stores; the HTTP/Null LLM provider or the
-on-device decoder (``LLM_PROVIDER=local``, on the runtime's device).
-Cross-request micro-batching, the WSGI app, the auto-ingest processor and
-the warmups are later slices; sharded indexes and data-parallel encode
-raise NotImplementedError.
+on-device decoder (``LLM_PROVIDER=local``, on the runtime's device); the
+auto-ingest processor (``make_processor``), the WSGI app (``make_app``) and
+the warmups. Cross-request micro-batching is a later slice (each request is
+served on its own, so the sweep and rerank warmups find no batcher to warm);
+sharded indexes and data-parallel encode raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -223,3 +224,72 @@ class Runtime:
             for idx in self.indexes.values():
                 idx.save(persist)
             log.info("persisted %d indexes to %s", len(self.indexes), persist)
+
+    def make_processor(self, data_dir: str | Path = "."):
+        from financial_rag_tpu_torch.serving.processor import DocumentProcessor
+
+        data_dir = Path(data_dir)
+        return DocumentProcessor(
+            self.pipeline, self.ledger,
+            source_dir=data_dir / self.config.ingest.source_dir,
+            extracted_dir=data_dir / self.config.ingest.extracted_dir,
+            on_sweep_complete=lambda: (self.tune_indexes(),
+                                       self.save_indexes(data_dir),
+                                       self.warm_sweeps()))
+
+    def warm_sweeps(self) -> None:
+        """After ingest: the sweep batcher's shapes (direct bucket + max
+        batch), then the rerank and the LLM warmups. The port builds no
+        sweep batcher yet, so the first step is skipped, as the JAX runtime
+        skips it without one."""
+        if self.hybrid.sweep_batcher is not None:
+            try:
+                self.hybrid.sweep_batcher.warmup(self.config.fusion.per_query_k)
+            except Exception:  # noqa: BLE001 — warmup must never break ingest
+                log.exception("sweep warmup failed")
+        self._warm_rerank()
+        self._warm_llm()
+
+    def _warm_llm(self) -> None:
+        """Run the on-device answer paths ONCE (``LocalLLM.warm``: prefill
+        at the 5-parent prompt bucket, the streaming and one-shot decode),
+        so the first answer request does not pay the checkpoint load and
+        the first launches; a no-op for providers without ``warm``."""
+        if getattr(self, "_llm_warmed", False):
+            return
+        warm = getattr(self.engine.llm, "warm", None)
+        if warm is None:
+            return
+        try:
+            if warm():
+                self._llm_warmed = True
+        except Exception:  # noqa: BLE001 — warmup must never break ingest
+            log.exception("llm warmup failed")
+
+    def _warm_rerank(self) -> None:
+        """Run the rerank forward at the coalesced pair-batch size, using
+        REAL corpus snippets so the sequence bucket matches serving traffic.
+        No-op without a batching cross-encoder (the port has none until
+        micro-batching is ported) or a corpus."""
+        model = getattr(self.engine.reranker, "model", None)
+        if model is None or not hasattr(model, "batcher"):
+            return
+        try:
+            sample = self.child_meta.sample_snippets(8)
+            if not sample:
+                return
+            pairs = [("representative warmup question about amounts", s)
+                     for s in sample]
+            reps = (len(sample) - 1 + model.batcher.max_items) // len(sample)
+            inner = model.inner
+            inner.predict((pairs * reps)[: model.batcher.max_items])
+            inner.predict(pairs * 3)   # the per-request (direct-lane) size
+        except Exception:  # noqa: BLE001 — warmup must never break ingest
+            log.exception("rerank warmup failed")
+
+    def make_app(self, processor=None, data_dir: str | Path = "."):
+        from financial_rag_tpu_torch.serving.app import create_app
+
+        return create_app(self.engine, processor=processor, config=self.config,
+                          source_dir=str(Path(data_dir) / self.config.ingest.source_dir),
+                          on_save=lambda: self.save_indexes(data_dir))

@@ -1,20 +1,23 @@
 """Time the redesigned kernels of two source trees in one process, A B B A.
 
-    python -m financial_rag_tpu_torch.scripts.kernel_ab --other DIR [--out FILE] [--only K5,K6]
+    python -m financial_rag_tpu_torch.scripts.kernel_ab --other DIR [--out FILE] [--only K5,K7]
 
 ``DIR`` holds another checkout's ``csrc/`` (for example the parent commit's
 ``financial_rag_tpu_torch/csrc``). Both trees are built into their own
 libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
-(``frag_fused_ffn``), K4 (``frag_packed_topk``), K5
+(``frag_fused_ffn``), K4 (``frag_packed_topk``), K5 and K7
 (``frag_bucketed_topk``), K6 (``frag_topk_exact``), K9
 (``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
 launched on the same inputs at the main path's shapes, the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
 and as the kernels' own device time under torch.profiler (``*_dev_ms``,
-which is not); the device time of K4, K5 and K6 is also split into the
+which is not); the device time of K4-K7 is also split into the
 sweep and the merge kernel (``*_sweep_dev_ms``, ``*_merge_dev_ms``; K5's
-merge is its extract). The outputs are compared: ``max_abs_diff`` is the
+merge is its extract, K7's its write kernel). K7's call is its wrapper's
+work after the queries' cast: the C entry, then the stable sort that takes
+the top k of the bucket maxima, whose device time is ``*_sort_dev_ms``.
+The outputs are compared: ``max_abs_diff`` is the
 largest difference, ``max_rel_diff`` that as a share of the other tree's
 largest value. The sweeps' inputs are exact-grid data, where every score
 is exact in f32, so two right trees agree to the bit.
@@ -23,11 +26,12 @@ The C entry points are called directly. Their arguments are the same in
 both trees, but what a launch plan puts in them is each tree's own: K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
 the I axis its wrapper would choose, and scratch of that many f32 partials;
-K4, K5 and K6 get from each tree's ``ops/topk.py`` their tile or round
+K4-K7 get from each tree's ``ops/topk.py`` their tile or round
 groups and scratch of that size (a tree whose ``ops/topk.py``
-predates ``packed_sweep_grid``, ``bucketed_sweep_grid`` or
-``exact_sweep_grid`` gets the rule of its wrapper at the time: K4's and
-K5's 64-query, 16-column ``tile_groups``, K6's ``exact_groups``). The
+predates ``packed_sweep_grid``, ``bucketed_sweep_grid``,
+``bucketed_launch_plan`` or ``exact_sweep_grid`` gets the rule of its
+wrapper at the time: K4's, K5's and K7's 64-query, 16-column
+``tile_groups``, K6's ``exact_groups``). The
 sweeps' queries are passed padded to Bqp rows of zeros, which both trees
 take. K10's scratch is allocated at the larger of the two
 layouts (3 planes). Prints one JSON line with the card's name and power
@@ -78,6 +82,11 @@ K4_SHAPES = (("K4 table", 128, 102400), ("batch of 8", 8, 102400), ("served", 1,
 # per launch over the smoke test's index capacity); and bf16 at the table's
 K5_SHAPES = (("K5 table", 128, 102400, "int8"), ("batch of 8", 8, 102400, "int8"),
              ("served", 1, 4096, "int8"), ("bf16 table", 128, 102400, "bf16"))
+# (label, Bq, N, dtype) of K7 at D=384, k=24, 4,096 buckets (backend
+# pallas_bucketed): the table's shape in bf16 and int8, and the backends
+# phase's 9 questions over the index capacity
+K7_SHAPES = (("K7 table", 128, 102400, "bf16"), ("int8 table", 128, 102400, "int8"),
+             ("backends", 9, 4096, "bf16"))
 # (label, Bq, N, dtype, k, order) of K6 at D=384: the table's shape, int8 at
 # N=16,384, the backends phase's 9 questions over the index capacity, k=128,
 # and a corpus whose every row outscores the one before (every key passes
@@ -93,7 +102,8 @@ K9_SHAPES = (("answer prompt", 1, 4096, (1100,)), ("normaliser", 1, 128, (60,)),
 
 
 # the name fragments of each sweep's two kernels: its sweep and its merge
-SWEEP_PARTS = {"K4": ("sweep", "merge"), "K5": ("sweep", "extract"), "K6": ("sweep", "merge")}
+SWEEP_PARTS = {"K4": ("sweep", "merge"), "K5": ("sweep", "extract"), "K6": ("sweep", "merge"),
+               "K7": ("sweep", "write")}
 
 
 def build_library(csrc: Path, out_dir: Path):
@@ -194,6 +204,20 @@ def bucketed_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096):
     if hasattr(mod, "bucketed_sweep_grid"):
         return mod.bucketed_sweep_grid(bq, n, nbuckets, sms)
     # before the int8 sweep's redesign: 64-query, 16-column blocks
+    bqp = mod.round_up(max(bq, 1), mod.KERNEL_QUERY_TILE)
+    rounds = -(-n // nbuckets)
+    per_group = mod.tile_groups(
+        rounds, (nbuckets // mod.KERNEL_COLUMNS) * (bqp // mod.KERNEL_QUERY_TILE), sms)
+    return bqp, per_group, -(-rounds // per_group)
+
+
+def bucketed_topk_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096):
+    """(Bqp, rounds_per_group, groups) that K7's wrapper beside ``csrc``
+    chooses for Bq queries over N int8 or bf16 rows."""
+    mod = tree_module(csrc, "topk")
+    if hasattr(mod, "bucketed_launch_plan"):
+        return mod.bucketed_launch_plan(bq, n, nbuckets, sms, hopper=True)
+    # before K7 took the Hopper sweep: 64-query, 16-column blocks
     bqp = mod.round_up(max(bq, 1), mod.KERNEL_QUERY_TILE)
     rounds = -(-n // nbuckets)
     per_group = mod.tile_groups(
@@ -309,6 +333,30 @@ def k5_call(lib, bq: int, n: int, dtype: str, plan, gen, k: int = 24, nbuckets: 
     return run, [out_s, out_i]
 
 
+def k7_call(lib, bq: int, n: int, dtype: str, plan, gen, k: int = 24, nbuckets: int = 4096):
+    """(run, outputs): K7 on exact-grid data (``sweep_inputs``) with scratch
+    as ``plan`` says, through ``lib``'s C entry, then the wrapper's stable
+    top k of the [Bq, nbuckets] maxima; the outputs are the maxima."""
+    from financial_rag_tpu_torch.ops import topk
+
+    p = kernel_lib.ptr
+    bqp, per_group, groups = plan
+    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen)
+    keys = torch.empty(groups, bqp, nbuckets, dtype=torch.int64, device="cuda")
+    out_s = torch.empty(bq, nbuckets, device="cuda")
+    out_i = torch.empty(bq, nbuckets, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    args = (p(q), p(x), p(valid), p(keys), p(out_s), p(out_i), bq, bqp, n, 384, nbuckets, 0,
+            per_group, kernel_lib.DTYPE_CODES[x.dtype], stream)
+
+    def run():
+        if lib.frag_bucketed_topk(*args):
+            raise RuntimeError("frag_bucketed_topk refused the launch")
+        topk._stable_topk(out_s, out_i, k)
+    run.tensors = (q, x, valid, keys)   # args holds raw pointers into these
+    return run, [out_s, out_i]
+
+
 def k6_call(lib, bq: int, n: int, dtype: str, k: int, order: str, plan, gen):
     """(run, outputs): K6 on ``sweep_inputs`` data with scratch as ``plan``
     says, through ``lib``'s C entry."""
@@ -414,7 +462,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, help="the other tree's csrc/ directory")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernels to time (K1,K2,K3,K4,K5,K6,K9,K10); all by default")
+                    help="comma-separated kernels to time (K1,K2,K3,K4,K5,K6,K7,K9,K10); "
+                         "all by default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA GPU")
@@ -443,6 +492,13 @@ def main(argv=None) -> int:
                lambda tree, bq=bq, n=n, dt=dt: k5_call(libs[tree], bq, n, dt,
                                                        k5_plans[tree, bq, n], gen))
               for label, bq, n, dt in K5_SHAPES]
+    k7_plans = {(tree, bq, n): bucketed_topk_plan(csrc, bq, n, sms)
+                for tree, csrc in trees.items() for _, bq, n, _ in K7_SHAPES}
+    cases += [("K7", label, {"Bq": bq, "N": n, "dtype": dt,
+                             "groups": {tree: k7_plans[tree, bq, n][2] for tree in trees}},
+               lambda tree, bq=bq, n=n, dt=dt: k7_call(libs[tree], bq, n, dt,
+                                                       k7_plans[tree, bq, n], gen))
+              for label, bq, n, dt in K7_SHAPES]
     k6_plans = {(tree, label): exact_plan(
                     csrc, bq, n, k, torch.int8 if dt == "int8" else torch.bfloat16, sms)
                 for tree, csrc in trees.items() for label, bq, n, dt, k, _ in K6_SHAPES}
@@ -486,6 +542,11 @@ def main(argv=None) -> int:
                 for part, key in zip(("sweep", "merge"), SWEEP_PARTS[kernel]):
                     row[f"{name}_{part}_dev_ms"] = [
                         sum(t for kname, t in d.items() if key in kname) for d in dev[name]]
+                if kernel == "K7":   # the rest of its device time is the sort's
+                    row[f"{name}_sort_dev_ms"] = [
+                        sum(t for kname, t in d.items()
+                            if not any(key in kname for key in SWEEP_PARTS[kernel]))
+                        for d in dev[name]]
         rows.append(row)
     line = {"card": smi, "order": "this, other, other, this", "rows": rows}
     if args.out:

@@ -432,6 +432,78 @@ def test_bucketed_fused_kernel_shapes_exactly(gen, bq, n, k, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 24, 128, 256])
+@pytest.mark.parametrize("n", [1024, 4096, 16384, 102400])
+@pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 200])
+def test_bucketed_topk_kernel_shapes_exactly(gen, bq, n, k, dtype):
+    """K7 on the Hopper sweep and its write kernel, then the wrapper's
+    stable top k, over K5's shapes at D = 384. Bit for bit the plain
+    version, empty slots (NEG, -1) included."""
+    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype)
+    out_s, out_i = _launches_once(topk, lambda: topk.bucketed_topk(q, x, valid, k),
+                                  "bucketed_topk")
+    ref_s, ref_i = topk.bucketed_topk_plain(q, x, valid, k)
+    assert out_s.shape == (bq, k) and out_i.shape == (bq, k)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("bq,n,nbuckets,k", [(65, 4096, 1024, 512), (128, 102400, 8192, 24),
+                                             (9, 102400, 8192, 1000)])
+def test_bucketed_topk_kernel_beyond_the_extract(gen, bq, n, nbuckets, k, dtype):
+    """Shapes only K7 takes (K5's extract holds k <= 256 of at most 4,096
+    buckets): k = 512 of 1,024 buckets, and 8,192 buckets over 102,400 rows
+    (12.5 rounds: the last round reaches half the buckets). Bit for bit the
+    plain version."""
+    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype)
+    out = _launches_once(topk, lambda: topk.bucketed_topk(q, x, valid, k, nbuckets=nbuckets),
+                         "bucketed_topk")
+    ref = topk.bucketed_topk_plain(q, x, valid, k, nbuckets=nbuckets)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_bucketed_topk_kernel_runs_the_hopper_sweep(gen, dtype):
+    """The profiler sees K7 launch bucketed_wgmma_sweep_kernel and its
+    write kernel, and never the older bucketed_sweep_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, x, valid = _hopper_sweep_case(gen, 9, 4096, dtype)
+    topk.bucketed_topk(q, x, valid, 24)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        topk.bucketed_topk(q, x, valid, 24)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert any("bucketed_wgmma_sweep_kernel" in n for n in names), names
+    assert any("bucketed_write_kernel" in n for n in names), names
+    assert not any("bucketed_sweep_kernel" in n for n in names), names
+
+
+def test_bucketed_topk_kernel_rejects_what_the_hopper_sweep_cannot_take(gen):
+    """K7 raises where its int8 / bf16 sweep cannot take a shape, and does
+    not take the older sweep instead."""
+    valid = torch.ones(1024, device="cuda")
+    q, x = _grid(gen, 2, 512), _grid(gen, 1024, 512).bfloat16()
+    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 384"):
+        topk.bucketed_topk(q, x, valid, 24)
+    q, x = q[:, :384].contiguous(), x[:, :384].contiguous()
+    with pytest.raises(ValueError, match="multiples of 32"):   # 48 buckets
+        topk.bucketed_topk(q, x, valid, 24, nbuckets=48, block_n=16)
+    x1040, v1040 = _grid(gen, 1040, 384).bfloat16(), torch.ones(1040, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 32"):   # N = 1,040
+        topk.bucketed_topk(q, x1040, v1040, 24, nbuckets=1040, block_n=16)
+    buf = torch.zeros(1024 * 384 + 8, dtype=torch.bfloat16, device="cuda")
+    unaligned = buf[4:4 + 1024 * 384].view(1024, 384)          # 8 bytes past a boundary
+    unaligned.copy_(x)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        topk.bucketed_topk(q, unaligned, valid, 24)
+    with pytest.raises(ValueError, match=r"\[1, nbuckets\]"):
+        topk.bucketed_topk(q, x, valid, 1025)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
 @pytest.mark.parametrize("k", [1, 24, 128])
 @pytest.mark.parametrize("n", [1024, 4096, 16384, 102400])
 @pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 200])
@@ -948,11 +1020,11 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
 
 def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
     """scripts/kernel_ab.py against its own csrc/: every row (K1, K4, K5,
-    K6, K2, K3, K10, K9) has two loop times and two device times for each
-    tree (a device time at most 1.5x the loop's), the rows of the sweeps K4,
-    K5 and K6 also a sweep and a merge device time that sum to it, and the
-    two builds of the same sources agree exactly; --only keeps the kernels
-    named."""
+    K7, K6, K2, K3, K10, K9) has two loop times and two device times for
+    each tree (a device time at most 1.5x the loop's), the rows of the
+    sweeps K4-K7 also a sweep and a merge device time that sum to it (K7's
+    with its sort's), and the two builds of the same sources agree exactly;
+    --only keeps the kernels named."""
     import json
 
     from financial_rag_tpu_torch.ops import kernel_lib
@@ -964,6 +1036,7 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     rows = json.loads(out.read_text())["rows"]
     assert len(rows) == (len(kernel_ab.K1_SHAPES) + len(kernel_ab.K4_SHAPES)
                          + len(kernel_ab.K5_SHAPES) + len(kernel_ab.K6_SHAPES)
+                         + len(kernel_ab.K7_SHAPES)
                          + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
                          + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES))
     assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
@@ -971,12 +1044,16 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     for row in rows:
         if row["kernel"] == "K3":   # both trees are this one: the same split
             assert row["shape"]["splits"]["this"] == row["shape"]["splits"]["other"]
-        if row["kernel"] in ("K4", "K5", "K6"):   # the same groups; sweep + merge is the whole
+        if row["kernel"] in ("K4", "K5", "K6", "K7"):   # the same groups; the parts make the whole
             assert row["shape"]["groups"]["this"] == row["shape"]["groups"]["other"]
             for tree in ("this", "other"):
-                for total, sweep, merge in zip(row[f"{tree}_dev_ms"], row[f"{tree}_sweep_dev_ms"],
-                                               row[f"{tree}_merge_dev_ms"]):
-                    assert sweep > 0 and merge > 0 and abs(sweep + merge - total) <= 1e-9 + 1e-6 * total
+                sort = row.get(f"{tree}_sort_dev_ms", [0.0, 0.0])
+                assert (row["kernel"] == "K7") == (f"{tree}_sort_dev_ms" in row)
+                for total, sweep, merge, rest in zip(row[f"{tree}_dev_ms"],
+                                                     row[f"{tree}_sweep_dev_ms"],
+                                                     row[f"{tree}_merge_dev_ms"], sort):
+                    assert sweep > 0 and merge > 0
+                    assert abs(sweep + merge + rest - total) <= 1e-9 + 1e-6 * total
     for row in rows:
         assert len(row["this_ms"]) == len(row["other_ms"]) == 2
         assert len(row["this_dev_ms"]) == len(row["other_dev_ms"]) == 2
@@ -984,6 +1061,7 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
                    for t in row["this_dev_ms"] + row["other_dev_ms"]), row
         assert row["max_rel_diff"] == 0.0, row
     only = tmp_path / "only.json"
-    assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(only), "--only", "K5"]) == 0
-    assert [r["kernel"] for r in json.loads(only.read_text())["rows"]] == ["K5"] * len(
-        kernel_ab.K5_SHAPES)
+    assert kernel_ab.main(["--other", str(kernel_lib.CSRC), "--out", str(only),
+                           "--only", "K5,K7"]) == 0
+    assert [r["kernel"] for r in json.loads(only.read_text())["rows"]] == (
+        ["K5"] * len(kernel_ab.K5_SHAPES) + ["K7"] * len(kernel_ab.K7_SHAPES))

@@ -1,4 +1,6 @@
-"""The port stands alone: no import of JAX or of the JAX package."""
+"""The port stands alone: no import of JAX or of the JAX package, and none
+of werkzeug or flask (its HTTP app runs on the standard library, where
+werkzeug is not installed)."""
 
 import ast
 import subprocess
@@ -13,7 +15,8 @@ PORT_FILES = sorted((ROOT / "financial_rag_tpu_torch").rglob("*.py")) + [ROOT / 
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top == "jax" or top.startswith("jax") or top == "financial_rag_tpu"
+    return (top == "jax" or top.startswith("jax") or top == "financial_rag_tpu"
+            or top in ("werkzeug", "flask"))
 
 
 def _imports(path: Path):
@@ -28,6 +31,7 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
+    """No import of jax*, financial_rag_tpu, werkzeug or flask."""
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
@@ -35,6 +39,23 @@ def test_no_jax_or_jax_package_import(path):
 def test_runtime_import_leaves_jax_unloaded():
     code = ("import sys, financial_rag_tpu_torch.runtime, financial_rag_tpu_torch.ops.kernel_lib;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'financial_rag_tpu')];"
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_files_include_the_server():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"financial_rag_tpu_torch/__main__.py", "financial_rag_tpu_torch/serving/app.py",
+            "financial_rag_tpu_torch/serving/processor.py",
+            "financial_rag_tpu_torch/serving/formatting.py"} <= names
+
+
+def test_server_import_leaves_werkzeug_and_jax_unloaded():
+    code = ("import sys, financial_rag_tpu_torch.__main__, financial_rag_tpu_torch.serving.app;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'financial_rag_tpu', 'werkzeug', 'flask')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

@@ -232,17 +232,13 @@ def _weighted_scores(queries, corpus, valid):
     return topk._weighted_mask(topk._tile_scores(q, corpus), valid.float()[None, :]), qscale
 
 
-def _bucketed_decomposed(queries, corpus, valid, k, nbuckets, rounds_per_group, cols,
-                         threads=256):
-    """K5's CUDA decomposition, in plain torch. The sweep: blocks of ``cols``
-    bucket positions x a group of ``rounds_per_group`` consecutive rounds,
-    each keeping its buckets' best weighted score and round (strict >,
-    rounds in order, from NEG) and writing the key (score, inverted column),
-    0 if nothing live reached the bucket. The extract: fold the groups' keys
-    by max; re-key (score, inverted position, inverted round); ``threads``
-    threads holding positions tid + threads*i; flat::block_topk; empties
-    (NEG, bucket 0's column or -1)."""
-    s, qscale = _weighted_scores(queries, corpus, valid)
+def _bucketed_sweep_keys(s, nbuckets, rounds_per_group, cols):
+    """The sweep of K5 and K7 over weighted scores ``s`` [Bq, N], in plain
+    torch: blocks of ``cols`` bucket positions x a group of
+    ``rounds_per_group`` consecutive rounds, each keeping its buckets' best
+    weighted score and round (strict >, rounds in order, from NEG) and
+    writing the key (score, inverted column), 0 if nothing live reached the
+    bucket. Returns keys[group][row][position]."""
     bq, n = s.shape
     rounds = -(-n // nbuckets)
     groups = -(-rounds // rounds_per_group)
@@ -264,6 +260,20 @@ def _bucketed_decomposed(queries, corpus, valid, k, nbuckets, rounds_per_group, 
                     if best[row, j] > topk.NEG:
                         col = int(best_r[row, j]) * nbuckets + p
                         keys[g][row][p] = _score_key(float(best[row, j]), 0xFFFFFFFF - col)
+    return keys
+
+
+def _bucketed_decomposed(queries, corpus, valid, k, nbuckets, rounds_per_group, cols,
+                         threads=256):
+    """K5's CUDA decomposition, in plain torch: the sweep
+    (``_bucketed_sweep_keys``), then the extract: fold the groups' keys by
+    max; re-key (score, inverted position, inverted round); ``threads``
+    threads holding positions tid + threads*i; flat::block_topk; empties
+    (NEG, bucket 0's column or -1)."""
+    s, qscale = _weighted_scores(queries, corpus, valid)
+    bq = s.shape[0]
+    keys = _bucketed_sweep_keys(s, nbuckets, rounds_per_group, cols)
+    groups = len(keys)
     out_s = torch.full((bq, k), topk.NEG)
     out_i = torch.full((bq, k), -1, dtype=torch.int32)
     for row in range(bq):
@@ -285,6 +295,26 @@ def _bucketed_decomposed(queries, corpus, valid, k, nbuckets, rounds_per_group, 
             else:
                 out_i[row, rank] = fill
     return topk._rescale(out_s, qscale), out_i
+
+
+def _bucketed_topk_decomposed(queries, corpus, valid, k, nbuckets, rounds_per_group, cols):
+    """K7's CUDA decomposition, in plain torch: the sweep
+    (``_bucketed_sweep_keys``); the write kernel folding each bucket's keys
+    over the groups by max and writing (score, column), or (NEG, -1) where
+    the key is 0; then the wrapper's stable top k and the query scale."""
+    s, qscale = _weighted_scores(queries, corpus, valid)
+    bq = s.shape[0]
+    keys = _bucketed_sweep_keys(s, nbuckets, rounds_per_group, cols)
+    bucket_s = torch.full((bq, nbuckets), topk.NEG)
+    bucket_i = torch.full((bq, nbuckets), -1, dtype=torch.int32)
+    for row in range(bq):
+        for p in range(nbuckets):
+            key = max(group[row][p] for group in keys)
+            if key:
+                bucket_s[row, p] = float(_key_score(key))
+                bucket_i[row, p] = 0xFFFFFFFF - (key & 0xFFFFFFFF)
+    top_s, top_i = topk._stable_topk(bucket_s, bucket_i, k)
+    return topk._rescale(top_s, qscale), top_i
 
 
 def _exact_decomposed(queries, corpus, valid, k, tiles_per_group, buf, rows=32, chunk=4096,
@@ -422,6 +452,33 @@ def test_bucketed_fused_decomposition_matches_plain_and_pallas(case, split):
                                atol=1e-6 if dtype == "int8" else 0.0)
     if case == "few_live":   # bucket 0 holds column 0: the empties carry it
         assert (got_i[:, 4:] == 0).all() and (got_s[:, 4:] == topk.NEG).all()
+
+
+@pytest.mark.parametrize("split", [(1, 32), (2, 32), (3, 64), (4, 1024)],
+                         ids=["1round-32cols", "2rounds-32cols", "3rounds-64cols",
+                              "allrounds-1024cols"])
+@pytest.mark.parametrize("case", DECOMPOSITION_CASES)
+def test_bucketed_topk_decomposition_matches_plain_and_pallas(case, split):
+    """Any split of K7's rounds into consecutive groups and of its buckets
+    into column slices, the groups' keys folded by max and written as
+    (score, column) or (NEG, -1), then the stable top k, give the plain
+    version's result bit for bit and the Pallas kernel's (exact-grid and
+    int8 data; int8 scores within 1e-6 after the query scale, the
+    unit-vector test's bar), the empty slots (NEG, -1) included."""
+    q, x, valid, dtype = _decomposition_case(case)
+    k, nbuckets = 24, 1024
+    jx, tx, v = _corpus(x, valid, dtype)
+    tq, tv = torch.from_numpy(q), torch.from_numpy(v)
+    got_s, got_i = _bucketed_topk_decomposed(tq, tx, tv, k, nbuckets, *split)
+    want_s, want_i = topk.bucketed_topk_plain(tq, tx, tv, k, nbuckets=nbuckets)
+    assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+    ref_s, ref_i = jax_topk.bucketed_topk(jnp.asarray(q), jx, jnp.asarray(v), k,
+                                          interpret=True, nbuckets=nbuckets)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0,
+                               atol=1e-6 if dtype == "int8" else 0.0)
+    if case == "few_live":   # four live rows: the other slots are empty
+        assert (got_i[:, 4:] == -1).all() and (got_s[:, 4:] == topk.NEG).all()
 
 
 @pytest.mark.parametrize("split", [(1, 192, 32, 4096), (3, 32, 32, 64), (7, 40, 8, 100),
