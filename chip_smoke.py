@@ -14,6 +14,9 @@ Phases, each printing one JSON line:
               (ptxas) and its HGMMA / IGMMA instructions (cuobjdump),
               which every product kernel there must have; none of them may
               spill or have its wgmma serialised by ptxas (C7510-C7520).
+              Then the native C++ library (tokenizer, BM25, chunker) from
+              native/*.cc into build/native/: compiler, seconds, path; it
+              must load.
 3. kernel  -- every kernel (K1-K11) at its main-path shapes, against its
               plain PyTorch version on the same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
@@ -52,6 +55,20 @@ Phases, each printing one JSON line:
               (400) and an unknown path (404); HTTP p50 and max ms of both
               beside phase 4's engine p50; the server and the app's threads
               stopped.
+8b. load   -- the default serving runtime (SERVE_MICROBATCH=1,
+              MICROBATCH_DIRECT=32, MAX=192) under load on copies of the
+              flat data dir: 64 threads x 192 unique questions through
+              RAGEngine.query, batched and then with SERVE_MICROBATCH=0
+              (QPS, p50, p95, every batcher's counts; the sweep waves and the
+              rerank coalesce, K1-K4 launch, K4 fewer times than questions;
+              each question's query embeddings, rerank candidates and raw
+              logits as unbatched within tolerances, its top-5 reported);
+              16 HTTP clients on
+              /search at MICROBATCH_DIRECT=2, below the app's 8 workers; 4
+              concurrent query_stream calls on the local LLM in f32 at
+              MICROBATCH_DIRECT=1 through the continuous decode engine (K9
+              from its row prefills; each stream's text as the same prompt's
+              per-request stream).
 9. backends -- the saved flat index loaded with backend pallas_exact and
               pallas_bucketed (bf16) and pallas_fused (bf16 and int8): the
               golden questions' query vectors through K6, K7, K4 and K5,
@@ -90,7 +107,7 @@ Phases, each printing one JSON line:
               fail.
 17. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8, 9, 11, and each part of 14 and 16) sets every
+Each path (phases 4, 6, 7, 8, each part of 8b, 9, 11, and each part of 14 and 16) sets every
 launch counter to 0 just before it and reads them just after: each kernel
 of that path must have run.
 
@@ -463,6 +480,25 @@ def phase_build(kernel_lib, log_dir):
     check(not missing, f"no HGMMA or IGMMA in the SASS of {missing}")
     check(not spilled, f"ptxas spills registers in {spilled}")
     check(not serialised, f"ptxas serialised the wgmma of {serialised}")
+    phase_build_native()
+
+
+def phase_build_native():
+    """The native C++ library (WordPiece, BM25, the chunker's word scan)
+    that the tokenizer, the BM25 scorer and the chunker use: built from
+    financial_rag_tpu_torch/native/*.cc into build/native/ by the host C++
+    compiler. Its Python fallbacks would hide a failed build, so it must
+    load here."""
+    from financial_rag_tpu_torch import native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    seconds = time.perf_counter() - t0
+    info = native.BUILD_INFO
+    emit({"phase": "build", "native": ok, "compiler": info.get("compiler", native.compiler()),
+          "compile_s": info.get("seconds"), "seconds": round(seconds, 3),
+          "library": info.get("library", str(native.lib_path()))})
+    check(ok, "the native library did not build or load (see the log)")
 
 
 def kernel_cases(torch, F, seed):
@@ -554,8 +590,12 @@ def kernel_cases(torch, F, seed):
     # (Bq, N): the table's shape; a query batch over it; the served shape (one
     # query per launch over the index capacity of the slice phase); a
     # smaller corpus in bf16 and in f32
+    # the load phase's wave sweeps: the batcher pads its rows to 192
+    # (MICROBATCH_MAX) and doubles to 384 on an overshoot, over the index
+    # capacity of the slice phase
     for bq, n, dtype, label in ((128, 102400, bf16, "bf16"), (8, 102400, bf16, "bf16"),
-                                (1, 4096, bf16, "bf16"), (128, 16384, bf16, "bf16"),
+                                (1, 4096, bf16, "bf16"), (192, 4096, bf16, "bf16"),
+                                (384, 4096, bf16, "bf16"), (128, 16384, bf16, "bf16"),
                                 (128, 16384, torch.float32, "f32")):
         x = randn(n, d)
         x = (x / x.norm(dim=1, keepdim=True)).to(dtype)
@@ -1046,17 +1086,46 @@ HOPPER_SWEEP = {"bucketed_topk": "bucketed_wgmma_sweep_kernel",
 OLDER_SWEEPS = ("bucketed_sweep_kernel", "exact_sweep_kernel")
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def device_events(prof) -> list:
+    """The device activities (kernels, copies) of one torch.profiler run,
+    without the host's user annotations mirrored on the device timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profiled(torch, fn, with_cpu: bool = False):
+    """Runs fn(attempt) under torch.profiler; returns (profiler, fn's value).
+    Now and then the profiler's trace of a call that launched kernels holds
+    no device activity at all. Such a run tells nothing about which kernels
+    ran, so it is made again, with the next attempt number, and the phase
+    fails after PROFILE_ATTEMPTS empty traces. A trace that holds any device
+    activity is returned as it is, for the caller's checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if with_cpu else [])
+    for attempt in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            value = fn(attempt)
+            torch.cuda.synchronize()
+        if device_events(prof):
+            return prof, value
+        print(f"chip_smoke: the profiler's trace held no device activity "
+              f"(attempt {attempt + 1} of {PROFILE_ATTEMPTS}, {len(prof.events())} events)",
+              file=sys.stderr, flush=True)
+    raise SmokeFailure(f"the profiler saw no device activity in {PROFILE_ATTEMPTS} traces")
+
+
 def cuda_kernel_names(torch, fn) -> list:
     """The names of the CUDA kernels one call of fn() launches, under
     torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    prof, _ = profiled(torch, lambda attempt: fn())
+    return sorted({e.name for e in device_events(prof)})
 
 
 def max_abs_cmp(tol):
@@ -1352,8 +1421,10 @@ def phase_slice(torch, seed, work: Path):
     t_build = time.perf_counter()
     rt = Runtime.build(cfg, data_dir=work / "data", device="cuda")
     build_s = time.perf_counter() - t_build
-    check(all(isinstance(e, Encoder) for e in rt.dual_encoder.encoders.values()),
-          "an encoder fell back to the lexical HashingEncoder")
+    # the default config wraps each device-backed encoder in a BatchingEncoder
+    check(all(isinstance(getattr(e, "inner", None), Encoder)
+              for e in rt.dual_encoder.encoders.values()),
+          "an encoder fell back to the lexical HashingEncoder or has no BatchingEncoder")
     check(rt.engine.reranker.model is not None, "the cross-encoder did not load")
     check(all(i.backend == "pallas_fused" for i in rt.indexes.values()),
           "an index is not on the packed sweep")
@@ -1588,6 +1659,395 @@ def phase_serve(torch, cfg, work: Path, served: dict, info: dict):
     return launches
 
 
+LOAD_THREADS = 64          # in-process clients of the load phase
+LOAD_QUESTIONS = 192       # unique questions, 3 a client
+LOAD_TIE_TOL = 1e-3        # top-5 near ties: fused final scores this close (reported)
+LOAD_COS_MIN = 0.9999      # query embeddings, batched against unbatched
+LOAD_MIN_SHARED = 0.8      # share of the rerank's candidates both runs hand it
+LOAD_CE_TOL = 1e-2         # raw cross-encoder logits of the same pair, batched vs unbatched
+HTTP_LOAD_CLIENTS = 16     # /search clients at MICROBATCH_DIRECT = HTTP_LOAD_DIRECT
+HTTP_LOAD_DIRECT = 2       # below the app's 8 executor workers
+HTTP_LOAD_QUESTIONS = 48
+STREAM_LOAD = 4            # concurrent query_stream calls on the local LLM
+STREAM_NEW_TOKENS = 32
+STREAM_DIRECT = 1
+
+
+def load_questions(n: int, tag: str):
+    """n distinct questions (the golden ones, each with two filler words and
+    a number): new to the result and embedding caches of every runtime."""
+    w = FILLER_WORDS
+    return [f"{GOLDEN_QUESTIONS[i % len(GOLDEN_QUESTIONS)]} {tag} {w[i % len(w)]} "
+            f"{w[(7 * i + 3) % len(w)]} {i}" for i in range(n)]
+
+
+def drive(fn, items, threads: int):
+    """fn over items from `threads` threads, each taking the next item;
+    returns ({item: (result, ms)}, wall seconds)."""
+    lock, it = threading.Lock(), iter(items)
+    out, errors = {}, []
+
+    def worker():
+        while True:
+            with lock:
+                item = next(it, None)
+            if item is None:
+                return
+            try:
+                t0 = time.perf_counter()
+                res = fn(item)
+                out[item] = (res, (time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001 -- reported by the caller
+                errors.append(f"{item!r}: {e!r}")
+
+    ts = [threading.Thread(target=worker, name=f"load-{i}") for i in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in ts) and len(out) == len(items),
+          f"load: clients failed: {errors[:3]}")
+    return out, wall
+
+
+def latency(results: dict, wall: float) -> dict:
+    ms = sorted(v[1] for v in results.values())
+    return {"requests": len(ms), "wall_s": wall, "qps": len(ms) / wall,
+            "p50_ms": statistics.median(ms), "p95_ms": ms[int(0.95 * (len(ms) - 1))],
+            "max_ms": ms[-1]}
+
+
+def batcher_stats(rt) -> dict:
+    """Every batcher's counts: the sweep waves (MultiIndexBatcher, per k:
+    the vector waves and the chained encode+sweep waves), the encoders'
+    (BatchingEncoder has no stats(); its MicroBatcher's counts), the
+    rerank's and the LLM's."""
+    out = {"sweep": rt.hybrid.sweep_batcher.stats()}
+    for name, enc in rt.dual_encoder.encoders.items():
+        mb = enc.batcher
+        out[f"encode-{name}"] = {"calls": mb.calls, "submitted": mb.submitted,
+                                 "direct": mb.direct_calls}
+    out["rerank"] = rt.engine.reranker.model.stats()
+    if hasattr(rt.engine.llm, "stats"):
+        out["llm"] = rt.engine.llm.stats()
+    return out
+
+
+def top5(out: dict):
+    """(ids, the scores the engine ranked them by) of the top 5 children."""
+    chunks = out["top_children_chunks"][:5]
+    return ([c["child_id"] for c in chunks],
+            [float(c["final_rerank_score"] if c.get("final_rerank_score") is not None
+                   else c["retrieval_score"]) for c in chunks])
+
+
+def record_reranks(rt) -> dict:
+    """{question: (candidates [(child id, hybrid fused score)] as the rerank
+    got them, {child id: raw cross-encoder logit})}, from every rerank of
+    the runtime's engine from now on."""
+    seen, lock = {}, threading.Lock()
+    rerank = rt.engine.reranker.rerank_chunks
+
+    def recording(query, chunks, **kw):
+        before = [(c["child_id"], float(c.get("retrieval_score", 0.0))) for c in chunks]
+        out = rerank(query, chunks, **kw)
+        raw = {c["child_id"]: c.get("cross_encoder_score_raw") for c in out}
+        with lock:
+            seen[query] = (before, raw)
+        return out
+
+    rt.engine.reranker.rerank_chunks = recording
+    return seen
+
+
+def compare_load(got: dict, want: dict):
+    """Batched against unbatched, question by question, on the numbers the
+    batchers compute. Gates: each query embedding (both models) within
+    cosine LOAD_COS_MIN of the unbatched one; the rerank's candidates
+    sharing at least LOAD_MIN_SHARED of their ids; each shared candidate's
+    raw cross-encoder logit within LOAD_CE_TOL. A request handed another
+    request's rows fails all three: the random-weight embeddings of two
+    different questions sit at cosine 0.993-0.9995 and share at most 14 of
+    24 candidates on an H100 (PERF.md). Reported, not gated: the
+    top-5 ids, identical or differing only between near ties (fused final
+    scores within LOAD_TIE_TOL). The random-weight reranker's logits span
+    0.006-0.008 within a question, so the rank-based normalization turns
+    the bf16 differences of the batch shapes (K3's split and cuBLAS's
+    algorithm follow the row count) into reorders of the top 5. Returns
+    (counts, the failures)."""
+    import numpy as np
+
+    counts = {"questions": len(got), "top5_identical": 0, "top5_near_tie": 0,
+              "top5_overlap_hist": [0] * 6, "candidates_identical": 0,
+              "min_shared_candidates": None, "min_embedding_cos": 1.0,
+              "max_ce_logit_diff": 0.0}
+    bad = []
+    for q, g in got.items():
+        w = want[q]
+        for gv, wv in zip(g["vecs"], w["vecs"]):
+            cos = float(gv @ wv / (np.linalg.norm(gv) * np.linalg.norm(wv)))
+            counts["min_embedding_cos"] = min(counts["min_embedding_cos"], cos)
+            if cos < LOAD_COS_MIN:
+                bad.append((q, "embedding cosine", cos))
+        (gc, graw), (wc, wraw) = g["rerank"], w["rerank"]
+        gids, wids = [c for c, _ in gc], [c for c, _ in wc]
+        counts["candidates_identical"] += gids == wids
+        shared = len(set(gids) & set(wids))
+        if counts["min_shared_candidates"] is None or shared < counts["min_shared_candidates"][0]:
+            counts["min_shared_candidates"] = (shared, len(wids))
+        if shared < LOAD_MIN_SHARED * len(wids):
+            bad.append((q, "candidates", shared, len(wids)))
+        for cid in set(graw) & set(wraw):
+            if graw[cid] is not None and wraw[cid] is not None:
+                d = abs(graw[cid] - wraw[cid])
+                counts["max_ce_logit_diff"] = max(counts["max_ce_logit_diff"], d)
+                if d > LOAD_CE_TOL:
+                    bad.append((q, "cross-encoder logit", cid, graw[cid], wraw[cid]))
+        gt, wt = g["top5"], w["top5"]
+        counts["top5_overlap_hist"][len(set(gt) & set(wt))] += 1
+        if gt == wt:
+            counts["top5_identical"] += 1
+        elif len(gt) == len(wt) and all(
+                a == b or abs(sa - sb) <= LOAD_TIE_TOL
+                for a, b, sa, sb in zip(gt, wt, g["top5_scores"], w["top5_scores"])):
+            counts["top5_near_tie"] += 1
+    return counts, bad
+
+
+def phase_load(torch, cfg, work: Path, info: dict, seed: int):
+    """The default serving runtime under load (SERVE_MICROBATCH=1,
+    MICROBATCH_DIRECT=32, MAX=192, INFLIGHT=4), on copies of the flat data
+    dir without feedback.db.
+    (a) LOAD_THREADS threads call RAGEngine.query over LOAD_QUESTIONS
+        unique questions, on the batched runtime and then on a
+        SERVE_MICROBATCH=0 one: QPS, p50 and p95 of each, every batcher's
+        counts; the sweep waves and the rerank coalesce (calls <
+        submitted), K1-K4 launch, K4 fewer times than there are questions
+        and K1 (one a gte forward) fewer times than unbatched. Each
+        question against its unbatched answer (compare_load): the query
+        embeddings, the rerank's candidates and its raw logits, each
+        within its stated tolerance; the top-5 ids reported.
+    (b) make_server at MICROBATCH_DIRECT=HTTP_LOAD_DIRECT, HTTP_LOAD_CLIENTS
+        client threads on /search: the app's 8 executor workers exceed the
+        direct limit, so the requests reach the sweep batcher.
+    (c) LLM_PROVIDER=local in f32 at MICROBATCH_DIRECT=STREAM_DIRECT:
+        STREAM_LOAD concurrent query_stream calls of STREAM_NEW_TOKENS new
+        tokens join the continuous decode engine (engine_streams > 0), whose
+        row prefills launch K9 from its worker thread; each engine stream's
+        text equals the same prompt's per-request stream."""
+    from financial_rag_tpu_torch.index import pending
+    from financial_rag_tpu_torch.llm.local_llm import LocalLLM
+    from financial_rag_tpu_torch.models import decoder
+    from financial_rag_tpu_torch.runtime import Runtime
+    from financial_rag_tpu_torch.serving.app import make_server
+    from financial_rag_tpu_torch.serving.batcher import BatchingLLM
+
+    def runtime(tag: str, c):
+        data = work / f"data_load_{tag}"
+        shutil.copytree(work / "data", data, ignore=shutil.ignore_patterns("feedback.db*"))
+        return Runtime.build(c, data_dir=data, device="cuda"), data
+
+    check(cfg.serving.microbatch and cfg.serving.microbatch_direct == 32
+          and cfg.serving.microbatch_max == 192 and cfg.serving.microbatch_inflight == 4,
+          f"load: not the default serving config ({cfg.serving})")
+    questions = load_questions(LOAD_QUESTIONS, "load")
+    modes, answers = {}, {}
+    for mode, microbatch in (("batched", True), ("unbatched", False)):
+        c = copy.deepcopy(cfg)
+        c.serving.microbatch = microbatch
+        rt, _ = runtime(mode, c)
+        check((rt.hybrid.sweep_batcher is not None) == microbatch, f"load {mode}: wiring")
+        rt.warm_sweeps()
+        rt.engine.query("what is the total amount due")   # first launches, off the clock
+        reranks = record_reranks(rt)
+        copies = {}         # index/pending.device_get calls (one copy each) by thread
+        device_get = pending.device_get
+
+        def counting_device_get(tree):
+            name = re.sub(r"[-_]\d+$", "", threading.current_thread().name)
+            copies[name] = copies.get(name, 0) + 1
+            return device_get(tree)
+
+        pending.device_get = counting_device_get
+        reset_launches()
+        try:
+            results, wall = drive(rt.engine.query, questions, LOAD_THREADS)
+        finally:
+            pending.device_get = device_get
+        launches = read_launches()
+        check(all(r.get("success") and r["top_children_chunks"] and not r.get("cache_hit")
+                  for r, _ in results.values()), f"load {mode}: a query failed or was cached")
+        cache = rt.dual_encoder.cache
+        answers[mode] = {q: dict(zip(("top5", "top5_scores"), top5(r)), rerank=reranks[q],
+                                 vecs=[cache.get(n, q) for n in rt.dual_encoder.names])
+                         for q, (r, _) in results.items()}
+        check(all(v is not None for a in answers[mode].values() for v in a["vecs"]),
+              f"load {mode}: a query embedding is missing from the cache")
+        modes[mode] = {**latency(results, wall), "launches": launches,
+                       "pending_device_get_calls": copies}
+        if microbatch:
+            stats = batcher_stats(rt)
+            modes[mode]["batchers"] = stats
+            waves = sum(v["calls"] for k, v in stats["sweep"].items() if k.startswith("chained@"))
+            wave_copies = sum(n for k, n in copies.items() if "-chained@" in k)
+            modes[mode]["device_gets_per_chained_wave"] = wave_copies / max(waves, 1)
+            check_path_launched(FLAT_PATH, launches, "load batched path")
+            waves = {k: v for k, v in stats["sweep"].items() if v["submitted"]}
+            check(waves and all(v["calls"] < v["submitted"] for v in waves.values()),
+                  f"load: the sweep waves did not coalesce: {stats['sweep']}")
+            check(stats["rerank"]["calls"] < stats["rerank"]["submitted"],
+                  f"load: the rerank did not coalesce: {stats['rerank']}")
+            check(launches["packed_topk_fused"] < LOAD_QUESTIONS,
+                  f"load: K4 launched {launches['packed_topk_fused']} times for "
+                  f"{LOAD_QUESTIONS} questions")
+        del rt
+        torch.cuda.empty_cache()
+    check(modes["batched"]["launches"]["masked_mean_l2_normalize"]
+          < modes["unbatched"]["launches"]["masked_mean_l2_normalize"],
+          "load: the batched encodes did not coalesce (K1 launches)")
+    agreement, bad = compare_load(answers["batched"], answers["unbatched"])
+    if bad:
+        (Path(tempfile.gettempdir()) / "chip_smoke_load_mismatches.json").write_text(
+            json.dumps(bad, default=str))
+    kinds = {}
+    for b in bad:
+        kinds[b[1]] = kinds.get(b[1], 0) + 1
+    check(not bad, f"load: batched answers differ from the unbatched ones {kinds} "
+                   f"({agreement}): {bad[:3]}")
+
+    # (b) HTTP below the executor's worker count
+    c = copy.deepcopy(cfg)
+    c.serving.microbatch_direct = HTTP_LOAD_DIRECT
+    rt, data = runtime("http", c)
+    app = rt.make_app(data_dir=data)
+    server = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, name="chip-smoke-load-http",
+                              daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    try:
+        reset_launches()
+        http_q = load_questions(HTTP_LOAD_QUESTIONS, "http")
+        http, http_wall = drive(lambda q: _http(f"{base}/search", {"query": q}), http_q,
+                                HTTP_LOAD_CLIENTS)
+        for q, ((status, raw, _), _) in http.items():
+            body = json.loads(raw)
+            check(status == 200 and body.get("status") == "success" and body["documents"],
+                  f"load http: /search {q!r} gave {status} {body.get('status')}")
+        http_launches = read_launches()
+        http_stats = batcher_stats(rt)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        app.close()
+        rt.engine.flush_background()
+    check(not thread.is_alive(), "load http: the server thread did not stop")
+    check_path_launched(FLAT_PATH, http_launches, "load http path")
+    queued = sum(v["submitted"] for v in http_stats["sweep"].values())
+    check(queued > 0, f"load http: no request reached the sweep batcher: {http_stats}")
+    http_line = {**latency({q: (None, ms) for q, ((_, _, ms), _) in http.items()}, http_wall),
+                 "clients": HTTP_LOAD_CLIENTS, "microbatch_direct": HTTP_LOAD_DIRECT,
+                 "batchers": http_stats, "launches": http_launches}
+    del rt
+    torch.cuda.empty_cache()
+
+    # (c) concurrent answer streams through the continuous decode engine
+    t0 = time.perf_counter()
+    ckpt = work / "qwen2-0.5b"
+    write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10)
+    checkpoint_s = time.perf_counter() - t0
+    c = copy.deepcopy(cfg)
+    c.llm.provider, c.llm.local_checkpoint = "local", str(ckpt)
+    c.llm.local_dtype, c.llm.local_max_new_tokens = "float32", STREAM_NEW_TOKENS
+    c.serving.microbatch_direct = STREAM_DIRECT
+    rt, _ = runtime("llm", c)
+    llm = rt.engine.llm
+    check(isinstance(llm, BatchingLLM) and isinstance(llm.inner, LocalLLM),
+          f"load llm: the provider is {type(llm).__name__}, not a BatchingLLM over LocalLLM")
+    inner = llm.inner
+    check(inner.available() and inner._params["embed"].dtype == torch.float32,
+          "load llm: LocalLLM did not load in f32")
+    runs = []
+    via_engine = inner.stream_via_engine
+
+    def recording_via(prompt, *, max_tokens=1024):
+        gen = via_engine(prompt, max_tokens=max_tokens)
+        if gen is None:
+            return None
+        rec = {"prompt": prompt, "max_tokens": max_tokens, "deltas": []}
+        runs.append(rec)
+
+        def tee():
+            for d in gen:
+                rec["deltas"].append(d)
+                yield d
+            rec["done"] = True
+        return tee()
+
+    k9_threads: dict = {}
+    k9 = decoder.causal_flash_prefill
+
+    def counting_k9(*a, **kw):
+        name = threading.current_thread().name
+        k9_threads[name] = k9_threads.get(name, 0) + 1
+        return k9(*a, **kw)
+
+    stream_q = [f"Please answer: {q}" for q in load_questions(STREAM_LOAD, "stream")]
+
+    def stream(q):
+        events = list(rt.engine.query_stream(q))
+        kind, final = events[-1]
+        check(kind == "complete" and final.get("success") is True, f"load llm: {q!r} failed")
+        check(not final["answer"].startswith(DEGRADED), f"load llm: degraded {q!r}")
+        return "".join(d for k, d in events if k == "answer_delta")
+
+    inner.stream_via_engine, decoder.causal_flash_prefill = recording_via, counting_k9
+    try:
+        reset_launches()
+        streams, stream_wall = drive(stream, stream_q, STREAM_LOAD)
+        llm_launches = read_launches()
+    finally:
+        inner.stream_via_engine, decoder.causal_flash_prefill = via_engine, k9
+    engine = inner._engine
+    llm_stats = llm.stats()
+    check(llm_stats["engine_streams"] > 0 and engine is not None,
+          f"load llm: no stream joined the continuous engine ({llm_stats})")
+    eng_stats = engine.stats()
+    engine_k9 = k9_threads.get("continuous-decode", 0)
+    layers = QWEN2_05B["num_hidden_layers"]
+    check(eng_stats["joins"] > 0 and engine_k9 == layers * eng_stats["joins"],
+          f"load llm: {engine_k9} K9 launches from the engine's prefills for "
+          f"{eng_stats['joins']} joins ({k9_threads})")
+    check_path_launched(LLM_PATH, llm_launches, "load llm path")
+    mismatched = []
+    for rec in runs:
+        check(rec.get("done"), "load llm: an engine stream did not run to its end")
+        want = "".join(inner.generate_stream(rec["prompt"], max_tokens=rec["max_tokens"]))
+        if "".join(rec["deltas"]) != want:
+            mismatched.append(("".join(rec["deltas"])[:80], want[:80]))
+    check(not mismatched, f"load llm: engine streams differ from per-request streams: "
+                          f"{mismatched}")
+    engine.close()
+    llm_line = {**latency({q: (None, ms) for q, (_, ms) in streams.items()}, stream_wall),
+                "model": "Qwen2-0.5B shape, random weights, f32",
+                "checkpoint_write_s": checkpoint_s, "new_tokens": STREAM_NEW_TOKENS,
+                "microbatch_direct": STREAM_DIRECT, "engine_streams_checked": len(runs),
+                "batching_llm": llm_stats, "engine": eng_stats,
+                "k9_launches_by_thread": k9_threads, "launches": llm_launches}
+    del rt, llm, inner, engine
+    torch.cuda.empty_cache()
+
+    emit({"phase": "load", "card": info["nvidia_smi"], "threads": LOAD_THREADS,
+          "questions": LOAD_QUESTIONS, **{f"{m}": v for m, v in modes.items()},
+          "qps_ratio": modes["batched"]["qps"] / modes["unbatched"]["qps"],
+          "p50_ratio": modes["batched"]["p50_ms"] / modes["unbatched"]["p50_ms"],
+          "batched_vs_unbatched": agreement,
+          "http": http_line, "streams": llm_line})
+
+
 def phase_backends(torch, rt, cfg, work: Path):
     """The saved flat (bf16) index through every backend: the golden
     questions' query vectors through K6 (pallas_exact), K7 (pallas_bucketed),
@@ -1663,10 +2123,7 @@ def device_profile(prof, wall_ms: float, spans=()) -> dict:
     kernel, from one torch.profiler run. ``spans`` are the package's
     time_block labels, which also appear on the device timeline and would
     count their gaps as busy."""
-    from torch.autograd import DeviceType
-
-    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and e.name not in spans]
+    acts = [e for e in device_events(prof) if e.name not in spans]
     by_name: dict = {}
     families: dict = {}
     for e in acts:
@@ -1696,20 +2153,22 @@ def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GO
     """Where one query's time goes: the first ``n_questions`` golden
     questions, reworded so that neither the result cache nor the
     query-embedding cache answers them, run once more under torch.profiler.
-    The host spans are the package's own time_block labels."""
-    from torch.profiler import ProfilerActivity, profile
-
+    The host spans are the package's own time_block labels. A trace that
+    must be made again (``profiled``) rewords the questions anew, so that
+    the caches do not answer them."""
     from financial_rag_tpu_torch.utils.timing import GLOBAL_TIMER
 
-    questions = [f"Tell me briefly: {q}" for q in GOLDEN_QUESTIONS[:n_questions]]
-    torch.cuda.synchronize()
-    GLOBAL_TIMER.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run(attempt):
+        lead = "Tell me briefly" + (f" ({attempt})" if attempt else "")
+        questions = [f"{lead}: {q}" for q in GOLDEN_QUESTIONS[:n_questions]]
+        GLOBAL_TIMER.reset()
         t0 = time.perf_counter()
         for q in questions:
             check(rt.engine.query(q).get("success") is True, f"profiled query failed: {q!r}")
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return questions, (time.perf_counter() - t0) * 1e3
+
+    prof, (questions, wall_ms) = profiled(torch, run, with_cpu=True)
     spans = GLOBAL_TIMER.summary()
     summary = device_profile(prof, wall_ms, spans)
     emit({"phase": "profile", "runtime": label, "queries": len(questions), **summary,
@@ -1824,7 +2283,8 @@ def phase_llm(torch, cfg, work: Path, seed: int):
 
     t0 = time.perf_counter()
     ckpt = work / "qwen2-0.5b"
-    write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10)
+    if not (ckpt / "config.json").exists():      # the load phase wrote it
+        write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10)
     checkpoint_s = time.perf_counter() - t0
     shutil.copytree(work / "data", work / "data_llm",
                     ignore=shutil.ignore_patterns("feedback.db*"))
@@ -1837,9 +2297,10 @@ def phase_llm(torch, cfg, work: Path, seed: int):
     with _StepRecorder(torch) as rec:
         t_build = time.perf_counter()
         rt = Runtime.build(cfg, data_dir=work / "data_llm", device="cuda")
-        llm = rt.engine.llm
+        llm = getattr(rt.engine.llm, "inner", None)     # BatchingLLM by default
         check(isinstance(llm, LocalLLM) and llm.device.type == "cuda",
-              f"the provider is {type(llm).__name__}, not a LocalLLM on the card")
+              f"the provider is {type(rt.engine.llm).__name__} over "
+              f"{type(llm).__name__}, not a BatchingLLM over a LocalLLM on the card")
         t_warm = time.perf_counter()
         check(llm.warm() is True and not llm._failed, "LocalLLM did not load (see the log)")
         warm_s = time.perf_counter() - t_warm
@@ -1931,7 +2392,7 @@ def phase_decoder_parity(torch, rt, ckpt: Path):
     from financial_rag_tpu_torch.llm.local_llm import _load_state_dict
     from financial_rag_tpu_torch.models import decoder
 
-    llm = rt.engine.llm
+    llm = rt.engine.llm.inner      # the LocalLLM inside the BatchingLLM
     dcfg = llm._dcfg
     ids = llm._tok.encode(llm._wrap(GOLDEN_CORPUS["lease_2022"] + " " + GOLDEN_QUESTIONS[0])).ids
     ids = (ids * 4)[-200:]
@@ -2093,7 +2554,6 @@ def phase_train(torch, seed: int):
     held to the JAX package's bar, uplift >= 0.5; its eval runs the serving
     path (K1, K2, K3, K4). Returns the contrastive steps' launches."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from financial_rag_tpu_torch.models.checkpoint import random_params
     from financial_rag_tpu_torch.scripts.bench_train import bge_small_config, random_pair_batch
@@ -2122,12 +2582,13 @@ def phase_train(torch, seed: int):
                    "loss_first": losses[0], "loss_last": losses[-1],
                    "max_param_move": moved, "launches": launches}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def one_step(attempt):
         t0 = time.perf_counter()
         step(params, opt_state, batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    prof, wall_ms = profiled(torch, one_step, with_cpu=True)
     step_profile = device_profile(prof, wall_ms)
     del params, opt_state, batch, step
     torch.cuda.empty_cache()
@@ -2534,6 +2995,7 @@ def main(argv=None) -> int:
             del rt_ivf
             int8_launches = phase_int8(torch, rt, cfg, work)
             phase_serve(torch, cfg, work, served, info)
+            phase_load(torch, cfg, work, info, args.seed)
             backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)

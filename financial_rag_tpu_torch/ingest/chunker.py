@@ -70,11 +70,22 @@ def normalize_text(text: str) -> str:
     return t.strip()
 
 
+_NATIVE = None
+
+
 def _native():
-    """(word_count, word_starts) C++ fast path, or None. The port carries
-    no native library yet (ROADMAP.md, later queue), so the exact regex
-    path below always runs."""
-    return None
+    """(word_count, word_starts) C++ fast path for ASCII text, or None.
+    Exact: for ASCII, \\w is [A-Za-z0-9_] and byte == char offsets."""
+    global _NATIVE
+    if _NATIVE is None:
+        try:
+            from financial_rag_tpu_torch.native import (
+                available, native_word_count, native_word_starts)
+
+            _NATIVE = (native_word_count, native_word_starts) if available() else False
+        except Exception:  # pragma: no cover — toolchain-less environments
+            _NATIVE = False
+    return _NATIVE or None
 
 
 def word_count(text: str) -> int:

@@ -11,7 +11,9 @@ pytorch_model.bin; + tokenizer.json) and set LLM_PROVIDER=local. The
 tokenizer.json is read by tokenizer/hf_json.py (WordLevel + Whitespace).
 Prompts are LEFT-padded to length buckets and generation lengths are
 bucketed, as in the JAX package, so both packages decode the same shapes.
-The continuous-batching engine (``stream_via_engine``) is a later slice.
+Concurrent streams can join the shared continuous-batching decode
+(``stream_via_engine``, llm/continuous.py), which serving/batcher.py's
+``BatchingLLM`` routes to above its direct-lane limit.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class LocalLLM:
         self._dcfg = None
         self._tok = None
         self._chat: Optional[str] = None     # "chatml" | "inst" | None
+        self._engine = None                  # lazy ContinuousDecodeEngine
 
     # ----------------------------------------------------------------- load
 
@@ -274,7 +277,8 @@ class LocalLLM:
         yield from self._blocks_to_deltas(stream, max_tokens)
 
     def _blocks_to_deltas(self, stream, max_tokens: int):
-        """Token blocks [1, n] -> text deltas."""
+        """Token blocks [1, n] -> text deltas (shared by the per-request
+        stream and the continuous engine path)."""
         toks: list = []
         emitted = ""
         for block in stream:
@@ -302,3 +306,37 @@ class LocalLLM:
                 raise RuntimeError("stream decode diverged from emitted prefix")
             if done:
                 return   # eos, cap reached, or a stop marker ended the turn
+
+    # ------------------------------------------------- continuous batching
+
+    def _get_engine(self):
+        """Lazy shared ContinuousDecodeEngine (llm/continuous.py)."""
+        with self._lock:
+            if self._engine is None:
+                from financial_rag_tpu_torch.llm.continuous import ContinuousDecodeEngine
+
+                self._engine = ContinuousDecodeEngine(
+                    self._params, self._dcfg,
+                    rows=max(1, int(self.cfg.local_continuous_rows)),
+                    t_prompt=_bucket(self.max_prompt_tokens, _PROMPT_BUCKETS),
+                    window=max(64, int(self.cfg.local_continuous_window)),
+                    spec_k=max(0, int(getattr(self.cfg, "local_continuous_spec_k", 0))))
+            return self._engine
+
+    def stream_via_engine(self, prompt: str, *, max_tokens: int = 1024):
+        """Join the shared continuous-batching decode; yield text deltas.
+
+        Returns None when the engine is disabled or cannot admit the
+        request (window exhausted): the caller falls back to the
+        per-request ``generate_stream``, so routing here never loses a
+        request. The tokens are the same greedy sequence as
+        ``generate_stream``'s (exactly so in f32; see llm/continuous.py on
+        bf16 near-ties)."""
+        if int(self.cfg.local_continuous_rows) <= 0 or not self._ensure_loaded():
+            return None
+        input_ids, mask = self._prep(prompt)
+        max_tokens = min(max_tokens, self.cfg.local_max_new_tokens)
+        it = self._get_engine().submit(input_ids, mask, max(1, max_tokens))
+        if it is None:
+            return None
+        return self._blocks_to_deltas(it, max_tokens)

@@ -434,6 +434,24 @@ def _verify_block(params, toks, pos0: int, slot0: int, k_cache, v_cache, prompt_
     return _cached_block(params, toks, positions, slot0, k_cache, v_cache, mask, cfg)[0]
 
 
+def _verify_block_rows(params, toks, pos0, slot0: int, k_cache, v_cache, prompt_mask,
+                       cfg: DecoderConfig):
+    """_verify_block over a row batch with per-row rotary positions: toks
+    [B, S], pos0 [B], slot0 one write slot shared by every row (the
+    continuous engine's shared-write-head layout). Writes the block's k/v
+    at [slot0, slot0+S) of every row in place and returns f32 logits [B, S,
+    V]. Position i of a row attends cache slot j iff j <= slot0 + i and the
+    row's prompt mask allows j, which also hides a row's left padding and
+    the slots an earlier speculative block rejected for it."""
+    s = toks.shape[1]
+    dev = toks.device
+    steps = torch.arange(s, device=dev)
+    positions = pos0[:, None] + steps[None, :]
+    jslots = torch.arange(k_cache.shape[2], device=dev)[None, None, :]
+    mask = (jslots <= (slot0 + steps)[None, :, None]) & prompt_mask[:, None, :]
+    return _cached_block(params, toks, positions, slot0, k_cache, v_cache, mask, cfg)
+
+
 def _sample(logits, generator: Optional[torch.Generator], temperature: float, top_k: int):
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)

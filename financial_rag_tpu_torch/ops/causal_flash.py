@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK
 
 LAUNCHES = 0
 KERNEL_HEAD_DIMS = (64, 128)  # the head widths the CUDA kernel is built for
@@ -85,5 +86,6 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
                       kernel_lib.ptr(pad), kernel_lib.ptr(out),
                       b, s, num_q_heads, num_kv_heads, d, code)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out

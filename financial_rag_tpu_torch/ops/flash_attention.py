@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK
 
 LAUNCHES = 0        # K2, the forward
 BWD_LAUNCHES = 0    # K10, the backward
@@ -117,8 +118,9 @@ def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tens
     kernel_lib.launch("flash_attention", "frag_flash_attention", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
                       kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, h, num_heads)
-    LAUNCHES += 1
-    TP_LAUNCHES += tp
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
+        TP_LAUNCHES += tp
     return out
 
 
@@ -140,8 +142,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
                       *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv, stats)),
                       b, s, h, num_heads)
-    BWD_LAUNCHES += 1
-    TP_BWD_LAUNCHES += tp
+    with LAUNCH_LOCK:
+        BWD_LAUNCHES += 1
+        TP_BWD_LAUNCHES += tp
     return dq, dk, dv
 
 

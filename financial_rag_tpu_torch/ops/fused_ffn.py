@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from financial_rag_tpu_torch.ops import kernel_lib
-from financial_rag_tpu_torch.ops.common import round_up
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, round_up
 
 LAUNCHES = 0
 KERNEL_HIDDEN = 384    # the hidden width the CUDA kernel is built for
@@ -109,7 +109,8 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       kernel_lib.ptr(w2), kernel_lib.ptr(b2), kernel_lib.ptr(out),
                       kernel_lib.ptr(partial) if partial is not None else None,
                       n, h_dim, i_dim, splits)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out.reshape(orig_shape)
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK
 from financial_rag_tpu_torch.ops.topk import _weighted_mask
 
 LAUNCHES = 0
@@ -67,5 +68,6 @@ def probe_scores(queries: torch.Tensor, storage: torch.Tensor, weights: torch.Te
     kernel_lib.launch("probe_scores", "frag_probe_scores", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(storage), kernel_lib.ptr(w),
                       kernel_lib.ptr(pr), kernel_lib.ptr(out), b, p, nlist, list_size, d, code)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out

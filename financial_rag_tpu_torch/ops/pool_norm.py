@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK
 
 LAUNCHES = 0
 
@@ -48,5 +49,6 @@ def masked_mean_l2_normalize(hidden: torch.Tensor,
     kernel_lib.launch("masked_mean_l2_normalize", "frag_pool_norm", dev,
                       kernel_lib.ptr(hidden), kernel_lib.ptr(mask), kernel_lib.ptr(out),
                       b, s, h, code)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out

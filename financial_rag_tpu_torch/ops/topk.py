@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
-from financial_rag_tpu_torch.ops.common import round_up
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, round_up
 
 NEG = -3.0e4  # below any cosine similarity; safe in bf16/f32
 
@@ -237,7 +237,8 @@ def packed_topk_fused(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.
                       kernel_lib.ptr(b1), kernel_lib.ptr(b2), kernel_lib.ptr(out_s),
                       kernel_lib.ptr(out_i), bq, bqp, n, d, block_n, bits, k, per_group,
                       code)
-    LAUNCHES["packed_topk_fused"] += 1
+    with LAUNCH_LOCK:
+        LAUNCHES["packed_topk_fused"] += 1
     return out_s, out_i
 
 
@@ -413,7 +414,8 @@ def _bucketed_launch(name: str, queries, corpus, valid, k: int, nbuckets: int, b
                       kernel_lib.ptr(q), kernel_lib.ptr(corpus), kernel_lib.ptr(vf),
                       kernel_lib.ptr(keys), kernel_lib.ptr(out_s), kernel_lib.ptr(out_i),
                       bq, bqp, n, q.shape[1], nbuckets, k, per_group, code)
-    LAUNCHES[name] += 1
+    with LAUNCH_LOCK:
+        LAUNCHES[name] += 1
     return out_s, out_i, qscale
 
 
@@ -515,5 +517,6 @@ def topk_matmul(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor
                       kernel_lib.ptr(q), kernel_lib.ptr(corpus), kernel_lib.ptr(vf),
                       kernel_lib.ptr(lists), kernel_lib.ptr(out_s), kernel_lib.ptr(out_i),
                       bq, bqp, n, q.shape[1], k, kcap, per_group * rows, n - block_n, code)
-    LAUNCHES["topk_matmul"] += 1
+    with LAUNCH_LOCK:
+        LAUNCHES["topk_matmul"] += 1
     return _rescale(out_s, qscale), out_i

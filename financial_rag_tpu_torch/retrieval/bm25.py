@@ -4,8 +4,8 @@ Same scoring semantics as the rank_bm25.BM25Okapi library the reference
 uses (reference rag_backend.py:776-788): k1=1.5, b=0.75, and the Okapi idf
 floor (negative idf values replaced by epsilon * average positive idf,
 epsilon=0.25). Tokenization at the call site is whitespace .split(),
-matching the reference. The port has no C++ scorer yet: the numpy path
-below always runs.
+matching the reference. A C++ scorer in financial_rag_tpu_torch/native is
+the fast path for large corpora.
 """
 
 from __future__ import annotations
@@ -61,6 +61,16 @@ class BM25:
         return scores
 
 
+class _NativeScorer:
+    def __init__(self, texts):
+        from financial_rag_tpu_torch.native import NativeBM25
+
+        self._impl = NativeBM25(list(texts))
+
+    def score_text(self, query_text: str) -> np.ndarray:
+        return self._impl.get_scores(query_text)
+
+
 class _PyScorer:
     def __init__(self, texts):
         self._impl = BM25([t.split() for t in texts])
@@ -70,6 +80,13 @@ class _PyScorer:
 
 
 def build_scorer(texts) -> "object":
-    """Uniform text-in scorer (numpy BM25; the native scorer is a later
-    slice of the port)."""
+    """Uniform text-in scorer: C++ inverted index when built, numpy BM25
+    otherwise (identical scores — verified in tests/test_torch_native.py)."""
+    try:
+        from financial_rag_tpu_torch import native
+
+        if native.available():
+            return _NativeScorer(texts)
+    except Exception:  # noqa: BLE001 — any native failure falls back
+        pass
     return _PyScorer(texts)

@@ -8,9 +8,14 @@ when available, the deterministic lexical fallback otherwise); the
 cross-encoder rerank; the parent stores; the HTTP/Null LLM provider or the
 on-device decoder (``LLM_PROVIDER=local``, on the runtime's device); the
 auto-ingest processor (``make_processor``), the WSGI app (``make_app``) and
-the warmups. Cross-request micro-batching is a later slice (each request is
-served on its own, so the sweep and rerank warmups find no batcher to warm);
-sharded indexes and data-parallel encode raise NotImplementedError.
+the warmups. With ``SERVE_MICROBATCH`` on (the default) it wires the JAX
+runtime's cross-request micro-batching (serving/batcher.py): one shared
+``ActiveCount``, a ``BatchingEncoder`` per device-backed encoder, one
+``MultiIndexBatcher`` over every index with a raw-encoder chained-wave
+lane, a ``BatchingCrossEncoder`` around the reranker and a ``BatchingLLM``
+around a provider with ``generate_many``. Sharded indexes and
+data-parallel encode raise NotImplementedError, and so, on CUDA, do
+checkpoint widths the kernels are not built for.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-from financial_rag_tpu_torch.config import FrameworkConfig
+from financial_rag_tpu_torch.config import FrameworkConfig, ModelConfig
 from financial_rag_tpu_torch.device import DeviceLike, resolve_device
 from financial_rag_tpu_torch.engine import RAGEngine
 from financial_rag_tpu_torch.index.flat import FlatIndex
@@ -33,6 +38,7 @@ from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline, collectio
 from financial_rag_tpu_torch.llm.provider import get_provider
 from financial_rag_tpu_torch.models.encoder import DualEncoder, Encoder
 from financial_rag_tpu_torch.models.hashing import HashingEncoder
+from financial_rag_tpu_torch.ops import flash_attention, fused_ffn, topk
 from financial_rag_tpu_torch.retrieval.hybrid import HybridRetriever
 from financial_rag_tpu_torch.retrieval.rerank import CrossEncoderModel, CrossEncoderReranker
 from financial_rag_tpu_torch.retrieval.retriever import ParentContextRetriever
@@ -55,13 +61,58 @@ def _ivf_list_size(capacity: int, nlist: int) -> int:
 
 
 def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
-    """Raise NotImplementedError for configurations a later slice serves."""
+    """Raise NotImplementedError for configurations a later slice serves,
+    and on CUDA for checkpoint widths the kernels are not built for."""
     if cfg.mesh.index_shards > 1:
         raise NotImplementedError("INDEX_SHARDS>1 needs the sharded flat index, "
                                   "the multi-GPU slice of the port")
     if cfg.mesh.encode_dp > 1:
         raise NotImplementedError("ENCODE_DP>1 needs data-parallel encode, "
                                   "the multi-GPU slice of the port")
+    if device.type == "cuda":
+        check_kernel_widths(cfg)
+
+
+def _checkpoint_config(path: Optional[str]) -> Optional[ModelConfig]:
+    """The config.json of a checkpoint directory the runtime would load, or
+    None where it would serve the 384-wide lexical fallback instead."""
+    if path and (Path(path) / "config.json").exists():
+        return ModelConfig.from_json(path)
+    return None
+
+
+def check_kernel_widths(cfg: FrameworkConfig) -> None:
+    """The CUDA path runs every encoder and reranker layer through K2 and
+    K3, and a bf16 or int8 flat index through K4-K7, which take only the
+    widths they were built for; the JAX package and the CPU take any. Raise
+    NotImplementedError at build, naming each kernel and its limit, rather
+    than on the first encode or search."""
+    models = {"baai": cfg.encoders.baai_path, "gte": cfg.encoders.gte_path}
+    if cfg.rerank.enabled:
+        models["reranker"] = cfg.rerank.model_path
+    flat_sweep = cfg.index.kind != "ivf" and cfg.index.dtype in ("bfloat16", "int8")
+    max_d = min(topk.PACKED_MAX_D, topk.SWEEP_MAX_D)
+    problems = []
+    for name, path in models.items():
+        mc = _checkpoint_config(path)
+        if mc is None:
+            continue
+        head_dim = mc.hidden_size // mc.num_heads
+        if head_dim != flash_attention.KERNEL_HEAD_DIM:
+            problems.append(f"{name}: head_dim {head_dim}, but flash_attention (K2) takes "
+                            f"head_dim {flash_attention.KERNEL_HEAD_DIM} only")
+        if (mc.hidden_size != fused_ffn.KERNEL_HIDDEN
+                or mc.intermediate_size % fused_ffn.KERNEL_CHUNK):
+            problems.append(f"{name}: hidden {mc.hidden_size} / intermediate "
+                            f"{mc.intermediate_size}, but fused_ffn (K3) takes hidden "
+                            f"{fused_ffn.KERNEL_HIDDEN} and an intermediate width that is "
+                            f"a multiple of {fused_ffn.KERNEL_CHUNK}")
+        if name != "reranker" and flat_sweep and mc.hidden_size > max_d:
+            problems.append(f"{name}: index dim {mc.hidden_size}, but the {cfg.index.dtype} "
+                            f"flat sweeps (K4-K7) take D <= {max_d}")
+    if problems:
+        raise NotImplementedError("the CUDA kernels are not built for these widths: "
+                                  + "; ".join(problems))
 
 
 def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkConfig,
@@ -110,15 +161,37 @@ class Runtime:
         check_supported(cfg, device)
         data_dir = Path(data_dir)
         data_dir.mkdir(parents=True, exist_ok=True)
-        if cfg.serving.microbatch:
-            log.info("cross-request micro-batching is not ported yet: the port "
-                     "serves each request on its own (what the JAX batcher does "
-                     "below %d concurrent requests)", cfg.serving.microbatch_direct)
 
         encoders = {
             "baai": _build_encoder("baai", cfg.encoders.baai_path, "cls", cfg, device),
             "gte": _build_encoder("gte", cfg.encoders.gte_path, "mean", cfg, device),
         }
+        raw_encoders = dict(encoders)   # unwrapped: the chained wave lane
+        serve_active = None
+        if cfg.serving.microbatch:
+            from financial_rag_tpu_torch.serving.batcher import ActiveCount, BatchingEncoder
+
+            # ONE concurrency gauge shared by every batcher of this runtime
+            # (encode x2, fused sweep, rerank, llm): the direct-lane policy
+            # gates on system-wide active requests (ActiveCount docstring)
+            serve_active = ActiveCount()
+            # wrap only device-backed encoders: a host-side fallback encoder
+            # behind the batcher would serialize all request threads
+            encoders = {
+                name: (BatchingEncoder(enc, max_texts=cfg.serving.microbatch_max,
+                                       max_wait_ms=cfg.serving.microbatch_wait_ms,
+                                       direct=cfg.serving.microbatch_direct,
+                                       active=serve_active,
+                                       name=f"encode-{name}")
+                       if getattr(enc, "device_backed", False) else enc)
+                for name, enc in encoders.items()
+            }
+            n_wrapped = sum(isinstance(e, BatchingEncoder) for e in encoders.values())
+            log.info("micro-batching enabled: wait=%.1fms max=%d direct<=%d "
+                     "(%d/%d encoders wrapped; host-side fallback encoders "
+                     "are served unbatched)",
+                     cfg.serving.microbatch_wait_ms, cfg.serving.microbatch_max,
+                     cfg.serving.microbatch_direct, n_wrapped, len(encoders))
         embed_cache = EmbeddingCache(max_items=4096)
         dual = DualEncoder(encoders, fused_weights=cfg.encoders.fused_weights,
                            cache=embed_cache)
@@ -153,11 +226,39 @@ class Runtime:
                 indexes[name] = FlatIndex(dim=dim, capacity=cap, dtype=index_dtype,
                                           name=coll, device=device)
 
+        # cross-request sweep batching happens at the hybrid level: one
+        # MultiIndexBatcher over every per-model index (one fused sweep and
+        # one device-to-host copy per batch across both models); the
+        # indexes stay raw for ingest and admin callers
+        sweep_batcher = None
+        if cfg.serving.microbatch:
+            from financial_rag_tpu_torch.serving.batcher import MultiIndexBatcher
+
+            # chain_encoder: RAW encoders sharing the serving embedding
+            # cache; coalesced waves encode their texts themselves and feed
+            # the device output into the sweeps (search_texts)
+            sweep_batcher = MultiIndexBatcher(
+                indexes, max_queries=cfg.serving.microbatch_max,
+                max_wait_ms=cfg.serving.microbatch_wait_ms,
+                inflight=cfg.serving.microbatch_inflight,
+                direct=cfg.serving.microbatch_direct,
+                active=serve_active,
+                chain_encoder=DualEncoder(raw_encoders, cache=embed_cache))
+
         parent_store = ParentStore(data_dir / cfg.store.parents_db_path)
         child_meta = ChildMetaStore(data_dir / "children_meta.db")
         feedback_db = FeedbackDatabase(data_dir / cfg.store.feedback_db_path,
                                        cache_ttl_s=cfg.serving.result_cache_ttl_s)
         llm = get_provider(cfg.llm, device=device)
+        if cfg.serving.microbatch and hasattr(llm, "generate_many"):
+            # concurrent answer generations coalesce into one batched
+            # decode; concurrent streams join the continuous engine
+            from financial_rag_tpu_torch.serving.batcher import BatchingLLM
+
+            llm = BatchingLLM(llm, max_items=8,
+                              max_wait_ms=cfg.serving.microbatch_wait_ms,
+                              direct=cfg.serving.microbatch_direct,
+                              active=serve_active)
 
         reranker_model = None
         if cfg.rerank.enabled and cfg.rerank.model_path and Path(cfg.rerank.model_path).exists():
@@ -167,6 +268,15 @@ class Runtime:
                 log.info("reranker: loaded %s", cfg.rerank.model_path)
             except (FileNotFoundError, ValueError) as e:
                 log.warning("reranker unavailable (%s); falling back to retrieval sort", e)
+        if reranker_model is not None and cfg.serving.microbatch:
+            from financial_rag_tpu_torch.serving.batcher import BatchingCrossEncoder
+
+            # 128-pair fused cap, as the JAX runtime sets it
+            reranker_model = BatchingCrossEncoder(
+                reranker_model, max_pairs=128,
+                max_wait_ms=cfg.serving.microbatch_wait_ms,
+                direct=cfg.serving.microbatch_direct,
+                active=serve_active)
         reranker = CrossEncoderReranker(reranker_model, cfg.rerank)
 
         pipeline = IngestionPipeline(
@@ -175,12 +285,14 @@ class Runtime:
             chunk_logs_dir=data_dir / cfg.ingest.chunk_logs_dir,
             chunk_context_enabled=cfg.llm.chunk_context_enabled)
         hybrid = HybridRetriever(dual, indexes, child_meta,
-                                 fusion_cfg=cfg.fusion, retrieval_cfg=cfg.retrieval, llm=llm)
+                                 fusion_cfg=cfg.fusion, retrieval_cfg=cfg.retrieval,
+                                 llm=llm, sweep_batcher=sweep_batcher)
         dense = ParentContextRetriever(dual, indexes, parent_store, child_meta,
                                        rrf_k=cfg.fusion.rrf_k)
         engine = RAGEngine(hybrid, parent_store, reranker, llm, config=cfg,
                            feedback_db=feedback_db,
-                           tracer=QueryTracer(data_dir / cfg.store.trace_dir))
+                           tracer=QueryTracer(data_dir / cfg.store.trace_dir),
+                           active=serve_active)
         ledger = ProcessingLedger(data_dir / cfg.ingest.state_path)
 
         return cls(config=cfg, dual_encoder=dual, indexes=indexes,
@@ -239,9 +351,9 @@ class Runtime:
 
     def warm_sweeps(self) -> None:
         """After ingest: the sweep batcher's shapes (direct bucket + max
-        batch), then the rerank and the LLM warmups. The port builds no
-        sweep batcher yet, so the first step is skipped, as the JAX runtime
-        skips it without one."""
+        batch, and the chained waves at the 64 and 128 sequence buckets),
+        then the rerank and the LLM warmups (each skipped without its
+        batcher or provider, as in the JAX runtime)."""
         if self.hybrid.sweep_batcher is not None:
             try:
                 self.hybrid.sweep_batcher.warmup(self.config.fusion.per_query_k)
@@ -269,8 +381,7 @@ class Runtime:
     def _warm_rerank(self) -> None:
         """Run the rerank forward at the coalesced pair-batch size, using
         REAL corpus snippets so the sequence bucket matches serving traffic.
-        No-op without a batching cross-encoder (the port has none until
-        micro-batching is ported) or a corpus."""
+        No-op without a batching cross-encoder or a corpus."""
         model = getattr(self.engine.reranker, "model", None)
         if model is None or not hasattr(model, "batcher"):
             return

@@ -7,8 +7,9 @@ the bundled checkpoints. This implementation reproduces the BasicTokenizer +
 WordPiece greedy longest-match algorithm bit-for-bit (verified against
 `transformers.BertTokenizer` in tests/test_tokenizer.py).
 
-The port carries no C++ fast path yet: ``use_native`` is accepted for API
-compatibility and selects this pure-Python implementation.
+A C++ batch fast path lives in financial_rag_tpu_torch/native (loaded
+lazily); this module is the always-available pure-Python reference
+implementation.
 """
 
 from __future__ import annotations
@@ -144,12 +145,26 @@ class WordPieceTokenizer:
         self.unk_id = self.vocab[UNK]
         self.cls_id = self.vocab[CLS]
         self.sep_id = self.vocab[SEP]
-        # kept for API compatibility; the Python path always runs
-        self.use_native = use_native
+        # C++ fast path for plain-ASCII text (exact for that subset); lazily
+        # constructed, silently absent when the toolchain/library is missing
+        self._native = None
+        self._native_ok = use_native and do_lower_case
 
     def _native_tok(self):
-        # no native library in the port (ROADMAP.md, later queue)
-        return None
+        if not self._native_ok:
+            return None
+        if self._native is None:
+            try:
+                from financial_rag_tpu_torch.native import NativeWordPiece, available
+                from financial_rag_tpu_torch.tokenizer.vocab import inverse_vocab
+
+                if available():
+                    self._native = NativeWordPiece(inverse_vocab(self.vocab))
+                else:
+                    self._native_ok = False
+            except Exception:
+                self._native_ok = False
+        return self._native
 
     @staticmethod
     def _native_safe(text: str) -> bool:

@@ -63,6 +63,41 @@ def _launches_once(mod, fn, key=None):
     return out
 
 
+def test_launch_counts_lose_nothing_under_threads(gen):
+    """The serving batchers launch kernels from many threads at once: 32
+    threads x 40 launches each of K1 and K4, with the interpreter switching
+    threads every microsecond, must count exactly 1,280 launches each (a
+    read-modify-write on the counters without their lock loses some)."""
+    import sys
+    import threading
+
+    hidden, mask = _randn(gen, 4, 64, 384, dtype=torch.bfloat16), _mask(4, 64)
+    q, x = _randn(gen, 8, 384), _randn(gen, 1024, 384, dtype=torch.bfloat16)
+    valid = torch.ones(1024, device="cuda")
+    pn.masked_mean_l2_normalize(hidden, mask)          # load the library first
+    before_k1, before_k4 = pn.LAUNCHES, topk.LAUNCHES["packed_topk_fused"]
+
+    def worker():
+        for _ in range(40):
+            pn.masked_mean_l2_normalize(hidden, mask)
+            topk.packed_topk_fused(q, x, valid, 8)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert pn.LAUNCHES - before_k1 == 32 * 40
+    assert topk.LAUNCHES["packed_topk_fused"] - before_k4 == 32 * 40
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_pool_norm_kernel_matches_plain(gen, dtype):
     hidden = _randn(gen, 3, 70, 384, dtype=DTYPES[dtype])
@@ -264,11 +299,12 @@ def test_packed_topk_kernel_matches_plain_exactly(gen, case, dtype):
 
 @pytest.mark.parametrize("k", [1, 24, 256])
 @pytest.mark.parametrize("n", [16, 1024, 4096, 102400])
-@pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 129])
+@pytest.mark.parametrize("bq", [1, 8, 64, 65, 128, 129, 192, 384])
 def test_packed_topk_kernel_shapes_exactly(gen, bq, n, k):
     """Exact-grid data with repeated rows and 5% dead rows at D = 384: query
     counts on both sides of the 64- and 128-query tiles (65 and 129 leave a
-    warpgroup or a block with one live query), one tile of 16 buckets (32
+    warpgroup or a block with one live query), the micro-batcher's wave
+    buckets (192 rows, 384 after an overshoot), one tile of 16 buckets (32
     candidates: at k = 256 the rest are empties), one and 4 tiles, the
     table's 100, and k from 1 to 256. Bit for bit the plain version."""
     q, x = _grid(gen, bq, 384), _grid(gen, n, 384)

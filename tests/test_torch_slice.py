@@ -227,3 +227,75 @@ def test_int8_runtime_reloads_the_bf16_indexes_and_answers_as_jax(runtimes, tmp_
         jtexts = [c["text"] for c in jout["top_children_chunks"]]
         ttexts = [c["text"] for c in tout["top_children_chunks"]]
         assert ttexts and ttexts == jtexts, question
+
+
+def _write_wide_checkpoint(d, seed):
+    """A seeded bge-base-shaped BERT (hidden 768, 12 heads of 64), one layer."""
+    d.mkdir(parents=True)
+    cfg = JaxModelConfig(hidden_size=768, num_layers=1, num_heads=12, intermediate_size=3072,
+                         vocab_size=30522, max_position=512)
+    (d / "config.json").write_text(json.dumps({
+        "hidden_size": 768, "num_hidden_layers": 1, "num_attention_heads": 12,
+        "intermediate_size": 3072, "vocab_size": 30522, "max_position_embeddings": 512,
+        "type_vocab_size": 2, "layer_norm_eps": 1e-12}))
+    jckpt.save_params_npz(jckpt.random_params(cfg, seed=seed), d / "model.npz")
+
+
+@pytest.fixture(scope="module")
+def wide_checkpoint(tmp_path_factory):
+    d = tmp_path_factory.mktemp("wide") / "bge-base"
+    _write_wide_checkpoint(d, seed=7)
+    return d
+
+
+def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tmp_path,
+                                                              monkeypatch):
+    """On CUDA, Runtime.build refuses a 768-wide encoder before it loads a
+    weight or creates the data dir, naming K2's, K3's and the flat sweeps'
+    limits; the CPU serves the same checkpoint."""
+    import financial_rag_tpu_torch.runtime as runtime_mod
+
+    cfg = FrameworkConfig()
+    cfg.encoders.baai_path = str(wide_checkpoint)
+    cfg.encoders.gte_path = cfg.rerank.model_path = None
+    monkeypatch.setattr(runtime_mod, "resolve_device", lambda device: torch.device("cuda"))
+    with pytest.raises(NotImplementedError) as err:
+        Runtime.build(cfg, data_dir=tmp_path / "cuda")
+    msg = str(err.value)
+    assert "baai: head_dim 64, but flash_attention (K2) takes head_dim 32 only" in msg
+    assert "fused_ffn (K3) takes hidden 384" in msg
+    assert "flat sweeps (K4-K7) take D <= 384" in msg
+    assert not (tmp_path / "cuda").exists()
+    monkeypatch.undo()
+
+    rt = Runtime.build(cfg, data_dir=tmp_path / "cpu", device="cpu")
+    assert rt.dual_encoder.encoders["baai"].dim == 768
+    vec = rt.dual_encoder.encode_all(["what is the rent"])["baai"]
+    assert vec.shape == (1, 768) and np.isfinite(vec).all()
+
+
+@pytest.mark.parametrize("hidden,heads,inter,kind,refused", [
+    (384, 12, 1536, "flat", None),                   # bge-small / gte-small / MiniLM
+    (768, 12, 3072, "flat", "K2"),                   # bge-base: head_dim 64
+    (768, 24, 3072, "ivf", "K3"),                    # head_dim 32, but hidden 768
+    (384, 12, 1000, "flat", "multiple of 32"),       # K3's intermediate chunks
+])
+def test_check_supported_reads_the_checkpoint_widths(tmp_path, hidden, heads, inter, kind,
+                                                     refused):
+    """check_supported on CUDA reads each checkpoint's config.json (the
+    reranker's too); the CPU takes every width."""
+    d = tmp_path / "ce"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({
+        "hidden_size": hidden, "num_hidden_layers": 6, "num_attention_heads": heads,
+        "intermediate_size": inter, "vocab_size": 30522, "max_position_embeddings": 512}))
+    cfg = FrameworkConfig()
+    cfg.encoders.baai_path = cfg.encoders.gte_path = None
+    cfg.rerank.model_path = str(d)
+    cfg.index.kind = kind
+    check_supported(cfg, torch.device("cpu"))
+    if refused is None:
+        check_supported(cfg, torch.device("cuda"))
+    else:
+        with pytest.raises(NotImplementedError, match=rf"reranker: .*{refused}"):
+            check_supported(cfg, torch.device("cuda"))
