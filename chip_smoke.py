@@ -17,8 +17,10 @@ Phases, each printing one JSON line:
               Then the native C++ library (tokenizer, BM25, chunker) from
               native/*.cc into build/native/: compiler, seconds, path; it
               must load.
-3. kernel  -- every kernel (K1-K11) at its main-path shapes, against its
-              plain PyTorch version on the same inputs, with its time, the
+3. kernel  -- every kernel (K1-K11) at its main-path shapes (and K1-K5, K7
+              and K8 again at the bge-base width: head_dim 64, hidden 768,
+              D 768), against its plain PyTorch version on the same
+              inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function (for K3, the three-call
               F.linear -> F.gelu -> F.linear beside it instead, for K4 the
@@ -75,6 +77,16 @@ Phases, each printing one JSON line:
               each against its plain version, with recall@24 against K6.
 10. parity -- 16 corpus texts through the same weights on the CPU (plain
               versions, f32) against the card's bf16 embeddings and logits.
+10b. wide  -- the bge-base width: seeded random checkpoints at the
+              bge-base-en-v1.5 and gte-base shapes (hidden 768, 12 layers,
+              12 heads of 64, FFN 3,072) as the baai and gte encoders beside
+              the MiniLM-L-6 reranker; Runtime.build(device="cuda") on flat
+              bf16 ingests phase 4's corpus and answers the 9 golden
+              questions (K1-K3 at the wide shapes on the ingest, K1-K4 on the
+              queries); 16 children's embeddings against the f32 CPU path at
+              cosine >= 0.999; a profile as in phase 5; the indexes reloaded
+              as int8 answer the 9 questions through K5 at D=768. p50s and
+              children/s printed.
 11. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B shape;
               Runtime.build with LLM_PROVIDER=local (LLM_MAX_NEW_TOKENS =
               LLM_SMOKE_NEW_TOKENS) on a copy of the flat data dir; warm()
@@ -107,9 +119,9 @@ Phases, each printing one JSON line:
               fail.
 17. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8, each part of 8b, 9, 11, and each part of 14 and 16) sets every
-launch counter to 0 just before it and reads them just after: each kernel
-of that path must have run.
+Each path (phases 4, 6, 7, 8, each part of 8b, 9, each part of 10b, 11,
+and each part of 14 and 16) sets every launch counter to 0 just before it
+and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
 available, or when the port's package is not beside this file.
@@ -386,8 +398,8 @@ def phase_device(torch):
 # bf16 sweep is K5's bucketed_wgmma_sweep_kernel)
 WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu",
                  "packed_topk.cu", "bucketed_topk.cu", "topk_exact.cu")
-WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "packed_sweep_bf16",
-                 "wgmma_sweep")
+WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "ffn_wide_kernel",
+                 "packed_sweep_bf16", "wgmma_sweep")
 
 
 def ptxas_resources(log_text: str) -> dict:
@@ -568,24 +580,6 @@ def kernel_cases(torch, F, seed):
                       ThreeCallFFN(F, x, w1, b1, w2, b2), max_abs_cmp(3e-2),
                       bound(2 * n * H * 2 + (2 * H * I + I + H) * 2, 4 * n * H * I, "bf16")))
 
-    def topk_cmp(bits, exact=False):
-        quantum = 2.0 ** (bits - 22)
-
-        def cmp(a, b):
-            (ks, ki), (ps, pi) = a, b
-            same = (ki == pi)
-            frac = same.float().mean().item()
-            diff = (ks - ps).abs()
-            err = diff.max().item()
-            worst_differing = diff[~same].max().item() if (~same).any() else 0.0
-            if exact:
-                ok = frac == 1.0 and err == 0.0
-            else:
-                ok = frac >= 0.99 and worst_differing <= quantum + 1e-3
-            return err, ok, {"ids_identical": frac, "worst_differing_pair": worst_differing,
-                             "quantum": quantum}
-        return cmp
-
     d, k = H, 24
     # (Bq, N): the table's shape; a query batch over it; the served shape (one
     # query per launch over the index capacity of the slice phase); a
@@ -630,6 +624,124 @@ def kernel_cases(torch, F, seed):
     cases += causal_cases(torch, F, randn)
     cases += attention_bwd_cases(torch, F, randn, padded_mask)
     cases += attention_tp_cases(torch, F, randn, padded_mask)
+    cases += wide_cases(torch, F, gen, randn, padded_mask)
+    return cases
+
+
+def topk_cmp(bits, exact=False):
+    """K4 against its plain version: exact (exact-grid data) or >= 99% of
+    ids identical with every differing pair within one quantum of the
+    packed score (bits low mantissa bits hold the tile)."""
+    quantum = 2.0 ** (bits - 22)
+
+    def cmp(a, b):
+        (ks, ki), (ps, pi) = a, b
+        same = (ki == pi)
+        frac = same.float().mean().item()
+        diff = (ks - ps).abs()
+        err = diff.max().item()
+        worst_differing = diff[~same].max().item() if (~same).any() else 0.0
+        if exact:
+            ok = frac == 1.0 and err == 0.0
+        else:
+            ok = frac >= 0.99 and worst_differing <= quantum + 1e-3
+        return err, ok, {"ids_identical": frac, "worst_differing_pair": worst_differing,
+                         "quantum": quantum}
+    return cmp
+
+
+# (kernel, N, corpus, two-call yardstick, queries) of the wide sweep cases:
+# the table's shape and the int8 runtime's served launch for K5, in int8 and
+# bf16, and K7 at the table's shape (K6 stays at D <= 384)
+WIDE_SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
+                   ("bucketed_topk_fused", 4096, "int8", False, 1),
+                   ("bucketed_topk_fused", 102400, "bf16", False, 128),
+                   ("bucketed_topk_fused", 4096, "bf16", False, 1),
+                   ("bucketed_topk", 102400, "bf16", False, 128),
+                   ("bucketed_topk", 102400, "int8", False, 128))
+
+
+def wide_cases(torch, F, gen, randn, padded_mask):
+    """The bge-base width (hidden 768, 12 heads of 64, FFN 3,072, index D
+    768), after every D=384 case so that those keep their inputs: K1 at
+    B=256 S=512; K2 at B=256 S=512, B=256 S=128 and B=8 S=64 (a fully
+    masked row); K3 at N=131,072 and N=512; K4 at Bq=128 and Bq=8 over
+    N=102,400, the load phase's wave (Bq=192 over 4,096) and exact-grid
+    data with ties; K5 and K7 (WIDE_SWEEP_PLAN) with exact-grid cases; K8
+    at a served request's B=8 P=64. Tolerances and bounds as at 384."""
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+    from financial_rag_tpu_torch.ops import fused_ffn as ffn
+    from financial_rag_tpu_torch.ops import pool_norm as pn
+    from financial_rag_tpu_torch.ops import topk
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    H, NH, I = 768, 12, 3072
+    hd = H // NH
+    cases = []
+    b, s = 256, 512
+    hidden = randn(b, s, H, dtype=bf16)
+    mask = padded_mask(b, s)
+    live = int(mask.sum().item())
+    cases.append(("masked_mean_l2_normalize", f"B={b},S={s},H={H},bf16",
+                  lambda h=hidden, m=mask: pn.masked_mean_l2_normalize(h, m),
+                  lambda h=hidden, m=mask: pn.masked_mean_l2_normalize_plain(h, m),
+                  None, max_abs_cmp(1e-5),
+                  bound(live * H * 2 + b * s * 4 + b * H * 4, 2 * live * H, "f32")))
+
+    for b, s in ((256, 512), (256, 128), (8, 64)):
+        q, k, v = (randn(b, s, H, dtype=bf16) for _ in range(3))
+        mask = padded_mask(b, s, fully_masked_row=(b == 8))
+        bias = torch.where(mask > 0, 0.0, -1e9).float()
+
+        def sdpa(q=q, k=k, v=v, bias=bias, b=b, s=s):
+            split = lambda x: x.view(b, s, NH, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                split(q), split(k), split(v), attn_mask=bias.to(bf16)[:, None, None, :])
+
+        cases.append(("flash_attention", f"B={b},S={s},H={H},heads={NH}x{hd},bf16",
+                      lambda q=q, k=k, v=v, bias=bias: fa.flash_attention(q, k, v, bias, num_heads=NH),
+                      lambda q=q, k=k, v=v, bias=bias: fa.flash_attention_plain(q, k, v, bias, num_heads=NH),
+                      sdpa, max_abs_cmp(3e-2), attention_fwd_bound(torch, mask, NH, head_dim=hd)))
+
+    w1, w2 = randn(H, I, dtype=bf16, scale=H ** -0.5), randn(I, H, dtype=bf16, scale=0.012)
+    b1, b2 = randn(I, dtype=bf16, scale=0.1), randn(H, dtype=bf16, scale=0.1)
+    for b, s in ((256, 512), (8, 64)):
+        x = randn(b, s, H, dtype=bf16)
+        n = b * s
+        cases.append(("fused_ffn", f"N={n} (B={b},S={s}),H={H},I={I},bf16",
+                      lambda x=x: ffn.fused_ffn(x, w1, b1, w2, b2),
+                      lambda x=x: ffn.fused_ffn_plain(x, w1, b1, w2, b2),
+                      ThreeCallFFN(F, x, w1, b1, w2, b2), max_abs_cmp(3e-2),
+                      bound(2 * n * H * 2 + (2 * H * I + I + H) * 2, 4 * n * H * I, "bf16")))
+
+    d, k = H, 24
+    for bq, n in ((128, 102400), (8, 102400), (192, 4096)):
+        x = randn(n, d)
+        x = (x / x.norm(dim=1, keepdim=True)).to(bf16)
+        queries = randn(bq, d)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+        valid = (torch.rand(n, generator=gen, device=dev) > 0.03).float()
+        bits = max((n // 1024 - 1).bit_length(), 1)
+        cases.append(("packed_topk_fused", f"Bq={bq},N={n},D={d},k={k},bf16",
+                      lambda q=queries, x=x, v=valid: topk.packed_topk_fused(q, x, v, k),
+                      lambda q=queries, x=x, v=valid: topk.packed_topk_fused_plain(q, x, v, k),
+                      TwoCallTopk(torch, queries, x, k), topk_cmp(bits),
+                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
+    bq, n = 128, 16384
+    x = (torch.randint(-3, 4, (n, d), generator=gen, device=dev).float() / 64.0)
+    x[4096:8192] = x[:4096]
+    x = x.to(bf16)
+    queries = torch.randint(-3, 4, (bq, d), generator=gen, device=dev).float() / 64.0
+    valid = (torch.rand(n, generator=gen, device=dev) > 0.1).float()
+    cases.append(("packed_topk_fused", f"Bq={bq},N={n},D={d},k={k},bf16,exact-grid+ties",
+                  lambda: topk.packed_topk_fused(queries, x, valid, k),
+                  lambda: topk.packed_topk_fused_plain(queries, x, valid, k),
+                  None, topk_cmp(4, exact=True),
+                  bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
+    cases += sweep_cases(torch, gen, randn, d=d, plan=WIDE_SWEEP_PLAN,
+                         grid=("bucketed_topk_fused", "bucketed_topk"))
+    cases += probe_cases(torch, gen, randn, d=d, shapes=((8, 64),))
     return cases
 
 
@@ -729,16 +841,30 @@ def quantize_rows(torch, v):
     return torch.round(v * (127.0 / m[:, None])).clamp(-127, 127).to(torch.int8), m / 127.0
 
 
-def sweep_cases(torch, gen, randn):
+# (kernel, N, corpus, two-call yardstick, queries) of sweep_cases at D=384
+SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
+              ("bucketed_topk_fused", 4096, "int8", False, 1),    # the int8 runtime's launch
+              ("bucketed_topk_fused", 102400, "bf16", False, 128),
+              ("topk_matmul", 102400, "bf16", True, 128),
+              ("topk_matmul", 16384, "int8", False, 128),
+              ("topk_matmul", 4096, "bf16", False, 9),            # the backends phase's launch
+              ("bucketed_topk", 102400, "bf16", False, 128),
+              ("bucketed_topk", 102400, "int8", False, 128),
+              ("bucketed_topk", 4096, "bf16", False, 9))          # the backends phase's launch
+
+
+def sweep_cases(torch, gen, randn, d: int = 384, plan=SWEEP_PLAN,
+                grid=("bucketed_topk_fused", "topk_matmul", "bucketed_topk")):
     """K5, K6, K7 at the JAX package's bench shape (Bq=128, N=102,400, D=384,
     k=24), K5 at the int8 runtime's served shape (one query over 4,096
     rows), K6 int8 at N=16,384, K6 and K7 at the backends phase's shape (9
     queries over 4,096 rows), K7 also in int8, and one exact-grid case with
-    duplicated rows for each."""
+    duplicated rows for each kernel of ``grid``; ``d`` and ``plan`` give
+    another width its own cases."""
     from financial_rag_tpu_torch.ops import topk
 
     dev = torch.device("cuda")
-    bq, d, k = 128, 384, 24
+    bq, k = 128, 24
     fns = {"bucketed_topk_fused": (topk.bucketed_topk_fused, topk.bucketed_topk_fused_plain),
            "topk_matmul": (topk.topk_matmul, topk.topk_matmul_plain),
            "bucketed_topk": (topk.bucketed_topk, topk.bucketed_topk_plain)}
@@ -778,15 +904,7 @@ def sweep_cases(torch, gen, randn):
                 library, sweep_cmp(exact=label == "int8"),
                 bound(n * d * esize + n * 4 + nq * d * 4 + nq * width * 8, 2 * nq * n * d, op))
 
-    cases = [case("bucketed_topk_fused", 102400, "int8", yardstick=True),
-             case("bucketed_topk_fused", 4096, "int8", nq=1),   # the int8 runtime's launch
-             case("bucketed_topk_fused", 102400, "bf16"),
-             case("topk_matmul", 102400, "bf16", yardstick=True),
-             case("topk_matmul", 16384, "int8"),
-             case("topk_matmul", 4096, "bf16", nq=9),     # the backends phase's launch
-             case("bucketed_topk", 102400, "bf16"),
-             case("bucketed_topk", 102400, "int8"),
-             case("bucketed_topk", 4096, "bf16", nq=9)]   # the backends phase's launch
+    cases = [case(name, n, label, yardstick=yard, nq=nq) for name, n, label, yard, nq in plan]
     corpora.clear()
 
     # exact-grid data with repeated rows and dead slots: every score and tie
@@ -798,7 +916,8 @@ def sweep_cases(torch, gen, randn):
     xg = xg.to(torch.bfloat16)
     qg = torch.randint(-3, 4, (bq, d), generator=gen, device=dev).float() / 64.0
     vg = (torch.rand(n, generator=gen, device=dev) > 0.1).float()
-    for name, (run, plain) in fns.items():
+    for name in grid:
+        run, plain = fns[name]
         width = 4096 if name == "bucketed_topk" else k
         cases.append((name, f"Bq={bq},N={n},D={d},k={k},bf16,exact-grid+ties",
                       lambda run=run: run(qg, xg, vg, k), lambda plain=plain: plain(qg, xg, vg, k),
@@ -808,15 +927,16 @@ def sweep_cases(torch, gen, randn):
     return cases
 
 
-def probe_cases(torch, gen, randn):
+def probe_cases(torch, gen, randn, d: int = 384, shapes=((8, 64), (16, 4), (16, 64))):
     """K8 at the JAX package's IVF bench shape (nlist 2,048 x L 256 x D 384 =
     262,144 vectors): B=8 P=64 (a served request: 3 query variants padded
-    to 8 rows), B=16 P=4 and P=64, in bf16 and int8. Probes are distinct
-    random lists per query; the bound counts each distinct list once."""
+    to 8 rows), B=16 P=4 and P=64, in bf16 and int8 (``d`` and ``shapes``
+    for another width). Probes are distinct random lists per query; the
+    bound counts each distinct list once."""
     from financial_rag_tpu_torch.ops import ivf_probe
 
     dev = torch.device("cuda")
-    nlist, L, d = 2048, 256, 384
+    nlist, L = 2048, 256
     cases = []
     for label in ("bf16", "int8"):
         v = randn(nlist * L, d)
@@ -829,7 +949,7 @@ def probe_cases(torch, gen, randn):
             st, w = v.to(torch.bfloat16), live
         st, w = st.view(nlist, L, d), w.view(nlist, L)
         esize, op = (1, "int8") if label == "int8" else (2, "bf16")
-        for b, p in ((8, 64), (16, 4), (16, 64)):
+        for b, p in shapes:
             q = randn(b, d)
             q = (q / q.norm(dim=1, keepdim=True))
             q = quantize_rows(torch, q)[0] if label == "int8" else q.to(torch.bfloat16)
@@ -1523,6 +1643,125 @@ def phase_int8(torch, rt, cfg, work: Path):
           "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
           "launches": launches})
     return launches
+
+
+WIDE_LAYERS = 12      # bge-base-en-v1.5 and gte-base at full depth
+WIDE_COS_MIN = 0.999  # card (bf16) against the CPU (f32) embeddings, as phase 10
+
+
+def write_wide_checkpoints(root: Path, seed: int, layers: int = WIDE_LAYERS):
+    """Seeded random-weight checkpoints at the bge-base-en-v1.5 and gte-base
+    shapes (WordPiece BERT: hidden 768, 12 heads of 64, FFN 3,072, vocab
+    30,522, 512 positions), config.json + model.npz; the vendored vocab."""
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params, save_params_npz
+
+    raw = {"hidden_size": 768, "num_attention_heads": 12, "intermediate_size": 3072,
+           "vocab_size": 30522, "max_position_embeddings": 512, "type_vocab_size": 2,
+           "layer_norm_eps": 1e-12, "num_hidden_layers": layers, "architectures": ["BertModel"]}
+    paths = {}
+    for i, name in enumerate(("bge-base", "gte-base")):
+        d = root / name
+        d.mkdir(parents=True)
+        (d / "config.json").write_text(json.dumps(raw))
+        cfg = ModelConfig.from_json(d)
+        check(cfg.hidden_size == 768 and cfg.num_heads == 12, f"config of {name}")
+        save_params_npz(random_params(cfg, seed=seed + 10 + i), d / "model.npz")
+        paths[name] = d
+    return paths
+
+
+def wide_parity(rt, paths: dict, texts) -> dict:
+    """16 distinct corpus texts through the wide runtime's encoders on the
+    card (bf16) and through the same weights on the CPU (f32, plain
+    versions): the smallest cosine of each encoder."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.models.encoder import Encoder
+
+    sample = list(dict.fromkeys(texts))[:16]
+    check(len(sample) == 16, "wide: fewer than 16 distinct corpus texts")
+    out = {}
+    for name, path, pooling in (("baai", paths["bge-base"], "cls"),
+                                ("gte", paths["gte-base"], "mean")):
+        gpu = rt.dual_encoder.encoders[name].encode(sample)
+        cpu = Encoder.from_pretrained(str(path), pooling=pooling, device="cpu").encode(sample)
+        check(gpu.shape == cpu.shape == (16, 768), f"wide {name}: embeddings {gpu.shape}")
+        cos = (gpu * cpu).sum(1) / (np.linalg.norm(gpu, axis=1) * np.linalg.norm(cpu, axis=1))
+        out[f"{name}_min_cos"] = float(cos.min())
+        check(cos.min() >= WIDE_COS_MIN, f"wide {name} embeddings: min cosine {cos.min()}")
+    return out
+
+
+def phase_wide(torch, cfg, work: Path, items, seed: int):
+    """The bge-base width: the flat bf16 runtime with 768-wide baai (CLS)
+    and gte (mean) encoders at full depth beside the 384-wide MiniLM
+    reranker, so one process serves both widths through the same kernels.
+    Build on the card, ingest phase 4's corpus, the 9 golden questions;
+    K1-K3 launched while only the wide encoders run (ingest) and K1-K4 on
+    the queries (the index is 768-wide); 16 children's embeddings against
+    the f32 CPU path; a profile as in phase 5; then the indexes reloaded
+    as int8 on a copy of the data dir (no feedback.db) and the 9 questions
+    through K5 at D=768.
+    The p50s and the ingest rate are printed, not gated, and are no gain
+    or loss against the D=384 phases."""
+    from financial_rag_tpu_torch.models.encoder import Encoder
+    from financial_rag_tpu_torch.runtime import Runtime
+
+    t0 = time.perf_counter()
+    paths = write_wide_checkpoints(work / "models_wide", seed)
+    checkpoints_s = time.perf_counter() - t0
+    cfg = copy.deepcopy(cfg)
+    cfg.encoders.baai_path = str(paths["bge-base"])
+    cfg.encoders.gte_path = str(paths["gte-base"])
+    reset_launches()
+    t_build = time.perf_counter()
+    rt = Runtime.build(cfg, data_dir=work / "data_wide", device="cuda")
+    build_s = time.perf_counter() - t_build
+    encoders = {n: getattr(e, "inner", None) for n, e in rt.dual_encoder.encoders.items()}
+    check(all(isinstance(e, Encoder) and e.dim == 768 for e in encoders.values()),
+          f"wide: the encoders are not the 768-wide checkpoints ({encoders})")
+    check(all(i.dim == 768 and i.backend == "pallas_fused" and i.dtype == torch.bfloat16
+              for i in rt.indexes.values()), "wide: an index is not 768-wide bf16 on K4")
+    check(rt.engine.reranker.model is not None, "wide: the cross-encoder did not load")
+
+    children, ingest_s = ingest_all(rt, items)
+    ingest_launches = read_launches()
+    check_path_launched(("masked_mean_l2_normalize", "flash_attention", "fused_ffn"),
+                        ingest_launches, "wide ingest (the 768-wide encoders alone)")
+    query_ms, answers, methods = golden_queries(rt, "wide flat bf16")
+    launches = read_launches()
+    query_launches = {name: launches[name] - ingest_launches[name] for name in launches}
+    check_path_launched(FLAT_PATH, query_launches, "wide flat bf16 query path")
+    parity = wide_parity(rt, paths, [c["text"] for out in answers
+                                     for c in out["top_children_chunks"]])
+    phase_profile(torch, rt, label="wide flat bf16")
+
+    rt.save_indexes(work / "data_wide")
+    shutil.copytree(work / "data_wide", work / "data_wide_int8",
+                    ignore=shutil.ignore_patterns("feedback.db*"))
+    cfg8 = copy.deepcopy(cfg)
+    cfg8.index.dtype = "int8"
+    reset_launches()
+    rt8 = Runtime.build(cfg8, data_dir=work / "data_wide_int8", device="cuda")
+    check(all(i.dtype == torch.int8 and i.dim == 768 and i.backend == "pallas_fused"
+              and i.count() == children for i in rt8.indexes.values()),
+          "wide: the int8 runtime did not reload the 768-wide indexes")
+    int8_ms, _, int8_methods = golden_queries(rt8, "wide int8")
+    int8_launches = read_launches()
+    check_path_launched(INT8_PATH, int8_launches, "wide int8 path")
+    emit({"phase": "wide", "layers": WIDE_LAYERS, "children": children,
+          "index_dim": {n: i.dim for n, i in rt.indexes.items()},
+          "checkpoints_s": round(checkpoints_s, 3), "runtime_build_s": round(build_s, 3),
+          "ingest_s": round(ingest_s, 3), "children_per_s": round(children / ingest_s, 1),
+          "query_p50_ms": round(statistics.median(query_ms), 3),
+          "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
+          "int8_query_p50_ms": round(statistics.median(int8_ms), 3),
+          "int8_query_max_ms": round(max(int8_ms), 3), "int8_reranked_methods": int8_methods,
+          **parity, "launches_ingest": ingest_launches, "launches_queries": query_launches,
+          "launches_int8": int8_launches})
+    del rt, rt8
+    torch.cuda.empty_cache()
 
 
 def _http(url: str, body=None, timeout: float = 300.0):
@@ -2998,6 +3237,7 @@ def main(argv=None) -> int:
             phase_load(torch, cfg, work, info, args.seed)
             backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
+            phase_wide(torch, cfg, work, items, args.seed)
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)
             phase_llm_profile(torch, rt_llm)
             phase_decoder_parity(torch, rt_llm, ckpt)

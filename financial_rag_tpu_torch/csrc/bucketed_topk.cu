@@ -76,32 +76,42 @@ constexpr int kMaxK = 256;
 constexpr int kMaxBuckets = 4096;  // 12 bits of an extract key
 constexpr int kRoundBits = 20;     // the round below them
 
-// K5's Hopper sweep: kWG consumer warpgroups of 64 queries and a producer warp
-template <typename T, int kWG>
-struct BucketSweep {
-  static constexpr int kConsumers = 128 * kWG;
-  static constexpr int kThreads = kConsumers + 32;
-  static constexpr int kFree = flat::kSmemBudget - 1024 - kWG * flat::Tiles<T>::kQBytes;
-  static constexpr int kStages =
-      kFree / flat::Tiles<T>::kXBytes < 12 ? kFree / flat::Tiles<T>::kXBytes : 12;
-  static constexpr int kSmemBytes =
-      1024 + kWG * flat::Tiles<T>::kQBytes + kStages * flat::Tiles<T>::kXBytes;
+// K5's Hopper sweep: kWG consumer warpgroups of 64 queries and a producer
+// warp, over rows zero-padded to kD features. Stages: 12 in int8 and 5-7 in
+// bf16 at kD = 384; 5 in int8 (two warpgroups, a 768-byte row as bf16 at
+// 384) and 2 in bf16 (one warpgroup: two would leave no stage) at kD = 768.
+template <typename T, int kD>
+struct SweepShape {
+  using Tl = flat::Tiles<T, kD>;
+  static constexpr int kMaxWG = Tl::kRowBytes <= 768 ? 2 : 1;  // ops/topk.py query_tile
 };
 
-template <typename T, int kWG>
-__global__ void __launch_bounds__(BucketSweep<T, kWG>::kThreads, 1)
+template <typename T, int kWG, int kD>
+struct BucketSweep {
+  using Tl = flat::Tiles<T, kD>;
+  static_assert(kWG <= SweepShape<T, kD>::kMaxWG, "no ring stage would fit");
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kFree = flat::kSmemBudget - 1024 - kWG * Tl::kQBytes;
+  static constexpr int kStages = kFree / Tl::kXBytes < 12 ? kFree / Tl::kXBytes : 12;
+  static constexpr int kSmemBytes = 1024 + kWG * Tl::kQBytes + kStages * Tl::kXBytes;
+};
+
+template <typename T, int kWG, int kD>
+__global__ void __launch_bounds__(BucketSweep<T, kWG, kD>::kThreads, 1)
 bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUtensorMap tm_x,
                             const float* __restrict__ valid,
                             unsigned long long* __restrict__ keys, int Bq, int Bqp, int N, int D,
                             int nbuckets, int rounds_per_group) {
   using namespace flat;
-  using S = BucketSweep<T, kWG>;
+  using S = BucketSweep<T, kWG, kD>;
+  using Tl = typename S::Tl;
   constexpr int kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(16) float sval[kStages][kRows];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sX = sQ + kWG * Tiles<T>::kQBytes;
+  const uint32_t sX = sQ + kWG * Tl::kQBytes;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = blockIdx.x * kRows;
   const int q0 = blockIdx.y * (64 * kWG);
@@ -121,18 +131,18 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
 
   if (warp == S::kConsumers / 32) {
     if (lane == 0)
-      produce_tiles<T>(&tm_x, valid, sX, sval, full, empty, kStages, nt, r0 * nbuckets + b0,
+      produce_tiles<T, kD>(&tm_x, valid, sX, sval, full, empty, kStages, nt, r0 * nbuckets + b0,
                        nbuckets);
     return;
   }
-  stage_queries<T>(sQ, q, q0, 64 * kWG, Bq, D, tid, S::kConsumers);
+  stage_queries<T, kD>(sQ, q, q0, 64 * kWG, Bq, D, tid, S::kConsumers);
   named_barrier(1, S::kConsumers);
 
   const int w = warp >> 2;  // warpgroup
   const bool wg_live = q0 + 64 * w < Bq;
   const bool warp_live = q0 + 64 * w + 16 * (warp & 3) < Bq;
   const int gid = lane >> 2, tig = lane & 3;
-  const uint64_t q_desc = make_desc(sQ + w * Tiles<T>::kQBytes, 16, 1024, kSw128);
+  const uint64_t q_desc = make_desc(sQ + w * Tl::kQBytes, 16, 1024, kSw128);
   // bs[4*c + e]: query row 16*(warp%4) + gid + 8*(e/2) of the warpgroup,
   // bucket position b0 + 8*c + 2*tig + e%2; br the round of its best
   float bs[16];
@@ -148,7 +158,7 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
     mbar_wait(&full[st], (t / kStages) & 1);  // round r0 + t landed
     if (wg_live) {
       typename Elem<T>::Acc acc[16];
-      tile_product<T>(acc, q_desc, make_desc(sX + st * Tiles<T>::kXBytes, 16, 1024, kSw128));
+      tile_product<T, kD>(acc, q_desc, make_desc(sX + st * Tl::kXBytes, 16, 1024, kSw128));
       if (warp_live) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
@@ -191,21 +201,34 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
     }
 }
 
-template <typename T, int kWG>
+template <typename T, int kWG, int kD>
 cudaError_t launch_wgmma_sweep(const void* q, const CUtensorMap& tm_x, const float* valid,
                                unsigned long long* keys, int Bq, int Bqp, int N, int D,
                                int nbuckets, int rounds_per_group, int groups, cudaStream_t st) {
-  using S = BucketSweep<T, kWG>;
+  using S = BucketSweep<T, kWG, kD>;
   // above 48 KB of dynamic shared memory a kernel must opt in, on each
   // device it runs on (the attribute is the current device's)
   const cudaError_t opt_in = cudaFuncSetAttribute(
-      bucketed_wgmma_sweep_kernel<T, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bucketed_wgmma_sweep_kernel<T, kWG, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kSmemBytes);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid(nbuckets / flat::kRows, (Bqp + 64 * kWG - 1) / (64 * kWG), groups);
-  bucketed_wgmma_sweep_kernel<T, kWG><<<grid, S::kThreads, S::kSmemBytes, st>>>(
+  bucketed_wgmma_sweep_kernel<T, kWG, kD><<<grid, S::kThreads, S::kSmemBytes, st>>>(
       static_cast<const T*>(q), tm_x, valid, keys, Bq, Bqp, N, D, nbuckets, rounds_per_group);
   return cudaGetLastError();
+}
+
+template <typename T, int kD>
+cudaError_t launch_wgmma_sweep(const void* q, const CUtensorMap& tm_x, const float* valid,
+                               unsigned long long* keys, int Bq, int Bqp, int N, int D,
+                               int nbuckets, int rounds_per_group, int groups, cudaStream_t st) {
+  if constexpr (SweepShape<T, kD>::kMaxWG == 2) {
+    if (Bqp >= 128)
+      return launch_wgmma_sweep<T, 2, kD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                          rounds_per_group, groups, st);
+  }
+  return launch_wgmma_sweep<T, 1, kD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                      rounds_per_group, groups, st);
 }
 
 template <typename T>
@@ -214,10 +237,11 @@ cudaError_t launch_wgmma_sweep(const void* q, const void* x, const float* valid,
                                int nbuckets, int rounds_per_group, int groups, cudaStream_t st) {
   CUtensorMap tm_x;
   if (!flat::corpus_map<T>(&tm_x, x, N, D)) return cudaErrorInvalidValue;
-  return Bqp >= 128 ? launch_wgmma_sweep<T, 2>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
-                                               rounds_per_group, groups, st)
-                    : launch_wgmma_sweep<T, 1>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
-                                               rounds_per_group, groups, st);
+  return D <= flat::kNarrowD
+             ? launch_wgmma_sweep<T, flat::kNarrowD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                                     rounds_per_group, groups, st)
+             : launch_wgmma_sweep<T, flat::kWideD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                                   rounds_per_group, groups, st);
 }
 
 template <typename T>
@@ -353,7 +377,7 @@ void launch_sweep(const void* q, const void* x, const float* valid, unsigned lon
 // scratch keys [groups,Bqp,nbuckets] u64 (group g sweeps rounds
 // g*rounds_per_group ..). K5 (k > 0) writes out_s / out_i [Bq,k], K7 (k ==
 // 0) [Bq,nbuckets]. Over int8 or bf16 (the Hopper sweep): q [>= Bq, D] (rows
-// from Bq on are not read), both 16-byte aligned, D <= 384, N % 32 == 0,
+// from Bq on are not read), both 16-byte aligned, D <= 768, N % 32 == 0,
 // nbuckets % 32 == 0. Over f32: q [Bqp,D] with rows >= Bq zero, N % 16 == 0,
 // nbuckets % 16 == 0. Bqp % 64 == 0, D % 16 == 0 (D % 32 for int8); K5 also
 // needs nbuckets <= 4096, fewer than 2^20 rounds and k <= min(256, nbuckets).
@@ -367,7 +391,7 @@ FRAG_EXPORT int frag_bucketed_topk(const void* q, const void* x, const float* va
       nbuckets < kCols || D % 16 || (dtype == FRAG_I8 && D % 32) || rounds_per_group < 1 ||
       k < 0 || (k > 0 && (k > kMaxK || k > nbuckets || nbuckets > kMaxBuckets ||
                           rounds >= (1 << kRoundBits))) ||
-      (hopper && (nbuckets % flat::kRows || D > flat::kMaxD ||
+      (hopper && (nbuckets % flat::kRows || D > flat::kWideD ||
                   (reinterpret_cast<uintptr_t>(q) & 15) || (reinterpret_cast<uintptr_t>(x) & 15))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,5 +1,7 @@
 // The Hopper machinery of the flat sweeps K5 (bucketed_topk.cu) and K6
-// (topk_exact.cu), bf16 and int8 corpora of up to 384 features.
+// (topk_exact.cu), bf16 and int8 corpora, a template over the width kD the
+// features are zero-padded to: 384 (bge-small, gte-small) or 768 (bge-base,
+// gte-base; K5 and K7 only, K6 stays at 384).
 //
 // A block scores a tile of queries (64 a consumer warpgroup) against tiles
 // of 32 consecutive corpus rows. Its queries are loaded into shared memory
@@ -29,7 +31,8 @@ namespace flat {
 using namespace hopper;
 
 constexpr int kRows = 32;                 // corpus rows a tile (the wgmma N)
-constexpr int kMaxD = 384;                // features, zero-padded to this
+constexpr int kNarrowD = 384;             // features, zero-padded to this or to
+constexpr int kWideD = 768;               // this one
 constexpr int kRegionQ = 64 * 128;        // 64 query rows x 128 bytes
 constexpr int kRegionX = kRows * 128;     // 32 corpus rows x 128 bytes
 constexpr int kSmemBudget = 229376;       // dynamic shared memory a block may take (224 KB)
@@ -47,9 +50,10 @@ struct Elem<int8_t> {
   using Acc = int;
 };
 
-template <typename T>
+template <typename T, int kD>
 struct Tiles {
-  static constexpr int kRowBytes = kMaxD * Elem<T>::kBytes;  // 768 (bf16) / 384 (int8)
+  static_assert(kD == kNarrowD || kD == kWideD, "the sweeps pad to 384 or 768 features");
+  static constexpr int kRowBytes = kD * Elem<T>::kBytes;     // 768 / 384 at 384, 1536 / 768 at 768
   static constexpr int kRegions = kRowBytes / 128;           // 128-byte column regions
   static constexpr int kChunks = kRowBytes / 16;             // 16-byte chunks of a row
   static constexpr int kQBytes = kRegions * kRegionQ;        // one warpgroup's queries
@@ -58,7 +62,8 @@ struct Tiles {
 };
 
 __device__ __forceinline__ float acc_f32(float v) { return v; }
-// |dot| <= 127 * 127 * 384 < 2^24: exact in f32, as in the plain version
+// |dot| <= 127 * 127 * 768 = 12,386,304 < 2^24: exact in f32, as in the
+// plain version
 __device__ __forceinline__ float acc_f32(int v) { return __int2float_rn(v); }
 
 __device__ __forceinline__ void mma_n32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
@@ -71,16 +76,16 @@ __device__ __forceinline__ void mma_n32(int (&d)[16], uint64_t a, uint64_t b, in
 // Rows q0 .. q0 + rows - 1 of q [Bq, D] into regions of 64 rows (one
 // warpgroup's operand each), zeros past Bq and past D; published to the
 // async proxy. Run by the `nthreads` consumer threads (thread `tid`).
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void stage_queries(uint32_t sQ, const T* q, int q0, int rows, int Bq,
                                               int D, int tid, int nthreads) {
-  constexpr int kChunks = Tiles<T>::kChunks;
+  constexpr int kChunks = Tiles<T, kD>::kChunks;
   const int row_bytes = D * Elem<T>::kBytes, dch = row_bytes / 16;
   const char* qb = reinterpret_cast<const char*>(q);
   for (int e = tid; e < rows * kChunks; e += nthreads) {
     const int r = e / kChunks, ch = e - r * kChunks, row = q0 + r;
     const bool ok = row < Bq && ch < dch;
-    cp_async16(sQ + (r >> 6) * Tiles<T>::kQBytes + sw128_chunk(r & 63, ch),
+    cp_async16(sQ + (r >> 6) * Tiles<T, kD>::kQBytes + sw128_chunk(r & 63, ch),
                qb + (ok ? (size_t)row * row_bytes + 16 * ch : 0), ok);
   }
   cp_async_commit();
@@ -91,7 +96,7 @@ __device__ __forceinline__ void stage_queries(uint32_t sQ, const T* q, int q0, i
 // Lane 0 of the producer warp: tile t < nt is corpus rows first + t*step ..
 // +31 (all below N) into stage t % stages with its 32 weights, `stages` tiles
 // ahead of the slowest consumer warp.
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void produce_tiles(const CUtensorMap* tm, const float* valid,
                                               uint32_t sX, float (*sval)[kRows], uint64_t* full,
                                               uint64_t* empty, int stages, int nt, int first,
@@ -99,23 +104,23 @@ __device__ __forceinline__ void produce_tiles(const CUtensorMap* tm, const float
   for (int t = 0; t < nt; ++t) {
     const int st = t % stages, n0 = first + t * step;
     if (t >= stages) mbar_wait(&empty[st], (t / stages - 1) & 1);
-    mbar_expect_tx(&full[st], Tiles<T>::kXBytes + 4 * kRows);
+    mbar_expect_tx(&full[st], Tiles<T, kD>::kXBytes + 4 * kRows);
 #pragma unroll
-    for (int r = 0; r < Tiles<T>::kRegions; ++r)
-      tma_load_2d(sX + st * Tiles<T>::kXBytes + r * kRegionX, tm, Tiles<T>::kBoxCols * r, n0,
+    for (int r = 0; r < Tiles<T, kD>::kRegions; ++r)
+      tma_load_2d(sX + st * Tiles<T, kD>::kXBytes + r * kRegionX, tm, Tiles<T, kD>::kBoxCols * r, n0,
                   &full[st]);
     bulk_load(smem_u32(sval[st]), valid + n0, 4 * kRows, &full[st]);
   }
 }
 
 // acc = the warpgroup's 64 queries (q_desc) times the 32 rows of a tile
-// (x_desc), over all kMaxD features.
-template <typename T>
+// (x_desc), over all kD features.
+template <typename T, int kD>
 __device__ __forceinline__ void tile_product(typename Elem<T>::Acc (&acc)[16], uint64_t q_desc,
                                              uint64_t x_desc) {
   wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < Tiles<T>::kRegions; ++r)
+  for (int r = 0; r < Tiles<T, kD>::kRegions; ++r)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       mma_n32(acc, desc_add(q_desc, r * kRegionQ + 32 * kk),
@@ -129,7 +134,7 @@ __device__ __forceinline__ void tile_product(typename Elem<T>::Acc (&acc)[16], u
 // swizzle (false if cuTensorMapEncodeTiled refuses it).
 template <typename T>
 inline bool corpus_map(CUtensorMap* map, const void* x, int N, int D) {
-  return tensor_map_2d(map, x, N, D, kRows, Tiles<T>::kBoxCols, CU_TENSOR_MAP_SWIZZLE_128B,
+  return tensor_map_2d(map, x, N, D, kRows, 128 / Elem<T>::kBytes, CU_TENSOR_MAP_SWIZZLE_128B,
                        Elem<T>::kBytes);
 }
 

@@ -51,6 +51,22 @@
 // with two warpgroups an SM to overlap. Wider chunks need more shared
 // memory than the x tile leaves.
 //
+// At hidden 768 (bge-base / gte-base, I = 3,072) that design does not fit:
+// a warpgroup's 64 x 768 f32 slice of y would take 384 registers a thread,
+// and a 128 x 768 bf16 x tile alone is 192 KB. ffn_wide_kernel takes 64
+// tokens a block instead, with both warpgroups on the same x rows (96 KB,
+// loaded once by cp.async): warpgroup w owns y's columns 384w .. 384w+383,
+// so each again keeps 192 accumulator registers a thread, and each computes
+// the whole h of every chunk itself. That repeats the first product, 1.5x
+// the flops of one pass, and needs no barrier between the warpgroups. The I
+// axis is walked in 16-wide chunks through a ring of 2 stages of 48 KB
+// (193 KB a block): the chunk's W1 columns [768][16] (32-byte swizzle, 3
+// boxes) and W2 rows [16][768] (128-byte swizzle, 12 boxes), by TMA, as
+// above. Per chunk a warpgroup runs h = x W1c (48 x wgmma m64n16k16, W1c
+// MN-major), GELU, then y += h W2c over its half (3 x wgmma m64n128k16).
+// With 16 columns a step, the first product reads x from shared memory
+// twice as often per flop as at 384: a simple design that is right first.
+//
 // A query-time call has few tokens (8 x 64 = 512: 4 tiles for 132 SMs), so
 // the I axis is also split over `splits` blocks per tile (grid.y). Each then
 // writes its f32 partial of y to scratch, and a second kernel sums the
@@ -62,7 +78,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kH = 384;                  // hidden width the kernel is built for
+constexpr int kH = 384;                  // hidden width of ffn_fwd_kernel
 constexpr int kRows = 64;                // token rows per consumer warpgroup
 constexpr int kConsumers = 2;
 constexpr int kTokens = kRows * kConsumers;  // tokens per block
@@ -223,50 +239,213 @@ ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUte
   }
 }
 
+// hidden 768: 64 tokens a block, warpgroup w owns y's columns 384w ..
+constexpr int kWH = 768;
+constexpr int kWRows = 64;                     // tokens per block
+constexpr int kWHalf = kWH / kConsumers;       // y columns a warpgroup owns
+constexpr int kWChunk = 16;                    // width of one I chunk
+constexpr int kWXBytes = kWRows * kWH * 2;     // x rows: 12 regions of 64 x 128 bytes, SW128
+constexpr int kWW1Box = 256;                   // W1 rows a TMA box
+constexpr int kWW1Bytes = kWH * kWChunk * 2;   // W1 chunk [768][16], SW32: 24 KB
+constexpr int kWW2Region = kWChunk * 128;      // 16 rows x 64 columns (128 bytes), SW128
+constexpr int kWW2Bytes = kWChunk * kWH * 2;   // W2 chunk [16][768]: 12 regions, 24 KB
+constexpr int kWStageBytes = kWW1Bytes + kWW2Bytes;
+constexpr int kWSmemBytes = kWXBytes + kStages * kWStageBytes + 1024;  // + alignment
+
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap tm_w1,
+                const __nv_bfloat16* __restrict__ b1, const __grid_constant__ CUtensorMap tm_w2,
+                const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y,
+                float* __restrict__ partial, int N, int I, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t sX = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sRing = sX + kWXBytes;  // stage st: W1 chunk, then W2 chunk
+
+  const int span = I / splits;  // this block's range of the I axis
+  const int c_begin = blockIdx.y * span, nchunks = span / kWChunk;
+  const int m0 = blockIdx.x * kWRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = warp >> 2;      // warpgroup: y columns kWHalf*w ..
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);          // thread 0's expect_tx; then the chunk's bytes
+      mbar_init(&empty[st], kThreads);  // every thread, once its products of the chunk ended
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // thread 0: chunk t's W1 columns (3 boxes of 256 x 16) and W2 rows (12
+  // boxes of 16 x 64) into stage t % kStages by TMA
+  auto fetch = [&](int t) {
+    const int st = t % kStages, c0 = c_begin + t * kWChunk;
+    const uint32_t w1t = sRing + st * kWStageBytes, w2t = w1t + kWW1Bytes;
+    mbar_expect_tx(&full[st], kWStageBytes);
+#pragma unroll
+    for (int j = 0; j < kWH / kWW1Box; ++j)
+      tma_load_2d(w1t + j * kWW1Box * kWChunk * 2, &tm_w1, c0, kWW1Box * j, &full[st]);
+#pragma unroll
+    for (int j = 0; j < kWH / 64; ++j) tma_load_2d(w2t + j * kWW2Region, &tm_w2, 64 * j, c0, &full[st]);
+  };
+  if (threadIdx.x == 0) fetch(0);
+  // the block's 64 token rows, zeros past N, by all 256 threads
+  for (int e = threadIdx.x; e < kWRows * (kWH / 8); e += kThreads) {
+    const int r = e / (kWH / 8), ch = e % (kWH / 8), row = m0 + r;
+    const bool ok = row < N;
+    cp_async16(sX + sw128_chunk(r, ch), x + (size_t)(ok ? row : 0) * kWH + 8 * ch, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint64_t x_desc = make_desc(sX, 16, 1024, kSw128);
+  float acc[3][64];  // y columns kWHalf*w + 128*nb .. +127
+#pragma unroll
+  for (int nb = 0; nb < 3; ++nb) zero(acc[nb]);
+  for (int t = 0; t < nchunks; ++t) {
+    const int st = t % kStages;
+    const int c0 = c_begin + t * kWChunk;
+    // b1 at this thread's 4 columns of the chunk, 8*(q/2) + 2*tig + q%2: h[i]
+    // is column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
+    __nv_bfloat16 bb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
+    mbar_wait(&full[st], (t / kStages) & 1);  // chunk t landed
+    const uint32_t w1t = sRing + st * kWStageBytes, w2t = w1t + kWW1Bytes;
+    // W1c [768][16] in 32-byte rows: a k16 step is 512 bytes, 8-row groups 256
+    const uint64_t w1_desc = make_desc(w1t, kWW1Bytes, 256, kSw32);
+    const uint64_t w2_desc = make_desc(w2t + w * (kWHalf / 64) * kWW2Region, kWW2Region, 1024, kSw128);
+
+    // h = x @ W1[:, c0:c0+16]
+    float h[8];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWH / 16; ++kk)
+      wgmma_ss_n16_tb(h, desc_add(x_desc, (kk >> 2) * kXRegion + (kk & 3) * 32),
+                      desc_add(w1_desc, 512 * kk), kk > 0);
+    wgmma_commit();
+    // meanwhile chunk t+1 into the stage chunk t-1 used, once both
+    // warpgroups released it
+    if (threadIdx.x == 0 && t + 1 < nchunks) {
+      if (t + 1 >= kStages) mbar_wait(&empty[(t + 1) % kStages], ((t + 1) / kStages - 1) & 1);
+      fetch(t + 1);
+    }
+    wgmma_wait<0>();
+    fence_acc(h);
+
+    // + b1, erf GELU, bf16: the A operand of the second product
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = gelu_erf(h[i] + __bfloat162float(bb[2 * (i >> 2) + (i & 1)]));
+    uint32_t a[4];
+    pack_a(a, h, 0);
+
+    // y[:, this half] += h @ W2[c0:c0+16, this half]
+    wgmma_fence();
+#pragma unroll
+    for (int nb = 0; nb < 3; ++nb) wgmma_rs_n128(acc[nb], a, desc_add(w2_desc, nb * 2 * kWW2Region));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
+    mbar_arrive(&empty[st]);
+  }
+
+  // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column kWHalf*w +
+  // 128*nb + 8*j + 2*tig + e%2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + 16 * (warp & 3) + gid + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int nb = 0; nb < 3; ++nb)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = kWHalf * w + 128 * nb + 8 * j + 2 * tig;
+        const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
+        if (splits == 1) {
+          *reinterpret_cast<uint32_t*>(y + (size_t)row * kWH + col) =
+              pack_bf16(v0 + __bfloat162float(b2[col]), v1 + __bfloat162float(b2[col + 1]));
+        } else {
+          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * kWH + col) =
+              make_float2(v0, v1);
+        }
+      }
+  }
+}
+
 // y[n, c] = bf16(sum over s of partial[s, n, c], in s order, + b2[c])
+template <int H>
 __global__ void __launch_bounds__(kReduceThreads)
 ffn_reduce_kernel(const float* __restrict__ partial, const __nv_bfloat16* __restrict__ b2,
                   __nv_bfloat16* __restrict__ y, int N, int splits) {
-  const size_t total = (size_t)N * kH;
+  const size_t total = (size_t)N * H;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int s = 0; s < splits; ++s) v += partial[(size_t)s * total + e];
-    y[e] = __float2bfloat16(v + __bfloat162float(b2[e % kH]));
+    y[e] = __float2bfloat16(v + __bfloat162float(b2[e % H]));
   }
+}
+
+// The first kernel (one of the two designs above), then, when the I axis is
+// split, the reduce.
+template <int H>
+int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+               void* y, float* partial, int N, int I, int splits, cudaStream_t st) {
+  constexpr bool wide = H == kWH;
+  constexpr int chunk = wide ? kWChunk : kChunk, tokens = wide ? kWRows : kTokens;
+  constexpr int smem = wide ? kWSmemBytes : kSmemBytes;
+  if (N < 1 || splits < 1 || I % splits || (I / splits) % chunk || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory a kernel must opt in, on each
+  // device it runs on (the attribute is the current device's)
+  const cudaError_t opt_in =
+      wide ? cudaFuncSetAttribute(ffn_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+           : cudaFuncSetAttribute(ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  // 384: W1 [H][I] in boxes of 192 x 32, W2 [I][H] in boxes of 32 x 64;
+  // 768: W1 in boxes of 256 x 16, W2 in boxes of 16 x 64
+  CUtensorMap tm_w1, tm_w2;
+  const bool mapped =
+      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, kWW1Box, kWChunk, CU_TENSOR_MAP_SWIZZLE_32B) &&
+                 hopper::tensor_map_2d(&tm_w2, w2, I, H, kWChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+           : hopper::tensor_map_2d(&tm_w1, w1, H, I, H / 2, kChunk, CU_TENSOR_MAP_SWIZZLE_64B) &&
+                 hopper::tensor_map_2d(&tm_w2, w2, I, H, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!mapped) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + tokens - 1) / tokens, splits);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* b1b = static_cast<const __nv_bfloat16*>(b1);
+  const auto* b2b = static_cast<const __nv_bfloat16*>(b2);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  if constexpr (wide)
+    ffn_wide_kernel<<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
+  else
+    ffn_fwd_kernel<<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int blocks = (int)(((size_t)N * H + kReduceThreads - 1) / kReduceThreads);
+  ffn_reduce_kernel<H><<<blocks, kReduceThreads, 0, st>>>(
+      partial, static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), N, splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Shapes: x/y [N,H], w1 [H,I], b1 [I], w2 [I,H], b2 [H], all bf16, row-major,
 // x, w1 and w2 16-byte aligned; partial [splits,N,H] f32 scratch (unused when
-// splits is 1). Any N >= 1, (I / splits) % 32 == 0, H == 384.
+// splits is 1). Any N >= 1; H == 384 with (I / splits) % 32 == 0, or H ==
+// 768 with (I / splits) % 16 == 0.
 FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y, float* partial,
                                int N, int H, int I, int splits, void* stream) {
-  if (H != kH || N < 1 || splits < 1 || I % splits || (I / splits) % kChunk ||
-      (splits > 1 && partial == nullptr))
-    return (int)cudaErrorInvalidValue;
-  // above 48 KB of dynamic shared memory a kernel must opt in, on each
-  // device it runs on (the attribute is the current device's)
-  const cudaError_t opt_in = cudaFuncSetAttribute(
-      ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (opt_in != cudaSuccess) return (int)opt_in;
-  CUtensorMap tm_w1, tm_w2;  // W1 [H][I] in boxes of 192 x 32, W2 [I][H] in boxes of 32 x 64
-  if (!hopper::tensor_map_2d(&tm_w1, w1, kH, I, kH / 2, kChunk, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !hopper::tensor_map_2d(&tm_w2, w2, I, kH, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kTokens - 1) / kTokens, splits);
-  ffn_fwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(x), tm_w1, static_cast<const __nv_bfloat16*>(b1), tm_w2,
-      static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), partial, N, I,
-      splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const int blocks = (int)(((size_t)N * kH + kReduceThreads - 1) / kReduceThreads);
-  ffn_reduce_kernel<<<blocks, kReduceThreads, 0, st>>>(
-      partial, static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), N,
-      splits);
-  return (int)cudaGetLastError();
+  switch (H) {
+    case kH: return launch_ffn<kH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
+    case kWH: return launch_ffn<kWH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -30,10 +30,10 @@
 // m16n8k16 A fragment, so two 8-column blocks of an accumulator make one k16
 // step (pack_a below).
 //
-// Shared-memory layouts are the canonical GMMA ones, swizzled: rows of 64
-// (SW64) or 128 (SW128) bytes, 16-byte chunk c of row r stored at chunk
-// c ^ ((byte offset >> 7) & (1 << B) - 1) with B = 2 or 3, tiles aligned to
-// 1,024 bytes. A tile stored [row][feature] serves as a K-major operand
+// Shared-memory layouts are the canonical GMMA ones, swizzled: rows of 32
+// (SW32), 64 (SW64) or 128 (SW128) bytes, 16-byte chunk c of row r stored at
+// chunk c ^ ((byte offset >> 7) & (1 << B) - 1) with B = 1, 2 or 3, tiles
+// aligned to 1,024 bytes. A tile stored [row][feature] serves as a K-major operand
 // (features are the k dimension: S = Q K^T) and, with the transpose bit, as
 // an MN-major one (rows are the k dimension: O = P V, dQ = dS K), so no
 // operand is ever transposed in memory.
@@ -214,7 +214,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ---- wgmma ----------------------------------------------------------------
 
-enum Swizzle : int { kSw128 = 1, kSw64 = 2 };
+enum Swizzle : int { kSw128 = 1, kSw64 = 2, kSw32 = 3 };
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (LBO, SBO), swizzle mode; base offset 0 (tiles 1,024-aligned).
@@ -324,6 +324,19 @@ __device__ __forceinline__ void wgmma_ss_n32_tb(float (&d)[16], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 16] (+)= A[64 x 16] * B[16 x 16], A in shared memory K-major, B in
+// shared memory MN-major (a tile stored [k][n] in 32-byte rows, read through
+// the transpose bit); with accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n16_tb(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

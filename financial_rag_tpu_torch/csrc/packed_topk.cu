@@ -17,7 +17,8 @@
 // is read once for up to 128 queries; 2*Bq*N*D flops at Bq = 128 are ~1/2 of
 // the byte time at the bf16 tensor-core rate.
 //
-// Design of the bf16 sweep (sm_90a). The TPU runs the corpus tiles j in
+// Design of the bf16 sweep (sm_90a), one template over the padded width kD
+// = 384 (D <= 384) or 768 (D <= 768: bge-base, gte-base). The TPU runs the corpus tiles j in
 // order and carries the buckets in scratch. Hopper blocks run in no order,
 // so a block owns 32 bucket columns t0 .. t0+31, a tile of up to 128 queries
 // and one group of consecutive tiles j, and walks its tiles itself. Its
@@ -28,7 +29,12 @@
 // has the TMA copy each tile (6 boxes of 32 rows x 64 features, swizzled as
 // the products read them, zeros past N and D; the weights by a bulk copy)
 // as soon as every consumer warp has released its stage through the
-// stage's empty mbarrier, and the bytes complete its full mbarrier. So the
+// stage's empty mbarrier, and the bytes complete its full mbarrier. At kD =
+// 768 a warpgroup's queries are 96 KB and a stage 48 KB (12 boxes), so a
+// block holds one warpgroup of 64 queries and a ring of 2 stages (193 KB):
+// a query batch of 128 takes two query tiles over the same corpus, the
+// second mostly from L2 (blockIdx.x runs fastest, so both read a tile
+// about together), and a stage in flight is still 48 KB of corpus. So the
 // copies run on while the consumers multiply and update, with no block
 // barrier between tiles. Each
 // warpgroup takes scores = Q X^T by wgmma m64n32k16 (queries as the 64-row
@@ -73,19 +79,22 @@ constexpr float kNeg = -3.0e4f;  // ops/topk.py NEG
 constexpr int kMaxK = 256;
 
 // bf16 sweep
-constexpr int kMaxD = 384;                    // features, zero-padded to this
-constexpr int kChunks = kMaxD / 8;            // 16-byte chunks of a row
+constexpr int kNarrowD = 384;                 // features, zero-padded to this or to
+constexpr int kWideD = 768;                   // this one
 constexpr int kCols = 32;                     // bucket columns a block (wgmma N)
 constexpr int kQRegion = 64 * 128;            // 64 query rows x 64 features, SW128
 constexpr int kXRegion = kCols * 128;         // 32 corpus rows x 64 features, SW128
-constexpr int kQBytes = (kMaxD / 64) * kQRegion;  // one warpgroup's queries: 48 KB
-constexpr int kXBytes = (kMaxD / 64) * kXRegion;  // one stage: 24 KB
 
-template <int kWG>  // consumer warpgroups, 64 queries each, and a producer warp
+// consumer warpgroups (64 queries each) and a producer warp, over kD features
+template <int kWG, int kD>
 struct Sweep {
+  static_assert(kD == kNarrowD || (kD == kWideD && kWG == 1), "K4's bf16 sweep shapes");
+  static constexpr int kChunks = kD / 8;                   // 16-byte chunks of a row
+  static constexpr int kQBytes = (kD / 64) * kQRegion;     // one warpgroup's queries: 48 / 96 KB
+  static constexpr int kXBytes = (kD / 64) * kXRegion;     // one stage: 24 / 48 KB
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 32;
-  static constexpr int kStages = kWG == 1 ? 6 : 5;
+  static constexpr int kStages = kD == kWideD ? 2 : kWG == 1 ? 6 : 5;
   static constexpr int kSmemBytes = kWG * kQBytes + kStages * kXBytes + 1024;  // + alignment
 };
 
@@ -112,13 +121,15 @@ __device__ __forceinline__ int pack(float s, bool live, int mask, int tag) {
   return (__float_as_int(p) & ~mask) | tag;
 }
 
-template <int kWG>
-__global__ void __launch_bounds__(Sweep<kWG>::kThreads, 1)
+template <int kWG, int kD>
+__global__ void __launch_bounds__(Sweep<kWG, kD>::kThreads, 1)
 packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tm_x,
                          const float* __restrict__ valid, int* __restrict__ b1_out,
                          int* __restrict__ b2_out, int Bq, int Bqp, int D, int block_n,
                          int ntiles, int bits, int tiles_per_group) {
-  constexpr int kStages = Sweep<kWG>::kStages, kConsumers = Sweep<kWG>::kConsumers;
+  using Sw = Sweep<kWG, kD>;
+  constexpr int kStages = Sw::kStages, kConsumers = Sw::kConsumers;
+  constexpr int kChunks = Sw::kChunks, kQBytes = Sw::kQBytes, kXBytes = Sw::kXBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(16) float sval[kStages][kCols];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -137,12 +148,12 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
     }
     mbar_init_fence();
   }
-  for (int i = tid; i < kStages * kCols; i += Sweep<kWG>::kThreads) (&sval[0][0])[i] = 0.f;
+  for (int i = tid; i < kStages * kCols; i += Sw::kThreads) (&sval[0][0])[i] = 0.f;
   fence_proxy_async();  // the zeros land before any bulk copy into sval
   __syncthreads();
 
   if (warp == kConsumers / 32) {
-    // the producer: tile j's 32 corpus rows (6 swizzled boxes; zeros past N
+    // the producer: tile j's 32 corpus rows (kD/64 swizzled boxes; zeros past N
     // and past D) and their weights (zeros past block_n stay from above),
     // kStages tiles ahead of the slowest consumer warp
     if (lane == 0) {
@@ -152,7 +163,7 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
         mbar_expect_tx(&full[st], kXBytes + vbytes);
 #pragma unroll
-        for (int r = 0; r < kMaxD / 64; ++r)
+        for (int r = 0; r < kD / 64; ++r)
           tma_load_2d(sX + st * kXBytes + r * kXRegion, &tm_x, 64 * r, n0, &full[st]);
         bulk_load(smem_u32(sval[st]), valid + n0, vbytes, &full[st]);
       }
@@ -193,7 +204,7 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
       float acc[16];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kMaxD / 16; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
         wgmma_ss_n32(acc, desc_add(q_desc, (kk >> 2) * kQRegion + off),
                      desc_add(x_desc, (kk >> 2) * kXRegion + off), kk > 0);
@@ -360,18 +371,19 @@ packed_merge_kernel(const int* __restrict__ b1, const int* __restrict__ b2,
   }
 }
 
-template <int kWG>
+template <int kWG, int kD>
 cudaError_t launch_bf16_sweep(const void* q, const CUtensorMap& tm_x, const float* valid, int* b1,
                               int* b2, int Bq, int Bqp, int D, int block_n, int ntiles, int bits,
                               int tiles_per_group, int groups, cudaStream_t st) {
   // above 48 KB of dynamic shared memory a kernel must opt in, on each
   // device it runs on (the attribute is the current device's)
+  using Sw = Sweep<kWG, kD>;
   const cudaError_t opt_in = cudaFuncSetAttribute(
-      packed_sweep_bf16_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Sweep<kWG>::kSmemBytes);
+      packed_sweep_bf16_kernel<kWG, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Sw::kSmemBytes);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid((block_n + kCols - 1) / kCols, (Bqp + 64 * kWG - 1) / (64 * kWG), groups);
-  packed_sweep_bf16_kernel<kWG><<<grid, Sweep<kWG>::kThreads, Sweep<kWG>::kSmemBytes, st>>>(
+  packed_sweep_bf16_kernel<kWG, kD><<<grid, Sw::kThreads, Sw::kSmemBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), tm_x, valid, b1, b2, Bq, Bqp, D, block_n, ntiles,
       bits, tiles_per_group);
   return cudaGetLastError();
@@ -384,15 +396,16 @@ cudaError_t launch_bf16_sweep(const void* q, const CUtensorMap& tm_x, const floa
 // int32 (group g sweeps tiles g*tiles_per_group ..; only rows below Bq are
 // written and read), outputs out_s [Bq,k] f32 and out_i [Bq,k] int32. Bqp %
 // 64 == 0 and Bqp >= Bq, N % block_n == 0, block_n % 16 == 0, block_n <=
-// 1024, D % 16 == 0 (D <= 384 for bf16), 1 <= k <= 256. A bf16 sweep takes
-// 128 queries a block once Bqp >= 128, else 64.
+// 1024, D % 16 == 0 (D <= 768 for bf16), 1 <= k <= 256. A bf16 sweep of D
+// <= 384 takes 128 queries a block once Bqp >= 128, else (and above 384)
+// 64.
 FRAG_EXPORT int frag_packed_topk(const void* q, const void* x, const float* valid, int* b1,
                                  int* b2, float* out_s, int* out_i, int Bq, int Bqp, int N,
                                  int D, int block_n, int bits, int k, int tiles_per_group,
                                  int dtype, void* stream) {
   if (Bq < 1 || Bqp < Bq || Bqp % 64 || block_n < 16 || block_n % 16 || block_n > 1024 ||
       N % block_n || D < 16 || D % 16 || k > kMaxK || k < 1 || tiles_per_group < 1 ||
-      (dtype == FRAG_BF16 && (D > kMaxD || (reinterpret_cast<uintptr_t>(q) & 15) ||
+      (dtype == FRAG_BF16 && (D > kWideD || (reinterpret_cast<uintptr_t>(q) & 15) ||
                               (reinterpret_cast<uintptr_t>(x) & 15))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -403,10 +416,12 @@ FRAG_EXPORT int frag_packed_topk(const void* q, const void* x, const float* vali
     CUtensorMap tm_x;  // x [N][D] in boxes of 32 rows x 64 features, 128-byte swizzle
     if (!hopper::tensor_map_2d(&tm_x, x, N, D, kCols, 64, CU_TENSOR_MAP_SWIZZLE_128B))
       return (int)cudaErrorInvalidValue;
-    err = Bqp >= 128 ? launch_bf16_sweep<2>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n, ntiles,
-                                            bits, tiles_per_group, groups, st)
-                     : launch_bf16_sweep<1>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n, ntiles,
-                                            bits, tiles_per_group, groups, st);
+    err = D > kNarrowD ? launch_bf16_sweep<1, kWideD>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n,
+                                                      ntiles, bits, tiles_per_group, groups, st)
+          : Bqp >= 128 ? launch_bf16_sweep<2, kNarrowD>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n,
+                                                        ntiles, bits, tiles_per_group, groups, st)
+                       : launch_bf16_sweep<1, kNarrowD>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n,
+                                                        ntiles, bits, tiles_per_group, groups, st);
   } else {
     const dim3 grid(block_n / kF32Cols, Bqp / (kF32Warps * 16), groups);
     packed_sweep_f32_kernel<<<grid, kF32Warps * 32, 0, st>>>(

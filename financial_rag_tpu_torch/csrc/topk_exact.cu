@@ -106,6 +106,9 @@ constexpr int kMergeThreads = 256;
 constexpr int kMergePer = 16;  // 256 * 16 = 4096 candidates a chunk of the merge
 constexpr int kMaxStages = 8;
 constexpr int kMaxMergeGroups = 1024;  // groups of the int8 / bf16 sweep the merge stages
+// The Hopper sweep's padded width: at 768 a bf16 block's queries (96 KB)
+// and its rows' lists and buffers (119 KB) would leave no ring stage.
+constexpr int kD = flat::kNarrowD;
 
 // Shared memory of the bf16 / int8 sweep beyond its static arrays: the
 // queries, the lists and buffers of 64 rows and the flush scratch of 4
@@ -116,10 +119,10 @@ struct ExactSweep {
   // a row's list (kcap) and buffer (kRowLen - kcap) keys: 224 in bf16
   // leaves 2 ring stages, 256 in int8 5
   static constexpr int kRowLen = sizeof(T) == 1 ? 256 : 224;
-  static constexpr int kFixed = 1024 + flat::Tiles<T>::kQBytes + (64 + 4) * kRowLen * 8;
-  static constexpr int kFree = (flat::kSmemBudget - kFixed) / flat::Tiles<T>::kXBytes;
+  static constexpr int kFixed = 1024 + flat::Tiles<T, kD>::kQBytes + (64 + 4) * kRowLen * 8;
+  static constexpr int kFree = (flat::kSmemBudget - kFixed) / flat::Tiles<T, kD>::kXBytes;
   static constexpr int kStages = kFree < kMaxStages ? kFree : kMaxStages;
-  static constexpr int kSmemBytes = kFixed + kStages * flat::Tiles<T>::kXBytes;
+  static constexpr int kSmemBytes = kFixed + kStages * flat::Tiles<T, kD>::kXBytes;
 };
 
 // The ranks of the n (<= 32 * P) kept keys in scratch, lane l holding keys
@@ -242,10 +245,10 @@ exact_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUtens
   __shared__ float s_thr[64];
   const uint32_t base = smem_u32(smem_raw);
   const uint32_t sQ = (base + 1023) & ~1023u;
-  const uint32_t sX = sQ + Tiles<T>::kQBytes;
+  const uint32_t sX = sQ + Tiles<T, kD>::kQBytes;
   constexpr int stages = ExactSweep<T>::kStages, kRowLen = ExactSweep<T>::kRowLen;
   unsigned long long* lists = reinterpret_cast<unsigned long long*>(
-      smem_raw + (sX - base) + stages * Tiles<T>::kXBytes);
+      smem_raw + (sX - base) + stages * Tiles<T, kD>::kXBytes);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * 64;
   const int j0 = blockIdx.y * tiles_per_group;
@@ -267,10 +270,10 @@ exact_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUtens
 
   if (warp == 4) {
     if (lane == 0)
-      produce_tiles<T>(&tm_x, valid, sX, sval, full, empty, stages, nt, j0 * kRows, kRows);
+      produce_tiles<T, kD>(&tm_x, valid, sX, sval, full, empty, stages, nt, j0 * kRows, kRows);
     return;
   }
-  stage_queries<T>(sQ, q, q0, 64, Bq, D, tid, 128);
+  stage_queries<T, kD>(sQ, q, q0, 64, Bq, D, tid, 128);
   named_barrier(1, 128);
 
   const int gid = lane >> 2, tig = lane & 3;
@@ -284,7 +287,7 @@ exact_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUtens
     const int st = t % stages;
     mbar_wait(&full[st], (t / stages) & 1);  // tile j0 + t landed
     typename Elem<T>::Acc acc[16];
-    tile_product<T>(acc, q_desc, make_desc(sX + st * Tiles<T>::kXBytes, 16, 1024, kSw128));
+    tile_product<T, kD>(acc, q_desc, make_desc(sX + st * Tiles<T, kD>::kXBytes, 16, 1024, kSw128));
     if (warp_live) {
       // a dead row (past Bq) takes nothing
       const float thrA = liveA ? s_thr[rA] : INFINITY, thrB = liveB ? s_thr[rB] : INFINITY;
@@ -537,7 +540,7 @@ FRAG_EXPORT int frag_topk_exact(const void* q, const void* x, const float* valid
   if (Bq < 1 || Bqp % (kWarps * 16) || Bq > Bqp || N % step || cols_per_group % step ||
       cols_per_group < step || D % 16 || (dtype == FRAG_I8 && D % 32) || k < 1 || k > kMaxK ||
       kcap % 32 || kcap < k || kcap > kMaxK ||
-      (dtype != FRAG_F32 && (D > flat::kMaxD || (reinterpret_cast<uintptr_t>(q) & 15) ||
+      (dtype != FRAG_F32 && (D > kD || (reinterpret_cast<uintptr_t>(q) & 15) ||
                              (reinterpret_cast<uintptr_t>(x) & 15))))
     return (int)cudaErrorInvalidValue;
   const int groups = (N + cols_per_group - 1) / cols_per_group;

@@ -28,6 +28,7 @@ import torch
 from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.ops.common import round_up
 from financial_rag_tpu_torch.ops.topk import (
+    EXACT_MAX_D,
     INT8_SCALE,
     bucketed_topk,
     bucketed_topk_fused,
@@ -81,6 +82,11 @@ class FlatIndex:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend}")
         self.backend = backend
+        if (self.device.type == "cuda" and backend == "pallas_exact"
+                and dtype != torch.float32 and dim > EXACT_MAX_D):
+            raise NotImplementedError(
+                f"backend pallas_exact: K6's int8/bf16 sweep takes D <= {EXACT_MAX_D}, "
+                f"the index has dim {dim}")
 
         self._vectors = torch.zeros((self.capacity, dim), dtype=dtype, device=self.device)
         self._valid = torch.zeros((self.capacity,), dtype=torch.float32, device=self.device)

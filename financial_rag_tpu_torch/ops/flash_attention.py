@@ -31,7 +31,8 @@ LAUNCHES = 0        # K2, the forward
 BWD_LAUNCHES = 0    # K10, the backward
 TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
 TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
-KERNEL_HEAD_DIM = 32  # the only head width the CUDA kernels are built for
+FWD_HEAD_DIMS = (32, 64)  # the head widths K2 (the forward) is built for
+BWD_HEAD_DIMS = (32,)     # the head widths K10 (the backward) is built for
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -82,6 +83,16 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
 
 
+def fwd_block(s: int, head_dim: int):
+    """(consumer warpgroups, dynamic shared-memory bytes) of a K2 block, as
+    csrc/flash_attention.cu's Block sizes it: one warpgroup of 64 query rows
+    at S <= 64, else two; each warpgroup's Q tile and a ring of 4 K + V
+    stages, 64 rows of one head's 2 * head_dim bytes each; 1 KB of
+    alignment."""
+    consumers = 1 if s <= 64 else 2
+    return consumers, (consumers + 2 * 4) * 64 * 2 * head_dim + 1024
+
+
 def bwd_scratch_shape(b: int, s: int, num_heads: int) -> tuple:
     """K10's f32 scratch between its two kernels: each query row's
     log-sum-exp (base 2, relative to its batch row's largest key bias) and
@@ -89,14 +100,15 @@ def bwd_scratch_shape(b: int, s: int, num_heads: int) -> tuple:
     return (2, b, num_heads, s)
 
 
-def _kernel_inputs(name: str, q, k, v, mask_bias, num_heads: int, *extra):
+def _kernel_inputs(name: str, kernel: str, head_dims: tuple, q, k, v, mask_bias,
+                   num_heads: int, *extra):
     """Checks what the kernels take; returns (the [B,S] f32 bias, device)."""
     b, s, h = q.shape
     if k.shape != q.shape or v.shape != q.shape or any(t.shape != q.shape for t in extra):
         raise ValueError(f"{name}: q, k, v (and dout) must share one [B,S,H] shape")
-    if h != num_heads * KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, "
-                         f"got H={h} over {num_heads} heads")
+    if h % num_heads or h // num_heads not in head_dims:
+        raise ValueError(f"{name}: the CUDA kernel ({kernel}) takes head_dim "
+                         f"{' or '.join(map(str, head_dims))}, got H={h} over {num_heads} heads")
     for i, t in enumerate((q, k, v, *extra)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} kernel takes bfloat16, input {i} is {t.dtype}")
@@ -113,7 +125,8 @@ def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tens
         return flash_attention_plain(q, k, v, mask_bias, num_heads=num_heads)
     global LAUNCHES, TP_LAUNCHES
     b, s, h = q.shape
-    bias, dev = _kernel_inputs("flash_attention", q, k, v, mask_bias, num_heads)
+    bias, dev = _kernel_inputs("flash_attention", "K2", FWD_HEAD_DIMS, q, k, v, mask_bias,
+                                num_heads)
     out = torch.empty_like(q)
     kernel_lib.launch("flash_attention", "frag_flash_attention", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
@@ -128,7 +141,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_bias: torch.Tensor, dout: torch.Tensor, *,
                         num_heads: int, tp: bool = False):
     """(dq, dk, dv) of :func:`flash_attention` at dout, each [B,S,H] in
-    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32. ``tp``: the
+    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32 only. ``tp``: the
     launch is K11's backward and counts in TP_BWD_LAUNCHES too."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask_bias, dout, num_heads=num_heads)
@@ -136,7 +149,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel_lib.require_no_grad("flash_attention_bwd", q, k, v, dout)
     b, s, h = q.shape
     dout = dout.to(q.dtype).contiguous()
-    bias, dev = _kernel_inputs("flash_attention_bwd", q, k, v, mask_bias, num_heads, dout)
+    bias, dev = _kernel_inputs("flash_attention_bwd", "K10", BWD_HEAD_DIMS, q, k, v, mask_bias,
+                                num_heads, dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty(bwd_scratch_shape(b, s, num_heads), dtype=torch.float32, device=dev)
     kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
@@ -170,15 +184,15 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask_bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
     """Fused multi-head self-attention. Returns [B, S, H] in q.dtype.
-    Differentiable in q, k and v. The CUDA kernels take bf16 at head_dim
-    32."""
+    Differentiable in q, k and v. The CUDA kernels take bf16: the forward
+    (K2) at head_dim 32 or 64, the backward (K10) at 32."""
     return FlashAttention.apply(q, k, v, mask_bias, num_heads)
 
 
 def flash_attention_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask_bias: torch.Tensor, *, num_heads: int, mesh,
                        model_axis: str = "model",
-                       head_dim: int = KERNEL_HEAD_DIM) -> torch.Tensor:
+                       head_dim: int = 32) -> torch.Tensor:
     """K11: attention under tensor parallelism. q, k, v are this rank's
     [B_local, S, (num_heads // tp) * head_dim] slices (its heads, in head
     order), mask_bias the [B_local, S] key bias of its rows; returns the

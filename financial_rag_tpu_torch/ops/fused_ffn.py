@@ -21,27 +21,64 @@ from financial_rag_tpu_torch.ops import kernel_lib
 from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, round_up
 
 LAUNCHES = 0
-KERNEL_HIDDEN = 384    # the hidden width the CUDA kernel is built for
-KERNEL_TOKENS = 128    # tokens per block; the kernel zero-fills the ragged last tile
-KERNEL_CHUNK = 32      # the intermediate width must be a multiple
+KERNEL_HIDDEN = 384    # the hidden width of the first design (bge-small, gte-small, MiniLM)
+KERNEL_TOKENS = 128    # its tokens per block; the kernel zero-fills the ragged last tile
+KERNEL_CHUNK = 32      # its I chunk: the intermediate width must be a multiple
 KERNEL_MIN_CHUNKS = 4  # I chunks a block walks at least when the I axis is split
+WIDE_HIDDEN = 768      # the hidden width of the second design (bge-base, gte-base)
+WIDE_TOKENS = 64       # its tokens per block (both warpgroups on the same rows)
+WIDE_CHUNK = 16        # its I chunk
+WIDE_MIN_CHUNKS = 8    # the same 128 I columns a split block walks at least
+# hidden width -> (tokens a block, I chunk, fewest chunks a split block walks)
+KERNEL_TILING = {KERNEL_HIDDEN: (KERNEL_TOKENS, KERNEL_CHUNK, KERNEL_MIN_CHUNKS),
+                 WIDE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS)}
 
 
-def split_count(tiles: int, chunks: int, sms: int) -> int:
+def kernel_takes(h_dim: int, i_dim: int) -> bool:
+    """Whether the CUDA kernel is built for hidden ``h_dim`` with
+    intermediate ``i_dim`` (a whole number of that design's chunks)."""
+    return h_dim in KERNEL_TILING and i_dim > 0 and i_dim % KERNEL_TILING[h_dim][1] == 0
+
+
+def split_count(tiles: int, chunks: int, sms: int, min_chunks: int = KERNEL_MIN_CHUNKS) -> int:
     """How many blocks share one token tile's I axis: the fewest (a divisor
     of the chunk count) that give every SM a block (the kernel's shared
     memory fits one block per SM), but no more than leave each block
-    KERNEL_MIN_CHUNKS chunks: each split writes and reads back an f32
+    ``min_chunks`` chunks: each split writes and reads back an f32
     partial of the tile, which at a query's few tiles costs more than the
-    chunks it saves. Ingest-sized calls get 1 (no partials); a query's 4
-    tiles of 128 tokens get 12 splits of 4 of the 48 chunks."""
+    chunks it saves. Ingest-sized calls get 1 (no partials); at hidden 384
+    a query's 4 tiles of 128 tokens get 12 splits of 4 of the 48 chunks."""
     best = 1
-    for d in range(1, chunks // KERNEL_MIN_CHUNKS + 1):
+    for d in range(1, chunks // min_chunks + 1):
         if chunks % d == 0:
             best = d
             if tiles * d >= sms:
                 break
     return best
+
+
+def launch_plan(n: int, h_dim: int, i_dim: int, sms: int):
+    """K3's launch for n tokens: (tokens a block, I chunk, splits)."""
+    tokens, chunk, min_chunks = KERNEL_TILING[h_dim]
+    tiles = round_up(n, tokens) // tokens
+    return tokens, chunk, split_count(tiles, i_dim // chunk, sms, min_chunks)
+
+
+def block_smem_bytes(h_dim: int) -> int:
+    """Dynamic shared memory of a K3 block, as csrc/fused_ffn.cu sizes it:
+    the block's x rows (bf16, two warpgroups' at 384, one shared tile at
+    768), a ring of 2 stages of one I chunk of W1 and of W2, and 1 KB of
+    alignment."""
+    tokens, chunk, _ = KERNEL_TILING[h_dim]
+    return tokens * h_dim * 2 + 2 * (2 * h_dim * chunk * 2) + 1024
+
+
+def accumulator_registers(h_dim: int) -> int:
+    """f32 registers of y a thread of K3 holds: each of the two warpgroups
+    (128 threads) owns 64 token rows and, at 768, half of y's columns."""
+    tokens, _, _ = KERNEL_TILING[h_dim]
+    rows, cols = (tokens // 2, h_dim) if h_dim == KERNEL_HIDDEN else (tokens, h_dim // 2)
+    return rows * cols // 128
 
 
 def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -80,10 +117,11 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     orig_shape = x.shape
     h_dim = orig_shape[-1]
     i_dim = w1.shape[1]
-    if (h_dim != KERNEL_HIDDEN or w1.shape != (h_dim, i_dim) or w2.shape != (i_dim, h_dim)
-            or b1.shape != (i_dim,) or b2.shape != (h_dim,) or i_dim % KERNEL_CHUNK):
-        raise ValueError(f"fused_ffn kernel takes H={KERNEL_HIDDEN} and I a multiple of "
-                         f"{KERNEL_CHUNK}; got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
+    if (not kernel_takes(h_dim, i_dim) or w1.shape != (h_dim, i_dim)
+            or w2.shape != (i_dim, h_dim) or b1.shape != (i_dim,) or b2.shape != (h_dim,)):
+        raise ValueError(f"fused_ffn kernel takes H={KERNEL_HIDDEN} with I a multiple of "
+                         f"{KERNEL_CHUNK}, or H={WIDE_HIDDEN} with I a multiple of "
+                         f"{WIDE_CHUNK}; got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_ffn kernel takes bfloat16, x is {x.dtype}")
@@ -100,8 +138,8 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if n == 0:
         return x.new_empty(orig_shape)
     out = torch.empty((n, h_dim), dtype=x.dtype, device=dev)
-    splits = split_count(round_up(n, KERNEL_TOKENS) // KERNEL_TOKENS, i_dim // KERNEL_CHUNK,
-                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    _, _, splits = launch_plan(n, h_dim, i_dim,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
     partial = (torch.empty((splits, n, h_dim), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     kernel_lib.launch("fused_ffn", "frag_fused_ffn", dev,
@@ -134,5 +172,5 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x [..., H] -> [..., H] in x.dtype, the [.., I] intermediate kept on
     chip. Differentiable in x and the weights. The CUDA kernel takes bf16 x
-    at H = 384 (the weights are cast to x's dtype)."""
+    at H = 384 or 768 (the weights are cast to x's dtype)."""
     return FusedFFN.apply(x, w1, b1, w2, b2)

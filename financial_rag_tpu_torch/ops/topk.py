@@ -45,11 +45,17 @@ EXACT_CHUNK = 128       # corpus columns the exact f32 CUDA sweep scores per ste
 EXACT_MAX_K = 128       # list length of the exact CUDA sweep
 SWEEP_ROWS = 32         # corpus rows a tile of the K5-K7 Hopper sweeps
 EXACT_ROW_KEYS = {torch.bfloat16: 224, torch.int8: 256}  # a row's list + buffer in K6's Hopper sweep
-SWEEP_MAX_D = 384       # the K5-K7 Hopper sweeps zero-pad the features to this
+SWEEP_NARROW_D = 384    # the K5-K7 Hopper sweeps zero-pad the features to this or
+SWEEP_MAX_D = 768       # to this (bge-base, gte-base)
+EXACT_MAX_D = 384       # K6's Hopper sweep takes the narrow width only
+SWEEP_WG_ROW_BYTES = 768  # padded rows this wide or narrower leave two query
+                          # warpgroups (128 queries) a block room for a ring
+SMEM_BLOCK_LIMIT = 232448  # dynamic shared memory a block may take on the H100 (227 KB)
+SWEEP_SMEM_BUDGET = 229376  # what K5's and K6's rings size themselves to (224 KB)
 BUCKETED_MAX_BUCKETS = 4096  # K5's extract holds this many bucket maxima
 PACKED_ROWS = 64        # queries per warpgroup of the packed sweep (K4); 2 a block from 128
 PACKED_COLUMNS = 32     # bucket columns per block of K4's bf16 sweep
-PACKED_MAX_D = 384      # K4's bf16 sweep zero-pads the features to this width
+PACKED_MAX_D = 768      # K4's bf16 sweep zero-pads the features to 384 or to this
 
 
 def _tile_scores(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -147,14 +153,48 @@ def packed_tile_groups(ntiles: int, base_blocks: int, sms: int) -> int:
     return -(-ntiles // groups)
 
 
-def packed_sweep_grid(bq: int, n: int, sms: int, block_n: int = 1024):
-    """K4's launch plan for Bq queries over N corpus rows: (Bqp, block_n,
-    bits, tiles_per_group, groups). Queries are tiled by 128 from Bqp = 128
-    on, else by 64; bucket columns by PACKED_COLUMNS; the scratch is
-    [groups, Bqp, block_n]."""
+def padded_width(d: int) -> int:
+    """The feature width the Hopper sweeps pad a row of D features to."""
+    return SWEEP_NARROW_D if d <= SWEEP_NARROW_D else SWEEP_MAX_D
+
+
+def query_tile(bqp: int, row_bytes: int) -> int:
+    """Queries a block of the Hopper sweeps (K4, K5, K7) takes: 128 (two
+    warpgroups) from Bqp = 128 on where a padded row of ``row_bytes`` leaves
+    two warpgroups' queries room for a ring of corpus stages, else 64."""
+    return 2 * KERNEL_QUERY_TILE if bqp >= 2 * KERNEL_QUERY_TILE and \
+        row_bytes <= SWEEP_WG_ROW_BYTES else KERNEL_QUERY_TILE
+
+
+def packed_sweep_smem(d: int, qtile: int):
+    """(stages, dynamic shared-memory bytes) of a block of K4's bf16 sweep,
+    as csrc/packed_topk.cu's Sweep sizes it: per 64-query warpgroup its
+    queries (d/64 regions of 8 KB at the padded width), and a ring of
+    corpus stages (d/64 boxes of 32 rows x 128 bytes): 6 or 5 stages at 384,
+    2 at 768 (where a block takes one warpgroup)."""
+    pd, wg = padded_width(d), qtile // KERNEL_QUERY_TILE
+    stages = 2 if pd == SWEEP_MAX_D else (6 if wg == 1 else 5)
+    return stages, wg * (pd // 64) * 8192 + stages * (pd // 64) * 4096 + 1024
+
+
+def bucketed_sweep_smem(row_bytes: int, qtile: int):
+    """(stages, dynamic shared-memory bytes) of a block of K5's and K7's
+    int8 / bf16 sweep over padded rows of ``row_bytes``, as
+    csrc/bucketed_topk.cu's BucketSweep sizes it: the queries, then as many
+    corpus stages (32 rows a stage) as SWEEP_SMEM_BUDGET leaves, at most 12."""
+    regions, wg = row_bytes // 128, qtile // KERNEL_QUERY_TILE
+    stages = min((SWEEP_SMEM_BUDGET - 1024 - wg * regions * 8192) // (regions * 4096), 12)
+    return stages, 1024 + wg * regions * 8192 + stages * regions * 4096
+
+
+def packed_sweep_grid(bq: int, n: int, sms: int, block_n: int = 1024, d: int = 384):
+    """K4's launch plan for Bq queries over N corpus rows of D features:
+    (Bqp, block_n, bits, tiles_per_group, groups). Queries are tiled by 128
+    from Bqp = 128 on at D <= 384, else by 64 (``query_tile``); bucket
+    columns by PACKED_COLUMNS; the scratch is [groups, Bqp, block_n]."""
     block_n, ntiles, bits = _packing(n, block_n)
     bqp = round_up(max(bq, 1), PACKED_ROWS)
-    qtile = 2 * PACKED_ROWS if bqp >= 2 * PACKED_ROWS else PACKED_ROWS
+    qtile = query_tile(bqp, 2 * padded_width(d))
     base = -(-block_n // PACKED_COLUMNS) * -(-bqp // qtile)
     per_group = packed_tile_groups(ntiles, base, sms)
     return bqp, block_n, bits, per_group, -(-ntiles // per_group)
@@ -227,7 +267,7 @@ def packed_topk_fused(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.
     q = queries.to(corpus.dtype).contiguous()
     kernel_lib.require_aligned("packed_topk_fused", q, corpus, vf)
     bqp, block_n, bits, per_group, groups = packed_sweep_grid(
-        bq, n, torch.cuda.get_device_properties(dev).multi_processor_count, block_n)
+        bq, n, torch.cuda.get_device_properties(dev).multi_processor_count, block_n, d)
     b1 = torch.empty((groups, bqp, block_n), dtype=torch.int32, device=dev)
     b2 = torch.empty_like(b1)
     out_s = torch.empty((bq, k), dtype=torch.float32, device=dev)
@@ -336,39 +376,41 @@ def _kernel_inputs(name: str, queries: torch.Tensor, corpus: torch.Tensor, valid
     return q, qscale, vf, dev, code
 
 
-def _hopper_sweep(name: str, corpus: torch.Tensor) -> bool:
+def _hopper_sweep(name: str, corpus: torch.Tensor, max_d: int = SWEEP_MAX_D) -> bool:
     """Whether K5-K7 take their Hopper sweep (int8 and bf16 corpora, D <=
-    SWEEP_MAX_D; raises beyond that) rather than the f32 one."""
+    ``max_d``; raises beyond that) rather than the f32 one."""
     if corpus.dtype == torch.float32:
         return False
-    if corpus.shape[1] > SWEEP_MAX_D:
+    if corpus.shape[1] > max_d:
         raise ValueError(f"{name}: D={corpus.shape[1]} above the int8/bf16 sweep's "
-                         f"{SWEEP_MAX_D} features")
+                         f"{max_d} features")
     return True
 
 
-def bucketed_sweep_grid(bq: int, n: int, nbuckets: int, sms: int):
+def bucketed_sweep_grid(bq: int, n: int, nbuckets: int, sms: int, row_bytes: int = 768):
     """K5's and K7's launch plan for their int8 / bf16 sweep, Bq queries over N rows in
     nbuckets buckets: (Bqp, rounds_per_group, groups). A block owns
-    SWEEP_ROWS bucket positions, 64 queries (128 from Bqp = 128 on) and a
-    group of consecutive rounds, and holds a whole SM, so the groups stop
-    where the grid fills the SMs once; the scratch is [groups, Bqp,
-    nbuckets] keys."""
+    SWEEP_ROWS bucket positions, 64 queries (128 from Bqp = 128 on where a
+    padded row of ``row_bytes`` allows it: ``query_tile``) and a group of
+    consecutive rounds, and holds a whole SM, so the groups stop where the
+    grid fills the SMs once; the scratch is [groups, Bqp, nbuckets] keys."""
     bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
-    qtile = 2 * KERNEL_QUERY_TILE if bqp >= 2 * KERNEL_QUERY_TILE else KERNEL_QUERY_TILE
+    qtile = query_tile(bqp, row_bytes)
     rounds = -(-n // nbuckets)
     base = -(-nbuckets // SWEEP_ROWS) * -(-bqp // qtile)
     per_group = packed_tile_groups(rounds, base, sms)
     return bqp, per_group, -(-rounds // per_group)
 
 
-def bucketed_launch_plan(bq: int, n: int, nbuckets: int, sms: int, *, hopper: bool):
+def bucketed_launch_plan(bq: int, n: int, nbuckets: int, sms: int, *, hopper: bool,
+                         row_bytes: int = 768):
     """(Bqp, rounds_per_group, groups) of a K5 or K7 launch: the Hopper
-    sweep's ``bucketed_sweep_grid`` (int8 and bf16 corpora), else the f32
-    sweep's blocks of 64 queries and KERNEL_COLUMNS bucket positions with
-    ~8 a SM in flight (``tile_groups``)."""
+    sweep's ``bucketed_sweep_grid`` (int8 and bf16 corpora, padded rows of
+    ``row_bytes``), else the f32 sweep's blocks of 64 queries and
+    KERNEL_COLUMNS bucket positions with ~8 a SM in flight
+    (``tile_groups``)."""
     if hopper:
-        return bucketed_sweep_grid(bq, n, nbuckets, sms)
+        return bucketed_sweep_grid(bq, n, nbuckets, sms, row_bytes)
     bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
     rounds = -(-n // nbuckets)
     per_group = tile_groups(rounds, (nbuckets // KERNEL_COLUMNS) * (bqp // KERNEL_QUERY_TILE), sms)
@@ -405,7 +447,7 @@ def _bucketed_launch(name: str, queries, corpus, valid, k: int, nbuckets: int, b
     bq = queries.shape[0]
     bqp, per_group, groups = bucketed_launch_plan(
         bq, n, nbuckets, torch.cuda.get_device_properties(dev).multi_processor_count,
-        hopper=hopper)
+        hopper=hopper, row_bytes=padded_width(corpus.shape[1]) * corpus.element_size())
     keys = torch.empty((groups, bqp, nbuckets), dtype=torch.int64, device=dev)
     width = k if k > 0 else nbuckets
     out_s = torch.empty((bq, width), dtype=torch.float32, device=dev)
@@ -502,7 +544,7 @@ def topk_matmul(queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor
                          f"{block_n}, itself a multiple of {EXACT_CHUNK}")
     if not 1 <= k <= min(EXACT_MAX_K, n):
         raise ValueError(f"topk_matmul: k={k} outside the kernel's [1, {EXACT_MAX_K}]")
-    hopper = _hopper_sweep("topk_matmul", corpus)
+    hopper = _hopper_sweep("topk_matmul", corpus, EXACT_MAX_D)
     q, qscale, vf, dev, code = _kernel_inputs("topk_matmul", queries, corpus, valid,
                                               pad=not hopper)
     bq = queries.shape[0]

@@ -84,29 +84,33 @@ def _checkpoint_config(path: Optional[str]) -> Optional[ModelConfig]:
 def check_kernel_widths(cfg: FrameworkConfig) -> None:
     """The CUDA path runs every encoder and reranker layer through K2 and
     K3, and a bf16 or int8 flat index through K4-K7, which take only the
-    widths they were built for; the JAX package and the CPU take any. Raise
+    widths they were built for (head_dim 32 or 64; hidden 384 or 768; D up
+    to 768); the JAX package and the CPU take any. Raise
     NotImplementedError at build, naming each kernel and its limit, rather
-    than on the first encode or search."""
+    than on the first encode or search. (K6, which takes D <= 384, serves
+    only a FlatIndex built with backend ``pallas_exact``, never the
+    runtime's; that index refuses wider rows itself.)"""
     models = {"baai": cfg.encoders.baai_path, "gte": cfg.encoders.gte_path}
     if cfg.rerank.enabled:
         models["reranker"] = cfg.rerank.model_path
     flat_sweep = cfg.index.kind != "ivf" and cfg.index.dtype in ("bfloat16", "int8")
     max_d = min(topk.PACKED_MAX_D, topk.SWEEP_MAX_D)
+    heads = " or ".join(map(str, flash_attention.FWD_HEAD_DIMS))
+    ffn_widths = " or ".join(f"{h} (intermediate a multiple of {chunk})"
+                             for h, (_, chunk, _) in fused_ffn.KERNEL_TILING.items())
     problems = []
     for name, path in models.items():
         mc = _checkpoint_config(path)
         if mc is None:
             continue
         head_dim = mc.hidden_size // mc.num_heads
-        if head_dim != flash_attention.KERNEL_HEAD_DIM:
-            problems.append(f"{name}: head_dim {head_dim}, but flash_attention (K2) takes "
-                            f"head_dim {flash_attention.KERNEL_HEAD_DIM} only")
-        if (mc.hidden_size != fused_ffn.KERNEL_HIDDEN
-                or mc.intermediate_size % fused_ffn.KERNEL_CHUNK):
+        if mc.hidden_size % mc.num_heads or head_dim not in flash_attention.FWD_HEAD_DIMS:
+            problems.append(f"{name}: head_dim {mc.hidden_size / mc.num_heads:g}, but "
+                            f"flash_attention (K2) takes head_dim {heads}")
+        if not fused_ffn.kernel_takes(mc.hidden_size, mc.intermediate_size):
             problems.append(f"{name}: hidden {mc.hidden_size} / intermediate "
                             f"{mc.intermediate_size}, but fused_ffn (K3) takes hidden "
-                            f"{fused_ffn.KERNEL_HIDDEN} and an intermediate width that is "
-                            f"a multiple of {fused_ffn.KERNEL_CHUNK}")
+                            f"{ffn_widths}")
         if name != "reranker" and flat_sweep and mc.hidden_size > max_d:
             problems.append(f"{name}: index dim {mc.hidden_size}, but the {cfg.index.dtype} "
                             f"flat sweeps (K4-K7) take D <= {max_d}")

@@ -40,6 +40,7 @@ from financial_rag_tpu_torch.config import ModelConfig
 from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.models.bert import bert_encode
 from financial_rag_tpu_torch.models.encoder import default_compute_dtype
+from financial_rag_tpu_torch.ops import flash_attention
 from financial_rag_tpu_torch.parallel import comm
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
@@ -254,6 +255,20 @@ def tp_arg(config: ModelConfig, mesh, model_axis: str):
     return (mesh, model_axis)
 
 
+def check_train_widths(config: ModelConfig, device: torch.device) -> None:
+    """On CUDA a training step runs the attention backward through K10,
+    which takes head_dim 32 only (K2, the forward, also takes 64): refuse
+    another width when the step is made, not in the middle of its first
+    backward. The CPU trains at any width."""
+    head_dim = config.hidden_size // config.num_heads
+    if device.type == "cuda" and (config.hidden_size % config.num_heads
+                                  or head_dim not in flash_attention.BWD_HEAD_DIMS):
+        raise NotImplementedError(
+            f"training on CUDA: head_dim {config.hidden_size / config.num_heads:g}, but the "
+            f"attention backward (K10) takes head_dim "
+            f"{' or '.join(map(str, flash_attention.BWD_HEAD_DIMS))} only")
+
+
 def make_train_step(
     config: ModelConfig,
     mesh=None,
@@ -276,6 +291,7 @@ def make_train_step(
     master copies of this rank's shards on the device with the optimizer
     over them."""
     device = resolve_device(device)
+    check_train_widths(config, device)
     dt = resolve_compute_dtype(device, compute_dtype)
     tp = tp_arg(config, mesh, model_axis)
 

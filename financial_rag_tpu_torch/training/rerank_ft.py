@@ -34,6 +34,7 @@ from financial_rag_tpu_torch.tokenizer import WordPieceTokenizer
 from financial_rag_tpu_torch.training.contrastive import (
     OptimizerFactory,
     adamw,
+    check_train_widths,
     gather_params,
     make_step,
     resolve_compute_dtype,
@@ -209,6 +210,7 @@ def make_rerank_train_step(
     contrastive.make_train_step (B divisible by the data axis's size).
     """
     device = resolve_device(device)
+    check_train_widths(config, device)
     dt = resolve_compute_dtype(device, compute_dtype)
     tp = tp_arg(config, mesh, model_axis)
 

@@ -266,6 +266,160 @@ def test_fused_ffn_kernel_rejects_float32(gen):
         ffn.fused_ffn(x, w1, _randn(gen, 1536), w2, _randn(gen, 384))
 
 
+# ------------------------------------------------ the bge-base width (768)
+
+
+@pytest.mark.parametrize("b,s", [(3, 1), (3, 64), (3, 100), (2, 512), (130, 70)])
+def test_flash_attention_kernel_at_head_dim_64(gen, b, s):
+    """K2 at 12 heads of 64 (hidden 768): S = 1, 64 (one warpgroup a
+    block), 100 and 70 (part-filled key and query tiles), 512; a padded row
+    and a fully masked one (the mean of v), B = 130 (not a multiple of
+    anything). Within 3e-2 of the plain version."""
+    h = 768
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=12))
+    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=12)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(out[-1].float(), v[-1].float().mean(0).expand(s, h),
+                               atol=3e-2, rtol=0)
+
+
+def test_flash_attention_kernel_at_head_dim_64_skips_dead_key_tiles_exactly(gen):
+    """The dead-key argument at head_dim 64: padding at -1e9 (skipped tiles)
+    and at -3e4 (walked, every exponential exactly 0) give the same bits for
+    every row with a live key, leading and trailing padding alike."""
+    b, s, h = 5, 300, 768
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    pos = torch.arange(s, device="cuda")[None, :]
+    lo = torch.tensor([0, 0, 130, 250, 0], device="cuda")[:, None]
+    hi = torch.tensor([300, 1, 300, 300, 65], device="cuda")[:, None]
+    live = (pos >= lo) & (pos < hi)
+    skip = _launches_once(fa, lambda: fa.flash_attention(
+        q, k, v, torch.where(live, 0.0, -1e9).float(), num_heads=12))
+    walk = fa.flash_attention(q, k, v, torch.where(live, 0.0, -3e4).float(), num_heads=12)
+    assert torch.equal(skip, walk)
+    ref = fa.flash_attention_plain(q, k, v, torch.where(live, 0.0, -1e9).float(), num_heads=12)
+    torch.testing.assert_close(skip.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 64, 129, 512, 999, 17030])
+def test_fused_ffn_kernel_at_hidden_768(gen, n):
+    """K3's 768-wide design at I = 3,072 (bge-base): 1, 129, 999 and 17,030
+    tokens leave the last 64-token tile ragged; up to 999 the I axis is
+    split and f32 partials are summed, 17,030 is one block a tile. Within
+    3e-2 of the plain version."""
+    bf16 = torch.bfloat16
+    h, i = 768, 3072
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, splits = ffn.launch_plan(n, h, i, sms)
+    assert (splits > 1) == (n < 17030)
+    x = _randn(gen, n, h, dtype=bf16)
+    w1 = _randn(gen, h, i, dtype=bf16, scale=h ** -0.5)
+    w2 = _randn(gen, i, h, dtype=bf16, scale=i ** -0.5)
+    b1, b2 = _randn(gen, i, dtype=bf16, scale=0.1), _randn(gen, h, dtype=bf16, scale=0.1)
+    out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+    ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_norm_kernel_at_hidden_768(gen, dtype):
+    hidden = _randn(gen, 70, 130, 768, dtype=DTYPES[dtype])
+    mask = _mask(70, 130)
+    out = _launches_once(pn, lambda: pn.masked_mean_l2_normalize(hidden, mask))
+    ref = pn.masked_mean_l2_normalize_plain(hidden, mask)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [208, 1024, 4096, 102400])
+@pytest.mark.parametrize("bq", [1, 8, 65, 128, 192])
+def test_packed_topk_kernel_at_d768_exactly(gen, bq, n):
+    """K4's 768-wide sweep (one warpgroup, 2 stages) on exact-grid data with
+    ties and 5% dead rows: N = 208 (one ragged tile of 6.5 column blocks),
+    one tile, 4 and 100 tiles; Bq on both sides of the 64-query tile. Bit
+    for bit the plain version."""
+    q, x = _grid(gen, bq, 768), _grid(gen, n, 768)
+    if n >= 2048:
+        x[1024:2048] = x[:1024]
+    x[min(70, n - 1)] = x[5]
+    x = x.bfloat16()
+    valid = (torch.rand(n, generator=gen, device="cuda") > 0.05).float()
+    k = min(24, n)
+    out_s, out_i = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, k),
+                                  "packed_topk_fused")
+    ref_s, ref_i = topk.packed_topk_fused_plain(q, x, valid, k)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("d", [400, 512])
+def test_packed_topk_kernel_between_the_widths(gen, d):
+    """384 < D < 768 takes the 768-wide sweep with the features past D
+    zero: bit for bit the plain version."""
+    q, x = _grid(gen, 70, d), _grid(gen, 4096, d).bfloat16()
+    valid = (torch.rand(4096, generator=gen, device="cuda") > 0.05).float()
+    out = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24), "packed_topk_fused")
+    ref = topk.packed_topk_fused_plain(q, x, valid, 24)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+
+
+@pytest.mark.parametrize("name", ["bucketed_topk_fused", "bucketed_topk"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("n", [1024, 4096, 16384, 102400])
+@pytest.mark.parametrize("bq", [1, 65, 128, 200])
+def test_bucketed_sweeps_at_d768_exactly(gen, name, bq, n, dtype):
+    """K5 and K7 at D = 768: int8 (two query warpgroups, a 5-stage ring)
+    and bf16 (one warpgroup, 2 stages) on exact-grid data with ties and 5%
+    dead rows: the int8 sweep's integer dots (127 * 127 * 768 < 2^24) and
+    both sweeps' selection bit for bit the plain version."""
+    kernel, plain = SWEEPS[name]
+    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype, d=768)
+    out_s, out_i = _launches_once(topk, lambda: kernel(q, x, valid, 24), name)
+    ref_s, ref_i = plain(q, x, valid, 24)
+    assert torch.equal(out_i, ref_i)
+    assert torch.equal(out_s, ref_s)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_probe_kernel_at_d768(gen, dtype):
+    nlist, L, B, P = 16, 128, 9, 5
+    if dtype == "int8":
+        storage = torch.randint(-127, 128, (nlist, L, 768), generator=gen, device="cuda").to(torch.int8)
+        q = torch.randint(-127, 128, (B, 768), generator=gen, device="cuda").to(torch.int8)
+        weights = torch.full((nlist, L), 1.0 / 127.0, device="cuda")
+    else:
+        storage = _randn(gen, nlist, L, 768, scale=768 ** -0.5).to(torch.bfloat16)
+        q = _randn(gen, B, 768, scale=768 ** -0.5).to(torch.bfloat16)
+        weights = torch.ones(nlist, L, device="cuda")
+    weights[:, 100:] = 0.0
+    probes = torch.randint(0, nlist, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+    out = _launches_once(ivf_probe, lambda: ivf_probe.probe_scores(q, storage, weights, probes))
+    ref = ivf_probe.probe_scores_plain(q, storage, weights, probes)
+    if dtype == "int8":
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_wide_kernels_reject_what_they_cannot_take(gen):
+    """K2 at head_dim 128, K3 at hidden 1,024 or I not a multiple of 16
+    at 768: raised before any launch, never the plain version."""
+    bf16 = torch.bfloat16
+    x = _randn(gen, 2, 64, 1024, dtype=bf16)
+    with pytest.raises(ValueError, match="head_dim 32 or 64"):
+        fa.flash_attention(x, x, x, torch.zeros(2, 64, device="cuda"), num_heads=8)
+    w1, w2 = _randn(gen, 1024, 4096, dtype=bf16), _randn(gen, 4096, 1024, dtype=bf16)
+    with pytest.raises(ValueError, match="H=768 with I a multiple of 16"):
+        ffn.fused_ffn(x, w1, _randn(gen, 4096, dtype=bf16), w2, _randn(gen, 1024, dtype=bf16))
+    x = _randn(gen, 64, 768, dtype=bf16)
+    w1, w2 = _randn(gen, 768, 3000, dtype=bf16), _randn(gen, 3000, 768, dtype=bf16)
+    with pytest.raises(ValueError, match="H=768 with I a multiple of 16"):
+        ffn.fused_ffn(x, w1, _randn(gen, 3000, dtype=bf16), w2, _randn(gen, 768, dtype=bf16))
+
+
 def _grid(gen, *shape):
     """Coordinates on a 1/64 grid: every score is exact in f32 whatever the
     summation order, so kernel and plain version must agree bit for bit."""
@@ -336,8 +490,8 @@ def test_packed_topk_kernel_on_narrow_features(gen, d):
 
 
 def test_packed_topk_kernel_rejects_what_it_cannot_take(gen):
-    q, x, valid = _grid(gen, 2, 512), _grid(gen, 1024, 512).bfloat16(), torch.ones(1024, device="cuda")
-    with pytest.raises(ValueError, match="at most 384"):
+    q, x, valid = _grid(gen, 2, 1024), _grid(gen, 1024, 1024).bfloat16(), torch.ones(1024, device="cuda")
+    with pytest.raises(ValueError, match="at most 768"):
         topk.packed_topk_fused(q, x, valid, 24)
     with pytest.raises(ValueError, match=r"\[1, 256\]"):
         topk.packed_topk_fused(q[:, :384], x[:, :384].contiguous(), valid, 257)
@@ -521,8 +675,8 @@ def test_bucketed_topk_kernel_rejects_what_the_hopper_sweep_cannot_take(gen):
     """K7 raises where its int8 / bf16 sweep cannot take a shape, and does
     not take the older sweep instead."""
     valid = torch.ones(1024, device="cuda")
-    q, x = _grid(gen, 2, 512), _grid(gen, 1024, 512).bfloat16()
-    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 384"):
+    q, x = _grid(gen, 2, 1024), _grid(gen, 1024, 1024).bfloat16()
+    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 768"):
         topk.bucketed_topk(q, x, valid, 24)
     q, x = q[:, :384].contiguous(), x[:, :384].contiguous()
     with pytest.raises(ValueError, match="multiples of 32"):   # 48 buckets
@@ -614,11 +768,13 @@ def test_exact_kernel_when_every_tile_beats_the_last(gen, dtype, k):
 
 
 def test_hopper_sweeps_reject_what_they_cannot_take(gen):
-    q, x = _grid(gen, 2, 512), (_grid(gen, 1024, 512) * 64).to(torch.int8)
+    """K5 takes D <= 768, K6 D <= 384; k and D's multiple as before."""
+    q, x = _grid(gen, 2, 1024), (_grid(gen, 1024, 1024) * 64).to(torch.int8)
     valid = torch.ones(1024, device="cuda")
-    for fn in (topk.bucketed_topk_fused, topk.topk_matmul):
-        with pytest.raises(ValueError, match="above the int8/bf16 sweep's 384"):
-            fn(q, x, valid, 24)
+    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 768"):
+        topk.bucketed_topk_fused(q, x, valid, 24)
+    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 384"):
+        topk.topk_matmul(q[:, :512].contiguous(), x[:, :512].contiguous(), valid, 24)
     x = x[:, :384].contiguous()
     with pytest.raises(ValueError, match=r"\[1, 128\]"):
         topk.topk_matmul(q[:, :384], x, valid, 129)

@@ -250,21 +250,33 @@ def wide_checkpoint(tmp_path_factory):
 
 def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tmp_path,
                                                               monkeypatch):
-    """On CUDA, Runtime.build refuses a 768-wide encoder before it loads a
-    weight or creates the data dir, naming K2's, K3's and the flat sweeps'
-    limits; the CPU serves the same checkpoint."""
+    """On CUDA the bge-base width (768 = 12 heads of 64, FFN 3,072, D 768)
+    passes the kernels' width check, and Runtime.build refuses a
+    bge-large-like encoder with heads of 128 (hidden 1,024) before it loads
+    a weight or creates the data dir, naming K2's, K3's and the flat
+    sweeps' limits; the CPU serves the 768-wide checkpoint."""
     import financial_rag_tpu_torch.runtime as runtime_mod
 
     cfg = FrameworkConfig()
     cfg.encoders.baai_path = str(wide_checkpoint)
     cfg.encoders.gte_path = cfg.rerank.model_path = None
+    check_supported(cfg, torch.device("cuda"))
+
+    large = tmp_path / "large"
+    large.mkdir()
+    (large / "config.json").write_text(json.dumps({
+        "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 8,
+        "intermediate_size": 4096, "vocab_size": 30522, "max_position_embeddings": 512}))
+    wide_cfg = FrameworkConfig()
+    wide_cfg.encoders.baai_path = str(large)
+    wide_cfg.encoders.gte_path = wide_cfg.rerank.model_path = None
     monkeypatch.setattr(runtime_mod, "resolve_device", lambda device: torch.device("cuda"))
     with pytest.raises(NotImplementedError) as err:
-        Runtime.build(cfg, data_dir=tmp_path / "cuda")
+        Runtime.build(wide_cfg, data_dir=tmp_path / "cuda")
     msg = str(err.value)
-    assert "baai: head_dim 64, but flash_attention (K2) takes head_dim 32 only" in msg
-    assert "fused_ffn (K3) takes hidden 384" in msg
-    assert "flat sweeps (K4-K7) take D <= 384" in msg
+    assert "baai: head_dim 128, but flash_attention (K2) takes head_dim 32 or 64" in msg
+    assert "fused_ffn (K3) takes hidden 384 (intermediate a multiple of 32) or 768" in msg
+    assert "flat sweeps (K4-K7) take D <= 768" in msg
     assert not (tmp_path / "cuda").exists()
     monkeypatch.undo()
 
@@ -276,9 +288,12 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
 
 @pytest.mark.parametrize("hidden,heads,inter,kind,refused", [
     (384, 12, 1536, "flat", None),                   # bge-small / gte-small / MiniLM
-    (768, 12, 3072, "flat", "K2"),                   # bge-base: head_dim 64
-    (768, 24, 3072, "ivf", "K3"),                    # head_dim 32, but hidden 768
-    (384, 12, 1000, "flat", "multiple of 32"),       # K3's intermediate chunks
+    (768, 12, 3072, "flat", None),                   # bge-base / gte-base: head_dim 64
+    (768, 24, 3072, "ivf", None),                    # head_dim 32 at hidden 768
+    (384, 12, 1000, "flat", "multiple of 32"),       # K3's intermediate chunks at 384
+    (768, 12, 3000, "flat", "multiple of 16"),       # and at 768
+    (1024, 16, 4096, "flat", "K3"),                  # bge-large: head_dim 64, hidden 1,024
+    (1024, 8, 4096, "ivf", "K2"),                    # head_dim 128
 ])
 def test_check_supported_reads_the_checkpoint_widths(tmp_path, hidden, heads, inter, kind,
                                                      refused):

@@ -1,0 +1,415 @@
+"""The bge-base width (hidden 768, 12 heads of 64, FFN 3,072, index D 768)
+in the port against the JAX package.
+
+Each plain PyTorch version the widened kernels are held against on the card
+(K2 at head_dim 64, K3 at hidden 768, K4, K5 and K7 at D 768) runs on the
+same numpy inputs as the JAX function, with Pallas in interpret mode; the
+wrappers' launch plans at the new widths are checked as plain Python; and a
+2-layer bge-base-shape runtime in the port answers the golden questions as
+the JAX runtime does.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from financial_rag_tpu.config import FrameworkConfig as JaxFrameworkConfig
+from financial_rag_tpu.config import ModelConfig as JaxModelConfig
+from financial_rag_tpu.models import checkpoint as jckpt
+from financial_rag_tpu.ops import flash_attention as jax_flash_attention
+from financial_rag_tpu.ops import packed_topk_fused as jax_packed_topk_fused
+from financial_rag_tpu.ops import topk as jax_topk
+from financial_rag_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
+from financial_rag_tpu.runtime import Runtime as JaxRuntime
+from financial_rag_tpu_torch.config import FrameworkConfig, ModelConfig
+from financial_rag_tpu_torch.index import flat as flat_mod
+from financial_rag_tpu_torch.ops import flash_attention as fa
+from financial_rag_tpu_torch.ops import fused_ffn as ffn
+from financial_rag_tpu_torch.ops import topk
+from financial_rag_tpu_torch.runtime import Runtime
+from financial_rag_tpu_torch.training import contrastive, rerank_ft
+
+torch.set_num_threads(2)
+
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+H100_SMS = 132
+
+
+def _both(x: np.ndarray, dtype: str = "float32"):
+    return (jnp.asarray(x, JAX_DT[dtype]),
+            torch.from_numpy(np.ascontiguousarray(x)).to(TORCH_DT[dtype]))
+
+
+def _np(t) -> np.ndarray:
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _grid(rng, shape):
+    """Coordinates on a 1/16 grid: every dot product of 768 features is an
+    exact multiple of 2^-8 below 2^24 of them, so exact in f32 (and in
+    bf16 storage) whatever the summation order."""
+    return (rng.integers(-3, 4, size=shape) / 16.0).astype(np.float32)
+
+
+# --------------------------------------------------------------------- K2
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+def test_flash_attention_plain_matches_pallas_at_head_dim_64(dtype, atol):
+    """Two heads of 64 (h = 128), S = 128: a padded row and a fully masked
+    one, against the Pallas kernel in interpret mode; the bars of the
+    head_dim 32 test."""
+    rng = np.random.default_rng(21)
+    b, s, h, heads = 3, 128, 128, 2
+    q, k, v = (rng.standard_normal((b, s, h)).astype(np.float32) for _ in range(3))
+    mask = np.ones((b, s), np.int32)
+    mask[0, 70:] = 0
+    mask[2, :] = 0
+    bias = np.where(mask > 0, 0.0, -1e9).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = _both(q, dtype), _both(k, dtype), _both(v, dtype)
+    ref = jax_flash_attention(jq, jk, jv, jnp.asarray(bias.reshape(b, 1, 1, s)),
+                              num_heads=heads, interpret=True)
+    out = fa.flash_attention_plain(tq, tk, tv, torch.from_numpy(bias), num_heads=heads)
+    assert out.dtype == TORCH_DT[dtype] and out.shape == (b, s, h)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=atol)
+
+
+# --------------------------------------------------------------------- K3
+
+
+def _gelu_gap() -> float:
+    v = np.linspace(-12, 12, 480001)
+    exact = np.asarray(jax.nn.gelu(jnp.asarray(v, jnp.float32), approximate=False), np.float64)
+    tanh = np.asarray(jax.nn.gelu(jnp.asarray(v, jnp.float32), approximate=True), np.float64)
+    return float(np.abs(exact - tanh).max())
+
+
+def test_fused_ffn_plain_vs_pallas_at_hidden_768_within_gelu_gap():
+    """300 tokens (not a multiple of any tile) at H = 768, I = 3,072: the TPU
+    kernel's tanh GELU against the port's erf GELU, each output within
+    gap * ||W2[:, j]||_1 (+ f32 summation noise)."""
+    rng = np.random.default_rng(22)
+    n, h, i = 300, 768, 3072
+    x = rng.standard_normal((n, h)).astype(np.float32)
+    w1 = (rng.standard_normal((h, i)) / np.sqrt(h)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(i)).astype(np.float32)
+    w2 = (rng.standard_normal((i, h)) / np.sqrt(i)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(h)).astype(np.float32)
+    ref = np.asarray(jax_fused_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)),
+                                   interpret=True))
+    out = ffn.fused_ffn_plain(*(torch.from_numpy(a) for a in (x, w1, b1, w2, b2))).numpy()
+    bound = _gelu_gap() * np.abs(w2).sum(axis=0) + 1e-4
+    assert out.shape == (n, h)
+    assert np.all(np.abs(out - ref) <= bound[None, :])
+    assert np.abs(out - ref).max() > 1e-6
+
+
+# ------------------------------------------------------------- K4, K5, K7
+
+
+def _wide_corpus(case):
+    """7 queries over 4,096 rows of D = 768 on the exact grid, with dead
+    slots or repeated rows (ties within a tile, across tiles and across
+    bucket rounds)."""
+    rng = np.random.default_rng(23)
+    n, d = 4096, 768
+    q, x = _grid(rng, (7, d)), _grid(rng, (n, d))
+    valid = np.ones(n, np.float32)
+    if case == "dead_slots":
+        valid[rng.choice(n, 1500, replace=False)] = 0.0
+    if case == "ties":
+        x[1024:2048] = x[:1024]
+        x[2048 + 5] = x[5]
+        x[70] = x[5]
+    return q, x, valid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["plain", "dead_slots", "ties"])
+def test_packed_topk_plain_matches_pallas_at_d768(case, dtype):
+    q, x, valid = _wide_corpus(case)
+    jq, tq = _both(q)
+    jx, tx = _both(x, dtype)
+    ref_s, ref_i = jax_packed_topk_fused(jq, jx, jnp.asarray(valid), 24, interpret=True)
+    out_s, out_i = topk.packed_topk_fused_plain(tq, tx, torch.from_numpy(valid), 24)
+    np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_array_equal(out_s.numpy(), np.asarray(ref_s))
+
+
+@pytest.mark.parametrize("name", ["bucketed_topk_fused", "bucketed_topk"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("case", ["plain", "dead_slots", "ties"])
+def test_bucketed_sweeps_plain_match_pallas_at_d768(name, case, dtype):
+    """K5 (the int8 index's sweep) and K7 at D = 768, 2,048 buckets (two
+    rounds): int8 rows are integers with a per-row weight, so the integer
+    dots and their weighting are exact, as they are in bf16 on the grid;
+    ids and scores agree bit for bit, dead slots and ties included."""
+    q, x, valid = _wide_corpus(case)
+    if dtype == "int8":
+        x8 = np.clip(np.round(x * 16), -127, 127)
+        jx, tx = jnp.asarray(x8, jnp.int8), torch.from_numpy(x8).to(torch.int8)
+        valid = valid * np.float32(0.01)
+    else:
+        jx, tx = _both(x, dtype)
+    jax_fn = getattr(jax_topk, name)
+    plain = getattr(topk, f"{name}_plain")
+    ref_s, ref_i = jax_fn(jnp.asarray(q), jx, jnp.asarray(valid), 24, interpret=True,
+                          nbuckets=2048)
+    out_s, out_i = plain(torch.from_numpy(q), tx, torch.from_numpy(valid), 24, nbuckets=2048)
+    np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_array_equal(out_s.numpy(), np.asarray(ref_s))
+
+
+# ------------------------------------------------------------ launch plans
+
+
+@pytest.mark.parametrize("s,consumers", [(64, 1), (128, 2), (512, 2)])
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_k2_block_fits_shared_memory(head_dim, s, consumers):
+    """K2's block at both head widths: one warpgroup at S <= 64, else two;
+    its Q tiles and 4-stage K/V ring in 227 KB, with room for two blocks an
+    SM at S > 64 (three at head_dim 64, S <= 64)."""
+    got, smem = fa.fwd_block(s, head_dim)
+    assert got == consumers
+    assert smem <= topk.SMEM_BLOCK_LIMIT
+    blocks = 2 if consumers == 2 else (4 if head_dim == 32 else 3)
+    assert blocks * (smem + 2048) <= 233472      # the SM's 228 KB, 1 KB reserved a block
+    assert head_dim in fa.FWD_HEAD_DIMS
+
+
+@pytest.mark.parametrize("h_dim,i_dim", [(384, 1536), (768, 3072)])
+def test_k3_block_fits_shared_memory_and_registers(h_dim, i_dim):
+    """K3's two designs: x rows and a 2-stage W1/W2 ring in 227 KB; each
+    warpgroup's f32 slice of y in 192 registers a thread (the 384-wide
+    design over 64 rows, the 768-wide one over its half of the columns),
+    under the 255 a thread of a 256-thread block."""
+    assert ffn.kernel_takes(h_dim, i_dim)
+    assert ffn.block_smem_bytes(h_dim) <= topk.SMEM_BLOCK_LIMIT
+    assert ffn.accumulator_registers(h_dim) == 192
+
+
+@pytest.mark.parametrize("n,h_dim,plan", [
+    (512, 384, (128, 32, 12)), (131072, 384, (128, 32, 1)),
+    (512, 768, (64, 16, 24)), (131072, 768, (64, 16, 1)), (999, 768, (64, 16, 12)),
+    (64, 768, (64, 16, 24)), (17030, 768, (64, 16, 1))])
+def test_k3_launch_plan(n, h_dim, plan):
+    """(tokens a block, I chunk, splits) on 132 SMs: a query's tokens split
+    the I axis so that the grid fills the card once, with each split
+    walking at least 128 I columns; an ingest batch is not split."""
+    i_dim = 1536 if h_dim == 384 else 3072
+    assert ffn.launch_plan(n, h_dim, i_dim, H100_SMS) == plan
+    tokens, chunk, splits = plan
+    assert (i_dim // splits) % chunk == 0 and i_dim // splits >= 128
+
+
+@pytest.mark.parametrize("bq,d,qtile,stages", [
+    (8, 384, 64, 6), (128, 384, 128, 5), (8, 768, 64, 2), (128, 768, 64, 2),
+    (192, 768, 64, 2), (384, 768, 64, 2)])
+def test_k4_sweep_plan_fits_shared_memory(bq, d, qtile, stages):
+    """K4's query tile and ring: at D = 768 one warpgroup of 64 queries and
+    2 stages of 48 KB (two warpgroups' 192 KB of queries would leave no
+    stage), so Bq = 128, 192 and 384 take 2, 3 and 6 query tiles over the
+    corpus; every block in 227 KB."""
+    bqp, _, _, _, groups = topk.packed_sweep_grid(bq, 102400, H100_SMS, d=d)
+    assert topk.query_tile(bqp, 2 * topk.padded_width(d)) == qtile
+    got, smem = topk.packed_sweep_smem(d, qtile)
+    assert got == stages and smem <= topk.SMEM_BLOCK_LIMIT
+    base = (1024 // topk.PACKED_COLUMNS) * -(-bqp // qtile)
+    assert base * groups <= H100_SMS or groups == 1
+
+
+@pytest.mark.parametrize("d,elem,bq,qtile,stages", [
+    (384, 1, 128, 128, 12), (384, 2, 128, 128, 5), (384, 2, 8, 64, 7),
+    (768, 1, 128, 128, 5), (768, 1, 1, 64, 7), (768, 2, 128, 64, 2), (768, 2, 1, 64, 2)])
+def test_k5_sweep_plan_fits_shared_memory(d, elem, bq, qtile, stages):
+    """K5's and K7's query tile and ring: an int8 row of 768 is 768 bytes,
+    a bf16 row of 384 is too, so the int8 sweep at 768 keeps two query
+    warpgroups and a 5-stage ring; a bf16 row of 768 leaves room for one
+    warpgroup and 2 stages. The plan the wrapper passes agrees."""
+    row_bytes = topk.padded_width(d) * elem
+    bqp, _, _ = topk.bucketed_sweep_grid(bq, 102400, 4096, H100_SMS, row_bytes)
+    assert topk.query_tile(bqp, row_bytes) == qtile
+    got, smem = topk.bucketed_sweep_smem(row_bytes, qtile)
+    assert got == stages and got >= 2 and smem <= topk.SMEM_BLOCK_LIMIT
+
+
+def test_int8_sweep_sums_stay_exact_at_d768():
+    """127 x 127 x 768 = 12,386,304 < 2^24: the int8 dot at D = 768 is an
+    integer an f32 holds exactly, as the plain version and the kernel's
+    int32-to-f32 conversion both assume."""
+    assert 127 * 127 * topk.SWEEP_MAX_D < 2 ** 24
+    x = torch.full((4, 768), 127, dtype=torch.int8)
+    assert topk._tile_scores(x, x)[0, 0].item() == 127 * 127 * 768
+
+
+# -------------------------------------------- refusals of what stays narrow
+
+
+def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
+    """On non-CPU tensors the wrappers check widths before the device: K2
+    head_dim 128, K10 head_dim 64, K3 hidden 1,024, K4 D 1,024; no launch
+    is counted and nothing falls back to a plain version."""
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, topk.LAUNCHES["packed_topk_fused"])
+    x = torch.empty(2, 65, 256, **meta)
+    bias = torch.zeros(2, 65, device="meta")
+    with pytest.raises(ValueError, match=r"\(K2\) takes head_dim 32 or 64"):
+        fa.flash_attention(x, x, x, bias, num_heads=2)
+    x = torch.empty(2, 65, 768, **meta)
+    with pytest.raises(ValueError, match=r"\(K10\) takes head_dim 32, got H=768 over 12"):
+        fa.flash_attention_bwd(x, x, x, torch.zeros(2, 65, device="meta"), x, num_heads=12)
+    x = torch.empty(8, 1024, **meta)
+    w1, w2 = torch.empty(1024, 4096, **meta), torch.empty(4096, 1024, **meta)
+    with pytest.raises(ValueError, match="H=768 with I a multiple of 16"):
+        ffn.fused_ffn(x, w1, torch.empty(4096, **meta), w2, torch.empty(1024, **meta))
+    q, c = torch.empty(2, 1024, **meta), torch.empty(1024, 1024, **meta)
+    with pytest.raises(ValueError, match="at most 768"):
+        topk.packed_topk_fused(q, c, torch.ones(1024, device="meta"), 24)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES,
+            topk.LAUNCHES["packed_topk_fused"]) == before
+
+
+def test_exact_backend_refuses_a_wide_index_on_cuda(monkeypatch):
+    """K6 stays at D <= 384: a FlatIndex on CUDA with backend pallas_exact
+    refuses a 768-wide int8 or bf16 index before it allocates, and takes an
+    f32 one (K6's CUDA-core sweep) or any other backend; the CPU takes all."""
+    monkeypatch.setattr(flat_mod, "resolve_device", lambda device=None: torch.device("cuda"))
+    for dtype in (torch.bfloat16, torch.int8):
+        with pytest.raises(NotImplementedError, match="takes D <= 384, the index has dim 768"):
+            flat_mod.FlatIndex(dim=768, dtype=dtype, backend="pallas_exact")
+    monkeypatch.undo()
+    idx = flat_mod.FlatIndex(dim=768, capacity=1024, dtype=torch.bfloat16,
+                             backend="pallas_exact", device="cpu")
+    assert idx.backend == "pallas_exact"
+
+
+@pytest.mark.parametrize("maker", [contrastive.make_train_step, rerank_ft.make_rerank_train_step])
+@pytest.mark.parametrize("hidden,heads,refused", [(768, 12, True), (768, 24, False),
+                                                  (384, 12, False)])
+def test_training_on_cuda_refuses_head_dims_k10_does_not_take(monkeypatch, maker, hidden, heads,
+                                                               refused):
+    """make_train_step and make_rerank_train_step on a CUDA device refuse
+    head_dim 64 up front, naming K10 (K2 would run the forward and K10
+    raise in the middle of the first backward); head_dim 32 passes the
+    check, and the CPU builds a step at every width."""
+    cfg = ModelConfig(hidden_size=hidden, num_layers=1, num_heads=heads,
+                      intermediate_size=4 * hidden, vocab_size=64, max_position=32)
+    module = contrastive if maker is contrastive.make_train_step else rerank_ft
+    monkeypatch.setattr(module, "resolve_device", lambda device=None: torch.device("cuda"))
+    if refused:
+        with pytest.raises(NotImplementedError, match=r"head_dim 64, but the attention "
+                                                      r"backward \(K10\) takes head_dim 32"):
+            maker(cfg)
+    else:
+        contrastive.check_train_widths(cfg, torch.device("cuda"))
+    monkeypatch.undo()
+    step, init_state = maker(cfg, device="cpu")
+    assert callable(init_state)
+
+
+# --------------------------------------------- the runtime at the wide shape
+
+CORPUS = {
+    "lease_2022": (
+        "LEASE DEED executed between M/s Bhartiya Enterprises (the Lessor) and "
+        "Acme Trading Pvt Ltd (the Lessee). The monthly rent for the second year "
+        "shall be Rs 42,800. The lock-in period under this lease is 36 months. " * 2),
+    "invoice_cn24": (
+        "TAX INVOICE / CREDIT NOTE No. CN/24 issued by Bhartiya Enterprises. "
+        "CGST at 9 percent: Rs 19,406.25. Total invoice amount Rs 2,54,434. " * 2),
+    "insurance_policy": (
+        "FIRE INSURANCE POLICY No. FI-9981 covering the warehouse at Chakulia. "
+        "The sum insured is Rs 75,00,000. The annual premium is Rs 82,500. " * 2),
+}
+GOLDEN = [
+    "What is the rent for the second year?",
+    "What is the lock-in period of the lease?",
+    "What is the total invoice amount on the credit note?",
+    "What is the sum insured under the fire policy?",
+]
+WIDE = dict(hidden_size=768, num_layers=2, num_heads=12, intermediate_size=3072,
+            vocab_size=30522, max_position=512)
+CROSS = dict(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+             vocab_size=30522, max_position=512)
+
+
+def _write_checkpoint(d, spec, seed, classifier=False):
+    d.mkdir(parents=True)
+    cfg = JaxModelConfig(**spec, num_labels=1 if classifier else 0)
+    raw = {"hidden_size": spec["hidden_size"], "num_hidden_layers": spec["num_layers"],
+           "num_attention_heads": spec["num_heads"],
+           "intermediate_size": spec["intermediate_size"], "vocab_size": 30522,
+           "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12}
+    if classifier:
+        raw.update(architectures=["BertForSequenceClassification"], id2label={"0": "LABEL_0"})
+    (d / "config.json").write_text(json.dumps(raw))
+    jckpt.save_params_npz(jckpt.random_params(cfg, seed=seed), d / "model.npz")
+
+
+def _config(cls, ckpt):
+    cfg = cls()
+    cfg.encoders.baai_path = str(ckpt / "bge-base")
+    cfg.encoders.gte_path = str(ckpt / "gte-base")
+    cfg.rerank.model_path = str(ckpt / "ce")
+    cfg.serving.microbatch = False
+    cfg.llm.provider = "gemini"
+    cfg.llm.gemini_api_key = None
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def wide_runtimes(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("wide")
+    mp = pytest.MonkeyPatch()
+    mp.delenv("FRAG_PLATFORM", raising=False)
+    mp.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp / "jax_cache"))
+    ckpt = tmp / "ckpt"
+    _write_checkpoint(ckpt / "bge-base", WIDE, seed=31)
+    _write_checkpoint(ckpt / "gte-base", WIDE, seed=32)
+    _write_checkpoint(ckpt / "ce", CROSS, seed=33, classifier=True)
+    src = tmp / "src"
+    src.mkdir()
+    for doc_id, text in CORPUS.items():
+        (src / f"{doc_id}.json").write_text(json.dumps({"blocks": [{"content": text, "page": 0}]}))
+    jrt = JaxRuntime.build(_config(JaxFrameworkConfig, ckpt), data_dir=tmp / "jax")
+    trt = Runtime.build(_config(FrameworkConfig, ckpt), data_dir=tmp / "port", device="cpu")
+    for rt in (jrt, trt):
+        for doc_id in CORPUS:
+            f = src / f"{doc_id}.json"
+            out = rt.pipeline.ingest_extracted_json(f, doc_id, source_path=str(f),
+                                                    source_mtime=0.0)
+            assert "error" not in out and out["children"] > 0
+    yield jrt, trt
+    mp.undo()
+
+
+def test_wide_runtime_embeddings_match_jax(wide_runtimes):
+    """Both 768-wide encoders (baai CLS, gte mean pooling) on the same texts:
+    the port's f32 CPU path within cosine 0.9999 of the JAX package's."""
+    jrt, trt = wide_runtimes
+    texts = [*GOLDEN, *(t[:300] for t in CORPUS.values())]
+    jv, tv = jrt.dual_encoder.encode_all(texts), trt.dual_encoder.encode_all(texts)
+    assert set(tv) == {"baai", "gte"}
+    for name in ("baai", "gte"):
+        a, b = np.asarray(jv[name], np.float64), np.asarray(tv[name], np.float64)
+        assert b.shape == (len(texts), 768)
+        cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+        assert cos.min() > 0.9999, (name, cos.min())
+
+
+@pytest.mark.parametrize("question", GOLDEN)
+def test_wide_runtime_same_children_as_jax(wide_runtimes, question):
+    jrt, trt = wide_runtimes
+    assert {i.dim for i in trt.indexes.values()} == {768}
+    jout, tout = jrt.engine.query(question), trt.engine.query(question)
+    assert jout["success"] and tout["success"]
+    jtexts = [c["text"] for c in jout["top_children_chunks"]]
+    ttexts = [c["text"] for c in tout["top_children_chunks"]]
+    assert ttexts and ttexts == jtexts
+    assert tout["answer"] == jout["answer"]
