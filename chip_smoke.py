@@ -651,11 +651,12 @@ def topk_cmp(bits, exact=False):
 
 
 # (kernel, N, corpus, two-call yardstick, queries) of the wide sweep cases:
-# the table's shape and the int8 runtime's served launch for K5, in int8 and
-# bf16, and K7 at the table's shape (K6 stays at D <= 384)
+# the table's shape (with its two-call time) and the int8 runtime's served
+# launch for K5, in int8 and bf16, and K7 at the table's shape (K6 stays at
+# D <= 384)
 WIDE_SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
                    ("bucketed_topk_fused", 4096, "int8", False, 1),
-                   ("bucketed_topk_fused", 102400, "bf16", False, 128),
+                   ("bucketed_topk_fused", 102400, "bf16", True, 128),
                    ("bucketed_topk_fused", 4096, "bf16", False, 1),
                    ("bucketed_topk", 102400, "bf16", False, 128),
                    ("bucketed_topk", 102400, "int8", False, 128))
@@ -665,10 +666,11 @@ def wide_cases(torch, F, gen, randn, padded_mask):
     """The bge-base width (hidden 768, 12 heads of 64, FFN 3,072, index D
     768), after every D=384 case so that those keep their inputs: K1 at
     B=256 S=512; K2 at B=256 S=512, B=256 S=128 and B=8 S=64 (a fully
-    masked row); K3 at N=131,072 and N=512; K4 at Bq=128 and Bq=8 over
-    N=102,400, the load phase's wave (Bq=192 over 4,096) and exact-grid
-    data with ties; K5 and K7 (WIDE_SWEEP_PLAN) with exact-grid cases; K8
-    at a served request's B=8 P=64. Tolerances and bounds as at 384."""
+    masked row); K3 at N=131,072, the wide ingest's 68 x 512 and N=512;
+    K4 at Bq=128 and Bq=8 over N=102,400, the load phase's wave (Bq=192
+    over 4,096) and exact-grid data with ties; K5 and K7 (WIDE_SWEEP_PLAN)
+    with exact-grid cases; K8 at a served request's B=8 P=64. Tolerances
+    and bounds as at 384."""
     from financial_rag_tpu_torch.ops import flash_attention as fa
     from financial_rag_tpu_torch.ops import fused_ffn as ffn
     from financial_rag_tpu_torch.ops import pool_norm as pn
@@ -706,7 +708,7 @@ def wide_cases(torch, F, gen, randn, padded_mask):
 
     w1, w2 = randn(H, I, dtype=bf16, scale=H ** -0.5), randn(I, H, dtype=bf16, scale=0.012)
     b1, b2 = randn(I, dtype=bf16, scale=0.1), randn(H, dtype=bf16, scale=0.1)
-    for b, s in ((256, 512), (8, 64)):
+    for b, s in ((256, 512), (68, 512), (8, 64)):
         x = randn(b, s, H, dtype=bf16)
         n = b * s
         cases.append(("fused_ffn", f"N={n} (B={b},S={s}),H={H},I={I},bf16",

@@ -54,24 +54,59 @@
 // At hidden 768 (bge-base / gte-base, I = 3,072) that design does not fit:
 // a warpgroup's 64 x 768 f32 slice of y would take 384 registers a thread,
 // and a 128 x 768 bf16 x tile alone is 192 KB. ffn_wide_kernel takes 64
-// tokens a block instead, with both warpgroups on the same x rows (96 KB,
-// loaded once by cp.async): warpgroup w owns y's columns 384w .. 384w+383,
-// so each again keeps 192 accumulator registers a thread, and each computes
-// the whole h of every chunk itself. That repeats the first product, 1.5x
-// the flops of one pass, and needs no barrier between the warpgroups. The I
-// axis is walked in 16-wide chunks through a ring of 2 stages of 48 KB
-// (193 KB a block): the chunk's W1 columns [768][16] (32-byte swizzle, 3
-// boxes) and W2 rows [16][768] (128-byte swizzle, 12 boxes), by TMA, as
-// above. Per chunk a warpgroup runs h = x W1c (48 x wgmma m64n16k16, W1c
-// MN-major), GELU, then y += h W2c over its half (3 x wgmma m64n128k16).
-// With 16 columns a step, the first product reads x from shared memory
-// twice as often per flop as at 384: a simple design that is right first.
+// tokens a block (x: 96 KB, loaded once by cp.async), and each warpgroup
+// owns half of y's columns (192 accumulator registers a thread). The I
+// axis is walked in 64-wide chunks. Per chunk each warpgroup computes its
+// 32 columns of h = x W1c (48 x wgmma m64n32k16; W1c [k][n] in 128-byte
+// rows, read MN-major from its 64-byte half), adds b1, applies erf GELU,
+// rounds to bf16 and stores them into a 64 x 64 h tile in shared memory
+// (128-byte swizzle; two tiles, for even and odd chunks). After a barrier
+// of the two warpgroups, each adds h W2c to its half of y (4 k16 steps x 3
+// wgmma m64n128k16, h the shared-memory A operand, W2c MN-major). So h is
+// computed once (1.0x the flops of one pass), x is read from shared
+// memory once per 32 columns of h, not per 16, and h never touches device
+// memory. The weights stream through a ring of 4 stages of 24 KB, one TMA
+// copy a slab, the 8 warps issuing in turn (prefetch.tensormap first): a
+// chunk is 4 W1 slabs (192 rows of its 64 columns) and 4 W2 slabs (16 rows
+// of 768 columns, a 3-D box of 12 column blocks), in the order of the
+// products: W1 of chunk t, then W2 of chunk t-1, so chunk t's GELU runs
+// while chunk t-1's last W2 slab is in the tensor cores. Lane 0 of each
+// warp releases a slab through the stage's empty mbarrier once its
+// products ended, and the stage is refilled 3 slabs ahead. A query-time
+// call has few tokens (8 x 64 = 512: 8 tiles for 132 SMs), so the I axis
+// is also split over `splits` blocks per tile (grid.y), as many as fit the
+// SMs in one wave (16 of 3 chunks at 512: 128 blocks); each writes its f32
+// partial of y to scratch, and a second kernel sums them in split order,
+// adds b2 and rounds, so two calls give the same bits.
 //
-// A query-time call has few tokens (8 x 64 = 512: 4 tiles for 132 SMs), so
-// the I axis is also split over `splits` blocks per tile (grid.y). Each then
-// writes its f32 partial of y to scratch, and a second kernel sums the
-// partials in split order, adds b2 and rounds; still no [N,I] intermediate
-// in device memory. With splits == 1 the first kernel writes y itself.
+// What bounds it on the H100 (kernel_ab.py against copies of this source
+// with one thing changed, NVIDIA H100 80GB HBM3, 700 W, N = 131,072): the
+// ring's cost per slab, not its bytes. Every 64-token block receives all
+// of W1 and W2, 9.4 MB (each byte feeds only 64 flops), and the ring lands
+// about one 24 KB slab per 0.5 us on each SM: without its products (the
+// pipeline alone) the kernel took 3.02 ms beside its 3.71, and 2.94-2.98
+// with W2's slabs at half their bytes. One TMA issue costs its thread
+// hundreds of cycles (an instrumented copy), and a stage is refilled only
+// once all 8 warps released it. With 3 stages the pipeline alone took 3.23 against
+// 3.02 with 4, and with 2 stages 5.37; with its products on stale slabs
+// and no refills the kernel took 2.95 beside 4.35.
+//
+// Tried on the H100 and dropped (device ms at N = 131,072 unless said):
+// clusters of 2 and 4 blocks on adjacent tiles, each issuing its share of
+// every slab by TMA multicast (half or a quarter of the L2 stream): 4.05
+// and 4.57 against 3.90-4.00 without (each block still receives every
+// byte; at N=512 a cluster of 4 leaves blocks for a second wave, 0.0559
+// against 0.0352), and a cluster-scope release on every remote arrive
+// took 8.2 (5.07 without it, in the next call); 2 slabs' products in
+// flight (wgmma.wait_group 1): ptxas serialised the wgmmas (C7517, C7518)
+// and it ran 6.10 against 4.90;
+// a producer warp (288 threads) or warpgroup (384 threads, setmaxnreg 24 /
+// 240): ptxas allocated 168 registers and spilled, 18.7-20.4; a W1 slab as
+// two 32-column boxes in the 64-byte swizzle: 3.98 against 3.85 as one;
+// thread 128 issuing the W2 slabs beside thread 0 the W1 ones: 4.51
+// against 4.32 (thread 0 issuing all of them then; the 8 warps in turn:
+// 3.73-3.81 against 3.84-3.96); mbar_wait reading the timer only after a
+// failed try: 3.83-3.85 against 3.69-4.07.
 #include "hopper.cuh"
 
 namespace {
@@ -239,18 +274,42 @@ ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUte
   }
 }
 
-// hidden 768: 64 tokens a block, warpgroup w owns y's columns 384w ..
+// hidden 768: 64 tokens a block; per I chunk each warpgroup computes half of
+// h's columns, both halves meet in shared memory, and each warpgroup adds
+// h W2 to its half of y's columns
 constexpr int kWH = 768;
-constexpr int kWRows = 64;                     // tokens per block
-constexpr int kWHalf = kWH / kConsumers;       // y columns a warpgroup owns
-constexpr int kWChunk = 16;                    // width of one I chunk
-constexpr int kWXBytes = kWRows * kWH * 2;     // x rows: 12 regions of 64 x 128 bytes, SW128
-constexpr int kWW1Box = 256;                   // W1 rows a TMA box
-constexpr int kWW1Bytes = kWH * kWChunk * 2;   // W1 chunk [768][16], SW32: 24 KB
-constexpr int kWW2Region = kWChunk * 128;      // 16 rows x 64 columns (128 bytes), SW128
-constexpr int kWW2Bytes = kWChunk * kWH * 2;   // W2 chunk [16][768]: 12 regions, 24 KB
-constexpr int kWStageBytes = kWW1Bytes + kWW2Bytes;
-constexpr int kWSmemBytes = kWXBytes + kStages * kWStageBytes + 1024;  // + alignment
+constexpr int kWRows = 64;                        // tokens per block
+constexpr int kWHalf = kWH / kConsumers;          // y columns a warpgroup owns
+constexpr int kWChunk = 64;                       // width of one I chunk
+constexpr int kWHCols = kWChunk / kConsumers;     // h columns a warpgroup computes
+constexpr int kWXBytes = kWRows * kWH * 2;        // x rows: 12 regions of 64 x 128 bytes, SW128
+constexpr int kWHBytes = kWRows * kWChunk * 2;    // one h tile: 64 rows x 128 bytes, SW128
+constexpr int kWSlabBytes = kWH * 16 * 2;         // one ring stage: a W1 or a W2 slab, 24 KB
+constexpr int kWW1Rows = kWSlabBytes / (kWChunk * 2);  // W1 rows (k) a W1 slab holds: 192 x 128 bytes, SW128
+constexpr int kWW1Slabs = kWH / kWW1Rows;         // W1 slabs a chunk
+constexpr int kWW2Rows = 16;                      // W2 rows (k) a W2 slab holds: one k16 step
+constexpr int kWW2Region = kWW2Rows * 128;        // 16 rows x 64 columns (128 bytes), SW128
+constexpr int kWW2Slabs = kWChunk / kWW2Rows;     // W2 slabs a chunk
+constexpr int kWSlabs = kWW1Slabs + kWW2Slabs;    // slabs a chunk
+constexpr int kWStages = 4;
+constexpr int kWSmemBytes = kWXBytes + 2 * kWHBytes + kWStages * kWSlabBytes + 1024;  // + alignment
+static_assert(kWW1Slabs == kWW2Slabs, "the slab order below pairs W1 and W2 slabs");
+
+// The ring's slab s of a block that walks T chunks: W1 slab j of chunk t
+// (rows kWW1Rows*j ..), or W2 slab j of chunk t (rows kWW2Rows*j ..). The
+// order is the order of the products: W1 of chunk 0, then per chunk t > 0
+// W1 of t and W2 of t - 1, then W2 of the last chunk (8T slabs).
+__device__ __forceinline__ void wide_slab(int s, int T, bool& w2, int& t, int& j) {
+  if (s < kWW1Slabs) {
+    w2 = false, t = 0, j = s;
+    return;
+  }
+  const int r = s - kWW1Slabs, it = r / kWSlabs + 1, q = r % kWSlabs;
+  if (it < T && q < kWW1Slabs)
+    w2 = false, t = it, j = q;
+  else
+    w2 = true, t = it - 1, j = it < T ? q - kWW1Slabs : q;
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap tm_w1,
@@ -258,38 +317,47 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
                 const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y,
                 float* __restrict__ partial, int N, int I, int splits) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ __align__(8) uint64_t full[kWStages], empty[kWStages];
   const uint32_t sX = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sRing = sX + kWXBytes;  // stage st: W1 chunk, then W2 chunk
+  const uint32_t sH = sX + kWXBytes;          // h tiles of even and odd chunks
+  const uint32_t sRing = sH + 2 * kWHBytes;
 
   const int span = I / splits;  // this block's range of the I axis
-  const int c_begin = blockIdx.y * span, nchunks = span / kWChunk;
+  const int c_begin = blockIdx.y * span, T = span / kWChunk, total = kWSlabs * T;
   const int m0 = blockIdx.x * kWRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int w = warp >> 2;      // warpgroup: y columns kWHalf*w ..
+  const int wg = warp >> 2;     // warpgroup: h columns kWHCols*wg .., y columns kWHalf*wg ..
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1);          // thread 0's expect_tx; then the chunk's bytes
-      mbar_init(&empty[st], kThreads);  // every thread, once its products of the chunk ended
+    for (int st = 0; st < kWStages; ++st) {
+      mbar_init(&full[st], 1);                // the filling thread's expect_tx; then the slab's bytes
+      mbar_init(&empty[st], kThreads / 32);  // lane 0 of every warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  // thread 0: chunk t's W1 columns (3 boxes of 256 x 16) and W2 rows (12
-  // boxes of 16 x 64) into stage t % kStages by TMA
-  auto fetch = [&](int t) {
-    const int st = t % kStages, c0 = c_begin + t * kWChunk;
-    const uint32_t w1t = sRing + st * kWStageBytes, w2t = w1t + kWW1Bytes;
-    mbar_expect_tx(&full[st], kWStageBytes);
-#pragma unroll
-    for (int j = 0; j < kWH / kWW1Box; ++j)
-      tma_load_2d(w1t + j * kWW1Box * kWChunk * 2, &tm_w1, c0, kWW1Box * j, &full[st]);
-#pragma unroll
-    for (int j = 0; j < kWH / 64; ++j) tma_load_2d(w2t + j * kWW2Region, &tm_w2, 64 * j, c0, &full[st]);
+  // slab s into stage s % kWStages by TMA, one copy each: a W1 slab's 192
+  // rows of the chunk's 64 columns, a W2 slab's 16 rows as 12 blocks of 64
+  // columns
+  auto fill = [&](int s) {
+    bool w2;
+    int t, j;
+    wide_slab(s, T, w2, t, j);
+    const int st = s % kWStages, c0 = c_begin + t * kWChunk;
+    const uint32_t dst = sRing + st * kWSlabBytes;
+    mbar_expect_tx(&full[st], kWSlabBytes);
+    if (w2)
+      tma_load_3d(dst, &tm_w2, 0, c0 + kWW2Rows * j, 0, &full[st]);
+    else
+      tma_load_2d(dst, &tm_w1, c0, kWW1Rows * j, &full[st]);
   };
-  if (threadIdx.x == 0) fetch(0);
+  if (lane == 0) {
+    prefetch_tensor_map(&tm_w1);
+    prefetch_tensor_map(&tm_w2);
+  }
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kWStages && s < total; ++s) fill(s);
   // the block's 64 token rows, zeros past N, by all 256 threads
   for (int e = threadIdx.x; e < kWRows * (kWH / 8); e += kThreads) {
     const int r = e / (kWH / 8), ch = e % (kWH / 8), row = m0 + r;
@@ -301,60 +369,108 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   fence_proxy_async();
   __syncthreads();
 
+  // Before slab s's products: the warpgroup's products of slab s - 1 have
+  // ended, and this warp releases it; then wait for slab s. After them,
+  // lane 0 of warp f % 8 refills the stage released with slab f = s - 1 +
+  // kWStages once every warp released it (the warps take turns: one TMA
+  // issue costs its warp hundreds of cycles).
+  auto begin_slab = [&](int s) {
+    wgmma_wait<0>();
+    if (s > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(s - 1) % kWStages]);
+    }
+    mbar_wait(&full[s % kWStages], (s / kWStages) & 1);
+    wgmma_fence();
+  };
+  auto end_slab = [&](int s) {
+    wgmma_commit();
+    const int f = s - 1 + kWStages;
+    if (lane == 0 && warp == f % (kThreads / 32) && s > 0 && f < total) {
+      mbar_wait(&empty[f % kWStages], (f / kWStages - 1) & 1);
+      fill(f);
+    }
+    __syncwarp();
+  };
+
   const int gid = lane >> 2, tig = lane & 3;
   const uint64_t x_desc = make_desc(sX, 16, 1024, kSw128);
-  float acc[3][64];  // y columns kWHalf*w + 128*nb .. +127
+  float acc[3][64];  // y columns kWHalf*wg + 128*nb .. +127
 #pragma unroll
   for (int nb = 0; nb < 3; ++nb) zero(acc[nb]);
-  for (int t = 0; t < nchunks; ++t) {
-    const int st = t % kStages;
-    const int c0 = c_begin + t * kWChunk;
-    // b1 at this thread's 4 columns of the chunk, 8*(q/2) + 2*tig + q%2: h[i]
-    // is column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
-    __nv_bfloat16 bb[4];
+  // the zeros here, not sunk into the first second product's issue (ptxas
+  // then serialises the wgmmas, C7515)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
-    mbar_wait(&full[st], (t / kStages) & 1);  // chunk t landed
-    const uint32_t w1t = sRing + st * kWStageBytes, w2t = w1t + kWW1Bytes;
-    // W1c [768][16] in 32-byte rows: a k16 step is 512 bytes, 8-row groups 256
-    const uint64_t w1_desc = make_desc(w1t, kWW1Bytes, 256, kSw32);
-    const uint64_t w2_desc = make_desc(w2t + w * (kWHalf / 64) * kWW2Region, kWW2Region, 1024, kSw128);
-
-    // h = x @ W1[:, c0:c0+16]
-    float h[8];
-    wgmma_fence();
+  for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
+  float h[16];       // h columns kWHCols*wg .. of the chunk
+  int s = 0;         // the next slab
+  for (int t = 0; t <= T; ++t) {
+    if (t < T) {
+      // h = x @ W1[:, this warpgroup's 32 columns of chunk t], slab by slab:
+      // W1 [k][n] in 128-byte rows read MN-major, this half 64 bytes in
 #pragma unroll
-    for (int kk = 0; kk < kWH / 16; ++kk)
-      wgmma_ss_n16_tb(h, desc_add(x_desc, (kk >> 2) * kXRegion + (kk & 3) * 32),
-                      desc_add(w1_desc, 512 * kk), kk > 0);
-    wgmma_commit();
-    // meanwhile chunk t+1 into the stage chunk t-1 used, once both
-    // warpgroups released it
-    if (threadIdx.x == 0 && t + 1 < nchunks) {
-      if (t + 1 >= kStages) mbar_wait(&empty[(t + 1) % kStages], ((t + 1) / kStages - 1) & 1);
-      fetch(t + 1);
+      for (int j = 0; j < kWW1Slabs; ++j, ++s) {
+        begin_slab(s);
+        const uint64_t w1_desc =
+            make_desc(sRing + (s % kWStages) * kWSlabBytes + wg * kWHCols * 2, 8192, 1024, kSw128);
+#pragma unroll
+        for (int kk = 0; kk < kWW1Rows / 16; ++kk) {
+          const int k = j * (kWW1Rows / 16) + kk;
+          wgmma_ss_n32_tb(h, desc_add(x_desc, (k >> 2) * kXRegion + (k & 3) * 32),
+                          desc_add(w1_desc, 16 * 128 * kk), j > 0 || kk > 0);
+        }
+        end_slab(s);
+      }
     }
-    wgmma_wait<0>();
-    fence_acc(h);
-
-    // + b1, erf GELU, bf16: the A operand of the second product
+    if (t > 0) {
+      // y[:, this half] += h(t-1) @ W2[chunk t-1, this half], once both
+      // warpgroups stored their halves of h(t-1)
+      named_barrier(1, kThreads);
+      const uint64_t h_desc = make_desc(sH + ((t - 1) & 1) * kWHBytes, 16, 1024, kSw128);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) h[i] = gelu_erf(h[i] + __bfloat162float(bb[2 * (i >> 2) + (i & 1)]));
-    uint32_t a[4];
-    pack_a(a, h, 0);
-
-    // y[:, this half] += h @ W2[c0:c0+16, this half]
-    wgmma_fence();
+      for (int j = 0; j < kWW2Slabs; ++j, ++s) {
+        begin_slab(s);
+        const uint64_t w2_desc = make_desc(
+            sRing + (s % kWStages) * kWSlabBytes + wg * (kWHalf / 64) * kWW2Region, kWW2Region, 1024,
+            kSw128);
 #pragma unroll
-    for (int nb = 0; nb < 3; ++nb) wgmma_rs_n128(acc[nb], a, desc_add(w2_desc, nb * 2 * kWW2Region));
-    wgmma_commit();
-    wgmma_wait<0>();
+        for (int nb = 0; nb < 3; ++nb)
+          wgmma_ss_n128_tb(acc[nb], desc_add(h_desc, 32 * j), desc_add(w2_desc, nb * 2 * kWW2Region));
+        end_slab(s);
+      }
+    } else {
+      wgmma_wait<0>();
+    }
+    if (t < T) {
+      // chunk t's first product has ended (the waits before the second
+      // product's slabs, or the one above at t = 0): + b1, erf GELU, bf16,
+      // into h tile t % 2 while the last slab of the second product runs.
+      // b1 at this thread's 8 columns, 8*(q/2) + 2*tig + q%2: h[i] is
+      // column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
+      const int c0 = c_begin + t * kWChunk + kWHCols * wg;
+      __nv_bfloat16 bb[8];
 #pragma unroll
-    for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
-    mbar_arrive(&empty[st]);
+      for (int q = 0; q < 8; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
+      fence_acc(h);
+      const uint32_t ht = sH + (t & 1) * kWHBytes;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * jj + 2 * hf, row = 16 * (warp & 3) + gid + 8 * hf;
+          const float v0 = gelu_erf(h[i] + __bfloat162float(bb[2 * jj]));
+          const float v1 = gelu_erf(h[i + 1] + __bfloat162float(bb[2 * jj + 1]));
+          st_shared_u32(ht + swz<3>(row * 128 + (kWHCols / 8 * wg + jj) * 16) + 4 * tig,
+                        pack_bf16(v0, v1));
+        }
+      fence_proxy_async();   // the stores, before the second product reads them
+    }
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
 
-  // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column kWHalf*w +
+  // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column kWHalf*wg +
   // 128*nb + 8*j + 2*tig + e%2
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -364,7 +480,7 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
     for (int nb = 0; nb < 3; ++nb)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int col = kWHalf * w + 128 * nb + 8 * j + 2 * tig;
+        const int col = kWHalf * wg + 128 * nb + 8 * j + 2 * tig;
         const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
         if (splits == 1) {
           *reinterpret_cast<uint32_t*>(y + (size_t)row * kWH + col) =
@@ -408,11 +524,14 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
            : cudaFuncSetAttribute(ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   // 384: W1 [H][I] in boxes of 192 x 32, W2 [I][H] in boxes of 32 x 64;
-  // 768: W1 in boxes of 256 x 16, W2 in boxes of 16 x 64
+  // 768: W1 in boxes of 192 x 64 (a slab), W2 as [64-column block][I][64]
+  // in boxes of 12 blocks of 16 x 64 (a slab)
   CUtensorMap tm_w1, tm_w2;
+  const uint64_t w2_dims[3] = {64, (uint64_t)I, H / 64}, w2_strides[2] = {H * 2, 128};
+  const uint32_t w2_box[3] = {64, kWW2Rows, H / 64};
   const bool mapped =
-      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, kWW1Box, kWChunk, CU_TENSOR_MAP_SWIZZLE_32B) &&
-                 hopper::tensor_map_2d(&tm_w2, w2, I, H, kWChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, kWW1Rows, kWChunk, CU_TENSOR_MAP_SWIZZLE_128B) &&
+                 hopper::tensor_map_3d(&tm_w2, w2, w2_dims, w2_strides, w2_box, CU_TENSOR_MAP_SWIZZLE_128B)
            : hopper::tensor_map_2d(&tm_w1, w1, H, I, H / 2, kChunk, CU_TENSOR_MAP_SWIZZLE_64B) &&
                  hopper::tensor_map_2d(&tm_w2, w2, I, H, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!mapped) return (int)cudaErrorInvalidValue;
@@ -438,7 +557,7 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
 // Shapes: x/y [N,H], w1 [H,I], b1 [I], w2 [I,H], b2 [H], all bf16, row-major,
 // x, w1 and w2 16-byte aligned; partial [splits,N,H] f32 scratch (unused when
 // splits is 1). Any N >= 1; H == 384 with (I / splits) % 32 == 0, or H ==
-// 768 with (I / splits) % 16 == 0.
+// 768 with (I / splits) % 64 == 0.
 FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y, float* partial,
                                int N, int H, int I, int splits, void* stream) {

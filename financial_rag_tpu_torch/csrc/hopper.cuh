@@ -16,8 +16,9 @@
 // copies are generic-proxy writes and wgmma reads through the async proxy),
 // then a block barrier or an mbarrier arrive. K3's weight chunks are the
 // exception: whole boxes of a plain row-major matrix, the same for every
-// block, so one thread has the TMA copy them (tensor_map_2d, tma_load_2d),
-// swizzled, and their bytes complete the stage's mbarrier.
+// block, so one thread has the TMA copy them (tensor_map_2d / _3d,
+// tma_load_2d / _3d), swizzled, and their bytes complete the stage's
+// mbarrier.
 //
 // Products: wgmma m64nNk16, bf16 in, f32 accumulate (and m64n32k32, int8
 // in, exact int32 accumulate, for the int8 sweeps). B always comes from
@@ -64,6 +65,9 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
 }
 __device__ __forceinline__ void st_shared_f32(uint32_t dst, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(dst), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(dst), "r"(v) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -159,6 +163,20 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The box of a 3-D tensor map at element coordinates (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// Fetch a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's descriptor cache ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
 // from global memory into shared memory at `dst` by the TMA, completing
 // `bytes` of `bar`'s transaction count.
@@ -168,28 +186,34 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       :: "r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
-// A 2-D tensor map of a row-major [rows][cols] matrix of bf16 (elem_bytes
-// 2) or 8-bit (elem_bytes 1) elements, 16-byte aligned, cols * elem_bytes a
-// multiple of 16, read in boxes of [box_rows][box_cols] with the given
-// swizzle. The encoder is looked up at run time through the CUDA
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// cuTensorMapEncodeTiled, looked up once at run time through the CUDA
 // runtime's entry-point query, so the library needs no link against
-// libcuda. Returns false if it refuses.
-inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                          uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle,
-                          uint32_t elem_bytes = 2) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
+// libcuda (null if the driver lacks it).
+inline TensorMapEncode tensor_map_encoder() {
+  static const TensorMapEncode encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
     if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
                                          &found) != cudaSuccess ||
         found != cudaDriverEntryPointSuccess)
       fn = nullptr;
-    return reinterpret_cast<Encode>(fn);
+    return reinterpret_cast<TensorMapEncode>(fn);
   }();
+  return encode;
+}
+
+// A 2-D tensor map of a row-major [rows][cols] matrix of bf16 (elem_bytes
+// 2) or 8-bit (elem_bytes 1) elements, 16-byte aligned, cols * elem_bytes a
+// multiple of 16, read in boxes of [box_rows][box_cols] with the given
+// swizzle. Returns false if the encoder refuses.
+inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle,
+                          uint32_t elem_bytes = 2) {
+  const TensorMapEncode encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * elem_bytes};
@@ -198,6 +222,25 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uin
   const CUtensorMapDataType type =
       elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D tensor map of bf16 elements: dims[0] innermost (contiguous), the
+// byte strides of dims[1] and dims[2] (multiples of 16, in any order), read
+// in boxes of box[0] x box[1] x box[2] that land in shared memory with
+// dims[0] innermost, then dims[1], then dims[2]. Returns false if the
+// encoder refuses.
+inline bool tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&dims)[3],
+                          const uint64_t (&strides)[2], const uint32_t (&box)[3],
+                          CUtensorMapSwizzle swizzle) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t st[2] = {strides[0], strides[1]};
+  const cuuint32_t b[3] = {box[0], box[1], box[2]};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), d, st, b,
                 element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -327,17 +370,16 @@ __device__ __forceinline__ void wgmma_ss_n32_tb(float (&d)[16], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d[64 x 16] (+)= A[64 x 16] * B[16 x 16], A in shared memory K-major, B in
-// shared memory MN-major (a tile stored [k][n] in 32-byte rows, read through
-// the transpose bit); with accumulate = 0 the product overwrites d.
-__device__ __forceinline__ void wgmma_ss_n16_tb(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
-                                                int accumulate = 1) {
+// d[64 x 128] += A[64 x 16] * B[16 x 128], A in shared memory K-major, B in
+// shared memory MN-major (a tile stored [k][n], read through the transpose
+// bit).
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d[64 x 32] += A[64 x 16] * B[16 x 32], A in registers (the m16n8k16

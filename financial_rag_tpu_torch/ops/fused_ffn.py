@@ -25,10 +25,14 @@ KERNEL_HIDDEN = 384    # the hidden width of the first design (bge-small, gte-sm
 KERNEL_TOKENS = 128    # its tokens per block; the kernel zero-fills the ragged last tile
 KERNEL_CHUNK = 32      # its I chunk: the intermediate width must be a multiple
 KERNEL_MIN_CHUNKS = 4  # I chunks a block walks at least when the I axis is split
+KERNEL_STAGES = 2      # its ring: 2 stages of one chunk of W1 and of W2
 WIDE_HIDDEN = 768      # the hidden width of the second design (bge-base, gte-base)
 WIDE_TOKENS = 64       # its tokens per block (both warpgroups on the same rows)
-WIDE_CHUNK = 16        # its I chunk
-WIDE_MIN_CHUNKS = 8    # the same 128 I columns a split block walks at least
+WIDE_CHUNK = 64        # its I chunk: 32 columns of h a warpgroup
+WIDE_MIN_CHUNKS = 2    # I chunks a split block walks at least
+WIDE_H_TILES = 2       # its h tiles (64 x 64 bf16): even and odd chunks
+WIDE_SLAB_BYTES = 24576  # one stage of its ring: 192 rows of W1's chunk or 16 of W2's
+WIDE_STAGES = 4
 # hidden width -> (tokens a block, I chunk, fewest chunks a split block walks)
 KERNEL_TILING = {KERNEL_HIDDEN: (KERNEL_TOKENS, KERNEL_CHUNK, KERNEL_MIN_CHUNKS),
                  WIDE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS)}
@@ -41,13 +45,13 @@ def kernel_takes(h_dim: int, i_dim: int) -> bool:
 
 
 def split_count(tiles: int, chunks: int, sms: int, min_chunks: int = KERNEL_MIN_CHUNKS) -> int:
-    """How many blocks share one token tile's I axis: the fewest (a divisor
-    of the chunk count) that give every SM a block (the kernel's shared
-    memory fits one block per SM), but no more than leave each block
-    ``min_chunks`` chunks: each split writes and reads back an f32
-    partial of the tile, which at a query's few tiles costs more than the
-    chunks it saves. Ingest-sized calls get 1 (no partials); at hidden 384
-    a query's 4 tiles of 128 tokens get 12 splits of 4 of the 48 chunks."""
+    """How many blocks share one token tile's I axis at hidden 384: the
+    fewest (a divisor of the chunk count) that give every SM a block (the
+    kernel's shared memory fits one block per SM), but no more than leave
+    each block ``min_chunks`` chunks: each split writes and reads back an
+    f32 partial of the tile, which at a query's few tiles costs more than
+    the chunks it saves. Ingest-sized calls get 1 (no partials); a query's
+    4 tiles of 128 tokens get 12 splits of 4 of the 48 chunks."""
     best = 1
     for d in range(1, chunks // min_chunks + 1):
         if chunks % d == 0:
@@ -57,20 +61,39 @@ def split_count(tiles: int, chunks: int, sms: int, min_chunks: int = KERNEL_MIN_
     return best
 
 
+def wide_split_count(tiles: int, chunks: int, sms: int, min_chunks: int = WIDE_MIN_CHUNKS) -> int:
+    """How many blocks share one token tile's I axis at hidden 768: the
+    most (a divisor of the chunk count, each block walking at least
+    ``min_chunks``) that still fit the grid on the SMs in one wave (a
+    block holds an SM), so the f32 partials are written once, by blocks
+    that all run at once; 1 from one tile an SM on. A query's 8 tiles get
+    16 splits of 3 of the 48 chunks (128 blocks)."""
+    best = 1
+    for d in range(1, chunks // min_chunks + 1):
+        if chunks % d == 0 and tiles * d <= sms:
+            best = d
+    return best
+
+
 def launch_plan(n: int, h_dim: int, i_dim: int, sms: int):
-    """K3's launch for n tokens: (tokens a block, I chunk, splits)."""
+    """K3's launch for n tokens: (tokens a block, I chunk, splits); the
+    grid is one block a token tile and split."""
     tokens, chunk, min_chunks = KERNEL_TILING[h_dim]
     tiles = round_up(n, tokens) // tokens
-    return tokens, chunk, split_count(tiles, i_dim // chunk, sms, min_chunks)
+    count = wide_split_count if h_dim == WIDE_HIDDEN else split_count
+    return tokens, chunk, count(tiles, i_dim // chunk, sms, min_chunks)
 
 
 def block_smem_bytes(h_dim: int) -> int:
-    """Dynamic shared memory of a K3 block, as csrc/fused_ffn.cu sizes it:
-    the block's x rows (bf16, two warpgroups' at 384, one shared tile at
-    768), a ring of 2 stages of one I chunk of W1 and of W2, and 1 KB of
-    alignment."""
+    """Dynamic shared memory of a K3 block, as csrc/fused_ffn.cu sizes it,
+    with 1 KB of alignment: at 384 both warpgroups' x rows (bf16) and a
+    ring of 2 stages of one I chunk of W1 and of W2; at 768 the block's x
+    rows, two h tiles and a ring of 4 stages of one slab."""
     tokens, chunk, _ = KERNEL_TILING[h_dim]
-    return tokens * h_dim * 2 + 2 * (2 * h_dim * chunk * 2) + 1024
+    if h_dim == WIDE_HIDDEN:
+        return (tokens * h_dim * 2 + WIDE_H_TILES * tokens * chunk * 2
+                + WIDE_STAGES * WIDE_SLAB_BYTES + 1024)
+    return tokens * h_dim * 2 + KERNEL_STAGES * (2 * h_dim * chunk * 2) + 1024
 
 
 def accumulator_registers(h_dim: int) -> int:
@@ -79,6 +102,15 @@ def accumulator_registers(h_dim: int) -> int:
     tokens, _, _ = KERNEL_TILING[h_dim]
     rows, cols = (tokens // 2, h_dim) if h_dim == KERNEL_HIDDEN else (tokens, h_dim // 2)
     return rows * cols // 128
+
+
+def h_registers(h_dim: int) -> int:
+    """f32 registers of h (one chunk's first product) a thread of K3 holds:
+    64 rows by the chunk at 384, by its warpgroup's half of the chunk at
+    768."""
+    _, chunk, _ = KERNEL_TILING[h_dim]
+    cols = chunk if h_dim == KERNEL_HIDDEN else chunk // 2
+    return 64 * cols // 128
 
 
 def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

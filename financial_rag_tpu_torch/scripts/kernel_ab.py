@@ -8,7 +8,8 @@ libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
 (``frag_fused_ffn``), K4 (``frag_packed_topk``), K5 and K7
 (``frag_bucketed_topk``), K6 (``frag_topk_exact``), K9
 (``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
-launched on the same inputs at the main path's shapes, the two libraries in
+launched on the same inputs at the main path's shapes (K2, K3, K4 and K5
+also at the bge-base width: heads of 64, hidden 768, D 768), the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
 and as the kernels' own device time under torch.profiler (``*_dev_ms``,
@@ -25,7 +26,8 @@ is exact in f32, so two right trees agree to the bit.
 The C entry points are called directly. Their arguments are the same in
 both trees, but what a launch plan puts in them is each tree's own: K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
-the I axis its wrapper would choose, and scratch of that many f32 partials;
+the I axis its wrapper would choose (its ``launch_plan``), and scratch of
+that many f32 partials;
 K4-K7 get from each tree's ``ops/topk.py`` their tile or round
 groups and scratch of that size (a tree whose ``ops/topk.py``
 predates ``packed_sweep_grid``, ``bucketed_sweep_grid``,
@@ -57,31 +59,44 @@ from financial_rag_tpu_torch.ops import kernel_lib
 K10_SHAPES = (("contrastive", 256, 128, 12), ("both encodes", 512, 128, 12),
               ("listwise", 256, 64, 12), ("uplift", 256, 32, 12), ("K2 table", 256, 512, 12),
               ("tp2 local", 32, 128, 6), ("tp4 local", 64, 128, 3), ("tp2 listwise", 64, 64, 6))
-# (label, B, S, heads) of K2: the table's shape, the contrastive encode, a
-# rerank batch, a query's encode, the listwise step's encode, and K11's local
-# shapes. Keys are padded to seeded random lengths as in chip_smoke.py (row 0
-# full).
-K2_SHAPES = (("K2 table", 256, 512, 12), ("contrastive", 256, 128, 12), ("rerank", 64, 512, 12),
-             ("query", 8, 64, 12), ("listwise", 256, 64, 12), ("tp2 local", 32, 128, 6),
-             ("tp4 local", 64, 128, 3), ("tp2 listwise", 64, 64, 6))
-# (label, N) of K3 at H=384, I=1,536: the table's shape, the training
-# encode, a query's 8 x 64 tokens
-K3_SHAPES = (("K3 table", 131072), ("train encode", 32768), ("query", 512))
+# (label, B, S, heads, head_dim) of K2: the table's shape, the contrastive
+# encode, a rerank batch, a query's encode, the listwise step's encode, K11's
+# local shapes, and the bge-base width's 12 heads of 64 at the table's shape,
+# the contrastive encode's and a query's. Keys are padded to seeded random
+# lengths as in chip_smoke.py (row 0 full).
+K2_SHAPES = (("K2 table", 256, 512, 12, 32), ("contrastive", 256, 128, 12, 32),
+             ("rerank", 64, 512, 12, 32), ("query", 8, 64, 12, 32), ("listwise", 256, 64, 12, 32),
+             ("tp2 local", 32, 128, 6, 32), ("tp4 local", 64, 128, 3, 32),
+             ("tp2 listwise", 64, 64, 6, 32), ("wide table", 256, 512, 12, 64),
+             ("wide S=128", 256, 128, 12, 64), ("wide query", 8, 64, 12, 64))
+# (label, N, H) of K3 with I = 4H: at H=384 the table's shape, the training
+# encode and a query's 8 x 64 tokens; at H=768 (bge-base) the table's shape,
+# the wide ingest's batch (68 x 512) and a query's
+K3_SHAPES = (("K3 table", 131072, 384), ("train encode", 32768, 384), ("query", 512, 384),
+             ("wide table", 131072, 768), ("wide ingest", 34816, 768), ("wide query", 512, 768))
 # (label, B, S, dtype) of K1 at H=384: the table's shape, the ingest's
 # batches (3,482 children in 51 launches), a query's encode, and f32
 K1_SHAPES = (("K1 table", 256, 512, "bf16"), ("ingest", 68, 512, "bf16"),
              ("ingest short", 68, 128, "bf16"), ("query", 8, 64, "bf16"),
              ("f32", 64, 512, "f32"))
-# (label, Bq, N) of K4 at D=384, k=24, bf16: the table's shape, a query batch
-# over the same corpus, the served shape (one query per launch over the
-# smoke test's index capacity), a smaller corpus, and one tile (bits 1)
-K4_SHAPES = (("K4 table", 128, 102400), ("batch of 8", 8, 102400), ("served", 1, 4096),
-             ("N=16,384", 128, 16384), ("one tile", 128, 1024))
-# (label, Bq, N) of K5 at D=384, k=24, int8 (the int8 index's sweep), 4,096
-# buckets: the table's shape, a query batch, the served shape (one query
-# per launch over the smoke test's index capacity); and bf16 at the table's
-K5_SHAPES = (("K5 table", 128, 102400, "int8"), ("batch of 8", 8, 102400, "int8"),
-             ("served", 1, 4096, "int8"), ("bf16 table", 128, 102400, "bf16"))
+# (label, Bq, N, D) of K4 at k=24, bf16: at D=384 the table's shape, a query
+# batch over the same corpus, the served shape (one query per launch over
+# the smoke test's index capacity), a smaller corpus, and one tile (bits 1);
+# at D=768 the table's shape, the batch of 8 and the batcher's wave of 192
+K4_SHAPES = (("K4 table", 128, 102400, 384), ("batch of 8", 8, 102400, 384),
+             ("served", 1, 4096, 384), ("N=16,384", 128, 16384, 384), ("one tile", 128, 1024, 384),
+             ("D=768 table", 128, 102400, 768), ("D=768 batch of 8", 8, 102400, 768),
+             ("D=768 wave", 192, 4096, 768))
+# (label, Bq, N, dtype, D) of K5 at k=24, 4,096 buckets: at D=384 int8 (the
+# int8 index's sweep) at the table's shape, a query batch and the served
+# shape (one query per launch over the smoke test's index capacity), and
+# bf16 at the table's; at D=768 the table's and the served shape, int8 and
+# bf16
+K5_SHAPES = (("K5 table", 128, 102400, "int8", 384), ("batch of 8", 8, 102400, "int8", 384),
+             ("served", 1, 4096, "int8", 384), ("bf16 table", 128, 102400, "bf16", 384),
+             ("D=768 table", 128, 102400, "int8", 768), ("D=768 served", 1, 4096, "int8", 768),
+             ("D=768 bf16 table", 128, 102400, "bf16", 768),
+             ("D=768 bf16 served", 1, 4096, "bf16", 768))
 # (label, Bq, N, dtype) of K7 at D=384, k=24, 4,096 buckets (backend
 # pallas_bucketed): the table's shape in bf16 and int8, and the backends
 # phase's 9 questions over the index capacity
@@ -175,19 +190,24 @@ def tree_module(csrc: Path, name: str):
     return mod
 
 
-def ffn_splits(csrc: Path, n: int, chunks: int, sms: int) -> int:
+def ffn_splits(csrc: Path, n: int, h: int, sms: int) -> int:
     """The I-axis split the wrapper beside ``csrc`` (its ``ops/fused_ffn.py``)
-    chooses for n tokens: each tree's kernel is given the split it was
-    tuned for."""
+    chooses for n tokens at hidden h, I = 4h: each tree's kernel is given
+    the split it was tuned for (a tree before the 768 design has no
+    ``launch_plan`` and only the 384 rule)."""
     mod = tree_module(csrc, "fused_ffn")
-    return mod.split_count(-(-n // mod.KERNEL_TOKENS), chunks, sms)
+    if hasattr(mod, "launch_plan"):
+        return mod.launch_plan(n, h, 4 * h, sms)[2]
+    return mod.split_count(-(-n // mod.KERNEL_TOKENS), 4 * h // mod.KERNEL_CHUNK, sms)
 
 
-def packed_plan(csrc: Path, bq: int, n: int, sms: int):
+def packed_plan(csrc: Path, bq: int, n: int, sms: int, d: int = 384):
     """(Bqp, block_n, bits, tiles_per_group, groups) that K4's wrapper beside
-    ``csrc`` (its ``ops/topk.py``) chooses for Bq queries over N rows."""
+    ``csrc`` (its ``ops/topk.py``) chooses for Bq queries over N rows of D."""
     mod = tree_module(csrc, "topk")
     if hasattr(mod, "packed_sweep_grid"):
+        if d != 384:
+            return mod.packed_sweep_grid(bq, n, sms, d=d)
         return mod.packed_sweep_grid(bq, n, sms)
     # before the bf16 sweep's redesign: 64-query, 16-column blocks
     block_n, ntiles, bits = mod._packing(n, 1024)
@@ -197,11 +217,15 @@ def packed_plan(csrc: Path, bq: int, n: int, sms: int):
     return bqp, block_n, bits, per_group, -(-ntiles // per_group)
 
 
-def bucketed_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096):
+def bucketed_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096,
+                  row_bytes: int = 768):
     """(Bqp, rounds_per_group, groups) that K5's wrapper beside ``csrc``
-    chooses for Bq queries over N int8 rows."""
+    chooses for Bq queries over N int8 or bf16 rows, padded to ``row_bytes``
+    (a tree before the D 768 sweeps sized its ring for 384 features)."""
     mod = tree_module(csrc, "topk")
     if hasattr(mod, "bucketed_sweep_grid"):
+        if row_bytes != 768:
+            return mod.bucketed_sweep_grid(bq, n, nbuckets, sms, row_bytes)
         return mod.bucketed_sweep_grid(bq, n, nbuckets, sms)
     # before the int8 sweep's redesign: 64-query, 16-column blocks
     bqp = mod.round_up(max(bq, 1), mod.KERNEL_QUERY_TILE)
@@ -263,22 +287,23 @@ def k1_call(lib, b: int, s: int, dtype: str, gen):
     return run, [out]
 
 
-def k4_call(lib, bq: int, n: int, plan, gen, k: int = 24):
+def k4_call(lib, bq: int, n: int, d: int, plan, gen, k: int = 24):
     """(run, outputs): K4 on seeded exact-grid data (every score exact in
-    f32, with ties) at D=384 with 3% dead rows, queries padded with zeros to
-    Bqp rows and scratch as ``plan`` says, through ``lib``'s C entry."""
+    f32, with ties) at D features with 3% dead rows, queries padded with
+    zeros to Bqp rows and scratch as ``plan`` says, through ``lib``'s C
+    entry."""
     p = kernel_lib.ptr
     bqp, block_n, bits, per_group, groups = plan
-    q = torch.zeros(bqp, 384, dtype=torch.bfloat16, device="cuda")
-    q[:bq] = (torch.randint(-3, 4, (bq, 384), generator=gen, device="cuda") / 64.0).bfloat16()
-    x = (torch.randint(-3, 4, (n, 384), generator=gen, device="cuda") / 64.0).bfloat16()
+    q = torch.zeros(bqp, d, dtype=torch.bfloat16, device="cuda")
+    q[:bq] = (torch.randint(-3, 4, (bq, d), generator=gen, device="cuda") / 64.0).bfloat16()
+    x = (torch.randint(-3, 4, (n, d), generator=gen, device="cuda") / 64.0).bfloat16()
     valid = (torch.rand(n, generator=gen, device="cuda") > 0.03).float()
     b1 = torch.empty(groups, bqp, block_n, dtype=torch.int32, device="cuda")
     b2 = torch.empty_like(b1)
     out_s = torch.empty(bq, k, device="cuda")
     out_i = torch.empty(bq, k, dtype=torch.int32, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(x), p(valid), p(b1), p(b2), p(out_s), p(out_i), bq, bqp, n, 384, block_n,
+    args = (p(q), p(x), p(valid), p(b1), p(b2), p(out_s), p(out_i), bq, bqp, n, d, block_n,
             bits, k, per_group, kernel_lib.DTYPE_CODES[x.dtype], stream)
 
     def run():
@@ -288,42 +313,43 @@ def k4_call(lib, bq: int, n: int, plan, gen, k: int = 24):
     return run, [out_s, out_i]
 
 
-def sweep_inputs(bq: int, bqp: int, n: int, dtype: str, gen, order: str = "grid"):
-    """Exact-grid queries padded with zeros to Bqp rows, corpus [N, 384]
+def sweep_inputs(bq: int, bqp: int, n: int, dtype: str, gen, order: str = "grid", d: int = 384):
+    """Exact-grid queries padded with zeros to Bqp rows, corpus [N, D]
     (int8: integer rows; bf16: the grid) with a tile repeated in the next,
     and weights with 3% dead rows (int8: 0.01 a live row). ``ascending``:
     row j scores j for every query."""
     if order == "ascending":
         j = torch.arange(n, device="cuda")[:, None]
-        x = (j - 127 * torch.arange(384, device="cuda")[None, :]).clamp(0, 127).float() / 64.0
-        qv = torch.ones(bq, 384, device="cuda") / 64.0
+        x = (j - 127 * torch.arange(d, device="cuda")[None, :]).clamp(0, 127).float() / 64.0
+        qv = torch.ones(bq, d, device="cuda") / 64.0
     else:
-        x = torch.randint(-3, 4, (n, 384), generator=gen, device="cuda").float() / 64.0
+        x = torch.randint(-3, 4, (n, d), generator=gen, device="cuda").float() / 64.0
         if n >= 2048:
             x[1024:2048] = x[:1024]
-        qv = torch.randint(-3, 4, (bq, 384), generator=gen, device="cuda").float() / 64.0
+        qv = torch.randint(-3, 4, (bq, d), generator=gen, device="cuda").float() / 64.0
     valid = (torch.rand(n, generator=gen, device="cuda") > 0.03).float()
     if dtype == "int8":
         x, valid = (x * 64).to(torch.int8), valid * 0.01
         qv = qv * 64
     else:
         x = x.bfloat16()
-    q = torch.zeros(bqp, 384, dtype=x.dtype, device="cuda")
+    q = torch.zeros(bqp, d, dtype=x.dtype, device="cuda")
     q[:bq] = qv.to(x.dtype)
     return q, x, valid
 
 
-def k5_call(lib, bq: int, n: int, dtype: str, plan, gen, k: int = 24, nbuckets: int = 4096):
-    """(run, outputs): K5 on exact-grid data (``sweep_inputs``) with scratch
-    as ``plan`` says, through ``lib``'s C entry."""
+def k5_call(lib, bq: int, n: int, dtype: str, d: int, plan, gen, k: int = 24,
+            nbuckets: int = 4096):
+    """(run, outputs): K5 on exact-grid data (``sweep_inputs``) of D
+    features with scratch as ``plan`` says, through ``lib``'s C entry."""
     p = kernel_lib.ptr
     bqp, per_group, groups = plan
-    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen)
+    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen, d=d)
     keys = torch.empty(groups, bqp, nbuckets, dtype=torch.int64, device="cuda")
     out_s = torch.empty(bq, k, device="cuda")
     out_i = torch.empty(bq, k, dtype=torch.int32, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(x), p(valid), p(keys), p(out_s), p(out_i), bq, bqp, n, 384, nbuckets, k,
+    args = (p(q), p(x), p(valid), p(keys), p(out_s), p(out_i), bq, bqp, n, d, nbuckets, k,
             per_group, kernel_lib.DTYPE_CODES[x.dtype], stream)
 
     def run():
@@ -378,18 +404,18 @@ def k6_call(lib, bq: int, n: int, dtype: str, k: int, order: str, plan, gen):
     return run, [out_s, out_i]
 
 
-def k2_call(lib, b: int, s: int, heads: int, gen):
+def k2_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
     """(run, outputs): K2 on seeded inputs with keys padded to random
     lengths, through ``lib``'s C entry."""
     p = kernel_lib.ptr
-    q, k, v = (torch.randn(b, s, heads * 32, generator=gen, device="cuda").bfloat16()
+    q, k, v = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
     lens[0] = s
     bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
     out = torch.empty_like(q)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(k), p(v), p(bias), p(out), b, s, heads * 32, heads, stream)
+    args = (p(q), p(k), p(v), p(bias), p(out), b, s, heads * head_dim, heads, stream)
 
     def run():
         if lib.frag_flash_attention(*args):
@@ -398,11 +424,11 @@ def k2_call(lib, b: int, s: int, heads: int, gen):
     return run, [out]
 
 
-def k3_call(lib, n: int, splits: int, gen):
-    """(run, outputs): K3 on seeded inputs at H=384, I=1,536 with ``splits``
-    blocks per token tile, through ``lib``'s C entry."""
+def k3_call(lib, n: int, h: int, splits: int, gen):
+    """(run, outputs): K3 on seeded inputs at hidden h, I = 4h, with
+    ``splits`` blocks per token tile, through ``lib``'s C entry."""
     p = kernel_lib.ptr
-    h, i = 384, 1536
+    i = 4 * h
     x = torch.randn(n, h, generator=gen, device="cuda").bfloat16()
     w1 = (torch.randn(h, i, generator=gen, device="cuda") * h ** -0.5).bfloat16()
     w2 = (torch.randn(i, h, generator=gen, device="cuda") * i ** -0.5).bfloat16()
@@ -475,23 +501,26 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     rows = []
-    splits = {(tree, n): ffn_splits(csrc, n, 1536 // 32, sms)
-              for tree, csrc in trees.items() for _, n in K3_SHAPES}
+    splits = {(tree, n, h): ffn_splits(csrc, n, h, sms)
+              for tree, csrc in trees.items() for _, n, h in K3_SHAPES}
     # make(tree) -> (run, outputs) on that tree's library
-    plans = {(tree, bq, n): packed_plan(csrc, bq, n, sms)
-             for tree, csrc in trees.items() for _, bq, n in K4_SHAPES}
+    plans = {(tree, label): packed_plan(csrc, bq, n, sms, d)
+             for tree, csrc in trees.items() for label, bq, n, d in K4_SHAPES}
     cases = [("K1", label, (b, s, dt), lambda tree, b=b, s=s, dt=dt: k1_call(libs[tree], b, s, dt, gen))
              for label, b, s, dt in K1_SHAPES]
-    cases += [("K4", label, {"Bq": bq, "N": n, "groups": {tree: plans[tree, bq, n][4] for tree in trees}},
-               lambda tree, bq=bq, n=n: k4_call(libs[tree], bq, n, plans[tree, bq, n], gen))
-              for label, bq, n in K4_SHAPES]
-    k5_plans = {(tree, bq, n): bucketed_plan(csrc, bq, n, sms)
-                for tree, csrc in trees.items() for _, bq, n, _ in K5_SHAPES}
-    cases += [("K5", label, {"Bq": bq, "N": n, "dtype": dt,
-                             "groups": {tree: k5_plans[tree, bq, n][2] for tree in trees}},
-               lambda tree, bq=bq, n=n, dt=dt: k5_call(libs[tree], bq, n, dt,
-                                                       k5_plans[tree, bq, n], gen))
-              for label, bq, n, dt in K5_SHAPES]
+    cases += [("K4", label, {"Bq": bq, "N": n, "D": d,
+                             "groups": {tree: plans[tree, label][4] for tree in trees}},
+               lambda tree, label=label, bq=bq, n=n, d=d: k4_call(libs[tree], bq, n, d,
+                                                                  plans[tree, label], gen))
+              for label, bq, n, d in K4_SHAPES]
+    k5_plans = {(tree, label): bucketed_plan(csrc, bq, n, sms,
+                                             row_bytes=d * (1 if dt == "int8" else 2))
+                for tree, csrc in trees.items() for label, bq, n, dt, d in K5_SHAPES}
+    cases += [("K5", label, {"Bq": bq, "N": n, "dtype": dt, "D": d,
+                             "groups": {tree: k5_plans[tree, label][2] for tree in trees}},
+               lambda tree, label=label, bq=bq, n=n, dt=dt, d=d: k5_call(
+                   libs[tree], bq, n, dt, d, k5_plans[tree, label], gen))
+              for label, bq, n, dt, d in K5_SHAPES]
     k7_plans = {(tree, bq, n): bucketed_topk_plan(csrc, bq, n, sms)
                 for tree, csrc in trees.items() for _, bq, n, _ in K7_SHAPES}
     cases += [("K7", label, {"Bq": bq, "N": n, "dtype": dt,
@@ -507,11 +536,11 @@ def main(argv=None) -> int:
                lambda tree, label=label, bq=bq, n=n, dt=dt, k=k, order=order: k6_call(
                    libs[tree], bq, n, dt, k, order, k6_plans[tree, label], gen))
               for label, bq, n, dt, k, order in K6_SHAPES]
-    cases += [("K2", label, (b, s, h), lambda tree, b=b, s=s, h=h: k2_call(libs[tree], b, s, h, gen))
-              for label, b, s, h in K2_SHAPES]
-    cases += [("K3", label, {"N": n, "splits": {tree: splits[tree, n] for tree in trees}},
-               lambda tree, n=n: k3_call(libs[tree], n, splits[tree, n], gen))
-              for label, n in K3_SHAPES]
+    cases += [("K2", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k2_call(
+        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K2_SHAPES]
+    cases += [("K3", label, {"N": n, "H": h, "splits": {tree: splits[tree, n, h] for tree in trees}},
+               lambda tree, n=n, h=h: k3_call(libs[tree], n, h, splits[tree, n, h], gen))
+              for label, n, h in K3_SHAPES]
     cases += [("K10", label, (b, s, h), lambda tree, b=b, s=s, h=h: k10_call(libs[tree], b, s, h, gen))
               for label, b, s, h in K10_SHAPES]
     cases += [("K9", label, (b, s, list(pads)), lambda tree, b=b, s=s, pads=pads: k9_call(

@@ -304,17 +304,21 @@ def test_flash_attention_kernel_at_head_dim_64_skips_dead_key_tiles_exactly(gen)
     torch.testing.assert_close(skip.float(), ref.float(), atol=3e-2, rtol=0)
 
 
-@pytest.mark.parametrize("n", [1, 64, 129, 512, 999, 17030])
-def test_fused_ffn_kernel_at_hidden_768(gen, n):
-    """K3's 768-wide design at I = 3,072 (bge-base): 1, 129, 999 and 17,030
-    tokens leave the last 64-token tile ragged; up to 999 the I axis is
-    split and f32 partials are summed, 17,030 is one block a tile. Within
-    3e-2 of the plain version."""
+@pytest.mark.parametrize("n,i", [(1, 3072), (64, 3072), (65, 3072), (129, 3072), (193, 3072),
+                                 (512, 3072), (999, 3072), (17030, 3072), (34816, 3072),
+                                 (131072, 3072), (129, 2048), (999, 2048), (17030, 2048)])
+def test_fused_ffn_kernel_at_hidden_768(gen, n, i):
+    """K3's 768-wide design at I = 3,072 (bge-base) and 2,048: 1, 65, 129,
+    193, 999 and 17,030 tokens leave the last 64-token tile ragged (65,
+    129 and 193 are 2, 3 and 4 tiles); up to 999 the I axis is split and
+    f32 partials are summed, from 17,030 on one block a tile. Within 3e-2
+    of the plain version."""
     bf16 = torch.bfloat16
-    h, i = 768, 3072
+    h = 768
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, _, splits = ffn.launch_plan(n, h, i, sms)
     assert (splits > 1) == (n < 17030)
+    assert -(-n // 64) * splits <= sms or splits == 1
     x = _randn(gen, n, h, dtype=bf16)
     w1 = _randn(gen, h, i, dtype=bf16, scale=h ** -0.5)
     w2 = _randn(gen, i, h, dtype=bf16, scale=i ** -0.5)
@@ -323,6 +327,22 @@ def test_fused_ffn_kernel_at_hidden_768(gen, n):
     ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("n", [512, 34816])
+def test_fused_ffn_kernel_at_hidden_768_is_deterministic(gen, n):
+    """Two calls of K3's 768-wide design on the same inputs give the same
+    bits: each block sums its products in a fixed order, and the split
+    partials are summed in split order (N=512)."""
+    bf16 = torch.bfloat16
+    h, i = 768, 3072
+    x = _randn(gen, n, h, dtype=bf16)
+    w1 = _randn(gen, h, i, dtype=bf16, scale=h ** -0.5)
+    w2 = _randn(gen, i, h, dtype=bf16, scale=i ** -0.5)
+    b1, b2 = _randn(gen, i, dtype=bf16, scale=0.1), _randn(gen, h, dtype=bf16, scale=0.1)
+    first = ffn.fused_ffn(x, w1, b1, w2, b2)
+    second = ffn.fused_ffn(x, w1, b1, w2, b2)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -405,19 +425,21 @@ def test_probe_kernel_at_d768(gen, dtype):
 
 
 def test_wide_kernels_reject_what_they_cannot_take(gen):
-    """K2 at head_dim 128, K3 at hidden 1,024 or I not a multiple of 16
-    at 768: raised before any launch, never the plain version."""
+    """K2 at head_dim 128, K3 at hidden 1,024 or I not a multiple of 64
+    (the 768 design's chunk) at 768: raised before any launch, never the
+    plain version."""
     bf16 = torch.bfloat16
     x = _randn(gen, 2, 64, 1024, dtype=bf16)
     with pytest.raises(ValueError, match="head_dim 32 or 64"):
         fa.flash_attention(x, x, x, torch.zeros(2, 64, device="cuda"), num_heads=8)
     w1, w2 = _randn(gen, 1024, 4096, dtype=bf16), _randn(gen, 4096, 1024, dtype=bf16)
-    with pytest.raises(ValueError, match="H=768 with I a multiple of 16"):
+    with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
         ffn.fused_ffn(x, w1, _randn(gen, 4096, dtype=bf16), w2, _randn(gen, 1024, dtype=bf16))
     x = _randn(gen, 64, 768, dtype=bf16)
-    w1, w2 = _randn(gen, 768, 3000, dtype=bf16), _randn(gen, 3000, 768, dtype=bf16)
-    with pytest.raises(ValueError, match="H=768 with I a multiple of 16"):
-        ffn.fused_ffn(x, w1, _randn(gen, 3000, dtype=bf16), w2, _randn(gen, 768, dtype=bf16))
+    for i in (3000, 2000):   # not a multiple of 16; of 16 but not of 64
+        w1, w2 = _randn(gen, 768, i, dtype=bf16), _randn(gen, i, 768, dtype=bf16)
+        with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
+            ffn.fused_ffn(x, w1, _randn(gen, i, dtype=bf16), w2, _randn(gen, 768, dtype=bf16))
 
 
 def _grid(gen, *shape):

@@ -291,7 +291,8 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     (768, 12, 3072, "flat", None),                   # bge-base / gte-base: head_dim 64
     (768, 24, 3072, "ivf", None),                    # head_dim 32 at hidden 768
     (384, 12, 1000, "flat", "multiple of 32"),       # K3's intermediate chunks at 384
-    (768, 12, 3000, "flat", "multiple of 16"),       # and at 768
+    (768, 12, 3000, "flat", "multiple of 64"),       # and at 768
+    (768, 12, 3040, "flat", "multiple of 64"),       # a multiple of 16, not of 64
     (1024, 16, 4096, "flat", "K3"),                  # bge-large: head_dim 64, hidden 1,024
     (1024, 8, 4096, "ivf", "K2"),                    # head_dim 128
 ])

@@ -10,6 +10,8 @@ the JAX runtime does.
 """
 
 import json
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -183,29 +185,103 @@ def test_k2_block_fits_shared_memory(head_dim, s, consumers):
     assert head_dim in fa.FWD_HEAD_DIMS
 
 
-@pytest.mark.parametrize("h_dim,i_dim", [(384, 1536), (768, 3072)])
+def _ffn_cuda_constants():
+    """csrc/fused_ffn.cu's ``constexpr int`` constants, evaluated in order."""
+    src = (Path(ffn.__file__).parents[1] / "csrc" / "fused_ffn.cu").read_text()
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+def test_k3_mirrors_equal_the_cuda_constants():
+    """ops/fused_ffn.py's tiling of both designs is csrc/fused_ffn.cu's."""
+    c = _ffn_cuda_constants()
+    assert (c["kH"], c["kTokens"], c["kChunk"], c["kStages"]) == (
+        ffn.KERNEL_HIDDEN, ffn.KERNEL_TOKENS, ffn.KERNEL_CHUNK, ffn.KERNEL_STAGES)
+    assert (c["kWH"], c["kWRows"], c["kWChunk"], c["kWStages"], c["kWSlabBytes"]) == (
+        ffn.WIDE_HIDDEN, ffn.WIDE_TOKENS, ffn.WIDE_CHUNK, ffn.WIDE_STAGES, ffn.WIDE_SLAB_BYTES)
+    assert c["kSmemBytes"] == ffn.block_smem_bytes(384)
+    assert c["kWSmemBytes"] == ffn.block_smem_bytes(768)
+
+
+def test_k3_wide_shared_memory_sum():
+    """The 768 design's block: the x rows (96 KB), two h tiles (8 KB each),
+    4 ring stages of a 24 KB slab, the 1 KB alignment slack and the
+    stages' full and empty barriers (static) within the 227 KB a block
+    may take; a slab is 192 rows of W1's chunk (64 columns, 128 bytes) or
+    16 rows of W2's (768 columns), whole k16 steps, and a chunk's W1 and
+    W2 slabs pair up."""
+    c = _ffn_cuda_constants()
+    x, h_tile = 64 * 768 * 2, 64 * 64 * 2
+    assert (c["kWXBytes"], c["kWHBytes"], c["kWSlabBytes"]) == (x, h_tile, 24576)
+    assert c["kWW1Rows"] * c["kWChunk"] * 2 == c["kWW2Rows"] * 768 * 2 == c["kWSlabBytes"]
+    assert c["kWW1Rows"] % 16 == 0 and c["kWW2Rows"] % 16 == 0 and c["kWChunk"] * 2 == 128
+    assert c["kWW1Slabs"] == 768 // c["kWW1Rows"] == c["kWW2Slabs"] == c["kWChunk"] // c["kWW2Rows"]
+    barriers = 2 * c["kWStages"] * 8
+    assert x + 2 * h_tile + 4 * 24576 + 1024 == ffn.block_smem_bytes(768) == 214016
+    assert ffn.block_smem_bytes(768) + barriers <= topk.SMEM_BLOCK_LIMIT
+
+
+@pytest.mark.parametrize("h_dim,i_dim", [(384, 1536), (768, 3072), (768, 2048)])
 def test_k3_block_fits_shared_memory_and_registers(h_dim, i_dim):
-    """K3's two designs: x rows and a 2-stage W1/W2 ring in 227 KB; each
-    warpgroup's f32 slice of y in 192 registers a thread (the 384-wide
-    design over 64 rows, the 768-wide one over its half of the columns),
-    under the 255 a thread of a 256-thread block."""
+    """K3's two designs: x rows and the W1/W2 ring (at 768 also two h
+    tiles) in 227 KB; each warpgroup's f32 slice of y in 192 registers a
+    thread (the 384-wide design over 64 rows, the 768-wide one over its
+    half of the columns) and its slice of a chunk's h in 16, under the 255
+    a thread of a 256-thread block."""
     assert ffn.kernel_takes(h_dim, i_dim)
     assert ffn.block_smem_bytes(h_dim) <= topk.SMEM_BLOCK_LIMIT
     assert ffn.accumulator_registers(h_dim) == 192
+    assert ffn.h_registers(h_dim) == 16
+    assert ffn.accumulator_registers(h_dim) + ffn.h_registers(h_dim) <= 255 - 32
 
 
 @pytest.mark.parametrize("n,h_dim,plan", [
     (512, 384, (128, 32, 12)), (131072, 384, (128, 32, 1)),
-    (512, 768, (64, 16, 24)), (131072, 768, (64, 16, 1)), (999, 768, (64, 16, 12)),
-    (64, 768, (64, 16, 24)), (17030, 768, (64, 16, 1))])
+    (512, 768, (64, 64, 16)), (131072, 768, (64, 64, 1)), (999, 768, (64, 64, 8)),
+    (64, 768, (64, 64, 24)), (17030, 768, (64, 64, 1)), (1, 768, (64, 64, 24)),
+    (34816, 768, (64, 64, 1))])
 def test_k3_launch_plan(n, h_dim, plan):
     """(tokens a block, I chunk, splits) on 132 SMs: a query's tokens split
-    the I axis so that the grid fills the card once, with each split
-    walking at least 128 I columns; an ingest batch is not split."""
+    the I axis (at 768 so that the grid fits the card in one wave), with
+    each split walking at least 128 I columns; an ingest batch is not
+    split."""
     i_dim = 1536 if h_dim == 384 else 3072
     assert ffn.launch_plan(n, h_dim, i_dim, H100_SMS) == plan
     tokens, chunk, splits = plan
     assert (i_dim // splits) % chunk == 0 and i_dim // splits >= 128
+
+
+@pytest.mark.parametrize("n,tiles", [
+    (1, 1), (64, 1), (65, 2), (128, 2), (129, 3), (192, 3), (193, 4), (320, 5), (512, 8),
+    (999, 16), (34816, 544), (131072, 2048)])
+def test_k3_wide_grid_is_one_block_a_tile_and_split(n, tiles):
+    """At 768 a block takes 64 tokens, the last tile ragged (1, 65, 129,
+    193 and 999 tokens); the grid is the tiles times the splits, the splits
+    in one wave below 132 tiles."""
+    _, _, splits = ffn.launch_plan(n, 768, 3072, H100_SMS)
+    assert -(-n // ffn.WIDE_TOKENS) == tiles
+    assert tiles * ffn.WIDE_TOKENS - n < ffn.WIDE_TOKENS
+    assert tiles * splits <= H100_SMS or splits == 1
+
+
+@pytest.mark.parametrize("n", [1, 64, 512, 999, 34816, 131072])
+@pytest.mark.parametrize("i_dim", [3072, 2048])
+def test_k3_wide_grid_fits_one_wave_or_is_one_block_a_tile(n, i_dim):
+    """At 768 a split grid fits the 132 SMs in one wave with the most splits
+    that do (each split walking at least 2 chunks); from 132 blocks of
+    tiles on, one block a tile and no split."""
+    _, _, splits = ffn.launch_plan(n, 768, i_dim, H100_SMS)
+    blocks = -(-n // ffn.WIDE_TOKENS)
+    chunks = i_dim // ffn.WIDE_CHUNK
+    assert chunks % splits == 0 and chunks // splits >= ffn.WIDE_MIN_CHUNKS
+    if blocks >= H100_SMS:
+        assert splits == 1
+    else:
+        assert blocks * splits <= H100_SMS
+        more = [d for d in range(splits + 1, chunks // ffn.WIDE_MIN_CHUNKS + 1) if chunks % d == 0]
+        assert all(blocks * d > H100_SMS for d in more)
 
 
 @pytest.mark.parametrize("bq,d,qtile,stages", [
@@ -266,7 +342,7 @@ def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
         fa.flash_attention_bwd(x, x, x, torch.zeros(2, 65, device="meta"), x, num_heads=12)
     x = torch.empty(8, 1024, **meta)
     w1, w2 = torch.empty(1024, 4096, **meta), torch.empty(4096, 1024, **meta)
-    with pytest.raises(ValueError, match="H=768 with I a multiple of 16"):
+    with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
         ffn.fused_ffn(x, w1, torch.empty(4096, **meta), w2, torch.empty(1024, **meta))
     q, c = torch.empty(2, 1024, **meta), torch.empty(1024, 1024, **meta)
     with pytest.raises(ValueError, match="at most 768"):
