@@ -46,6 +46,33 @@ Phases, each printing one JSON line:
 7. int8    -- the flat runtime's indexes are saved and its data dir copied;
               Runtime.build there with INDEX_DTYPE=int8 reloads and
               re-quantizes them and answers the 9 golden questions.
+7b. sharded -- multi-GPU serving on the one card (every shard on
+              cuda:0). The gate: Runtime.build with INDEX_SHARDS=4 and one
+              encode replica on a copy of phase 4's data dir (without
+              feedback.db) reloads its flat checkpoints into 4-shard
+              ShardedFlatIndexes and answers the 9 golden questions; each
+              dense search it made must give phase 4's index's ids on the
+              same query vector (as sets within score ties of 1e-5), and
+              each question whose top children differ from phase 4's
+              (outside ties of 2^-7 of the final scores) must have had a
+              dense top k reordered within such a tie. Runtime.build with
+              INDEX_SHARDS=4 and ENCODE_DP=2 (two encode replicas on the
+              card), flat bf16, phase 4's checkpoints and NullLLM: ingest,
+              the 9 golden questions (K7 once a shard and a search, K4 and
+              K5 never, K1-K3 on both replicas), 64 children's DP
+              embeddings against the one-device encoder (cosine >= 0.9999),
+              ingest rate and p50 beside phase 4's; its top children
+              against phase 4's are reported. Then INDEX_KIND=ivf on 4 shards: ingest,
+              tune_indexes (nprobe on every shard), the 9 questions, K8 on
+              every shard. Then the index classes at scale, held bit for
+              bit to the plain composition (K7's plain version per shard,
+              the same merge) on exact-grid rows, CUDA events:
+              ShardedFlatIndex at 4 x 262,144 rows of D 384 (bf16, int8)
+              and 4 x 131,072 of D 768, Bq 8 and 128, k 24, beside one
+              FlatIndex over the same rows through K7 and K4 (K5 for int8);
+              ShardedIVFIndex at 4 x 262,144 clustered rows, nlist 1,024,
+              nprobe 64: recall@24 against the exact top 24, ms a search
+              (the 10M-chunk configuration cut to 1,048,576 rows).
 8. serve   -- the HTTP surface: Runtime.build on another copy of the flat
               data dir (without feedback.db, whose result cache would
               answer), make_processor, make_app, and make_server on
@@ -119,8 +146,8 @@ Phases, each printing one JSON line:
               fail.
 17. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
-Each path (phases 4, 6, 7, 8, each part of 8b, 9, each part of 10b, 11,
-and each part of 14 and 16) sets every launch counter to 0 just before it
+Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
+part of 10b, 11, and each part of 14 and 16) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
@@ -852,7 +879,8 @@ SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
               ("topk_matmul", 4096, "bf16", False, 9),            # the backends phase's launch
               ("bucketed_topk", 102400, "bf16", False, 128),
               ("bucketed_topk", 102400, "int8", False, 128),
-              ("bucketed_topk", 4096, "bf16", False, 9))          # the backends phase's launch
+              ("bucketed_topk", 4096, "bf16", False, 9),          # the backends phase's launch
+              ("bucketed_topk", 32768, "bf16", False, 8))         # a shard of the sharded runtime
 
 
 def sweep_cases(torch, gen, randn, d: int = 384, plan=SWEEP_PLAN,
@@ -860,7 +888,8 @@ def sweep_cases(torch, gen, randn, d: int = 384, plan=SWEEP_PLAN,
     """K5, K6, K7 at the JAX package's bench shape (Bq=128, N=102,400, D=384,
     k=24), K5 at the int8 runtime's served shape (one query over 4,096
     rows), K6 int8 at N=16,384, K6 and K7 at the backends phase's shape (9
-    queries over 4,096 rows), K7 also in int8, and one exact-grid case with
+    queries over 4,096 rows), K7 also in int8 and at a shard of the sharded
+    runtime (8 queries over 32,768 rows), and one exact-grid case with
     duplicated rows for each kernel of ``grid``; ``d`` and ``plan`` give
     another width its own cases."""
     from financial_rag_tpu_torch.ops import topk
@@ -1250,6 +1279,52 @@ def cuda_kernel_names(torch, fn) -> list:
     return sorted({e.name for e in device_events(prof)})
 
 
+# One sweep case in a fresh process: random inputs of the case's shape and
+# dtype (the wrapper picks its kernels by those alone), one call, then one
+# profiled call; prints the device kernels' names as JSON.
+FRESH_SWEEP_PROBE = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from financial_rag_tpu_torch.ops import topk
+out = []
+for name, bq, n, d, k, dtype in json.loads(sys.argv[1]):
+    q = torch.randn(bq, d, device="cuda")
+    if dtype == "int8":
+        x = torch.randint(-127, 128, (n, d), device="cuda").to(torch.int8)
+    else:
+        x = torch.randn(n, d, device="cuda").to({"bf16": torch.bfloat16}.get(dtype, torch.float32))
+    valid = torch.ones(n, device="cuda")
+    getattr(topk, name)(q, x, valid, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        getattr(topk, name)(q, x, valid, k)
+        torch.cuda.synchronize()
+    out.append(sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA}))
+print(json.dumps(out))
+"""
+
+
+def fresh_sweep_names(cases) -> list:
+    """The kernel names torch.profiler records for each (wrapper, shape)
+    case, made again in one fresh Python process. In some chip_smoke
+    processes the profiler recorded no event of one sweep instantiation
+    (bucketed_wgmma_sweep_kernel<bf16, 1, 768>) in any trace, while the
+    kernel's results were right and fresh processes recorded it every
+    time; a sweep missing from this process's trace is looked for there."""
+    spec = []
+    for name, shape in cases:
+        m = re.match(r"Bq=(\d+),N=(\d+),D=(\d+),k=(\d+),(\w+)", shape)
+        check(m is not None, f"no sweep shape in {shape!r}")
+        spec.append([name, *(int(v) for v in m.groups()[:4]), m.group(5)])
+    out = subprocess.run([sys.executable, "-c", FRESH_SWEEP_PROBE, json.dumps(spec)],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"the fresh sweep probe failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def max_abs_cmp(tol):
     def cmp(a, b):
         err = (a.float() - b.float()).abs().max().item()
@@ -1261,6 +1336,7 @@ def phase_kernels(torch, F, seed):
     """Returns {kernel name: the entry of its first (main-path) shape}."""
     results = {}
     failures = []
+    unseen = []   # (name, shape, names): a trace without the Hopper sweep nor an older one
     for name, shape, run, plain, library, cmp, (bound_ms, bound_by) in kernel_cases(torch, F, seed):
         out = run()
         torch.cuda.synchronize()
@@ -1269,10 +1345,11 @@ def phase_kernels(torch, F, seed):
         if name in HOPPER_SWEEP:
             names = cuda_kernel_names(torch, run)
             detail["sweep_kernels"] = [n for n in names if "sweep" in n]
-            if not any(HOPPER_SWEEP[name] in n for n in names) or any(
-                    old in n for n in names for old in OLDER_SWEEPS):
+            if any(old in n for n in names for old in OLDER_SWEEPS):
                 failures.append(f"{name} [{shape}] did not run {HOPPER_SWEEP[name]} alone: "
                                 f"{names}")
+            elif not any(HOPPER_SWEEP[name] in n for n in names):
+                unseen.append((name, shape, names))
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain)
         if isinstance(library, SdpaBackward):
@@ -1310,6 +1387,17 @@ def phase_kernels(torch, F, seed):
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         del out, ref
         torch.cuda.empty_cache()
+    if unseen:
+        print(f"chip_smoke: the profiler's trace held no Hopper sweep in {len(unseen)} cases; "
+              "looking for it in a fresh process", file=sys.stderr, flush=True)
+        fresh = fresh_sweep_names([(name, shape) for name, shape, _ in unseen])
+        for (name, shape, names), again in zip(unseen, fresh):
+            emit({"phase": "kernel_sweep_fresh", "name": name, "shape": shape,
+                  "sweep_kernels": [n for n in again if "sweep" in n]})
+            if not any(HOPPER_SWEEP[name] in n for n in again) or any(
+                    old in n for n in again for old in OLDER_SWEEPS):
+                failures.append(f"{name} [{shape}] did not run {HOPPER_SWEEP[name]} alone: "
+                                f"{names}; in a fresh process: {again}")
     check(not failures, "kernel mismatch: " + "; ".join(failures))
     return results
 
@@ -1570,7 +1658,8 @@ def phase_slice(torch, seed, work: Path):
           "launches_queries": query_launches})
     texts = [c["text"] for out in answers for c in out["top_children_chunks"]]
     served = {"children": children, "answers": answers, "query_launches": query_launches,
-              "query_p50_ms": statistics.median(query_ms)}
+              "query_p50_ms": statistics.median(query_ms),
+              "children_per_s": children / ingest_s}
     return rt, cfg, paths, items, launches, texts, served
 
 
@@ -1645,6 +1734,440 @@ def phase_int8(torch, rt, cfg, work: Path):
           "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
           "launches": launches})
     return launches
+
+
+SHARDS = 4               # INDEX_SHARDS of the sharded phase (all on the one card)
+SHARD_ENCODE_DP = 2      # ENCODE_DP of the sharded phase
+SHARD_TIE = 2.0 ** -7    # consecutive final scores this close are a tie
+SHARD_DENSE_TIE = 1e-5   # index scores this close are a tie (K4 keeps ~2^-20 of them)
+DP_COS_MIN = 0.9999      # data-parallel against one-device embeddings
+SHARDED_PATH = ("masked_mean_l2_normalize", "flash_attention", "fused_ffn", "bucketed_topk")
+SHARDED_IVF_PATH = IVF_PATH
+# index classes at scale: (dtype, D, rows a shard); 4 shards each, k 24
+SHARD_SCALE = (("bfloat16", 384, 262144), ("int8", 384, 262144), ("bfloat16", 768, 131072))
+SHARD_SCALE_BQ = (8, 128)
+SHARD_K = 24
+# the sharded IVF at scale: the 10M-chunk configuration cut to 4 x 262,144 rows
+SHARD_IVF = {"rows": 262144, "nlist": 1024, "nprobe": 64, "list_size": 512, "centers": 4096}
+
+
+def count_searches(rt) -> dict:
+    """Wrap every index's ``search`` to count its calls: {model: count}."""
+    counts = {}
+    for name, idx in rt.indexes.items():
+        counts[name] = 0
+        inner = idx.search
+
+        def counted(*a, _inner=inner, _name=name, **kw):
+            counts[_name] += 1
+            return _inner(*a, **kw)
+
+        idx.search = counted
+    return counts
+
+
+def record_searches(rt) -> dict:
+    """Wrap every index's ``search`` to keep each call's (queries, ids,
+    scores): {model: [call, ...]}."""
+    import numpy as np
+
+    calls = {}
+    for name, idx in rt.indexes.items():
+        calls[name] = []
+        inner = idx.search
+
+        def recorded(queries, *a, _inner=inner, _name=name, **kw):
+            ids, scores = _inner(queries, *a, **kw)
+            calls[_name].append((np.array(queries, np.float32, ndmin=2), ids, scores))
+            return ids, scores
+
+        idx.search = recorded
+    return calls
+
+
+def child_key(c: dict):
+    return (c.get("document_name"), c.get("text"))
+
+
+def child_score(c: dict) -> float:
+    return float(c["final_rerank_score"] if c.get("final_rerank_score") is not None
+                 else c["retrieval_score"])
+
+
+def same_top_children(got: list, want: list, tol: float = SHARD_TIE):
+    """The sharded runtime's top children against the single-device
+    runtime's (reported): want's children split where consecutive final
+    scores differ by more than
+    ``tol``; each group must hold the same children at the same positions
+    in got, in any order within the group. A group that reaches the end of
+    the list may be cut by the top-n: there, a child of got's that is not in
+    want's group must tie with it. Returns None, or what differs."""
+    if len(got) != len(want):
+        return f"{len(got)} children against {len(want)}"
+    lo = 0
+    for i in range(1, len(want) + 1):
+        if i < len(want) and child_score(want[i - 1]) - child_score(want[i]) <= tol:
+            continue
+        g, w = got[lo:i], want[lo:i]
+        if {child_key(c) for c in g} != {child_key(c) for c in w}:
+            tail = i == len(want) and all(
+                abs(child_score(c) - child_score(w[-1])) <= tol
+                for c in g if child_key(c) not in {child_key(x) for x in w})
+            if not tail:
+                return f"positions {lo}-{i - 1}: {[child_key(c)[1][:40] for c in g]} " \
+                       f"against {[child_key(c)[1][:40] for c in w]}"
+        lo = i
+    return None
+
+
+def dp_cosine(torch, single_enc, dp_enc, texts) -> float:
+    """Least cosine of the data-parallel encoder's embeddings against the
+    one-device encoder's, on the same texts."""
+    import numpy as np
+
+    a, b = dp_enc.encode(texts), single_enc.encode(texts)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    return float(cos.min())
+
+
+def same_ranking(got_ids, got_s, want_ids, want_s, tol: float = SHARD_DENSE_TIE):
+    """One query's top k against the single-device index's: want's list
+    split where consecutive scores differ by more than ``tol``; each group
+    must hold the same ids at the same positions in got, in any order
+    within the group, with scores within ``tol``; in a group that the k cut,
+    an id of got's that is not in want's must tie with it. Returns None, or
+    what differs."""
+    import numpy as np
+
+    if np.abs(np.asarray(got_s) - np.asarray(want_s)).max() > tol:
+        return f"scores differ by {np.abs(np.asarray(got_s) - np.asarray(want_s)).max()}"
+    k, lo = len(want_ids), 0
+    for i in range(1, k + 1):
+        if i < k and want_s[i - 1] - want_s[i] <= tol:
+            continue
+        g, w = set(got_ids[lo:i].tolist()), set(want_ids[lo:i].tolist())
+        if g != w and not (i == k and all(abs(s - want_s[k - 1]) <= tol
+                                          for s in got_s[lo:i])):
+            return f"positions {lo}-{i - 1}: {sorted(g)} against {sorted(w)}"
+        lo = i
+    return None
+
+
+def phase_sharded(torch, cfg, work: Path, items, rt_single, served: dict, texts):
+    """Multi-GPU serving on the one card (every shard and replica on
+    cuda:0). First the gate: Runtime.build with INDEX_SHARDS=4 and one
+    encode replica on a copy of phase 4's data dir, which reloads phase 4's
+    flat checkpoints into 4-shard ShardedFlatIndexes (so ids, rows and query
+    vectors are phase 4's and only the index differs), answers the 9 golden
+    questions; every dense search it made must give phase 4's index's top k
+    on the same query vector (ids as sets within score ties of 1e-5), and
+    each question whose top children differ from phase 4's (outside ties of
+    2^-7 of the final scores) must have had a dense top k reordered within
+    such a tie. Then INDEX_SHARDS=4 with ENCODE_DP=2, flat bf16, the
+    slice's checkpoints and NullLLM: ingest, the 9 golden questions (K7 once
+    a shard and a search, K4 and K5 never, K1-K3 on both replicas), the DP
+    encoder against the one-device encoder; its top children against phase
+    4's are reported (the DP encode's bf16 differences on these nearly
+    parallel embeddings move the dense scores by ~1e-4). Then INDEX_KIND=ivf
+    on 4 shards: ingest, tune_indexes, the 9 questions, K8 on every shard.
+    Returns the DP runtime's query launches and the IVF path's launches."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
+    from financial_rag_tpu_torch.runtime import Runtime
+
+    # the gate: phase 4's data dir (its flat checkpoints, documents and
+    # children; not its result cache) reloaded with INDEX_SHARDS=4 and one
+    # encode replica, so ids, rows and query vectors are phase 4's and only
+    # the index differs
+    shutil.copytree(work / "data", work / "data_sharded_gate",
+                    ignore=shutil.ignore_patterns("feedback.db*"))
+    cfg = copy.deepcopy(cfg)
+    cfg.mesh.index_shards = SHARDS
+    cfg.mesh.encode_dp = 1
+    rt = Runtime.build(cfg, data_dir=work / "data_sharded_gate", device="cuda")
+    check(all(isinstance(i, ShardedFlatIndex) and i.n_shards == SHARDS
+              and i.backend == "pallas_bucketed" and i.count() == rt_single.indexes[n].count()
+              for n, i in rt.indexes.items()),
+          "sharded gate: phase 4's indexes did not reload into 4-shard K7 indexes")
+    calls = record_searches(rt)
+    _, gate_answers, _ = golden_queries(rt, "sharded gate")
+    dense, dense_diffs, reordered = {}, {}, {}
+    for name, seen in calls.items():
+        check(len(seen) == len(GOLDEN_QUESTIONS) and all(q.shape[0] == 1 for q, _, _ in seen),
+              f"sharded gate: {name}: {len(seen)} searches, not one a question")
+        in_order, score_diff = [], 0.0
+        for i, (qv, got_ids, got_s) in enumerate(seen):
+            want_ids, want_s = rt_single.indexes[name].search(qv, got_ids.shape[1])
+            diff = same_ranking(got_ids[0], got_s[0], want_ids[0], want_s[0])
+            if diff:
+                dense_diffs[f"{name}/{i}"] = diff
+            if not (got_ids == want_ids).all():
+                reordered.setdefault(i, []).append(name)
+            in_order.append((got_ids == want_ids).mean())
+            score_diff = max(score_diff, float(np.abs(got_s - want_s).max()))
+        dense[name] = {"same_ids_in_order": float(np.mean(in_order)),
+                       "max_score_diff": score_diff}
+    check(not dense_diffs, f"sharded gate: dense top k differ from phase 4's index: {dense_diffs}")
+    gate_final = {i: same_top_children(got["top_children_chunks"], want["top_children_chunks"])
+                  for i, (got, want) in enumerate(zip(gate_answers, served["answers"]))}
+    untraced = {GOLDEN_QUESTIONS[i]: d for i, d in gate_final.items()
+                if d and i not in reordered}
+    check(not untraced, f"sharded gate: top children differ where no dense top k moved "
+                        f"within a tie: {untraced}")
+    emit({"phase": "sharded_gate", "shards": SHARDS, "encode_dp": 1,
+          "rows": {n: i.count() for n, i in rt.indexes.items()},
+          "dense_vs_flat": dense,
+          "dense_in_other_order_within_ties": {GOLDEN_QUESTIONS[i]: m
+                                               for i, m in reordered.items()},
+          "final_top_children_as_flat": sum(v is None for v in gate_final.values()),
+          "final_differences": {GOLDEN_QUESTIONS[i]: d for i, d in gate_final.items() if d}})
+    del rt
+    torch.cuda.empty_cache()
+
+    cfg.mesh.encode_dp = SHARD_ENCODE_DP
+    reset_launches()
+    t_build = time.perf_counter()
+    rt = Runtime.build(cfg, data_dir=work / "data_sharded", device="cuda")
+    build_s = time.perf_counter() - t_build
+    check(all(isinstance(i, ShardedFlatIndex) and i.n_shards == SHARDS
+              and i.backend == "pallas_bucketed" and i.dtype == torch.bfloat16
+              and all(d.type == "cuda" for d in i.devices) for i in rt.indexes.values()),
+          "sharded: the indexes are not 4-shard bf16 K7 indexes on the card")
+    encs = {n: getattr(e, "inner", e) for n, e in rt.dual_encoder.encoders.items()}
+    check(all(e.n_replicas == SHARD_ENCODE_DP for e in encs.values()),
+          "sharded: the encoders are not data-parallel")
+    children, ingest_s = ingest_all(rt, items)
+    ingest_launches = read_launches()
+    searches = count_searches(rt)
+    query_ms, answers, methods = golden_queries(rt, "sharded")
+    launches = read_launches()
+    query_launches = {name: launches[name] - ingest_launches[name] for name in launches}
+    check_path_launched(SHARDED_PATH, query_launches, "sharded query path")
+    n_search = sum(searches.values())
+    check(query_launches["bucketed_topk"] == SHARDS * n_search,
+          f"sharded: K7 launched {query_launches['bucketed_topk']} times for {n_search} "
+          f"searches of {SHARDS} shards")
+    check(launches["packed_topk_fused"] == 0 and launches["bucketed_topk_fused"] == 0,
+          f"sharded: K4 or K5 launched ({launches})")
+    final = {q: same_top_children(got["top_children_chunks"], want["top_children_chunks"])
+             for q, got, want in zip(GOLDEN_QUESTIONS, answers, served["answers"])}
+    cos = {n: dp_cosine(torch, getattr(rt_single.dual_encoder.encoders[n], "inner",
+                                       rt_single.dual_encoder.encoders[n]), e, texts[:64])
+           for n, e in encs.items()}
+    check(min(cos.values()) >= DP_COS_MIN, f"sharded: DP encode cosine {cos} < {DP_COS_MIN}")
+    emit({"phase": "sharded", "shards": SHARDS, "encode_dp": SHARD_ENCODE_DP,
+          "children": children, "runtime_build_s": round(build_s, 3),
+          "ingest_s": round(ingest_s, 3), "children_per_s": round(children / ingest_s, 1),
+          "flat_children_per_s": round(served["children_per_s"], 1),
+          "query_p50_ms": round(statistics.median(query_ms), 3),
+          "query_max_ms": round(max(query_ms), 3),
+          "flat_query_p50_ms": round(served["query_p50_ms"], 3),
+          "searches": searches, "reranked_methods": methods,
+          "dp_cosine_min": cos,
+          "final_top_children_as_flat": sum(v is None for v in final.values()),
+          "final_differences": {q: v for q, v in final.items() if v},
+          "cap_per_shard": rt.indexes["baai"].cap_per_shard,
+          "launches": launches, "launches_ingest": ingest_launches,
+          "launches_queries": query_launches})
+    del rt
+    torch.cuda.empty_cache()
+
+    cfg.index.kind = "ivf"
+    cfg.index.ivf_autotune_recall = 0.9
+    cfg.index.ivf_autotune_sample = 32
+    reset_launches()
+    rt = Runtime.build(cfg, data_dir=work / "data_sharded_ivf", device="cuda")
+    check(all(isinstance(i, ShardedIVFIndex) and i.n_shards == SHARDS
+              and all(s.device.type == "cuda" for s in i.shards) for i in rt.indexes.values()),
+          "sharded ivf: the indexes are not 4-shard IVF indexes on the card")
+    children, ingest_s = ingest_all(rt, items)
+    shape = {n: (i.nlist, i.shards[0].list_size, i.nprobe) for n, i in rt.indexes.items()}
+    t_tune = time.perf_counter()
+    reports = rt.tune_indexes()
+    tune_s = time.perf_counter() - t_tune
+    check(set(reports) == set(rt.indexes), f"sharded ivf: tune_indexes reported {sorted(reports)}")
+    check(all(all(s.nprobe == i.nprobe for s in i.shards) for i in rt.indexes.values()),
+          "sharded ivf: the tuned nprobe is not on every shard")
+    per_shard = {}
+    for name, idx in rt.indexes.items():
+        for i, shard in enumerate(idx.shards):
+            per_shard[(name, i)] = 0
+            inner = shard.search_begin
+
+            def counted(*a, _inner=inner, _key=(name, i), **kw):
+                per_shard[_key] += 1
+                return _inner(*a, **kw)
+
+            shard.search_begin = counted
+    before = read_launches()
+    query_ms_ivf, _, methods_ivf = golden_queries(rt, "sharded ivf")
+    launches_ivf = read_launches()
+    k8 = launches_ivf["probe_scores"] - before["probe_scores"]
+    check_path_launched(SHARDED_IVF_PATH, launches_ivf, "sharded ivf path")
+    check(min(per_shard.values()) > 0 and k8 >= sum(per_shard.values()),
+          f"sharded ivf: K8 not launched on every shard ({per_shard}, {k8} launches)")
+    emit({"phase": "sharded_ivf", "shards": SHARDS, "children": children,
+          "ivf_shape": shape, "ingest_s": round(ingest_s, 3),
+          "children_per_s": round(children / ingest_s, 1),
+          "query_p50_ms": round(statistics.median(query_ms_ivf), 3),
+          "query_max_ms": round(max(query_ms_ivf), 3), "reranked_methods": methods_ivf,
+          "tune_s": round(tune_s, 3),
+          "tuned_nprobe": {n: r["nprobe"] for n, r in reports.items()},
+          "shard_searches": {f"{n}/{i}": c for (n, i), c in per_shard.items()},
+          "probe_launches_queries": k8, "launches": launches_ivf})
+    return query_launches, launches_ivf
+
+
+def fill_sharded(torch, idx, rows: int, gen) -> None:
+    """``rows`` rows a shard, written on the card in place where upsert
+    would put ids 1..rows x n_shards (round robin: id j + 1 at local slot
+    j // n of shard j % n): 1/64-grid coordinates (small integers beside a
+    weight of 1/64 for int8), so every score is exact. Making and
+    normalising a million rows on the host would take longer than the
+    searches."""
+    import numpy as np
+
+    n = idx.n_shards
+    for s, shard in enumerate(idx.shards):
+        if idx.dtype == torch.int8:
+            shard._vectors[:rows] = torch.randint(-3, 4, (rows, idx.dim), generator=gen,
+                                                  device="cuda").to(torch.int8)
+            shard._valid[:rows] = 1.0 / 64
+        else:
+            shard._vectors[:rows] = (torch.randint(-3, 4, (rows, idx.dim), generator=gen,
+                                                   device="cuda").float() / 64).to(idx.dtype)
+            shard._valid[:rows] = 1.0
+        ids = np.arange(rows) * n + s + 1
+        shard._ids[:rows] = ids
+        shard._slot_of = dict(zip(ids.tolist(), range(rows)))
+        shard._next_slot = rows
+    idx._owner = dict(zip(range(1, rows * n + 1), (np.arange(rows * n) % n).tolist()))
+    idx._fill[:] = rows
+
+
+def plain_sharded(torch, idx, q, k: int):
+    """The plain composition: K7's plain version on each shard (on the
+    card), then the index's merge and id map."""
+    from financial_rag_tpu_torch.ops import topk
+    from financial_rag_tpu_torch.parallel.sharded_index import merge_shards
+
+    qt = torch.from_numpy(q).cuda()
+    parts = [topk.bucketed_topk_plain(qt, s._vectors, s._valid, k, nbuckets=idx.nbuckets)
+             for s in idx.shards]
+    return merge_shards(parts, [s._ids for s in idx.shards], k)
+
+
+def phase_sharded_scale(torch, seed: int):
+    """The index classes at scale, held against the plain composition on
+    the card bit for bit (exact-grid data), with CUDA-event times: a
+    4-shard ShardedFlatIndex (K7 per shard) at 4 x 262,144 rows of D 384
+    (bf16, int8) and 4 x 131,072 of D 768 (bf16), Bq 8 and 128, k 24,
+    beside one FlatIndex over the same rows through K7 and through K4 (K5
+    for int8); then a 4-shard ShardedIVFIndex over 4 x 262,144 clustered
+    rows, nlist 1,024, nprobe 64: recall@24 against the exact top 24 and ms
+    a search. The 10M-chunk configuration is cut to 1,048,576 rows."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.index.flat import FlatIndex
+    from financial_rag_tpu_torch.ops import ivf_probe, topk
+    from financial_rag_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, search_devices
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 14)
+    rows_out = []
+    for dtype_name, d, rows in SHARD_SCALE:
+        dtype = getattr(torch, dtype_name)
+        idx = ShardedFlatIndex(search_devices(SHARDS, "cuda"), dim=d, capacity_per_shard=rows,
+                               dtype=dtype)
+        check(idx.backend == "pallas_bucketed" and idx.cap_per_shard == rows,
+              f"sharded scale: {idx.backend} {idx.cap_per_shard}")
+        fill_sharded(torch, idx, rows, gen)
+        # one FlatIndex over the same rows, in global slot order
+        flats = {}
+        for name, backend in (("bucketed_topk", "pallas_bucketed"),
+                              ("packed_topk_fused" if dtype != torch.int8
+                               else "bucketed_topk_fused", "pallas_fused")):
+            f = FlatIndex(dim=d, capacity=rows * SHARDS, dtype=dtype, backend=backend,
+                          device="cuda")
+            f._vectors.copy_(torch.cat([s._vectors for s in idx.shards]))
+            f._valid.copy_(torch.cat([s._valid for s in idx.shards]))
+            f._ids[:] = np.concatenate([s._ids for s in idx.shards])
+            f._slot_of = dict(zip(f._ids.tolist(), range(rows * SHARDS)))
+            f._next_slot = rows * SHARDS
+            flats[name] = f
+        for bq in SHARD_SCALE_BQ:
+            q = (torch.randint(-3, 4, (bq, d), generator=gen, device="cuda").float() / 64)
+            q = q.cpu().numpy()
+            before = topk.LAUNCHES["bucketed_topk"]
+            got_ids, got_s = idx.search(q, SHARD_K)
+            check(topk.LAUNCHES["bucketed_topk"] == before + SHARDS,
+                  f"sharded scale: K7 not once a shard ({before})")
+            want_ids, want_s = plain_sharded(torch, idx, q, SHARD_K)
+            exact = bool((got_ids == want_ids).all() and (got_s == want_s).all())
+            check(exact, f"sharded scale {dtype_name} D={d} Bq={bq}: K7 per shard differs "
+                         "from the plain composition")
+            row = {"phase": "sharded_scale", "dtype": dtype_name, "d": d, "shards": SHARDS,
+                   "rows": rows * SHARDS, "bq": bq, "k": SHARD_K, "bit_equal_to_plain": exact,
+                   "sharded_ms": cuda_ms(torch, lambda: idx.search(q, SHARD_K)),
+                   "plain_ms": cuda_ms(torch, lambda: plain_sharded(torch, idx, q, SHARD_K))}
+            for name, f in flats.items():
+                row[f"flat_{name}_ms"] = cuda_ms(torch, lambda: f.search(q, SHARD_K))
+            emit(row)
+            rows_out.append(row)
+        del idx, flats
+        torch.cuda.empty_cache()
+
+    # the sharded IVF over clustered rows (random-weight-free: real
+    # embeddings cluster), exact top 24 by one matmul on the card
+    plan = SHARD_IVF
+    d = 384
+    centers = torch.nn.functional.normalize(
+        torch.randn(plan["centers"], d, generator=gen, device="cuda"), dim=1)
+    ivf = ShardedIVFIndex(search_devices(SHARDS, "cuda"), dim=d, nlist=plan["nlist"],
+                          list_size=plan["list_size"], nprobe=plan["nprobe"])
+    n = plan["rows"] * SHARDS
+    xs = []
+    for lo in range(0, n, 65536):
+        c = centers[torch.randint(0, plan["centers"], (65536,), generator=gen, device="cuda")]
+        xs.append(torch.nn.functional.normalize(
+            c + 0.6 * torch.randn(65536, d, generator=gen, device="cuda") / d ** 0.5, dim=1))
+    x = torch.cat(xs)
+    t0 = time.perf_counter()
+    ivf.train(x[torch.randperm(n, generator=gen, device="cuda")[:65536]].cpu().numpy(),
+              iters=8, seed=seed)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, n, 65536):
+        ivf.upsert(np.arange(lo + 1, lo + 65537), x[lo:lo + 65536].cpu().numpy())
+    upsert_s = time.perf_counter() - t0
+    check(ivf.count() == n and all(len(s) == plan["rows"] for s in ivf.shards),
+          f"sharded ivf scale: {[len(s) for s in ivf.shards]}")
+    qi = torch.randint(0, n, (128,), generator=gen, device="cuda")
+    qv = torch.nn.functional.normalize(x[qi] + 0.3 * torch.randn(128, d, generator=gen,
+                                                                  device="cuda") / d ** 0.5,
+                                       dim=1)
+    exact = torch.sort(qv @ x.T, dim=1, descending=True, stable=True).indices[:, :SHARD_K]
+    exact = (exact + 1).cpu().numpy()
+    ivf_rows = {}
+    for bq in SHARD_SCALE_BQ:
+        q = qv[:bq].cpu().numpy()
+        before = ivf_probe.LAUNCHES
+        got_ids, _ = ivf.search(q, SHARD_K)
+        launches = ivf_probe.LAUNCHES - before
+        check(launches >= SHARDS, f"sharded ivf scale: K8 launched {launches} times")
+        recall = float(np.mean([len(set(a) & set(b)) / SHARD_K
+                                for a, b in zip(got_ids.tolist(), exact[:bq].tolist())]))
+        ivf_rows[bq] = {"recall_at_24": recall, "probe_launches": launches,
+                        "ms": cuda_ms(torch, lambda: ivf.search(q, SHARD_K))}
+    emit({"phase": "sharded_ivf_scale", "shards": SHARDS, "rows": n, "d": d,
+          "nlist": plan["nlist"], "nprobe": plan["nprobe"],
+          "list_size": ivf.shards[0].list_size, "train_s": round(train_s, 3),
+          "upsert_s": round(upsert_s, 3), "by_bq": ivf_rows,
+          "cut": "10M-chunk configuration (BASELINE configs[4]) cut to 1,048,576 rows"})
+    del ivf, x
+    torch.cuda.empty_cache()
+    return rows_out
 
 
 WIDE_LAYERS = 12      # bge-base-en-v1.5 and gte-base at full depth
@@ -3235,6 +3758,9 @@ def main(argv=None) -> int:
             phase_profile(torch, rt_ivf, label="ivf")
             del rt_ivf
             int8_launches = phase_int8(torch, rt, cfg, work)
+            sharded_launches, sharded_ivf_launches = phase_sharded(torch, cfg, work, items, rt,
+                                                                   served, texts)
+            phase_sharded_scale(torch, args.seed)
             phase_serve(torch, cfg, work, served, info)
             phase_load(torch, cfg, work, info, args.seed)
             backend_launches = phase_backends(torch, rt, cfg, work)
@@ -3249,7 +3775,7 @@ def main(argv=None) -> int:
             launches["causal_flash_prefill"] = llm_launches["causal_flash_prefill"]
             launches["bucketed_topk_fused"] = int8_launches["bucketed_topk_fused"]
             launches["topk_matmul"] = backend_launches["topk_matmul"]
-            launches["bucketed_topk"] = backend_launches["bucketed_topk"]
+            launches["bucketed_topk"] = sharded_launches["bucketed_topk"]
             launches["probe_scores"] = ivf_launches["probe_scores"]
         train_launches = phase_train(torch, args.seed)
         want_loss, want = phase_train_parity(torch, args.seed)

@@ -204,14 +204,7 @@ class FlatIndex:
             return ready(np.zeros((b, top_k), np.int64),
                          np.full((b, top_k), -np.inf, np.float32))
 
-        # under the lock: the in-place upsert must not race the sweep's
-        # launch. The _ids REFERENCE is snapshotted with the launch: compact()
-        # replaces the array when it renumbers slots, so a deferred
-        # materializer resolves through the numbering its scores were
-        # computed under.
-        with self._lock:
-            ids_host = self._ids
-            scores, slots = self._dispatch(queries, top_k)
+        ids_host, scores, slots = self.launch(queries, top_k)
 
         def finish(host):
             scores_h, slots_h = host
@@ -231,6 +224,29 @@ class FlatIndex:
         scores [B, k] f32). Empty slots never surface (score < -100 filtered
         to id 0 / score -inf)."""
         return self.search_begin(queries, top_k).get()
+
+    def launch(self, queries: torch.Tensor, top_k: int):
+        """Launch the sweep on [B, D] device queries without reading it:
+        (the slot -> id array, scores [B, k], slots [B, k]). Under the lock:
+        the in-place upsert must not race the sweep's launch. The _ids
+        REFERENCE is snapshotted with the launch: compact() and _grow()
+        replace the array, so a deferred reader resolves through the
+        numbering its scores were computed under."""
+        with self._lock:
+            return (self._ids, *self._dispatch(queries, top_k))
+
+    def reserve(self, capacity: int) -> None:
+        """Double the capacity until ``capacity`` slots fit."""
+        with self._lock:
+            while self.capacity < capacity:
+                self._grow()
+
+    def snapshot(self):
+        """(vectors, valid, slot -> id array) over the whole capacity, cloned
+        under the lock (stream-ordered before any later in-place write), the
+        tensors still on the device."""
+        with self._lock:
+            return self._vectors.clone(), self._valid.clone(), self._ids.copy()
 
     # ------------------------------------------------------------ internals
 

@@ -330,9 +330,15 @@ class ContinuousDecodeEngine:
             ys.append(nxt)
             tok = nxt
         toks = torch.stack(ys, dim=1).cpu().numpy()
-        # fed tokens by slot, for later prompt lookups
-        self._ctx[:, w0] = self._tok
-        self._ctx[:, w0 + 1:w0 + self.segment] = toks[:, :-1]
+        # fed tokens by slot, for later prompt lookups; each step's slot is
+        # clamped into the buffer as JAX's dynamic_update_slice clamps it (a
+        # segment that starts within `segment` of the end, after speculative
+        # blocks moved the head off the segment grid, runs past it: the
+        # cache writes there are empty slices, and no live row reads them)
+        fed = np.concatenate([self._tok[:, None], toks[:, :-1]], axis=1)
+        last = self._ctx.shape[1] - 1
+        for i in range(self.segment):
+            self._ctx[:, min(w0 + i, last)] = fed[:, i]
         self._done |= (toks == eos).any(axis=1)
         self._tok = toks[:, -1].copy()
         self._pos += self.segment

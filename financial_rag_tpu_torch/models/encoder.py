@@ -55,16 +55,30 @@ class Encoder:
         max_seq_len: int = 512,
         compute_dtype: Optional[torch.dtype] = None,
         device=None,
+        replicas: Optional[Sequence] = None,
     ) -> None:
+        """``replicas``: one device per data-parallel replica (None or one
+        device: single-device encode); the first is the encoder's device."""
         self.config = config
-        self.device = resolve_device(device)
+        self.replicas = [torch.device(d) for d in replicas] if replicas else None
+        self.device = self.replicas[0] if self.replicas else resolve_device(device)
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
-        self.params = prepare_params(params, device=self.device,
-                                     compute_dtype=self.compute_dtype)
+        # one prepared copy of the weights per distinct device
+        self._params_on: Dict[torch.device, object] = {}
+        for dev in self.replicas or [self.device]:
+            if dev not in self._params_on:
+                self._params_on[dev] = prepare_params(params, device=dev,
+                                                      compute_dtype=self.compute_dtype)
+        self.params = self._params_on[self.device]
         self.tokenizer = tokenizer or WordPieceTokenizer()
         self.pooling = pooling
         self.batch_size = batch_size
         self.max_seq_len = max_seq_len
+        # every batch bucket must split evenly over the replicas: batch_size
+        # rounds up to a multiple, and _batch_bucket floors at their count
+        self.n_replicas = len(self.replicas) if self.replicas else 1
+        if self.batch_size % self.n_replicas:
+            self.batch_size = (self.batch_size // self.n_replicas + 1) * self.n_replicas
 
     @classmethod
     def from_pretrained(cls, model_dir: str, *, pooling: str, fallback_seed: Optional[int] = None,
@@ -78,12 +92,23 @@ class Encoder:
     def dim(self) -> int:
         return self.config.hidden_size
 
-    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    def _forward_on(self, dev: torch.device, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         return bert_encode(
-            self.params,
-            torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(mask).to(self.device),
+            self._params_on[dev],
+            torch.from_numpy(ids).to(dev),
+            torch.from_numpy(mask).to(dev),
             config=self.config, pooling=self.pooling, compute_dtype=self.compute_dtype)
+
+    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        if self.replicas is None:
+            return self._forward_on(self.device, ids, mask)
+        # one equal row share per replica, every forward launched before
+        # any is gathered onto the first replica's device
+        share = ids.shape[0] // self.n_replicas
+        outs = [self._forward_on(dev, ids[r * share:(r + 1) * share],
+                                 mask[r * share:(r + 1) * share])
+                for r, dev in enumerate(self.replicas)]
+        return torch.cat([o.to(self.device) for o in outs])
 
     def _bucket(self, n_tokens: int) -> int:
         for b in SEQ_BUCKETS:
@@ -93,11 +118,14 @@ class Encoder:
 
     def _batch_bucket(self, n: int) -> int:
         """Pad tiny (query-time) batches to 8/32 instead of the full ingest
-        batch — a 3-variant query encode shouldn't pay for 128 rows."""
+        batch — a 3-variant query encode shouldn't pay for 128 rows. With
+        replicas every bucket must split evenly over them, so their count
+        floors the bucket."""
+        floor = self.n_replicas
         for b in (8, 32):
-            if n <= b and b < self.batch_size:
+            if n <= b and b < self.batch_size and b % floor == 0:
                 return b
-        return self.batch_size
+        return max(self.batch_size, floor)
 
     def encode_begin(self, texts: Sequence[str], *, seqs=None):
         """Tokenize and launch every device batch; returns a zero-arg
@@ -171,8 +199,10 @@ class Encoder:
             batch_idx = order[lo:hi]
             lo = hi
             n = len(batch_idx)
-            bsz = rows_bucket if rows_bucket is not None and rows_bucket >= n \
-                else self._batch_bucket(n)
+            # a pinned row count must still split evenly over the replicas
+            pin_ok = (rows_bucket is not None and rows_bucket >= n
+                      and rows_bucket % self.n_replicas == 0)
+            bsz = rows_bucket if pin_ok else self._batch_bucket(n)
             ids = np.full((bsz, seq_len), self.tokenizer.pad_id, np.int32)
             mask = np.zeros((bsz, seq_len), np.int32)
             ids[:n] = all_ids[batch_idx, :seq_len]

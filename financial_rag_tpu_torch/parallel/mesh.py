@@ -12,15 +12,29 @@ differ from this one only along that axis. An axis of size 1 has no group
 
 Without a process group (one process, no ``torch.distributed``) every
 mesh is 1 x 1 and has no groups: that is the single-GPU path.
+
+Serving needs no collective, so its layouts are plain device lists held by
+one process: ``search_devices`` (the counterpart of ``search_mesh``) places
+the shards of a sharded index, ``encode_devices`` (of the runtime's
+``_encode_mesh``) the replicas of a data-parallel encoder. Where the machine
+has fewer GPUs than shards, shard ``i`` goes on ``cuda:(i % count)`` with a
+warning (the JAX package clamps to the devices it has); on the CPU every
+shard is ``cpu``.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
+
+from financial_rag_tpu_torch.device import DeviceLike, resolve_device
+from financial_rag_tpu_torch.utils import get_logger
+
+log = get_logger("parallel.mesh")
 
 
 class Mesh:
@@ -97,3 +111,35 @@ def train_mesh(tp: int = 1, world: Optional[int] = None,
                timeout_s: Optional[float] = None) -> Mesh:
     """(data, model) mesh: tensor-parallel size tp, data-parallel remainder."""
     return make_mesh([("data", -1), ("model", tp)], world, timeout_s)
+
+
+def search_devices(n_shards: int = 0, device: DeviceLike = None) -> List[torch.device]:
+    """The devices of an ``n_shards``-way search or encode, in shard order:
+    ``devices[:n]`` of the GPUs (all of them for 0), as ``search_mesh``
+    takes them. With fewer GPUs than ``n``, shard ``i`` goes on
+    ``cuda:(i % count)``, with a warning. On the CPU, ``n`` (1 for 0) times
+    ``cpu``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * max(int(n_shards), 1)
+    count = torch.cuda.device_count()
+    n = int(n_shards) or count
+    if n > count:
+        log.warning("%d shards on %d GPU(s): shard i goes on cuda:(i %% %d)", n, count, count)
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def encode_devices(encode_dp: int, device: DeviceLike = None) -> Optional[List[torch.device]]:
+    """The replicas of a data-parallel encode (``ENCODE_DP``), or None for
+    one device: the largest power of two <= ``encode_dp``, as the JAX
+    runtime's ``_encode_mesh`` takes it (every batch bucket must split
+    evenly), on ``search_devices``' layout."""
+    n = int(encode_dp)
+    if n <= 1:
+        return None
+    use = 1
+    while use * 2 <= n:
+        use *= 2
+    if use != n:
+        log.warning("ENCODE_DP=%d -> using %d replicas", n, use)
+    return search_devices(use, device) if use > 1 else None

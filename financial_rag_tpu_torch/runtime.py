@@ -1,7 +1,7 @@
 """Runtime factory: assemble the served stack from configuration.
 
 Counterpart of financial_rag_tpu/runtime.py for the configurations the
-port serves: one device; per-model flat indexes (bf16, f32 or int8,
+port serves: one device or several; per-model flat indexes (bf16, f32 or int8,
 ``INDEX_DTYPE``) or IVF indexes (``INDEX_KIND=ivf``, with the nprobe
 auto-tune of ``tune_indexes``); the dual bge/gte encoders (real checkpoints
 when available, the deterministic lexical fallback otherwise); the
@@ -13,9 +13,13 @@ runtime's cross-request micro-batching (serving/batcher.py): one shared
 ``ActiveCount``, a ``BatchingEncoder`` per device-backed encoder, one
 ``MultiIndexBatcher`` over every index with a raw-encoder chained-wave
 lane, a ``BatchingCrossEncoder`` around the reranker and a ``BatchingLLM``
-around a provider with ``generate_many``. Sharded indexes and
-data-parallel encode raise NotImplementedError, and so, on CUDA, do
-checkpoint widths the kernels are not built for.
+around a provider with ``generate_many``. ``INDEX_SHARDS`` > 1 shards
+each collection over that many devices (``ShardedFlatIndex``, or
+``ShardedIVFIndex`` with ``INDEX_KIND=ivf``) and ``ENCODE_DP`` > 1 encodes
+data-parallel, as the JAX runtime does; where the machine has fewer GPUs,
+shards and replicas wrap onto them (``parallel.mesh.search_devices``). On
+CUDA, checkpoint widths the kernels are not built for raise
+NotImplementedError at build.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from financial_rag_tpu_torch.llm.provider import get_provider
 from financial_rag_tpu_torch.models.encoder import DualEncoder, Encoder
 from financial_rag_tpu_torch.models.hashing import HashingEncoder
 from financial_rag_tpu_torch.ops import flash_attention, fused_ffn, topk
+from financial_rag_tpu_torch.parallel import (ShardedFlatIndex, ShardedIVFIndex, encode_devices,
+                                              search_devices)
 from financial_rag_tpu_torch.retrieval.hybrid import HybridRetriever
 from financial_rag_tpu_torch.retrieval.rerank import CrossEncoderModel, CrossEncoderReranker
 from financial_rag_tpu_torch.retrieval.retriever import ParentContextRetriever
@@ -61,14 +67,8 @@ def _ivf_list_size(capacity: int, nlist: int) -> int:
 
 
 def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
-    """Raise NotImplementedError for configurations a later slice serves,
-    and on CUDA for checkpoint widths the kernels are not built for."""
-    if cfg.mesh.index_shards > 1:
-        raise NotImplementedError("INDEX_SHARDS>1 needs the sharded flat index, "
-                                  "the multi-GPU slice of the port")
-    if cfg.mesh.encode_dp > 1:
-        raise NotImplementedError("ENCODE_DP>1 needs data-parallel encode, "
-                                  "the multi-GPU slice of the port")
+    """Raise NotImplementedError on CUDA for checkpoint widths the kernels
+    are not built for."""
     if device.type == "cuda":
         check_kernel_widths(cfg)
 
@@ -83,9 +83,9 @@ def _checkpoint_config(path: Optional[str]) -> Optional[ModelConfig]:
 
 def check_kernel_widths(cfg: FrameworkConfig) -> None:
     """The CUDA path runs every encoder and reranker layer through K2 and
-    K3, and a bf16 or int8 flat index through K4-K7, which take only the
-    widths they were built for (head_dim 32 or 64; hidden 384 or 768; D up
-    to 768); the JAX package and the CPU take any. Raise
+    K3, and a bf16 or int8 flat index through K4-K7 (a sharded one through
+    K7), which take only the widths they were built for (head_dim 32 or 64;
+    hidden 384 or 768; D up to 768); the JAX package and the CPU take any. Raise
     NotImplementedError at build, naming each kernel and its limit, rather
     than on the first encode or search. (K6, which takes D <= 384, serves
     only a FlatIndex built with backend ``pallas_exact``, never the
@@ -94,7 +94,10 @@ def check_kernel_widths(cfg: FrameworkConfig) -> None:
     if cfg.rerank.enabled:
         models["reranker"] = cfg.rerank.model_path
     flat_sweep = cfg.index.kind != "ivf" and cfg.index.dtype in ("bfloat16", "int8")
-    max_d = min(topk.PACKED_MAX_D, topk.SWEEP_MAX_D)
+    # a sharded flat index sweeps through K7 alone; one device's through K4 or K5
+    sharded = cfg.mesh.index_shards > 1
+    max_d = topk.SWEEP_MAX_D if sharded else min(topk.PACKED_MAX_D, topk.SWEEP_MAX_D)
+    sweeps = "K7" if sharded else "K4-K7"
     heads = " or ".join(map(str, flash_attention.FWD_HEAD_DIMS))
     ffn_widths = " or ".join(f"{h} (intermediate a multiple of {chunk})"
                              for h, (_, chunk, _) in fused_ffn.KERNEL_TILING.items())
@@ -113,7 +116,7 @@ def check_kernel_widths(cfg: FrameworkConfig) -> None:
                             f"{ffn_widths}")
         if name != "reranker" and flat_sweep and mc.hidden_size > max_d:
             problems.append(f"{name}: index dim {mc.hidden_size}, but the {cfg.index.dtype} "
-                            f"flat sweeps (K4-K7) take D <= {max_d}")
+                            f"flat sweeps ({sweeps}) take D <= {max_d}")
     if problems:
         raise NotImplementedError("the CUDA kernels are not built for these widths: "
                                   + "; ".join(problems))
@@ -127,7 +130,7 @@ def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkC
                 path, pooling=pooling,
                 batch_size=cfg.encoders.encode_batch_size,
                 max_seq_len=cfg.encoders.max_seq_len,
-                device=device)
+                device=device, replicas=encode_devices(cfg.mesh.encode_dp, device))
             log.info("encoder %s: loaded checkpoint from %s", name, path)
             return enc
         except FileNotFoundError as e:
@@ -141,7 +144,7 @@ def _build_encoder(name: str, path: Optional[str], pooling: str, cfg: FrameworkC
 class Runtime:
     config: FrameworkConfig
     dual_encoder: DualEncoder
-    indexes: Dict[str, object]          # FlatIndex or IVFIndex per model
+    indexes: Dict[str, object]          # a flat, IVF or sharded index per model
     parent_store: ParentStore
     child_meta: ChildMetaStore
     feedback_db: FeedbackDatabase
@@ -200,13 +203,44 @@ class Runtime:
         dual = DualEncoder(encoders, fused_weights=cfg.encoders.fused_weights,
                            cache=embed_cache)
 
+        # INDEX_SHARDS > 1 shards each collection over that many devices
+        shards = cfg.mesh.index_shards
+        devices = search_devices(shards, device) if shards > 1 else None
         persist = data_dir / cfg.index.persist_dir
         index_dtype = STR_TO_DTYPE.get(cfg.index.dtype, torch.bfloat16)
         indexes: Dict[str, object] = {}
         for name in dual.names:
             coll = collection_slug(getattr(cfg.encoders, f"{name}_name", name))
             dim = getattr(encoders[name], "dim", cfg.index.dim)
-            if cfg.index.kind == "ivf":
+            if shards > 1 and cfg.index.kind == "ivf":
+                # the 10M-chunk configuration: one IVF partition per device,
+                # round-robin routing, a host merge
+                sname = f"{coll}_ivf_sharded"
+                nlist = (cfg.index.ivf_nlist
+                         or recommended_nlist(cfg.index.planned_capacity // shards))
+                if (persist / f"{sname}_0.manifest.json").exists():
+                    indexes[name] = ShardedIVFIndex.load(persist, devices, name=sname)
+                    log.info("sharded ivf index %s: reloaded %d vectors",
+                             coll, indexes[name].count())
+                else:
+                    indexes[name] = ShardedIVFIndex(
+                        devices, dim=dim, nlist=nlist,
+                        list_size=_ivf_list_size(cfg.index.planned_capacity // shards, nlist),
+                        nprobe=cfg.index.ivf_nprobe, dtype=index_dtype, name=sname)
+                    log.info("index %s: IVF sharded over %d devices", coll, shards)
+            elif shards > 1:
+                if (persist / f"{coll}.manifest.json").exists():
+                    indexes[name] = ShardedFlatIndex.load(persist, devices, name=coll,
+                                                          dtype=index_dtype)
+                    log.info("sharded index %s: reloaded %d vectors over %d devices",
+                             coll, indexes[name].count(), shards)
+                else:
+                    indexes[name] = ShardedFlatIndex(
+                        devices, dim=dim,
+                        capacity_per_shard=max(cfg.index.planned_capacity // shards, 1024),
+                        dtype=index_dtype, name=coll)
+                    log.info("index %s: sharded over %d devices", coll, shards)
+            elif cfg.index.kind == "ivf":
                 nlist = cfg.index.ivf_nlist or recommended_nlist(cfg.index.planned_capacity)
                 if (persist / f"{coll}_ivf.manifest.json").exists():
                     indexes[name] = IVFIndex.load(persist, name=f"{coll}_ivf",

@@ -505,3 +505,29 @@ def test_verify_block_rows_masks_left_padding(pair):
     assert torch.equal(garbage, clean)
     unmasked = tdec._verify_block_rows(tp, toks, pos, w, kg, vg, pm | pad, tcfg)
     assert (unmasked - clean).abs().max() > 1e-2
+
+
+def test_segment_past_the_window_end_matches_jax_engine(pair):
+    """Speculative blocks of spec_k + 1 = 8 slots move the write head off
+    the 16-slot segment grid, so the greedy segment that finishes the rows
+    starts within 16 slots of the window's end: its slots past the end are
+    clamped as JAX clamps them, and the streams finish as JAX's do."""
+    jcfg, jp, tcfg, tp = pair
+    rng = np.random.default_rng(31)
+    ids_a, mask_a = _prompt(rng, tcfg, s_real=11, bucket=16)
+    ids_b, mask_b = _prompt(rng, tcfg, s_real=5, bucket=8)
+    got = {}
+    for tag, eng in (("jax", jcont.ContinuousDecodeEngine(jp, jcfg, rows=4, t_prompt=16,
+                                                          window=64, segment=16, spec_k=7)),
+                     ("port", ContinuousDecodeEngine(tp, tcfg, rows=4, t_prompt=16,
+                                                     window=64, segment=16, spec_k=7))):
+        try:
+            it_a = eng.submit(ids_a, mask_a, 24)
+            first_a = next(it_a)
+            it_b = eng.submit(ids_b, mask_b, 24)
+            got[tag] = (first_a[0].tolist() + _drain(it_a), _drain(it_b), eng.stats())
+        finally:
+            eng.close()
+    assert got["port"][:2] == got["jax"][:2]
+    assert len(got["port"][0]) == len(got["port"][1]) == 24
+    assert got["port"][2]["spec_blocks"] > 0 and got["port"][2]["segments"] > 0

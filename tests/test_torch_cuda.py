@@ -1279,3 +1279,114 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
                            "--only", "K5,K7"]) == 0
     assert [r["kernel"] for r in json.loads(only.read_text())["rows"]] == (
         ["K5"] * len(kernel_ab.K5_SHAPES) + ["K7"] * len(kernel_ab.K7_SHAPES))
+
+
+# ------------------------------------------- multi-device serving (cuda:0)
+
+
+def _grid_shards(gen, idx, cpu, rows_per_shard):
+    """Give both indexes the same 1/64-grid rows (small integers for int8,
+    beside the upsert's row weights) in every shard's first rows (the slot
+    maps come from a normal upsert), so every score is exact and the two
+    paths must agree bit for bit."""
+    n = rows_per_shard * idx.n_shards
+    ids = list(range(1, n + 1))
+    x = _randn(gen, n, idx.dim).cpu().numpy()
+    for index in (idx, cpu):
+        index.upsert(ids, x)
+    for s in range(idx.n_shards):
+        if idx.dtype == torch.int8:    # small integers: exact integer dots
+            g = torch.randint(-3, 4, (rows_per_shard, idx.dim), generator=gen,
+                              device="cuda").to(torch.int8)
+        else:
+            g = _grid(gen, rows_per_shard, idx.dim).to(idx.dtype)
+        idx.shards[s]._vectors[:rows_per_shard] = g
+        cpu.shards[s]._vectors[:rows_per_shard] = g.cpu()
+    return ids
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_sharded_flat_index_runs_k7_per_shard_exactly(gen, dtype):
+    """Four shards on cuda:0 (the shards wrap onto the one card): one K7
+    launch a shard and a search, and the merged result bit-equal to the
+    CPU's composition of K7's plain version, shard by shard."""
+    from financial_rag_tpu_torch.parallel import ShardedFlatIndex, search_devices
+
+    devices = search_devices(4, "cuda")
+    assert len(devices) == 4
+    idx = ShardedFlatIndex(devices, dim=384, capacity_per_shard=8192, dtype=DTYPES[dtype])
+    cpu = ShardedFlatIndex(search_devices(4, "cpu"), dim=384, capacity_per_shard=8192,
+                           dtype=DTYPES[dtype], backend="pallas_bucketed")
+    assert idx.backend == "pallas_bucketed"
+    ids = _grid_shards(gen, idx, cpu, 6000)
+    for index in (idx, cpu):
+        index.delete(ids[::7])
+    q = _grid(gen, 8, 384).cpu().numpy()
+    before = topk.LAUNCHES["bucketed_topk"]
+    got = idx.search(q, 24)
+    assert topk.LAUNCHES["bucketed_topk"] == before + 4
+    want = cpu.search(q, 24)
+    assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
+
+
+def _sign_rows(gen, n, d, nnz=16):
+    """Unit rows of ``nnz`` entries +-1/4, the rest 0: exact in bf16, and
+    every dot product of two is a multiple of 1/16, exact in f32 in any
+    order."""
+    pos = torch.rand(n, d, generator=gen, device="cuda").argsort(dim=1)[:, :nnz]
+    sign = torch.randint(0, 2, (n, nnz), generator=gen, device="cuda").float() * 2 - 1
+    rows = torch.zeros(n, d, device="cuda").scatter_(1, pos, sign / nnz ** 0.5)
+    return rows.cpu().numpy()
+
+
+def test_sharded_ivf_index_runs_k8_per_shard(gen):
+    """Four IVF shards on cuda:0: one K8 launch a shard and a search, and
+    ids and scores equal to the CPU shards' (K8's plain version). Rows,
+    queries and centroids make every score exact, so both sides fill the
+    same lists, probe the same lists and break the same ties."""
+    from financial_rag_tpu_torch.parallel import ShardedIVFIndex, search_devices
+
+    x = _sign_rows(gen, 4000, 384)
+    centroids = torch.from_numpy(_sign_rows(gen, 16, 384))
+    idx = ShardedIVFIndex(search_devices(4, "cuda"), dim=384, nlist=16, list_size=256,
+                          nprobe=4)
+    cpu = ShardedIVFIndex(search_devices(4, "cpu"), dim=384, nlist=16, list_size=256,
+                          nprobe=4)
+    assert [s.device.type for s in idx.shards] == ["cuda"] * 4
+    for index in (idx, cpu):
+        for shard in index.shards:
+            shard.centroids = centroids.to(shard.device)
+        index.upsert(list(range(1, 4001)), x)
+        index.delete(list(range(5, 4001, 9)))
+    q = np.concatenate([x[:3], _sign_rows(gen, 5, 384)])
+    before = ivf_probe.LAUNCHES
+    got = idx.search(q, 10)
+    assert ivf_probe.LAUNCHES == before + 4
+    want = cpu.search(q, 10)
+    assert (got[0][:3, 0] == [1, 2, 3]).all() and (got[1][:3, 0] == 1.0).all()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_data_parallel_encoder_matches_one_device(gen):
+    """Two replicas on cuda:0: each batch's halves run K1-K3 apart, then
+    gather; the embeddings match the one-device encoder's by cosine (K3's
+    split changes with the token count, so not bit for bit)."""
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.models.encoder import Encoder
+
+    cfg = ModelConfig(name="bge-small-2l", hidden_size=384, num_layers=2, num_heads=12,
+                      intermediate_size=1536, vocab_size=30522, max_position=512)
+    params = random_params(cfg, seed=0)
+    texts = [f"the rent for year {i} is {1000 * i} rupees per month" for i in range(40)]
+    one = Encoder(cfg, params, batch_size=32, device="cuda")
+    dp = Encoder(cfg, params, batch_size=32, device="cuda",
+                 replicas=[torch.device("cuda", 0)] * 2)
+    assert len(dp._params_on) == 1
+    before = pn.LAUNCHES
+    got = dp.encode(texts)
+    assert pn.LAUNCHES == before + 4          # 2 batches (32 + 8 rows) x 2 replicas
+    want = one.encode(texts)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.9999, cos.min()

@@ -444,7 +444,8 @@ def test_gradient_gates_see_the_three_controls():
 def test_dryrun_multichip_on_four_cpu_ranks(tmp_path):
     """scripts/dryrun_multichip.py --device cpu --world 4: one dp2 x tp2
     train step at the JAX dryrun's tiny config through pallas_tp, a finite
-    loss, one JSON line, exit 0."""
+    loss; sections 2-4 and 6 over 4 devices (the sharded engine answering
+    as the single-device one); one JSON line, exit 0."""
     proc = subprocess.run(
         [sys.executable, "-m", "financial_rag_tpu_torch.scripts.dryrun_multichip",
          "--device", "cpu", "--world", "4"],
@@ -453,3 +454,6 @@ def test_dryrun_multichip_on_four_cpu_ranks(tmp_path):
     rep = json.loads(proc.stdout.strip().splitlines()[-1])
     assert rep["ok"] and rep["mesh"] == {"data": 2, "model": 2}
     assert rep["attention_impl"] == "pallas_tp" and np.isfinite(rep["loss"])
+    assert rep["sharded_search_shards"] == rep["sharded_ivf_shards"] == 4
+    assert rep["dp_encode_max_abs_diff"] < 2e-5
+    assert rep["engine"]["questions"] == 3 and rep["engine"]["joins"] >= 1

@@ -167,16 +167,40 @@ def test_frag_platform_cpu_selects_the_cpu(tmp_path, monkeypatch):
     assert rt.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("field,value,needle", [
-    ("mesh.index_shards", 4, "sharded"),
-    ("mesh.encode_dp", 2, "data-parallel"),
-])
-def test_unported_configurations_raise_on_cuda(field, value, needle):
+@pytest.mark.parametrize("field,value", [("mesh.index_shards", 4), ("mesh.encode_dp", 2)])
+def test_sharded_and_data_parallel_configurations_are_served_on_cuda(field, value):
     cfg = FrameworkConfig()
     group, name = field.split(".")
     setattr(getattr(cfg, group), name, value)
-    with pytest.raises(NotImplementedError, match=needle):
+    check_supported(cfg, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("hidden,heads,inter,refused", [
+    (768, 12, 3072, None),                 # bge-base: K7 takes D 768
+    (1024, 16, 4096, "K3"),                # bge-large: head_dim 64, no K3 at 1,024
+    (1024, 8, 4096, "K2"),                 # heads of 128
+])
+def test_sharded_configurations_keep_refusing_the_widths(tmp_path, hidden, heads, inter,
+                                                         refused):
+    """INDEX_SHARDS and ENCODE_DP leave the width check as it was: the
+    sharded flat index sweeps through K7 (D <= 768), and the encoders still
+    run K2 and K3 on every replica."""
+    d = tmp_path / "enc"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({
+        "hidden_size": hidden, "num_hidden_layers": 2, "num_attention_heads": heads,
+        "intermediate_size": inter, "vocab_size": 30522, "max_position_embeddings": 512}))
+    cfg = FrameworkConfig()
+    cfg.encoders.baai_path = str(d)
+    cfg.encoders.gte_path = cfg.rerank.model_path = None
+    cfg.mesh.index_shards, cfg.mesh.encode_dp = 4, 2
+    check_supported(cfg, torch.device("cpu"))
+    if refused is None:
         check_supported(cfg, torch.device("cuda"))
+        return
+    with pytest.raises(NotImplementedError, match=rf"baai: .*{refused}") as err:
+        check_supported(cfg, torch.device("cuda"))
+    assert "flat sweeps (K7) take D <= 768" in str(err.value)
 
 
 def test_local_llm_configuration_is_served_on_cuda():
