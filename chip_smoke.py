@@ -17,10 +17,10 @@ Phases, each printing one JSON line:
               Then the native C++ library (tokenizer, BM25, chunker) from
               native/*.cc into build/native/: compiler, seconds, path; it
               must load.
-3. kernel  -- every kernel (K1-K11) at its main-path shapes (and K1-K5, K7
-              and K8 again at the bge-base width: head_dim 64, hidden 768,
-              D 768), against its plain PyTorch version on the same
-              inputs, with its time, the
+3. kernel  -- every kernel (K1-K11) at its main-path shapes (and K1-K5, K7,
+              K8, K10 and K11 again at the bge-base width: head_dim 64,
+              hidden 768, D 768), against its plain PyTorch version on the
+              same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function (for K3, the three-call
               F.linear -> F.gelu -> F.linear beside it instead, for K4 the
@@ -144,10 +144,23 @@ Phases, each printing one JSON line:
               step's gathered gradients against phase 15's CPU step by cosine
               and norm ratio per leaf group, with three controls that must
               fail.
-17. the ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+17. train_wide -- training at the bge-base width (hidden 768, 12 heads of
+              64): contrastive steps at 12 layers (256 pairs x 2 x 128,
+              K10 at head_dim 64), listwise steps of a 12-layer
+              bge-base-width cross-encoder (64 groups x 4 x 64), phase 15's
+              parity and controls at 2 layers of full width, one dp2 x tp2
+              and one dp1 x tp4 step (K11 at 6 and 3 local heads of 64)
+              against the single-GPU step, scripts/train_rerank.py
+              --feedback-db --model-path on a seeded feedback.db and a
+              seeded 12-layer cross-encoder whose output then serves the 9
+              golden questions as the reranker, and scripts/train_uplift.py
+              --hidden 768 (its f32 D-768 eval index on K4).
+18. the ``kernels`` line (K10 and K11 with their head_dim-64 case as
+              ``d64`` and its launches as ``launches_d64``), then the last
+              line ``{"ok": true, "device": ...}``.
 
 Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
-part of 10b, 11, and each part of 14 and 16) sets every launch counter to 0 just before it
+part of 10b, 11, and each part of 14, 16 and 17) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
@@ -652,6 +665,10 @@ def kernel_cases(torch, F, seed):
     cases += attention_bwd_cases(torch, F, randn, padded_mask)
     cases += attention_tp_cases(torch, F, randn, padded_mask)
     cases += wide_cases(torch, F, gen, randn, padded_mask)
+    # K10 and K11 at heads of 64 last, so that every earlier case keeps its inputs
+    cases += attention_bwd_cases(torch, F, randn, padded_mask, head_dim=64, shapes=WIDE_BWD_SHAPES)
+    cases += attention_tp_cases(torch, F, randn, padded_mask, head_dim=64,
+                                shapes=TP_LOCAL_SHAPES[:2])
     return cases
 
 
@@ -789,7 +806,8 @@ class _ModelAxis:
 TP_LOCAL_SHAPES = ((32, 128, 2), (64, 128, 4), (64, 64, 2))
 
 
-def attention_tp_cases(torch, F, randn, padded_mask):
+def attention_tp_cases(torch, F, randn, padded_mask, head_dim: int = 32,
+                       shapes=TP_LOCAL_SHAPES):
     """K11 (flash_attention_tp) at the local shapes of TP_LOCAL_SHAPES: 6 of
     the 12 heads at tp2 (width 192, 384-byte rows), 3 at tp4 (width 96,
     192-byte rows), with padded rows and a fully masked one, each within
@@ -798,12 +816,16 @@ def attention_tp_cases(torch, F, randn, padded_mask):
     the local q, k, v and out once each and the bias. K11's backward is K10
     at the same local heads: attention_bwd_cases' checks at these shapes
     (the mask-ignored control included), under the flash_attention_bwd
-    name."""
+    name. At head_dim 64 (the bge-base width: 6 and 3 local heads of 64)
+    the cases are named ``flash_attention_tp@64`` and
+    ``flash_attention_bwd@64``."""
     from financial_rag_tpu_torch.ops import flash_attention as fa
 
-    NH, hd = 12, 32
+    NH, hd = 12, head_dim
+    tag = "" if hd == 32 else f"@{hd}"
+    heads_of = "" if hd == 32 else f" of {hd}"
     cases = []
-    for b, s, tp in TP_LOCAL_SHAPES:
+    for b, s, tp in shapes:
         heads = NH // tp
         h = heads * hd
         q, k, v, do = (randn(b, s, h, dtype=torch.bfloat16) for _ in range(4))
@@ -815,14 +837,15 @@ def attention_tp_cases(torch, F, randn, padded_mask):
             return F.scaled_dot_product_attention(
                 split(q), split(k), split(v), attn_mask=bias.to(torch.bfloat16)[:, None, None, :])
 
-        cases.append(("flash_attention_tp", f"B={b},S={s},H={h},local heads={heads} (tp{tp}),bf16",
+        cases.append((f"flash_attention_tp{tag}",
+                      f"B={b},S={s},H={h},local heads={heads}{heads_of} (tp{tp}),bf16",
                       lambda q=q, k=k, v=v, bias=bias, tp=tp: fa.flash_attention_tp(
-                          q, k, v, bias, num_heads=NH, mesh=_ModelAxis(tp)),
+                          q, k, v, bias, num_heads=NH, mesh=_ModelAxis(tp), head_dim=hd),
                       lambda q=q, k=k, v=v, bias=bias, heads=heads: fa.flash_attention_plain(
                           q, k, v, bias, num_heads=heads),
-                      sdpa, row_cmp(heads), attention_fwd_bound(torch, mask, heads)))
+                      sdpa, row_cmp(heads), attention_fwd_bound(torch, mask, heads, head_dim=hd)))
         live_pairs = s * int(mask.sum().item()) + s * s
-        cases.append(("flash_attention_bwd", f"B={b},S={s},H={h},heads={heads} "
+        cases.append((f"flash_attention_bwd{tag}", f"B={b},S={s},H={h},heads={heads}{heads_of} "
                       f"(K11's backward, tp{tp}),bf16",
                       lambda q=q, k=k, v=v, bias=bias, do=do, heads=heads: fa.flash_attention_bwd(
                           q, k, v, bias, do, num_heads=heads),
@@ -1118,7 +1141,13 @@ class SdpaBackward:
         return cuda_ms(self.torch, self) - cuda_ms(self.torch, self.forward)
 
 
-def attention_bwd_cases(torch, F, randn, padded_mask):
+# (B, S) of K10 at 12 heads of 32, then of 64 (the bge-base width: its
+# contrastive encode, K2's table shape, a ragged S, the listwise step)
+BWD_SHAPES = ((256, 128), (512, 128), (256, 64), (256, 32), (256, 512))
+WIDE_BWD_SHAPES = ((256, 128), (256, 512), (256, 100), (256, 64))
+
+
+def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes=BWD_SHAPES):
     """K10 at the train path's shapes: B=256 S=128 (one encode of the
     contrastive step: its 256 queries and its 256 documents are two
     launches), B=512 S=128 (both encodes as one batch), B=256 S=64 (the
@@ -1126,15 +1155,19 @@ def attention_bwd_cases(torch, F, randn, padded_mask):
     training) and B=256 S=512 (K2's table shape). S=64 and S=32 are one
     key tile, the second partly filled. Padded rows of random length and
     one fully masked row. Each shape up to S=128 carries the mask-ignored
-    control. The bound counts q, k, v, dO and the bias read once and dq,
-    dk, dv written once, and the five S x S x 32 products of the gradient
-    over the live keys only (a masked key adds exact zeros)."""
+    control; every shape is launched twice and must give the same bits.
+    The bound counts q, k, v, dO and the bias read once and dq, dk, dv
+    written once, and the five S x S x head_dim products of the gradient
+    over the live keys only (a masked key adds exact zeros). At head_dim 64
+    (WIDE_BWD_SHAPES) the cases are named ``flash_attention_bwd@64``."""
     from financial_rag_tpu_torch.ops import flash_attention as fa
 
-    H, NH = 384, 12
-    hd = H // NH
+    NH, hd = 12, head_dim
+    H = NH * hd
+    name = "flash_attention_bwd" if hd == 32 else f"flash_attention_bwd@{hd}"
+    heads_label = f"{NH}" if hd == 32 else f"{NH}x{hd}"
     cases = []
-    for b, s in ((256, 128), (512, 128), (256, 64), (256, 32), (256, 512)):
+    for b, s in shapes:
         q, k, v, do = (randn(b, s, H, dtype=torch.bfloat16) for _ in range(4))
         mask = padded_mask(b, s, fully_masked_row=True)
         bias = torch.where(mask > 0, 0.0, -1e9).float()
@@ -1143,7 +1176,7 @@ def attention_bwd_cases(torch, F, randn, padded_mask):
             q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH)) if s <= 128 else None
         run = (lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd(
             q, k, v, bias, do, num_heads=NH))
-        cases.append(("flash_attention_bwd", f"B={b},S={s},H={H},heads={NH},bf16", run,
+        cases.append((name, f"B={b},S={s},H={H},heads={heads_label},bf16", run,
                       lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd_plain(
                           q, k, v, bias, do, num_heads=NH),
                       SdpaBackward(torch, F, q, k, v, bias, do, NH),
@@ -1333,11 +1366,13 @@ def max_abs_cmp(tol):
 
 
 def phase_kernels(torch, F, seed):
-    """Returns {kernel name: the entry of its first (main-path) shape}."""
+    """Returns {kernel name: the entry of its first (main-path) shape}; a
+    kernel's cases at another head width under ``name@head_dim``."""
     results = {}
     failures = []
     unseen = []   # (name, shape, names): a trace without the Hopper sweep nor an older one
     for name, shape, run, plain, library, cmp, (bound_ms, bound_by) in kernel_cases(torch, F, seed):
+        kernel, _, head_dim = name.partition("@")
         out = run()
         torch.cuda.synchronize()
         ref = plain()
@@ -1368,16 +1403,18 @@ def phase_kernels(torch, F, seed):
             detail["topk_two_call_ms"] = cuda_ms(torch, library)
         else:
             lib_ms = cuda_ms(torch, library) if library is not None else None
-        if library is not None and name not in ("causal_flash_prefill", "flash_attention_bwd",
+        if library is not None and kernel not in ("causal_flash_prefill", "flash_attention_bwd",
                                                 "fused_ffn", "packed_topk_fused",
                                                 "bucketed_topk_fused", "topk_matmul"):
             # K9's SDPA is at pad 0; K10's is compared above
             lib_err = (library().transpose(1, 2).reshape(out.shape).float() - out.float()
                        ).abs().max().item()
             detail["library_max_abs_err"] = lib_err
-        entry = {"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err, "ok": ok,
+        entry = {"phase": "kernel", "name": kernel, "shape": shape, "max_abs_err": err, "ok": ok,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, **detail}
+        if head_dim:
+            entry["head_dim"] = int(head_dim)
         emit(entry)
         if not ok:
             failures.append(f"{name} [{shape}]: {detail} max_abs_err={err}")
@@ -2174,23 +2211,29 @@ WIDE_LAYERS = 12      # bge-base-en-v1.5 and gte-base at full depth
 WIDE_COS_MIN = 0.999  # card (bf16) against the CPU (f32) embeddings, as phase 10
 
 
-def write_wide_checkpoints(root: Path, seed: int, layers: int = WIDE_LAYERS):
+def write_wide_checkpoints(root: Path, seed: int, layers: int = WIDE_LAYERS,
+                           names=("bge-base", "gte-base"), labels: int = 0):
     """Seeded random-weight checkpoints at the bge-base-en-v1.5 and gte-base
     shapes (WordPiece BERT: hidden 768, 12 heads of 64, FFN 3,072, vocab
-    30,522, 512 positions), config.json + model.npz; the vendored vocab."""
+    30,522, 512 positions), config.json + model.npz; the vendored vocab.
+    ``labels`` > 0: cross-encoders with that many labels."""
     from financial_rag_tpu_torch.config import ModelConfig
     from financial_rag_tpu_torch.models.checkpoint import random_params, save_params_npz
 
     raw = {"hidden_size": 768, "num_attention_heads": 12, "intermediate_size": 3072,
            "vocab_size": 30522, "max_position_embeddings": 512, "type_vocab_size": 2,
            "layer_norm_eps": 1e-12, "num_hidden_layers": layers, "architectures": ["BertModel"]}
+    if labels:
+        raw.update(architectures=["BertForSequenceClassification"],
+                   id2label={str(i): f"LABEL_{i}" for i in range(labels)})
     paths = {}
-    for i, name in enumerate(("bge-base", "gte-base")):
+    for i, name in enumerate(names):
         d = root / name
         d.mkdir(parents=True)
         (d / "config.json").write_text(json.dumps(raw))
         cfg = ModelConfig.from_json(d)
-        check(cfg.hidden_size == 768 and cfg.num_heads == 12, f"config of {name}")
+        check(cfg.hidden_size == 768 and cfg.num_heads == 12 and cfg.num_labels == labels,
+              f"config of {name}")
         save_params_npz(random_params(cfg, seed=seed + 10 + i), d / "model.npz")
         paths[name] = d
     return paths
@@ -3418,16 +3461,17 @@ def grad_group_norm_ratios(torch, got, want) -> dict:
             for group, a, b in grad_groups(torch, got, want)}
 
 
-def phase_train_parity(torch, seed: int):
+def phase_train_parity(torch, seed: int, cfg=None, phase: str = "train_parity"):
     """One contrastive step's loss and gradients on the same seeded
-    bge-small-shape weights and padded batch (8 pairs x 128 tokens): on the
-    card in bf16 (K2, K10, K3) and on the CPU in f32 (the plain versions).
-    Each leaf group's gradient cosine must reach TRAIN_GRAD_COSINE. The
-    controls rerun the card's step with K10 wrong: its dQ zeroed, dK and dV
-    swapped between heads 0 and 1, the padding mask ignored in the
-    backward; each must fail a gate, or the gates could not tell a wrong
-    K10 from a right one. Returns the CPU step's loss and gradients, the
-    reference of phase_train_tp's parity."""
+    bge-small-shape weights (or ``cfg``'s) and padded batch (8 pairs x 128
+    tokens): on the card in bf16 (K2, K10, K3) and on the CPU in f32 (the
+    plain versions). Each leaf group's gradient cosine must reach
+    TRAIN_GRAD_COSINE. The controls rerun the card's step with K10 wrong:
+    its dQ zeroed, dK and dV swapped between heads 0 and 1, the padding
+    mask ignored in the backward; each must fail a gate, or the gates could
+    not tell a wrong K10 from a right one. Returns the CPU step's loss and
+    gradients, the reference of phase_train_tp's parity, and the card
+    step's loss and gradients (on the CPU)."""
     import numpy as np
 
     from financial_rag_tpu_torch.models.checkpoint import random_params
@@ -3435,7 +3479,7 @@ def phase_train_parity(torch, seed: int):
     from financial_rag_tpu_torch.scripts.bench_train import bge_small_config
     from financial_rag_tpu_torch.training import make_train_step
 
-    cfg = bge_small_config()
+    cfg = cfg or bge_small_config()
     params = random_params(cfg, seed=seed + 2)
     batch = padded_pair_batch(np.random.default_rng(seed + 2), 8, 128)
     card, card_init = make_train_step(cfg, device="cuda")
@@ -3446,7 +3490,7 @@ def phase_train_parity(torch, seed: int):
     want_loss, want = cpu.value_and_grad(cpu_params, batch)
     k10 = fa.flash_attention_bwd
 
-    def readings(backward):
+    def readings(backward, keep=False):
         fa.flash_attention_bwd = backward
         try:
             reset_launches()
@@ -3454,7 +3498,9 @@ def phase_train_parity(torch, seed: int):
             torch.cuda.synchronize()
         finally:
             fa.flash_attention_bwd = k10
-        return float(loss), grads_cos(grads), read_launches()
+        kept = ({g: {n: t.float().cpu() for n, t in leaves.items()} for g, leaves in grads.items()}
+                if keep else None)
+        return float(loss), grads_cos(grads), read_launches(), kept
 
     def grads_cos(grads):
         return grad_group_cosines(torch, grads, want)
@@ -3476,14 +3522,15 @@ def phase_train_parity(torch, seed: int):
     def mask_ignored(q, k, v, bias, dout, **kw):
         return k10(q, k, v, torch.zeros_like(bias), dout, **kw)
 
-    loss, real, launches = readings(k10)
+    loss, real, launches, card_grads = readings(k10, keep=True)
     check(launches["flash_attention_bwd"] == 2 * cfg.num_layers,
-          f"train parity: {launches['flash_attention_bwd']} K10 launches for one step")
+          f"{phase}: {launches['flash_attention_bwd']} K10 launches for one step")
     control_runs = {name: readings(fn)[:2] for name, fn in (("dq_zeroed", dq_zeroed),
                                                             ("dk_dv_heads_swapped", dk_dv_heads_swapped),
                                                             ("mask_ignored", mask_ignored))}
     controls = {name: cos for name, (_, cos) in control_runs.items()}
-    emit({"phase": "train_parity", "pairs": 8, "seq": 128,
+    emit({"phase": phase, "shape": f"{cfg.num_layers}L h{cfg.hidden_size}, "
+          f"{cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}", "pairs": 8, "seq": 128,
           "live_tokens": int(batch["q_mask"].sum() + batch["d_mask"].sum()),
           "loss_card": loss, "loss_cpu": float(want_loss), "loss_tol": TRAIN_LOSS_TOL,
           "grad_cosine": real, "bar": TRAIN_GRAD_COSINE, "controls": controls,
@@ -3493,11 +3540,11 @@ def phase_train_parity(torch, seed: int):
         return all(v >= TRAIN_GRAD_COSINE for v in r.values())
 
     check(abs(loss - float(want_loss)) <= TRAIN_LOSS_TOL,
-          f"train parity: loss {loss} vs {float(want_loss)}")
-    check(passes(real), f"train parity: gradient cosines {real}")
+          f"{phase}: loss {loss} vs {float(want_loss)}")
+    check(passes(real), f"{phase}: gradient cosines {real}")
     seen = [n for n, r in controls.items() if passes(r)]
-    check(not seen, f"train parity: the controls {seen} pass the gates, which cannot see them")
-    return float(want_loss), want
+    check(not seen, f"{phase}: the controls {seen} pass the gates, which cannot see them")
+    return float(want_loss), want, loss, card_grads
 
 
 # ------------------------------------------------------- tensor parallel
@@ -3622,6 +3669,22 @@ def train_tp_rank(rank, world, device, seed, plan):
     return out
 
 
+def k11_failures(name: str, r: dict, want_k11: int):
+    """A TP run's failures on one rank: K11's forward and backward each
+    launched ``want_k11`` times, K3 and K1 never, the pallas_tp attention.
+    Returns (its K11 forward and backward launches, failures)."""
+    got = {k: r["launches"][k] for k in ("flash_attention_tp", "flash_attention_tp_bwd",
+                                         "fused_ffn", "masked_mean_l2_normalize")}
+    failures = []
+    if not got["flash_attention_tp"] == got["flash_attention_tp_bwd"] == want_k11:
+        failures.append(f"{name}: K11 launches {got} on rank {r['coords']}, want {want_k11}")
+    if got["fused_ffn"] or got["masked_mean_l2_normalize"]:
+        failures.append(f"{name}: K3 or K1 launched: {got}")
+    if r["attention_impl"] != "pallas_tp":
+        failures.append(f"{name}: attention {r['attention_impl']}")
+    return (got["flash_attention_tp"], got["flash_attention_tp_bwd"]), failures
+
+
 def phase_train_tp(torch, seed: int, info: dict, want_loss: float, want, plan=TP_PLAN):
     """Data- and tensor-parallel training through K11: 4 ranks started by
     parallel.launch.spawn after the kernels are built (on one card they
@@ -3657,19 +3720,12 @@ def phase_train_tp(torch, seed: int, info: dict, want_loss: float, want, plan=TP
         per = [r[name] for r in ranks]
         want_k11 = per[0]["layers"] * per[0]["encodes"] * per[0]["steps"]
         for r in per:
-            got = {k: r["launches"][k] for k in ("flash_attention_tp", "flash_attention_tp_bwd",
-                                                 "fused_ffn", "masked_mean_l2_normalize")}
-            if not got["flash_attention_tp"] == got["flash_attention_tp_bwd"] == want_k11:
-                failures.append(f"{name}: K11 launches {got} on rank {r['coords']}, "
-                                f"want {want_k11}")
-            if got["fused_ffn"] or got["masked_mean_l2_normalize"]:
-                failures.append(f"{name}: K3 or K1 launched: {got}")
-            if r["attention_impl"] != "pallas_tp":
-                failures.append(f"{name}: attention {r['attention_impl']}")
+            (fwd, bwd), fails = k11_failures(name, r, want_k11)
+            failures += fails
             if not all(math.isfinite(x) for x in r["losses"]):
                 failures.append(f"{name}: losses {r['losses']}")
-            k11[0] += got["flash_attention_tp"]
-            k11[1] += got["flash_attention_tp_bwd"]
+            k11[0] += fwd
+            k11[1] += bwd
         first_of_row: dict = {}
         differ = set()
         for r in per:
@@ -3716,6 +3772,266 @@ def phase_train_tp(torch, seed: int, info: dict, want_loss: float, want, plan=TP
     seen = [n for n, r in parity.items() if n != "right" and passes(r)]
     check(not seen, f"train_tp parity: the controls {seen} pass the gates, which cannot see them")
     return k11
+
+
+# ------------------------------------------------- the bge-base width, trained
+
+# The size of each train_wide run: full width and depth for the timed steps;
+# the gradient parity and the TP step at 2 layers of full width (the CPU's
+# f32 step at 12 layers would take minutes); a CPU rehearsal passes less.
+WIDE_TRAIN_PLAN = {"device": "cuda", "layers": 12, "rerank_layers": 12, "contrastive": (256, 128),
+                   "listwise": (64, 4, 64), "warmup": 1, "steps": 3, "parity_layers": 2,
+                   "parity": (8, 128), "tps": (2, 4), "feedback_steps": 4, "feedback_batch": 8,
+                   "feedback_seq": 128, "uplift": ["--hidden", "768", "--steps", "20",
+                                                  "--train", "512", "--eval", "128"]}
+
+
+def train_tp_wide_rank(rank, world, device, seed, plan):
+    """One rank of phase_train_wide's TP step: at 2 layers of the bge-base
+    width, on dp2 x tp2 (6 local heads of 64) and dp1 x tp4 (3 local heads
+    of 64), one step's gradients (gathered; rank 0 returns them) on
+    phase_train_parity's weights and batch, then a whole step. Launch
+    counts set to 0 just before each mesh's step and read just after."""
+    import numpy as np
+    import torch
+
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.parallel import train_mesh
+    from financial_rag_tpu_torch.scripts.bench_train import bge_base_config
+    from financial_rag_tpu_torch.training import gather_params, make_train_step
+
+    cfg = bge_base_config(plan["parity_layers"])
+    batch = padded_pair_batch(np.random.default_rng(seed + 2), *plan["parity"])
+    out = {"rank": rank}
+    for tp in plan["tps"]:
+        mesh = train_mesh(tp, timeout_s=TP_TIMEOUT_S)
+        step, init_state = make_train_step(cfg, mesh, device=device)
+        params, opt_state = init_state(random_params(cfg, seed=seed + 2))
+        reset_launches()
+        loss, tree = step.value_and_grad(params, batch)
+        full = gather_params(tree, mesh)
+        _, _, step_loss = step(params, opt_state, batch)
+        out[f"dp{world // tp}_tp{tp}"] = {
+            "mesh": dict(mesh.shape), "coords": dict(mesh.coords),
+            "attention_impl": step.attention_impl, "loss": float(loss),
+            "step_loss": float(step_loss), "launches": read_launches(),
+            "grads": ({g: {k: t.float().cpu() for k, t in leaves.items()}
+                       for g, leaves in full.items()} if rank == 0 else None)}
+    return out
+
+
+def seed_feedback_db(path: Path) -> int:
+    """A feedback database as the engine leaves it: each golden question's
+    result cached with three passages of the golden corpus (its sentences),
+    and a rating: 5 for the even questions, 1 for the odd ones (their
+    passages become hard negatives). Returns the number of ratings."""
+    from financial_rag_tpu_torch.store.feedback_db import FeedbackDatabase
+
+    sentences = [t.strip() + "." for text in GOLDEN_CORPUS.values()
+                 for t in dict.fromkeys(text.split(". ")) if t.strip()]
+    db = FeedbackDatabase(path)
+    for i, question in enumerate(GOLDEN_QUESTIONS):
+        chunks = [{"text": sentences[(3 * i + j) % len(sentences)]} for j in range(3)]
+        db.cache_put(f"smoke-{i}", question, {"top_children_chunks": chunks})
+        db.store_feedback(query=question, rating=5 if i % 2 == 0 else 1)
+    db.flush_writes()
+    return len(GOLDEN_QUESTIONS)
+
+
+def run_script(main, argv) -> dict:
+    """A port script's main(argv), which prints one JSON line: that line."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0, f"{main.__module__} {argv} exited {rc}: {line}")
+    return line
+
+
+def phase_train_wide(torch, seed: int, info: dict, plan=WIDE_TRAIN_PLAN):
+    """Training at the bge-base width (hidden 768, 12 heads of 64, FFN
+    3,072), bf16 on f32 masters: (1) contrastive steps of make_train_step at
+    full depth, 256 pairs x 2 x 128, 1 warm-up and 3 timed (K2 at 64, K3's
+    768 design, K10 at 64, 24 of each a step); (2) listwise steps of a
+    12-layer bge-base-width cross-encoder, 64 groups x 4 x 64; (3) card vs
+    CPU gradients at 2 layers of full width (phase_train_parity's gates
+    and wrong-K10 controls); (4) one TP step at that size on dp2 x tp2 and
+    dp1 x tp4 (4 ranks over gloo, K11 at 6 and 3 local heads of 64) against
+    the single-GPU card step: loss within TRAIN_LOSS_TOL, each leaf group's
+    cosine >= TRAIN_GRAD_COSINE and norm ratio within 1 +- TP_GRAD_NORM_TOL,
+    with the CPU's readings beside them; (5) the feedback fine-tune of a
+    served checkpoint: scripts/train_rerank.py --feedback-db (a seeded
+    feedback.db) --model-path (a seeded 12-layer bge-base-width
+    cross-encoder), then Runtime.build with its output as the reranker
+    beside the bge-small encoders answers the 9 golden questions; (6)
+    scripts/train_uplift.py --hidden 768 (heads of 32), whose eval index is
+    768-wide f32 (K4's f32 sweep). Returns the K10 launches of (1) and
+    K11's forward and backward launches of (4)."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.config import FrameworkConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.parallel import launch
+    from financial_rag_tpu_torch.runtime import Runtime
+    from financial_rag_tpu_torch.scripts import train_rerank, train_uplift
+    from financial_rag_tpu_torch.scripts.bench_train import bge_base_config, random_pair_batch
+    from financial_rag_tpu_torch.training import make_rerank_train_step, make_train_step
+
+    dev = torch.device(plan["device"])
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    steps = plan["warmup"] + plan["steps"]
+
+    cfg = bge_base_config(plan["layers"])
+    step, init_state = make_train_step(cfg, device=dev)
+    params, opt_state = init_state(random_params(cfg, seed=seed))
+    pairs, seq = plan["contrastive"]
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in random_pair_batch(pairs, seq, seed).items()}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, losses, moved = run_steps(torch, step, params, opt_state, batch, warmup=plan["warmup"],
+                                  steps=plan["steps"], what="wide contrastive")
+    launches = read_launches()
+    check_train_launches(launches, steps, cfg.num_layers, 2, "wide contrastive")
+    contrastive = {"shape": f"bge-base ({cfg.num_layers}L h768, 12 heads of 64), {pairs} pairs "
+                            f"x 2 x {seq}, bf16 / f32 masters",
+                   "step_ms_median": statistics.median(ms), "step_ms": ms,
+                   "pairs_per_s": pairs / statistics.median(ms) * 1e3,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+                   "loss_first": losses[0], "loss_last": losses[-1], "max_param_move": moved,
+                   "launches": launches}
+    del params, opt_state, batch, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    rcfg = bge_base_config(plan["rerank_layers"], num_labels=1)
+    rstep, rinit = make_rerank_train_step(rcfg, device=dev)
+    rparams, ropt = rinit(random_params(rcfg, seed=seed + 1))
+    groups, g, rseq = plan["listwise"]
+    rbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in listwise_batch(np.random.default_rng(seed), groups, g, rseq).items()}
+    reset_launches()
+    rms, rlosses, rmoved = run_steps(torch, rstep, rparams, ropt, rbatch, warmup=plan["warmup"],
+                                     steps=plan["steps"], what="wide listwise")
+    rlaunches = read_launches()
+    check_train_launches(rlaunches, steps, rcfg.num_layers, 1, "wide listwise")
+    listwise = {"shape": f"bge-base-width cross-encoder ({rcfg.num_layers}L h768, 1 label), "
+                         f"{groups} groups x {g} x {rseq}, bf16 / f32 masters",
+                "step_ms_median": statistics.median(rms), "step_ms": rms,
+                "loss_first": rlosses[0], "loss_last": rlosses[-1], "max_param_move": rmoved,
+                "launches": rlaunches}
+    del rparams, ropt, rbatch, rstep
+    if cuda:
+        torch.cuda.empty_cache()
+    emit({"phase": "train_wide", "part": "steps", "card": info["nvidia_smi"],
+          "contrastive": contrastive, "listwise": listwise})
+
+    pcfg = bge_base_config(plan["parity_layers"])
+    want_loss, want, card_loss, card_grads = phase_train_parity(torch, seed, cfg=pcfg,
+                                                                phase="train_wide_parity")
+
+    if cuda:
+        torch.cuda.empty_cache()
+    backend, _ = launch.choose_backend(TP_WORLD, plan["device"])
+    t0 = time.perf_counter()
+    ranks = launch.spawn(train_tp_wide_rank, TP_WORLD, args=(seed, plan), device=plan["device"],
+                         timeout_s=TP_TIMEOUT_S, join_timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    tp_runs, k11, failures = {}, [0, 0], []
+    for name in ranks[0]:
+        if name == "rank":
+            continue
+        want_k11 = 2 * 2 * pcfg.num_layers   # (value_and_grad + step) x 2 encodes x layers
+        for r in ranks:
+            (fwd, bwd), fails = k11_failures(name, r[name], want_k11)
+            failures += fails
+            k11[0] += fwd
+            k11[1] += bwd
+        r0 = ranks[0][name]
+        tp_runs[name] = {"mesh": r0["mesh"], "loss": r0["loss"], "step_loss": r0["step_loss"],
+                         "losses_equal_on_all_ranks": all(r[name]["loss"] == r0["loss"]
+                                                          for r in ranks),
+                         "cosine": grad_group_cosines(torch, r0["grads"], card_grads),
+                         "norm_ratio": grad_group_norm_ratios(torch, r0["grads"], card_grads),
+                         "cosine_cpu": grad_group_cosines(torch, r0["grads"], want),
+                         "norm_ratio_cpu": grad_group_norm_ratios(torch, r0["grads"], want),
+                         "k11_launches_per_rank": want_k11}
+        run = tp_runs[name]
+        if not (abs(run["loss"] - card_loss) <= TRAIN_LOSS_TOL
+                and all(c >= TRAIN_GRAD_COSINE for c in run["cosine"].values())
+                and all(abs(x - 1) <= TP_GRAD_NORM_TOL for x in run["norm_ratio"].values())):
+            failures.append(f"{name}: against the single-GPU step: {run}")
+    emit({"phase": "train_wide", "part": "tp", "world": TP_WORLD, "backend": backend,
+          "spawn_s": spawn_s, "single_gpu_loss": card_loss, "cpu_loss": want_loss,
+          "loss_tol": TRAIN_LOSS_TOL, "cosine_bar": TRAIN_GRAD_COSINE,
+          "norm_ratio_tol": TP_GRAD_NORM_TOL, "runs": tp_runs,
+          "k11_launches": k11[0], "k11_bwd_launches": k11[1]})
+    check(not failures, "train_wide tp: " + "; ".join(failures))
+
+    # the runtime's writer threads may still be finishing a file when the
+    # directory goes: a leftover temporary file is no failure of the phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_train_",
+                                     ignore_cleanup_errors=True) as tmp:
+        work = Path(tmp)
+        start = write_wide_checkpoints(work / "models", seed + 10, plan["rerank_layers"],
+                                       names=("bge-base-ce",), labels=1)["bge-base-ce"]
+        ratings = seed_feedback_db(work / "feedback.db")
+        reset_launches()
+        t0 = time.perf_counter()
+        tuned = run_script(train_rerank.main, [
+            "--feedback-db", str(work / "feedback.db"), "--model-path", str(start),
+            "--out-dir", str(work / "tuned"), "--steps", str(plan["feedback_steps"]),
+            "--batch", str(plan["feedback_batch"]), "--seq", str(plan["feedback_seq"]),
+            "--device", plan["device"]])
+        tune_s = time.perf_counter() - t0
+        tune_launches = read_launches()
+        check_train_launches(tune_launches, plan["feedback_steps"], plan["rerank_layers"], 1,
+                             "feedback fine-tune")
+        before, after = (np.load(Path(d) / "model.npz") for d in (start, tuned["checkpoint"]))
+        moved = {k: float(np.abs(after[k] - before[k]).max()) for k in before.files}
+        check(max(moved.values()) > 0, "feedback fine-tune: the saved weights did not move")
+
+        paths = write_checkpoints(work / "serve_models", seed)
+        cfg_rt = FrameworkConfig.from_env()
+        cfg_rt.encoders.baai_path = str(paths["bge-small"])
+        cfg_rt.encoders.gte_path = str(paths["gte-small"])
+        cfg_rt.rerank.model_path = tuned["checkpoint"]
+        cfg_rt.llm.gemini_api_key = None
+        reset_launches()
+        rt = Runtime.build(cfg_rt, data_dir=work / "data", device=plan["device"])
+        model = getattr(rt.engine.reranker.model, "inner", rt.engine.reranker.model)
+        check(model is not None and model.config.hidden_size == 768
+              and model.config.num_heads == 12,
+              f"feedback fine-tune: the served reranker is not the tuned 768-wide checkpoint")
+        children, ingest_s = ingest_all(rt, write_corpus(work, seed))
+        ingest_launches = read_launches()
+        query_ms, answers, methods = golden_queries(rt, "tuned bge-base reranker")
+        serve_launches = read_launches()
+        query_launches = {k: serve_launches[k] - ingest_launches[k] for k in serve_launches}
+        check_path_launched(FLAT_PATH, query_launches, "tuned bge-base reranker query path")
+        del rt
+    emit({"phase": "train_wide", "part": "feedback", "ratings": ratings,
+          "tune": {k: v for k, v in tuned.items() if k != "checkpoint"}, "tune_s": tune_s,
+          "tune_launches": tune_launches, "max_weight_move": max(moved.values()),
+          "served_children": children, "query_p50_ms": statistics.median(query_ms),
+          "reranked_methods": methods, "query_launches": query_launches})
+
+    reset_launches()
+    t0 = time.perf_counter()
+    uplift = run_script(train_uplift.main, [*plan["uplift"], "--device", plan["device"]])
+    uplift_launches = read_launches()
+    check_path_launched(("packed_topk_fused", *TRAIN_PATH), uplift_launches,
+                        "train_uplift --hidden 768")
+    emit({"phase": "train_wide", "part": "uplift_768", "argv": plan["uplift"],
+          "uplift": uplift["value"], "wall_s": time.perf_counter() - t0,
+          "launches": uplift_launches, "phase_s": time.perf_counter() - t_phase})
+    return launches["flash_attention_bwd"], k11
 
 
 def main(argv=None) -> int:
@@ -3778,10 +4094,13 @@ def main(argv=None) -> int:
             launches["bucketed_topk"] = sharded_launches["bucketed_topk"]
             launches["probe_scores"] = ivf_launches["probe_scores"]
         train_launches = phase_train(torch, args.seed)
-        want_loss, want = phase_train_parity(torch, args.seed)
+        want_loss, want, _, _ = phase_train_parity(torch, args.seed)
         launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
         launches["flash_attention_tp"], tp_bwd = phase_train_tp(torch, args.seed, info,
                                                                  want_loss, want)
+        k10_d64, (k11_d64, k11_bwd_d64) = phase_train_wide(torch, args.seed, info)
+        launches["flash_attention_tp"] += k11_d64
+        tp_bwd += k11_bwd_d64
     except Exception:  # noqa: BLE001 -- any failure ends the run non-zero
         traceback.print_exc()
         return 1
@@ -3796,6 +4115,12 @@ def main(argv=None) -> int:
                         "shape": t["shape"]})
         if name == "flash_attention_tp":   # its forward launches above; K10 at local heads
             kernels[-1]["bwd_launches"] = tp_bwd
+            kernels[-1]["launches_d64"], kernels[-1]["bwd_launches_d64"] = k11_d64, k11_bwd_d64
+        if name == "flash_attention_bwd":
+            kernels[-1]["launches_d64"] = k10_d64
+        if f"{name}@64" in timings:        # the same kernel at heads of 64
+            kernels[-1]["d64"] = {k: timings[f"{name}@64"][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
         if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms

@@ -59,33 +59,11 @@ constexpr int kTile = 64;                          // query rows per warpgroup, 
 constexpr int kStages = 4;
 constexpr float kDeadGap = 1048576.f;              // 2^20, in units of log2
 
-// One head's slice of a row: D bf16 = 2*D bytes in the swizzle of that width.
+// One head's slice of a row: D bf16 = 2*D bytes in the swizzle of that width
+// (hopper.cuh).
 template <int D>
-struct Head {
-  static_assert(D == 32 || D == 64, "K2 takes head_dim 32 or 64");
-  static constexpr int kRowBytes = 2 * D;          // 64 or 128
-  static constexpr int kChunks = D / 8;            // 16-byte chunks of a row: 4 or 8
-  static constexpr int kChunkBits = D == 32 ? 2 : 3;
-  static constexpr int kSwizzle = D == 32 ? 2 : 3;  // SW64, SW128
-  static constexpr int kTileBytes = kTile * kRowBytes;  // 64 rows: 4 or 8 KB
-
-  __device__ static uint32_t at(int r, int ch) { return swz<kSwizzle>(r * kRowBytes + ch * 16); }
-  // Q or K as the K-major operand of S = Q K^T, k16 step kk
-  __device__ static uint64_t kmajor(uint32_t tile, int kk) {
-    if constexpr (D == 32) return sw64_kmajor(tile, kk);
-    else return make_desc(tile + 32 * kk, 16, 1024, kSw128);
-  }
-  // V [key][d] as the MN-major operand of O = P V, k16 step kk (16 keys);
-  // N = D is one swizzle-wide column block, so LBO is not read
-  __device__ static uint64_t mnmajor(uint32_t tile, int kk) {
-    if constexpr (D == 32) return sw64_mnmajor(tile, kk);
-    else return make_desc(tile + kk * 16 * kRowBytes, kTileBytes, 1024, kSw128);
-  }
-  __device__ static void pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
-    if constexpr (D == 32) wgmma_rs_n32(o, a, desc);
-    else wgmma_rs_n64(o, a, desc);
-  }
-};
+using Head = HeadTile<D>;
+static_assert(Head<32>::kRows == kTile, "a staged tile is 64 rows");
 
 // A block of NC consumer warpgroups (64 query rows each) and a producer warp.
 template <int NC, int D>
@@ -281,7 +259,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) Hd::pv(o, pa[kk], Hd::mnmajor(vs, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_head<D>(o, pa[kk], Hd::mnmajor(vs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);

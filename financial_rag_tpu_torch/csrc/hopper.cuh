@@ -280,6 +280,34 @@ __device__ __forceinline__ uint64_t sw64_mnmajor(uint32_t tile, int kk) {
   return make_desc(tile + 1024 * kk, 4096, 512, kSw64);
 }
 
+// One attention head's slice of a 64-row tile (K2, K10): D bf16 = 2*D bytes
+// a row in the swizzle of that width (64-byte rows in SW64 at D = 32,
+// 128-byte rows in SW128 at D = 64), 1,024-aligned.
+template <int D>
+struct HeadTile {
+  static_assert(D == 32 || D == 64, "a head is 32 or 64 wide");
+  static constexpr int kRows = 64;
+  static constexpr int kRowBytes = 2 * D;           // 64 or 128
+  static constexpr int kChunks = D / 8;             // 16-byte chunks of a row: 4 or 8
+  static constexpr int kChunkBits = D == 32 ? 2 : 3;
+  static constexpr int kSwizzle = D == 32 ? 2 : 3;  // SW64, SW128
+  static constexpr int kTileBytes = kRows * kRowBytes;  // 4 or 8 KB
+
+  // byte offset of 16-byte chunk ch of row r
+  __device__ static uint32_t at(int r, int ch) { return swz<kSwizzle>(r * kRowBytes + ch * 16); }
+  // the tile as the K-major operand (the D features are k), k16 step kk
+  __device__ static uint64_t kmajor(uint32_t tile, int kk) {
+    if constexpr (D == 32) return sw64_kmajor(tile, kk);
+    else return make_desc(tile + 32 * kk, 16, 1024, kSw128);
+  }
+  // the tile as the MN-major operand (the rows are k, 16 a step; N = D is
+  // one swizzle-wide column block, so LBO is not read), k16 step kk
+  __device__ static uint64_t mnmajor(uint32_t tile, int kk) {
+    if constexpr (D == 32) return sw64_mnmajor(tile, kk);
+    else return make_desc(tile + kk * 16 * kRowBytes, kTileBytes, 1024, kSw128);
+  }
+};
+
 // The descriptor of the same layout `bytes` further on (a multiple of 16):
 // one add to the start-address field, which cannot carry out of its 14 bits
 // within shared memory.
@@ -404,6 +432,14 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x D] += A[64 x 16] * B[16 x D] with N = D, a head's width (32 or
+// 64): A in registers, B a HeadTile<D> read MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_head(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_b) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, desc_b);
+  else wgmma_rs_n64(d, a, desc_b);
 }
 
 // d[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (the m16n8k16

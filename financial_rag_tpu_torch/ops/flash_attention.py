@@ -32,7 +32,7 @@ BWD_LAUNCHES = 0    # K10, the backward
 TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
 TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
 FWD_HEAD_DIMS = (32, 64)  # the head widths K2 (the forward) is built for
-BWD_HEAD_DIMS = (32,)     # the head widths K10 (the backward) is built for
+BWD_HEAD_DIMS = (32, 64)  # the head widths K10 (the backward) is built for
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -93,6 +93,16 @@ def fwd_block(s: int, head_dim: int):
     return consumers, (consumers + 2 * 4) * 64 * 2 * head_dim + 1024
 
 
+def bwd_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared-memory bytes of a K10 block (both kernels), as
+    csrc/flash_attention_bwd.cu's Layout sizes it: two resident 64-row
+    tiles of one head's 2 * head_dim bytes a row, a ring of 3 stages of two
+    such tiles and a query tile's 2 x 64 f32 statistics, and 1 KB of
+    alignment."""
+    tile = 64 * 2 * head_dim
+    return 2 * tile + 3 * (2 * tile + 2 * 64 * 4) + 1024
+
+
 def bwd_scratch_shape(b: int, s: int, num_heads: int) -> tuple:
     """K10's f32 scratch between its two kernels: each query row's
     log-sum-exp (base 2, relative to its batch row's largest key bias) and
@@ -141,7 +151,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_bias: torch.Tensor, dout: torch.Tensor, *,
                         num_heads: int, tp: bool = False):
     """(dq, dk, dv) of :func:`flash_attention` at dout, each [B,S,H] in
-    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32 only. ``tp``: the
+    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32 or 64. ``tp``: the
     launch is K11's backward and counts in TP_BWD_LAUNCHES too."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask_bias, dout, num_heads=num_heads)
@@ -185,7 +195,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask_bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
     """Fused multi-head self-attention. Returns [B, S, H] in q.dtype.
     Differentiable in q, k and v. The CUDA kernels take bf16: the forward
-    (K2) at head_dim 32 or 64, the backward (K10) at 32."""
+    (K2) and the backward (K10) at head_dim 32 or 64."""
     return FlashAttention.apply(q, k, v, mask_bias, num_heads)
 
 

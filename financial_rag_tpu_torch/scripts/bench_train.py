@@ -42,6 +42,13 @@ def bge_small_config(layers: int = 12, **kw) -> ModelConfig:
                        max_position=512, **kw)
 
 
+def bge_base_config(layers: int = 12, **kw) -> ModelConfig:
+    """The bge-base-en-v1.5 / gte-base shape: 12 heads of 64, FFN 3,072."""
+    return ModelConfig(name="bge-base-shape", hidden_size=768, num_layers=layers,
+                       num_heads=12, intermediate_size=3072, vocab_size=30522,
+                       max_position=512, **kw)
+
+
 def random_pair_batch(batch: int, seq: int, seed: int = 0, vocab: int = 30000) -> dict:
     """Seeded random ids, every position real (the JAX bench's batch)."""
     rng = np.random.default_rng(seed)

@@ -8,8 +8,8 @@ libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
 (``frag_fused_ffn``), K4 (``frag_packed_topk``), K5 and K7
 (``frag_bucketed_topk``), K6 (``frag_topk_exact``), K9
 (``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
-launched on the same inputs at the main path's shapes (K2, K3, K4 and K5
-also at the bge-base width: heads of 64, hidden 768, D 768), the two libraries in
+launched on the same inputs at the main path's shapes (K2, K3, K4, K5 and
+K10 also at the bge-base width: heads of 64, hidden 768, D 768), the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
 and as the kernels' own device time under torch.profiler (``*_dev_ms``,
@@ -36,8 +36,10 @@ wrapper at the time: K4's, K5's and K7's 64-query, 16-column
 ``tile_groups``, K6's ``exact_groups``). The
 sweeps' queries are passed padded to Bqp rows of zeros, which both trees
 take. K10's scratch is allocated at the larger of the two
-layouts (3 planes). Prints one JSON line with the card's name and power
-limit; the GPU only.
+layouts (3 planes). A shape that one tree's kernel refuses (a tree from
+before K10 took heads of 64) is timed in the other tree alone: the refusing
+tree's times and the difference are null, and ``refused`` names it.
+Prints one JSON line with the card's name and power limit; the GPU only.
 """
 
 from __future__ import annotations
@@ -55,10 +57,17 @@ import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
 
-# (label, B, S, heads) of K10: the train path's shapes and K11's local ones
-K10_SHAPES = (("contrastive", 256, 128, 12), ("both encodes", 512, 128, 12),
-              ("listwise", 256, 64, 12), ("uplift", 256, 32, 12), ("K2 table", 256, 512, 12),
-              ("tp2 local", 32, 128, 6), ("tp4 local", 64, 128, 3), ("tp2 listwise", 64, 64, 6))
+# (label, B, S, heads, head_dim) of K10: the train path's shapes and K11's
+# local ones, at heads of 32 and, for the bge-base width, of 64 (the
+# contrastive and listwise encodes, K2's table shape, and the local heads of
+# a dp2 x tp2 and a dp1 x tp4 contrastive encode)
+K10_SHAPES = (("contrastive", 256, 128, 12, 32), ("both encodes", 512, 128, 12, 32),
+              ("listwise", 256, 64, 12, 32), ("uplift", 256, 32, 12, 32),
+              ("K2 table", 256, 512, 12, 32), ("tp2 local", 32, 128, 6, 32),
+              ("tp4 local", 64, 128, 3, 32), ("tp2 listwise", 64, 64, 6, 32),
+              ("wide contrastive", 256, 128, 12, 64), ("wide listwise", 256, 64, 12, 64),
+              ("wide S=512", 256, 512, 12, 64), ("wide tp2 local", 32, 128, 6, 64),
+              ("wide tp4 local", 64, 128, 3, 64))
 # (label, B, S, heads, head_dim) of K2: the table's shape, the contrastive
 # encode, a rerank batch, a query's encode, the listwise step's encode, K11's
 # local shapes, and the bge-base width's 12 heads of 64 at the table's shape,
@@ -179,6 +188,17 @@ def device_ms(fn, iters: int = 50) -> dict:
         print(f"kernel_ab: the profiler saw no kernel (attempt {attempt + 1}, "
               f"{len(prof.events())} events)", file=sys.stderr)
     raise RuntimeError("the profiler saw no kernel of the call")
+
+
+def launches(fn) -> bool:
+    """Whether the tree's C entry takes the call (``fn`` raises where it
+    returns an error, as a tree built before a width was added does)."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return False
+    return True
 
 
 def tree_module(csrc: Path, name: str):
@@ -447,16 +467,17 @@ def k3_call(lib, n: int, h: int, splits: int, gen):
     return run, [out]
 
 
-def k10_call(lib, b: int, s: int, heads: int, gen):
+def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
     """(run, outputs): K10 on seeded inputs, through ``lib``'s C entry."""
     p = kernel_lib.ptr
-    q, k, v, do = (torch.randn(b, s, heads * 32, generator=gen, device="cuda").bfloat16()
+    q, k, v, do = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                    for _ in range(4))
     bias = torch.zeros(b, s, device="cuda")
     outs = [torch.empty_like(q) for _ in range(3)]
     stats = torch.empty(3, b, heads, s, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (*(p(t) for t in (q, k, v, bias, do, *outs, stats)), b, s, heads * 32, heads, stream)
+    args = (*(p(t) for t in (q, k, v, bias, do, *outs, stats)), b, s, heads * head_dim, heads,
+            stream)
 
     def run():
         if lib.frag_flash_attention_bwd(*args):
@@ -541,8 +562,8 @@ def main(argv=None) -> int:
     cases += [("K3", label, {"N": n, "H": h, "splits": {tree: splits[tree, n, h] for tree in trees}},
                lambda tree, n=n, h=h: k3_call(libs[tree], n, h, splits[tree, n, h], gen))
               for label, n, h in K3_SHAPES]
-    cases += [("K10", label, (b, s, h), lambda tree, b=b, s=s, h=h: k10_call(libs[tree], b, s, h, gen))
-              for label, b, s, h in K10_SHAPES]
+    cases += [("K10", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
+        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES]
     cases += [("K9", label, (b, s, list(pads)), lambda tree, b=b, s=s, pads=pads: k9_call(
         libs[tree], b, s, pads, gen)) for label, b, s, pads in K9_SHAPES]
     if args.only:
@@ -552,20 +573,29 @@ def main(argv=None) -> int:
         for name in libs:
             gen.manual_seed(0)   # the same inputs for both trees
             runs[name], outs[name] = make(name)
+        refused = [name for name in libs if not launches(runs[name])]
         ms, dev = {"this": [], "other": []}, {"this": [], "other": []}
         for name in ("this", "other", "other", "this"):
-            ms[name].append(cuda_ms(runs[name]))
+            if name not in refused:
+                ms[name].append(cuda_ms(runs[name]))
         for name in ("this", "other", "other", "this"):
-            dev[name].append(device_ms(runs[name]))
-        # the two trees' outputs on the same inputs: largest difference, and
-        # as a share of the other tree's largest value
-        diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(outs["this"], outs["other"])]
-        rel = max(d / b.float().abs().max().item() for d, b in zip(diffs, outs["other"]))
-        row = {"kernel": kernel, "case": label, "shape": shape, "this_ms": ms["this"],
-               "other_ms": ms["other"],
-               "this_dev_ms": [sum(d.values()) for d in dev["this"]],
-               "other_dev_ms": [sum(d.values()) for d in dev["other"]],
-               "max_rel_diff": rel, "max_abs_diff": max(diffs)}
+            if name not in refused:
+                dev[name].append(device_ms(runs[name]))
+        row = {"kernel": kernel, "case": label, "shape": shape,
+               **{f"{name}_ms": ms[name] or None for name in libs},
+               **{f"{name}_dev_ms": [sum(d.values()) for d in dev[name]] or None
+                  for name in libs},
+               "max_rel_diff": None, "max_abs_diff": None}
+        if refused:
+            row["refused"] = refused
+        else:
+            # the two trees' outputs on the same inputs: largest difference,
+            # and as a share of the other tree's largest value
+            diffs = [(a.float() - b.float()).abs().max().item()
+                     for a, b in zip(outs["this"], outs["other"])]
+            row["max_rel_diff"] = max(d / b.float().abs().max().item()
+                                      for d, b in zip(diffs, outs["other"]))
+            row["max_abs_diff"] = max(diffs)
         if kernel in SWEEP_PARTS:
             for name in ("this", "other"):
                 for part, key in zip(("sweep", "merge"), SWEEP_PARTS[kernel]):

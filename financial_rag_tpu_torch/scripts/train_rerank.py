@@ -14,7 +14,10 @@ fine-tuning on mined user feedback.
   feedback joined with the engine's result cache, fine-tune the checkpoint
   at ``--model-path`` (or a seeded random one) on them, and write a
   checkpoint directory (config.json + model.npz, the JAX package's format)
-  to ``--out-dir``, which CROSS_ENCODER_PATH loads in either package.
+  to ``--out-dir``, which CROSS_ENCODER_PATH loads in either package. The
+  checkpoint keeps its own shape: a bge-base-width cross-encoder (hidden
+  768, 12 heads of 64) trains on the GPU as the MiniLM width does (K2 and
+  K10 take heads of 32 and of 64).
 
 bf16 compute with float32 master weights on the GPU, data-parallel over
 every visible GPU (one rank each, a (n_gpus, 1) mesh, as the JAX script's;

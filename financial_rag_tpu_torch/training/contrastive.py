@@ -256,10 +256,11 @@ def tp_arg(config: ModelConfig, mesh, model_axis: str):
 
 
 def check_train_widths(config: ModelConfig, device: torch.device) -> None:
-    """On CUDA a training step runs the attention backward through K10,
-    which takes head_dim 32 only (K2, the forward, also takes 64): refuse
-    another width when the step is made, not in the middle of its first
-    backward. The CPU trains at any width."""
+    """On CUDA a training step runs the attention forward through K2 and
+    its backward through K10, which take head_dim 32 or 64 (bge-small,
+    bge-base and their kin): refuse another width when the step is made,
+    not in the middle of its first backward. The CPU trains at any
+    width."""
     head_dim = config.hidden_size // config.num_heads
     if device.type == "cuda" and (config.hidden_size % config.num_heads
                                   or head_dim not in flash_attention.BWD_HEAD_DIMS):

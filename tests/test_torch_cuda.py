@@ -955,10 +955,14 @@ def _row_rel_err(got, want, heads):
     return torch.where(err == 0, torch.zeros_like(err), err / scale.clamp_min(1e-30)).max().item()
 
 
-BWD_CASES = {  # B, S, heads
-    "s128": (4, 128, 12), "s512": (3, 512, 12), "s200": (3, 200, 12), "s1": (3, 1, 12),
-    "s129": (3, 129, 12), "s256": (3, 256, 12), "s257": (3, 257, 12),
-    "s128_6heads": (4, 128, 6), "s128_3heads": (4, 128, 3)}
+BWD_CASES = {  # B, S, heads, head_dim
+    "s128": (4, 128, 12, 32), "s512": (3, 512, 12, 32), "s200": (3, 200, 12, 32),
+    "s1": (3, 1, 12, 32), "s129": (3, 129, 12, 32), "s256": (3, 256, 12, 32),
+    "s257": (3, 257, 12, 32), "s128_6heads": (4, 128, 6, 32), "s128_3heads": (4, 128, 3, 32),
+    "d64_s128": (4, 128, 12, 64), "d64_s512": (3, 512, 12, 64), "d64_s100": (3, 100, 12, 64),
+    "d64_s64": (3, 64, 12, 64), "d64_s1": (3, 1, 12, 64), "d64_s129": (3, 129, 12, 64),
+    "d64_s257": (3, 257, 12, 64), "d64_s128_6heads": (4, 128, 6, 64),
+    "d64_s128_3heads": (4, 128, 3, 64)}
 
 
 @pytest.mark.parametrize("case", list(BWD_CASES))
@@ -969,9 +973,10 @@ def test_flash_attention_bwd_kernel_matches_plain(gen, case):
     the real keys); S = 200, 129, 257 and 1 leave tiles part-filled. S = 128
     is the longest row the dQ kernel walks once (its key tiles held in
     registers), S = 129 the shortest it walks twice; 6 and 3 heads are K11's
-    local widths. Masked keys get exactly zero dk and dv."""
-    b, s, heads = BWD_CASES[case]
-    q, k, v, do = (_randn(gen, b, s, 32 * heads, dtype=torch.bfloat16) for _ in range(4))
+    local widths; at heads of 32 and of 64 (the bge-base width, 128-byte
+    swizzled rows). Masked keys get exactly zero dk and dv."""
+    b, s, heads, hd = BWD_CASES[case]
+    q, k, v, do = (_randn(gen, b, s, hd * heads, dtype=torch.bfloat16) for _ in range(4))
     mask = _mask(b, s)
     bias = torch.where(mask > 0, 0.0, -1e9).float()
     before = fa.BWD_LAUNCHES
@@ -987,12 +992,13 @@ def test_flash_attention_bwd_kernel_matches_plain(gen, case):
         assert (got[1][1, s // 3:] == 0).all() and (got[2][1, s // 3:] == 0).all()
 
 
+@pytest.mark.parametrize("head_dim", [32, 64])
 @pytest.mark.parametrize("s", [128, 512])
-def test_flash_attention_bwd_kernel_is_bit_identical_run_to_run(gen, s):
+def test_flash_attention_bwd_kernel_is_bit_identical_run_to_run(gen, s, head_dim):
     """K10 uses no atomics and no order that depends on scheduling: two
     launches on the same inputs give the same bits (one-pass and two-walk
-    dQ kernels)."""
-    q, k, v, do = (_randn(gen, 8, s, 384, dtype=torch.bfloat16) for _ in range(4))
+    dQ kernels, at heads of 32 and of 64)."""
+    q, k, v, do = (_randn(gen, 8, s, 12 * head_dim, dtype=torch.bfloat16) for _ in range(4))
     bias = torch.where(_mask(8, s) > 0, 0.0, -1e9).float()
     first = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=12)
     second = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=12)
@@ -1039,6 +1045,28 @@ def test_attention_and_ffn_gradients_on_cuda_match_the_cpu(gen):
     assert (got[0].float().cpu() - want[0].float()).abs().max() <= 2.0 ** -8 * scale
     for g, wt in zip(got[1:], want[1:]):
         assert (g.cpu() - wt).abs().max() <= 1e-4 * wt.abs().max()
+
+
+def test_flash_attention_function_at_head_dim_64_matches_the_cpu(gen):
+    """Autograd through FlashAttention at 12 heads of 64 on the card (K2 and
+    K10 at 64, one launch each) against the same bf16 tensors on the CPU
+    (the plain versions): the output and each gradient per (position, head)
+    row within 2^-6 of its largest value."""
+    b, s = 3, 100
+    q, k, v = (_randn(gen, b, s, 768, dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    w = _randn(gen, b, s, 768)
+    f_before, b_before = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = fa.flash_attention(q, k, v, bias, num_heads=12)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (f_before + 1, b_before + 1)
+    cq, ck, cv = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    cout = fa.flash_attention(cq, ck, cv, bias.cpu(), num_heads=12)
+    want = torch.autograd.grad((cout.float() * w.cpu()).sum(), (cq, ck, cv))
+    assert _row_rel_err(out.detach().cpu(), cout.detach(), 12) <= 2.0 ** -6
+    for g, wt in zip(got, want):
+        assert _row_rel_err(g.cpu(), wt, 12) <= 2.0 ** -6
 
 
 def test_kernels_without_backward_raise_on_inputs_that_need_a_gradient(gen):
@@ -1103,6 +1131,64 @@ def test_contrastive_step_on_cuda_matches_the_cpu(gen):
                 continue
             cos = torch.nn.functional.cosine_similarity(a, b_, dim=0)
             assert cos >= 0.99, (group, name, float(cos))
+
+
+def test_bge_base_width_step_on_cuda_matches_the_cpu_and_sees_a_wrong_k10(gen):
+    """One contrastive step's gradients at the bge-base width (2 layers,
+    hidden 768, 12 heads of 64, FFN 3,072) in bf16 on the card (K2 and K10
+    at 64, K3's 768 design; 4 launches each) against f32 on the CPU, padded
+    batch: each leaf group's gradient cosine >= 0.999 (chip_smoke.py's bar).
+    The control, K10 with its dQ zeroed, drops the q group's cosine to 0
+    (a zero gradient: the cosine's eps makes it 0, not nan)."""
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.training import make_train_step
+
+    cfg = ModelConfig(name="t", hidden_size=768, num_layers=2, num_heads=12,
+                      intermediate_size=3072, vocab_size=30522, max_position=128)
+    g = torch.Generator().manual_seed(1)
+    ids = {k: torch.randint(5, 30000, (4, 64), generator=g) for k in ("q_ids", "d_ids")}
+    masks = {k: (torch.arange(64)[None, :] < torch.tensor([64, 50, 20, 8])[:, None]).int()
+             for k in ("q_mask", "d_mask")}
+    batch = {**ids, **masks}
+    params = random_params(cfg, seed=1)
+    card, card_init = make_train_step(cfg, device="cuda")
+    cpu, cpu_init = make_train_step(cfg, device="cpu")
+    card_params, _ = card_init(params)
+    _, want = cpu.value_and_grad(cpu_init(params)[0], batch)
+    groups = {"q": ("q_w", "q_b"), "k": ("k_w",), "v": ("v_w", "v_b"), "o": ("o_w", "o_b"),
+              "ffn": ("ffn_in_w", "ffn_in_b", "ffn_out_w", "ffn_out_b")}
+
+    def cosines(grads):
+        out = {}
+        for group, names in groups.items():
+            a = torch.cat([grads["layers"][n].float().cpu().flatten() for n in names]).double()
+            b_ = torch.cat([want["layers"][n].flatten() for n in names]).double()
+            out[group] = float(torch.nn.functional.cosine_similarity(a, b_, dim=0))  # 0 if a == 0
+        a = grads["embeddings"]["word"].float().cpu().double().flatten()
+        b_ = want["embeddings"]["word"].double().flatten()
+        out["embeddings"] = float(torch.nn.functional.cosine_similarity(a, b_, dim=0))
+        return out
+
+    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES)
+    _, grads = card.value_and_grad(card_params, batch)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - counts[0], fa.BWD_LAUNCHES - counts[1], ffn.LAUNCHES - counts[2]) == (
+        4, 4, 4)
+    real = cosines(grads)
+    assert min(real.values()) >= 0.999, real
+    k10 = fa.flash_attention_bwd
+
+    def dq_zeroed(*a, **kw):
+        dq, dk, dv = k10(*a, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    fa.flash_attention_bwd = dq_zeroed
+    try:
+        _, bad = card.value_and_grad(card_params, batch)
+    finally:
+        fa.flash_attention_bwd = k10
+    assert cosines(bad)["q"] < 0.999
 
 
 # ----------------------------------------------- tensor parallel (K11, gloo)
@@ -1254,6 +1340,9 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
                          + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
                          + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES))
     assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
+    k10 = [r for r in rows if r["kernel"] == "K10"]
+    assert len(k10) == len(kernel_ab.K10_SHAPES)
+    assert [r["shape"][3] for r in k10].count(64) == 5 and not any("refused" in r for r in rows)
     assert [r["kernel"] for r in rows].count("K1") == len(kernel_ab.K1_SHAPES)
     for row in rows:
         if row["kernel"] == "K3":   # both trees are this one: the same split

@@ -134,13 +134,16 @@ def test_spawn_raises_and_does_not_hang_when_a_rank_raises():
 # --------------------------------------------------------------- K11
 
 
-def test_flash_attention_tp_matches_jax_on_dp2_tp2():
-    """K11 on each rank's rows and heads (4 heads of 32, 2 per rank) against
-    the JAX flash_attention_tp on a dp2 x tp2 mesh (the Pallas kernel in
-    interpret mode) and its VJP, f32, padded keys and a fully masked row:
-    each rank's output and dq/dk/dv slices within 1e-5."""
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_flash_attention_tp_matches_jax_on_dp2_tp2(head_dim):
+    """K11 on each rank's rows and heads (4 heads of 32, or of 64 as at the
+    bge-base width; 2 per rank) against the JAX flash_attention_tp on a
+    dp2 x tp2 mesh (the Pallas kernel in interpret mode) and its VJP, f32,
+    padded keys and a fully masked row: each rank's output and dq/dk/dv
+    slices within 1e-5."""
     rng = np.random.default_rng(3)
-    b, s, h, heads = 4, 24, 128, 4
+    b, s, heads = 4, 24, 4
+    h = heads * head_dim
     q, k, v, do = (rng.standard_normal((b, s, h)).astype(np.float32) for _ in range(4))
     mask = np.ones((b, s), np.int32)
     mask[1, 17:] = 0
@@ -155,7 +158,7 @@ def test_flash_attention_tp_matches_jax_on_dp2_tp2():
     out, jgrads = np.asarray(out), [np.asarray(g) for g in jgrads]
     for r in _spawn(workers.attention_tp, 4, q, k, v, do, bias, heads, 2):
         d, m = r["coords"]
-        rows, cols = slice(2 * d, 2 * d + 2), slice(64 * m, 64 * m + 64)
+        rows, cols = slice(2 * d, 2 * d + 2), slice(h // 2 * m, h // 2 * (m + 1))
         np.testing.assert_allclose(r["out"], out[rows, :, cols], atol=1e-5, rtol=0)
         for g, jg in zip(r["grads"], jgrads):
             np.testing.assert_allclose(g, jg[rows, :, cols], atol=1e-5, rtol=0)
@@ -316,10 +319,13 @@ def _jax_step(make, jcfg, mesh, params_seed, opt, impl, batches):
 
 
 @pytest.mark.parametrize("opt", [("sgd", 0.1), ("adamw", 1e-4)], ids=["sgd", "adamw"])
-@pytest.mark.parametrize("layout", list(MESHES))
-def test_contrastive_step_matches_jax_pallas_tp(layout, opt):
-    """One contrastive step on dp2 x tp2, dp1 x tp4 and dp4 x tp1 against the
-    JAX make_train_step(mesh, attention_impl="pallas_tp") on the same mesh,
+@pytest.mark.parametrize("layout,heads", [*((layout, 4) for layout in MESHES), ("dp2xtp2", 2)],
+                         ids=[*MESHES, "dp2xtp2-head_dim64"])
+def test_contrastive_step_matches_jax_pallas_tp(layout, heads, opt):
+    """One contrastive step on dp2 x tp2, dp1 x tp4 and dp4 x tp1 (4 heads
+    of 32), and on dp2 x tp2 at 2 heads of 64 (the bge-base head width, one
+    local head of 64 a rank), against the JAX make_train_step(mesh,
+    attention_impl="pallas_tp") on the same mesh,
     with optax.sgd(0.1) and optax.adamw(1e-4) against their torch
     counterparts: loss within 1e-5, every parameter within atol 2e-5 and
     rtol 2e-4 (the bars of tests/test_parallel.py's pallas_tp test).
@@ -332,11 +338,12 @@ def test_contrastive_step_matches_jax_pallas_tp(layout, opt):
     every score), so Adam scales that noise to up to lr in either
     package. SGD's step is linear in the gradient and checks its scale."""
     dp, tp = MESHES[layout]
-    cfg, jcfg = ModelConfig(**TINY), JaxModelConfig(**TINY)
+    fields = {**TINY, "num_heads": heads}
+    cfg, jcfg = ModelConfig(**fields), JaxModelConfig(**fields)
     batch = _pair_batch(seed=6)
     losses, want = _jax_step(jax_contrastive.make_train_step, jcfg, _jax_mesh(dp, tp), 7, opt,
                              "pallas_tp", [batch])
-    out = _spawn(workers.train_steps, dp * tp, "contrastive", TINY, _np_params(cfg, 7),
+    out = _spawn(workers.train_steps, dp * tp, "contrastive", fields, _np_params(cfg, 7),
                  [batch], tp, opt)
     for r in out:
         assert r["attention_impl"] == ("pallas_tp" if tp > 1 else "pallas")
@@ -345,13 +352,14 @@ def test_contrastive_step_matches_jax_pallas_tp(layout, opt):
                              skip=("k_b",) if opt[0] == "adamw" else ())
 
 
-def test_listwise_step_matches_jax_xla_on_dp2_tp2():
-    """One listwise rerank step (SGD 0.1) on dp2 x tp2 against the JAX
-    make_rerank_train_step with attention_impl="xla" on the same mesh (its
-    pallas_tp path crashes, below): loss within 1e-5, parameters within
-    atol 2e-5 and rtol 2e-4. The data axis averages here: the listwise
-    loss is a mean over each rank's own groups."""
-    fields = {**TINY, "num_labels": 1}
+@pytest.mark.parametrize("heads", [4, 2])
+def test_listwise_step_matches_jax_xla_on_dp2_tp2(heads):
+    """One listwise rerank step (SGD 0.1) on dp2 x tp2, at heads of 32 and
+    of 64, against the JAX make_rerank_train_step with attention_impl="xla"
+    on the same mesh (its pallas_tp path crashes, below): loss within 1e-5,
+    parameters within atol 2e-5 and rtol 2e-4. The data axis averages here:
+    the listwise loss is a mean over each rank's own groups."""
+    fields = {**TINY, "num_labels": 1, "num_heads": heads}
     cfg, jcfg = ModelConfig(**fields), JaxModelConfig(**fields)
     batch = _group_batch(seed=8)
     losses, want = _jax_step(jax_rerank_ft.make_rerank_train_step, jcfg, _jax_mesh(2, 2), 9,

@@ -54,7 +54,8 @@ TINY = dict(hidden_size=128, num_layers=2, num_heads=4, intermediate_size=512,
 
 
 def _cfgs(**kw):
-    """The same small configuration in both packages (4 heads of 32)."""
+    """The same small configuration in both packages (4 heads of 32 unless
+    ``num_heads`` says otherwise)."""
     fields = dict(name="tiny", **{**TINY, **kw})
     return ModelConfig(**fields), JaxModelConfig(**fields)
 
@@ -104,24 +105,26 @@ def _attn_inputs(seed: int, b=3, s=48, h=128):
     return q, k, v, do, bias
 
 
+@pytest.mark.parametrize("heads,s", [(4, 48), (2, 64), (2, 37)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_bwd_plain_matches_pallas_vjp(dtype):
+def test_flash_attention_bwd_plain_matches_pallas_vjp(dtype, heads, s):
     """flash_attention_bwd_plain against jax.vjp of the Pallas kernel
-    (_flash_bwd, interpret mode) at S = 48 (not a multiple of any tile),
-    4 heads of 32, padded keys and one fully masked row. f32: within 2e-5
-    of each gradient's largest value (the sums run in another order).
+    (_flash_bwd, interpret mode) at 4 heads of 32, S = 48 (not a multiple
+    of any tile), and at 2 heads of 64 (the bge-base head width), S = 64
+    and a ragged S = 37; padded keys and one fully masked row. f32: within
+    2e-5 of each gradient's largest value (the sums run in another order).
     bf16: both round P^T and dS to bf16 at the same points, so the same
     values up to a one-ulp flip of a rounded element: within 2^-7 of each
     gradient's largest value. Masked keys get exact zeros in both."""
-    q, k, v, do, bias = _attn_inputs(seed=1)
+    q, k, v, do, bias = _attn_inputs(seed=1, s=s)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
     jbias = jnp.asarray(bias)[:, None, None, :]
-    _, vjp = jax.vjp(lambda a, b_, c: jax_flash_attention(a, b_, c, jbias, num_heads=4,
+    _, vjp = jax.vjp(lambda a, b_, c: jax_flash_attention(a, b_, c, jbias, num_heads=heads,
                                                           interpret=True), jq, jk, jv)
     want = vjp(jdo)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
-    got = fa.flash_attention_bwd_plain(tq, tk, tv, torch.from_numpy(bias), tdo, num_heads=4)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, torch.from_numpy(bias), tdo, num_heads=heads)
     rtol = 2e-5 if dtype == "float32" else 2.0 ** -7
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == tdt and g.shape == q.shape
@@ -221,17 +224,17 @@ def test_k10_scratch_holds_two_floats_per_query_row():
 
 
 def test_k10_wrapper_checks_what_the_kernel_takes():
-    """flash_attention_bwd on non-CPU tensors: shapes, head width and dtype
-    are checked before the device, and a tensor off CUDA raises (no
-    fallback to the plain version); no launch is counted."""
+    """flash_attention_bwd on non-CPU tensors: shapes, head width (32 or
+    64; 96 here) and dtype are checked before the device, and a tensor off
+    CUDA raises (no fallback to the plain version); no launch is counted."""
     meta = dict(device="meta")
     x = torch.empty(2, 65, 192, dtype=torch.bfloat16, **meta)
     bias = torch.zeros(2, 65, **meta)
     before = fa.BWD_LAUNCHES
     with pytest.raises(ValueError, match="one \\[B,S,H\\] shape"):
         fa.flash_attention_bwd(x, x[:, :64], x, bias, x, num_heads=6)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        fa.flash_attention_bwd(x, x, x, bias, x, num_heads=3)
+    with pytest.raises(ValueError, match="head_dim 32 or 64, got H=192 over 2 heads"):
+        fa.flash_attention_bwd(x, x, x, bias, x, num_heads=2)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_attention_bwd(x, x.float(), x, bias, x, num_heads=6)
     with pytest.raises(ValueError, match="CUDA"):
@@ -404,15 +407,17 @@ def _jax_rerank_loss_fn(jcfg):
     return loss_fn
 
 
+@pytest.mark.parametrize("heads", [4, 2])
 @pytest.mark.parametrize("pooling", ["mean", "cls"])
-def test_contrastive_step_loss_and_grads_match_jax(pooling):
+def test_contrastive_step_loss_and_grads_match_jax(pooling, heads):
     """make_train_step's loss and every leaf's gradient (CPU, f32, the
     plain path) against jax.value_and_grad of the JAX step's loss on the
     XLA path, with the same seeded weights (the two random_params draw the
-    same numbers) and a padded batch: loss within 1e-5, each leaf within
-    2e-4 of its largest value plus 1e-6 of the largest gradient in the
-    tree. The pooler, which the loss never reaches, gets exact zeros."""
-    cfg, jcfg = _cfgs()
+    same numbers) and a padded batch, at heads of 32 and of 64: loss within
+    1e-5, each leaf within 2e-4 of its largest value plus 1e-6 of the
+    largest gradient in the tree. The pooler, which the loss never reaches,
+    gets exact zeros."""
+    cfg, jcfg = _cfgs(num_heads=heads)
     params = random_params(cfg, seed=0)
     batch = _pair_batch(seed=8)
     step, init_state = make_train_step(cfg, device="cpu", pooling=pooling)
@@ -427,11 +432,13 @@ def test_contrastive_step_loss_and_grads_match_jax(pooling):
     assert all((t == 0).all() for t in grads["pooler"].values())
 
 
-def test_rerank_step_loss_and_grads_match_jax():
+@pytest.mark.parametrize("heads", [4, 2])
+def test_rerank_step_loss_and_grads_match_jax(heads):
     """make_rerank_train_step against jax.value_and_grad of the JAX listwise
     loss (XLA path, f32) on [B=2, G=3, S=16] groups with segment ids and
-    padding: loss within 1e-5, each leaf within 2e-4 of its largest value."""
-    cfg, jcfg = _cfgs(num_labels=1)
+    padding, at heads of 32 and of 64: loss within 1e-5, each leaf within
+    2e-4 of its largest value."""
+    cfg, jcfg = _cfgs(num_labels=1, num_heads=heads)
     params = random_params(cfg, seed=1)
     batch = _group_batch(seed=9)
     step, init_state = make_rerank_train_step(cfg, device="cpu")
@@ -444,9 +451,11 @@ def test_rerank_step_loss_and_grads_match_jax():
     _assert_leafwise_close(grads, jgrads, 2e-4, "rerank", atol=_grad_atol(jgrads))
 
 
+@pytest.mark.parametrize("heads", [4, 2])
 @pytest.mark.parametrize("trainer", ["contrastive", "rerank"])
-def test_two_steps_match_the_jax_steps(trainer):
-    """Two full steps of each trainer (loss, gradients, AdamW at lr 1e-3)
+def test_two_steps_match_the_jax_steps(trainer, heads):
+    """Two full steps of each trainer (loss, gradients, AdamW at lr 1e-3),
+    at 4 heads of 32 and at 2 heads of 64 (the bge-base head width),
     against the JAX package's own step on a 1x1 mesh with the XLA
     attention: the losses within 1e-5, and each leaf's movement over the
     two steps within 1e-3 of the JAX movement's norm, plus two f32 ulps of
@@ -459,14 +468,14 @@ def test_two_steps_match_the_jax_steps(trainer):
     in either package (k_b; the classifier bias under the listwise
     loss)."""
     if trainer == "contrastive":
-        cfg, jcfg = _cfgs()
+        cfg, jcfg = _cfgs(num_heads=heads)
         batches = [_pair_batch(seed=10), _pair_batch(seed=11)]
         step, init_state = make_train_step(cfg, device="cpu",
                                            optimizer=contrastive.adamw(1e-3))
         jstep, jinit = jax_contrastive.make_train_step(
             jcfg, _mesh_1x1(), optimizer=optax.adamw(1e-3), attention_impl="xla")
     else:
-        cfg, jcfg = _cfgs(num_labels=1)
+        cfg, jcfg = _cfgs(num_labels=1, num_heads=heads)
         batches = [_group_batch(seed=12), _group_batch(seed=13)]
         step, init_state = make_rerank_train_step(cfg, device="cpu",
                                                   optimizer=contrastive.adamw(1e-3))

@@ -185,6 +185,18 @@ def test_k2_block_fits_shared_memory(head_dim, s, consumers):
     assert head_dim in fa.FWD_HEAD_DIMS
 
 
+@pytest.mark.parametrize("head_dim,smem,blocks", [(32, 35328, 6), (64, 68096, 3)])
+def test_k10_block_fits_shared_memory(head_dim, smem, blocks):
+    """K10's block at both head widths: two resident 64-row tiles, a ring of
+    3 stages of two tiles and a query tile's statistics, 1 KB of
+    alignment; above 48 KB (head_dim 64) the launch opts in. Six blocks an
+    SM at head_dim 32, three at 64, by shared memory."""
+    assert fa.bwd_smem_bytes(head_dim) == smem
+    assert smem <= topk.SMEM_BLOCK_LIMIT
+    assert blocks * (smem + 1024) <= 233472 < (blocks + 1) * (smem + 1024)
+    assert head_dim in fa.BWD_HEAD_DIMS
+
+
 def _ffn_cuda_constants():
     """csrc/fused_ffn.cu's ``constexpr int`` constants, evaluated in order."""
     src = (Path(ffn.__file__).parents[1] / "csrc" / "fused_ffn.cu").read_text()
@@ -329,8 +341,8 @@ def test_int8_sweep_sums_stay_exact_at_d768():
 
 def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
     """On non-CPU tensors the wrappers check widths before the device: K2
-    head_dim 128, K10 head_dim 64, K3 hidden 1,024, K4 D 1,024; no launch
-    is counted and nothing falls back to a plain version."""
+    and K10 head_dim 128, K3 hidden 1,024, K4 D 1,024; no launch is
+    counted and nothing falls back to a plain version."""
     meta = dict(device="meta", dtype=torch.bfloat16)
     before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, topk.LAUNCHES["packed_topk_fused"])
     x = torch.empty(2, 65, 256, **meta)
@@ -338,8 +350,8 @@ def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
     with pytest.raises(ValueError, match=r"\(K2\) takes head_dim 32 or 64"):
         fa.flash_attention(x, x, x, bias, num_heads=2)
     x = torch.empty(2, 65, 768, **meta)
-    with pytest.raises(ValueError, match=r"\(K10\) takes head_dim 32, got H=768 over 12"):
-        fa.flash_attention_bwd(x, x, x, torch.zeros(2, 65, device="meta"), x, num_heads=12)
+    with pytest.raises(ValueError, match=r"\(K10\) takes head_dim 32 or 64, got H=768 over 6"):
+        fa.flash_attention_bwd(x, x, x, torch.zeros(2, 65, device="meta"), x, num_heads=6)
     x = torch.empty(8, 1024, **meta)
     w1, w2 = torch.empty(1024, 4096, **meta), torch.empty(4096, 1024, **meta)
     with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
@@ -366,21 +378,23 @@ def test_exact_backend_refuses_a_wide_index_on_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("maker", [contrastive.make_train_step, rerank_ft.make_rerank_train_step])
-@pytest.mark.parametrize("hidden,heads,refused", [(768, 12, True), (768, 24, False),
-                                                  (384, 12, False)])
+@pytest.mark.parametrize("hidden,heads,refused", [(768, 6, True), (768, 12, False),
+                                                  (768, 24, False), (384, 12, False)])
 def test_training_on_cuda_refuses_head_dims_k10_does_not_take(monkeypatch, maker, hidden, heads,
                                                                refused):
     """make_train_step and make_rerank_train_step on a CUDA device refuse
-    head_dim 64 up front, naming K10 (K2 would run the forward and K10
-    raise in the middle of the first backward); head_dim 32 passes the
-    check, and the CPU builds a step at every width."""
+    head_dim 128 up front, naming K10 (K2 would refuse the forward, and a
+    wider K2 would leave K10 to raise in the middle of the first
+    backward); head_dim 64 (bge-base) and 32 pass the check, and the CPU
+    builds a step at every width."""
     cfg = ModelConfig(hidden_size=hidden, num_layers=1, num_heads=heads,
                       intermediate_size=4 * hidden, vocab_size=64, max_position=32)
     module = contrastive if maker is contrastive.make_train_step else rerank_ft
     monkeypatch.setattr(module, "resolve_device", lambda device=None: torch.device("cuda"))
     if refused:
-        with pytest.raises(NotImplementedError, match=r"head_dim 64, but the attention "
-                                                      r"backward \(K10\) takes head_dim 32"):
+        with pytest.raises(NotImplementedError, match=r"head_dim 128, but the attention "
+                                                      r"backward \(K10\) takes head_dim "
+                                                      r"32 or 64 only"):
             maker(cfg)
     else:
         contrastive.check_train_widths(cfg, torch.device("cuda"))
@@ -488,4 +502,154 @@ def test_wide_runtime_same_children_as_jax(wide_runtimes, question):
     jtexts = [c["text"] for c in jout["top_children_chunks"]]
     ttexts = [c["text"] for c in tout["top_children_chunks"]]
     assert ttexts and ttexts == jtexts
+    assert tout["answer"] == jout["answer"]
+
+
+# ------------------------------- the feedback fine-tune at heads of 64
+
+CE64 = dict(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=512,
+            vocab_size=30522, max_position=512)     # 2 heads of 64, the bge-base head width
+FEEDBACK_ARGS = dict(steps=3, batch=4, group=3, seq=32, lr=1e-3)
+
+
+def _seed_feedback(db):
+    """Each golden question's result cached with three corpus sentences,
+    rated 5 (even questions: positives) or 1 (odd: hard negatives)."""
+    sentences = [t.strip() for text in CORPUS.values() for t in dict.fromkeys(text.split(". "))
+                 if t.strip()]
+    for i, question in enumerate(GOLDEN):
+        chunks = [{"text": sentences[(3 * i + j) % len(sentences)]} for j in range(3)]
+        db.cache_put(f"hash-{i}", question, {"top_children_chunks": chunks})
+        db.store_feedback(query=question, rating=5 if i % 2 == 0 else 1)
+    db.flush_writes()
+
+
+def _jax_train_rerank_script():
+    """The JAX package's scripts/train_rerank.py as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "train_rerank.py"
+    spec = importlib.util.spec_from_file_location("jax_train_rerank_script", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def tuned_rerankers(tmp_path_factory):
+    """The port's ``train_rerank.py --feedback-db DB --model-path CKPT`` on
+    the CPU and the JAX package's ``scripts/train_rerank.py`` feedback mode
+    (its finetune_from_feedback on a 1 x 1 mesh, f32), from the same 2-layer
+    head_dim-64 cross-encoder checkpoint and the same seeded feedback.
+    Returns (tmp dir, the port's JSON line, the JAX script's)."""
+    import contextlib
+    import io
+    from argparse import Namespace
+
+    from financial_rag_tpu.store.feedback_db import FeedbackDatabase as JaxFeedbackDatabase
+    from financial_rag_tpu_torch.scripts import train_rerank
+    from financial_rag_tpu_torch.store.feedback_db import FeedbackDatabase
+    from jax.sharding import Mesh
+
+    tmp = tmp_path_factory.mktemp("tuned")
+    _write_checkpoint(tmp / "ce64", CE64, seed=41, classifier=True)
+    _seed_feedback(FeedbackDatabase(tmp / "port.db"))
+    _seed_feedback(JaxFeedbackDatabase(tmp / "jax.db"))
+    argv = ["--feedback-db", str(tmp / "port.db"), "--model-path", str(tmp / "ce64"),
+            "--out-dir", str(tmp / "port_tuned"), "--device", "cpu",
+            *(f"--{k}={v}" for k, v in FEEDBACK_ARGS.items())]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert train_rerank.main(argv) == 0
+    port = json.loads(out.getvalue().strip().splitlines()[-1])
+    script = _jax_train_rerank_script()
+    args = Namespace(feedback_db=str(tmp / "jax.db"), model_path=str(tmp / "ce64"),
+                     out_dir=str(tmp / "jax_tuned"), **FEEDBACK_ARGS)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert script.finetune_from_feedback(args, None, mesh, False) == 0
+    jax_line = json.loads(out.getvalue().strip().splitlines()[-1])
+    return tmp, port, jax_line
+
+
+def test_feedback_finetune_at_head_dim_64_matches_the_jax_script(tuned_rerankers):
+    """The same mined groups and steps; loss_first and loss_last within
+    2e-4 of the JAX script's (which rounds them to 4 decimals, 5e-5; the
+    two packages' f32 steps agree within 1e-5 each,
+    tests/test_torch_training.py); each leaf's movement over the three
+    AdamW steps within 5e-3 of the JAX movement's norm plus two f32 ulps of
+    the values, and the weights moved. As in
+    test_two_steps_match_the_jax_steps, Adam divides by sqrt(v), so an
+    element whose gradients nearly cancel moves by a part of lr that f32
+    rounding sets (three steps here: up to 1.8e-3 of a leaf's norm, the
+    pooler bias; a wrong or lost gradient moves it by O(1)), and the
+    leaves whose gradient is zero up to rounding are left out (k_b; the
+    classifier bias under the listwise loss)."""
+    tmp, port, jline = tuned_rerankers
+    assert port["mode"] == jline["mode"] == "feedback"
+    assert (port["triples"], port["groups"], port["steps"]) == (
+        jline["triples"], jline["groups"], jline["steps"]) == (12, 6, 3)
+    for key in ("loss_first", "loss_last"):
+        assert abs(port[key] - jline[key]) <= 2e-4, (key, port[key], jline[key])
+    got, want, start = (np.load(tmp / d / "model.npz") for d in ("port_tuned", "jax_tuned", "ce64"))
+    assert set(got.files) == set(want.files)
+    moved = 0.0
+    for name in want.files:
+        if name.endswith("k_b") or name == "classifier/b":
+            continue
+        p0 = start[name]
+        step, jstep = got[name] - p0, want[name] - p0
+        ulps = 2 * np.linalg.norm(np.spacing(np.abs(p0) + 1e-3 * 2))   # f32 storage
+        assert np.linalg.norm(step - jstep) <= 5e-3 * np.linalg.norm(jstep) + ulps, name
+        moved = max(moved, float(np.abs(step).max()))
+    assert moved > 1e-4
+    cfg = json.loads((tmp / "port_tuned" / "config.json").read_text())
+    assert (cfg["hidden_size"], cfg["num_attention_heads"]) == (128, 2)
+
+
+@pytest.fixture(scope="module")
+def tuned_runtimes(tuned_rerankers, tmp_path_factory):
+    """The port's tuned checkpoint as the reranker of both packages'
+    runtimes on the CPU, beside small seeded encoders, over CORPUS."""
+    tmp, port, _ = tuned_rerankers
+    work = tmp_path_factory.mktemp("tuned_serve")
+    mp = pytest.MonkeyPatch()
+    mp.delenv("FRAG_PLATFORM", raising=False)
+    mp.setenv("JAX_COMPILATION_CACHE_DIR", str(work / "jax_cache"))
+    ckpt = work / "ckpt"
+    _write_checkpoint(ckpt / "bge-base", CROSS, seed=51)
+    _write_checkpoint(ckpt / "gte-base", CROSS, seed=52)
+    src = work / "src"
+    src.mkdir()
+    for doc_id, text in CORPUS.items():
+        (src / f"{doc_id}.json").write_text(json.dumps({"blocks": [{"content": text, "page": 0}]}))
+    runtimes = []
+    for cls, rt_cls, kw in ((JaxFrameworkConfig, JaxRuntime, {}),
+                            (FrameworkConfig, Runtime, {"device": "cpu"})):
+        cfg = _config(cls, ckpt)
+        cfg.rerank.model_path = port["checkpoint"]
+        rt = rt_cls.build(cfg, data_dir=work / cls.__module__.split(".")[0], **kw)
+        for doc_id in CORPUS:
+            f = src / f"{doc_id}.json"
+            assert "error" not in rt.pipeline.ingest_extracted_json(
+                f, doc_id, source_path=str(f), source_mtime=0.0)
+        runtimes.append(rt)
+    yield runtimes
+    mp.undo()
+
+
+@pytest.mark.parametrize("question", GOLDEN)
+def test_tuned_reranker_serves_in_the_port_as_in_jax(tuned_runtimes, question):
+    """The checkpoint the port's feedback fine-tune wrote (2 heads of 64)
+    loads in the port's runtime as its cross-encoder and ranks as the JAX
+    runtime does with the same checkpoint: the same top children, in
+    order, and the same answer."""
+    jrt, trt = tuned_runtimes
+    model = getattr(trt.engine.reranker.model, "inner", trt.engine.reranker.model)
+    assert model.config.hidden_size == 128 and model.config.num_heads == 2
+    jout, tout = jrt.engine.query(question), trt.engine.query(question)
+    assert jout["success"] and tout["success"]
+    ttexts = [c["text"] for c in tout["top_children_chunks"]]
+    assert ttexts and ttexts == [c["text"] for c in jout["top_children_chunks"]]
     assert tout["answer"] == jout["answer"]

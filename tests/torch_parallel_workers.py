@@ -50,7 +50,7 @@ def attention_tp(rank, world, device, q, k, v, do, bias, num_heads, tp):
     lq, lk, lv = (torch.from_numpy(np.ascontiguousarray(a[rows, :, cols])).requires_grad_()
                   for a in (q, k, v))
     out = fa.flash_attention_tp(lq, lk, lv, torch.from_numpy(bias[rows]), num_heads=num_heads,
-                                mesh=mesh)
+                                mesh=mesh, head_dim=q.shape[2] // num_heads)
     grads = torch.autograd.grad(out, (lq, lk, lv),
                                 torch.from_numpy(np.ascontiguousarray(do[rows, :, cols])))
     return {"coords": (d, m), "out": out.detach().numpy(),
