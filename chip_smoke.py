@@ -155,12 +155,27 @@ Phases, each printing one JSON line:
               seeded 12-layer cross-encoder whose output then serves the 9
               golden questions as the reranker, and scripts/train_uplift.py
               --hidden 768 (its f32 D-768 eval index on K4).
-18. the ``kernels`` line (K10 and K11 with their head_dim-64 case as
+18. cli    -- the operator CLI in process on the card, each script through
+              its ``main(argv)`` under LLM_PROVIDER=local: a seeded
+              random-weight Qwen2-0.5B-shape checkpoint whose tokenizer.json
+              is the committed byte-level BPE fixture
+              (tests/data/bpe/qwen2_style, its vocabulary padded to the
+              model's 151,936 ids by tokens no merge reaches) and a ChatML
+              template; ingest_all of phase 4's corpus into a fresh data
+              dir, check_collections (its parents and children must be
+              ingest_all's), test_full_flow, pc_retrieval_smoke,
+              pc_llm_answer (every answer the model's, none NullLLM's),
+              recall_eval; every script returns 0 and builds its runtime
+              on the card, the reader's ids on the fixture's probe strings
+              are the ids tokenizers wrote there, K1-K4 and K9 launch;
+              prints the phase's seconds, the reader's encode ms of a
+              4,096-token prompt and recall_eval's value.
+19. the ``kernels`` line (K10 and K11 with their head_dim-64 case as
               ``d64`` and its launches as ``launches_d64``), then the last
               line ``{"ok": true, "device": ...}``.
 
 Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
-part of 10b, 11, and each part of 14, 16 and 17) sets every launch counter to 0 just before it
+part of 10b, 11, each part of 14, 16 and 17, and 18) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
@@ -390,13 +405,21 @@ def exp_per_s() -> float:
     return 16 * 132 * float(smi.stdout.split()[0]) * 1e6
 
 
+def bound_terms(bytes_moved: float, ops: float, op_type: str, exps: float = 0.0) -> dict:
+    """The bytes at the memory rate, the operations at their peak rate and
+    the exponentials at the SFUs' rate, each in ms."""
+    return {"bytes_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / PEAK_OPS_PER_S[op_type] * 1e3,
+            "exps_ms": exps / exp_per_s() * 1e3 if exps else 0.0}
+
+
 def bound(bytes_moved: float, ops: float, op_type: str, exps: float = 0.0):
     """The larger of the bytes at the memory rate and the operations at
     their peak rate; ``exps`` exponentials at the SFUs' rate count among the
     operations."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / PEAK_OPS_PER_S[op_type], exps / exp_per_s() if exps else 0.0) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t = bound_terms(bytes_moved, ops, op_type, exps)
+    t_ops = max(t["ops_ms"], t["exps_ms"])
+    return (t["bytes_ms"], "bytes") if t["bytes_ms"] >= t_ops else (t_ops, "operations")
 
 
 def attention_fwd_bound(torch, mask, heads: int, head_dim: int = 32):
@@ -1157,9 +1180,12 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
     one fully masked row. Each shape up to S=128 carries the mask-ignored
     control; every shape is launched twice and must give the same bits.
     The bound counts q, k, v, dO and the bias read once and dq, dk, dv
-    written once, and the five S x S x head_dim products of the gradient
-    over the live keys only (a masked key adds exact zeros). At head_dim 64
-    (WIDE_BWD_SHAPES) the cases are named ``flash_attention_bwd@64``."""
+    written once, the five S x S x head_dim products of the gradient and
+    one exponential a score (the probabilities recomputed), over the live
+    keys only (a masked key adds exact zeros); a ``kernel_bound`` line gives
+    each term and the live share of the pairs, since the kernel's header
+    counts a full mask. At head_dim 64 (WIDE_BWD_SHAPES) the cases are
+    named ``flash_attention_bwd@64``."""
     from financial_rag_tpu_torch.ops import flash_attention as fa
 
     NH, hd = 12, head_dim
@@ -1172,6 +1198,10 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
         mask = padded_mask(b, s, fully_masked_row=True)
         bias = torch.where(mask > 0, 0.0, -1e9).float()
         live_pairs = s * int(mask.sum().item()) + s * s   # the masked row's keys all count
+        terms = (7 * b * s * H * 2 + b * s * 4, 5 * 2 * NH * hd * live_pairs, "bf16",
+                 NH * live_pairs)
+        emit({"phase": "kernel_bound", "name": name, "shape": f"B={b},S={s},H={H}",
+              "live_share": live_pairs / (b * s * s), **bound_terms(*terms)})
         control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
             q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH)) if s <= 128 else None
         run = (lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd(
@@ -1180,8 +1210,7 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
                       lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd_plain(
                           q, k, v, bias, do, num_heads=NH),
                       SdpaBackward(torch, F, q, k, v, bias, do, NH),
-                      attention_bwd_cmp(NH, control, again=run),
-                      bound(7 * b * s * H * 2 + b * s * 4, 5 * 2 * NH * hd * live_pairs, "bf16")))
+                      attention_bwd_cmp(NH, control, again=run), bound(*terms)))
     return cases
 
 
@@ -1528,14 +1557,41 @@ def prompt_words():
     return re.findall(r"\w+|[^\w\s]+", text)
 
 
-def write_llm_checkpoint(dest: Path, hf: dict, seed: int, device="cuda") -> int:
+# the committed byte-level BPE tokenizer of the Qwen2 family (written by
+# tests/data/bpe/make_fixtures.py with the tokenizers package)
+BPE_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "bpe" / "qwen2_style"
+
+
+def write_bpe_tokenizer(dest: Path, fixture: Path, vocab_size: int) -> int:
+    """The fixture's tokenizer.json with its vocabulary padded to
+    ``vocab_size`` ids by tokens that no merge reaches (``Ġw{id}``: encoding
+    is unchanged, and every id a random-weight model emits decodes to a
+    word), and its tokenizer_config.json. Returns the eos id (<|im_end|>)."""
+    spec = json.loads((fixture / "tokenizer.json").read_text(encoding="utf-8"))
+    vocab = spec["model"]["vocab"]
+    taken = set(vocab.values()) | {t["id"] for t in spec["added_tokens"]}
+    for i in range(vocab_size):
+        if i not in taken:
+            check(f"Ġw{i}" not in vocab, f"padding token Ġw{i} is in the fixture's vocabulary")
+            vocab[f"Ġw{i}"] = i
+    (dest / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    shutil.copy(fixture / "tokenizer_config.json", dest / "tokenizer_config.json")
+    return next(t["id"] for t in spec["added_tokens"] if t["content"] == "<|im_end|>")
+
+
+def write_llm_checkpoint(dest: Path, hf: dict, seed: int, device="cuda",
+                         bpe_fixture: Path | None = None) -> int:
     """A seeded random-weight Qwen2/Llama checkpoint in HF layout: config.json,
     a bf16 model.safetensors (normal(0.02) matrices and biases, unit norms,
-    the HF initialisation) and the WordLevel tokenizer. Returns the eos id."""
+    the HF initialisation) and the WordLevel tokenizer, or ``bpe_fixture``'s
+    tokenizer padded to the vocabulary. Returns the eos id."""
     import torch
 
     dest.mkdir(parents=True, exist_ok=True)
-    eos = write_wordlevel_tokenizer(dest, prompt_words(), hf["vocab_size"])
+    if bpe_fixture is None:
+        eos = write_wordlevel_tokenizer(dest, prompt_words(), hf["vocab_size"])
+    else:
+        eos = write_bpe_tokenizer(dest, bpe_fixture, hf["vocab_size"])
     hf = {**hf, "eos_token_id": eos, "bos_token_id": eos}
     (dest / "config.json").write_text(json.dumps(hf))
     gen = torch.Generator(device=device)
@@ -3174,6 +3230,175 @@ def phase_llm(torch, cfg, work: Path, seed: int):
     return rt, ckpt, launches
 
 
+CLI_SCRIPTS = ("ingest_all", "check_collections", "test_full_flow", "pc_retrieval_smoke",
+               "pc_llm_answer", "recall_eval")
+CLI_PATH = LLM_PATH     # K1-K4 on ingest and queries, K9 on every prefill
+ENCODE_PROMPT_TOKENS = 4096   # LocalLLM's max_prompt_tokens
+
+
+def check_probes(tok, fixture: Path) -> int:
+    """The reader's ids and decoded text on the fixture's probe strings must
+    be the ones tokenizers wrote into probes.json. Returns the probe count."""
+    probes = json.loads((fixture / "probes.json").read_text(encoding="utf-8"))
+    for p in probes:
+        ids = tok.encode(p["text"]).ids
+        check(ids == p["ids"], f"cli: reader ids of {p['text']!r}: {ids} != {p['ids']}")
+        check(tok.decode(ids) == p["decoded"]
+              and tok.decode(ids, skip_special_tokens=False) == p["decoded_with_special"],
+              f"cli: reader decode of {p['text']!r}")
+    return len(probes)
+
+
+def encode_ms(tok_path: Path):
+    """(tokens, first ms, steady ms) of one prompt of at least
+    ENCODE_PROMPT_TOKENS tokens through a fresh reader (the first call fills
+    its word caches; steady is the median of 5 more)."""
+    from financial_rag_tpu_torch.tokenizer.hf_json import HFTokenizer
+
+    tok = HFTokenizer.from_file(tok_path)
+    docs = list(GOLDEN_CORPUS.values())
+    text = ""
+    while len(tok.encode(text).ids) < ENCODE_PROMPT_TOKENS:
+        text += docs[len(text) % len(docs)]
+    tok = HFTokenizer.from_file(tok_path)
+    t0 = time.perf_counter()
+    n = len(tok.encode(text).ids)
+    first = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tok.encode(text)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return n, first, statistics.median(times)
+
+
+def run_cli_script(name: str, argv) -> tuple:
+    """financial_rag_tpu_torch.scripts.<name>.main(argv) in this process:
+    (return code, stdout, seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"financial_rag_tpu_torch.scripts.{name}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main([str(a) for a in argv])
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def phase_cli(torch, work: Path, seed: int):
+    """The operator CLI on the card (module docstring, phase 18). Returns
+    the phase's launches."""
+    from financial_rag_tpu_torch.llm.local_llm import LocalLLM
+    from financial_rag_tpu_torch.runtime import Runtime
+    from financial_rag_tpu_torch.tokenizer.hf_json import HFTokenizer
+
+    t_phase = time.perf_counter()
+    ckpt = work / "qwen2-0.5b-bpe"
+    # phase 11's weights (its seed), this tokenizer
+    write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10, bpe_fixture=BPE_FIXTURE)
+    t_load = time.perf_counter()         # the process's first reader builds the \p{..} classes
+    fixture_tok = HFTokenizer.from_file(BPE_FIXTURE / "tokenizer.json")
+    reader_load_s = time.perf_counter() - t_load
+    probes = check_probes(fixture_tok, BPE_FIXTURE)
+    check_probes(HFTokenizer.from_file(ckpt / "tokenizer.json"), BPE_FIXTURE)
+    prompt_tokens, encode_first_ms, encode_steady_ms = encode_ms(ckpt / "tokenizer.json")
+
+    data, logs = work / "data_cli", work / "cli_logs"
+    env = {"LLM_PROVIDER": "local", "LLM_CHECKPOINT": str(ckpt), "LLM_DTYPE": "bfloat16",
+           "LLM_MAX_NEW_TOKENS": str(LLM_SMOKE_NEW_TOKENS)}
+    saved = {k: os.environ.get(k) for k in (*env, "FRAG_PLATFORM")}
+    built = []
+    build = Runtime.build.__func__
+
+    def recording_build(cls, *a, **kw):
+        rt = build(cls, *a, **kw)
+        built.append(rt)
+        return rt
+
+    plan = [("ingest_all", ["--dir", work / "extracted", "--data-dir", data]),
+            ("check_collections", ["--data-dir", data]),
+            ("test_full_flow", ["--data-dir", data, "--log-dir", logs]),
+            ("pc_retrieval_smoke", ["--data-dir", data]),
+            ("pc_llm_answer", ["--dir", work / "extracted", "--data-dir", data,
+                               "--log-dir", logs]),
+            ("recall_eval", ["--out", logs / "RECALL.json"])]
+    outputs, seconds, runtimes = {}, {}, {}
+    os.environ.update(env)
+    os.environ.pop("FRAG_PLATFORM", None)       # the scripts' default device: the card
+    Runtime.build = classmethod(recording_build)
+    reset_launches()
+    try:
+        for name, argv in plan:
+            n_built = len(built)
+            rc, outputs[name], seconds[name] = run_cli_script(name, argv)
+            check(rc == 0, f"cli: {name} returned {rc}: {outputs[name][-800:]}")
+            runtimes[name] = built[n_built:]
+        launches = read_launches()
+    finally:
+        Runtime.build = classmethod(build)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check_path_launched(CLI_PATH, launches, "cli path")
+    for name, rts in runtimes.items():
+        check(all(rt.device.type == "cuda" for rt in rts),
+              f"cli: {name} built a runtime on {[str(rt.device) for rt in rts]}")
+
+    # check_collections counts what ingest_all reported
+    def counts(text, pattern):
+        return [int(m.replace(",", "")) for m in re.findall(pattern, text)]
+    ingested, checked = outputs["ingest_all"], outputs["check_collections"]
+    n_docs = len(list((work / "extracted").glob("*.json")))
+    check(f"ingested {n_docs} documents (0 failed)" in ingested,
+          f"cli: ingest_all: {ingested[-400:]}")
+    vectors = counts(ingested, r"collection \S+: (\d+) vectors")
+    parents = counts(ingested, r"parents\.db: (\d+) parents")
+    check(len(vectors) == 2 and vectors[0] == vectors[1] >= MIN_CHILDREN and parents,
+          f"cli: ingest_all's counts {vectors} {parents}")
+    check(counts(checked, r": (\d+) vectors \(capacity") == vectors
+          and counts(checked, r"parents\.db: (\d+) parents") == parents
+          and counts(checked, r"children_meta\.db: (\d+) children") == vectors[:1],
+          f"cli: check_collections does not count what ingest_all reported: {checked}")
+
+    # the local LLM loaded, and every answer is the model's
+    answers = []
+    for name, pattern in (("test_full_flow", "fullflow_*.json"),
+                          ("pc_llm_answer", "qa_llm_payload_*.json")):
+        llm = getattr(runtimes[name][0].engine.llm, "inner", None)
+        check(isinstance(llm, LocalLLM) and llm.available() and not llm._failed,
+              f"cli: {name}'s LLM is {type(llm).__name__}, loaded "
+              f"{getattr(llm, '_loaded', None)}, failed {getattr(llm, '_failed', None)}")
+        check(llm._tok.__class__ is HFTokenizer and llm._chat == "chatml",
+              f"cli: {name}'s LLM reads its tokenizer with {type(llm._tok).__name__}, "
+              f"template {llm._chat}")
+        found = [json.loads(f.read_text())["answer"] for f in sorted(logs.glob(pattern))]
+        check(len(found) == 5, f"cli: {name} wrote {len(found)} answers")
+        for a in found:
+            check(bool(a) and not a.startswith(DEGRADED), f"cli: {name}: degraded answer {a!r:.160}")
+        answers += found
+    check("parent " in outputs["pc_retrieval_smoke"], "cli: pc_retrieval_smoke found no parent")
+    recall = json.loads(outputs["recall_eval"].strip().splitlines()[-1])
+    check(recall["backend"] == "cuda" and 0.0 < recall["value"] <= 1.0,
+          f"cli: recall_eval {recall}")
+    emit({"phase": "cli", "seconds": time.perf_counter() - t_phase,
+          "script_s": seconds, "children": vectors[0], "parents": parents[0],
+          "tokenizer": "byte-level BPE fixture qwen2_style, padded to "
+                       f"{QWEN2_05B['vocab_size']} ids", "probes": probes,
+          "reader_first_load_s": reader_load_s,
+          "encode_prompt_tokens": prompt_tokens, "encode_first_ms": encode_first_ms,
+          "encode_ms": encode_steady_ms, "recall_eval_value": recall["value"],
+          "recall_eval_n_chunks": recall["n_chunks"], "answers": len(answers),
+          "answer_sample": answers[0][:160], "launches": launches})
+    built.clear()
+    runtimes.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_llm_profile(torch, rt):
     """The llm runtime under the profiler, 2 questions: each generation is
     tens of eager verify steps of ~1,450 kernels, so more would flood the
@@ -4093,14 +4318,15 @@ def main(argv=None) -> int:
             launches["topk_matmul"] = backend_launches["topk_matmul"]
             launches["bucketed_topk"] = sharded_launches["bucketed_topk"]
             launches["probe_scores"] = ivf_launches["probe_scores"]
-        train_launches = phase_train(torch, args.seed)
-        want_loss, want, _, _ = phase_train_parity(torch, args.seed)
-        launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
-        launches["flash_attention_tp"], tp_bwd = phase_train_tp(torch, args.seed, info,
-                                                                 want_loss, want)
-        k10_d64, (k11_d64, k11_bwd_d64) = phase_train_wide(torch, args.seed, info)
-        launches["flash_attention_tp"] += k11_d64
-        tp_bwd += k11_bwd_d64
+            train_launches = phase_train(torch, args.seed)
+            want_loss, want, _, _ = phase_train_parity(torch, args.seed)
+            launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+            launches["flash_attention_tp"], tp_bwd = phase_train_tp(torch, args.seed, info,
+                                                                     want_loss, want)
+            k10_d64, (k11_d64, k11_bwd_d64) = phase_train_wide(torch, args.seed, info)
+            launches["flash_attention_tp"] += k11_d64
+            tp_bwd += k11_bwd_d64
+            phase_cli(torch, work, args.seed)     # phase 4's checkpoints and corpus
     except Exception:  # noqa: BLE001 -- any failure ends the run non-zero
         traceback.print_exc()
         return 1

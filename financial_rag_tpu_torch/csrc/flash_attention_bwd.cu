@@ -13,8 +13,10 @@
 // from the unrounded P, not from the forward's bf16 output); P^T and dS
 // rounded to bf16 before the products that take them; f32 accumulation.
 //
-// Bound on the H100 (per (batch row, head): 7*S*2*D bytes of q, k, v, dO,
-// dq, dk, dv; 5 products of 2*S*S*D flops; exps per score), B=256, 12 heads:
+// Bound on the H100 at a full mask (per (batch row, head): 7*S*2*D bytes of
+// q, k, v, dO, dq, dk, dv; 5 products of 2*S*S*D flops; exps per score), B=256,
+// 12 heads (chip_smoke.py's bound counts the live keys of its padded masks,
+// about half, where the bytes bind at every S):
 //   head_dim 32. S = 32, 64, 128 (the train path): the bytes (S=128: 0.053
 //     ms against 0.016 ms of tensor work and 0.024 ms of exps at 2 per
 //     score, 16 a clock on each of 132 SMs); S = 512: the exps (3 per score

@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -240,6 +240,11 @@ class FlatIndex:
         with self._lock:
             while self.capacity < capacity:
                 self._grow()
+
+    def storage_devices(self) -> List[torch.device]:
+        """The devices that hold the index's tensors (IngestPipeline.flush
+        waits on each)."""
+        return [self._vectors.device]
 
     def snapshot(self):
         """(vectors, valid, slot -> id array) over the whole capacity, cloned

@@ -447,6 +447,11 @@ class IVFIndex:
 
         return tune_nprobe(self, **kwargs)
 
+    def storage_devices(self) -> List[torch.device]:
+        """The devices that hold the index's tensors (IngestPipeline.flush
+        waits on each)."""
+        return [self._storage.device]
+
     # ---------------------------------------------------------- persistence
 
     def save(self, directory: str | Path) -> None:

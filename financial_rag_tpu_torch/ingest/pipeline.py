@@ -249,11 +249,12 @@ class IngestionPipeline:
     def flush(self) -> None:
         """Block until every dispatched index update has landed on device
         (throughput accounting; donation-safe since upserts serialize under
-        each index's lock)."""
-        for idx in self.indexes.values():
-            storage = getattr(idx, "_vectors", None)
-            if isinstance(storage, torch.Tensor) and storage.is_cuda:
-                torch.cuda.synchronize(storage.device)
+        each index's lock): one synchronize for each CUDA device that holds
+        any index or any shard of one."""
+        devices = {dev for idx in self.indexes.values() for dev in idx.storage_devices()
+                   if dev.type == "cuda"}
+        for dev in sorted(devices, key=str):
+            torch.cuda.synchronize(dev)
 
     def ingest_directory(self, directory: str | Path) -> List[dict]:
         """Recursively ingest every extraction JSON (skipping *_meta.json,

@@ -170,6 +170,10 @@ class ShardedFlatIndex:
         return merge_shards([(sc, sl) for _, sc, sl in launched],
                             [ids for ids, _, _ in launched], top_k)
 
+    def storage_devices(self) -> List[torch.device]:
+        """Every shard's devices, shard by shard."""
+        return [d for shard in self.shards for d in shard.storage_devices()]
+
     # ---------------------------------------------------------- persistence
 
     def save(self, directory) -> None:

@@ -165,6 +165,10 @@ class ShardedIVFIndex:
 
         return tune_nprobe(self, **kwargs)
 
+    def storage_devices(self) -> List[torch.device]:
+        """Every shard's devices, shard by shard."""
+        return [d for shard in self.shards for d in shard.storage_devices()]
+
     # ---------------------------------------------------------- persistence
 
     def save(self, directory) -> None:

@@ -1479,3 +1479,30 @@ def test_data_parallel_encoder_matches_one_device(gen):
     want = one.encode(texts)
     cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
     assert cos.min() >= 0.9999, cos.min()
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
+def test_ingest_flush_syncs_the_card_of_every_shard_once(gen, kind, monkeypatch):
+    """Four shards on cuda:0 (they wrap onto the one card): flush calls
+    torch.cuda.synchronize once, for cuda:0, and leaves no work queued."""
+    from types import SimpleNamespace
+
+    from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline
+    from financial_rag_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, search_devices
+
+    devices = search_devices(4, "cuda")
+    idx = (ShardedFlatIndex(devices, dim=384, capacity_per_shard=8192) if kind == "flat" else
+           ShardedIVFIndex(devices, dim=384, nlist=16, list_size=256, nprobe=4))
+    x = _sign_rows(gen, 4000, 384)
+    if kind == "ivf":
+        idx.train(x[:1024], iters=2)
+    idx.upsert(list(range(1, 4001)), x)
+    real, calls = torch.cuda.synchronize, []
+
+    def counting(device=None):
+        calls.append(device)
+        real(device)
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    IngestionPipeline.flush(SimpleNamespace(indexes={"baai": idx}))
+    assert calls == [torch.device("cuda", 0)]
+    assert torch.cuda.current_stream().query()

@@ -60,3 +60,25 @@ def test_server_import_leaves_werkzeug_and_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+OPERATOR_SCRIPTS = ("ingest_all", "check_collections", "test_full_flow", "pc_retrieval_smoke",
+                    "pc_llm_answer", "run_end_to_end", "serve", "recall_eval")
+
+
+def test_port_files_include_the_operator_scripts():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"financial_rag_tpu_torch/scripts/{n}.py" for n in OPERATOR_SCRIPTS} <= names
+
+
+def test_operator_scripts_import_leaves_jax_unloaded():
+    code = ("import importlib, sys\n"
+            f"for n in {OPERATOR_SCRIPTS!r}:\n"
+            "    importlib.import_module(f'financial_rag_tpu_torch.scripts.{n}')\n"
+            "importlib.import_module('financial_rag_tpu_torch.tokenizer.hf_json')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'financial_rag_tpu', 'tokenizers', 'regex')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -12,6 +12,7 @@ import importlib.util
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -100,10 +101,11 @@ def test_reader_matches_tokenizers_on_the_chip_smoke_file(tmp_path):
 
 def test_reader_names_what_it_does_not_read(checkpoint_dir):
     spec = json.loads((checkpoint_dir / "tokenizer.json").read_text())
-    for key, value, needle in (("model", {"type": "BPE"}, "BPE"),
-                               ("pre_tokenizer", {"type": "ByteLevel"}, "ByteLevel"),
-                               ("decoder", {"type": "ByteLevel"}, "ByteLevel"),
-                               ("normalizer", {"type": "NFC"}, "NFC")):
+    # BPE, ByteLevel and NFC are read since the BPE reader (test_torch_hf_json.py)
+    for key, value, needle in (("model", {"type": "Unigram"}, "Unigram"),
+                               ("pre_tokenizer", {"type": "BertPreTokenizer"}, "BertPreTokenizer"),
+                               ("decoder", {"type": "WordPiece"}, "WordPiece"),
+                               ("normalizer", {"type": "NFKD"}, "NFKD")):
         with pytest.raises(NotImplementedError, match=needle):
             HFTokenizer(dict(spec, **{key: value}))
 
@@ -200,3 +202,149 @@ def test_runtime_answers_with_the_local_llm(checkpoint_dir, tmp_path):
     assert events[-1][0] == "complete" and final["success"]
     assert deltas.strip() == final["answer"]
     assert not final["answer"].startswith("LLM unavailable")
+
+
+# ------------------------------------------------ BPE tokenizer.json files
+
+BPE = ROOT / "tests" / "data" / "bpe"
+
+
+@pytest.fixture(scope="module")
+def bpe_weights(tmp_path_factory):
+    """A 2-layer Qwen2-shape checkpoint (hidden 64, untied head, so that
+    greedy decoding does not just repeat the prompt's last token) as numpy
+    weights written once: model.safetensors in f32, beside no tokenizer."""
+    safetensors_numpy = pytest.importorskip("safetensors.numpy")
+
+    d = tmp_path_factory.mktemp("bpe_weights")
+    rng = np.random.default_rng(0)
+    vocab, h, ff, kv = 3072, 64, 128, 32
+
+    def normal(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    sd = {"model.embed_tokens.weight": normal(vocab, h), "lm_head.weight": normal(vocab, h),
+          "model.norm.weight": np.ones(h, np.float32)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": np.ones(h, np.float32),
+                   p + "post_attention_layernorm.weight": np.ones(h, np.float32),
+                   p + "self_attn.q_proj.weight": normal(h, h), p + "self_attn.q_proj.bias": normal(h),
+                   p + "self_attn.k_proj.weight": normal(kv, h), p + "self_attn.k_proj.bias": normal(kv),
+                   p + "self_attn.v_proj.weight": normal(kv, h), p + "self_attn.v_proj.bias": normal(kv),
+                   p + "self_attn.o_proj.weight": normal(h, h),
+                   p + "mlp.gate_proj.weight": normal(ff, h), p + "mlp.up_proj.weight": normal(ff, h),
+                   p + "mlp.down_proj.weight": normal(h, ff)})
+    safetensors_numpy.save_file(sd, str(d / "model.safetensors"))
+    hf = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "vocab_size": vocab,
+          "hidden_size": h, "intermediate_size": ff, "num_hidden_layers": 2,
+          "num_attention_heads": 4, "num_key_value_heads": 2, "max_position_embeddings": 4096,
+          "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
+          "hidden_act": "silu"}
+    return d, hf
+
+
+def _bpe_checkpoint(weights, root, family):
+    """The weights with the family's committed tokenizer.json and template;
+    eos (and bos) the family's end-of-turn token."""
+    src, hf = weights
+    d = root / family
+    d.mkdir()
+    (d / "model.safetensors").symlink_to(src / "model.safetensors")
+    spec = json.loads((BPE / family / "tokenizer.json").read_text(encoding="utf-8"))
+    eos = next(t["id"] for t in spec["added_tokens"]
+               if t["content"] in ("<|im_end|>", "</s>"))
+    (d / "config.json").write_text(json.dumps({**hf, "eos_token_id": eos, "bos_token_id": eos}))
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        (d / name).write_bytes((BPE / family / name).read_bytes())
+    return d
+
+
+BPE_PROMPTS = ["What is the rent for the second year?",
+               "Rs 2,54,434 — café 日本 🙂 I'll check\r\nthe lease.",
+               "[INST] nested [/INST] <|im_end|> text"]
+
+
+@pytest.fixture(scope="module", params=["qwen2_style", "llama2_style"])
+def bpe_llms(request, bpe_weights, tmp_path_factory):
+    d = _bpe_checkpoint(bpe_weights, tmp_path_factory.mktemp("bpe_ckpt"), request.param)
+    jax_llm = JaxLocalLLM(model_dir=str(d), dtype="float32")
+    llm = LocalLLM(model_dir=str(d), dtype="float32", device="cpu")
+    assert llm.available() and jax_llm.available() and not llm._failed
+    return request.param, jax_llm, llm
+
+
+def test_bpe_prompt_ids_match_jax(bpe_llms):
+    family, jax_llm, llm = bpe_llms
+    assert llm._chat == jax_llm._chat == {"qwen2_style": "chatml", "llama2_style": "inst"}[family]
+    for prompt in BPE_PROMPTS:
+        want_ids, want_mask = jax_llm._prep(prompt)
+        ids, mask = llm._prep(prompt)
+        np.testing.assert_array_equal(ids, want_ids)
+        np.testing.assert_array_equal(mask, want_mask)
+        live = ids[0][mask[0] == 1].tolist()
+        if family == "llama2_style":        # tokenizers' TemplateProcessing adds <s>
+            assert live[0] == llm._tok.vocab["<s>"]
+        else:
+            assert live[0] == llm._tok.added["<|im_start|>"]
+
+
+def test_bpe_greedy_tokens_and_answer_match_jax(bpe_llms):
+    import jax
+    import jax.numpy as jnp
+
+    from financial_rag_tpu.models.decoder import generate_tokens as jax_generate
+    from financial_rag_tpu_torch.models.decoder import generate_tokens
+
+    _, jax_llm, llm = bpe_llms
+    for prompt in BPE_PROMPTS:
+        ids, mask = llm._prep(prompt)
+        want = np.asarray(jax_generate(jax_llm._params, jnp.asarray(ids), jnp.asarray(mask),
+                                       jax.random.PRNGKey(0), cfg=jax_llm._dcfg,
+                                       max_new_tokens=24, temperature=0.0))
+        got = generate_tokens(llm._params, ids, mask, cfg=llm._dcfg, max_new_tokens=24,
+                              temperature=0.0)
+        np.testing.assert_array_equal(np.asarray(got.cpu()), want)
+        answer = llm.generate(prompt, max_tokens=24)
+        assert answer == jax_llm.generate(prompt, max_tokens=24)
+        assert answer and not answer.startswith("LLM unavailable")
+
+
+def test_bpe_stream_matches_jax(bpe_llms):
+    _, jax_llm, llm = bpe_llms
+    for segment in (3, 48):
+        got = "".join(llm.generate_stream(BPE_PROMPTS[1], max_tokens=20, segment=segment))
+        want = "".join(jax_llm.generate_stream(BPE_PROMPTS[1], max_tokens=20, segment=segment))
+        assert got == want
+        assert got.strip() == (llm.generate(BPE_PROMPTS[1], max_tokens=20) or "")
+
+
+def test_wordlevel_control_still_loads_in_both(bpe_weights, tmp_path):
+    """The same weights with a WordLevel tokenizer.json (the file chip_smoke
+    writes for the llm phases) load and answer alike in both packages."""
+    d = tmp_path / "wordlevel"
+    d.mkdir()
+    (d / "model.safetensors").symlink_to(bpe_weights[0] / "model.safetensors")
+    eos = _chip_smoke().write_wordlevel_tokenizer(d, ["rent", "lease", "year", "what", "is"],
+                                                  bpe_weights[1]["vocab_size"])
+    (d / "config.json").write_text(json.dumps({**bpe_weights[1], "eos_token_id": eos}))
+    jax_llm = JaxLocalLLM(model_dir=str(d), dtype="float32")
+    llm = LocalLLM(model_dir=str(d), dtype="float32", device="cpu")
+    assert llm.available() and jax_llm.available()
+    assert llm.generate("what is the rent", max_tokens=12) == \
+        jax_llm.generate("what is the rent", max_tokens=12)
+
+
+def test_chip_smoke_pads_the_bpe_fixture_without_changing_its_ids(tmp_path):
+    """write_bpe_tokenizer: the fixture's vocabulary padded to the model's
+    ids by tokens no merge reaches; the probes keep tokenizers' ids and
+    every id decodes."""
+    cs = _chip_smoke()
+    eos = cs.write_bpe_tokenizer(tmp_path, BPE / "qwen2_style", 4096)
+    tok = HFTokenizer.from_file(tmp_path / "tokenizer.json")
+    assert tok.id_to_token[eos] == "<|im_end|>" and sorted(tok.id_to_token) == list(range(4096))
+    assert cs.check_probes(tok, BPE / "qwen2_style") == len(json.loads(
+        (BPE / "qwen2_style" / "probes.json").read_text(encoding="utf-8")))
+    assert tok.decode([3500, 4000]) == " w3500 w4000"
+    ref = tokenizers.Tokenizer.from_file(str(tmp_path / "tokenizer.json"))
+    assert ref.decode([3500, 17, 4000]) == tok.decode([3500, 17, 4000])
