@@ -19,7 +19,8 @@ Phases, each printing one JSON line:
               must load.
 3. kernel  -- every kernel (K1-K11) at its main-path shapes (and K1-K5, K7,
               K8, K10 and K11 again at the bge-base width: head_dim 64,
-              hidden 768, D 768), against its plain PyTorch version on the
+              hidden 768, D 768; K9 at 32 / 8 heads of 128), against its
+              plain PyTorch version on the
               same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
               computes the same function (for K3, the three-call
@@ -114,6 +115,19 @@ Phases, each printing one JSON line:
               cosine >= 0.999; a profile as in phase 5; the indexes reloaded
               as int8 answer the 9 questions through K5 at D=768. p50s and
               children/s printed.
+10c. multivector -- the late-interaction tier: phase 4's bge-small
+              checkpoint in a TokenEncoder on the card and a
+              MultiVectorIndex (384, 128 tokens, 4,096 children, bf16)
+              plugged into a fresh flat runtime's pipeline and hybrid
+              retriever, CHILD_USE_MULTIVECTOR=1: ingest of the 27
+              documents, the 9 golden questions (the hybrid.multivector span
+              with non-empty lists), K2/K3 launched by the token encoder,
+              MaxSim and token vectors against the CPU in f32.
+10d. multivector_scale -- MaxSim at scripts/bench_multivector.py's
+              configuration (20,480 x 128 x 384 bf16, 2.01 GB, made on the
+              card; 16-token queries, k 10): ms a search (median, IQR),
+              the sweep's ms, its bound, peak memory, one query against a
+              plain f32 recomputation.
 11. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B shape;
               Runtime.build with LLM_PROVIDER=local (LLM_MAX_NEW_TOKENS =
               LLM_SMOKE_NEW_TOKENS) on a copy of the flat data dir; warm()
@@ -125,6 +139,14 @@ Phases, each printing one JSON line:
 13. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
               (bf16, K9): last-position logits and each layer's attention
               output by cosine, with controls that must fail.
+13b. decoder_tp -- tensor-parallel decoding of the 0.5B shape on tp 2, 2
+              ranks sharing the card over gloo: batch 4 of left-padded
+              prompts up to 512 tokens, 16 greedy tokens; the ranks' tokens
+              identical; against the single-device port, bf16 prefill and
+              decode-step logits (cosine >= 0.995) and f32 tokens up to the
+              first near tie; K9 24 times a prefill at 7 / 1 local heads, 2
+              all-reduces a layer; then dryrun_multichip's section 5 on 4
+              ranks.
 14. train  -- fine-tuning at full width, bf16 compute on f32 master weights:
               contrastive steps at the bge-small shape (256 pairs x 2 x 128),
               listwise steps at the MiniLM-L-6 shape (64 groups x 4 x 64),
@@ -170,12 +192,16 @@ Phases, each printing one JSON line:
               are the ids tokenizers wrote there, K1-K4 and K9 launch;
               prints the phase's seconds, the reader's encode ms of a
               4,096-token prompt and recall_eval's value.
-19. the ``kernels`` line (K10 and K11 with their head_dim-64 case as
-              ``d64`` and its launches as ``launches_d64``), then the last
-              line ``{"ok": true, "device": ...}``.
+19. the script's total seconds, the ``kernels`` line (K10 and K11 with
+              their head_dim-64 case as ``d64`` and its launches as
+              ``launches_d64``, K9 with its head_dim-128 case as ``d128``
+              and its launches on the TP ranks as ``launches_tp``, K2 and K3
+              with the multivector path's as ``launches_multivector``), then
+              the last line ``{"ok": true, "device": ...}``.
 
 Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
-part of 10b, 11, each part of 14, 16 and 17, and 18) sets every launch counter to 0 just before it
+part of 10b, 10c, 11, 13b (in its ranks' fresh processes), each part of
+14, 16 and 17, and 18) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
@@ -692,6 +718,7 @@ def kernel_cases(torch, F, seed):
     cases += attention_bwd_cases(torch, F, randn, padded_mask, head_dim=64, shapes=WIDE_BWD_SHAPES)
     cases += attention_tp_cases(torch, F, randn, padded_mask, head_dim=64,
                                 shapes=TP_LOCAL_SHAPES[:2])
+    cases += causal_cases(torch, F, randn, heads=(32, 8, 128), shapes=CAUSAL_128_SHAPES)
     return cases
 
 
@@ -1042,25 +1069,32 @@ def probe_cases(torch, gen, randn, d: int = 384, shapes=((8, 64), (16, 4), (16, 
     return cases
 
 
-def causal_cases(torch, F, randn):
+CAUSAL_SHAPES = ((1, 4096, (1100,), "bf16"), (1, 128, (60,), "bf16"),
+                 (3, 1024, (0, 300, 1023), "bf16"), (1, 4096, (1100,), "f32"))
+# K9 at heads of 128 (Llama-3-8B's 32 query / 8 kv heads): the answer prompt
+CAUSAL_128_SHAPES = ((1, 4096, (0,), "bf16"),)
+
+
+def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES):
     """K9 at the decoder's prefill shapes (Qwen2-0.5B: 14 query heads and 2
     kv heads of 64): the answer-prompt bucket B=1 S=4,096 with 1,100
     padding rows, the query normaliser's S=128, a generate_many wave of 3
-    rows with mixed pads, and LLM_DTYPE=float32. See causal_cmp for the
-    tolerances; padding rows exactly 0. The bound counts only the causal
-    pairs at or past pad_len. Library: SDPA (is_causal, enable_gqa) at pad 0,
-    [B,H,S,D] views, a yardstick only."""
+    rows with mixed pads, and LLM_DTYPE=float32; or at ``heads`` (query,
+    kv, head_dim) and ``shapes`` (named ``causal_flash_prefill@head_dim``
+    where head_dim is not 64). See causal_cmp for the tolerances; padding
+    rows exactly 0. The bound counts only the causal pairs at or past
+    pad_len. Library: SDPA (is_causal, enable_gqa) at pad 0, [B,H,S,D]
+    views, a yardstick only."""
     from financial_rag_tpu_torch.ops import causal_flash as cf
 
-    hq, hkv, d = 14, 2, 64
+    hq, hkv, d = heads
+    name = "causal_flash_prefill" if d == 64 else f"causal_flash_prefill@{d}"
     cases = []
-    for b, s, pads, dtype in ((1, 4096, (1100,), torch.bfloat16), (1, 128, (60,), torch.bfloat16),
-                              (3, 1024, (0, 300, 1023), torch.bfloat16),
-                              (1, 4096, (1100,), torch.float32)):
+    for b, s, pads, label in shapes:
+        dtype = torch.bfloat16 if label == "bf16" else torch.float32
         q = randn(b, s, hq * d, dtype=dtype)
         k, v = randn(b, s, hkv * d, dtype=dtype), randn(b, s, hkv * d, dtype=dtype)
         pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
-        label = "bf16" if dtype == torch.bfloat16 else "f32"
         pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
         esize = 2 if dtype == torch.bfloat16 else 4
 
@@ -1074,9 +1108,8 @@ def causal_cases(torch, F, randn):
 
         # the control: the plain version with its first real key tile lost
         control = (lambda q=q, k=k, v=v, p=pad: plain(q, k, v, p + 64)) \
-            if (s, dtype) == (4096, torch.bfloat16) else None
-        cases.append(("causal_flash_prefill",
-                      f"B={b},S={s},pads={list(pads)},heads={hq}/{hkv}x{d},{label}",
+            if (s, dtype, d) == (4096, torch.bfloat16, 64) else None
+        cases.append((name, f"B={b},S={s},pads={list(pads)},heads={hq}/{hkv}x{d},{label}",
                       lambda q=q, k=k, v=v, p=pad: cf.causal_flash_prefill(
                           q, k, v, p, num_q_heads=hq, num_kv_heads=hkv),
                       plain, sdpa, causal_cmp(pads, hq, dtype == torch.bfloat16, control),
@@ -4259,12 +4292,580 @@ def phase_train_wide(torch, seed: int, info: dict, plan=WIDE_TRAIN_PLAN):
     return launches["flash_attention_bwd"], k11
 
 
+# ------------------------------------------------- the multivector tier
+
+MV_TOKENS = 128          # max_child_tokens of the tier (the JAX default)
+MV_CAPACITY = 4096
+MV_TOL = 1e-3            # card (bf16 storage, bf16 query) against the CPU (f32): scores, ties
+MV_COS_MIN = 0.999       # TokenEncoder vectors, card (bf16) against the CPU (f32), per token
+MV_PATH = FLAT_PATH      # K1-K4 on the dense leg, K2 and K3 in every token encode
+# scripts/bench_multivector.py's configuration: children, tokens, dim, query tokens, k
+MV_SCALE = {"device": "cuda", "children": 20480, "tokens": 128, "dim": 384, "qtokens": 16,
+            "k": 10, "concepts": 256, "searches": 20}
+
+
+def maxsim_plain(torch, q, tokens, tok_mask, valid, rows: int = 2048):
+    """Every child's MaxSim score in f32 from f32 copies of the stored
+    tokens, ``rows`` children at a time: q [Tq, D]; the same masks as the
+    index."""
+    out = []
+    for lo in range(0, tokens.shape[0], rows):
+        sims = torch.einsum("qd,ctd->cqt", q.float(), tokens[lo:lo + rows].float())
+        sims = sims + (tok_mask[lo:lo + rows, None, :] - 1.0) * 1.0e5
+        out.append(sims.amax(dim=2).sum(dim=1) + (valid[lo:lo + rows] - 1.0) * 1.0e5)
+    return torch.cat(out)
+
+
+def same_hits(got, want_scores, ids_of, tol: float = MV_TOL) -> list:
+    """got: the card's [{score, child_id}]; want_scores: every slot's score on
+    the reference path, ids_of: slot -> child id. Failures: a hit whose
+    score is off by more than ``tol``, or a child at a rank where the
+    reference puts another one that it does not tie within ``tol``."""
+    import numpy as np
+
+    order = np.argsort(-want_scores, kind="stable")[:len(got)]
+    by_id = {int(ids_of[s]): float(want_scores[s]) for s in np.flatnonzero(want_scores > -100)}
+    fails = []
+    for rank, (h, slot) in enumerate(zip(got, order)):
+        mine = by_id.get(h["child_id"])
+        if mine is None or abs(h["score"] - mine) > tol:
+            fails.append(f"rank {rank}: child {h['child_id']} score {h['score']} vs {mine}")
+        elif h["child_id"] != int(ids_of[slot]) and abs(mine - want_scores[slot]) > tol:
+            fails.append(f"rank {rank}: child {h['child_id']} ({mine}) where the reference "
+                         f"has {int(ids_of[slot])} ({want_scores[slot]})")
+    return fails
+
+
+def phase_multivector(torch, work: Path, paths: dict, items, texts):
+    """The late-interaction tier at full width: phase 4's bge-small
+    checkpoint wrapped in a TokenEncoder on the card (bf16) and a
+    MultiVectorIndex(dim 384, 128 tokens, capacity 4,096, bf16: 403 MB of
+    tokens) plugged into the hooks of a fresh flat runtime's
+    IngestionPipeline and HybridRetriever (Runtime.build wires neither, as
+    in the JAX package), with CHILD_USE_MULTIVECTOR=1. Ingest of the 27
+    documents (flush waits on the tier's card too), the 9 golden questions.
+    Gates: every question answered; the hybrid.multivector span fired once
+    a query variant with non-empty lists; K1-K4 launched, and K2 and K3 by
+    the token encoder alone (a standalone encode of 16 corpus texts: 12
+    launches a forward each); 3 questions' token queries searched on the
+    card against MaxSim of the same stored tokens on the CPU in f32, the
+    query cast to bf16 as search_aggregate casts it to the storage dtype
+    (scores within 1e-3, ids outside ties of 1e-3), and the f32 CPU index
+    (f32 query) against its own plain version within 1e-4; the largest
+    score difference between the card and that f32 index (the query's bf16
+    rounding) is reported; the TokenEncoder's vectors on the card against
+    the CPU f32 path at cosine >= 0.999 per token."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.config import FrameworkConfig
+    from financial_rag_tpu_torch.index import MultiVectorIndex
+    from financial_rag_tpu_torch.models.encoder import Encoder, TokenEncoder
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+    from financial_rag_tpu_torch.ops import fused_ffn
+    from financial_rag_tpu_torch.runtime import Runtime
+    from financial_rag_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    os.environ["CHILD_USE_MULTIVECTOR"] = "1"
+    try:
+        cfg = FrameworkConfig.from_env()
+    finally:
+        del os.environ["CHILD_USE_MULTIVECTOR"]
+    cfg.llm.gemini_api_key = None
+    check(cfg.retrieval.multivector_enabled, "CHILD_USE_MULTIVECTOR=1 did not enable the tier")
+    rt = Runtime.build(cfg, data_dir=work / "data_multivector", device="cuda")
+    enc = rt.dual_encoder.encoders["baai"].inner
+    tok = TokenEncoder(enc, max_tokens=MV_TOKENS)
+    mv = MultiVectorIndex(dim=enc.dim, max_child_tokens=MV_TOKENS, capacity=MV_CAPACITY,
+                          device="cuda")
+    check(mv._tokens.dtype == torch.bfloat16 and mv._tokens.is_cuda, "tier storage")
+    rt.pipeline.multivector_index, rt.pipeline.token_encoder = mv, tok
+    rt.hybrid.multivector_index, rt.hybrid.token_encoder = mv, tok
+
+    lists = []
+    search = mv.search_aggregate
+
+    def recording_search(qv, top_k=24):
+        hits = search(qv, top_k=top_k)
+        lists.append(len(hits))
+        return hits
+
+    mv.search_aggregate = recording_search
+    reset_launches()
+    children, ingest_s = ingest_all(rt, items)
+    check(mv.count() == children, f"multivector tier holds {mv.count()} of {children} children")
+    spans_before = GLOBAL_TIMER.summary().get("hybrid.multivector", {}).get("count", 0)
+    query_ms, answers, methods = golden_queries(rt, "multivector")
+    launches = read_launches()
+    check_path_launched(MV_PATH, launches, "multivector path")
+    spans = GLOBAL_TIMER.summary().get("hybrid.multivector", {})
+    fired = spans.get("count", 0) - spans_before
+    check(fired >= len(GOLDEN_QUESTIONS) and len(lists) >= len(GOLDEN_QUESTIONS),
+          f"multivector: the hybrid.multivector span fired {fired} times, {len(lists)} searches")
+    check(all(n > 0 for n in lists), f"multivector: empty MaxSim lists {lists}")
+    mv.search_aggregate = search
+
+    # K2 and K3 launched by the token encoder alone
+    sample = list(dict.fromkeys(texts))[:16]
+    check(len(sample) == 16, "multivector: fewer than 16 distinct corpus texts")
+    forwards = []
+    hidden = tok._hidden
+
+    def counting_hidden(ids, mask):
+        forwards.append(ids.shape)
+        return hidden(ids, mask)
+
+    tok._hidden = counting_hidden
+    before = (fa.LAUNCHES, fused_ffn.LAUNCHES)
+    gpu_vecs = tok.encode_tokens(sample)
+    tok_launches = (fa.LAUNCHES - before[0], fused_ffn.LAUNCHES - before[1])
+    del tok._hidden
+    layers = enc.config.num_layers
+    check(tok_launches == (layers * len(forwards),) * 2 and forwards,
+          f"token encoder: K2/K3 launches {tok_launches} for {len(forwards)} forwards")
+
+    cpu_enc = Encoder.from_pretrained(str(paths["bge-small"]), pooling="cls", device="cpu",
+                                      max_seq_len=enc.max_seq_len)
+    cpu_vecs = TokenEncoder(cpu_enc, max_tokens=MV_TOKENS).encode_tokens(sample)
+    cos_min = 1.0
+    for g, c in zip(gpu_vecs, cpu_vecs):
+        check(g.shape == c.shape, f"token vectors {g.shape} vs {c.shape}")
+        cos_min = min(cos_min, float(((g * c).sum(1) / (np.linalg.norm(g, axis=1)
+                                                         * np.linalg.norm(c, axis=1))).min()))
+    check(cos_min >= MV_COS_MIN, f"token encoder: card vs CPU min cosine {cos_min}")
+
+    # the card's MaxSim against the same stored tokens on the CPU in f32
+    cpu = MultiVectorIndex(dim=mv.dim, max_child_tokens=MV_TOKENS, capacity=mv.capacity,
+                           dtype=torch.float32, device="cpu")
+    cpu._tokens, cpu._tok_mask, cpu._valid = (mv._tokens.float().cpu(), mv._tok_mask.cpu(),
+                                              mv._valid.cpu())
+    cpu._ids, cpu._slot_of, cpu._next_slot = mv._ids.copy(), dict(mv._slot_of), mv._next_slot
+    failures, score_err = [], 0.0
+    for question in GOLDEN_QUESTIONS[:3]:
+        qv = tok.encode_tokens([question])[0]
+        got = mv.search_aggregate(qv, top_k=24)
+        q = torch.from_numpy(qv / np.linalg.norm(qv, axis=1, keepdims=True))
+        # the card's function: the query in the storage dtype, f32 products
+        scores = maxsim_plain(torch, q.to(mv.dtype), cpu._tokens, cpu._tok_mask,
+                              cpu._valid).numpy()
+        failures += [f"{question!r}: {f}" for f in same_hits(got, scores, cpu._ids)]
+        # the f32 index on the CPU keeps the query in f32
+        want = cpu.search_aggregate(qv, top_k=24)
+        scores32 = maxsim_plain(torch, q, cpu._tokens, cpu._tok_mask, cpu._valid).numpy()
+        failures += [f"{question!r} (CPU index): {f}"
+                     for f in same_hits(want, scores32, cpu._ids, tol=1e-4)]
+        score_err = max(score_err, max(abs(g["score"] - w["score"]) for g, w in zip(got, want)))
+    check(not failures, "multivector card vs CPU: " + "; ".join(failures[:5]))
+
+    emit({"phase": "multivector", "children": children, "ingest_s": round(ingest_s, 3),
+          "children_per_s": round(children / ingest_s, 1),
+          "tier_bytes": mv._tokens.numel() * mv._tokens.element_size(),
+          "query_p50_ms": round(statistics.median(query_ms), 3),
+          "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
+          "maxsim_searches": len(lists), "maxsim_list_min": min(lists),
+          "multivector_span_mean_ms": round(spans.get("mean_s", 0.0) * 1e3, 3),
+          "token_encoder_forwards": len(forwards), "token_encoder_k2_k3": list(tok_launches),
+          "token_cos_min": cos_min, "card_vs_f32_index_score_max_err": score_err,
+          "launches": launches})
+    rt.feedback_db.flush_writes()
+    return launches
+
+
+def fill_multivector(torch, idx, n: int, concepts: int, gen):
+    """scripts/bench_multivector.py's corpus, made on the device: child c's
+    tokens are its concept's anchors plus normal(0.35) noise, unit rows,
+    every token slot live. Returns the concepts [n] (CPU)."""
+    import numpy as np
+
+    t, d, dev = idx.max_child_tokens, idx.dim, idx.device
+    anchors = torch.randn(concepts, t, d, generator=gen, device=dev)
+    concept_of = torch.randint(0, concepts, (n,), generator=gen, device=dev)
+    for lo in range(0, n, 1024):
+        c = concept_of[lo:lo + 1024]
+        toks = anchors[c] + 0.35 * torch.randn(len(c), t, d, generator=gen, device=dev)
+        idx._tokens[lo:lo + len(c)] = (toks / toks.norm(dim=-1, keepdim=True)).to(idx.dtype)
+    idx._tok_mask[:n] = 1.0
+    idx._valid[:n] = 1.0
+    idx._ids[:n] = np.arange(1, n + 1)
+    idx._slot_of = {i + 1: i for i in range(n)}
+    idx._next_slot = n
+    return concept_of.cpu()
+
+
+def phase_multivector_scale(torch, seed: int, plan=MV_SCALE):
+    """MaxSim at scripts/bench_multivector.py's configuration: 20,480
+    children x 128 tokens x 384 bf16 (2.01 GB) synthesised on the device,
+    16-token queries (a child's tokens plus noise), k 10. CUDA events
+    around each search_aggregate call (host normalisation, the sweep, the
+    sort and the copy back), median and IQR over 20 queries after 2
+    warm-up searches; the sweep alone (scores and sort) by cuda_ms; the
+    search's peak memory above what the index holds; the bound: the
+    token block, masks and valid vector read once at 3.35 TB/s against the
+    2 x children x tokens x Tq x D products at the bf16 peak. One query's
+    top 10 against a plain chunked f32 recomputation (ties of 1e-3)."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.index import MultiVectorIndex
+    from financial_rag_tpu_torch.index.multivector import maxsim_scores
+
+    n, t, d, tq, k = (plan[x] for x in ("children", "tokens", "dim", "qtokens", "k"))
+    torch.cuda.empty_cache()
+    idx = MultiVectorIndex(dim=d, max_child_tokens=t, capacity=n, device=plan["device"])
+    gen = torch.Generator(device=idx.device)
+    gen.manual_seed(seed + 17)
+    concept_of = fill_multivector(torch, idx, n, plan["concepts"], gen)
+    rng = np.random.default_rng(seed)
+    targets = rng.choice(n, size=plan["searches"] + 2, replace=False)
+    queries = []
+    for c in targets:
+        sel = torch.from_numpy(rng.choice(t, size=tq, replace=False)).to(idx.device)
+        qv = idx._tokens[int(c)][sel].float().cpu().numpy()
+        qv = qv + 0.25 * rng.standard_normal(qv.shape).astype(np.float32)
+        queries.append(qv)
+    for qv in queries[:2]:
+        idx.search_aggregate(qv, top_k=k)
+    torch.cuda.synchronize()
+    ms, hits_at_1 = [], 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for c, qv in zip(targets[2:], queries[2:]):
+        start.record()
+        hits = idx.search_aggregate(qv, top_k=k)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        hits_at_1 += hits[0]["child_id"] == int(c) + 1
+    q25, med, q75 = np.percentile(ms, [25, 50, 75])
+
+    qv = queries[2] / np.linalg.norm(queries[2], axis=1, keepdims=True)
+    q = torch.from_numpy(qv).to(idx.device, idx.dtype)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = idx.search_aggregate(queries[2], top_k=k)
+    torch.cuda.synchronize()
+    peak_extra = torch.cuda.max_memory_allocated() - base
+    rows = idx._sweep_rows(tq)
+    check(peak_extra <= 2 * rows * tq * t * 4 + (64 << 20),
+          f"multivector search peak {peak_extra} bytes above the index")
+
+    def sweep():
+        s = torch.cat([maxsim_scores(q, idx._tokens[lo:lo + rows], idx._tok_mask[lo:lo + rows],
+                                     idx._valid[lo:lo + rows])
+                       for lo in range(0, idx.capacity, rows)])
+        return torch.sort(s, descending=True, stable=True)
+
+    sweep_ms = cuda_ms(torch, sweep)
+    want = maxsim_plain(torch, q, idx._tokens, idx._tok_mask, idx._valid).cpu().numpy()
+    fails = same_hits(got, want, idx._ids)
+    check(not fails, "multivector scale vs the f32 recomputation: " + "; ".join(fails[:5]))
+    block = idx._tokens.numel() * idx._tokens.element_size()
+    bound_ms, bound_by = bound(block + idx._tok_mask.numel() * 4 + idx._valid.numel() * 4,
+                               2 * n * t * tq * d, "bf16")
+    emit({"phase": "multivector_scale", "children": n, "tokens": t, "dim": d, "qtokens": tq,
+          "k": k, "token_bytes": block, "sweep_rows": rows,
+          "search_ms_median": float(med), "search_ms_iqr": [float(q25), float(q75)],
+          "searches": len(ms), "sweep_ms": sweep_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "peak_extra_bytes": int(peak_extra), "hit_at_1": hits_at_1 / len(ms),
+          "concepts": int(concept_of.unique().numel())})
+    del idx
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------- tensor-parallel decoding
+
+# Card, tp 2, against the single-device port on the card: in bf16 the
+# last-position prefill logits and every decode step's logits (both paths
+# fed the single-device tokens) by cosine per row; in f32 the greedy tokens,
+# up to the first step whose single-device top-2 margin is below
+# DECODER_TP_TIE x max |logit|. bf16 tokens are reported, not gated: the
+# ranks' f32 partial sums round at other points than one device's GEMMs,
+# and 24 random layers carry that past a margin of 1e-3 (PERF.md §6).
+DECODER_TP_COSINE = 0.995
+DECODER_TP_TIE = 1e-3
+DECODER_TP_PLAN = {"device": "cuda", "hf": QWEN2_05B, "tp": 2, "lengths": (512, 384, 200, 77),
+                   "new_tokens": 16, "repeats": 3}
+DECODER_TP_TIMEOUT_S = 300
+
+
+def seeded_decoder_params(torch, cfg, seed: int, device):
+    """Random bf16 decoder params made on ``device`` from ``seed``, in the
+    port's layout ([in, out] matrices; normal(0.02) matrices and biases, unit
+    norms): the same numbers in every process that asks on one device type."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, kv, ff = cfg.hidden_size, cfg.num_kv_heads * cfg.head_dim, cfg.intermediate_size
+
+    def normal(*shape):
+        return (torch.randn(*shape, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=device)
+
+    params = {"embed": normal(cfg.vocab_size, h), "final_ln": ones(h), "layers": []}
+    for _ in range(cfg.num_layers):
+        lp = {"ln1": ones(h), "q_w": normal(h, h), "k_w": normal(h, kv), "v_w": normal(h, kv),
+              "o_w": normal(h, h), "ln2": ones(h), "gate_w": normal(h, ff),
+              "up_w": normal(h, ff), "down_w": normal(ff, h)}
+        if cfg.attention_bias:
+            lp.update(q_b=normal(h), k_b=normal(kv), v_b=normal(kv))
+        params["layers"].append(lp)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(cfg.vocab_size, h)
+    return params
+
+
+def as_f32(params):
+    """The same params in f32 (a shard's DecoderShard kept)."""
+    return {k: ([{n: t.float() for n, t in lp.items()} for lp in v] if k == "layers"
+                else v.float() if hasattr(v, "float") else v)
+            for k, v in params.items()}
+
+
+def decoder_tp_prompts(cfg, plan, seed: int):
+    """Left-padded prompts of plan's lengths: (ids, mask) int32 numpy."""
+    import numpy as np
+
+    lengths = plan["lengths"]
+    s = max(lengths)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (len(lengths), s)).astype(np.int32)
+    mask = np.ones_like(ids)
+    for row, n in enumerate(lengths):
+        ids[row, :s - n] = 0
+        mask[row, :s - n] = 0
+    return ids, mask
+
+
+def forced_logits(torch, params, ids, mask, cfg, forced):
+    """f32 logits [steps, B, V] (CPU) of every generation step with the
+    tokens ``forced`` [B, steps] fed in turn: step 0 is the prefill's last
+    position, step g the decode step that feeds forced[:, g - 1], as
+    generate_tokens feeds its own tokens."""
+    from financial_rag_tpu_torch.models import decoder
+
+    b, s = ids.shape
+    steps = forced.shape[1]
+    forced = torch.as_tensor(forced).to(ids.device)
+    with torch.inference_mode():
+        last, kc, vc = decoder._prefill(params, ids, mask, s + steps, cfg)
+        pm = torch.cat([mask == 1, torch.ones((b, steps), dtype=torch.bool, device=ids.device)],
+                       dim=1)
+        pos0 = mask.sum(dim=1)
+        out = [last.float().cpu()]
+        for g in range(steps - 1):
+            out.append(decoder._decode_one(params, forced[:, g], pos0 + g, s + g, kc, vc, pm,
+                                           cfg).float().cpu())
+    return torch.stack(out)
+
+
+def decoder_tp_rank(rank, world, device, seed, plan, forced):
+    """One rank of phase_decoder_tp: this rank's shard of the seeded decoder.
+    bf16: the prefill (K9's launches and head counts, the all-reduces),
+    generate_tokens (the all-reduces), each timed on the host clock around
+    work that ends in a synchronise (median of plan["repeats"]), and every
+    step's logits fed the single-device tokens ``forced["bf16"]`` (rank 0
+    returns them); f32 (the same weights): generate_tokens."""
+    import hashlib
+
+    import torch
+
+    from financial_rag_tpu_torch.models import decoder
+    from financial_rag_tpu_torch.ops import causal_flash
+    from financial_rag_tpu_torch.parallel import comm, train_mesh
+
+    cfg = decoder.DecoderConfig.from_hf_config(plan["hf"])
+    mesh = train_mesh(plan["tp"], timeout_s=DECODER_TP_TIMEOUT_S)
+    full = seeded_decoder_params(torch, cfg, seed, device)
+    embed_sha = hashlib.sha256(full["embed"][:64].float().cpu().numpy().tobytes()).hexdigest()
+    params = decoder.shard_decoder_params(full, mesh, cfg)
+    del full
+    ids, mask = (torch.from_numpy(a).to(device) for a in decoder_tp_prompts(cfg, plan, seed))
+    new = plan["new_tokens"]
+    heads, reduces = [], [0]
+    k9, all_reduce = decoder.causal_flash_prefill, comm.all_reduce_
+
+    def recording_k9(q, k, v, pad_len, *, num_q_heads, num_kv_heads):
+        heads.append((num_q_heads, num_kv_heads))
+        return k9(q, k, v, pad_len, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+
+    def counting_all_reduce(t, mesh, axis, op="sum"):
+        reduces[0] += 1
+        return all_reduce(t, mesh, axis, op)
+
+    decoder.causal_flash_prefill, comm.all_reduce_ = recording_k9, counting_all_reduce
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    k9_start = causal_flash.LAUNCHES
+    try:
+        prefill_ms, gen_ms = [], []
+        for _ in range(plan["repeats"]):
+            sync()
+            k9_before, reduces[0] = causal_flash.LAUNCHES, 0
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                decoder._prefill(params, ids, mask, ids.shape[1] + new, cfg)
+            sync()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        k9_per_prefill, reduces_prefill = causal_flash.LAUNCHES - k9_before, reduces[0]
+        for _ in range(plan["repeats"]):
+            sync()
+            reduces[0] = 0
+            t0 = time.perf_counter()
+            toks = decoder.generate_tokens(params, ids, mask, cfg=cfg, max_new_tokens=new)
+            sync()
+            gen_ms.append((time.perf_counter() - t0) * 1e3)
+        reduces_generate = reduces[0]
+        logits = forced_logits(torch, params, ids, mask, cfg, forced["bf16"])
+        toks32 = decoder.generate_tokens(as_f32(params), ids, mask, cfg=cfg, max_new_tokens=new)
+        k9_total = causal_flash.LAUNCHES - k9_start
+    finally:
+        decoder.causal_flash_prefill, comm.all_reduce_ = k9, all_reduce
+    return {"rank": rank, "coords": dict(mesh.coords), "device": str(device),
+            "embed_sha": embed_sha, "tokens": toks.cpu().numpy(),
+            "tokens_f32": toks32.cpu().numpy(), "logits": logits if rank == 0 else None,
+            "k9_launches_per_prefill": k9_per_prefill, "k9_launches": k9_total,
+            "k9_heads": sorted(set(heads)),
+            "prefill_ms": statistics.median(prefill_ms), "generate_ms": statistics.median(gen_ms),
+            "all_reduces_prefill": reduces_prefill, "all_reduces_generate": reduces_generate,
+            "local_layer": {k: list(v.shape) for k, v in params["layers"][0].items()}}
+
+
+def first_ties(torch, logits, tie: float) -> list:
+    """Per row, the first step whose top-2 margin is below ``tie`` x max
+    |logit| (None: no such step); logits [steps, B, V]."""
+    top2 = logits.topk(2, dim=-1).values
+    rel = ((top2[..., 0] - top2[..., 1]) / logits.abs().amax(dim=-1)).numpy()
+    return [next((i for i in range(rel.shape[0]) if rel[i, r] < tie), None)
+            for r in range(rel.shape[1])]
+
+
+def first_difference(got, want) -> list:
+    """Per row, the first step where the tokens differ (their count: none)."""
+    import numpy as np
+
+    return [int(np.argmax(np.append(g != w, True))) for g, w in zip(got, want)]
+
+
+def phase_decoder_tp(torch, seed: int, info: dict, plan=DECODER_TP_PLAN):
+    """Tensor-parallel decoding at the local LLM cell's Qwen2-0.5B shape (24
+    layers, hidden 896, 14 / 2 heads of 64, FFN 4,864, vocab 151,936, tied
+    embeddings): tp 2 (the most that 2 kv heads allow) on 2 ranks started
+    by parallel.launch.spawn, sharing the one card over gloo; batch 4 of
+    left-padded prompts up to 512 tokens, 16 new greedy tokens. Gates, against
+    the single-device port on the card on the same weights: the ranks'
+    tokens identical (bf16 and f32); in bf16 the per-row cosine of the
+    prefill's last-position logits and of every decode step's logits (both
+    fed the single-device tokens) >= 0.995; in f32 the greedy tokens equal
+    up to the first step whose single-device top-2 margin is below 1e-3 x
+    max |logit|; K9 launched num_layers times a prefill on each rank, at 7
+    query / 1 kv heads; 2 all-reduces a layer in the prefill. The bf16
+    tokens' first difference from one device is reported with the margin
+    and the logits' deviation there. Then dryrun_multichip's section 5 (dp 2
+    x tp 2, 4 ranks on the card) against the single-rank port. Returns K9's
+    launches on the ranks."""
+    import hashlib
+
+    from financial_rag_tpu_torch.models import decoder
+    from financial_rag_tpu_torch.parallel import launch
+    from financial_rag_tpu_torch.scripts import dryrun_multichip
+
+    cfg = decoder.DecoderConfig.from_hf_config(plan["hf"])
+    tp, new = plan["tp"], plan["new_tokens"]
+    sync = torch.cuda.synchronize if plan["device"] == "cuda" else (lambda: None)
+
+    # the single-device port on the same weights and prompts
+    params = seeded_decoder_params(torch, cfg, seed, plan["device"])
+    embed_sha = hashlib.sha256(params["embed"][:64].float().cpu().numpy().tobytes()).hexdigest()
+    ids, mask = (torch.from_numpy(a).to(plan["device"])
+                 for a in decoder_tp_prompts(cfg, plan, seed))
+    single, single_ms = {}, {}
+    for name, p in (("bf16", params), ("f32", as_f32(params))):
+        sync()
+        t0 = time.perf_counter()
+        toks = decoder.generate_tokens(p, ids, mask, cfg=cfg, max_new_tokens=new)
+        sync()
+        single_ms[name] = (time.perf_counter() - t0) * 1e3
+        single[name] = toks.cpu().numpy()
+        if name == "bf16":
+            want_logits = forced_logits(torch, p, ids, mask, cfg, toks)
+        else:
+            ties32 = first_ties(torch, forced_logits(torch, p, ids, mask, cfg, toks),
+                                DECODER_TP_TIE)
+    del params, p
+    if plan["device"] == "cuda":
+        torch.cuda.empty_cache()
+
+    backend, _ = launch.choose_backend(tp, plan["device"])
+    t0 = time.perf_counter()
+    ranks = launch.spawn(decoder_tp_rank, tp, args=(seed, plan, single), device=plan["device"],
+                         timeout_s=DECODER_TP_TIMEOUT_S, join_timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+
+    failures = []
+    for r in ranks:
+        if r["embed_sha"] != embed_sha:
+            failures.append(f"rank {r['rank']}: its seeded weights differ from the parent's")
+        for key in ("tokens", "tokens_f32"):
+            if not (r[key] == ranks[0][key]).all():
+                failures.append(f"rank {r['rank']}: {key} differ from rank 0's")
+        if r["k9_launches_per_prefill"] != cfg.num_layers:
+            failures.append(f"rank {r['rank']}: K9 {r['k9_launches_per_prefill']} a prefill")
+        if r["k9_heads"] != [(cfg.num_heads // tp, cfg.num_kv_heads // tp)]:
+            failures.append(f"rank {r['rank']}: K9 heads {r['k9_heads']}")
+        if r["all_reduces_prefill"] != 2 * cfg.num_layers:
+            failures.append(f"rank {r['rank']}: {r['all_reduces_prefill']} all-reduces a prefill")
+    got = ranks[0]["logits"]
+    steps = min(got.shape[0], want_logits.shape[0])
+    cos = torch.nn.functional.cosine_similarity(got[:steps], want_logits[:steps], dim=-1)
+    if cos.min() < DECODER_TP_COSINE:
+        failures.append(f"logits cosine by step and row {cos.tolist()}")
+    agree32 = first_difference(ranks[0]["tokens_f32"], single["f32"])
+    for row, (tie, at) in enumerate(zip(ties32, agree32)):
+        if at < (new if tie is None else tie):
+            failures.append(f"f32 row {row}: tokens differ at step {at}, before the first near "
+                            f"tie ({tie})")
+    # where the bf16 tokens first differ: the single-device margin and the
+    # two paths' largest logit difference there, each over max |logit|
+    agree = first_difference(ranks[0]["tokens"], single["bf16"])
+    at_difference = []
+    for row, at in enumerate(agree):
+        if at < steps:
+            w, g = want_logits[at, row], got[at, row]
+            top2 = w.topk(2).values
+            scale = float(w.abs().max())
+            at_difference.append({"row": row, "step": at,
+                                  "margin": float(top2[0] - top2[1]) / scale,
+                                  "max_abs_diff": float((g - w).abs().max()) / scale})
+    check(not failures, "decoder_tp: " + "; ".join(failures))
+
+    t1 = time.perf_counter()
+    section5 = dryrun_multichip.decoder_tp(4, torch.device(plan["device"]))
+    section5_s = time.perf_counter() - t1
+    emit({"phase": "decoder_tp", "ranks": tp, "backend": backend, "card": info["nvidia_smi"],
+          "layers": cfg.num_layers, "local_heads": [cfg.num_heads // tp, cfg.num_kv_heads // tp],
+          "local_layer_shapes": ranks[0]["local_layer"],
+          "batch": len(plan["lengths"]), "prompt_lengths": list(plan["lengths"]),
+          "new_tokens": new, "spawn_s": round(spawn_s, 3),
+          "prefill_ms": [r["prefill_ms"] for r in ranks],
+          "decode_step_ms": [(r["generate_ms"] - r["prefill_ms"]) / (new - 1) for r in ranks],
+          "generate_ms": [r["generate_ms"] for r in ranks],
+          "all_reduces_per_step": (ranks[0]["all_reduces_generate"]
+                                   - ranks[0]["all_reduces_prefill"]) / (new - 1),
+          "single_device_generate_ms": single_ms,
+          "prefill_logits_cosine": cos[0].tolist(), "step_logits_cosine_min": float(cos.min()),
+          "f32_near_tie_step_by_row": ties32, "f32_tokens_agree_through_by_row": agree32,
+          "bf16_tokens_agree_through_by_row": agree, "bf16_first_difference": at_difference,
+          "k9_launches_per_prefill": [r["k9_launches_per_prefill"] for r in ranks],
+          "k9_launches": [r["k9_launches"] for r in ranks],
+          "dryrun_section5": {**section5, "seconds": round(section5_s, 3)}})
+    return sum(r["k9_launches"] for r in ranks)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", default=None,
                     help="also write the kernel build log and the kernels line here")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -4307,11 +4908,14 @@ def main(argv=None) -> int:
             backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
             phase_wide(torch, cfg, work, items, args.seed)
+            mv_launches = phase_multivector(torch, work, paths, items, texts)
+            phase_multivector_scale(torch, args.seed)
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)
             phase_llm_profile(torch, rt_llm)
             phase_decoder_parity(torch, rt_llm, ckpt)
             del rt, rt_llm
             torch.cuda.empty_cache()
+            k9_tp = phase_decoder_tp(torch, args.seed, info)
             # each kernel's count from the path that serves it
             launches["causal_flash_prefill"] = llm_launches["causal_flash_prefill"]
             launches["bucketed_topk_fused"] = int8_launches["bucketed_topk_fused"]
@@ -4344,15 +4948,22 @@ def main(argv=None) -> int:
             kernels[-1]["launches_d64"], kernels[-1]["bwd_launches_d64"] = k11_d64, k11_bwd_d64
         if name == "flash_attention_bwd":
             kernels[-1]["launches_d64"] = k10_d64
-        if f"{name}@64" in timings:        # the same kernel at heads of 64
-            kernels[-1]["d64"] = {k: timings[f"{name}@64"][k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "causal_flash_prefill":  # K9 on each rank's 7 / 1 local heads
+            kernels[-1]["launches_tp"] = k9_tp
+        if name in ("flash_attention", "fused_ffn"):   # the multivector path's
+            kernels[-1]["launches_multivector"] = mv_launches[name]
+        for d in (64, 128):                # the same kernel at heads of 64 or 128
+            if f"{name}@{d}" in timings:
+                kernels[-1][f"d{d}"] = {k: timings[f"{name}@{d}"][k] for k in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
         if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
         if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms
             kernels[-1]["topk_two_call_ms"] = t["topk_two_call_ms"]
         if "sweep_kernels" in t:           # the profiler's name of the sweep that ran
             kernels[-1]["sweep_kernels"] = t["sweep_kernels"]
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
     line = {"kernels": kernels}
     if log_dir:
         (Path(log_dir) / "kernels.json").write_text(json.dumps(line, indent=1))

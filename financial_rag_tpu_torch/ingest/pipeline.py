@@ -250,8 +250,11 @@ class IngestionPipeline:
         """Block until every dispatched index update has landed on device
         (throughput accounting; donation-safe since upserts serialize under
         each index's lock): one synchronize for each CUDA device that holds
-        any index or any shard of one."""
-        devices = {dev for idx in self.indexes.values() for dev in idx.storage_devices()
+        any index or any shard of one, the multivector tier's included."""
+        indexes = list(self.indexes.values())
+        if getattr(self, "multivector_index", None) is not None:
+            indexes.append(self.multivector_index)
+        devices = {dev for idx in indexes for dev in idx.storage_devices()
                    if dev.type == "cuda"}
         for dev in sorted(devices, key=str):
             torch.cuda.synchronize(dev)

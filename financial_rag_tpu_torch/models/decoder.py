@@ -21,19 +21,32 @@ attention goes through K9 (ops/causal_flash.py) at every prompt length: on
 CUDA the kernel, on the CPU its plain version. Decode and verify attention
 (one or draft_k+1 new positions against the cache), RMSNorm, RoPE, SwiGLU
 and the matmuls stay plain torch, as the JAX package left them to XLA.
+
+Tensor parallelism. The JAX package annotates GSPMD shardings
+(``shard_decoder_params``) and XLA inserts the collectives; the port runs one
+process per rank (parallel/launch.py) and ``shard_decoder_params`` returns
+this rank's slice of the Megatron split, tagged with a :class:`DecoderShard`
+under ``params["tp"]``. The same layer functions then run on the rank's
+``num_heads / tp`` query and ``num_kv_heads / tp`` kv heads (K9 on those in
+the prefill) and ``intermediate_size / tp`` FFN columns: one f32 all-reduce
+after the attention output product and one after the FFN down product, and
+an all-gather of vocab-split logits, so that every rank of a model group
+samples from the same logits. ``generate_tokens`` gathers the rows of
+``shard_decoder_inputs`` back over the data axis.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from financial_rag_tpu_torch.device import DeviceLike, resolve_device
 from financial_rag_tpu_torch.ops.causal_flash import causal_flash_prefill
+from financial_rag_tpu_torch.parallel import comm
 
 _NEG = -1e30
 
@@ -243,13 +256,29 @@ def _qkv(h: torch.Tensor, lp, cfg: DecoderConfig):
     return q, k, v
 
 
-def _ffn(h: torch.Tensor, lp, cfg: DecoderConfig) -> torch.Tensor:
+def _row_parallel(x: torch.Tensor, w, shard: Optional["DecoderShard"]) -> torch.Tensor:
+    """x @ w, where under tensor parallelism w holds this rank's input rows:
+    the partial product in f32 (one bf16 GEMM with an f32 output on the
+    GPU), summed over the model axis in f32, cast to x's dtype."""
+    if shard is None or shard.tp == 1:
+        return _mm(x, w)
+    if x.is_cuda and x.dtype != torch.float32:
+        part = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        part = part.view(*x.shape[:-1], w.shape[-1])
+    else:
+        part = x.float() @ w.float()
+    return comm.all_reduce_(part, shard.mesh, shard.model_axis).to(x.dtype)
+
+
+def _ffn(h: torch.Tensor, lp, cfg: DecoderConfig,
+         shard: Optional["DecoderShard"] = None) -> torch.Tensor:
     """SwiGLU from either the fused or the split layout."""
     if "gu_w" in lp:
         gu = _mm(h, lp["gu_w"])
         gate, up = gu[..., :cfg.intermediate_size], gu[..., cfg.intermediate_size:]
         return _mm(torch.nn.functional.silu(gate) * up, lp["down_w"])
-    return _mm(torch.nn.functional.silu(_mm(h, lp["gate_w"])) * _mm(h, lp["up_w"]), lp["down_w"])
+    act = torch.nn.functional.silu(_mm(h, lp["gate_w"])) * _mm(h, lp["up_w"])
+    return _row_parallel(act, lp["down_w"], shard)
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -296,12 +325,14 @@ def _attend(q, k, v, mask, cfg: DecoderConfig):
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
-def _layer(x, lp, rope, mask, cfg: DecoderConfig, attend=None):
+def _layer(x, lp, rope, mask, cfg: DecoderConfig, attend=None, shard=None):
     """One decoder layer over a whole sequence (no cache before it).
 
     Returns (x_out, k_new, v_new), k_new/v_new [B, S, KV, D] being this
     layer's post-rope keys and values for the cache. ``attend`` replaces
-    the masked ``_attend`` (prefill passes K9, which carries its own mask)."""
+    the masked ``_attend`` (prefill passes K9, which carries its own mask).
+    Under tensor parallelism ``cfg`` is the rank's local config and
+    ``shard`` its DecoderShard."""
     b, s, _ = x.shape
     cos, sin = rope
     h = _rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -313,9 +344,9 @@ def _layer(x, lp, rope, mask, cfg: DecoderConfig, attend=None):
         attn = attend(q, k, v)
     else:
         attn = _attend(q, k, v, mask, cfg)
-    x = x + _mm(attn.reshape(b, s, cfg.hidden_size), lp["o_w"])
+    x = x + _row_parallel(attn.reshape(b, s, cfg.hidden_size), lp["o_w"], shard)
     h = _rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(h, lp, cfg), k, v
+    return x + _ffn(h, lp, cfg, shard), k, v
 
 
 def _logits(params, x, cfg: DecoderConfig):
@@ -326,7 +357,11 @@ def _logits(params, x, cfg: DecoderConfig):
     if isinstance(head, dict):
         raw = x @ head["q"].to(x.dtype).T
         return (raw * head["s"].to(x.dtype)).float()
-    return (x @ head.T).float()
+    logits = (x @ head.T).float()
+    shard = params.get("tp")
+    if shard is not None and shard.vocab_split:
+        logits = comm.all_gather(logits, shard.mesh, shard.model_axis, dim=-1)
+    return logits
 
 
 @torch.inference_mode()
@@ -335,6 +370,7 @@ def decoder_forward(params, input_ids, cfg: DecoderConfig,
     """Full-sequence causal forward -> f32 logits [B, S, V]. ``attention_mask``
     marks real tokens (1) and LEFT padding (0); positions count real tokens,
     so left-padded prompts match HF."""
+    cfg, shard = _local(params, cfg)
     b, s = input_ids.shape
     dev = params["embed"].device
     input_ids = torch.as_tensor(input_ids).to(device=dev, dtype=torch.long)
@@ -347,7 +383,7 @@ def decoder_forward(params, input_ids, cfg: DecoderConfig,
     x = params["embed"][input_ids]
     rope = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
     for lp in params["layers"]:
-        x, _, _ = _layer(x, lp, rope, mask, cfg)
+        x, _, _ = _layer(x, lp, rope, mask, cfg, shard=shard)
     return _logits(params, x, cfg)
 
 
@@ -360,6 +396,7 @@ def _prefill(params, input_ids, attention_mask, max_total: int, cfg: DecoderConf
     place. Attention goes through K9 with ``pad_len`` = the count of
     padding zeros of each row, which equals ``tril & (mask == 1)`` when the
     zeros form a prefix (what every caller builds)."""
+    cfg, shard = _local(params, cfg)
     b, s = input_ids.shape
     positions = (torch.cumsum(attention_mask, dim=1) - 1).clamp_min(0)
     x = params["embed"][input_ids]
@@ -376,7 +413,7 @@ def _prefill(params, input_ids, attention_mask, max_total: int, cfg: DecoderConf
     k_cache = torch.zeros(shape, dtype=x.dtype, device=x.device)
     v_cache = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, k_new, v_new = _layer(x, lp, rope, None, cfg, attend=attend)
+        x, k_new, v_new = _layer(x, lp, rope, None, cfg, attend=attend, shard=shard)
         k_cache[i, :, :s] = k_new
         v_cache[i, :, :s] = v_new
     return _logits(params, x[:, -1:], cfg)[:, 0], k_cache, v_cache
@@ -387,6 +424,7 @@ def _cached_block(params, toks, positions, slot0: int, k_cache, v_cache, mask,
     """Feed toks [B, S] at rotary ``positions`` [B, S]: write their k/v into
     cache slots [slot0, slot0+S) in place, attend under ``mask`` [B, S, T],
     return f32 logits [B, S, V]."""
+    cfg, shard = _local(params, cfg)
     b, s = toks.shape
     x = params["embed"][toks.long()]
     cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
@@ -398,9 +436,9 @@ def _cached_block(params, toks, positions, slot0: int, k_cache, v_cache, mask,
             k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), cos, sin)
         v_cache[i, :, slot0:slot0 + s] = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         attn = _attend(q, k_cache[i], v_cache[i], mask, cfg).reshape(b, s, cfg.hidden_size)
-        x = x + _mm(attn, lp["o_w"])
+        x = x + _row_parallel(attn, lp["o_w"], shard)
         hh = _rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(hh, lp, cfg)
+        x = x + _ffn(hh, lp, cfg, shard)
     return _logits(params, x, cfg)
 
 
@@ -517,7 +555,10 @@ def generate_tokens(params, input_ids, attention_mask, generator: Optional[torch
     eos it keeps emitting eos, so trimmed output does not depend on
     max_new_tokens; when every row is done the remaining steps are skipped
     and filled with eos (the same tokens the JAX package's full scan gives).
-    ``generator`` seeds sampling (temperature > 0); greedy ignores it."""
+    ``generator`` seeds sampling (temperature > 0); greedy ignores it. On
+    ``shard_decoder_params`` params, with ``shard_decoder_inputs`` rows,
+    every rank returns the whole batch, as the JAX function returns the
+    global array; without a generator each rank seeds its own with 0."""
     st = _Greedy(params, input_ids, attention_mask, generator, cfg, max_new_tokens,
                  temperature, top_k)
     toks = [st.tok]
@@ -529,6 +570,11 @@ def generate_tokens(params, input_ids, attention_mask, generator: Optional[torch
     if out.shape[1] < max_new_tokens:
         out = torch.nn.functional.pad(out, (0, max_new_tokens - out.shape[1]),
                                       value=cfg.eos_token_id)
+    shard = params.get("tp")
+    if shard is not None:   # shard_decoder_inputs' rows, back in data-rank order
+        for axis in shard.mesh.axis_names:
+            if axis != shard.model_axis:
+                out = comm.all_gather(out, shard.mesh, axis)
     return out
 
 
@@ -709,3 +755,95 @@ def generate_stream(params, input_ids, attention_mask, generator: Optional[torch
         if (block[:, -1] == cfg.eos_token_id).all():
             return                      # every row finished mid-stream
         toks = [st.step() for _ in range(seg)]
+
+
+# ------------------------------------------------------- tensor parallelism
+
+@dataclass(frozen=True)
+class DecoderShard:
+    """This rank's place in a tensor-parallel decoder: the mesh, its model
+    axis, and whether the untied head's vocab rows are split over it."""
+
+    mesh: Any
+    model_axis: str
+    vocab_split: bool
+
+    @property
+    def tp(self) -> int:
+        return comm.axis_size(self.mesh, self.model_axis)
+
+
+def _local(params, cfg: DecoderConfig) -> Tuple[DecoderConfig, Optional[DecoderShard]]:
+    """(the config of this rank's heads and FFN columns, its DecoderShard);
+    (cfg, None) for unsharded params."""
+    shard = params.get("tp")
+    if shard is None or shard.tp == 1:
+        return cfg, shard
+    tp = shard.tp
+    return replace(cfg, hidden_size=cfg.hidden_size // tp, num_heads=cfg.num_heads // tp,
+                   num_kv_heads=cfg.num_kv_heads // tp,
+                   intermediate_size=cfg.intermediate_size // tp), shard
+
+
+# the leaves split on output features (columns) and on input rows
+_COLUMN_LEAVES = ("q_w", "k_w", "v_w", "gate_w", "up_w", "q_b", "k_b", "v_b")
+_ROW_LEAVES = ("o_w", "down_w")
+
+
+def shard_decoder_params(params, mesh, cfg: DecoderConfig, model_axis: str = "model"):
+    """This rank's slice of ``params`` for tensor parallelism over
+    ``model_axis`` of ``mesh`` (a parallel.Mesh): the Megatron split of the
+    JAX package's shard_decoder_params. q/k/v (and their biases) and
+    gate/up keep this rank's output features (heads, FFN columns), o and
+    down its input rows, so each layer needs one all-reduce after attention
+    and one after the FFN; embed, the norms and a tied head are replicated;
+    an untied lm_head keeps its vocab rows when the vocabulary divides
+    evenly, else it is replicated. kv heads must divide the axis (asserted,
+    as in the JAX package), so GQA groups stay on one rank. Takes the split
+    float layout: the fused and int8 layouts raise ValueError."""
+    tp = comm.axis_size(mesh, model_axis)
+    assert cfg.num_kv_heads % tp == 0, (
+        f"num_kv_heads={cfg.num_kv_heads} not divisible by {model_axis}={tp}")
+    if cfg.intermediate_size % tp:
+        raise ValueError(f"intermediate_size={cfg.intermediate_size} not divisible by "
+                         f"{model_axis}={tp}")
+    layers = params["layers"]
+    if any(isinstance(v, dict) for lp in layers for v in lp.values()) or isinstance(
+            params.get("lm_head"), dict) or any("qkv_w" in lp or "gu_w" in lp for lp in layers):
+        raise ValueError("shard_decoder_params takes the split float layout "
+                         "(not fuse_decoder_params' or quantize_decoder_params' output)")
+    m = mesh.index(model_axis) if tp > 1 else 0
+
+    def part(t, dim):
+        n = t.shape[dim] // tp
+        return t.narrow(dim, m * n, n).clone(memory_format=torch.contiguous_format)
+
+    def local(name, t):
+        if tp == 1:
+            return t
+        if name in _COLUMN_LEAVES:
+            return part(t, t.dim() - 1)
+        if name in _ROW_LEAVES:
+            return part(t, 0)
+        return t
+
+    out = {k: v for k, v in params.items() if k not in ("layers", "lm_head")}
+    out["layers"] = [{k: local(k, v) for k, v in lp.items()} for lp in layers]
+    vocab_split = False
+    if "lm_head" in params:
+        vocab_split = tp > 1 and cfg.vocab_size % tp == 0
+        out["lm_head"] = part(params["lm_head"], 0) if vocab_split else params["lm_head"]
+    out["tp"] = DecoderShard(mesh, model_axis, vocab_split)
+    return out
+
+
+def shard_decoder_inputs(input_ids, attention_mask, mesh, data_axis: str = "data"):
+    """This rank's rows of the batch over ``data_axis`` (replicated over the
+    model axis), as torch tensors; the batch must divide evenly."""
+    ids, am = torch.as_tensor(input_ids), torch.as_tensor(attention_mask)
+    n = comm.axis_size(mesh, data_axis)
+    if ids.shape[0] % n:
+        raise ValueError(f"batch {ids.shape[0]} not divisible by {data_axis}={n}")
+    rows = ids.shape[0] // n
+    i = mesh.index(data_axis) if n > 1 else 0
+    return ids[i * rows:(i + 1) * rows], am[i * rows:(i + 1) * rows]

@@ -19,7 +19,7 @@ import torch
 
 from financial_rag_tpu_torch.config import ModelConfig
 from financial_rag_tpu_torch.device import resolve_device
-from financial_rag_tpu_torch.models.bert import bert_encode, prepare_params
+from financial_rag_tpu_torch.models.bert import bert_encode, bert_forward, prepare_params
 from financial_rag_tpu_torch.models.checkpoint import load_params
 from financial_rag_tpu_torch.tokenizer import WordPieceTokenizer
 from financial_rag_tpu_torch.utils import get_logger, time_block
@@ -221,6 +221,65 @@ class Encoder:
 
     def encode_one(self, text: str) -> np.ndarray:
         return self.encode([text])[0]
+
+
+class TokenEncoder:
+    """Per-token embeddings for the late-interaction (multivector) tier:
+    encoder last hidden states with CLS/SEP dropped, L2-normalized
+    (semantics of reference multivector_store.py:100-110). Runs
+    ``bert_forward`` on the encoder's own weights (``encoder.params``), on
+    its device and in its compute dtype, so on CUDA every forward launches
+    K2 and K3 (the JAX package picks XLA attention here; the port has no
+    such cut-off, see models/bert.py)."""
+
+    def __init__(self, encoder: Encoder, max_tokens: int = 128,
+                 batch_size: int = 32) -> None:
+        self.encoder = encoder
+        self.max_tokens = max_tokens
+        self.batch_size = batch_size
+
+    def _hidden(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        enc = self.encoder
+        hidden = bert_forward(enc.params, torch.from_numpy(ids).to(enc.device),
+                              torch.from_numpy(mask).to(enc.device), config=enc.config,
+                              compute_dtype=enc.compute_dtype)
+        return hidden.float().cpu().numpy()
+
+    def encode_tokens(self, texts: Sequence[str]) -> List[np.ndarray]:
+        """Per-text ragged token embeddings, computed in length-bucketed
+        batched forwards (one forward per bucket chunk)."""
+        enc = self.encoder
+        if not len(texts):
+            return []
+        seqs = [enc.tokenizer.encode(t, max_len=self.max_tokens + 2) for t in texts]
+        buckets: Dict[int, List[int]] = {}
+        for i, s in enumerate(seqs):
+            pad_to = min(max(64, ((len(s) + 63) // 64) * 64), enc.max_seq_len)
+            buckets.setdefault(pad_to, []).append(i)
+
+        out: List[Optional[np.ndarray]] = [None] * len(texts)
+        pad_id = enc.tokenizer.pad_id
+        for seq_len, idxs in sorted(buckets.items()):
+            for lo in range(0, len(idxs), self.batch_size):
+                batch_idx = idxs[lo: lo + self.batch_size]
+                n = len(batch_idx)
+                bsz = 8 if n <= 8 else self.batch_size
+                ids = np.full((bsz, seq_len), pad_id, np.int32)
+                mask = np.zeros((bsz, seq_len), np.int32)
+                for r, i in enumerate(batch_idx):
+                    s = seqs[i][:seq_len]
+                    ids[r, : len(s)] = s
+                    mask[r, : len(s)] = 1
+                mask[n:, 0] = 1  # pad rows must be non-empty for masked ops
+                hidden = self._hidden(ids, mask)
+                for r, i in enumerate(batch_idx):
+                    ln = len(seqs[i])
+                    vecs = hidden[r, 1: ln - 1]  # drop CLS/SEP
+                    if len(vecs) == 0:
+                        vecs = hidden[r, :1]
+                    out[i] = vecs / np.maximum(
+                        np.linalg.norm(vecs, axis=1, keepdims=True), 1e-12)
+        return out
 
 
 class DualEncoder:

@@ -1,5 +1,5 @@
 """One step of each multi-device path: training, sharded search, data-parallel
-encode, sharded IVF and the sharded engine.
+encode, sharded IVF, tensor-parallel decoding and the sharded engine.
 
     python -m financial_rag_tpu_torch.scripts.dryrun_multichip [--world 4] [--device cpu|cuda]
 
@@ -12,6 +12,13 @@ step must resolve ``pallas_tp`` (K11 on the local heads) and every rank's
 loss must be finite and equal. Each rank is a process (parallel/launch.py):
 on the GPU they share the cards over gloo where there are fewer cards than
 ranks, and take one each over NCCL otherwise.
+
+Section 5 is the tensor-parallel decoder on section 1's mesh, one process a
+rank: the JAX dryrun's tiny decoder (vocab 256, 2 layers, 4 query / 2 kv
+heads, FFN 128, attention bias, eos 0, f32; hidden 64 on the CPU and 256 on
+the GPU, where K9 takes heads of 64 or 128 only), ``shard_decoder_params``
+and ``shard_decoder_inputs``, dp rows of 8 prompt tokens, 4 new greedy
+tokens: every rank's tokens must equal the single-rank port's.
 
 Sections 2-4 and 6 run in this process over ``--world`` devices
 (``parallel.mesh.search_devices``; on one GPU every shard sits on it):
@@ -27,7 +34,6 @@ Sections 2-4 and 6 run in this process over ``--world`` devices
    answers for the golden questions, one of them streamed through the
    continuous-batching decode.
 
-Section 5, the tensor-parallel decoder, is not ported yet (ROADMAP.md).
 Prints one JSON line.
 """
 
@@ -46,6 +52,9 @@ import torch
 from financial_rag_tpu_torch.config import FrameworkConfig, ModelConfig
 from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.models.checkpoint import random_params, save_params_npz
+from financial_rag_tpu_torch.models.decoder import (DecoderConfig, generate_tokens,
+                                                    random_decoder_params, shard_decoder_inputs,
+                                                    shard_decoder_params)
 from financial_rag_tpu_torch.parallel import (ShardedFlatIndex, ShardedIVFIndex, launch,
                                               make_mesh, search_devices)
 from financial_rag_tpu_torch.training.contrastive import make_train_step
@@ -115,6 +124,54 @@ def sharded_ivf(n: int, device: torch.device) -> int:
     ids, _ = ivf.search(vecs[:4], top_k=5)
     assert (ids[:, 0] == np.arange(1, 5)).all(), "sharded IVF failed self-retrieval"
     return ivf.n_shards
+
+
+# ---------------------------------------- section 5: the decoder under TP
+
+DECODER_TP = dict(vocab_size=256, num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2,
+                  intermediate_size=128, attention_bias=True, eos_token_id=0)
+DECODER_NEW_TOKENS = 4
+
+
+def decoder_config(device: torch.device) -> DecoderConfig:
+    """The JAX dryrun's decoder; on the GPU at heads of 64 (hidden 256), the
+    narrowest width K9 is built for."""
+    fields = dict(DECODER_TP)
+    if device.type == "cuda":
+        fields["hidden_size"] = 64 * fields["num_heads"]
+    return DecoderConfig(**fields)
+
+
+def decoder_prompt(dp: int):
+    ids = np.random.default_rng(0).integers(1, DECODER_TP["vocab_size"], (dp, 8))
+    return ids.astype(np.int32), np.ones((dp, 8), np.int32)
+
+
+def decoder_rank(rank: int, world: int, device: torch.device) -> dict:
+    """Section 5 on one rank: greedy tokens of its shard_decoder_params
+    slice, gathered over the data axis."""
+    tp = 2 if world % 2 == 0 else 1
+    mesh = make_mesh([("data", -1), ("model", tp)], timeout_s=TIMEOUT_S)
+    cfg = decoder_config(device)
+    params = shard_decoder_params(random_decoder_params(cfg, seed=0, device=device), mesh, cfg)
+    ids, mask = decoder_prompt(mesh.shape["data"])
+    toks = generate_tokens(params, *shard_decoder_inputs(ids, mask, mesh), cfg=cfg,
+                           max_new_tokens=DECODER_NEW_TOKENS)
+    return {"mesh": dict(mesh.shape), "tokens": toks.cpu().numpy()}
+
+
+def decoder_tp(world: int, device: torch.device) -> dict:
+    """Section 5: ``world`` ranks against the single-rank port."""
+    out = launch.spawn(decoder_rank, world, device=device, timeout_s=TIMEOUT_S)
+    cfg = decoder_config(device)
+    dp = out[0]["mesh"]["data"]
+    ref = generate_tokens(random_decoder_params(cfg, seed=0, device=device), *decoder_prompt(dp),
+                          cfg=cfg, max_new_tokens=DECODER_NEW_TOKENS).cpu().numpy()
+    for r in out:
+        if r["tokens"].shape != (dp, DECODER_NEW_TOKENS) or (r["tokens"] != ref).any():
+            raise AssertionError(f"TP generation diverged from single-device: {r['tokens']} "
+                                 f"against {ref}")
+    return {"mesh": out[0]["mesh"], "hidden_size": cfg.hidden_size, "tokens": ref.tolist()}
 
 
 # ------------------------------------------------- section 6: the engine
@@ -302,8 +359,8 @@ def main(argv=None) -> int:
                       "sharded_search_shards": sharded_search(n, device),
                       "dp_encode_max_abs_diff": dp_encode(n, device),
                       "sharded_ivf_shards": sharded_ivf(n, device),
-                      "engine": {k: engine[k] for k in ("questions", "joins")},
-                      "not_ported": "section 5, the tensor-parallel decoder"}))
+                      "decoder_tp": decoder_tp(n, device),
+                      "engine": {k: engine[k] for k in ("questions", "joins")}}))
     return 0
 
 

@@ -1506,3 +1506,121 @@ def test_ingest_flush_syncs_the_card_of_every_shard_once(gen, kind, monkeypatch)
     IngestionPipeline.flush(SimpleNamespace(indexes={"baai": idx}))
     assert calls == [torch.device("cuda", 0)]
     assert torch.cuda.current_stream().query()
+
+
+# ------------------------------------------ the multivector tier, decoder TP
+
+
+def _token_sets(gen, n, t, d):
+    """n children of 1..t unit token rows on the card (numpy for upsert)."""
+    lens = torch.randint(1, t + 1, (n,), generator=gen, device="cuda").tolist()
+    return [torch.nn.functional.normalize(_randn(gen, ln, d), dim=1).cpu().numpy()
+            for ln in lens]
+
+
+def test_multivector_index_on_cuda_matches_the_cpu(gen):
+    """MaxSim of 1,000 children (1-32 tokens of 384, bf16 storage, grown
+    once from 512 slots) on the card against the same upserts on the CPU
+    in bf16 storage (exact bf16 products in f32 on both): identical ids
+    outside ties of 1e-4, scores within 1e-4; a deleted child never
+    surfaces; a child's own tokens find it first."""
+    from financial_rag_tpu_torch.index import MultiVectorIndex
+
+    toks = _token_sets(gen, 1000, 32, 384)
+    card = MultiVectorIndex(dim=384, max_child_tokens=32, capacity=512, device="cuda")
+    cpu = MultiVectorIndex(dim=384, max_child_tokens=32, capacity=512, device="cpu")
+    for idx in (card, cpu):
+        idx.upsert(np.arange(1, 1001), toks)
+        idx.delete([3])
+    assert card.capacity == 1024 and card._tokens.is_cuda and card.count() == 999
+    for i in (1, 500, 998):             # children 2, 501, 999 (3 is deleted)
+        q = toks[i][:16]
+        got, want = card.search_aggregate(q, top_k=24), cpu.search_aggregate(q, top_k=24)
+        assert 3 not in [h["child_id"] for h in got]
+        np.testing.assert_allclose([h["score"] for h in got], [h["score"] for h in want],
+                                   rtol=0, atol=1e-4)
+        for g, w in zip(got, want):
+            assert g["child_id"] == w["child_id"] or abs(g["score"] - w["score"]) <= 1e-4
+        assert got[0]["child_id"] == i + 1
+
+
+def test_token_encoder_launches_k2_k3_and_matches_the_cpu(gen):
+    """TokenEncoder on a 2-layer bge-small-width encoder on the card (bf16)
+    launches K2 and K3 once a layer per forward and matches the same
+    weights on the CPU (f32, plain versions) at cosine >= 0.999 per token,
+    with the same ragged shapes."""
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.models.encoder import Encoder, TokenEncoder
+
+    cfg = ModelConfig(name="bge-small-2l", hidden_size=384, num_layers=2, num_heads=12,
+                      intermediate_size=1536, vocab_size=30522, max_position=512)
+    params = random_params(cfg, seed=0)
+    texts = ["the lock-in period is 36 months", "gst " * 90, "a", "",
+             "the annual premium is Rs 82,500 payable before 15 June each year"]
+    card = TokenEncoder(Encoder(cfg, params, device="cuda"), max_tokens=128)
+    before = (fa.LAUNCHES, ffn.LAUNCHES)
+    got = card.encode_tokens(texts)
+    torch.cuda.synchronize()
+    # two buckets (64 and 128 tokens): two forwards of 2 layers
+    assert (fa.LAUNCHES - before[0], ffn.LAUNCHES - before[1]) == (4, 4)
+    want = TokenEncoder(Encoder(cfg, params, device="cpu"), max_tokens=128).encode_tokens(texts)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        cos = (g * w).sum(1) / (np.linalg.norm(g, axis=1) * np.linalg.norm(w, axis=1))
+        assert cos.min() >= 0.999, cos.min()
+
+
+def test_ingest_flush_syncs_the_multivector_tiers_card(gen, monkeypatch):
+    """A flat index and a multivector tier on cuda:0: flush synchronises
+    cuda:0 once and leaves the tier's upsert landed."""
+    from types import SimpleNamespace
+
+    from financial_rag_tpu_torch.index import MultiVectorIndex
+    from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline
+
+    flat = FlatIndex(dim=384, capacity=1024, device="cuda")
+    flat.upsert(list(range(1, 65)), _sign_rows(gen, 64, 384))
+    mv = MultiVectorIndex(dim=384, max_child_tokens=128, capacity=4096, device="cuda")
+    mv.upsert(list(range(1, 1025)), _token_sets(gen, 1024, 128, 384))
+    real, calls = torch.cuda.synchronize, []
+
+    def counting(device=None):
+        calls.append(device)
+        real(device)
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    IngestionPipeline.flush(SimpleNamespace(indexes={"baai": flat}, multivector_index=mv))
+    assert calls == [torch.device("cuda", 0)]
+    assert torch.cuda.current_stream().query()
+
+
+def test_two_rank_tp_generate_on_one_card_matches_the_single_device_port(gen):
+    """generate_tokens on dp1 x tp2, two ranks sharing the card over gloo
+    (K9 on 2 query / 1 kv heads of 64 a rank, f32), against the
+    single-device port on the same weights and left-padded prompts: the
+    same greedy tokens on both ranks, and the same generate_tokens_spec
+    tokens for the first row."""
+    fields = dict(vocab_size=512, num_layers=2, hidden_size=256, num_heads=4, num_kv_heads=2,
+                  intermediate_size=512, attention_bias=True, eos_token_id=0)
+    cfg = decoder.DecoderConfig(**fields)
+    full = decoder.random_decoder_params(cfg, seed=3, device="cpu")
+    tree = {k: v.numpy() for k, v in full.items() if k != "layers"}
+    tree["layers"] = {k: np.stack([lp[k].numpy() for lp in full["layers"]])
+                      for k in full["layers"][0]}
+    rng = np.random.default_rng(3)
+    ids = rng.integers(1, 512, (2, 40)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, :13] = 0
+    from financial_rag_tpu_torch.parallel import launch
+
+    ranks = launch.spawn(workers.decoder_tp_generate, 2, args=([(fields, tree, ids, mask, True)],
+                                                               2, 8),
+                         device="cuda", timeout_s=120, join_timeout_s=300)
+    params = decoder.decoder_params_from_numpy(tree, device="cuda")
+    want = decoder.generate_tokens(params, ids, mask, cfg=cfg, max_new_tokens=8).cpu().numpy()
+    spec, steps = decoder.generate_tokens_spec(params, ids[:1], mask[:1], cfg=cfg,
+                                               max_new_tokens=8, draft_k=4)
+    for r in ranks:
+        np.testing.assert_array_equal(r["cases"][0]["tokens"], want)
+        np.testing.assert_array_equal(r["cases"][0]["spec_tokens"], spec.numpy())
+        assert r["cases"][0]["spec_steps"] == steps

@@ -62,6 +62,14 @@ def test_server_import_leaves_werkzeug_and_jax_unloaded():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_port_files_include_the_last_modules():
+    """The multivector tier and the profiler capture, the JAX package's last
+    modules the port lacked, are walked above like every port file."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"financial_rag_tpu_torch/index/multivector.py",
+            "financial_rag_tpu_torch/utils/profiling.py"} <= names
+
+
 OPERATOR_SCRIPTS = ("ingest_all", "check_collections", "test_full_flow", "pc_retrieval_smoke",
                     "pc_llm_answer", "run_end_to_end", "serve", "recall_eval")
 

@@ -14,6 +14,7 @@ import torch
 
 from financial_rag_tpu_torch.index.flat import FlatIndex
 from financial_rag_tpu_torch.index.ivf import IVFIndex
+from financial_rag_tpu_torch.index.multivector import MultiVectorIndex
 from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline
 from financial_rag_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
 
@@ -53,6 +54,15 @@ def _flush(**indexes):
     IngestionPipeline.flush(SimpleNamespace(indexes=indexes))
 
 
+def _multivector(card=None):
+    """A multivector tier whose token block stands on cuda:card (None: the
+    CPU)."""
+    index = MultiVectorIndex(dim=8, max_child_tokens=4, capacity=8, chunk=8, device="cpu")
+    if card is not None:
+        index._tokens = SimpleNamespace(device=torch.device("cuda", card))
+    return index
+
+
 @pytest.mark.parametrize("make", [_flat, _ivf], ids=["sharded_flat", "sharded_ivf"])
 def test_flush_syncs_each_shard_device_once(make, synced):
     """4 shards on 2 cards: 2 calls, one a card."""
@@ -87,3 +97,20 @@ def test_flush_syncs_nothing_on_the_cpu(make, devices, synced):
 def test_storage_devices_name_every_shard(make, n):
     index = make(None if n == 1 else CPU4)
     assert index.storage_devices() == [torch.device("cpu")] * n
+
+
+@pytest.mark.parametrize("tier_card,want", [(1, [0, 1]), (0, [0])],
+                         ids=["own_card", "shared_card"])
+def test_flush_syncs_the_multivector_tiers_card(tier_card, want, synced):
+    """The multivector tier's upserts land inside the ingest clock: its card
+    is synchronised too, once, also when an index shares it."""
+    IngestionPipeline.flush(SimpleNamespace(indexes={"baai": _on_cards(_flat(), [0])},
+                                            multivector_index=_multivector(tier_card)))
+    assert sorted(synced, key=str) == [torch.device("cuda", c) for c in want]
+
+
+def test_flush_with_a_multivector_tier_on_the_cpu_syncs_nothing(synced):
+    IngestionPipeline.flush(SimpleNamespace(indexes={"baai": _flat()},
+                                            multivector_index=_multivector()))
+    assert synced == []
+    assert _multivector().storage_devices() == [torch.device("cpu")]

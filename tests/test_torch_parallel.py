@@ -453,7 +453,10 @@ def test_dryrun_multichip_on_four_cpu_ranks(tmp_path):
     """scripts/dryrun_multichip.py --device cpu --world 4: one dp2 x tp2
     train step at the JAX dryrun's tiny config through pallas_tp, a finite
     loss; sections 2-4 and 6 over 4 devices (the sharded engine answering
-    as the single-device one); one JSON line, exit 0."""
+    as the single-device one); section 5's dp2 x tp2 greedy tokens, which
+    the script holds to the single-rank port, equal to the JAX dryrun's
+    single-device generate_tokens on the same weights and prompts; one JSON
+    line, exit 0."""
     proc = subprocess.run(
         [sys.executable, "-m", "financial_rag_tpu_torch.scripts.dryrun_multichip",
          "--device", "cpu", "--world", "4"],
@@ -465,3 +468,16 @@ def test_dryrun_multichip_on_four_cpu_ranks(tmp_path):
     assert rep["sharded_search_shards"] == rep["sharded_ivf_shards"] == 4
     assert rep["dp_encode_max_abs_diff"] < 2e-5
     assert rep["engine"]["questions"] == 3 and rep["engine"]["joins"] >= 1
+    assert "not_ported" not in rep
+    dec = rep["decoder_tp"]
+    assert dec["mesh"] == {"data": 2, "model": 2} and dec["hidden_size"] == 64
+
+    from financial_rag_tpu.models import decoder as jdec
+    from financial_rag_tpu_torch.scripts import dryrun_multichip as dry
+
+    cfg = jdec.DecoderConfig(**dry.DECODER_TP)
+    ids, mask = dry.decoder_prompt(2)
+    want = jdec.generate_tokens(jdec.random_decoder_params(cfg, seed=0), jnp.asarray(ids),
+                                jnp.asarray(mask), jax.random.PRNGKey(0), cfg=cfg,
+                                max_new_tokens=dry.DECODER_NEW_TOKENS)
+    np.testing.assert_array_equal(np.asarray(dec["tokens"]), np.asarray(want))

@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 from financial_rag_tpu_torch.config import ModelConfig
-from financial_rag_tpu_torch.models import bert
+from financial_rag_tpu_torch.models import bert, decoder
 from financial_rag_tpu_torch.ops import flash_attention as fa
 from financial_rag_tpu_torch.parallel import comm, make_mesh, train_mesh
 from financial_rag_tpu_torch.training import contrastive, rerank_ft
@@ -171,3 +171,28 @@ def step_grads(rank, world, device, cfg_fields, params, batch, tp):
     launches = (fa.TP_LAUNCHES - before[0], fa.TP_BWD_LAUNCHES - before[1])
     return {"loss": float(loss), "launches": launches,
             "grads": _np_tree(grads) if rank == 0 else None}
+
+
+def decoder_tp_generate(rank, world, device, cases, tp, new):
+    """Each case ``(cfg fields, numpy decoder tree, ids, mask, spec)``:
+    generate_tokens on this rank's shard_decoder_params slice and
+    shard_decoder_inputs rows (the whole [B, new] batch comes back), and
+    with ``spec`` generate_tokens_spec of the first row (every rank feeds it
+    whole). Returns the tokens, the spec tokens and steps, and whether the
+    head's vocab rows were split."""
+    mesh = train_mesh(tp, timeout_s=GROUP_TIMEOUT_S)
+    out = []
+    for fields, tree, ids, mask, spec in cases:
+        cfg = decoder.DecoderConfig(**fields)
+        params = decoder.shard_decoder_params(
+            decoder.decoder_params_from_numpy(tree, device=device), mesh, cfg)
+        lids, lmask = decoder.shard_decoder_inputs(ids, mask, mesh)
+        toks = decoder.generate_tokens(params, lids, lmask, cfg=cfg, max_new_tokens=new)
+        r = {"tokens": toks.cpu().numpy(), "vocab_split": params["tp"].vocab_split,
+             "local_rows": int(lids.shape[0])}
+        if spec:
+            stoks, steps = decoder.generate_tokens_spec(params, ids[:1], mask[:1], cfg=cfg,
+                                                        max_new_tokens=new, draft_k=4)
+            r.update(spec_tokens=stoks.numpy(), spec_steps=steps)
+        out.append(r)
+    return {"coords": (mesh.index("data"), mesh.index("model")), "cases": out}
