@@ -19,7 +19,10 @@ Phases, each printing one JSON line:
               must load.
 3. kernel  -- every kernel (K1-K11) at its main-path shapes (and K1-K5, K7,
               K8, K10 and K11 again at the bge-base width: head_dim 64,
-              hidden 768, D 768; K9 at 32 / 8 heads of 128), against its
+              hidden 768, D 768; K9 at heads of 128: Qwen2-1.5B's 12 / 2
+              at pad 1,100 and 0, Qwen2-7B's 28 / 4 and Llama-3-8B's 32 / 8,
+              each with its device time and, at S=4,096, a wrong-K9
+              control that must fail), against its
               plain PyTorch version on the
               same inputs, with its time, the
               plain version's, the library call's where one PyTorch call
@@ -139,6 +142,14 @@ Phases, each printing one JSON line:
 13. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
               (bf16, K9): last-position logits and each layer's attention
               output by cosine, with controls that must fail.
+13a. llm_d128 -- a head-128 decoder at full width: a seeded random-weight
+              checkpoint at the Qwen2-1.5B shape (28 layers, 12 query and 2
+              kv heads of 128) on the byte-level BPE fixture, served with
+              LLM_PROVIDER=local on a copy of the flat data dir; warm(), 3
+              golden questions through query and 1 through query_stream,
+              none degraded; K9 (its head-128 kernel) 28 times a prefill, a
+              4,096-token prefill; prints the write, build and warm seconds,
+              query p50 and max, prefill ms by bucket, verify-step ms.
 13b. decoder_tp -- tensor-parallel decoding of the 0.5B shape on tp 2, 2
               ranks sharing the card over gloo: batch 4 of left-padded
               prompts up to 512 tokens, 16 greedy tokens; the ranks' tokens
@@ -194,13 +205,14 @@ Phases, each printing one JSON line:
               4,096-token prompt and recall_eval's value.
 19. the script's total seconds, the ``kernels`` line (K10 and K11 with
               their head_dim-64 case as ``d64`` and its launches as
-              ``launches_d64``, K9 with its head_dim-128 case as ``d128``
-              and its launches on the TP ranks as ``launches_tp``, K2 and K3
+              ``launches_d64``, K9 with its head_dim-128 case as ``d128``,
+              its launches on the TP ranks as ``launches_tp`` and on
+              llm_d128 as ``launches_d128``, K2 and K3
               with the multivector path's as ``launches_multivector``), then
               the last line ``{"ok": true, "device": ...}``.
 
 Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
-part of 10b, 10c, 11, 13b (in its ranks' fresh processes), each part of
+part of 10b, 10c, 11, 13a, 13b (in its ranks' fresh processes), each part of
 14, 16 and 17, and 18) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
@@ -348,6 +360,13 @@ QWEN2_05B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
              "num_hidden_layers": 24, "num_attention_heads": 14, "num_key_value_heads": 2,
              "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
              "tie_word_embeddings": True, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+# the Qwen2-1.5B shape (HF config.json of Qwen/Qwen2-1.5B-Instruct), full
+# width and depth: 12 query and 2 kv heads of 128, so K9's head-128 kernel
+QWEN2_15B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+             "vocab_size": 151936, "hidden_size": 1536, "intermediate_size": 8960,
+             "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 2,
+             "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+             "tie_word_embeddings": True, "hidden_act": "silu", "torch_dtype": "bfloat16"}
 DEGRADED = "LLM unavailable"
 
 
@@ -418,6 +437,14 @@ def cuda_ms(torch, fn, budget_ms: float = 300.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """The device time of one call of fn(): its kernels' own time under
+    torch.profiler, averaged over ``calls`` calls; gaps between launches
+    do not count."""
+    prof, _ = profiled(torch, lambda attempt: [fn() for _ in range(calls)])
+    return sum(e.time_range.end - e.time_range.start for e in device_events(prof)) / 1e3 / calls
 
 
 @functools.lru_cache(maxsize=None)
@@ -718,7 +745,8 @@ def kernel_cases(torch, F, seed):
     cases += attention_bwd_cases(torch, F, randn, padded_mask, head_dim=64, shapes=WIDE_BWD_SHAPES)
     cases += attention_tp_cases(torch, F, randn, padded_mask, head_dim=64,
                                 shapes=TP_LOCAL_SHAPES[:2])
-    cases += causal_cases(torch, F, randn, heads=(32, 8, 128), shapes=CAUSAL_128_SHAPES)
+    for heads, shapes in CAUSAL_128_CASES:
+        cases += causal_cases(torch, F, randn, heads=heads, shapes=shapes)
     return cases
 
 
@@ -1071,8 +1099,12 @@ def probe_cases(torch, gen, randn, d: int = 384, shapes=((8, 64), (16, 4), (16, 
 
 CAUSAL_SHAPES = ((1, 4096, (1100,), "bf16"), (1, 128, (60,), "bf16"),
                  (3, 1024, (0, 300, 1023), "bf16"), (1, 4096, (1100,), "f32"))
-# K9 at heads of 128 (Llama-3-8B's 32 query / 8 kv heads): the answer prompt
-CAUSAL_128_SHAPES = ((1, 4096, (0,), "bf16"),)
+# K9 at heads of 128, B=1 S=4,096: Qwen2-1.5B's 12 query / 2 kv heads at
+# the served answer prompt's pad and at pad 0 (its first case is the
+# kernels line's ``d128``), Qwen2-7B's 28 / 4 and Llama-3-8B's 32 / 8 at pad 0
+CAUSAL_128_CASES = (((12, 2, 128), ((1, 4096, (1100,), "bf16"), (1, 4096, (0,), "bf16"))),
+                    ((28, 4, 128), ((1, 4096, (0,), "bf16"),)),
+                    ((32, 8, 128), ((1, 4096, (0,), "bf16"),)))
 
 
 def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES):
@@ -1106,9 +1138,10 @@ def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES):
         def plain(q=q, k=k, v=v, p=pad):
             return cf.causal_flash_prefill_plain(q, k, v, p, num_q_heads=hq, num_kv_heads=hkv)
 
-        # the control: the plain version with its first real key tile lost
-        control = (lambda q=q, k=k, v=v, p=pad: plain(q, k, v, p + 64)) \
-            if (s, dtype, d) == (4096, torch.bfloat16, 64) else None
+        # the control: the plain version with its first real key tile (64
+        # keys at head_dim 64, 128 at 128) lost
+        control = (lambda q=q, k=k, v=v, p=pad: plain(q, k, v, p + (64 if d == 64 else 128))) \
+            if (s, dtype) == (4096, torch.bfloat16) else None
         cases.append((name, f"B={b},S={s},pads={list(pads)},heads={hq}/{hkv}x{d},{label}",
                       lambda q=q, k=k, v=v, p=pad: cf.causal_flash_prefill(
                           q, k, v, p, num_q_heads=hq, num_kv_heads=hkv),
@@ -1299,7 +1332,7 @@ def causal_cmp(pads, hq: int, bf16: bool, control=None):
     small as the absolute bound, which says little about such rows. Padding
     rows exactly 0. ``control`` (the plain version with the first real key tile lost) must
     fail the relative bound on the longest 1,024 rows, where that tile is
-    2% of the keys."""
+    2% (64 keys) or 4% (128 keys, head_dim 128) of the keys."""
     tol, rtol = (3e-2, 2.0 ** -6) if bf16 else (1e-4, 1e-4)
 
     def cmp(a, b):
@@ -1448,6 +1481,8 @@ def phase_kernels(torch, F, seed):
             elif not any(HOPPER_SWEEP[name] in n for n in names):
                 unseen.append((name, shape, names))
         ms = cuda_ms(torch, run)
+        if kernel == "causal_flash_prefill":   # the kernel alone, without the wrapper's host time
+            detail["device_ms"] = device_ms(torch, run)
         plain_ms = cuda_ms(torch, plain)
         if isinstance(library, SdpaBackward):
             lib_ms = library.ms(cuda_ms)
@@ -3157,33 +3192,26 @@ class _StepRecorder:
                                            if self.steps else None)}
 
 
-def phase_llm(torch, cfg, work: Path, seed: int):
-    """On-device answer synthesis: a seeded random-weight checkpoint at the
-    Qwen2-0.5B shape (full width and depth, bf16, WordLevel tokenizer over
-    the corpus words padded to the 151,936 ids) served through
-    Runtime.build(device="cuda") with LLM_PROVIDER=local and
-    LLM_MAX_NEW_TOKENS=LLM_SMOKE_NEW_TOKENS on a copy of the flat data dir
-    (without the feedback DB, whose result cache would answer the
-    questions). Random weights never emit eos, so every generation runs to
-    its new-token bucket. warm() runs the 4,096 prompt bucket; the 9 golden
-    questions go through RAGEngine.query (two generations each: the query
-    normaliser and the answer, both through prompt-lookup speculation) and
-    3 through query_stream. LocalLLM and the provider swallow exceptions by
-    design, so the checks are that the model loaded, that no answer is the
-    degradation text and that no stream fell back to one-shot synthesis.
-    With random weights the normaliser rewrites each question into random
-    words: this phase tests the path, not the answers' quality."""
+def serve_local_llm(torch, cfg, work: Path, ckpt: Path, hf: dict, what: str, questions,
+                    stream_questions):
+    """Runtime.build(device="cuda") with LLM_PROVIDER=local on ``ckpt`` (bf16,
+    LLM_MAX_NEW_TOKENS=LLM_SMOKE_NEW_TOKENS) over a copy of the flat data
+    dir without the feedback DB, whose result cache would answer the
+    questions; warm() (the 4,096 prompt bucket), ``questions`` through
+    RAGEngine.query and ``stream_questions`` through query_stream, with
+    every launch counter set to 0 before the build. Random weights never
+    emit eos, so every generation runs to its new-token bucket. LocalLLM
+    and the provider swallow exceptions by design, so the checks are that
+    the model loaded in bf16 on the card, that no answer is the
+    degradation text, that no stream fell back to one-shot synthesis, that
+    every kernel of LLM_PATH launched, K9 once a layer and a prefill, and
+    that a 4,096-token prefill ran. Returns (runtime, its LocalLLM, the
+    query outputs, and the timings, prefill stats and launches)."""
     from financial_rag_tpu_torch.llm.local_llm import LocalLLM
-    from financial_rag_tpu_torch.llm.prompts import QUERY_NORMALIZE
     from financial_rag_tpu_torch.runtime import Runtime
 
-    t0 = time.perf_counter()
-    ckpt = work / "qwen2-0.5b"
-    if not (ckpt / "config.json").exists():      # the load phase wrote it
-        write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10)
-    checkpoint_s = time.perf_counter() - t0
-    shutil.copytree(work / "data", work / "data_llm",
-                    ignore=shutil.ignore_patterns("feedback.db*"))
+    data = work / f"data_{what}"
+    shutil.copytree(work / "data", data, ignore=shutil.ignore_patterns("feedback.db*"))
     cfg = copy.deepcopy(cfg)
     cfg.llm.provider, cfg.llm.local_checkpoint = "local", str(ckpt)
     cfg.llm.local_dtype = "bfloat16"
@@ -3192,43 +3220,70 @@ def phase_llm(torch, cfg, work: Path, seed: int):
     reset_launches()
     with _StepRecorder(torch) as rec:
         t_build = time.perf_counter()
-        rt = Runtime.build(cfg, data_dir=work / "data_llm", device="cuda")
+        rt = Runtime.build(cfg, data_dir=data, device="cuda")
         llm = getattr(rt.engine.llm, "inner", None)     # BatchingLLM by default
         check(isinstance(llm, LocalLLM) and llm.device.type == "cuda",
-              f"the provider is {type(rt.engine.llm).__name__} over "
+              f"{what}: the provider is {type(rt.engine.llm).__name__} over "
               f"{type(llm).__name__}, not a BatchingLLM over a LocalLLM on the card")
         t_warm = time.perf_counter()
-        check(llm.warm() is True and not llm._failed, "LocalLLM did not load (see the log)")
+        check(llm.warm() is True and not llm._failed, f"{what}: LocalLLM did not load (see the log)")
         warm_s = time.perf_counter() - t_warm
         build_s = t_warm - t_build
-        check(llm._params["embed"].dtype == torch.bfloat16, "the decoder is not in bf16")
+        check(llm._params["embed"].dtype == torch.bfloat16, f"{what}: the decoder is not in bf16")
         query_ms, answers = [], []
-        for question in GOLDEN_QUESTIONS:
+        for question in questions:
             tq = time.perf_counter()
             out = rt.engine.query(question)
             query_ms.append((time.perf_counter() - tq) * 1e3)
             check(out.get("success") is True and not out.get("cache_hit"),
-                  f"llm: query failed or cached: {question!r}")
+                  f"{what}: query failed or cached: {question!r}")
             check(bool(out["answer"]) and not out["answer"].startswith(DEGRADED),
-                  f"llm: degraded answer for {question!r}: {out['answer'][:120]!r}")
+                  f"{what}: degraded answer for {question!r}: {out['answer'][:120]!r}")
             answers.append(out)
         stream_ms = []
-        for question in GOLDEN_QUESTIONS[:3]:
+        for question in stream_questions:
             tq = time.perf_counter()
             events = list(rt.engine.query_stream(f"Please answer: {question}"))
             stream_ms.append((time.perf_counter() - tq) * 1e3)
             kind, final = events[-1]
             deltas = "".join(d for k, d in events if k == "answer_delta")
-            check(kind == "complete" and final.get("success") is True, f"stream failed: {question!r}")
+            check(kind == "complete" and final.get("success") is True,
+                  f"{what}: stream failed: {question!r}")
             check(bool(deltas.strip()) and deltas.strip() == final["answer"],
-                  f"llm: the stream of {question!r} fell back to one-shot synthesis")
-            check(not final["answer"].startswith(DEGRADED), f"llm: degraded stream {question!r}")
+                  f"{what}: the stream of {question!r} fell back to one-shot synthesis")
+            check(not final["answer"].startswith(DEGRADED), f"{what}: degraded stream {question!r}")
         served = rec.summary()
     launches = read_launches()
-    check_path_launched(LLM_PATH, launches, "llm path")
-    check(launches["causal_flash_prefill"] == QWEN2_05B["num_hidden_layers"] * served["prefills"],
-          f"llm: {launches['causal_flash_prefill']} K9 launches for {served['prefills']} prefills")
-    check(4096 in served["prompt_buckets"], f"llm: no 4,096-token prefill ({served})")
+    check_path_launched(LLM_PATH, launches, f"{what} path")
+    check(launches["causal_flash_prefill"] == hf["num_hidden_layers"] * served["prefills"],
+          f"{what}: {launches['causal_flash_prefill']} K9 launches for {served['prefills']} prefills")
+    check(4096 in served["prompt_buckets"], f"{what}: no 4,096-token prefill ({served})")
+    stats = {"runtime_build_s": build_s, "warm_s": warm_s,
+             "query_p50_ms": statistics.median(query_ms), "query_max_ms": max(query_ms),
+             "queries": len(query_ms), "stream_ms": stream_ms, **served, "launches": launches}
+    return rt, llm, cfg, answers, stats
+
+
+def phase_llm(torch, cfg, work: Path, seed: int):
+    """On-device answer synthesis: a seeded random-weight checkpoint at the
+    Qwen2-0.5B shape (full width and depth, bf16, WordLevel tokenizer over
+    the corpus words padded to the 151,936 ids) served by serve_local_llm:
+    the 9 golden questions through RAGEngine.query (two generations each:
+    the query normaliser and the answer, both through prompt-lookup
+    speculation) and 3 through query_stream. Then generate against the
+    joined stream, a generate_many wave and LLM_DTYPE=int8. With random
+    weights the normaliser rewrites each question into random words: this
+    phase tests the path, not the answers' quality."""
+    from financial_rag_tpu_torch.llm.local_llm import LocalLLM
+    from financial_rag_tpu_torch.llm.prompts import QUERY_NORMALIZE
+
+    t0 = time.perf_counter()
+    ckpt = work / "qwen2-0.5b"
+    if not (ckpt / "config.json").exists():      # the load phase wrote it
+        write_llm_checkpoint(ckpt, QWEN2_05B, seed + 10)
+    checkpoint_s = time.perf_counter() - t0
+    rt, llm, cfg, answers, stats = serve_local_llm(torch, cfg, work, ckpt, QWEN2_05B, "llm",
+                                                   GOLDEN_QUESTIONS, GOLDEN_QUESTIONS[:3])
 
     # one answer prompt, one-shot against streamed; a generate_many wave of
     # three buckets; the int8 weight-only layout
@@ -3251,16 +3306,39 @@ def phase_llm(torch, cfg, work: Path, seed: int):
           "llm: the int8 LocalLLM did not load")
     check(bool(text8) and not text8.startswith(DEGRADED), f"llm: int8 answer {text8!r}")
     emit({"phase": "llm", "model": "Qwen2-0.5B shape, random weights, bf16",
-          "checkpoint_write_s": checkpoint_s, "runtime_build_s": build_s, "warm_s": warm_s,
-          "query_p50_ms": statistics.median(query_ms), "query_max_ms": max(query_ms),
-          "queries": len(query_ms), "stream_ms": stream_ms, **served,
+          "checkpoint_write_s": checkpoint_s, **stats,
           "max_new_tokens": cfg.llm.local_max_new_tokens, "spec_k": cfg.llm.local_spec_k,
           "generate_many_buckets": buckets, "generate_many_ms": many_ms,
-          "int8_load_and_generate_s": int8_s, "launches": launches,
-          "answer_sample": answers[0]["answer"][:160]})
+          "int8_load_and_generate_s": int8_s, "answer_sample": answers[0]["answer"][:160]})
     del llm8
     torch.cuda.empty_cache()
-    return rt, ckpt, launches
+    return rt, ckpt, stats["launches"]
+
+
+def phase_llm_d128(torch, cfg, work: Path, seed: int):
+    """A head-128 decoder served at full width: a seeded random-weight
+    checkpoint at the Qwen2-1.5B shape (28 layers of 1,536, 12 query and 2
+    kv heads of 128, FFN 8,960, vocab 151,936, q/k/v biases, tied
+    embeddings; 1.54 B parameters, 3.1 GB in bf16) with the committed
+    byte-level BPE fixture as its tokenizer (padded to the vocabulary),
+    served by serve_local_llm: 3 golden questions through RAGEngine.query
+    and 1 through query_stream, so K9's head-128 kernel runs in every
+    prefill. Returns the launches."""
+    t0 = time.perf_counter()
+    ckpt = work / "qwen2-1.5b"
+    write_llm_checkpoint(ckpt, QWEN2_15B, seed + 18, bpe_fixture=BPE_FIXTURE)
+    checkpoint_s = time.perf_counter() - t0
+    rt, llm, _, answers, stats = serve_local_llm(torch, cfg, work, ckpt, QWEN2_15B, "llm_d128",
+                                                 GOLDEN_QUESTIONS[:3], GOLDEN_QUESTIONS[3:4])
+    check(llm._dcfg.head_dim == 128, f"llm_d128: head_dim {llm._dcfg.head_dim}, not 128")
+    emit({"phase": "llm_d128", "model": "Qwen2-1.5B shape, random weights, bf16, BPE fixture",
+          "checkpoint_write_s": checkpoint_s, **stats,
+          "k9_launches": stats["launches"]["causal_flash_prefill"],
+          "seconds": time.perf_counter() - t0, "answer_sample": answers[0]["answer"][:160]})
+    del rt, llm
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return stats["launches"]
 
 
 CLI_SCRIPTS = ("ingest_all", "check_collections", "test_full_flow", "pc_retrieval_smoke",
@@ -4915,6 +4993,7 @@ def main(argv=None) -> int:
             phase_decoder_parity(torch, rt_llm, ckpt)
             del rt, rt_llm
             torch.cuda.empty_cache()
+            k9_d128 = phase_llm_d128(torch, cfg, work, args.seed)["causal_flash_prefill"]
             k9_tp = phase_decoder_tp(torch, args.seed, info)
             # each kernel's count from the path that serves it
             launches["causal_flash_prefill"] = llm_launches["causal_flash_prefill"]
@@ -4948,15 +5027,15 @@ def main(argv=None) -> int:
             kernels[-1]["launches_d64"], kernels[-1]["bwd_launches_d64"] = k11_d64, k11_bwd_d64
         if name == "flash_attention_bwd":
             kernels[-1]["launches_d64"] = k10_d64
-        if name == "causal_flash_prefill":  # K9 on each rank's 7 / 1 local heads
-            kernels[-1]["launches_tp"] = k9_tp
+        if name == "causal_flash_prefill":  # K9 on each rank's 7 / 1 local heads; at 128
+            kernels[-1]["launches_tp"], kernels[-1]["launches_d128"] = k9_tp, k9_d128
         if name in ("flash_attention", "fused_ffn"):   # the multivector path's
             kernels[-1]["launches_multivector"] = mv_launches[name]
         for d in (64, 128):                # the same kernel at heads of 64 or 128
             if f"{name}@{d}" in timings:
                 kernels[-1][f"d{d}"] = {k: timings[f"{name}@{d}"][k] for k in (
                     "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}
+                    "library_ms", "device_ms") if k in timings[f"{name}@{d}"]}
         if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
         if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms

@@ -24,6 +24,7 @@ NotImplementedError at build.
 
 from __future__ import annotations
 
+import json
 import threading
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -42,7 +43,8 @@ from financial_rag_tpu_torch.ingest.pipeline import IngestionPipeline, collectio
 from financial_rag_tpu_torch.llm.provider import get_provider
 from financial_rag_tpu_torch.models.encoder import DualEncoder, Encoder
 from financial_rag_tpu_torch.models.hashing import HashingEncoder
-from financial_rag_tpu_torch.ops import flash_attention, fused_ffn, topk
+from financial_rag_tpu_torch.models.decoder import DecoderConfig
+from financial_rag_tpu_torch.ops import causal_flash, flash_attention, fused_ffn, topk
 from financial_rag_tpu_torch.parallel import (ShardedFlatIndex, ShardedIVFIndex, encode_devices,
                                               search_devices)
 from financial_rag_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -83,11 +85,14 @@ def _checkpoint_config(path: Optional[str]) -> Optional[ModelConfig]:
 
 def check_kernel_widths(cfg: FrameworkConfig) -> None:
     """The CUDA path runs every encoder and reranker layer through K2 and
-    K3, and a bf16 or int8 flat index through K4-K7 (a sharded one through
-    K7), which take only the widths they were built for (head_dim 32 or 64;
-    hidden 384 or 768; D up to 768); the JAX package and the CPU take any. Raise
-    NotImplementedError at build, naming each kernel and its limit, rather
-    than on the first encode or search. (K6, which takes D <= 384, serves
+    K3, a bf16 or int8 flat index through K4-K7 (a sharded one through
+    K7), and a local LLM's every prefill through K9, which take only the
+    widths they were built for (head_dim 32 or 64; hidden 384 or 768; D up
+    to 768; the decoder's head_dim 64 or 128); the JAX package and the CPU
+    take any. Raise NotImplementedError at build, naming each kernel and its
+    limit, rather than on the first encode, search or prefill (a K9 refusal
+    there would be swallowed by the provider's degrade path, and every
+    answer would be the no-LLM text). (K6, which takes D <= 384, serves
     only a FlatIndex built with backend ``pallas_exact``, never the
     runtime's; that index refuses wider rows itself.)"""
     models = {"baai": cfg.encoders.baai_path, "gte": cfg.encoders.gte_path}
@@ -117,6 +122,13 @@ def check_kernel_widths(cfg: FrameworkConfig) -> None:
         if name != "reranker" and flat_sweep and mc.hidden_size > max_d:
             problems.append(f"{name}: index dim {mc.hidden_size}, but the {cfg.index.dtype} "
                             f"flat sweeps ({sweeps}) take D <= {max_d}")
+    llm_dir = Path(cfg.llm.local_checkpoint or "")
+    if cfg.llm.provider == "local" and cfg.llm.local_checkpoint and (llm_dir / "config.json").exists():
+        dc = DecoderConfig.from_hf_config(json.loads((llm_dir / "config.json").read_text()))
+        if dc.hidden_size % dc.num_heads or dc.head_dim not in causal_flash.KERNEL_HEAD_DIMS:
+            problems.append(f"local LLM: head_dim {dc.hidden_size / dc.num_heads:g}, but "
+                            f"causal_flash_prefill (K9) takes head_dim "
+                            f"{' or '.join(map(str, causal_flash.KERNEL_HEAD_DIMS))}")
     if problems:
         raise NotImplementedError("the CUDA kernels are not built for these widths: "
                                   + "; ".join(problems))

@@ -9,7 +9,8 @@ libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
 (``frag_bucketed_topk``), K6 (``frag_topk_exact``), K9
 (``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
 launched on the same inputs at the main path's shapes (K2, K3, K4, K5 and
-K10 also at the bge-base width: heads of 64, hidden 768, D 768), the two libraries in
+K10 also at the bge-base width: heads of 64, hidden 768, D 768; K9 also at
+heads of 128, Qwen2-1.5B's, Qwen2-7B's and Llama-3-8B's), the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
 and as the kernels' own device time under torch.profiler (``*_dev_ms``,
@@ -120,9 +121,16 @@ K6_SHAPES = (("K6 table", 128, 102400, "bf16", 24, "grid"),
              ("backends", 9, 4096, "bf16", 24, "grid"),
              ("k=128", 128, 102400, "bf16", 128, "grid"),
              ("ascending", 128, 16384, "bf16", 24, "ascending"))
-# (label, B, S, pads) of K9 at the Qwen2-0.5B head shape (14 / 2 heads of 64)
-K9_SHAPES = (("answer prompt", 1, 4096, (1100,)), ("normaliser", 1, 128, (60,)),
-             ("generate_many", 3, 1024, (0, 300, 1023)))
+# (label, B, S, pads, query heads, kv heads, head_dim) of K9: at the
+# Qwen2-0.5B head shape (14 / 2 heads of 64), then at heads of 128 (Qwen2-1.5B's
+# 12 / 2 at the served answer prompt and at pad 0, Qwen2-7B's 28 / 4,
+# Llama-3-8B's 32 / 8)
+K9_SHAPES = (("answer prompt", 1, 4096, (1100,), 14, 2, 64), ("normaliser", 1, 128, (60,), 14, 2, 64),
+             ("generate_many", 3, 1024, (0, 300, 1023), 14, 2, 64),
+             ("Qwen2-1.5B answer prompt", 1, 4096, (1100,), 12, 2, 128),
+             ("Qwen2-1.5B pad 0", 1, 4096, (0,), 12, 2, 128),
+             ("Qwen2-7B pad 0", 1, 4096, (0,), 28, 4, 128),
+             ("Llama-3-8B pad 0", 1, 4096, (0,), 32, 8, 128))
 
 
 # the name fragments of each sweep's two kernels: its sweep and its merge
@@ -486,15 +494,15 @@ def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
     return run, outs
 
 
-def k9_call(lib, b: int, s: int, pads, gen):
+def k9_call(lib, b: int, s: int, pads, hq: int, hkv: int, d: int, gen):
     """(run, outputs): K9 on seeded inputs, through ``lib``'s C entry."""
     p = kernel_lib.ptr
-    q = torch.randn(b, s, 14 * 64, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(b, s, 2 * 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn(b, s, hq * d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, s, hkv * d, generator=gen, device="cuda").bfloat16() for _ in range(2))
     pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
     out = torch.empty_like(q)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(k), p(v), p(pad), p(out), b, s, 14, 2, 64, kernel_lib.DTYPE_CODES[q.dtype],
+    args = (p(q), p(k), p(v), p(pad), p(out), b, s, hq, hkv, d, kernel_lib.DTYPE_CODES[q.dtype],
             stream)
 
     def run():
@@ -564,8 +572,10 @@ def main(argv=None) -> int:
               for label, n, h in K3_SHAPES]
     cases += [("K10", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
         libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES]
-    cases += [("K9", label, (b, s, list(pads)), lambda tree, b=b, s=s, pads=pads: k9_call(
-        libs[tree], b, s, pads, gen)) for label, b, s, pads in K9_SHAPES]
+    cases += [("K9", label, (b, s, list(pads), f"{hq}/{hkv}x{d}"),
+               lambda tree, b=b, s=s, pads=pads, hq=hq, hkv=hkv, d=d: k9_call(
+                   libs[tree], b, s, pads, hq, hkv, d, gen))
+              for label, b, s, pads, hq, hkv, d in K9_SHAPES]
     if args.only:
         cases = [c for c in cases if c[0] in args.only.split(",")]
     for kernel, label, shape, make in cases:

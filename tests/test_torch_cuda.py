@@ -876,6 +876,11 @@ CAUSAL_CASES = {   # B, S, pads, query heads, kv heads, head_dim, dtype
     "one_row": (1, 1, (0,), 14, 2, 64, "bfloat16"),
     "f32_d64": (2, 190, (0, 77), 14, 2, 64, "float32"),
     "f32_d128": (1, 70, (3,), 4, 2, 128, "float32"),
+    "group6_pad_inside_packed_rows_d128": (1, 500, (130,), 12, 2, 128, "bfloat16"),
+    "group4_ragged_d128": (1, 777, (0,), 8, 2, 128, "bfloat16"),
+    "group7_ragged_d128": (1, 1111, (5,), 7, 1, 128, "bfloat16"),
+    "pad_is_last_row_d128": (1, 300, (299,), 4, 1, 128, "bfloat16"),
+    "mixed_pads_b3_d128": (3, 1024, (0, 300, 1023), 12, 2, 128, "bfloat16"),
 }
 
 
@@ -888,7 +893,11 @@ def test_causal_flash_kernel_matches_plain(gen, case):
     not a multiple of the 64-row tiles, a pad of S-1, tiles made only of
     padding rows, a pad that ends inside a block's 128 packed (position,
     head) rows (18 positions of a 7-head group), GQA groups of 1 and 7,
-    head_dim 64 and 128, and the 4,096-token prompt at head_dim 128."""
+    head_dim 64 and 128, and the 4,096-token prompt at head_dim 128. At
+    head_dim 128 (its own kernel: 128-key tiles by TMA) also groups 4, 6
+    and 7 at S not a multiple of 128, a group-6 pad that ends inside a
+    block's packed rows (position 130 is packed row 780 of block 6), a pad
+    of S-1, and B=3 with mixed pads."""
     b, s, pads, hq, hkv, d, dtype = CAUSAL_CASES[case]
     q = _randn(gen, b, s, hq * d, dtype=DTYPES[dtype])
     k, v = (_randn(gen, b, s, hkv * d, dtype=DTYPES[dtype]) for _ in range(2))

@@ -4,9 +4,9 @@ JAX package on the CPU.
 The same numpy inputs (weights from the JAX package's numpy-seeded init,
 prompts from numpy) go through both packages in f32. Logits agree within
 1e-5; greedy tokens are identical for the plain, speculative and streaming
-generators, in the split layout and in the int8 + fused serving layout.
-K9's Pallas kernel runs in interpret mode, as the JAX package's own tests
-run it.
+generators, in the split layout and in the int8 + fused serving layout,
+at heads of 8 to 16 and of 128. K9's Pallas kernel runs in interpret mode,
+as the JAX package's own tests run it.
 """
 
 import numpy as np
@@ -33,6 +33,10 @@ SMALL = dict(vocab_size=97, num_layers=2, hidden_size=32, num_heads=4, num_kv_he
              intermediate_size=64, attention_bias=True, tie_embeddings=True, eos_token_id=0)
 TINY_EOS = dict(vocab_size=29, num_layers=1, hidden_size=16, num_heads=2, num_kv_heads=2,
                 intermediate_size=32, eos_token_id=11)
+# heads of 128 (Qwen2-1.5B's width per head, its 6:1 grouping halved)
+QWEN2_D128 = dict(vocab_size=211, hidden_size=768, intermediate_size=256, num_layers=2,
+                  num_heads=6, num_kv_heads=1, rope_theta=1000000.0, norm_eps=1e-6,
+                  attention_bias=True, tie_embeddings=False, eos_token_id=5)
 
 
 def _np(tree):
@@ -64,13 +68,20 @@ def _trim(row, eos):
 
 # ------------------------------------------------------------------- K9
 
-@pytest.mark.parametrize("hq,hkv", [(2, 2), (14, 2)], ids=["group1", "group7"])
+K9_HEADS = {"group1": (2, 2, 8), "group7": (14, 2, 8), "group4": (8, 2, 8), "group6": (12, 2, 8),
+            "group1_d128": (2, 2, 128), "group4_d128": (8, 2, 128),
+            "group6_d128": (12, 2, 128), "group7_d128": (14, 2, 128)}
+
+
+@pytest.mark.parametrize("hq,hkv,d", list(K9_HEADS.values()), ids=list(K9_HEADS))
 @pytest.mark.parametrize("pads", [(0, 100), (37, 255)])
-def test_k9_plain_matches_pallas_and_attend(hq, hkv, pads):
-    """B=2, S=256, head_dim 8, Pallas blocks of 128 (interpret mode). Real
-    rows within 1e-5 of the Pallas kernel and of the decoder's masked
-    attention; the port writes zeros in the padding rows."""
-    b, s, d = 2, 256, 8
+def test_k9_plain_matches_pallas_and_attend(hq, hkv, d, pads):
+    """B=2, S=256, head_dim 8 and 128 (the width of Qwen2-1.5B / -7B and
+    Llama-3-8B, which the CUDA kernel serves with its own design), GQA
+    groups 1, 4, 6 and 7, Pallas blocks of 128 (interpret mode). Real rows
+    within 1e-5 of the Pallas kernel and of the decoder's masked attention;
+    the port writes zeros in the padding rows."""
+    b, s = 2, 256
     rng = np.random.default_rng(sum(pads) + hq)
     q = rng.standard_normal((b, s, hq * d)).astype(np.float32)
     k = rng.standard_normal((b, s, hkv * d)).astype(np.float32)
@@ -139,8 +150,10 @@ def test_prefill_matches_jax_prefill_and_cache(padded):
 
 # ------------------------------------------------------------ generation
 
-GEN_CASES = [("qwen2", 2, (0, 3)), ("small", 1, ()), ("small", 1, (5,)), ("tiny_eos", 1, ())]
-KINDS = {"qwen2": QWEN2, "llama": LLAMA, "small": SMALL, "tiny_eos": TINY_EOS}
+GEN_CASES = [("qwen2", 2, (0, 3)), ("small", 1, ()), ("small", 1, (5,)), ("tiny_eos", 1, ()),
+             ("qwen2_d128", 2, (0, 3))]
+KINDS = {"qwen2": QWEN2, "llama": LLAMA, "small": SMALL, "tiny_eos": TINY_EOS,
+         "qwen2_d128": QWEN2_D128}
 
 
 def _gen_inputs(kind, b, pads, layout):

@@ -210,6 +210,36 @@ def test_local_llm_configuration_is_served_on_cuda():
     check_supported(cfg, torch.device("cuda"))
 
 
+@pytest.mark.parametrize("hidden,heads,kv_heads,refused", [
+    (896, 14, 2, False),     # Qwen2-0.5B: head_dim 64
+    (1536, 12, 2, False),    # Qwen2-1.5B: head_dim 128
+    (4096, 32, 8, False),    # Llama-3-8B: head_dim 128
+    (1280, 16, 4, True),     # head_dim 80
+    (1536, 16, 4, True),     # head_dim 96
+])
+def test_check_supported_reads_the_local_llm_head_dim(tmp_path, hidden, heads, kv_heads, refused):
+    """With LLM_PROVIDER=local, check_supported on CUDA reads the decoder
+    checkpoint's config.json and refuses a head_dim that K9 is not built
+    for, naming K9, at build: the first prefill would raise inside the
+    provider, which degrades every answer to the no-LLM text. The CPU
+    takes every width."""
+    (tmp_path / "config.json").write_text(json.dumps({
+        "architectures": ["Qwen2ForCausalLM"], "vocab_size": 1024, "num_hidden_layers": 2,
+        "hidden_size": hidden, "num_attention_heads": heads, "num_key_value_heads": kv_heads,
+        "intermediate_size": 4 * hidden}))
+    cfg = FrameworkConfig()
+    cfg.llm.provider, cfg.llm.local_checkpoint = "local", str(tmp_path)
+    check_supported(cfg, torch.device("cpu"))
+    if not refused:
+        check_supported(cfg, torch.device("cuda"))
+        return
+    with pytest.raises(NotImplementedError, match=r"local LLM: head_dim \d+, but "
+                       r"causal_flash_prefill \(K9\) takes head_dim 64 or 128"):
+        check_supported(cfg, torch.device("cuda"))
+    cfg.llm.provider = "gemini"          # the checkpoint is read only for a local LLM
+    check_supported(cfg, torch.device("cuda"))
+
+
 def test_int8_index_is_served_on_the_cpu():
     cfg = FrameworkConfig()
     cfg.index.dtype = "int8"
