@@ -33,7 +33,18 @@ Phases, each printing one JSON line:
               peak rate of their type; for K2 and K11 also one exponential
               per live score at 16 a clock per SM). K5, K6 and K7 must
               run their int8 / bf16 Hopper sweep and no older one
-              (torch.profiler's kernel names).
+              (torch.profiler's kernel names). K2, K10 and K11 at heads of
+              64 must run the attention kernels of the path their wrapper
+              picks for S (``fa.fwd_kernel``, ``fa.bwd_launch_plan``) and
+              no other: torch.profiler's names in one fresh process, a
+              ``kernel_path`` line each; every attention kernel line names
+              its path.
+              K2 at 64 also at the wide ingest's 68 x 512 and on rows
+              whose last live key lies inside a key tile; at its table
+              shape two controls (key tile 0 lost, the mask ignored) must
+              miss its 3e-2; K10 at 64 carries the mask-ignored control and
+              the run-to-run bit check at every S (128, 100 and 64 fused,
+              512 two kernels).
 4. slice   -- full-width seeded random checkpoints (bge-small, gte-small,
               MiniLM-L-6 cross-encoder) are written to a temporary data dir;
               Runtime.build(device="cuda") (flat bf16 indexes) ingests a
@@ -203,9 +214,9 @@ Phases, each printing one JSON line:
               are the ids tokenizers wrote there, K1-K4 and K9 launch;
               prints the phase's seconds, the reader's encode ms of a
               4,096-token prompt and recall_eval's value.
-19. the script's total seconds, the ``kernels`` line (K10 and K11 with
-              their head_dim-64 case as ``d64`` and its launches as
-              ``launches_d64``, K9 with its head_dim-128 case as ``d128``,
+19. the script's total seconds, the ``kernels`` line (K2, K10 and K11
+              with their head_dim-64 case as ``d64``, K10 and K11 its
+              launches as ``launches_d64``, K9 with its head_dim-128 case as ``d128``,
               its launches on the TP ranks as ``launches_tp`` and on
               llm_d128 as ``launches_d128``, K2 and K3
               with the multivector path's as ``launches_multivector``), then
@@ -514,7 +525,8 @@ def phase_device(torch):
 # bf16 sweep is K5's bucketed_wgmma_sweep_kernel)
 WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu",
                  "packed_topk.cu", "bucketed_topk.cu", "topk_exact.cu")
-WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "ffn_fwd_kernel", "ffn_wide_kernel",
+WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "attn_fwd_d64_kernel", "ffn_fwd_kernel",
+                 "ffn_wide_kernel",
                  "packed_sweep_bf16", "wgmma_sweep")
 
 
@@ -747,6 +759,7 @@ def kernel_cases(torch, F, seed):
                                 shapes=TP_LOCAL_SHAPES[:2])
     for heads, shapes in CAUSAL_128_CASES:
         cases += causal_cases(torch, F, randn, heads=heads, shapes=shapes)
+    cases += wide_attention_cases(torch, F, randn, padded_mask)
     return cases
 
 
@@ -787,8 +800,9 @@ WIDE_SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
 def wide_cases(torch, F, gen, randn, padded_mask):
     """The bge-base width (hidden 768, 12 heads of 64, FFN 3,072, index D
     768), after every D=384 case so that those keep their inputs: K1 at
-    B=256 S=512; K2 at B=256 S=512, B=256 S=128 and B=8 S=64 (a fully
-    masked row); K3 at N=131,072, the wide ingest's 68 x 512 and N=512;
+    B=256 S=512; K2 (``flash_attention@64``, wide_attention_case) at B=256
+    S=512 with its two controls, B=256 S=128 and B=8 S=64 (a fully masked
+    row); K3 at N=131,072, the wide ingest's 68 x 512 and N=512;
     K4 at Bq=128 and Bq=8 over N=102,400, the load phase's wave (Bq=192
     over 4,096) and exact-grid data with ties; K5 and K7 (WIDE_SWEEP_PLAN)
     with exact-grid cases; K8 at a served request's B=8 P=64. Tolerances
@@ -817,16 +831,15 @@ def wide_cases(torch, F, gen, randn, padded_mask):
         q, k, v = (randn(b, s, H, dtype=bf16) for _ in range(3))
         mask = padded_mask(b, s, fully_masked_row=(b == 8))
         bias = torch.where(mask > 0, 0.0, -1e9).float()
-
-        def sdpa(q=q, k=k, v=v, bias=bias, b=b, s=s):
-            split = lambda x: x.view(b, s, NH, hd).transpose(1, 2)
-            return F.scaled_dot_product_attention(
-                split(q), split(k), split(v), attn_mask=bias.to(bf16)[:, None, None, :])
-
-        cases.append(("flash_attention", f"B={b},S={s},H={H},heads={NH}x{hd},bf16",
-                      lambda q=q, k=k, v=v, bias=bias: fa.flash_attention(q, k, v, bias, num_heads=NH),
-                      lambda q=q, k=k, v=v, bias=bias: fa.flash_attention_plain(q, k, v, bias, num_heads=NH),
-                      sdpa, max_abs_cmp(3e-2), attention_fwd_bound(torch, mask, NH, head_dim=hd)))
+        controls = ()
+        if (b, s) == (256, 512):   # the table shape carries the two controls
+            lost = bias.clone()
+            lost[:, :64] = -1e9
+            controls = (("lose_key_tile_0", lambda q=q, k=k, v=v, lost=lost: fa.flash_attention(
+                            q, k, v, lost, num_heads=NH)),
+                        ("mask_ignored", lambda q=q, k=k, v=v, b=b, s=s: fa.flash_attention(
+                            q, k, v, torch.zeros(b, s, device=dev), num_heads=NH)))
+        cases.append(wide_attention_case(torch, F, q, k, v, mask, bias, NH, hd, controls))
 
     w1, w2 = randn(H, I, dtype=bf16, scale=H ** -0.5), randn(I, H, dtype=bf16, scale=0.012)
     b1, b2 = randn(I, dtype=bf16, scale=0.1), randn(H, dtype=bf16, scale=0.1)
@@ -866,6 +879,140 @@ def wide_cases(torch, F, gen, randn, padded_mask):
     cases += sweep_cases(torch, gen, randn, d=d, plan=WIDE_SWEEP_PLAN,
                          grid=("bucketed_topk_fused", "bucketed_topk"))
     cases += probe_cases(torch, gen, randn, d=d, shapes=((8, 64),))
+    return cases
+
+
+def attention_cmp(tol, controls=()):
+    """Within ``tol`` of the plain version at every element (K2's check);
+    each control, the kernel run on inputs it must not be given (a key tile
+    lost, the padding mask ignored), must miss the same bound."""
+    def cmp(a, b):
+        err = (a.float() - b.float()).abs().max().item()
+        detail = {"tol": tol}
+        ok = err <= tol
+        for label, control in controls:
+            c = (control().float() - b.float()).abs().max().item()
+            detail[f"control_{label}_max_abs_err"] = c
+            ok = ok and c > tol
+        return err, ok, detail
+    return cmp
+
+
+# (name, shape, path, probe, path kernels) of the attention cases whose
+# path phase_kernels checks in a fresh process
+PATH_CHECKS = []
+
+
+def path_ran(ran, kernels) -> bool:
+    """Whether the attention kernels that ran are ``kernels``, no other."""
+    ran = [n for n in ran if "attn_" in n]
+    return (all(any(k in n for n in ran) for k in kernels)
+            and all(any(k in n for k in kernels) for n in ran))
+
+
+def with_path(cmp, name: str, shape: str, path: str, kernels, probe=None):
+    """``cmp``, and the path the wrapper picks (``path``, its ``kernels``),
+    named in the detail. With a ``probe`` ("fwd" or "bwd", B, S, H, heads)
+    the case is also queued for phase_kernels' check that the kernels that
+    ran are those, no other: in one fresh process, since in a process as
+    long as this one the profiler now and then records nothing or only
+    part of a call, with the results right."""
+    if probe is not None:
+        PATH_CHECKS.append((name, shape, path, probe, kernels))
+
+    def check(a, b):
+        err, ok, detail = cmp(a, b)
+        detail["path"] = path
+        return err, ok, detail
+    return check
+
+
+FRESH_ATTENTION_PROBE = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from financial_rag_tpu_torch.ops import flash_attention as fa
+out = []
+for kind, b, s, h, heads, kernels in json.loads(sys.argv[1]):
+    q, k, v, do = (torch.randn(b, s, h, device="cuda").bfloat16() for _ in range(4))
+    bias = torch.zeros(b, s, device="cuda")
+    if kind == "fwd":
+        call = lambda: fa.flash_attention(q, k, v, bias, num_heads=heads)
+    else:
+        call = lambda: fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(3):   # a trace that misses a kernel of the path is made again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+        if all(any(k in n for n in names) for k in kernels):
+            break
+    out.append(names)
+print(json.dumps(out))
+"""
+
+
+def fresh_path_names(probes) -> list:
+    """The kernel names torch.profiler records for each attention probe
+    ([kind, B, S, H, heads, the path's kernels]: random inputs of the
+    case's shape, since the wrapper picks its kernels by S and the head
+    width alone), made in one fresh Python process."""
+    out = subprocess.run([sys.executable, "-c", FRESH_ATTENTION_PROBE, json.dumps(probes)],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"the fresh attention probe failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def wide_attention_case(torch, F, q, k, v, mask, bias, heads: int, hd: int, controls=()):
+    """K2 at heads of ``hd`` (the bge-base width's 64) on q, k, v and the
+    [B,S] bias from ``mask``: within 3e-2 of the plain version (the
+    ``controls`` must miss it), the kernel the wrapper picks for S
+    (``fa.fwd_kernel``) and no other, SDPA the library time, the bound
+    over the live keys."""
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+
+    b, s, h = q.shape
+
+    def sdpa():
+        split = lambda x: x.view(b, s, heads, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=bias.to(torch.bfloat16)[:, None, None, :])
+
+    def run():
+        return fa.flash_attention(q, k, v, bias, num_heads=heads)
+
+    kernel = fa.fwd_kernel(s, hd)
+    return (f"flash_attention@{hd}", f"B={b},S={s},H={h},heads={heads}x{hd},bf16", run,
+            lambda: fa.flash_attention_plain(q, k, v, bias, num_heads=heads), sdpa,
+            with_path(attention_cmp(3e-2, controls), f"flash_attention@{hd}",
+                      f"B={b},S={s},H={h},heads={heads}x{hd},bf16", kernel, (kernel,),
+                      probe=("fwd", b, s, h, heads)),
+            attention_fwd_bound(torch, mask, heads, head_dim=hd))
+
+
+def wide_attention_cases(torch, F, randn, padded_mask):
+    """K2 at 12 heads of 64 beyond wide_cases (after every other case, so
+    that those keep their inputs): the wide ingest's batch, 68 x 512, the
+    most launched shape; and B=8 S=512 with rows of 512, 1, 65, 130, 257,
+    300 and 511 live keys (the last live key inside a key tile, leading a
+    dead one) and a fully masked row (the mean of v)."""
+    dev = torch.device("cuda")
+    NH, hd = 12, 64
+    H = NH * hd
+    cases = []
+    q, k, v = (randn(68, 512, H, dtype=torch.bfloat16) for _ in range(3))
+    mask = padded_mask(68, 512)
+    cases.append(wide_attention_case(torch, F, q, k, v, mask, torch.where(mask > 0, 0.0, -1e9).float(),
+                                     NH, hd))
+    q, k, v = (randn(8, 512, H, dtype=torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([512, 1, 65, 130, 257, 300, 511, 0], device=dev)
+    mask = (torch.arange(512, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+    cases.append(wide_attention_case(torch, F, q, k, v, mask, torch.where(mask > 0, 0.0, -1e9).float(),
+                                     NH, hd))
     return cases
 
 
@@ -915,24 +1062,31 @@ def attention_tp_cases(torch, F, randn, padded_mask, head_dim: int = 32,
             return F.scaled_dot_product_attention(
                 split(q), split(k), split(v), attn_mask=bias.to(torch.bfloat16)[:, None, None, :])
 
+        run = (lambda q=q, k=k, v=v, bias=bias, tp=tp: fa.flash_attention_tp(
+            q, k, v, bias, num_heads=NH, mesh=_ModelAxis(tp), head_dim=hd))
         cases.append((f"flash_attention_tp{tag}",
-                      f"B={b},S={s},H={h},local heads={heads}{heads_of} (tp{tp}),bf16",
-                      lambda q=q, k=k, v=v, bias=bias, tp=tp: fa.flash_attention_tp(
-                          q, k, v, bias, num_heads=NH, mesh=_ModelAxis(tp), head_dim=hd),
+                      f"B={b},S={s},H={h},local heads={heads}{heads_of} (tp{tp}),bf16", run,
                       lambda q=q, k=k, v=v, bias=bias, heads=heads: fa.flash_attention_plain(
                           q, k, v, bias, num_heads=heads),
-                      sdpa, row_cmp(heads), attention_fwd_bound(torch, mask, heads, head_dim=hd)))
+                      sdpa, with_path(row_cmp(heads), f"flash_attention_tp{tag}", f"B={b},S={s}",
+                                      fa.fwd_kernel(s, hd), (fa.fwd_kernel(s, hd),),
+                                      probe=("fwd", b, s, h, heads) if hd == 64 else None),
+                      attention_fwd_bound(torch, mask, heads, head_dim=hd)))
         live_pairs = s * int(mask.sum().item()) + s * s
+        run = (lambda q=q, k=k, v=v, bias=bias, do=do, heads=heads: fa.flash_attention_bwd(
+            q, k, v, bias, do, num_heads=heads))
+        path, kernels, _ = fa.bwd_launch_plan(s, hd)
         cases.append((f"flash_attention_bwd{tag}", f"B={b},S={s},H={h},heads={heads}{heads_of} "
-                      f"(K11's backward, tp{tp}),bf16",
-                      lambda q=q, k=k, v=v, bias=bias, do=do, heads=heads: fa.flash_attention_bwd(
-                          q, k, v, bias, do, num_heads=heads),
+                      f"(K11's backward, tp{tp}),bf16", run,
                       lambda q=q, k=k, v=v, bias=bias, do=do, heads=heads:
                       fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads),
                       SdpaBackward(torch, F, q, k, v, bias, do, heads),
-                      attention_bwd_cmp(heads, lambda q=q, k=k, v=v, do=do, b=b, s=s, heads=heads:
-                                        fa.flash_attention_bwd(q, k, v, torch.zeros(b, s, device=q.device),
-                                                               do, num_heads=heads)),
+                      with_path(attention_bwd_cmp(
+                          heads, lambda q=q, k=k, v=v, do=do, b=b, s=s, heads=heads:
+                          fa.flash_attention_bwd(q, k, v, torch.zeros(b, s, device=q.device), do,
+                                                 num_heads=heads), again=run),
+                                f"flash_attention_bwd{tag}", f"B={b},S={s},K11", path, kernels,
+                                probe=("bwd", b, s, h, heads) if hd == 64 else None),
                       bound(7 * b * s * h * 2 + b * s * 4, 5 * 2 * heads * hd * live_pairs, "bf16")))
     return cases
 
@@ -1266,17 +1420,23 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
         live_pairs = s * int(mask.sum().item()) + s * s   # the masked row's keys all count
         terms = (7 * b * s * H * 2 + b * s * 4, 5 * 2 * NH * hd * live_pairs, "bf16",
                  NH * live_pairs)
+        path, kernels, smem = fa.bwd_launch_plan(s, hd)
         emit({"phase": "kernel_bound", "name": name, "shape": f"B={b},S={s},H={H}",
+              "path": path, "kernels": list(kernels), "smem_bytes": smem,
               "live_share": live_pairs / (b * s * s), **bound_terms(*terms)})
-        control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
-            q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH)) if s <= 128 else None
+        control = None
+        if s <= 128 or hd == 64:
+            control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
+                q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH))
         run = (lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd(
             q, k, v, bias, do, num_heads=NH))
         cases.append((name, f"B={b},S={s},H={H},heads={heads_label},bf16", run,
                       lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd_plain(
                           q, k, v, bias, do, num_heads=NH),
                       SdpaBackward(torch, F, q, k, v, bias, do, NH),
-                      attention_bwd_cmp(NH, control, again=run), bound(*terms)))
+                      with_path(attention_bwd_cmp(NH, control, again=run), name, f"B={b},S={s}",
+                                path, kernels, probe=("bwd", b, s, H, NH) if hd == 64 else None),
+                      bound(*terms)))
     return cases
 
 
@@ -1521,6 +1681,14 @@ def phase_kernels(torch, F, seed):
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         del out, ref
         torch.cuda.empty_cache()
+    if PATH_CHECKS:   # the attention paths at heads of 64, in one fresh process
+        fresh = fresh_path_names([[*probe, list(kernels)] for *_, probe, kernels in PATH_CHECKS])
+        for (name, shape, path, probe, kernels), names in zip(PATH_CHECKS, fresh):
+            ran = path_ran(names, kernels)
+            emit({"phase": "kernel_path", "name": name, "shape": shape, "path": path,
+                  "kernels_run": [n for n in names if "attn_" in n], "path_ran": ran})
+            if not ran:
+                failures.append(f"{name} [{shape}]: the path {path} did not run: {names}")
     if unseen:
         print(f"chip_smoke: the profiler's trace held no Hopper sweep in {len(unseen)} cases; "
               "looking for it in a fresh process", file=sys.stderr, flush=True)

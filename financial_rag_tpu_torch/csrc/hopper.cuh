@@ -14,11 +14,15 @@
 // multiplied. A stage is published to the tensor cores by the thread that
 // waited for its copies: cp.async.wait_group, then fence.proxy.async (the
 // copies are generic-proxy writes and wgmma reads through the async proxy),
-// then a block barrier or an mbarrier arrive. K3's weight chunks are the
+// then a block barrier or an mbarrier arrive. K3's weight chunks are one
 // exception: whole boxes of a plain row-major matrix, the same for every
 // block, so one thread has the TMA copy them (tensor_map_2d / _3d,
 // tma_load_2d / _3d), swizzled, and their bytes complete the stage's
-// mbarrier.
+// mbarrier. The head-64 attention kernels (K2's attn_fwd_d64_kernel, K10's
+// fused kernel) and K9's head-128 kernel are the others: their tiles are
+// boxes of one head's 64 columns of a 3-D map over [B][S][H] built for every
+// launch, rows past S read as zeros, and K2 and K10 write their outputs the
+// same way back (tma_store_3d from a staging tile, stage_rows_sw128).
 //
 // Products: wgmma m64nNk16, bf16 in, f32 accumulate (and m64n32k32, int8
 // in, exact int32 accumulate, for the int8 sweeps). B always comes from
@@ -41,6 +45,8 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link: see tensor_map_2d)
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -175,6 +181,41 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
+// The box of a 3-D tensor map at (c0, c1, c2) from shared memory at `src`
+// (laid out and swizzled as the map says) to global memory, in this
+// thread's bulk async group; elements outside the tensor are not written.
+// The shared memory must not change until bulk_wait_read says the copy has
+// read it; the global writes are complete after bulk_wait.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows row0 and row0 + 8 of an f32 [64 x 64] accumulator (the wgmma
+// layout, tig = lane % 4) times `scale`, as bf16 into a 64-row tile of
+// 128-byte rows in the 128-byte swizzle at `tile` (a TMA store's source).
+__device__ __forceinline__ void stage_rows_sw128(uint32_t tile, int row0, int tig, const float (&c)[32],
+                                                 float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      st_shared_u32(tile + swz<3>((row0 + 8 * r) * 128 + nt * 16) + 4 * tig,
+                    pack_bf16(c[4 * nt + 2 * r] * scale, c[4 * nt + 2 * r + 1] * scale));
+}
+
 // Fetch a tensor map (a __grid_constant__ kernel parameter) into the TMA
 // unit's descriptor cache ahead of its first copy.
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
@@ -247,6 +288,29 @@ inline bool tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&d
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), d, st, b,
                 element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The current device's SM count, having opted `kernel` in to `smem` bytes of
+// dynamic shared memory on it: the first call on a device makes both runtime
+// calls and keeps the count in `cache` (one entry a device, zero until
+// then), so that later launches make neither. A CUDA error comes back
+// negated.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+inline int opted_sm_count(Kernel kernel, int smem, std::atomic<int> (&cache)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return -(int)err;
+  if (device < kMaxDevices) {
+    const int kept = cache[device].load(std::memory_order_relaxed);
+    if (kept > 0) return kept;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int sms = 0;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -(int)err;
+  if (device < kMaxDevices) cache[device].store(sms, std::memory_order_relaxed);
+  return sms;
 }
 
 // Max and sum over the 4 threads of a quad (one accumulator row's columns).
@@ -336,6 +400,14 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
+// The same for register A fragments (packed bf16 pairs) of M k16 steps.
+template <int M>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
 template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
@@ -412,6 +484,18 @@ __device__ __forceinline__ void wgmma_ss_n32_tb(float (&d)[16], uint64_t desc_a,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64], both in shared memory MN-major:
+// A a tile stored [k][m], B a tile stored [k][n], each read through its
+// transpose bit (A^T B of two tiles that share their rows).
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d[64 x 128] += A[64 x 16] * B[16 x 128], A in shared memory K-major, B in

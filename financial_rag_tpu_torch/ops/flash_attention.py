@@ -33,6 +33,8 @@ TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
 TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
 FWD_HEAD_DIMS = (32, 64)  # the head widths K2 (the forward) is built for
 BWD_HEAD_DIMS = (32, 64)  # the head widths K10 (the backward) is built for
+FWD_WIDE_KEYS = 64        # keys a K/V tile of K2's head_dim-64 kernel (csrc Wide::kKeys)
+FUSED_BWD_MAX_S = 128     # the longest row K10's fused head_dim-64 kernel takes
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -83,18 +85,31 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
 
 
+def fwd_kernel(s: int, head_dim: int) -> str:
+    """The kernel K2 launches for rows of S keys at ``head_dim``, by its
+    name in csrc/flash_attention.cu: ``attn_fwd_d64_kernel`` (TMA,
+    FWD_WIDE_KEYS-key tiles) at head_dim 64 above S = 64, else
+    ``attn_fwd_kernel``."""
+    return "attn_fwd_d64_kernel" if head_dim == 64 and s > 64 else "attn_fwd_kernel"
+
+
 def fwd_block(s: int, head_dim: int):
     """(consumer warpgroups, dynamic shared-memory bytes) of a K2 block, as
-    csrc/flash_attention.cu's Block sizes it: one warpgroup of 64 query rows
-    at S <= 64, else two; each warpgroup's Q tile and a ring of 4 K + V
-    stages, 64 rows of one head's 2 * head_dim bytes each; 1 KB of
-    alignment."""
+    csrc/flash_attention.cu sizes it: one warpgroup of 64 query rows at
+    S <= 64, else two; 1 KB of alignment. ``attn_fwd_kernel`` (Block):
+    each warpgroup's Q tile and a ring of 4 K + V stages, 64 rows of one
+    head's 2 * head_dim bytes each. ``attn_fwd_d64_kernel`` (Wide, two
+    persistent blocks an SM), all rows of 128 bytes: two buffers of an
+    item's 128 Q rows, 3 stages of a K and a V tile of FWD_WIDE_KEYS rows,
+    and the two warpgroups' 64-row O staging tiles."""
     consumers = 1 if s <= 64 else 2
+    if fwd_kernel(s, head_dim) == "attn_fwd_d64_kernel":
+        return consumers, (2 * 128 + 3 * 2 * FWD_WIDE_KEYS + 128) * 128 + 1024
     return consumers, (consumers + 2 * 4) * 64 * 2 * head_dim + 1024
 
 
 def bwd_smem_bytes(head_dim: int) -> int:
-    """Dynamic shared-memory bytes of a K10 block (both kernels), as
+    """Dynamic shared-memory bytes of a block of K10's two kernels, as
     csrc/flash_attention_bwd.cu's Layout sizes it: two resident 64-row
     tiles of one head's 2 * head_dim bytes a row, a ring of 3 stages of two
     such tiles and a query tile's 2 x 64 f32 statistics, and 1 KB of
@@ -103,8 +118,24 @@ def bwd_smem_bytes(head_dim: int) -> int:
     return 2 * tile + 3 * (2 * tile + 2 * 64 * 4) + 1024
 
 
+def bwd_launch_plan(s: int, head_dim: int):
+    """(path, kernels, dynamic shared-memory bytes a block) of K10 for rows
+    of S keys, as csrc/flash_attention_bwd.cu picks it from S and the head
+    width. ``fused`` (head_dim 64, S <= FUSED_BWD_MAX_S): one kernel, a
+    block a (batch row, head) at a time; two buffers of Q, K, V and dO, two
+    64-row tiles each, the P and dS tiles of two query by two key tiles and
+    dq's two staging tiles, all rows of 2 * head_dim bytes, and 1 KB of
+    alignment; no scratch. ``two kernels`` otherwise: the dQ kernel, then
+    the dK/dV kernel, joined by the scratch of :func:`bwd_scratch_shape`."""
+    if head_dim == 64 and s <= FUSED_BWD_MAX_S:
+        tile = 64 * 2 * head_dim
+        smem = 2 * 4 * 2 * tile + 2 * 4 * tile + 2 * tile + 1024
+        return "fused", ("attn_bwd_fused_d64_kernel",), smem
+    return "two kernels", ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel"), bwd_smem_bytes(head_dim)
+
+
 def bwd_scratch_shape(b: int, s: int, num_heads: int) -> tuple:
-    """K10's f32 scratch between its two kernels: each query row's
+    """The f32 scratch between K10's two kernels: each query row's
     log-sum-exp (base 2, relative to its batch row's largest key bias) and
     D = rowsum(dP o P)."""
     return (2, b, num_heads, s)
@@ -162,10 +193,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias, dev = _kernel_inputs("flash_attention_bwd", "K10", BWD_HEAD_DIMS, q, k, v, mask_bias,
                                 num_heads, dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty(bwd_scratch_shape(b, s, num_heads), dtype=torch.float32, device=dev)
+    stats = None   # the fused kernel needs no scratch
+    if bwd_launch_plan(s, h // num_heads)[0] == "two kernels":
+        stats = torch.empty(bwd_scratch_shape(b, s, num_heads), dtype=torch.float32, device=dev)
     kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
-                      *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv, stats)),
-                      b, s, h, num_heads)
+                      *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv)),
+                      None if stats is None else kernel_lib.ptr(stats), b, s, h, num_heads)
     with LAUNCH_LOCK:
         BWD_LAUNCHES += 1
         TP_BWD_LAUNCHES += tp

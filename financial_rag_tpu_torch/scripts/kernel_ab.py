@@ -9,7 +9,8 @@ libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
 (``frag_bucketed_topk``), K6 (``frag_topk_exact``), K9
 (``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
 launched on the same inputs at the main path's shapes (K2, K3, K4, K5 and
-K10 also at the bge-base width: heads of 64, hidden 768, D 768; K9 also at
+K10 also at the bge-base width: heads of 64, hidden 768, D 768, K10 there
+with every key live and with padded keys; K9 also at
 heads of 128, Qwen2-1.5B's, Qwen2-7B's and Llama-3-8B's), the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
@@ -60,25 +61,34 @@ from financial_rag_tpu_torch.ops import kernel_lib
 
 # (label, B, S, heads, head_dim) of K10: the train path's shapes and K11's
 # local ones, at heads of 32 and, for the bge-base width, of 64 (the
-# contrastive and listwise encodes, K2's table shape, and the local heads of
-# a dp2 x tp2 and a dp1 x tp4 contrastive encode)
+# contrastive and listwise encodes, K2's table shape, the feedback
+# fine-tune's 100-token pairs, and the local heads of a dp2 x tp2 and a
+# dp1 x tp4 contrastive encode)
 K10_SHAPES = (("contrastive", 256, 128, 12, 32), ("both encodes", 512, 128, 12, 32),
               ("listwise", 256, 64, 12, 32), ("uplift", 256, 32, 12, 32),
               ("K2 table", 256, 512, 12, 32), ("tp2 local", 32, 128, 6, 32),
               ("tp4 local", 64, 128, 3, 32), ("tp2 listwise", 64, 64, 6, 32),
               ("wide contrastive", 256, 128, 12, 64), ("wide listwise", 256, 64, 12, 64),
-              ("wide S=512", 256, 512, 12, 64), ("wide tp2 local", 32, 128, 6, 64),
-              ("wide tp4 local", 64, 128, 3, 64))
+              ("wide S=512", 256, 512, 12, 64), ("wide feedback", 256, 100, 12, 64),
+              ("wide tp2 local", 32, 128, 6, 64), ("wide tp4 local", 64, 128, 3, 64))
+# K10 at the bge-base width with keys padded to seeded random lengths, as
+# chip_smoke.py pads them (row 0 full): the shapes above whose dead key
+# tiles a kernel may skip
+K10_PADDED_SHAPES = (("wide contrastive padded", 256, 128, 12, 64),
+                     ("wide S=512 padded", 256, 512, 12, 64))
 # (label, B, S, heads, head_dim) of K2: the table's shape, the contrastive
 # encode, a rerank batch, a query's encode, the listwise step's encode, K11's
 # local shapes, and the bge-base width's 12 heads of 64 at the table's shape,
-# the contrastive encode's and a query's. Keys are padded to seeded random
-# lengths as in chip_smoke.py (row 0 full).
+# the wide ingest's batch (68 x 512, the most launched), the contrastive
+# encode's, a query's and K11's local heads of 64. Keys are padded to seeded
+# random lengths as in chip_smoke.py (row 0 full).
 K2_SHAPES = (("K2 table", 256, 512, 12, 32), ("contrastive", 256, 128, 12, 32),
              ("rerank", 64, 512, 12, 32), ("query", 8, 64, 12, 32), ("listwise", 256, 64, 12, 32),
              ("tp2 local", 32, 128, 6, 32), ("tp4 local", 64, 128, 3, 32),
              ("tp2 listwise", 64, 64, 6, 32), ("wide table", 256, 512, 12, 64),
-             ("wide S=128", 256, 128, 12, 64), ("wide query", 8, 64, 12, 64))
+             ("wide ingest", 68, 512, 12, 64), ("wide S=128", 256, 128, 12, 64),
+             ("wide query", 8, 64, 12, 64), ("wide tp2 local", 32, 128, 6, 64),
+             ("wide tp4 local", 64, 128, 3, 64))
 # (label, N, H) of K3 with I = 4H: at H=384 the table's shape, the training
 # encode and a query's 8 x 64 tokens; at H=768 (bge-base) the table's shape,
 # the wide ingest's batch (68 x 512) and a query's
@@ -475,12 +485,17 @@ def k3_call(lib, n: int, h: int, splits: int, gen):
     return run, [out]
 
 
-def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
-    """(run, outputs): K10 on seeded inputs, through ``lib``'s C entry."""
+def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool = False):
+    """(run, outputs): K10 on seeded inputs, every key live or (``padded``)
+    keys padded to random lengths, through ``lib``'s C entry."""
     p = kernel_lib.ptr
     q, k, v, do = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                    for _ in range(4))
     bias = torch.zeros(b, s, device="cuda")
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+        lens[0] = s
+        bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
     outs = [torch.empty_like(q) for _ in range(3)]
     stats = torch.empty(3, b, heads, s, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -572,6 +587,8 @@ def main(argv=None) -> int:
               for label, n, h in K3_SHAPES]
     cases += [("K10", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
         libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES]
+    cases += [("K10", label, (b, s, h, hd, "padded"), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
+        libs[tree], b, s, h, hd, gen, padded=True)) for label, b, s, h, hd in K10_PADDED_SHAPES]
     cases += [("K9", label, (b, s, list(pads), f"{hq}/{hkv}x{d}"),
                lambda tree, b=b, s=s, pads=pads, hq=hq, hkv=hkv, d=d: k9_call(
                    libs[tree], b, s, pads, hq, hkv, d, gen))

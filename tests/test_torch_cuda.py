@@ -304,6 +304,28 @@ def test_flash_attention_kernel_at_head_dim_64_skips_dead_key_tiles_exactly(gen)
     torch.testing.assert_close(skip.float(), ref.float(), atol=3e-2, rtol=0)
 
 
+@pytest.mark.parametrize("heads", [3, 6])
+def test_flash_attention_kernel_at_local_heads_of_64(gen, heads):
+    """K2 at K11's local head counts of 64 (rows of 192 and 384 values),
+    S = 300 (attn_fwd_d64_kernel: three 128-key tiles, the last part-filled,
+    and a second query block of 44 rows), with keys live up to 1, 65, 130
+    and 257 (the last live key inside a 128-key tile) and a fully masked
+    row: within 3e-2 of the plain version; the fully masked row is the mean
+    of v."""
+    b, s = 5, 300
+    h = heads * 64
+    assert fa.fwd_kernel(s, 64) == "attn_fwd_d64_kernel"
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([1, 65, 130, 257, 0], device="cuda")
+    bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9).float()
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=heads))
+    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=heads)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(out[-1].float(), v[-1].float().mean(0).expand(s, h),
+                               atol=3e-2, rtol=0)
+
+
 @pytest.mark.parametrize("n,i", [(1, 3072), (64, 3072), (65, 3072), (129, 3072), (193, 3072),
                                  (512, 3072), (999, 3072), (17030, 3072), (34816, 3072),
                                  (131072, 3072), (129, 2048), (999, 2048), (17030, 2048)])
@@ -1016,6 +1038,60 @@ def test_flash_attention_bwd_kernel_is_bit_identical_run_to_run(gen, s, head_dim
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("heads", [12, 6, 3])
+@pytest.mark.parametrize("s", [1, 64, 65, 100, 128])
+def test_flash_attention_bwd_fused_kernel(gen, s, heads):
+    """K10's fused kernel (head_dim 64, S <= 128; at 12 heads and at K11's
+    local 6 and 3): row 1 padded, row 2 with at most 64 live keys (its key
+    tile 1 dead from S = 65 on), the last row fully masked. dq, dk and dv
+    within 2^-6 of every (position, head) row's largest value of the plain
+    version; dead keys' dk and dv exactly zero; the fully masked row's dv
+    the mean of dO over its keys (uniform P); the same bits twice."""
+    b = 4
+    assert fa.bwd_launch_plan(s, 64)[0] == "fused"
+    q, k, v, do = (_randn(gen, b, s, heads * 64, dtype=torch.bfloat16) for _ in range(4))
+    mask = _mask(b, s)
+    mask[2, 64:] = 0
+    bias = torch.where(mask > 0, 0.0, -1e9).float()
+    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    again = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.isfinite(g.float()).all(), name
+        assert _row_rel_err(g, w, heads) <= 2.0 ** -6, (name, _row_rel_err(g, w, heads))
+        assert torch.equal(g, a), name
+    dead = (mask == 0) & (mask.sum(dim=1, keepdim=True) > 0)   # a fully masked row's keys all count
+    assert (got[1][dead] == 0).all() and (got[2][dead] == 0).all()
+    mean_do = do[-1].float().mean(0)
+    torch.testing.assert_close(got[2][-1].float(), mean_do.expand(s, -1), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("s", [128, 100, 512, 300])
+def test_flash_attention_bwd_kernel_at_head_dim_64_skips_dead_key_tiles_exactly(gen, s):
+    """The dead-key argument of K10 at head_dim 64, through the fused kernel
+    (S = 128, 100) and the two kernels (S = 512, 300): padding at -1e9 (dead
+    key tiles skipped: never loaded by the dQ walk or the fused kernel, zeros
+    written by the dK/dV kernel) and at -3e4 (every tile walked, each such
+    probability exactly 0) give the same bits, trailing and leading padding
+    alike; both within 2^-6 per row of the plain version."""
+    b, heads = 6, 12
+    q, k, v, do = (_randn(gen, b, s, heads * 64, dtype=torch.bfloat16) for _ in range(4))
+    pos = torch.arange(s, device="cuda")[None, :]
+    lo = torch.tensor([0, 0, 0, s // 2, s - 1, 0], device="cuda")[:, None]
+    hi = torch.tensor([s, 1, 64, s, s, 65], device="cuda")[:, None]
+    live = (pos >= lo) & (pos < hi)
+    skip = fa.flash_attention_bwd(q, k, v, torch.where(live, 0.0, -1e9).float(), do, num_heads=heads)
+    walk = fa.flash_attention_bwd(q, k, v, torch.where(live, 0.0, -3e4).float(), do, num_heads=heads)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, torch.where(live, 0.0, -1e9).float(), do,
+                                        num_heads=heads)
+    for name, a, w, g in zip(("dq", "dk", "dv"), skip, walk, want):
+        assert torch.equal(a, w), name
+        assert _row_rel_err(a, g, heads) <= 2.0 ** -6, (name, _row_rel_err(a, g, heads))
+    assert (skip[1][~live] == 0).all() and (skip[2][~live] == 0).all()
+
+
 def test_attention_and_ffn_gradients_on_cuda_match_the_cpu(gen):
     """Autograd through the Functions on the card (K2 + K10, K3 + its f32
     backward) against the same bf16 tensors and f32 weights on the CPU
@@ -1347,11 +1423,13 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
                          + len(kernel_ab.K5_SHAPES) + len(kernel_ab.K6_SHAPES)
                          + len(kernel_ab.K7_SHAPES)
                          + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
-                         + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K9_SHAPES))
+                         + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_PADDED_SHAPES)
+                         + len(kernel_ab.K9_SHAPES))
     assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
     k10 = [r for r in rows if r["kernel"] == "K10"]
-    assert len(k10) == len(kernel_ab.K10_SHAPES)
-    assert [r["shape"][3] for r in k10].count(64) == 5 and not any("refused" in r for r in rows)
+    assert len(k10) == len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_PADDED_SHAPES)
+    assert [r["shape"][3] for r in k10].count(64) == 8 and not any("refused" in r for r in rows)
+    assert [r["shape"][-1] for r in k10].count("padded") == len(kernel_ab.K10_PADDED_SHAPES)
     assert [r["kernel"] for r in rows].count("K1") == len(kernel_ab.K1_SHAPES)
     for row in rows:
         if row["kernel"] == "K3":   # both trees are this one: the same split

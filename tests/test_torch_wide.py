@@ -175,26 +175,65 @@ def test_bucketed_sweeps_plain_match_pallas_at_d768(name, case, dtype):
 @pytest.mark.parametrize("head_dim", [32, 64])
 def test_k2_block_fits_shared_memory(head_dim, s, consumers):
     """K2's block at both head widths: one warpgroup at S <= 64, else two;
-    its Q tiles and 4-stage K/V ring in 227 KB, with room for two blocks an
-    SM at S > 64 (three at head_dim 64, S <= 64)."""
+    its shared memory in 227 KB, with room for as many blocks an SM as its
+    registers allow. attn_fwd_kernel (head_dim 32, and 64 at S <= 64): Q
+    tiles and a 4-stage ring of 64-key K/V tiles, two blocks an SM at S >
+    64, three at head_dim 64 and S <= 64, four at head_dim 32.
+    attn_fwd_d64_kernel (head_dim 64 above S = 64): two buffers of 128 Q
+    rows, 3 stages of 64-key K and V tiles by TMA and the O staging tiles,
+    99,328 bytes, two persistent blocks an SM."""
     got, smem = fa.fwd_block(s, head_dim)
     assert got == consumers
     assert smem <= topk.SMEM_BLOCK_LIMIT
+    wide = head_dim == 64 and s > 64
+    assert fa.fwd_kernel(s, head_dim) == ("attn_fwd_d64_kernel" if wide else "attn_fwd_kernel")
     blocks = 2 if consumers == 2 else (4 if head_dim == 32 else 3)
+    if wide:
+        assert smem == (2 * 128 + 3 * 2 * fa.FWD_WIDE_KEYS + 128) * 128 + 1024 == 99328
     assert blocks * (smem + 2048) <= 233472      # the SM's 228 KB, 1 KB reserved a block
     assert head_dim in fa.FWD_HEAD_DIMS
 
 
-@pytest.mark.parametrize("head_dim,smem,blocks", [(32, 35328, 6), (64, 68096, 3)])
-def test_k10_block_fits_shared_memory(head_dim, smem, blocks):
-    """K10's block at both head widths: two resident 64-row tiles, a ring of
-    3 stages of two tiles and a query tile's statistics, 1 KB of
-    alignment; above 48 KB (head_dim 64) the launch opts in. Six blocks an
-    SM at head_dim 32, three at 64, by shared memory."""
-    assert fa.bwd_smem_bytes(head_dim) == smem
+@pytest.mark.parametrize("head_dim,s,smem,blocks", [(32, 128, 35328, 6), (64, 128, 214016, 1),
+                                                    (64, 512, 68096, 3)])
+def test_k10_block_fits_shared_memory(head_dim, s, smem, blocks):
+    """K10's block at both head widths. The two kernels (head_dim 32, and 64
+    above S = 128): two resident 64-row tiles, a ring of 3 stages of two
+    tiles and a query tile's statistics, 1 KB of alignment; six blocks an
+    SM at head_dim 32, three at 64. The fused kernel (head_dim 64, S <=
+    128): two buffers of Q, K, V and dO, the P and dS tiles and dq's
+    staging tiles, 214,016 bytes, one block an SM. Above 48 KB the launch
+    opts in."""
+    path, kernels, got = fa.bwd_launch_plan(s, head_dim)
+    assert got == smem
+    if path == "two kernels":
+        assert got == fa.bwd_smem_bytes(head_dim)
     assert smem <= topk.SMEM_BLOCK_LIMIT
     assert blocks * (smem + 1024) <= 233472 < (blocks + 1) * (smem + 1024)
     assert head_dim in fa.BWD_HEAD_DIMS
+
+
+@pytest.mark.parametrize("head_dim,s,path", [(64, 1, "fused"), (64, 64, "fused"), (64, 100, "fused"),
+                                             (64, 128, "fused"), (64, 129, "two kernels"),
+                                             (64, 512, "two kernels"), (32, 64, "two kernels"),
+                                             (32, 128, "two kernels"), (32, 512, "two kernels")])
+def test_k10_launch_plan_picks_its_path_from_s(head_dim, s, path):
+    """K10's path from S and the head width alone: the fused kernel at head
+    width 64 up to S = 128 (every K10 launch of the train paths: S = 128,
+    100, 64, and K11's local shapes), two kernels above and at head width
+    32. The fused block's bytes: two buffers of four inputs of two 64-row
+    tiles, the P and dS tiles of 2 x 2, dq's two staging tiles, 1 KB of
+    alignment; the wrapper allocates the scratch only for the two kernels."""
+    got, kernels, smem = fa.bwd_launch_plan(s, head_dim)
+    assert got == path
+    tile = 64 * 2 * head_dim
+    if path == "fused":
+        assert kernels == ("attn_bwd_fused_d64_kernel",)
+        assert smem == 2 * (4 * 2 * tile) + (2 * 2 + 2 * 2 + 2) * tile + 1024
+    else:
+        assert kernels == ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+        assert smem == 2 * tile + 3 * (2 * tile + 2 * 64 * 4) + 1024
+    assert (s <= fa.FUSED_BWD_MAX_S and head_dim == 64) == (path == "fused")
 
 
 def _ffn_cuda_constants():
