@@ -19,7 +19,10 @@ Phases, each printing one JSON line:
               must load.
 3. kernel  -- every kernel (K1-K11) at its main-path shapes (and K1-K5, K7,
               K8, K10 and K11 again at the bge-base width: head_dim 64,
-              hidden 768, D 768; K9 at heads of 128: Qwen2-1.5B's 12 / 2
+              hidden 768, D 768; K1-K5, K7 and K8 last at the bge-large
+              width, ``<kernel>@w1024``: hidden 1,024, 16 heads of 64, K3's
+              third design at N=131,072 with two controls that must miss
+              its 3e-2, D 1,024; K9 at heads of 128: Qwen2-1.5B's 12 / 2
               at pad 1,100 and 0, Qwen2-7B's 28 / 4 and Llama-3-8B's 32 / 8,
               each with its device time and, at S=4,096, a wrong-K9
               control that must fail), against its
@@ -120,8 +123,8 @@ Phases, each printing one JSON line:
 10. parity -- 16 corpus texts through the same weights on the CPU (plain
               versions, f32) against the card's bf16 embeddings and logits.
 10b. wide  -- the bge-base width: seeded random checkpoints at the
-              bge-base-en-v1.5 and gte-base shapes (hidden 768, 12 layers,
-              12 heads of 64, FFN 3,072) as the baai and gte encoders beside
+              bge-base-en-v1.5 and gte-base widths (hidden 768, 12 heads of
+              64, FFN 3,072; WIDE_LAYERS of the published 12 layers) as the baai and gte encoders beside
               the MiniLM-L-6 reranker; Runtime.build(device="cuda") on flat
               bf16 ingests phase 4's corpus and answers the 9 golden
               questions (K1-K3 at the wide shapes on the ingest, K1-K4 on the
@@ -129,6 +132,15 @@ Phases, each printing one JSON line:
               cosine >= 0.999; a profile as in phase 5; the indexes reloaded
               as int8 answer the 9 questions through K5 at D=768. p50s and
               children/s printed.
+10b'. large -- the bge-large width: seeded random checkpoints at the
+              bge-large-en-v1.5 and gte-large shapes (hidden 1,024, 24
+              layers, 16 heads of 64, FFN 4,096) beside the MiniLM-L-6
+              reranker, as in 10b: flat bf16 ingest of phase 4's corpus (K1-K3,
+              K3's 1,024 design), the 9 questions (K1-K4 at D 1,024), 16
+              embeddings against the CPU (cosine >= 0.999), a profile; the
+              indexes reloaded as int8 (K5 at D 1,024) and into 4 shards
+              (K7 at D 1,024, K4 never), the 9 questions on each. The
+              phase's seconds, rates, p50s and launches printed.
 10c. multivector -- the late-interaction tier: phase 4's bge-small
               checkpoint in a TokenEncoder on the card and a
               MultiVectorIndex (384, 128 tokens, 4,096 children, bf16)
@@ -142,23 +154,24 @@ Phases, each printing one JSON line:
               card; 16-token queries, k 10): ms a search (median, IQR),
               the sweep's ms, its bound, peak memory, one query against a
               plain f32 recomputation.
-11. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B shape;
+11. llm    -- a seeded random-weight checkpoint at the Qwen2-0.5B width
+              (LLM_LAYERS of its 24 layers);
               Runtime.build with LLM_PROVIDER=local (LLM_MAX_NEW_TOKENS =
               LLM_SMOKE_NEW_TOKENS) on a copy of the flat data dir; warm()
               (the 4,096 prompt bucket), the 9 golden questions through
               RAGEngine.query and 3 through query_stream, none degraded;
-              K9 launched 24 times per prefill; generate against the joined
+              K9 launched once a layer per prefill; generate against the joined
               stream, a generate_many wave, LLM_DTYPE=int8.
 12. profile -- the llm runtime under torch.profiler (2 questions).
 13. decoder_parity -- the 0.5B weights on the CPU (f32) against the card
               (bf16, K9): last-position logits and each layer's attention
               output by cosine, with controls that must fail.
 13a. llm_d128 -- a head-128 decoder at full width: a seeded random-weight
-              checkpoint at the Qwen2-1.5B shape (28 layers, 12 query and 2
-              kv heads of 128) on the byte-level BPE fixture, served with
+              checkpoint at the Qwen2-1.5B width (LLM_LAYERS of its 28
+              layers, 12 query and 2 kv heads of 128) on the byte-level BPE fixture, served with
               LLM_PROVIDER=local on a copy of the flat data dir; warm(), 3
               golden questions through query and 1 through query_stream,
-              none degraded; K9 (its head-128 kernel) 28 times a prefill, a
+              none degraded; K9 (its head-128 kernel) once a layer a prefill, a
               4,096-token prefill; prints the write, build and warm seconds,
               query p50 and max, prefill ms by bucket, verify-step ms.
 13b. decoder_tp -- tensor-parallel decoding of the 0.5B shape on tp 2, 2
@@ -166,7 +179,7 @@ Phases, each printing one JSON line:
               prompts up to 512 tokens, 16 greedy tokens; the ranks' tokens
               identical; against the single-device port, bf16 prefill and
               decode-step logits (cosine >= 0.995) and f32 tokens up to the
-              first near tie; K9 24 times a prefill at 7 / 1 local heads, 2
+              first near tie; K9 once a layer a prefill at 7 / 1 local heads, 2
               all-reduces a layer; then dryrun_multichip's section 5 on 4
               ranks.
 14. train  -- fine-tuning at full width, bf16 compute on f32 master weights:
@@ -214,7 +227,11 @@ Phases, each printing one JSON line:
               are the ids tokenizers wrote there, K1-K4 and K9 launch;
               prints the phase's seconds, the reader's encode ms of a
               4,096-token prompt and recall_eval's value.
-19. the script's total seconds, the ``kernels`` line (K2, K10 and K11
+19. the script's total seconds, the ``kernels`` line (K1-K5, K7 and K8
+              with their first bge-large case as ``w1024`` and, but K8
+              (no IVF there), the large phase's launches as
+              ``launches_large``, K2's and K3's those at width 1,024 (the
+              encoders', not the 384-wide reranker's); K2, K10 and K11
               with their head_dim-64 case as ``d64``, K10 and K11 its
               launches as ``launches_d64``, K9 with its head_dim-128 case as ``d128``,
               its launches on the TP ranks as ``launches_tp`` and on
@@ -223,7 +240,7 @@ Phases, each printing one JSON line:
               the last line ``{"ok": true, "device": ...}``.
 
 Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
-part of 10b, 10c, 11, 13a, 13b (in its ranks' fresh processes), each part of
+part of 10b and 10b', 10c, 11, 13a, 13b (in its ranks' fresh processes), each part of
 14, 16 and 17, and 18) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
@@ -252,6 +269,7 @@ import urllib.error
 import urllib.request
 from pathlib import Path
 
+T_START = time.perf_counter()      # the phases' at_s count from here
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # LLM_MAX_NEW_TOKENS of the llm phases. Random weights never emit eos, so
@@ -365,23 +383,32 @@ TRAIN_PATH = ("flash_attention", "flash_attention_bwd", "fused_ffn")
 COUNTER_ATTR = {"flash_attention_bwd": "BWD_LAUNCHES", "flash_attention_tp": "TP_LAUNCHES",
                 "flash_attention_tp_bwd": "TP_BWD_LAUNCHES"}
 
-# the Qwen2-0.5B shape (HF config.json of Qwen/Qwen2-0.5B), full width and depth
+# The decoders' depth here: LLM_LAYERS of the published 24 (Qwen2-0.5B) and 28
+# (Qwen2-1.5B). At full depth each eager verify step is ~1,450 launches and
+# the phases that generate took ~330 s of the run's 1,200 s limit; every
+# layer gives K9 the same shapes, so the cut changes its count, not its work.
+LLM_LAYERS = 4
+# the Qwen2-0.5B shape (HF config.json of Qwen/Qwen2-0.5B), full width, depth cut
 QWEN2_05B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
              "vocab_size": 151936, "hidden_size": 896, "intermediate_size": 4864,
-             "num_hidden_layers": 24, "num_attention_heads": 14, "num_key_value_heads": 2,
+             "num_hidden_layers": LLM_LAYERS, "num_attention_heads": 14, "num_key_value_heads": 2,
              "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
              "tie_word_embeddings": True, "hidden_act": "silu", "torch_dtype": "bfloat16"}
 # the Qwen2-1.5B shape (HF config.json of Qwen/Qwen2-1.5B-Instruct), full
-# width and depth: 12 query and 2 kv heads of 128, so K9's head-128 kernel
+# width, depth cut: 12 query and 2 kv heads of 128, so K9's head-128 kernel
 QWEN2_15B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
              "vocab_size": 151936, "hidden_size": 1536, "intermediate_size": 8960,
-             "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 2,
+             "num_hidden_layers": LLM_LAYERS, "num_attention_heads": 12, "num_key_value_heads": 2,
              "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
              "tie_word_embeddings": True, "hidden_act": "silu", "torch_dtype": "bfloat16"}
 DEGRADED = "LLM unavailable"
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``at_s``, the seconds since
+    the script started, so each phase's share of the time limit shows."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -410,12 +437,20 @@ def reset_launches() -> None:
             mod.LAUNCHES[name] = 0
         else:
             setattr(mod, COUNTER_ATTR.get(name, "LAUNCHES"), 0)
+        if name in ("flash_attention", "fused_ffn"):   # and their counts by width
+            mod.WIDTH_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
     return {name: (mod.LAUNCHES[name] if name in TOPK_KERNELS
                    else getattr(mod, COUNTER_ATTR.get(name, "LAUNCHES")))
             for name, mod in _counter_modules().items()}
+
+
+def width_launches(dim: int) -> dict:
+    """K2's and K3's launches at hidden width ``dim`` since reset_launches."""
+    mods = _counter_modules()
+    return {name: mods[name].WIDTH_LAUNCHES[dim] for name in ("flash_attention", "fused_ffn")}
 
 
 def check_path_launched(path: tuple, launches: dict, what: str) -> None:
@@ -430,7 +465,7 @@ def check(cond: bool, what: str) -> None:
 
 # ------------------------------------------------------------------ timing
 
-def cuda_ms(torch, fn, budget_ms: float = 300.0) -> float:
+def cuda_ms(torch, fn, budget_ms: float = 100.0) -> float:
     """Mean device time of fn() over a run of launches, by CUDA events,
     after a warm-up; the run is long enough to fill ~budget_ms."""
     fn()
@@ -760,6 +795,7 @@ def kernel_cases(torch, F, seed):
     for heads, shapes in CAUSAL_128_CASES:
         cases += causal_cases(torch, F, randn, heads=heads, shapes=shapes)
     cases += wide_attention_cases(torch, F, randn, padded_mask)
+    cases += large_cases(torch, F, gen, randn, padded_mask)
     return cases
 
 
@@ -882,10 +918,118 @@ def wide_cases(torch, F, gen, randn, padded_mask):
     return cases
 
 
+
+# (kernel, N, corpus, two-call yardstick, queries) of the sweep cases at D
+# 1,024: the table's shape with its two-call time and the served launch for
+# K5 in int8 and bf16, and K7 at the table's shape and a shard's
+LARGE_SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
+                    ("bucketed_topk_fused", 102400, "int8", False, 8),
+                    ("bucketed_topk_fused", 4096, "int8", False, 1),
+                    ("bucketed_topk_fused", 102400, "bf16", True, 128),
+                    ("bucketed_topk_fused", 4096, "bf16", False, 1),
+                    ("bucketed_topk", 102400, "bf16", False, 128),
+                    ("bucketed_topk", 102400, "int8", False, 128),
+                    ("bucketed_topk", 32768, "bf16", False, 8))
+
+
+def large_cases(torch, F, gen, randn, padded_mask):
+    """The bge-large width (hidden 1,024, 16 heads of 64, FFN 4,096, index D
+    1,024), after every other case so that those keep their inputs, each
+    named ``<kernel>@w1024`` (the kernels line's ``w1024``): K1 at B=256
+    S=512; K2 at 16 heads (B=256 S=512, the ingest's 68 x 512, B=8 S=64
+    with a fully masked row); K3's third design at N=131,072 (with two
+    controls that must miss its 3e-2: W2's second half of columns replaced
+    by its first, as if the second pass read the first pass's slabs, and
+    W1's last 64-column chunk lost), the large ingest's 68 x 512 and N=512;
+    K4 at Bq=128, 8 and 1 over N=102,400, the load phase's wave (Bq=192
+    over 4,096) and exact-grid data with ties; K5 and K7 (LARGE_SWEEP_PLAN)
+    with exact-grid cases; K4, K5 and K7 on exact-grid data at Bq=128, 8
+    and 1, bit for bit; K8 at B=8 P=64. Tolerances and bounds as at
+    384."""
+    from financial_rag_tpu_torch.ops import fused_ffn as ffn
+    from financial_rag_tpu_torch.ops import pool_norm as pn
+    from financial_rag_tpu_torch.ops import topk
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    H, NH, I = 1024, 16, 4096
+    hd = H // NH
+    cases = []
+    b, s = 256, 512
+    hidden = randn(b, s, H, dtype=bf16)
+    mask = padded_mask(b, s)
+    live = int(mask.sum().item())
+    cases.append(("masked_mean_l2_normalize", f"B={b},S={s},H={H},bf16",
+                  lambda h=hidden, m=mask: pn.masked_mean_l2_normalize(h, m),
+                  lambda h=hidden, m=mask: pn.masked_mean_l2_normalize_plain(h, m),
+                  None, max_abs_cmp(1e-5),
+                  bound(live * H * 2 + b * s * 4 + b * H * 4, 2 * live * H, "f32")))
+    del hidden
+
+    for b, s in ((256, 512), (68, 512), (8, 64)):
+        q, k, v = (randn(b, s, H, dtype=bf16) for _ in range(3))
+        mask = padded_mask(b, s, fully_masked_row=(b == 8))
+        bias = torch.where(mask > 0, 0.0, -1e9).float()
+        cases.append(wide_attention_case(torch, F, q, k, v, mask, bias, NH, hd))
+
+    w1, w2 = randn(H, I, dtype=bf16, scale=H ** -0.5), randn(I, H, dtype=bf16, scale=0.012)
+    b1, b2 = randn(I, dtype=bf16, scale=0.1), randn(H, dtype=bf16, scale=0.1)
+    w2_first_half = torch.cat([w2[:, :H // 2], w2[:, :H // 2]], dim=1).contiguous()
+    w1_chunk_lost = w1.clone()
+    w1_chunk_lost[:, -64:] = 0
+    for b, s in ((256, 512), (68, 512), (8, 64)):
+        x = randn(b, s, H, dtype=bf16)
+        n = b * s
+        controls = ()
+        if n == 131072:
+            controls = (("second_pass_reads_first_half_of_w2",
+                         lambda x=x: ffn.fused_ffn(x, w1, b1, w2_first_half, b2)),
+                        ("last_i_chunk_lost",
+                         lambda x=x: ffn.fused_ffn(x, w1_chunk_lost, b1, w2, b2)))
+        cases.append(("fused_ffn", f"N={n} (B={b},S={s}),H={H},I={I},bf16",
+                      lambda x=x: ffn.fused_ffn(x, w1, b1, w2, b2),
+                      lambda x=x: ffn.fused_ffn_plain(x, w1, b1, w2, b2),
+                      ThreeCallFFN(F, x, w1, b1, w2, b2), attention_cmp(3e-2, controls),
+                      bound(2 * n * H * 2 + (2 * H * I + I + H) * 2, 4 * n * H * I, "bf16")))
+
+    d, k = H, 24
+    for bq, n in ((128, 102400), (8, 102400), (1, 102400), (192, 4096)):
+        x = randn(n, d)
+        x = (x / x.norm(dim=1, keepdim=True)).to(bf16)
+        queries = randn(bq, d)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+        valid = (torch.rand(n, generator=gen, device=dev) > 0.03).float()
+        bits = max((n // 1024 - 1).bit_length(), 1)
+        cases.append(("packed_topk_fused", f"Bq={bq},N={n},D={d},k={k},bf16",
+                      lambda q=queries, x=x, v=valid: topk.packed_topk_fused(q, x, v, k),
+                      lambda q=queries, x=x, v=valid: topk.packed_topk_fused_plain(q, x, v, k),
+                      TwoCallTopk(torch, queries, x, k), topk_cmp(bits),
+                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d, "bf16")))
+    n = 16384
+    x = (torch.randint(-3, 4, (n, d), generator=gen, device=dev).float() / 64.0)
+    x[4096:8192] = x[:4096]
+    x = x.to(bf16)
+    grid_queries = torch.randint(-3, 4, (128, d), generator=gen, device=dev).float() / 64.0
+    valid = (torch.rand(n, generator=gen, device=dev) > 0.1).float()
+    for bq in (128, 8, 1):   # each query count's 16-row tiles bit for bit
+        queries = grid_queries[:bq]
+        cases.append(("packed_topk_fused", f"Bq={bq},N={n},D={d},k={k},bf16,exact-grid+ties",
+                      lambda q=queries: topk.packed_topk_fused(q, x, valid, k),
+                      lambda q=queries: topk.packed_topk_fused_plain(q, x, valid, k),
+                      None, topk_cmp(4, exact=True),
+                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * k * 8, 2 * bq * n * d,
+                            "bf16")))
+    cases += sweep_cases(torch, gen, randn, d=d, plan=LARGE_SWEEP_PLAN,
+                         grid=("bucketed_topk_fused", "bucketed_topk"), grid_qs=(128, 8, 1))
+    cases += probe_cases(torch, gen, randn, d=d, shapes=((8, 64),))
+    # every case under <kernel>@w1024 (K2's came as flash_attention@64)
+    return [(f"{name.partition('@')[0]}@w{H}", *rest) for name, *rest in cases]
+
 def attention_cmp(tol, controls=()):
-    """Within ``tol`` of the plain version at every element (K2's check);
-    each control, the kernel run on inputs it must not be given (a key tile
-    lost, the padding mask ignored), must miss the same bound."""
+    """Within ``tol`` of the plain version at every element (K2's check, and
+    K3's at 1,024); each control, the kernel run on inputs it must not be
+    given (a key tile lost, the padding mask ignored, W2's second half of
+    columns replaced by its first), must miss the same bound."""
     def cmp(a, b):
         err = (a.float() - b.float()).abs().max().item()
         detail = {"tol": tol}
@@ -1139,14 +1283,14 @@ SWEEP_PLAN = (("bucketed_topk_fused", 102400, "int8", True, 128),
 
 
 def sweep_cases(torch, gen, randn, d: int = 384, plan=SWEEP_PLAN,
-                grid=("bucketed_topk_fused", "topk_matmul", "bucketed_topk")):
+                grid=("bucketed_topk_fused", "topk_matmul", "bucketed_topk"), grid_qs=(128,)):
     """K5, K6, K7 at the JAX package's bench shape (Bq=128, N=102,400, D=384,
     k=24), K5 at the int8 runtime's served shape (one query over 4,096
     rows), K6 int8 at N=16,384, K6 and K7 at the backends phase's shape (9
     queries over 4,096 rows), K7 also in int8 and at a shard of the sharded
-    runtime (8 queries over 32,768 rows), and one exact-grid case with
-    duplicated rows for each kernel of ``grid``; ``d`` and ``plan`` give
-    another width its own cases."""
+    runtime (8 queries over 32,768 rows), and exact-grid cases with
+    duplicated rows for each kernel of ``grid``, one at each query count of
+    ``grid_qs``; ``d`` and ``plan`` give another width its own cases."""
     from financial_rag_tpu_torch.ops import topk
 
     dev = torch.device("cuda")
@@ -1202,14 +1346,17 @@ def sweep_cases(torch, gen, randn, d: int = 384, plan=SWEEP_PLAN,
     xg = xg.to(torch.bfloat16)
     qg = torch.randint(-3, 4, (bq, d), generator=gen, device=dev).float() / 64.0
     vg = (torch.rand(n, generator=gen, device=dev) > 0.1).float()
-    for name in grid:
-        run, plain = fns[name]
-        width = 4096 if name == "bucketed_topk" else k
-        cases.append((name, f"Bq={bq},N={n},D={d},k={k},bf16,exact-grid+ties",
-                      lambda run=run: run(qg, xg, vg, k), lambda plain=plain: plain(qg, xg, vg, k),
-                      None, sweep_cmp(exact=True),
-                      bound(n * d * 2 + n * 4 + bq * d * 4 + bq * width * 8, 2 * bq * n * d,
-                            "bf16")))
+    for nq in grid_qs:
+        q = qg[:nq]
+        for name in grid:
+            run, plain = fns[name]
+            width = 4096 if name == "bucketed_topk" else k
+            cases.append((name, f"Bq={nq},N={n},D={d},k={k},bf16,exact-grid+ties",
+                          lambda run=run, q=q: run(q, xg, vg, k),
+                          lambda plain=plain, q=q: plain(q, xg, vg, k),
+                          None, sweep_cmp(exact=True),
+                          bound(n * d * 2 + n * 4 + nq * d * 4 + nq * width * 8, 2 * nq * n * d,
+                                "bf16")))
     return cases
 
 
@@ -1622,24 +1769,25 @@ def max_abs_cmp(tol):
 
 def phase_kernels(torch, F, seed):
     """Returns {kernel name: the entry of its first (main-path) shape}; a
-    kernel's cases at another head width under ``name@head_dim``."""
+    kernel's cases at another head width under ``name@head_dim``, at the
+    bge-large width under ``name@w1024``."""
     results = {}
     failures = []
     unseen = []   # (name, shape, names): a trace without the Hopper sweep nor an older one
     for name, shape, run, plain, library, cmp, (bound_ms, bound_by) in kernel_cases(torch, F, seed):
-        kernel, _, head_dim = name.partition("@")
+        kernel, _, tag = name.partition("@")
         out = run()
         torch.cuda.synchronize()
         ref = plain()
         err, ok, detail = cmp(out, ref)
-        if name in HOPPER_SWEEP:
+        if kernel in HOPPER_SWEEP:
             names = cuda_kernel_names(torch, run)
             detail["sweep_kernels"] = [n for n in names if "sweep" in n]
             if any(old in n for n in names for old in OLDER_SWEEPS):
-                failures.append(f"{name} [{shape}] did not run {HOPPER_SWEEP[name]} alone: "
+                failures.append(f"{name} [{shape}] did not run {HOPPER_SWEEP[kernel]} alone: "
                                 f"{names}")
-            elif not any(HOPPER_SWEEP[name] in n for n in names):
-                unseen.append((name, shape, names))
+            elif not any(HOPPER_SWEEP[kernel] in n for n in names):
+                unseen.append((kernel, shape, names))
         ms = cuda_ms(torch, run)
         if kernel == "causal_flash_prefill":   # the kernel alone, without the wrapper's host time
             detail["device_ms"] = device_ms(torch, run)
@@ -1670,8 +1818,10 @@ def phase_kernels(torch, F, seed):
         entry = {"phase": "kernel", "name": kernel, "shape": shape, "max_abs_err": err, "ok": ok,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, **detail}
-        if head_dim:
-            entry["head_dim"] = int(head_dim)
+        if tag.startswith("w"):
+            entry["width"] = int(tag[1:])
+        elif tag:
+            entry["head_dim"] = int(tag)
         emit(entry)
         if not ok:
             failures.append(f"{name} [{shape}]: {detail} max_abs_err={err}")
@@ -2499,21 +2649,26 @@ def phase_sharded_scale(torch, seed: int):
     return rows_out
 
 
-WIDE_LAYERS = 12      # bge-base-en-v1.5 and gte-base at full depth
+WIDE_LAYERS = 4       # of bge-base-en-v1.5's and gte-base's 12: cut to fit the time limit
 WIDE_COS_MIN = 0.999  # card (bf16) against the CPU (f32) embeddings, as phase 10
+# the published config.json widths of BAAI/bge-base-en-v1.5 / thenlper/gte-base
+# and of BAAI/bge-large-en-v1.5 / thenlper/gte-large
+BGE_BASE = {"hidden_size": 768, "num_attention_heads": 12, "intermediate_size": 3072}
+BGE_LARGE = {"hidden_size": 1024, "num_attention_heads": 16, "intermediate_size": 4096}
+LARGE_LAYERS = 24     # bge-large-en-v1.5 and gte-large at full depth
 
 
 def write_wide_checkpoints(root: Path, seed: int, layers: int = WIDE_LAYERS,
-                           names=("bge-base", "gte-base"), labels: int = 0):
+                           names=("bge-base", "gte-base"), labels: int = 0, shape=BGE_BASE):
     """Seeded random-weight checkpoints at the bge-base-en-v1.5 and gte-base
     shapes (WordPiece BERT: hidden 768, 12 heads of 64, FFN 3,072, vocab
-    30,522, 512 positions), config.json + model.npz; the vendored vocab.
+    30,522, 512 positions), or at ``shape`` (BGE_LARGE: hidden 1,024, 16
+    heads of 64, FFN 4,096), config.json + model.npz; the vendored vocab.
     ``labels`` > 0: cross-encoders with that many labels."""
     from financial_rag_tpu_torch.config import ModelConfig
     from financial_rag_tpu_torch.models.checkpoint import random_params, save_params_npz
 
-    raw = {"hidden_size": 768, "num_attention_heads": 12, "intermediate_size": 3072,
-           "vocab_size": 30522, "max_position_embeddings": 512, "type_vocab_size": 2,
+    raw = {**shape, "vocab_size": 30522, "max_position_embeddings": 512, "type_vocab_size": 2,
            "layer_norm_eps": 1e-12, "num_hidden_layers": layers, "architectures": ["BertModel"]}
     if labels:
         raw.update(architectures=["BertForSequenceClassification"],
@@ -2524,104 +2679,168 @@ def write_wide_checkpoints(root: Path, seed: int, layers: int = WIDE_LAYERS,
         d.mkdir(parents=True)
         (d / "config.json").write_text(json.dumps(raw))
         cfg = ModelConfig.from_json(d)
-        check(cfg.hidden_size == 768 and cfg.num_heads == 12 and cfg.num_labels == labels,
-              f"config of {name}")
+        check(cfg.hidden_size == shape["hidden_size"] and cfg.num_heads == shape[
+            "num_attention_heads"] and cfg.num_labels == labels, f"config of {name}")
         save_params_npz(random_params(cfg, seed=seed + 10 + i), d / "model.npz")
         paths[name] = d
     return paths
 
 
-def wide_parity(rt, paths: dict, texts) -> dict:
-    """16 distinct corpus texts through the wide runtime's encoders on the
-    card (bf16) and through the same weights on the CPU (f32, plain
-    versions): the smallest cosine of each encoder."""
+def wide_parity(rt, paths: dict, texts, names=("bge-base", "gte-base"), dim: int = 768,
+                what: str = "wide") -> dict:
+    """16 distinct corpus texts through the runtime's ``dim``-wide encoders
+    (checkpoints ``names``: baai CLS, gte mean) on the card (bf16) and
+    through the same weights on the CPU (f32, plain versions; one text a
+    forward, so no padded rows: a 24-layer 1,024-wide encode of 16 texts
+    padded to 32 rows took ~55 s of the CPU): the smallest cosine of each
+    encoder."""
     import numpy as np
 
     from financial_rag_tpu_torch.models.encoder import Encoder
 
     sample = list(dict.fromkeys(texts))[:16]
-    check(len(sample) == 16, "wide: fewer than 16 distinct corpus texts")
+    check(len(sample) == 16, f"{what}: fewer than 16 distinct corpus texts")
     out = {}
-    for name, path, pooling in (("baai", paths["bge-base"], "cls"),
-                                ("gte", paths["gte-base"], "mean")):
+    for name, path, pooling in (("baai", paths[names[0]], "cls"),
+                                ("gte", paths[names[1]], "mean")):
         gpu = rt.dual_encoder.encoders[name].encode(sample)
-        cpu = Encoder.from_pretrained(str(path), pooling=pooling, device="cpu").encode(sample)
-        check(gpu.shape == cpu.shape == (16, 768), f"wide {name}: embeddings {gpu.shape}")
+        cpu = Encoder.from_pretrained(str(path), pooling=pooling, device="cpu",
+                                      batch_size=1).encode(sample)
+        check(gpu.shape == cpu.shape == (16, dim), f"{what} {name}: embeddings {gpu.shape}")
         cos = (gpu * cpu).sum(1) / (np.linalg.norm(gpu, axis=1) * np.linalg.norm(cpu, axis=1))
         out[f"{name}_min_cos"] = float(cos.min())
-        check(cos.min() >= WIDE_COS_MIN, f"wide {name} embeddings: min cosine {cos.min()}")
+        check(cos.min() >= WIDE_COS_MIN, f"{what} {name} embeddings: min cosine {cos.min()}")
     return out
 
 
-def phase_wide(torch, cfg, work: Path, items, seed: int):
-    """The bge-base width: the flat bf16 runtime with 768-wide baai (CLS)
-    and gte (mean) encoders at full depth beside the 384-wide MiniLM
-    reranker, so one process serves both widths through the same kernels.
-    Build on the card, ingest phase 4's corpus, the 9 golden questions;
-    K1-K3 launched while only the wide encoders run (ingest) and K1-K4 on
-    the queries (the index is 768-wide); 16 children's embeddings against
-    the f32 CPU path; a profile as in phase 5; then the indexes reloaded
-    as int8 on a copy of the data dir (no feedback.db) and the 9 questions
-    through K5 at D=768.
-    The p50s and the ingest rate are printed, not gated, and are no gain
-    or loss against the D=384 phases."""
+# the reloads of a wide phase's indexes: (part, index dtype, shards, path)
+INT8_RELOAD = ("int8", "int8", 1, INT8_PATH)
+SHARDED_RELOAD = ("sharded", "bfloat16", SHARDS, SHARDED_PATH)
+
+
+def phase_wide(torch, cfg, work: Path, items, seed: int, label: str = "wide", shape=BGE_BASE,
+               layers: int = WIDE_LAYERS, names=("bge-base", "gte-base"),
+               reloads=(INT8_RELOAD,)) -> dict:
+    """A bi-encoder width above 384 (``shape``, ``layers`` deep): the flat
+    bf16 runtime with baai (CLS) and gte (mean) encoders of that width
+    beside the 384-wide MiniLM reranker, so one process serves both widths
+    through the same kernels. Build on the card, ingest phase 4's corpus,
+    the 9 golden questions; K1-K3 launched while only the wide encoders run
+    (ingest) and K1-K4 on the queries (the index is as wide as the
+    encoders); 16 children's embeddings against the f32 CPU path; a profile
+    as in phase 5; then each of ``reloads`` on a copy of the data dir (no
+    feedback.db): the indexes reloaded as int8 (the 9 questions through K5)
+    or into 4 shards (through K7, K4 never). The rates, p50s and launches
+    are printed, not gated, and are no gain or loss against the D=384
+    phases. Returns the launches of each part, and under ``width`` K2's and
+    K3's launches at the encoders' width over the ingest and the queries
+    (the reranker's, at 384, apart)."""
     from financial_rag_tpu_torch.models.encoder import Encoder
+    from financial_rag_tpu_torch.parallel import ShardedFlatIndex
     from financial_rag_tpu_torch.runtime import Runtime
 
-    t0 = time.perf_counter()
-    paths = write_wide_checkpoints(work / "models_wide", seed)
-    checkpoints_s = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+    dim = shape["hidden_size"]
+    paths = write_wide_checkpoints(work / f"models_{label}", seed, layers=layers, names=names,
+                                   shape=shape)
+    checkpoints_s = time.perf_counter() - t_phase
     cfg = copy.deepcopy(cfg)
-    cfg.encoders.baai_path = str(paths["bge-base"])
-    cfg.encoders.gte_path = str(paths["gte-base"])
+    cfg.encoders.baai_path = str(paths[names[0]])
+    cfg.encoders.gte_path = str(paths[names[1]])
     reset_launches()
     t_build = time.perf_counter()
-    rt = Runtime.build(cfg, data_dir=work / "data_wide", device="cuda")
+    rt = Runtime.build(cfg, data_dir=work / f"data_{label}", device="cuda")
     build_s = time.perf_counter() - t_build
     encoders = {n: getattr(e, "inner", None) for n, e in rt.dual_encoder.encoders.items()}
-    check(all(isinstance(e, Encoder) and e.dim == 768 for e in encoders.values()),
-          f"wide: the encoders are not the 768-wide checkpoints ({encoders})")
-    check(all(i.dim == 768 and i.backend == "pallas_fused" and i.dtype == torch.bfloat16
-              for i in rt.indexes.values()), "wide: an index is not 768-wide bf16 on K4")
-    check(rt.engine.reranker.model is not None, "wide: the cross-encoder did not load")
+    check(all(isinstance(e, Encoder) and e.dim == dim and e.config.num_layers == layers
+              for e in encoders.values()),
+          f"{label}: the encoders are not the {layers}-layer {dim}-wide checkpoints ({encoders})")
+    check(all(i.dim == dim and i.backend == "pallas_fused" and i.dtype == torch.bfloat16
+              for i in rt.indexes.values()), f"{label}: an index is not {dim}-wide bf16 on K4")
+    check(rt.engine.reranker.model is not None, f"{label}: the cross-encoder did not load")
 
     children, ingest_s = ingest_all(rt, items)
     ingest_launches = read_launches()
     check_path_launched(("masked_mean_l2_normalize", "flash_attention", "fused_ffn"),
-                        ingest_launches, "wide ingest (the 768-wide encoders alone)")
-    query_ms, answers, methods = golden_queries(rt, "wide flat bf16")
+                        ingest_launches, f"{label} ingest (the {dim}-wide encoders alone)")
+    ingest_width = width_launches(dim)
+    query_ms, answers, methods = golden_queries(rt, f"{label} flat bf16")
     launches = read_launches()
+    width = width_launches(dim)
     query_launches = {name: launches[name] - ingest_launches[name] for name in launches}
-    check_path_launched(FLAT_PATH, query_launches, "wide flat bf16 query path")
+    check_path_launched(FLAT_PATH, query_launches, f"{label} flat bf16 query path")
+    check(all(width[k] > ingest_width[k] > 0 for k in width),
+          f"{label}: K2 or K3 not launched at width {dim} (ingest {ingest_width}, "
+          f"then {width})")
     parity = wide_parity(rt, paths, [c["text"] for out in answers
-                                     for c in out["top_children_chunks"]])
-    phase_profile(torch, rt, label="wide flat bf16")
+                                     for c in out["top_children_chunks"]],
+                         names=names, dim=dim, what=label)
+    phase_profile(torch, rt, label=f"{label} flat bf16")
+    rt.save_indexes(work / f"data_{label}")
+    del rt
+    torch.cuda.empty_cache()
 
-    rt.save_indexes(work / "data_wide")
-    shutil.copytree(work / "data_wide", work / "data_wide_int8",
-                    ignore=shutil.ignore_patterns("feedback.db*"))
-    cfg8 = copy.deepcopy(cfg)
-    cfg8.index.dtype = "int8"
-    reset_launches()
-    rt8 = Runtime.build(cfg8, data_dir=work / "data_wide_int8", device="cuda")
-    check(all(i.dtype == torch.int8 and i.dim == 768 and i.backend == "pallas_fused"
-              and i.count() == children for i in rt8.indexes.values()),
-          "wide: the int8 runtime did not reload the 768-wide indexes")
-    int8_ms, _, int8_methods = golden_queries(rt8, "wide int8")
-    int8_launches = read_launches()
-    check_path_launched(INT8_PATH, int8_launches, "wide int8 path")
-    emit({"phase": "wide", "layers": WIDE_LAYERS, "children": children,
-          "index_dim": {n: i.dim for n, i in rt.indexes.items()},
+    out = {}
+    for part, dtype, shards, path in reloads:
+        data = work / f"data_{label}_{part}"
+        shutil.copytree(work / f"data_{label}", data,
+                        ignore=shutil.ignore_patterns("feedback.db*"))
+        cfg_p = copy.deepcopy(cfg)
+        cfg_p.index.dtype = dtype
+        cfg_p.mesh.index_shards = shards
+        reset_launches()
+        rt_p = Runtime.build(cfg_p, data_dir=data, device="cuda")
+        if shards > 1:
+            check(all(isinstance(i, ShardedFlatIndex) and i.n_shards == shards and i.dim == dim
+                      and i.count() == children for i in rt_p.indexes.values()),
+                  f"{label}: the flat indexes did not reload into {shards} shards of D {dim}")
+        else:
+            check(all(i.dtype == torch.int8 and i.dim == dim and i.backend == "pallas_fused"
+                      and i.count() == children for i in rt_p.indexes.values()),
+                  f"{label}: the int8 runtime did not reload the {dim}-wide indexes")
+        part_ms, _, part_methods = golden_queries(rt_p, f"{label} {part}")
+        part_launches = read_launches()
+        check_path_launched(path, part_launches, f"{label} {part} path")
+        if shards > 1:
+            check(part_launches["packed_topk_fused"] == 0,
+                  f"{label} sharded: K4 ran {part_launches['packed_topk_fused']} times")
+        out[part] = part_launches
+        parity.update({f"{part}_query_p50_ms": round(statistics.median(part_ms), 3),
+                       f"{part}_query_max_ms": round(max(part_ms), 3),
+                       f"{part}_reranked_methods": part_methods})
+        del rt_p
+        torch.cuda.empty_cache()
+    emit({"phase": label, "layers": layers, "children": children, "index_dim": dim,
           "checkpoints_s": round(checkpoints_s, 3), "runtime_build_s": round(build_s, 3),
           "ingest_s": round(ingest_s, 3), "children_per_s": round(children / ingest_s, 1),
           "query_p50_ms": round(statistics.median(query_ms), 3),
-          "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods,
-          "int8_query_p50_ms": round(statistics.median(int8_ms), 3),
-          "int8_query_max_ms": round(max(int8_ms), 3), "int8_reranked_methods": int8_methods,
-          **parity, "launches_ingest": ingest_launches, "launches_queries": query_launches,
-          "launches_int8": int8_launches})
-    del rt, rt8
-    torch.cuda.empty_cache()
+          "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods, **parity,
+          "launches_ingest": ingest_launches, "launches_queries": query_launches,
+          **{f"launches_{part}": n for part, n in out.items()},
+          f"launches_width_{dim}": width, "seconds": round(time.perf_counter() - t_phase, 1)})
+    return {"ingest": ingest_launches, "queries": query_launches, "width": width, **out}
+
+
+def phase_large(torch, cfg, work: Path, items, seed: int) -> dict:
+    """The bge-large width (hidden 1,024, 24 layers, 16 heads of 64, FFN
+    4,096, K3's 1,024 design, the sweeps at D 1,024) through phase_wide,
+    its indexes reloaded as int8 (K5) and into 4 shards (K7)."""
+    return phase_wide(torch, cfg, work, items, seed + 40, label="large", shape=BGE_LARGE,
+                      layers=LARGE_LAYERS, names=("bge-large", "gte-large"),
+                      reloads=(INT8_RELOAD, SHARDED_RELOAD))
+
+
+# the large phase's launches the kernels line gives each kernel at w1024:
+# K2's and K3's at width 1,024 on the flat bf16 runtime's ingest and queries
+# (not the reranker's at 384), K1's and K4's there, the int8 reload's K5 and
+# the 4-shard reload's K7. K8 is not on its path, and has no such count.
+LARGE_LAUNCHES = {"masked_mean_l2_normalize": lambda r: sum(
+                      r[p]["masked_mean_l2_normalize"] for p in ("ingest", "queries")),
+                  "flash_attention": lambda r: r["width"]["flash_attention"],
+                  "fused_ffn": lambda r: r["width"]["fused_ffn"],
+                  "packed_topk_fused": lambda r: r["queries"]["packed_topk_fused"],
+                  "bucketed_topk_fused": lambda r: r["int8"]["bucketed_topk_fused"],
+                  "bucketed_topk": lambda r: r["sharded"]["bucketed_topk"]}
 
 
 def _http(url: str, body=None, timeout: float = 300.0):
@@ -3131,7 +3350,7 @@ def phase_load(torch, cfg, work: Path, info: dict, seed: int):
                           f"{mismatched}")
     engine.close()
     llm_line = {**latency({q: (None, ms) for q, (_, ms) in streams.items()}, stream_wall),
-                "model": "Qwen2-0.5B shape, random weights, f32",
+                "model": f"Qwen2-0.5B width, {LLM_LAYERS} layers, random weights, f32",
                 "checkpoint_write_s": checkpoint_s, "new_tokens": STREAM_NEW_TOKENS,
                 "microbatch_direct": STREAM_DIRECT, "engine_streams_checked": len(runs),
                 "batching_llm": llm_stats, "engine": eng_stats,
@@ -3294,7 +3513,8 @@ def phase_parity(torch, rt, paths, texts):
     for name, path, pooling in (("baai", paths["bge-small"], "cls"),
                                 ("gte", paths["gte-small"], "mean")):
         gpu = rt.dual_encoder.encoders[name].encode(sample)
-        cpu = Encoder.from_pretrained(str(path), pooling=pooling, device="cpu").encode(sample)
+        cpu = Encoder.from_pretrained(str(path), pooling=pooling, device="cpu",
+                                      batch_size=1).encode(sample)
         cos = (gpu * cpu).sum(1) / (np.linalg.norm(gpu, axis=1) * np.linalg.norm(cpu, axis=1))
         out[f"{name}_min_cos"] = float(cos.min())
         check(cos.min() >= 0.999, f"{name} embeddings: min cosine {cos.min()}")
@@ -3434,7 +3654,7 @@ def serve_local_llm(torch, cfg, work: Path, ckpt: Path, hf: dict, what: str, que
 
 def phase_llm(torch, cfg, work: Path, seed: int):
     """On-device answer synthesis: a seeded random-weight checkpoint at the
-    Qwen2-0.5B shape (full width and depth, bf16, WordLevel tokenizer over
+    Qwen2-0.5B width (LLM_LAYERS deep, bf16, WordLevel tokenizer over
     the corpus words padded to the 151,936 ids) served by serve_local_llm:
     the 9 golden questions through RAGEngine.query (two generations each:
     the query normaliser and the answer, both through prompt-lookup
@@ -3473,7 +3693,7 @@ def phase_llm(torch, cfg, work: Path, seed: int):
     check(not llm8._failed and llm8._params["layers"][0]["qkv_w"]["q"].dtype == torch.int8,
           "llm: the int8 LocalLLM did not load")
     check(bool(text8) and not text8.startswith(DEGRADED), f"llm: int8 answer {text8!r}")
-    emit({"phase": "llm", "model": "Qwen2-0.5B shape, random weights, bf16",
+    emit({"phase": "llm", "model": f"Qwen2-0.5B width, {LLM_LAYERS} layers, random weights, bf16",
           "checkpoint_write_s": checkpoint_s, **stats,
           "max_new_tokens": cfg.llm.local_max_new_tokens, "spec_k": cfg.llm.local_spec_k,
           "generate_many_buckets": buckets, "generate_many_ms": many_ms,
@@ -3485,9 +3705,9 @@ def phase_llm(torch, cfg, work: Path, seed: int):
 
 def phase_llm_d128(torch, cfg, work: Path, seed: int):
     """A head-128 decoder served at full width: a seeded random-weight
-    checkpoint at the Qwen2-1.5B shape (28 layers of 1,536, 12 query and 2
-    kv heads of 128, FFN 8,960, vocab 151,936, q/k/v biases, tied
-    embeddings; 1.54 B parameters, 3.1 GB in bf16) with the committed
+    checkpoint at the Qwen2-1.5B width (LLM_LAYERS of its 28 layers of
+    1,536, 12 query and 2 kv heads of 128, FFN 8,960, vocab 151,936, q/k/v
+    biases, tied embeddings) with the committed
     byte-level BPE fixture as its tokenizer (padded to the vocabulary),
     served by serve_local_llm: 3 golden questions through RAGEngine.query
     and 1 through query_stream, so K9's head-128 kernel runs in every
@@ -3499,7 +3719,7 @@ def phase_llm_d128(torch, cfg, work: Path, seed: int):
     rt, llm, _, answers, stats = serve_local_llm(torch, cfg, work, ckpt, QWEN2_15B, "llm_d128",
                                                  GOLDEN_QUESTIONS[:3], GOLDEN_QUESTIONS[3:4])
     check(llm._dcfg.head_dim == 128, f"llm_d128: head_dim {llm._dcfg.head_dim}, not 128")
-    emit({"phase": "llm_d128", "model": "Qwen2-1.5B shape, random weights, bf16, BPE fixture",
+    emit({"phase": "llm_d128", "model": f"Qwen2-1.5B width, {LLM_LAYERS} layers, random weights, bf16, BPE fixture",
           "checkpoint_write_s": checkpoint_s, **stats,
           "k9_launches": stats["launches"]["causal_flash_prefill"],
           "seconds": time.perf_counter() - t0, "answer_sample": answers[0]["answer"][:160]})
@@ -3690,7 +3910,7 @@ def phase_decoder_parity(torch, rt, ckpt: Path):
     """The same 0.5B weights through the port on the CPU (f32, K9's plain
     version) against the card (bf16, K9) on one ~256-token left-padded
     answer prompt. Two gates: the last-position logits' cosine (bf16
-    activations through 24 layers drift by more than a fixed tolerance
+    activations through every layer drift by more than a fixed tolerance
     would allow on 151,936 logits) and, for each layer, the cosine of K9's
     output on the real rows, where the kernel's share is direct. Controls
     run the card's prefill with K9 replaced by zeros, by K9 ignoring
@@ -4824,7 +5044,7 @@ def phase_multivector_scale(torch, seed: int, plan=MV_SCALE):
 # up to the first step whose single-device top-2 margin is below
 # DECODER_TP_TIE x max |logit|. bf16 tokens are reported, not gated: the
 # ranks' f32 partial sums round at other points than one device's GEMMs,
-# and 24 random layers carry that past a margin of 1e-3 (PERF.md §6).
+# and random layers carry that past a margin of 1e-3 (PERF.md §6).
 DECODER_TP_COSINE = 0.995
 DECODER_TP_TIE = 1e-3
 DECODER_TP_PLAN = {"device": "cuda", "hf": QWEN2_05B, "tp": 2, "lengths": (512, 384, 200, 77),
@@ -4991,8 +5211,8 @@ def first_difference(got, want) -> list:
 
 
 def phase_decoder_tp(torch, seed: int, info: dict, plan=DECODER_TP_PLAN):
-    """Tensor-parallel decoding at the local LLM cell's Qwen2-0.5B shape (24
-    layers, hidden 896, 14 / 2 heads of 64, FFN 4,864, vocab 151,936, tied
+    """Tensor-parallel decoding at the local LLM cell's Qwen2-0.5B width (LLM_LAYERS
+    of its 24 layers, hidden 896, 14 / 2 heads of 64, FFN 4,864, vocab 151,936, tied
     embeddings): tp 2 (the most that 2 kv heads allow) on 2 ranks started
     by parallel.launch.spawn, sharing the one card over gloo; batch 4 of
     left-padded prompts up to 512 tokens, 16 new greedy tokens. Gates, against
@@ -5111,7 +5331,6 @@ def main(argv=None) -> int:
     ap.add_argument("--log-dir", default=None,
                     help="also write the kernel build log and the kernels line here")
     args = ap.parse_args(argv)
-    t_start = time.perf_counter()
 
     import torch
 
@@ -5154,6 +5373,7 @@ def main(argv=None) -> int:
             backend_launches = phase_backends(torch, rt, cfg, work)
             phase_parity(torch, rt, paths, texts)
             phase_wide(torch, cfg, work, items, args.seed)
+            large = phase_large(torch, cfg, work, items, args.seed)
             mv_launches = phase_multivector(torch, work, paths, items, texts)
             phase_multivector_scale(torch, args.seed)
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)
@@ -5204,13 +5424,20 @@ def main(argv=None) -> int:
                 kernels[-1][f"d{d}"] = {k: timings[f"{name}@{d}"][k] for k in (
                     "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "device_ms") if k in timings[f"{name}@{d}"]}
+        if f"{name}@w1024" in timings:     # at the bge-large width, with the large phase's launches
+            t1024 = timings[f"{name}@w1024"]
+            kernels[-1]["w1024"] = {k: t1024[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "ffn_three_call_ms", "topk_two_call_ms") if k in t1024}
+            if name in LARGE_LAUNCHES:
+                kernels[-1]["launches_large"] = LARGE_LAUNCHES[name](large)
         if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
         if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms
             kernels[-1]["topk_two_call_ms"] = t["topk_two_call_ms"]
         if "sweep_kernels" in t:           # the profiler's name of the sweep that ran
             kernels[-1]["sweep_kernels"] = t["sweep_kernels"]
-    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
+    emit({"phase": "total", "seconds": round(time.perf_counter() - T_START, 1)})
     line = {"kernels": kernels}
     if log_dir:
         (Path(log_dir) / "kernels.json").write_text(json.dumps(line, indent=1))

@@ -33,7 +33,10 @@
 // round r is corpus rows r*nbuckets + b0 .. +31, which lie wholly below N or
 // wholly past it. Its queries are staged once, and the rounds' rows (12 KB
 // in int8, 24 KB in bf16 at D = 384) stream through the TMA ring of
-// flat_sweep.cuh: 12 stages in int8, 5-7 in bf16. The scores are
+// flat_sweep.cuh: 12 stages in int8, 5-7 in bf16 (at D = 1,024, where a
+// block takes one warpgroup: 5 in int8, and 3 of 16 rows in bf16, whose 128
+// KB of queries leave no room for two 64 KB stages of 32 rows; such a block
+// owns 16 bucket positions). The scores are
 // wgmma m64n32k32 s32 (int8) or m64n32k16 f32 (bf16) products, and the
 // bucket update runs on the accumulator registers: accumulator element i of
 // a thread is the same (query, bucket position) in every round, so the
@@ -79,7 +82,9 @@ constexpr int kRoundBits = 20;     // the round below them
 // K5's Hopper sweep: kWG consumer warpgroups of 64 queries and a producer
 // warp, over rows zero-padded to kD features. Stages: 12 in int8 and 5-7 in
 // bf16 at kD = 384; 5 in int8 (two warpgroups, a 768-byte row as bf16 at
-// 384) and 2 in bf16 (one warpgroup: two would leave no stage) at kD = 768.
+// 384) and 2 in bf16 (one warpgroup: two would leave no stage) at kD = 768;
+// at kD = 1,024 one warpgroup, 5 stages of 32 rows in int8 (64 KB of
+// queries) and 3 of 16 rows in bf16 (128 KB of queries, flat::Tiles).
 template <typename T, int kD>
 struct SweepShape {
   using Tl = flat::Tiles<T, kD>;
@@ -107,16 +112,18 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
   using S = BucketSweep<T, kWG, kD>;
   using Tl = typename S::Tl;
   constexpr int kStages = S::kStages;
+  constexpr int kTileRows = Tl::kTileRows, kAcc = Tl::kAcc;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(16) float sval[kStages][kRows];
+  __shared__ __align__(16) float sval[kStages][kTileRows];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sX = sQ + kWG * Tl::kQBytes;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b0 = blockIdx.x * kRows;
+  const int b0 = blockIdx.x * kTileRows;
   const int q0 = blockIdx.y * (64 * kWG);
   const int r0 = blockIdx.z * rounds_per_group;
-  // round r reaches rows r*nbuckets + b0 .. +31: all below N or all past it
+  // round r reaches rows r*nbuckets + b0 .. + kTileRows - 1: all below N or
+  // all past it (N and nbuckets are multiples of 32)
   const int r_end = min(r0 + rounds_per_group, (N - b0 + nbuckets - 1) / nbuckets);
   const int nt = max(0, r_end - r0);
 
@@ -145,10 +152,10 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
   const uint64_t q_desc = make_desc(sQ + w * Tl::kQBytes, 16, 1024, kSw128);
   // bs[4*c + e]: query row 16*(warp%4) + gid + 8*(e/2) of the warpgroup,
   // bucket position b0 + 8*c + 2*tig + e%2; br the round of its best
-  float bs[16];
-  int br[16];
+  float bs[kAcc];
+  int br[kAcc];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < kAcc; ++i) {
     bs[i] = kSweepNeg;  // below every live score: a dead row (-1e5) never enters
     br[i] = 0;
   }
@@ -157,11 +164,11 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
     const int st = t % kStages;
     mbar_wait(&full[st], (t / kStages) & 1);  // round r0 + t landed
     if (wg_live) {
-      typename Elem<T>::Acc acc[16];
+      typename Elem<T>::Acc acc[kAcc];
       tile_product<T, kD>(acc, q_desc, make_desc(sX + st * Tl::kXBytes, 16, 1024, kSw128));
       if (warp_live) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < kTileRows / 8; ++c)
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
             const float w8 = sval[st][8 * c + 2 * tig + e2];
@@ -185,7 +192,7 @@ bucketed_wgmma_sweep_kernel(const T* __restrict__ q, const __grid_constant__ CUt
   if (!warp_live) return;
   const int row0 = q0 + 64 * w + 16 * (warp & 3) + gid;
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < kTileRows / 8; ++c)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h, pos = b0 + 8 * c + 2 * tig;
@@ -212,16 +219,18 @@ cudaError_t launch_wgmma_sweep(const void* q, const CUtensorMap& tm_x, const flo
       bucketed_wgmma_sweep_kernel<T, kWG, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kSmemBytes);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid(nbuckets / flat::kRows, (Bqp + 64 * kWG - 1) / (64 * kWG), groups);
+  const dim3 grid(nbuckets / S::Tl::kTileRows, (Bqp + 64 * kWG - 1) / (64 * kWG), groups);
   bucketed_wgmma_sweep_kernel<T, kWG, kD><<<grid, S::kThreads, S::kSmemBytes, st>>>(
       static_cast<const T*>(q), tm_x, valid, keys, Bq, Bqp, N, D, nbuckets, rounds_per_group);
   return cudaGetLastError();
 }
 
 template <typename T, int kD>
-cudaError_t launch_wgmma_sweep(const void* q, const CUtensorMap& tm_x, const float* valid,
+cudaError_t launch_wgmma_sweep(const void* q, const void* x, const float* valid,
                                unsigned long long* keys, int Bq, int Bqp, int N, int D,
                                int nbuckets, int rounds_per_group, int groups, cudaStream_t st) {
+  CUtensorMap tm_x;
+  if (!flat::corpus_map<T, kD>(&tm_x, x, N, D)) return cudaErrorInvalidValue;
   if constexpr (SweepShape<T, kD>::kMaxWG == 2) {
     if (Bqp >= 128)
       return launch_wgmma_sweep<T, 2, kD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
@@ -235,13 +244,14 @@ template <typename T>
 cudaError_t launch_wgmma_sweep(const void* q, const void* x, const float* valid,
                                unsigned long long* keys, int Bq, int Bqp, int N, int D,
                                int nbuckets, int rounds_per_group, int groups, cudaStream_t st) {
-  CUtensorMap tm_x;
-  if (!flat::corpus_map<T>(&tm_x, x, N, D)) return cudaErrorInvalidValue;
-  return D <= flat::kNarrowD
-             ? launch_wgmma_sweep<T, flat::kNarrowD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
-                                                     rounds_per_group, groups, st)
-             : launch_wgmma_sweep<T, flat::kWideD>(q, tm_x, valid, keys, Bq, Bqp, N, D, nbuckets,
-                                                   rounds_per_group, groups, st);
+  if (D <= flat::kNarrowD)
+    return launch_wgmma_sweep<T, flat::kNarrowD>(q, x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                                 rounds_per_group, groups, st);
+  if (D <= flat::kWideD)
+    return launch_wgmma_sweep<T, flat::kWideD>(q, x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                               rounds_per_group, groups, st);
+  return launch_wgmma_sweep<T, flat::kLargeD>(q, x, valid, keys, Bq, Bqp, N, D, nbuckets,
+                                              rounds_per_group, groups, st);
 }
 
 template <typename T>
@@ -377,7 +387,7 @@ void launch_sweep(const void* q, const void* x, const float* valid, unsigned lon
 // scratch keys [groups,Bqp,nbuckets] u64 (group g sweeps rounds
 // g*rounds_per_group ..). K5 (k > 0) writes out_s / out_i [Bq,k], K7 (k ==
 // 0) [Bq,nbuckets]. Over int8 or bf16 (the Hopper sweep): q [>= Bq, D] (rows
-// from Bq on are not read), both 16-byte aligned, D <= 768, N % 32 == 0,
+// from Bq on are not read), both 16-byte aligned, D <= 1024, N % 32 == 0,
 // nbuckets % 32 == 0. Over f32: q [Bqp,D] with rows >= Bq zero, N % 16 == 0,
 // nbuckets % 16 == 0. Bqp % 64 == 0, D % 16 == 0 (D % 32 for int8); K5 also
 // needs nbuckets <= 4096, fewer than 2^20 rounds and k <= min(256, nbuckets).
@@ -391,7 +401,7 @@ FRAG_EXPORT int frag_bucketed_topk(const void* q, const void* x, const float* va
       nbuckets < kCols || D % 16 || (dtype == FRAG_I8 && D % 32) || rounds_per_group < 1 ||
       k < 0 || (k > 0 && (k > kMaxK || k > nbuckets || nbuckets > kMaxBuckets ||
                           rounds >= (1 << kRoundBits))) ||
-      (hopper && (nbuckets % flat::kRows || D > flat::kWideD ||
+      (hopper && (nbuckets % flat::kRows || D > flat::kLargeD ||
                   (reinterpret_cast<uintptr_t>(q) & 15) || (reinterpret_cast<uintptr_t>(x) & 15))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,23 +1,26 @@
 // The Hopper machinery of the flat sweeps K5 (bucketed_topk.cu) and K6
 // (topk_exact.cu), bf16 and int8 corpora, a template over the width kD the
-// features are zero-padded to: 384 (bge-small, gte-small) or 768 (bge-base,
-// gte-base; K5 and K7 only, K6 stays at 384).
+// features are zero-padded to: 384 (bge-small, gte-small), 768 (bge-base,
+// gte-base) or 1,024 (bge-large, gte-large); K5 and K7 take all three, K6
+// stays at 384.
 //
 // A block scores a tile of queries (64 a consumer warpgroup) against tiles
-// of 32 consecutive corpus rows. Its queries are loaded into shared memory
-// once (cp.async, 128-byte swizzle, zeros past Bq and past D). A producer
-// warp has the TMA copy each corpus tile (regions of 32 rows x 128 bytes,
-// swizzled as the products read them, zeros past D) and its 32 weights (a
-// bulk copy) into a ring of stages, as soon as every consumer warp has
-// released the stage through its empty mbarrier; the bytes complete the
-// stage's full mbarrier (the ring of K4, packed_topk.cu). Each warpgroup
-// then takes scores = Q X^T by wgmma m64n32: k16 steps for bf16 with f32
-// accumulation, k32 steps for int8 with exact int32 accumulation. Both
-// operands are K-major, as [Bq, D] and [N, D] already lie (wgmma takes
-// 8-bit operands in no other layout), so nothing is transposed. A thread's
-// accumulator element i is (query row 16*(warp%4) + lane/4 + 8*((i>>1)&1),
-// tile row 8*(i>>2) + 2*(lane%4) + (i&1)) in every tile, so what a sweep
-// keeps per (query, column) can stay in registers across its tiles.
+// of 32 consecutive corpus rows (16 for a bf16 row of 1,024 features: see
+// Tiles). Its queries are loaded into shared memory once (cp.async,
+// 128-byte swizzle, zeros past Bq and past D). A producer warp has the TMA
+// copy each corpus tile (regions of kTileRows rows x 128 bytes, swizzled
+// as the products read them, zeros past D) and its weights (a bulk copy)
+// into a ring of stages, as soon as every consumer warp has released the
+// stage through its empty mbarrier; the bytes complete the stage's full
+// mbarrier (the ring of K4, packed_topk.cu). Each warpgroup then takes
+// scores = Q X^T by wgmma m64n32 (m64n16 on 16-row tiles): k16 steps for
+// bf16 with f32 accumulation, k32 steps for int8 with exact int32
+// accumulation. Both operands are K-major, as [Bq, D] and [N, D] already
+// lie (wgmma takes 8-bit operands in no other layout), so nothing is
+// transposed. A thread's accumulator element i is (query row 16*(warp%4) +
+// lane/4 + 8*((i>>1)&1), tile row 8*(i>>2) + 2*(lane%4) + (i&1)) in every
+// tile, so what a sweep keeps per (query, column) can stay in registers
+// across its tiles.
 //
 // block_topk is the selection both sweeps' merges share: the k largest of a
 // block's 64-bit keys without k rounds of a block-wide maximum.
@@ -30,12 +33,12 @@ namespace flat {
 
 using namespace hopper;
 
-constexpr int kRows = 32;                 // corpus rows a tile (the wgmma N)
-constexpr int kNarrowD = 384;             // features, zero-padded to this or to
-constexpr int kWideD = 768;               // this one
+constexpr int kRows = 32;                 // corpus rows a tile (the wgmma N), but see Tiles
+constexpr int kNarrowD = 384;             // features, zero-padded to this, to
+constexpr int kWideD = 768;               // this one or to
+constexpr int kLargeD = 1024;             // this one
 constexpr int kRegionQ = 64 * 128;        // 64 query rows x 128 bytes
-constexpr int kRegionX = kRows * 128;     // 32 corpus rows x 128 bytes
-constexpr int kSmemBudget = 229376;       // dynamic shared memory a block may take (224 KB)
+constexpr int kSmemBudget = 230400;       // dynamic shared memory a block may take (225 KB)
 
 template <typename T>
 struct Elem;
@@ -50,27 +53,41 @@ struct Elem<int8_t> {
   using Acc = int;
 };
 
+// The tile rows: 32, except where one warpgroup's queries leave room for
+// fewer than 2 stages of 32 rows, a bf16 row of 1,024 features (queries
+// 128 KB, a 32-row stage 64 KB): there 16 rows (wgmma n16), a 32 KB stage,
+// and 3 of them beside the queries.
 template <typename T, int kD>
 struct Tiles {
-  static_assert(kD == kNarrowD || kD == kWideD, "the sweeps pad to 384 or 768 features");
-  static constexpr int kRowBytes = kD * Elem<T>::kBytes;     // 768 / 384 at 384, 1536 / 768 at 768
+  static_assert(kD == kNarrowD || kD == kWideD || kD == kLargeD,
+                "the sweeps pad to 384, 768 or 1,024 features");
+  static constexpr int kRowBytes = kD * Elem<T>::kBytes;     // 768 / 384 at 384 ... 2048 / 1024 at 1024
   static constexpr int kRegions = kRowBytes / 128;           // 128-byte column regions
   static constexpr int kChunks = kRowBytes / 16;             // 16-byte chunks of a row
   static constexpr int kQBytes = kRegions * kRegionQ;        // one warpgroup's queries
+  static constexpr int kTileRows =
+      (kSmemBudget - 1024 - kQBytes) / (kRegions * kRows * 128) >= 2 ? kRows : kRows / 2;
+  static constexpr int kRegionX = kTileRows * 128;           // a tile's rows x 128 bytes
   static constexpr int kXBytes = kRegions * kRegionX;        // one corpus tile (a stage)
+  static constexpr int kAcc = kTileRows / 2;                 // accumulator registers a thread
   static constexpr int kBoxCols = 128 / Elem<T>::kBytes;     // elements a TMA box row
 };
 
 __device__ __forceinline__ float acc_f32(float v) { return v; }
-// |dot| <= 127 * 127 * 768 = 12,386,304 < 2^24: exact in f32, as in the
-// plain version
+// |dot| <= 127 * 127 * 1024 = 16,516,096 < 2^24 = 16,777,216: exact in
+// f32 at every padded width, as in the plain version
 __device__ __forceinline__ float acc_f32(int v) { return __int2float_rn(v); }
 
-__device__ __forceinline__ void mma_n32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+// one k step of a tile's product, its N the accumulator's size (32 rows, or
+// 16 for a bf16 row of 1,024 features; an int8 row of 1,024 keeps 32)
+__device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_n32(d, a, b, acc);
 }
-__device__ __forceinline__ void mma_n32(int (&d)[16], uint64_t a, uint64_t b, int acc) {
+__device__ __forceinline__ void mma(int (&d)[16], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_n32_s8(d, a, b, acc);
+}
+__device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n16(d, a, b, acc);
 }
 
 // Rows q0 .. q0 + rows - 1 of q [Bq, D] into regions of 64 rows (one
@@ -94,48 +111,49 @@ __device__ __forceinline__ void stage_queries(uint32_t sQ, const T* q, int q0, i
 }
 
 // Lane 0 of the producer warp: tile t < nt is corpus rows first + t*step ..
-// +31 (all below N) into stage t % stages with its 32 weights, `stages` tiles
-// ahead of the slowest consumer warp.
+// + kTileRows - 1 (all below N) into stage t % stages with their weights,
+// `stages` tiles ahead of the slowest consumer warp.
 template <typename T, int kD>
 __device__ __forceinline__ void produce_tiles(const CUtensorMap* tm, const float* valid,
-                                              uint32_t sX, float (*sval)[kRows], uint64_t* full,
-                                              uint64_t* empty, int stages, int nt, int first,
-                                              int step) {
+                                              uint32_t sX, float (*sval)[Tiles<T, kD>::kTileRows],
+                                              uint64_t* full, uint64_t* empty, int stages, int nt,
+                                              int first, int step) {
+  using Tl = Tiles<T, kD>;
   for (int t = 0; t < nt; ++t) {
     const int st = t % stages, n0 = first + t * step;
     if (t >= stages) mbar_wait(&empty[st], (t / stages - 1) & 1);
-    mbar_expect_tx(&full[st], Tiles<T, kD>::kXBytes + 4 * kRows);
+    mbar_expect_tx(&full[st], Tl::kXBytes + 4 * Tl::kTileRows);
 #pragma unroll
-    for (int r = 0; r < Tiles<T, kD>::kRegions; ++r)
-      tma_load_2d(sX + st * Tiles<T, kD>::kXBytes + r * kRegionX, tm, Tiles<T, kD>::kBoxCols * r, n0,
-                  &full[st]);
-    bulk_load(smem_u32(sval[st]), valid + n0, 4 * kRows, &full[st]);
+    for (int r = 0; r < Tl::kRegions; ++r)
+      tma_load_2d(sX + st * Tl::kXBytes + r * Tl::kRegionX, tm, Tl::kBoxCols * r, n0, &full[st]);
+    bulk_load(smem_u32(sval[st]), valid + n0, 4 * Tl::kTileRows, &full[st]);
   }
 }
 
-// acc = the warpgroup's 64 queries (q_desc) times the 32 rows of a tile
+// acc = the warpgroup's 64 queries (q_desc) times the rows of a tile
 // (x_desc), over all kD features.
 template <typename T, int kD>
-__device__ __forceinline__ void tile_product(typename Elem<T>::Acc (&acc)[16], uint64_t q_desc,
-                                             uint64_t x_desc) {
+__device__ __forceinline__ void tile_product(typename Elem<T>::Acc (&acc)[Tiles<T, kD>::kAcc],
+                                             uint64_t q_desc, uint64_t x_desc) {
+  using Tl = Tiles<T, kD>;
   wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < Tiles<T, kD>::kRegions; ++r)
+  for (int r = 0; r < Tl::kRegions; ++r)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_n32(acc, desc_add(q_desc, r * kRegionQ + 32 * kk),
-              desc_add(x_desc, r * kRegionX + 32 * kk), (r | kk) > 0);
+      mma(acc, desc_add(q_desc, r * kRegionQ + 32 * kk),
+          desc_add(x_desc, r * Tl::kRegionX + 32 * kk), (r | kk) > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(acc);
 }
 
-// The tensor map of x [N, D] in boxes of 32 rows x 128 bytes, 128-byte
-// swizzle (false if cuTensorMapEncodeTiled refuses it).
-template <typename T>
+// The tensor map of x [N, D] in boxes of kTileRows rows x 128 bytes,
+// 128-byte swizzle (false if cuTensorMapEncodeTiled refuses it).
+template <typename T, int kD>
 inline bool corpus_map(CUtensorMap* map, const void* x, int N, int D) {
-  return tensor_map_2d(map, x, N, D, kRows, 128 / Elem<T>::kBytes, CU_TENSOR_MAP_SWIZZLE_128B,
-                       Elem<T>::kBytes);
+  return tensor_map_2d(map, x, N, D, Tiles<T, kD>::kTileRows, 128 / Elem<T>::kBytes,
+                       CU_TENSOR_MAP_SWIZZLE_128B, Elem<T>::kBytes);
 }
 
 struct SelectShared {

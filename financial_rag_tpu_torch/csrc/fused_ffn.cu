@@ -107,6 +107,36 @@
 // against 4.32 (thread 0 issuing all of them then; the 8 warps in turn:
 // 3.73-3.81 against 3.84-3.96); mbar_wait reading the timer only after a
 // failed try: 3.83-3.85 against 3.69-4.07.
+//
+// At hidden 1,024 (bge-large / gte-large, I = 4,096) the 768 design cannot
+// be widened: half of y's columns would be 64 x 512 f32, 256 accumulator
+// registers a thread (ptxas allows 255, before h and any address), and the
+// x tile alone is 64 x 1,024 bf16 = 128 KB of the 227 KB. ffn_wide_kernel<
+// 1024> keeps the 768 design's block (64 tokens, two warpgroups, 64-wide
+// I chunks, two 8 KB h tiles, the ring and the I-axis split) and walks the
+// I axis twice: pass p accumulates y's columns 512p .. 512p + 511, 256 a
+// warpgroup (128 registers a thread), and recomputes h, so the block does
+// 1.5x the function's flops. x is loaded once for both passes. A ring
+// slab is 16 KB (128 rows of W1's 64-column chunk, or 16 rows of W2's 512
+// columns of the pass), 5 stages: 128 + 16 + 80 + 1 KB = 225 KB. The ring
+// runs on from one pass into the next; a barrier of the two warpgroups at
+// the start of the second pass keeps its h stores behind the first pass's
+// last reads. Still no [N, I] intermediate: the only scratch is the f32
+// partials of y when the I axis is split.
+//
+// What bounds it on the H100 (kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W):
+// the ring's cost per slab, as at 768. 14.63 ms at N = 131,072 against a
+// 2.22 ms bound (3.34 ms for the 1.5x flops): 2,048 blocks of 1,536 slabs
+// on 132 SMs land one slab per ~0.61 us on each SM, about the 768
+// design's rate for its 24 KB slabs. 24 KB slabs do not divide W1's 1,024
+// rows into whole k16 steps, and 32 KB ones leave 2 stages beside the x
+// tile (2 stages ran 1.8x slower than 4 at 768).
+//
+// Considered and not built: a cluster of 2 blocks that each own 512 of y's
+// columns and compute half of each h chunk, exchanged through distributed
+// shared memory (1.0x the flops; x 128 KB and two h tiles a block leave
+// about 80 KB for a ring of 24 KB slabs). It waits on a remote h tile
+// every chunk, and the 768 design's clusters measured slower than none.
 #include "hopper.cuh"
 
 namespace {
@@ -274,9 +304,12 @@ ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUte
   }
 }
 
-// hidden 768: 64 tokens a block; per I chunk each warpgroup computes half of
-// h's columns, both halves meet in shared memory, and each warpgroup adds
-// h W2 to its half of y's columns
+// hidden 768 and 1,024: 64 tokens a block; per I chunk each warpgroup
+// computes half of h's columns, both halves meet in shared memory, and each
+// warpgroup adds h W2 to its half of the pass's y columns. At 768 one pass
+// covers all of y; at 1,024 two passes of 512 columns each walk the whole
+// I axis (h computed again in the second), since 512 columns a warpgroup
+// would take 256 accumulator registers a thread.
 constexpr int kWH = 768;
 constexpr int kWRows = 64;                        // tokens per block
 constexpr int kWHalf = kWH / kConsumers;          // y columns a warpgroup owns
@@ -293,43 +326,87 @@ constexpr int kWW2Slabs = kWChunk / kWW2Rows;     // W2 slabs a chunk
 constexpr int kWSlabs = kWW1Slabs + kWW2Slabs;    // slabs a chunk
 constexpr int kWStages = 4;
 constexpr int kWSmemBytes = kWXBytes + 2 * kWHBytes + kWStages * kWSlabBytes + 1024;  // + alignment
-static_assert(kWW1Slabs == kWW2Slabs, "the slab order below pairs W1 and W2 slabs");
+// hidden 1,024: the same 64 tokens, chunks and h tiles, y in two passes
+constexpr int kLH = 1024;
+constexpr int kLPasses = 2;
+constexpr int kLPassCols = kLH / kLPasses;        // y columns a pass: 512
+constexpr int kLHalf = kLPassCols / kConsumers;   // of them a warpgroup owns: 256 (128 registers)
+constexpr int kLXBytes = kWRows * kLH * 2;        // x rows: 16 regions, 128 KB
+constexpr int kLSlabBytes = kLPassCols * 16 * 2;  // one ring stage: 16 KB
+constexpr int kLW1Rows = kLSlabBytes / (kWChunk * 2);  // W1 rows a W1 slab holds: 128
+constexpr int kLW1Slabs = kLH / kLW1Rows;         // W1 slabs a chunk and pass: 8
+constexpr int kLSlabs = kLW1Slabs + kWW2Slabs;    // slabs a chunk and pass: 12
+constexpr int kLStages = 5;
+constexpr int kLSmemBytes = kLXBytes + 2 * kWHBytes + kLStages * kLSlabBytes + 1024;  // + alignment
 
-// The ring's slab s of a block that walks T chunks: W1 slab j of chunk t
-// (rows kWW1Rows*j ..), or W2 slab j of chunk t (rows kWW2Rows*j ..). The
-// order is the order of the products: W1 of chunk 0, then per chunk t > 0
-// W1 of t and W2 of t - 1, then W2 of the last chunk (8T slabs).
-__device__ __forceinline__ void wide_slab(int s, int T, bool& w2, int& t, int& j) {
-  if (s < kWW1Slabs) {
+template <int H>
+struct Wide {
+  static_assert(H == kWH || H == kLH, "the wide designs take hidden 768 or 1,024");
+  static constexpr bool kLarge = H == kLH;
+  static constexpr int kPasses = kLarge ? kLPasses : 1;
+  static constexpr int kPassCols = H / kPasses;         // y columns a pass: 768 or 512
+  static constexpr int kHalf = kPassCols / kConsumers;  // of them a warpgroup owns: 384 or 256
+  static constexpr int kNB = kHalf / 128;               // its n128 accumulators: 3 or 2
+  static constexpr int kRows = kWRows, kChunk = kWChunk, kHCols = kWHCols, kHBytes = kWHBytes;
+  static constexpr int kXBytes = kLarge ? kLXBytes : kWXBytes;
+  static constexpr int kSlabBytes = kLarge ? kLSlabBytes : kWSlabBytes;
+  static constexpr int kW1Rows = kLarge ? kLW1Rows : kWW1Rows;
+  static constexpr int kW1Slabs = kLarge ? kLW1Slabs : kWW1Slabs;
+  static constexpr int kW2Rows = kWW2Rows, kW2Region = kWW2Region, kW2Slabs = kWW2Slabs;
+  static constexpr int kSlabs = kLarge ? kLSlabs : kWSlabs;
+  static constexpr int kStages = kLarge ? kLStages : kWStages;
+  static constexpr int kSmemBytes = kLarge ? kLSmemBytes : kWSmemBytes;
+  static_assert(kSlabBytes == kPassCols * kW2Rows * 2 && kSlabBytes == kW1Rows * kChunk * 2 &&
+                H % kW1Rows == 0, "a slab is whole k16 steps of W1's chunk or of W2's pass");
+};
+
+// The ring's slab s of a block that walks T chunks a pass: W1 slab j of
+// chunk t (rows kW1Rows*j ..), or W2 slab j of chunk t (rows kW2Rows*j
+// ..) in pass `pass`. A pass's order is the order of its products: W1 of
+// chunk 0, then per chunk t > 0 W1 of t and W2 of t - 1, then W2 of the
+// last chunk (kSlabs * T slabs); the passes follow each other.
+template <int H>
+__device__ __forceinline__ void wide_slab(int s, int T, int& pass, bool& w2, int& t, int& j) {
+  using W = Wide<H>;
+  pass = 0;
+  if constexpr (W::kPasses > 1) {
+    pass = s / (W::kSlabs * T);
+    s -= pass * W::kSlabs * T;
+  }
+  if (s < W::kW1Slabs) {
     w2 = false, t = 0, j = s;
     return;
   }
-  const int r = s - kWW1Slabs, it = r / kWSlabs + 1, q = r % kWSlabs;
-  if (it < T && q < kWW1Slabs)
+  const int r = s - W::kW1Slabs, it = r / W::kSlabs + 1, q = r % W::kSlabs;
+  if (it < T && q < W::kW1Slabs)
     w2 = false, t = it, j = q;
   else
-    w2 = true, t = it - 1, j = it < T ? q - kWW1Slabs : q;
+    w2 = true, t = it - 1, j = it < T ? q - W::kW1Slabs : q;
 }
 
+template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap tm_w1,
                 const __nv_bfloat16* __restrict__ b1, const __grid_constant__ CUtensorMap tm_w2,
                 const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y,
                 float* __restrict__ partial, int N, int I, int splits) {
+  using W = Wide<H>;
+  constexpr int kStages = W::kStages, kSlabBytes = W::kSlabBytes, kNB = W::kNB;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kWStages], empty[kWStages];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t sX = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sH = sX + kWXBytes;          // h tiles of even and odd chunks
-  const uint32_t sRing = sH + 2 * kWHBytes;
+  const uint32_t sH = sX + W::kXBytes;         // h tiles of even and odd chunks
+  const uint32_t sRing = sH + 2 * W::kHBytes;
 
   const int span = I / splits;  // this block's range of the I axis
-  const int c_begin = blockIdx.y * span, T = span / kWChunk, total = kWSlabs * T;
-  const int m0 = blockIdx.x * kWRows;
+  const int c_begin = blockIdx.y * span, T = span / W::kChunk;
+  const int total = W::kPasses * W::kSlabs * T;
+  const int m0 = blockIdx.x * W::kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wg = warp >> 2;     // warpgroup: h columns kWHCols*wg .., y columns kWHalf*wg ..
+  const int wg = warp >> 2;     // warpgroup: h columns kHCols*wg .., y columns kHalf*wg .. of a pass
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kWStages; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       mbar_init(&full[st], 1);                // the filling thread's expect_tx; then the slab's bytes
       mbar_init(&empty[st], kThreads / 32);  // lane 0 of every warp
     }
@@ -337,32 +414,33 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   }
   __syncthreads();
 
-  // slab s into stage s % kWStages by TMA, one copy each: a W1 slab's 192
-  // rows of the chunk's 64 columns, a W2 slab's 16 rows as 12 blocks of 64
-  // columns
+  // slab s into stage s % kStages by TMA, one copy each: a W1 slab's
+  // kW1Rows rows of the chunk's 64 columns, a W2 slab's 16 rows as the
+  // pass's kPassCols / 64 blocks of 64 columns
   auto fill = [&](int s) {
+    int pass, t, j;
     bool w2;
-    int t, j;
-    wide_slab(s, T, w2, t, j);
-    const int st = s % kWStages, c0 = c_begin + t * kWChunk;
-    const uint32_t dst = sRing + st * kWSlabBytes;
-    mbar_expect_tx(&full[st], kWSlabBytes);
+    wide_slab<H>(s, T, pass, w2, t, j);
+    const int st = s % kStages, c0 = c_begin + t * W::kChunk;
+    const uint32_t dst = sRing + st * kSlabBytes;
+    mbar_expect_tx(&full[st], kSlabBytes);
     if (w2)
-      tma_load_3d(dst, &tm_w2, 0, c0 + kWW2Rows * j, 0, &full[st]);
+      tma_load_3d(dst, &tm_w2, 0, c0 + W::kW2Rows * j, pass * (W::kPassCols / 64), &full[st]);
     else
-      tma_load_2d(dst, &tm_w1, c0, kWW1Rows * j, &full[st]);
+      tma_load_2d(dst, &tm_w1, c0, W::kW1Rows * j, &full[st]);
   };
   if (lane == 0) {
     prefetch_tensor_map(&tm_w1);
     prefetch_tensor_map(&tm_w2);
   }
   if (threadIdx.x == 0)
-    for (int s = 0; s < kWStages && s < total; ++s) fill(s);
-  // the block's 64 token rows, zeros past N, by all 256 threads
-  for (int e = threadIdx.x; e < kWRows * (kWH / 8); e += kThreads) {
-    const int r = e / (kWH / 8), ch = e % (kWH / 8), row = m0 + r;
+    for (int s = 0; s < kStages && s < total; ++s) fill(s);
+  // the block's 64 token rows, zeros past N, by all 256 threads, once for
+  // every pass
+  for (int e = threadIdx.x; e < W::kRows * (H / 8); e += kThreads) {
+    const int r = e / (H / 8), ch = e % (H / 8), row = m0 + r;
     const bool ok = row < N;
-    cp_async16(sX + sw128_chunk(r, ch), x + (size_t)(ok ? row : 0) * kWH + 8 * ch, ok);
+    cp_async16(sX + sw128_chunk(r, ch), x + (size_t)(ok ? row : 0) * H + 8 * ch, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -372,22 +450,22 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   // Before slab s's products: the warpgroup's products of slab s - 1 have
   // ended, and this warp releases it; then wait for slab s. After them,
   // lane 0 of warp f % 8 refills the stage released with slab f = s - 1 +
-  // kWStages once every warp released it (the warps take turns: one TMA
+  // kStages once every warp released it (the warps take turns: one TMA
   // issue costs its warp hundreds of cycles).
   auto begin_slab = [&](int s) {
     wgmma_wait<0>();
     if (s > 0) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(s - 1) % kWStages]);
+      if (lane == 0) mbar_arrive(&empty[(s - 1) % kStages]);
     }
-    mbar_wait(&full[s % kWStages], (s / kWStages) & 1);
+    mbar_wait(&full[s % kStages], (s / kStages) & 1);
     wgmma_fence();
   };
   auto end_slab = [&](int s) {
     wgmma_commit();
-    const int f = s - 1 + kWStages;
+    const int f = s - 1 + kStages;
     if (lane == 0 && warp == f % (kThreads / 32) && s > 0 && f < total) {
-      mbar_wait(&empty[f % kWStages], (f / kWStages - 1) & 1);
+      mbar_wait(&empty[f % kStages], (f / kStages - 1) & 1);
       fill(f);
     }
     __syncwarp();
@@ -395,101 +473,106 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
 
   const int gid = lane >> 2, tig = lane & 3;
   const uint64_t x_desc = make_desc(sX, 16, 1024, kSw128);
-  float acc[3][64];  // y columns kWHalf*wg + 128*nb .. +127
-#pragma unroll
-  for (int nb = 0; nb < 3; ++nb) zero(acc[nb]);
-  // the zeros here, not sunk into the first second product's issue (ptxas
-  // then serialises the wgmmas, C7515)
-#pragma unroll
-  for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
-  float h[16];       // h columns kWHCols*wg .. of the chunk
   int s = 0;         // the next slab
-  for (int t = 0; t <= T; ++t) {
-    if (t < T) {
-      // h = x @ W1[:, this warpgroup's 32 columns of chunk t], slab by slab:
-      // W1 [k][n] in 128-byte rows read MN-major, this half 64 bytes in
+  for (int pass = 0; pass < W::kPasses; ++pass) {
+    // the other warpgroup's products of the last pass no longer read the h tiles
+    if (pass > 0) named_barrier(1, kThreads);
+    float acc[kNB][64];  // y columns kPassCols*pass + kHalf*wg + 128*nb .. +127
 #pragma unroll
-      for (int j = 0; j < kWW1Slabs; ++j, ++s) {
-        begin_slab(s);
-        const uint64_t w1_desc =
-            make_desc(sRing + (s % kWStages) * kWSlabBytes + wg * kWHCols * 2, 8192, 1024, kSw128);
+    for (int nb = 0; nb < kNB; ++nb) zero(acc[nb]);
+    // the zeros here, not sunk into the first second product's issue (ptxas
+    // then serialises the wgmmas, C7515)
 #pragma unroll
-        for (int kk = 0; kk < kWW1Rows / 16; ++kk) {
-          const int k = j * (kWW1Rows / 16) + kk;
-          wgmma_ss_n32_tb(h, desc_add(x_desc, (k >> 2) * kXRegion + (k & 3) * 32),
-                          desc_add(w1_desc, 16 * 128 * kk), j > 0 || kk > 0);
+    for (int nb = 0; nb < kNB; ++nb) fence_acc(acc[nb]);
+    float h[16];       // h columns kHCols*wg .. of the chunk
+    for (int t = 0; t <= T; ++t) {
+      if (t < T) {
+        // h = x @ W1[:, this warpgroup's 32 columns of chunk t], slab by slab:
+        // W1 [k][n] in 128-byte rows read MN-major, this half 64 bytes in
+#pragma unroll
+        for (int j = 0; j < W::kW1Slabs; ++j, ++s) {
+          begin_slab(s);
+          const uint64_t w1_desc =
+              make_desc(sRing + (s % kStages) * kSlabBytes + wg * W::kHCols * 2, 8192, 1024, kSw128);
+#pragma unroll
+          for (int kk = 0; kk < W::kW1Rows / 16; ++kk) {
+            const int k = j * (W::kW1Rows / 16) + kk;
+            wgmma_ss_n32_tb(h, desc_add(x_desc, (k >> 2) * kXRegion + (k & 3) * 32),
+                            desc_add(w1_desc, 16 * 128 * kk), j > 0 || kk > 0);
+          }
+          end_slab(s);
         }
-        end_slab(s);
+      }
+      if (t > 0) {
+        // y[:, this pass's half] += h(t-1) @ W2[chunk t-1, this half], once
+        // both warpgroups stored their halves of h(t-1)
+        named_barrier(1, kThreads);
+        const uint64_t h_desc = make_desc(sH + ((t - 1) & 1) * W::kHBytes, 16, 1024, kSw128);
+#pragma unroll
+        for (int j = 0; j < W::kW2Slabs; ++j, ++s) {
+          begin_slab(s);
+          const uint64_t w2_desc = make_desc(
+              sRing + (s % kStages) * kSlabBytes + wg * (W::kHalf / 64) * W::kW2Region,
+              W::kW2Region, 1024, kSw128);
+#pragma unroll
+          for (int nb = 0; nb < kNB; ++nb)
+            wgmma_ss_n128_tb(acc[nb], desc_add(h_desc, 32 * j),
+                             desc_add(w2_desc, nb * 2 * W::kW2Region));
+          end_slab(s);
+        }
+      } else {
+        wgmma_wait<0>();
+      }
+      if (t < T) {
+        // chunk t's first product has ended (the waits before the second
+        // product's slabs, or the one above at t = 0): + b1, erf GELU, bf16,
+        // into h tile t % 2 while the last slab of the second product runs.
+        // b1 at this thread's 8 columns, 8*(q/2) + 2*tig + q%2: h[i] is
+        // column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
+        const int c0 = c_begin + t * W::kChunk + W::kHCols * wg;
+        __nv_bfloat16 bb[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
+        fence_acc(h);
+        const uint32_t ht = sH + (t & 1) * W::kHBytes;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int i = 4 * jj + 2 * hf, row = 16 * (warp & 3) + gid + 8 * hf;
+            const float v0 = gelu_erf(h[i] + __bfloat162float(bb[2 * jj]));
+            const float v1 = gelu_erf(h[i + 1] + __bfloat162float(bb[2 * jj + 1]));
+            st_shared_u32(ht + swz<3>(row * 128 + (W::kHCols / 8 * wg + jj) * 16) + 4 * tig,
+                          pack_bf16(v0, v1));
+          }
+        fence_proxy_async();   // the stores, before the second product reads them
       }
     }
-    if (t > 0) {
-      // y[:, this half] += h(t-1) @ W2[chunk t-1, this half], once both
-      // warpgroups stored their halves of h(t-1)
-      named_barrier(1, kThreads);
-      const uint64_t h_desc = make_desc(sH + ((t - 1) & 1) * kWHBytes, 16, 1024, kSw128);
+    wgmma_wait<0>();
 #pragma unroll
-      for (int j = 0; j < kWW2Slabs; ++j, ++s) {
-        begin_slab(s);
-        const uint64_t w2_desc = make_desc(
-            sRing + (s % kWStages) * kWSlabBytes + wg * (kWHalf / 64) * kWW2Region, kWW2Region, 1024,
-            kSw128);
-#pragma unroll
-        for (int nb = 0; nb < 3; ++nb)
-          wgmma_ss_n128_tb(acc[nb], desc_add(h_desc, 32 * j), desc_add(w2_desc, nb * 2 * kWW2Region));
-        end_slab(s);
-      }
-    } else {
-      wgmma_wait<0>();
-    }
-    if (t < T) {
-      // chunk t's first product has ended (the waits before the second
-      // product's slabs, or the one above at t = 0): + b1, erf GELU, bf16,
-      // into h tile t % 2 while the last slab of the second product runs.
-      // b1 at this thread's 8 columns, 8*(q/2) + 2*tig + q%2: h[i] is
-      // column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
-      const int c0 = c_begin + t * kWChunk + kWHCols * wg;
-      __nv_bfloat16 bb[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
-      fence_acc(h);
-      const uint32_t ht = sH + (t & 1) * kWHBytes;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int i = 4 * jj + 2 * hf, row = 16 * (warp & 3) + gid + 8 * hf;
-          const float v0 = gelu_erf(h[i] + __bfloat162float(bb[2 * jj]));
-          const float v1 = gelu_erf(h[i + 1] + __bfloat162float(bb[2 * jj + 1]));
-          st_shared_u32(ht + swz<3>(row * 128 + (kWHCols / 8 * wg + jj) * 16) + 4 * tig,
-                        pack_bf16(v0, v1));
-        }
-      fence_proxy_async();   // the stores, before the second product reads them
-    }
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int nb = 0; nb < 3; ++nb) fence_acc(acc[nb]);
+    for (int nb = 0; nb < kNB; ++nb) fence_acc(acc[nb]);
 
-  // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column kWHalf*wg +
-  // 128*nb + 8*j + 2*tig + e%2
+    // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column
+    // kPassCols*pass + kHalf*wg + 128*nb + 8*j + 2*tig + e%2
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + 16 * (warp & 3) + gid + 8 * r;
-    if (row >= N) continue;
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 16 * (warp & 3) + gid + 8 * r;
+      if (row >= N) continue;
 #pragma unroll
-    for (int nb = 0; nb < 3; ++nb)
+      for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = kWHalf * wg + 128 * nb + 8 * j + 2 * tig;
-        const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
-        if (splits == 1) {
-          *reinterpret_cast<uint32_t*>(y + (size_t)row * kWH + col) =
-              pack_bf16(v0 + __bfloat162float(b2[col]), v1 + __bfloat162float(b2[col + 1]));
-        } else {
-          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * kWH + col) =
-              make_float2(v0, v1);
+        for (int j = 0; j < 16; ++j) {
+          const int col = W::kPassCols * pass + W::kHalf * wg + 128 * nb + 8 * j + 2 * tig;
+          const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
+          if (splits == 1) {
+            *reinterpret_cast<uint32_t*>(y + (size_t)row * H + col) =
+                pack_bf16(v0 + __bfloat162float(b2[col]), v1 + __bfloat162float(b2[col + 1]));
+          } else {
+            *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * H + col) =
+                make_float2(v0, v1);
+          }
         }
-      }
+    }
   }
 }
 
@@ -507,30 +590,33 @@ ffn_reduce_kernel(const float* __restrict__ partial, const __nv_bfloat16* __rest
   }
 }
 
-// The first kernel (one of the two designs above), then, when the I axis is
+// The first kernel (one of the designs above), then, when the I axis is
 // split, the reduce.
 template <int H>
 int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                void* y, float* partial, int N, int I, int splits, cudaStream_t st) {
-  constexpr bool wide = H == kWH;
-  constexpr int chunk = wide ? kWChunk : kChunk, tokens = wide ? kWRows : kTokens;
-  constexpr int smem = wide ? kWSmemBytes : kSmemBytes;
+  constexpr bool wide = H != kH;
+  using W = Wide<wide ? H : 768>;
+  constexpr int chunk = wide ? W::kChunk : kChunk, tokens = wide ? W::kRows : kTokens;
+  constexpr int smem = wide ? W::kSmemBytes : kSmemBytes;
   if (N < 1 || splits < 1 || I % splits || (I / splits) % chunk || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory a kernel must opt in, on each
   // device it runs on (the attribute is the current device's)
   const cudaError_t opt_in =
-      wide ? cudaFuncSetAttribute(ffn_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+      wide ? cudaFuncSetAttribute(ffn_wide_kernel<wide ? H : 768>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
            : cudaFuncSetAttribute(ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   // 384: W1 [H][I] in boxes of 192 x 32, W2 [I][H] in boxes of 32 x 64;
-  // 768: W1 in boxes of 192 x 64 (a slab), W2 as [64-column block][I][64]
-  // in boxes of 12 blocks of 16 x 64 (a slab)
+  // 768 / 1,024: W1 in boxes of kW1Rows x 64 (a slab), W2 as [64-column
+  // block][I][64] in boxes of a pass's kPassCols / 64 blocks of 16 x 64 (a
+  // slab)
   CUtensorMap tm_w1, tm_w2;
   const uint64_t w2_dims[3] = {64, (uint64_t)I, H / 64}, w2_strides[2] = {H * 2, 128};
-  const uint32_t w2_box[3] = {64, kWW2Rows, H / 64};
+  const uint32_t w2_box[3] = {64, W::kW2Rows, W::kPassCols / 64};
   const bool mapped =
-      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, kWW1Rows, kWChunk, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, W::kW1Rows, W::kChunk, CU_TENSOR_MAP_SWIZZLE_128B) &&
                  hopper::tensor_map_3d(&tm_w2, w2, w2_dims, w2_strides, w2_box, CU_TENSOR_MAP_SWIZZLE_128B)
            : hopper::tensor_map_2d(&tm_w1, w1, H, I, H / 2, kChunk, CU_TENSOR_MAP_SWIZZLE_64B) &&
                  hopper::tensor_map_2d(&tm_w2, w2, I, H, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -541,7 +627,7 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
   const auto* b2b = static_cast<const __nv_bfloat16*>(b2);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if constexpr (wide)
-    ffn_wide_kernel<<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
+    ffn_wide_kernel<H><<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
   else
     ffn_fwd_kernel<<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
   cudaError_t err = cudaGetLastError();
@@ -557,7 +643,7 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
 // Shapes: x/y [N,H], w1 [H,I], b1 [I], w2 [I,H], b2 [H], all bf16, row-major,
 // x, w1 and w2 16-byte aligned; partial [splits,N,H] f32 scratch (unused when
 // splits is 1). Any N >= 1; H == 384 with (I / splits) % 32 == 0, or H ==
-// 768 with (I / splits) % 64 == 0.
+// 768 or 1,024 with (I / splits) % 64 == 0.
 FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y, float* partial,
                                int N, int H, int I, int splits, void* stream) {
@@ -565,6 +651,7 @@ FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
   switch (H) {
     case kH: return launch_ffn<kH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
     case kWH: return launch_ffn<kWH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
+    case kLH: return launch_ffn<kLH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

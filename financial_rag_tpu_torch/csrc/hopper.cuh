@@ -458,6 +458,18 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, ui
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 16] (+)= A[64 x 16] * B[16 x 16], A and B in shared memory, both
+// K-major; with accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64 x 32] (+)= A[64 x 32] * B[32 x 32], int8 in, int32 accumulate (exact:
 // no rounding, no saturation below 2^31); A and B in shared memory, both
 // K-major, which is the only layout wgmma takes for 8-bit operands. A k32

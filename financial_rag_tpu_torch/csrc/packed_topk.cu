@@ -18,7 +18,8 @@
 // the byte time at the bf16 tensor-core rate.
 //
 // Design of the bf16 sweep (sm_90a), one template over the padded width kD
-// = 384 (D <= 384) or 768 (D <= 768: bge-base, gte-base). The TPU runs the corpus tiles j in
+// = 384 (D <= 384), 768 (D <= 768: bge-base, gte-base) or 1,024 (D <=
+// 1,024: bge-large, gte-large). The TPU runs the corpus tiles j in
 // order and carries the buckets in scratch. Hopper blocks run in no order,
 // so a block owns 32 bucket columns t0 .. t0+31, a tile of up to 128 queries
 // and one group of consecutive tiles j, and walks its tiles itself. Its
@@ -34,7 +35,10 @@
 // block holds one warpgroup of 64 queries and a ring of 2 stages (193 KB):
 // a query batch of 128 takes two query tiles over the same corpus, the
 // second mostly from L2 (blockIdx.x runs fastest, so both read a tile
-// about together), and a stage in flight is still 48 KB of corpus. So the
+// about together), and a stage in flight is still 48 KB of corpus. At kD =
+// 1,024 a warpgroup's queries are 128 KB and a 32-row stage 64 KB, which
+// leaves one stage: there a block owns 16 bucket columns (wgmma m64n16, 16
+// corpus rows a tile, a 32 KB stage) and a ring of 3 stages (225 KB). So the
 // copies run on while the consumers multiply and update, with no block
 // barrier between tiles. Each
 // warpgroup takes scores = Q X^T by wgmma m64n32k16 (queries as the 64-row
@@ -79,24 +83,34 @@ constexpr float kNeg = -3.0e4f;  // ops/topk.py NEG
 constexpr int kMaxK = 256;
 
 // bf16 sweep
-constexpr int kNarrowD = 384;                 // features, zero-padded to this or to
-constexpr int kWideD = 768;                   // this one
-constexpr int kCols = 32;                     // bucket columns a block (wgmma N)
+constexpr int kNarrowD = 384;                 // features, zero-padded to this, to
+constexpr int kWideD = 768;                   // this one or to
+constexpr int kLargeD = 1024;                 // this one
 constexpr int kQRegion = 64 * 128;            // 64 query rows x 64 features, SW128
-constexpr int kXRegion = kCols * 128;         // 32 corpus rows x 64 features, SW128
 
 // consumer warpgroups (64 queries each) and a producer warp, over kD features
 template <int kWG, int kD>
 struct Sweep {
-  static_assert(kD == kNarrowD || (kD == kWideD && kWG == 1), "K4's bf16 sweep shapes");
+  static_assert(kD == kNarrowD || ((kD == kWideD || kD == kLargeD) && kWG == 1),
+                "K4's bf16 sweep shapes");
+  static constexpr int kCols = kD == kLargeD ? 16 : 32;   // bucket columns a block (wgmma N)
+  static constexpr int kXRegion = kCols * 128;             // kCols corpus rows x 64 features, SW128
   static constexpr int kChunks = kD / 8;                   // 16-byte chunks of a row
-  static constexpr int kQBytes = (kD / 64) * kQRegion;     // one warpgroup's queries: 48 / 96 KB
-  static constexpr int kXBytes = (kD / 64) * kXRegion;     // one stage: 24 / 48 KB
+  static constexpr int kQBytes = (kD / 64) * kQRegion;     // one warpgroup's queries: 48 / 96 / 128 KB
+  static constexpr int kXBytes = (kD / 64) * kXRegion;     // one stage: 24 / 48 / 32 KB
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 32;
-  static constexpr int kStages = kD == kWideD ? 2 : kWG == 1 ? 6 : 5;
+  static constexpr int kStages = kD == kLargeD ? 3 : kD == kWideD ? 2 : kWG == 1 ? 6 : 5;
   static constexpr int kSmemBytes = kWG * kQBytes + kStages * kXBytes + 1024;  // + alignment
 };
+
+// one k16 step of a tile's scores, its N the accumulator's size
+__device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n32(d, a, b, acc);
+}
+__device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n16(d, a, b, acc);
+}
 
 // f32 sweep
 constexpr int kF32Warps = 4;   // 4 x 16 = 64 queries a block
@@ -130,6 +144,7 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
   using Sw = Sweep<kWG, kD>;
   constexpr int kStages = Sw::kStages, kConsumers = Sw::kConsumers;
   constexpr int kChunks = Sw::kChunks, kQBytes = Sw::kQBytes, kXBytes = Sw::kXBytes;
+  constexpr int kCols = Sw::kCols, kXRegion = Sw::kXRegion, kAcc = kCols / 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(16) float sval[kStages][kCols];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -153,7 +168,7 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
   __syncthreads();
 
   if (warp == kConsumers / 32) {
-    // the producer: tile j's 32 corpus rows (kD/64 swizzled boxes; zeros past N
+    // the producer: tile j's kCols corpus rows (kD/64 swizzled boxes; zeros past N
     // and past D) and their weights (zeros past block_n stay from above),
     // kStages tiles ahead of the slowest consumer warp
     if (lane == 0) {
@@ -192,22 +207,22 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
   const uint64_t q_desc = make_desc(sQ + w * kQBytes, 16, 1024, kSw128);
   // acc[4*c + e]: query row 16*(warp%4) + gid + 8*(e/2) of the warpgroup,
   // bucket column t0 + 8*c + 2*tig + e%2; b1/b2 the same pairs' top-2
-  int b1[16], b2[16];
+  int b1[kAcc], b2[kAcc];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) b1[i] = b2[i] = 0;
+  for (int i = 0; i < kAcc; ++i) b1[i] = b2[i] = 0;
 
   for (int t = 0; t < nt; ++t) {
     const int st = t % kStages;
     mbar_wait(&full[st], (t / kStages) & 1);  // tile t landed
     if (wg_live) {
       const uint64_t x_desc = make_desc(sX + st * kXBytes, 16, 1024, kSw128);
-      float acc[16];
+      float acc[kAcc];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
-        wgmma_ss_n32(acc, desc_add(q_desc, (kk >> 2) * kQRegion + off),
-                     desc_add(x_desc, (kk >> 2) * kXRegion + off), kk > 0);
+        mma(acc, desc_add(q_desc, (kk >> 2) * kQRegion + off),
+            desc_add(x_desc, (kk >> 2) * kXRegion + off), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -215,7 +230,7 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
       if (warp_live) {
         const int tag = maxj - (j0 + t);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < kAcc; ++i) {
           const bool live = sval[st][8 * (i >> 2) + 2 * tig + (i & 1)] > 0.f;
           top2(b1[i], b2[i], pack(acc[i], live, mask, tag));
         }
@@ -228,7 +243,7 @@ packed_sweep_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
   if (!warp_live) return;
   const int row0 = q0 + 64 * w + 16 * (warp & 3) + gid;
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < kCols / 8; ++c)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h, col = t0 + 8 * c + 2 * tig;
@@ -372,17 +387,20 @@ packed_merge_kernel(const int* __restrict__ b1, const int* __restrict__ b2,
 }
 
 template <int kWG, int kD>
-cudaError_t launch_bf16_sweep(const void* q, const CUtensorMap& tm_x, const float* valid, int* b1,
-                              int* b2, int Bq, int Bqp, int D, int block_n, int ntiles, int bits,
+cudaError_t launch_bf16_sweep(const void* q, const void* x, const float* valid, int* b1, int* b2,
+                              int Bq, int Bqp, int N, int D, int block_n, int ntiles, int bits,
                               int tiles_per_group, int groups, cudaStream_t st) {
+  using Sw = Sweep<kWG, kD>;
+  CUtensorMap tm_x;  // x [N][D] in boxes of kCols rows x 64 features, 128-byte swizzle
+  if (!hopper::tensor_map_2d(&tm_x, x, N, D, Sw::kCols, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory a kernel must opt in, on each
   // device it runs on (the attribute is the current device's)
-  using Sw = Sweep<kWG, kD>;
   const cudaError_t opt_in = cudaFuncSetAttribute(
       packed_sweep_bf16_kernel<kWG, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Sw::kSmemBytes);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((block_n + kCols - 1) / kCols, (Bqp + 64 * kWG - 1) / (64 * kWG), groups);
+  const dim3 grid((block_n + Sw::kCols - 1) / Sw::kCols, (Bqp + 64 * kWG - 1) / (64 * kWG), groups);
   packed_sweep_bf16_kernel<kWG, kD><<<grid, Sw::kThreads, Sw::kSmemBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), tm_x, valid, b1, b2, Bq, Bqp, D, block_n, ntiles,
       bits, tiles_per_group);
@@ -396,7 +414,7 @@ cudaError_t launch_bf16_sweep(const void* q, const CUtensorMap& tm_x, const floa
 // int32 (group g sweeps tiles g*tiles_per_group ..; only rows below Bq are
 // written and read), outputs out_s [Bq,k] f32 and out_i [Bq,k] int32. Bqp %
 // 64 == 0 and Bqp >= Bq, N % block_n == 0, block_n % 16 == 0, block_n <=
-// 1024, D % 16 == 0 (D <= 768 for bf16), 1 <= k <= 256. A bf16 sweep of D
+// 1024, D % 16 == 0 (D <= 1024 for bf16), 1 <= k <= 256. A bf16 sweep of D
 // <= 384 takes 128 queries a block once Bqp >= 128, else (and above 384)
 // 64.
 FRAG_EXPORT int frag_packed_topk(const void* q, const void* x, const float* valid, int* b1,
@@ -405,7 +423,7 @@ FRAG_EXPORT int frag_packed_topk(const void* q, const void* x, const float* vali
                                  int dtype, void* stream) {
   if (Bq < 1 || Bqp < Bq || Bqp % 64 || block_n < 16 || block_n % 16 || block_n > 1024 ||
       N % block_n || D < 16 || D % 16 || k > kMaxK || k < 1 || tiles_per_group < 1 ||
-      (dtype == FRAG_BF16 && (D > kWideD || (reinterpret_cast<uintptr_t>(q) & 15) ||
+      (dtype == FRAG_BF16 && (D > kLargeD || (reinterpret_cast<uintptr_t>(q) & 15) ||
                               (reinterpret_cast<uintptr_t>(x) & 15))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -413,15 +431,14 @@ FRAG_EXPORT int frag_packed_topk(const void* q, const void* x, const float* vali
   const int groups = (ntiles + tiles_per_group - 1) / tiles_per_group;
   cudaError_t err;
   if (dtype == FRAG_BF16) {
-    CUtensorMap tm_x;  // x [N][D] in boxes of 32 rows x 64 features, 128-byte swizzle
-    if (!hopper::tensor_map_2d(&tm_x, x, N, D, kCols, 64, CU_TENSOR_MAP_SWIZZLE_128B))
-      return (int)cudaErrorInvalidValue;
-    err = D > kNarrowD ? launch_bf16_sweep<1, kWideD>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n,
-                                                      ntiles, bits, tiles_per_group, groups, st)
-          : Bqp >= 128 ? launch_bf16_sweep<2, kNarrowD>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n,
+    err = D > kWideD     ? launch_bf16_sweep<1, kLargeD>(q, x, valid, b1, b2, Bq, Bqp, N, D, block_n,
+                                                         ntiles, bits, tiles_per_group, groups, st)
+          : D > kNarrowD ? launch_bf16_sweep<1, kWideD>(q, x, valid, b1, b2, Bq, Bqp, N, D, block_n,
                                                         ntiles, bits, tiles_per_group, groups, st)
-                       : launch_bf16_sweep<1, kNarrowD>(q, tm_x, valid, b1, b2, Bq, Bqp, D, block_n,
-                                                        ntiles, bits, tiles_per_group, groups, st);
+          : Bqp >= 128   ? launch_bf16_sweep<2, kNarrowD>(q, x, valid, b1, b2, Bq, Bqp, N, D, block_n,
+                                                          ntiles, bits, tiles_per_group, groups, st)
+                         : launch_bf16_sweep<1, kNarrowD>(q, x, valid, b1, b2, Bq, Bqp, N, D, block_n,
+                                                          ntiles, bits, tiles_per_group, groups, st);
   } else {
     const dim3 grid(block_n / kF32Cols, Bqp / (kF32Warps * 16), groups);
     packed_sweep_f32_kernel<<<grid, kF32Warps * 32, 0, st>>>(

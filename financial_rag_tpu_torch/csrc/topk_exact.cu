@@ -345,7 +345,7 @@ int launch_wgmma_sweep(const void* q, const void* x, const float* valid,
                        unsigned long long* lists, int Bq, int Bqp, int N, int D, int k, int kcap,
                        int tiles_per_group, int groups, cudaStream_t st) {
   CUtensorMap tm_x;
-  if (!flat::corpus_map<T>(&tm_x, x, N, D)) return (int)cudaErrorInvalidValue;
+  if (!flat::corpus_map<T, kD>(&tm_x, x, N, D)) return (int)cudaErrorInvalidValue;
   constexpr int smem = ExactSweep<T>::kSmemBytes;
   // above 48 KB of dynamic shared memory a kernel must opt in, on each
   // device it runs on (the attribute is the current device's)

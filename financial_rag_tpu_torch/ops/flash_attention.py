@@ -17,10 +17,14 @@ the port each rank is a process and its q, k and v already hold only its
 heads (the column-parallel projections of models/bert.py make them), so
 K11 is :class:`FlashAttention` (K2 forward, K10 backward) at the local head
 count, with no collective. It counts its own launches in ``TP_LAUNCHES``
-and ``TP_BWD_LAUNCHES``, beside K2's and K10's.
+and ``TP_BWD_LAUNCHES``, beside K2's and K10's. ``WIDTH_LAUNCHES`` counts
+K2's launches again by the width of q (heads x head_dim), so a process that
+runs encoders of two widths can tell their launches apart.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -31,6 +35,7 @@ LAUNCHES = 0        # K2, the forward
 BWD_LAUNCHES = 0    # K10, the backward
 TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
 TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
+WIDTH_LAUNCHES: Counter = Counter()  # K2's launches by q's width (each also counts in LAUNCHES)
 FWD_HEAD_DIMS = (32, 64)  # the head widths K2 (the forward) is built for
 BWD_HEAD_DIMS = (32, 64)  # the head widths K10 (the backward) is built for
 FWD_WIDE_KEYS = 64        # keys a K/V tile of K2's head_dim-64 kernel (csrc Wide::kKeys)
@@ -175,6 +180,7 @@ def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tens
     with LAUNCH_LOCK:
         LAUNCHES += 1
         TP_LAUNCHES += tp
+        WIDTH_LAUNCHES[h] += 1
     return out
 
 

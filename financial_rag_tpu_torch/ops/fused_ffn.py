@@ -14,6 +14,8 @@ form only because Mosaic has no erf.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.nn.functional as F
 
@@ -21,6 +23,7 @@ from financial_rag_tpu_torch.ops import kernel_lib
 from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, round_up
 
 LAUNCHES = 0
+WIDTH_LAUNCHES: Counter = Counter()  # launches by hidden width (each also counts in LAUNCHES)
 KERNEL_HIDDEN = 384    # the hidden width of the first design (bge-small, gte-small, MiniLM)
 KERNEL_TOKENS = 128    # its tokens per block; the kernel zero-fills the ragged last tile
 KERNEL_CHUNK = 32      # its I chunk: the intermediate width must be a multiple
@@ -33,9 +36,17 @@ WIDE_MIN_CHUNKS = 2    # I chunks a split block walks at least
 WIDE_H_TILES = 2       # its h tiles (64 x 64 bf16): even and odd chunks
 WIDE_SLAB_BYTES = 24576  # one stage of its ring: 192 rows of W1's chunk or 16 of W2's
 WIDE_STAGES = 4
+LARGE_HIDDEN = 1024    # the third design (bge-large, gte-large): the second's block and
+LARGE_PASSES = 2       # chunks, y in two passes of 512 columns over the whole I axis
+LARGE_SLAB_BYTES = 16384  # one stage of its ring: 128 rows of W1's chunk or 16 of W2's 512 columns
+LARGE_STAGES = 5
 # hidden width -> (tokens a block, I chunk, fewest chunks a split block walks)
 KERNEL_TILING = {KERNEL_HIDDEN: (KERNEL_TOKENS, KERNEL_CHUNK, KERNEL_MIN_CHUNKS),
-                 WIDE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS)}
+                 WIDE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS),
+                 LARGE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS)}
+# the designs of 64 tokens a block: hidden -> (y passes, ring slab bytes, stages)
+WIDE_RING = {WIDE_HIDDEN: (1, WIDE_SLAB_BYTES, WIDE_STAGES),
+             LARGE_HIDDEN: (LARGE_PASSES, LARGE_SLAB_BYTES, LARGE_STAGES)}
 
 
 def kernel_takes(h_dim: int, i_dim: int) -> bool:
@@ -62,12 +73,13 @@ def split_count(tiles: int, chunks: int, sms: int, min_chunks: int = KERNEL_MIN_
 
 
 def wide_split_count(tiles: int, chunks: int, sms: int, min_chunks: int = WIDE_MIN_CHUNKS) -> int:
-    """How many blocks share one token tile's I axis at hidden 768: the
+    """How many blocks share one token tile's I axis at hidden 768 or 1,024: the
     most (a divisor of the chunk count, each block walking at least
     ``min_chunks``) that still fit the grid on the SMs in one wave (a
     block holds an SM), so the f32 partials are written once, by blocks
     that all run at once; 1 from one tile an SM on. A query's 8 tiles get
-    16 splits of 3 of the 48 chunks (128 blocks)."""
+    16 splits of 3 of the 48 chunks at 768 (128 blocks), of 4 of the 64
+    at 1,024."""
     best = 1
     for d in range(1, chunks // min_chunks + 1):
         if chunks % d == 0 and tiles * d <= sms:
@@ -80,34 +92,38 @@ def launch_plan(n: int, h_dim: int, i_dim: int, sms: int):
     grid is one block a token tile and split."""
     tokens, chunk, min_chunks = KERNEL_TILING[h_dim]
     tiles = round_up(n, tokens) // tokens
-    count = wide_split_count if h_dim == WIDE_HIDDEN else split_count
+    count = wide_split_count if h_dim in WIDE_RING else split_count
     return tokens, chunk, count(tiles, i_dim // chunk, sms, min_chunks)
 
 
 def block_smem_bytes(h_dim: int) -> int:
     """Dynamic shared memory of a K3 block, as csrc/fused_ffn.cu sizes it,
     with 1 KB of alignment: at 384 both warpgroups' x rows (bf16) and a
-    ring of 2 stages of one I chunk of W1 and of W2; at 768 the block's x
-    rows, two h tiles and a ring of 4 stages of one slab."""
+    ring of 2 stages of one I chunk of W1 and of W2; at 768 and 1,024 the
+    block's x rows, two h tiles and a ring of 4 stages of a 24 KB slab or
+    5 of a 16 KB one."""
     tokens, chunk, _ = KERNEL_TILING[h_dim]
-    if h_dim == WIDE_HIDDEN:
-        return (tokens * h_dim * 2 + WIDE_H_TILES * tokens * chunk * 2
-                + WIDE_STAGES * WIDE_SLAB_BYTES + 1024)
+    if h_dim in WIDE_RING:
+        _, slab, stages = WIDE_RING[h_dim]
+        return tokens * h_dim * 2 + WIDE_H_TILES * tokens * chunk * 2 + stages * slab + 1024
     return tokens * h_dim * 2 + KERNEL_STAGES * (2 * h_dim * chunk * 2) + 1024
 
 
 def accumulator_registers(h_dim: int) -> int:
     """f32 registers of y a thread of K3 holds: each of the two warpgroups
-    (128 threads) owns 64 token rows and, at 768, half of y's columns."""
+    (128 threads) owns 64 token rows and, at 768 and 1,024, half of a
+    pass's y columns (all of y at 768, 512 columns at 1,024)."""
     tokens, _, _ = KERNEL_TILING[h_dim]
-    rows, cols = (tokens // 2, h_dim) if h_dim == KERNEL_HIDDEN else (tokens, h_dim // 2)
-    return rows * cols // 128
+    if h_dim == KERNEL_HIDDEN:
+        return (tokens // 2) * h_dim // 128
+    passes = WIDE_RING[h_dim][0]
+    return tokens * (h_dim // passes // 2) // 128
 
 
 def h_registers(h_dim: int) -> int:
     """f32 registers of h (one chunk's first product) a thread of K3 holds:
     64 rows by the chunk at 384, by its warpgroup's half of the chunk at
-    768."""
+    768 and 1,024."""
     _, chunk, _ = KERNEL_TILING[h_dim]
     cols = chunk if h_dim == KERNEL_HIDDEN else chunk // 2
     return 64 * cols // 128
@@ -153,7 +169,8 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             or w2.shape != (i_dim, h_dim) or b1.shape != (i_dim,) or b2.shape != (h_dim,)):
         raise ValueError(f"fused_ffn kernel takes H={KERNEL_HIDDEN} with I a multiple of "
                          f"{KERNEL_CHUNK}, or H={WIDE_HIDDEN} with I a multiple of "
-                         f"{WIDE_CHUNK}; got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
+                         f"{WIDE_CHUNK}, or H={LARGE_HIDDEN} with I a multiple of {WIDE_CHUNK}; "
+                         f"got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_ffn kernel takes bfloat16, x is {x.dtype}")
@@ -181,6 +198,7 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       n, h_dim, i_dim, splits)
     with LAUNCH_LOCK:
         LAUNCHES += 1
+        WIDTH_LAUNCHES[h_dim] += 1
     return out.reshape(orig_shape)
 
 
@@ -204,5 +222,5 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x [..., H] -> [..., H] in x.dtype, the [.., I] intermediate kept on
     chip. Differentiable in x and the weights. The CUDA kernel takes bf16 x
-    at H = 384 or 768 (the weights are cast to x's dtype)."""
+    at H = 384, 768 or 1,024 (the weights are cast to x's dtype)."""
     return FusedFFN.apply(x, w1, b1, w2, b2)

@@ -43,19 +43,21 @@ KERNEL_QUERY_TILE = 64  # queries are padded to a multiple for the CUDA sweeps
 KERNEL_COLUMNS = 16     # bucket columns per block of K5's and K7's f32 sweep
 EXACT_CHUNK = 128       # corpus columns the exact f32 CUDA sweep scores per step
 EXACT_MAX_K = 128       # list length of the exact CUDA sweep
-SWEEP_ROWS = 32         # corpus rows a tile of the K5-K7 Hopper sweeps
+SWEEP_ROWS = 32         # corpus rows a tile of the K5-K7 Hopper sweeps (16 where
+                        # the queries leave room for fewer than 2 such stages: sweep_rows)
 EXACT_ROW_KEYS = {torch.bfloat16: 224, torch.int8: 256}  # a row's list + buffer in K6's Hopper sweep
-SWEEP_NARROW_D = 384    # the K5-K7 Hopper sweeps zero-pad the features to this or
-SWEEP_MAX_D = 768       # to this (bge-base, gte-base)
+SWEEP_NARROW_D = 384    # the K5-K7 Hopper sweeps zero-pad the features to this,
+SWEEP_WIDE_D = 768      # to this (bge-base, gte-base)
+SWEEP_MAX_D = 1024      # or to this (bge-large, gte-large)
 EXACT_MAX_D = 384       # K6's Hopper sweep takes the narrow width only
 SWEEP_WG_ROW_BYTES = 768  # padded rows this wide or narrower leave two query
                           # warpgroups (128 queries) a block room for a ring
 SMEM_BLOCK_LIMIT = 232448  # dynamic shared memory a block may take on the H100 (227 KB)
-SWEEP_SMEM_BUDGET = 229376  # what K5's and K6's rings size themselves to (224 KB)
+SWEEP_SMEM_BUDGET = 230400  # what K5's and K6's rings size themselves to (225 KB)
 BUCKETED_MAX_BUCKETS = 4096  # K5's extract holds this many bucket maxima
 PACKED_ROWS = 64        # queries per warpgroup of the packed sweep (K4); 2 a block from 128
-PACKED_COLUMNS = 32     # bucket columns per block of K4's bf16 sweep
-PACKED_MAX_D = 768      # K4's bf16 sweep zero-pads the features to 384 or to this
+PACKED_COLUMNS = 32     # bucket columns per block of K4's bf16 sweep (16 at D 1,024)
+PACKED_MAX_D = 1024     # K4's bf16 sweep zero-pads the features to 384, 768 or this
 
 
 def _tile_scores(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +157,27 @@ def packed_tile_groups(ntiles: int, base_blocks: int, sms: int) -> int:
 
 def padded_width(d: int) -> int:
     """The feature width the Hopper sweeps pad a row of D features to."""
-    return SWEEP_NARROW_D if d <= SWEEP_NARROW_D else SWEEP_MAX_D
+    for width in (SWEEP_NARROW_D, SWEEP_WIDE_D):
+        if d <= width:
+            return width
+    return SWEEP_MAX_D
+
+
+def packed_columns(d: int) -> int:
+    """Bucket columns (corpus rows a tile) a block of K4's bf16 sweep
+    owns: 32, or 16 at the padded width 1,024, where a warpgroup's 128 KB
+    of queries leave room for no two 64 KB stages of 32 rows."""
+    return PACKED_COLUMNS // 2 if padded_width(d) == SWEEP_MAX_D else PACKED_COLUMNS
+
+
+def sweep_rows(row_bytes: int) -> int:
+    """Corpus rows a tile of K5's and K7's int8 / bf16 sweep over padded
+    rows of ``row_bytes`` (flat_sweep.cuh's Tiles): SWEEP_ROWS, or half of
+    it where one warpgroup's queries leave room for fewer than 2 stages of
+    SWEEP_ROWS rows (a bf16 row of 1,024 features)."""
+    regions = row_bytes // 128
+    free = SWEEP_SMEM_BUDGET - 1024 - regions * 8192
+    return SWEEP_ROWS if free // (regions * SWEEP_ROWS * 128) >= 2 else SWEEP_ROWS // 2
 
 
 def query_tile(bqp: int, row_bytes: int) -> int:
@@ -170,21 +192,24 @@ def packed_sweep_smem(d: int, qtile: int):
     """(stages, dynamic shared-memory bytes) of a block of K4's bf16 sweep,
     as csrc/packed_topk.cu's Sweep sizes it: per 64-query warpgroup its
     queries (d/64 regions of 8 KB at the padded width), and a ring of
-    corpus stages (d/64 boxes of 32 rows x 128 bytes): 6 or 5 stages at 384,
-    2 at 768 (where a block takes one warpgroup)."""
+    corpus stages (d/64 boxes of ``packed_columns`` rows x 128 bytes): 6 or
+    5 stages at 384, 2 at 768 and 3 of 16 rows at 1,024 (where a block
+    takes one warpgroup)."""
     pd, wg = padded_width(d), qtile // KERNEL_QUERY_TILE
-    stages = 2 if pd == SWEEP_MAX_D else (6 if wg == 1 else 5)
-    return stages, wg * (pd // 64) * 8192 + stages * (pd // 64) * 4096 + 1024
+    stages = {SWEEP_NARROW_D: 6 if wg == 1 else 5, SWEEP_WIDE_D: 2, SWEEP_MAX_D: 3}[pd]
+    return stages, wg * (pd // 64) * 8192 + stages * (pd // 64) * packed_columns(d) * 128 + 1024
 
 
 def bucketed_sweep_smem(row_bytes: int, qtile: int):
     """(stages, dynamic shared-memory bytes) of a block of K5's and K7's
     int8 / bf16 sweep over padded rows of ``row_bytes``, as
     csrc/bucketed_topk.cu's BucketSweep sizes it: the queries, then as many
-    corpus stages (32 rows a stage) as SWEEP_SMEM_BUDGET leaves, at most 12."""
+    corpus stages (``sweep_rows`` rows a stage) as SWEEP_SMEM_BUDGET
+    leaves, at most 12."""
     regions, wg = row_bytes // 128, qtile // KERNEL_QUERY_TILE
-    stages = min((SWEEP_SMEM_BUDGET - 1024 - wg * regions * 8192) // (regions * 4096), 12)
-    return stages, 1024 + wg * regions * 8192 + stages * regions * 4096
+    stage = regions * sweep_rows(row_bytes) * 128
+    stages = min((SWEEP_SMEM_BUDGET - 1024 - wg * regions * 8192) // stage, 12)
+    return stages, 1024 + wg * regions * 8192 + stages * stage
 
 
 def packed_sweep_grid(bq: int, n: int, sms: int, block_n: int = 1024, d: int = 384):
@@ -195,7 +220,7 @@ def packed_sweep_grid(bq: int, n: int, sms: int, block_n: int = 1024, d: int = 3
     block_n, ntiles, bits = _packing(n, block_n)
     bqp = round_up(max(bq, 1), PACKED_ROWS)
     qtile = query_tile(bqp, 2 * padded_width(d))
-    base = -(-block_n // PACKED_COLUMNS) * -(-bqp // qtile)
+    base = -(-block_n // packed_columns(d)) * -(-bqp // qtile)
     per_group = packed_tile_groups(ntiles, base, sms)
     return bqp, block_n, bits, per_group, -(-ntiles // per_group)
 
@@ -390,14 +415,14 @@ def _hopper_sweep(name: str, corpus: torch.Tensor, max_d: int = SWEEP_MAX_D) -> 
 def bucketed_sweep_grid(bq: int, n: int, nbuckets: int, sms: int, row_bytes: int = 768):
     """K5's and K7's launch plan for their int8 / bf16 sweep, Bq queries over N rows in
     nbuckets buckets: (Bqp, rounds_per_group, groups). A block owns
-    SWEEP_ROWS bucket positions, 64 queries (128 from Bqp = 128 on where a
+    ``sweep_rows`` bucket positions, 64 queries (128 from Bqp = 128 on where a
     padded row of ``row_bytes`` allows it: ``query_tile``) and a group of
     consecutive rounds, and holds a whole SM, so the groups stop where the
     grid fills the SMs once; the scratch is [groups, Bqp, nbuckets] keys."""
     bqp = round_up(max(bq, 1), KERNEL_QUERY_TILE)
     qtile = query_tile(bqp, row_bytes)
     rounds = -(-n // nbuckets)
-    base = -(-nbuckets // SWEEP_ROWS) * -(-bqp // qtile)
+    base = -(-nbuckets // sweep_rows(row_bytes)) * -(-bqp // qtile)
     per_group = packed_tile_groups(rounds, base, sms)
     return bqp, per_group, -(-rounds // per_group)
 

@@ -87,8 +87,9 @@ def check_kernel_widths(cfg: FrameworkConfig) -> None:
     """The CUDA path runs every encoder and reranker layer through K2 and
     K3, a bf16 or int8 flat index through K4-K7 (a sharded one through
     K7), and a local LLM's every prefill through K9, which take only the
-    widths they were built for (head_dim 32 or 64; hidden 384 or 768; D up
-    to 768; the decoder's head_dim 64 or 128); the JAX package and the CPU
+    widths they were built for (head_dim 32 or 64; hidden 384, 768 or
+    1,024; D up to 1,024; the decoder's head_dim 64 or 128); the JAX
+    package and the CPU
     take any. Raise NotImplementedError at build, naming each kernel and its
     limit, rather than on the first encode, search or prefill (a K9 refusal
     there would be swallowed by the provider's degrade path, and every

@@ -10,7 +10,8 @@ libraries, and K1 (``frag_pool_norm``), K2 (``frag_flash_attention``), K3
 (``frag_causal_flash``) and K10 (``frag_flash_attention_bwd``) of each are
 launched on the same inputs at the main path's shapes (K2, K3, K4, K5 and
 K10 also at the bge-base width: heads of 64, hidden 768, D 768, K10 there
-with every key live and with padded keys; K9 also at
+with every key live and with padded keys; K1, K2, K3, K4, K5 and K7 also at
+the bge-large width: hidden 1,024, 16 heads of 64, D 1,024; K9 also at
 heads of 128, Qwen2-1.5B's, Qwen2-7B's and Llama-3-8B's), the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
@@ -88,40 +89,54 @@ K2_SHAPES = (("K2 table", 256, 512, 12, 32), ("contrastive", 256, 128, 12, 32),
              ("tp2 listwise", 64, 64, 6, 32), ("wide table", 256, 512, 12, 64),
              ("wide ingest", 68, 512, 12, 64), ("wide S=128", 256, 128, 12, 64),
              ("wide query", 8, 64, 12, 64), ("wide tp2 local", 32, 128, 6, 64),
-             ("wide tp4 local", 64, 128, 3, 64))
+             ("wide tp4 local", 64, 128, 3, 64), ("large table", 256, 512, 16, 64),
+             ("large ingest", 68, 512, 16, 64), ("large query", 8, 64, 16, 64))
 # (label, N, H) of K3 with I = 4H: at H=384 the table's shape, the training
-# encode and a query's 8 x 64 tokens; at H=768 (bge-base) the table's shape,
-# the wide ingest's batch (68 x 512) and a query's
+# encode and a query's 8 x 64 tokens; at H=768 (bge-base) and H=1,024
+# (bge-large) the table's shape, the wide ingest's batch (68 x 512) and a
+# query's
 K3_SHAPES = (("K3 table", 131072, 384), ("train encode", 32768, 384), ("query", 512, 384),
-             ("wide table", 131072, 768), ("wide ingest", 34816, 768), ("wide query", 512, 768))
-# (label, B, S, dtype) of K1 at H=384: the table's shape, the ingest's
-# batches (3,482 children in 51 launches), a query's encode, and f32
-K1_SHAPES = (("K1 table", 256, 512, "bf16"), ("ingest", 68, 512, "bf16"),
-             ("ingest short", 68, 128, "bf16"), ("query", 8, 64, "bf16"),
-             ("f32", 64, 512, "f32"))
+             ("wide table", 131072, 768), ("wide ingest", 34816, 768), ("wide query", 512, 768),
+             ("large table", 131072, 1024), ("large ingest", 34816, 1024),
+             ("large query", 512, 1024))
+# (label, B, S, dtype, H) of K1: at H=384 the table's shape, the ingest's
+# batches (3,482 children in 51 launches), a query's encode, and f32; at
+# H=1,024 the table's shape and the ingest's batch
+K1_SHAPES = (("K1 table", 256, 512, "bf16", 384), ("ingest", 68, 512, "bf16", 384),
+             ("ingest short", 68, 128, "bf16", 384), ("query", 8, 64, "bf16", 384),
+             ("f32", 64, 512, "f32", 384), ("large table", 256, 512, "bf16", 1024),
+             ("large ingest", 68, 512, "bf16", 1024))
 # (label, Bq, N, D) of K4 at k=24, bf16: at D=384 the table's shape, a query
 # batch over the same corpus, the served shape (one query per launch over
 # the smoke test's index capacity), a smaller corpus, and one tile (bits 1);
-# at D=768 the table's shape, the batch of 8 and the batcher's wave of 192
+# at D=768 the table's shape, the batch of 8 and the batcher's wave of 192;
+# at D=1,024 those and one query over the table's corpus
 K4_SHAPES = (("K4 table", 128, 102400, 384), ("batch of 8", 8, 102400, 384),
              ("served", 1, 4096, 384), ("N=16,384", 128, 16384, 384), ("one tile", 128, 1024, 384),
              ("D=768 table", 128, 102400, 768), ("D=768 batch of 8", 8, 102400, 768),
-             ("D=768 wave", 192, 4096, 768))
+             ("D=768 wave", 192, 4096, 768), ("D=1024 table", 128, 102400, 1024),
+             ("D=1024 batch of 8", 8, 102400, 1024), ("D=1024 one query", 1, 102400, 1024),
+             ("D=1024 wave", 192, 4096, 1024))
 # (label, Bq, N, dtype, D) of K5 at k=24, 4,096 buckets: at D=384 int8 (the
 # int8 index's sweep) at the table's shape, a query batch and the served
 # shape (one query per launch over the smoke test's index capacity), and
-# bf16 at the table's; at D=768 the table's and the served shape, int8 and
-# bf16
+# bf16 at the table's; at D=768 and D=1,024 the table's and the served
+# shape, int8 and bf16
 K5_SHAPES = (("K5 table", 128, 102400, "int8", 384), ("batch of 8", 8, 102400, "int8", 384),
              ("served", 1, 4096, "int8", 384), ("bf16 table", 128, 102400, "bf16", 384),
              ("D=768 table", 128, 102400, "int8", 768), ("D=768 served", 1, 4096, "int8", 768),
              ("D=768 bf16 table", 128, 102400, "bf16", 768),
-             ("D=768 bf16 served", 1, 4096, "bf16", 768))
-# (label, Bq, N, dtype) of K7 at D=384, k=24, 4,096 buckets (backend
-# pallas_bucketed): the table's shape in bf16 and int8, and the backends
-# phase's 9 questions over the index capacity
-K7_SHAPES = (("K7 table", 128, 102400, "bf16"), ("int8 table", 128, 102400, "int8"),
-             ("backends", 9, 4096, "bf16"))
+             ("D=768 bf16 served", 1, 4096, "bf16", 768),
+             ("D=1024 table", 128, 102400, "int8", 1024), ("D=1024 served", 1, 4096, "int8", 1024),
+             ("D=1024 bf16 table", 128, 102400, "bf16", 1024),
+             ("D=1024 bf16 served", 1, 4096, "bf16", 1024))
+# (label, Bq, N, dtype, D) of K7 at k=24, 4,096 buckets (backend
+# pallas_bucketed): at D=384 the table's shape in bf16 and int8, and the
+# backends phase's 9 questions over the index capacity; at D=1,024 the
+# table's shape in bf16 and int8
+K7_SHAPES = (("K7 table", 128, 102400, "bf16", 384), ("int8 table", 128, 102400, "int8", 384),
+             ("backends", 9, 4096, "bf16", 384), ("D=1024 table", 128, 102400, "bf16", 1024),
+             ("D=1024 int8 table", 128, 102400, "int8", 1024))
 # (label, Bq, N, dtype, k, order) of K6 at D=384: the table's shape, int8 at
 # N=16,384, the backends phase's 9 questions over the index capacity, k=128,
 # and a corpus whose every row outscores the one before (every key passes
@@ -183,29 +198,63 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50) -> dict:
-    """The device time of one call of ``fn`` by kernel name: every kernel it
-    launches, from its start to its end on the card, under torch.profiler,
-    averaged over ``iters`` calls. Gaps between launches do not count."""
+def device_ms(fns, iters: int = 50) -> list:
+    """The device time of one call of each of ``fns`` by kernel name: every
+    kernel it launches, from its start to its end on the card, averaged
+    over ``iters`` calls (gaps between launches do not count). All the
+    loops run under one torch.profiler session, behind a spin kernel
+    (``torch.cuda._sleep``) and each followed by one, which mark where each
+    loop's kernels begin and end: one session a row, not one a loop, since
+    in a process that had opened some 270 sessions the profiler recorded no
+    kernel at all. A session also drops its first records, 1 to ~100 of
+    them (more in a long-lived process), whatever it waits first: 256 small
+    elementwise kernels go ahead of the first marker to be dropped instead.
+    Each loop follows one call of its own between markers, which counts the
+    kernels of a call; a session that misses a marker, or whose loop holds
+    other than ``iters`` times that count, is made again twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
+    ahead = torch.zeros(1, device="cuda")
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(256):
+                ahead.add_(1.0)
+            torch.cuda._sleep(1000)
+            for fn in fns:
                 fn()
+                torch.cuda._sleep(1000)
+                for _ in range(iters):
+                    fn()
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-        if sum(by_name.values()) > 0:
-            return {name: us / 1e3 / iters for name, us in by_name.items()}
-        print(f"kernel_ab: the profiler saw no kernel (attempt {attempt + 1}, "
-              f"{len(prof.events())} events)", file=sys.stderr)
-    raise RuntimeError("the profiler saw no kernel of the call")
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        groups = [[]]
+        for e in kernels:
+            if "spin_kernel" in e.name:
+                groups.append([])
+            else:
+                groups[-1].append(e)
+        # between the first marker and the last: each fn's one call, then its loop
+        ones, loops = groups[1:-1:2], groups[2:-1:2]
+        if len(groups) == 2 * len(fns) + 2 and all(
+                ones[i] and len(loops[i]) == iters * len(ones[i]) for i in range(len(fns))):
+            out = []
+            for loop in loops:
+                ms = {}
+                for e in loop:
+                    ms[e.name] = ms.get(e.name, 0.0) + (
+                        e.time_range.end - e.time_range.start) / 1e3 / iters
+                out.append(ms)
+            return out
+        print(f"kernel_ab: the profiler saw {len(kernels)} kernels and {len(groups) - 1} of "
+              f"{2 * len(fns) + 1} markers, loops of {[len(g) for g in loops]} records for "
+              f"calls of {[len(g) for g in ones]} (attempt {attempt + 1})", file=sys.stderr)
+    raise RuntimeError("the profiler missed kernels of a call")
 
 
 def launches(fn) -> bool:
@@ -232,8 +281,12 @@ def ffn_splits(csrc: Path, n: int, h: int, sms: int) -> int:
     """The I-axis split the wrapper beside ``csrc`` (its ``ops/fused_ffn.py``)
     chooses for n tokens at hidden h, I = 4h: each tree's kernel is given
     the split it was tuned for (a tree before the 768 design has no
-    ``launch_plan`` and only the 384 rule)."""
+    ``launch_plan`` and only the 384 rule; a tree without a design for h
+    gets 1, and its kernel refuses the shape)."""
     mod = tree_module(csrc, "fused_ffn")
+    tiling = getattr(mod, "KERNEL_TILING", None)
+    if tiling is not None and h not in tiling:
+        return 1
     if hasattr(mod, "launch_plan"):
         return mod.launch_plan(n, h, 4 * h, sms)[2]
     return mod.split_count(-(-n // mod.KERNEL_TOKENS), 4 * h // mod.KERNEL_CHUNK, sms)
@@ -273,11 +326,15 @@ def bucketed_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096,
     return bqp, per_group, -(-rounds // per_group)
 
 
-def bucketed_topk_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096):
+def bucketed_topk_plan(csrc: Path, bq: int, n: int, sms: int, nbuckets: int = 4096,
+                       row_bytes: int = 768):
     """(Bqp, rounds_per_group, groups) that K7's wrapper beside ``csrc``
-    chooses for Bq queries over N int8 or bf16 rows."""
+    chooses for Bq queries over N int8 or bf16 rows padded to ``row_bytes``."""
     mod = tree_module(csrc, "topk")
     if hasattr(mod, "bucketed_launch_plan"):
+        if row_bytes != 768:
+            return mod.bucketed_launch_plan(bq, n, nbuckets, sms, hopper=True,
+                                            row_bytes=row_bytes)
         return mod.bucketed_launch_plan(bq, n, nbuckets, sms, hopper=True)
     # before K7 took the Hopper sweep: 64-query, 16-column blocks
     bqp = mod.round_up(max(bq, 1), mod.KERNEL_QUERY_TILE)
@@ -305,18 +362,18 @@ def exact_plan(csrc: Path, bq: int, n: int, k: int, dtype, sms: int):
     return bqp, per_group * mod.EXACT_CHUNK, groups, groups * bqp * kcap
 
 
-def k1_call(lib, b: int, s: int, dtype: str, gen):
-    """(run, outputs): K1 on seeded hidden states with rows padded to random
-    lengths (row 0 full), through ``lib``'s C entry."""
+def k1_call(lib, b: int, s: int, dtype: str, gen, h: int = 384):
+    """(run, outputs): K1 on seeded hidden states of width h with rows
+    padded to random lengths (row 0 full), through ``lib``'s C entry."""
     p = kernel_lib.ptr
-    hidden = torch.randn(b, s, 384, generator=gen, device="cuda").to(
+    hidden = torch.randn(b, s, h, generator=gen, device="cuda").to(
         torch.bfloat16 if dtype == "bf16" else torch.float32)
     lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
     lens[0] = s
     mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None]).float()
-    out = torch.empty(b, 384, device="cuda")
+    out = torch.empty(b, h, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(hidden), p(mask), p(out), b, s, 384, kernel_lib.DTYPE_CODES[hidden.dtype], stream)
+    args = (p(hidden), p(mask), p(out), b, s, h, kernel_lib.DTYPE_CODES[hidden.dtype], stream)
 
     def run():
         if lib.frag_pool_norm(*args):
@@ -397,20 +454,22 @@ def k5_call(lib, bq: int, n: int, dtype: str, d: int, plan, gen, k: int = 24,
     return run, [out_s, out_i]
 
 
-def k7_call(lib, bq: int, n: int, dtype: str, plan, gen, k: int = 24, nbuckets: int = 4096):
-    """(run, outputs): K7 on exact-grid data (``sweep_inputs``) with scratch
-    as ``plan`` says, through ``lib``'s C entry, then the wrapper's stable
-    top k of the [Bq, nbuckets] maxima; the outputs are the maxima."""
+def k7_call(lib, bq: int, n: int, dtype: str, plan, gen, k: int = 24, nbuckets: int = 4096,
+            d: int = 384):
+    """(run, outputs): K7 on exact-grid data (``sweep_inputs``) of D
+    features with scratch as ``plan`` says, through ``lib``'s C entry, then
+    the wrapper's stable top k of the [Bq, nbuckets] maxima; the outputs are
+    the maxima."""
     from financial_rag_tpu_torch.ops import topk
 
     p = kernel_lib.ptr
     bqp, per_group, groups = plan
-    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen)
+    q, x, valid = sweep_inputs(bq, bqp, n, dtype, gen, d=d)
     keys = torch.empty(groups, bqp, nbuckets, dtype=torch.int64, device="cuda")
     out_s = torch.empty(bq, nbuckets, device="cuda")
     out_i = torch.empty(bq, nbuckets, dtype=torch.int32, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(x), p(valid), p(keys), p(out_s), p(out_i), bq, bqp, n, 384, nbuckets, 0,
+    args = (p(q), p(x), p(valid), p(keys), p(out_s), p(out_i), bq, bqp, n, d, nbuckets, 0,
             per_group, kernel_lib.DTYPE_CODES[x.dtype], stream)
 
     def run():
@@ -550,8 +609,8 @@ def main(argv=None) -> int:
     # make(tree) -> (run, outputs) on that tree's library
     plans = {(tree, label): packed_plan(csrc, bq, n, sms, d)
              for tree, csrc in trees.items() for label, bq, n, d in K4_SHAPES}
-    cases = [("K1", label, (b, s, dt), lambda tree, b=b, s=s, dt=dt: k1_call(libs[tree], b, s, dt, gen))
-             for label, b, s, dt in K1_SHAPES]
+    cases = [("K1", label, (b, s, dt, h), lambda tree, b=b, s=s, dt=dt, h=h: k1_call(
+        libs[tree], b, s, dt, gen, h)) for label, b, s, dt, h in K1_SHAPES]
     cases += [("K4", label, {"Bq": bq, "N": n, "D": d,
                              "groups": {tree: plans[tree, label][4] for tree in trees}},
                lambda tree, label=label, bq=bq, n=n, d=d: k4_call(libs[tree], bq, n, d,
@@ -565,13 +624,14 @@ def main(argv=None) -> int:
                lambda tree, label=label, bq=bq, n=n, dt=dt, d=d: k5_call(
                    libs[tree], bq, n, dt, d, k5_plans[tree, label], gen))
               for label, bq, n, dt, d in K5_SHAPES]
-    k7_plans = {(tree, bq, n): bucketed_topk_plan(csrc, bq, n, sms)
-                for tree, csrc in trees.items() for _, bq, n, _ in K7_SHAPES}
-    cases += [("K7", label, {"Bq": bq, "N": n, "dtype": dt,
-                             "groups": {tree: k7_plans[tree, bq, n][2] for tree in trees}},
-               lambda tree, bq=bq, n=n, dt=dt: k7_call(libs[tree], bq, n, dt,
-                                                       k7_plans[tree, bq, n], gen))
-              for label, bq, n, dt in K7_SHAPES]
+    k7_plans = {(tree, label): bucketed_topk_plan(csrc, bq, n, sms,
+                                                  row_bytes=d * (1 if dt == "int8" else 2))
+                for tree, csrc in trees.items() for label, bq, n, dt, d in K7_SHAPES}
+    cases += [("K7", label, {"Bq": bq, "N": n, "dtype": dt, "D": d,
+                             "groups": {tree: k7_plans[tree, label][2] for tree in trees}},
+               lambda tree, label=label, bq=bq, n=n, dt=dt, d=d: k7_call(
+                   libs[tree], bq, n, dt, k7_plans[tree, label], gen, d=d))
+              for label, bq, n, dt, d in K7_SHAPES]
     k6_plans = {(tree, label): exact_plan(
                     csrc, bq, n, k, torch.int8 if dt == "int8" else torch.bfloat16, sms)
                 for tree, csrc in trees.items() for label, bq, n, dt, k, _ in K6_SHAPES}
@@ -605,9 +665,9 @@ def main(argv=None) -> int:
         for name in ("this", "other", "other", "this"):
             if name not in refused:
                 ms[name].append(cuda_ms(runs[name]))
-        for name in ("this", "other", "other", "this"):
-            if name not in refused:
-                dev[name].append(device_ms(runs[name]))
+        order = [name for name in ("this", "other", "other", "this") if name not in refused]
+        for name, d in zip(order, device_ms([runs[name] for name in order])):
+            dev[name].append(d)
         row = {"kernel": kernel, "case": label, "shape": shape,
                **{f"{name}_ms": ms[name] or None for name in libs},
                **{f"{name}_dev_ms": [sum(d.values()) for d in dev[name]] or None

@@ -210,9 +210,9 @@ def make_rerank_train_step(
     contrastive.make_train_step (B divisible by the data axis's size).
     """
     device = resolve_device(device)
-    check_train_widths(config, device)
-    dt = resolve_compute_dtype(device, compute_dtype)
     tp = tp_arg(config, mesh, model_axis)
+    check_train_widths(config, device, tp)
+    dt = resolve_compute_dtype(device, compute_dtype)
 
     def loss_fn(params, batch):
         b, g, s = batch["ids"].shape

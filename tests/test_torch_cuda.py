@@ -269,17 +269,22 @@ def test_fused_ffn_kernel_rejects_float32(gen):
 # ------------------------------------------------ the bge-base width (768)
 
 
-@pytest.mark.parametrize("b,s", [(3, 1), (3, 64), (3, 100), (2, 512), (130, 70)])
-def test_flash_attention_kernel_at_head_dim_64(gen, b, s):
-    """K2 at 12 heads of 64 (hidden 768): S = 1, 64 (one warpgroup a
-    block), 100 and 70 (part-filled key and query tiles), 512; a padded row
-    and a fully masked one (the mean of v), B = 130 (not a multiple of
-    anything). Within 3e-2 of the plain version."""
-    h = 768
+@pytest.mark.parametrize("heads,b,s", [(12, 3, 1), (12, 3, 64), (12, 3, 100), (12, 2, 512),
+                                        (12, 130, 70), (16, 3, 1), (16, 3, 64), (16, 3, 100),
+                                        (16, 2, 512), (16, 68, 512)])
+def test_flash_attention_kernel_at_head_dim_64(gen, heads, b, s):
+    """K2 at 12 heads of 64 (hidden 768) and at bge-large's 16 (hidden
+    1,024): S = 1, 64 (one warpgroup a block), 100 and 70 (part-filled key
+    and query tiles), 512; a padded row and a fully masked one (the mean of
+    v), B = 130 (not a multiple of anything) and the large ingest's 68 x
+    512. Within 3e-2 of the plain version."""
+    h = 64 * heads
     q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
     bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
-    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=12))
-    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=12)
+    width_before = fa.WIDTH_LAUNCHES[h]
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=heads))
+    assert fa.WIDTH_LAUNCHES[h] == width_before + 1
+    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=heads)
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
     torch.testing.assert_close(out[-1].float(), v[-1].float().mean(0).expand(s, h),
@@ -326,17 +331,20 @@ def test_flash_attention_kernel_at_local_heads_of_64(gen, heads):
                                atol=3e-2, rtol=0)
 
 
-@pytest.mark.parametrize("n,i", [(1, 3072), (64, 3072), (65, 3072), (129, 3072), (193, 3072),
-                                 (512, 3072), (999, 3072), (17030, 3072), (34816, 3072),
-                                 (131072, 3072), (129, 2048), (999, 2048), (17030, 2048)])
-def test_fused_ffn_kernel_at_hidden_768(gen, n, i):
-    """K3's 768-wide design at I = 3,072 (bge-base) and 2,048: 1, 65, 129,
-    193, 999 and 17,030 tokens leave the last 64-token tile ragged (65,
-    129 and 193 are 2, 3 and 4 tiles); up to 999 the I axis is split and
-    f32 partials are summed, from 17,030 on one block a tile. Within 3e-2
-    of the plain version."""
+@pytest.mark.parametrize("h,n,i", [
+    *((768, n, 3072) for n in (1, 64, 65, 129, 193, 512, 999, 17030, 34816, 131072)),
+    *((768, n, 2048) for n in (129, 999, 17030)),
+    *((1024, n, 4096) for n in (1, 64, 65, 129, 512, 999, 17030, 34816, 131072)),
+    *((1024, n, 2048) for n in (129, 999, 17030))])
+def test_fused_ffn_kernel_at_hidden_768(gen, h, n, i):
+    """K3's 768-wide design at I = 3,072 (bge-base) and 2,048, and its
+    1,024-wide one (two passes of 512 y columns, h recomputed in the
+    second) at I = 4,096 (bge-large) and 2,048: 1, 65, 129, 193, 999 and
+    17,030 tokens leave the last 64-token tile ragged (65, 129 and 193 are
+    2, 3 and 4 tiles); up to 999 the I axis is split and f32 partials are
+    summed, from 17,030 on one block a tile. Within 3e-2 of the plain
+    version."""
     bf16 = torch.bfloat16
-    h = 768
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, _, splits = ffn.launch_plan(n, h, i, sms)
     assert (splits > 1) == (n < 17030)
@@ -345,19 +353,22 @@ def test_fused_ffn_kernel_at_hidden_768(gen, n, i):
     w1 = _randn(gen, h, i, dtype=bf16, scale=h ** -0.5)
     w2 = _randn(gen, i, h, dtype=bf16, scale=i ** -0.5)
     b1, b2 = _randn(gen, i, dtype=bf16, scale=0.1), _randn(gen, h, dtype=bf16, scale=0.1)
+    width_before = ffn.WIDTH_LAUNCHES[h]
     out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+    assert ffn.WIDTH_LAUNCHES[h] == width_before + 1
     ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
 
 
 @pytest.mark.parametrize("n", [512, 34816])
-def test_fused_ffn_kernel_at_hidden_768_is_deterministic(gen, n):
-    """Two calls of K3's 768-wide design on the same inputs give the same
-    bits: each block sums its products in a fixed order, and the split
-    partials are summed in split order (N=512)."""
+@pytest.mark.parametrize("h", [768, 1024])
+def test_fused_ffn_kernel_at_hidden_768_is_deterministic(gen, h, n):
+    """Two calls of K3's 768- or 1,024-wide design on the same inputs give
+    the same bits: each block sums its products in a fixed order, and the
+    split partials are summed in split order (N=512)."""
     bf16 = torch.bfloat16
-    h, i = 768, 3072
+    i = 4 * h
     x = _randn(gen, n, h, dtype=bf16)
     w1 = _randn(gen, h, i, dtype=bf16, scale=h ** -0.5)
     w2 = _randn(gen, i, h, dtype=bf16, scale=i ** -0.5)
@@ -368,9 +379,11 @@ def test_fused_ffn_kernel_at_hidden_768_is_deterministic(gen, n):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pool_norm_kernel_at_hidden_768(gen, dtype):
-    hidden = _randn(gen, 70, 130, 768, dtype=DTYPES[dtype])
-    mask = _mask(70, 130)
+@pytest.mark.parametrize("b,s,h", [(70, 130, 768), (68, 512, 1024)])
+def test_pool_norm_kernel_at_hidden_768(gen, b, s, h, dtype):
+    """K1 at hidden 768 and at the large ingest's 68 x 512 x 1,024."""
+    hidden = _randn(gen, b, s, h, dtype=DTYPES[dtype])
+    mask = _mask(b, s)
     out = _launches_once(pn, lambda: pn.masked_mean_l2_normalize(hidden, mask))
     ref = pn.masked_mean_l2_normalize_plain(hidden, mask)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -378,12 +391,14 @@ def test_pool_norm_kernel_at_hidden_768(gen, dtype):
 
 @pytest.mark.parametrize("n", [208, 1024, 4096, 102400])
 @pytest.mark.parametrize("bq", [1, 8, 65, 128, 192])
-def test_packed_topk_kernel_at_d768_exactly(gen, bq, n):
-    """K4's 768-wide sweep (one warpgroup, 2 stages) on exact-grid data with
-    ties and 5% dead rows: N = 208 (one ragged tile of 6.5 column blocks),
-    one tile, 4 and 100 tiles; Bq on both sides of the 64-query tile. Bit
-    for bit the plain version."""
-    q, x = _grid(gen, bq, 768), _grid(gen, n, 768)
+@pytest.mark.parametrize("d", [768, 1024])
+def test_packed_topk_kernel_at_d768_exactly(gen, d, bq, n):
+    """K4's 768-wide sweep (one warpgroup, 2 stages) and its 1,024-wide one
+    (one warpgroup, 16 bucket columns a block, 3 stages) on exact-grid data
+    with ties and 5% dead rows: N = 208 (one ragged tile of 6.5 or 13
+    column blocks), one tile, 4 and 100 tiles; Bq on both sides of the
+    64-query tile. Bit for bit the plain version."""
+    q, x = _grid(gen, bq, d), _grid(gen, n, d)
     if n >= 2048:
         x[1024:2048] = x[:1024]
     x[min(70, n - 1)] = x[5]
@@ -397,10 +412,11 @@ def test_packed_topk_kernel_at_d768_exactly(gen, bq, n):
     assert torch.equal(out_s, ref_s)
 
 
-@pytest.mark.parametrize("d", [400, 512])
+@pytest.mark.parametrize("d", [400, 512, 800, 1008])
 def test_packed_topk_kernel_between_the_widths(gen, d):
-    """384 < D < 768 takes the 768-wide sweep with the features past D
-    zero: bit for bit the plain version."""
+    """384 < D < 768 takes the 768-wide sweep, 768 < D < 1,024 the
+    1,024-wide one, with the features past D zero: bit for bit the plain
+    version."""
     q, x = _grid(gen, 70, d), _grid(gen, 4096, d).bfloat16()
     valid = (torch.rand(4096, generator=gen, device="cuda") > 0.05).float()
     out = _launches_once(topk, lambda: topk.packed_topk_fused(q, x, valid, 24), "packed_topk_fused")
@@ -412,13 +428,16 @@ def test_packed_topk_kernel_between_the_widths(gen, d):
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
 @pytest.mark.parametrize("n", [1024, 4096, 16384, 102400])
 @pytest.mark.parametrize("bq", [1, 65, 128, 200])
-def test_bucketed_sweeps_at_d768_exactly(gen, name, bq, n, dtype):
+@pytest.mark.parametrize("d", [768, 1024])
+def test_bucketed_sweeps_at_d768_exactly(gen, d, name, bq, n, dtype):
     """K5 and K7 at D = 768: int8 (two query warpgroups, a 5-stage ring)
-    and bf16 (one warpgroup, 2 stages) on exact-grid data with ties and 5%
-    dead rows: the int8 sweep's integer dots (127 * 127 * 768 < 2^24) and
-    both sweeps' selection bit for bit the plain version."""
+    and bf16 (one warpgroup, 2 stages), and at D = 1,024: int8 (one query
+    warpgroup, 5 stages of 32 rows) and bf16 (one warpgroup, 3 stages of 16
+    rows), on exact-grid data with ties and 5% dead rows: the int8 sweep's
+    integer dots (127 * 127 * 1,024 < 2^24) and both sweeps' selection bit
+    for bit the plain version."""
     kernel, plain = SWEEPS[name]
-    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype, d=768)
+    q, x, valid = _hopper_sweep_case(gen, bq, n, dtype, d=d)
     out_s, out_i = _launches_once(topk, lambda: kernel(q, x, valid, 24), name)
     ref_s, ref_i = plain(q, x, valid, 24)
     assert torch.equal(out_i, ref_i)
@@ -426,15 +445,17 @@ def test_bucketed_sweeps_at_d768_exactly(gen, name, bq, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
-def test_probe_kernel_at_d768(gen, dtype):
+@pytest.mark.parametrize("d", [768, 1024])
+def test_probe_kernel_at_d768(gen, d, dtype):
+    """K8 at D 768 and 1,024."""
     nlist, L, B, P = 16, 128, 9, 5
     if dtype == "int8":
-        storage = torch.randint(-127, 128, (nlist, L, 768), generator=gen, device="cuda").to(torch.int8)
-        q = torch.randint(-127, 128, (B, 768), generator=gen, device="cuda").to(torch.int8)
+        storage = torch.randint(-127, 128, (nlist, L, d), generator=gen, device="cuda").to(torch.int8)
+        q = torch.randint(-127, 128, (B, d), generator=gen, device="cuda").to(torch.int8)
         weights = torch.full((nlist, L), 1.0 / 127.0, device="cuda")
     else:
-        storage = _randn(gen, nlist, L, 768, scale=768 ** -0.5).to(torch.bfloat16)
-        q = _randn(gen, B, 768, scale=768 ** -0.5).to(torch.bfloat16)
+        storage = _randn(gen, nlist, L, d, scale=d ** -0.5).to(torch.bfloat16)
+        q = _randn(gen, B, d, scale=d ** -0.5).to(torch.bfloat16)
         weights = torch.ones(nlist, L, device="cuda")
     weights[:, 100:] = 0.0
     probes = torch.randint(0, nlist, (B, P), generator=gen, device="cuda", dtype=torch.int32)
@@ -447,16 +468,17 @@ def test_probe_kernel_at_d768(gen, dtype):
 
 
 def test_wide_kernels_reject_what_they_cannot_take(gen):
-    """K2 at head_dim 128, K3 at hidden 1,024 or I not a multiple of 64
-    (the 768 design's chunk) at 768: raised before any launch, never the
-    plain version."""
+    """K2 at head_dim 128, K3 at hidden 512 (no design of its own) or I not
+    a multiple of 64 (the 768 design's chunk) at 768: raised before any
+    launch, never the plain version."""
     bf16 = torch.bfloat16
     x = _randn(gen, 2, 64, 1024, dtype=bf16)
     with pytest.raises(ValueError, match="head_dim 32 or 64"):
         fa.flash_attention(x, x, x, torch.zeros(2, 64, device="cuda"), num_heads=8)
-    w1, w2 = _randn(gen, 1024, 4096, dtype=bf16), _randn(gen, 4096, 1024, dtype=bf16)
+    x = _randn(gen, 2, 64, 512, dtype=bf16)
+    w1, w2 = _randn(gen, 512, 2048, dtype=bf16), _randn(gen, 2048, 512, dtype=bf16)
     with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
-        ffn.fused_ffn(x, w1, _randn(gen, 4096, dtype=bf16), w2, _randn(gen, 1024, dtype=bf16))
+        ffn.fused_ffn(x, w1, _randn(gen, 2048, dtype=bf16), w2, _randn(gen, 512, dtype=bf16))
     x = _randn(gen, 64, 768, dtype=bf16)
     for i in (3000, 2000):   # not a multiple of 16; of 16 but not of 64
         w1, w2 = _randn(gen, 768, i, dtype=bf16), _randn(gen, i, 768, dtype=bf16)
@@ -534,8 +556,8 @@ def test_packed_topk_kernel_on_narrow_features(gen, d):
 
 
 def test_packed_topk_kernel_rejects_what_it_cannot_take(gen):
-    q, x, valid = _grid(gen, 2, 1024), _grid(gen, 1024, 1024).bfloat16(), torch.ones(1024, device="cuda")
-    with pytest.raises(ValueError, match="at most 768"):
+    q, x, valid = _grid(gen, 2, 1056), _grid(gen, 1024, 1056).bfloat16(), torch.ones(1024, device="cuda")
+    with pytest.raises(ValueError, match="at most 1024"):
         topk.packed_topk_fused(q, x, valid, 24)
     with pytest.raises(ValueError, match=r"\[1, 256\]"):
         topk.packed_topk_fused(q[:, :384], x[:, :384].contiguous(), valid, 257)
@@ -719,8 +741,8 @@ def test_bucketed_topk_kernel_rejects_what_the_hopper_sweep_cannot_take(gen):
     """K7 raises where its int8 / bf16 sweep cannot take a shape, and does
     not take the older sweep instead."""
     valid = torch.ones(1024, device="cuda")
-    q, x = _grid(gen, 2, 1024), _grid(gen, 1024, 1024).bfloat16()
-    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 768"):
+    q, x = _grid(gen, 2, 1056), _grid(gen, 1024, 1056).bfloat16()
+    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 1024"):
         topk.bucketed_topk(q, x, valid, 24)
     q, x = q[:, :384].contiguous(), x[:, :384].contiguous()
     with pytest.raises(ValueError, match="multiples of 32"):   # 48 buckets
@@ -812,10 +834,10 @@ def test_exact_kernel_when_every_tile_beats_the_last(gen, dtype, k):
 
 
 def test_hopper_sweeps_reject_what_they_cannot_take(gen):
-    """K5 takes D <= 768, K6 D <= 384; k and D's multiple as before."""
-    q, x = _grid(gen, 2, 1024), (_grid(gen, 1024, 1024) * 64).to(torch.int8)
+    """K5 takes D <= 1,024, K6 D <= 384; k and D's multiple as before."""
+    q, x = _grid(gen, 2, 1056), (_grid(gen, 1024, 1056) * 64).to(torch.int8)
     valid = torch.ones(1024, device="cuda")
-    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 768"):
+    with pytest.raises(ValueError, match="above the int8/bf16 sweep's 1024"):
         topk.bucketed_topk_fused(q, x, valid, 24)
     with pytest.raises(ValueError, match="above the int8/bf16 sweep's 384"):
         topk.topk_matmul(q[:, :512].contiguous(), x[:, :512].contiguous(), valid, 24)
@@ -1218,19 +1240,17 @@ def test_contrastive_step_on_cuda_matches_the_cpu(gen):
             assert cos >= 0.99, (group, name, float(cos))
 
 
-def test_bge_base_width_step_on_cuda_matches_the_cpu_and_sees_a_wrong_k10(gen):
-    """One contrastive step's gradients at the bge-base width (2 layers,
-    hidden 768, 12 heads of 64, FFN 3,072) in bf16 on the card (K2 and K10
-    at 64, K3's 768 design; 4 launches each) against f32 on the CPU, padded
-    batch: each leaf group's gradient cosine >= 0.999 (chip_smoke.py's bar).
-    The control, K10 with its dQ zeroed, drops the q group's cosine to 0
-    (a zero gradient: the cosine's eps makes it 0, not nan)."""
+def _wide_step_parity(hidden: int, heads: int):
+    """One contrastive step at 2 layers of ``hidden`` (``heads`` heads of
+    64, FFN 4 x hidden) made in bf16 for the card and in f32 for the CPU,
+    on a padded batch: (the card step, its params, the batch, grads ->
+    each leaf group's cosine against the CPU step's gradients)."""
     from financial_rag_tpu_torch.config import ModelConfig
     from financial_rag_tpu_torch.models.checkpoint import random_params
     from financial_rag_tpu_torch.training import make_train_step
 
-    cfg = ModelConfig(name="t", hidden_size=768, num_layers=2, num_heads=12,
-                      intermediate_size=3072, vocab_size=30522, max_position=128)
+    cfg = ModelConfig(name="t", hidden_size=hidden, num_layers=2, num_heads=heads,
+                      intermediate_size=4 * hidden, vocab_size=30522, max_position=128)
     g = torch.Generator().manual_seed(1)
     ids = {k: torch.randint(5, 30000, (4, 64), generator=g) for k in ("q_ids", "d_ids")}
     masks = {k: (torch.arange(64)[None, :] < torch.tensor([64, 50, 20, 8])[:, None]).int()
@@ -1255,11 +1275,23 @@ def test_bge_base_width_step_on_cuda_matches_the_cpu_and_sees_a_wrong_k10(gen):
         out["embeddings"] = float(torch.nn.functional.cosine_similarity(a, b_, dim=0))
         return out
 
-    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES)
+    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, ffn.WIDTH_LAUNCHES[hidden])
     _, grads = card.value_and_grad(card_params, batch)
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES - counts[0], fa.BWD_LAUNCHES - counts[1], ffn.LAUNCHES - counts[2]) == (
-        4, 4, 4)
+    # K2, K10 and K3 (at this width) 4 times each
+    assert (fa.LAUNCHES - counts[0], fa.BWD_LAUNCHES - counts[1], ffn.LAUNCHES - counts[2],
+            ffn.WIDTH_LAUNCHES[hidden] - counts[3]) == (4, 4, 4, 4)
+    return card, card_params, batch, cosines, grads
+
+
+def test_bge_base_width_step_on_cuda_matches_the_cpu_and_sees_a_wrong_k10(gen):
+    """One contrastive step's gradients at the bge-base width (2 layers,
+    hidden 768, 12 heads of 64, FFN 3,072) in bf16 on the card (K2 and K10
+    at 64, K3's 768 design; 4 launches each) against f32 on the CPU, padded
+    batch: each leaf group's gradient cosine >= 0.999 (chip_smoke.py's bar).
+    The control, K10 with its dQ zeroed, drops the q group's cosine to 0
+    (a zero gradient: the cosine's eps makes it 0, not nan)."""
+    card, card_params, batch, cosines, grads = _wide_step_parity(768, 12)
     real = cosines(grads)
     assert min(real.values()) >= 0.999, real
     k10 = fa.flash_attention_bwd
@@ -1274,6 +1306,16 @@ def test_bge_base_width_step_on_cuda_matches_the_cpu_and_sees_a_wrong_k10(gen):
     finally:
         fa.flash_attention_bwd = k10
     assert cosines(bad)["q"] < 0.999
+
+
+def test_bge_large_width_step_on_cuda_matches_the_cpu(gen):
+    """One contrastive step at the bge-large width (2 layers, hidden 1,024,
+    16 heads of 64, FFN 4,096) in bf16 on the card, K3's 1,024 design in
+    every forward (4 launches, with K2 and K10), against f32 on the CPU on
+    a padded batch: each leaf group's gradient cosine >= 0.999."""
+    cosines, grads = _wide_step_parity(1024, 16)[3:]
+    cos = cosines(grads)
+    assert min(cos.values()) >= 0.999, cos
 
 
 # ----------------------------------------------- tensor parallel (K11, gloo)

@@ -177,13 +177,14 @@ def test_sharded_and_data_parallel_configurations_are_served_on_cuda(field, valu
 
 @pytest.mark.parametrize("hidden,heads,inter,refused", [
     (768, 12, 3072, None),                 # bge-base: K7 takes D 768
-    (1024, 16, 4096, "K3"),                # bge-large: head_dim 64, no K3 at 1,024
-    (1024, 8, 4096, "K2"),                 # heads of 128
+    (1024, 16, 4096, None),                # bge-large: K3 at 1,024, K7 takes D 1,024
+    (2048, 32, 8192, "K3"),                # head_dim 64, no K3 at 2,048, D above 1,024
+    (2048, 16, 8192, "K2"),                # heads of 128
 ])
 def test_sharded_configurations_keep_refusing_the_widths(tmp_path, hidden, heads, inter,
                                                          refused):
     """INDEX_SHARDS and ENCODE_DP leave the width check as it was: the
-    sharded flat index sweeps through K7 (D <= 768), and the encoders still
+    sharded flat index sweeps through K7 (D <= 1,024), and the encoders still
     run K2 and K3 on every replica."""
     d = tmp_path / "enc"
     d.mkdir()
@@ -200,7 +201,7 @@ def test_sharded_configurations_keep_refusing_the_widths(tmp_path, hidden, heads
         return
     with pytest.raises(NotImplementedError, match=rf"baai: .*{refused}") as err:
         check_supported(cfg, torch.device("cuda"))
-    assert "flat sweeps (K7) take D <= 768" in str(err.value)
+    assert "flat sweeps (K7) take D <= 1024" in str(err.value)
 
 
 def test_local_llm_configuration_is_served_on_cuda():
@@ -305,8 +306,8 @@ def wide_checkpoint(tmp_path_factory):
 def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tmp_path,
                                                               monkeypatch):
     """On CUDA the bge-base width (768 = 12 heads of 64, FFN 3,072, D 768)
-    passes the kernels' width check, and Runtime.build refuses a
-    bge-large-like encoder with heads of 128 (hidden 1,024) before it loads
+    passes the kernels' width check, and Runtime.build refuses an encoder
+    wider than bge-large with heads of 128 (hidden 2,048) before it loads
     a weight or creates the data dir, naming K2's, K3's and the flat
     sweeps' limits; the CPU serves the 768-wide checkpoint."""
     import financial_rag_tpu_torch.runtime as runtime_mod
@@ -319,8 +320,8 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     large = tmp_path / "large"
     large.mkdir()
     (large / "config.json").write_text(json.dumps({
-        "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 8,
-        "intermediate_size": 4096, "vocab_size": 30522, "max_position_embeddings": 512}))
+        "hidden_size": 2048, "num_hidden_layers": 24, "num_attention_heads": 16,
+        "intermediate_size": 8192, "vocab_size": 30522, "max_position_embeddings": 512}))
     wide_cfg = FrameworkConfig()
     wide_cfg.encoders.baai_path = str(large)
     wide_cfg.encoders.gte_path = wide_cfg.rerank.model_path = None
@@ -330,7 +331,7 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     msg = str(err.value)
     assert "baai: head_dim 128, but flash_attention (K2) takes head_dim 32 or 64" in msg
     assert "fused_ffn (K3) takes hidden 384 (intermediate a multiple of 32) or 768" in msg
-    assert "flat sweeps (K4-K7) take D <= 768" in msg
+    assert "flat sweeps (K4-K7) take D <= 1024" in msg
     assert not (tmp_path / "cuda").exists()
     monkeypatch.undo()
 
@@ -347,7 +348,9 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     (384, 12, 1000, "flat", "multiple of 32"),       # K3's intermediate chunks at 384
     (768, 12, 3000, "flat", "multiple of 64"),       # and at 768
     (768, 12, 3040, "flat", "multiple of 64"),       # a multiple of 16, not of 64
-    (1024, 16, 4096, "flat", "K3"),                  # bge-large: head_dim 64, hidden 1,024
+    (1024, 16, 4096, "flat", None),                  # bge-large / gte-large: head_dim 64
+    (512, 16, 2048, "flat", "K3"),                   # hidden 512: no K3 design
+    (2048, 32, 8192, "ivf", "K3"),                   # nor at 2,048
     (1024, 8, 4096, "ivf", "K2"),                    # head_dim 128
 ])
 def test_check_supported_reads_the_checkpoint_widths(tmp_path, hidden, heads, inter, kind,

@@ -337,28 +337,32 @@ def test_k3_wide_grid_fits_one_wave_or_is_one_block_a_tile(n, i_dim):
 
 @pytest.mark.parametrize("bq,d,qtile,stages", [
     (8, 384, 64, 6), (128, 384, 128, 5), (8, 768, 64, 2), (128, 768, 64, 2),
-    (192, 768, 64, 2), (384, 768, 64, 2)])
+    (192, 768, 64, 2), (384, 768, 64, 2), (8, 1024, 64, 3), (128, 1024, 64, 3),
+    (192, 1024, 64, 3)])
 def test_k4_sweep_plan_fits_shared_memory(bq, d, qtile, stages):
     """K4's query tile and ring: at D = 768 one warpgroup of 64 queries and
     2 stages of 48 KB (two warpgroups' 192 KB of queries would leave no
     stage), so Bq = 128, 192 and 384 take 2, 3 and 6 query tiles over the
-    corpus; every block in 227 KB."""
+    corpus; at D = 1,024 one warpgroup (128 KB) and 3 stages of 16 rows (32
+    KB); every block in 227 KB."""
     bqp, _, _, _, groups = topk.packed_sweep_grid(bq, 102400, H100_SMS, d=d)
     assert topk.query_tile(bqp, 2 * topk.padded_width(d)) == qtile
     got, smem = topk.packed_sweep_smem(d, qtile)
     assert got == stages and smem <= topk.SMEM_BLOCK_LIMIT
-    base = (1024 // topk.PACKED_COLUMNS) * -(-bqp // qtile)
+    base = (1024 // topk.packed_columns(d)) * -(-bqp // qtile)
     assert base * groups <= H100_SMS or groups == 1
 
 
 @pytest.mark.parametrize("d,elem,bq,qtile,stages", [
     (384, 1, 128, 128, 12), (384, 2, 128, 128, 5), (384, 2, 8, 64, 7),
-    (768, 1, 128, 128, 5), (768, 1, 1, 64, 7), (768, 2, 128, 64, 2), (768, 2, 1, 64, 2)])
+    (768, 1, 128, 128, 5), (768, 1, 1, 64, 7), (768, 2, 128, 64, 2), (768, 2, 1, 64, 2),
+    (1024, 1, 128, 64, 5), (1024, 1, 1, 64, 5), (1024, 2, 128, 64, 3), (1024, 2, 1, 64, 3)])
 def test_k5_sweep_plan_fits_shared_memory(d, elem, bq, qtile, stages):
     """K5's and K7's query tile and ring: an int8 row of 768 is 768 bytes,
     a bf16 row of 384 is too, so the int8 sweep at 768 keeps two query
     warpgroups and a 5-stage ring; a bf16 row of 768 leaves room for one
-    warpgroup and 2 stages. The plan the wrapper passes agrees."""
+    warpgroup and 2 stages; at 1,024 one warpgroup, 5 stages of 32 rows in
+    int8 and 3 of 16 rows in bf16. The plan the wrapper passes agrees."""
     row_bytes = topk.padded_width(d) * elem
     bqp, _, _ = topk.bucketed_sweep_grid(bq, 102400, 4096, H100_SMS, row_bytes)
     assert topk.query_tile(bqp, row_bytes) == qtile
@@ -380,7 +384,7 @@ def test_int8_sweep_sums_stay_exact_at_d768():
 
 def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
     """On non-CPU tensors the wrappers check widths before the device: K2
-    and K10 head_dim 128, K3 hidden 1,024, K4 D 1,024; no launch is
+    and K10 head_dim 128, K3 hidden 2,048, K4 D 1,040; no launch is
     counted and nothing falls back to a plain version."""
     meta = dict(device="meta", dtype=torch.bfloat16)
     before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, topk.LAUNCHES["packed_topk_fused"])
@@ -391,12 +395,12 @@ def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
     x = torch.empty(2, 65, 768, **meta)
     with pytest.raises(ValueError, match=r"\(K10\) takes head_dim 32 or 64, got H=768 over 6"):
         fa.flash_attention_bwd(x, x, x, torch.zeros(2, 65, device="meta"), x, num_heads=6)
-    x = torch.empty(8, 1024, **meta)
-    w1, w2 = torch.empty(1024, 4096, **meta), torch.empty(4096, 1024, **meta)
+    x = torch.empty(8, 2048, **meta)
+    w1, w2 = torch.empty(2048, 8192, **meta), torch.empty(8192, 2048, **meta)
     with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
-        ffn.fused_ffn(x, w1, torch.empty(4096, **meta), w2, torch.empty(1024, **meta))
-    q, c = torch.empty(2, 1024, **meta), torch.empty(1024, 1024, **meta)
-    with pytest.raises(ValueError, match="at most 768"):
+        ffn.fused_ffn(x, w1, torch.empty(8192, **meta), w2, torch.empty(2048, **meta))
+    q, c = torch.empty(2, 1040, **meta), torch.empty(1024, 1040, **meta)
+    with pytest.raises(ValueError, match="at most 1024"):
         topk.packed_topk_fused(q, c, torch.ones(1024, device="meta"), 24)
     assert (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES,
             topk.LAUNCHES["packed_topk_fused"]) == before
