@@ -561,7 +561,7 @@ def phase_device(torch):
 WGMMA_SOURCES = ("flash_attention.cu", "fused_ffn.cu", "flash_attention_bwd.cu", "causal_flash.cu",
                  "packed_topk.cu", "bucketed_topk.cu", "topk_exact.cu")
 WGMMA_KERNELS = ("bf16", "attn_bwd", "attn_fwd_kernel", "attn_fwd_d64_kernel", "ffn_fwd_kernel",
-                 "ffn_wide_kernel",
+                 "ffn_wide_kernel", "ffn_large_kernel",
                  "packed_sweep_bf16", "wgmma_sweep")
 
 
@@ -939,8 +939,8 @@ def large_cases(torch, F, gen, randn, padded_mask):
     S=512; K2 at 16 heads (B=256 S=512, the ingest's 68 x 512, B=8 S=64
     with a fully masked row); K3's third design at N=131,072 (with two
     controls that must miss its 3e-2: W2's second half of columns replaced
-    by its first, as if the second pass read the first pass's slabs, and
-    W1's last 64-column chunk lost), the large ingest's 68 x 512 and N=512;
+    by its first, and W1's last 64 columns lost), the large ingest's 68 x
+    512, N=512 (a query), 999 and 1 (ragged tiles, split second product);
     K4 at Bq=128, 8 and 1 over N=102,400, the load phase's wave (Bq=192
     over 4,096) and exact-grid data with ties; K5 and K7 (LARGE_SWEEP_PLAN)
     with exact-grid cases; K4, K5 and K7 on exact-grid data at Bq=128, 8
@@ -977,7 +977,7 @@ def large_cases(torch, F, gen, randn, padded_mask):
     w2_first_half = torch.cat([w2[:, :H // 2], w2[:, :H // 2]], dim=1).contiguous()
     w1_chunk_lost = w1.clone()
     w1_chunk_lost[:, -64:] = 0
-    for b, s in ((256, 512), (68, 512), (8, 64)):
+    for b, s in ((256, 512), (68, 512), (8, 64), (1, 999), (1, 1)):
         x = randn(b, s, H, dtype=bf16)
         n = b * s
         controls = ()
@@ -3420,7 +3420,7 @@ def phase_backends(torch, rt, cfg, work: Path):
 
 
 def _kernel_family(name: str) -> str:
-    for family, needles in (("port kernels", ("attn_fwd_kernel", "attn_bwd_", "ffn_fwd_kernel",
+    for family, needles in (("port kernels", ("attn_fwd_kernel", "attn_bwd_", "ffn_",
                                               "packed_sweep_", "packed_merge_kernel",
                                               "pool_norm_kernel", "bucketed_sweep_kernel",
                                               "bucketed_extract_kernel", "bucketed_write_kernel",
@@ -3460,7 +3460,9 @@ def device_profile(prof, wall_ms: float, spans=()) -> dict:
     for n, (ms, c) in by_name.items():
         if _kernel_family(n) == "port kernels":
             bare = n.replace("(anonymous namespace)::", "").removeprefix("void ")
-            port[bare.split("(")[0].split("<")[0]] = {"ms": ms, "calls": c}
+            entry = port.setdefault(bare.split("(")[0].split("<")[0], {"ms": 0.0, "calls": 0})
+            entry["ms"] += ms   # a template's instantiations together
+            entry["calls"] += c
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ms_by_family": families,
             "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, (ms, c) in top],
@@ -3489,7 +3491,10 @@ def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GO
     prof, (questions, wall_ms) = profiled(torch, run, with_cpu=True)
     spans = GLOBAL_TIMER.summary()
     summary = device_profile(prof, wall_ms, spans)
+    # K3's kernels (each design's, and the split reduce) against the busy time
+    k3_ms = sum(v["ms"] for k, v in summary["port_kernel_ms"].items() if k.startswith("ffn_"))
     emit({"phase": "profile", "runtime": label, "queries": len(questions), **summary,
+          "k3_device_ms": k3_ms, "k3_share_of_busy": k3_ms / summary["device_busy_ms"],
           "host_span_ms": {k: v["total_s"] * 1e3 for k, v in list(spans.items())[:14]}})
     return summary["port_kernel_ms"]
 

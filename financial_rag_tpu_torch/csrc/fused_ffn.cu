@@ -2,8 +2,9 @@
 //
 // Replaces financial_rag_tpu/ops/fused_ffn.py:fused_ffn (the Pallas kernel
 // _ffn_kernel via _ffn_forward) on [N,H] bf16 tokens with W1 [H,I], W2 [I,H]
-// (H = 384, I = 1536 for bge/gte/MiniLM). The [N,I] intermediate never reaches
-// device memory: that is the point of the kernel. GELU is the exact erf form
+// (H = 384, I = 1536 for bge/gte/MiniLM). At hidden 384 and 768 the [N,I]
+// intermediate never reaches device memory, as on the TPU; at 1,024 it does
+// (the last section says why). GELU is the exact erf form
 // used by the checkpoints and by the JAX package's own XLA path; the TPU
 // kernel's tanh form existed only because Mosaic has no erf. The intermediate
 // is cast to x's dtype before the second product, as on the TPU.
@@ -108,35 +109,62 @@
 // 3.73-3.81 against 3.84-3.96); mbar_wait reading the timer only after a
 // failed try: 3.83-3.85 against 3.69-4.07.
 //
-// At hidden 1,024 (bge-large / gte-large, I = 4,096) the 768 design cannot
-// be widened: half of y's columns would be 64 x 512 f32, 256 accumulator
-// registers a thread (ptxas allows 255, before h and any address), and the
-// x tile alone is 64 x 1,024 bf16 = 128 KB of the 227 KB. ffn_wide_kernel<
-// 1024> keeps the 768 design's block (64 tokens, two warpgroups, 64-wide
-// I chunks, two 8 KB h tiles, the ring and the I-axis split) and walks the
-// I axis twice: pass p accumulates y's columns 512p .. 512p + 511, 256 a
-// warpgroup (128 registers a thread), and recomputes h, so the block does
-// 1.5x the function's flops. x is loaded once for both passes. A ring
-// slab is 16 KB (128 rows of W1's 64-column chunk, or 16 rows of W2's 512
-// columns of the pass), 5 stages: 128 + 16 + 80 + 1 KB = 225 KB. The ring
-// runs on from one pass into the next; a barrier of the two warpgroups at
-// the start of the second pass keeps its h stores behind the first pass's
-// last reads. Still no [N, I] intermediate: the only scratch is the f32
-// partials of y when the I axis is split.
+// At hidden 1,024 (bge-large / gte-large, I = 4,096) a design that keeps h
+// on chip does not fit the block: half of y's columns over 64 tokens would
+// be 256 f32 registers a thread (ptxas grants 168 above 256 threads, 255
+// below, before h and any address), and the 64-token x tile alone is 128 KB
+// of the 227 KB. The first design at 1,024 (the 768 block walking the I
+// axis twice, 512 y columns a pass, h recomputed: 1.5x the flops) ran at
+// its ring's ~0.61 us a 16 KB slab an SM: 14.6-14.9 ms at N = 131,072
+// against a 2.22 ms bound (kernel_ab.py device ms, NVIDIA H100 80GB HBM3,
+// 700.00 W). So at 1,024 h goes through device memory. The TPU kernel keeps
+// it out because there the [N, I] round trip was ~40% of a layer
+// (financial_rag_tpu/ops/fused_ffn.py:3-8); on the H100 writing and reading
+// h is 2 x I x 2 = 16 KB a token against 4 x H x I = 16.8 MFLOP, ~1,000 flop
+// a byte, 3.5x the bf16 ridge (~295): 2.15 GB at N = 131,072 is 0.64 ms at
+// 3.35 TB/s beside the 2.22 ms of the products, and it streams under them.
+// The rounding points stay the TPU kernel's: h = bf16(gelu(x W1 + b1)) with
+// the f32 bias and GELU, y = bf16(h W2 + b2).
 //
-// What bounds it on the H100 (kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W):
-// the ring's cost per slab, as at 768. 14.63 ms at N = 131,072 against a
-// 2.22 ms bound (3.34 ms for the 1.5x flops): 2,048 blocks of 1,536 slabs
-// on 132 SMs land one slab per ~0.61 us on each SM, about the 768
-// design's rate for its 24 KB slabs. 24 KB slabs do not divide W1's 1,024
-// rows into whole k16 steps, and 32 KB ones leave 2 stages beside the x
-// tile (2 stages ran 1.8x slower than 4 at 768).
+// Design (ffn_large_kernel below, launched twice and, at a query's sizes,
+// with ffn_reduce_kernel<1024>): a GEMM with its epilogue fused, on tiles
+// of 128 tokens by 256 output columns (128 where 256-column tiles would
+// leave SMs idle), K walked 64 deep. 384 threads: two consumer warpgroups
+// of 64 rows, each holding 64 x 256 f32 (128 accumulator registers a
+// thread, under the 168 cap; the producer designs tried at 768 and in K9
+// spilled with 192-256), and a producer warpgroup whose thread 256 issues
+// the TMA copies into a ring of 4 stages of 48 KB (6 of 32 KB). A
+// persistent grid of one block an SM walks the units, columns fastest, so
+// the blocks at work share A rows and all of B in L2. The epilogue adds
+// the bias (and GELU) in registers, stages 128 columns at a time as bf16
+// in shared memory and writes them by TMA store, which runs on under the
+// next unit's products; the second product, split along K at a query's few
+// tiles, writes f32 partials instead, summed in split order.
 //
-// Considered and not built: a cluster of 2 blocks that each own 512 of y's
-// columns and compute half of each h chunk, exchanged through distributed
-// shared memory (1.0x the flops; x 128 KB and two h tiles a block leave
-// about 80 KB for a ring of 24 KB slabs). It waits on a remote h tile
-// every chunk, and the 768 design's clusters measured slower than none.
+// What bounds it (kernel_ab.py device ms, NVIDIA H100 80GB HBM3, 700.00 W,
+// I = 4,096): at N = 131,072 the two products take 2.21 and 1.47-1.49 ms
+// (3.69-3.70 in all, 1.66x the 2.22 bound, 0.92x the three calls' cuBLAS,
+// GELU, cuBLAS 4.03; the first design 14.6-14.8). Their main loops alone
+// (a copy without epilogues) take 1.39-1.46 ms each, ~78% of the bf16
+// peak for their 1.11 ms of products. The rest is the first product's
+// epilogue, ~0.9 ms, which the tensor cores wait for: at K = 1,024 each of
+// its outputs carries 2,048 flops (8,192 in the second), and its erf GELU
+// alone is ~0.65 ms (a copy without it: 1.73-1.76 against 2.38-2.41). At
+// N = 34,816 (a bge-large ingest batch) 0.91-0.97 ms against 1.03, at
+// N = 512 (a query) 0.0272 against 0.0239 (the first design 0.0804).
+//
+// Tried and dropped (kernel_ab.py device ms at N = 131,072 / 34,816 / 512,
+// the same card): the epilogue stored straight from the registers (4-byte
+// stores, no staging tile): 4.36 / 1.15 against the three calls' 4.04 /
+// 1.005 in its own call; 2-CTA clusters on two row tiles of one column
+// tile, each CTA loading half of every B tile by TMA multicast (half the
+// L2 reads of B): 3.77-4.10 / 0.97-1.03 / 0.0306-0.0313 against
+// 3.83-3.88 / 1.00-1.01 / 0.0271-0.0277 without; tiles of 128 x 128 with
+// the warpgroups on alternate tiles taking turns to multiply (one's
+// epilogue under the other's products): 4.16-4.36 / 0.98-1.08 / 0.0294
+// against 3.80-3.86 / 1.04-1.09 / 0.0273, since one warpgroup's GELU
+// epilogue outlasts the other's 128 x 128 main loop and the second
+// product's smaller tiles ran slower (1.83-1.95 against 1.51-1.53).
 #include "hopper.cuh"
 
 namespace {
@@ -304,12 +332,9 @@ ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUte
   }
 }
 
-// hidden 768 and 1,024: 64 tokens a block; per I chunk each warpgroup
-// computes half of h's columns, both halves meet in shared memory, and each
-// warpgroup adds h W2 to its half of the pass's y columns. At 768 one pass
-// covers all of y; at 1,024 two passes of 512 columns each walk the whole
-// I axis (h computed again in the second), since 512 columns a warpgroup
-// would take 256 accumulator registers a thread.
+// hidden 768: 64 tokens a block; per I chunk each warpgroup computes half
+// of h's columns, both halves meet in shared memory, and each warpgroup
+// adds h W2 to its half of y's columns.
 constexpr int kWH = 768;
 constexpr int kWRows = 64;                        // tokens per block
 constexpr int kWHalf = kWH / kConsumers;          // y columns a warpgroup owns
@@ -326,84 +351,45 @@ constexpr int kWW2Slabs = kWChunk / kWW2Rows;     // W2 slabs a chunk
 constexpr int kWSlabs = kWW1Slabs + kWW2Slabs;    // slabs a chunk
 constexpr int kWStages = 4;
 constexpr int kWSmemBytes = kWXBytes + 2 * kWHBytes + kWStages * kWSlabBytes + 1024;  // + alignment
-// hidden 1,024: the same 64 tokens, chunks and h tiles, y in two passes
-constexpr int kLH = 1024;
-constexpr int kLPasses = 2;
-constexpr int kLPassCols = kLH / kLPasses;        // y columns a pass: 512
-constexpr int kLHalf = kLPassCols / kConsumers;   // of them a warpgroup owns: 256 (128 registers)
-constexpr int kLXBytes = kWRows * kLH * 2;        // x rows: 16 regions, 128 KB
-constexpr int kLSlabBytes = kLPassCols * 16 * 2;  // one ring stage: 16 KB
-constexpr int kLW1Rows = kLSlabBytes / (kWChunk * 2);  // W1 rows a W1 slab holds: 128
-constexpr int kLW1Slabs = kLH / kLW1Rows;         // W1 slabs a chunk and pass: 8
-constexpr int kLSlabs = kLW1Slabs + kWW2Slabs;    // slabs a chunk and pass: 12
-constexpr int kLStages = 5;
-constexpr int kLSmemBytes = kLXBytes + 2 * kWHBytes + kLStages * kLSlabBytes + 1024;  // + alignment
 
-template <int H>
-struct Wide {
-  static_assert(H == kWH || H == kLH, "the wide designs take hidden 768 or 1,024");
-  static constexpr bool kLarge = H == kLH;
-  static constexpr int kPasses = kLarge ? kLPasses : 1;
-  static constexpr int kPassCols = H / kPasses;         // y columns a pass: 768 or 512
-  static constexpr int kHalf = kPassCols / kConsumers;  // of them a warpgroup owns: 384 or 256
-  static constexpr int kNB = kHalf / 128;               // its n128 accumulators: 3 or 2
-  static constexpr int kRows = kWRows, kChunk = kWChunk, kHCols = kWHCols, kHBytes = kWHBytes;
-  static constexpr int kXBytes = kLarge ? kLXBytes : kWXBytes;
-  static constexpr int kSlabBytes = kLarge ? kLSlabBytes : kWSlabBytes;
-  static constexpr int kW1Rows = kLarge ? kLW1Rows : kWW1Rows;
-  static constexpr int kW1Slabs = kLarge ? kLW1Slabs : kWW1Slabs;
-  static constexpr int kW2Rows = kWW2Rows, kW2Region = kWW2Region, kW2Slabs = kWW2Slabs;
-  static constexpr int kSlabs = kLarge ? kLSlabs : kWSlabs;
-  static constexpr int kStages = kLarge ? kLStages : kWStages;
-  static constexpr int kSmemBytes = kLarge ? kLSmemBytes : kWSmemBytes;
-  static_assert(kSlabBytes == kPassCols * kW2Rows * 2 && kSlabBytes == kW1Rows * kChunk * 2 &&
-                H % kW1Rows == 0, "a slab is whole k16 steps of W1's chunk or of W2's pass");
-};
+static_assert(kWSlabBytes == kWH * kWW2Rows * 2 && kWSlabBytes == kWW1Rows * kWChunk * 2 &&
+                  kWH % kWW1Rows == 0, "a slab is whole k16 steps of W1's chunk or of W2's");
+constexpr int kWNB = kWHalf / 128;                // a warpgroup's n128 accumulators of y: 3
 
-// The ring's slab s of a block that walks T chunks a pass: W1 slab j of
-// chunk t (rows kW1Rows*j ..), or W2 slab j of chunk t (rows kW2Rows*j
-// ..) in pass `pass`. A pass's order is the order of its products: W1 of
-// chunk 0, then per chunk t > 0 W1 of t and W2 of t - 1, then W2 of the
-// last chunk (kSlabs * T slabs); the passes follow each other.
-template <int H>
-__device__ __forceinline__ void wide_slab(int s, int T, int& pass, bool& w2, int& t, int& j) {
-  using W = Wide<H>;
-  pass = 0;
-  if constexpr (W::kPasses > 1) {
-    pass = s / (W::kSlabs * T);
-    s -= pass * W::kSlabs * T;
-  }
-  if (s < W::kW1Slabs) {
+// The ring's slab s of a block that walks T chunks: W1 slab j of chunk t
+// (rows kWW1Rows*j ..), or W2 slab j of chunk t (rows kWW2Rows*j ..), in
+// the order of the products: W1 of chunk 0, then per chunk t > 0 W1 of t
+// and W2 of t - 1, then W2 of the last chunk (kWSlabs * T slabs).
+__device__ __forceinline__ void wide_slab(int s, int T, bool& w2, int& t, int& j) {
+  if (s < kWW1Slabs) {
     w2 = false, t = 0, j = s;
     return;
   }
-  const int r = s - W::kW1Slabs, it = r / W::kSlabs + 1, q = r % W::kSlabs;
-  if (it < T && q < W::kW1Slabs)
+  const int r = s - kWW1Slabs, it = r / kWSlabs + 1, q = r % kWSlabs;
+  if (it < T && q < kWW1Slabs)
     w2 = false, t = it, j = q;
   else
-    w2 = true, t = it - 1, j = it < T ? q - W::kW1Slabs : q;
+    w2 = true, t = it - 1, j = it < T ? q - kWW1Slabs : q;
 }
 
-template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap tm_w1,
                 const __nv_bfloat16* __restrict__ b1, const __grid_constant__ CUtensorMap tm_w2,
                 const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y,
                 float* __restrict__ partial, int N, int I, int splits) {
-  using W = Wide<H>;
-  constexpr int kStages = W::kStages, kSlabBytes = W::kSlabBytes, kNB = W::kNB;
+  constexpr int H = kWH, kStages = kWStages, kSlabBytes = kWSlabBytes, kNB = kWNB;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t sX = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sH = sX + W::kXBytes;         // h tiles of even and odd chunks
-  const uint32_t sRing = sH + 2 * W::kHBytes;
+  const uint32_t sH = sX + kWXBytes;           // h tiles of even and odd chunks
+  const uint32_t sRing = sH + 2 * kWHBytes;
 
   const int span = I / splits;  // this block's range of the I axis
-  const int c_begin = blockIdx.y * span, T = span / W::kChunk;
-  const int total = W::kPasses * W::kSlabs * T;
-  const int m0 = blockIdx.x * W::kRows;
+  const int c_begin = blockIdx.y * span, T = span / kWChunk;
+  const int total = kWSlabs * T;
+  const int m0 = blockIdx.x * kWRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wg = warp >> 2;     // warpgroup: h columns kHCols*wg .., y columns kHalf*wg .. of a pass
+  const int wg = warp >> 2;     // warpgroup: h columns kWHCols*wg .., y columns kWHalf*wg ..
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
@@ -415,19 +401,19 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   __syncthreads();
 
   // slab s into stage s % kStages by TMA, one copy each: a W1 slab's
-  // kW1Rows rows of the chunk's 64 columns, a W2 slab's 16 rows as the
-  // pass's kPassCols / 64 blocks of 64 columns
+  // kWW1Rows rows of the chunk's 64 columns, a W2 slab's 16 rows as y's
+  // 12 blocks of 64 columns
   auto fill = [&](int s) {
-    int pass, t, j;
+    int t, j;
     bool w2;
-    wide_slab<H>(s, T, pass, w2, t, j);
-    const int st = s % kStages, c0 = c_begin + t * W::kChunk;
+    wide_slab(s, T, w2, t, j);
+    const int st = s % kStages, c0 = c_begin + t * kWChunk;
     const uint32_t dst = sRing + st * kSlabBytes;
     mbar_expect_tx(&full[st], kSlabBytes);
     if (w2)
-      tma_load_3d(dst, &tm_w2, 0, c0 + W::kW2Rows * j, pass * (W::kPassCols / 64), &full[st]);
+      tma_load_3d(dst, &tm_w2, 0, c0 + kWW2Rows * j, 0, &full[st]);
     else
-      tma_load_2d(dst, &tm_w1, c0, W::kW1Rows * j, &full[st]);
+      tma_load_2d(dst, &tm_w1, c0, kWW1Rows * j, &full[st]);
   };
   if (lane == 0) {
     prefetch_tensor_map(&tm_w1);
@@ -435,9 +421,8 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   }
   if (threadIdx.x == 0)
     for (int s = 0; s < kStages && s < total; ++s) fill(s);
-  // the block's 64 token rows, zeros past N, by all 256 threads, once for
-  // every pass
-  for (int e = threadIdx.x; e < W::kRows * (H / 8); e += kThreads) {
+  // the block's 64 token rows, zeros past N, by all 256 threads
+  for (int e = threadIdx.x; e < kWRows * (H / 8); e += kThreads) {
     const int r = e / (H / 8), ch = e % (H / 8), row = m0 + r;
     const bool ok = row < N;
     cp_async16(sX + sw128_chunk(r, ch), x + (size_t)(ok ? row : 0) * H + 8 * ch, ok);
@@ -474,105 +459,101 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   const int gid = lane >> 2, tig = lane & 3;
   const uint64_t x_desc = make_desc(sX, 16, 1024, kSw128);
   int s = 0;         // the next slab
-  for (int pass = 0; pass < W::kPasses; ++pass) {
-    // the other warpgroup's products of the last pass no longer read the h tiles
-    if (pass > 0) named_barrier(1, kThreads);
-    float acc[kNB][64];  // y columns kPassCols*pass + kHalf*wg + 128*nb .. +127
+  float acc[kNB][64];  // y columns kWHalf*wg + 128*nb .. +127
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) zero(acc[nb]);
-    // the zeros here, not sunk into the first second product's issue (ptxas
-    // then serialises the wgmmas, C7515)
+  for (int nb = 0; nb < kNB; ++nb) zero(acc[nb]);
+  // the zeros here, not sunk into the first second product's issue (ptxas
+  // then serialises the wgmmas, C7515)
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) fence_acc(acc[nb]);
-    float h[16];       // h columns kHCols*wg .. of the chunk
-    for (int t = 0; t <= T; ++t) {
-      if (t < T) {
-        // h = x @ W1[:, this warpgroup's 32 columns of chunk t], slab by slab:
-        // W1 [k][n] in 128-byte rows read MN-major, this half 64 bytes in
+  for (int nb = 0; nb < kNB; ++nb) fence_acc(acc[nb]);
+  float h[16];       // h columns kWHCols*wg .. of the chunk
+  for (int t = 0; t <= T; ++t) {
+    if (t < T) {
+      // h = x @ W1[:, this warpgroup's 32 columns of chunk t], slab by slab:
+      // W1 [k][n] in 128-byte rows read MN-major, this half 64 bytes in
 #pragma unroll
-        for (int j = 0; j < W::kW1Slabs; ++j, ++s) {
-          begin_slab(s);
-          const uint64_t w1_desc =
-              make_desc(sRing + (s % kStages) * kSlabBytes + wg * W::kHCols * 2, 8192, 1024, kSw128);
+      for (int j = 0; j < kWW1Slabs; ++j, ++s) {
+        begin_slab(s);
+        const uint64_t w1_desc =
+            make_desc(sRing + (s % kStages) * kSlabBytes + wg * kWHCols * 2, 8192, 1024, kSw128);
 #pragma unroll
-          for (int kk = 0; kk < W::kW1Rows / 16; ++kk) {
-            const int k = j * (W::kW1Rows / 16) + kk;
-            wgmma_ss_n32_tb(h, desc_add(x_desc, (k >> 2) * kXRegion + (k & 3) * 32),
-                            desc_add(w1_desc, 16 * 128 * kk), j > 0 || kk > 0);
-          }
-          end_slab(s);
+        for (int kk = 0; kk < kWW1Rows / 16; ++kk) {
+          const int k = j * (kWW1Rows / 16) + kk;
+          wgmma_ss_n32_tb(h, desc_add(x_desc, (k >> 2) * kXRegion + (k & 3) * 32),
+                          desc_add(w1_desc, 16 * 128 * kk), j > 0 || kk > 0);
         }
-      }
-      if (t > 0) {
-        // y[:, this pass's half] += h(t-1) @ W2[chunk t-1, this half], once
-        // both warpgroups stored their halves of h(t-1)
-        named_barrier(1, kThreads);
-        const uint64_t h_desc = make_desc(sH + ((t - 1) & 1) * W::kHBytes, 16, 1024, kSw128);
-#pragma unroll
-        for (int j = 0; j < W::kW2Slabs; ++j, ++s) {
-          begin_slab(s);
-          const uint64_t w2_desc = make_desc(
-              sRing + (s % kStages) * kSlabBytes + wg * (W::kHalf / 64) * W::kW2Region,
-              W::kW2Region, 1024, kSw128);
-#pragma unroll
-          for (int nb = 0; nb < kNB; ++nb)
-            wgmma_ss_n128_tb(acc[nb], desc_add(h_desc, 32 * j),
-                             desc_add(w2_desc, nb * 2 * W::kW2Region));
-          end_slab(s);
-        }
-      } else {
-        wgmma_wait<0>();
-      }
-      if (t < T) {
-        // chunk t's first product has ended (the waits before the second
-        // product's slabs, or the one above at t = 0): + b1, erf GELU, bf16,
-        // into h tile t % 2 while the last slab of the second product runs.
-        // b1 at this thread's 8 columns, 8*(q/2) + 2*tig + q%2: h[i] is
-        // column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
-        const int c0 = c_begin + t * W::kChunk + W::kHCols * wg;
-        __nv_bfloat16 bb[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
-        fence_acc(h);
-        const uint32_t ht = sH + (t & 1) * W::kHBytes;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int i = 4 * jj + 2 * hf, row = 16 * (warp & 3) + gid + 8 * hf;
-            const float v0 = gelu_erf(h[i] + __bfloat162float(bb[2 * jj]));
-            const float v1 = gelu_erf(h[i + 1] + __bfloat162float(bb[2 * jj + 1]));
-            st_shared_u32(ht + swz<3>(row * 128 + (W::kHCols / 8 * wg + jj) * 16) + 4 * tig,
-                          pack_bf16(v0, v1));
-          }
-        fence_proxy_async();   // the stores, before the second product reads them
+        end_slab(s);
       }
     }
-    wgmma_wait<0>();
+    if (t > 0) {
+      // y[:, this half] += h(t-1) @ W2[chunk t-1, this half], once both
+      // warpgroups stored their halves of h(t-1)
+      named_barrier(1, kThreads);
+      const uint64_t h_desc = make_desc(sH + ((t - 1) & 1) * kWHBytes, 16, 1024, kSw128);
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) fence_acc(acc[nb]);
+      for (int j = 0; j < kWW2Slabs; ++j, ++s) {
+        begin_slab(s);
+        const uint64_t w2_desc = make_desc(
+            sRing + (s % kStages) * kSlabBytes + wg * (kWHalf / 64) * kWW2Region,
+            kWW2Region, 1024, kSw128);
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+          wgmma_ss_n128_tb(acc[nb], desc_add(h_desc, 32 * j),
+                           desc_add(w2_desc, nb * 2 * kWW2Region));
+        end_slab(s);
+      }
+    } else {
+      wgmma_wait<0>();
+    }
+    if (t < T) {
+      // chunk t's first product has ended (the waits before the second
+      // product's slabs, or the one above at t = 0): + b1, erf GELU, bf16,
+      // into h tile t % 2 while the last slab of the second product runs.
+      // b1 at this thread's 8 columns, 8*(q/2) + 2*tig + q%2: h[i] is
+      // column 8*(i/4) + 2*tig + i%2, so its bias is bb[2*(i/4) + i%2]
+      const int c0 = c_begin + t * kWChunk + kWHCols * wg;
+      __nv_bfloat16 bb[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) bb[q] = b1[c0 + 8 * (q >> 1) + 2 * tig + (q & 1)];
+      fence_acc(h);
+      const uint32_t ht = sH + (t & 1) * kWHBytes;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * jj + 2 * hf, row = 16 * (warp & 3) + gid + 8 * hf;
+          const float v0 = gelu_erf(h[i] + __bfloat162float(bb[2 * jj]));
+          const float v1 = gelu_erf(h[i + 1] + __bfloat162float(bb[2 * jj + 1]));
+          st_shared_u32(ht + swz<3>(row * 128 + (kWHCols / 8 * wg + jj) * 16) + 4 * tig,
+                        pack_bf16(v0, v1));
+        }
+      fence_proxy_async();   // the stores, before the second product reads them
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) fence_acc(acc[nb]);
 
-    // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column
-    // kPassCols*pass + kHalf*wg + 128*nb + 8*j + 2*tig + e%2
+  // acc[nb][4*j + e]: row 16*(warp%4) + gid + 8*(e/2), column
+  // kWHalf*wg + 128*nb + 8*j + 2*tig + e%2
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + 16 * (warp & 3) + gid + 8 * r;
-      if (row >= N) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + 16 * (warp & 3) + gid + 8 * r;
+    if (row >= N) continue;
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
+    for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = W::kPassCols * pass + W::kHalf * wg + 128 * nb + 8 * j + 2 * tig;
-          const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
-          if (splits == 1) {
-            *reinterpret_cast<uint32_t*>(y + (size_t)row * H + col) =
-                pack_bf16(v0 + __bfloat162float(b2[col]), v1 + __bfloat162float(b2[col + 1]));
-          } else {
-            *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * H + col) =
-                make_float2(v0, v1);
-          }
+      for (int j = 0; j < 16; ++j) {
+        const int col = kWHalf * wg + 128 * nb + 8 * j + 2 * tig;
+        const float v0 = acc[nb][4 * j + 2 * r], v1 = acc[nb][4 * j + 2 * r + 1];
+        if (splits == 1) {
+          *reinterpret_cast<uint32_t*>(y + (size_t)row * H + col) =
+              pack_bf16(v0 + __bfloat162float(b2[col]), v1 + __bfloat162float(b2[col + 1]));
+        } else {
+          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * N + row) * H + col) =
+              make_float2(v0, v1);
         }
-    }
+      }
   }
 }
 
@@ -595,28 +576,25 @@ ffn_reduce_kernel(const float* __restrict__ partial, const __nv_bfloat16* __rest
 template <int H>
 int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                void* y, float* partial, int N, int I, int splits, cudaStream_t st) {
-  constexpr bool wide = H != kH;
-  using W = Wide<wide ? H : 768>;
-  constexpr int chunk = wide ? W::kChunk : kChunk, tokens = wide ? W::kRows : kTokens;
-  constexpr int smem = wide ? W::kSmemBytes : kSmemBytes;
+  constexpr bool wide = H == kWH;
+  constexpr int chunk = wide ? kWChunk : kChunk, tokens = wide ? kWRows : kTokens;
+  constexpr int smem = wide ? kWSmemBytes : kSmemBytes;
   if (N < 1 || splits < 1 || I % splits || (I / splits) % chunk || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory a kernel must opt in, on each
   // device it runs on (the attribute is the current device's)
   const cudaError_t opt_in =
-      wide ? cudaFuncSetAttribute(ffn_wide_kernel<wide ? H : 768>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+      wide ? cudaFuncSetAttribute(ffn_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
            : cudaFuncSetAttribute(ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   // 384: W1 [H][I] in boxes of 192 x 32, W2 [I][H] in boxes of 32 x 64;
-  // 768 / 1,024: W1 in boxes of kW1Rows x 64 (a slab), W2 as [64-column
-  // block][I][64] in boxes of a pass's kPassCols / 64 blocks of 16 x 64 (a
-  // slab)
+  // 768: W1 in boxes of kWW1Rows x 64 (a slab), W2 as [64-column
+  // block][I][64] in boxes of all 12 blocks of 16 x 64 (a slab)
   CUtensorMap tm_w1, tm_w2;
   const uint64_t w2_dims[3] = {64, (uint64_t)I, H / 64}, w2_strides[2] = {H * 2, 128};
-  const uint32_t w2_box[3] = {64, W::kW2Rows, W::kPassCols / 64};
+  const uint32_t w2_box[3] = {64, kWW2Rows, H / 64};
   const bool mapped =
-      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, W::kW1Rows, W::kChunk, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      wide ? hopper::tensor_map_2d(&tm_w1, w1, H, I, kWW1Rows, kWChunk, CU_TENSOR_MAP_SWIZZLE_128B) &&
                  hopper::tensor_map_3d(&tm_w2, w2, w2_dims, w2_strides, w2_box, CU_TENSOR_MAP_SWIZZLE_128B)
            : hopper::tensor_map_2d(&tm_w1, w1, H, I, H / 2, kChunk, CU_TENSOR_MAP_SWIZZLE_64B) &&
                  hopper::tensor_map_2d(&tm_w2, w2, I, H, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -627,7 +605,7 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
   const auto* b2b = static_cast<const __nv_bfloat16*>(b2);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if constexpr (wide)
-    ffn_wide_kernel<H><<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
+    ffn_wide_kernel<<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
   else
     ffn_fwd_kernel<<<grid, kThreads, smem, st>>>(xb, tm_w1, b1b, tm_w2, b2b, yb, partial, N, I, splits);
   cudaError_t err = cudaGetLastError();
@@ -638,12 +616,229 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
   return (int)cudaGetLastError();
 }
 
+// hidden 1,024: two products through h in device memory. One kernel,
+// ffn_large_kernel<BN, kGelu>, computes out = A B (+ bias) on tiles of 128
+// token rows by BN output columns: the first product A = x [N][1,024], B =
+// W1, out = h = bf16(gelu(. + b1)) [N][I]; the second A = h, B = W2, out =
+// y = bf16(. + b2), or, with its K axis split, f32 partials that
+// ffn_reduce_kernel<1024> sums in split order.
+constexpr int kGH = 1024;                 // hidden width of the large design
+constexpr int kGTokens = 128;             // token rows of a tile: 64 a consumer warpgroup
+constexpr int kGDepth = 64;               // k a ring stage holds: 128-byte rows, SW128
+constexpr int kGWideCols = 256;           // output columns of a wide tile (128 accumulators a thread)
+constexpr int kGNarrowCols = 128;         // of a narrow one (64), for calls of few tiles
+constexpr int kGABytes = kGTokens * kGDepth * 2;   // a stage's A tile: 16 KB, K-major
+constexpr int kGWideStages = 4;
+constexpr int kGNarrowStages = 6;
+constexpr int kGOutCols = 128;            // output columns a warpgroup stages for one TMA store
+constexpr int kGStagingBytes = 64 * kGOutCols * 2;  // its staging tile: 2 blocks of 64 x 128 bytes, SW128
+constexpr int kGWideStageBytes = kGABytes + kGDepth * kGWideCols * 2;      // 48 KB
+constexpr int kGNarrowStageBytes = kGABytes + kGDepth * kGNarrowCols * 2;  // 32 KB
+constexpr int kGWideSmemBytes = kGWideStages * kGWideStageBytes + 2 * kGStagingBytes + 1024;  // + alignment
+constexpr int kGNarrowSmemBytes = kGNarrowStages * kGNarrowStageBytes + 2 * kGStagingBytes + 1024;
+constexpr int kGConsumerWarps = 8;        // two warpgroups; a third one's thread 256 issues the copies
+constexpr int kGThreads = kGConsumerWarps * 32 + 128;
+constexpr int kGProducerRegs = 40;        // setmaxnreg: the producer warpgroup's registers a thread
+constexpr int kGConsumerRegs = 232;       // and the consumers'
+
+// A block walks the work units u = blockIdx.x, + gridDim.x, ..., each a
+// tile of 128 rows by BN columns and one of `splits` ranges of K: columns
+// fastest, then the split, then the rows, so the blocks at work at one time
+// share their A rows and all of B through L2. Thread 256 (the producer)
+// keeps the ring full: a stage is the A tile [128][64] (TMA, 128-byte
+// swizzle, K-major; rows past M read as zeros) and the B tile [64][BN] as
+// BN / 64 blocks of [64 k][64 columns] (a 3-D TMA box, 128-byte swizzle,
+// read MN-major through the transpose bit; columns past the matrix read as
+// zeros); its bytes complete the stage's full mbarrier. Each consumer
+// warpgroup multiplies its 64 rows of the stage (4 x wgmma m64nBNk16), keeps
+// one stage's products in flight (wgmma.wait_group 1) and releases the stage
+// before through its empty mbarrier (lane 0 of each warp). After the last
+// stage of a unit: + bias, GELU and bf16 (first product) or + bias and bf16
+// (second), 128 columns at a time into the warpgroup's staging tile, each
+// written to device memory by one TMA store (rows and columns past the
+// matrix are not written) that runs on under the next unit's products;
+// the second product's f32 partials, when its K axis is split, are stored
+// from the registers. Meanwhile the producer fills the next unit's stages.
+template <int BN, bool kGelu>
+__global__ void __launch_bounds__(kGThreads, 1)
+ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_out, const __nv_bfloat16* __restrict__ bias,
+                 float* __restrict__ partial, int M, int ncols, int K, int splits) {
+  constexpr int kStages = BN == kGWideCols ? kGWideStages : kGNarrowStages;
+  constexpr int kStageBytes = BN == kGWideCols ? kGWideStageBytes : kGNarrowStageBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t sRing = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sStaging = sRing + kStages * kStageBytes;
+  const int ntiles = (ncols + BN - 1) / BN;
+  const int units = (M + kGTokens - 1) / kGTokens * ntiles * splits;
+  const int steps = K / splits / kGDepth;   // k steps of a unit
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);                      // the producer's expect_tx; then the stage's bytes
+      mbar_init(&empty[st], kGConsumerWarps);   // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kGConsumerWarps) {
+    setmaxnreg_dec<kGProducerRegs>();
+    if (threadIdx.x == kGConsumerWarps * 32) {
+      prefetch_tensor_map(&tm_a);
+      prefetch_tensor_map(&tm_b);
+      int it = 0;   // the stages this block has filled
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int n = u % ntiles, r = u / ntiles, split = r % splits, m = r / splits;
+        for (int ks = 0; ks < steps; ++ks, ++it) {
+          const int st = it % kStages, k0 = (split * steps + ks) * kGDepth;
+          if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
+          const uint32_t a = sRing + st * kStageBytes;
+          mbar_expect_tx(&full[st], kStageBytes);
+          tma_load_2d(a, &tm_a, k0, m * kGTokens, &full[st]);
+          tma_load_3d(a + kGABytes, &tm_b, 0, k0, n * (BN / 64), &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kGConsumerRegs>();
+  const int wg = warp >> 2, gid = lane >> 2, tig = lane & 3;
+  const bool issuer = (threadIdx.x & 127) == 0;   // of its warpgroup's TMA stores
+  const uint32_t staging = sStaging + wg * kGStagingBytes;
+  float acc[BN / 2];   // 64 rows x BN columns of this warpgroup
+  int it = 0;          // the stages this block has consumed
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&empty[i % kStages]);
+    }
+  };
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int n = u % ntiles, r = u / ntiles, split = r % splits, m = r / splits;
+    for (int ks = 0; ks < steps; ++ks, ++it) {
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const uint32_t a = sRing + st * kStageBytes;
+      const uint64_t a_desc = make_desc(a + wg * (kGABytes / 2), 16, 1024, kSw128);
+      const uint64_t b_desc = make_desc(a + kGABytes, kGDepth * 128, 1024, kSw128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGDepth / 16; ++kk) {
+        if constexpr (BN == kGWideCols)
+          wgmma_ss_n256_tb(acc, desc_add(a_desc, 32 * kk), desc_add(b_desc, 16 * 128 * kk),
+                           ks > 0 || kk > 0);
+        else
+          wgmma_ss_n128_tb(acc, desc_add(a_desc, 32 * kk), desc_add(b_desc, 16 * 128 * kk),
+                           ks > 0 || kk > 0);
+      }
+      wgmma_commit();
+      if (ks > 0) {
+        wgmma_wait<1>();   // the stage before has been read
+        release(it - 1);
+      }
+    }
+    wgmma_wait<0>();
+    release(it - 1);
+    fence_acc(acc);
+
+    // acc[4*j + e]: row 16*(warp%4) + gid + 8*(e/2) of the warpgroup's 64,
+    // column 8*j + 2*tig + e%2 of the tile; in the staging tile (64 x 128
+    // bytes a 64-column block, 128-byte swizzle) the 16-byte chunk c of row
+    // r is at chunk c ^ (r % 8), and r % 8 is gid for both of a thread's rows
+    const int row = 16 * (warp & 3) + gid;
+    const uint32_t st_row = staging + row * 128 + 4 * tig;
+    if (kGelu || splits == 1) {
+#pragma unroll
+      for (int half = 0; half < BN / kGOutCols; ++half) {
+        // + bias (and GELU) in place, while the last store reads the staging tile
+#pragma unroll
+        for (int jj = 0; jj < kGOutCols / 8; ++jj) {
+          const int j = half * (kGOutCols / 8) + jj, col = n * BN + 8 * j + 2 * tig;
+          const bool in = col < ncols;   // ncols is whole 64-column blocks: col + 1 too
+          const float b0 = in ? __bfloat162float(bias[col]) : 0.f;
+          const float b1 = in ? __bfloat162float(bias[col + 1]) : 0.f;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v0 = acc[4 * j + 2 * e];
+            float& v1 = acc[4 * j + 2 * e + 1];
+            v0 += b0, v1 += b1;
+            if constexpr (kGelu) v0 = gelu_erf(v0), v1 = gelu_erf(v1);
+          }
+        }
+        // the staging tile is free once the last store has read it
+        if (issuer) bulk_wait_read<0>();
+        named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < kGOutCols / 8; ++jj) {
+          const int j = half * (kGOutCols / 8) + jj;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            st_shared_u32(st_row + (jj >> 3) * (64 * 128) + e * (8 * 128) + (((jj & 7) ^ gid) << 4),
+                          pack_bf16(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]));
+        }
+        fence_proxy_async();   // the stores, before the TMA reads them
+        named_barrier(1 + wg, 128);
+        if (issuer) {
+          tma_store_3d(&tm_out, staging, 0, m * kGTokens + 64 * wg, (n * BN + half * kGOutCols) / 64);
+          bulk_commit();
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n * BN + 8 * j + 2 * tig;
+        if (col >= ncols) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int token = m * kGTokens + 64 * wg + row + 8 * e;
+          if (token < M)
+            *reinterpret_cast<float2*>(partial + ((size_t)split * M + token) * ncols + col) =
+                make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+        }
+      }
+    }
+  }
+  if (issuer) bulk_wait<0>();   // the last stores, before the block's shared memory goes
+}
+
+// One product of the large design: A [M][K] (x or h), B [K][ncols] (W1 or
+// W2), BN columns a tile, a persistent grid of one block an SM (or one a
+// unit, if fewer).
+template <int BN, bool kGelu>
+int launch_large_product(const void* a, const void* b, const void* bias, void* out, float* partial,
+                         int M, int ncols, int K, int splits, cudaStream_t st) {
+  constexpr int smem = BN == kGWideCols ? kGWideSmemBytes : kGNarrowSmemBytes;
+  static std::atomic<int> sm_cache[kMaxDevices];
+  const int sms = opted_sm_count(ffn_large_kernel<BN, kGelu>, smem, sm_cache);
+  if (sms < 0) return -sms;
+  // A [M][K] in boxes of 128 x 64; B [K][ncols] as [64-column block][K][64]
+  // in boxes of BN / 64 blocks of 64 x 64; out [M][ncols] the same way in
+  // boxes of 2 blocks of 64 x 64 (a warpgroup's staging tile)
+  CUtensorMap tm_a, tm_b, tm_out;
+  const uint64_t b_dims[3] = {64, (uint64_t)K, (uint64_t)ncols / 64}, b_strides[2] = {(uint64_t)ncols * 2, 128};
+  const uint64_t out_dims[3] = {64, (uint64_t)M, (uint64_t)ncols / 64};
+  const uint32_t b_box[3] = {64, kGDepth, BN / 64}, out_box[3] = {64, 64, kGOutCols / 64};
+  if (!hopper::tensor_map_2d(&tm_a, a, M, K, kGTokens, kGDepth, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::tensor_map_3d(&tm_b, b, b_dims, b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::tensor_map_3d(&tm_out, out, out_dims, b_strides, out_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const long units = (long)((M + kGTokens - 1) / kGTokens) * ((ncols + BN - 1) / BN) * splits;
+  const int grid = (int)(units < sms ? units : sms);
+  ffn_large_kernel<BN, kGelu><<<grid, kGThreads, smem, st>>>(
+      tm_a, tm_b, tm_out, static_cast<const __nv_bfloat16*>(bias), partial, M, ncols, K, splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shapes: x/y [N,H], w1 [H,I], b1 [I], w2 [I,H], b2 [H], all bf16, row-major,
 // x, w1 and w2 16-byte aligned; partial [splits,N,H] f32 scratch (unused when
 // splits is 1). Any N >= 1; H == 384 with (I / splits) % 32 == 0, or H ==
-// 768 or 1,024 with (I / splits) % 64 == 0.
+// 768 with (I / splits) % 64 == 0 (hidden 1,024: frag_fused_ffn_large).
 FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y, float* partial,
                                int N, int H, int I, int splits, void* stream) {
@@ -651,7 +846,34 @@ FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
   switch (H) {
     case kH: return launch_ffn<kH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
     case kWH: return launch_ffn<kWH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
-    case kLH: return launch_ffn<kLH>(x, w1, b1, w2, b2, y, partial, N, I, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Hidden 1,024. Shapes as frag_fused_ffn's with H = 1,024, I a multiple of
+// 64; h [N,I] bf16 scratch (16-byte aligned), partial [splits,N,1024] f32
+// scratch (unused when splits is 1). up_cols and down_cols (128 or 256) are
+// the two products' tile widths; splits divides the second product's I / 64
+// k steps.
+FRAG_EXPORT int frag_fused_ffn_large(const void* x, const void* w1, const void* b1,
+                                     const void* w2, const void* b2, void* y, void* h,
+                                     float* partial, int N, int I, int up_cols, int down_cols,
+                                     int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto cols_ok = [](int c) { return c == kGWideCols || c == kGNarrowCols; };
+  if (N < 1 || I < kGDepth || I % kGDepth || splits < 1 || (I / kGDepth) % splits || h == nullptr ||
+      !cols_ok(up_cols) || !cols_ok(down_cols) || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int err = up_cols == kGWideCols
+                ? launch_large_product<kGWideCols, true>(x, w1, b1, h, nullptr, N, I, kGH, 1, st)
+                : launch_large_product<kGNarrowCols, true>(x, w1, b1, h, nullptr, N, I, kGH, 1, st);
+  if (err) return err;
+  err = down_cols == kGWideCols
+            ? launch_large_product<kGWideCols, false>(h, w2, b2, y, partial, N, kGH, I, splits, st)
+            : launch_large_product<kGNarrowCols, false>(h, w2, b2, y, partial, N, kGH, I, splits, st);
+  if (err || splits == 1) return err;
+  const int blocks = (int)(((size_t)N * kGH + kReduceThreads - 1) / kReduceThreads);
+  ffn_reduce_kernel<kGH><<<blocks, kReduceThreads, 0, st>>>(
+      partial, static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), N, splits);
+  return (int)cudaGetLastError();
 }

@@ -2,7 +2,12 @@
 
 ``fused_ffn`` is the :class:`FusedFFN` autograd Function. Its forward
 launches ``csrc/fused_ffn.cu`` for CUDA tensors and runs
-:func:`fused_ffn_plain` for CPU tensors; its backward is
+:func:`fused_ffn_plain` for CPU tensors. At hidden 384 and 768 one kernel
+keeps the [N, I] intermediate h on chip, as the TPU kernel does; at 1,024
+(bge-large, gte-large) h goes through device memory between two kernels
+with fused epilogues (``frag_fused_ffn_large``), since a register-resident
+y does not fit a block there and h's round trip (16 KB a token against
+16.8 MFLOP) stays under the products' time. Its backward is
 :func:`fused_ffn_bwd`, the JAX package's rematerialising backward
 (financial_rag_tpu/ops/fused_ffn.py ``_core_bwd``, XLA there, so plain
 f32 matmuls here): it recomputes the intermediate from the saved x instead
@@ -36,17 +41,20 @@ WIDE_MIN_CHUNKS = 2    # I chunks a split block walks at least
 WIDE_H_TILES = 2       # its h tiles (64 x 64 bf16): even and odd chunks
 WIDE_SLAB_BYTES = 24576  # one stage of its ring: 192 rows of W1's chunk or 16 of W2's
 WIDE_STAGES = 4
-LARGE_HIDDEN = 1024    # the third design (bge-large, gte-large): the second's block and
-LARGE_PASSES = 2       # chunks, y in two passes of 512 columns over the whole I axis
-LARGE_SLAB_BYTES = 16384  # one stage of its ring: 128 rows of W1's chunk or 16 of W2's 512 columns
-LARGE_STAGES = 5
-# hidden width -> (tokens a block, I chunk, fewest chunks a split block walks)
+LARGE_HIDDEN = 1024    # the third design (bge-large, gte-large): two products through h
+LARGE_TOKENS = 128     # token rows of a tile of either product (64 a consumer warpgroup)
+LARGE_DEPTH = 64       # k a ring stage holds: the intermediate width must be a multiple
+LARGE_WIDE_COLS = 256  # output columns of a wide tile (128 accumulators a thread)
+LARGE_NARROW_COLS = 128  # of a narrow one, where wide tiles would leave SMs idle
+LARGE_WIDE_STAGES = 4  # the ring: 4 stages of a 128 x 64 A tile and a 64 x 256 B tile
+LARGE_NARROW_STAGES = 6  # or 6 of a 128 x 64 and a 64 x 128 one
+LARGE_MIN_STEPS = 4    # k steps a split block of the second product walks at least
+LARGE_THREADS = 384    # two consumer warpgroups and a producer warpgroup
+LARGE_OUT_COLS = 128   # output columns a consumer warpgroup stages for one TMA store
+# hidden width -> (tokens a block, I granule, fewest granules a split block walks)
 KERNEL_TILING = {KERNEL_HIDDEN: (KERNEL_TOKENS, KERNEL_CHUNK, KERNEL_MIN_CHUNKS),
                  WIDE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS),
-                 LARGE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS)}
-# the designs of 64 tokens a block: hidden -> (y passes, ring slab bytes, stages)
-WIDE_RING = {WIDE_HIDDEN: (1, WIDE_SLAB_BYTES, WIDE_STAGES),
-             LARGE_HIDDEN: (LARGE_PASSES, LARGE_SLAB_BYTES, LARGE_STAGES)}
+                 LARGE_HIDDEN: (LARGE_TOKENS, LARGE_DEPTH, LARGE_MIN_STEPS)}
 
 
 def kernel_takes(h_dim: int, i_dim: int) -> bool:
@@ -73,13 +81,12 @@ def split_count(tiles: int, chunks: int, sms: int, min_chunks: int = KERNEL_MIN_
 
 
 def wide_split_count(tiles: int, chunks: int, sms: int, min_chunks: int = WIDE_MIN_CHUNKS) -> int:
-    """How many blocks share one token tile's I axis at hidden 768 or 1,024: the
+    """How many blocks share one token tile's I axis at hidden 768: the
     most (a divisor of the chunk count, each block walking at least
     ``min_chunks``) that still fit the grid on the SMs in one wave (a
     block holds an SM), so the f32 partials are written once, by blocks
     that all run at once; 1 from one tile an SM on. A query's 8 tiles get
-    16 splits of 3 of the 48 chunks at 768 (128 blocks), of 4 of the 64
-    at 1,024."""
+    16 splits of 3 of the 48 chunks (128 blocks)."""
     best = 1
     for d in range(1, chunks // min_chunks + 1):
         if chunks % d == 0 and tiles * d <= sms:
@@ -88,43 +95,91 @@ def wide_split_count(tiles: int, chunks: int, sms: int, min_chunks: int = WIDE_M
 
 
 def launch_plan(n: int, h_dim: int, i_dim: int, sms: int):
-    """K3's launch for n tokens: (tokens a block, I chunk, splits); the
-    grid is one block a token tile and split."""
+    """K3's launch for n tokens: (tokens a block, I chunk, splits); at 384
+    and 768 the grid is one block a token tile and split, at 1,024 see
+    :func:`large_launch_plan`."""
     tokens, chunk, min_chunks = KERNEL_TILING[h_dim]
+    if h_dim == LARGE_HIDDEN:
+        return tokens, chunk, large_launch_plan(n, i_dim, sms)[2]
     tiles = round_up(n, tokens) // tokens
-    count = wide_split_count if h_dim in WIDE_RING else split_count
+    count = wide_split_count if h_dim == WIDE_HIDDEN else split_count
     return tokens, chunk, count(tiles, i_dim // chunk, sms, min_chunks)
+
+
+def large_launch_plan(n: int, i_dim: int, sms: int):
+    """(first product's tile columns, second product's, splits) of the
+    1,024 design for n tokens, I = i_dim, on ``sms`` SMs. Each product is a
+    persistent grid of one block an SM over tiles of 128 tokens. The first
+    product (N x I) takes 256-column tiles unless the 128-column ones still
+    fit one wave, as at a query's 4 token tiles (64 tiles of 256 columns,
+    128 of 128). The second (N x 1,024) takes 256-column tiles from one
+    wave of them on; below, 128-column ones, with its K axis (I / 64 steps)
+    split the most ways (a divisor, each split at least LARGE_MIN_STEPS
+    steps) that keep the grid in one wave: f32 partials, summed in split
+    order by the reduce. 512 tokens: (128, 128, 4); 34,816: (256, 256, 1)."""
+    tiles = round_up(n, LARGE_TOKENS) // LARGE_TOKENS
+    up_cols = (LARGE_NARROW_COLS if tiles * -(-i_dim // LARGE_NARROW_COLS) <= sms
+               else LARGE_WIDE_COLS)
+    if tiles * (LARGE_HIDDEN // LARGE_WIDE_COLS) >= sms:
+        return up_cols, LARGE_WIDE_COLS, 1
+    units = tiles * (LARGE_HIDDEN // LARGE_NARROW_COLS)
+    steps = i_dim // LARGE_DEPTH
+    splits = max([d for d in range(1, steps // LARGE_MIN_STEPS + 1)
+                  if steps % d == 0 and units * d <= sms] or [1])
+    return up_cols, LARGE_NARROW_COLS, splits
+
+
+def large_smem_bytes(cols: int) -> int:
+    """Dynamic shared memory of a block of the 1,024 design with ``cols``-wide
+    tiles, as csrc/fused_ffn.cu sizes it: its ring of stages of a 128 x 64
+    A tile and a 64 x ``cols`` B tile (bf16), each consumer warpgroup's
+    staging tile of 64 rows x 128 output columns (bf16), and 1 KB of
+    alignment."""
+    stages = LARGE_WIDE_STAGES if cols == LARGE_WIDE_COLS else LARGE_NARROW_STAGES
+    staging = 2 * 64 * LARGE_OUT_COLS * 2
+    return stages * (LARGE_TOKENS * LARGE_DEPTH * 2 + LARGE_DEPTH * cols * 2) + staging + 1024
+
+
+def large_scratch_bytes(n: int, i_dim: int, splits: int) -> int:
+    """Device memory the wrapper allocates for one call of the 1,024 design:
+    h [n, I] bf16, and the second product's [splits, n, 1,024] f32 partials
+    when its K axis is split."""
+    return n * i_dim * 2 + (splits * n * LARGE_HIDDEN * 4 if splits > 1 else 0)
 
 
 def block_smem_bytes(h_dim: int) -> int:
     """Dynamic shared memory of a K3 block, as csrc/fused_ffn.cu sizes it,
     with 1 KB of alignment: at 384 both warpgroups' x rows (bf16) and a
-    ring of 2 stages of one I chunk of W1 and of W2; at 768 and 1,024 the
-    block's x rows, two h tiles and a ring of 4 stages of a 24 KB slab or
-    5 of a 16 KB one."""
+    ring of 2 stages of one I chunk of W1 and of W2; at 768 the block's x
+    rows, two h tiles and a ring of 4 stages of a 24 KB slab; at 1,024 the
+    larger of the two tile widths' rings."""
     tokens, chunk, _ = KERNEL_TILING[h_dim]
-    if h_dim in WIDE_RING:
-        _, slab, stages = WIDE_RING[h_dim]
-        return tokens * h_dim * 2 + WIDE_H_TILES * tokens * chunk * 2 + stages * slab + 1024
+    if h_dim == LARGE_HIDDEN:
+        return max(large_smem_bytes(LARGE_WIDE_COLS), large_smem_bytes(LARGE_NARROW_COLS))
+    if h_dim == WIDE_HIDDEN:
+        return tokens * h_dim * 2 + WIDE_H_TILES * tokens * chunk * 2 + WIDE_STAGES * WIDE_SLAB_BYTES + 1024
     return tokens * h_dim * 2 + KERNEL_STAGES * (2 * h_dim * chunk * 2) + 1024
 
 
 def accumulator_registers(h_dim: int) -> int:
-    """f32 registers of y a thread of K3 holds: each of the two warpgroups
-    (128 threads) owns 64 token rows and, at 768 and 1,024, half of a
-    pass's y columns (all of y at 768, 512 columns at 1,024)."""
+    """f32 registers of an accumulator a thread of K3 holds: each of the two
+    warpgroups (128 threads) owns 64 token rows and all of y (384), half of
+    y's columns (768), or a wide tile's 256 columns of h or y (1,024)."""
     tokens, _, _ = KERNEL_TILING[h_dim]
     if h_dim == KERNEL_HIDDEN:
         return (tokens // 2) * h_dim // 128
-    passes = WIDE_RING[h_dim][0]
-    return tokens * (h_dim // passes // 2) // 128
+    if h_dim == LARGE_HIDDEN:
+        return 64 * LARGE_WIDE_COLS // 128
+    return tokens * (h_dim // 2) // 128
 
 
 def h_registers(h_dim: int) -> int:
     """f32 registers of h (one chunk's first product) a thread of K3 holds:
     64 rows by the chunk at 384, by its warpgroup's half of the chunk at
-    768 and 1,024."""
+    768; none at 1,024, where h is the first product's output tile."""
     _, chunk, _ = KERNEL_TILING[h_dim]
+    if h_dim == LARGE_HIDDEN:
+        return 0
     cols = chunk if h_dim == KERNEL_HIDDEN else chunk // 2
     return 64 * cols // 128
 
@@ -169,7 +224,7 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             or w2.shape != (i_dim, h_dim) or b1.shape != (i_dim,) or b2.shape != (h_dim,)):
         raise ValueError(f"fused_ffn kernel takes H={KERNEL_HIDDEN} with I a multiple of "
                          f"{KERNEL_CHUNK}, or H={WIDE_HIDDEN} with I a multiple of "
-                         f"{WIDE_CHUNK}, or H={LARGE_HIDDEN} with I a multiple of {WIDE_CHUNK}; "
+                         f"{WIDE_CHUNK}, or H={LARGE_HIDDEN} with I a multiple of {LARGE_DEPTH}; "
                          f"got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
     if x.dtype != torch.bfloat16:
@@ -187,15 +242,20 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if n == 0:
         return x.new_empty(orig_shape)
     out = torch.empty((n, h_dim), dtype=x.dtype, device=dev)
-    _, _, splits = launch_plan(n, h_dim, i_dim,
-                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, _, splits = launch_plan(n, h_dim, i_dim, sms)
     partial = (torch.empty((splits, n, h_dim), dtype=torch.float32, device=dev)
                if splits > 1 else None)
-    kernel_lib.launch("fused_ffn", "frag_fused_ffn", dev,
-                      kernel_lib.ptr(x2d), kernel_lib.ptr(w1), kernel_lib.ptr(b1),
-                      kernel_lib.ptr(w2), kernel_lib.ptr(b2), kernel_lib.ptr(out),
-                      kernel_lib.ptr(partial) if partial is not None else None,
-                      n, h_dim, i_dim, splits)
+    args = [kernel_lib.ptr(t) for t in (x2d, w1, b1, w2, b2, out)]
+    partial_ptr = kernel_lib.ptr(partial) if partial is not None else None
+    if h_dim == LARGE_HIDDEN:
+        up_cols, down_cols, _ = large_launch_plan(n, i_dim, sms)
+        h = torch.empty((n, i_dim), dtype=x.dtype, device=dev)
+        kernel_lib.launch("fused_ffn", "frag_fused_ffn_large", dev, *args, kernel_lib.ptr(h),
+                          partial_ptr, n, i_dim, up_cols, down_cols, splits)
+    else:
+        kernel_lib.launch("fused_ffn", "frag_fused_ffn", dev, *args, partial_ptr,
+                          n, h_dim, i_dim, splits)
     with LAUNCH_LOCK:
         LAUNCHES += 1
         WIDTH_LAUNCHES[h_dim] += 1
@@ -220,7 +280,11 @@ class FusedFFN(torch.autograd.Function):
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x [..., H] -> [..., H] in x.dtype, the [.., I] intermediate kept on
-    chip. Differentiable in x and the weights. The CUDA kernel takes bf16 x
-    at H = 384, 768 or 1,024 (the weights are cast to x's dtype)."""
+    """x [..., H] -> [..., H] in x.dtype. Differentiable in x and the
+    weights. The CUDA kernels take bf16 x at H = 384, 768 or 1,024 (the
+    weights are cast to x's dtype); at 384 and 768 the [.., I] intermediate
+    stays on chip, at 1,024 it is a bf16 scratch in device memory (n x I x
+    2 bytes: 4.2 MB at 512 tokens, 285 MB at 34,816, 1.07 GB at 131,072),
+    beside the split second product's f32 partials at a query's sizes
+    (8.4 MB at 512 tokens)."""
     return FusedFFN.apply(x, w1, b1, w2, b2)

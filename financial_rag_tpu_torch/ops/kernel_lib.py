@@ -41,6 +41,7 @@ _SIGNATURES = {
     "frag_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "frag_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
     "frag_fused_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "frag_fused_ffn_large": [_P] * 8 + [_I] * 5 + [_P],
     "frag_packed_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "frag_bucketed_topk": [_P] * 6 + [_I] * 8 + [_P],

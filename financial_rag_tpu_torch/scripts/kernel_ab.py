@@ -30,7 +30,14 @@ The C entry points are called directly. Their arguments are the same in
 both trees, but what a launch plan puts in them is each tree's own: K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
 the I axis its wrapper would choose (its ``launch_plan``), and scratch of
-that many f32 partials;
+that many f32 partials; at hidden 1,024 a tree whose wrapper has
+``large_launch_plan`` (two products through h in device memory) is called
+through ``frag_fused_ffn_large`` with that plan's tile widths and split, an
+[N, I] bf16 h and its partials, an older one through ``frag_fused_ffn``.
+K3's rows also time its three-call yardstick on the same inputs
+(``F.linear``, ``F.gelu``, ``F.linear``: cuBLAS, the GELU pass, cuBLAS) as
+``three_call_dev_ms``, after the trees' loops under the same profiler, and
+split each tree's device time by kernel (``*_parts_dev_ms``);
 K4-K7 get from each tree's ``ops/topk.py`` their tile or round
 groups and scratch of that size (a tree whose ``ops/topk.py``
 predates ``packed_sweep_grid``, ``bucketed_sweep_grid``,
@@ -179,8 +186,10 @@ def build_library(csrc: Path, out_dir: Path):
             os.environ["FRAG_KERNEL_BUILD_DIR"] = saved[1]
     for name in ("frag_pool_norm", "frag_flash_attention", "frag_fused_ffn", "frag_packed_topk",
                  "frag_bucketed_topk", "frag_topk_exact", "frag_flash_attention_bwd",
-                 "frag_causal_flash"):
-        fn = getattr(lib, name)
+                 "frag_causal_flash", "frag_fused_ffn_large"):
+        fn = getattr(lib, name, None)
+        if fn is None:   # an entry the tree predates
+            continue
         fn.argtypes = kernel_lib._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
@@ -277,19 +286,25 @@ def tree_module(csrc: Path, name: str):
     return mod
 
 
-def ffn_splits(csrc: Path, n: int, h: int, sms: int) -> int:
-    """The I-axis split the wrapper beside ``csrc`` (its ``ops/fused_ffn.py``)
-    chooses for n tokens at hidden h, I = 4h: each tree's kernel is given
-    the split it was tuned for (a tree before the 768 design has no
+def ffn_plan(csrc: Path, n: int, h: int, sms: int) -> dict:
+    """The launch the wrapper beside ``csrc`` (its ``ops/fused_ffn.py``)
+    chooses for n tokens at hidden h, I = 4h, so that each tree's kernel is
+    given the plan it was tuned for: ``{"splits": s}`` for
+    ``frag_fused_ffn`` (a tree before the 768 design has no
     ``launch_plan`` and only the 384 rule; a tree without a design for h
-    gets 1, and its kernel refuses the shape)."""
+    gets 1, and its kernel refuses the shape), or, at 1,024 in a tree with
+    ``large_launch_plan``, ``{"splits": s, "cols": (up_cols, down_cols)}``
+    for ``frag_fused_ffn_large``."""
     mod = tree_module(csrc, "fused_ffn")
     tiling = getattr(mod, "KERNEL_TILING", None)
     if tiling is not None and h not in tiling:
-        return 1
+        return {"splits": 1}
+    if h == 1024 and hasattr(mod, "large_launch_plan"):
+        up_cols, down_cols, splits = mod.large_launch_plan(n, 4 * h, sms)
+        return {"splits": splits, "cols": (up_cols, down_cols)}
     if hasattr(mod, "launch_plan"):
-        return mod.launch_plan(n, h, 4 * h, sms)[2]
-    return mod.split_count(-(-n // mod.KERNEL_TOKENS), 4 * h // mod.KERNEL_CHUNK, sms)
+        return {"splits": mod.launch_plan(n, h, 4 * h, sms)[2]}
+    return {"splits": mod.split_count(-(-n // mod.KERNEL_TOKENS), 4 * h // mod.KERNEL_CHUNK, sms)}
 
 
 def packed_plan(csrc: Path, bq: int, n: int, sms: int, d: int = 384):
@@ -521,11 +536,12 @@ def k2_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
     return run, [out]
 
 
-def k3_call(lib, n: int, h: int, splits: int, gen):
-    """(run, outputs): K3 on seeded inputs at hidden h, I = 4h, with
-    ``splits`` blocks per token tile, through ``lib``'s C entry."""
+def k3_call(lib, n: int, h: int, plan: dict, gen):
+    """(run, outputs): K3 on seeded inputs at hidden h, I = 4h, with the
+    tree's launch ``plan`` (:func:`ffn_plan`), through ``lib``'s C entry."""
     p = kernel_lib.ptr
     i = 4 * h
+    splits = plan["splits"]
     x = torch.randn(n, h, generator=gen, device="cuda").bfloat16()
     w1 = (torch.randn(h, i, generator=gen, device="cuda") * h ** -0.5).bfloat16()
     w2 = (torch.randn(i, h, generator=gen, device="cuda") * i ** -0.5).bfloat16()
@@ -534,14 +550,33 @@ def k3_call(lib, n: int, h: int, splits: int, gen):
     out = torch.empty_like(x)
     partial = torch.empty(splits, n, h, device="cuda") if splits > 1 else None
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(x), p(w1), p(b1), p(w2), p(b2), p(out), p(partial) if partial is not None else None,
-            n, h, i, splits, stream)
+    pp = p(partial) if partial is not None else None
+    if "cols" in plan:
+        scratch = torch.empty(n, i, dtype=torch.bfloat16, device="cuda")
+        entry = "frag_fused_ffn_large"
+        args = (p(x), p(w1), p(b1), p(w2), p(b2), p(out), p(scratch), pp, n, i, *plan["cols"],
+                splits, stream)
+    else:
+        scratch = None
+        entry = "frag_fused_ffn"
+        args = (p(x), p(w1), p(b1), p(w2), p(b2), p(out), pp, n, h, i, splits, stream)
 
     def run():
-        if lib.frag_fused_ffn(*args):
-            raise RuntimeError("frag_fused_ffn refused the launch")
-    run.tensors = (x, w1, b1, w2, b2, partial)   # args holds raw pointers into these
+        if getattr(lib, entry)(*args):
+            raise RuntimeError(f"{entry} refused the launch")
+    run.tensors = (x, w1, b1, w2, b2, partial, scratch)   # args holds raw pointers into these
     return run, [out]
+
+
+def three_call(tensors):
+    """K3's yardstick on a k3_call's inputs: ``F.linear`` -> ``F.gelu`` ->
+    ``F.linear`` in bf16 (cuBLAS, the [N, I] intermediate in device
+    memory), as chip_smoke.py's ThreeCallFFN."""
+    import torch.nn.functional as F
+
+    x, w1, b1, w2, b2 = tensors[:5]
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    return lambda: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2)
 
 
 def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool = False):
@@ -604,8 +639,8 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     rows = []
-    splits = {(tree, n, h): ffn_splits(csrc, n, h, sms)
-              for tree, csrc in trees.items() for _, n, h in K3_SHAPES}
+    ffn_plans = {(tree, n, h): ffn_plan(csrc, n, h, sms)
+                 for tree, csrc in trees.items() for _, n, h in K3_SHAPES}
     # make(tree) -> (run, outputs) on that tree's library
     plans = {(tree, label): packed_plan(csrc, bq, n, sms, d)
              for tree, csrc in trees.items() for label, bq, n, d in K4_SHAPES}
@@ -642,8 +677,9 @@ def main(argv=None) -> int:
               for label, bq, n, dt, k, order in K6_SHAPES]
     cases += [("K2", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k2_call(
         libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K2_SHAPES]
-    cases += [("K3", label, {"N": n, "H": h, "splits": {tree: splits[tree, n, h] for tree in trees}},
-               lambda tree, n=n, h=h: k3_call(libs[tree], n, h, splits[tree, n, h], gen))
+    cases += [("K3", label, {"N": n, "H": h,
+                             "splits": {tree: ffn_plans[tree, n, h]["splits"] for tree in trees}},
+               lambda tree, n=n, h=h: k3_call(libs[tree], n, h, ffn_plans[tree, n, h], gen))
               for label, n, h in K3_SHAPES]
     cases += [("K10", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
         libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES]
@@ -666,13 +702,23 @@ def main(argv=None) -> int:
             if name not in refused:
                 ms[name].append(cuda_ms(runs[name]))
         order = [name for name in ("this", "other", "other", "this") if name not in refused]
-        for name, d in zip(order, device_ms([runs[name] for name in order])):
+        fns = [runs[name] for name in order]
+        if kernel == "K3":   # the yardstick, after the trees' loops
+            fns.append(three_call(runs["this"].tensors))
+        times = device_ms(fns)
+        for name, d in zip(order, times):
             dev[name].append(d)
         row = {"kernel": kernel, "case": label, "shape": shape,
                **{f"{name}_ms": ms[name] or None for name in libs},
                **{f"{name}_dev_ms": [sum(d.values()) for d in dev[name]] or None
                   for name in libs},
                "max_rel_diff": None, "max_abs_diff": None}
+        if kernel == "K3":
+            row["three_call_dev_ms"] = sum(times[-1].values())
+            for name in libs:   # each kernel of a call: at 1,024 the two products and the reduce
+                row[f"{name}_parts_dev_ms"] = [
+                    {k.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]: t
+                     for k, t in d.items()} for d in dev[name]]
         if refused:
             row["refused"] = refused
         else:

@@ -333,17 +333,13 @@ def test_flash_attention_kernel_at_local_heads_of_64(gen, heads):
 
 @pytest.mark.parametrize("h,n,i", [
     *((768, n, 3072) for n in (1, 64, 65, 129, 193, 512, 999, 17030, 34816, 131072)),
-    *((768, n, 2048) for n in (129, 999, 17030)),
-    *((1024, n, 4096) for n in (1, 64, 65, 129, 512, 999, 17030, 34816, 131072)),
-    *((1024, n, 2048) for n in (129, 999, 17030))])
+    *((768, n, 2048) for n in (129, 999, 17030))])
 def test_fused_ffn_kernel_at_hidden_768(gen, h, n, i):
-    """K3's 768-wide design at I = 3,072 (bge-base) and 2,048, and its
-    1,024-wide one (two passes of 512 y columns, h recomputed in the
-    second) at I = 4,096 (bge-large) and 2,048: 1, 65, 129, 193, 999 and
-    17,030 tokens leave the last 64-token tile ragged (65, 129 and 193 are
-    2, 3 and 4 tiles); up to 999 the I axis is split and f32 partials are
-    summed, from 17,030 on one block a tile. Within 3e-2 of the plain
-    version."""
+    """K3's 768-wide design at I = 3,072 (bge-base) and 2,048: 1, 65, 129,
+    193, 999 and 17,030 tokens leave the last 64-token tile ragged (65, 129
+    and 193 are 2, 3 and 4 tiles); up to 999 the I axis is split and f32
+    partials are summed, from 17,030 on one block a tile. Within 3e-2 of
+    the plain version."""
     bf16 = torch.bfloat16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, _, splits = ffn.launch_plan(n, h, i, sms)
@@ -361,12 +357,41 @@ def test_fused_ffn_kernel_at_hidden_768(gen, h, n, i):
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
 
 
-@pytest.mark.parametrize("n", [512, 34816])
+@pytest.mark.parametrize("n,i", [
+    *((n, 4096) for n in (1, 63, 129, 512, 999, 17030, 34816, 131072)),
+    *((n, 2048) for n in (129, 999, 17030)),
+    *((n, 4032) for n in (1, 512, 5000))])
+def test_fused_ffn_kernel_at_hidden_1024(gen, n, i):
+    """K3's 1,024 design (two products through h in device memory, tiles of
+    128 tokens) at I = 4,096 (bge-large), 2,048 and 4,032 (no multiple of
+    the 256-column tile: the last tile's columns past I read as zeros and
+    are not stored): 1, 63, 129, 999, 5,000 and 17,030 tokens leave the
+    last tile ragged; up to 999 the second product's K axis is split and
+    its f32 partials summed in split order, from 17,030 on it is not. One
+    launch counted, within 3e-2 of the plain version."""
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    up_cols, down_cols, splits = ffn.large_launch_plan(n, i, sms)
+    assert (splits > 1) == (n <= 999)
+    x = _randn(gen, n, 1024, dtype=bf16)
+    w1 = _randn(gen, 1024, i, dtype=bf16, scale=1024 ** -0.5)
+    w2 = _randn(gen, i, 1024, dtype=bf16, scale=i ** -0.5)
+    b1, b2 = _randn(gen, i, dtype=bf16, scale=0.1), _randn(gen, 1024, dtype=bf16, scale=0.1)
+    width_before = ffn.WIDTH_LAUNCHES[1024]
+    out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+    assert ffn.WIDTH_LAUNCHES[1024] == width_before + 1
+    ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 512, 999, 34816])
 @pytest.mark.parametrize("h", [768, 1024])
 def test_fused_ffn_kernel_at_hidden_768_is_deterministic(gen, h, n):
     """Two calls of K3's 768- or 1,024-wide design on the same inputs give
-    the same bits: each block sums its products in a fixed order, and the
-    split partials are summed in split order (N=512)."""
+    the same bits: each block (each output tile, at 1,024) sums its products
+    in a fixed order, and the split partials are summed in split order (N
+    up to 999)."""
     bf16 = torch.bfloat16
     i = 4 * h
     x = _randn(gen, n, h, dtype=bf16)
@@ -469,8 +494,9 @@ def test_probe_kernel_at_d768(gen, d, dtype):
 
 def test_wide_kernels_reject_what_they_cannot_take(gen):
     """K2 at head_dim 128, K3 at hidden 512 (no design of its own) or I not
-    a multiple of 64 (the 768 design's chunk) at 768: raised before any
-    launch, never the plain version."""
+    a multiple of 64 (the 768 design's chunk) at 768, or at 1,024 (the
+    1,024 design's ring stage depth): raised before any launch, never the
+    plain version."""
     bf16 = torch.bfloat16
     x = _randn(gen, 2, 64, 1024, dtype=bf16)
     with pytest.raises(ValueError, match="head_dim 32 or 64"):
@@ -484,6 +510,13 @@ def test_wide_kernels_reject_what_they_cannot_take(gen):
         w1, w2 = _randn(gen, 768, i, dtype=bf16), _randn(gen, i, 768, dtype=bf16)
         with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
             ffn.fused_ffn(x, w1, _randn(gen, i, dtype=bf16), w2, _randn(gen, 768, dtype=bf16))
+    x = _randn(gen, 64, 1024, dtype=bf16)
+    before = ffn.LAUNCHES
+    for i in (4000, 4064):   # not a multiple of 64 (of 16; of 32): no whole ring stage of K
+        w1, w2 = _randn(gen, 1024, i, dtype=bf16), _randn(gen, i, 1024, dtype=bf16)
+        with pytest.raises(ValueError, match="H=1024 with I a multiple of 64"):
+            ffn.fused_ffn(x, w1, _randn(gen, i, dtype=bf16), w2, _randn(gen, 1024, dtype=bf16))
+    assert ffn.LAUNCHES == before
 
 
 def _grid(gen, *shape):

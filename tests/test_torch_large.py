@@ -140,46 +140,118 @@ def test_fused_ffn_plain_vs_pallas_at_hidden_1024_within_gelu_gap(n):
 
 
 def test_k3_large_mirrors_equal_the_cuda_constants():
-    """ops/fused_ffn.py's third design is csrc/fused_ffn.cu's: 64 tokens a
-    block and 64-wide I chunks (the 768 design's), two passes of 512 y
-    columns, 16 KB slabs (128 rows of W1's chunk, 16 of W2's pass: whole
-    k16 steps), 5 stages."""
+    """ops/fused_ffn.py's third design is csrc/fused_ffn.cu's: tiles of 128
+    tokens by 256 (or 128) output columns, 64-deep ring stages (128-byte
+    rows of the A tile, whole k16 steps), 4 (or 6) stages, staging tiles of
+    128 output columns, two consumer warpgroups and a producer one, and
+    split blocks of at least 4 k steps."""
     c = _cuda_constants("fused_ffn.cu")
-    assert c["kLH"] == ffn.LARGE_HIDDEN == 1024
-    assert (c["kWRows"], c["kWChunk"]) == ffn.KERNEL_TILING[1024][:2]
-    assert (c["kLPasses"], c["kLSlabBytes"], c["kLStages"]) == ffn.WIDE_RING[1024]
-    assert c["kLSmemBytes"] == ffn.block_smem_bytes(1024)
-    assert c["kLW1Rows"] * c["kWChunk"] * 2 == c["kWW2Rows"] * c["kLPassCols"] * 2 == c["kLSlabBytes"]
-    assert c["kLW1Rows"] % 16 == 0 and c["kLH"] % c["kLW1Rows"] == 0
-    assert c["kLSlabs"] == c["kLW1Slabs"] + c["kWW2Slabs"] == 12
+    assert c["kGH"] == ffn.LARGE_HIDDEN == 1024
+    assert (c["kGTokens"], c["kGDepth"]) == (ffn.LARGE_TOKENS, ffn.LARGE_DEPTH)
+    assert (c["kGTokens"], c["kGDepth"]) == ffn.KERNEL_TILING[1024][:2]
+    assert (c["kGWideCols"], c["kGNarrowCols"]) == (ffn.LARGE_WIDE_COLS, ffn.LARGE_NARROW_COLS)
+    assert (c["kGWideStages"], c["kGNarrowStages"]) == (ffn.LARGE_WIDE_STAGES,
+                                                        ffn.LARGE_NARROW_STAGES)
+    assert c["kGThreads"] == ffn.LARGE_THREADS == 384
+    assert c["kGOutCols"] == ffn.LARGE_OUT_COLS and c["kGStagingBytes"] == 64 * 128 * 2
+    assert c["kGWideSmemBytes"] == ffn.large_smem_bytes(256)
+    assert c["kGNarrowSmemBytes"] == ffn.large_smem_bytes(128)
+    assert c["kGDepth"] * 2 == 128 and c["kGDepth"] % 16 == 0
 
 
-@pytest.mark.parametrize("i_dim", [4096, 2048])
-def test_k3_large_block_fits_shared_memory_and_registers(i_dim):
-    """The x rows (128 KB), two h tiles (8 KB each), 5 ring stages of 16 KB,
-    the 1 KB alignment slack and the stages' barriers within the 227 KB a
-    block may take; each warpgroup's f32 slice of a pass's y (64 rows x 256
-    columns) in 128 registers a thread and its half of a chunk's h in 16,
-    under the 255 a thread of a 256-thread block."""
-    assert ffn.kernel_takes(1024, i_dim)
-    smem = ffn.block_smem_bytes(1024)
-    assert smem == 64 * 1024 * 2 + 2 * 64 * 64 * 2 + 5 * 16384 + 1024 == 230400
-    assert smem + 2 * ffn.LARGE_STAGES * 8 <= topk.SMEM_BLOCK_LIMIT
-    assert ffn.accumulator_registers(1024) == 128
-    assert ffn.h_registers(1024) == 16
-    assert ffn.accumulator_registers(1024) + ffn.h_registers(1024) <= 255 - 32
+@pytest.mark.parametrize("part", ["a_tile", "b_block", "staging_block"])
+def test_k3_large_tiles_are_whole_swizzle_atoms(part):
+    """Every shared-memory tile the design hands to wgmma or the TMA is
+    whole 1,024-byte atoms of the 128-byte swizzle (8 rows of 128 bytes):
+    the A tile (128 rows of 64 bf16 k), each 64-column block of the B tile
+    (64 k rows) and each 64-column block of a staging tile (64 rows)."""
+    c = _cuda_constants("fused_ffn.cu")
+    size = {"a_tile": c["kGABytes"], "b_block": c["kGDepth"] * 128,
+            "staging_block": c["kGStagingBytes"] // (c["kGOutCols"] // 64)}[part]
+    assert size % 1024 == 0 and size // 128 % 8 == 0
+    assert c["kGWideStageBytes"] % 1024 == 0 and c["kGNarrowStageBytes"] % 1024 == 0
 
 
-@pytest.mark.parametrize("n,plan", [(512, (64, 64, 16)), (1, (64, 64, 32)), (999, (64, 64, 8)),
-                                    (34816, (64, 64, 1)), (131072, (64, 64, 1))])
+@pytest.mark.parametrize("cols", [256, 128])
+def test_k3_large_ring_fits_shared_memory(cols):
+    """A stage is the 128 x 64 A tile (16 KB) and the 64 x cols B tile (32
+    or 16 KB); 4 or 6 of them, the two consumer warpgroups' staging tiles
+    of 64 x 128 bf16 outputs (16 KB each), the 1 KB alignment slack and
+    the stages' full and empty barriers (static) within the 227 KB a
+    block may take."""
+    a_bytes, b_bytes, staging = 128 * 64 * 2, 64 * cols * 2, 64 * 128 * 2
+    stages = ffn.LARGE_WIDE_STAGES if cols == 256 else ffn.LARGE_NARROW_STAGES
+    smem = ffn.large_smem_bytes(cols)
+    assert smem == stages * (a_bytes + b_bytes) + 2 * staging + 1024 == 230400
+    assert smem + 2 * stages * 8 <= topk.SMEM_BLOCK_LIMIT
+    assert ffn.block_smem_bytes(1024) == smem
+
+
+@pytest.mark.parametrize("cols", [256, 128])
+def test_k3_large_registers_fit_under_the_384_thread_cap(cols):
+    """A consumer warpgroup's accumulator is its 64 rows by the tile's
+    columns: 128 (or 64) f32 registers a thread, under the 168 that ptxas
+    grants a thread of a 384-thread block, with room for the epilogue's
+    bias pair and the descriptors and addresses (h is never held in
+    registers: it is the first product's output tile); the setmaxnreg
+    split (producer 40, consumers 232) fits the register file."""
+    acc = 64 * cols // 128
+    assert acc == (ffn.accumulator_registers(1024) if cols == 256 else 64)
+    assert ffn.h_registers(1024) == 0
+    cap = (65536 // ffn.LARGE_THREADS) // 8 * 8
+    assert cap == 168
+    assert acc + 2 + 2 * 2 + 16 <= cap
+    assert 2 * 128 * 232 + 128 * 40 <= 65536
+
+
+@pytest.mark.parametrize("n,plan", [(1, (128, 128, 16)), (512, (128, 128, 4)),
+                                    (999, (256, 128, 2)), (2048, (256, 128, 1)),
+                                    (34816, (256, 256, 1)), (131072, (256, 256, 1))])
 def test_k3_large_launch_plan(n, plan):
-    """At 1,024 a query's 8 tiles of 64 tokens split the 64 chunks of I =
-    4,096 16 ways (128 blocks in one wave, 4 chunks and both passes a
-    block); an ingest batch is one block a tile."""
-    assert ffn.launch_plan(n, 1024, 4096, H100_SMS) == plan
-    tiles = -(-n // 64)
-    assert tiles * plan[2] <= H100_SMS or plan[2] == 1
-    assert (4096 // plan[2]) % 64 == 0 and 4096 // plan[2] >= 2 * 64
+    """(first product's tile columns, second's, splits) on 132 SMs at I =
+    4,096: a query's 4 token tiles take 128-column tiles in both products
+    (128 blocks each, one wave) and split the second product's 64 k steps
+    4 ways; 999 tokens (8 tiles) fill a wave with 256-column tiles in the
+    first; an ingest batch takes 256-column tiles and no split."""
+    assert ffn.large_launch_plan(n, 4096, H100_SMS) == plan
+    assert ffn.launch_plan(n, 1024, 4096, H100_SMS) == (128, 64, plan[2])
+    up_cols, down_cols, splits = plan
+    tiles = -(-n // 128)
+    if n <= 999:
+        assert tiles * (4096 // up_cols) <= H100_SMS
+        assert tiles * (1024 // down_cols) * splits <= H100_SMS
+    else:
+        assert splits == 1 and tiles * (4096 // up_cols) >= H100_SMS
+
+
+@pytest.mark.parametrize("n,expected", [(512, 4096 * 1024 + 4 * 512 * 4096),
+                                        (34816, 285212672), (131072, 1073741824)])
+def test_k3_large_scratch_bytes(n, expected):
+    """The wrapper's device scratch: h [N, 4,096] bf16 (4.2 MB at 512
+    tokens, 285 MB at the ingest's 34,816, 1.07 GB at 131,072) and, where
+    the second product is split, its [splits, N, 1,024] f32 partials."""
+    splits = ffn.large_launch_plan(n, 4096, H100_SMS)[2]
+    assert ffn.large_scratch_bytes(n, 4096, splits) == expected
+    assert ffn.large_scratch_bytes(n, 4096, 1) == n * 4096 * 2
+
+
+@pytest.mark.parametrize("n", [1, 63, 129, 257, 512, 999, 1025, 2048, 4096, 17030])
+@pytest.mark.parametrize("i_dim", [4096, 2048])
+def test_k3_large_split_fits_one_wave_or_is_none(n, i_dim):
+    """The second product splits its K axis only below one wave of
+    256-column tiles; a split divides the I / 64 k steps, walks at least
+    4 of them, and is the most that keep the grid in one wave."""
+    up_cols, down_cols, splits = ffn.large_launch_plan(n, i_dim, H100_SMS)
+    tiles, steps = -(-n // 128), i_dim // 64
+    assert up_cols in (128, 256) and down_cols in (128, 256)
+    assert steps % splits == 0 and (splits == 1 or steps // splits >= ffn.LARGE_MIN_STEPS)
+    if tiles * 4 >= H100_SMS:
+        assert (down_cols, splits) == (256, 1)
+    else:
+        units = tiles * (1024 // down_cols)
+        assert units * splits <= H100_SMS or splits == 1
+        more = [d for d in range(splits + 1, steps // ffn.LARGE_MIN_STEPS + 1) if steps % d == 0]
+        assert all(units * d > H100_SMS for d in more)
 
 
 # ------------------------------------------------------------- K4, K5, K7
