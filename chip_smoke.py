@@ -48,6 +48,15 @@ Phases, each printing one JSON line:
               miss its 3e-2; K10 at 64 carries the mask-ignored control and
               the run-to-run bit check at every S (128, 100 and 64 fused,
               512 two kernels).
+              Last, the generic routes, ``<kernel>@generic``: K3's two
+              products at run-time extents at (312, 1,200), (128, 512),
+              (512, 2,048) and (1,024, 4,000) x N 32,768, 512, 999 and 1
+              (two partial-k-step controls); K2 and K10 at 12 heads of 26,
+              16 and 48 zero-padded to 32 or 64 (B=64 S=512, B=8 S=64); K9
+              at 32 / 32 heads of 100, 80 and 96 padded to 128 (bf16 S=4,096
+              pad 1,100, f32 S=128). K2's, K10's and K9's first cases
+              carry two controls that must miss the tolerance: the padded
+              width's scale, and padded columns left unzeroed.
 4. slice   -- full-width seeded random checkpoints (bge-small, gte-small,
               MiniLM-L-6 cross-encoder) are written to a temporary data dir;
               Runtime.build(device="cuda") (flat bf16 indexes) ingests a
@@ -133,14 +142,27 @@ Phases, each printing one JSON line:
               as int8 answer the 9 questions through K5 at D=768. p50s and
               children/s printed.
 10b'. large -- the bge-large width: seeded random checkpoints at the
-              bge-large-en-v1.5 and gte-large shapes (hidden 1,024, 24
-              layers, 16 heads of 64, FFN 4,096) beside the MiniLM-L-6
+              bge-large-en-v1.5 and gte-large shapes (hidden 1,024,
+              LARGE_LAYERS of their 24 layers, 16 heads of 64, FFN 4,096)
+              beside the MiniLM-L-6
               reranker, as in 10b: flat bf16 ingest of phase 4's corpus (K1-K3,
               K3's 1,024 design), the 9 questions (K1-K4 at D 1,024), 16
               embeddings against the CPU (cosine >= 0.999), a profile; the
               indexes reloaded as int8 (K5 at D 1,024) and into 4 shards
               (K7 at D 1,024, K4 never), the 9 questions on each. The
               phase's seconds, rates, p50s and launches printed.
+10b''. narrow -- widths only the generic routes take, as in 10b: seeded
+              random checkpoints at BERT-Small's width
+              (google/bert_uncased_L-4_H-512_A-8: 4 x 512, 8 heads of 64,
+              FFN 2,048) as the baai and gte encoders beside a reranker at
+              ms-marco-TinyBERT-L-4's (4 x 312, 12 heads of 26, FFN 1,200);
+              flat bf16 ingest, the 9 questions, 3 of them also through
+              POST /search on make_server; 16 embeddings against the CPU
+              (cosine >= 0.999) and 16 reranker logits (within 5e-2) and
+              [CLS] states (within 5e-2 of the CPU's largest; the padding
+              mask ignored must miss it); K2 and K3 launched at width 312
+              on the 9 questions and K3 at 512; the indexes reloaded as
+              int8 (K5 at D 512).
 10c. multivector -- the late-interaction tier: phase 4's bge-small
               checkpoint in a TokenEncoder on the card and a
               MultiVectorIndex (384, 128 tokens, 4,096 children, bf16)
@@ -174,6 +196,13 @@ Phases, each printing one JSON line:
               none degraded; K9 (its head-128 kernel) once a layer a prefill, a
               4,096-token prefill; prints the write, build and warm seconds,
               query p50 and max, prefill ms by bucket, verify-step ms.
+13a'. llm_d100 -- a decoder whose heads only K9's padded route takes: a
+              seeded random-weight checkpoint at open_llama_3b_v2's width
+              (LlamaForCausalLM, LLM_LAYERS of its 26 layers of 3,200, 32
+              heads of 100, no GQA, FFN 8,640, vocab 32,000, untied) with a
+              WordLevel tokenizer, served as in 13a: 3 golden questions
+              through query; every K9 launch at head_dim 100; then phase
+              13's CPU parity and controls on its weights.
 13b. decoder_tp -- tensor-parallel decoding of the 0.5B shape on tp 2, 2
               ranks sharing the card over gloo: batch 4 of left-padded
               prompts up to 512 tokens, 16 greedy tokens; the ranks' tokens
@@ -212,6 +241,11 @@ Phases, each printing one JSON line:
               seeded 12-layer cross-encoder whose output then serves the 9
               golden questions as the reranker, and scripts/train_uplift.py
               --hidden 768 (its f32 D-768 eval index on K4).
+17b. train_narrow -- one rerank_ft listwise step at ms-marco-TinyBERT-L-4's
+              width (4 x 312, 12 heads of 26: K10 padded to 32, K3's
+              generic route) on the card against the CPU: the loss and
+              each leaf group's gradient cosine at phase 15's bars, K2, K10
+              and K3 once a layer; K10 with dQ zeroed must fail.
 18. cli    -- the operator CLI in process on the card, each script through
               its ``main(argv)`` under LLM_PROVIDER=local: a seeded
               random-weight Qwen2-0.5B-shape checkpoint whose tokenizer.json
@@ -236,12 +270,16 @@ Phases, each printing one JSON line:
               launches as ``launches_d64``, K9 with its head_dim-128 case as ``d128``,
               its launches on the TP ranks as ``launches_tp`` and on
               llm_d128 as ``launches_d128``, K2 and K3
-              with the multivector path's as ``launches_multivector``), then
-              the last line ``{"ok": true, "device": ...}``.
+              with the multivector path's as ``launches_multivector``; K2,
+              K3, K9 and K10 with their first generic-route case as
+              ``generic``, with the launches of narrow (K2 and K3 at width
+              312, K3 at 512), llm_d100 (K9 at head_dim 100) and
+              train_narrow (K10 at head_dim 26)), then the last line
+              ``{"ok": true, "device": ...}``.
 
 Each path (phases 4, 6, 7, each part of 7b, 8, each part of 8b, 9, each
-part of 10b and 10b', 10c, 11, 13a, 13b (in its ranks' fresh processes), each part of
-14, 16 and 17, and 18) sets every launch counter to 0 just before it
+part of 10b, 10b' and 10b'', 10c, 11, 13a, 13a', 13b (in its ranks' fresh processes), each part of
+14, 16 and 17, 17b and 18) sets every launch counter to 0 just before it
 and reads them just after: each kernel of that path must have run.
 
 Exits non-zero (and prints no result line) on any failure, when CUDA is not
@@ -401,6 +439,14 @@ QWEN2_15B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
              "num_hidden_layers": LLM_LAYERS, "num_attention_heads": 12, "num_key_value_heads": 2,
              "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
              "tie_word_embeddings": True, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+# open_llama_3b_v2's shape (HF config.json of openlm-research/open_llama_3b_v2),
+# full width, depth cut: 32 heads of 100 (no GQA), so K9's padded route runs
+OPEN_LLAMA_3B = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                 "vocab_size": 32000, "hidden_size": 3200, "intermediate_size": 8640,
+                 "num_hidden_layers": LLM_LAYERS, "num_attention_heads": 32,
+                 "num_key_value_heads": 32, "max_position_embeddings": 2048,
+                 "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
+                 "hidden_act": "silu", "torch_dtype": "float16"}
 DEGRADED = "LLM unavailable"
 
 
@@ -439,6 +485,8 @@ def reset_launches() -> None:
             setattr(mod, COUNTER_ATTR.get(name, "LAUNCHES"), 0)
         if name in ("flash_attention", "fused_ffn"):   # and their counts by width
             mod.WIDTH_LAUNCHES.clear()
+        if name == "causal_flash_prefill":             # and K9's by head_dim
+            mod.HEAD_DIM_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
@@ -796,6 +844,7 @@ def kernel_cases(torch, F, seed):
         cases += causal_cases(torch, F, randn, heads=heads, shapes=shapes)
     cases += wide_attention_cases(torch, F, randn, padded_mask)
     cases += large_cases(torch, F, gen, randn, padded_mask)
+    cases += generic_cases(torch, F, randn, padded_mask)
     return cases
 
 
@@ -1024,6 +1073,163 @@ def large_cases(torch, F, gen, randn, padded_mask):
     cases += probe_cases(torch, gen, randn, d=d, shapes=((8, 64),))
     # every case under <kernel>@w1024 (K2's came as flash_attention@64)
     return [(f"{name.partition('@')[0]}@w{H}", *rest) for name, *rest in cases]
+
+
+# the generic routes' cases: K3 at (hidden, intermediate) of TinyBERT-L-4
+# (its first, the kernels line's ``generic``), TinyBERT-L-2, BERT-Small and
+# 1,024 with I not whole 64-steps, each at (B, S) of a 64 x 512 rerank batch,
+# a query's 8 x 64 and ragged 999 and 1; K2 and K10 at 12 heads of 26
+# (TinyBERT-L-4), 16 and 48; K9 at 32 query and 32 kv heads of 100
+# (open_llama_3b_v2), 80 and 96
+GENERIC_FFN = ((312, 1200), (128, 512), (512, 2048), (1024, 4000))
+GENERIC_FFN_TOKENS = ((64, 512), (8, 64), (1, 999), (1, 1))
+GENERIC_HEAD_DIMS = (26, 16, 48)
+GENERIC_ATTENTION_SHAPES = ((64, 512), (8, 64))
+GENERIC_CAUSAL_HEAD_DIMS = (100, 80, 96)
+GENERIC_CAUSAL_SHAPES = ((1, 4096, (1100,), "bf16"), (1, 128, (60,), "f32"))
+
+
+def noisy_pad(torch, randn, x, heads: int, width: int):
+    """x's heads padded to ``width`` with random values where the wrapper
+    writes zeros: the unzeroed-padding control's inputs."""
+    from financial_rag_tpu_torch.ops.common import pad_heads
+
+    b, s, h = x.shape
+    out = pad_heads(x, heads, width).clone()
+    out.view(b, s, heads, width)[..., h // heads:] = randn(b, s, heads, width - h // heads,
+                                                           dtype=x.dtype)
+    return out
+
+
+def padded_controls(torch, randn, built, q, k, v, heads, kv_heads, run_entry):
+    """The two controls of a padded attention route: the kernel on the
+    zero-padded heads with the scale of the padded width (as if the heads
+    were that wide), and the kernel told the true head_dim but given padded
+    columns left unzeroed (random). ``built``: the kernel's built widths;
+    ``run_entry(q, k, v, head_dim)`` launches its C entry on padded inputs
+    and returns the padded output, or a tuple of them (K10's dq, dk, dv)."""
+    from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads, unpad_heads
+
+    d = q.shape[-1] // heads
+    width = built_head_dim(d, built)
+    padded = [pad_heads(q, heads, width), pad_heads(k, kv_heads, width),
+              pad_heads(v, kv_heads, width)]
+    noisy = [noisy_pad(torch, randn, q, heads, width), noisy_pad(torch, randn, k, kv_heads, width),
+             noisy_pad(torch, randn, v, kv_heads, width)]
+
+    def unpad(out):
+        if isinstance(out, tuple):
+            return tuple(unpad_heads(t, heads, d) for t in out)
+        return unpad_heads(out, heads, d)
+
+    return (("scale_of_the_padded_width", lambda: unpad(run_entry(*padded, width))),
+            ("padded_columns_unzeroed", lambda: unpad(run_entry(*noisy, d))))
+
+
+def generic_cases(torch, F, randn, padded_mask):
+    """The generic routes, after every other case so that those keep their
+    inputs, each named ``<kernel>@generic`` (the kernels line's
+    ``generic``). K3 (the two products at run-time extents) at GENERIC_FFN x
+    GENERIC_FFN_TOKENS, within 3e-2 of the plain version; its first case
+    carries two controls that must miss it, each a partial last k step
+    lost: W1's last H % 64 rows or W2's last I % 64 rows zeroed. K2 and
+    K10 (heads zero-padded to 32 or 64, the scale from the true head_dim)
+    at 12 heads of GENERIC_HEAD_DIMS, B=64 S=512 and B=8 S=64 with a fully
+    masked row; K9 (padded to 128) at 32 / 32 heads of
+    GENERIC_CAUSAL_HEAD_DIMS, bf16 B=1 S=4,096 pad 1,100 and f32 S=128.
+    K2's, K10's and K9's first cases carry the padded route's two controls
+    (padded_controls; K10's dout padded with zeros). Tolerances, bounds (over the true head_dim) and
+    library calls as at 384; the wrapper times include the pad copies."""
+    from financial_rag_tpu_torch.ops import causal_flash as cf
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+    from financial_rag_tpu_torch.ops import fused_ffn as ffn
+    from financial_rag_tpu_torch.ops import kernel_lib
+    from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads
+
+    bf16 = torch.bfloat16
+    ptr = kernel_lib.ptr
+    cases = []
+    for h, i in GENERIC_FFN:
+        w1, w2 = randn(h, i, dtype=bf16, scale=h ** -0.5), randn(i, h, dtype=bf16, scale=0.012)
+        b1, b2 = randn(i, dtype=bf16, scale=0.1), randn(h, dtype=bf16, scale=0.1)
+        for b, s in GENERIC_FFN_TOKENS:
+            x = randn(b, s, h, dtype=bf16)
+            n = b * s
+            controls = ()
+            if not cases:
+                w1_lost, w2_lost = w1.clone(), w2.clone()
+                w1_lost[-(h % 64 or 64):] = 0
+                w2_lost[-(i % 64 or 64):] = 0
+                controls = (("first_product_partial_k_step_lost",
+                             lambda x=x, w=w1_lost, b1=b1, w2=w2, b2=b2: ffn.fused_ffn(
+                                 x, w, b1, w2, b2)),
+                            ("second_product_partial_k_step_lost",
+                             lambda x=x, w=w2_lost, w1=w1, b1=b1, b2=b2: ffn.fused_ffn(
+                                 x, w1, b1, w, b2)))
+            cases.append(("fused_ffn@generic", f"N={n} (B={b},S={s}),H={h},I={i},bf16",
+                          lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.fused_ffn(x, w1, b1, w2, b2),
+                          lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ffn.fused_ffn_plain(
+                              x, w1, b1, w2, b2),
+                          ThreeCallFFN(F, x, w1, b1, w2, b2), attention_cmp(3e-2, controls),
+                          bound(2 * n * h * 2 + (2 * h * i + i + h) * 2, 4 * n * h * i, "bf16")))
+
+    NH = 12
+    for d in GENERIC_HEAD_DIMS:
+        for b, s in GENERIC_ATTENTION_SHAPES:
+            q, k, v = (randn(b, s, NH * d, dtype=bf16) for _ in range(3))
+            mask = padded_mask(b, s, fully_masked_row=True)
+            bias = torch.where(mask > 0, 0.0, -1e9).float()
+            controls = ()
+            if d == GENERIC_HEAD_DIMS[0] and (b, s) == GENERIC_ATTENTION_SHAPES[0]:
+                def k2_entry(qp, kp, vp, head_dim, bias=bias, b=b, s=s):
+                    out = torch.empty_like(qp)
+                    kernel_lib.launch("flash_attention", "frag_flash_attention", qp.device,
+                                      ptr(qp), ptr(kp), ptr(vp), ptr(bias), ptr(out), b, s,
+                                      qp.shape[-1], NH, head_dim)
+                    return out
+                controls = padded_controls(torch, randn, fa.FWD_HEAD_DIMS, q, k, v, NH, NH,
+                                           k2_entry)
+            cases.append(wide_attention_case(torch, F, q, k, v, mask, bias, NH, d, controls))
+
+    def k10_controls(q, k, v, bias, do):
+        b, s, _ = q.shape
+        width = built_head_dim(q.shape[-1] // NH, fa.BWD_HEAD_DIMS)
+        dout = pad_heads(do, NH, width)
+
+        def entry(qp, kp, vp, head_dim):
+            grads = tuple(torch.empty_like(qp) for _ in range(3))
+            stats = None
+            if fa.bwd_launch_plan(s, width)[0] == "two kernels":
+                stats = torch.empty(fa.bwd_scratch_shape(b, s, NH), dtype=torch.float32,
+                                    device=qp.device)
+            kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", qp.device,
+                              *(ptr(t) for t in (qp, kp, vp, bias, dout, *grads)),
+                              None if stats is None else ptr(stats), b, s, qp.shape[-1], NH,
+                              head_dim)
+            return grads
+        return padded_controls(torch, randn, fa.BWD_HEAD_DIMS, q, k, v, NH, NH, entry)
+
+    for d in GENERIC_HEAD_DIMS:
+        cases += attention_bwd_cases(torch, F, randn, padded_mask, head_dim=d,
+                                     shapes=GENERIC_ATTENTION_SHAPES,
+                                     padded_controls=k10_controls
+                                     if d == GENERIC_HEAD_DIMS[0] else None)
+
+    def k9_controls(q, k, v, pad):
+        def entry(qp, kp, vp, head_dim):
+            out = torch.empty_like(qp)
+            b, s, _ = qp.shape
+            kernel_lib.launch("causal_flash_prefill", "frag_causal_flash", qp.device,
+                              ptr(qp), ptr(kp), ptr(vp), ptr(pad), ptr(out), b, s, 32, 32,
+                              qp.shape[-1] // 32, kernel_lib.DTYPE_CODES[qp.dtype], head_dim)
+            return out
+        return padded_controls(torch, randn, cf.KERNEL_HEAD_DIMS, q, k, v, 32, 32, entry)
+
+    for d in GENERIC_CAUSAL_HEAD_DIMS:
+        cases += causal_cases(torch, F, randn, heads=(32, 32, d), shapes=GENERIC_CAUSAL_SHAPES,
+                              padded_controls=k9_controls if d == GENERIC_CAUSAL_HEAD_DIMS[0]
+                              else None)
+    return [(f"{name.partition('@')[0]}@generic", *rest) for name, *rest in cases]
 
 def attention_cmp(tol, controls=()):
     """Within ``tol`` of the plain version at every element (K2's check, and
@@ -1408,7 +1614,7 @@ CAUSAL_128_CASES = (((12, 2, 128), ((1, 4096, (1100,), "bf16"), (1, 4096, (0,), 
                     ((32, 8, 128), ((1, 4096, (0,), "bf16"),)))
 
 
-def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES):
+def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES, padded_controls=None):
     """K9 at the decoder's prefill shapes (Qwen2-0.5B: 14 query heads and 2
     kv heads of 64): the answer-prompt bucket B=1 S=4,096 with 1,100
     padding rows, the query normaliser's S=128, a generate_many wave of 3
@@ -1417,7 +1623,8 @@ def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES):
     where head_dim is not 64). See causal_cmp for the tolerances; padding
     rows exactly 0. The bound counts only the causal pairs at or past
     pad_len. Library: SDPA (is_causal, enable_gqa) at pad 0, [B,H,S,D]
-    views, a yardstick only."""
+    views, a yardstick only. ``padded_controls(q, k, v, pad)``, where
+    given, gives the first shape's controls of a padded head width."""
     from financial_rag_tpu_torch.ops import causal_flash as cf
 
     hq, hkv, d = heads
@@ -1443,10 +1650,11 @@ def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES):
         # keys at head_dim 64, 128 at 128) lost
         control = (lambda q=q, k=k, v=v, p=pad: plain(q, k, v, p + (64 if d == 64 else 128))) \
             if (s, dtype) == (4096, torch.bfloat16) else None
+        extra = padded_controls(q, k, v, pad) if padded_controls and not cases else ()
         cases.append((name, f"B={b},S={s},pads={list(pads)},heads={hq}/{hkv}x{d},{label}",
                       lambda q=q, k=k, v=v, p=pad: cf.causal_flash_prefill(
                           q, k, v, p, num_q_heads=hq, num_kv_heads=hkv),
-                      plain, sdpa, causal_cmp(pads, hq, dtype == torch.bfloat16, control),
+                      plain, sdpa, causal_cmp(pads, hq, dtype == torch.bfloat16, control, extra),
                       bound(2 * b * s * (hq + hkv) * d * esize + 4 * b, 4 * pairs * hq * d,
                             "bf16" if dtype == torch.bfloat16 else "f32")))
     return cases
@@ -1537,7 +1745,8 @@ BWD_SHAPES = ((256, 128), (512, 128), (256, 64), (256, 32), (256, 512))
 WIDE_BWD_SHAPES = ((256, 128), (256, 512), (256, 100), (256, 64))
 
 
-def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes=BWD_SHAPES):
+def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes=BWD_SHAPES,
+                        padded_controls=None):
     """K10 at the train path's shapes: B=256 S=128 (one encode of the
     contrastive step: its 256 queries and its 256 documents are two
     launches), B=512 S=128 (both encodes as one batch), B=256 S=64 (the
@@ -1552,7 +1761,9 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
     keys only (a masked key adds exact zeros); a ``kernel_bound`` line gives
     each term and the live share of the pairs, since the kernel's header
     counts a full mask. At head_dim 64 (WIDE_BWD_SHAPES) the cases are
-    named ``flash_attention_bwd@64``."""
+    named ``flash_attention_bwd@64``. ``padded_controls(q, k, v, bias,
+    dout)``, where given, makes the first shape's extra controls ((label,
+    run)), each of which must fail the bound too."""
     from financial_rag_tpu_torch.ops import flash_attention as fa
 
     NH, hd = 12, head_dim
@@ -1572,6 +1783,7 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
               "path": path, "kernels": list(kernels), "smem_bytes": smem,
               "live_share": live_pairs / (b * s * s), **bound_terms(*terms)})
         control = None
+        extra = padded_controls(q, k, v, bias, do) if padded_controls and not cases else ()
         if s <= 128 or hd == 64:
             control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
                 q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH))
@@ -1581,7 +1793,8 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
                       lambda q=q, k=k, v=v, bias=bias, do=do: fa.flash_attention_bwd_plain(
                           q, k, v, bias, do, num_heads=NH),
                       SdpaBackward(torch, F, q, k, v, bias, do, NH),
-                      with_path(attention_bwd_cmp(NH, control, again=run), name, f"B={b},S={s}",
+                      with_path(attention_bwd_cmp(NH, control, again=run, extra=extra), name,
+                                f"B={b},S={s}",
                                 path, kernels, probe=("bwd", b, s, H, NH) if hd == 64 else None),
                       bound(*terms)))
     return cases
@@ -1596,12 +1809,13 @@ def row_rel_err(got, want, heads: int) -> float:
     return (err / want.abs().amax(dim=-1)).masked_fill(err == 0, 0.0).max().item()
 
 
-def attention_bwd_cmp(heads: int, control=None, again=None):
+def attention_bwd_cmp(heads: int, control=None, again=None, extra=()):
     """dq, dk and dv each within 2^-6 of every (position, head) row's
     largest value (two bf16 ulps of it), as K9's check; rows of exact zeros
     (masked keys' dk and dv) exactly zero. ``control``, the kernel run with
-    the padding mask ignored, must fail the same bound. ``again``, a second
-    launch on the same inputs, must give the same bits (K10 has no atomics)."""
+    the padding mask ignored, and each of ``extra`` ((label, run)) must fail
+    the same bound. ``again``, a second launch on the same inputs, must give
+    the same bits (K10 has no atomics)."""
     rtol = 2.0 ** -6
 
     def cmp(a, b):
@@ -1617,6 +1831,11 @@ def attention_bwd_cmp(heads: int, control=None, again=None):
             crel = {name: row_rel_err(x, y, heads) for name, x, y in zip(("dq", "dk", "dv"), c, b)}
             detail["control_mask_ignored_row_rel_err"] = crel
             ok = ok and max(crel.values()) > rtol
+        for label, run in extra:
+            crel = {name: row_rel_err(x, y, heads) for name, x, y in zip(("dq", "dk", "dv"),
+                                                                           run(), b)}
+            detail[f"control_{label}_row_rel_err"] = crel
+            ok = ok and max(crel.values()) > rtol
         return err, ok, detail
     return cmp
 
@@ -1631,7 +1850,7 @@ def causal_rel_err(a, b, pad: int, hq: int, first: int = 0) -> float:
     return (diff / b.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
 
 
-def causal_cmp(pads, hq: int, bf16: bool, control=None):
+def causal_cmp(pads, hq: int, bf16: bool, control=None, extra=()):
     """Real rows (position >= pad_len) within an absolute tol (3e-2 bf16,
     1e-4 f32), and each (position, head) row within rtol of its own largest
     value (2^-6 bf16, two ulps of that value; 1e-4 f32): a row that attends
@@ -1639,7 +1858,9 @@ def causal_cmp(pads, hq: int, bf16: bool, control=None):
     small as the absolute bound, which says little about such rows. Padding
     rows exactly 0. ``control`` (the plain version with the first real key tile lost) must
     fail the relative bound on the longest 1,024 rows, where that tile is
-    2% (64 keys) or 4% (128 keys, head_dim 128) of the keys."""
+    2% (64 keys) or 4% (128 keys, head_dim 128) of the keys. Each of
+    ``extra`` ((label, run)) must fail the relative bound over all real
+    rows."""
     tol, rtol = (3e-2, 2.0 ** -6) if bf16 else (1e-4, 1e-4)
 
     def cmp(a, b):
@@ -1660,6 +1881,11 @@ def causal_cmp(pads, hq: int, bf16: bool, control=None):
                 "max_abs_err": (c[0, s - 1024:].float() - b[0, s - 1024:].float()).abs().max().item(),
                 "max_row_rel_err": causal_rel_err(c[0], b[0], p, hq, tail)}
             ok = ok and detail["control_tile_lost_longest_rows"]["max_row_rel_err"] > rtol
+        for label, run in extra:
+            c = run()
+            crel = max(causal_rel_err(c[row], b[row], p, hq) for row, p in enumerate(pads))
+            detail[f"control_{label}_max_row_rel_err"] = crel
+            ok = ok and crel > rtol
         return err, ok, detail
     return cmp
 
@@ -1818,7 +2044,9 @@ def phase_kernels(torch, F, seed):
         entry = {"phase": "kernel", "name": kernel, "shape": shape, "max_abs_err": err, "ok": ok,
                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, **detail}
-        if tag.startswith("w"):
+        if tag == "generic":
+            entry["route"] = "generic"
+        elif tag.startswith("w"):
             entry["width"] = int(tag[1:])
         elif tag:
             entry["head_dim"] = int(tag)
@@ -1968,9 +2196,10 @@ def write_bpe_tokenizer(dest: Path, fixture: Path, vocab_size: int) -> int:
 def write_llm_checkpoint(dest: Path, hf: dict, seed: int, device="cuda",
                          bpe_fixture: Path | None = None) -> int:
     """A seeded random-weight Qwen2/Llama checkpoint in HF layout: config.json,
-    a bf16 model.safetensors (normal(0.02) matrices and biases, unit norms,
-    the HF initialisation) and the WordLevel tokenizer, or ``bpe_fixture``'s
-    tokenizer padded to the vocabulary. Returns the eos id."""
+    a bf16 model.safetensors (normal(0.02) matrices and, for Qwen2, q/k/v
+    biases; unit norms; the HF initialisation) and the WordLevel tokenizer,
+    or ``bpe_fixture``'s tokenizer padded to the vocabulary. Returns the eos
+    id."""
     import torch
 
     dest.mkdir(parents=True, exist_ok=True)
@@ -1991,17 +2220,21 @@ def write_llm_checkpoint(dest: Path, hf: dict, seed: int, device="cuda",
     def ones(n):
         return torch.ones(n, dtype=torch.bfloat16)
 
+    biases = hf.get("model_type") != "llama"   # Qwen2's q/k/v biases; Llama has none
     sd = {"model.embed_tokens.weight": normal(hf["vocab_size"], h)}
     for i in range(hf["num_hidden_layers"]):
         p = f"model.layers.{i}."
         sd.update({p + "input_layernorm.weight": ones(h),
-                   p + "self_attn.q_proj.weight": normal(h, h), p + "self_attn.q_proj.bias": normal(h),
-                   p + "self_attn.k_proj.weight": normal(kv, h), p + "self_attn.k_proj.bias": normal(kv),
-                   p + "self_attn.v_proj.weight": normal(kv, h), p + "self_attn.v_proj.bias": normal(kv),
+                   p + "self_attn.q_proj.weight": normal(h, h),
+                   p + "self_attn.k_proj.weight": normal(kv, h),
+                   p + "self_attn.v_proj.weight": normal(kv, h),
                    p + "self_attn.o_proj.weight": normal(h, h),
                    p + "post_attention_layernorm.weight": ones(h),
                    p + "mlp.gate_proj.weight": normal(ff, h), p + "mlp.up_proj.weight": normal(ff, h),
                    p + "mlp.down_proj.weight": normal(h, ff)})
+        if biases:
+            sd.update({p + "self_attn.q_proj.bias": normal(h), p + "self_attn.k_proj.bias": normal(kv),
+                       p + "self_attn.v_proj.bias": normal(kv)})
     sd["model.norm.weight"] = ones(h)
     if not hf.get("tie_word_embeddings", False):
         sd["lm_head.weight"] = normal(hf["vocab_size"], h)
@@ -2655,7 +2888,16 @@ WIDE_COS_MIN = 0.999  # card (bf16) against the CPU (f32) embeddings, as phase 1
 # and of BAAI/bge-large-en-v1.5 / thenlper/gte-large
 BGE_BASE = {"hidden_size": 768, "num_attention_heads": 12, "intermediate_size": 3072}
 BGE_LARGE = {"hidden_size": 1024, "num_attention_heads": 16, "intermediate_size": 4096}
-LARGE_LAYERS = 24     # bge-large-en-v1.5 and gte-large at full depth
+LARGE_LAYERS = 4      # of bge-large-en-v1.5's and gte-large's 24: cut to fit the time limit
+# the published config.json widths the CUDA path takes through the generic
+# routes: google/bert_uncased_L-4_H-512_A-8 (BERT-Small) and
+# cross-encoder/ms-marco-TinyBERT-L-4, both 4 layers deep, served at full depth
+BERT_SMALL = {"hidden_size": 512, "num_attention_heads": 8, "intermediate_size": 2048}
+TINYBERT_L4 = {"hidden_size": 312, "num_attention_heads": 12, "intermediate_size": 1200}
+NARROW_LAYERS = 4
+NARROW_HTTP_QUESTIONS = 3   # of the 9 golden questions, also posted to /search
+RERANK_LOGIT_TOL = 5e-2     # card (bf16) against CPU (f32) cross-encoder logits, as phase 10
+RERANK_CLS_RTOL = 5e-2      # its [CLS] states' error over the CPU's largest |state|
 
 
 def write_wide_checkpoints(root: Path, seed: int, layers: int = WIDE_LAYERS,
@@ -2720,7 +2962,7 @@ SHARDED_RELOAD = ("sharded", "bfloat16", SHARDS, SHARDED_PATH)
 
 def phase_wide(torch, cfg, work: Path, items, seed: int, label: str = "wide", shape=BGE_BASE,
                layers: int = WIDE_LAYERS, names=("bge-base", "gte-base"),
-               reloads=(INT8_RELOAD,)) -> dict:
+               reloads=(INT8_RELOAD,), reranker=None) -> dict:
     """A bi-encoder width above 384 (``shape``, ``layers`` deep): the flat
     bf16 runtime with baai (CLS) and gte (mean) encoders of that width
     beside the 384-wide MiniLM reranker, so one process serves both widths
@@ -2734,7 +2976,13 @@ def phase_wide(torch, cfg, work: Path, items, seed: int, label: str = "wide", sh
     are printed, not gated, and are no gain or loss against the D=384
     phases. Returns the launches of each part, and under ``width`` K2's and
     K3's launches at the encoders' width over the ingest and the queries
-    (the reranker's, at 384, apart)."""
+    (the reranker's, at 384, apart). ``reranker`` ((shape, layers, name)):
+    a seeded cross-encoder of that width replaces MiniLM-L-6; its logits on
+    16 (question, child) pairs must be within RERANK_LOGIT_TOL of the CPU's,
+    NARROW_HTTP_QUESTIONS questions also go through POST /search on
+    make_server, and K2's and K3's launches at its width on the 9 questions
+    (read before any check runs the reranker) are returned under
+    ``rerank_width``; the HTTP questions' own are printed beside them."""
     from financial_rag_tpu_torch.models.encoder import Encoder
     from financial_rag_tpu_torch.parallel import ShardedFlatIndex
     from financial_rag_tpu_torch.runtime import Runtime
@@ -2747,6 +2995,12 @@ def phase_wide(torch, cfg, work: Path, items, seed: int, label: str = "wide", sh
     cfg = copy.deepcopy(cfg)
     cfg.encoders.baai_path = str(paths[names[0]])
     cfg.encoders.gte_path = str(paths[names[1]])
+    if reranker is not None:
+        rshape, rlayers, rname = reranker
+        paths.update(write_wide_checkpoints(work / f"models_{label}", seed + 5, layers=rlayers,
+                                            names=(rname,), labels=1, shape=rshape))
+        cfg.rerank.model_path = str(paths[rname])
+        checkpoints_s = time.perf_counter() - t_phase
     reset_launches()
     t_build = time.perf_counter()
     rt = Runtime.build(cfg, data_dir=work / f"data_{label}", device="cuda")
@@ -2772,9 +3026,22 @@ def phase_wide(torch, cfg, work: Path, items, seed: int, label: str = "wide", sh
     check(all(width[k] > ingest_width[k] > 0 for k in width),
           f"{label}: K2 or K3 not launched at width {dim} (ingest {ingest_width}, "
           f"then {width})")
-    parity = wide_parity(rt, paths, [c["text"] for out in answers
-                                     for c in out["top_children_chunks"]],
-                         names=names, dim=dim, what=label)
+    rerank_width = {}
+    if reranker is not None:   # the questions' reranks alone, before any check launches
+        rdim = rshape["hidden_size"]
+        rerank_width = width_launches(rdim)
+        check(all(n > 0 for n in rerank_width.values()),
+              f"{label}: K2 or K3 not launched at the reranker's width {rdim} on the "
+              f"questions ({rerank_width})")
+    texts = [c["text"] for out in answers for c in out["top_children_chunks"]]
+    parity = wide_parity(rt, paths, texts, names=names, dim=dim, what=label)
+    if reranker is not None:
+        parity.update(rerank_parity(rt, paths[rname], texts, label))
+        before = width_launches(rdim)
+        parity["http"] = http_search(rt, work / f"data_{label}",
+                                     GOLDEN_QUESTIONS[:NARROW_HTTP_QUESTIONS], label)
+        parity["http"][f"launches_width_{rdim}"] = {
+            k: n - before[k] for k, n in width_launches(rdim).items()}
     phase_profile(torch, rt, label=f"{label} flat bf16")
     rt.save_indexes(work / f"data_{label}")
     del rt
@@ -2817,17 +3084,110 @@ def phase_wide(torch, cfg, work: Path, items, seed: int, label: str = "wide", sh
           "query_max_ms": round(max(query_ms), 3), "reranked_methods": methods, **parity,
           "launches_ingest": ingest_launches, "launches_queries": query_launches,
           **{f"launches_{part}": n for part, n in out.items()},
-          f"launches_width_{dim}": width, "seconds": round(time.perf_counter() - t_phase, 1)})
-    return {"ingest": ingest_launches, "queries": query_launches, "width": width, **out}
+          f"launches_width_{dim}": width,
+          **({f"launches_width_{rdim}": rerank_width} if reranker is not None else {}),
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+    return {"ingest": ingest_launches, "queries": query_launches, "width": width,
+            "rerank_width": rerank_width, **out}
 
 
 def phase_large(torch, cfg, work: Path, items, seed: int) -> dict:
-    """The bge-large width (hidden 1,024, 24 layers, 16 heads of 64, FFN
-    4,096, K3's 1,024 design, the sweeps at D 1,024) through phase_wide,
+    """The bge-large width (hidden 1,024, LARGE_LAYERS of 24 layers, 16
+    heads of 64, FFN 4,096, K3's 1,024 design, the sweeps at D 1,024) through phase_wide,
     its indexes reloaded as int8 (K5) and into 4 shards (K7)."""
     return phase_wide(torch, cfg, work, items, seed + 40, label="large", shape=BGE_LARGE,
                       layers=LARGE_LAYERS, names=("bge-large", "gte-large"),
                       reloads=(INT8_RELOAD, SHARDED_RELOAD))
+
+
+def rerank_parity(rt, path: Path, texts, what: str) -> dict:
+    """The runtime's cross-encoder on the card (bf16) against the same
+    checkpoint on the CPU (f32, plain versions) on 16 (question, child)
+    pairs: logits within RERANK_LOGIT_TOL. A seeded random cross-encoder's
+    logits hardly vary across pairs (at TinyBERT-L-4's width their spread
+    is about as small as bf16's error), so the logits alone would pass a
+    reranker that ignored its input. Hence also the [CLS] hidden states
+    that feed the pooler: within RERANK_CLS_RTOL of the CPU's largest, and
+    a control, the card's forward with the padding mask ignored (every
+    position attended), must miss that bound."""
+    import numpy as np
+    import torch
+
+    from financial_rag_tpu_torch.models.bert import bert_forward
+    from financial_rag_tpu_torch.retrieval.rerank import CrossEncoderModel
+
+    sample = list(dict.fromkeys(texts))[:16]
+    pairs = [(GOLDEN_QUESTIONS[i % len(GOLDEN_QUESTIONS)], t) for i, t in enumerate(sample)]
+    model = getattr(rt.engine.reranker.model, "inner", rt.engine.reranker.model)
+    cpu_model = CrossEncoderModel.from_pretrained(str(path), device="cpu")
+    gpu = model.predict(pairs)
+    cpu = cpu_model.predict(pairs)
+    err = float(np.abs(gpu - cpu).max())
+    check(err <= RERANK_LOGIT_TOL, f"{what}: cross-encoder logits differ by {err}")
+
+    ids, mask, types = (torch.from_numpy(a) for a in cpu_model.pair_inputs(pairs))
+
+    def cls_states(m, attention_mask):
+        hidden = bert_forward(m.params, *(t.to(m.device) for t in (ids, attention_mask, types)),
+                              config=m.config, compute_dtype=m.compute_dtype)
+        return hidden[:len(pairs), 0].float().cpu()
+
+    want = cls_states(cpu_model, mask)
+
+    def rel(got) -> float:
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    cls_err, control = rel(cls_states(model, mask)), rel(cls_states(model, torch.ones_like(mask)))
+    check(cls_err <= RERANK_CLS_RTOL < control,
+          f"{what}: cross-encoder [CLS] states {cls_err} of the CPU's largest (bound "
+          f"{RERANK_CLS_RTOL}), the mask-ignored control {control} (must miss it)")
+    return {"cross_encoder_max_abs_err": err,
+            "cross_encoder_logit_range": [float(cpu.min()), float(cpu.max())],
+            "cross_encoder_cls_rel_err": cls_err,
+            "cross_encoder_control_mask_ignored_cls_rel_err": control,
+            "cross_encoder_cls_rtol": RERANK_CLS_RTOL}
+
+
+def http_search(rt, data: Path, questions, what: str) -> dict:
+    """``questions``, reworded past the result cache, posted one at a time
+    to /search on make_server (127.0.0.1, port 0) over ``rt``'s app: each
+    must answer 200 with documents. The server and the app's threads are
+    stopped before it returns."""
+    from financial_rag_tpu_torch.serving.app import make_server
+
+    app = rt.make_app(processor=rt.make_processor(data), data_dir=data)
+    server = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, name=f"chip-smoke-{what}", daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    ms = []
+    try:
+        for q in questions:
+            status, raw, t = _http(f"{base}/search", {"query": f"Over HTTP: {q}"})
+            body = json.loads(raw)
+            check(status == 200 and body.get("status") == "success" and body.get("documents"),
+                  f"{what}: /search {q!r} gave {status} {body.get('status')}")
+            ms.append(t)
+    finally:
+        server.shutdown()
+        server.server_close()
+        app.close()
+        thread.join(timeout=60)
+    return {"questions": len(ms), "ms": ms}
+
+
+def phase_narrow(torch, cfg, work: Path, items, seed: int) -> dict:
+    """Widths only the generic routes take, through phase_wide: BERT-Small's
+    (google/bert_uncased_L-4_H-512_A-8: 4 x 512, 8 heads of 64, FFN 2,048;
+    K3's generic route at 512, the sweeps at D 512 padded to 768) as the
+    baai (CLS) and gte (mean) encoders, beside a reranker at
+    ms-marco-TinyBERT-L-4's (4 x 312, 12 heads of 26, FFN 1,200: K2 padded
+    to 32, K3's generic route at 312); the indexes reloaded as int8 (K5 at
+    D 512)."""
+    return phase_wide(torch, cfg, work, items, seed + 50, label="narrow", shape=BERT_SMALL,
+                      layers=NARROW_LAYERS, names=("bert-small-baai", "bert-small-gte"),
+                      reloads=(INT8_RELOAD,),
+                      reranker=(TINYBERT_L4, NARROW_LAYERS, "tinybert-l4-ce"))
 
 
 # the large phase's launches the kernels line gives each kernel at w1024:
@@ -3734,6 +4094,38 @@ def phase_llm_d128(torch, cfg, work: Path, seed: int):
     return stats["launches"]
 
 
+def phase_llm_d100(torch, cfg, work: Path, seed: int) -> int:
+    """A decoder whose heads only K9's padded route takes, at full width: a
+    seeded random-weight checkpoint at open_llama_3b_v2's width
+    (LlamaForCausalLM, LLM_LAYERS of its 26 layers of 3,200, 32 heads of
+    100 with 32 kv heads, FFN 8,640, vocab 32,000, untied, no biases) with
+    a WordLevel tokenizer, served by serve_local_llm: 3 golden questions
+    through RAGEngine.query, K9 once a layer a prefill, every launch at
+    head_dim 100 (padded to 128); then phase_decoder_parity on its weights.
+    Returns K9's launches at head_dim 100."""
+    from financial_rag_tpu_torch.ops import causal_flash
+
+    t0 = time.perf_counter()
+    ckpt = work / "open-llama-3b"
+    write_llm_checkpoint(ckpt, OPEN_LLAMA_3B, seed + 22)
+    checkpoint_s = time.perf_counter() - t0
+    rt, llm, _, answers, stats = serve_local_llm(torch, cfg, work, ckpt, OPEN_LLAMA_3B, "llm_d100",
+                                                 GOLDEN_QUESTIONS[:3], ())
+    check(llm._dcfg.head_dim == 100, f"llm_d100: head_dim {llm._dcfg.head_dim}, not 100")
+    k9 = dict(causal_flash.HEAD_DIM_LAUNCHES)
+    k9_d100 = k9.get(100, 0)
+    check(k9_d100 > 0 and k9_d100 == stats["launches"]["causal_flash_prefill"],
+          f"llm_d100: K9 launches by head_dim {k9}, of {stats['launches']['causal_flash_prefill']}")
+    emit({"phase": "llm_d100", "model": f"open_llama_3b_v2 width, {LLM_LAYERS} layers, random "
+          f"weights, bf16", "checkpoint_write_s": checkpoint_s, **stats, "k9_launches": k9_d100,
+          "seconds": time.perf_counter() - t0, "answer_sample": answers[0]["answer"][:160]})
+    phase_decoder_parity(torch, rt, ckpt, phase="decoder_parity_d100")
+    del rt, llm
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return k9_d100
+
+
 CLI_SCRIPTS = ("ingest_all", "check_collections", "test_full_flow", "pc_retrieval_smoke",
                "pc_llm_answer", "recall_eval")
 CLI_PATH = LLM_PATH     # K1-K4 on ingest and queries, K9 on every prefill
@@ -3911,9 +4303,10 @@ def phase_llm_profile(torch, rt):
     check(any(n.startswith("causal_fwd_") for n in port), f"the profile saw no K9: {port}")
 
 
-def phase_decoder_parity(torch, rt, ckpt: Path):
-    """The same 0.5B weights through the port on the CPU (f32, K9's plain
-    version) against the card (bf16, K9) on one ~256-token left-padded
+def phase_decoder_parity(torch, rt, ckpt: Path, phase: str = "decoder_parity"):
+    """The same weights (the 0.5B's, or ``rt``'s local LLM's) through the
+    port on the CPU (f32, K9's plain version) against the card (bf16, K9) on
+    one ~256-token left-padded
     answer prompt. Two gates: the last-position logits' cosine (bf16
     activations through every layer drift by more than a fixed tolerance
     would allow on 151,936 logits) and, for each layer, the cosine of K9's
@@ -3984,16 +4377,16 @@ def phase_decoder_parity(torch, rt, ckpt: Path):
 
     got, real = readings(k9)
     ctrl = {name: readings(fn)[1] for name, fn in controls.items()}
-    out = {"phase": "decoder_parity", "prompt_tokens": len(ids), "bucket": s, "pad": pad, **real,
+    out = {"phase": phase, "prompt_tokens": len(ids), "bucket": s, "pad": pad, **real,
            "bars": {"logits_cosine": DECODER_LOGITS_COSINE,
                     "attention_cosine_min": DECODER_ATTENTION_COSINE},
            "top1_agree": int(got.argmax()) == int(want.argmax()),
            "max_abs_err": float((got - want).abs().max()),
            "logit_range": [float(want.min()), float(want.max())], "controls": ctrl}
     emit(out)
-    check(passes(real), f"decoder parity between the card and the CPU: {real}")
+    check(passes(real), f"{phase} between the card and the CPU: {real}")
     seen = [n for n, r in ctrl.items() if passes(r)]
-    check(not seen, f"decoder parity: the controls {seen} pass the gates, which cannot see them")
+    check(not seen, f"{phase}: the controls {seen} pass the gates, which cannot see them")
 
 
 # ------------------------------------------------------------- training
@@ -4274,6 +4667,73 @@ def phase_train_parity(torch, seed: int, cfg=None, phase: str = "train_parity"):
     seen = [n for n, r in controls.items() if passes(r)]
     check(not seen, f"{phase}: the controls {seen} pass the gates, which cannot see them")
     return float(want_loss), want, loss, card_grads
+
+
+NARROW_TRAIN_BATCH = (8, 4, 128)   # listwise groups, candidates a group, tokens
+
+
+def phase_train_narrow(torch, seed: int) -> int:
+    """One rerank_ft.make_rerank_train_step step at ms-marco-TinyBERT-L-4's
+    width (4 x 312, 12 heads of 26, FFN 1,200, one label), so K10 runs its
+    padded route (heads of 26 in 32) and K3 its generic route in a training
+    step: on the card in bf16 and on the CPU in f32 on the same seeded
+    weights and listwise batch (NARROW_TRAIN_BATCH, rows padded to random
+    lengths). Gates as phase_train_parity's: the loss within
+    TRAIN_LOSS_TOL, each leaf group's gradient cosine >= TRAIN_GRAD_COSINE,
+    K2, K10 and K3 once a layer; the control (K10's dQ zeroed) must fail.
+    Returns K10's launches at head_dim 26."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+    from financial_rag_tpu_torch.training import rerank_ft
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(name="tinybert-l4-ce", hidden_size=TINYBERT_L4["hidden_size"],
+                      num_layers=NARROW_LAYERS, num_heads=TINYBERT_L4["num_attention_heads"],
+                      intermediate_size=TINYBERT_L4["intermediate_size"], vocab_size=30522,
+                      max_position=512, num_labels=1)
+    params = random_params(cfg, seed=seed + 7)
+    batch = listwise_batch(np.random.default_rng(seed + 7), *NARROW_TRAIN_BATCH)
+    card, card_init = rerank_ft.make_rerank_train_step(cfg, device="cuda")
+    cpu, cpu_init = rerank_ft.make_rerank_train_step(cfg, device="cpu")
+    card_params, _ = card_init(params)
+    torch.set_num_threads(max(os.cpu_count() or 1, 1))
+    want_loss, want = cpu.value_and_grad(cpu_init(params)[0], batch)
+    k10 = fa.flash_attention_bwd
+
+    def readings(backward):
+        fa.flash_attention_bwd = backward
+        try:
+            reset_launches()
+            loss, grads = card.value_and_grad(card_params, batch)
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention_bwd = k10
+        return float(loss), grad_group_cosines(torch, grads, want), read_launches()
+
+    def dq_zeroed(q, k, v, bias, dout, **kw):
+        dq, dk, dv = k10(q, k, v, bias, dout, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    loss, real, launches = readings(k10)
+    check_train_launches(launches, 1, cfg.num_layers, 1, "train_narrow")
+    _, control, _ = readings(dq_zeroed)
+    emit({"phase": "train_narrow", "shape": f"{cfg.num_layers}L h{cfg.hidden_size}, "
+          f"{cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}, FFN "
+          f"{cfg.intermediate_size}", "batch": list(NARROW_TRAIN_BATCH),
+          "loss_card": loss, "loss_cpu": float(want_loss), "loss_tol": TRAIN_LOSS_TOL,
+          "grad_cosine": real, "bar": TRAIN_GRAD_COSINE, "controls": {"dq_zeroed": control},
+          "launches": {k: launches[k] for k in TRAIN_PATH},
+          "seconds": round(time.perf_counter() - t0, 1)})
+    check(abs(loss - float(want_loss)) <= TRAIN_LOSS_TOL,
+          f"train_narrow: loss {loss} vs {float(want_loss)}")
+    check(all(v >= TRAIN_GRAD_COSINE for v in real.values()),
+          f"train_narrow: gradient cosines {real}")
+    check(not all(v >= TRAIN_GRAD_COSINE for v in control.values()),
+          "train_narrow: the control (K10's dQ zeroed) passes the gates")
+    return launches["flash_attention_bwd"]
 
 
 # ------------------------------------------------------- tensor parallel
@@ -5379,6 +5839,7 @@ def main(argv=None) -> int:
             phase_parity(torch, rt, paths, texts)
             phase_wide(torch, cfg, work, items, args.seed)
             large = phase_large(torch, cfg, work, items, args.seed)
+            narrow = phase_narrow(torch, cfg, work, items, args.seed)
             mv_launches = phase_multivector(torch, work, paths, items, texts)
             phase_multivector_scale(torch, args.seed)
             rt_llm, ckpt, llm_launches = phase_llm(torch, cfg, work, args.seed)
@@ -5387,6 +5848,7 @@ def main(argv=None) -> int:
             del rt, rt_llm
             torch.cuda.empty_cache()
             k9_d128 = phase_llm_d128(torch, cfg, work, args.seed)["causal_flash_prefill"]
+            k9_d100 = phase_llm_d100(torch, cfg, work, args.seed)
             k9_tp = phase_decoder_tp(torch, args.seed, info)
             # each kernel's count from the path that serves it
             launches["causal_flash_prefill"] = llm_launches["causal_flash_prefill"]
@@ -5400,6 +5862,7 @@ def main(argv=None) -> int:
             launches["flash_attention_tp"], tp_bwd = phase_train_tp(torch, args.seed, info,
                                                                      want_loss, want)
             k10_d64, (k11_d64, k11_bwd_d64) = phase_train_wide(torch, args.seed, info)
+            k10_d26 = phase_train_narrow(torch, args.seed)
             launches["flash_attention_tp"] += k11_d64
             tp_bwd += k11_bwd_d64
             phase_cli(torch, work, args.seed)     # phase 4's checkpoints and corpus
@@ -5436,6 +5899,19 @@ def main(argv=None) -> int:
                 "ffn_three_call_ms", "topk_two_call_ms") if k in t1024}
             if name in LARGE_LAUNCHES:
                 kernels[-1]["launches_large"] = LARGE_LAUNCHES[name](large)
+        if f"{name}@generic" in timings:   # the generic route, with the new phases' launches
+            tg = timings[f"{name}@generic"]
+            kernels[-1]["generic"] = {k: tg[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "ffn_three_call_ms", "device_ms") if k in tg}
+            kernels[-1]["generic"]["launches"] = {
+                "flash_attention": {"narrow_width_312": narrow["rerank_width"].get(
+                    "flash_attention", 0)},
+                "fused_ffn": {"narrow_width_312": narrow["rerank_width"].get("fused_ffn", 0),
+                              "narrow_width_512": narrow["width"]["fused_ffn"]},
+                "causal_flash_prefill": {"llm_d100_head_dim_100": k9_d100},
+                "flash_attention_bwd": {"train_narrow_head_dim_26": k10_d26},
+            }.get(name, {})
         if "ffn_three_call_ms" in t:       # three calls, so not K3's library_ms
             kernels[-1]["ffn_three_call_ms"] = t["ffn_three_call_ms"]
         if "topk_two_call_ms" in t:        # two calls, so not K4's library_ms

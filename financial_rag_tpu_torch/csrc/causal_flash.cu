@@ -566,15 +566,19 @@ causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // q/out [B,S,Hq*D], k/v [B,S,Hkv*D], all bf16 or all f32 (dtype code), 16-byte
 // aligned; pad_len int32 [B] on the device; D = 64 or 128; Hq % Hkv == 0.
+// head_dim is the heads' true width, whose 1 / sqrt scales the scores: D, or
+// less where the caller zero-padded each head of q, k and v to D (zero
+// columns add nothing to q.k, and the output's padded columns come out zero).
 FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, const int* pad_len,
                                   void* out, int B, int S, int Hq, int Hkv, int D, int dtype,
-                                  void* stream) {
-  if (S < 1 || B < 1 || Hkv < 1 || Hq % Hkv || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+                                  int head_dim, void* stream) {
+  if (S < 1 || B < 1 || Hkv < 1 || Hq % Hkv || (D != 64 && D != 128) || head_dim < 1 || head_dim > D)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
   if (dtype == FRAG_BF16) {
     const dim3 grid((S * group + kBlockRows - 1) / kBlockRows, Hkv, B);
-    const float scale2 = (float)(1.4426950408889634 / sqrt((double)D));
+    const float scale2 = (float)(1.4426950408889634 / sqrt((double)head_dim));
     const auto* qb = static_cast<const __nv_bfloat16*>(q);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
@@ -607,7 +611,7 @@ FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, c
         qb, kb, vb, pad_len, ob, S, Hq, group, scale2);
   } else if (dtype == FRAG_F32) {
     const dim3 grid((S + kQTile - 1) / kQTile, Hq, B);
-    const float scale = (float)(1.0 / sqrt((double)D));
+    const float scale = (float)(1.0 / sqrt((double)head_dim));
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);

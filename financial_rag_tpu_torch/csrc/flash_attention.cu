@@ -596,8 +596,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
 
 template <int D>
 int launch_head(const void* q, const void* k, const void* v, const float* bias, void* out, int B,
-                int S, int H, int num_heads, cudaStream_t st) {
-  const float c = (float)(1.4426950408889634 / sqrt((double)D));
+                int S, int H, int num_heads, float c, cudaStream_t st) {
   return S <= kTile ? launch<1, D>(q, k, v, bias, out, B, S, H, num_heads, c, st)
                     : launch<2, D>(q, k, v, bias, out, B, S, H, num_heads, c, st);
 }
@@ -608,8 +607,7 @@ int launch_head(const void* q, const void* k, const void* v, const float* bias, 
 // 128 bytes in SW128, by rows: 128 query rows, 64 keys; rows past S
 // arrive as zeros)
 int launch_d64(const void* q, const void* k, const void* v, const float* bias, void* out, int B,
-               int S, int H, int num_heads, cudaStream_t st) {
-  const float c = (float)(1.4426950408889634 / sqrt((double)64));
+               int S, int H, int num_heads, float c, cudaStream_t st) {
   if (S <= kTile) return launch<1, 64>(q, k, v, bias, out, B, S, H, num_heads, c, st);
   using W = Wide;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
@@ -633,16 +631,21 @@ int launch_d64(const void* q, const void* k, const void* v, const float* bias, v
 
 }  // namespace
 
-// q/k/v/out [B,S,H] bf16 (H = num_heads * head_dim, head_dim 32 or 64),
-// 16-byte aligned; bias [B,S] f32.
+// q/k/v/out [B,S,H] bf16 (H = num_heads * the built width, 32 or 64),
+// 16-byte aligned; bias [B,S] f32. head_dim is the heads' true width, whose
+// 1 / sqrt scales the scores: the built width, or less where the caller
+// zero-padded each head to it (zero columns add nothing to q.k, and the
+// output's padded columns come out zero).
 FRAG_EXPORT int frag_flash_attention(const void* q, const void* k, const void* v,
                                      const float* bias, void* out, int B, int S, int H,
-                                     int num_heads, void* stream) {
-  if (num_heads < 1 || H % num_heads || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
+                                     int num_heads, int head_dim, void* stream) {
+  if (num_heads < 1 || H % num_heads || S < 1 || B < 1 || head_dim < 1 || head_dim > H / num_heads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float c = (float)(1.4426950408889634 / sqrt((double)head_dim));
   switch (H / num_heads) {
-    case 32: return launch_head<32>(q, k, v, bias, out, B, S, H, num_heads, st);
-    case 64: return launch_d64(q, k, v, bias, out, B, S, H, num_heads, st);
+    case 32: return launch_head<32>(q, k, v, bias, out, B, S, H, num_heads, c, st);
+    case 64: return launch_d64(q, k, v, bias, out, B, S, H, num_heads, c, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

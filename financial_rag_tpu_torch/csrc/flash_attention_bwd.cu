@@ -829,7 +829,8 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
 }
 
 int launch_fused(const void* q, const void* k, const void* v, const float* bias, const void* dout,
-                 void* dq, void* dk, void* dv, int B, int S, int H, int num_heads, cudaStream_t st) {
+                 void* dq, void* dk, void* dv, int B, int S, int H, int num_heads, float c,
+                 float scale, cudaStream_t st) {
   CUtensorMap maps[7];
   const void* src[7] = {q, k, v, dout, dq, dk, dv};
   const uint64_t dims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)B};
@@ -842,7 +843,6 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   const int sms = opted_sm_count(attn_bwd_fused_d64_kernel, kFusedSmemBytes, sm_counts);
   if (sms < 0) return -sms;
   const int items = B * num_heads;
-  const float scale = 0.125f, c = (float)(1.4426950408889634 / 8.0);  // 1 / sqrt(64)
   attn_bwd_fused_d64_kernel<<<min(items, sms), kFusedThreads, kFusedSmemBytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], bias, S, num_heads, items, c, scale);
   return (int)cudaGetLastError();
@@ -850,12 +850,14 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const float* bias, const void* dout, void* dq,
-           void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, cudaStream_t st) {
+           void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, float c, float scale,
+           cudaStream_t st) {
   using L = Layout<D>;
   constexpr int kMaxResident = L::kMaxResident;
   auto dq_kernel = attn_bwd_dq_kernel<D, 0>;
   if constexpr (D == 64) {
-    if (S <= kFusedMaxS) return launch_fused(q, k, v, bias, dout, dq, dk, dv, B, S, H, num_heads, st);
+    if (S <= kFusedMaxS)
+      return launch_fused(q, k, v, bias, dout, dq, dk, dv, B, S, H, num_heads, c, scale, st);
   } else {
     if (S <= kTile) dq_kernel = attn_bwd_dq_kernel<D, 1>;
     else if (S <= kMaxResident * kTile) dq_kernel = attn_bwd_dq_kernel<D, kMaxResident>;
@@ -871,8 +873,6 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
     }
   }
   const dim3 grid((S + kTile - 1) / kTile, num_heads, B);
-  const float scale = (float)(1.0 / sqrt((double)D));
-  const float c = (float)(1.4426950408889634 / sqrt((double)D));
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
@@ -890,19 +890,25 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
 
 }  // namespace
 
-// q/k/v/dout/dq/dk/dv [B,S,H] bf16 (H = num_heads * head_dim, head_dim 32 or
+// q/k/v/dout/dq/dk/dv [B,S,H] bf16 (H = num_heads * the built width, 32 or
 // 64), 16-byte aligned; bias [B,S] f32; stats: scratch of 2*B*num_heads*S
 // f32 (each query row's log-sum-exp relative to its batch row's largest key
 // bias, and D), written by the first kernel and read by the second.
+// head_dim is the heads' true width, whose 1 / sqrt scales the scores: the
+// built width, or less where the caller zero-padded q, k, v and dout to it
+// (the padded columns of dq, dk and dv then come out zero).
 FRAG_EXPORT int frag_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const float* bias, const void* dout, void* dq, void* dk,
                                          void* dv, float* stats, int B, int S, int H, int num_heads,
-                                         void* stream) {
-  if (num_heads < 1 || H % num_heads || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
+                                         int head_dim, void* stream) {
+  if (num_heads < 1 || H % num_heads || S < 1 || B < 1 || head_dim < 1 || head_dim > H / num_heads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = (float)(1.0 / sqrt((double)head_dim));
+  const float c = (float)(1.4426950408889634 / sqrt((double)head_dim));
   switch (H / num_heads) {
-    case 32: return launch<32>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, st);
-    case 64: return launch<64>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, st);
+    case 32: return launch<32>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, c, scale, st);
+    case 64: return launch<64>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, c, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

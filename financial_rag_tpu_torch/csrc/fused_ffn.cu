@@ -557,17 +557,20 @@ ffn_wide_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUt
   }
 }
 
-// y[n, c] = bf16(sum over s of partial[s, n, c], in s order, + b2[c])
+// y[n, c] = bf16(sum over s of partial[s, n, c], in s order, + b2[c]) over
+// rows of H columns: the compile-time H of a tuned width, else (H = 0) the
+// run-time h
 template <int H>
 __global__ void __launch_bounds__(kReduceThreads)
 ffn_reduce_kernel(const float* __restrict__ partial, const __nv_bfloat16* __restrict__ b2,
-                  __nv_bfloat16* __restrict__ y, int N, int splits) {
-  const size_t total = (size_t)N * H;
+                  __nv_bfloat16* __restrict__ y, int N, int splits, int h) {
+  const int width = H > 0 ? H : h;
+  const size_t total = (size_t)N * width;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int s = 0; s < splits; ++s) v += partial[(size_t)s * total + e];
-    y[e] = __float2bfloat16(v + __bfloat162float(b2[e % H]));
+    y[e] = __float2bfloat16(v + __bfloat162float(b2[e % width]));
   }
 }
 
@@ -612,7 +615,7 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int blocks = (int)(((size_t)N * H + kReduceThreads - 1) / kReduceThreads);
   ffn_reduce_kernel<H><<<blocks, kReduceThreads, 0, st>>>(
-      partial, static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), N, splits);
+      partial, static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), N, splits, H);
   return (int)cudaGetLastError();
 }
 
@@ -622,7 +625,20 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
 // W1, out = h = bf16(gelu(. + b1)) [N][I]; the second A = h, B = W2, out =
 // y = bf16(. + b2), or, with its K axis split, f32 partials that
 // ffn_reduce_kernel<1024> sums in split order.
-constexpr int kGH = 1024;                 // hidden width of the large design
+//
+// Every other width (the generic route: TinyBERT's 312 / 1,200, the BERT
+// miniatures' 128 to 512, 2,048, or 1,024 with I not whole 64-wide steps)
+// runs the same two products with run-time extents: any H and I that are
+// multiples of 8 (rows of whole 16-byte chunks, as the TMA needs). The k
+// steps are rounded up, and a last stage's k past K reads as the TMA's
+// zeros in both operands (the stage still counts its whole box of bytes).
+// Where the output columns are whole 64-column blocks (1,024, 512, 2,048)
+// B and out are the 3-D maps below; otherwise a 64-column block would run
+// into the next row, so they are 2-D maps over [K][ncols] and [M][ncols],
+// read and written one 64-column box at a time, with the columns past the
+// matrix read as zeros and not written. The bias loads stop at ncols.
+constexpr int kGH = 1024;                 // hidden width of the large design (its reduce is built for it)
+constexpr int kGGranule = 8;              // the generic route's H and I: multiples of 8 (16-byte rows)
 constexpr int kGTokens = 128;             // token rows of a tile: 64 a consumer warpgroup
 constexpr int kGDepth = 64;               // k a ring stage holds: 128-byte rows, SW128
 constexpr int kGWideCols = 256;           // output columns of a wide tile (128 accumulators a thread)
@@ -649,7 +665,8 @@ constexpr int kGConsumerRegs = 232;       // and the consumers'
 // swizzle, K-major; rows past M read as zeros) and the B tile [64][BN] as
 // BN / 64 blocks of [64 k][64 columns] (a 3-D TMA box, 128-byte swizzle,
 // read MN-major through the transpose bit; columns past the matrix read as
-// zeros); its bytes complete the stage's full mbarrier. Each consumer
+// zeros; one 2-D box a block where `blocked` is false); its bytes complete
+// the stage's full mbarrier. Each consumer
 // warpgroup multiplies its 64 rows of the stage (4 x wgmma m64nBNk16), keeps
 // one stage's products in flight (wgmma.wait_group 1) and releases the stage
 // before through its empty mbarrier (lane 0 of each warp). After the last
@@ -663,7 +680,7 @@ template <int BN, bool kGelu>
 __global__ void __launch_bounds__(kGThreads, 1)
 ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_out, const __nv_bfloat16* __restrict__ bias,
-                 float* __restrict__ partial, int M, int ncols, int K, int splits) {
+                 float* __restrict__ partial, int M, int ncols, int K, int splits, bool blocked) {
   constexpr int kStages = BN == kGWideCols ? kGWideStages : kGNarrowStages;
   constexpr int kStageBytes = BN == kGWideCols ? kGWideStageBytes : kGNarrowStageBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -672,7 +689,7 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
   const uint32_t sStaging = sRing + kStages * kStageBytes;
   const int ntiles = (ncols + BN - 1) / BN;
   const int units = (M + kGTokens - 1) / kGTokens * ntiles * splits;
-  const int steps = K / splits / kGDepth;   // k steps of a unit
+  const int steps = (K + kGDepth - 1) / kGDepth / splits;   // k steps of a unit
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -696,9 +713,20 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
           const int st = it % kStages, k0 = (split * steps + ks) * kGDepth;
           if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
           const uint32_t a = sRing + st * kStageBytes;
-          mbar_expect_tx(&full[st], kStageBytes);
-          tma_load_2d(a, &tm_a, k0, m * kGTokens, &full[st]);
-          tma_load_3d(a + kGABytes, &tm_b, 0, k0, n * (BN / 64), &full[st]);
+          if (blocked) {
+            mbar_expect_tx(&full[st], kStageBytes);
+            tma_load_2d(a, &tm_a, k0, m * kGTokens, &full[st]);
+            tma_load_3d(a + kGABytes, &tm_b, 0, k0, n * (BN / 64), &full[st]);
+          } else {
+            // the 64-column blocks that hold a column of B; a block wholly
+            // past ncols is not loaded, and only the output columns it feeds
+            // (never stored) read its stale bytes
+            const int live = min(BN / 64, (ncols - n * BN + 63) / 64);
+            mbar_expect_tx(&full[st], kGABytes + live * kGDepth * 128);
+            tma_load_2d(a, &tm_a, k0, m * kGTokens, &full[st]);
+            for (int j = 0; j < live; ++j)
+              tma_load_2d(a + kGABytes + j * kGDepth * 128, &tm_b, n * BN + 64 * j, k0, &full[st]);
+          }
         }
       }
     }
@@ -758,7 +786,7 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
 #pragma unroll
         for (int jj = 0; jj < kGOutCols / 8; ++jj) {
           const int j = half * (kGOutCols / 8) + jj, col = n * BN + 8 * j + 2 * tig;
-          const bool in = col < ncols;   // ncols is whole 64-column blocks: col + 1 too
+          const bool in = col < ncols;   // ncols is even (whole 16-byte chunks): col + 1 too
           const float b0 = in ? __bfloat162float(bias[col]) : 0.f;
           const float b1 = in ? __bfloat162float(bias[col + 1]) : 0.f;
 #pragma unroll
@@ -783,7 +811,13 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
         fence_proxy_async();   // the stores, before the TMA reads them
         named_barrier(1 + wg, 128);
         if (issuer) {
-          tma_store_3d(&tm_out, staging, 0, m * kGTokens + 64 * wg, (n * BN + half * kGOutCols) / 64);
+          const int row0 = m * kGTokens + 64 * wg, col0 = n * BN + half * kGOutCols;
+          if (blocked) {
+            tma_store_3d(&tm_out, staging, 0, row0, col0 / 64);
+          } else {
+            for (int j = 0; j < kGOutCols / 64 && col0 + 64 * j < ncols; ++j)
+              tma_store_2d(&tm_out, staging + j * 64 * 128, col0 + 64 * j, row0);
+          }
           bulk_commit();
         }
       }
@@ -807,7 +841,7 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
 
 // One product of the large design: A [M][K] (x or h), B [K][ncols] (W1 or
 // W2), BN columns a tile, a persistent grid of one block an SM (or one a
-// unit, if fewer).
+// unit, if fewer). K and ncols are multiples of 8.
 template <int BN, bool kGelu>
 int launch_large_product(const void* a, const void* b, const void* bias, void* out, float* partial,
                          int M, int ncols, int K, int splits, cudaStream_t st) {
@@ -815,21 +849,26 @@ int launch_large_product(const void* a, const void* b, const void* bias, void* o
   static std::atomic<int> sm_cache[kMaxDevices];
   const int sms = opted_sm_count(ffn_large_kernel<BN, kGelu>, smem, sm_cache);
   if (sms < 0) return -sms;
-  // A [M][K] in boxes of 128 x 64; B [K][ncols] as [64-column block][K][64]
-  // in boxes of BN / 64 blocks of 64 x 64; out [M][ncols] the same way in
-  // boxes of 2 blocks of 64 x 64 (a warpgroup's staging tile)
+  // A [M][K] in boxes of 128 x 64. Whole 64-column blocks: B [K][ncols] as
+  // [64-column block][K][64] in boxes of BN / 64 blocks of 64 x 64, out
+  // [M][ncols] the same way in boxes of 2 blocks of 64 x 64 (a warpgroup's
+  // staging tile); else both 2-D in boxes of 64 x 64
   CUtensorMap tm_a, tm_b, tm_out;
+  const bool blocked = ncols % 64 == 0;
   const uint64_t b_dims[3] = {64, (uint64_t)K, (uint64_t)ncols / 64}, b_strides[2] = {(uint64_t)ncols * 2, 128};
   const uint64_t out_dims[3] = {64, (uint64_t)M, (uint64_t)ncols / 64};
   const uint32_t b_box[3] = {64, kGDepth, BN / 64}, out_box[3] = {64, 64, kGOutCols / 64};
-  if (!hopper::tensor_map_2d(&tm_a, a, M, K, kGTokens, kGDepth, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hopper::tensor_map_3d(&tm_b, b, b_dims, b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hopper::tensor_map_3d(&tm_out, out, out_dims, b_strides, out_box, CU_TENSOR_MAP_SWIZZLE_128B))
+  const bool mapped =
+      blocked ? hopper::tensor_map_3d(&tm_b, b, b_dims, b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+                    hopper::tensor_map_3d(&tm_out, out, out_dims, b_strides, out_box, CU_TENSOR_MAP_SWIZZLE_128B)
+              : hopper::tensor_map_2d(&tm_b, b, K, ncols, kGDepth, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
+                    hopper::tensor_map_2d(&tm_out, out, M, ncols, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!mapped || !hopper::tensor_map_2d(&tm_a, a, M, K, kGTokens, kGDepth, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   const long units = (long)((M + kGTokens - 1) / kGTokens) * ((ncols + BN - 1) / BN) * splits;
   const int grid = (int)(units < sms ? units : sms);
   ffn_large_kernel<BN, kGelu><<<grid, kGThreads, smem, st>>>(
-      tm_a, tm_b, tm_out, static_cast<const __nv_bfloat16*>(bias), partial, M, ncols, K, splits);
+      tm_a, tm_b, tm_out, static_cast<const __nv_bfloat16*>(bias), partial, M, ncols, K, splits, blocked);
   return (int)cudaGetLastError();
 }
 
@@ -850,30 +889,41 @@ FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
   }
 }
 
-// Hidden 1,024. Shapes as frag_fused_ffn's with H = 1,024, I a multiple of
-// 64; h [N,I] bf16 scratch (16-byte aligned), partial [splits,N,1024] f32
-// scratch (unused when splits is 1). up_cols and down_cols (128 or 256) are
-// the two products' tile widths; splits divides the second product's I / 64
+// Hidden 1,024 and the generic route. Shapes as frag_fused_ffn's with H and
+// I multiples of 8 (H = 1,024 with I a multiple of 64 is the tuned width);
+// h [N,I] bf16 scratch (16-byte aligned), partial [splits,N,H] f32 scratch
+// (unused when splits is 1). up_cols and down_cols (128 or 256) are the two
+// products' tile widths; splits divides the second product's ceil(I / 64)
 // k steps.
 FRAG_EXPORT int frag_fused_ffn_large(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* y, void* h,
-                                     float* partial, int N, int I, int up_cols, int down_cols,
-                                     int splits, void* stream) {
+                                     float* partial, int N, int H, int I, int up_cols,
+                                     int down_cols, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto cols_ok = [](int c) { return c == kGWideCols || c == kGNarrowCols; };
-  if (N < 1 || I < kGDepth || I % kGDepth || splits < 1 || (I / kGDepth) % splits || h == nullptr ||
+  const int steps = (I + kGDepth - 1) / kGDepth;
+  if (N < 1 || H < kGGranule || H % kGGranule || I < kGGranule || I % kGGranule || splits < 1 ||
+      steps % splits || h == nullptr ||
       !cols_ok(up_cols) || !cols_ok(down_cols) || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   int err = up_cols == kGWideCols
-                ? launch_large_product<kGWideCols, true>(x, w1, b1, h, nullptr, N, I, kGH, 1, st)
-                : launch_large_product<kGNarrowCols, true>(x, w1, b1, h, nullptr, N, I, kGH, 1, st);
+                ? launch_large_product<kGWideCols, true>(x, w1, b1, h, nullptr, N, I, H, 1, st)
+                : launch_large_product<kGNarrowCols, true>(x, w1, b1, h, nullptr, N, I, H, 1, st);
   if (err) return err;
   err = down_cols == kGWideCols
-            ? launch_large_product<kGWideCols, false>(h, w2, b2, y, partial, N, kGH, I, splits, st)
-            : launch_large_product<kGNarrowCols, false>(h, w2, b2, y, partial, N, kGH, I, splits, st);
+            ? launch_large_product<kGWideCols, false>(h, w2, b2, y, partial, N, H, I, splits, st)
+            : launch_large_product<kGNarrowCols, false>(h, w2, b2, y, partial, N, H, I, splits, st);
   if (err || splits == 1) return err;
-  const int blocks = (int)(((size_t)N * kGH + kReduceThreads - 1) / kReduceThreads);
-  ffn_reduce_kernel<kGH><<<blocks, kReduceThreads, 0, st>>>(
-      partial, static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(y), N, splits);
+  const int blocks = (int)(((size_t)N * H + kReduceThreads - 1) / kReduceThreads);
+  const auto* b2b = static_cast<const __nv_bfloat16*>(b2);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  // at 1,024 the compile-time width's reduce, whose e % H is a mask and not a
+  // 64-bit division: 0.0036 against the run-time width's 0.0040 ms at a
+  // query's 512 tokens, 4 splits (kernel_ab.py device time, the same bits;
+  // NVIDIA H100 80GB HBM3, 700 W)
+  if (H == kGH)
+    ffn_reduce_kernel<kGH><<<blocks, kReduceThreads, 0, st>>>(partial, b2b, yb, N, splits, H);
+  else
+    ffn_reduce_kernel<0><<<blocks, kReduceThreads, 0, st>>>(partial, b2b, yb, N, splits, H);
   return (int)cudaGetLastError();
 }

@@ -6,17 +6,26 @@ financial_rag_tpu/ops/causal_flash.py, in its layout: q ``[B,S,Hq*D]``, k and
 v ``[B,S,Hkv*D]`` with the heads interleaved along the last axis, and a
 per-row left-pad length instead of a mask tensor (the serving prompts are
 contiguously left-padded).
+
+The kernels are built for heads of 64 and 128 (``KERNEL_HEAD_DIMS``). A
+narrower head (open_llama_3b's 100, 80, 96) is zero-padded to the next built
+width in a copy made by the wrapper, and the kernel is told the true
+head_dim, whose 1 / sqrt scales the scores; the output's padded columns
+come out zero and are dropped. Heads wider than 128 are refused.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
-from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, built_head_dim, pad_heads, unpad_heads
 
 LAUNCHES = 0
-KERNEL_HEAD_DIMS = (64, 128)  # the head widths the CUDA kernel is built for
+HEAD_DIM_LAUNCHES: Counter = Counter()  # launches by true head_dim (each also counts in LAUNCHES)
+KERNEL_HEAD_DIMS = (64, 128)  # the head widths the CUDA kernel is built for; narrower heads are padded
 
 
 def causal_flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,7 +61,8 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Rows inside the left padding (position < pad_len) are written as zeros
     by both the kernel and the plain version; no caller reads them. The
     CUDA kernel takes bf16 or f32 (all three of q, k, v alike) at head_dim
-    64 or 128; ``pad_len`` stays on the device (no host sync).
+    up to 128 (narrower heads zero-padded to 64 or 128); ``pad_len`` stays
+    on the device (no host sync).
     """
     if q.device.type == "cpu":
         return causal_flash_prefill_plain(q, k, v, pad_len, num_q_heads=num_q_heads,
@@ -66,8 +76,10 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{num_q_heads} query heads over {num_kv_heads} kv heads "
                          f"do not divide width {hq}")
     d = hq // num_q_heads
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    width = built_head_dim(d, KERNEL_HEAD_DIMS)
+    if width is None:
+        raise ValueError(f"the CUDA kernel (K9) takes head_dim <= {KERNEL_HEAD_DIMS[-1]} "
+                         f"(zero-padded to {' or '.join(map(str, KERNEL_HEAD_DIMS))}), got {d}")
     if k.shape != (b, s, num_kv_heads * d) or v.shape != k.shape:
         raise ValueError(f"k and v must be [B,S,Hkv*D] = {(b, s, num_kv_heads * d)}, "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -81,11 +93,14 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel_lib.require_contiguous("causal_flash_prefill", q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("causal_flash_prefill kernel needs 16-byte aligned q, k and v")
+    q = pad_heads(q, num_q_heads, width)
+    k, v = (pad_heads(t, num_kv_heads, width) for t in (k, v))
     out = torch.empty_like(q)
     kernel_lib.launch("causal_flash_prefill", "frag_causal_flash", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
                       kernel_lib.ptr(pad), kernel_lib.ptr(out),
-                      b, s, num_q_heads, num_kv_heads, d, code)
+                      b, s, num_q_heads, num_kv_heads, width, code, d)
     with LAUNCH_LOCK:
         LAUNCHES += 1
-    return out
+        HEAD_DIM_LAUNCHES[d] += 1
+    return unpad_heads(out, num_q_heads, d)

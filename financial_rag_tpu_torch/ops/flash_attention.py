@@ -20,6 +20,14 @@ count, with no collective. It counts its own launches in ``TP_LAUNCHES``
 and ``TP_BWD_LAUNCHES``, beside K2's and K10's. ``WIDTH_LAUNCHES`` counts
 K2's launches again by the width of q (heads x head_dim), so a process that
 runs encoders of two widths can tell their launches apart.
+
+The kernels are built for heads of 32 and 64 (``FWD_HEAD_DIMS``,
+``BWD_HEAD_DIMS``). A narrower head (TinyBERT-L-4's 26, 16, 48) is
+zero-padded to the next built width in a copy made by the wrapper
+(``ops.common.pad_heads``), and the kernel is told the true head_dim, whose
+1 / sqrt scales the scores: zero columns add nothing to q.k, the output's
+padded columns (and in the backward those of dq, dk and dv) come out zero,
+and the wrapper drops them. Heads wider than 64 are refused.
 """
 
 from __future__ import annotations
@@ -29,15 +37,15 @@ from collections import Counter
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
-from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, built_head_dim, pad_heads, unpad_heads
 
 LAUNCHES = 0        # K2, the forward
 BWD_LAUNCHES = 0    # K10, the backward
 TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
 TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
 WIDTH_LAUNCHES: Counter = Counter()  # K2's launches by q's width (each also counts in LAUNCHES)
-FWD_HEAD_DIMS = (32, 64)  # the head widths K2 (the forward) is built for
-BWD_HEAD_DIMS = (32, 64)  # the head widths K10 (the backward) is built for
+FWD_HEAD_DIMS = (32, 64)  # the head widths K2 (the forward) is built for; narrower heads are padded
+BWD_HEAD_DIMS = (32, 64)  # the head widths K10 (the backward) is built for; likewise
 FWD_WIDE_KEYS = 64        # keys a K/V tile of K2's head_dim-64 kernel (csrc Wide::kKeys)
 FUSED_BWD_MAX_S = 128     # the longest row K10's fused head_dim-64 kernel takes
 
@@ -93,9 +101,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fwd_kernel(s: int, head_dim: int) -> str:
     """The kernel K2 launches for rows of S keys at ``head_dim``, by its
     name in csrc/flash_attention.cu: ``attn_fwd_d64_kernel`` (TMA,
-    FWD_WIDE_KEYS-key tiles) at head_dim 64 above S = 64, else
+    FWD_WIDE_KEYS-key tiles) at the built width 64 above S = 64, else
     ``attn_fwd_kernel``."""
-    return "attn_fwd_d64_kernel" if head_dim == 64 and s > 64 else "attn_fwd_kernel"
+    return ("attn_fwd_d64_kernel" if built_head_dim(head_dim, FWD_HEAD_DIMS) == 64 and s > 64
+            else "attn_fwd_kernel")
 
 
 def fwd_block(s: int, head_dim: int):
@@ -131,7 +140,9 @@ def bwd_launch_plan(s: int, head_dim: int):
     64-row tiles each, the P and dS tiles of two query by two key tiles and
     dq's two staging tiles, all rows of 2 * head_dim bytes, and 1 KB of
     alignment; no scratch. ``two kernels`` otherwise: the dQ kernel, then
-    the dK/dV kernel, joined by the scratch of :func:`bwd_scratch_shape`."""
+    the dK/dV kernel, joined by the scratch of :func:`bwd_scratch_shape`.
+    A head narrower than a built width takes that width's path."""
+    head_dim = built_head_dim(head_dim, BWD_HEAD_DIMS)
     if head_dim == 64 and s <= FUSED_BWD_MAX_S:
         tile = 64 * 2 * head_dim
         smem = 2 * 4 * 2 * tile + 2 * 4 * tile + 2 * tile + 1024
@@ -148,13 +159,16 @@ def bwd_scratch_shape(b: int, s: int, num_heads: int) -> tuple:
 
 def _kernel_inputs(name: str, kernel: str, head_dims: tuple, q, k, v, mask_bias,
                    num_heads: int, *extra):
-    """Checks what the kernels take; returns (the [B,S] f32 bias, device)."""
+    """Checks what the kernels take; returns (the [B,S] f32 bias, device,
+    the built width the heads run at)."""
     b, s, h = q.shape
     if k.shape != q.shape or v.shape != q.shape or any(t.shape != q.shape for t in extra):
         raise ValueError(f"{name}: q, k, v (and dout) must share one [B,S,H] shape")
-    if h % num_heads or h // num_heads not in head_dims:
-        raise ValueError(f"{name}: the CUDA kernel ({kernel}) takes head_dim "
-                         f"{' or '.join(map(str, head_dims))}, got H={h} over {num_heads} heads")
+    width = built_head_dim(h // num_heads, head_dims) if h % num_heads == 0 else None
+    if width is None:
+        raise ValueError(f"{name}: the CUDA kernel ({kernel}) takes head_dim <= {head_dims[-1]} "
+                         f"(zero-padded to {' or '.join(map(str, head_dims))}), got H={h} over "
+                         f"{num_heads} heads")
     for i, t in enumerate((q, k, v, *extra)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} kernel takes bfloat16, input {i} is {t.dtype}")
@@ -163,7 +177,7 @@ def _kernel_inputs(name: str, kernel: str, head_dims: tuple, q, k, v, mask_bias,
     kernel_lib.require_contiguous(name, q, k, v, *extra)
     if any(t.data_ptr() % 16 for t in (q, k, v, *extra)):
         raise ValueError(f"{name} kernel needs 16-byte aligned inputs")
-    return bias, dev
+    return bias, dev, width
 
 
 def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tensor:
@@ -171,12 +185,15 @@ def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tens
         return flash_attention_plain(q, k, v, mask_bias, num_heads=num_heads)
     global LAUNCHES, TP_LAUNCHES
     b, s, h = q.shape
-    bias, dev = _kernel_inputs("flash_attention", "K2", FWD_HEAD_DIMS, q, k, v, mask_bias,
-                                num_heads)
+    bias, dev, width = _kernel_inputs("flash_attention", "K2", FWD_HEAD_DIMS, q, k, v, mask_bias,
+                                      num_heads)
+    q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
     out = torch.empty_like(q)
     kernel_lib.launch("flash_attention", "frag_flash_attention", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
-                      kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, h, num_heads)
+                      kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, num_heads * width,
+                      num_heads, h // num_heads)
+    out = unpad_heads(out, num_heads, h // num_heads)
     with LAUNCH_LOCK:
         LAUNCHES += 1
         TP_LAUNCHES += tp
@@ -188,23 +205,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_bias: torch.Tensor, dout: torch.Tensor, *,
                         num_heads: int, tp: bool = False):
     """(dq, dk, dv) of :func:`flash_attention` at dout, each [B,S,H] in
-    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim 32 or 64. ``tp``: the
-    launch is K11's backward and counts in TP_BWD_LAUNCHES too."""
+    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim up to 64 (narrower
+    heads zero-padded to 32 or 64). ``tp``: the launch is K11's backward and
+    counts in TP_BWD_LAUNCHES too."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask_bias, dout, num_heads=num_heads)
     global BWD_LAUNCHES, TP_BWD_LAUNCHES
     kernel_lib.require_no_grad("flash_attention_bwd", q, k, v, dout)
     b, s, h = q.shape
     dout = dout.to(q.dtype).contiguous()
-    bias, dev = _kernel_inputs("flash_attention_bwd", "K10", BWD_HEAD_DIMS, q, k, v, mask_bias,
-                                num_heads, dout)
+    bias, dev, width = _kernel_inputs("flash_attention_bwd", "K10", BWD_HEAD_DIMS, q, k, v,
+                                      mask_bias, num_heads, dout)
+    q, k, v, dout = (pad_heads(t, num_heads, width) for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = None   # the fused kernel needs no scratch
-    if bwd_launch_plan(s, h // num_heads)[0] == "two kernels":
+    if bwd_launch_plan(s, width)[0] == "two kernels":
         stats = torch.empty(bwd_scratch_shape(b, s, num_heads), dtype=torch.float32, device=dev)
     kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
                       *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv)),
-                      None if stats is None else kernel_lib.ptr(stats), b, s, h, num_heads)
+                      None if stats is None else kernel_lib.ptr(stats), b, s, num_heads * width,
+                      num_heads, h // num_heads)
+    dq, dk, dv = (unpad_heads(t, num_heads, h // num_heads) for t in (dq, dk, dv))
     with LAUNCH_LOCK:
         BWD_LAUNCHES += 1
         TP_BWD_LAUNCHES += tp
@@ -234,7 +255,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask_bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
     """Fused multi-head self-attention. Returns [B, S, H] in q.dtype.
     Differentiable in q, k and v. The CUDA kernels take bf16: the forward
-    (K2) and the backward (K10) at head_dim 32 or 64."""
+    (K2) and the backward (K10) at head_dim up to 64."""
     return FlashAttention.apply(q, k, v, mask_bias, num_heads)
 
 

@@ -7,7 +7,10 @@ keeps the [N, I] intermediate h on chip, as the TPU kernel does; at 1,024
 (bge-large, gte-large) h goes through device memory between two kernels
 with fused epilogues (``frag_fused_ffn_large``), since a register-resident
 y does not fit a block there and h's round trip (16 KB a token against
-16.8 MFLOP) stays under the products' time. Its backward is
+16.8 MFLOP) stays under the products' time. Every other width whose rows
+are whole 16-byte chunks (H and I multiples of 8: TinyBERT's 312 / 1,200,
+the BERT miniatures' 128 to 512, 2,048) takes the generic route, the same
+two products with run-time extents (:func:`kernel_route`). Its backward is
 :func:`fused_ffn_bwd`, the JAX package's rematerialising backward
 (financial_rag_tpu/ops/fused_ffn.py ``_core_bwd``, XLA there, so plain
 f32 matmuls here): it recomputes the intermediate from the saved x instead
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from financial_rag_tpu_torch.ops import kernel_lib
-from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, round_up
+from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, cdiv, round_up
 
 LAUNCHES = 0
 WIDTH_LAUNCHES: Counter = Counter()  # launches by hidden width (each also counts in LAUNCHES)
@@ -51,16 +54,31 @@ LARGE_NARROW_STAGES = 6  # or 6 of a 128 x 64 and a 64 x 128 one
 LARGE_MIN_STEPS = 4    # k steps a split block of the second product walks at least
 LARGE_THREADS = 384    # two consumer warpgroups and a producer warpgroup
 LARGE_OUT_COLS = 128   # output columns a consumer warpgroup stages for one TMA store
+GENERIC_GRANULE = 8   # the generic route's H and I: rows of whole 16-byte chunks (the TMA's)
 # hidden width -> (tokens a block, I granule, fewest granules a split block walks)
 KERNEL_TILING = {KERNEL_HIDDEN: (KERNEL_TOKENS, KERNEL_CHUNK, KERNEL_MIN_CHUNKS),
                  WIDE_HIDDEN: (WIDE_TOKENS, WIDE_CHUNK, WIDE_MIN_CHUNKS),
                  LARGE_HIDDEN: (LARGE_TOKENS, LARGE_DEPTH, LARGE_MIN_STEPS)}
 
 
+def kernel_route(h_dim: int, i_dim: int):
+    """The CUDA route of hidden ``h_dim`` with intermediate ``i_dim``:
+    ``"fused"`` (``frag_fused_ffn``, h on chip) at 384 and 768 with I a
+    whole number of that design's chunks, ``"large"`` (the two products of
+    ``frag_fused_ffn_large``) at 1,024 with I a multiple of 64, else
+    ``"generic"`` (the same two products at run-time extents) where H and I
+    are multiples of GENERIC_GRANULE; None where no route takes them."""
+    if h_dim in KERNEL_TILING and i_dim > 0 and i_dim % KERNEL_TILING[h_dim][1] == 0:
+        return "large" if h_dim == LARGE_HIDDEN else "fused"
+    if h_dim > 0 and i_dim > 0 and h_dim % GENERIC_GRANULE == 0 and i_dim % GENERIC_GRANULE == 0:
+        return "generic"
+    return None
+
+
 def kernel_takes(h_dim: int, i_dim: int) -> bool:
-    """Whether the CUDA kernel is built for hidden ``h_dim`` with
-    intermediate ``i_dim`` (a whole number of that design's chunks)."""
-    return h_dim in KERNEL_TILING and i_dim > 0 and i_dim % KERNEL_TILING[h_dim][1] == 0
+    """Whether a CUDA route takes hidden ``h_dim`` with intermediate
+    ``i_dim``."""
+    return kernel_route(h_dim, i_dim) is not None
 
 
 def split_count(tiles: int, chunks: int, sms: int, min_chunks: int = KERNEL_MIN_CHUNKS) -> int:
@@ -96,34 +114,43 @@ def wide_split_count(tiles: int, chunks: int, sms: int, min_chunks: int = WIDE_M
 
 def launch_plan(n: int, h_dim: int, i_dim: int, sms: int):
     """K3's launch for n tokens: (tokens a block, I chunk, splits); at 384
-    and 768 the grid is one block a token tile and split, at 1,024 see
-    :func:`large_launch_plan`."""
+    and 768 the grid is one block a token tile and split, at 1,024 and on
+    the generic route see :func:`large_launch_plan`."""
+    if kernel_route(h_dim, i_dim) in ("large", "generic"):
+        return LARGE_TOKENS, LARGE_DEPTH, large_launch_plan(n, i_dim, sms, h_dim)[2]
     tokens, chunk, min_chunks = KERNEL_TILING[h_dim]
-    if h_dim == LARGE_HIDDEN:
-        return tokens, chunk, large_launch_plan(n, i_dim, sms)[2]
     tiles = round_up(n, tokens) // tokens
     count = wide_split_count if h_dim == WIDE_HIDDEN else split_count
     return tokens, chunk, count(tiles, i_dim // chunk, sms, min_chunks)
 
 
-def large_launch_plan(n: int, i_dim: int, sms: int):
-    """(first product's tile columns, second product's, splits) of the
-    1,024 design for n tokens, I = i_dim, on ``sms`` SMs. Each product is a
-    persistent grid of one block an SM over tiles of 128 tokens. The first
-    product (N x I) takes 256-column tiles unless the 128-column ones still
-    fit one wave, as at a query's 4 token tiles (64 tiles of 256 columns,
-    128 of 128). The second (N x 1,024) takes 256-column tiles from one
-    wave of them on; below, 128-column ones, with its K axis (I / 64 steps)
-    split the most ways (a divisor, each split at least LARGE_MIN_STEPS
-    steps) that keep the grid in one wave: f32 partials, summed in split
-    order by the reduce. 512 tokens: (128, 128, 4); 34,816: (256, 256, 1)."""
-    tiles = round_up(n, LARGE_TOKENS) // LARGE_TOKENS
-    up_cols = (LARGE_NARROW_COLS if tiles * -(-i_dim // LARGE_NARROW_COLS) <= sms
-               else LARGE_WIDE_COLS)
-    if tiles * (LARGE_HIDDEN // LARGE_WIDE_COLS) >= sms:
+def wide_tiles_fit(cols: int) -> bool:
+    """Whether 256-column tiles leave no more columns idle than 128-column
+    ones over ``cols`` output columns (1,024, 1,200, 2,048: yes; 128, 312:
+    no)."""
+    return round_up(cols, LARGE_WIDE_COLS) == round_up(cols, LARGE_NARROW_COLS)
+
+
+def large_launch_plan(n: int, i_dim: int, sms: int, h_dim: int = LARGE_HIDDEN):
+    """(first product's tile columns, second product's, splits) of the two
+    products for n tokens at hidden ``h_dim`` (the 1,024 design, or the
+    generic route), I = i_dim, on ``sms`` SMs. Each product is a persistent
+    grid of one block an SM over tiles of 128 tokens. The first product
+    (N x I) takes 256-column tiles unless the 128-column ones still fit one
+    wave, as at a query's 4 token tiles (64 tiles of 256 columns, 128 of
+    128), or leave fewer columns idle. The second (N x H) takes 256-column
+    tiles from one wave of them on, where they leave no more columns idle;
+    else 128-column ones, with its K axis (ceil(I / 64) steps) split the
+    most ways (a divisor, each split at least LARGE_MIN_STEPS steps) that
+    keep the grid in one wave: f32 partials, summed in split order by the
+    reduce. At 1,024: 512 tokens (128, 128, 4), 34,816 (256, 256, 1)."""
+    tiles = cdiv(n, LARGE_TOKENS)
+    up_cols = (LARGE_NARROW_COLS if not wide_tiles_fit(i_dim)
+               or tiles * cdiv(i_dim, LARGE_NARROW_COLS) <= sms else LARGE_WIDE_COLS)
+    if wide_tiles_fit(h_dim) and tiles * cdiv(h_dim, LARGE_WIDE_COLS) >= sms:
         return up_cols, LARGE_WIDE_COLS, 1
-    units = tiles * (LARGE_HIDDEN // LARGE_NARROW_COLS)
-    steps = i_dim // LARGE_DEPTH
+    units = tiles * cdiv(h_dim, LARGE_NARROW_COLS)
+    steps = cdiv(i_dim, LARGE_DEPTH)
     splits = max([d for d in range(1, steps // LARGE_MIN_STEPS + 1)
                   if steps % d == 0 and units * d <= sms] or [1])
     return up_cols, LARGE_NARROW_COLS, splits
@@ -140,11 +167,11 @@ def large_smem_bytes(cols: int) -> int:
     return stages * (LARGE_TOKENS * LARGE_DEPTH * 2 + LARGE_DEPTH * cols * 2) + staging + 1024
 
 
-def large_scratch_bytes(n: int, i_dim: int, splits: int) -> int:
-    """Device memory the wrapper allocates for one call of the 1,024 design:
-    h [n, I] bf16, and the second product's [splits, n, 1,024] f32 partials
-    when its K axis is split."""
-    return n * i_dim * 2 + (splits * n * LARGE_HIDDEN * 4 if splits > 1 else 0)
+def large_scratch_bytes(n: int, i_dim: int, splits: int, h_dim: int = LARGE_HIDDEN) -> int:
+    """Device memory the wrapper allocates for one call of the two products
+    (the 1,024 design or the generic route): h [n, I] bf16, and the second
+    product's [splits, n, H] f32 partials when its K axis is split."""
+    return n * i_dim * 2 + (splits * n * h_dim * 4 if splits > 1 else 0)
 
 
 def block_smem_bytes(h_dim: int) -> int:
@@ -220,13 +247,12 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     orig_shape = x.shape
     h_dim = orig_shape[-1]
     i_dim = w1.shape[1]
-    if (not kernel_takes(h_dim, i_dim) or w1.shape != (h_dim, i_dim)
+    route = kernel_route(h_dim, i_dim)
+    if (route is None or w1.shape != (h_dim, i_dim)
             or w2.shape != (i_dim, h_dim) or b1.shape != (i_dim,) or b2.shape != (h_dim,)):
-        raise ValueError(f"fused_ffn kernel takes H={KERNEL_HIDDEN} with I a multiple of "
-                         f"{KERNEL_CHUNK}, or H={WIDE_HIDDEN} with I a multiple of "
-                         f"{WIDE_CHUNK}, or H={LARGE_HIDDEN} with I a multiple of {LARGE_DEPTH}; "
-                         f"got x {tuple(orig_shape)}, w1 {tuple(w1.shape)}, "
-                         f"w2 {tuple(w2.shape)}")
+        raise ValueError(f"fused_ffn kernel (K3) takes H and I multiples of {GENERIC_GRANULE} "
+                         f"(rows of whole 16-byte chunks); got x {tuple(orig_shape)}, "
+                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_ffn kernel takes bfloat16, x is {x.dtype}")
     # the weights in x's dtype: no copy for a bf16 inference tree, one cast
@@ -248,11 +274,11 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                if splits > 1 else None)
     args = [kernel_lib.ptr(t) for t in (x2d, w1, b1, w2, b2, out)]
     partial_ptr = kernel_lib.ptr(partial) if partial is not None else None
-    if h_dim == LARGE_HIDDEN:
-        up_cols, down_cols, _ = large_launch_plan(n, i_dim, sms)
+    if route != "fused":
+        up_cols, down_cols, _ = large_launch_plan(n, i_dim, sms, h_dim)
         h = torch.empty((n, i_dim), dtype=x.dtype, device=dev)
         kernel_lib.launch("fused_ffn", "frag_fused_ffn_large", dev, *args, kernel_lib.ptr(h),
-                          partial_ptr, n, i_dim, up_cols, down_cols, splits)
+                          partial_ptr, n, h_dim, i_dim, up_cols, down_cols, splits)
     else:
         kernel_lib.launch("fused_ffn", "frag_fused_ffn", dev, *args, partial_ptr,
                           n, h_dim, i_dim, splits)
@@ -281,10 +307,10 @@ class FusedFFN(torch.autograd.Function):
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x [..., H] -> [..., H] in x.dtype. Differentiable in x and the
-    weights. The CUDA kernels take bf16 x at H = 384, 768 or 1,024 (the
+    weights. The CUDA kernels take bf16 x with H and I multiples of 8 (the
     weights are cast to x's dtype); at 384 and 768 the [.., I] intermediate
-    stays on chip, at 1,024 it is a bf16 scratch in device memory (n x I x
-    2 bytes: 4.2 MB at 512 tokens, 285 MB at 34,816, 1.07 GB at 131,072),
-    beside the split second product's f32 partials at a query's sizes
-    (8.4 MB at 512 tokens)."""
+    stays on chip, at 1,024 and on the generic route it is a bf16 scratch
+    in device memory (n x I x 2 bytes: at 1,024, 4.2 MB at 512 tokens, 285
+    MB at 34,816, 1.07 GB at 131,072), beside the split second product's
+    f32 partials at a query's sizes (8.4 MB at 512 tokens)."""
     return FusedFFN.apply(x, w1, b1, w2, b2)

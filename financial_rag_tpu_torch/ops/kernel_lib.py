@@ -38,16 +38,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "frag_pool_norm": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "frag_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "frag_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    "frag_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "frag_flash_attention_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "frag_fused_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "frag_fused_ffn_large": [_P] * 8 + [_I] * 5 + [_P],
+    "frag_fused_ffn_large": [_P] * 8 + [_I] * 6 + [_P],
     "frag_packed_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "frag_bucketed_topk": [_P] * 6 + [_I] * 8 + [_P],
     "frag_topk_exact": [_P] * 6 + [_I] * 9 + [_P],
     "frag_probe_scores": [_P] * 5 + [_I] * 6 + [_P],
-    "frag_causal_flash": [_P] * 5 + [_I] * 6 + [_P],
+    "frag_causal_flash": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -53,13 +53,11 @@ class CrossEncoderModel:
             raise ValueError(f"{model_dir} has no classification head")
         return cls(config, params, **kw)
 
-    def predict_begin(self, pairs: Sequence[Sequence[str]], *,
-                      pad_pairs: Optional[int] = None):
-        """Launch-only scoring: run the device forward, return a zero-arg
-        materializer producing [N] float32 logits. ``pad_pairs`` pins the
-        row count to one shape."""
-        if not len(pairs):
-            return lambda: np.zeros((0,), np.float32)
+    def pair_inputs(self, pairs: Sequence[Sequence[str]], *,
+                    pad_pairs: Optional[int] = None) -> tuple:
+        """(ids, mask, types) int32 [rows, seq_len] of ``pairs`` (non-empty),
+        padded to a pair bucket (``pad_pairs`` pins the row count) and a
+        sequence bucket; padding rows attend their first position only."""
         enc = [self.tokenizer.encode_pair(a, b, max_len=self.max_seq_len) for a, b in pairs]
         longest = max(len(ids) for ids, _ in enc)
         # cap buckets at max_seq_len: a small model (max_position < 128)
@@ -81,9 +79,20 @@ class CrossEncoderModel:
             mask[r, : len(seq)] = 1
             types[r, : len(tt)] = tt
         mask[n:, 0] = 1
+        return ids, mask, types
+
+    def predict_begin(self, pairs: Sequence[Sequence[str]], *,
+                      pad_pairs: Optional[int] = None):
+        """Launch-only scoring: run the device forward, return a zero-arg
+        materializer producing [N] float32 logits. ``pad_pairs`` pins the
+        row count to one shape."""
+        if not len(pairs):
+            return lambda: np.zeros((0,), np.float32)
+        arrays = self.pair_inputs(pairs, pad_pairs=pad_pairs)
+        seq_len, n = arrays[0].shape[1], len(pairs)
         with time_block(f"rerank.forward_s{seq_len}"):
             logits = cross_encoder_forward(
-                self.params, *(torch.from_numpy(a).to(self.device) for a in (ids, mask, types)),
+                self.params, *(torch.from_numpy(a).to(self.device) for a in arrays),
                 config=self.config, compute_dtype=self.compute_dtype)
         return lambda: logits[:n].float().cpu().numpy()
 

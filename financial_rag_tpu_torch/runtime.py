@@ -45,6 +45,7 @@ from financial_rag_tpu_torch.models.encoder import DualEncoder, Encoder
 from financial_rag_tpu_torch.models.hashing import HashingEncoder
 from financial_rag_tpu_torch.models.decoder import DecoderConfig
 from financial_rag_tpu_torch.ops import causal_flash, flash_attention, fused_ffn, topk
+from financial_rag_tpu_torch.ops.common import built_head_dim
 from financial_rag_tpu_torch.parallel import (ShardedFlatIndex, ShardedIVFIndex, encode_devices,
                                               search_devices)
 from financial_rag_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -86,11 +87,11 @@ def _checkpoint_config(path: Optional[str]) -> Optional[ModelConfig]:
 def check_kernel_widths(cfg: FrameworkConfig) -> None:
     """The CUDA path runs every encoder and reranker layer through K2 and
     K3, a bf16 or int8 flat index through K4-K7 (a sharded one through
-    K7), and a local LLM's every prefill through K9, which take only the
-    widths they were built for (head_dim 32 or 64; hidden 384, 768 or
-    1,024; D up to 1,024; the decoder's head_dim 64 or 128); the JAX
-    package and the CPU
-    take any. Raise NotImplementedError at build, naming each kernel and its
+    K7), and a local LLM's every prefill through K9, which take the widths
+    up to their limits (head_dim up to 64, zero-padded to 32 or 64; hidden
+    and intermediate multiples of 8; D up to 1,024; the decoder's head_dim
+    up to 128, zero-padded to 64 or 128); the JAX package and the CPU take
+    any. Raise NotImplementedError at build, naming each kernel and its
     limit, rather than on the first encode, search or prefill (a K9 refusal
     there would be swallowed by the provider's degrade path, and every
     answer would be the no-LLM text). (K6, which takes D <= 384, serves
@@ -104,32 +105,31 @@ def check_kernel_widths(cfg: FrameworkConfig) -> None:
     sharded = cfg.mesh.index_shards > 1
     max_d = topk.SWEEP_MAX_D if sharded else min(topk.PACKED_MAX_D, topk.SWEEP_MAX_D)
     sweeps = "K7" if sharded else "K4-K7"
-    heads = " or ".join(map(str, flash_attention.FWD_HEAD_DIMS))
-    ffn_widths = " or ".join(f"{h} (intermediate a multiple of {chunk})"
-                             for h, (_, chunk, _) in fused_ffn.KERNEL_TILING.items())
     problems = []
     for name, path in models.items():
         mc = _checkpoint_config(path)
         if mc is None:
             continue
-        head_dim = mc.hidden_size // mc.num_heads
-        if mc.hidden_size % mc.num_heads or head_dim not in flash_attention.FWD_HEAD_DIMS:
+        if (mc.hidden_size % mc.num_heads
+                or built_head_dim(mc.hidden_size // mc.num_heads, flash_attention.FWD_HEAD_DIMS) is None):
             problems.append(f"{name}: head_dim {mc.hidden_size / mc.num_heads:g}, but "
-                            f"flash_attention (K2) takes head_dim {heads}")
+                            f"flash_attention (K2) takes head_dim <= "
+                            f"{flash_attention.FWD_HEAD_DIMS[-1]}")
         if not fused_ffn.kernel_takes(mc.hidden_size, mc.intermediate_size):
             problems.append(f"{name}: hidden {mc.hidden_size} / intermediate "
-                            f"{mc.intermediate_size}, but fused_ffn (K3) takes hidden "
-                            f"{ffn_widths}")
+                            f"{mc.intermediate_size}, but fused_ffn (K3) takes hidden and "
+                            f"intermediate multiples of {fused_ffn.GENERIC_GRANULE}")
         if name != "reranker" and flat_sweep and mc.hidden_size > max_d:
             problems.append(f"{name}: index dim {mc.hidden_size}, but the {cfg.index.dtype} "
                             f"flat sweeps ({sweeps}) take D <= {max_d}")
     llm_dir = Path(cfg.llm.local_checkpoint or "")
     if cfg.llm.provider == "local" and cfg.llm.local_checkpoint and (llm_dir / "config.json").exists():
         dc = DecoderConfig.from_hf_config(json.loads((llm_dir / "config.json").read_text()))
-        if dc.hidden_size % dc.num_heads or dc.head_dim not in causal_flash.KERNEL_HEAD_DIMS:
+        if (dc.hidden_size % dc.num_heads
+                or built_head_dim(dc.head_dim, causal_flash.KERNEL_HEAD_DIMS) is None):
             problems.append(f"local LLM: head_dim {dc.hidden_size / dc.num_heads:g}, but "
-                            f"causal_flash_prefill (K9) takes head_dim "
-                            f"{' or '.join(map(str, causal_flash.KERNEL_HEAD_DIMS))}")
+                            f"causal_flash_prefill (K9) takes head_dim <= "
+                            f"{causal_flash.KERNEL_HEAD_DIMS[-1]}")
     if problems:
         raise NotImplementedError("the CUDA kernels are not built for these widths: "
                                   + "; ".join(problems))

@@ -12,7 +12,10 @@ launched on the same inputs at the main path's shapes (K2, K3, K4, K5 and
 K10 also at the bge-base width: heads of 64, hidden 768, D 768, K10 there
 with every key live and with padded keys; K1, K2, K3, K4, K5 and K7 also at
 the bge-large width: hidden 1,024, 16 heads of 64, D 1,024; K9 also at
-heads of 128, Qwen2-1.5B's, Qwen2-7B's and Llama-3-8B's), the two libraries in
+heads of 128, Qwen2-1.5B's, Qwen2-7B's and Llama-3-8B's; K2, K3, K9 and K10
+also on their generic routes: heads of 16, 26 and 48, K3 at (128, 512),
+(312, 1,200), (512, 2,048) and (1,024, 4,000), K9 at heads of 80, 96 and
+100, where a tree from before those routes is refused), the two libraries in
 the order A, B, B, A, each timed twice: with CUDA events around a loop of
 launches (``*_ms``, which at the smallest shapes is the host's launch rate)
 and as the kernels' own device time under torch.profiler (``*_dev_ms``,
@@ -27,7 +30,12 @@ largest value. The sweeps' inputs are exact-grid data, where every score
 is exact in f32, so two right trees agree to the bit.
 
 The C entry points are called directly. Their arguments are the same in
-both trees, but what a launch plan puts in them is each tree's own: K3 gets
+both trees, but for the true head_dim that K2, K9 and K10 take and the
+hidden width that ``frag_fused_ffn_large`` takes since the generic routes
+(a tree without ``ops/common.pad_heads`` is called without them), and what
+a launch plan puts in them is each tree's own. A generic-route case runs
+what the wrapper runs: the heads' zero-padded copies, the C entry, the
+padded columns dropped, so its device time includes the copies. K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
 the I axis its wrapper would choose (its ``launch_plan``), and scratch of
 that many f32 partials; at hidden 1,024 a tree whose wrapper has
@@ -66,6 +74,9 @@ from pathlib import Path
 import torch
 
 from financial_rag_tpu_torch.ops import kernel_lib
+from financial_rag_tpu_torch.ops.causal_flash import KERNEL_HEAD_DIMS as CAUSAL_HEAD_DIMS
+from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads, unpad_heads
+from financial_rag_tpu_torch.ops.flash_attention import BWD_HEAD_DIMS, FWD_HEAD_DIMS
 
 # (label, B, S, heads, head_dim) of K10: the train path's shapes and K11's
 # local ones, at heads of 32 and, for the bge-base width, of 64 (the
@@ -106,6 +117,22 @@ K3_SHAPES = (("K3 table", 131072, 384), ("train encode", 32768, 384), ("query", 
              ("wide table", 131072, 768), ("wide ingest", 34816, 768), ("wide query", 512, 768),
              ("large table", 131072, 1024), ("large ingest", 34816, 1024),
              ("large query", 512, 1024))
+# (label, N, H, I) of K3's generic route: TinyBERT-L-4's reranker (a 64 x
+# 512 rerank batch and a query's 512 tokens), TinyBERT-L-2's, BERT-Small's
+# and hidden 1,024 with I not whole 64-steps
+K3_GENERIC_SHAPES = (("TinyBERT-L-4 rerank", 32768, 312, 1200),
+                     ("TinyBERT-L-4 query", 512, 312, 1200),
+                     ("TinyBERT-L-2 rerank", 32768, 128, 512),
+                     ("BERT-Small ingest", 32768, 512, 2048), ("BERT-Small query", 512, 512, 2048),
+                     ("1024 / 4000", 32768, 1024, 4000))
+# (label, B, S, heads, head_dim) of K2's and K10's generic route: TinyBERT-L-4's
+# 12 heads of 26 at a 64 x 512 rerank batch and a query's 8 x 64, and 12 heads
+# of 16 and 48
+K2_GENERIC_SHAPES = (("TinyBERT-L-4 rerank", 64, 512, 12, 26), ("TinyBERT-L-4 query", 8, 64, 12, 26),
+                     ("heads of 16", 64, 512, 12, 16), ("heads of 48", 64, 512, 12, 48))
+K10_GENERIC_SHAPES = (("TinyBERT-L-4 rerank step", 64, 128, 12, 26),
+                      ("heads of 26 S=512", 64, 512, 12, 26), ("heads of 16", 64, 512, 12, 16),
+                      ("heads of 48", 64, 512, 12, 48))
 # (label, B, S, dtype, H) of K1: at H=384 the table's shape, the ingest's
 # batches (3,482 children in 51 launches), a query's encode, and f32; at
 # H=1,024 the table's shape and the ingest's batch
@@ -162,8 +189,15 @@ K9_SHAPES = (("answer prompt", 1, 4096, (1100,), 14, 2, 64), ("normaliser", 1, 1
              ("Qwen2-1.5B answer prompt", 1, 4096, (1100,), 12, 2, 128),
              ("Qwen2-1.5B pad 0", 1, 4096, (0,), 12, 2, 128),
              ("Qwen2-7B pad 0", 1, 4096, (0,), 28, 4, 128),
-             ("Llama-3-8B pad 0", 1, 4096, (0,), 32, 8, 128))
+             ("Llama-3-8B pad 0", 1, 4096, (0,), 32, 8, 128),
+             ("open_llama_3b answer prompt", 1, 4096, (1100,), 32, 32, 100),
+             ("heads of 96", 1, 4096, (1100,), 32, 32, 96),
+             ("heads of 80", 1, 4096, (1100,), 32, 32, 80))
 
+
+# the C entries that took one more int (the last but the stream) with the generic routes
+GENERIC_ENTRIES = ("frag_flash_attention", "frag_flash_attention_bwd", "frag_causal_flash",
+                   "frag_fused_ffn_large")
 
 # the name fragments of each sweep's two kernels: its sweep and its merge
 SWEEP_PARTS = {"K4": ("sweep", "merge"), "K5": ("sweep", "extract"), "K6": ("sweep", "merge"),
@@ -184,13 +218,19 @@ def build_library(csrc: Path, out_dir: Path):
             os.environ.pop("FRAG_KERNEL_BUILD_DIR", None)
         else:
             os.environ["FRAG_KERNEL_BUILD_DIR"] = saved[1]
+    # a tree from before the generic routes: no true head_dim (K2, K9, K10)
+    # and no hidden width (frag_fused_ffn_large) argument
+    lib.generic_widths = hasattr(tree_module(csrc, "common"), "pad_heads")
     for name in ("frag_pool_norm", "frag_flash_attention", "frag_fused_ffn", "frag_packed_topk",
                  "frag_bucketed_topk", "frag_topk_exact", "frag_flash_attention_bwd",
                  "frag_causal_flash", "frag_fused_ffn_large"):
         fn = getattr(lib, name, None)
         if fn is None:   # an entry the tree predates
             continue
-        fn.argtypes = kernel_lib._SIGNATURES[name]
+        sig = kernel_lib._SIGNATURES[name]
+        if not lib.generic_widths and name in GENERIC_ENTRIES:
+            sig = sig[:-2] + sig[-1:]
+        fn.argtypes = sig
         fn.restype = ctypes.c_int
     return lib
 
@@ -286,25 +326,33 @@ def tree_module(csrc: Path, name: str):
     return mod
 
 
-def ffn_plan(csrc: Path, n: int, h: int, sms: int) -> dict:
+def ffn_plan(csrc: Path, n: int, h: int, sms: int, i: int = 0) -> dict:
     """The launch the wrapper beside ``csrc`` (its ``ops/fused_ffn.py``)
-    chooses for n tokens at hidden h, I = 4h, so that each tree's kernel is
-    given the plan it was tuned for: ``{"splits": s}`` for
-    ``frag_fused_ffn`` (a tree before the 768 design has no
+    chooses for n tokens at hidden h, I = i (4h by default), so that each
+    tree's kernel is given the plan it was tuned for: ``{"splits": s}``
+    for ``frag_fused_ffn`` (a tree before the 768 design has no
     ``launch_plan`` and only the 384 rule; a tree without a design for h
     gets 1, and its kernel refuses the shape), or, at 1,024 in a tree with
-    ``large_launch_plan``, ``{"splits": s, "cols": (up_cols, down_cols)}``
-    for ``frag_fused_ffn_large``."""
+    ``large_launch_plan`` and on the generic route of a tree with
+    ``kernel_route``, ``{"splits": s, "cols": (up_cols, down_cols)}`` for
+    ``frag_fused_ffn_large``."""
+    i = i or 4 * h
     mod = tree_module(csrc, "fused_ffn")
+    if hasattr(mod, "kernel_route"):
+        route = mod.kernel_route(h, i)
+        if route in ("large", "generic"):
+            up_cols, down_cols, splits = mod.large_launch_plan(n, i, sms, h)
+            return {"splits": splits, "cols": (up_cols, down_cols)}
+        return {"splits": mod.launch_plan(n, h, i, sms)[2] if route else 1}
     tiling = getattr(mod, "KERNEL_TILING", None)
     if tiling is not None and h not in tiling:
         return {"splits": 1}
     if h == 1024 and hasattr(mod, "large_launch_plan"):
-        up_cols, down_cols, splits = mod.large_launch_plan(n, 4 * h, sms)
+        up_cols, down_cols, splits = mod.large_launch_plan(n, i, sms)
         return {"splits": splits, "cols": (up_cols, down_cols)}
     if hasattr(mod, "launch_plan"):
-        return {"splits": mod.launch_plan(n, h, 4 * h, sms)[2]}
-    return {"splits": mod.split_count(-(-n // mod.KERNEL_TOKENS), 4 * h // mod.KERNEL_CHUNK, sms)}
+        return {"splits": mod.launch_plan(n, h, i, sms)[2]}
+    return {"splits": mod.split_count(-(-n // mod.KERNEL_TOKENS), i // mod.KERNEL_CHUNK, sms)}
 
 
 def packed_plan(csrc: Path, bq: int, n: int, sms: int, d: int = 384):
@@ -516,31 +564,62 @@ def k6_call(lib, bq: int, n: int, dtype: str, k: int, order: str, plan, gen):
     return run, [out_s, out_i]
 
 
+def padded_run(lib, entry: str, ins, outs, counts, head_dim: int, width: int, order, ints):
+    """A run of K2's, K9's or K10's C ``entry`` as the wrapper makes it:
+    the head-split inputs ``ins`` (``counts`` heads each) zero-padded a head
+    to ``width``, the pointers in the entry's order (``order(ins, outs)``,
+    which adds the other tensors), the integer arguments ``ints`` and, in a
+    tree with the generic routes, the true ``head_dim``; the padded output
+    columns are then dropped into ``outs``. At a built width (``head_dim ==
+    width``) the entry runs on the tensors themselves. A tree from before
+    the generic routes refuses a head_dim it was not built for."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    tail = [*ints, head_dim] if lib.generic_widths else list(ints)
+    fn = getattr(lib, entry)
+    if width == head_dim:
+        args = [kernel_lib.ptr(t) for t in order(ins, outs)] + tail + [stream]
+
+        def run():
+            if fn(*args):
+                raise RuntimeError(f"{entry} refused the launch")
+        return run
+    padded_outs = [torch.empty(*o.shape[:-1], counts[0] * width, dtype=o.dtype, device=o.device)
+                   for o in outs]
+
+    def run():
+        if not lib.generic_widths:
+            raise RuntimeError(f"{entry} predates head_dim {head_dim}")
+        padded = [pad_heads(t, n, width) for t, n in zip(ins, counts)]
+        if fn(*(kernel_lib.ptr(t) for t in order(padded, padded_outs)), *tail, stream):
+            raise RuntimeError(f"{entry} refused the launch")
+        for o, po in zip(outs, padded_outs):
+            o.copy_(unpad_heads(po, counts[0], head_dim))
+    return run
+
+
 def k2_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
     """(run, outputs): K2 on seeded inputs with keys padded to random
-    lengths, through ``lib``'s C entry."""
-    p = kernel_lib.ptr
+    lengths, through ``lib``'s C entry (heads narrower than 32 or 64
+    zero-padded to it)."""
     q, k, v = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
     lens[0] = s
     bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
     out = torch.empty_like(q)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(k), p(v), p(bias), p(out), b, s, heads * head_dim, heads, stream)
-
-    def run():
-        if lib.frag_flash_attention(*args):
-            raise RuntimeError("frag_flash_attention refused the launch")
-    run.tensors = (q, k, v, bias)   # args holds raw pointers into these
+    width = built_head_dim(head_dim, FWD_HEAD_DIMS)
+    run = padded_run(lib, "frag_flash_attention", [q, k, v], [out], [heads] * 3, head_dim, width,
+                     lambda ins, outs: (*ins, bias, *outs), [b, s, heads * width, heads])
+    run.tensors = (q, k, v, bias)   # the run holds raw pointers into these
     return run, [out]
 
 
-def k3_call(lib, n: int, h: int, plan: dict, gen):
-    """(run, outputs): K3 on seeded inputs at hidden h, I = 4h, with the
-    tree's launch ``plan`` (:func:`ffn_plan`), through ``lib``'s C entry."""
+def k3_call(lib, n: int, h: int, plan: dict, gen, i: int = 0):
+    """(run, outputs): K3 on seeded inputs at hidden h, I = i (4h by
+    default), with the tree's launch ``plan`` (:func:`ffn_plan`), through
+    ``lib``'s C entry."""
     p = kernel_lib.ptr
-    i = 4 * h
+    i = i or 4 * h
     splits = plan["splits"]
     x = torch.randn(n, h, generator=gen, device="cuda").bfloat16()
     w1 = (torch.randn(h, i, generator=gen, device="cuda") * h ** -0.5).bfloat16()
@@ -554,8 +633,9 @@ def k3_call(lib, n: int, h: int, plan: dict, gen):
     if "cols" in plan:
         scratch = torch.empty(n, i, dtype=torch.bfloat16, device="cuda")
         entry = "frag_fused_ffn_large"
-        args = (p(x), p(w1), p(b1), p(w2), p(b2), p(out), p(scratch), pp, n, i, *plan["cols"],
-                splits, stream)
+        widths = (h, i) if lib.generic_widths else (i,)
+        args = (p(x), p(w1), p(b1), p(w2), p(b2), p(out), p(scratch), pp, n, *widths,
+                *plan["cols"], splits, stream)
     else:
         scratch = None
         entry = "frag_fused_ffn"
@@ -581,8 +661,8 @@ def three_call(tensors):
 
 def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool = False):
     """(run, outputs): K10 on seeded inputs, every key live or (``padded``)
-    keys padded to random lengths, through ``lib``'s C entry."""
-    p = kernel_lib.ptr
+    keys padded to random lengths, through ``lib``'s C entry (heads
+    narrower than 32 or 64 zero-padded to it)."""
     q, k, v, do = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                    for _ in range(4))
     bias = torch.zeros(b, s, device="cuda")
@@ -592,32 +672,26 @@ def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool =
         bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
     outs = [torch.empty_like(q) for _ in range(3)]
     stats = torch.empty(3, b, heads, s, device="cuda")
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (*(p(t) for t in (q, k, v, bias, do, *outs, stats)), b, s, heads * head_dim, heads,
-            stream)
-
-    def run():
-        if lib.frag_flash_attention_bwd(*args):
-            raise RuntimeError("frag_flash_attention_bwd refused the launch")
-    run.tensors = (q, k, v, bias, do, stats)   # args holds raw pointers into these
+    width = built_head_dim(head_dim, BWD_HEAD_DIMS)
+    run = padded_run(lib, "frag_flash_attention_bwd", [q, k, v, do], outs, [heads] * 4, head_dim,
+                     width, lambda ins, o: (*ins[:3], bias, ins[3], *o, stats),
+                     [b, s, heads * width, heads])
+    run.tensors = (q, k, v, bias, do, stats)   # the run holds raw pointers into these
     return run, outs
 
 
 def k9_call(lib, b: int, s: int, pads, hq: int, hkv: int, d: int, gen):
-    """(run, outputs): K9 on seeded inputs, through ``lib``'s C entry."""
-    p = kernel_lib.ptr
+    """(run, outputs): K9 on seeded inputs, through ``lib``'s C entry (heads
+    narrower than 64 or 128 zero-padded to it)."""
     q = torch.randn(b, s, hq * d, generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn(b, s, hkv * d, generator=gen, device="cuda").bfloat16() for _ in range(2))
     pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
     out = torch.empty_like(q)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (p(q), p(k), p(v), p(pad), p(out), b, s, hq, hkv, d, kernel_lib.DTYPE_CODES[q.dtype],
-            stream)
-
-    def run():
-        if lib.frag_causal_flash(*args):
-            raise RuntimeError("frag_causal_flash refused the launch")
-    run.tensors = (q, k, v, pad)   # args holds raw pointers into these
+    width = built_head_dim(d, CAUSAL_HEAD_DIMS)
+    run = padded_run(lib, "frag_causal_flash", [q, k, v], [out], [hq, hkv, hkv], d, width,
+                     lambda ins, outs: (*ins, pad, *outs),
+                     [b, s, hq, hkv, width, kernel_lib.DTYPE_CODES[q.dtype]])
+    run.tensors = (q, k, v, pad)   # the run holds raw pointers into these
     return run, [out]
 
 
@@ -639,8 +713,9 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     rows = []
-    ffn_plans = {(tree, n, h): ffn_plan(csrc, n, h, sms)
-                 for tree, csrc in trees.items() for _, n, h in K3_SHAPES}
+    k3_shapes = [(label, n, h, 4 * h) for label, n, h in K3_SHAPES] + list(K3_GENERIC_SHAPES)
+    ffn_plans = {(tree, n, h, i): ffn_plan(csrc, n, h, sms, i)
+                 for tree, csrc in trees.items() for _, n, h, i in k3_shapes}
     # make(tree) -> (run, outputs) on that tree's library
     plans = {(tree, label): packed_plan(csrc, bq, n, sms, d)
              for tree, csrc in trees.items() for label, bq, n, d in K4_SHAPES}
@@ -676,13 +751,14 @@ def main(argv=None) -> int:
                    libs[tree], bq, n, dt, k, order, k6_plans[tree, label], gen))
               for label, bq, n, dt, k, order in K6_SHAPES]
     cases += [("K2", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k2_call(
-        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K2_SHAPES]
-    cases += [("K3", label, {"N": n, "H": h,
-                             "splits": {tree: ffn_plans[tree, n, h]["splits"] for tree in trees}},
-               lambda tree, n=n, h=h: k3_call(libs[tree], n, h, ffn_plans[tree, n, h], gen))
-              for label, n, h in K3_SHAPES]
+        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K2_SHAPES + K2_GENERIC_SHAPES]
+    cases += [("K3", label, {"N": n, "H": h, "I": i,
+                             "splits": {tree: ffn_plans[tree, n, h, i]["splits"] for tree in trees}},
+               lambda tree, n=n, h=h, i=i: k3_call(libs[tree], n, h, ffn_plans[tree, n, h, i], gen,
+                                                   i))
+              for label, n, h, i in k3_shapes]
     cases += [("K10", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
-        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES]
+        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES + K10_GENERIC_SHAPES]
     cases += [("K10", label, (b, s, h, hd, "padded"), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
         libs[tree], b, s, h, hd, gen, padded=True)) for label, b, s, h, hd in K10_PADDED_SHAPES]
     cases += [("K9", label, (b, s, list(pads), f"{hq}/{hkv}x{d}"),

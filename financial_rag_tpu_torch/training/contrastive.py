@@ -41,6 +41,7 @@ from financial_rag_tpu_torch.device import resolve_device
 from financial_rag_tpu_torch.models.bert import bert_encode
 from financial_rag_tpu_torch.models.encoder import default_compute_dtype
 from financial_rag_tpu_torch.ops import flash_attention, fused_ffn
+from financial_rag_tpu_torch.ops.common import built_head_dim
 from financial_rag_tpu_torch.parallel import comm
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
@@ -257,27 +258,26 @@ def tp_arg(config: ModelConfig, mesh, model_axis: str):
 
 def check_train_widths(config: ModelConfig, device: torch.device, tp=None) -> None:
     """On CUDA a training step runs the attention forward through K2 and
-    its backward through K10, which take head_dim 32 or 64 (bge-small,
-    bge-base, bge-large and their kin), and, without a model axis (``tp``
-    None), every feed-forward forward through K3, which takes hidden 384,
-    768 or 1,024 with the intermediate a whole number of its chunks (a
+    its backward through K10, which take head_dim up to 64 (zero-padded to
+    32 or 64: bge-small, bge-base, bge-large, TinyBERT and their kin), and,
+    without a model axis (``tp`` None), every feed-forward forward through
+    K3, which takes hidden and intermediate multiples of 8 (a
     tensor-parallel layer's sharded feed-forward runs no K3): refuse
     another width when the step is made, not in the middle of its first
     forward or backward. The CPU trains at any width."""
     if device.type != "cuda":
         return
-    head_dim = config.hidden_size // config.num_heads
-    if config.hidden_size % config.num_heads or head_dim not in flash_attention.BWD_HEAD_DIMS:
+    if (config.hidden_size % config.num_heads
+            or built_head_dim(config.hidden_size // config.num_heads,
+                              flash_attention.BWD_HEAD_DIMS) is None):
         raise NotImplementedError(
             f"training on CUDA: head_dim {config.hidden_size / config.num_heads:g}, but the "
-            f"attention backward (K10) takes head_dim "
-            f"{' or '.join(map(str, flash_attention.BWD_HEAD_DIMS))} only")
+            f"attention backward (K10) takes head_dim <= {flash_attention.BWD_HEAD_DIMS[-1]} only")
     if tp is None and not fused_ffn.kernel_takes(config.hidden_size, config.intermediate_size):
-        widths = " or ".join(f"{h} (intermediate a multiple of {chunk})"
-                             for h, (_, chunk, _) in fused_ffn.KERNEL_TILING.items())
         raise NotImplementedError(
             f"training on CUDA: hidden {config.hidden_size} / intermediate "
-            f"{config.intermediate_size}, but the feed-forward (K3) takes hidden {widths} only")
+            f"{config.intermediate_size}, but the feed-forward (K3) takes hidden and "
+            f"intermediate multiples of {fused_ffn.GENERIC_GRANULE} only")
 
 
 def make_train_step(

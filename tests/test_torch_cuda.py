@@ -493,30 +493,101 @@ def test_probe_kernel_at_d768(gen, d, dtype):
 
 
 def test_wide_kernels_reject_what_they_cannot_take(gen):
-    """K2 at head_dim 128, K3 at hidden 512 (no design of its own) or I not
-    a multiple of 64 (the 768 design's chunk) at 768, or at 1,024 (the
-    1,024 design's ring stage depth): raised before any launch, never the
-    plain version."""
+    """K2 and K10 above head_dim 64 (128 and 80), K3 where a row is not
+    whole 16-byte chunks (hidden 100; I 3,004 at 768 and 4,004 at 1,024):
+    raised before any launch, never the plain version."""
     bf16 = torch.bfloat16
-    x = _randn(gen, 2, 64, 1024, dtype=bf16)
-    with pytest.raises(ValueError, match="head_dim 32 or 64"):
-        fa.flash_attention(x, x, x, torch.zeros(2, 64, device="cuda"), num_heads=8)
-    x = _randn(gen, 2, 64, 512, dtype=bf16)
-    w1, w2 = _randn(gen, 512, 2048, dtype=bf16), _randn(gen, 2048, 512, dtype=bf16)
-    with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
-        ffn.fused_ffn(x, w1, _randn(gen, 2048, dtype=bf16), w2, _randn(gen, 512, dtype=bf16))
-    x = _randn(gen, 64, 768, dtype=bf16)
-    for i in (3000, 2000):   # not a multiple of 16; of 16 but not of 64
-        w1, w2 = _randn(gen, 768, i, dtype=bf16), _randn(gen, i, 768, dtype=bf16)
-        with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
-            ffn.fused_ffn(x, w1, _randn(gen, i, dtype=bf16), w2, _randn(gen, 768, dtype=bf16))
-    x = _randn(gen, 64, 1024, dtype=bf16)
-    before = ffn.LAUNCHES
-    for i in (4000, 4064):   # not a multiple of 64 (of 16; of 32): no whole ring stage of K
-        w1, w2 = _randn(gen, 1024, i, dtype=bf16), _randn(gen, i, 1024, dtype=bf16)
-        with pytest.raises(ValueError, match="H=1024 with I a multiple of 64"):
-            ffn.fused_ffn(x, w1, _randn(gen, i, dtype=bf16), w2, _randn(gen, 1024, dtype=bf16))
-    assert ffn.LAUNCHES == before
+    bias = torch.zeros(2, 64, device="cuda")
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES)
+    for heads in (8, 12):   # heads of 128 and of 80 at hidden 1,024 and 960
+        x = _randn(gen, 2, 64, 1024 if heads == 8 else 960, dtype=bf16)
+        with pytest.raises(ValueError, match=r"\(K2\) takes head_dim <= 64"):
+            fa.flash_attention(x, x, x, bias, num_heads=heads)
+        with pytest.raises(ValueError, match=r"\(K10\) takes head_dim <= 64"):
+            fa.flash_attention_bwd(x, x, x, bias, x, num_heads=heads)
+    for h, i in ((100, 400), (768, 3004), (1024, 4004)):
+        x = _randn(gen, 64, h, dtype=bf16)
+        w1, w2 = _randn(gen, h, i, dtype=bf16), _randn(gen, i, h, dtype=bf16)
+        with pytest.raises(ValueError, match=r"\(K3\) takes H and I multiples of 8"):
+            ffn.fused_ffn(x, w1, _randn(gen, i, dtype=bf16), w2, _randn(gen, h, dtype=bf16))
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES) == before
+
+
+# ----------------------------------------------------- the generic routes
+
+GENERIC_FFN_CASES = [(h, i, n) for h, i in ((312, 1200), (128, 512), (512, 2048), (1024, 4000))
+                     for n in (32768, 512, 999, 1)]
+
+
+@pytest.mark.parametrize("h,i,n", GENERIC_FFN_CASES)
+def test_fused_ffn_kernel_on_the_generic_route(gen, h, i, n):
+    """K3's generic route (the two products at run-time extents) at
+    TinyBERT-L-4's 312 / 1,200, TinyBERT-L-2's 128 / 512, BERT-Small's
+    512 / 2,048 and 1,024 / 4,000, at a 64 x 512 rerank batch, a query's
+    512 tokens, 999 and 1: one launch counted at its width, within 3e-2 of
+    the plain version, and the same bits twice."""
+    bf16 = torch.bfloat16
+    assert ffn.kernel_route(h, i) == "generic"
+    x = _randn(gen, n, h, dtype=bf16)
+    w1 = _randn(gen, h, i, dtype=bf16, scale=h ** -0.5)
+    w2 = _randn(gen, i, h, dtype=bf16, scale=i ** -0.5)
+    b1, b2 = _randn(gen, i, dtype=bf16, scale=0.1), _randn(gen, h, dtype=bf16, scale=0.1)
+    width_before = ffn.WIDTH_LAUNCHES[h]
+    out = _launches_once(ffn, lambda: ffn.fused_ffn(x, w1, b1, w2, b2))
+    assert ffn.WIDTH_LAUNCHES[h] == width_before + 1
+    ref = ffn.fused_ffn_plain(x, w1, b1, w2, b2)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    assert torch.equal(out, ffn.fused_ffn(x, w1, b1, w2, b2))
+
+
+GENERIC_ATTENTION_CASES = [(d, b, s) for d in (26, 16, 48) for b, s in ((64, 512), (8, 64))]
+
+
+@pytest.mark.parametrize("head_dim,b,s", GENERIC_ATTENTION_CASES)
+def test_flash_attention_kernels_on_padded_heads(gen, head_dim, b, s):
+    """K2 and K10 at 12 heads of 26 (TinyBERT-L-4), 16 and 48, zero-padded
+    to 32 or 64 with the scale of the true head_dim: a padded row and a
+    fully masked one. The forward within 3e-2 of the plain version (its
+    launch counted at the true width), the backward's dq, dk and dv within
+    2^-6 of every (position, head) row's largest value, masked keys'
+    gradients exactly zero."""
+    heads, h = 12, 12 * head_dim
+    q, k, v, do = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(4))
+    mask = _mask(b, s)
+    bias = torch.where(mask > 0, 0.0, -1e9).float()
+    width_before = fa.WIDTH_LAUNCHES[h]
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=heads))
+    assert fa.WIDTH_LAUNCHES[h] == width_before + 1
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v, bias, num_heads=heads).float(),
+                               atol=3e-2, rtol=0)
+    before = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == q.shape and torch.isfinite(g.float()).all(), name
+        assert _row_rel_err(g, w, heads) <= 2.0 ** -6, (name, _row_rel_err(g, w, heads))
+    assert (got[1][1, s // 3:] == 0).all() and (got[2][1, s // 3:] == 0).all()
+
+
+def test_flash_attention_padded_route_sees_a_wrong_scale(gen):
+    """The control of the padded route: heads of 26 run as if they were 32
+    wide (zero-padded, the padded width's scale) miss the plain version's
+    3e-2 at B=64 S=512, where the right scale is within it."""
+    from financial_rag_tpu_torch.ops.common import pad_heads, unpad_heads
+
+    q, k, v = (_randn(gen, 64, 512, 12 * 26, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(64, 512) > 0, 0.0, -1e9).float()
+    ref = fa.flash_attention_plain(q, k, v, bias, num_heads=12).float()
+    wrong = unpad_heads(fa.flash_attention(*(pad_heads(t, 12, 32) for t in (q, k, v)), bias,
+                                           num_heads=12), 12, 26)
+    assert (wrong.float() - ref).abs().max() > 3e-2
+    right = fa.flash_attention(q, k, v, bias, num_heads=12)
+    assert (right.float() - ref).abs().max() <= 3e-2
 
 
 def _grid(gen, *shape):
@@ -958,6 +1029,13 @@ CAUSAL_CASES = {   # B, S, pads, query heads, kv heads, head_dim, dtype
     "group7_ragged_d128": (1, 1111, (5,), 7, 1, 128, "bfloat16"),
     "pad_is_last_row_d128": (1, 300, (299,), 4, 1, 128, "bfloat16"),
     "mixed_pads_b3_d128": (3, 1024, (0, 300, 1023), 12, 2, 128, "bfloat16"),
+    # the padded route: heads of 100 (open_llama_3b_v2), 80 and 96 in 128, of 32 in 64
+    "s4096_d100": (1, 4096, (1100,), 32, 32, 100, "bfloat16"),
+    "s4096_d80": (1, 4096, (1100,), 32, 32, 80, "bfloat16"),
+    "s4096_d96": (1, 4096, (1100,), 32, 32, 96, "bfloat16"),
+    "f32_d100": (1, 128, (60,), 32, 32, 100, "float32"),
+    "f32_d80_group4": (2, 128, (0, 60), 8, 2, 80, "float32"),
+    "mixed_pads_d32": (3, 300, (0, 64, 299), 14, 2, 32, "bfloat16"),
 }
 
 
@@ -974,8 +1052,11 @@ def test_causal_flash_kernel_matches_plain(gen, case):
     head_dim 128 (its own kernel: 128-key tiles by TMA) also groups 4, 6
     and 7 at S not a multiple of 128, a group-6 pad that ends inside a
     block's packed rows (position 130 is packed row 780 of block 6), a pad
-    of S-1, and B=3 with mixed pads."""
+    of S-1, and B=3 with mixed pads. On the padded route: heads of 100, 80
+    and 96 (in 128) at the 4,096-token prompt and in f32, heads of 32 (in
+    64)."""
     b, s, pads, hq, hkv, d, dtype = CAUSAL_CASES[case]
+    d_before = cf.HEAD_DIM_LAUNCHES[d]
     q = _randn(gen, b, s, hq * d, dtype=DTYPES[dtype])
     k, v = (_randn(gen, b, s, hkv * d, dtype=DTYPES[dtype]) for _ in range(2))
     pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
@@ -983,6 +1064,7 @@ def test_causal_flash_kernel_matches_plain(gen, case):
                                                              num_kv_heads=hkv))
     ref = cf.causal_flash_prefill_plain(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
     assert out.dtype == q.dtype and out.shape == q.shape
+    assert cf.HEAD_DIM_LAUNCHES[d] == d_before + 1
     tol, rtol = (3e-2, 2.0 ** -6) if dtype == "bfloat16" else (1e-4, 1e-4)
     for row, p in enumerate(pads):
         assert torch.isfinite(out[row].float()).all()
@@ -994,11 +1076,13 @@ def test_causal_flash_kernel_matches_plain(gen, case):
 
 
 def test_causal_flash_kernel_rejects_what_it_cannot_take(gen):
-    q = _randn(gen, 1, 64, 14 * 32, dtype=torch.bfloat16)
-    kv = _randn(gen, 1, 64, 2 * 32, dtype=torch.bfloat16)
+    """Heads above 128 (160 here), q, k and v of two dtypes, a
+    non-contiguous input: raised before any launch."""
+    q = _randn(gen, 1, 64, 4 * 160, dtype=torch.bfloat16)
+    kv = _randn(gen, 1, 64, 2 * 160, dtype=torch.bfloat16)
     pad = torch.zeros(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
-        cf.causal_flash_prefill(q, kv, kv, pad, num_q_heads=14, num_kv_heads=2)
+    with pytest.raises(ValueError, match=r"\(K9\) takes head_dim <= 128"):
+        cf.causal_flash_prefill(q, kv, kv, pad, num_q_heads=4, num_kv_heads=2)
     q = _randn(gen, 1, 64, 14 * 64, dtype=torch.bfloat16)
     kv = _randn(gen, 1, 64, 2 * 64, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="dtype"):
@@ -1274,8 +1358,8 @@ def test_contrastive_step_on_cuda_matches_the_cpu(gen):
 
 
 def _wide_step_parity(hidden: int, heads: int):
-    """One contrastive step at 2 layers of ``hidden`` (``heads`` heads of
-    64, FFN 4 x hidden) made in bf16 for the card and in f32 for the CPU,
+    """One contrastive step at 2 layers of ``hidden`` (``heads`` heads,
+    FFN 4 x hidden) made in bf16 for the card and in f32 for the CPU,
     on a padded batch: (the card step, its params, the batch, grads ->
     each leaf group's cosine against the CPU step's gradients)."""
     from financial_rag_tpu_torch.config import ModelConfig
@@ -1349,6 +1433,45 @@ def test_bge_large_width_step_on_cuda_matches_the_cpu(gen):
     cosines, grads = _wide_step_parity(1024, 16)[3:]
     cos = cosines(grads)
     assert min(cos.values()) >= 0.999, cos
+
+
+def test_tinybert_width_rerank_step_on_cuda_matches_the_cpu(gen):
+    """One listwise rerank step at ms-marco-TinyBERT-L-4's width (4 layers
+    of 312, 12 heads of 26, FFN 1,200: K2 and K10 padded to 32, K3's
+    generic route) in bf16 on the card against f32 on the CPU on 8 groups
+    of 4 padded rows of up to 128 tokens: the loss within 1e-3, each leaf
+    group's gradient cosine >= 0.999 (chip_smoke.py's bars), K2, K10 and K3
+    once a layer."""
+    import numpy as np
+
+    from financial_rag_tpu_torch.config import ModelConfig
+    from financial_rag_tpu_torch.models.checkpoint import random_params
+    from financial_rag_tpu_torch.training import rerank_ft
+
+    cfg = ModelConfig(name="t", hidden_size=312, num_layers=4, num_heads=12,
+                      intermediate_size=1200, vocab_size=30522, max_position=512, num_labels=1)
+    rng = np.random.default_rng(3)
+    lens = rng.integers(8, 129, size=(8, 4))
+    mask = (np.arange(128)[None, None, :] < lens[:, :, None]).astype(np.int32)
+    batch = {"ids": rng.integers(5, 30000, size=(8, 4, 128)).astype(np.int32), "mask": mask,
+             "types": ((np.arange(128)[None, None, :] >= lens[:, :, None] // 2) * mask)
+             .astype(np.int32)}
+    params = random_params(cfg, seed=3)
+    card, card_init = rerank_ft.make_rerank_train_step(cfg, device="cuda")
+    cpu, cpu_init = rerank_ft.make_rerank_train_step(cfg, device="cpu")
+    want_loss, want = cpu.value_and_grad(cpu_init(params)[0], batch)
+    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.WIDTH_LAUNCHES[312])
+    loss, grads = card.value_and_grad(card_init(params)[0], batch)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - counts[0], fa.BWD_LAUNCHES - counts[1],
+            ffn.WIDTH_LAUNCHES[312] - counts[2]) == (4, 4, 4)
+    assert abs(float(loss) - float(want_loss)) <= 1e-3
+    groups = {"q": ("q_w", "q_b"), "k": ("k_w",), "v": ("v_w", "v_b"), "o": ("o_w", "o_b"),
+              "ffn": ("ffn_in_w", "ffn_in_b", "ffn_out_w", "ffn_out_b")}
+    for group, names in groups.items():
+        a = torch.cat([grads["layers"][n].float().cpu().flatten() for n in names]).double()
+        b_ = torch.cat([want["layers"][n].flatten() for n in names]).double()
+        assert float(torch.nn.functional.cosine_similarity(a, b_, dim=0)) >= 0.999, group
 
 
 # ----------------------------------------------- tensor parallel (K11, gloo)
@@ -1497,12 +1620,15 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     assert len(rows) == (len(kernel_ab.K1_SHAPES) + len(kernel_ab.K4_SHAPES)
                          + len(kernel_ab.K5_SHAPES) + len(kernel_ab.K6_SHAPES)
                          + len(kernel_ab.K7_SHAPES)
-                         + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K3_SHAPES)
-                         + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_PADDED_SHAPES)
-                         + len(kernel_ab.K9_SHAPES))
-    assert [r["kernel"] for r in rows].count("K2") == len(kernel_ab.K2_SHAPES)
+                         + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K2_GENERIC_SHAPES)
+                         + len(kernel_ab.K3_SHAPES) + len(kernel_ab.K3_GENERIC_SHAPES)
+                         + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_GENERIC_SHAPES)
+                         + len(kernel_ab.K10_PADDED_SHAPES) + len(kernel_ab.K9_SHAPES))
+    assert [r["kernel"] for r in rows].count("K2") == (len(kernel_ab.K2_SHAPES)
+                                                       + len(kernel_ab.K2_GENERIC_SHAPES))
     k10 = [r for r in rows if r["kernel"] == "K10"]
-    assert len(k10) == len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_PADDED_SHAPES)
+    assert len(k10) == (len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_GENERIC_SHAPES)
+                        + len(kernel_ab.K10_PADDED_SHAPES))
     assert [r["shape"][3] for r in k10].count(64) == 8 and not any("refused" in r for r in rows)
     assert [r["shape"][-1] for r in k10].count("padded") == len(kernel_ab.K10_PADDED_SHAPES)
     assert [r["kernel"] for r in rows].count("K1") == len(kernel_ab.K1_SHAPES)

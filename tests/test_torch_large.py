@@ -422,32 +422,43 @@ def test_cuda_takes_bge_large_encoders_and_reranker(tmp_path, kind, dtype, shard
 
 
 @pytest.mark.parametrize("hidden,heads,inter,refused", [
-    (1024, 8, 4096, r"flash_attention \(K2\) takes head_dim 32 or 64"),   # heads of 128
-    (512, 16, 2048, r"fused_ffn \(K3\) takes hidden 384"),                # no K3 design at 512
-    (2048, 32, 8192, r"fused_ffn \(K3\) takes hidden 384"),               # nor at 2,048
-    (1024, 16, 4000, r"1024 \(intermediate a multiple of 64\)"),          # I not whole chunks
-    (2048, 32, 8192, r"flat sweeps \(K4-K7\) take D <= 1024"),            # D above 1,024
+    (1024, 8, 4096, r"flash_attention \(K2\) takes head_dim <= 64"),      # heads of 128
+    (512, 16, 2048, None),                                                # K3's generic route
+    (2048, 32, 8192, r"flat sweeps \(K4-K7\) take D <= 1024"),            # K3 takes 2,048 now
+    (1024, 16, 4000, None),                                               # I not whole 64-steps
+    (1020, 20, 4080, r"fused_ffn \(K3\) takes hidden and intermediate multiples of 8"),
 ])
 def test_cuda_still_refuses_what_no_kernel_takes(tmp_path, hidden, heads, inter, refused):
+    """K3 takes every hidden and intermediate width whose rows are whole
+    16-byte chunks (512 / 2,048, 2,048 / 8,192 and 1,024 / 4,000 through its
+    generic route); the rest is refused, naming the kernel: K2 above
+    head_dim 64, the flat sweeps above D 1,024, K3 at hidden 1,020."""
     cfg = FrameworkConfig()
     cfg.encoders.baai_path = _encoder_dir(tmp_path, "enc", hidden, heads, inter)
     cfg.encoders.gte_path = cfg.rerank.model_path = None
     check_supported(cfg, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=rf"baai: .*{refused}"):
+    if refused is None:
         check_supported(cfg, torch.device("cuda"))
+        return
+    with pytest.raises(NotImplementedError, match=rf"baai: .*{refused}") as err:
+        check_supported(cfg, torch.device("cuda"))
+    assert ("fused_ffn (K3)" in str(err.value)) == (hidden % 8 != 0)
 
 
 @pytest.mark.parametrize("maker", [contrastive.make_train_step, rerank_ft.make_rerank_train_step])
-@pytest.mark.parametrize("hidden,heads,inter,refused", [(512, 16, 2048, True),
+@pytest.mark.parametrize("hidden,heads,inter,refused", [(512, 16, 2048, False),
                                                         (1024, 16, 4096, False),
-                                                        (1024, 16, 3000, True)])
+                                                        (1024, 16, 3000, False),
+                                                        (100, 4, 400, True),
+                                                        (1024, 16, 3004, True)])
 def test_training_on_cuda_refuses_widths_k3_does_not_take(monkeypatch, maker, hidden, heads,
                                                           inter, refused):
     """make_train_step and make_rerank_train_step on a CUDA device refuse
-    hidden 512 (I 2,048) and I 3,000 at 1,024 when the step is made, naming
-    K3 (before, the check read K10's head_dim alone, and K3 raised in the
-    middle of the first forward); the bge-large shape passes, and the CPU
-    builds a step at every width."""
+    hidden 100 and I 3,004 at 1,024 (rows not whole 16-byte chunks) when
+    the step is made, naming K3 (before, the check read K10's head_dim
+    alone, and K3 raised in the middle of the first forward); the
+    bge-large shape passes, and so do hidden 512 (I 2,048) and I 3,000 at
+    1,024 on K3's generic route; the CPU builds a step at every width."""
     cfg = ModelConfig(hidden_size=hidden, num_layers=1, num_heads=heads,
                       intermediate_size=inter, vocab_size=64, max_position=32)
     module = contrastive if maker is contrastive.make_train_step else rerank_ft

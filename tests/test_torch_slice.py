@@ -178,7 +178,7 @@ def test_sharded_and_data_parallel_configurations_are_served_on_cuda(field, valu
 @pytest.mark.parametrize("hidden,heads,inter,refused", [
     (768, 12, 3072, None),                 # bge-base: K7 takes D 768
     (1024, 16, 4096, None),                # bge-large: K3 at 1,024, K7 takes D 1,024
-    (2048, 32, 8192, "K3"),                # head_dim 64, no K3 at 2,048, D above 1,024
+    (2048, 32, 8192, "K7"),                # head_dim 64, K3's generic route, D above 1,024
     (2048, 16, 8192, "K2"),                # heads of 128
 ])
 def test_sharded_configurations_keep_refusing_the_widths(tmp_path, hidden, heads, inter,
@@ -215,15 +215,17 @@ def test_local_llm_configuration_is_served_on_cuda():
     (896, 14, 2, False),     # Qwen2-0.5B: head_dim 64
     (1536, 12, 2, False),    # Qwen2-1.5B: head_dim 128
     (4096, 32, 8, False),    # Llama-3-8B: head_dim 128
-    (1280, 16, 4, True),     # head_dim 80
-    (1536, 16, 4, True),     # head_dim 96
+    (1280, 16, 4, False),    # head_dim 80: zero-padded to 128
+    (1536, 16, 4, False),    # head_dim 96: likewise
+    (3200, 32, 32, False),   # open_llama_3b_v2: head_dim 100
+    (2560, 16, 4, True),     # head_dim 160
 ])
 def test_check_supported_reads_the_local_llm_head_dim(tmp_path, hidden, heads, kv_heads, refused):
     """With LLM_PROVIDER=local, check_supported on CUDA reads the decoder
-    checkpoint's config.json and refuses a head_dim that K9 is not built
-    for, naming K9, at build: the first prefill would raise inside the
-    provider, which degrades every answer to the no-LLM text. The CPU
-    takes every width."""
+    checkpoint's config.json and refuses a head_dim that K9 does not take
+    (above 128), naming K9, at build: the first prefill would raise inside
+    the provider, which degrades every answer to the no-LLM text. Heads of
+    80, 96 and 100 are zero-padded to 128. The CPU takes every width."""
     (tmp_path / "config.json").write_text(json.dumps({
         "architectures": ["Qwen2ForCausalLM"], "vocab_size": 1024, "num_hidden_layers": 2,
         "hidden_size": hidden, "num_attention_heads": heads, "num_key_value_heads": kv_heads,
@@ -235,7 +237,7 @@ def test_check_supported_reads_the_local_llm_head_dim(tmp_path, hidden, heads, k
         check_supported(cfg, torch.device("cuda"))
         return
     with pytest.raises(NotImplementedError, match=r"local LLM: head_dim \d+, but "
-                       r"causal_flash_prefill \(K9\) takes head_dim 64 or 128"):
+                       r"causal_flash_prefill \(K9\) takes head_dim <= 128"):
         check_supported(cfg, torch.device("cuda"))
     cfg.llm.provider = "gemini"          # the checkpoint is read only for a local LLM
     check_supported(cfg, torch.device("cuda"))
@@ -308,8 +310,9 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     """On CUDA the bge-base width (768 = 12 heads of 64, FFN 3,072, D 768)
     passes the kernels' width check, and Runtime.build refuses an encoder
     wider than bge-large with heads of 128 (hidden 2,048) before it loads
-    a weight or creates the data dir, naming K2's, K3's and the flat
-    sweeps' limits; the CPU serves the 768-wide checkpoint."""
+    a weight or creates the data dir, naming K2's and the flat sweeps'
+    limits (K3's generic route takes hidden 2,048); the CPU serves the
+    768-wide checkpoint."""
     import financial_rag_tpu_torch.runtime as runtime_mod
 
     cfg = FrameworkConfig()
@@ -329,8 +332,8 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     with pytest.raises(NotImplementedError) as err:
         Runtime.build(wide_cfg, data_dir=tmp_path / "cuda")
     msg = str(err.value)
-    assert "baai: head_dim 128, but flash_attention (K2) takes head_dim 32 or 64" in msg
-    assert "fused_ffn (K3) takes hidden 384 (intermediate a multiple of 32) or 768" in msg
+    assert "baai: head_dim 128, but flash_attention (K2) takes head_dim <= 64" in msg
+    assert "(K3)" not in msg   # 2,048 / 8,192 takes K3's generic route
     assert "flat sweeps (K4-K7) take D <= 1024" in msg
     assert not (tmp_path / "cuda").exists()
     monkeypatch.undo()
@@ -345,13 +348,18 @@ def test_cuda_runtime_refuses_widths_the_kernels_do_not_take(wide_checkpoint, tm
     (384, 12, 1536, "flat", None),                   # bge-small / gte-small / MiniLM
     (768, 12, 3072, "flat", None),                   # bge-base / gte-base: head_dim 64
     (768, 24, 3072, "ivf", None),                    # head_dim 32 at hidden 768
-    (384, 12, 1000, "flat", "multiple of 32"),       # K3's intermediate chunks at 384
-    (768, 12, 3000, "flat", "multiple of 64"),       # and at 768
-    (768, 12, 3040, "flat", "multiple of 64"),       # a multiple of 16, not of 64
+    (384, 12, 1000, "flat", None),                   # K3's generic route: I not whole chunks
+    (768, 12, 3000, "flat", None),                   # and at 768
+    (768, 12, 3040, "flat", None),                   # a multiple of 16, not of 64
     (1024, 16, 4096, "flat", None),                  # bge-large / gte-large: head_dim 64
-    (512, 16, 2048, "flat", "K3"),                   # hidden 512: no K3 design
-    (2048, 32, 8192, "ivf", "K3"),                   # nor at 2,048
+    (512, 16, 2048, "flat", None),                   # hidden 512 (BERT-Small)
+    (2048, 32, 8192, "ivf", None),                   # and 2,048 (K8 takes the rows)
+    (312, 12, 1200, "flat", None),                   # TinyBERT-L-4: heads of 26
+    (128, 2, 512, "flat", None),                     # TinyBERT-L-2-v2
     (1024, 8, 4096, "ivf", "K2"),                    # head_dim 128
+    (960, 12, 3840, "flat", "K2"),                   # head_dim 80
+    (100, 4, 400, "flat", "K3"),                     # hidden 100: rows not whole 16-byte chunks
+    (768, 12, 3004, "flat", "K3"),                   # nor I 3,004
 ])
 def test_check_supported_reads_the_checkpoint_widths(tmp_path, hidden, heads, inter, kind,
                                                      refused):

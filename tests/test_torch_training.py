@@ -224,7 +224,7 @@ def test_k10_scratch_holds_two_floats_per_query_row():
 
 
 def test_k10_wrapper_checks_what_the_kernel_takes():
-    """flash_attention_bwd on non-CPU tensors: shapes, head width (32 or
+    """flash_attention_bwd on non-CPU tensors: shapes, head width (up to
     64; 96 here) and dtype are checked before the device, and a tensor off
     CUDA raises (no fallback to the plain version); no launch is counted."""
     meta = dict(device="meta")
@@ -233,7 +233,7 @@ def test_k10_wrapper_checks_what_the_kernel_takes():
     before = fa.BWD_LAUNCHES
     with pytest.raises(ValueError, match="one \\[B,S,H\\] shape"):
         fa.flash_attention_bwd(x, x[:, :64], x, bias, x, num_heads=6)
-    with pytest.raises(ValueError, match="head_dim 32 or 64, got H=192 over 2 heads"):
+    with pytest.raises(ValueError, match="head_dim <= 64 .*got H=192 over 2 heads"):
         fa.flash_attention_bwd(x, x, x, bias, x, num_heads=2)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_attention_bwd(x, x.float(), x, bias, x, num_heads=6)

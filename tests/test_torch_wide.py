@@ -384,21 +384,26 @@ def test_int8_sweep_sums_stay_exact_at_d768():
 
 def test_cuda_wrappers_refuse_the_widths_their_kernels_do_not_take():
     """On non-CPU tensors the wrappers check widths before the device: K2
-    and K10 head_dim 128, K3 hidden 2,048, K4 D 1,040; no launch is
+    and K10 head_dim 128 and 80, K3 hidden 2,044 (rows not whole 16-byte
+    chunks; 2,048 takes its generic route), K4 D 1,040; no launch is
     counted and nothing falls back to a plain version."""
     meta = dict(device="meta", dtype=torch.bfloat16)
     before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, topk.LAUNCHES["packed_topk_fused"])
     x = torch.empty(2, 65, 256, **meta)
     bias = torch.zeros(2, 65, device="meta")
-    with pytest.raises(ValueError, match=r"\(K2\) takes head_dim 32 or 64"):
+    with pytest.raises(ValueError, match=r"\(K2\) takes head_dim <= 64"):
         fa.flash_attention(x, x, x, bias, num_heads=2)
     x = torch.empty(2, 65, 768, **meta)
-    with pytest.raises(ValueError, match=r"\(K10\) takes head_dim 32 or 64, got H=768 over 6"):
+    with pytest.raises(ValueError, match=r"\(K10\) takes head_dim <= 64 .*got H=768 over 6"):
         fa.flash_attention_bwd(x, x, x, torch.zeros(2, 65, device="meta"), x, num_heads=6)
-    x = torch.empty(8, 2048, **meta)
-    w1, w2 = torch.empty(2048, 8192, **meta), torch.empty(8192, 2048, **meta)
-    with pytest.raises(ValueError, match="H=768 with I a multiple of 64"):
-        ffn.fused_ffn(x, w1, torch.empty(8192, **meta), w2, torch.empty(2048, **meta))
+    x = torch.empty(2, 65, 960, **meta)
+    for fn in (fa.flash_attention, lambda *a, **kw: fa.flash_attention_bwd(*a, x, **kw)):
+        with pytest.raises(ValueError, match=r"takes head_dim <= 64 .*got H=960 over 12"):
+            fn(x, x, x, torch.zeros(2, 65, device="meta"), num_heads=12)
+    x = torch.empty(8, 2044, **meta)
+    w1, w2 = torch.empty(2044, 8176, **meta), torch.empty(8176, 2044, **meta)
+    with pytest.raises(ValueError, match=r"\(K3\) takes H and I multiples of 8"):
+        ffn.fused_ffn(x, w1, torch.empty(8176, **meta), w2, torch.empty(2044, **meta))
     q, c = torch.empty(2, 1040, **meta), torch.empty(1024, 1040, **meta)
     with pytest.raises(ValueError, match="at most 1024"):
         topk.packed_topk_fused(q, c, torch.ones(1024, device="meta"), 24)
@@ -437,7 +442,7 @@ def test_training_on_cuda_refuses_head_dims_k10_does_not_take(monkeypatch, maker
     if refused:
         with pytest.raises(NotImplementedError, match=r"head_dim 128, but the attention "
                                                       r"backward \(K10\) takes head_dim "
-                                                      r"32 or 64 only"):
+                                                      r"<= 64 only"):
             maker(cfg)
     else:
         contrastive.check_train_widths(cfg, torch.device("cuda"))

@@ -1,0 +1,577 @@
+"""The widths the CUDA path takes through its generic routes, in the port
+against the JAX package.
+
+Published checkpoints whose widths no tuned kernel design was built for:
+ms-marco-TinyBERT-L-4 (hidden 312, 12 heads of 26, FFN 1,200),
+ms-marco-TinyBERT-L-2-v2 (128, 2 heads of 64, FFN 512), BERT-Small
+(512, 8 heads of 64, FFN 2,048) and open_llama_3b_v2 (hidden 3,200, 32 heads
+of 100). On the card K2 and K10 zero-pad heads narrower than 32 or 64 to
+that width, K9 pads heads to 64 or 128, and K3 runs its two products at
+run-time extents. Here, on the CPU, each plain version the kernels are held
+against runs on the same numpy inputs as the JAX function at those widths
+(Pallas in interpret mode); the padded route's arithmetic (pad, scale from
+the true head_dim, drop the padded columns) is checked against the unpadded
+plain version; the generic K3 plan covers every token tile and output
+column; and whole models at those widths (a cross-encoder, a bi-encoder, a
+decoder at heads of 100, the weight converters) match the JAX package.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from financial_rag_tpu.config import ModelConfig as JaxModelConfig
+from financial_rag_tpu.models import bert as jbert
+from financial_rag_tpu.models import checkpoint as jckpt
+from financial_rag_tpu.models import decoder as jdec
+from financial_rag_tpu.ops import flash_attention as jax_flash_attention
+from financial_rag_tpu.ops.causal_flash import causal_flash_prefill as jax_causal_flash
+from financial_rag_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
+from financial_rag_tpu_torch.config import FrameworkConfig, ModelConfig
+from financial_rag_tpu_torch.models import bert, checkpoint
+from financial_rag_tpu_torch.models import decoder as tdec
+from financial_rag_tpu_torch.ops import causal_flash as k9
+from financial_rag_tpu_torch.ops import flash_attention as fa
+from financial_rag_tpu_torch.ops import fused_ffn as ffn
+from financial_rag_tpu_torch.ops import topk
+from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads, unpad_heads
+from financial_rag_tpu_torch.runtime import check_supported
+from financial_rag_tpu_torch.training import contrastive
+
+torch.set_num_threads(2)
+
+H100_SMS = 132
+# (hidden, heads, intermediate) of the published encoder checkpoints
+TINYBERT_L4 = (312, 12, 1200)
+TINYBERT_L2 = (128, 2, 512)
+BERT_SMALL = (512, 8, 2048)
+
+
+def _np(t) -> np.ndarray:
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _attn_inputs(seed: int, b: int, s: int, h: int):
+    """q, k, v, dout [B,S,H] and a key bias: row 1 padded, the last row
+    fully masked."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((b, s, h)).astype(np.float32) for _ in range(4))
+    mask = np.ones((b, s), np.int32)
+    mask[1, s // 2:] = 0
+    mask[-1] = 0
+    bias = np.where(mask > 0, 0.0, -1e9).astype(np.float32)
+    return q, k, v, do, bias
+
+
+# ------------------------------------------------------------ K2 and K10
+
+HEAD_DIMS = [26, 16, 48]
+
+
+@pytest.mark.parametrize("s", [48, 37])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_flash_attention_plain_matches_pallas_at_odd_head_dims(head_dim, s):
+    """K2's plain version against the Pallas kernel (interpret mode) at 12
+    heads of 26 (TinyBERT-L-4), 16 and 48, f32, S = 48 and a ragged 37,
+    a padded row and a fully masked one: within 1e-5."""
+    b, heads = 3, 12
+    q, k, v, _, bias = _attn_inputs(head_dim + s, b, s, heads * head_dim)
+    ref = jax_flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                              jnp.asarray(bias.reshape(b, 1, 1, s)), num_heads=heads,
+                              interpret=True)
+    out = fa.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   torch.from_numpy(bias), num_heads=heads)
+    assert out.shape == (b, s, heads * head_dim)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_flash_attention_bwd_plain_matches_pallas_vjp_at_odd_head_dims(head_dim, dtype):
+    """K10's plain version against jax.vjp of the Pallas kernel at 12 heads
+    of 26, 16 and 48, S = 40: f32 within 2e-5 of each gradient's largest
+    value, bf16 within 2^-7 (the bars of the head-32 and head-64 test);
+    padded keys get exact zeros in dk and dv."""
+    b, s, heads = 3, 40, 12
+    q, k, v, do, bias = _attn_inputs(head_dim, b, s, heads * head_dim)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                          torch.bfloat16)
+    jbias = jnp.asarray(bias)[:, None, None, :]
+    _, vjp = jax.vjp(lambda a, b_, c: jax_flash_attention(a, b_, c, jbias, num_heads=heads,
+                                                          interpret=True),
+                     *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do, jdt))
+    got = fa.flash_attention_bwd_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                                       torch.from_numpy(bias), torch.from_numpy(do).to(tdt),
+                                       num_heads=heads)
+    rtol = 2e-5 if dtype == "float32" else 2.0 ** -7
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = _np(g), _np(w)
+        assert g.shape == q.shape
+        assert np.abs(g - w).max() <= rtol * np.abs(w).max(), (name, np.abs(g - w).max())
+        if name != "dq":
+            assert (g[1, s // 2:] == 0).all()
+
+
+def _scaled_plain(q, k, v, bias, heads: int, head_dim: int, width: int):
+    """What the padded route computes, on the CPU: q, k, v zero-padded to
+    ``width`` a head, the scores scaled by 1 / sqrt(head_dim) (the plain
+    version scales by the padded width, so q carries the difference), the
+    output's padded columns dropped."""
+    qp, kp, vp = (pad_heads(t, heads, width) for t in (q, k, v))
+    qp = qp * (width / head_dim) ** 0.5
+    out = fa.flash_attention_plain(qp, kp, vp, bias, num_heads=heads)
+    return out, unpad_heads(out, heads, head_dim)
+
+
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_padded_heads_compute_the_same_attention(head_dim):
+    """Zero columns add nothing to q.k and give zero output columns: heads
+    of 26, 16 and 48 padded to their built width (32, 32, 64), scaled by
+    the true head_dim, give the unpadded attention within f32 rounding, and
+    the padded columns are exactly zero. A scale taken from the padded
+    width misses that by far (the control the card phase runs too)."""
+    b, s, heads = 2, 33, 12
+    width = built_head_dim(head_dim, fa.FWD_HEAD_DIMS)
+    assert width == (32 if head_dim <= 32 else 64)
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _attn_inputs(head_dim, b, s,
+                                                                    heads * head_dim))
+    want = fa.flash_attention_plain(q, k, v, bias, num_heads=heads)
+    padded, got = _scaled_plain(q, k, v, bias, heads, head_dim, width)
+    assert padded.shape == (b, s, heads * width)
+    assert (padded.view(b, s, heads, width)[..., head_dim:] == 0).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    wrong_scale = unpad_heads(fa.flash_attention_plain(
+        *(pad_heads(t, heads, width) for t in (q, k, v)), bias, num_heads=heads), heads, head_dim)
+    assert (wrong_scale - want).abs().max() > 1e-2
+
+
+def test_pad_heads_round_trips_and_leaves_built_widths_alone():
+    x = torch.randn(2, 5, 12 * 26)
+    p = pad_heads(x, 12, 32)
+    assert p.shape == (2, 5, 384) and torch.equal(unpad_heads(p, 12, 26), x)
+    y = torch.randn(2, 5, 8 * 64)
+    assert pad_heads(y, 8, 64) is y and unpad_heads(y, 8, 64) is y
+    assert [built_head_dim(d, (32, 64)) for d in (1, 26, 32, 33, 64, 65)] == [32, 32, 32, 64, 64,
+                                                                              None]
+    assert [built_head_dim(d, (64, 128)) for d in (80, 96, 100, 128, 160)] == [128] * 4 + [None]
+
+
+# --------------------------------------------------------------------- K3
+
+
+def _gelu_gap() -> float:
+    v = np.linspace(-12, 12, 480001)
+    exact = np.asarray(jax.nn.gelu(jnp.asarray(v, jnp.float32), approximate=False), np.float64)
+    tanh = np.asarray(jax.nn.gelu(jnp.asarray(v, jnp.float32), approximate=True), np.float64)
+    return float(np.abs(exact - tanh).max())
+
+
+@pytest.mark.parametrize("h,i", [(312, 1200), (128, 512), (512, 2048)])
+def test_fused_ffn_plain_vs_pallas_at_generic_widths_within_gelu_gap(h, i):
+    """TinyBERT-L-4's, TinyBERT-L-2's and BERT-Small's FFN at 129 tokens:
+    the TPU kernel's tanh GELU against the port's erf GELU, each output
+    within gap * ||W2[:, j]||_1 (+ f32 summation noise), the bar of the
+    384, 768 and 1,024 tests."""
+    rng = np.random.default_rng(h)
+    n = 129
+    x = rng.standard_normal((n, h)).astype(np.float32)
+    w1 = (rng.standard_normal((h, i)) / np.sqrt(h)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(i)).astype(np.float32)
+    w2 = (rng.standard_normal((i, h)) / np.sqrt(i)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(h)).astype(np.float32)
+    ref = np.asarray(jax_fused_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)),
+                                   interpret=True))
+    out = ffn.fused_ffn_plain(*(torch.from_numpy(a) for a in (x, w1, b1, w2, b2))).numpy()
+    bound = _gelu_gap() * np.abs(w2).sum(axis=0) + 1e-4
+    assert out.shape == (n, h)
+    assert np.all(np.abs(out - ref) <= bound[None, :])
+    assert np.abs(out - ref).max() > 1e-6
+
+
+@pytest.mark.parametrize("h,i,route", [(384, 1536, "fused"), (768, 3072, "fused"),
+                                       (1024, 4096, "large"), (312, 1200, "generic"),
+                                       (128, 512, "generic"), (512, 2048, "generic"),
+                                       (1024, 4000, "generic"), (2048, 8192, "generic"),
+                                       (384, 1000, "generic"), (100, 400, None),
+                                       (2044, 8176, None), (512, 2044, None)])
+def test_k3_routes(h, i, route):
+    """The tuned designs keep their widths (384 and 768 with I whole
+    chunks, 1,024 with I whole 64-steps); every other H and I that are
+    multiples of 8 take the generic route; rows that are not whole 16-byte
+    chunks take none."""
+    assert ffn.kernel_route(h, i) == route
+    assert ffn.kernel_takes(h, i) == (route is not None)
+
+
+GENERIC_SHAPES = [(h, i, n) for h, i in ((128, 512), (312, 1200), (512, 2048), (1024, 4000),
+                                         (2048, 8192))
+                  for n in (1, 512, 999, 32768)]
+
+
+@pytest.mark.parametrize("h,i,n", GENERIC_SHAPES)
+def test_k3_generic_plan_covers_every_tile(h, i, n):
+    """On 132 SMs the generic plan's tiles cover every token tile and output
+    column of both products, a split divides the ceil(I / 64) k steps with
+    at least 4 a split and keeps the grid in one wave, and the tile width
+    leaves no more columns idle than the other would. At (128, 512) one
+    128-token tile has a single output-column tile."""
+    up_cols, down_cols, splits = ffn.large_launch_plan(n, i, H100_SMS, h)
+    tiles, steps = -(-n // 128), -(-i // 64)
+    assert up_cols in (128, 256) and down_cols in (128, 256)
+    for cols, width in ((up_cols, i), (down_cols, h)):
+        assert -(-width // cols) * cols >= width > (-(-width // cols) - 1) * cols
+        if cols == 256:
+            assert ffn.wide_tiles_fit(width)
+    assert steps % splits == 0
+    if splits > 1:
+        assert steps // splits >= ffn.LARGE_MIN_STEPS
+        assert tiles * -(-h // down_cols) * splits <= H100_SMS
+    if (h, n) == (128, 512):
+        assert down_cols == 128 and -(-h // down_cols) == 1
+    assert ffn.launch_plan(n, h, i, H100_SMS) == (128, 64, splits)
+
+
+@pytest.mark.parametrize("h,i,n", [(312, 1200, 32768), (512, 2048, 512), (128, 512, 1)])
+def test_k3_generic_scratch_bytes(h, i, n):
+    """The generic route's device scratch: h [N, I] bf16 and, where the
+    second product is split, its [splits, N, H] f32 partials."""
+    splits = ffn.large_launch_plan(n, i, H100_SMS, h)[2]
+    want = n * i * 2 + (splits * n * h * 4 if splits > 1 else 0)
+    assert ffn.large_scratch_bytes(n, i, splits, h) == want
+
+
+def test_k3_generic_granule_mirrors_the_cuda_check():
+    """ops/fused_ffn.py's GENERIC_GRANULE is csrc/fused_ffn.cu's kGGranule
+    (the C entry refuses H or I that is not a multiple of it): 8 bf16
+    elements, one 16-byte chunk, the TMA's row granule; the k steps and
+    tile widths the plan assumes are the CUDA constants."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ffn.__file__).resolve().parents[1] / "csrc" / "fused_ffn.cu").read_text()
+    consts = dict(re.findall(r"^constexpr int (kG\w+) = (\d+);", src, re.M))
+    assert int(consts["kGGranule"]) == ffn.GENERIC_GRANULE == 8
+    assert ffn.GENERIC_GRANULE * 2 == 16
+    assert (int(consts["kGDepth"]), int(consts["kGTokens"])) == (ffn.LARGE_DEPTH, ffn.LARGE_TOKENS)
+    assert (int(consts["kGWideCols"]), int(consts["kGNarrowCols"])) == (ffn.LARGE_WIDE_COLS,
+                                                                        ffn.LARGE_NARROW_COLS)
+
+
+@pytest.mark.parametrize("cols", [256, 128])
+def test_k3_generic_ring_fits_shared_memory(cols):
+    """The generic route runs the 1,024 design's blocks: their ring, the
+    staging tiles, the alignment slack and the barriers fit the 227 KB a
+    block may take, at either tile width, whatever H and I are."""
+    stages = ffn.LARGE_WIDE_STAGES if cols == 256 else ffn.LARGE_NARROW_STAGES
+    assert ffn.large_smem_bytes(cols) + 2 * stages * 8 <= topk.SMEM_BLOCK_LIMIT
+
+
+# --------------------------------------------------------------------- K9
+
+K9_CASES = [(hq, hkv, d) for d in (80, 96, 100) for hq, hkv in ((4, 2), (2, 2))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,d", K9_CASES)
+def test_k9_plain_matches_pallas_at_odd_head_dims(hq, hkv, d, dtype):
+    """K9's plain version against the Pallas kernel (interpret mode, blocks
+    of 128) at head_dim 80, 96 and 100 (open_llama_3b_v2), GQA groups 2
+    and 1, S = 256 with left pads 0 and 37: real rows within 1e-5 (f32) or
+    3e-2 (bf16), padding rows zero in the port."""
+    b, s, pads = 2, 256, (0, 37)
+    rng = np.random.default_rng(d + hq)
+    q = rng.standard_normal((b, s, hq * d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv * d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv * d)).astype(np.float32)
+    pad = np.asarray(pads, np.int32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                          torch.bfloat16)
+    got = _np(k9.causal_flash_prefill(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                                      torch.from_numpy(pad), num_q_heads=hq, num_kv_heads=hkv))
+    want = _np(jax_causal_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(pad),
+                                num_q_heads=hq, num_kv_heads=hkv, block_q=128, block_k=128,
+                                interpret=True))
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for row, p in enumerate(pads):
+        np.testing.assert_allclose(got[row, p:], want[row, p:], atol=tol, rtol=0)
+        assert (got[row, :p] == 0).all()
+
+
+@pytest.mark.parametrize("d", [80, 100])
+def test_k9_padded_heads_compute_the_same_attention(d):
+    """K9's padded route on the CPU: q, k and v zero-padded to 128 a head,
+    the scale from the true head_dim, the padded columns dropped, give the
+    unpadded plain version within f32 rounding; the padded output columns
+    are exactly zero."""
+    b, s, hq, hkv = 2, 70, 4, 2
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n * d)).astype(np.float32))
+               for n in (hq, hkv, hkv))
+    pad = torch.tensor([0, 9], dtype=torch.int32)
+    want = k9.causal_flash_prefill_plain(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    qp = pad_heads(q, hq, 128) * (128 / d) ** 0.5
+    kp, vp = pad_heads(k, hkv, 128), pad_heads(v, hkv, 128)
+    padded = k9.causal_flash_prefill_plain(qp, kp, vp, pad, num_q_heads=hq, num_kv_heads=hkv)
+    assert (padded.view(b, s, hq, 128)[..., d:] == 0).all()
+    torch.testing.assert_close(unpad_heads(padded, hq, d), want, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------- the width checks
+
+
+def _encoder_dir(root, name, hidden, heads, inter, classifier=False):
+    d = root / name
+    d.mkdir()
+    raw = {"hidden_size": hidden, "num_hidden_layers": 4, "num_attention_heads": heads,
+           "intermediate_size": inter, "vocab_size": 30522, "max_position_embeddings": 512}
+    if classifier:
+        raw.update(architectures=["BertForSequenceClassification"], id2label={"0": "LABEL_0"})
+    (d / "config.json").write_text(json.dumps(raw))
+    return str(d)
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
+def test_cuda_takes_the_published_narrow_checkpoints(tmp_path, kind):
+    """check_supported on CUDA takes BERT-Small-width encoders (and the
+    TinyBERT-L-2 width as gte) beside a TinyBERT-L-4-width reranker, and an
+    open_llama_3b_v2-width local LLM (32 heads of 100)."""
+    cfg = FrameworkConfig()
+    cfg.encoders.baai_path = _encoder_dir(tmp_path, "small", *BERT_SMALL)
+    cfg.encoders.gte_path = _encoder_dir(tmp_path, "l2", *TINYBERT_L2)
+    cfg.rerank.model_path = _encoder_dir(tmp_path, "l4", *TINYBERT_L4, classifier=True)
+    llm = tmp_path / "llama"
+    llm.mkdir()
+    (llm / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "vocab_size": 32000, "num_hidden_layers": 26,
+        "hidden_size": 3200, "num_attention_heads": 32, "num_key_value_heads": 32,
+        "intermediate_size": 8640, "tie_word_embeddings": False}))
+    cfg.llm.provider, cfg.llm.local_checkpoint = "local", str(llm)
+    cfg.index.kind = kind
+    check_supported(cfg, torch.device("cuda"))
+    cfg.encoders.baai_path = _encoder_dir(tmp_path, "l4_enc", *TINYBERT_L4)
+    check_supported(cfg, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("hidden,heads,inter", [TINYBERT_L4, TINYBERT_L2, BERT_SMALL])
+def test_training_on_cuda_takes_the_narrow_widths(hidden, heads, inter):
+    """A training step at TinyBERT-L-4's heads of 26 (K10 padded to 32) and
+    at the other narrow widths passes the check; heads of 80 do not."""
+    cfg = ModelConfig(hidden_size=hidden, num_layers=1, num_heads=heads,
+                      intermediate_size=inter, vocab_size=64, max_position=32)
+    contrastive.check_train_widths(cfg, torch.device("cuda"))
+    wide = ModelConfig(hidden_size=960, num_layers=1, num_heads=12, intermediate_size=3840,
+                       vocab_size=64, max_position=32)
+    with pytest.raises(NotImplementedError, match=r"head_dim 80, but the attention backward "
+                                                  r"\(K10\) takes head_dim <= 64"):
+        contrastive.check_train_widths(wide, torch.device("cuda"))
+
+
+def test_cuda_wrappers_refuse_above_the_limits():
+    """On non-CPU tensors: K2 and K10 refuse heads of 80, K9 heads of 160,
+    K3 hidden 100; no launch is counted."""
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, k9.LAUNCHES)
+    x = torch.empty(2, 65, 4 * 80, **meta)
+    bias = torch.zeros(2, 65, device="meta")
+    with pytest.raises(ValueError, match=r"\(K2\) takes head_dim <= 64"):
+        fa.flash_attention(x, x, x, bias, num_heads=4)
+    with pytest.raises(ValueError, match=r"\(K10\) takes head_dim <= 64"):
+        fa.flash_attention_bwd(x, x, x, bias, x, num_heads=4)
+    q = torch.empty(1, 64, 4 * 160, **meta)
+    kv = torch.empty(1, 64, 2 * 160, **meta)
+    with pytest.raises(ValueError, match=r"\(K9\) takes head_dim <= 128"):
+        k9.causal_flash_prefill(q, kv, kv, torch.zeros(1, dtype=torch.int32, device="meta"),
+                                num_q_heads=4, num_kv_heads=2)
+    x = torch.empty(8, 100, **meta)
+    w1, w2 = torch.empty(100, 400, **meta), torch.empty(400, 100, **meta)
+    with pytest.raises(ValueError, match=r"\(K3\) takes H and I multiples of 8"):
+        ffn.fused_ffn(x, w1, torch.empty(400, **meta), w2, torch.empty(100, **meta))
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES, ffn.LAUNCHES, k9.LAUNCHES) == before
+
+
+# ----------------------------------------------------------------- models
+
+
+def _tree_np(params):
+    return {k: _tree_np(v) if isinstance(v, dict) else np.asarray(v, np.float32)
+            for k, v in params.items()}
+
+
+def _configs(hidden, heads, inter, layers, **extra):
+    shape = dict(hidden_size=hidden, num_layers=layers, num_heads=heads,
+                 intermediate_size=inter, vocab_size=1000, max_position=128)
+    return JaxModelConfig(**shape, **extra), ModelConfig(**shape, **extra)
+
+
+def _batch(seed=0, b=4, s=48):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, 1000, size=(b, s)).astype(np.int32)
+    ids[:, 0] = 1
+    mask = np.ones((b, s), np.int32)
+    mask[1, 17:] = 0
+    mask[3, 30:] = 0
+    types = np.zeros((b, s), np.int32)
+    types[:, 24:] = 1
+    return ids, mask, types
+
+
+def test_cross_encoder_at_tinybert_l4_width_matches_jax():
+    """A 2-layer cross-encoder at ms-marco-TinyBERT-L-4's width (312, 12
+    heads of 26, FFN 1,200): logits within 5e-3 of the JAX package's."""
+    jcfg, tcfg = _configs(*TINYBERT_L4, layers=2, num_labels=1)
+    jp = jckpt.random_params(jcfg, seed=21)
+    tp = checkpoint.params_from_numpy(_tree_np(jp))
+    ids, mask, types = _batch(seed=3)
+    ref = np.asarray(jbert.cross_encoder_forward(jp, jnp.asarray(ids), jnp.asarray(mask),
+                                                 jnp.asarray(types), config=jcfg))
+    out = bert.cross_encoder_forward(tp, torch.from_numpy(ids), torch.from_numpy(mask),
+                                     torch.from_numpy(types), config=tcfg).numpy()
+    assert out.shape == ref.shape == (4,)
+    np.testing.assert_allclose(out, ref, atol=5e-3)
+
+
+@pytest.mark.parametrize("shape", [BERT_SMALL, TINYBERT_L2, TINYBERT_L4],
+                         ids=["bert_small", "tinybert_l2", "tinybert_l4"])
+@pytest.mark.parametrize("pooling", ["cls", "mean"])
+def test_bi_encoder_at_narrow_widths_matches_jax(shape, pooling):
+    """2-layer bi-encoders at BERT-Small's width (512, 8 heads of 64, FFN
+    2,048) and the TinyBERT widths: unit embeddings with cosine > 0.9999
+    to the JAX package's."""
+    jcfg, tcfg = _configs(*shape, layers=2)
+    jp = jckpt.random_params(jcfg, seed=22)
+    tp = checkpoint.params_from_numpy(_tree_np(jp))
+    ids, mask, _ = _batch(seed=4)
+    ref = np.asarray(jbert.bert_encode(jp, jnp.asarray(ids), jnp.asarray(mask), config=jcfg,
+                                       pooling=pooling, attention_impl="xla"))
+    out = bert.bert_encode(bert.prepare_params(tp, device="cpu", compute_dtype=torch.float32),
+                           torch.from_numpy(ids), torch.from_numpy(mask), config=tcfg,
+                           pooling=pooling).numpy()
+    assert out.shape == ref.shape == (4, shape[0])
+    cos = (out * ref).sum(-1) / (np.linalg.norm(out, axis=-1) * np.linalg.norm(ref, axis=-1))
+    assert cos.min() > 0.9999
+    np.testing.assert_allclose(np.linalg.norm(out, axis=-1), 1.0, atol=1e-5)
+
+
+# open_llama_3b_v2's head shape (32 heads of 100, MHA, untied, no biases)
+# narrowed to 4 heads of 100 with a grouping of 2
+LLAMA_D100 = dict(vocab_size=211, hidden_size=400, intermediate_size=256, num_layers=2,
+                  num_heads=4, num_kv_heads=2, rope_theta=10000.0, norm_eps=1e-6,
+                  attention_bias=False, tie_embeddings=False, eos_token_id=5)
+
+
+@pytest.mark.parametrize("pads", [(0, 3), (5, 0)])
+def test_decoder_at_heads_of_100_generates_the_jax_tokens(pads):
+    """A 2-layer decoder with 4 heads of 100 over 2 kv heads: the prefill
+    through K9's plain version and the decode give the JAX package's
+    greedy tokens exactly, and the prefill's logits within 1e-5."""
+    jcfg = jdec.DecoderConfig(**LLAMA_D100)
+    jp = jdec.random_decoder_params(jcfg, seed=31)
+    tcfg = tdec.DecoderConfig(**LLAMA_D100)
+    tp = tdec.decoder_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    assert tcfg.head_dim == 100
+    rng = np.random.default_rng(sum(pads))
+    ids = rng.integers(1, 211, (2, 12)).astype(np.int32)
+    am = np.ones((2, 12), np.int32)
+    for row, p in enumerate(pads):
+        ids[row, :p], am[row, :p] = 0, 0
+    want = np.asarray(jdec.generate_tokens(jp, jnp.asarray(ids), jnp.asarray(am),
+                                           jax.random.PRNGKey(0), cfg=jcfg, max_new_tokens=12))
+    got = tdec.generate_tokens(tp, ids, am, cfg=tcfg, max_new_tokens=12)
+    np.testing.assert_array_equal(got.numpy(), want)
+    real = am.astype(bool)
+    ref = np.asarray(jdec.decoder_forward(jp, jnp.asarray(ids), jcfg, jnp.asarray(am)))
+    np.testing.assert_allclose(tdec.decoder_forward(tp, ids, tcfg, am).numpy()[real], ref[real],
+                               atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------- converters
+
+
+def _hf_bert_state_dict(cfg: ModelConfig, seed: int):
+    """A random HF BertForSequenceClassification state dict (torch Linear
+    layout)."""
+    rng = np.random.default_rng(seed)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    r = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    sd = {
+        "bert.embeddings.word_embeddings.weight": r(cfg.vocab_size, h),
+        "bert.embeddings.position_embeddings.weight": r(cfg.max_position, h),
+        "bert.embeddings.token_type_embeddings.weight": r(2, h),
+        "bert.embeddings.LayerNorm.weight": r(h), "bert.embeddings.LayerNorm.bias": r(h),
+        "bert.pooler.dense.weight": r(h, h), "bert.pooler.dense.bias": r(h),
+        "classifier.weight": r(1, h), "classifier.bias": r(1),
+    }
+    for layer in range(cfg.num_layers):
+        p = f"bert.encoder.layer.{layer}."
+        for name, shape in [("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                            ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                            ("intermediate.dense", (i, h)), ("output.dense", (h, i))]:
+            sd[p + name + ".weight"] = r(*shape)
+            sd[p + name + ".bias"] = r(shape[0])
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + ln + ".weight"] = r(h)
+            sd[p + ln + ".bias"] = r(h)
+    return sd
+
+
+@pytest.mark.parametrize("shape", [TINYBERT_L4, TINYBERT_L2, BERT_SMALL],
+                         ids=["tinybert_l4", "tinybert_l2", "bert_small"])
+def test_bert_converter_at_narrow_widths_matches_jax(tmp_path, shape):
+    """A 1-layer HF cross-encoder checkpoint (safetensors) at each narrow
+    width: the port's loader gives the JAX loader's tree, leaf for leaf."""
+    from safetensors.numpy import save_file
+
+    hidden, heads, inter = shape
+    _, tcfg = _configs(hidden, heads, inter, layers=1)
+    (tmp_path / "config.json").write_text(json.dumps({
+        "hidden_size": hidden, "num_hidden_layers": 1, "num_attention_heads": heads,
+        "intermediate_size": inter, "vocab_size": 1000, "max_position_embeddings": 128,
+        "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+        "architectures": ["BertForSequenceClassification"], "id2label": {"0": "LABEL_0"}}))
+    save_file(_hf_bert_state_dict(tcfg, seed=hidden), str(tmp_path / "model.safetensors"))
+    jp, jcfg = jckpt.load_params(tmp_path)
+    tp, cfg = checkpoint.load_params(tmp_path)
+    assert (cfg.hidden_size, cfg.num_heads, cfg.intermediate_size) == shape
+    assert (jcfg.hidden_size, jcfg.num_heads, jcfg.intermediate_size) == shape
+    ref = _tree_np(jp)
+    assert tp.keys() == ref.keys()
+    for group in ref:
+        assert tp[group].keys() == ref[group].keys()
+        for name in ref[group]:
+            np.testing.assert_array_equal(tp[group][name].numpy(), ref[group][name])
+
+
+def test_llama_converter_at_heads_of_100_matches_jax():
+    """An HF LlamaForCausalLM state dict at open_llama_3b_v2's head width
+    (4 heads of 100, untied): the port's converter gives the JAX
+    converter's params, and its logits match the HF model's."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=211, hidden_size=400, intermediate_size=256, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=128,
+        rope_theta=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=False, eos_token_id=5,
+        architectures=["LlamaForCausalLM"])
+    torch.manual_seed(0)
+    model = transformers.LlamaForCausalLM(hf_cfg).eval()
+    sd = model.state_dict()
+    jcfg = jdec.DecoderConfig.from_hf_config(hf_cfg.to_dict())
+    tcfg = tdec.DecoderConfig.from_hf_config(hf_cfg.to_dict())
+    assert tcfg.__dict__ == jcfg.__dict__ and tcfg.head_dim == 100
+    jp = jdec.decoder_params_from_torch_state_dict(sd, jcfg)
+    tp = tdec.decoder_params_from_torch_state_dict(sd, tcfg, device="cpu")
+    np.testing.assert_array_equal(tp["embed"].numpy(), np.asarray(jp["embed"]))
+    np.testing.assert_array_equal(tp["lm_head"].numpy(), np.asarray(jp["lm_head"]))
+    for name, stacked in jp["layers"].items():
+        np.testing.assert_array_equal(np.stack([lp[name].numpy() for lp in tp["layers"]]),
+                                      np.asarray(stacked), err_msg=name)
+    ids = np.random.default_rng(0).integers(1, 211, (2, 9))
+    with torch.no_grad():
+        ref = model(torch.from_numpy(ids)).logits.numpy()
+    np.testing.assert_allclose(tdec.decoder_forward(tp, ids, tcfg).numpy(), ref,
+                               atol=2e-4, rtol=2e-3)
