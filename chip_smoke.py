@@ -1126,20 +1126,64 @@ def padded_controls(torch, randn, built, q, k, v, heads, kv_heads, run_entry):
             ("padded_columns_unzeroed", lambda: unpad(run_entry(*noisy, d))))
 
 
+def window_attention(torch, q, k, v, bias, heads: int, width: int):
+    """Attention with each head read as a ``width``-wide window of the
+    [B, S, H] rows from column g * head_dim rounded down to a multiple of 8
+    (the head at columns off = g * head_dim mod 8 .. off + head_dim - 1,
+    its neighbours' columns around it; past H, zeros), Q's other columns
+    left as they are, the true head_dim's scale, and each head's own output
+    columns kept: what K2's in-place read computes if a neighbour head's
+    columns reach the scores. Plain torch in f32."""
+    b, s, h = q.shape
+    d = h // heads
+    offs = [g * d % 8 for g in range(heads)]
+
+    def window(x):
+        xp = torch.nn.functional.pad(x.float(), (0, width))
+        return torch.stack([xp[..., g * d - o:g * d - o + width] for g, o in enumerate(offs)],
+                           dim=1)
+    qw, kw, vw = window(q), window(k), window(v)
+    p = torch.softmax(qw @ kw.transpose(-1, -2) * d ** -0.5 + bias.reshape(b, 1, 1, s).float(),
+                      dim=-1)
+    o = p @ vw
+    return torch.stack([o[:, g, :, off:off + d] for g, off in enumerate(offs)],
+                       dim=2).reshape(b, s, h).to(q.dtype)
+
+
+def in_place_controls(torch, q, k, v, bias, heads: int):
+    """The two controls of K2's in-place read (heads narrower than the
+    built width W read where they lie), each of which must miss the gate:
+    the kernel with the scale of W (q scaled by sqrt(head_dim / W), through
+    the same in-place read), and a neighbour head's columns reaching the
+    scores (window_attention: Q's columns past head_dim not zeroed)."""
+    from financial_rag_tpu_torch.ops import flash_attention as fa
+    from financial_rag_tpu_torch.ops.common import built_head_dim
+
+    d = q.shape[-1] // heads
+    width = built_head_dim(d, fa.FWD_HEAD_DIMS)
+    return (("scale_of_the_built_width",
+             lambda: fa.flash_attention((q.float() * (d / width) ** 0.5).to(q.dtype), k, v, bias,
+                                        num_heads=heads)),
+            ("neighbour_columns_in_the_scores",
+             lambda: window_attention(torch, q, k, v, bias, heads, width)))
+
+
 def generic_cases(torch, F, randn, padded_mask):
     """The generic routes, after every other case so that those keep their
     inputs, each named ``<kernel>@generic`` (the kernels line's
     ``generic``). K3 (the two products at run-time extents) at GENERIC_FFN x
     GENERIC_FFN_TOKENS, within 3e-2 of the plain version; its first case
     carries two controls that must miss it, each a partial last k step
-    lost: W1's last H % 64 rows or W2's last I % 64 rows zeroed. K2 and
-    K10 (heads zero-padded to 32 or 64, the scale from the true head_dim)
-    at 12 heads of GENERIC_HEAD_DIMS, B=64 S=512 and B=8 S=64 with a fully
-    masked row; K9 (padded to 128) at 32 / 32 heads of
-    GENERIC_CAUSAL_HEAD_DIMS, bf16 B=1 S=4,096 pad 1,100 and f32 S=128.
-    K2's, K10's and K9's first cases carry the padded route's two controls
-    (padded_controls; K10's dout padded with zeros). Tolerances, bounds (over the true head_dim) and
-    library calls as at 384; the wrapper times include the pad copies."""
+    lost: W1's last H % 64 rows or W2's last I % 64 rows zeroed. K2 (heads
+    read in place) and K10 (heads zero-padded to 32 or 64), the scale from
+    the true head_dim, at 12 heads of GENERIC_HEAD_DIMS, B=64 S=512 and
+    B=8 S=64 with a fully masked row; K9 (padded to 128) at 32 / 32 heads
+    of GENERIC_CAUSAL_HEAD_DIMS, bf16 B=1 S=4,096 pad 1,100 and f32 S=128.
+    K2's first case carries the in-place read's two controls
+    (in_place_controls), K10's and K9's the padded route's
+    (padded_controls; K10's dout padded with zeros). Tolerances, bounds
+    (over the true head_dim) and library calls as at 384; the wrapper times
+    of K10 and K9 include the pad copies."""
     from financial_rag_tpu_torch.ops import causal_flash as cf
     from financial_rag_tpu_torch.ops import flash_attention as fa
     from financial_rag_tpu_torch.ops import fused_ffn as ffn
@@ -1181,14 +1225,7 @@ def generic_cases(torch, F, randn, padded_mask):
             bias = torch.where(mask > 0, 0.0, -1e9).float()
             controls = ()
             if d == GENERIC_HEAD_DIMS[0] and (b, s) == GENERIC_ATTENTION_SHAPES[0]:
-                def k2_entry(qp, kp, vp, head_dim, bias=bias, b=b, s=s):
-                    out = torch.empty_like(qp)
-                    kernel_lib.launch("flash_attention", "frag_flash_attention", qp.device,
-                                      ptr(qp), ptr(kp), ptr(vp), ptr(bias), ptr(out), b, s,
-                                      qp.shape[-1], NH, head_dim)
-                    return out
-                controls = padded_controls(torch, randn, fa.FWD_HEAD_DIMS, q, k, v, NH, NH,
-                                           k2_entry)
+                controls = in_place_controls(torch, q, k, v, bias, NH)
             cases.append(wide_attention_case(torch, F, q, k, v, mask, bias, NH, d, controls))
 
     def k10_controls(q, k, v, bias, do):
@@ -3835,7 +3872,8 @@ def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GO
     query-embedding cache answers them, run once more under torch.profiler.
     The host spans are the package's own time_block labels. A trace that
     must be made again (``profiled``) rewords the questions anew, so that
-    the caches do not answer them."""
+    the caches do not answer them. K2's and K3's device ms are printed
+    beside the busy time."""
     from financial_rag_tpu_torch.utils.timing import GLOBAL_TIMER
 
     def run(attempt):
@@ -3851,10 +3889,12 @@ def phase_profile(torch, rt, label: str = "flat bf16", n_questions: int = len(GO
     prof, (questions, wall_ms) = profiled(torch, run, with_cpu=True)
     spans = GLOBAL_TIMER.summary()
     summary = device_profile(prof, wall_ms, spans)
-    # K3's kernels (each design's, and the split reduce) against the busy time
+    # K3's kernels (each design's, and the split reduce) and K2's against the busy time
     k3_ms = sum(v["ms"] for k, v in summary["port_kernel_ms"].items() if k.startswith("ffn_"))
+    k2_ms = sum(v["ms"] for k, v in summary["port_kernel_ms"].items() if k.startswith("attn_fwd"))
     emit({"phase": "profile", "runtime": label, "queries": len(questions), **summary,
           "k3_device_ms": k3_ms, "k3_share_of_busy": k3_ms / summary["device_busy_ms"],
+          "k2_device_ms": k2_ms,
           "host_span_ms": {k: v["total_s"] * 1e3 for k, v in list(spans.items())[:14]}})
     return summary["port_kernel_ms"]
 

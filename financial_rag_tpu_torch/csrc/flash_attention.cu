@@ -9,6 +9,28 @@
 // stay f32; P is rounded to bf16 (v's dtype) before P@V, as the TPU kernel
 // does.
 //
+// Narrower heads (TinyBERT-L-4's 26, and 16 or 48) run at the built width D
+// (32, or 64) that holds them, read where they lie, as the TPU kernel slices
+// them out of whole rows: head g's dh columns start at g*dh. Both kernels
+// read a head's tiles by the TMA as boxes of D columns. Where dh is a
+// multiple of 8 the map is 4-D, [B][S][heads][dh], and the columns dh .. D-1
+// arrive as the TMA's zeros. Otherwise (26: 52-byte head rows, 4-byte
+// aligned) attn_fwd_kernel's map is 3-D, [B][S][H], and a box of D columns
+// is a window that also holds the neighbours' columns (zeros past H). The
+// TMA takes no box that starts off a 16-byte column (it faults), so the
+// window starts at g*dh rounded down to a multiple of 8 and the head lies
+// at columns off .. off+dh-1 of the tile (off = g*dh mod 8, 0 to 6 at 26):
+// Q's columns outside them are zeroed in shared memory before the first
+// product, so Q K^T gets nothing from K's, and V's reach only output
+// columns that are never stored. The scale is 1/sqrt(dh), and only a
+// head's own dh columns of the output are stored (attn_fwd_kernel masks its
+// 4-byte stores; the 4-D map's TMA store does not write past dh). Where a
+// head cannot be read so (an odd dh, one whose window would not fit D, as
+// 30, rows of H not a multiple of 8 columns, which the 3-D map's stride
+// cannot take, as 3 or 6 heads of 26, or dh above 32 not a multiple of 8
+// at S > 64, where attn_fwd_d64_kernel has no window) the caller zero-pads
+// each head to D in a copy, which the kernels read as a head of D columns.
+//
 // Bound on the H100: per (batch row, head) the products are 4*S*L*D flops
 // over its L live keys against 2*D bytes a row of q and out and of k and v,
 // ~L/2 flop/byte at any D, so the bytes bound it below L ~ 600; and one
@@ -25,11 +47,16 @@
 // over D: a block takes 128 query rows of one (batch row, head): two
 // consumer warpgroups of 64 rows and one producer warp (at S <= 64 one
 // consumer warpgroup, so that more blocks share an SM). The producer streams
-// 64-key tiles of K and V by cp.async into a ring of 4 stages, one head's
+// 64-key tiles of K and V by the TMA into a ring of 4 stages, one head's
 // 2*D-byte slice of each row in the swizzle of that width (64-byte rows at
 // D = 32, 128-byte rows at D = 64; a K + V stage is 8 or 16 KB), with each
-// tile's bias times log2(e) beside it, and publishes each stage through an
-// mbarrier; the consumers release it through a second one. Per tile a
+// tile's bias times log2(e) beside it by its 32 lanes, through an mbarrier
+// that the lanes and the copies' bytes complete; the consumers release a
+// stage through a second one. Each warpgroup's Q comes by one TMA copy of
+// its own. (The producer issued 16-byte cp.async copies until the narrower
+// heads' TMA reads measured 6-11% faster at 32 as well, with the same bits:
+// kernel_ab.py, B=256 S=512 0.3758 -> 0.3528 ms, listwise 0.0274 ->
+// 0.0243; NVIDIA H100 80GB HBM3, 700.00 W.) Per tile a
 // consumer warpgroup runs S = Q K^T (wgmma m64n64k16, D/16 k-steps, Q and K
 // K-major from shared memory), the online softmax in base 2 (log2(e)/sqrt(D)
 // folded into one FMA with the bias, one ex2 per score), then O += P V
@@ -39,9 +66,9 @@
 // softmax runs while the other's products do, and two blocks share an SM
 // (three at D = 64 and S <= 64, four at D = 32 and S <= 64). Every warp
 // scans the row's bias itself (which tiles are live), so no block-wide
-// barrier waits for the scan, and the producer starts the first tile's
-// copies before it: at S <= 64, where a block's whole work is one tile, the
-// scan, the Q copy and the K/V copy overlap.
+// barrier waits for the scan, and the producer starts tile 0's copies
+// before it (tile 0 is always walked): at S <= 64, where a block's whole
+// work is one tile, the scan, the Q copy and the K/V copy overlap.
 //
 // attn_fwd_d64_kernel (sm_90a; head_dim 64 above S = 64, the bge-base
 // width's encodes). The design above, templated to D = 64, ran 0.52 ms at
@@ -57,10 +84,11 @@
 //    copies an item's Q into one of two buffers, so the next item's Q and
 //    first tiles land while the current one is computed, and the K/V ring
 //    (3 stages) runs on from one item into the next.
-//  - Q, K and V come by TMA from 3-D tensor maps over [B][S][H] built for
-//    every launch (boxes of one head's 64 columns, 128 bytes in SW128, by
-//    128 query or 64 key rows; rows past S arrive as zeros, so no row of the
-//    next batch row is read); one producer thread issues a stage's copies,
+//  - Q, K and V come by TMA from 3-D tensor maps over [B][S][H] (4-D over
+//    [B][S][heads][dh] for a narrower head) built for every launch (boxes
+//    of one head's 64 columns, 128 bytes in SW128, by 128 query or 64 key
+//    rows; rows past S arrive as zeros, so no row of the next batch row is
+//    read); one producer thread issues a stage's copies,
 //    its 32 lanes write the tile's bias beside it, and after an item's last
 //    tile a stage that holds no tile ends the consumers' walk (they scan
 //    nothing themselves).
@@ -95,10 +123,11 @@
 //
 // Dead key tiles are skipped, exactly. A key is dead when its bias times
 // log2(e) lies more than 2^20 below the batch row's largest (Mb); a tile whose
-// keys are all dead or past S is never loaded (in attn_fwd_d64_kernel every
-// tile but tile 0, which is always walked). Whenever |q.k| * log2(e) /
-// sqrt(D) < 2^18 (any real activation: |q.k| < 2^18 * sqrt(D) / log2(e),
-// about 1.03e6 at D = 32 and 1.45e6 at D = 64), every dead score sits more
+// keys are all dead or past S is never loaded (every tile but tile 0, which
+// is always walked, so that its copies start before the scan).
+// Whenever |q.k| * log2(e) / sqrt(D) < 2^18 (any real activation: |q.k| <
+// 2^18 * sqrt(D) / log2(e), about 1.03e6 at D = 32 and 1.45e6 at D = 64),
+// every dead score sits more
 // than 2^19 below the row's final maximum, which is at least the score of
 // the key holding Mb: its ex2 is exactly 0, it never moves the running
 // maximum, and alpha is exactly 1 past it, so the output is the same to the
@@ -159,32 +188,48 @@ __device__ __forceinline__ float row_bias_max(const float* __restrict__ brow, in
   return mb;
 }
 
-// Key tile kt of one head's K and V (rows past S zero-filled) into the stage
-// at ks (K, then V), by the 32 lanes of one warp.
+// Columns lo .. hi-1 (even) of each row of the tile at `tile` as zeros, by
+// threads tid, tid + count, ...: the columns of Q's window that are not the
+// head's.
 template <int D>
-__device__ __forceinline__ void load_kv(uint32_t ks, const __nv_bfloat16* __restrict__ k,
-                                        const __nv_bfloat16* __restrict__ v, size_t base, int kt,
-                                        int S, int H, int lane) {
+__device__ __forceinline__ void zero_cols(uint32_t tile, int lo, int hi, int tid, int count) {
   using Hd = Head<D>;
-  const int k0 = kt * kTile;
-  for (int e = lane; e < kTile * Hd::kChunks; e += 32) {
-    const int r = e >> Hd::kChunkBits, ch = e & (Hd::kChunks - 1);
-    const bool ok = k0 + r < S;
-    const size_t src = base + (size_t)(ok ? k0 + r : 0) * H + 8 * ch;
-    cp_async16(ks + Hd::at(r, ch), k + src, ok);
-    cp_async16(ks + Hd::kTileBytes + Hd::at(r, ch), v + src, ok);
+  const int pieces = (hi - lo) >> 1;   // 4-byte pieces
+  for (int e = tid; e < kTile * pieces; e += count) {
+    const int r = e / pieces, byte = 2 * lo + 4 * (e % pieces);
+    st_shared_u32(tile + Hd::at(r, byte >> 4) + (byte & 15), 0u);
   }
+}
+
+// attn_fwd_kernel reads a head (head_maps) as boxes of D columns: from a
+// 4-D map over [B][S][heads][dh] where dh is a multiple of 8 (the columns
+// past dh read as zeros), else from a 3-D map over [B][S][H] at the 16-byte
+// column c0 = head * dh rounded down to a multiple of 8: a window whose
+// columns off = head * dh - c0 .. off + dh - 1 are the head's, the others
+// its neighbours' (zeros past H), and Q's others are zeroed in shared
+// memory (off + dh <= D for every head: the C entry's check).
+
+// A box of one head's rows from row on, of batch row b, into the tile at dst
+// by the TMA, completing its bytes on bar: from a 3-D map over [B][S][H] at
+// column c0 (by_column), else from a 4-D map over [B][S][heads][dh].
+__device__ __forceinline__ void tma_head_rows(uint32_t dst, const CUtensorMap* map, bool by_column,
+                                              int head, int c0, int row, int b, uint64_t* bar) {
+  if (by_column) tma_load_3d(dst, map, c0, row, b, bar);
+  else tma_load_4d(dst, map, 0, head, row, b, bar);
 }
 
 template <int NC, int D>
 __global__ void __launch_bounds__(Block<NC, D>::kThreads, Block<NC, D>::kMinBlocks)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                __nv_bfloat16* __restrict__ out, int S, int H, float c) {
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
+                __nv_bfloat16* __restrict__ out, int S, int H, int dh, float c) {
   using Hd = Head<D>;
   constexpr int kTileBytes = Hd::kTileBytes;
+  const bool window = dh % 8 != 0;                   // through the 3-D map
+  const int off = window ? blockIdx.y * dh % 8 : 0;  // the head's first column in a tile
+  const int c0 = blockIdx.y * dh - off;              // the window's first column
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], q_full[NC];
   __shared__ __align__(16) float bias_s[kStages][kTile];  // a tile's key bias * log2(e)
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sRing = sQ + NC * kTileBytes;  // stage st: K, then V
@@ -192,7 +237,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * Block<NC, D>::kRows;
   const int consumers = min(NC, (S - q0 + kTile - 1) / kTile);  // warpgroups with a row < S
-  const size_t base = (size_t)b * S * H + (size_t)blockIdx.y * D;
+  const size_t base = (size_t)b * S * H + (size_t)blockIdx.y * dh;
   const float* brow = bias + (size_t)b * S;
   const int nkt = (S + kTile - 1) / kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -201,73 +246,68 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 32);                 // every producer lane, once its copies landed
+      mbar_init(&full[st], 32);                 // every producer lane (its bias), then the tile's bytes
       mbar_init(&empty[st], consumers * 128);   // every consumer thread, once its products ended
     }
+    for (int i = 0; i < NC; ++i) mbar_init(&q_full[i], 1);   // a warpgroup's Q
     mbar_init_fence();
   }
   __syncthreads();
 
   if (producer) {
-    // tile 0 into stage 0 before the scan; should tile 0 be dead, the first
-    // live tile waits for these copies before it takes stage 0
-    load_kv<D>(sRing, k, v, base, 0, S, H, lane);
-    cp_async_commit();
-    const float mb = row_bias_max(brow, S, lane);
-    // live tile t into stage t % kStages, published one tile late so that two
-    // tiles' copies are in flight, and always before it blocks on a stage that
-    // a consumer has yet to release
-    int published = 0, t = 0;
-    auto publish = [&](auto wait_groups) {
-      wait_groups();
-      fence_proxy_async();
-      mbar_arrive(&full[published % kStages]);
-      ++published;
+    // tile 0 is always walked (exact: see the header), so its K and V go
+    // out before the scan; then each live tile t into stage t % kStages,
+    // its bias by the 32 lanes and its K and V by two TMA copies of lane 0
+    auto issue = [&](int kt, int st, float b0, float b1) {
+      bias_s[st][lane] = b0;
+      bias_s[st][lane + 32] = b1;
+      if (lane == 0) {
+        const uint32_t ks = sRing + st * 2 * kTileBytes;
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        tma_head_rows(ks, &tm_k, window, blockIdx.y, c0, kt * kTile, b, &full[st]);
+        tma_head_rows(ks + kTileBytes, &tm_v, window, blockIdx.y, c0, kt * kTile, b, &full[st]);
+      } else {
+        mbar_arrive(&full[st]);
+      }
     };
-    for (int kt = 0; kt < nkt; ++kt) {
-      float b0, b1;
+    float b0, b1;
+    tile_bias(brow, 0, S, lane, b0, b1);
+    issue(0, 0, b0, b1);
+    const float mb = row_bias_max(brow, S, lane);
+    for (int kt = 1, t = 1; kt < nkt; ++kt) {
       tile_bias(brow, kt, S, lane, b0, b1);
       if (!tile_live(b0, b1, mb)) continue;
       const int st = t % kStages;
-      if (t >= kStages) {
-        if (published < t) publish([] { cp_async_wait<0>(); });
-        mbar_wait(&empty[st], (t / kStages - 1) & 1);
-      }
-      if (kt > 0) {  // tile 0's copies were issued before the scan
-        if (t == 0) cp_async_wait<0>();
-        load_kv<D>(sRing + st * 2 * kTileBytes, k, v, base, kt, S, H, lane);
-        cp_async_commit();
-      }
-      bias_s[st][lane] = b0;
-      bias_s[st][lane + 32] = b1;
-      if (published < t) publish([] { cp_async_wait<1>(); });
+      if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+      issue(kt, st, b0, b1);
       ++t;
     }
-    if (published < t) publish([] { cp_async_wait<0>(); });
     return;
   }
   if (w >= consumers) return;
 
   // this warpgroup's 64 query rows, zeros past S
   const uint32_t qt = sQ + w * kTileBytes;
-  for (int e = threadIdx.x & 127; e < kTile * Hd::kChunks; e += 128) {
-    const int r = e >> Hd::kChunkBits, ch = e & (Hd::kChunks - 1), row = q0 + w * kTile + r;
-    const bool ok = row < S;
-    cp_async16(qt + Hd::at(r, ch), q + base + (size_t)(ok ? row : 0) * H + 8 * ch, ok);
+  if ((threadIdx.x & 127) == 0) {
+    mbar_expect_tx(&q_full[w], kTileBytes);
+    tma_head_rows(qt, &tm_q, window, blockIdx.y, c0, q0 + w * kTile, b, &q_full[w]);
   }
-  cp_async_commit();
-  // the number of live tiles, counted as the producer counts them, while Q lands
+  // the number of walked tiles, counted as the producer counts them, while Q lands
   int n = 0;
   {
     const float mb = row_bias_max(brow, S, lane);
     for (int kt = 0; kt < nkt; ++kt) {
       float b0, b1;
       tile_bias(brow, kt, S, lane, b0, b1);
-      n += tile_live(b0, b1, mb);
+      n += kt == 0 || tile_live(b0, b1, mb);
     }
   }
-  cp_async_wait<0>();
-  fence_proxy_async();
+  mbar_wait(&q_full[w], 0);
+  if (window) {   // the neighbours' q
+    zero_cols<D>(qt, 0, off, threadIdx.x & 127, 128);
+    zero_cols<D>(qt, off + dh, D, threadIdx.x & 127, 128);
+    fence_proxy_async();   // before the products read it
+  }
   named_barrier(1 + w, 128);
 
   const int gid = lane >> 2, tig = lane & 3;
@@ -332,9 +372,10 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const float inv = 1.f / quad_sum(l[r]);
     if (row >= S) continue;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)row * H + 8 * nt + 2 * tig) =
-          pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+    for (int nt = 0; nt < D / 8; ++nt)   // the head's dh columns only (dh even: whole pairs)
+      if (8 * nt + 2 * tig >= off && 8 * nt + 2 * tig < off + dh)
+        *reinterpret_cast<uint32_t*>(out + base + (size_t)row * H + 8 * nt + 2 * tig - off) =
+            pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
   }
 }
 
@@ -385,7 +426,8 @@ struct WideItem {
 __global__ void __launch_bounds__(Wide::kThreads, Wide::kMinBlocks)
 attn_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-                    const float* __restrict__ bias, int S, int heads, int items, float c) {
+                    const float* __restrict__ bias, int S, int heads, int items, float c,
+                    bool by_column) {
   using W = Wide;
   constexpr int D = 64, kKeys = W::kKeys, kStages = W::kStages, kN = kKeys / 2;  // kN: S registers a thread
   using Hd = Head<D>;
@@ -430,8 +472,9 @@ attn_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
       } else if (lane == 0) {
         mbar_expect_tx(&full[st], W::kStageBytes);
         const uint32_t ks = sRing + st * W::kStageBytes;
-        tma_load_3d(ks, &tm_k, x.head * D, kt * kKeys, x.b, &full[st]);
-        tma_load_3d(ks + W::kKvBytes, &tm_v, x.head * D, kt * kKeys, x.b, &full[st]);
+        tma_head_rows(ks, &tm_k, by_column, x.head, x.head * D, kt * kKeys, x.b, &full[st]);
+        tma_head_rows(ks + W::kKvBytes, &tm_v, by_column, x.head, x.head * D, kt * kKeys, x.b,
+                      &full[st]);
       } else {
         mbar_arrive(&full[st]);
       }
@@ -449,7 +492,8 @@ attn_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
       if (it >= W::kQBuffers) mbar_wait(&q_empty[qb], (it / W::kQBuffers - 1) & 1);
       if (lane == 0) {
         mbar_expect_tx(&q_full[qb], W::kQBytes);
-        tma_load_3d(sQ + qb * W::kQBytes, &tm_q, x.head * D, x.q0, x.b, &q_full[qb]);
+        tma_head_rows(sQ + qb * W::kQBytes, &tm_q, by_column, x.head, x.head * D, x.q0, x.b,
+                      &q_full[qb]);
       }
       // tile 0 is always walked (header), so its copies start before the scan
       float bk[kKeys / 32];
@@ -567,7 +611,8 @@ attn_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     fence_proxy_async();
     named_barrier(1 + w, 128);
     if (issuer) {
-      tma_store_3d(&tm_o, ot, x.head * D, x.q0 + w * kTile, x.b);
+      if (by_column) tma_store_3d(&tm_o, ot, x.head * D, x.q0 + w * kTile, x.b);
+      else tma_store_4d(&tm_o, ot, 0, x.head, x.q0 + w * kTile, x.b);
       bulk_commit();
     }
   }
@@ -576,9 +621,30 @@ attn_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   if (issuer) bulk_wait<0>();
 }
 
+// The Q, K and V maps of attn_fwd_kernel (64-row boxes of D columns, in the
+// swizzle of Head<D>'s rows): 4-D over [B][S][heads][dh] where dh is a
+// multiple of 8, else 3-D over [B][S][H].
+template <int D>
+bool head_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int B, int S,
+               int H, int num_heads, int dh) {
+  const CUtensorMapSwizzle sw = D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const void* src[3] = {q, k, v};
+  const uint64_t dims4[4] = {(uint64_t)dh, (uint64_t)num_heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides4[3] = {(uint64_t)dh * 2, (uint64_t)H * 2, (uint64_t)S * H * 2};
+  const uint32_t box4[4] = {D, 1, kTile, 1};
+  const uint64_t dims3[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides3[2] = {(uint64_t)H * 2, (uint64_t)S * H * 2};
+  const uint32_t box3[3] = {D, kTile, 1};
+  for (int i = 0; i < 3; ++i)
+    if (!(dh % 8 == 0 ? tensor_map_4d(&maps[i], src[i], dims4, strides4, box4, sw)
+                      : tensor_map_3d(&maps[i], src[i], dims3, strides3, box3, sw)))
+      return false;
+  return true;
+}
+
 template <int NC, int D>
 int launch(const void* q, const void* k, const void* v, const float* bias, void* out, int B,
-           int S, int H, int num_heads, float c, cudaStream_t st) {
+           int S, int H, int num_heads, int dh, float c, cudaStream_t st) {
   using Blk = Block<NC, D>;
   if constexpr (Blk::kSmemBytes > 48 * 1024) {
     // above 48 KB of dynamic shared memory a kernel must opt in, on each
@@ -587,65 +653,84 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
         attn_fwd_kernel<NC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmemBytes);
     if (opt_in != cudaSuccess) return (int)opt_in;
   }
+  CUtensorMap maps[3];
+  if (!head_maps<D>(maps, q, k, v, B, S, H, num_heads, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + Blk::kRows - 1) / Blk::kRows, num_heads, B);
   attn_fwd_kernel<NC, D><<<grid, Blk::kThreads, Blk::kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out), S, H, c);
+      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(out), S, H, dh, c);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_head(const void* q, const void* k, const void* v, const float* bias, void* out, int B,
-                int S, int H, int num_heads, float c, cudaStream_t st) {
-  return S <= kTile ? launch<1, D>(q, k, v, bias, out, B, S, H, num_heads, c, st)
-                    : launch<2, D>(q, k, v, bias, out, B, S, H, num_heads, c, st);
+                int S, int H, int num_heads, int dh, float c, cudaStream_t st) {
+  return S <= kTile ? launch<1, D>(q, k, v, bias, out, B, S, H, num_heads, dh, c, st)
+                    : launch<2, D>(q, k, v, bias, out, B, S, H, num_heads, dh, c, st);
 }
 
-// head_dim 64: the one-warpgroup block of attn_fwd_kernel at S <= 64, else
-// attn_fwd_d64_kernel, two persistent blocks an SM, its Q, K and V read
-// through 3-D tensor maps over [B][S][H] (boxes of one head's 64 columns,
-// 128 bytes in SW128, by rows: 128 query rows, 64 keys; rows past S
-// arrive as zeros)
+// head_dim 33 .. 64: the one-warpgroup block of attn_fwd_kernel at S <= 64,
+// else attn_fwd_d64_kernel, two persistent blocks an SM, its Q, K and V read
+// through tensor maps (boxes of 64 columns of one head, 128 bytes in SW128,
+// by rows: 128 query rows, 64 keys; rows past S arrive as zeros, and the
+// store of O writes none): at dh = 64 3-D over [B][S][H], at a narrower dh
+// 4-D over [B][S][heads][dh], whose columns past dh read as zeros and are
+// not written (the 4-D map at 64 measured 1-3% slower than the 3-D one:
+// kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W)
 int launch_d64(const void* q, const void* k, const void* v, const float* bias, void* out, int B,
-               int S, int H, int num_heads, float c, cudaStream_t st) {
-  if (S <= kTile) return launch<1, 64>(q, k, v, bias, out, B, S, H, num_heads, c, st);
+               int S, int H, int num_heads, int dh, float c, cudaStream_t st) {
+  if (S <= kTile) return launch<1, 64>(q, k, v, bias, out, B, S, H, num_heads, dh, c, st);
   using W = Wide;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  const uint64_t dims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)H * 2, (uint64_t)S * H * 2};
-  const uint32_t box_q[3] = {64, (uint32_t)W::kRows, 1}, box_kv[3] = {64, (uint32_t)W::kKeys, 1};
-  const uint32_t box_o[3] = {64, (uint32_t)kTile, 1};
-  if (!tensor_map_3d(&tm_q, q, dims, strides, box_q, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map_3d(&tm_k, k, dims, strides, box_kv, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map_3d(&tm_v, v, dims, strides, box_kv, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map_3d(&tm_o, out, dims, strides, box_o, CU_TENSOR_MAP_SWIZZLE_128B))
-    return (int)cudaErrorInvalidValue;
+  const bool by_column = dh == 64;
+  const void* src[4] = {q, k, v, out};
+  CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_o};
+  const uint32_t rows[4] = {(uint32_t)W::kRows, (uint32_t)W::kKeys, (uint32_t)W::kKeys, (uint32_t)kTile};
+  const uint64_t dims3[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides3[2] = {(uint64_t)H * 2, (uint64_t)S * H * 2};
+  const uint64_t dims4[4] = {(uint64_t)dh, (uint64_t)num_heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides4[3] = {(uint64_t)dh * 2, (uint64_t)H * 2, (uint64_t)S * H * 2};
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t box3[3] = {64, rows[i], 1}, box4[4] = {64, 1, rows[i], 1};
+    if (!(by_column ? tensor_map_3d(maps[i], src[i], dims3, strides3, box3, CU_TENSOR_MAP_SWIZZLE_128B)
+                    : tensor_map_4d(maps[i], src[i], dims4, strides4, box4, CU_TENSOR_MAP_SWIZZLE_128B)))
+      return (int)cudaErrorInvalidValue;
+  }
   static std::atomic<int> sm_counts[kMaxDevices];
   const int sms = opted_sm_count(attn_fwd_d64_kernel, W::kSmemBytes, sm_counts);
   if (sms < 0) return -sms;
   const int items = (S + W::kRows - 1) / W::kRows * num_heads * B;
   attn_fwd_d64_kernel<<<min(items, W::kMinBlocks * sms), W::kThreads, W::kSmemBytes, st>>>(
-      tm_q, tm_k, tm_v, tm_o, bias, S, num_heads, items, c);
+      tm_q, tm_k, tm_v, tm_o, bias, S, num_heads, items, c, by_column);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v/out [B,S,H] bf16 (H = num_heads * the built width, 32 or 64),
-// 16-byte aligned; bias [B,S] f32. head_dim is the heads' true width, whose
-// 1 / sqrt scales the scores: the built width, or less where the caller
-// zero-padded each head to it (zero columns add nothing to q.k, and the
-// output's padded columns come out zero).
+// q/k/v/out [B,S,H] bf16, 16-byte aligned; bias [B,S] f32. head_dim (<= 64)
+// is the heads' true width, whose 1 / sqrt scales the scores; the kernel is
+// built for heads of 32 and 64 and runs a head at the narrowest that holds
+// it. H / num_heads, a head's columns in memory, is either head_dim (the
+// heads read in place: a multiple of 8, or an even head_dim whose window
+// fits the built width below S = 65 or at head_dim <= 32, over H a
+// multiple of 8, as ops/flash_attention.py's fwd_reads_in_place says) or
+// that built width (each head zero-padded to it by the caller: zero
+// columns add nothing to q.k, and the output's padded columns come out
+// zero). Only a head's own columns of `out` are written.
 FRAG_EXPORT int frag_flash_attention(const void* q, const void* k, const void* v,
                                      const float* bias, void* out, int B, int S, int H,
                                      int num_heads, int head_dim, void* stream) {
-  if (num_heads < 1 || H % num_heads || S < 1 || B < 1 || head_dim < 1 || head_dim > H / num_heads)
+  if (num_heads < 1 || H % num_heads || S < 1 || B < 1 || head_dim < 1 || head_dim > 64)
+    return (int)cudaErrorInvalidValue;
+  const int dh = H / num_heads, built = head_dim <= 32 ? 32 : 64;
+  // a head read in place whose rows are not whole 16-byte chunks: an even dh
+  // whose window (at most 8 - lowest set bit of dh columns before the head)
+  // fits the built width, in attn_fwd_kernel, over rows of whole 16-byte
+  // chunks (H a multiple of 8: the 3-D map's row stride)
+  if ((dh != built && dh != head_dim) ||
+      (dh % 8 && (dh % 2 || dh + 8 - (dh & -dh) > built || (built == 64 && S > kTile) || H % 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float c = (float)(1.4426950408889634 / sqrt((double)head_dim));
-  switch (H / num_heads) {
-    case 32: return launch_head<32>(q, k, v, bias, out, B, S, H, num_heads, c, st);
-    case 64: return launch_d64(q, k, v, bias, out, B, S, H, num_heads, c, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return built == 32 ? launch_head<32>(q, k, v, bias, out, B, S, H, num_heads, dh, c, st)
+                     : launch_d64(q, k, v, bias, out, B, S, H, num_heads, dh, c, st);
 }

@@ -636,13 +636,19 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, co
 // B and out are the 3-D maps below; otherwise a 64-column block would run
 // into the next row, so they are 2-D maps over [K][ncols] and [M][ncols],
 // read and written one 64-column box at a time, with the columns past the
-// matrix read as zeros and not written. The bias loads stop at ncols.
+// matrix read as zeros and not written. The bias loads stop at ncols. At a
+// query's few token tiles the generic route's plan (ops/fused_ffn.py,
+// large_launch_plan) spreads both products over the card: 64-column tiles
+// (kGSlimCols) where their grid fits the SMs in one wave, and the second
+// product's k steps split in ranges that need not divide them.
 constexpr int kGH = 1024;                 // hidden width of the large design (its reduce is built for it)
 constexpr int kGGranule = 8;              // the generic route's H and I: multiples of 8 (16-byte rows)
 constexpr int kGTokens = 128;             // token rows of a tile: 64 a consumer warpgroup
 constexpr int kGDepth = 64;               // k a ring stage holds: 128-byte rows, SW128
 constexpr int kGWideCols = 256;           // output columns of a wide tile (128 accumulators a thread)
 constexpr int kGNarrowCols = 128;         // of a narrow one (64), for calls of few tiles
+constexpr int kGSlimCols = 64;            // of a slim one (32), the generic route's at a query's tokens
+constexpr int kGMinSteps = 4;             // k steps a split unit of the second product walks at least
 constexpr int kGABytes = kGTokens * kGDepth * 2;   // a stage's A tile: 16 KB, K-major
 constexpr int kGWideStages = 4;
 constexpr int kGNarrowStages = 6;
@@ -652,13 +658,25 @@ constexpr int kGWideStageBytes = kGABytes + kGDepth * kGWideCols * 2;      // 48
 constexpr int kGNarrowStageBytes = kGABytes + kGDepth * kGNarrowCols * 2;  // 32 KB
 constexpr int kGWideSmemBytes = kGWideStages * kGWideStageBytes + 2 * kGStagingBytes + 1024;  // + alignment
 constexpr int kGNarrowSmemBytes = kGNarrowStages * kGNarrowStageBytes + 2 * kGStagingBytes + 1024;
+// A tile of BN columns: its ring (6 stages below 256 columns) and shared memory.
+template <int BN>
+struct GTile {
+  static constexpr int kStages = BN == kGWideCols ? kGWideStages : kGNarrowStages;
+  static constexpr int kStageBytes = kGABytes + kGDepth * BN * 2;
+  static constexpr int kOutCols = BN < kGOutCols ? BN : kGOutCols;   // a TMA store's columns
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kGStagingBytes + 1024;
+};
+static_assert(GTile<kGWideCols>::kSmemBytes == kGWideSmemBytes &&
+              GTile<kGNarrowCols>::kSmemBytes == kGNarrowSmemBytes, "the tile widths' rings");
 constexpr int kGConsumerWarps = 8;        // two warpgroups; a third one's thread 256 issues the copies
 constexpr int kGThreads = kGConsumerWarps * 32 + 128;
 constexpr int kGProducerRegs = 40;        // setmaxnreg: the producer warpgroup's registers a thread
 constexpr int kGConsumerRegs = 232;       // and the consumers'
 
 // A block walks the work units u = blockIdx.x, + gridDim.x, ..., each a
-// tile of 128 rows by BN columns and one of `splits` ranges of K: columns
+// tile of 128 rows by BN columns and one of `splits` ranges of K (split s:
+// k steps s * steps / splits .. (s + 1) * steps / splits - 1, which the
+// producer and the consumers both compute from the unit): columns
 // fastest, then the split, then the rows, so the blocks at work at one time
 // share their A rows and all of B through L2. Thread 256 (the producer)
 // keeps the ring full: a stage is the A tile [128][64] (TMA, 128-byte
@@ -681,15 +699,15 @@ __global__ void __launch_bounds__(kGThreads, 1)
 ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_out, const __nv_bfloat16* __restrict__ bias,
                  float* __restrict__ partial, int M, int ncols, int K, int splits, bool blocked) {
-  constexpr int kStages = BN == kGWideCols ? kGWideStages : kGNarrowStages;
-  constexpr int kStageBytes = BN == kGWideCols ? kGWideStageBytes : kGNarrowStageBytes;
+  constexpr int kStages = GTile<BN>::kStages, kStageBytes = GTile<BN>::kStageBytes;
+  constexpr int kOut = GTile<BN>::kOutCols;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t sRing = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sStaging = sRing + kStages * kStageBytes;
   const int ntiles = (ncols + BN - 1) / BN;
   const int units = (M + kGTokens - 1) / kGTokens * ntiles * splits;
-  const int steps = (K + kGDepth - 1) / kGDepth / splits;   // k steps of a unit
+  const int ksteps = (K + kGDepth - 1) / kGDepth;   // split s walks [s*ksteps/splits, (s+1)*ksteps/splits)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -709,8 +727,9 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
       int it = 0;   // the stages this block has filled
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
         const int n = u % ntiles, r = u / ntiles, split = r % splits, m = r / splits;
+        const int first = split * ksteps / splits, steps = (split + 1) * ksteps / splits - first;
         for (int ks = 0; ks < steps; ++ks, ++it) {
-          const int st = it % kStages, k0 = (split * steps + ks) * kGDepth;
+          const int st = it % kStages, k0 = (first + ks) * kGDepth;
           if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
           const uint32_t a = sRing + st * kStageBytes;
           if (blocked) {
@@ -747,6 +766,7 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
   };
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int n = u % ntiles, r = u / ntiles, split = r % splits, m = r / splits;
+    const int steps = (split + 1) * ksteps / splits - split * ksteps / splits;   // as the producer's
     for (int ks = 0; ks < steps; ++ks, ++it) {
       const int st = it % kStages;
       mbar_wait(&full[st], (it / kStages) & 1);
@@ -759,9 +779,12 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
         if constexpr (BN == kGWideCols)
           wgmma_ss_n256_tb(acc, desc_add(a_desc, 32 * kk), desc_add(b_desc, 16 * 128 * kk),
                            ks > 0 || kk > 0);
-        else
+        else if constexpr (BN == kGNarrowCols)
           wgmma_ss_n128_tb(acc, desc_add(a_desc, 32 * kk), desc_add(b_desc, 16 * 128 * kk),
                            ks > 0 || kk > 0);
+        else
+          wgmma_ss_n64_tb(acc, desc_add(a_desc, 32 * kk), desc_add(b_desc, 16 * 128 * kk),
+                          ks > 0 || kk > 0);
       }
       wgmma_commit();
       if (ks > 0) {
@@ -781,11 +804,11 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
     const uint32_t st_row = staging + row * 128 + 4 * tig;
     if (kGelu || splits == 1) {
 #pragma unroll
-      for (int half = 0; half < BN / kGOutCols; ++half) {
+      for (int half = 0; half < BN / kOut; ++half) {
         // + bias (and GELU) in place, while the last store reads the staging tile
 #pragma unroll
-        for (int jj = 0; jj < kGOutCols / 8; ++jj) {
-          const int j = half * (kGOutCols / 8) + jj, col = n * BN + 8 * j + 2 * tig;
+        for (int jj = 0; jj < kOut / 8; ++jj) {
+          const int j = half * (kOut / 8) + jj, col = n * BN + 8 * j + 2 * tig;
           const bool in = col < ncols;   // ncols is even (whole 16-byte chunks): col + 1 too
           const float b0 = in ? __bfloat162float(bias[col]) : 0.f;
           const float b1 = in ? __bfloat162float(bias[col + 1]) : 0.f;
@@ -801,8 +824,8 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
         if (issuer) bulk_wait_read<0>();
         named_barrier(1 + wg, 128);
 #pragma unroll
-        for (int jj = 0; jj < kGOutCols / 8; ++jj) {
-          const int j = half * (kGOutCols / 8) + jj;
+        for (int jj = 0; jj < kOut / 8; ++jj) {
+          const int j = half * (kOut / 8) + jj;
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             st_shared_u32(st_row + (jj >> 3) * (64 * 128) + e * (8 * 128) + (((jj & 7) ^ gid) << 4),
@@ -811,11 +834,11 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
         fence_proxy_async();   // the stores, before the TMA reads them
         named_barrier(1 + wg, 128);
         if (issuer) {
-          const int row0 = m * kGTokens + 64 * wg, col0 = n * BN + half * kGOutCols;
+          const int row0 = m * kGTokens + 64 * wg, col0 = n * BN + half * kOut;
           if (blocked) {
             tma_store_3d(&tm_out, staging, 0, row0, col0 / 64);
           } else {
-            for (int j = 0; j < kGOutCols / 64 && col0 + 64 * j < ncols; ++j)
+            for (int j = 0; j < kOut / 64 && col0 + 64 * j < ncols; ++j)
               tma_store_2d(&tm_out, staging + j * 64 * 128, col0 + 64 * j, row0);
           }
           bulk_commit();
@@ -845,7 +868,7 @@ ffn_large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant
 template <int BN, bool kGelu>
 int launch_large_product(const void* a, const void* b, const void* bias, void* out, float* partial,
                          int M, int ncols, int K, int splits, cudaStream_t st) {
-  constexpr int smem = BN == kGWideCols ? kGWideSmemBytes : kGNarrowSmemBytes;
+  constexpr int smem = GTile<BN>::kSmemBytes;
   static std::atomic<int> sm_cache[kMaxDevices];
   const int sms = opted_sm_count(ffn_large_kernel<BN, kGelu>, smem, sm_cache);
   if (sms < 0) return -sms;
@@ -857,7 +880,7 @@ int launch_large_product(const void* a, const void* b, const void* bias, void* o
   const bool blocked = ncols % 64 == 0;
   const uint64_t b_dims[3] = {64, (uint64_t)K, (uint64_t)ncols / 64}, b_strides[2] = {(uint64_t)ncols * 2, 128};
   const uint64_t out_dims[3] = {64, (uint64_t)M, (uint64_t)ncols / 64};
-  const uint32_t b_box[3] = {64, kGDepth, BN / 64}, out_box[3] = {64, 64, kGOutCols / 64};
+  const uint32_t b_box[3] = {64, kGDepth, BN / 64}, out_box[3] = {64, 64, GTile<BN>::kOutCols / 64};
   const bool mapped =
       blocked ? hopper::tensor_map_3d(&tm_b, b, b_dims, b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B) &&
                     hopper::tensor_map_3d(&tm_out, out, out_dims, b_strides, out_box, CU_TENSOR_MAP_SWIZZLE_128B)
@@ -870,6 +893,20 @@ int launch_large_product(const void* a, const void* b, const void* bias, void* o
   ffn_large_kernel<BN, kGelu><<<grid, kGThreads, smem, st>>>(
       tm_a, tm_b, tm_out, static_cast<const __nv_bfloat16*>(bias), partial, M, ncols, K, splits, blocked);
   return (int)cudaGetLastError();
+}
+
+// One product at up to `cols` (256, 128 or 64) output columns a tile.
+template <bool kGelu>
+int launch_product(int cols, const void* a, const void* b, const void* bias, void* out,
+                   float* partial, int M, int ncols, int K, int splits, cudaStream_t st) {
+  switch (cols) {
+    case kGWideCols:
+      return launch_large_product<kGWideCols, kGelu>(a, b, bias, out, partial, M, ncols, K, splits, st);
+    case kGNarrowCols:
+      return launch_large_product<kGNarrowCols, kGelu>(a, b, bias, out, partial, M, ncols, K, splits, st);
+    default:
+      return launch_large_product<kGSlimCols, kGelu>(a, b, bias, out, partial, M, ncols, K, splits, st);
+  }
 }
 
 }  // namespace
@@ -892,27 +929,24 @@ FRAG_EXPORT int frag_fused_ffn(const void* x, const void* w1, const void* b1,
 // Hidden 1,024 and the generic route. Shapes as frag_fused_ffn's with H and
 // I multiples of 8 (H = 1,024 with I a multiple of 64 is the tuned width);
 // h [N,I] bf16 scratch (16-byte aligned), partial [splits,N,H] f32 scratch
-// (unused when splits is 1). up_cols and down_cols (128 or 256) are the two
-// products' tile widths; splits divides the second product's ceil(I / 64)
-// k steps.
+// (unused when splits is 1). up_cols and down_cols (256, 128 or 64) are the
+// two products' tile widths; the second product's ceil(I / 64) k steps are
+// split `splits` ways, split s walking steps [s * steps / splits, (s + 1) *
+// steps / splits), at least kGMinSteps of them.
 FRAG_EXPORT int frag_fused_ffn_large(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* y, void* h,
                                      float* partial, int N, int H, int I, int up_cols,
                                      int down_cols, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto cols_ok = [](int c) { return c == kGWideCols || c == kGNarrowCols; };
+  const auto cols_ok = [](int c) { return c == kGWideCols || c == kGNarrowCols || c == kGSlimCols; };
   const int steps = (I + kGDepth - 1) / kGDepth;
   if (N < 1 || H < kGGranule || H % kGGranule || I < kGGranule || I % kGGranule || splits < 1 ||
-      steps % splits || h == nullptr ||
+      (splits > 1 && steps / splits < kGMinSteps) || h == nullptr ||
       !cols_ok(up_cols) || !cols_ok(down_cols) || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  int err = up_cols == kGWideCols
-                ? launch_large_product<kGWideCols, true>(x, w1, b1, h, nullptr, N, I, H, 1, st)
-                : launch_large_product<kGNarrowCols, true>(x, w1, b1, h, nullptr, N, I, H, 1, st);
+  int err = launch_product<true>(up_cols, x, w1, b1, h, nullptr, N, I, H, 1, st);
   if (err) return err;
-  err = down_cols == kGWideCols
-            ? launch_large_product<kGWideCols, false>(h, w2, b2, y, partial, N, H, I, splits, st)
-            : launch_large_product<kGNarrowCols, false>(h, w2, b2, y, partial, N, H, I, splits, st);
+  err = launch_product<false>(down_cols, h, w2, b2, y, partial, N, H, I, splits, st);
   if (err || splits == 1) return err;
   const int blocks = (int)(((size_t)N * H + kReduceThreads - 1) / kReduceThreads);
   const auto* b2b = static_cast<const __nv_bfloat16*>(b2);

@@ -18,11 +18,13 @@
 // exception: whole boxes of a plain row-major matrix, the same for every
 // block, so one thread has the TMA copy them (tensor_map_2d / _3d,
 // tma_load_2d / _3d), swizzled, and their bytes complete the stage's
-// mbarrier. The head-64 attention kernels (K2's attn_fwd_d64_kernel, K10's
-// fused kernel) and K9's head-128 kernel are the others: their tiles are
-// boxes of one head's 64 columns of a 3-D map over [B][S][H] built for every
-// launch, rows past S read as zeros, and K2 and K10 write their outputs the
-// same way back (tma_store_3d from a staging tile, stage_rows_sw128).
+// mbarrier. K2's two kernels, K10's fused head-64 kernel and K9's head-128
+// kernel are the others: their tiles are boxes of one head's columns of a
+// 3-D map over [B][S][H] (K2's: a 4-D map over [B][S][heads][dh], so that a
+// narrower head's columns past dh read as zeros, or a 3-D window on a
+// 16-byte column) built for every launch, rows past S read as zeros, and
+// K2's attn_fwd_d64_kernel and K10 write their outputs the same way back
+// (tma_store_3d / _4d from a staging tile, stage_rows_sw128).
 //
 // Products: wgmma m64nNk16, bf16 in, f32 accumulate (and m64n32k32, int8
 // in, exact int32 accumulate, for the int8 sweeps). B always comes from
@@ -277,6 +279,25 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uin
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The box of a 4-D tensor map at element coordinates (c0 innermost, .., c3).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+// The box of a 4-D tensor map at (c0, .., c3) from shared memory at `src`
+// to global memory, as tma_store_3d.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // A 3-D tensor map of bf16 elements: dims[0] innermost (contiguous), the
 // byte strides of dims[1] and dims[2] (multiples of 16, in any order), read
 // in boxes of box[0] x box[1] x box[2] that land in shared memory with
@@ -292,6 +313,23 @@ inline bool tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&d
   const cuuint32_t b[3] = {box[0], box[1], box[2]};
   const cuuint32_t element_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), d, st, b,
+                element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map of bf16 elements, as tensor_map_3d: dims[0] innermost,
+// the byte strides of dims[1] .. dims[3]. A box wider than dims[0] reads
+// the columns past it as zeros and a store of it does not write them.
+inline bool tensor_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                          const uint64_t (&strides)[3], const uint32_t (&box)[4],
+                          CUtensorMapSwizzle swizzle) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t element_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, st, b,
                 element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -525,6 +563,19 @@ __device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t desc_a,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A in shared memory K-major, B in
+// shared memory MN-major (a tile stored [k][n], read through the transpose
+// bit); with accumulate = 0 the product overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // d[64 x 128] (+)= A[64 x 16] * B[16 x 128], A in shared memory K-major, B

@@ -22,12 +22,18 @@ K2's launches again by the width of q (heads x head_dim), so a process that
 runs encoders of two widths can tell their launches apart.
 
 The kernels are built for heads of 32 and 64 (``FWD_HEAD_DIMS``,
-``BWD_HEAD_DIMS``). A narrower head (TinyBERT-L-4's 26, 16, 48) is
-zero-padded to the next built width in a copy made by the wrapper
-(``ops.common.pad_heads``), and the kernel is told the true head_dim, whose
-1 / sqrt scales the scores: zero columns add nothing to q.k, the output's
-padded columns (and in the backward those of dq, dk and dv) come out zero,
-and the wrapper drops them. Heads wider than 64 are refused.
+``BWD_HEAD_DIMS``). K2 reads a narrower head (TinyBERT-L-4's 26, 16, 48)
+where it lies, at the widths :func:`fwd_reads_in_place` names: the TMA
+reads each head as boxes of the built width that holds it, whose other
+columns are zeros (or its neighbours', with Q's zeroed in shared memory),
+the scores are scaled by its true head_dim, and only its own columns of
+the output are written. At any other width, and in
+K10 at every narrower width, the wrapper zero-pads each head to the built
+width in a copy (``ops.common.pad_heads``) and tells the kernel the true
+head_dim, whose 1 / sqrt scales the scores: zero columns add nothing to
+q.k, the output's padded columns (and in the backward those of dq, dk and
+dv) come out zero, and the wrapper drops them. Heads wider than 64 are
+refused.
 """
 
 from __future__ import annotations
@@ -96,6 +102,30 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = ds.to(dt).float() @ _split(k, num_heads) * scale
     dk = ds.transpose(-1, -2).to(dt).float() @ _split(q, num_heads) * scale
     return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
+
+
+def fwd_reads_in_place(head_dim: int, s: int, h: int) -> bool:
+    """Whether K2 reads heads of ``head_dim`` (<= 64) over rows of S keys
+    and H = ``h`` columns (num_heads * head_dim) where they lie, with no
+    padded copy. A head of whole 16-byte chunks (head_dim a multiple of 8)
+    in either design, through a 4-D tensor map whose box of 32 or 64
+    columns reads the columns past the head as zeros. Any other even
+    head_dim in ``attn_fwd_kernel`` (<= 32, or any at S <= 64) through a
+    window of the built width that starts at the head's first column
+    rounded down to a 16-byte boundary (the TMA takes no box that starts
+    between), where the window fits: up to 8 - (head_dim's lowest set bit)
+    columns before the head, so 26 (32 = 6 + 26) and 28 fit 32, 30 does
+    not; and where the rows are whole 16-byte chunks (H a multiple of 8:
+    the window's 3-D map over [B][S][H] takes no other row stride), so 26
+    at 4, 8 or 12 heads, not at 3 or 6. An odd head_dim (its heads start
+    2-byte aligned), one whose window does not fit or whose rows are not
+    whole chunks, and one above 32 not a multiple of 8 at S > 64
+    (``attn_fwd_d64_kernel`` has no window) are padded in a copy."""
+    if head_dim % 8 == 0:
+        return head_dim <= 64
+    built = 32 if head_dim <= 32 else 64
+    return (head_dim % 2 == 0 and head_dim + 8 - (head_dim & -head_dim) <= built
+            and (built == 32 or s <= 64) and h % 8 == 0)
 
 
 def fwd_kernel(s: int, head_dim: int) -> str:
@@ -187,13 +217,17 @@ def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tens
     b, s, h = q.shape
     bias, dev, width = _kernel_inputs("flash_attention", "K2", FWD_HEAD_DIMS, q, k, v, mask_bias,
                                       num_heads)
-    q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
+    head_dim = h // num_heads
+    in_place = fwd_reads_in_place(head_dim, s, h)
+    if not in_place:
+        q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
     out = torch.empty_like(q)
     kernel_lib.launch("flash_attention", "frag_flash_attention", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
-                      kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, num_heads * width,
-                      num_heads, h // num_heads)
-    out = unpad_heads(out, num_heads, h // num_heads)
+                      kernel_lib.ptr(bias), kernel_lib.ptr(out), b, s, q.shape[-1], num_heads,
+                      head_dim)
+    if not in_place:
+        out = unpad_heads(out, num_heads, head_dim)
     with LAUNCH_LOCK:
         LAUNCHES += 1
         TP_LAUNCHES += tp

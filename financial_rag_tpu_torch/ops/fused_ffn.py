@@ -49,6 +49,13 @@ LARGE_TOKENS = 128     # token rows of a tile of either product (64 a consumer w
 LARGE_DEPTH = 64       # k a ring stage holds: the intermediate width must be a multiple
 LARGE_WIDE_COLS = 256  # output columns of a wide tile (128 accumulators a thread)
 LARGE_NARROW_COLS = 128  # of a narrow one, where wide tiles would leave SMs idle
+LARGE_SLIM_COLS = 64   # of a slim one: the generic route's, where its grid still fits one wave
+# The generic route's second product at a query's tokens: the cost of a k step
+# of a 64-column tile, and of the split's f32 partials and reduce (a fixed
+# part and one a split), in k steps of a 128-column tile, as the
+# plans' device times at 512 tokens put them (scripts/k3_plans.py)
+SLIM_STEP_COST = 0.6
+SPLIT_COST = (2.0, 0.5)
 LARGE_WIDE_STAGES = 4  # the ring: 4 stages of a 128 x 64 A tile and a 64 x 256 B tile
 LARGE_NARROW_STAGES = 6  # or 6 of a 128 x 64 and a 64 x 128 one
 LARGE_MIN_STEPS = 4    # k steps a split block of the second product walks at least
@@ -141,27 +148,67 @@ def large_launch_plan(n: int, i_dim: int, sms: int, h_dim: int = LARGE_HIDDEN):
     128), or leave fewer columns idle. The second (N x H) takes 256-column
     tiles from one wave of them on, where they leave no more columns idle;
     else 128-column ones, with its K axis (ceil(I / 64) steps) split the
-    most ways (a divisor, each split at least LARGE_MIN_STEPS steps) that
-    keep the grid in one wave: f32 partials, summed in split order by the
-    reduce. At 1,024: 512 tokens (128, 128, 4), 34,816 (256, 256, 1)."""
+    most ways (each split at least LARGE_MIN_STEPS steps) that keep the
+    grid in one wave: f32 partials, summed in split order by the reduce.
+    At 1,024 a split divides the steps: 512 tokens (128, 128, 4), 34,816
+    (256, 256, 1). The generic route's first product takes 64-column tiles
+    where they still fit one wave (a query's tokens), and its second the
+    tiles and split of :func:`generic_down_plan`, whose split need not
+    divide the steps (split s walks steps s * steps // splits .. (s + 1) *
+    steps // splits - 1): at 312 / 1,200 and 512 tokens 76 blocks of the
+    first product (not 40) and 80 of the second, each walking 4 or 5 of
+    its 19 k steps (not 12 walking all 19)."""
     tiles = cdiv(n, LARGE_TOKENS)
+    generic = kernel_route(h_dim, i_dim) == "generic"
     up_cols = (LARGE_NARROW_COLS if not wide_tiles_fit(i_dim)
                or tiles * cdiv(i_dim, LARGE_NARROW_COLS) <= sms else LARGE_WIDE_COLS)
+    if generic and tiles * cdiv(i_dim, LARGE_SLIM_COLS) <= sms:
+        up_cols = LARGE_SLIM_COLS
     if wide_tiles_fit(h_dim) and tiles * cdiv(h_dim, LARGE_WIDE_COLS) >= sms:
         return up_cols, LARGE_WIDE_COLS, 1
-    units = tiles * cdiv(h_dim, LARGE_NARROW_COLS)
     steps = cdiv(i_dim, LARGE_DEPTH)
+    if generic:
+        return (up_cols, *generic_down_plan(tiles, h_dim, steps, sms))
+    units = tiles * cdiv(h_dim, LARGE_NARROW_COLS)
     splits = max([d for d in range(1, steps // LARGE_MIN_STEPS + 1)
                   if steps % d == 0 and units * d <= sms] or [1])
     return up_cols, LARGE_NARROW_COLS, splits
 
 
+def generic_down_plan(tiles: int, h_dim: int, steps: int, sms: int):
+    """(tile columns, splits) of the generic route's second product over
+    ``tiles`` token tiles: of 128- and 64-column tiles and the splits that
+    keep the grid in one wave (each at least LARGE_MIN_STEPS of the
+    ``steps`` k steps), the one whose block walks the least, in k steps of
+    a 128-column tile (SLIM_STEP_COST each at 64 columns), with the split's
+    partials and reduce counted (SPLIT_COST); on a tie 128 columns, then
+    fewer splits. 128 columns unsplit where neither fits a wave. The plain
+    rule (64 columns where a wave holds them, then the most splits that
+    keep one wave) picks the same plans at 312 / 1,200 and 512 / 2,048 but
+    not at the two shapes that need the model, at 512 tokens: 128 / 512,
+    where its 2 splits of 8 steps cost ~7% more than none, and 1,024 /
+    4,000, where its 64 columns split twice cost ~3.5% more than 128
+    columns split 4 ways (scripts/k3_plans.py, NVIDIA H100 80GB HBM3,
+    700.00 W)."""
+    best = (float("inf"), LARGE_NARROW_COLS, 1)
+    for cols, step_cost in ((LARGE_NARROW_COLS, 1.0), (LARGE_SLIM_COLS, SLIM_STEP_COST)):
+        units = tiles * cdiv(h_dim, cols)
+        for splits in range(1, max(1, steps // LARGE_MIN_STEPS) + 1):
+            if units * splits > sms:
+                break
+            cost = cdiv(steps, splits) * step_cost + (
+                SPLIT_COST[0] + SPLIT_COST[1] * splits if splits > 1 else 0.0)
+            if cost < best[0]:
+                best = (cost, cols, splits)
+    return best[1], best[2]
+
+
 def large_smem_bytes(cols: int) -> int:
     """Dynamic shared memory of a block of the 1,024 design with ``cols``-wide
-    tiles, as csrc/fused_ffn.cu sizes it: its ring of stages of a 128 x 64
-    A tile and a 64 x ``cols`` B tile (bf16), each consumer warpgroup's
-    staging tile of 64 rows x 128 output columns (bf16), and 1 KB of
-    alignment."""
+    tiles (256, 128, or the generic route's 64), as csrc/fused_ffn.cu sizes
+    it: its ring of stages (4 at 256 columns, else 6) of a 128 x 64 A tile
+    and a 64 x ``cols`` B tile (bf16), each consumer warpgroup's staging
+    tile of 64 rows x 128 output columns (bf16), and 1 KB of alignment."""
     stages = LARGE_WIDE_STAGES if cols == LARGE_WIDE_COLS else LARGE_NARROW_STAGES
     staging = 2 * 64 * LARGE_OUT_COLS * 2
     return stages * (LARGE_TOKENS * LARGE_DEPTH * 2 + LARGE_DEPTH * cols * 2) + staging + 1024

@@ -34,8 +34,12 @@ both trees, but for the true head_dim that K2, K9 and K10 take and the
 hidden width that ``frag_fused_ffn_large`` takes since the generic routes
 (a tree without ``ops/common.pad_heads`` is called without them), and what
 a launch plan puts in them is each tree's own. A generic-route case runs
-what the wrapper runs: the heads' zero-padded copies, the C entry, the
-padded columns dropped, so its device time includes the copies. K3 gets
+what the tree's wrapper runs: at the widths its ``fwd_reads_in_place``
+names, K2's C entry on the heads where they lie; elsewhere, and in a tree
+without that rule, the heads' zero-padded copies, the C entry, the padded
+columns dropped, so its device time includes the copies. K2's generic
+shapes also run as the kernel alone on inputs padded once beforehand
+("kernel alone" rows). K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
 the I axis its wrapper would choose (its ``launch_plan``), and scratch of
 that many f32 partials; at hidden 1,024 a tree whose wrapper has
@@ -119,17 +123,19 @@ K3_SHAPES = (("K3 table", 131072, 384), ("train encode", 32768, 384), ("query", 
              ("large query", 512, 1024))
 # (label, N, H, I) of K3's generic route: TinyBERT-L-4's reranker (a 64 x
 # 512 rerank batch and a query's 512 tokens), TinyBERT-L-2's, BERT-Small's
-# and hidden 1,024 with I not whole 64-steps
+# and hidden 1,024 with I not whole 64-steps, each at a rerank batch or an
+# ingest's and at a query's 512 tokens
 K3_GENERIC_SHAPES = (("TinyBERT-L-4 rerank", 32768, 312, 1200),
                      ("TinyBERT-L-4 query", 512, 312, 1200),
-                     ("TinyBERT-L-2 rerank", 32768, 128, 512),
+                     ("TinyBERT-L-2 rerank", 32768, 128, 512), ("TinyBERT-L-2 query", 512, 128, 512),
                      ("BERT-Small ingest", 32768, 512, 2048), ("BERT-Small query", 512, 512, 2048),
-                     ("1024 / 4000", 32768, 1024, 4000))
+                     ("1024 / 4000", 32768, 1024, 4000), ("1024 / 4000 query", 512, 1024, 4000))
 # (label, B, S, heads, head_dim) of K2's and K10's generic route: TinyBERT-L-4's
 # 12 heads of 26 at a 64 x 512 rerank batch and a query's 8 x 64, and 12 heads
 # of 16 and 48
 K2_GENERIC_SHAPES = (("TinyBERT-L-4 rerank", 64, 512, 12, 26), ("TinyBERT-L-4 query", 8, 64, 12, 26),
-                     ("heads of 16", 64, 512, 12, 16), ("heads of 48", 64, 512, 12, 48))
+                     ("heads of 16", 64, 512, 12, 16), ("heads of 48", 64, 512, 12, 48),
+                     ("heads of 16 query", 8, 64, 12, 16), ("heads of 48 query", 8, 64, 12, 48))
 K10_GENERIC_SHAPES = (("TinyBERT-L-4 rerank step", 64, 128, 12, 26),
                       ("heads of 26 S=512", 64, 512, 12, 26), ("heads of 16", 64, 512, 12, 16),
                       ("heads of 48", 64, 512, 12, 48))
@@ -221,6 +227,10 @@ def build_library(csrc: Path, out_dir: Path):
     # a tree from before the generic routes: no true head_dim (K2, K9, K10)
     # and no hidden width (frag_fused_ffn_large) argument
     lib.generic_widths = hasattr(tree_module(csrc, "common"), "pad_heads")
+    # the widths whose heads the tree's K2 wrapper passes in place (none
+    # before the rule: every narrower head is padded in a copy)
+    lib.fwd_in_place = getattr(tree_module(csrc, "flash_attention"), "fwd_reads_in_place",
+                               lambda head_dim, s, h: False)
     for name in ("frag_pool_norm", "frag_flash_attention", "frag_fused_ffn", "frag_packed_topk",
                  "frag_bucketed_topk", "frag_topk_exact", "frag_flash_attention_bwd",
                  "frag_causal_flash", "frag_fused_ffn_large"):
@@ -564,19 +574,22 @@ def k6_call(lib, bq: int, n: int, dtype: str, k: int, order: str, plan, gen):
     return run, [out_s, out_i]
 
 
-def padded_run(lib, entry: str, ins, outs, counts, head_dim: int, width: int, order, ints):
+def padded_run(lib, entry: str, ins, outs, counts, head_dim: int, width: int, order, ints,
+               in_place: bool = False):
     """A run of K2's, K9's or K10's C ``entry`` as the wrapper makes it:
     the head-split inputs ``ins`` (``counts`` heads each) zero-padded a head
     to ``width``, the pointers in the entry's order (``order(ins, outs)``,
     which adds the other tensors), the integer arguments ``ints`` and, in a
     tree with the generic routes, the true ``head_dim``; the padded output
     columns are then dropped into ``outs``. At a built width (``head_dim ==
-    width``) the entry runs on the tensors themselves. A tree from before
-    the generic routes refuses a head_dim it was not built for."""
+    width``), and where the tree's wrapper reads the heads in place
+    (``in_place``; ``ints`` then at the true width), the entry runs on the
+    tensors themselves. A tree from before the generic routes refuses a
+    head_dim it was not built for."""
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     tail = [*ints, head_dim] if lib.generic_widths else list(ints)
     fn = getattr(lib, entry)
-    if width == head_dim:
+    if width == head_dim or in_place:
         args = [kernel_lib.ptr(t) for t in order(ins, outs)] + tail + [stream]
 
         def run():
@@ -597,19 +610,26 @@ def padded_run(lib, entry: str, ins, outs, counts, head_dim: int, width: int, or
     return run
 
 
-def k2_call(lib, b: int, s: int, heads: int, head_dim: int, gen):
+def k2_call(lib, b: int, s: int, heads: int, head_dim: int, gen, prepadded: bool = False):
     """(run, outputs): K2 on seeded inputs with keys padded to random
-    lengths, through ``lib``'s C entry (heads narrower than 32 or 64
-    zero-padded to it)."""
+    lengths, through ``lib``'s C entry as the tree's wrapper calls it
+    (heads narrower than 32 or 64 read in place where the tree's
+    ``fwd_reads_in_place`` says so, else zero-padded to it in a copy).
+    ``prepadded``: the kernel alone, on inputs padded once beforehand (its
+    output is the padded one)."""
     q, k, v = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
     lens[0] = s
     bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
-    out = torch.empty_like(q)
     width = built_head_dim(head_dim, FWD_HEAD_DIMS)
+    if prepadded:
+        q, k, v = (pad_heads(t, heads, width) for t in (q, k, v))
+    direct = prepadded or lib.fwd_in_place(head_dim, s, heads * head_dim)
+    out = torch.empty_like(q)
     run = padded_run(lib, "frag_flash_attention", [q, k, v], [out], [heads] * 3, head_dim, width,
-                     lambda ins, outs: (*ins, bias, *outs), [b, s, heads * width, heads])
+                     lambda ins, outs: (*ins, bias, *outs),
+                     [b, s, q.shape[-1] if direct else heads * width, heads], direct)
     run.tensors = (q, k, v, bias)   # the run holds raw pointers into these
     return run, [out]
 
@@ -752,6 +772,10 @@ def main(argv=None) -> int:
               for label, bq, n, dt, k, order in K6_SHAPES]
     cases += [("K2", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k2_call(
         libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K2_SHAPES + K2_GENERIC_SHAPES]
+    cases += [("K2", f"{label} pre-padded", (b, s, h, hd, "kernel alone"),
+               lambda tree, b=b, s=s, h=h, hd=hd: k2_call(libs[tree], b, s, h, hd, gen,
+                                                          prepadded=True))
+              for label, b, s, h, hd in K2_GENERIC_SHAPES]
     cases += [("K3", label, {"N": n, "H": h, "I": i,
                              "splits": {tree: ffn_plans[tree, n, h, i]["splits"] for tree in trees}},
                lambda tree, n=n, h=h, i=i: k3_call(libs[tree], n, h, ffn_plans[tree, n, h, i], gen,

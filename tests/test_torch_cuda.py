@@ -21,7 +21,7 @@ from financial_rag_tpu_torch.models import decoder
 from financial_rag_tpu_torch.ops import causal_flash as cf
 from financial_rag_tpu_torch.ops import flash_attention as fa
 from financial_rag_tpu_torch.ops import fused_ffn as ffn
-from financial_rag_tpu_torch.ops import ivf_probe
+from financial_rag_tpu_torch.ops import ivf_probe, kernel_lib
 from financial_rag_tpu_torch.ops import pool_norm as pn
 from financial_rag_tpu_torch.ops import topk
 
@@ -184,9 +184,10 @@ def test_flash_attention_kernel_skips_dead_key_tiles_exactly(gen):
 def test_flash_attention_kernel_skips_leading_dead_key_tiles_exactly(gen):
     """S = 300 with the padding in front (live keys from 130, 250 and 299 on,
     beside a full row): key tile 0, whose copies start before the bias scan,
-    is dead in those rows, so the first live tile must take its stage after
-    those copies land. Skipped (-1e9) and walked (-3e4) padding give the
-    same bits; both within 3e-2 of the plain version."""
+    is dead in those rows and walked all the same, its sums scaled away by
+    the first live tile's alpha of exactly 0. Skipped (-1e9) and walked
+    (-3e4) padding give the same bits; both within 3e-2 of the plain
+    version."""
     b, s, h = 4, 300, 384
     q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
     first = torch.tensor([0, 130, 250, 299], device="cuda")
@@ -588,6 +589,188 @@ def test_flash_attention_padded_route_sees_a_wrong_scale(gen):
     assert (wrong.float() - ref).abs().max() > 3e-2
     right = fa.flash_attention(q, k, v, bias, num_heads=12)
     assert (right.float() - ref).abs().max() <= 3e-2
+
+
+IN_PLACE_CASES = [(d, b, s) for d in (26, 16, 48) for b, s in ((64, 512), (8, 64))]
+
+
+def _no_pad_copies(monkeypatch):
+    """Make the wrapper's pad copy fail: the widths read in place make none."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("K2 padded a head it reads in place")
+    monkeypatch.setattr(fa, "pad_heads", refuse)
+    monkeypatch.setattr(fa, "unpad_heads", refuse)
+
+
+def _k2_entry(q, k, v, bias, out, heads: int, head_dim: int):
+    """K2's C entry on q, k, v and out as they lie ([B, S, H], H = the
+    tensors' width)."""
+    b, s, h = q.shape
+    kernel_lib.launch("flash_attention", "frag_flash_attention", q.device,
+                      *(kernel_lib.ptr(t) for t in (q, k, v, bias, out)), b, s, h, heads, head_dim)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("head_dim,b,s", IN_PLACE_CASES)
+def test_flash_attention_kernel_reads_narrow_heads_in_place(gen, monkeypatch, head_dim, b, s):
+    """K2 at 12 heads of 26, 16 and 48, B=64 S=512 and B=8 S=64 (the
+    one-warpgroup block): read where they lie (no pad copy, the C entry
+    given H = 12 * head_dim; 16 and 48 through 4-D maps, 26 through 16-byte
+    aligned windows at offsets 0 to 6), a padded row and a fully masked
+    one, within 3e-2 of the plain version, the same bits twice."""
+    assert fa.fwd_reads_in_place(head_dim, s, 12 * head_dim)
+    _no_pad_copies(monkeypatch)
+    heads, h = 12, 12 * head_dim
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=heads))
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v, bias, num_heads=heads).float(),
+                               atol=3e-2, rtol=0)
+    assert torch.equal(out, fa.flash_attention(q, k, v, bias, num_heads=heads))
+
+
+@pytest.mark.parametrize("head_dim,b,s", IN_PLACE_CASES)
+def test_flash_attention_in_place_heads_are_isolated(gen, head_dim, b, s):
+    """What lies in head g+1's columns of q, k and v reaches nothing of head
+    g's output: new random values there leave every other head's output
+    bit-identical."""
+    heads, h = 12, 12 * head_dim
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    out = fa.flash_attention(q, k, v, bias, num_heads=heads)
+    g = 5
+    cols = slice((g + 1) * head_dim, (g + 2) * head_dim)
+    for t in (q, k, v):
+        t[..., cols] = _randn(gen, b, s, head_dim, dtype=torch.bfloat16, scale=4.0)
+    again = fa.flash_attention(q, k, v, bias, num_heads=heads)
+    assert not torch.equal(again[..., cols], out[..., cols])
+    keep = torch.ones(h, dtype=torch.bool, device="cuda")
+    keep[cols] = False
+    assert torch.equal(again[..., keep], out[..., keep])
+
+
+@pytest.mark.parametrize("head_dim,b,s", IN_PLACE_CASES)
+def test_flash_attention_in_place_writes_only_the_output(gen, head_dim, b, s):
+    """Into a NaN-filled out with a guard region after it, K2 in place
+    writes every element of out (no NaN left) and nothing past it."""
+    heads, h = 12, 12 * head_dim
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    guard = 4096
+    buf = torch.full((b * s * h + guard,), float("nan"), dtype=torch.bfloat16, device="cuda")
+    buf[b * s * h:] = 7.0
+    out = buf[:b * s * h].view(b, s, h)
+    _k2_entry(q, k, v, bias, out, heads, head_dim)
+    assert not torch.isnan(out.float()).any()
+    assert (buf[b * s * h:] == 7.0).all()
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v, bias, num_heads=heads).float(),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("head_dim,s", [(25, 512), (25, 64), (50, 512), (30, 512)])
+def test_flash_attention_copied_widths_match_plain(gen, head_dim, s):
+    """The widths K2's route rule sends to the padded copy (an odd
+    head_dim, 50 above S = 64, and 30, whose 16-byte aligned window would
+    not fit 32 columns) still match the plain version within 3e-2; the C
+    entry refuses them in place."""
+    assert not fa.fwd_reads_in_place(head_dim, s, 12 * head_dim)
+    heads, b = 12, 8
+    h = heads * head_dim
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    out = _launches_once(fa, lambda: fa.flash_attention(q, k, v, bias, num_heads=heads))
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v, bias, num_heads=heads).float(),
+                               atol=3e-2, rtol=0)
+    with pytest.raises(RuntimeError):
+        _k2_entry(q, k, v, bias, torch.empty_like(q), heads, head_dim)
+
+
+@pytest.mark.parametrize("heads,tp", [(6, None), (3, None), (12, 2), (12, 4)])
+def test_flash_attention_heads_of_26_over_rows_of_partial_chunks(gen, monkeypatch, heads, tp):
+    """Heads of 26 over rows that are not a multiple of 8 columns (6 or 3
+    heads; TinyBERT-L-4's 12 through K11 at tp 2 or 4, 6 or 3 local heads)
+    take the padded copy, as the window's 3-D map needs rows of whole
+    16-byte chunks: B=4 S=512, a padded row and a fully masked one, the
+    output within 3e-2 of the plain version and dq/dk/dv within 2^-6 of
+    each row's largest value of the plain backward; the C entry refuses
+    them in place."""
+    head_dim, b, s = 26, 4, 512
+    local = heads // (tp or 1)
+    assert not fa.fwd_reads_in_place(head_dim, s, local * head_dim)
+    pads = []
+    real_pad = fa.pad_heads
+    monkeypatch.setattr(fa, "pad_heads", lambda *a: pads.append(a[2]) or real_pad(*a))
+    h = local * head_dim
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+    do = _randn(gen, b, s, h, dtype=torch.bfloat16)
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    if tp is None:
+        out = fa.flash_attention(q, k, v, bias, num_heads=heads)
+    else:
+        out = fa.flash_attention_tp(q, k, v, bias, num_heads=heads, mesh=_ModelAxis(tp),
+                                    head_dim=head_dim)
+    assert pads == [32] * 3
+    got = torch.autograd.grad(out, (q, k, v), do)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    torch.testing.assert_close(out.detach().float(),
+                               fa.flash_attention_plain(qd, kd, vd, bias, num_heads=local).float(),
+                               atol=3e-2, rtol=0)
+    want = fa.flash_attention_bwd_plain(qd, kd, vd, bias, do, num_heads=local)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _row_rel_err(g, w, local) <= 2.0 ** -6, (name, _row_rel_err(g, w, local))
+    with pytest.raises(RuntimeError):
+        _k2_entry(qd, kd, vd, bias, torch.empty_like(qd), local, head_dim)
+
+
+@pytest.mark.parametrize("head_dim", [16, 48, 26])
+def test_flash_attention_in_place_non_finite_neighbour_keys(gen, head_dim):
+    """An inf in the first column of head g+1's k at one key of batch row
+    0. At 16 and 48 (4-D maps: head g's box reads zeros past its columns)
+    head g's output stays bit-identical. At 26 head g's 16-byte aligned
+    window (g = 5: columns 128-159, the head at 130-155) holds that column,
+    and Q's zeroed columns meet it as 0 x inf = NaN in head g's scores, so
+    head g's row-0 output is no longer finite, where the TPU kernel, which
+    slices the head, keeps it finite: the one input on which the window
+    read differs. Every other head and batch row stays bit-identical."""
+    heads, b, s, g = 12, 4, 512, 5
+    h = heads * head_dim
+    q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(b, s, device="cuda")
+    out = fa.flash_attention(q, k, v, bias, num_heads=heads)
+    k[0, 7, (g + 1) * head_dim] = float("inf")
+    again = fa.flash_attention(q, k, v, bias, num_heads=heads)
+    head = slice(g * head_dim, (g + 1) * head_dim)
+    keep = torch.ones(h, dtype=torch.bool, device="cuda")
+    keep[g * head_dim:(g + 2) * head_dim] = False
+    assert torch.equal(again[1:], out[1:])
+    assert torch.equal(again[0][:, keep], out[0][:, keep])
+    if head_dim % 8 == 0:
+        assert torch.equal(again[0, :, head], out[0, :, head])
+    else:
+        assert not torch.isfinite(again[0, :, head].float()).all()
+
+
+@pytest.mark.parametrize("h,i", [(312, 1200), (128, 512), (512, 2048), (1024, 4000)])
+def test_fused_ffn_generic_route_under_every_plan(gen, h, i):
+    """frag_fused_ffn_large at a query's 512 tokens under every plan the C
+    entry takes (tile columns 64, 128 or 256 in each product, the second
+    product split 1 to ceil(I / 64) // 4 ways, whether or not the split
+    divides the k steps): within 3e-2 of the plain version."""
+    from financial_rag_tpu_torch.scripts import k3_plans, kernel_ab
+
+    lib = kernel_ab.build_library(kernel_lib.CSRC, kernel_lib.build_dir() / "k3_plan_test")
+    for up, down, splits in k3_plans.plans(h, i):
+        gen.manual_seed(1)
+        run, (out,) = kernel_ab.k3_call(lib, 512, h, {"splits": splits, "cols": (up, down)},
+                                        gen, i)
+        run()
+        x, w1, b1, w2, b2 = run.tensors[:5]
+        torch.testing.assert_close(out.float(), ffn.fused_ffn_plain(x, w1, b1, w2, b2).float(),
+                                   atol=3e-2, rtol=0, msg=lambda m: f"{(up, down, splits)}: {m}")
 
 
 def _grid(gen, *shape):
@@ -1603,7 +1786,8 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
 
 def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
     """scripts/kernel_ab.py against its own csrc/: every row (K1, K4, K5,
-    K7, K6, K2, K3, K10, K9) has two loop times and two device times for
+    K7, K6, K2, K3, K10, K9; K2's generic shapes also as the kernel alone
+    on pre-padded inputs) has two loop times and two device times for
     each tree (a device time at most 1.5x the loop's), the rows of the
     sweeps K4-K7 also a sweep and a merge device time that sum to it (K7's
     with its sort's), and the two builds of the same sources agree exactly;
@@ -1620,12 +1804,14 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
     assert len(rows) == (len(kernel_ab.K1_SHAPES) + len(kernel_ab.K4_SHAPES)
                          + len(kernel_ab.K5_SHAPES) + len(kernel_ab.K6_SHAPES)
                          + len(kernel_ab.K7_SHAPES)
-                         + len(kernel_ab.K2_SHAPES) + len(kernel_ab.K2_GENERIC_SHAPES)
+                         + len(kernel_ab.K2_SHAPES) + 2 * len(kernel_ab.K2_GENERIC_SHAPES)
                          + len(kernel_ab.K3_SHAPES) + len(kernel_ab.K3_GENERIC_SHAPES)
                          + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_GENERIC_SHAPES)
                          + len(kernel_ab.K10_PADDED_SHAPES) + len(kernel_ab.K9_SHAPES))
     assert [r["kernel"] for r in rows].count("K2") == (len(kernel_ab.K2_SHAPES)
-                                                       + len(kernel_ab.K2_GENERIC_SHAPES))
+                                                       + 2 * len(kernel_ab.K2_GENERIC_SHAPES))
+    assert [r["shape"][-1] for r in rows
+            if r["kernel"] == "K2"].count("kernel alone") == len(kernel_ab.K2_GENERIC_SHAPES)
     k10 = [r for r in rows if r["kernel"] == "K10"]
     assert len(k10) == (len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_GENERIC_SHAPES)
                         + len(kernel_ab.K10_PADDED_SHAPES))

@@ -5,15 +5,18 @@ Published checkpoints whose widths no tuned kernel design was built for:
 ms-marco-TinyBERT-L-4 (hidden 312, 12 heads of 26, FFN 1,200),
 ms-marco-TinyBERT-L-2-v2 (128, 2 heads of 64, FFN 512), BERT-Small
 (512, 8 heads of 64, FFN 2,048) and open_llama_3b_v2 (hidden 3,200, 32 heads
-of 100). On the card K2 and K10 zero-pad heads narrower than 32 or 64 to
-that width, K9 pads heads to 64 or 128, and K3 runs its two products at
+of 100). On the card K2 reads heads narrower than 32 or 64 where they lie
+(at the widths ``fwd_reads_in_place`` names), K10 zero-pads them to that
+width, K9 pads heads to 64 or 128, and K3 runs its two products at
 run-time extents. Here, on the CPU, each plain version the kernels are held
 against runs on the same numpy inputs as the JAX function at those widths
 (Pallas in interpret mode); the padded route's arithmetic (pad, scale from
 the true head_dim, drop the padded columns) is checked against the unpadded
-plain version; the generic K3 plan covers every token tile and output
-column; and whole models at those widths (a cross-encoder, a bi-encoder, a
-decoder at heads of 100, the weight converters) match the JAX package.
+plain version, and K2's in-place read (a window of the built width, Q's
+extra columns zeroed) against the Pallas kernel; the generic K3 plan covers
+every token tile, output column and k step; and whole models at those
+widths (a cross-encoder, a bi-encoder, a decoder at heads of 100, the
+weight converters) match the JAX package.
 """
 
 import json
@@ -151,6 +154,156 @@ def test_padded_heads_compute_the_same_attention(head_dim):
     assert (wrong_scale - want).abs().max() > 1e-2
 
 
+def _window_read(q, k, v, bias, heads: int, head_dim: int, width: int, zero_q: bool = True,
+                 scale_width: bool = False):
+    """K2's in-place read, emulated in plain torch: head g read as a
+    ``width``-wide window of the [B, S, H] rows from column g * head_dim
+    rounded down to a multiple of 8 (a 16-byte boundary), so that the head
+    lies at columns off = g * head_dim mod 8 .. off + head_dim - 1 of it
+    and its neighbours' columns (past H, zeros) fill the rest; Q's columns
+    outside the head's zeroed (``zero_q``); the scores scaled by 1 /
+    sqrt(head_dim) (``scale_width``: by the window's width); softmax over
+    the keys with the bias; P V; each head's own output columns kept."""
+    b, s, h = q.shape
+    offs = [g * head_dim % 8 for g in range(heads)]
+
+    def window(x):
+        xp = torch.nn.functional.pad(x, (0, width))
+        return torch.stack([xp[..., g * head_dim - o:g * head_dim - o + width]
+                            for g, o in enumerate(offs)], dim=1)   # [B, heads, S, width]
+    qw, kw, vw = window(q), window(k), window(v)
+    if zero_q:
+        for g, o in enumerate(offs):
+            qw[:, g, :, :o] = 0
+            qw[:, g, :, o + head_dim:] = 0
+    scale = (width if scale_width else head_dim) ** -0.5
+    scores = qw @ kw.transpose(-1, -2) * scale + bias.reshape(b, 1, 1, s)
+    o = torch.softmax(scores, dim=-1) @ vw
+    return torch.stack([o[:, g, :, off:off + head_dim] for g, off in enumerate(offs)],
+                       dim=2).reshape(b, s, h)
+
+
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_in_place_window_read_matches_pallas(head_dim):
+    """K2's arithmetic at 12 heads of 26, 16 and 48 read in place: each head
+    as a 16-byte aligned window of the built width (32, 32, 64) holding its
+    neighbours' columns, Q's extra columns zeroed, the true head_dim's
+    scale, O's extra columns dropped, equals the Pallas kernel (interpret
+    mode) within 1e-5 in f32, a padded row and a fully masked one included.
+    Two controls miss it by far: Q's extra columns left unzeroed (the
+    neighbours' q.k reaches the scores), and the scale of the window's
+    width."""
+    b, s, heads = 3, 40, 12
+    width = built_head_dim(head_dim, fa.FWD_HEAD_DIMS)
+    q, k, v, _, bias = _attn_inputs(head_dim + 7, b, s, heads * head_dim)
+    ref = _np(jax_flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                  jnp.asarray(bias.reshape(b, 1, 1, s)), num_heads=heads,
+                                  interpret=True))
+    tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    got = _window_read(tq, tk, tv, tb, heads, head_dim, width)
+    assert got.shape == (b, s, heads * head_dim)
+    np.testing.assert_allclose(_np(got), ref, atol=1e-5)
+    unzeroed = _window_read(tq, tk, tv, tb, heads, head_dim, width, zero_q=False)
+    wrong_scale = _window_read(tq, tk, tv, tb, heads, head_dim, width, scale_width=True)
+    assert np.abs(_np(unzeroed) - ref).max() > 0.1
+    assert np.abs(_np(wrong_scale) - ref).max() > 1e-2
+
+
+@pytest.mark.parametrize("s", [64, 512])
+def test_k2_route_rule_mirrors_the_cuda_entry(s):
+    """fwd_reads_in_place names the widths K2 reads where they lie: every
+    multiple of 8 up to 64 (16, 32, 48, 64: both designs), and every even
+    head_dim the attn_fwd_kernel block runs whose 16-byte aligned window
+    fits the built width (26, 28 and 2 at any S; 50 only at S <= 64); an
+    odd head_dim, one whose window does not fit (30: up to 6 columns before
+    the head and 30 of its own exceed 32), and 50 above S = 64 (the TMA
+    design has no window) take the padded copy; above 64 none. The window's
+    offset, head * head_dim mod 8, is at most 8 - head_dim's lowest set
+    bit, for every head of a layer of up to 64. A windowed head also needs
+    rows of whole 16-byte chunks (H a multiple of 8): 26 at 3 or 6 heads
+    (K11's local heads of TinyBERT-L-4 at tp 4 or 2) and 28 at 3 take the
+    copy; a multiple of 8 reads in place at any head count."""
+    for d in (16, 26, 32, 48, 64, 8, 24, 28, 2):
+        assert fa.fwd_reads_in_place(d, s, 12 * d), d
+    for d in (25, 1, 33, 63, 30, 62):
+        assert not fa.fwd_reads_in_place(d, s, 12 * d), d
+    assert fa.fwd_reads_in_place(50, s, 12 * 50) == (s <= 64)
+    assert not fa.fwd_reads_in_place(72, s, 12 * 72) and not fa.fwd_reads_in_place(80, s, 12 * 80)
+    for d, heads in ((26, 3), (26, 6), (26, 1), (28, 3), (50, 2)):
+        assert not fa.fwd_reads_in_place(d, s, heads * d), (d, heads)
+    for d, heads in ((26, 4), (26, 8), (28, 2)):
+        assert fa.fwd_reads_in_place(d, s, heads * d), (d, heads)
+    for d in (16, 48):
+        assert fa.fwd_reads_in_place(d, s, 3 * d), d
+    for d in (26, 28, 2, 50):
+        built = built_head_dim(d, fa.FWD_HEAD_DIMS)
+        assert max(g * d % 8 for g in range(64)) + d <= built
+
+
+@pytest.mark.parametrize("head_dim,s,in_place", [(16, 512, True), (26, 512, True),
+                                                 (32, 512, True), (48, 512, True),
+                                                 (64, 512, True), (26, 64, True), (48, 64, True),
+                                                 (50, 64, True), (50, 512, False),
+                                                 (25, 64, False), (25, 512, False)])
+def test_k2_wrapper_passes_heads_in_place(monkeypatch, head_dim, s, in_place):
+    """On device tensors the wrapper hands the C entry q, k and v as they
+    lie (H = heads * head_dim) at the widths the rule reads in place, with
+    no pad copy and an output at the true width; elsewhere the heads padded
+    to the built width (H = heads * 32 or 64), and the padded output cut
+    back. The entry's head_dim is always the true one."""
+    from financial_rag_tpu_torch.ops import kernel_lib
+
+    heads = 12
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.empty(2, s, heads * head_dim, **meta)
+    bias = torch.zeros(2, s, device="meta")
+    calls, pads = [], []
+    real_pad = fa.pad_heads
+    monkeypatch.setattr(kernel_lib, "require_cuda", lambda *t: t[0].device)
+    monkeypatch.setattr(kernel_lib, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(fa, "pad_heads", lambda *a: pads.append(a[2]) or real_pad(*a))
+    out = fa.flash_attention(q, q, q, bias, num_heads=heads)
+    assert out.shape == q.shape
+    (_, entry, _, *args), = calls
+    width = built_head_dim(head_dim, fa.FWD_HEAD_DIMS)
+    assert entry == "frag_flash_attention"
+    assert args[5:] == [2, s, heads * (head_dim if in_place else width), heads, head_dim]
+    assert pads == ([] if in_place else [width] * 3)
+
+
+@pytest.mark.parametrize("heads,tp,in_place", [(3, None, False), (6, None, False),
+                                                (12, 2, False), (12, 4, False), (12, 1, True),
+                                                (8, 2, True)])
+def test_k2_wrapper_pads_rows_that_are_not_whole_chunks(monkeypatch, heads, tp, in_place):
+    """Heads of 26 over rows whose width is not a multiple of 8 columns (3
+    or 6 heads, as K11 gives TinyBERT-L-4's 12 at tp 4 or 2) reach the C
+    entry padded to 32 columns a head, through flash_attention and through
+    flash_attention_tp; 4 or more heads a multiple of 4 are read in place."""
+    from types import SimpleNamespace
+
+    from financial_rag_tpu_torch.ops import kernel_lib
+
+    s, head_dim = 512, 26
+    local = heads // (tp or 1)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.empty(2, s, local * head_dim, **meta)
+    bias = torch.zeros(2, s, device="meta")
+    calls, pads = [], []
+    real_pad = fa.pad_heads
+    monkeypatch.setattr(kernel_lib, "require_cuda", lambda *t: t[0].device)
+    monkeypatch.setattr(kernel_lib, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(fa, "pad_heads", lambda *a: pads.append(a[2]) or real_pad(*a))
+    if tp is None:
+        out = fa.flash_attention(q, q, q, bias, num_heads=heads)
+    else:
+        out = fa.flash_attention_tp(q, q, q, bias, num_heads=heads,
+                                    mesh=SimpleNamespace(shape={"model": tp}), head_dim=head_dim)
+    assert out.shape == q.shape
+    (_, _, _, *args), = calls
+    assert args[5:] == [2, s, local * (head_dim if in_place else 32), local, head_dim]
+    assert pads == ([] if in_place else [32] * 3)
+
+
 def test_pad_heads_round_trips_and_leaves_built_widths_alone():
     x = torch.randn(2, 5, 12 * 26)
     p = pad_heads(x, 12, 32)
@@ -214,27 +367,84 @@ GENERIC_SHAPES = [(h, i, n) for h, i in ((128, 512), (312, 1200), (512, 2048), (
                   for n in (1, 512, 999, 32768)]
 
 
+def _split_steps(steps: int, splits: int):
+    """The k steps each split of K3's second product walks, as
+    csrc/fused_ffn.cu's ffn_large_kernel ranges them: split s walks
+    ``range(s * steps // splits, (s + 1) * steps // splits)``."""
+    return [range(s * steps // splits, (s + 1) * steps // splits) for s in range(splits)]
+
+
 @pytest.mark.parametrize("h,i,n", GENERIC_SHAPES)
 def test_k3_generic_plan_covers_every_tile(h, i, n):
     """On 132 SMs the generic plan's tiles cover every token tile and output
-    column of both products, a split divides the ceil(I / 64) k steps with
-    at least 4 a split and keeps the grid in one wave, and the tile width
-    leaves no more columns idle than the other would. At (128, 512) one
-    128-token tile has a single output-column tile."""
+    column of both products, the splits' ranges of the ceil(I / 64) k steps
+    cover each step once, in order, with at least 4 a split, the split grid
+    stays in one wave, and a 256-column tile leaves no more columns idle
+    than a 128-column one would. 64-column tiles are taken where their grid
+    fits one wave: at (128, 512) and 512 tokens, 4 token tiles by 2 output
+    column tiles of the second product."""
     up_cols, down_cols, splits = ffn.large_launch_plan(n, i, H100_SMS, h)
     tiles, steps = -(-n // 128), -(-i // 64)
-    assert up_cols in (128, 256) and down_cols in (128, 256)
+    assert up_cols in (64, 128, 256) and down_cols in (64, 128, 256)
     for cols, width in ((up_cols, i), (down_cols, h)):
         assert -(-width // cols) * cols >= width > (-(-width // cols) - 1) * cols
         if cols == 256:
             assert ffn.wide_tiles_fit(width)
-    assert steps % splits == 0
+        if cols == 64:
+            assert tiles * -(-width // 64) <= H100_SMS
+    ranges = _split_steps(steps, splits)
+    assert [k for r in ranges for k in r] == list(range(steps))
     if splits > 1:
-        assert steps // splits >= ffn.LARGE_MIN_STEPS
+        assert min(len(r) for r in ranges) >= ffn.LARGE_MIN_STEPS
         assert tiles * -(-h // down_cols) * splits <= H100_SMS
     if (h, n) == (128, 512):
-        assert down_cols == 128 and -(-h // down_cols) == 1
+        assert down_cols == 64 and -(-h // down_cols) == 2
     assert ffn.launch_plan(n, h, i, H100_SMS) == (128, 64, splits)
+
+
+def _old_large_plan(n: int, i_dim: int, sms: int, h_dim: int = 1024):
+    """The 1,024 design's plan as it stood before the generic route split
+    any step count: 128- or 256-column tiles, a split that divides the k
+    steps."""
+    tiles = -(-n // 128)
+    up_cols = (128 if not ffn.wide_tiles_fit(i_dim) or tiles * -(-i_dim // 128) <= sms else 256)
+    if ffn.wide_tiles_fit(h_dim) and tiles * -(-h_dim // 256) >= sms:
+        return up_cols, 256, 1
+    units, steps = tiles * -(-h_dim // 128), -(-i_dim // 64)
+    splits = max([d for d in range(1, steps // 4 + 1) if steps % d == 0 and units * d <= sms]
+                 or [1])
+    return up_cols, 128, splits
+
+
+@pytest.mark.parametrize("i_dim", [4096, 2048, 1024, 8192])
+def test_k3_large_route_plans_are_unchanged(i_dim):
+    """The hidden-1,024 design ("large" route) keeps its plans at every
+    token count: a split that divides the k steps (the same ranges as
+    before), 128- or 256-column tiles; 512 tokens (128, 128, 4) and 34,816
+    (256, 256, 1) at I = 4,096. Its split ranges are the even ones."""
+    assert ffn.kernel_route(1024, i_dim) == "large"
+    for n in (1, 63, 129, 257, 300, 512, 640, 999, 1025, 2048, 4096, 17030, 34816, 131072):
+        plan = ffn.large_launch_plan(n, i_dim, H100_SMS)
+        assert plan == _old_large_plan(n, i_dim, H100_SMS), n
+        steps = i_dim // 64
+        assert all(len(r) == steps // plan[2] for r in _split_steps(steps, plan[2]))
+    if i_dim == 4096:
+        assert ffn.large_launch_plan(512, 4096, H100_SMS) == (128, 128, 4)
+        assert ffn.large_launch_plan(34816, 4096, H100_SMS) == (256, 256, 1)
+
+
+@pytest.mark.parametrize("steps,splits", [(19, 4), (19, 3), (63, 15), (64, 4), (5, 1), (32, 8)])
+def test_k3_split_ranges_cover_each_step_once(steps, splits):
+    """The kernel's split ranges (split s walks s * steps //
+    splits .. (s + 1) * steps // splits - 1): consecutive, each k step
+    once, lengths differing by at most one; where the split divides the
+    steps, every range is steps / splits long."""
+    ranges = _split_steps(steps, splits)
+    assert [k for r in ranges for k in r] == list(range(steps))
+    lengths = [len(r) for r in ranges]
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= steps // splits
+    if steps % splits == 0:
+        assert set(lengths) == {steps // splits}
 
 
 @pytest.mark.parametrize("h,i,n", [(312, 1200, 32768), (512, 2048, 512), (128, 512, 1)])
@@ -261,9 +471,11 @@ def test_k3_generic_granule_mirrors_the_cuda_check():
     assert (int(consts["kGDepth"]), int(consts["kGTokens"])) == (ffn.LARGE_DEPTH, ffn.LARGE_TOKENS)
     assert (int(consts["kGWideCols"]), int(consts["kGNarrowCols"])) == (ffn.LARGE_WIDE_COLS,
                                                                         ffn.LARGE_NARROW_COLS)
+    assert int(consts["kGSlimCols"]) == ffn.LARGE_SLIM_COLS == 64
+    assert int(consts["kGMinSteps"]) == ffn.LARGE_MIN_STEPS
 
 
-@pytest.mark.parametrize("cols", [256, 128])
+@pytest.mark.parametrize("cols", [256, 128, 64])
 def test_k3_generic_ring_fits_shared_memory(cols):
     """The generic route runs the 1,024 design's blocks: their ring, the
     staging tiles, the alignment slack and the barriers fit the 227 KB a
