@@ -485,8 +485,11 @@ def reset_launches() -> None:
             setattr(mod, COUNTER_ATTR.get(name, "LAUNCHES"), 0)
         if name in ("flash_attention", "fused_ffn"):   # and their counts by width
             mod.WIDTH_LAUNCHES.clear()
-        if name == "causal_flash_prefill":             # and K9's by head_dim
+        if name == "flash_attention_bwd":              # and K10's on heads read in place
+            mod.BWD_IN_PLACE_LAUNCHES = 0
+        if name == "causal_flash_prefill":             # and K9's by head_dim, in place too
             mod.HEAD_DIM_LAUNCHES.clear()
+            mod.IN_PLACE_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
@@ -1089,83 +1092,93 @@ GENERIC_CAUSAL_HEAD_DIMS = (100, 80, 96)
 GENERIC_CAUSAL_SHAPES = ((1, 4096, (1100,), "bf16"), (1, 128, (60,), "f32"))
 
 
-def noisy_pad(torch, randn, x, heads: int, width: int):
-    """x's heads padded to ``width`` with random values where the wrapper
-    writes zeros: the unzeroed-padding control's inputs."""
-    from financial_rag_tpu_torch.ops.common import pad_heads
+def windows(torch, x, heads: int, width: int):
+    """Head g of the [B, S, heads * d] rows x as a ``width``-wide window
+    from column g * d rounded down to a multiple of 8 (the head at columns
+    off = g * d mod 8 .. off + d - 1, its neighbours' columns around it;
+    past the rows, zeros), [B, heads, S, width] in f32, left unzeroed; and
+    the offsets."""
+    d = x.shape[-1] // heads
+    offs = [g * d % 8 for g in range(heads)]
+    xp = torch.nn.functional.pad(x.float(), (0, width))
+    return torch.stack([xp[..., g * d - o:g * d - o + width] for g, o in enumerate(offs)],
+                       dim=1), offs
 
-    b, s, h = x.shape
-    out = pad_heads(x, heads, width).clone()
-    out.view(b, s, heads, width)[..., h // heads:] = randn(b, s, heads, width - h // heads,
-                                                           dtype=x.dtype)
-    return out
 
-
-def padded_controls(torch, randn, built, q, k, v, heads, kv_heads, run_entry):
-    """The two controls of a padded attention route: the kernel on the
-    zero-padded heads with the scale of the padded width (as if the heads
-    were that wide), and the kernel told the true head_dim but given padded
-    columns left unzeroed (random). ``built``: the kernel's built widths;
-    ``run_entry(q, k, v, head_dim)`` launches its C entry on padded inputs
-    and returns the padded output, or a tuple of them (K10's dq, dk, dv)."""
-    from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads, unpad_heads
-
-    d = q.shape[-1] // heads
-    width = built_head_dim(d, built)
-    padded = [pad_heads(q, heads, width), pad_heads(k, kv_heads, width),
-              pad_heads(v, kv_heads, width)]
-    noisy = [noisy_pad(torch, randn, q, heads, width), noisy_pad(torch, randn, k, kv_heads, width),
-             noisy_pad(torch, randn, v, kv_heads, width)]
-
-    def unpad(out):
-        if isinstance(out, tuple):
-            return tuple(unpad_heads(t, heads, d) for t in out)
-        return unpad_heads(out, heads, d)
-
-    return (("scale_of_the_padded_width", lambda: unpad(run_entry(*padded, width))),
-            ("padded_columns_unzeroed", lambda: unpad(run_entry(*noisy, d))))
+def own_columns(torch, w, offs, d: int, dtype):
+    """Each head's own d columns of [B, heads, S, width] windows -> [B, S, H]."""
+    b, _, s, _ = w.shape
+    return torch.stack([w[:, g, :, o:o + d] for g, o in enumerate(offs)],
+                       dim=2).reshape(b, s, len(offs) * d).to(dtype)
 
 
 def window_attention(torch, q, k, v, bias, heads: int, width: int):
-    """Attention with each head read as a ``width``-wide window of the
-    [B, S, H] rows from column g * head_dim rounded down to a multiple of 8
-    (the head at columns off = g * head_dim mod 8 .. off + head_dim - 1,
-    its neighbours' columns around it; past H, zeros), Q's other columns
-    left as they are, the true head_dim's scale, and each head's own output
-    columns kept: what K2's in-place read computes if a neighbour head's
-    columns reach the scores. Plain torch in f32."""
+    """Attention with each head read as a ``width``-wide window (windows),
+    the columns that are not the head's left as they are, the true
+    head_dim's scale, and each head's own output columns kept: what K2's
+    in-place read computes if a neighbour head's columns reach the scores.
+    Plain torch in f32."""
     b, s, h = q.shape
-    d = h // heads
-    offs = [g * d % 8 for g in range(heads)]
-
-    def window(x):
-        xp = torch.nn.functional.pad(x.float(), (0, width))
-        return torch.stack([xp[..., g * d - o:g * d - o + width] for g, o in enumerate(offs)],
-                           dim=1)
-    qw, kw, vw = window(q), window(k), window(v)
-    p = torch.softmax(qw @ kw.transpose(-1, -2) * d ** -0.5 + bias.reshape(b, 1, 1, s).float(),
-                      dim=-1)
-    o = p @ vw
-    return torch.stack([o[:, g, :, off:off + d] for g, off in enumerate(offs)],
-                       dim=2).reshape(b, s, h).to(q.dtype)
+    (qw, offs), (kw, _), (vw, _) = (windows(torch, t, heads, width) for t in (q, k, v))
+    p = torch.softmax(qw @ kw.transpose(-1, -2) * (h // heads) ** -0.5
+                      + bias.reshape(b, 1, 1, s).float(), dim=-1)
+    return own_columns(torch, p @ vw, offs, h // heads, q.dtype)
 
 
-def in_place_controls(torch, q, k, v, bias, heads: int):
-    """The two controls of K2's in-place read (heads narrower than the
-    built width W read where they lie), each of which must miss the gate:
-    the kernel with the scale of W (q scaled by sqrt(head_dim / W), through
-    the same in-place read), and a neighbour head's columns reaching the
-    scores (window_attention: Q's columns past head_dim not zeroed)."""
-    from financial_rag_tpu_torch.ops import flash_attention as fa
+def window_attention_bwd(torch, q, k, v, bias, do, heads: int, width: int):
+    """K10's gradients (dq, dk, dv) with each head's q, k, v and dO read as
+    ``width``-wide windows (windows) whose columns that are not the head's
+    are left as they are: what K10's in-place read computes if a neighbour
+    head's columns reach the scores and dP. Plain torch in f32."""
+    b, s, h = q.shape
+    scale = (h // heads) ** -0.5
+    (qw, offs), (kw, _), (vw, _), (ow, _) = (windows(torch, t, heads, width) for t in (q, k, v, do))
+    p = torch.softmax(qw @ kw.transpose(-1, -2) * scale + bias.reshape(b, 1, 1, s).float(), dim=-1)
+    dp = ow @ vw.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    grads = (ds @ kw * scale, ds.transpose(-1, -2) @ qw * scale, p.transpose(-1, -2) @ ow)
+    return tuple(own_columns(torch, g, offs, h // heads, q.dtype) for g in grads)
+
+
+def window_causal_attention(torch, q, k, v, pad, heads: int, width: int):
+    """K9's output (one kv head a query head) with each head's q, k and v
+    read as ``width``-wide windows (windows) whose columns that are not the
+    head's are left as they are: what K9's in-place read computes if a
+    neighbour head's columns reach the scores. Causal, left-padded, padding
+    rows zero; plain torch in f32."""
+    b, s, h = q.shape
+    (qw, offs), (kw, _), (vw, _) = (windows(torch, t, heads, width) for t in (q, k, v))
+    pos = torch.arange(s, device=q.device)
+    live = pos[None, :] >= pad.view(b, 1)
+    allow = (pos[None, :] <= pos[:, None])[None] & live[:, None, :]
+    scores = (qw @ kw.transpose(-1, -2) * (h // heads) ** -0.5).masked_fill(
+        ~allow[:, None], float("-inf"))
+    out = own_columns(torch, torch.nan_to_num(torch.softmax(scores, dim=-1)) @ vw, offs, h // heads,
+                      q.dtype)
+    return torch.where(live[..., None], out, torch.zeros_like(out))
+
+
+def in_place_controls(torch, run, q, k, v, heads: int, built, neighbours):
+    """The two controls of an in-place read (heads narrower than the built
+    width W read where they lie), each of which must miss the gate: the
+    kernel with the scale of W (``run(q')`` with q' = q * sqrt(head_dim /
+    W), through the same in-place read), and a neighbour head's columns
+    reaching the products (``neighbours(W)``, a plain window computation
+    whose columns outside the head are not zeroed)."""
     from financial_rag_tpu_torch.ops.common import built_head_dim
 
     d = q.shape[-1] // heads
-    width = built_head_dim(d, fa.FWD_HEAD_DIMS)
-    return (("scale_of_the_built_width",
-             lambda: fa.flash_attention((q.float() * (d / width) ** 0.5).to(q.dtype), k, v, bias,
-                                        num_heads=heads)),
-            ("neighbour_columns_in_the_scores",
-             lambda: window_attention(torch, q, k, v, bias, heads, width)))
+    width = built_head_dim(d, built)
+    return (("scale_of_the_built_width", lambda: run((q.float() * (d / width) ** 0.5).to(q.dtype))),
+            ("neighbour_columns_in_the_products", lambda: neighbours(width)))
+
+
+def routed(cases, reads_in_place):
+    """Each case's shape label with its route: ``in place`` where
+    ``reads_in_place(case)`` says so, else ``copy`` (the heads padded in a
+    copy)."""
+    return [(name, f"{shape},{'in place' if reads_in_place(shape) else 'copy'}", *rest)
+            for name, shape, *rest in cases]
 
 
 def generic_cases(torch, F, randn, padded_mask):
@@ -1174,24 +1187,22 @@ def generic_cases(torch, F, randn, padded_mask):
     ``generic``). K3 (the two products at run-time extents) at GENERIC_FFN x
     GENERIC_FFN_TOKENS, within 3e-2 of the plain version; its first case
     carries two controls that must miss it, each a partial last k step
-    lost: W1's last H % 64 rows or W2's last I % 64 rows zeroed. K2 (heads
-    read in place) and K10 (heads zero-padded to 32 or 64), the scale from
-    the true head_dim, at 12 heads of GENERIC_HEAD_DIMS, B=64 S=512 and
-    B=8 S=64 with a fully masked row; K9 (padded to 128) at 32 / 32 heads
-    of GENERIC_CAUSAL_HEAD_DIMS, bf16 B=1 S=4,096 pad 1,100 and f32 S=128.
-    K2's first case carries the in-place read's two controls
-    (in_place_controls), K10's and K9's the padded route's
-    (padded_controls; K10's dout padded with zeros). Tolerances, bounds
-    (over the true head_dim) and library calls as at 384; the wrapper times
-    of K10 and K9 include the pad copies."""
+    lost: W1's last H % 64 rows or W2's last I % 64 rows zeroed. K2 and K10
+    at 12 heads of GENERIC_HEAD_DIMS, B=64 S=512 and B=8 S=64 with a fully
+    masked row, and K9 at 32 / 32 heads of GENERIC_CAUSAL_HEAD_DIMS, bf16
+    B=1 S=4,096 pad 1,100 and f32 S=128, the scale from the true head_dim;
+    each case's shape names its route (``in place``: the heads read where
+    they lie; ``copy``: padded to the built width). The first case of K2,
+    K10 and K9 carries the in-place read's two controls (in_place_controls:
+    the built width's scale; a neighbour head's columns reaching the
+    products, window_attention, window_attention_bwd,
+    window_causal_attention). Tolerances, bounds (over the true head_dim)
+    and library calls as at 384; the wrapper times include any copies."""
     from financial_rag_tpu_torch.ops import causal_flash as cf
     from financial_rag_tpu_torch.ops import flash_attention as fa
     from financial_rag_tpu_torch.ops import fused_ffn as ffn
-    from financial_rag_tpu_torch.ops import kernel_lib
-    from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads
 
     bf16 = torch.bfloat16
-    ptr = kernel_lib.ptr
     cases = []
     for h, i in GENERIC_FFN:
         w1, w2 = randn(h, i, dtype=bf16, scale=h ** -0.5), randn(i, h, dtype=bf16, scale=0.012)
@@ -1225,47 +1236,38 @@ def generic_cases(torch, F, randn, padded_mask):
             bias = torch.where(mask > 0, 0.0, -1e9).float()
             controls = ()
             if d == GENERIC_HEAD_DIMS[0] and (b, s) == GENERIC_ATTENTION_SHAPES[0]:
-                controls = in_place_controls(torch, q, k, v, bias, NH)
-            cases.append(wide_attention_case(torch, F, q, k, v, mask, bias, NH, d, controls))
+                controls = in_place_controls(
+                    torch, lambda q_, k=k, v=v, bias=bias: fa.flash_attention(
+                        q_, k, v, bias, num_heads=NH), q, k, v, NH, fa.FWD_HEAD_DIMS,
+                    lambda w, q=q, k=k, v=v, bias=bias: window_attention(torch, q, k, v, bias, NH, w))
+            cases += routed([wide_attention_case(torch, F, q, k, v, mask, bias, NH, d, controls)],
+                            lambda shape, d=d, s=s: fa.fwd_reads_in_place(d, s, NH * d))
 
     def k10_controls(q, k, v, bias, do):
-        b, s, _ = q.shape
-        width = built_head_dim(q.shape[-1] // NH, fa.BWD_HEAD_DIMS)
-        dout = pad_heads(do, NH, width)
-
-        def entry(qp, kp, vp, head_dim):
-            grads = tuple(torch.empty_like(qp) for _ in range(3))
-            stats = None
-            if fa.bwd_launch_plan(s, width)[0] == "two kernels":
-                stats = torch.empty(fa.bwd_scratch_shape(b, s, NH), dtype=torch.float32,
-                                    device=qp.device)
-            kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", qp.device,
-                              *(ptr(t) for t in (qp, kp, vp, bias, dout, *grads)),
-                              None if stats is None else ptr(stats), b, s, qp.shape[-1], NH,
-                              head_dim)
-            return grads
-        return padded_controls(torch, randn, fa.BWD_HEAD_DIMS, q, k, v, NH, NH, entry)
+        return in_place_controls(
+            torch, lambda q_: fa.flash_attention_bwd(q_, k, v, bias, do, num_heads=NH), q, k, v, NH,
+            fa.BWD_HEAD_DIMS, lambda w: window_attention_bwd(torch, q, k, v, bias, do, NH, w))
 
     for d in GENERIC_HEAD_DIMS:
-        cases += attention_bwd_cases(torch, F, randn, padded_mask, head_dim=d,
-                                     shapes=GENERIC_ATTENTION_SHAPES,
-                                     padded_controls=k10_controls
-                                     if d == GENERIC_HEAD_DIMS[0] else None)
+        cases += routed(attention_bwd_cases(torch, F, randn, padded_mask, head_dim=d,
+                                            shapes=GENERIC_ATTENTION_SHAPES,
+                                            extra_controls=k10_controls
+                                            if d == GENERIC_HEAD_DIMS[0] else None),
+                        lambda shape, d=d: fa.bwd_reads_in_place(d, 0, NH * d))
 
     def k9_controls(q, k, v, pad):
-        def entry(qp, kp, vp, head_dim):
-            out = torch.empty_like(qp)
-            b, s, _ = qp.shape
-            kernel_lib.launch("causal_flash_prefill", "frag_causal_flash", qp.device,
-                              ptr(qp), ptr(kp), ptr(vp), ptr(pad), ptr(out), b, s, 32, 32,
-                              qp.shape[-1] // 32, kernel_lib.DTYPE_CODES[qp.dtype], head_dim)
-            return out
-        return padded_controls(torch, randn, cf.KERNEL_HEAD_DIMS, q, k, v, 32, 32, entry)
+        return in_place_controls(
+            torch, lambda q_: cf.causal_flash_prefill(q_, k, v, pad, num_q_heads=32,
+                                                      num_kv_heads=32), q, k, v, 32,
+            cf.KERNEL_HEAD_DIMS, lambda w: window_causal_attention(torch, q, k, v, pad, 32, w))
 
     for d in GENERIC_CAUSAL_HEAD_DIMS:
-        cases += causal_cases(torch, F, randn, heads=(32, 32, d), shapes=GENERIC_CAUSAL_SHAPES,
-                              padded_controls=k9_controls if d == GENERIC_CAUSAL_HEAD_DIMS[0]
-                              else None)
+        cases += routed(causal_cases(torch, F, randn, heads=(32, 32, d),
+                                     shapes=GENERIC_CAUSAL_SHAPES,
+                                     extra_controls=k9_controls
+                                     if d == GENERIC_CAUSAL_HEAD_DIMS[0] else None),
+                        lambda shape, d=d: cf.causal_reads_in_place(
+                            d, 32, 32, torch.bfloat16 if shape.endswith("bf16") else torch.float32))
     return [(f"{name.partition('@')[0]}@generic", *rest) for name, *rest in cases]
 
 def attention_cmp(tol, controls=()):
@@ -1651,7 +1653,7 @@ CAUSAL_128_CASES = (((12, 2, 128), ((1, 4096, (1100,), "bf16"), (1, 4096, (0,), 
                     ((32, 8, 128), ((1, 4096, (0,), "bf16"),)))
 
 
-def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES, padded_controls=None):
+def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES, extra_controls=None):
     """K9 at the decoder's prefill shapes (Qwen2-0.5B: 14 query heads and 2
     kv heads of 64): the answer-prompt bucket B=1 S=4,096 with 1,100
     padding rows, the query normaliser's S=128, a generate_many wave of 3
@@ -1660,8 +1662,9 @@ def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES, padde
     where head_dim is not 64). See causal_cmp for the tolerances; padding
     rows exactly 0. The bound counts only the causal pairs at or past
     pad_len. Library: SDPA (is_causal, enable_gqa) at pad 0, [B,H,S,D]
-    views, a yardstick only. ``padded_controls(q, k, v, pad)``, where
-    given, gives the first shape's controls of a padded head width."""
+    views, a yardstick only. ``extra_controls(q, k, v, pad)``, where
+    given, gives the first shape's extra controls ((label, run)), each of
+    which must fail the gate too."""
     from financial_rag_tpu_torch.ops import causal_flash as cf
 
     hq, hkv, d = heads
@@ -1687,7 +1690,7 @@ def causal_cases(torch, F, randn, heads=(14, 2, 64), shapes=CAUSAL_SHAPES, padde
         # keys at head_dim 64, 128 at 128) lost
         control = (lambda q=q, k=k, v=v, p=pad: plain(q, k, v, p + (64 if d == 64 else 128))) \
             if (s, dtype) == (4096, torch.bfloat16) else None
-        extra = padded_controls(q, k, v, pad) if padded_controls and not cases else ()
+        extra = extra_controls(q, k, v, pad) if extra_controls and not cases else ()
         cases.append((name, f"B={b},S={s},pads={list(pads)},heads={hq}/{hkv}x{d},{label}",
                       lambda q=q, k=k, v=v, p=pad: cf.causal_flash_prefill(
                           q, k, v, p, num_q_heads=hq, num_kv_heads=hkv),
@@ -1783,7 +1786,7 @@ WIDE_BWD_SHAPES = ((256, 128), (256, 512), (256, 100), (256, 64))
 
 
 def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes=BWD_SHAPES,
-                        padded_controls=None):
+                        extra_controls=None):
     """K10 at the train path's shapes: B=256 S=128 (one encode of the
     contrastive step: its 256 queries and its 256 documents are two
     launches), B=512 S=128 (both encodes as one batch), B=256 S=64 (the
@@ -1798,7 +1801,7 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
     keys only (a masked key adds exact zeros); a ``kernel_bound`` line gives
     each term and the live share of the pairs, since the kernel's header
     counts a full mask. At head_dim 64 (WIDE_BWD_SHAPES) the cases are
-    named ``flash_attention_bwd@64``. ``padded_controls(q, k, v, bias,
+    named ``flash_attention_bwd@64``. ``extra_controls(q, k, v, bias,
     dout)``, where given, makes the first shape's extra controls ((label,
     run)), each of which must fail the bound too."""
     from financial_rag_tpu_torch.ops import flash_attention as fa
@@ -1820,7 +1823,7 @@ def attention_bwd_cases(torch, F, randn, padded_mask, head_dim: int = 32, shapes
               "path": path, "kernels": list(kernels), "smem_bytes": smem,
               "live_share": live_pairs / (b * s * s), **bound_terms(*terms)})
         control = None
-        extra = padded_controls(q, k, v, bias, do) if padded_controls and not cases else ()
+        extra = extra_controls(q, k, v, bias, do) if extra_controls and not cases else ()
         if s <= 128 or hd == 64:
             control = (lambda q=q, k=k, v=v, do=do, b=b, s=s: fa.flash_attention_bwd(
                 q, k, v, torch.zeros(b, s, device=q.device), do, num_heads=NH))
@@ -4135,14 +4138,15 @@ def phase_llm_d128(torch, cfg, work: Path, seed: int):
 
 
 def phase_llm_d100(torch, cfg, work: Path, seed: int) -> int:
-    """A decoder whose heads only K9's padded route takes, at full width: a
-    seeded random-weight checkpoint at open_llama_3b_v2's width
+    """A decoder whose heads no tuned K9 design was built for, at full
+    width: a seeded random-weight checkpoint at open_llama_3b_v2's width
     (LlamaForCausalLM, LLM_LAYERS of its 26 layers of 3,200, 32 heads of
     100 with 32 kv heads, FFN 8,640, vocab 32,000, untied, no biases) with
     a WordLevel tokenizer, served by serve_local_llm: 3 golden questions
     through RAGEngine.query, K9 once a layer a prefill, every launch at
-    head_dim 100 (padded to 128); then phase_decoder_parity on its weights.
-    Returns K9's launches at head_dim 100."""
+    head_dim 100 and read in place (the head-128 kernel's 16-byte aligned
+    windows, products 104 wide; no pad copy); then phase_decoder_parity on
+    its weights. Returns K9's launches at head_dim 100."""
     from financial_rag_tpu_torch.ops import causal_flash
 
     t0 = time.perf_counter()
@@ -4154,10 +4158,14 @@ def phase_llm_d100(torch, cfg, work: Path, seed: int) -> int:
     check(llm._dcfg.head_dim == 100, f"llm_d100: head_dim {llm._dcfg.head_dim}, not 100")
     k9 = dict(causal_flash.HEAD_DIM_LAUNCHES)
     k9_d100 = k9.get(100, 0)
+    in_place = causal_flash.IN_PLACE_LAUNCHES[100]
     check(k9_d100 > 0 and k9_d100 == stats["launches"]["causal_flash_prefill"],
           f"llm_d100: K9 launches by head_dim {k9}, of {stats['launches']['causal_flash_prefill']}")
+    check(in_place == k9_d100, f"llm_d100: {in_place} of K9's {k9_d100} launches at head_dim 100 "
+          "read the heads in place")
     emit({"phase": "llm_d100", "model": f"open_llama_3b_v2 width, {LLM_LAYERS} layers, random "
           f"weights, bf16", "checkpoint_write_s": checkpoint_s, **stats, "k9_launches": k9_d100,
+          "k9_in_place_launches": in_place,
           "seconds": time.perf_counter() - t0, "answer_sample": answers[0]["answer"][:160]})
     phase_decoder_parity(torch, rt, ckpt, phase="decoder_parity_d100")
     del rt, llm
@@ -4714,14 +4722,15 @@ NARROW_TRAIN_BATCH = (8, 4, 128)   # listwise groups, candidates a group, tokens
 
 def phase_train_narrow(torch, seed: int) -> int:
     """One rerank_ft.make_rerank_train_step step at ms-marco-TinyBERT-L-4's
-    width (4 x 312, 12 heads of 26, FFN 1,200, one label), so K10 runs its
-    padded route (heads of 26 in 32) and K3 its generic route in a training
-    step: on the card in bf16 and on the CPU in f32 on the same seeded
-    weights and listwise batch (NARROW_TRAIN_BATCH, rows padded to random
-    lengths). Gates as phase_train_parity's: the loss within
-    TRAIN_LOSS_TOL, each leaf group's gradient cosine >= TRAIN_GRAD_COSINE,
-    K2, K10 and K3 once a layer; the control (K10's dQ zeroed) must fail.
-    Returns K10's launches at head_dim 26."""
+    width (4 x 312, 12 heads of 26, FFN 1,200, one label), so K10 reads
+    heads of 26 in place (16-byte aligned windows of 32 columns; no pad
+    copy) and K3 runs its generic route in a training step: on the card in
+    bf16 and on the CPU in f32 on the same seeded weights and listwise
+    batch (NARROW_TRAIN_BATCH, rows padded to random lengths). Gates as
+    phase_train_parity's: the loss within TRAIN_LOSS_TOL, each leaf group's
+    gradient cosine >= TRAIN_GRAD_COSINE, K2, K10 and K3 once a layer, every
+    K10 launch in place; the control (K10's dQ zeroed) must fail. Returns
+    K10's launches at head_dim 26."""
     import numpy as np
 
     from financial_rag_tpu_torch.config import ModelConfig
@@ -4751,7 +4760,8 @@ def phase_train_narrow(torch, seed: int) -> int:
             torch.cuda.synchronize()
         finally:
             fa.flash_attention_bwd = k10
-        return float(loss), grad_group_cosines(torch, grads, want), read_launches()
+        return (float(loss), grad_group_cosines(torch, grads, want),
+                {**read_launches(), "flash_attention_bwd_in_place": fa.BWD_IN_PLACE_LAUNCHES})
 
     def dq_zeroed(q, k, v, bias, dout, **kw):
         dq, dk, dv = k10(q, k, v, bias, dout, **kw)
@@ -4759,6 +4769,9 @@ def phase_train_narrow(torch, seed: int) -> int:
 
     loss, real, launches = readings(k10)
     check_train_launches(launches, 1, cfg.num_layers, 1, "train_narrow")
+    check(launches["flash_attention_bwd_in_place"] == launches["flash_attention_bwd"],
+          f"train_narrow: {launches['flash_attention_bwd_in_place']} of K10's "
+          f"{launches['flash_attention_bwd']} launches read the heads of 26 in place")
     _, control, _ = readings(dq_zeroed)
     emit({"phase": "train_narrow", "shape": f"{cfg.num_layers}L h{cfg.hidden_size}, "
           f"{cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}, FFN "
@@ -4766,6 +4779,7 @@ def phase_train_narrow(torch, seed: int) -> int:
           "loss_card": loss, "loss_cpu": float(want_loss), "loss_tol": TRAIN_LOSS_TOL,
           "grad_cosine": real, "bar": TRAIN_GRAD_COSINE, "controls": {"dq_zeroed": control},
           "launches": {k: launches[k] for k in TRAIN_PATH},
+          "k10_in_place_launches": launches["flash_attention_bwd_in_place"],
           "seconds": round(time.perf_counter() - t0, 1)})
     check(abs(loss - float(want_loss)) <= TRAIN_LOSS_TOL,
           f"train_narrow: loss {loss} vs {float(want_loss)}")

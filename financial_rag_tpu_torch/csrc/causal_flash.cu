@@ -102,6 +102,45 @@
 //  - persistent blocks (one an SM, items in snake order, the next item's Q
 //    loaded while the current one runs; 20 bytes spilled): 0.274-0.278,
 //    and 0.1123 against 0.1063-0.1079 at Qwen2-1.5B's 12 / 2 heads.
+//
+// Narrower heads (open_llama_3b_v2's 100, 80, 96; any even head_dim up to
+// 128) are read where they lie, at the built width that holds them (64 or
+// 128), as the TPU kernel slices each head out of whole rows: head h's dh
+// columns start at h*dh. At 128 a padded copy would have cost the copies'
+// traffic (~0.1 of 0.386 ms at 32 / 32 heads of 100, B=1 S=4,096) and
+// products 128 wide of which 22-37.5% met zero columns. Instead:
+//  - K and V come by TMA as two boxes of 64 columns a tile: from a 4-D map
+//    over [B][S][Hkv][dh] where dh is a multiple of 8 (the columns past dh
+//    arrive as zeros and are never fetched), else from a 3-D map over
+//    [B][S][Hkv*dh] at the head's first column rounded down to a multiple
+//    of 8 (the TMA faults on a box that starts off a 16-byte column): a
+//    window with the head at columns off .. off+dh-1 (off = h*dh mod 8, 0
+//    or 4 at 100) and its neighbours' columns around it. The producer
+//    warp zeroes the window's K columns that are not the head's in shared
+//    memory and only then publishes the tile (one K tile after it issued
+//    it, its bytes landing on a barrier of their own), so a neighbour's
+//    k, an inf included, never meets a zero of Q's. At 32 / 32 heads of
+//    100, B=1 S=4,096 pad 1,100 (kernel_ab.py, NVIDIA H100 80GB HBM3,
+//    700.00 W) this ran 0.2830 ms, and warpgroup 0 zeroing them before its
+//    turn (it goes first on every tile) 0.2013-0.2023: the faster form,
+//    held in ROADMAP §B; the padded kernel alone 0.1765-0.1774.
+//  - Q stays on cp.async, from the same 16-byte column: whole chunks by
+//    16-byte copies, a chunk the head fills in part by 4-byte copies of
+//    its pieces and zeros (cp_async_cols), so only the head's columns are
+//    read. A query head's window offset must be its kv head's for Q's
+//    columns to meet K's: windows take one kv head a query head.
+//  - The products are N wide, the head's columns and its offset rounded up
+//    to 80, 96, 104 or 128 (a template argument): Q K^T over N / 16 k-steps
+//    (rounded up; 5, 6, 7 or 8), P V at wgmma n = N over V's first N columns
+//    (the second 64-column block read in part), O N / 2 registers a thread
+//    (147, 150, 156 registers at 80, 96, 104; 167 at 128; no spill).
+//  - The epilogue stores the head's own columns from its offset.
+// The f32 kernel reads and writes a head's own columns at any even dh
+// (8-byte pairs; the other columns of its tiles zeros). A bf16 head
+// narrower than 64, one whose window does not fit 128 columns (more than 8
+// - the lowest set bit of dh columns before it), whose rows are not whole
+// 16-byte chunks, or that shares its kv head with other query heads, and
+// an odd dh, is padded in a copy by the caller.
 #include "hopper.cuh"
 
 namespace {
@@ -114,6 +153,34 @@ constexpr int kWgRows = 64;          // (position, head) rows per consumer warpg
 constexpr int kConsumers = 2;        // consumer warpgroups per block
 constexpr int kBlockRows = kWgRows * kConsumers;
 constexpr int kBf16Threads = kConsumers * 128 + 32;   // + the producer warp
+
+// Where head g of rows of heads dh columns wide is read from: the 16-byte
+// column c0 at or below its first column g*dh, and the head's offset off
+// from there (0 where dh is a multiple of 8: every head starts on one).
+struct HeadCols {
+  int c0, off;
+  __device__ HeadCols(int g, int dh) : c0(g * dh - g * dh % 8), off(g * dh % 8) {}
+};
+
+// 64 packed (position, query head) rows r0 .. r0+63 of q (rows of hq_w
+// columns, heads of dh) into a tile of 64-column SW128 regions at qt, by
+// threads tid, tid + 128, ...: each row's head as its kChunks 16-byte chunks
+// from its c0, only the head's own columns read (cp_async_cols), the rest
+// and rows past `rows` zeros.
+template <int kChunks>
+__device__ __forceinline__ void load_q_rows(uint32_t qt, const __nv_bfloat16* __restrict__ q, int b, int S,
+                                            int hq_w, int g, int group, int r0, int rows, int dh,
+                                            int tid) {
+  for (int e = tid; e < kWgRows * kChunks; e += 128) {
+    const int lr = e / kChunks, ch = e % kChunks;
+    const int r = r0 + lr, pos = r / group;
+    const bool ok = r < rows;
+    const HeadCols hc(g * group + r - pos * group, dh);
+    const size_t src = ok ? ((size_t)b * S + pos) * hq_w + hc.c0 + 8 * ch : 0;
+    const int lo = hc.off - 8 * ch, hi = ok ? hc.off + dh - 8 * ch : lo;
+    cp_async_cols(qt + sw128_chunk(lr, ch), q + src, lo, hi);
+  }
+}
 
 template <int D>
 struct CausalTiles {
@@ -307,14 +374,38 @@ constexpr int kWideSmemBytes = kConsumers * kQBytes + 2 * kWideStages * kKvBytes
 constexpr int kWideThreads = kConsumers * 128 + 32;  // + the producer warp
 constexpr int kTurnBarrier = 3;                // named barriers 3, 4: warpgroup 0's, 1's turn
 
+// Columns lo .. hi-1 (even) of each of the 128 key rows of a K tile (two
+// 64-column SW128 regions) as zeros, by threads tid, tid + count, ...: the
+// columns of a head's window that are not the head's, so that a neighbour's
+// k (an inf included) meets none of Q's zeros.
+__device__ __forceinline__ void zero_kv_cols(uint32_t tile, int lo, int hi, int tid, int count) {
+  const int pieces = (hi - lo) >> 1;   // 4-byte pieces
+  for (int e = tid; e < kWideKeys * pieces; e += count) {
+    const int r = e / pieces, col = lo + 2 * (e % pieces);
+    st_shared_u32(tile + (col >> 6) * kKvRegion + swz<3>(r * 128 + (col & 63) / 8 * 16) + (col & 7) * 2, 0u);
+  }
+}
+
+// N: the products' width, a head's columns with their window's offset
+// rounded up (80, 96, 104 or 128; wgmma_rs_cols): Q K^T runs over N / 16
+// k-steps (rounded up), P V at n = N, and O is N / 2 registers a thread.
+// K and V come as two 64-column boxes a tile, from a 4-D map over
+// [B][S][Hkv][dh] (by_head: dh a multiple of 8; columns past dh read as
+// zeros) or from a 3-D map over [B][S][Hkv*dh] at the head's 16-byte column
+// c0 (a window: the head at columns off .. off+dh-1, its neighbours' around
+// it, whose K columns the producer warp zeroes before it publishes the
+// tile; at dh = 128 the window is the head).
+template <int N>
 __global__ void __launch_bounds__(kWideThreads, 1)
 causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ pad_len,
-                            __nv_bfloat16* __restrict__ out, int S, int Hq, int group, float scale2) {
-  constexpr int D = 128, kChunks = D / 8;
+                            __nv_bfloat16* __restrict__ out, int S, int Hq, int group, float scale2, int dh,
+                            bool by_head) {
+  constexpr int kSteps = (N + 15) / 16, kChunks = 2 * kSteps;  // Q K^T's k-steps; Q's 16-byte chunks a row
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_k[kWideStages], full_v[kWideStages];
   __shared__ __align__(8) uint64_t empty_k[kWideStages], empty_v[kWideStages];
+  __shared__ __align__(8) uint64_t landed_k[kWideStages];   // a window's K bytes, before its zeroing
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sK = sQ + kConsumers * kQBytes;      // stage st: K at sK + st * kKvBytes
   const uint32_t sV = sK + kWideStages * kKvBytes;    //           V at sV + st * kKvBytes
@@ -327,12 +418,18 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
   const int k_begin = (pad / kWideKeys) * kWideKeys;
   // keys [k_begin, last_pos] in 128-key tiles; none when every row is padding
   const int ntiles = last_pos >= pad ? (last_pos - k_begin) / kWideKeys + 1 : 0;
-  const int hq_w = Hq * D;
+  const int hq_w = Hq * dh;
+  const HeadCols kc(g, dh);
+  // K's window columns below and past the head that Q K^T reads (none by head)
+  const bool zero_k = !by_head && (kc.off > 0 || kc.off + dh < 16 * kSteps);
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kWideStages; ++st) {
-      mbar_init(&full_k[st], 1);                  // the producer's expect_tx; then the tile's bytes
+      // the producer's expect_tx, then the tile's bytes; a window's K: every
+      // producer lane, once its zeros are stored
+      mbar_init(&full_k[st], zero_k ? 32 : 1);
       mbar_init(&full_v[st], 1);
+      mbar_init(&landed_k[st], 1);
       mbar_init(&empty_k[st], kConsumers * 4);    // lane 0 of every consumer warp
       mbar_init(&empty_v[st], kConsumers * 4);
     }
@@ -344,54 +441,74 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
   if (warp == kConsumers * 4) {
     // producer: one thread has the TMA copy K tile t, then V tile t, into
     // stage t % kWideStages once both warpgroups released what it held
-    // (the two 64-column halves of one kv head, 16 KB each)
+    // (two 64-column boxes of one kv head, 16 KB each). A window's K tile
+    // lands on landed_k and is published on full_k after K tile t+1 is
+    // issued (before V tile t+1, which waits for the warpgroups' P V), once
+    // the 32 lanes have zeroed its columns that are not the head's
     if (lane == 0) {
       prefetch_tensor_map(&tm_k);
       prefetch_tensor_map(&tm_v);
-      for (int t = 0; t < ntiles; ++t) {
-        const int st = t % kWideStages, k0 = k_begin + t * kWideKeys;
-        const uint32_t parity = (t / kWideStages - 1) & 1;
+    }
+    auto boxes = [&](uint32_t dst, const CUtensorMap* map, int k0, uint64_t* bar) {
+      for (int i = 0; i < 2; ++i) {
+        if (by_head) tma_load_4d(dst + i * kKvRegion, map, 64 * i, g, k0, b, bar);
+        else tma_load_3d(dst + i * kKvRegion, map, kc.c0 + 64 * i, k0, b, bar);
+      }
+    };
+    auto publish_k = [&](int t) {   // a window's K tile t, issued
+      const int st = t % kWideStages;
+      const uint32_t kt = sK + st * kKvBytes;
+      mbar_wait(&landed_k[st], (t / kWideStages) & 1);
+      zero_kv_cols(kt, 0, kc.off, lane, 32);
+      zero_kv_cols(kt, kc.off + dh, 16 * kSteps, lane, 32);
+      fence_proxy_async();
+      mbar_arrive(&full_k[st]);
+    };
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kWideStages, k0 = k_begin + t * kWideKeys;
+      const uint32_t parity = (t / kWideStages - 1) & 1;
+      if (lane == 0) {
         if (t >= kWideStages) mbar_wait(&empty_k[st], parity);
-        mbar_expect_tx(&full_k[st], kKvBytes);
-        tma_load_3d(sK + st * kKvBytes, &tm_k, g * D, k0, b, &full_k[st]);
-        tma_load_3d(sK + st * kKvBytes + kKvRegion, &tm_k, g * D + 64, k0, b, &full_k[st]);
+        uint64_t* bar = zero_k ? &landed_k[st] : &full_k[st];
+        mbar_expect_tx(bar, kKvBytes);
+        boxes(sK + st * kKvBytes, &tm_k, k0, bar);
+      }
+      if (zero_k && t > 0) publish_k(t - 1);
+      if (lane == 0) {
         if (t >= kWideStages) mbar_wait(&empty_v[st], parity);
         mbar_expect_tx(&full_v[st], kKvBytes);
-        tma_load_3d(sV + st * kKvBytes, &tm_v, g * D, k0, b, &full_v[st]);
-        tma_load_3d(sV + st * kKvBytes + kKvRegion, &tm_v, g * D + 64, k0, b, &full_v[st]);
+        boxes(sV + st * kKvBytes, &tm_v, k0, &full_v[st]);
       }
     }
+    if (zero_k && ntiles > 0) publish_k(ntiles - 1);
     return;
   }
 
-  // consumer warpgroup w: rows r_begin + 64w .. +63
+  // consumer warpgroup w: rows r_begin + 64w .. +63 (Q K^T's k-steps' chunks)
   const int w = warp >> 2, wt = threadIdx.x & 127;
   const int gid = lane >> 2, tig = lane & 3;
   const uint32_t qt = sQ + w * kQBytes;
-  for (int e = wt; e < kWgRows * kChunks; e += 128) {
-    const int lr = e / kChunks, ch = e % kChunks;
-    const int r = r_begin + w * kWgRows + lr, pos = r / group;
-    const bool ok = r < rows;
-    const size_t src = ok ? ((size_t)b * S + pos) * hq_w + (size_t)(g * group + r - pos * group) * D + 8 * ch : 0;
-    cp_async16(qt + sw128_chunk(lr, ch), q + src, ok);
-  }
+  load_q_rows<kChunks>(qt, q, b, S, hq_w, g, group, r_begin + w * kWgRows, rows, dh, wt);
   cp_async_commit();
   cp_async_wait<0>();
   fence_proxy_async();
   named_barrier(1 + w, 128);
 
-  // this thread's rows (lr = 16 * warp-in-group + gid, +8): position, or -1 past the end
-  int pos[2];
+  // this thread's rows (lr = 16 * warp-in-group + gid, +8): position, or -1
+  // past the end; where the row's head starts in out, and its window offset
+  int pos[2], off[2];
   size_t obase[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_begin + w * kWgRows + 16 * (wt >> 5) + gid + 8 * i;
     pos[i] = r < rows ? r / group : -1;
-    obase[i] = r < rows ? ((size_t)b * S + pos[i]) * hq_w + (size_t)(g * group + r - pos[i] * group) * D : 0;
+    const int hq = g * group + r - max(pos[i], 0) * group;
+    off[i] = HeadCols(hq, dh).off;
+    obase[i] = r < rows ? ((size_t)b * S + pos[i]) * hq_w + (size_t)hq * dh : 0;
   }
   const int pos_lo = min(pos[0], pos[1]);
 
-  float o[D / 2], s[kWideKeys / 2];
+  float o[N / 2], s[kWideKeys / 2];
   uint32_t p[kWideKeys / 16][4];
   zero(o);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m: raw (unscaled) scores
@@ -408,7 +525,7 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
     named_barrier(kTurnBarrier + w, 2 * 128);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < kSteps; ++kk)
       wgmma_ss_n128(s, make_desc(qt + (kk >> 2) * kQRegion + (kk & 3) * 32, 16, 1024, kSw128),
                     make_desc(kt + (kk >> 2) * kKvRegion + (kk & 3) * 32, 16, 1024, kSw128), kk > 0);
     wgmma_commit();
@@ -447,16 +564,17 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
       l[r] += s[i];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < N / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
     for (int kk = 0; kk < kWideKeys / 16; ++kk) pack_a(p[kk], s, kk);
 
-    // O += P V (P from registers, V MN-major through the transpose bit)
+    // O += P V (P from registers, V MN-major through the transpose bit; its
+    // first N columns)
     mbar_wait(&full_v[st], parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWideKeys / 16; ++kk)
-      wgmma_rs_n128(o, p[kk], make_desc(vt + kk * 16 * 128, kKvRegion, 1024, kSw128));
+      wgmma_rs_cols<N>(o, p[kk], make_desc(vt + kk * 16 * 128, kKvRegion, 1024, kSw128));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);
@@ -472,9 +590,12 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
     if (pos[r] < 0) continue;
     const float inv = pos[r] < pad ? 0.f : 1.f / l[r];  // padding rows: zeros
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(out + obase[r] + 8 * nt + 2 * tig) =
-          pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+    for (int nt = 0; nt < N / 8; ++nt) {   // the head's dh columns only (dh even: whole pairs)
+      const int col = 8 * nt + 2 * tig - off[r];
+      if (col >= 0 && col < dh)
+        *reinterpret_cast<uint32_t*>(out + obase[r] + col) =
+            pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+    }
   }
 }
 
@@ -483,12 +604,14 @@ constexpr int kF32Threads = kQTile * kF32Parts;
 constexpr int kF32KTile = 32;
 
 // f32: thread (row, part) owns head dims part, part+4, ... of one query row,
-// so the four parts of a row read neighbouring shared-memory banks.
+// so the four parts of a row read neighbouring shared-memory banks. A head of
+// dh <= D columns (even: 8-byte pairs) is read where it lies, its other
+// columns of the tiles zeros, and only its own columns are written.
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ pad_len,
-                      float* __restrict__ out, int S, int Hq, int group, float scale) {
+                      float* __restrict__ out, int S, int Hq, int group, float scale, int dh) {
   constexpr int kPer = D / kF32Parts;
   __shared__ __align__(16) float ks[kF32KTile * D];
   __shared__ __align__(16) float vs[kF32KTile * D];
@@ -497,15 +620,16 @@ causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kQTile;
   const int part = threadIdx.x % kF32Parts;
   const int row = q0 + threadIdx.x / kF32Parts;
-  const int hq_w = Hq * D, hkv_w = (Hq / group) * D;
-  const size_t qbase = (size_t)b * S * hq_w + (size_t)h * D;
-  const size_t kbase = (size_t)b * S * hkv_w + (size_t)(h / group) * D;
+  const int hq_w = Hq * dh, hkv_w = (Hq / group) * dh;
+  const size_t qbase = (size_t)b * S * hq_w + (size_t)h * dh;
+  const size_t kbase = (size_t)b * S * hkv_w + (size_t)(h / group) * dh;
   const int pad = min(max(pad_len[b], 0), S);
 
   float qr[kPer], o[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    qr[i] = row < S ? q[qbase + (size_t)row * hq_w + kF32Parts * i + part] : 0.f;
+    const int col = kF32Parts * i + part;
+    qr[i] = row < S && col < dh ? q[qbase + (size_t)row * hq_w + col] : 0.f;
     o[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -514,16 +638,16 @@ causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (q0 + kQTile > pad) {
     for (int k0 = (pad / kF32KTile) * kF32KTile; k0 < key_end; k0 += kF32KTile) {
       __syncthreads();
-      for (int e = threadIdx.x; e < kF32KTile * (D / 4); e += kF32Threads) {
-        const int r = e / (D / 4), c = 4 * (e % (D / 4));
-        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-        if (k0 + r < S) {
+      for (int e = threadIdx.x; e < kF32KTile * (D / 2); e += kF32Threads) {
+        const int r = e / (D / 2), c = 2 * (e % (D / 2));
+        float2 kv = make_float2(0.f, 0.f), vv = kv;
+        if (k0 + r < S && c < dh) {
           const size_t src = kbase + (size_t)(k0 + r) * hkv_w + c;
-          kv = *reinterpret_cast<const float4*>(k + src);
-          vv = *reinterpret_cast<const float4*>(v + src);
+          kv = *reinterpret_cast<const float2*>(k + src);
+          vv = *reinterpret_cast<const float2*>(v + src);
         }
-        *reinterpret_cast<float4*>(&ks[r * D + c]) = kv;
-        *reinterpret_cast<float4*>(&vs[r * D + c]) = vv;
+        *reinterpret_cast<float2*>(&ks[r * D + c]) = kv;
+        *reinterpret_cast<float2*>(&vs[r * D + c]) = vv;
       }
       __syncthreads();
 
@@ -559,47 +683,99 @@ causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (row >= S) return;
   const float inv = row < pad ? 0.f : 1.f / l;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) out[qbase + (size_t)row * hq_w + kF32Parts * i + part] = o[i] * inv;
+  for (int i = 0; i < kPer; ++i)
+    if (kF32Parts * i + part < dh) out[qbase + (size_t)row * hq_w + kF32Parts * i + part] = o[i] * inv;
+}
+
+// The K and V maps of the head-128 kernel at heads of dh: 4-D over
+// [B][S][Hkv][dh] where dh is a multiple of 8 other than 128 (by_head), else
+// 3-D over [B][S][Hkv*dh] (at 128, as before the narrower heads); boxes of 64
+// columns (128 bytes, SW128) x 128 keys; rows past S read as zeros.
+bool wide_maps(CUtensorMap& tm_k, CUtensorMap& tm_v, const void* k, const void* v, int B, int S, int Hkv,
+               int dh, bool by_head) {
+  const uint64_t w = (uint64_t)Hkv * dh;
+  if (by_head) {
+    const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)Hkv, (uint64_t)S, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)dh * 2, w * 2, (uint64_t)S * w * 2};
+    const uint32_t box[4] = {64, 1, (uint32_t)kWideKeys, 1};
+    return tensor_map_4d(&tm_k, k, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+           tensor_map_4d(&tm_v, v, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  const uint64_t dims[3] = {w, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {w * 2, (uint64_t)S * w * 2};
+  const uint32_t box[3] = {64, (uint32_t)kWideKeys, 1};
+  return tensor_map_3d(&tm_k, k, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         tensor_map_3d(&tm_v, v, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int N>
+int launch_wide(const __nv_bfloat16* q, const void* k, const void* v, const int* pad_len, __nv_bfloat16* out,
+                int B, int S, int Hq, int Hkv, int dh, float scale2, cudaStream_t st) {
+  const bool by_head = dh % 8 == 0 && dh != 128;
+  CUtensorMap tm_k, tm_v;
+  if (!wide_maps(tm_k, tm_v, k, v, B, S, Hkv, dh, by_head)) return (int)cudaErrorInvalidValue;
+  const cudaError_t opt_in = cudaFuncSetAttribute(
+      causal_fwd_bf16_d128_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int group = Hq / Hkv;
+  const dim3 grid(Hkv, (S * group + kBlockRows - 1) / kBlockRows, B);
+  causal_fwd_bf16_d128_kernel<N><<<grid, kWideThreads, kWideSmemBytes, st>>>(
+      q, tm_k, tm_v, pad_len, out, S, Hq, group, scale2, dh, by_head);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Whether the kernels read heads of dh columns where they lie (dh the
+// heads' width in memory, Hq / Hkv heads of q / k and v; ops/causal_flash.py's
+// causal_reads_in_place mirrors it): in f32 an even dh up to 128; in bf16
+// 64, and a dh above 64 at the head-128 kernel: a multiple of 8, or one
+// read as a 16-byte aligned window of 128 columns from the head's first
+// column rounded down to a multiple of 8, which must fit (at most 8 - the
+// lowest set bit of dh columns before the head), over rows of whole chunks
+// (Hkv * dh a multiple of 8), with every query head at its kv head's offset
+// in the window: one kv head a query head (Hq == Hkv). (The head-64 kernel's
+// producer warp issues every K/V copy itself: column-predicated copies there
+// measured 1.8x slower at 64.)
+static bool reads_in_place(int dh, int Hq, int Hkv, int dtype) {
+  if (dh < 2 || dh > 128 || dh % 2) return false;
+  if (dtype != FRAG_BF16) return true;
+  if (dh <= 64) return dh == 64;
+  return dh % 8 == 0 || (dh + 8 - (dh & -dh) <= 128 && Hq == Hkv && (Hkv * dh) % 8 == 0);
+}
+
 // q/out [B,S,Hq*D], k/v [B,S,Hkv*D], all bf16 or all f32 (dtype code), 16-byte
-// aligned; pad_len int32 [B] on the device; D = 64 or 128; Hq % Hkv == 0.
-// head_dim is the heads' true width, whose 1 / sqrt scales the scores: D, or
-// less where the caller zero-padded each head of q, k and v to D (zero
-// columns add nothing to q.k, and the output's padded columns come out zero).
+// aligned; pad_len int32 [B] on the device; Hq % Hkv == 0. D is a head's
+// columns in memory and head_dim its true width, whose 1 / sqrt scales the
+// scores: D == head_dim where the heads are read where they lie
+// (reads_in_place), else D = 64 or 128 > head_dim, each head zero-padded to
+// it by the caller (zero columns add nothing to q.k, and the output's padded
+// columns come out zero). Only a head's own columns of `out` are written.
+// bf16 heads run at the built width 64 (causal_fwd_bf16_kernel) up to 64
+// columns, else at 128 (causal_fwd_bf16_d128_kernel, its products N wide:
+// the head's columns and window offset rounded up to 80, 96, 104 or 128).
 FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, const int* pad_len,
                                   void* out, int B, int S, int Hq, int Hkv, int D, int dtype,
                                   int head_dim, void* stream) {
-  if (S < 1 || B < 1 || Hkv < 1 || Hq % Hkv || (D != 64 && D != 128) || head_dim < 1 || head_dim > D)
+  if (S < 1 || B < 1 || Hkv < 1 || Hq % Hkv || head_dim < 1 || head_dim > D ||
+      !(D == head_dim ? reads_in_place(D, Hq, Hkv, dtype) : D == 64 || D == 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
   if (dtype == FRAG_BF16) {
-    const dim3 grid((S * group + kBlockRows - 1) / kBlockRows, Hkv, B);
     const float scale2 = (float)(1.4426950408889634 / sqrt((double)head_dim));
     const auto* qb = static_cast<const __nv_bfloat16*>(q);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
     auto* ob = static_cast<__nv_bfloat16*>(out);
-    if (D == 128) {
-      // K and V by TMA: [B][S][Hkv*128] as 3-D maps, boxes of one kv head's
-      // 64 columns (128 bytes, SW128) x 128 keys; rows past S read as zeros
-      CUtensorMap tm_k, tm_v;
-      const uint64_t dims[3] = {(uint64_t)Hkv * 128, (uint64_t)S, (uint64_t)B};
-      const uint64_t strides[2] = {(uint64_t)Hkv * 128 * 2, (uint64_t)S * Hkv * 128 * 2};
-      const uint32_t box[3] = {64, (uint32_t)kWideKeys, 1};
-      if (!tensor_map_3d(&tm_k, kb, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) ||
-          !tensor_map_3d(&tm_v, vb, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
-        return (int)cudaErrorInvalidValue;
-      const cudaError_t opt_in = cudaFuncSetAttribute(
-          causal_fwd_bf16_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
-      if (opt_in != cudaSuccess) return (int)opt_in;
-      const dim3 grid128(Hkv, (S * group + kBlockRows - 1) / kBlockRows, B);
-      causal_fwd_bf16_d128_kernel<<<grid128, kWideThreads, kWideSmemBytes, st>>>(
-          qb, tm_k, tm_v, pad_len, ob, S, Hq, group, scale2);
-      return (int)cudaGetLastError();
+    if (D > 64) {
+      // the products' width: the head's columns past the 16-byte column at
+      // or below its first (at most 8 - the lowest set bit of D before it)
+      const int span = D + (D % 8 ? 8 - (D & -D) : 0);
+      if (span <= 80) return launch_wide<80>(qb, kb, vb, pad_len, ob, B, S, Hq, Hkv, D, scale2, st);
+      if (span <= 96) return launch_wide<96>(qb, kb, vb, pad_len, ob, B, S, Hq, Hkv, D, scale2, st);
+      if (span <= 104) return launch_wide<104>(qb, kb, vb, pad_len, ob, B, S, Hq, Hkv, D, scale2, st);
+      return launch_wide<128>(qb, kb, vb, pad_len, ob, B, S, Hq, Hkv, D, scale2, st);
     }
     // above 48 KB of dynamic shared memory a kernel must opt in, on each
     // device it runs on (the attribute is the current device's)
@@ -607,6 +783,7 @@ FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, c
                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                     CausalTiles<64>::kSmemBytes);
     if (opt_in != cudaSuccess) return (int)opt_in;
+    const dim3 grid((S * group + kBlockRows - 1) / kBlockRows, Hkv, B);
     causal_fwd_bf16_kernel<64><<<grid, kBf16Threads, CausalTiles<64>::kSmemBytes, st>>>(
         qb, kb, vb, pad_len, ob, S, Hq, group, scale2);
   } else if (dtype == FRAG_F32) {
@@ -616,10 +793,10 @@ FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, c
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(out);
-    if (D == 64)
-      causal_fwd_f32_kernel<64><<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale);
+    if (D <= 64)
+      causal_fwd_f32_kernel<64><<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale, D);
     else
-      causal_fwd_f32_kernel<128><<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale);
+      causal_fwd_f32_kernel<128><<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale, D);
   } else {
     return (int)cudaErrorInvalidValue;
   }

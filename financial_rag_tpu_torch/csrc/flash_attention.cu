@@ -20,9 +20,11 @@
 // TMA takes no box that starts off a 16-byte column (it faults), so the
 // window starts at g*dh rounded down to a multiple of 8 and the head lies
 // at columns off .. off+dh-1 of the tile (off = g*dh mod 8, 0 to 6 at 26):
-// Q's columns outside them are zeroed in shared memory before the first
-// product, so Q K^T gets nothing from K's, and V's reach only output
-// columns that are never stored. The scale is 1/sqrt(dh), and only a
+// Q's and K's columns outside them are zeroed in shared memory before the
+// first product (K's by the producer warp, which publishes a tile once they
+// are zeros), so Q K^T gets nothing from the neighbours' columns,
+// a non-finite k there included, as the TPU kernel's slice of the head;
+// V's reach only output columns that are never stored. The scale is 1/sqrt(dh), and only a
 // head's own dh columns of the output are stored (attn_fwd_kernel masks its
 // 4-byte stores; the 4-D map's TMA store does not write past dh). Where a
 // head cannot be read so (an odd dh, one whose window would not fit D, as
@@ -189,8 +191,8 @@ __device__ __forceinline__ float row_bias_max(const float* __restrict__ brow, in
 }
 
 // Columns lo .. hi-1 (even) of each row of the tile at `tile` as zeros, by
-// threads tid, tid + count, ...: the columns of Q's window that are not the
-// head's.
+// threads tid, tid + count, ...: the columns of Q's and K's window that are
+// not the head's.
 template <int D>
 __device__ __forceinline__ void zero_cols(uint32_t tile, int lo, int hi, int tid, int count) {
   using Hd = Head<D>;
@@ -206,8 +208,8 @@ __device__ __forceinline__ void zero_cols(uint32_t tile, int lo, int hi, int tid
 // past dh read as zeros), else from a 3-D map over [B][S][H] at the 16-byte
 // column c0 = head * dh rounded down to a multiple of 8: a window whose
 // columns off = head * dh - c0 .. off + dh - 1 are the head's, the others
-// its neighbours' (zeros past H), and Q's others are zeroed in shared
-// memory (off + dh <= D for every head: the C entry's check).
+// its neighbours' (zeros past H), and Q's and K's others are zeroed in
+// shared memory (off + dh <= D for every head: the C entry's check).
 
 // A box of one head's rows from row on, of batch row b, into the tile at dst
 // by the TMA, completing its bytes on bar: from a 3-D map over [B][S][H] at
@@ -230,6 +232,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int c0 = blockIdx.y * dh - off;              // the window's first column
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], q_full[NC];
+  __shared__ __align__(8) uint64_t landed[kStages];   // a window's K/V bytes, before its K is zeroed
   __shared__ __align__(16) float bias_s[kStages][kTile];  // a tile's key bias * log2(e)
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sRing = sQ + NC * kTileBytes;  // stage st: K, then V
@@ -248,6 +251,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&full[st], 32);                 // every producer lane (its bias), then the tile's bytes
       mbar_init(&empty[st], consumers * 128);   // every consumer thread, once its products ended
+      mbar_init(&landed[st], 1);                // lane 0's expect_tx, then the window's bytes
     }
     for (int i = 0; i < NC; ++i) mbar_init(&q_full[i], 1);   // a warpgroup's Q
     mbar_init_fence();
@@ -257,31 +261,49 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   if (producer) {
     // tile 0 is always walked (exact: see the header), so its K and V go
     // out before the scan; then each live tile t into stage t % kStages,
-    // its bias by the 32 lanes and its K and V by two TMA copies of lane 0
+    // its bias by the 32 lanes and its K and V by two TMA copies of lane 0.
+    // A window's tile lands on `landed` and is published on `full` once the
+    // lanes have zeroed K's columns that are not the head's (so that no
+    // neighbour's k, an inf included, meets Q's zeros): tile 0 at once,
+    // each later one after the next tile's copies are issued
     auto issue = [&](int kt, int st, float b0, float b1) {
       bias_s[st][lane] = b0;
       bias_s[st][lane + 32] = b1;
       if (lane == 0) {
         const uint32_t ks = sRing + st * 2 * kTileBytes;
-        mbar_expect_tx(&full[st], 2 * kTileBytes);
-        tma_head_rows(ks, &tm_k, window, blockIdx.y, c0, kt * kTile, b, &full[st]);
-        tma_head_rows(ks + kTileBytes, &tm_v, window, blockIdx.y, c0, kt * kTile, b, &full[st]);
-      } else {
+        uint64_t* bar = window ? &landed[st] : &full[st];
+        mbar_expect_tx(bar, 2 * kTileBytes);
+        tma_head_rows(ks, &tm_k, window, blockIdx.y, c0, kt * kTile, b, bar);
+        tma_head_rows(ks + kTileBytes, &tm_v, window, blockIdx.y, c0, kt * kTile, b, bar);
+      } else if (!window) {
         mbar_arrive(&full[st]);
       }
+    };
+    auto publish = [&](int t) {   // a window's tile t, issued
+      const int st = t % kStages;
+      const uint32_t ks = sRing + st * 2 * kTileBytes;
+      mbar_wait(&landed[st], (t / kStages) & 1);
+      zero_cols<D>(ks, 0, off, lane, 32);
+      zero_cols<D>(ks, off + dh, D, lane, 32);
+      fence_proxy_async();
+      mbar_arrive(&full[st]);
     };
     float b0, b1;
     tile_bias(brow, 0, S, lane, b0, b1);
     issue(0, 0, b0, b1);
+    if (window) publish(0);   // before the scan: the consumers' first wait
     const float mb = row_bias_max(brow, S, lane);
-    for (int kt = 1, t = 1; kt < nkt; ++kt) {
+    int t = 1;
+    for (int kt = 1; kt < nkt; ++kt) {
       tile_bias(brow, kt, S, lane, b0, b1);
       if (!tile_live(b0, b1, mb)) continue;
       const int st = t % kStages;
       if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
       issue(kt, st, b0, b1);
+      if (window && t > 1) publish(t - 1);
       ++t;
     }
+    if (window && t > 1) publish(t - 1);
     return;
   }
   if (w >= consumers) return;

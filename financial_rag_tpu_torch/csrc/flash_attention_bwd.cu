@@ -35,6 +35,20 @@
 // in memory). Operand tiles arrive by cp.async into a 3-stage ring while
 // the previous tile is multiplied. Scores are exp2 with log2(e)*scale
 // folded into one FMA; each row multiplies by 1/l once.
+// Narrower heads (TinyBERT-L-4's 26, 16, 48) are read where they lie, at
+// the built width that holds them, as the TPU kernel slices each head out
+// of whole rows: each operand row is copied from the head's first column
+// rounded down to a multiple of 8, of which only the head's columns are
+// read (cp_async_cols: whole chunks by 16-byte copies, a chunk the head
+// fills in part by 4-byte copies and zeros, the rest zeros), so a
+// neighbour's q, k, v or dO, an inf included, never reaches the products.
+// dq, dk and dv go out by TMA from bf16 staging tiles (dq in Q's tile, dk
+// and dv in the resident K and V tiles, read no more): through 3-D maps at
+// the built width, 4-D maps over [B][S][heads][dh] at a narrower head of
+// whole 16-byte chunks (writing none of the columns past dh); a head at an
+// offset in its 16-byte chunks (26) by 4-byte stores of its own columns.
+// (The 4-byte stores of every head had taken half of the fused kernel's
+// time below.)
 //   1. attn_bwd_dq_kernel, per 64-query tile, Q and dO resident. Where the
 //      row fits in registers (S <= 128, the whole train path) its key tiles
 //      are walked once: S = QK^T and dP = dO V^T stay in registers, the
@@ -61,8 +75,9 @@
 // keeps log2(#real keys) instead of losing it to f32 rounding next to 1e9,
 // and gets the uniform P over the real keys, as the plain version and the
 // TPU do. Any S >= 1; the rounding points, the masked-row rule and the
-// scratch do not depend on D. At D = 64 (S > 128: K2's table shape) both
-// kernels skip dead key tiles, as K2 does (flash_attention.cu): a key is
+// scratch do not depend on D. Above S = 128 (K2's table shape; at D = 32
+// too, where the row is walked twice) both kernels skip dead key tiles, as
+// K2 does (flash_attention.cu): a key is
 // dead when its bias times log2(e) lies more than 2^20 below the batch
 // row's largest; the dQ kernel never loads a tile of dead keys (it lists the
 // live ones, up to S = 4,096, and walks every tile beyond), and a dK/dV
@@ -110,6 +125,9 @@
 //    accumulators and packed fragments are pinned before the wgmma fence:
 //    else ptxas serialises the wgmmas (C7520, a branch it cannot prove
 //    uniform; C7519, an arrive it injects).
+// At a narrower head of whole 16-byte chunks (48) its maps are 4-D, over
+// [B][S][heads][dh]: the columns past dh read as zeros and its stores
+// write none of them.
 // 194 registers, no spill; 214,016 bytes of shared memory. Device time
 // (kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W, against the parent's two
 // kernels in the same call): B=256 S=128 0.1385-0.1395 ms (0.2773-0.2776;
@@ -148,16 +166,37 @@ struct Layout {
   static_assert(kMaxResident <= kStages - 1, "the ring prologue must fetch every resident tile");
 };
 
+// Where a head lies in its rows (K10's two kernels read it where it lies):
+// its dh columns start `off` columns past the 16-byte column c0 (at or
+// below head * dh) that its tiles are read from; off is 0 where dh is a
+// multiple of 8.
+struct HeadWindow {
+  int off, dh;
+  size_t base;   // element offset of column c0 of batch row b's first row
+};
+
 // Rows [r0, r0+64) of one head of a [B,S,H] bf16 tensor into a swizzled
-// HeadTile<D> at `dst`; rows past S are zeros.
+// HeadTile<D> at `dst`: each row's D columns from the head's c0, of which
+// only the head's own (off .. off+dh-1) are read; the others, and rows
+// past S, are zeros. A thread copies the same 16-byte chunk of every row
+// it takes (kThreads is a multiple of the chunks a row), so whether that
+// chunk is the head's, none of it or a part is decided once: a whole or
+// empty chunk is one predicated 16-byte copy, as at the built width (a
+// per-copy choice measured ~20% slower there), and only a chunk the head
+// fills in part (a window's ends) takes cp_async_cols's 4-byte pieces.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __restrict__ src,
-                                          size_t base, int r0, int S, int H) {
+                                          const HeadWindow& hw, int r0, int S, int H) {
   using Hd = HeadTile<D>;
-  for (int e = threadIdx.x; e < kTile * Hd::kChunks; e += kThreads) {
-    const int r = e >> Hd::kChunkBits, c = e & (Hd::kChunks - 1);
+  const int c = threadIdx.x & (Hd::kChunks - 1);
+  const int lo = hw.off - 8 * c, hi = hw.off + hw.dh - 8 * c;
+  const bool whole = lo <= 0 && hi >= 8, part = !whole && lo < 8 && hi > 0;
+  const __nv_bfloat16* col = src + hw.base + 8 * c;
+  for (int r = threadIdx.x >> Hd::kChunkBits; r < kTile; r += kThreads >> Hd::kChunkBits) {
     const bool ok = r0 + r < S;
-    cp_async16(dst + Hd::at(r, c), src + base + (size_t)(ok ? r0 + r : 0) * H + 8 * c, ok);
+    const __nv_bfloat16* row = col + (size_t)(ok ? r0 + r : 0) * H;
+    if (part) cp_async_cols(dst + Hd::at(r, c), row, lo, ok ? hi : lo);
+    else cp_async16(dst + Hd::at(r, c), row, ok && whole);
   }
 }
 
@@ -225,18 +264,76 @@ __device__ __forceinline__ int live_tiles(const float* __restrict__ brow, int S,
   return list[kMaxListed];
 }
 
-// f32 accumulator [64 x D] * scale -> bf16 rows row0, row0+8 of one head
+// How the two kernels write a head's 64 rows of dq, dk or dv: a whole head
+// (dh == D) by one TMA store of a bf16 staging tile through a 3-D map over
+// [B][S][H] at column head * D; a narrower head of whole 16-byte chunks
+// through a 4-D map over [B][S][heads][dh], which writes none of the
+// columns past dh; a window (dh not a multiple of 8) by 4-byte stores of
+// the head's own columns from its offset. Rows past S are not written.
+enum OutRoute : int { kOut3d = 0, kOut4d = 1, kOutWindow = 2 };
+
+// Rows r0 and r0 + 8 of an f32 [64 x D] accumulator (the wgmma layout) times
+// `scale`, as bf16 into a HeadTile<D> at `tile` (a TMA store's source).
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, size_t base, int row0, int S,
-                                           int H, int tig, const float (&c)[D / 2], float scale) {
+__device__ __forceinline__ void stage_head_rows(uint32_t tile, int r0, int tig, const float (&c)[D / 2],
+                                                float scale) {
+  using Hd = HeadTile<D>;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      st_shared_u32(tile + Hd::at(r0 + 8 * r, nt) + 4 * tig,
+                    pack_bf16(c[4 * nt + 2 * r] * scale, c[4 * nt + 2 * r + 1] * scale));
+}
+
+// The staging tile at `tile` to rows row .. row+63 of head `head` of batch
+// row b, by the TMA, from thread 0, which waits until the copy has read the
+// tile (the block may end next).
+__device__ __forceinline__ void store_head_tile(const CUtensorMap* map, uint32_t tile, OutRoute route,
+                                                int head, int col, int row, int b) {
+  if (route == kOut3d) tma_store_3d(map, tile, col, row, b);
+  else tma_store_4d(map, tile, 0, head, row, b);
+}
+
+// A window's rows row0, row0+8 of an f32 [64 x D] accumulator * scale: the
+// head's own columns (tile columns off .. off+dh-1) as bf16 at `at`, the
+// head's first column of batch row b's first row
+template <int D>
+__device__ __forceinline__ void store_window_rows(__nv_bfloat16* __restrict__ out, size_t at, int row0, int S,
+                                                  int H, int tig, const float (&c)[D / 2], float scale,
+                                                  int off, int dh) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)row * H + 8 * nt + 2 * tig) =
-          pack_bf16(c[4 * nt + 2 * r] * scale, c[4 * nt + 2 * r + 1] * scale);
+    for (int nt = 0; nt < D / 8; ++nt) {   // dh even: whole pairs
+      const int col = 8 * nt + 2 * tig - off;
+      if (col >= 0 && col < dh)
+        *reinterpret_cast<uint32_t*>(out + at + (size_t)row * H + col) =
+            pack_bf16(c[4 * nt + 2 * r] * scale, c[4 * nt + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// The epilogue of one accumulator of a block: its 64 rows from row tile0
+// on, through `route`; `tile` is a staging tile no product reads any more.
+template <int D>
+__device__ __forceinline__ void write_head_rows(const CUtensorMap* map, uint32_t tile, __nv_bfloat16* out,
+                                                OutRoute route, int head, int dh, int off, int tile0,
+                                                int S, int H, int b, const float (&c)[D / 2], float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (route == kOutWindow) {
+    store_window_rows<D>(out, (size_t)b * S * H + (size_t)head * dh, tile0 + warp * 16 + (lane >> 2), S, H,
+                         lane & 3, c, scale, off, dh);
+    return;
+  }
+  stage_head_rows<D>(tile, warp * 16 + (lane >> 2), lane & 3, c, scale);
+  fence_proxy_async();  // the staging tile, stored by this thread, before the async proxy reads it
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    store_head_tile(map, tile, route, head, head * D, tile0, b);
+    bulk_commit();
   }
 }
 
@@ -247,7 +344,8 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                    const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                   float* __restrict__ stats, int S, int H, float c, float scale) {
+                   const __grid_constant__ CUtensorMap tm_dq, float* __restrict__ stats, int S, int H,
+                   int dh, OutRoute route, float c, float scale) {
   using Hd = HeadTile<D>;
   constexpr int kTileBytes = Layout<D>::kTileBytes, kStageBytes = Layout<D>::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -258,40 +356,43 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int row0 = blockIdx.x * kTile + warp * 16 + gid;  // this thread's rows: row0, row0+8
-  const size_t base = (size_t)b * S * H + (size_t)head * D;
+  const int off = head * dh % 8;
+  const HeadWindow hw{off, dh, (size_t)b * S * H + (size_t)head * dh - off};
   const float* brow = bias + (size_t)b * S;
   const int nkt = (S + kTile - 1) / kTile;
 
-  // the key tiles walked, in order: every tile at D = 32; at D = 64 the live
-  // ones (a dead tile is never loaded: header)
+  // the key tiles walked, in order: every tile where the row is held in
+  // registers (S <= 128 at D = 32); where it is walked twice, the live ones
+  // (a dead tile is never loaded: header)
   static_assert(D == 32 || kResident == 0, "at D = 64 the fused kernel takes S <= 128");
+  constexpr bool kSkip = kResident == 0;
   int nwalk = nkt;
   const int* live_kt = nullptr;
   float mb;
-  if constexpr (D == 64) {
+  if constexpr (kSkip) {
     __shared__ int list[kMaxListed + 1];
-    load_tile<D>(sQ, q, base, blockIdx.x * kTile, S, H);
-    load_tile<D>(sO, dout, base, blockIdx.x * kTile, S, H);
+    load_tile<D>(sQ, q, hw, blockIdx.x * kTile, S, H);
+    load_tile<D>(sO, dout, hw, blockIdx.x * kTile, S, H);
     mb = bias_max(brow, S);
     nwalk = live_tiles(brow, S, mb, list);
     live_kt = list;
   }
   const int nloads = kResident ? nwalk : 2 * nwalk;
-  auto tile_of = [&](int i) { return D == 64 && nkt <= kMaxListed ? live_kt[i] : i; };
+  auto tile_of = [&](int i) { return kSkip && nkt <= kMaxListed ? live_kt[i] : i; };
   auto fetch = [&](int t) {
     const uint32_t st = sRing + (t % kStages) * kStageBytes;
     const int k0 = tile_of(t % nwalk) * kTile;
-    load_tile<D>(st, k, base, k0, S, H);
-    load_tile<D>(st + kTileBytes, v, base, k0, S, H);
+    load_tile<D>(st, k, hw, k0, S, H);
+    load_tile<D>(st + kTileBytes, v, hw, k0, S, H);
   };
-  if constexpr (D != 64) {
-    load_tile<D>(sQ, q, base, blockIdx.x * kTile, S, H);
-    load_tile<D>(sO, dout, base, blockIdx.x * kTile, S, H);
+  if constexpr (!kSkip) {
+    load_tile<D>(sQ, q, hw, blockIdx.x * kTile, S, H);
+    load_tile<D>(sO, dout, hw, blockIdx.x * kTile, S, H);
   }
   fetch(0);
   cp_async_commit();
   ring_prologue(fetch, nloads);
-  if constexpr (D != 64) mb = bias_max(brow, S);
+  if constexpr (!kSkip) mb = bias_max(brow, S);
 
   // S = Q K^T and dP = dO V^T of ring tile t, started, not waited for
   auto products = [&](int t, float (&s)[32], float (&dp)[32]) {
@@ -454,7 +555,9 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       stats[plane + at] = dsum[r];
     }
   }
-  store_rows<D>(dq, base, row0, S, H, tig, acc_dq, scale);
+  if (route != kOutWindow) __syncthreads();   // every product has read Q: dq is staged there
+  write_head_rows<D>(&tm_dq, sQ, dq, route, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dq, scale);
+  if (threadIdx.x == 0) bulk_wait_read<0>();
 }
 
 template <int D>
@@ -462,8 +565,9 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
-                     float c, float scale) {
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                     const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+                     int S, int H, int dh, OutRoute route, float c, float scale) {
   using Hd = HeadTile<D>;
   constexpr int kTileBytes = Layout<D>::kTileBytes, kStageBytes = Layout<D>::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -476,7 +580,8 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int key0 = blockIdx.x * kTile + warp * 16 + gid;  // this thread's keys: key0, key0+8
-  const size_t base = (size_t)b * S * H + (size_t)head * D;
+  const int off = head * dh % 8;
+  const HeadWindow hw{off, dh, (size_t)b * S * H + (size_t)head * dh - off};
   const size_t plane = (size_t)gridDim.z * heads * S;
   const float* lse = stats + ((size_t)b * heads + head) * S;
   const float* brow = bias + (size_t)b * S;
@@ -486,8 +591,8 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   // past S, so that those queries add exact zeros)
   auto fetch = [&](int t) {
     const int st = t % kStages;
-    load_tile<D>(sRing + st * kStageBytes, q, base, t * kTile, S, H);
-    load_tile<D>(sRing + st * kStageBytes + kTileBytes, dout, base, t * kTile, S, H);
+    load_tile<D>(sRing + st * kStageBytes, q, hw, t * kTile, S, H);
+    load_tile<D>(sRing + st * kStageBytes + kTileBytes, dout, hw, t * kTile, S, H);
     const int i = threadIdx.x & (kTile - 1), which = threadIdx.x / kTile, qi = t * kTile + i;
     const uint32_t dst = sStats + st * kStatBytes + (which * kTile + i) * 4;
     if (qi < S) cp_async4(dst, lse + which * plane + qi);
@@ -502,21 +607,29 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   float acc_dk[D / 2], acc_dv[D / 2];
   zero(acc_dk);
   zero(acc_dv);
-  if constexpr (D == 64) {
-    // a tile of dead keys gets exact zeros (header) and loads nothing
+  // dk and dv out of the K and V tiles, read no more (or never loaded)
+  auto write = [&] {
+    write_head_rows<D>(&tm_dk, sK, dk, route, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dk, scale);
+    write_head_rows<D>(&tm_dv, sV, dv, route, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dv, 1.f);
+    if (threadIdx.x == 0) bulk_wait_read<0>();
+  };
+  // where the dQ kernel skips dead key tiles (S above the rows it holds in
+  // registers), a tile of dead keys gets exact zeros (header) and loads
+  // nothing
+  const bool skip = D == 64 || S > Layout<D>::kMaxResident * kTile;
+  if (skip) {
     key_biases();
     if (!__syncthreads_or(kb[0] >= mb - kDeadGap || kb[1] >= mb - kDeadGap)) {
-      store_rows<D>(dk, base, key0, S, H, tig, acc_dk, 1.f);
-      store_rows<D>(dv, base, key0, S, H, tig, acc_dv, 1.f);
+      write();
       return;
     }
   }
-  load_tile<D>(sK, k, base, blockIdx.x * kTile, S, H);
-  load_tile<D>(sV, v, base, blockIdx.x * kTile, S, H);
+  load_tile<D>(sK, k, hw, blockIdx.x * kTile, S, H);
+  load_tile<D>(sV, v, hw, blockIdx.x * kTile, S, H);
   fetch(0);
   cp_async_commit();
   ring_prologue(fetch, nqt);
-  if constexpr (D != 64) key_biases();
+  if (!skip) key_biases();
   for (int t = 0; t < nqt; ++t) {
     ring_acquire(fetch, t, nqt);
     const uint32_t qt = sRing + (t % kStages) * kStageBytes, ot = qt + kTileBytes;
@@ -555,8 +668,8 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     fence_acc(acc_dv);
     fence_acc(acc_dk);
   }
-  store_rows<D>(dk, base, key0, S, H, tig, acc_dk, scale);
-  store_rows<D>(dv, base, key0, S, H, tig, acc_dv, 1.f);
+  if (route != kOutWindow) __syncthreads();   // every product has read K and V
+  write();
 }
 
 // ---- head_dim 64, S <= 128: one fused kernel -------------------------------
@@ -714,7 +827,7 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                           const __grid_constant__ CUtensorMap tm_dq, const __grid_constant__ CUtensorMap tm_dk,
                           const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ bias, int S,
-                          int heads, int items, float c, float scale) {
+                          int heads, int items, bool by_head, float c, float scale) {
   constexpr int D = 64;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kFusedBuffers];
@@ -733,15 +846,26 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     mbar_init_fence();
   }
   __syncthreads();
+  // a 64-row box of one head: from a 3-D map at column head * D, or from a
+  // 4-D map over [B][S][heads][dh] (by_head: a narrower head of whole 16-byte
+  // chunks, whose columns past dh read as zeros and are not written)
+  auto load = [&](uint32_t dst, const CUtensorMap* map, int head, int row, int b, uint64_t* bar) {
+    if (by_head) tma_load_4d(dst, map, 0, head, row, b, bar);
+    else tma_load_3d(dst, map, head * D, row, b, bar);
+  };
+  auto store = [&](const CUtensorMap* map, uint32_t src, int head, int row, int b) {
+    if (by_head) tma_store_4d(map, src, 0, head, row, b);
+    else tma_store_3d(map, src, head * D, row, b);
+  };
   auto fetch = [&](int item, int buf) {  // thread 0
-    const int b = item / heads, col = (item % heads) * D;
+    const int b = item / heads, head = item % heads;
     const uint32_t dst = sIn + buf * kFusedInputBytes;
     mbar_expect_tx(&full[buf], 4 * nt * kFusedTile);
     for (int r = 0; r < nt; ++r) {
-      tma_load_3d(dst + r * kFusedTile, &tm_q, col, r * kTile, b, &full[buf]);
-      tma_load_3d(dst + (2 + r) * kFusedTile, &tm_k, col, r * kTile, b, &full[buf]);
-      tma_load_3d(dst + (4 + r) * kFusedTile, &tm_v, col, r * kTile, b, &full[buf]);
-      tma_load_3d(dst + (6 + r) * kFusedTile, &tm_o, col, r * kTile, b, &full[buf]);
+      load(dst + r * kFusedTile, &tm_q, head, r * kTile, b, &full[buf]);
+      load(dst + (2 + r) * kFusedTile, &tm_k, head, r * kTile, b, &full[buf]);
+      load(dst + (4 + r) * kFusedTile, &tm_v, head, r * kTile, b, &full[buf]);
+      load(dst + (6 + r) * kFusedTile, &tm_o, head, r * kTile, b, &full[buf]);
     }
   };
   if (threadIdx.x == 0) {
@@ -773,7 +897,7 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
       bulk_wait_read<0>();
       fetch(item + gridDim.x, buf ^ 1);
     }
-    const int b = item / heads, col = (item % heads) * D;
+    const int b = item / heads, head = item % heads;
     const float* brow = bias + (size_t)b * S;
     float bk[4];
 #pragma unroll
@@ -799,7 +923,7 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     fence_proxy_async();  // the P, dS and dq tiles, stored by this thread, before the async proxy reads them
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int r = 0; r < nt; ++r) tma_store_3d(&tm_dq, sDQ + r * kFusedTile, col, r * kTile, b);
+      for (int r = 0; r < nt; ++r) store(&tm_dq, sDQ + r * kFusedTile, head, r * kTile, b);
       bulk_commit();
     }
     if (nt == 1) {  // one key tile: warpgroup 0 takes dV, warpgroup 1 dK
@@ -819,8 +943,8 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     __syncthreads();  // the buffer and the P and dS tiles are taken again
     if (threadIdx.x == 0) {
       for (int r = 0; r < nt; ++r) {
-        tma_store_3d(&tm_dk, sKt + r * kFusedTile, col, r * kTile, b);
-        tma_store_3d(&tm_dv, sVt + r * kFusedTile, col, r * kTile, b);
+        store(&tm_dk, sKt + r * kFusedTile, head, r * kTile, b);
+        store(&tm_dv, sVt + r * kFusedTile, head, r * kTile, b);
       }
       bulk_commit();
     }
@@ -828,36 +952,54 @@ attn_bwd_fused_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   if (threadIdx.x == 0) bulk_wait<0>();
 }
 
+// The tensor maps of K10 at heads of dh columns in rows of H (dh == D, or a
+// narrower dh a multiple of 8): boxes of D columns (SW64 at D = 32, SW128
+// at 64) by 64 rows, 3-D over [B][S][H] at dh == D, else 4-D over
+// [B][S][heads][dh] (its columns past dh read as zeros and not written).
+template <int D>
+bool head_map(CUtensorMap* map, const void* src, int B, int S, int H, int num_heads, int dh) {
+  const CUtensorMapSwizzle sw = D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (dh == D) {
+    const uint64_t dims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)B};
+    const uint64_t strides[2] = {(uint64_t)H * 2, (uint64_t)S * H * 2};
+    const uint32_t box[3] = {D, (uint32_t)kTile, 1};
+    return tensor_map_3d(map, src, dims, strides, box, sw);
+  }
+  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)num_heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)dh * 2, (uint64_t)H * 2, (uint64_t)S * H * 2};
+  const uint32_t box[4] = {D, 1, (uint32_t)kTile, 1};
+  return tensor_map_4d(map, src, dims, strides, box, sw);
+}
+
 int launch_fused(const void* q, const void* k, const void* v, const float* bias, const void* dout,
-                 void* dq, void* dk, void* dv, int B, int S, int H, int num_heads, float c,
+                 void* dq, void* dk, void* dv, int B, int S, int H, int num_heads, int dh, float c,
                  float scale, cudaStream_t st) {
   CUtensorMap maps[7];
   const void* src[7] = {q, k, v, dout, dq, dk, dv};
-  const uint64_t dims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)H * 2, (uint64_t)S * H * 2};
-  const uint32_t box[3] = {64, (uint32_t)kTile, 1};
   for (int i = 0; i < 7; ++i)
-    if (!tensor_map_3d(&maps[i], src[i], dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
-      return (int)cudaErrorInvalidValue;
+    if (!head_map<64>(&maps[i], src[i], B, S, H, num_heads, dh)) return (int)cudaErrorInvalidValue;
   static std::atomic<int> sm_counts[kMaxDevices];
   const int sms = opted_sm_count(attn_bwd_fused_d64_kernel, kFusedSmemBytes, sm_counts);
   if (sms < 0) return -sms;
   const int items = B * num_heads;
   attn_bwd_fused_d64_kernel<<<min(items, sms), kFusedThreads, kFusedSmemBytes, st>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], bias, S, num_heads, items, c, scale);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], bias, S, num_heads, items, dh != 64,
+      c, scale);
   return (int)cudaGetLastError();
 }
 
+// The two kernels (the fused one at D = 64, S <= 128) at heads of dh columns
+// in memory: dh == D, or a narrower head read where it lies.
 template <int D>
 int launch(const void* q, const void* k, const void* v, const float* bias, const void* dout, void* dq,
-           void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, float c, float scale,
-           cudaStream_t st) {
+           void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, int dh, float c,
+           float scale, cudaStream_t st) {
   using L = Layout<D>;
   constexpr int kMaxResident = L::kMaxResident;
   auto dq_kernel = attn_bwd_dq_kernel<D, 0>;
   if constexpr (D == 64) {
     if (S <= kFusedMaxS)
-      return launch_fused(q, k, v, bias, dout, dq, dk, dv, B, S, H, num_heads, c, scale, st);
+      return launch_fused(q, k, v, bias, dout, dq, dk, dv, B, S, H, num_heads, dh, c, scale, st);
   } else {
     if (S <= kTile) dq_kernel = attn_bwd_dq_kernel<D, 1>;
     else if (S <= kMaxResident * kTile) dq_kernel = attn_bwd_dq_kernel<D, kMaxResident>;
@@ -872,43 +1014,63 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
       if (opt_in != cudaSuccess) return (int)opt_in;
     }
   }
+  const OutRoute route = dh == D ? kOut3d : dh % 8 == 0 ? kOut4d : kOutWindow;
+  CUtensorMap maps[3] = {};   // dq, dk, dv: a window's are not read
+  void* outs[3] = {dq, dk, dv};
+  if (route != kOutWindow)
+    for (int i = 0; i < 3; ++i)
+      if (!head_map<D>(&maps[i], outs[i], B, S, H, num_heads, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + kTile - 1) / kTile, num_heads, B);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const auto* ob = static_cast<const __nv_bfloat16*>(dout);
   dq_kernel<<<grid, kThreads, L::kSmemBytes, st>>>(qb, kb, vb, bias, ob, static_cast<__nv_bfloat16*>(dq),
-                                                   stats, S, H, c, scale);
+                                                   maps[0], stats, S, H, dh, route, c, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dkdv_kernel<D><<<grid, kThreads, L::kSmemBytes, st>>>(qb, kb, vb, bias, ob, stats,
                                                                  static_cast<__nv_bfloat16*>(dk),
-                                                                 static_cast<__nv_bfloat16*>(dv), S, H, c,
-                                                                 scale);
+                                                                 static_cast<__nv_bfloat16*>(dv), maps[1],
+                                                                 maps[2], S, H, dh, route, c, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v/dout/dq/dk/dv [B,S,H] bf16 (H = num_heads * the built width, 32 or
-// 64), 16-byte aligned; bias [B,S] f32; stats: scratch of 2*B*num_heads*S
-// f32 (each query row's log-sum-exp relative to its batch row's largest key
-// bias, and D), written by the first kernel and read by the second.
-// head_dim is the heads' true width, whose 1 / sqrt scales the scores: the
-// built width, or less where the caller zero-padded q, k, v and dout to it
-// (the padded columns of dq, dk and dv then come out zero).
+// Whether K10 reads heads of dh columns (<= 64) where they lie, in rows of
+// H columns (ops/flash_attention.py's bwd_reads_in_place mirrors it): a
+// multiple of 8 (whole 16-byte chunks: 16-byte copies, 4-D maps in the fused
+// kernel, 4-D stores), or an even dh <= 32 read as a 16-byte aligned window
+// of 32 columns from its first column rounded down to a multiple of 8, which
+// must fit (at most 8 - the lowest set bit of dh columns before the head),
+// over rows of whole 16-byte chunks (H a multiple of 8).
+static bool bwd_reads_in_place(int dh, int H) {
+  if (dh % 8 == 0) return dh >= 8 && dh <= 64;
+  return dh % 2 == 0 && dh + 8 - (dh & -dh) <= 32 && H % 8 == 0;
+}
+
+// q/k/v/dout/dq/dk/dv [B,S,H] bf16, 16-byte aligned; bias [B,S] f32; stats:
+// scratch of 2*B*num_heads*S f32 (each query row's log-sum-exp relative to
+// its batch row's largest key bias, and D), written by the first kernel and
+// read by the second (the fused kernel takes none). H / num_heads is a
+// head's columns in memory and head_dim its true width, whose 1 / sqrt
+// scales the scores: the same where the heads are read where they lie
+// (bwd_reads_in_place), else the built width (32 or 64), to which the
+// caller zero-padded q, k, v and dout (the padded columns of dq, dk and dv
+// then come out zero). A head runs at the built width that holds it, and
+// only its own columns of dq, dk and dv are written.
 FRAG_EXPORT int frag_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const float* bias, const void* dout, void* dq, void* dk,
                                          void* dv, float* stats, int B, int S, int H, int num_heads,
                                          int head_dim, void* stream) {
   if (num_heads < 1 || H % num_heads || S < 1 || B < 1 || head_dim < 1 || head_dim > H / num_heads)
     return (int)cudaErrorInvalidValue;
+  const int dh = H / num_heads;
+  if (dh == head_dim ? !bwd_reads_in_place(dh, H) : dh != 32 && dh != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = (float)(1.0 / sqrt((double)head_dim));
   const float c = (float)(1.4426950408889634 / sqrt((double)head_dim));
-  switch (H / num_heads) {
-    case 32: return launch<32>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, c, scale, st);
-    case 64: return launch<64>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, c, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dh <= 32) return launch<32>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, dh, c, scale, st);
+  return launch<64>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, dh, c, scale, st);
 }

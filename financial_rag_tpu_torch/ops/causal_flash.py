@@ -8,10 +8,17 @@ per-row left-pad length instead of a mask tensor (the serving prompts are
 contiguously left-padded).
 
 The kernels are built for heads of 64 and 128 (``KERNEL_HEAD_DIMS``). A
-narrower head (open_llama_3b's 100, 80, 96) is zero-padded to the next built
-width in a copy made by the wrapper, and the kernel is told the true
-head_dim, whose 1 / sqrt scales the scores; the output's padded columns
-come out zero and are dropped. Heads wider than 128 are refused.
+narrower head (open_llama_3b's 100, 80, 96) is read where it lies at the
+widths :func:`causal_reads_in_place` names: at the head-128 kernel (in f32
+at either), its other columns zeros (the TMA's past a head of whole
+16-byte chunks, or zeroed in shared memory in a 16-byte aligned window),
+the scores scaled by its true head_dim, the products only as wide as the
+head's columns, and only its own columns of the output written. At any
+other width (an odd head_dim, a bf16 head below 64) the wrapper zero-pads
+each head to the built
+width in a copy (``ops.common.pad_heads``) and tells the kernel the true
+head_dim; the output's padded columns come out zero and are dropped. Heads
+wider than 128 are refused.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, built_head_dim, pad_
 
 LAUNCHES = 0
 HEAD_DIM_LAUNCHES: Counter = Counter()  # launches by true head_dim (each also counts in LAUNCHES)
-KERNEL_HEAD_DIMS = (64, 128)  # the head widths the CUDA kernel is built for; narrower heads are padded
+IN_PLACE_LAUNCHES: Counter = Counter()  # of those, the ones that read the heads where they lie
+KERNEL_HEAD_DIMS = (64, 128)  # the head widths the CUDA kernel is built for
 
 
 def causal_flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,6 +61,33 @@ def causal_flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, hq).to(q.dtype)
 
 
+def causal_reads_in_place(head_dim: int, num_q_heads: int, num_kv_heads: int,
+                          dtype: torch.dtype) -> bool:
+    """Whether K9 reads heads of ``head_dim`` (<= 128) where they lie, with
+    no padded copy, as the C entry checks it (``reads_in_place`` in
+    csrc/causal_flash.cu): any even head_dim in f32 (8-byte pairs). In
+    bf16, 64 (the head-64 kernel takes only whole heads: its producer warp
+    issues every K/V copy, and column-predicated copies there ran 1.8x
+    slower), and above 64 at the head-128 kernel a multiple of 8 (whole
+    16-byte chunks through 4-D tensor maps) or an even head_dim read as a
+    16-byte aligned window of 128 columns from its first column rounded
+    down to a multiple of 8: where the window fits (at most 8 - head_dim's
+    lowest set bit columns before the head: 100, 98, 102), over rows of
+    whole 16-byte chunks (kv heads x head_dim a multiple of 8: the window's
+    3-D map takes no other row stride), and with one kv head a query head
+    (a query head's window offset is then its kv head's, so Q's columns
+    meet K's). The rest, odd widths among them, is padded in a copy."""
+    if head_dim % 2 or head_dim > KERNEL_HEAD_DIMS[-1]:
+        return False
+    if dtype != torch.bfloat16:
+        return True
+    if head_dim <= KERNEL_HEAD_DIMS[0]:
+        return head_dim == KERNEL_HEAD_DIMS[0]
+    return head_dim % 8 == 0 or (head_dim + 8 - (head_dim & -head_dim) <= KERNEL_HEAD_DIMS[-1]
+                                 and num_q_heads == num_kv_heads
+                                 and num_kv_heads * head_dim % 8 == 0)
+
+
 def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pad_len: torch.Tensor, *, num_q_heads: int,
                          num_kv_heads: int) -> torch.Tensor:
@@ -61,7 +96,8 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Rows inside the left padding (position < pad_len) are written as zeros
     by both the kernel and the plain version; no caller reads them. The
     CUDA kernel takes bf16 or f32 (all three of q, k, v alike) at head_dim
-    up to 128 (narrower heads zero-padded to 64 or 128); ``pad_len`` stays
+    up to 128 (narrower heads read in place, or zero-padded to 64 or 128 in
+    a copy where :func:`causal_reads_in_place` says no); ``pad_len`` stays
     on the device (no host sync).
     """
     if q.device.type == "cpu":
@@ -93,14 +129,17 @@ def causal_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel_lib.require_contiguous("causal_flash_prefill", q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("causal_flash_prefill kernel needs 16-byte aligned q, k and v")
-    q = pad_heads(q, num_q_heads, width)
-    k, v = (pad_heads(t, num_kv_heads, width) for t in (k, v))
+    in_place = causal_reads_in_place(d, num_q_heads, num_kv_heads, q.dtype)
+    if not in_place:
+        q = pad_heads(q, num_q_heads, width)
+        k, v = (pad_heads(t, num_kv_heads, width) for t in (k, v))
     out = torch.empty_like(q)
     kernel_lib.launch("causal_flash_prefill", "frag_causal_flash", dev,
                       kernel_lib.ptr(q), kernel_lib.ptr(k), kernel_lib.ptr(v),
                       kernel_lib.ptr(pad), kernel_lib.ptr(out),
-                      b, s, num_q_heads, num_kv_heads, width, code, d)
+                      b, s, num_q_heads, num_kv_heads, d if in_place else width, code, d)
     with LAUNCH_LOCK:
         LAUNCHES += 1
         HEAD_DIM_LAUNCHES[d] += 1
-    return unpad_heads(out, num_q_heads, d)
+        IN_PLACE_LAUNCHES[d] += in_place
+    return out if in_place else unpad_heads(out, num_q_heads, d)

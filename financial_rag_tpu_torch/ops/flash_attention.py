@@ -22,18 +22,19 @@ K2's launches again by the width of q (heads x head_dim), so a process that
 runs encoders of two widths can tell their launches apart.
 
 The kernels are built for heads of 32 and 64 (``FWD_HEAD_DIMS``,
-``BWD_HEAD_DIMS``). K2 reads a narrower head (TinyBERT-L-4's 26, 16, 48)
-where it lies, at the widths :func:`fwd_reads_in_place` names: the TMA
-reads each head as boxes of the built width that holds it, whose other
-columns are zeros (or its neighbours', with Q's zeroed in shared memory),
-the scores are scaled by its true head_dim, and only its own columns of
-the output are written. At any other width, and in
-K10 at every narrower width, the wrapper zero-pads each head to the built
-width in a copy (``ops.common.pad_heads``) and tells the kernel the true
-head_dim, whose 1 / sqrt scales the scores: zero columns add nothing to
-q.k, the output's padded columns (and in the backward those of dq, dk and
-dv) come out zero, and the wrapper drops them. Heads wider than 64 are
-refused.
+``BWD_HEAD_DIMS``). K2 and K10 read a narrower head (TinyBERT-L-4's 26, 16,
+48) where it lies, at the widths :func:`fwd_reads_in_place` and
+:func:`bwd_reads_in_place` name: each head as tiles of the built width that
+holds it, whose other columns are zeros (past a head of whole 16-byte
+chunks, the TMA's or the copies' zero fill; in a 16-byte aligned window
+that also holds the neighbours' columns, Q's and K's, and in K10 all four
+operands', zeroed in shared memory), the scores scaled by its true
+head_dim, and only its own columns of the output (dq, dk, dv) written. At
+any other width the wrapper zero-pads each head to the built width in a
+copy (``ops.common.pad_heads``) and tells the kernel the true head_dim,
+whose 1 / sqrt scales the scores: zero columns add nothing to q.k, the
+output's padded columns (and in the backward those of dq, dk and dv) come
+out zero, and the wrapper drops them. Heads wider than 64 are refused.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, built_head_dim, pad_
 
 LAUNCHES = 0        # K2, the forward
 BWD_LAUNCHES = 0    # K10, the backward
+BWD_IN_PLACE_LAUNCHES = 0  # K10's launches on heads narrower than 32 or 64 read where they lie
 TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
 TP_BWD_LAUNCHES = 0  # K11's backward (each also counts in BWD_LAUNCHES)
 WIDTH_LAUNCHES: Counter = Counter()  # K2's launches by q's width (each also counts in LAUNCHES)
@@ -126,6 +128,29 @@ def fwd_reads_in_place(head_dim: int, s: int, h: int) -> bool:
     built = 32 if head_dim <= 32 else 64
     return (head_dim % 2 == 0 and head_dim + 8 - (head_dim & -head_dim) <= built
             and (built == 32 or s <= 64) and h % 8 == 0)
+
+
+def bwd_reads_in_place(head_dim: int, s: int, h: int) -> bool:
+    """Whether K10 reads heads of ``head_dim`` (<= 64) over rows of S keys
+    and H = ``h`` columns where they lie, with no padded copy, as the C
+    entry checks it (csrc/flash_attention_bwd.cu). A head of whole 16-byte
+    chunks (head_dim a multiple of 8) on all three paths: the two kernels'
+    16-byte copies, whose columns past the head come in as zeros, and the
+    fused kernel's 4-D tensor maps (S <= FUSED_BWD_MAX_S at 33-64), its
+    dq, dk and dv written by 4-D TMA stores that write none of the columns
+    past it. An even head_dim <= 32 through a window of 32 columns from
+    the head's first column rounded down to a multiple of 8 (the two
+    kernels' copies take only the head's columns of q, k, v and dO, the
+    others zeros), where the window fits (at most 8 - head_dim's lowest set
+    bit columns before the head: 26 and 28, not 30) and the rows are whole
+    16-byte chunks (H a multiple of 8: 26 at 4, 8 or 12 heads, not at 3 or
+    6, K11's local heads at tp 4 or 2); its dq, dk and dv stored from the
+    head's offset. An odd head_dim, a window that does not fit or over
+    rows of partial chunks, and one above 32 not a multiple of 8 are
+    padded in a copy. S does not enter: every path takes the same widths."""
+    if head_dim % 8 == 0:
+        return head_dim <= 64
+    return head_dim % 2 == 0 and head_dim + 8 - (head_dim & -head_dim) <= 32 and h % 8 == 0
 
 
 def fwd_kernel(s: int, head_dim: int) -> str:
@@ -239,30 +264,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_bias: torch.Tensor, dout: torch.Tensor, *,
                         num_heads: int, tp: bool = False):
     """(dq, dk, dv) of :func:`flash_attention` at dout, each [B,S,H] in
-    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim up to 64 (narrower
-    heads zero-padded to 32 or 64). ``tp``: the launch is K11's backward and
-    counts in TP_BWD_LAUNCHES too."""
+    q.dtype. The CUDA kernel (K10) takes bf16 at head_dim up to 64
+    (narrower heads read in place where :func:`bwd_reads_in_place` says so,
+    else zero-padded to 32 or 64 in a copy). ``tp``: the launch is K11's
+    backward and counts in TP_BWD_LAUNCHES too."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask_bias, dout, num_heads=num_heads)
-    global BWD_LAUNCHES, TP_BWD_LAUNCHES
+    global BWD_LAUNCHES, TP_BWD_LAUNCHES, BWD_IN_PLACE_LAUNCHES
     kernel_lib.require_no_grad("flash_attention_bwd", q, k, v, dout)
     b, s, h = q.shape
     dout = dout.to(q.dtype).contiguous()
     bias, dev, width = _kernel_inputs("flash_attention_bwd", "K10", BWD_HEAD_DIMS, q, k, v,
                                       mask_bias, num_heads, dout)
-    q, k, v, dout = (pad_heads(t, num_heads, width) for t in (q, k, v, dout))
+    head_dim = h // num_heads
+    in_place = bwd_reads_in_place(head_dim, s, h)
+    if not in_place:
+        q, k, v, dout = (pad_heads(t, num_heads, width) for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = None   # the fused kernel needs no scratch
     if bwd_launch_plan(s, width)[0] == "two kernels":
         stats = torch.empty(bwd_scratch_shape(b, s, num_heads), dtype=torch.float32, device=dev)
     kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", dev,
                       *(kernel_lib.ptr(t) for t in (q, k, v, bias, dout, dq, dk, dv)),
-                      None if stats is None else kernel_lib.ptr(stats), b, s, num_heads * width,
-                      num_heads, h // num_heads)
-    dq, dk, dv = (unpad_heads(t, num_heads, h // num_heads) for t in (dq, dk, dv))
+                      None if stats is None else kernel_lib.ptr(stats), b, s, q.shape[-1],
+                      num_heads, head_dim)
+    if not in_place:
+        dq, dk, dv = (unpad_heads(t, num_heads, head_dim) for t in (dq, dk, dv))
     with LAUNCH_LOCK:
         BWD_LAUNCHES += 1
         TP_BWD_LAUNCHES += tp
+        BWD_IN_PLACE_LAUNCHES += in_place and head_dim != width
     return dq, dk, dv
 
 

@@ -35,11 +35,13 @@ hidden width that ``frag_fused_ffn_large`` takes since the generic routes
 (a tree without ``ops/common.pad_heads`` is called without them), and what
 a launch plan puts in them is each tree's own. A generic-route case runs
 what the tree's wrapper runs: at the widths its ``fwd_reads_in_place``
-names, K2's C entry on the heads where they lie; elsewhere, and in a tree
+(K2), ``bwd_reads_in_place`` (K10) or ``causal_reads_in_place`` (K9)
+names, the C entry on the heads where they lie; elsewhere, and in a tree
 without that rule, the heads' zero-padded copies, the C entry, the padded
-columns dropped, so its device time includes the copies. K2's generic
-shapes also run as the kernel alone on inputs padded once beforehand
-("kernel alone" rows). K3 gets
+columns dropped, so its device time includes the copies. The generic
+shapes of K2, K10 and K9 also run as the kernel alone on inputs padded
+once beforehand ("kernel alone" rows), and K10 and K9 at their tuned
+widths (32 / 64 and 64 / 128) at the generic rows' shapes. K3 gets
 from each tree's ``ops/fused_ffn.py`` (beside its ``csrc/``) the split of
 the I axis its wrapper would choose (its ``launch_plan``), and scratch of
 that many f32 partials; at hidden 1,024 a tree whose wrapper has
@@ -138,7 +140,11 @@ K2_GENERIC_SHAPES = (("TinyBERT-L-4 rerank", 64, 512, 12, 26), ("TinyBERT-L-4 qu
                      ("heads of 16 query", 8, 64, 12, 16), ("heads of 48 query", 8, 64, 12, 48))
 K10_GENERIC_SHAPES = (("TinyBERT-L-4 rerank step", 64, 128, 12, 26),
                       ("heads of 26 S=512", 64, 512, 12, 26), ("heads of 16", 64, 512, 12, 16),
-                      ("heads of 48", 64, 512, 12, 48))
+                      ("heads of 48", 64, 512, 12, 48), ("heads of 48 S=128", 64, 128, 12, 48))
+# K10 at its tuned widths at the generic rows' shapes (the two kernels at 32
+# and 64, the fused kernel at 64)
+K10_TUNED_SHAPES = (("heads of 32 S=512", 64, 512, 12, 32), ("heads of 64 S=512", 64, 512, 12, 64),
+                    ("heads of 64 S=128", 64, 128, 12, 64))
 # (label, B, S, dtype, H) of K1: at H=384 the table's shape, the ingest's
 # batches (3,482 children in 51 launches), a query's encode, and f32; at
 # H=1,024 the table's shape and the ingest's batch
@@ -198,7 +204,14 @@ K9_SHAPES = (("answer prompt", 1, 4096, (1100,), 14, 2, 64), ("normaliser", 1, 1
              ("Llama-3-8B pad 0", 1, 4096, (0,), 32, 8, 128),
              ("open_llama_3b answer prompt", 1, 4096, (1100,), 32, 32, 100),
              ("heads of 96", 1, 4096, (1100,), 32, 32, 96),
-             ("heads of 80", 1, 4096, (1100,), 32, 32, 80))
+             ("heads of 80", 1, 4096, (1100,), 32, 32, 80),
+             ("open_llama_3b f32 normaliser", 1, 128, (60,), 32, 32, 100, "f32"),
+             ("heads of 64 at 32 / 32", 1, 4096, (1100,), 32, 32, 64),
+             ("heads of 128 at 32 / 32", 1, 4096, (1100,), 32, 32, 128))
+# the K9 rows whose heads are narrower than a built width, also run as the
+# kernel alone on inputs padded once beforehand
+K9_GENERIC_LABELS = ("open_llama_3b answer prompt", "heads of 96", "heads of 80",
+                     "open_llama_3b f32 normaliser")
 
 
 # the C entries that took one more int (the last but the stream) with the generic routes
@@ -229,8 +242,11 @@ def build_library(csrc: Path, out_dir: Path):
     lib.generic_widths = hasattr(tree_module(csrc, "common"), "pad_heads")
     # the widths whose heads the tree's K2 wrapper passes in place (none
     # before the rule: every narrower head is padded in a copy)
-    lib.fwd_in_place = getattr(tree_module(csrc, "flash_attention"), "fwd_reads_in_place",
-                               lambda head_dim, s, h: False)
+    attention = tree_module(csrc, "flash_attention")
+    lib.fwd_in_place = getattr(attention, "fwd_reads_in_place", lambda head_dim, s, h: False)
+    lib.bwd_in_place = getattr(attention, "bwd_reads_in_place", lambda head_dim, s, h: False)
+    lib.causal_in_place = getattr(tree_module(csrc, "causal_flash"), "causal_reads_in_place",
+                                  lambda head_dim, hq, hkv, dtype: False)
     for name in ("frag_pool_norm", "frag_flash_attention", "frag_fused_ffn", "frag_packed_topk",
                  "frag_bucketed_topk", "frag_topk_exact", "frag_flash_attention_bwd",
                  "frag_causal_flash", "frag_fused_ffn_large"):
@@ -679,10 +695,14 @@ def three_call(tensors):
     return lambda: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2)
 
 
-def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool = False):
+def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool = False,
+             prepadded: bool = False):
     """(run, outputs): K10 on seeded inputs, every key live or (``padded``)
-    keys padded to random lengths, through ``lib``'s C entry (heads
-    narrower than 32 or 64 zero-padded to it)."""
+    keys padded to random lengths, through ``lib``'s C entry as the tree's
+    wrapper calls it (heads narrower than 32 or 64 read in place where the
+    tree's ``bwd_reads_in_place`` says so, else zero-padded to it in a
+    copy). ``prepadded``: the kernel alone, on inputs padded once
+    beforehand (its outputs are the padded ones)."""
     q, k, v, do = (torch.randn(b, s, heads * head_dim, generator=gen, device="cuda").bfloat16()
                    for _ in range(4))
     bias = torch.zeros(b, s, device="cuda")
@@ -690,27 +710,40 @@ def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool =
         lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
         lens[0] = s
         bias = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    width = built_head_dim(head_dim, BWD_HEAD_DIMS)
+    if prepadded:
+        q, k, v, do = (pad_heads(t, heads, width) for t in (q, k, v, do))
+    direct = prepadded or lib.bwd_in_place(head_dim, s, heads * head_dim)
     outs = [torch.empty_like(q) for _ in range(3)]
     stats = torch.empty(3, b, heads, s, device="cuda")
-    width = built_head_dim(head_dim, BWD_HEAD_DIMS)
     run = padded_run(lib, "frag_flash_attention_bwd", [q, k, v, do], outs, [heads] * 4, head_dim,
                      width, lambda ins, o: (*ins[:3], bias, ins[3], *o, stats),
-                     [b, s, heads * width, heads])
+                     [b, s, q.shape[-1] if direct else heads * width, heads], direct)
     run.tensors = (q, k, v, bias, do, stats)   # the run holds raw pointers into these
     return run, outs
 
 
-def k9_call(lib, b: int, s: int, pads, hq: int, hkv: int, d: int, gen):
-    """(run, outputs): K9 on seeded inputs, through ``lib``'s C entry (heads
-    narrower than 64 or 128 zero-padded to it)."""
-    q = torch.randn(b, s, hq * d, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(b, s, hkv * d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+def k9_call(lib, b: int, s: int, pads, hq: int, hkv: int, d: int, gen, dtype: str = "bf16",
+            prepadded: bool = False):
+    """(run, outputs): K9 on seeded inputs (bf16, or f32), through ``lib``'s
+    C entry as the tree's wrapper calls it (heads narrower than 64 or 128
+    read in place where the tree's ``causal_reads_in_place`` says so, else
+    zero-padded to it in a copy). ``prepadded``: the kernel alone, on
+    inputs padded once beforehand (its output is the padded one)."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn(b, s, hq * d, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(b, s, hkv * d, generator=gen, device="cuda").to(dt) for _ in range(2))
     pad = torch.tensor(pads, dtype=torch.int32, device="cuda")
-    out = torch.empty_like(q)
     width = built_head_dim(d, CAUSAL_HEAD_DIMS)
+    if prepadded:
+        q = pad_heads(q, hq, width)
+        k, v = (pad_heads(t, hkv, width) for t in (k, v))
+    direct = prepadded or lib.causal_in_place(d, hq, hkv, dt)
+    out = torch.empty_like(q)
     run = padded_run(lib, "frag_causal_flash", [q, k, v], [out], [hq, hkv, hkv], d, width,
                      lambda ins, outs: (*ins, pad, *outs),
-                     [b, s, hq, hkv, width, kernel_lib.DTYPE_CODES[q.dtype]])
+                     [b, s, hq, hkv, q.shape[-1] // hq if direct else width,
+                      kernel_lib.DTYPE_CODES[q.dtype]], direct)
     run.tensors = (q, k, v, pad)   # the run holds raw pointers into these
     return run, [out]
 
@@ -782,13 +815,23 @@ def main(argv=None) -> int:
                                                    i))
               for label, n, h, i in k3_shapes]
     cases += [("K10", label, (b, s, h, hd), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
-        libs[tree], b, s, h, hd, gen)) for label, b, s, h, hd in K10_SHAPES + K10_GENERIC_SHAPES]
+        libs[tree], b, s, h, hd, gen))
+        for label, b, s, h, hd in K10_SHAPES + K10_GENERIC_SHAPES + K10_TUNED_SHAPES]
+    cases += [("K10", f"{label} pre-padded", (b, s, h, hd, "kernel alone"),
+               lambda tree, b=b, s=s, h=h, hd=hd: k10_call(libs[tree], b, s, h, hd, gen,
+                                                           prepadded=True))
+              for label, b, s, h, hd in K10_GENERIC_SHAPES]
     cases += [("K10", label, (b, s, h, hd, "padded"), lambda tree, b=b, s=s, h=h, hd=hd: k10_call(
         libs[tree], b, s, h, hd, gen, padded=True)) for label, b, s, h, hd in K10_PADDED_SHAPES]
-    cases += [("K9", label, (b, s, list(pads), f"{hq}/{hkv}x{d}"),
-               lambda tree, b=b, s=s, pads=pads, hq=hq, hkv=hkv, d=d: k9_call(
-                   libs[tree], b, s, pads, hq, hkv, d, gen))
-              for label, b, s, pads, hq, hkv, d in K9_SHAPES]
+    cases += [("K9", label, (b, s, list(pads), f"{hq}/{hkv}x{d}", *dt),
+               lambda tree, b=b, s=s, pads=pads, hq=hq, hkv=hkv, d=d, dt=dt: k9_call(
+                   libs[tree], b, s, pads, hq, hkv, d, gen, *dt))
+              for label, b, s, pads, hq, hkv, d, *dt in K9_SHAPES]
+    cases += [("K9", f"{label} pre-padded", (b, s, list(pads), f"{hq}/{hkv}x{d}", *dt,
+                                             "kernel alone"),
+               lambda tree, b=b, s=s, pads=pads, hq=hq, hkv=hkv, d=d, dt=dt: k9_call(
+                   libs[tree], b, s, pads, hq, hkv, d, gen, *dt, prepadded=True))
+              for label, b, s, pads, hq, hkv, d, *dt in K9_SHAPES if label in K9_GENERIC_LABELS]
     if args.only:
         cases = [c for c in cases if c[0] in args.only.split(",")]
     for kernel, label, shape, make in cases:

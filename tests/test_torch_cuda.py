@@ -547,9 +547,9 @@ GENERIC_ATTENTION_CASES = [(d, b, s) for d in (26, 16, 48) for b, s in ((64, 512
 
 @pytest.mark.parametrize("head_dim,b,s", GENERIC_ATTENTION_CASES)
 def test_flash_attention_kernels_on_padded_heads(gen, head_dim, b, s):
-    """K2 and K10 at 12 heads of 26 (TinyBERT-L-4), 16 and 48, zero-padded
-    to 32 or 64 with the scale of the true head_dim: a padded row and a
-    fully masked one. The forward within 3e-2 of the plain version (its
+    """K2 and K10 at 12 heads of 26 (TinyBERT-L-4), 16 and 48 (once
+    zero-padded to 32 or 64, since read in place) with the scale of the
+    true head_dim: a padded row and a fully masked one. The forward within 3e-2 of the plain version (its
     launch counted at the true width), the backward's dq, dk and dv within
     2^-6 of every (position, head) row's largest value, masked keys'
     gradients exactly zero."""
@@ -729,13 +729,13 @@ def test_flash_attention_heads_of_26_over_rows_of_partial_chunks(gen, monkeypatc
 @pytest.mark.parametrize("head_dim", [16, 48, 26])
 def test_flash_attention_in_place_non_finite_neighbour_keys(gen, head_dim):
     """An inf in the first column of head g+1's k at one key of batch row
-    0. At 16 and 48 (4-D maps: head g's box reads zeros past its columns)
-    head g's output stays bit-identical. At 26 head g's 16-byte aligned
-    window (g = 5: columns 128-159, the head at 130-155) holds that column,
-    and Q's zeroed columns meet it as 0 x inf = NaN in head g's scores, so
-    head g's row-0 output is no longer finite, where the TPU kernel, which
-    slices the head, keeps it finite: the one input on which the window
-    read differs. Every other head and batch row stays bit-identical."""
+    0 leaves head g's output bit-identical, as the TPU kernel's slice of
+    the head does. At 16 and 48 (4-D maps) head g's box reads zeros past
+    its columns. At 26 head g's 16-byte aligned window (g = 5: columns
+    128-159, the head at 130-155) holds that column, and K's columns
+    outside the head are zeroed in shared memory with Q's, so no 0 x inf
+    reaches head g's scores. Every other head and batch row stays
+    bit-identical too."""
     heads, b, s, g = 12, 4, 512, 5
     h = heads * head_dim
     q, k, v = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(3))
@@ -748,10 +748,311 @@ def test_flash_attention_in_place_non_finite_neighbour_keys(gen, head_dim):
     keep[g * head_dim:(g + 2) * head_dim] = False
     assert torch.equal(again[1:], out[1:])
     assert torch.equal(again[0][:, keep], out[0][:, keep])
-    if head_dim % 8 == 0:
-        assert torch.equal(again[0, :, head], out[0, :, head])
-    else:
-        assert not torch.isfinite(again[0, :, head].float()).all()
+    assert torch.equal(again[0, :, head], out[0, :, head])
+
+
+# --------------------------------------- K10 and K9 read narrow heads in place
+
+BWD_IN_PLACE_CASES = [(d, b, s) for d in (26, 16, 48) for b, s in ((64, 512), (8, 64), (16, 128))]
+
+
+def _no_bwd_pad_copies(monkeypatch):
+    """Make the pad copies fail: K10 at the widths it reads in place makes none."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("K10 padded a head it reads in place")
+    monkeypatch.setattr(fa, "pad_heads", refuse)
+    monkeypatch.setattr(fa, "unpad_heads", refuse)
+
+
+def _k10_entry(q, k, v, bias, do, grads, heads: int, head_dim: int):
+    """K10's C entry on q, k, v, dout and grads (dq, dk, dv) as they lie
+    ([B, S, H], H = the tensors' width)."""
+    b, s, h = q.shape
+    stats = torch.empty(fa.bwd_scratch_shape(b, s, heads), dtype=torch.float32, device="cuda")
+    kernel_lib.launch("flash_attention_bwd", "frag_flash_attention_bwd", q.device,
+                      *(kernel_lib.ptr(t) for t in (q, k, v, bias, do, *grads, stats)), b, s, h,
+                      heads, head_dim)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("head_dim,b,s", BWD_IN_PLACE_CASES)
+def test_flash_attention_bwd_reads_narrow_heads_in_place(gen, monkeypatch, head_dim, b, s):
+    """K10 at 12 heads of 26, 16 and 48, B=64 S=512, B=8 S=64 and B=16
+    S=128 (48 there through the fused kernel's 4-D maps; 26 through 16-byte
+    aligned windows at offsets 0 to 6; 16 through the 32-wide kernels'
+    copies): read where they lie (no pad copy, the C entry given H = 12 *
+    head_dim), a padded row and a fully masked one, dq, dk and dv within
+    2^-6 of every (position, head) row's largest value of the plain
+    version, masked keys' dk and dv exactly zero, the same bits twice."""
+    assert fa.bwd_reads_in_place(head_dim, s, 12 * head_dim)
+    _no_bwd_pad_copies(monkeypatch)
+    heads, h = 12, 12 * head_dim
+    q, k, v, do = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(4))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    before = fa.BWD_IN_PLACE_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    again = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    torch.cuda.synchronize()
+    assert fa.BWD_IN_PLACE_LAUNCHES == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        assert g.shape == q.shape and torch.isfinite(g.float()).all(), name
+        assert _row_rel_err(g, w, heads) <= 2.0 ** -6, (name, _row_rel_err(g, w, heads))
+        assert torch.equal(g, a), name
+    assert (got[1][1, s // 3:] == 0).all() and (got[2][1, s // 3:] == 0).all()
+
+
+@pytest.mark.parametrize("head_dim,b,s", BWD_IN_PLACE_CASES)
+def test_flash_attention_bwd_in_place_heads_are_isolated(gen, head_dim, b, s):
+    """New random values in head g+1's columns of q, k, v and dO change
+    head g+1's dq, dk and dv and leave every other head's bit-identical;
+    so does an inf in each of those four tensors' columns of heads g-1 and
+    g+1 next to head g (inside its window at 26) for head g."""
+    heads, h, g = 12, 12 * head_dim, 5
+    ins = [_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(4)]
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    first = fa.flash_attention_bwd(*ins[:3], bias, ins[3], num_heads=heads)
+    cols = slice((g + 1) * head_dim, (g + 2) * head_dim)
+    for t in ins:
+        t[..., cols] = _randn(gen, b, s, head_dim, dtype=torch.bfloat16, scale=4.0)
+    second = fa.flash_attention_bwd(*ins[:3], bias, ins[3], num_heads=heads)
+    keep = torch.ones(h, dtype=torch.bool, device="cuda")
+    keep[cols] = False
+    for a, c in zip(first, second):
+        assert not torch.equal(a[..., cols], c[..., cols])
+        assert torch.equal(a[..., keep], c[..., keep])
+    for t in ins:
+        t[0, 3, (g + 1) * head_dim] = float("inf")
+        t[0, 5, g * head_dim - 1] = float("-inf")
+    third = fa.flash_attention_bwd(*ins[:3], bias, ins[3], num_heads=heads)
+    head = slice(g * head_dim, (g + 1) * head_dim)
+    for a, c in zip(second, third):
+        assert torch.equal(a[..., head], c[..., head])
+
+
+@pytest.mark.parametrize("head_dim,b,s", BWD_IN_PLACE_CASES)
+def test_flash_attention_bwd_in_place_writes_only_its_outputs(gen, head_dim, b, s):
+    """Into NaN-filled dq, dk and dv, each with a guard region after it,
+    K10 in place writes every element (no NaN left) and nothing past them;
+    the values within 2^-6 per row of the plain version."""
+    heads, h = 12, 12 * head_dim
+    q, k, v, do = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(4))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    guard, n = 4096, b * s * h
+    bufs = [torch.full((n + guard,), float("nan"), dtype=torch.bfloat16, device="cuda")
+            for _ in range(3)]
+    for buf in bufs:
+        buf[n:] = 7.0
+    grads = [buf[:n].view(b, s, h) for buf in bufs]
+    _k10_entry(q, k, v, bias, do, grads, heads, head_dim)
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, do, num_heads=heads)
+    for name, buf, g, w in zip(("dq", "dk", "dv"), bufs, grads, want):
+        assert not torch.isnan(g.float()).any(), name
+        assert (buf[n:] == 7.0).all(), name
+        assert _row_rel_err(g, w, heads) <= 2.0 ** -6, (name, _row_rel_err(g, w, heads))
+
+
+@pytest.mark.parametrize("head_dim,s", [(16, 512), (16, 64), (48, 512), (48, 128), (48, 64)])
+def test_flash_attention_bwd_in_place_is_the_padded_copy_to_the_bit(gen, head_dim, s):
+    """A head of whole 16-byte chunks read in place is the padded copy the
+    kernel reads at the built width, to the bit: its columns past the head
+    come in as zeros either way, and dq, dk and dv match the padded
+    route's (the C entry on heads zero-padded to 32 or 64, the padded
+    columns dropped) on every path (the 32-wide kernels at 16, the 64-wide
+    two kernels and the fused kernel at 48)."""
+    from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads, unpad_heads
+
+    heads, b = 12, 8
+    h, width = heads * head_dim, built_head_dim(head_dim, fa.BWD_HEAD_DIMS)
+    q, k, v, do = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(4))
+    bias = torch.where(_mask(b, s) > 0, 0.0, -1e9).float()
+    got = fa.flash_attention_bwd(q, k, v, bias, do, num_heads=heads)
+    padded = [pad_heads(t, heads, width) for t in (q, k, v, do)]
+    grads = [torch.empty_like(padded[0]) for _ in range(3)]
+    _k10_entry(*padded[:3], bias, padded[3], grads, heads, head_dim)
+    for name, a, c in zip(("dq", "dk", "dv"), got, grads):
+        assert torch.equal(a, unpad_heads(c, heads, head_dim)), name
+
+
+K9_IN_PLACE_CASES = {  # B, S, pads, query heads, kv heads, head_dim, dtype
+    "d100": (1, 4096, (1100,), 32, 32, 100, "bfloat16"),
+    "d80": (1, 4096, (1100,), 32, 32, 80, "bfloat16"),
+    "d96": (1, 4096, (1100,), 32, 32, 96, "bfloat16"),
+    "d100_short": (2, 300, (0, 37), 8, 8, 100, "bfloat16"),
+    "d80_group2": (1, 300, (11,), 8, 4, 80, "bfloat16"),
+    "d96_group3": (1, 300, (0,), 12, 4, 96, "bfloat16"),
+    "d80_group4": (2, 500, (0, 130), 8, 2, 80, "bfloat16"),
+    "d96_group6": (1, 777, (5,), 12, 2, 96, "bfloat16"),
+    "d72_group2": (1, 300, (64,), 4, 2, 72, "bfloat16"),
+    "d104": (1, 300, (3,), 4, 4, 104, "bfloat16"),
+    "d120_group2": (1, 257, (0,), 4, 2, 120, "bfloat16"),
+    "d98_window": (1, 300, (9,), 8, 8, 98, "bfloat16"),
+    "d102_window": (1, 300, (0,), 8, 8, 102, "bfloat16"),
+    "f32_d100": (1, 128, (60,), 32, 32, 100, "float32"),
+    "f32_d80_group4": (2, 128, (0, 60), 8, 2, 80, "float32"),
+    "f32_d26_group2": (1, 200, (3,), 4, 2, 26, "float32"),
+    "f32_d52_group7": (1, 300, (20,), 14, 2, 52, "float32"),
+}
+
+
+def _no_k9_pad_copies(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("K9 padded a head it reads in place")
+    monkeypatch.setattr(cf, "pad_heads", refuse)
+    monkeypatch.setattr(cf, "unpad_heads", refuse)
+
+
+def _k9_inputs(gen, case):
+    b, s, pads, hq, hkv, d, dtype = K9_IN_PLACE_CASES[case]
+    q = _randn(gen, b, s, hq * d, dtype=DTYPES[dtype])
+    k, v = (_randn(gen, b, s, hkv * d, dtype=DTYPES[dtype]) for _ in range(2))
+    return q, k, v, torch.tensor(pads, dtype=torch.int32, device="cuda")
+
+
+def _k9_entry(q, k, v, pad, out, hq: int, hkv: int, head_dim: int):
+    """K9's C entry on q, k, v and out as they lie (a head's columns in
+    memory = the tensors' width / heads)."""
+    b, s, h = q.shape
+    kernel_lib.launch("causal_flash_prefill", "frag_causal_flash", q.device,
+                      *(kernel_lib.ptr(t) for t in (q, k, v, pad, out)), b, s, hq, hkv, h // hq,
+                      kernel_lib.DTYPE_CODES[q.dtype], head_dim)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", list(K9_IN_PLACE_CASES))
+def test_causal_flash_kernel_reads_heads_in_place(gen, monkeypatch, case):
+    """K9 at heads of 80, 96 and 100 (open_llama_3b_v2) at the 4,096-token
+    prompt and short rows, GQA groups 1 to 6, 72, 104 and 120 (4-D maps,
+    products 80, 104 and 128 wide), 98 and 102 (windows at offsets up to
+    6, products 104 and 128 wide), and f32 at 100, 80, 26 and 52: read
+    where they lie (no pad copy, counted in IN_PLACE_LAUNCHES), real rows
+    within 3e-2 (bf16)
+    or 1e-4 (f32) of the plain version and each (position, head) row
+    within 2^-6 or 1e-4 of its largest value, padding rows exactly 0, the
+    same bits twice."""
+    b, s, pads, hq, hkv, d, dtype = K9_IN_PLACE_CASES[case]
+    assert cf.causal_reads_in_place(d, hq, hkv, DTYPES[dtype])
+    _no_k9_pad_copies(monkeypatch)
+    q, k, v, pad = _k9_inputs(gen, case)
+    before = cf.IN_PLACE_LAUNCHES[d]
+    out = _launches_once(cf, lambda: cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq,
+                                                             num_kv_heads=hkv))
+    assert cf.IN_PLACE_LAUNCHES[d] == before + 1
+    ref = cf.causal_flash_prefill_plain(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    tol, rtol = (3e-2, 2.0 ** -6) if dtype == "bfloat16" else (1e-4, 1e-4)
+    for row, p in enumerate(pads):
+        assert torch.isfinite(out[row].float()).all()
+        torch.testing.assert_close(out[row, p:].float(), ref[row, p:].float(), atol=tol, rtol=0)
+        got, want = (t[row, p:].float().view(s - p, hq, d) for t in (out, ref))
+        row_err = (got - want).abs().amax(dim=-1)
+        assert (row_err <= rtol * want.abs().amax(dim=-1)).all(), row_err.max()
+        assert (out[row, :p] == 0).all()
+    assert torch.equal(out, cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq,
+                                                     num_kv_heads=hkv))
+
+
+K9_ISOLATION_CASES = ["d100_short", "d80_group2", "d96_group3", "d98_window", "d102_window",
+                      "f32_d100"]
+
+
+@pytest.mark.parametrize("case", K9_ISOLATION_CASES)
+def test_causal_flash_in_place_heads_are_isolated(gen, case):
+    """New random values in kv head g+1's columns of k and v and in its
+    query heads' columns of q leave every other query head's output
+    bit-identical; an inf in k's and v's columns of kv heads g-1 and g+1
+    next to kv head g (inside its window at 100, 98 and 102) and a NaN in
+    q's columns next to its query heads leave those heads bit-identical."""
+    b, s, pads, hq, hkv, d, dtype = K9_IN_PLACE_CASES[case]
+    group, g = hq // hkv, 1
+    q, k, v, pad = _k9_inputs(gen, case)
+    first = cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    kv_cols = slice((g + 1) * d, (g + 2) * d)
+    q_cols = slice((g + 1) * group * d, (g + 2) * group * d)
+    for t in (k, v):
+        t[..., kv_cols] = _randn(gen, b, s, d, dtype=t.dtype, scale=4.0)
+    q[..., q_cols] = _randn(gen, b, s, group * d, dtype=q.dtype, scale=4.0)
+    second = cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    keep = torch.ones(hq * d, dtype=torch.bool, device="cuda")
+    keep[q_cols] = False
+    assert not torch.equal(first[..., q_cols], second[..., q_cols])
+    assert torch.equal(first[..., keep], second[..., keep])
+    for t in (k, v):
+        t[0, -1, (g + 1) * d] = float("inf")
+        t[0, -2, g * d - 1] = float("-inf")
+    q[0, -1, (g + 1) * group * d] = float("nan")
+    q[0, -1, g * group * d - 1] = float("nan")
+    third = cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    heads = slice(g * group * d, (g + 1) * group * d)
+    assert torch.equal(second[..., heads], third[..., heads])
+
+
+@pytest.mark.parametrize("case", ["d100", "d80_group4", "d96_group6", "d98_window", "d102_window",
+                                  "f32_d100", "f32_d26_group2"])
+def test_causal_flash_in_place_writes_only_the_output(gen, case):
+    """Into a NaN-filled out with a guard region after it, K9 in place
+    (through its C entry) writes every element of out (padding rows as
+    zeros, no NaN left) and nothing past it."""
+    b, s, pads, hq, hkv, d, dtype = K9_IN_PLACE_CASES[case]
+    q, k, v, pad = _k9_inputs(gen, case)
+    guard, n = 4096, q.numel()
+    buf = torch.full((n + guard,), float("nan"), dtype=q.dtype, device="cuda")
+    buf[n:] = 7.0
+    out = buf[:n].view(q.shape)
+    _k9_entry(q, k, v, pad, out, hq, hkv, d)
+    assert not torch.isnan(out.float()).any()
+    assert (buf[n:] == 7.0).all()
+    ref = cf.causal_flash_prefill_plain(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    for row, p in enumerate(pads):
+        torch.testing.assert_close(out[row, p:].float(), ref[row, p:].float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["d80", "d96", "d80_group4", "d72_group2", "d104",
+                                  "d120_group2", "f32_d80_group4", "f32_d52_group7"])
+def test_causal_flash_in_place_is_the_padded_copy_to_the_bit(gen, case):
+    """A head of whole 16-byte chunks read in place is the padded copy to
+    the bit: at 80, 96, 72 and 104 the head-128 kernel's products at the
+    head's width (80, 96, 80, 104, 128) leave out only zero columns, whose
+    products add exact zeros, and f32 computes the same sums, so the
+    output equals the C entry's on heads zero-padded
+    to 64 or 128 (the padded columns dropped)."""
+    from financial_rag_tpu_torch.ops.common import built_head_dim, pad_heads, unpad_heads
+
+    b, s, pads, hq, hkv, d, dtype = K9_IN_PLACE_CASES[case]
+    q, k, v, pad = _k9_inputs(gen, case)
+    got = cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    width = built_head_dim(d, cf.KERNEL_HEAD_DIMS)
+    qp = pad_heads(q, hq, width)
+    kp, vp = pad_heads(k, hkv, width), pad_heads(v, hkv, width)
+    out = torch.empty_like(qp)
+    _k9_entry(qp, kp, vp, pad, out, hq, hkv, d)
+    assert torch.equal(got, unpad_heads(out, hq, d))
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 100), (8, 8, 52), (14, 2, 48), (4, 4, 25),
+                                      (3, 3, 100), (4, 4, 126)])
+def test_causal_flash_copied_widths_match_plain(gen, monkeypatch, hq, hkv, d):
+    """The widths K9's route rule sends to the padded copy in bf16 (a
+    window with GQA groups above 1, heads narrower than 64 (52, 48), an
+    odd head_dim, 126 whose window would not fit 128 columns, 100 over rows
+    of partial 16-byte chunks) still
+    match the plain version within 3e-2 through the pad copies; the C
+    entry refuses them in place."""
+    assert not cf.causal_reads_in_place(d, hq, hkv, torch.bfloat16)
+    pads = []
+    real_pad = cf.pad_heads
+    monkeypatch.setattr(cf, "pad_heads", lambda *a: pads.append(a[2]) or real_pad(*a))
+    b, s = 2, 200
+    q = _randn(gen, b, s, hq * d, dtype=torch.bfloat16)
+    k, v = (_randn(gen, b, s, hkv * d, dtype=torch.bfloat16) for _ in range(2))
+    pad = torch.tensor([0, 30], dtype=torch.int32, device="cuda")
+    out = cf.causal_flash_prefill(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    assert len(pads) == 3
+    ref = cf.causal_flash_prefill_plain(q, k, v, pad, num_q_heads=hq, num_kv_heads=hkv)
+    for row, p in enumerate((0, 30)):
+        torch.testing.assert_close(out[row, p:].float(), ref[row, p:].float(), atol=3e-2, rtol=0)
+    with pytest.raises(RuntimeError):
+        _k9_entry(q, k, v, pad, torch.empty_like(q), hq, hkv, d)
 
 
 @pytest.mark.parametrize("h,i", [(312, 1200), (128, 512), (512, 2048), (1024, 4000)])
@@ -1212,7 +1513,7 @@ CAUSAL_CASES = {   # B, S, pads, query heads, kv heads, head_dim, dtype
     "group7_ragged_d128": (1, 1111, (5,), 7, 1, 128, "bfloat16"),
     "pad_is_last_row_d128": (1, 300, (299,), 4, 1, 128, "bfloat16"),
     "mixed_pads_b3_d128": (3, 1024, (0, 300, 1023), 12, 2, 128, "bfloat16"),
-    # the padded route: heads of 100 (open_llama_3b_v2), 80 and 96 in 128, of 32 in 64
+    # narrower heads: 100 (open_llama_3b_v2), 80 and 96 at the head-128 kernel, 32 at the head-64 one
     "s4096_d100": (1, 4096, (1100,), 32, 32, 100, "bfloat16"),
     "s4096_d80": (1, 4096, (1100,), 32, 32, 80, "bfloat16"),
     "s4096_d96": (1, 4096, (1100,), 32, 32, 96, "bfloat16"),
@@ -1235,9 +1536,10 @@ def test_causal_flash_kernel_matches_plain(gen, case):
     head_dim 128 (its own kernel: 128-key tiles by TMA) also groups 4, 6
     and 7 at S not a multiple of 128, a group-6 pad that ends inside a
     block's packed rows (position 130 is packed row 780 of block 6), a pad
-    of S-1, and B=3 with mixed pads. On the padded route: heads of 100, 80
-    and 96 (in 128) at the 4,096-token prompt and in f32, heads of 32 (in
-    64)."""
+    of S-1, and B=3 with mixed pads. Narrower heads, read in place since
+    they were first padded in a copy: 100, 80 and 96 (at the head-128
+    kernel) at the 4,096-token prompt and in f32, 32 (at the head-64
+    kernel)."""
     b, s, pads, hq, hkv, d, dtype = CAUSAL_CASES[case]
     d_before = cf.HEAD_DIM_LAUNCHES[d]
     q = _randn(gen, b, s, hq * d, dtype=DTYPES[dtype])
@@ -1399,6 +1701,33 @@ def test_flash_attention_bwd_kernel_at_head_dim_64_skips_dead_key_tiles_exactly(
     alike; both within 2^-6 per row of the plain version."""
     b, heads = 6, 12
     q, k, v, do = (_randn(gen, b, s, heads * 64, dtype=torch.bfloat16) for _ in range(4))
+    pos = torch.arange(s, device="cuda")[None, :]
+    lo = torch.tensor([0, 0, 0, s // 2, s - 1, 0], device="cuda")[:, None]
+    hi = torch.tensor([s, 1, 64, s, s, 65], device="cuda")[:, None]
+    live = (pos >= lo) & (pos < hi)
+    skip = fa.flash_attention_bwd(q, k, v, torch.where(live, 0.0, -1e9).float(), do, num_heads=heads)
+    walk = fa.flash_attention_bwd(q, k, v, torch.where(live, 0.0, -3e4).float(), do, num_heads=heads)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, torch.where(live, 0.0, -1e9).float(), do,
+                                        num_heads=heads)
+    for name, a, w, g in zip(("dq", "dk", "dv"), skip, walk, want):
+        assert torch.equal(a, w), name
+        assert _row_rel_err(a, g, heads) <= 2.0 ** -6, (name, _row_rel_err(a, g, heads))
+    assert (skip[1][~live] == 0).all() and (skip[2][~live] == 0).all()
+
+
+@pytest.mark.parametrize("head_dim", [32, 16, 26])
+@pytest.mark.parametrize("s", [512, 300])
+def test_flash_attention_bwd_kernel_at_32_skips_dead_key_tiles_exactly(gen, s, head_dim):
+    """The dead-key argument of K10's 32-wide two kernels above S = 128
+    (where the dQ kernel walks a row twice), at heads of 32 and read in
+    place at 16 and 26: padding at -1e9 (dead key tiles never loaded by
+    the dQ walk, zeros written by the dK/dV kernel) and at -3e4 (every tile
+    walked, each such probability exactly 0) give the same bits, trailing
+    and leading padding alike; both within 2^-6 per row of the plain
+    version."""
+    b, heads = 6, 12
+    q, k, v, do = (_randn(gen, b, s, heads * head_dim, dtype=torch.bfloat16) for _ in range(4))
     pos = torch.arange(s, device="cuda")[None, :]
     lo = torch.tensor([0, 0, 0, s // 2, s - 1, 0], device="cuda")[:, None]
     hi = torch.tensor([s, 1, 64, s, s, 65], device="cuda")[:, None]
@@ -1786,8 +2115,9 @@ def test_two_rank_tp_step_on_one_card_matches_the_single_gpu_step(gen):
 
 def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, monkeypatch):
     """scripts/kernel_ab.py against its own csrc/: every row (K1, K4, K5,
-    K7, K6, K2, K3, K10, K9; K2's generic shapes also as the kernel alone
-    on pre-padded inputs) has two loop times and two device times for
+    K7, K6, K2, K3, K10, K9; the generic shapes of K2, K10 and K9 also as
+    the kernel alone on pre-padded inputs, K10 also at its tuned widths at
+    the generic shapes) has two loop times and two device times for
     each tree (a device time at most 1.5x the loop's), the rows of the
     sweeps K4-K7 also a sweep and a merge device time that sum to it (K7's
     with its sort's), and the two builds of the same sources agree exactly;
@@ -1806,16 +2136,21 @@ def test_kernel_ab_times_both_trees_and_compares_their_outputs(gen, tmp_path, mo
                          + len(kernel_ab.K7_SHAPES)
                          + len(kernel_ab.K2_SHAPES) + 2 * len(kernel_ab.K2_GENERIC_SHAPES)
                          + len(kernel_ab.K3_SHAPES) + len(kernel_ab.K3_GENERIC_SHAPES)
-                         + len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_GENERIC_SHAPES)
-                         + len(kernel_ab.K10_PADDED_SHAPES) + len(kernel_ab.K9_SHAPES))
+                         + len(kernel_ab.K10_SHAPES) + 2 * len(kernel_ab.K10_GENERIC_SHAPES)
+                         + len(kernel_ab.K10_TUNED_SHAPES) + len(kernel_ab.K10_PADDED_SHAPES)
+                         + len(kernel_ab.K9_SHAPES) + len(kernel_ab.K9_GENERIC_LABELS))
     assert [r["kernel"] for r in rows].count("K2") == (len(kernel_ab.K2_SHAPES)
                                                        + 2 * len(kernel_ab.K2_GENERIC_SHAPES))
     assert [r["shape"][-1] for r in rows
             if r["kernel"] == "K2"].count("kernel alone") == len(kernel_ab.K2_GENERIC_SHAPES)
     k10 = [r for r in rows if r["kernel"] == "K10"]
-    assert len(k10) == (len(kernel_ab.K10_SHAPES) + len(kernel_ab.K10_GENERIC_SHAPES)
-                        + len(kernel_ab.K10_PADDED_SHAPES))
-    assert [r["shape"][3] for r in k10].count(64) == 8 and not any("refused" in r for r in rows)
+    assert len(k10) == (len(kernel_ab.K10_SHAPES) + 2 * len(kernel_ab.K10_GENERIC_SHAPES)
+                        + len(kernel_ab.K10_TUNED_SHAPES) + len(kernel_ab.K10_PADDED_SHAPES))
+    assert [r["shape"][3] for r in k10].count(64) == 10 and not any("refused" in r for r in rows)
+    for kernel, generic in (("K10", kernel_ab.K10_GENERIC_SHAPES),
+                            ("K9", kernel_ab.K9_GENERIC_LABELS)):
+        assert [r["shape"][-1] for r in rows
+                if r["kernel"] == kernel].count("kernel alone") == len(generic)
     assert [r["shape"][-1] for r in k10].count("padded") == len(kernel_ab.K10_PADDED_SHAPES)
     assert [r["kernel"] for r in rows].count("K1") == len(kernel_ab.K1_SHAPES)
     for row in rows:

@@ -5,21 +5,26 @@ Published checkpoints whose widths no tuned kernel design was built for:
 ms-marco-TinyBERT-L-4 (hidden 312, 12 heads of 26, FFN 1,200),
 ms-marco-TinyBERT-L-2-v2 (128, 2 heads of 64, FFN 512), BERT-Small
 (512, 8 heads of 64, FFN 2,048) and open_llama_3b_v2 (hidden 3,200, 32 heads
-of 100). On the card K2 reads heads narrower than 32 or 64 where they lie
-(at the widths ``fwd_reads_in_place`` names), K10 zero-pads them to that
-width, K9 pads heads to 64 or 128, and K3 runs its two products at
-run-time extents. Here, on the CPU, each plain version the kernels are held
-against runs on the same numpy inputs as the JAX function at those widths
-(Pallas in interpret mode); the padded route's arithmetic (pad, scale from
-the true head_dim, drop the padded columns) is checked against the unpadded
-plain version, and K2's in-place read (a window of the built width, Q's
-extra columns zeroed) against the Pallas kernel; the generic K3 plan covers
-every token tile, output column and k step; and whole models at those
-widths (a cross-encoder, a bi-encoder, a decoder at heads of 100, the
-weight converters) match the JAX package.
+of 100). On the card K2 and K10 read heads narrower than 32 or 64 where
+they lie (at the widths ``fwd_reads_in_place`` and ``bwd_reads_in_place``
+name), K9 reads heads narrower than 64 or 128 where they lie (at the
+widths ``causal_reads_in_place`` names), any other width is padded in a
+copy, and K3 runs its two products at run-time extents. Here, on the CPU,
+each plain version the kernels are held against runs on the same numpy
+inputs as the JAX function at those widths (Pallas in interpret mode); the
+padded route's arithmetic (pad, scale from the true head_dim, drop the
+padded columns) is checked against the unpadded plain version, and the
+in-place reads (a 16-byte aligned window of the built width, the columns
+that are not the head's zeroed) of K2, K10 and K9 against the Pallas
+kernels; the route rules against the C entries' checks; the generic K3
+plan covers every token tile, output column and k step; and whole models
+at those widths (a cross-encoder, a bi-encoder, a decoder at heads of 100,
+the weight converters) match the JAX package.
 """
 
 import json
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -154,33 +159,45 @@ def test_padded_heads_compute_the_same_attention(head_dim):
     assert (wrong_scale - want).abs().max() > 1e-2
 
 
+def _windows(x, heads: int, head_dim: int, width: int, zero: bool):
+    """Head g of the [B, S, H] rows x as a ``width``-wide window from
+    column g * head_dim rounded down to a multiple of 8 (a 16-byte
+    boundary), [B, heads, S, width]: the head at columns off = g * head_dim
+    mod 8 .. off + head_dim - 1, its neighbours' columns (past H, zeros)
+    around it, zeroed where ``zero``; and the offsets."""
+    offs = [g * head_dim % 8 for g in range(heads)]
+    xp = torch.nn.functional.pad(x, (0, width))
+    w = torch.stack([xp[..., g * head_dim - o:g * head_dim - o + width]
+                     for g, o in enumerate(offs)], dim=1)
+    if zero:
+        for g, o in enumerate(offs):
+            w[:, g, :, :o] = 0
+            w[:, g, :, o + head_dim:] = 0
+    return w, offs
+
+
+def _own_columns(w, offs, head_dim: int):
+    """Each head's own columns of [B, heads, S, width] windows -> [B, S, H]."""
+    b, _, s, _ = w.shape
+    return torch.stack([w[:, g, :, o:o + head_dim] for g, o in enumerate(offs)],
+                       dim=2).reshape(b, s, len(offs) * head_dim)
+
+
 def _window_read(q, k, v, bias, heads: int, head_dim: int, width: int, zero_q: bool = True,
                  scale_width: bool = False):
     """K2's in-place read, emulated in plain torch: head g read as a
-    ``width``-wide window of the [B, S, H] rows from column g * head_dim
-    rounded down to a multiple of 8 (a 16-byte boundary), so that the head
-    lies at columns off = g * head_dim mod 8 .. off + head_dim - 1 of it
-    and its neighbours' columns (past H, zeros) fill the rest; Q's columns
-    outside the head's zeroed (``zero_q``); the scores scaled by 1 /
+    ``width``-wide window of the [B, S, H] rows (:func:`_windows`); Q's and
+    K's columns outside the head's zeroed (``zero_q``; V's reach only
+    output columns that are dropped); the scores scaled by 1 /
     sqrt(head_dim) (``scale_width``: by the window's width); softmax over
     the keys with the bias; P V; each head's own output columns kept."""
     b, s, h = q.shape
-    offs = [g * head_dim % 8 for g in range(heads)]
-
-    def window(x):
-        xp = torch.nn.functional.pad(x, (0, width))
-        return torch.stack([xp[..., g * head_dim - o:g * head_dim - o + width]
-                            for g, o in enumerate(offs)], dim=1)   # [B, heads, S, width]
-    qw, kw, vw = window(q), window(k), window(v)
-    if zero_q:
-        for g, o in enumerate(offs):
-            qw[:, g, :, :o] = 0
-            qw[:, g, :, o + head_dim:] = 0
+    qw, offs = _windows(q, heads, head_dim, width, zero_q)
+    kw, _ = _windows(k, heads, head_dim, width, zero_q)
+    vw, _ = _windows(v, heads, head_dim, width, False)
     scale = (width if scale_width else head_dim) ** -0.5
     scores = qw @ kw.transpose(-1, -2) * scale + bias.reshape(b, 1, 1, s)
-    o = torch.softmax(scores, dim=-1) @ vw
-    return torch.stack([o[:, g, :, off:off + head_dim] for g, off in enumerate(offs)],
-                       dim=2).reshape(b, s, h)
+    return _own_columns(torch.softmax(scores, dim=-1) @ vw, offs, head_dim)
 
 
 @pytest.mark.parametrize("head_dim", HEAD_DIMS)
@@ -190,8 +207,8 @@ def test_in_place_window_read_matches_pallas(head_dim):
     neighbours' columns, Q's extra columns zeroed, the true head_dim's
     scale, O's extra columns dropped, equals the Pallas kernel (interpret
     mode) within 1e-5 in f32, a padded row and a fully masked one included.
-    Two controls miss it by far: Q's extra columns left unzeroed (the
-    neighbours' q.k reaches the scores), and the scale of the window's
+    Two controls miss it by far: Q's and K's extra columns left unzeroed
+    (the neighbours' q.k reaches the scores), and the scale of the window's
     width."""
     b, s, heads = 3, 40, 12
     width = built_head_dim(head_dim, fa.FWD_HEAD_DIMS)
@@ -302,6 +319,246 @@ def test_k2_wrapper_pads_rows_that_are_not_whole_chunks(monkeypatch, heads, tp, 
     (_, _, _, *args), = calls
     assert args[5:] == [2, s, local * (head_dim if in_place else 32), local, head_dim]
     assert pads == ([] if in_place else [32] * 3)
+
+
+def _window_bwd(q, k, v, bias, do, heads: int, head_dim: int, width: int, zero: bool = True,
+                scale_width: bool = False):
+    """K10's in-place read at a head not of whole 16-byte chunks, emulated
+    in plain torch: q, k, v and dO of head g as ``width``-wide windows
+    (:func:`_windows`), the columns outside the head zeroed in all four
+    (``zero``), the scores scaled by 1 / sqrt(head_dim) (``scale_width``:
+    by the window's width); dV = P^T dO, dP = dO V^T, dS = P o (dP - D),
+    dQ = dS K * scale, dK = dS^T Q * scale; each head's own columns of dq,
+    dk and dv kept."""
+    b, s, _ = q.shape
+    (qw, offs), (kw, _), (vw, _), (ow, _) = (_windows(t, heads, head_dim, width, zero)
+                                              for t in (q, k, v, do))
+    scale = (width if scale_width else head_dim) ** -0.5
+    p = torch.softmax(qw @ kw.transpose(-1, -2) * scale + bias.reshape(b, 1, 1, s), dim=-1)
+    dv = p.transpose(-1, -2) @ ow
+    dp = ow @ vw.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq, dk = ds @ kw * scale, ds.transpose(-1, -2) @ qw * scale
+    return tuple(_own_columns(t, offs, head_dim) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("head_dim", [26, 28, 16])
+def test_k10_in_place_window_read_matches_pallas_vjp(head_dim):
+    """K10's arithmetic at 12 heads of 26, 28 and 16 read in place: q, k, v
+    and dO of each head as a 16-byte aligned window of 32 columns holding
+    its neighbours' columns, those zeroed in all four, the true head_dim's
+    scale, each head's own columns of dq, dk and dv kept, equals jax.vjp of
+    the Pallas kernel (interpret mode) within 2e-5 of each gradient's
+    largest value in f32, a padded row and a fully masked one included.
+    Two controls miss it by far: the neighbours' columns left unzeroed, and
+    the scale of the window's width."""
+    b, s, heads = 3, 40, 12
+    q, k, v, do, bias = _attn_inputs(head_dim + 11, b, s, heads * head_dim)
+    jbias = jnp.asarray(bias)[:, None, None, :]
+    _, vjp = jax.vjp(lambda a, b_, c: jax_flash_attention(a, b_, c, jbias, num_heads=heads,
+                                                          interpret=True),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = [_np(w) for w in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo, tb = (torch.from_numpy(a) for a in (q, k, v, do, bias))
+    got = _window_bwd(tq, tk, tv, tb, tdo, heads, head_dim, 32)
+    unzeroed = _window_bwd(tq, tk, tv, tb, tdo, heads, head_dim, 32, zero=False)
+    wrong_scale = _window_bwd(tq, tk, tv, tb, tdo, heads, head_dim, 32, scale_width=True)
+    for name, g, u, ws, w in zip(("dq", "dk", "dv"), got, unzeroed, wrong_scale, want):
+        assert g.shape == (b, s, heads * head_dim)
+        top = np.abs(w).max()
+        assert np.abs(_np(g) - w).max() <= 2e-5 * top, (name, np.abs(_np(g) - w).max())
+        assert np.abs(_np(u) - w).max() > 1e-2 * top, name
+        assert np.abs(_np(ws) - w).max() > 1e-2 * top, name
+
+
+def _causal_window_read(q, k, v, pad, heads: int, head_dim: int, width: int, zero: bool = True,
+                        scale_width: bool = False):
+    """K9's in-place read at heads not of whole 16-byte chunks (one kv head
+    a query head), emulated in plain torch: q, k and v of head g as
+    ``width``-wide windows (:func:`_windows`), Q's and K's columns outside
+    the head zeroed (``zero``), the causal, left-padded softmax of the
+    scores scaled by 1 / sqrt(head_dim) (``scale_width``: by the window's
+    width), P V, each head's own output columns kept, padding rows zero."""
+    b, s, _ = q.shape
+    qw, offs = _windows(q, heads, head_dim, width, zero)
+    kw, _ = _windows(k, heads, head_dim, width, zero)
+    vw, _ = _windows(v, heads, head_dim, width, False)
+    scale = (width if scale_width else head_dim) ** -0.5
+    pos = torch.arange(s)
+    allow = (pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] >= pad.view(b, 1, 1))
+    scores = (qw @ kw.transpose(-1, -2) * scale).masked_fill(~allow[:, None], float("-inf"))
+    o = torch.nan_to_num(torch.softmax(scores, dim=-1)) @ vw
+    out = _own_columns(o, offs, head_dim)
+    return torch.where((pos[None, :] >= pad.view(b, 1))[..., None], out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("d,width", [(100, 128), (98, 128), (102, 128)])
+def test_k9_in_place_window_read_matches_pallas(d, width):
+    """K9's arithmetic at 8 heads of 100 (open_llama_3b_v2), 98 and 102 read
+    in place: q, k and v of each head as a 16-byte aligned window of 128
+    columns holding its neighbours' columns, Q's and
+    K's outside the head zeroed, the true head_dim's scale, each head's own
+    output columns kept, equals the Pallas kernel (interpret mode, blocks
+    of 128) within 1e-5 in f32 on the real rows, left pads 0 and 37. Two
+    controls miss it by far: Q's and K's extra columns left unzeroed, and
+    the scale of the window's width."""
+    b, s, heads, pads = 2, 256, 8, (0, 37)
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((b, s, heads * d)).astype(np.float32) for _ in range(3))
+    pad = np.asarray(pads, np.int32)
+    want = _np(jax_causal_flash(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(pad),
+                                num_q_heads=heads, num_kv_heads=heads, block_q=128, block_k=128,
+                                interpret=True))
+    tq, tk, tv, tp = (torch.from_numpy(a) for a in (q, k, v, pad))
+    got = _np(_causal_window_read(tq, tk, tv, tp, heads, d, width))
+    unzeroed = _np(_causal_window_read(tq, tk, tv, tp, heads, d, width, zero=False))
+    wrong_scale = _np(_causal_window_read(tq, tk, tv, tp, heads, d, width, scale_width=True))
+    for row, p in enumerate(pads):
+        np.testing.assert_allclose(got[row, p:], want[row, p:], atol=1e-5, rtol=0)
+        assert np.abs(unzeroed[row, p:] - want[row, p:]).max() > 0.1
+        assert np.abs(wrong_scale[row, p:] - want[row, p:]).max() > 1e-2
+    assert max(g * d % 8 for g in range(heads)) + d <= width
+
+
+CSRC = Path(fa.__file__).resolve().parent.parent / "csrc"
+
+
+def _c_rule(source: str, name: str):
+    """The body of ``static bool name(...)`` in csrc/``source`` as a Python
+    function of the same arguments: C's &&, ||, !, ?: and declarations
+    rewritten, its integer arithmetic (on non-negative values) unchanged."""
+    text = (CSRC / source).read_text()
+    m = re.search(r"static bool " + name + r"\(([^)]*)\) \{\n(.*?)\n\}", text, re.S)
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    lines = []
+    for line in m.group(2).splitlines():
+        line = line.strip().rstrip(";")
+        line = re.sub(r"const int (\w+) = (.+) \? (.+) : (.+)", r"\1 = (\3 if \2 else \4)", line)
+        line = re.sub(r"^if \((.*)\) return (.*)$", r"if \1: return \2", line)
+        line = line.replace("&&", " and ").replace("||", " or ").replace("!=", "<>")
+        line = line.replace("!", " not ").replace("<>", "!=")
+        lines.append("    " + line)
+    env = {"FRAG_BF16": 1, "FRAG_F32": 0, "true": True, "false": False}
+    exec(f"def rule({', '.join(args)}):\n" + "\n".join(lines), env)
+    return env["rule"]
+
+
+def test_k10_route_rule_mirrors_the_cuda_entry():
+    """bwd_reads_in_place names exactly the widths the C entry's check
+    (``bwd_reads_in_place`` in csrc/flash_attention_bwd.cu) reads in place,
+    at every head_dim 1-64 over 1-16 heads and any S: every multiple of 8
+    (16, 32, 48, 64 among them), 26 and 28 at head counts whose rows are
+    whole 16-byte chunks (12, 8, 4: not 3 or 6, K11's local heads of
+    TinyBERT-L-4 at tp 4 or 2), never 30, an odd width or an even one above
+    32 not a multiple of 8 (50). The window's offset, head * head_dim mod
+    8, is at most 8 - head_dim's lowest set bit, for every head of a layer
+    of up to 64."""
+    c_rule = _c_rule("flash_attention_bwd.cu", "bwd_reads_in_place")
+    for d in range(1, 65):
+        for heads in range(1, 17):
+            for s in (64, 128, 512):
+                assert fa.bwd_reads_in_place(d, s, heads * d) == c_rule(d, heads * d), (d, heads)
+    for d in (16, 26, 28, 32, 48, 64):
+        assert fa.bwd_reads_in_place(d, 512, 12 * d), d
+    for d, heads in ((26, 3), (26, 6), (30, 12), (25, 12), (50, 12), (62, 12)):
+        assert not fa.bwd_reads_in_place(d, 512, heads * d), (d, heads)
+    for d in (26, 28):
+        assert max(g * d % 8 for g in range(64)) + d <= 32
+
+
+def test_k9_route_rule_mirrors_the_cuda_entry():
+    """causal_reads_in_place names exactly the widths the C entry's check
+    (``reads_in_place`` in csrc/causal_flash.cu) reads in place, at every
+    head_dim 1-128, 1-8 kv heads and GQA groups 1-4, bf16 and f32: in f32
+    every even width; in bf16 64 and every multiple of 8 above it (80, 96
+    among them) at any group, and 100 (open_llama_3b_v2), 98 and 102 as
+    windows where one kv head serves one query head and the rows are whole
+    16-byte chunks (32 / 32 heads of 100: yes; 4 / 2 or 3 / 3: no); never
+    an odd width, a bf16 width below 64 (52, 48, 32: the head-64 kernel
+    takes only whole heads), nor 126, whose window would not fit 128. The
+    windows' offsets fit 128 for every head of a layer of up to 64."""
+    c_rule = _c_rule("causal_flash.cu", "reads_in_place")
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for d in range(1, 129):
+            for hkv in range(1, 9):
+                for group in (1, 2, 3, 4):
+                    hq = hkv * group
+                    assert (k9.causal_reads_in_place(d, hq, hkv, dtype)
+                            == c_rule(d, hq, hkv, code)), (d, hq, hkv, dtype)
+    bf16 = torch.bfloat16
+    assert all(k9.causal_reads_in_place(d, 32, 32, bf16) for d in (80, 96, 100, 64, 128, 98, 102))
+    assert k9.causal_reads_in_place(80, 32, 8, bf16) and k9.causal_reads_in_place(96, 12, 2, bf16)
+    for d, hq, hkv in ((100, 4, 2), (100, 3, 3), (126, 4, 4), (52, 8, 8), (48, 14, 2), (32, 14, 2),
+                       (25, 4, 4), (99, 8, 8)):
+        assert not k9.causal_reads_in_place(d, hq, hkv, bf16), (d, hq, hkv)
+    assert k9.causal_reads_in_place(100, 4, 2, torch.float32)
+    assert k9.causal_reads_in_place(52, 8, 8, torch.float32)
+    assert not k9.causal_reads_in_place(25, 4, 4, torch.float32)
+    for d in (100, 98, 102):
+        assert max(g * d % 8 for g in range(64)) + d <= 128
+
+
+def _capture_launches(monkeypatch, module):
+    """Launch nothing, record the launches and the pad copies' widths."""
+    from financial_rag_tpu_torch.ops import kernel_lib
+
+    calls, pads = [], []
+    real_pad = module.pad_heads
+    monkeypatch.setattr(kernel_lib, "require_cuda", lambda *t: t[0].device)
+    monkeypatch.setattr(kernel_lib, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(module, "pad_heads", lambda *a: pads.append(a[2]) or real_pad(*a))
+    return calls, pads
+
+
+@pytest.mark.parametrize("head_dim,s,heads,in_place", [
+    (16, 512, 12, True), (26, 512, 12, True), (26, 128, 12, True), (48, 512, 12, True),
+    (48, 128, 12, True), (32, 512, 12, True), (64, 128, 12, True), (26, 512, 6, False),
+    (26, 512, 3, False), (30, 512, 12, False), (25, 64, 12, False), (50, 512, 12, False)])
+def test_k10_wrapper_passes_heads_in_place(monkeypatch, head_dim, s, heads, in_place):
+    """On device tensors K10's wrapper hands the C entry q, k, v and dO as
+    they lie (H = heads * head_dim) at the widths bwd_reads_in_place names,
+    with no pad copy, and gradients at the true width; elsewhere the four
+    padded to the built width (H = heads * 32 or 64) and the gradients cut
+    back. The entry's head_dim is always the true one."""
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.empty(2, s, heads * head_dim, **meta)
+    bias = torch.zeros(2, s, device="meta")
+    calls, pads = _capture_launches(monkeypatch, fa)
+    grads = fa.flash_attention_bwd(q, q, q, bias, q, num_heads=heads)
+    assert [g.shape for g in grads] == [q.shape] * 3
+    (_, entry, _, *args), = calls
+    width = built_head_dim(head_dim, fa.BWD_HEAD_DIMS)
+    assert entry == "frag_flash_attention_bwd"
+    assert args[9:] == [2, s, heads * (head_dim if in_place else width), heads, head_dim]
+    assert pads == ([] if in_place else [width] * 4)
+
+
+@pytest.mark.parametrize("d,hq,hkv,dtype,in_place", [
+    (100, 32, 32, torch.bfloat16, True), (80, 32, 32, torch.bfloat16, True),
+    (96, 12, 2, torch.bfloat16, True), (64, 14, 2, torch.bfloat16, True),
+    (128, 32, 8, torch.bfloat16, True), (52, 8, 8, torch.bfloat16, False),
+    (100, 32, 32, torch.float32, True), (100, 4, 2, torch.float32, True),
+    (100, 4, 2, torch.bfloat16, False), (25, 4, 4, torch.bfloat16, False),
+    (126, 4, 4, torch.bfloat16, False), (25, 4, 4, torch.float32, False)])
+def test_k9_wrapper_passes_heads_in_place(monkeypatch, d, hq, hkv, dtype, in_place):
+    """On device tensors K9's wrapper hands the C entry q, k and v as they
+    lie (a head's columns D = head_dim) at the widths causal_reads_in_place
+    names, with no pad copy and an output at the true width; elsewhere the
+    three padded to the built width (D = 64 or 128) and the output cut
+    back. The entry's head_dim is always the true one."""
+    s = 96
+    q = torch.empty(1, s, hq * d, device="meta", dtype=dtype)
+    kv = torch.empty(1, s, hkv * d, device="meta", dtype=dtype)
+    pad = torch.zeros(1, dtype=torch.int32, device="meta")
+    calls, pads = _capture_launches(monkeypatch, k9)
+    out = k9.causal_flash_prefill(q, kv, kv, pad, num_q_heads=hq, num_kv_heads=hkv)
+    assert out.shape == q.shape
+    (_, entry, _, *args), = calls
+    width = built_head_dim(d, k9.KERNEL_HEAD_DIMS)
+    assert entry == "frag_causal_flash"
+    assert args[5:] == [1, s, hq, hkv, d if in_place else width,
+                        1 if dtype == torch.bfloat16 else 0, d]
+    assert pads == ([] if in_place else [width] * 3)
 
 
 def test_pad_heads_round_trips_and_leaves_built_widths_alone():
