@@ -485,6 +485,8 @@ def reset_launches() -> None:
             setattr(mod, COUNTER_ATTR.get(name, "LAUNCHES"), 0)
         if name in ("flash_attention", "fused_ffn"):   # and their counts by width
             mod.WIDTH_LAUNCHES.clear()
+        if name == "flash_attention":                  # and K2's on heads read in place
+            mod.FWD_IN_PLACE_LAUNCHES = 0
         if name == "flash_attention_bwd":              # and K10's on heads read in place
             mod.BWD_IN_PLACE_LAUNCHES = 0
         if name == "causal_flash_prefill":             # and K9's by head_dim, in place too
@@ -1173,12 +1175,39 @@ def in_place_controls(torch, run, q, k, v, heads: int, built, neighbours):
             ("neighbour_columns_in_the_products", lambda: neighbours(width)))
 
 
-def routed(cases, reads_in_place):
-    """Each case's shape label with its route: ``in place`` where
-    ``reads_in_place(case)`` says so, else ``copy`` (the heads padded in a
-    copy)."""
-    return [(name, f"{shape},{'in place' if reads_in_place(shape) else 'copy'}", *rest)
-            for name, shape, *rest in cases]
+class RoutedRun:
+    """A generic case's wrapper call, which reads its kernel's count of
+    launches on heads read where they lie (``in_place_count()``) before and
+    after every call. ``route`` is what the calls did: ``in place`` where
+    every one read the heads where they lie, ``copy`` where none did (the
+    heads padded in a copy), ``mixed`` otherwise; ``expected`` is what the
+    wrapper's route rule says, and phase_kernels fails a case whose route
+    is not that."""
+
+    def __init__(self, run, in_place_count, expected: str):
+        self.run, self.in_place_count, self.expected = run, in_place_count, expected
+        self.calls = self.in_place = 0
+
+    def __call__(self):
+        before = self.in_place_count()
+        out = self.run()
+        self.in_place += self.in_place_count() - before
+        self.calls += 1
+        return out
+
+    @property
+    def route(self) -> str:
+        return ("in place" if self.in_place == self.calls else "copy" if self.in_place == 0
+                else "mixed")
+
+
+def routed(cases, in_place_count, reads_in_place):
+    """Each case's wrapper call as a RoutedRun that reads ``in_place_count()``
+    around it; ``reads_in_place(shape)`` (the wrapper's rule) is the route it
+    must take."""
+    return [(name, shape, RoutedRun(run, in_place_count,
+                                    "in place" if reads_in_place(shape) else "copy"), *rest)
+            for name, shape, run, *rest in cases]
 
 
 def generic_cases(torch, F, randn, padded_mask):
@@ -1191,8 +1220,10 @@ def generic_cases(torch, F, randn, padded_mask):
     at 12 heads of GENERIC_HEAD_DIMS, B=64 S=512 and B=8 S=64 with a fully
     masked row, and K9 at 32 / 32 heads of GENERIC_CAUSAL_HEAD_DIMS, bf16
     B=1 S=4,096 pad 1,100 and f32 S=128, the scale from the true head_dim;
-    each case's shape names its route (``in place``: the heads read where
-    they lie; ``copy``: padded to the built width). The first case of K2,
+    each case's shape names the route its wrapper calls took, read from the
+    kernel's in-place launch count around each call (``in place``: the
+    heads read where they lie; ``copy``: padded to the built width), and a
+    route other than the wrapper's rule names fails. The first case of K2,
     K10 and K9 carries the in-place read's two controls (in_place_controls:
     the built width's scale; a neighbour head's columns reaching the
     products, window_attention, window_attention_bwd,
@@ -1241,6 +1272,7 @@ def generic_cases(torch, F, randn, padded_mask):
                         q_, k, v, bias, num_heads=NH), q, k, v, NH, fa.FWD_HEAD_DIMS,
                     lambda w, q=q, k=k, v=v, bias=bias: window_attention(torch, q, k, v, bias, NH, w))
             cases += routed([wide_attention_case(torch, F, q, k, v, mask, bias, NH, d, controls)],
+                            lambda: fa.FWD_IN_PLACE_LAUNCHES,
                             lambda shape, d=d, s=s: fa.fwd_reads_in_place(d, s, NH * d))
 
     def k10_controls(q, k, v, bias, do):
@@ -1253,7 +1285,8 @@ def generic_cases(torch, F, randn, padded_mask):
                                             shapes=GENERIC_ATTENTION_SHAPES,
                                             extra_controls=k10_controls
                                             if d == GENERIC_HEAD_DIMS[0] else None),
-                        lambda shape, d=d: fa.bwd_reads_in_place(d, 0, NH * d))
+                        lambda: fa.BWD_IN_PLACE_LAUNCHES,
+                        lambda shape, d=d: fa.bwd_reads_in_place(d, NH * d))
 
     def k9_controls(q, k, v, pad):
         return in_place_controls(
@@ -1266,6 +1299,7 @@ def generic_cases(torch, F, randn, padded_mask):
                                      shapes=GENERIC_CAUSAL_SHAPES,
                                      extra_controls=k9_controls
                                      if d == GENERIC_CAUSAL_HEAD_DIMS[0] else None),
+                        lambda d=d: cf.IN_PLACE_LAUNCHES[d],
                         lambda shape, d=d: cf.causal_reads_in_place(
                             d, 32, 32, torch.bfloat16 if shape.endswith("bf16") else torch.float32))
     return [(f"{name.partition('@')[0]}@generic", *rest) for name, *rest in cases]
@@ -2055,6 +2089,12 @@ def phase_kernels(torch, F, seed):
             elif not any(HOPPER_SWEEP[kernel] in n for n in names):
                 unseen.append((kernel, shape, names))
         ms = cuda_ms(torch, run)
+        if isinstance(run, RoutedRun):   # the route the wrapper's calls took, read from its count
+            shape = f"{shape},{run.route}"
+            detail["route_calls"] = run.calls
+            if run.route != run.expected:
+                failures.append(f"{name} [{shape}]: {run.in_place} of {run.calls} wrapper calls "
+                                f"read the heads in place, its rule says {run.expected}")
         if kernel == "causal_flash_prefill":   # the kernel alone, without the wrapper's host time
             detail["device_ms"] = device_ms(torch, run)
         plain_ms = cuda_ms(torch, plain)

@@ -115,15 +115,14 @@
 //    [B][S][Hkv*dh] at the head's first column rounded down to a multiple
 //    of 8 (the TMA faults on a box that starts off a 16-byte column): a
 //    window with the head at columns off .. off+dh-1 (off = h*dh mod 8, 0
-//    or 4 at 100) and its neighbours' columns around it. The producer
-//    warp zeroes the window's K columns that are not the head's in shared
-//    memory and only then publishes the tile (one K tile after it issued
-//    it, its bytes landing on a barrier of their own), so a neighbour's
-//    k, an inf included, never meets a zero of Q's. At 32 / 32 heads of
-//    100, B=1 S=4,096 pad 1,100 (kernel_ab.py, NVIDIA H100 80GB HBM3,
-//    700.00 W) this ran 0.2830 ms, and warpgroup 0 zeroing them before its
-//    turn (it goes first on every tile) 0.2013-0.2023: the faster form,
-//    held in ROADMAP §B; the padded kernel alone 0.1765-0.1774.
+//    or 4 at 100) and its neighbours' columns around it. Warpgroup 0, which
+//    goes first on every tile, zeroes the window's K columns that are not
+//    the head's in shared memory before its turn, so a neighbour's k, an
+//    inf included, never meets a zero of Q's; warpgroup 1 takes the tile
+//    after warpgroup 0's turn. At 32 / 32 heads of 100, B=1 S=4,096 pad
+//    1,100 (kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W) this ran
+//    0.2013-0.2023 ms, and the producer warp zeroing them (publishing each K
+//    tile one tile late) 0.2830; the padded kernel alone 0.1765-0.1774.
 //  - Q stays on cp.async, from the same 16-byte column: whole chunks by
 //    16-byte copies, a chunk the head fills in part by 4-byte copies of
 //    its pieces and zeros (cp_async_cols), so only the head's columns are
@@ -142,6 +141,8 @@
 // 16-byte chunks, or that shares its kv head with other query heads, and
 // an odd dh, is padded in a copy by the caller.
 #include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -393,8 +394,8 @@ __device__ __forceinline__ void zero_kv_cols(uint32_t tile, int lo, int hi, int 
 // [B][S][Hkv][dh] (by_head: dh a multiple of 8; columns past dh read as
 // zeros) or from a 3-D map over [B][S][Hkv*dh] at the head's 16-byte column
 // c0 (a window: the head at columns off .. off+dh-1, its neighbours' around
-// it, whose K columns the producer warp zeroes before it publishes the
-// tile; at dh = 128 the window is the head).
+// it, whose K columns warpgroup 0 zeroes before its turn on the tile; at
+// dh = 128 the window is the head).
 template <int N>
 __global__ void __launch_bounds__(kWideThreads, 1)
 causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tm_k,
@@ -405,7 +406,6 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_k[kWideStages], full_v[kWideStages];
   __shared__ __align__(8) uint64_t empty_k[kWideStages], empty_v[kWideStages];
-  __shared__ __align__(8) uint64_t landed_k[kWideStages];   // a window's K bytes, before its zeroing
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sK = sQ + kConsumers * kQBytes;      // stage st: K at sK + st * kKvBytes
   const uint32_t sV = sK + kWideStages * kKvBytes;    //           V at sV + st * kKvBytes
@@ -425,11 +425,8 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kWideStages; ++st) {
-      // the producer's expect_tx, then the tile's bytes; a window's K: every
-      // producer lane, once its zeros are stored
-      mbar_init(&full_k[st], zero_k ? 32 : 1);
+      mbar_init(&full_k[st], 1);   // the producer's expect_tx, then the tile's bytes
       mbar_init(&full_v[st], 1);
-      mbar_init(&landed_k[st], 1);
       mbar_init(&empty_k[st], kConsumers * 4);    // lane 0 of every consumer warp
       mbar_init(&empty_v[st], kConsumers * 4);
     }
@@ -441,46 +438,26 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
   if (warp == kConsumers * 4) {
     // producer: one thread has the TMA copy K tile t, then V tile t, into
     // stage t % kWideStages once both warpgroups released what it held
-    // (two 64-column boxes of one kv head, 16 KB each). A window's K tile
-    // lands on landed_k and is published on full_k after K tile t+1 is
-    // issued (before V tile t+1, which waits for the warpgroups' P V), once
-    // the 32 lanes have zeroed its columns that are not the head's
-    if (lane == 0) {
-      prefetch_tensor_map(&tm_k);
-      prefetch_tensor_map(&tm_v);
-    }
+    // (two 64-column boxes of one kv head, 16 KB each)
+    if (lane != 0) return;
+    prefetch_tensor_map(&tm_k);
+    prefetch_tensor_map(&tm_v);
     auto boxes = [&](uint32_t dst, const CUtensorMap* map, int k0, uint64_t* bar) {
       for (int i = 0; i < 2; ++i) {
         if (by_head) tma_load_4d(dst + i * kKvRegion, map, 64 * i, g, k0, b, bar);
         else tma_load_3d(dst + i * kKvRegion, map, kc.c0 + 64 * i, k0, b, bar);
       }
     };
-    auto publish_k = [&](int t) {   // a window's K tile t, issued
-      const int st = t % kWideStages;
-      const uint32_t kt = sK + st * kKvBytes;
-      mbar_wait(&landed_k[st], (t / kWideStages) & 1);
-      zero_kv_cols(kt, 0, kc.off, lane, 32);
-      zero_kv_cols(kt, kc.off + dh, 16 * kSteps, lane, 32);
-      fence_proxy_async();
-      mbar_arrive(&full_k[st]);
-    };
     for (int t = 0; t < ntiles; ++t) {
       const int st = t % kWideStages, k0 = k_begin + t * kWideKeys;
       const uint32_t parity = (t / kWideStages - 1) & 1;
-      if (lane == 0) {
-        if (t >= kWideStages) mbar_wait(&empty_k[st], parity);
-        uint64_t* bar = zero_k ? &landed_k[st] : &full_k[st];
-        mbar_expect_tx(bar, kKvBytes);
-        boxes(sK + st * kKvBytes, &tm_k, k0, bar);
-      }
-      if (zero_k && t > 0) publish_k(t - 1);
-      if (lane == 0) {
-        if (t >= kWideStages) mbar_wait(&empty_v[st], parity);
-        mbar_expect_tx(&full_v[st], kKvBytes);
-        boxes(sV + st * kKvBytes, &tm_v, k0, &full_v[st]);
-      }
+      if (t >= kWideStages) mbar_wait(&empty_k[st], parity);
+      mbar_expect_tx(&full_k[st], kKvBytes);
+      boxes(sK + st * kKvBytes, &tm_k, k0, &full_k[st]);
+      if (t >= kWideStages) mbar_wait(&empty_v[st], parity);
+      mbar_expect_tx(&full_v[st], kKvBytes);
+      boxes(sV + st * kKvBytes, &tm_v, k0, &full_v[st]);
     }
-    if (zero_k && ntiles > 0) publish_k(ntiles - 1);
     return;
   }
 
@@ -522,6 +499,11 @@ causal_fwd_bf16_d128_kernel(const __nv_bfloat16* __restrict__ q, const __grid_co
     const uint32_t parity = (t / kWideStages) & 1;
     const uint32_t kt = sK + st * kKvBytes, vt = sV + st * kKvBytes;
     mbar_wait(&full_k[st], parity);
+    if (zero_k && w == 0) {   // before the turn that passes the tile to warpgroup 1
+      zero_kv_cols(kt, 0, kc.off, wt, 128);
+      zero_kv_cols(kt, kc.off + dh, 16 * kSteps, wt, 128);
+      fence_proxy_async();    // this thread's zeros, before the wgmmas read the tile
+    }
     named_barrier(kTurnBarrier + w, 2 * 128);
     wgmma_fence();
 #pragma unroll
@@ -605,9 +587,11 @@ constexpr int kF32KTile = 32;
 
 // f32: thread (row, part) owns head dims part, part+4, ... of one query row,
 // so the four parts of a row read neighbouring shared-memory banks. A head of
-// dh <= D columns (even: 8-byte pairs) is read where it lies, its other
-// columns of the tiles zeros, and only its own columns are written.
-template <int D>
+// dh <= D columns is read where it lies, its other columns of the tiles
+// zeros, and only its own columns are written. K and V are copied kVec
+// floats at a time: 4 (16 bytes, as at the built widths) where dh is a
+// multiple of 4, else 2 (dh even: a head of 98 or 102 starts 8-byte aligned).
+template <int D, int kVec>
 __global__ void __launch_bounds__(kF32Threads)
 causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ pad_len,
@@ -638,16 +622,17 @@ causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (q0 + kQTile > pad) {
     for (int k0 = (pad / kF32KTile) * kF32KTile; k0 < key_end; k0 += kF32KTile) {
       __syncthreads();
-      for (int e = threadIdx.x; e < kF32KTile * (D / 2); e += kF32Threads) {
-        const int r = e / (D / 2), c = 2 * (e % (D / 2));
-        float2 kv = make_float2(0.f, 0.f), vv = kv;
+      using Vec = std::conditional_t<kVec == 4, float4, float2>;
+      for (int e = threadIdx.x; e < kF32KTile * (D / kVec); e += kF32Threads) {
+        const int r = e / (D / kVec), c = kVec * (e % (D / kVec));
+        Vec kv{}, vv{};
         if (k0 + r < S && c < dh) {
           const size_t src = kbase + (size_t)(k0 + r) * hkv_w + c;
-          kv = *reinterpret_cast<const float2*>(k + src);
-          vv = *reinterpret_cast<const float2*>(v + src);
+          kv = *reinterpret_cast<const Vec*>(k + src);
+          vv = *reinterpret_cast<const Vec*>(v + src);
         }
-        *reinterpret_cast<float2*>(&ks[r * D + c]) = kv;
-        *reinterpret_cast<float2*>(&vs[r * D + c]) = vv;
+        *reinterpret_cast<Vec*>(&ks[r * D + c]) = kv;
+        *reinterpret_cast<Vec*>(&vs[r * D + c]) = vv;
       }
       __syncthreads();
 
@@ -793,10 +778,9 @@ FRAG_EXPORT int frag_causal_flash(const void* q, const void* k, const void* v, c
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(out);
-    if (D <= 64)
-      causal_fwd_f32_kernel<64><<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale, D);
-    else
-      causal_fwd_f32_kernel<128><<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale, D);
+    auto f32_kernel = D <= 64 ? (D % 4 ? &causal_fwd_f32_kernel<64, 2> : &causal_fwd_f32_kernel<64, 4>)
+                              : (D % 4 ? &causal_fwd_f32_kernel<128, 2> : &causal_fwd_f32_kernel<128, 4>);
+    f32_kernel<<<grid, kF32Threads, 0, st>>>(qf, kf, vf, pad_len, of, S, Hq, group, scale, D);
   } else {
     return (int)cudaErrorInvalidValue;
   }

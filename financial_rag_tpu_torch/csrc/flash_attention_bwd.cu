@@ -38,17 +38,29 @@
 // Narrower heads (TinyBERT-L-4's 26, 16, 48) are read where they lie, at
 // the built width that holds them, as the TPU kernel slices each head out
 // of whole rows: each operand row is copied from the head's first column
-// rounded down to a multiple of 8, of which only the head's columns are
-// read (cp_async_cols: whole chunks by 16-byte copies, a chunk the head
-// fills in part by 4-byte copies and zeros, the rest zeros), so a
-// neighbour's q, k, v or dO, an inf included, never reaches the products.
+// rounded down to a multiple of 8, by 16-byte copies of the chunks that
+// hold a column of the head (the rest zeros). At 26 a chunk the head fills
+// in part also brings a neighbour's columns; each thread zeroes those of
+// its own chunks once they landed, before the barrier that publishes the
+// tile, so a neighbour's q, k, v or dO, an inf included, never reaches the
+// products. (Copying such a chunk as 4-byte pieces instead ran the pair
+// 0.9444-0.9577 ms at B=64 S=512 every key live, against 0.8768 for PR 23's
+// pad copies and kernel: kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W.)
 // dq, dk and dv go out by TMA from bf16 staging tiles (dq in Q's tile, dk
 // and dv in the resident K and V tiles, read no more): through 3-D maps at
 // the built width, 4-D maps over [B][S][heads][dh] at a narrower head of
 // whole 16-byte chunks (writing none of the columns past dh); a head at an
 // offset in its 16-byte chunks (26) by 4-byte stores of its own columns.
-// (The 4-byte stores of every head had taken half of the fused kernel's
-// time below.)
+// Which of the three a launch takes is a template argument of both kernels
+// (OutRoute), so the built widths copy every chunk with no column choice: a
+// run-time choice in the copy loop and the epilogue had cost them 12-25%
+// (32 at B=256 S=128 0.2277-0.2312 ms against 0.2044-0.2048). The TMA
+// stores beat the 4-byte stores of before the narrower heads there: 32 at
+// B=256 S=128 0.2048-0.2051 against 0.2104-0.2108 with 4-byte stores and
+// 0.2067-0.2071 before; 64 at B=64 S=512 0.8032-0.8102 against
+// 0.8455-0.8576 and 0.8415-0.8467 (kernel_ab.py, NVIDIA H100 80GB HBM3,
+// 700.00 W). (The 4-byte stores of every head had taken half of the fused
+// kernel's time below.)
 //   1. attn_bwd_dq_kernel, per 64-query tile, Q and dO resident. Where the
 //      row fits in registers (S <= 128, the whole train path) its key tiles
 //      are walked once: S = QK^T and dP = dO V^T stay in registers, the
@@ -175,29 +187,62 @@ struct HeadWindow {
   size_t base;   // element offset of column c0 of batch row b's first row
 };
 
+// How the two kernels read and write one head's rows (header): a whole
+// head (dh == D), its chunks copied one by one as before the narrower
+// heads, dq, dk and dv stored by TMA from a bf16 staging tile through 3-D
+// maps over [B][S][H] at column head * D; a narrower head of whole 16-byte
+// chunks (16, 48), the same through 4-D maps over [B][S][heads][dh], which
+// write none of the columns past dh; a window (dh not a multiple of 8: 26),
+// 4-byte stores of the head's own columns from its offset. Rows past S are
+// not written.
+enum OutRoute : int { kOut3d = 0, kOut4d = 1, kOutWindow = 2 };
+
 // Rows [r0, r0+64) of one head of a [B,S,H] bf16 tensor into a swizzled
-// HeadTile<D> at `dst`: each row's D columns from the head's c0, of which
-// only the head's own (off .. off+dh-1) are read; the others, and rows
-// past S, are zeros. A thread copies the same 16-byte chunk of every row
-// it takes (kThreads is a multiple of the chunks a row), so whether that
-// chunk is the head's, none of it or a part is decided once: a whole or
-// empty chunk is one predicated 16-byte copy, as at the built width (a
-// per-copy choice measured ~20% slower there), and only a chunk the head
-// fills in part (a window's ends) takes cp_async_cols's 4-byte pieces.
-template <int D>
+// HeadTile<D> at `dst`: each row's D columns from the head's c0; columns
+// past the head's last chunk, and rows past S, are zeros. A whole head
+// copies every chunk of every row. Else a thread copies the same 16-byte
+// chunk of every row it takes (kThreads is a multiple of the chunks a row),
+// so whether that chunk holds a column of the head is decided once (a
+// per-copy choice measured ~20% slower): one predicated 16-byte copy. A
+// window's chunk that the head fills in part comes whole, its neighbours'
+// columns included, and zero_window_cols zeroes those once it landed.
+template <int D, OutRoute R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __restrict__ src,
                                           const HeadWindow& hw, int r0, int S, int H) {
   using Hd = HeadTile<D>;
-  const int c = threadIdx.x & (Hd::kChunks - 1);
-  const int lo = hw.off - 8 * c, hi = hw.off + hw.dh - 8 * c;
-  const bool whole = lo <= 0 && hi >= 8, part = !whole && lo < 8 && hi > 0;
-  const __nv_bfloat16* col = src + hw.base + 8 * c;
-  for (int r = threadIdx.x >> Hd::kChunkBits; r < kTile; r += kThreads >> Hd::kChunkBits) {
-    const bool ok = r0 + r < S;
-    const __nv_bfloat16* row = col + (size_t)(ok ? r0 + r : 0) * H;
-    if (part) cp_async_cols(dst + Hd::at(r, c), row, lo, ok ? hi : lo);
-    else cp_async16(dst + Hd::at(r, c), row, ok && whole);
+  if constexpr (R == kOut3d) {
+    for (int e = threadIdx.x; e < kTile * Hd::kChunks; e += kThreads) {
+      const int r = e >> Hd::kChunkBits, c = e & (Hd::kChunks - 1);
+      const bool ok = r0 + r < S;
+      cp_async16(dst + Hd::at(r, c), src + hw.base + (size_t)(ok ? r0 + r : 0) * H + 8 * c, ok);
+    }
+  } else {
+    const int c = threadIdx.x & (Hd::kChunks - 1);
+    const bool head = hw.off - 8 * c < 8 && hw.off + hw.dh - 8 * c > 0;
+    const __nv_bfloat16* col = src + hw.base + 8 * c;
+    for (int r = threadIdx.x >> Hd::kChunkBits; r < kTile; r += kThreads >> Hd::kChunkBits) {
+      const bool ok = r0 + r < S;
+      cp_async16(dst + Hd::at(r, c), col + (size_t)(ok ? r0 + r : 0) * H, ok && head);
+    }
   }
+}
+
+// A window's tile at `dst`, landed (the calling thread has waited for its
+// own copies): the columns of the chunks this thread copied that are not
+// the head's, as zeros, so that a neighbour's value (an inf included) meets
+// no zero of another operand. The caller's fence.proxy.async and barrier
+// order them before the tensor cores' reads.
+template <int D>
+__device__ __forceinline__ void zero_window_cols(uint32_t dst, const HeadWindow& hw) {
+  using Hd = HeadTile<D>;
+  const int c = threadIdx.x & (Hd::kChunks - 1);
+  const int lo = hw.off - 8 * c, hi = hw.off + hw.dh - 8 * c;   // the head's columns of the chunk
+  if (lo <= 0 && hi >= 8) return;   // the head's whole chunk
+  if (lo >= 8 || hi <= 0) return;   // none of the head: never copied, zeros
+  for (int r = threadIdx.x >> Hd::kChunkBits; r < kTile; r += kThreads >> Hd::kChunkBits)
+#pragma unroll
+    for (int p = 0; p < 8; p += 2)   // off and dh even: 4-byte pieces
+      if (p < lo || p >= hi) st_shared_u32(dst + Hd::at(r, c) + 2 * p, 0u);
 }
 
 // The largest key bias of the batch row, times log2(e), on every thread.
@@ -215,9 +260,10 @@ __device__ __forceinline__ float bias_max(const float* __restrict__ brow, int S)
 }
 
 // The cp.async ring: tile t of `nloads` goes to stage t % kStages. The
-// prologue fetches tiles 0 .. kStages-2; acquire(t) waits for tile t, makes
-// it visible to wgmma, and refills the stage of tile t-1, which every
-// thread finished reading before the barrier.
+// prologue fetches tiles 0 .. kStages-2; acquire(t) waits for tile t, has
+// landed(t) fix it up (a window's zeros), makes it visible to wgmma, and
+// refills the stage of tile t-1, which every thread finished reading before
+// the barrier.
 template <typename Fetch>
 __device__ __forceinline__ void ring_prologue(Fetch fetch, int nloads) {
 #pragma unroll
@@ -226,9 +272,10 @@ __device__ __forceinline__ void ring_prologue(Fetch fetch, int nloads) {
     cp_async_commit();
   }
 }
-template <typename Fetch>
-__device__ __forceinline__ void ring_acquire(Fetch fetch, int t, int nloads) {
+template <typename Fetch, typename Landed>
+__device__ __forceinline__ void ring_acquire(Fetch fetch, Landed landed, int t, int nloads) {
   cp_async_wait<kStages - 2>();
+  landed(t);
   fence_proxy_async();
   __syncthreads();
   if (t + kStages - 1 < nloads) fetch(t + kStages - 1);
@@ -264,14 +311,6 @@ __device__ __forceinline__ int live_tiles(const float* __restrict__ brow, int S,
   return list[kMaxListed];
 }
 
-// How the two kernels write a head's 64 rows of dq, dk or dv: a whole head
-// (dh == D) by one TMA store of a bf16 staging tile through a 3-D map over
-// [B][S][H] at column head * D; a narrower head of whole 16-byte chunks
-// through a 4-D map over [B][S][heads][dh], which writes none of the
-// columns past dh; a window (dh not a multiple of 8) by 4-byte stores of
-// the head's own columns from its offset. Rows past S are not written.
-enum OutRoute : int { kOut3d = 0, kOut4d = 1, kOutWindow = 2 };
-
 // Rows r0 and r0 + 8 of an f32 [64 x D] accumulator (the wgmma layout) times
 // `scale`, as bf16 into a HeadTile<D> at `tile` (a TMA store's source).
 template <int D>
@@ -284,15 +323,6 @@ __device__ __forceinline__ void stage_head_rows(uint32_t tile, int r0, int tig, 
     for (int nt = 0; nt < D / 8; ++nt)
       st_shared_u32(tile + Hd::at(r0 + 8 * r, nt) + 4 * tig,
                     pack_bf16(c[4 * nt + 2 * r] * scale, c[4 * nt + 2 * r + 1] * scale));
-}
-
-// The staging tile at `tile` to rows row .. row+63 of head `head` of batch
-// row b, by the TMA, from thread 0, which waits until the copy has read the
-// tile (the block may end next).
-__device__ __forceinline__ void store_head_tile(const CUtensorMap* map, uint32_t tile, OutRoute route,
-                                                int head, int col, int row, int b) {
-  if (route == kOut3d) tma_store_3d(map, tile, col, row, b);
-  else tma_store_4d(map, tile, 0, head, row, b);
 }
 
 // A window's rows row0, row0+8 of an f32 [64 x D] accumulator * scale: the
@@ -317,35 +347,37 @@ __device__ __forceinline__ void store_window_rows(__nv_bfloat16* __restrict__ ou
 }
 
 // The epilogue of one accumulator of a block: its 64 rows from row tile0
-// on, through `route`; `tile` is a staging tile no product reads any more.
-template <int D>
+// on, through route R; `tile` is a staging tile no product reads any more.
+template <int D, OutRoute R>
 __device__ __forceinline__ void write_head_rows(const CUtensorMap* map, uint32_t tile, __nv_bfloat16* out,
-                                                OutRoute route, int head, int dh, int off, int tile0,
-                                                int S, int H, int b, const float (&c)[D / 2], float scale) {
+                                                int head, int dh, int off, int tile0, int S, int H, int b,
+                                                const float (&c)[D / 2], float scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (route == kOutWindow) {
+  if constexpr (R == kOutWindow) {
     store_window_rows<D>(out, (size_t)b * S * H + (size_t)head * dh, tile0 + warp * 16 + (lane >> 2), S, H,
                          lane & 3, c, scale, off, dh);
-    return;
-  }
-  stage_head_rows<D>(tile, warp * 16 + (lane >> 2), lane & 3, c, scale);
-  fence_proxy_async();  // the staging tile, stored by this thread, before the async proxy reads it
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    store_head_tile(map, tile, route, head, head * D, tile0, b);
-    bulk_commit();
+  } else {
+    stage_head_rows<D>(tile, warp * 16 + (lane >> 2), lane & 3, c, scale);
+    fence_proxy_async();  // the staging tile, stored by this thread, before the async proxy reads it
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if constexpr (R == kOut3d) tma_store_3d(map, tile, head * D, tile0, b);
+      else tma_store_4d(map, tile, 0, head, tile0, b);
+      bulk_commit();
+    }
   }
 }
 
 // kResident > 0: the row's key tiles (at most kResident) are walked once
 // and held in registers; kResident == 0: two walks over any number of tiles.
-template <int D, int kResident>
+// R: how the head is read and dq written (OutRoute).
+template <int D, int kResident, OutRoute R>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                    const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
                    const __grid_constant__ CUtensorMap tm_dq, float* __restrict__ stats, int S, int H,
-                   int dh, OutRoute route, float c, float scale) {
+                   int dh_arg, float c, float scale) {
   using Hd = HeadTile<D>;
   constexpr int kTileBytes = Layout<D>::kTileBytes, kStageBytes = Layout<D>::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -356,7 +388,7 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int row0 = blockIdx.x * kTile + warp * 16 + gid;  // this thread's rows: row0, row0+8
-  const int off = head * dh % 8;
+  const int dh = R == kOut3d ? D : dh_arg, off = R == kOutWindow ? head * dh % 8 : 0;
   const HeadWindow hw{off, dh, (size_t)b * S * H + (size_t)head * dh - off};
   const float* brow = bias + (size_t)b * S;
   const int nkt = (S + kTile - 1) / kTile;
@@ -371,8 +403,8 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   float mb;
   if constexpr (kSkip) {
     __shared__ int list[kMaxListed + 1];
-    load_tile<D>(sQ, q, hw, blockIdx.x * kTile, S, H);
-    load_tile<D>(sO, dout, hw, blockIdx.x * kTile, S, H);
+    load_tile<D, R>(sQ, q, hw, blockIdx.x * kTile, S, H);
+    load_tile<D, R>(sO, dout, hw, blockIdx.x * kTile, S, H);
     mb = bias_max(brow, S);
     nwalk = live_tiles(brow, S, mb, list);
     live_kt = list;
@@ -382,12 +414,25 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   auto fetch = [&](int t) {
     const uint32_t st = sRing + (t % kStages) * kStageBytes;
     const int k0 = tile_of(t % nwalk) * kTile;
-    load_tile<D>(st, k, hw, k0, S, H);
-    load_tile<D>(st + kTileBytes, v, hw, k0, S, H);
+    load_tile<D, R>(st, k, hw, k0, S, H);
+    load_tile<D, R>(st + kTileBytes, v, hw, k0, S, H);
+  };
+  // ring tile t landed (Q and dO with tile 0, in its copy group): a
+  // window's columns outside the head zeroed
+  auto landed = [&](int t) {
+    if constexpr (R == kOutWindow) {
+      if (t == 0) {
+        zero_window_cols<D>(sQ, hw);
+        zero_window_cols<D>(sO, hw);
+      }
+      const uint32_t st = sRing + (t % kStages) * kStageBytes;
+      zero_window_cols<D>(st, hw);
+      zero_window_cols<D>(st + kTileBytes, hw);
+    }
   };
   if constexpr (!kSkip) {
-    load_tile<D>(sQ, q, hw, blockIdx.x * kTile, S, H);
-    load_tile<D>(sO, dout, hw, blockIdx.x * kTile, S, H);
+    load_tile<D, R>(sQ, q, hw, blockIdx.x * kTile, S, H);
+    load_tile<D, R>(sO, dout, hw, blockIdx.x * kTile, S, H);
   }
   fetch(0);
   cp_async_commit();
@@ -435,6 +480,9 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     // then start all of their products behind one wait
     float s[kResident][32], dp[kResident][32], bb[kResident][16];
     cp_async_wait<0>();
+#pragma unroll
+    for (int t = 0; t < kResident; ++t)
+      if (t < nkt) landed(t);
     fence_proxy_async();
     __syncthreads();
 #pragma unroll
@@ -491,7 +539,7 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   } else {
     // walk 1: each row's max m, sum l and acc = sum exp2(u - m) dP, online
     for (int t = 0; t < nwalk; ++t) {
-      ring_acquire(fetch, t, nloads);
+      ring_acquire(fetch, landed, t, nloads);
       float s[32], dp[32], bb[16];
       products(t, s, dp);
       key_bias(tile_of(t), bb);
@@ -528,7 +576,7 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     }
     // walk 2: dS = P o (dP - D), dQ += dS(bf16) K
     for (int t = nwalk; t < 2 * nwalk; ++t) {
-      ring_acquire(fetch, t, nloads);
+      ring_acquire(fetch, landed, t, nloads);
       float s[32], dp[32], bb[16];
       products(t, s, dp);
       key_bias(tile_of(t - nwalk), bb);
@@ -555,19 +603,19 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       stats[plane + at] = dsum[r];
     }
   }
-  if (route != kOutWindow) __syncthreads();   // every product has read Q: dq is staged there
-  write_head_rows<D>(&tm_dq, sQ, dq, route, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dq, scale);
+  if constexpr (R != kOutWindow) __syncthreads();   // every product has read Q: dq is staged there
+  write_head_rows<D, R>(&tm_dq, sQ, dq, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dq, scale);
   if (threadIdx.x == 0) bulk_wait_read<0>();
 }
 
-template <int D>
+template <int D, OutRoute R>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                      const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
-                     int S, int H, int dh, OutRoute route, float c, float scale) {
+                     int S, int H, int dh_arg, float c, float scale) {
   using Hd = HeadTile<D>;
   constexpr int kTileBytes = Layout<D>::kTileBytes, kStageBytes = Layout<D>::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -580,7 +628,7 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int key0 = blockIdx.x * kTile + warp * 16 + gid;  // this thread's keys: key0, key0+8
-  const int off = head * dh % 8;
+  const int dh = R == kOut3d ? D : dh_arg, off = R == kOutWindow ? head * dh % 8 : 0;
   const HeadWindow hw{off, dh, (size_t)b * S * H + (size_t)head * dh - off};
   const size_t plane = (size_t)gridDim.z * heads * S;
   const float* lse = stats + ((size_t)b * heads + head) * S;
@@ -591,12 +639,25 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   // past S, so that those queries add exact zeros)
   auto fetch = [&](int t) {
     const int st = t % kStages;
-    load_tile<D>(sRing + st * kStageBytes, q, hw, t * kTile, S, H);
-    load_tile<D>(sRing + st * kStageBytes + kTileBytes, dout, hw, t * kTile, S, H);
+    load_tile<D, R>(sRing + st * kStageBytes, q, hw, t * kTile, S, H);
+    load_tile<D, R>(sRing + st * kStageBytes + kTileBytes, dout, hw, t * kTile, S, H);
     const int i = threadIdx.x & (kTile - 1), which = threadIdx.x / kTile, qi = t * kTile + i;
     const uint32_t dst = sStats + st * kStatBytes + (which * kTile + i) * 4;
     if (qi < S) cp_async4(dst, lse + which * plane + qi);
     else st_shared_f32(dst, which ? 0.f : INFINITY);
+  };
+  // query tile t landed (K and V with tile 0, in its copy group): a
+  // window's columns outside the head zeroed
+  auto landed = [&](int t) {
+    if constexpr (R == kOutWindow) {
+      if (t == 0) {
+        zero_window_cols<D>(sK, hw);
+        zero_window_cols<D>(sV, hw);
+      }
+      const uint32_t st = sRing + (t % kStages) * kStageBytes;
+      zero_window_cols<D>(st, hw);
+      zero_window_cols<D>(st + kTileBytes, hw);
+    }
   };
   float mb, kb[2];
   auto key_biases = [&] {
@@ -607,31 +668,26 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   float acc_dk[D / 2], acc_dv[D / 2];
   zero(acc_dk);
   zero(acc_dv);
-  // dk and dv out of the K and V tiles, read no more (or never loaded)
-  auto write = [&] {
-    write_head_rows<D>(&tm_dk, sK, dk, route, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dk, scale);
-    write_head_rows<D>(&tm_dv, sV, dv, route, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dv, 1.f);
-    if (threadIdx.x == 0) bulk_wait_read<0>();
-  };
   // where the dQ kernel skips dead key tiles (S above the rows it holds in
-  // registers), a tile of dead keys gets exact zeros (header) and loads
-  // nothing
+  // registers), a tile of dead keys walks no query tile, loads nothing and
+  // writes exact zeros (header)
   const bool skip = D == 64 || S > Layout<D>::kMaxResident * kTile;
+  bool live = true;
   if (skip) {
     key_biases();
-    if (!__syncthreads_or(kb[0] >= mb - kDeadGap || kb[1] >= mb - kDeadGap)) {
-      write();
-      return;
-    }
+    live = __syncthreads_or(kb[0] >= mb - kDeadGap || kb[1] >= mb - kDeadGap);
   }
-  load_tile<D>(sK, k, hw, blockIdx.x * kTile, S, H);
-  load_tile<D>(sV, v, hw, blockIdx.x * kTile, S, H);
-  fetch(0);
+  const int nwalk = live ? nqt : 0;
+  if (live) {
+    load_tile<D, R>(sK, k, hw, blockIdx.x * kTile, S, H);
+    load_tile<D, R>(sV, v, hw, blockIdx.x * kTile, S, H);
+    fetch(0);
+  }
   cp_async_commit();
-  ring_prologue(fetch, nqt);
+  ring_prologue(fetch, nwalk);
   if (!skip) key_biases();
-  for (int t = 0; t < nqt; ++t) {
-    ring_acquire(fetch, t, nqt);
+  for (int t = 0; t < nwalk; ++t) {
+    ring_acquire(fetch, landed, t, nwalk);
     const uint32_t qt = sRing + (t % kStages) * kStageBytes, ot = qt + kTileBytes;
     float st[32], dpt[32];
     wgmma_fence();
@@ -668,8 +724,12 @@ attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     fence_acc(acc_dv);
     fence_acc(acc_dk);
   }
-  if (route != kOutWindow) __syncthreads();   // every product has read K and V
-  write();
+  // dk and dv out of the K and V tiles, read no more (or never loaded): one
+  // call site (a second one, on the dead tiles' path, had taken registers)
+  if constexpr (R != kOutWindow) __syncthreads();   // every product has read K and V
+  write_head_rows<D, R>(&tm_dk, sK, dk, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dk, scale);
+  write_head_rows<D, R>(&tm_dv, sV, dv, head, dh, off, blockIdx.x * kTile, S, H, b, acc_dv, 1.f);
+  if (threadIdx.x == 0) bulk_wait_read<0>();
 }
 
 // ---- head_dim 64, S <= 128: one fused kernel -------------------------------
@@ -988,36 +1048,31 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   return (int)cudaGetLastError();
 }
 
-// The two kernels (the fused one at D = 64, S <= 128) at heads of dh columns
-// in memory: dh == D, or a narrower head read where it lies.
-template <int D>
-int launch(const void* q, const void* k, const void* v, const float* bias, const void* dout, void* dq,
-           void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, int dh, float c,
-           float scale, cudaStream_t st) {
+// The two kernels at route R (OutRoute) and heads of dh columns in memory.
+template <int D, OutRoute R>
+int launch_routed(const void* q, const void* k, const void* v, const float* bias, const void* dout, void* dq,
+                  void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, int dh, float c,
+                  float scale, cudaStream_t st) {
   using L = Layout<D>;
   constexpr int kMaxResident = L::kMaxResident;
-  auto dq_kernel = attn_bwd_dq_kernel<D, 0>;
-  if constexpr (D == 64) {
-    if (S <= kFusedMaxS)
-      return launch_fused(q, k, v, bias, dout, dq, dk, dv, B, S, H, num_heads, dh, c, scale, st);
-  } else {
-    if (S <= kTile) dq_kernel = attn_bwd_dq_kernel<D, 1>;
-    else if (S <= kMaxResident * kTile) dq_kernel = attn_bwd_dq_kernel<D, kMaxResident>;
+  auto dq_kernel = attn_bwd_dq_kernel<D, 0, R>;
+  if constexpr (D == 32) {
+    if (S <= kTile) dq_kernel = attn_bwd_dq_kernel<D, 1, R>;
+    else if (S <= kMaxResident * kTile) dq_kernel = attn_bwd_dq_kernel<D, kMaxResident, R>;
   }
   if constexpr (L::kSmemBytes > 48 * 1024) {
     // above 48 KB of dynamic shared memory a kernel must opt in, on each
     // device it runs on (the attribute is the current device's)
     for (const void* fn : {reinterpret_cast<const void*>(dq_kernel),
-                           reinterpret_cast<const void*>(&attn_bwd_dkdv_kernel<D>)}) {
+                           reinterpret_cast<const void*>(&attn_bwd_dkdv_kernel<D, R>)}) {
       const cudaError_t opt_in =
           cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
       if (opt_in != cudaSuccess) return (int)opt_in;
     }
   }
-  const OutRoute route = dh == D ? kOut3d : dh % 8 == 0 ? kOut4d : kOutWindow;
   CUtensorMap maps[3] = {};   // dq, dk, dv: a window's are not read
   void* outs[3] = {dq, dk, dv};
-  if (route != kOutWindow)
+  if constexpr (R != kOutWindow)
     for (int i = 0; i < 3; ++i)
       if (!head_map<D>(&maps[i], outs[i], B, S, H, num_heads, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + kTile - 1) / kTile, num_heads, B);
@@ -1026,14 +1081,34 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const auto* ob = static_cast<const __nv_bfloat16*>(dout);
   dq_kernel<<<grid, kThreads, L::kSmemBytes, st>>>(qb, kb, vb, bias, ob, static_cast<__nv_bfloat16*>(dq),
-                                                   maps[0], stats, S, H, dh, route, c, scale);
+                                                   maps[0], stats, S, H, dh, c, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_kernel<D><<<grid, kThreads, L::kSmemBytes, st>>>(qb, kb, vb, bias, ob, stats,
-                                                                 static_cast<__nv_bfloat16*>(dk),
-                                                                 static_cast<__nv_bfloat16*>(dv), maps[1],
-                                                                 maps[2], S, H, dh, route, c, scale);
+  attn_bwd_dkdv_kernel<D, R><<<grid, kThreads, L::kSmemBytes, st>>>(qb, kb, vb, bias, ob, stats,
+                                                                    static_cast<__nv_bfloat16*>(dk),
+                                                                    static_cast<__nv_bfloat16*>(dv), maps[1],
+                                                                    maps[2], S, H, dh, c, scale);
   return (int)cudaGetLastError();
+}
+
+// The two kernels (the fused one at D = 64, S <= 128) at heads of dh columns
+// in memory: dh == D, or a narrower head read where it lies (a window only
+// at D = 32: bwd_reads_in_place).
+template <int D>
+int launch(const void* q, const void* k, const void* v, const float* bias, const void* dout, void* dq,
+           void* dk, void* dv, float* stats, int B, int S, int H, int num_heads, int dh, float c,
+           float scale, cudaStream_t st) {
+  if constexpr (D == 64)
+    if (S <= kFusedMaxS)
+      return launch_fused(q, k, v, bias, dout, dq, dk, dv, B, S, H, num_heads, dh, c, scale, st);
+  if (dh == D)
+    return launch_routed<D, kOut3d>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, dh, c, scale, st);
+  if (dh % 8 == 0)
+    return launch_routed<D, kOut4d>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, dh, c, scale, st);
+  if constexpr (D == 32)
+    return launch_routed<D, kOutWindow>(q, k, v, bias, dout, dq, dk, dv, stats, B, S, H, num_heads, dh, c, scale,
+                                        st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

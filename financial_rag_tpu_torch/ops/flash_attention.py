@@ -47,6 +47,7 @@ from financial_rag_tpu_torch.ops import kernel_lib
 from financial_rag_tpu_torch.ops.common import LAUNCH_LOCK, built_head_dim, pad_heads, unpad_heads
 
 LAUNCHES = 0        # K2, the forward
+FWD_IN_PLACE_LAUNCHES = 0  # K2's launches on heads narrower than 32 or 64 read where they lie
 BWD_LAUNCHES = 0    # K10, the backward
 BWD_IN_PLACE_LAUNCHES = 0  # K10's launches on heads narrower than 32 or 64 read where they lie
 TP_LAUNCHES = 0     # K11's forward (each also counts in LAUNCHES)
@@ -130,10 +131,10 @@ def fwd_reads_in_place(head_dim: int, s: int, h: int) -> bool:
             and (built == 32 or s <= 64) and h % 8 == 0)
 
 
-def bwd_reads_in_place(head_dim: int, s: int, h: int) -> bool:
-    """Whether K10 reads heads of ``head_dim`` (<= 64) over rows of S keys
-    and H = ``h`` columns where they lie, with no padded copy, as the C
-    entry checks it (csrc/flash_attention_bwd.cu). A head of whole 16-byte
+def bwd_reads_in_place(head_dim: int, h: int) -> bool:
+    """Whether K10 reads heads of ``head_dim`` (<= 64) over rows of H =
+    ``h`` columns where they lie, with no padded copy, as the C entry
+    checks it (csrc/flash_attention_bwd.cu). A head of whole 16-byte
     chunks (head_dim a multiple of 8) on all three paths: the two kernels'
     16-byte copies, whose columns past the head come in as zeros, and the
     fused kernel's 4-D tensor maps (S <= FUSED_BWD_MAX_S at 33-64), its
@@ -147,7 +148,7 @@ def bwd_reads_in_place(head_dim: int, s: int, h: int) -> bool:
     6, K11's local heads at tp 4 or 2); its dq, dk and dv stored from the
     head's offset. An odd head_dim, a window that does not fit or over
     rows of partial chunks, and one above 32 not a multiple of 8 are
-    padded in a copy. S does not enter: every path takes the same widths."""
+    padded in a copy. Every path (any S) takes the same widths."""
     if head_dim % 8 == 0:
         return head_dim <= 64
     return head_dim % 2 == 0 and head_dim + 8 - (head_dim & -head_dim) <= 32 and h % 8 == 0
@@ -238,7 +239,7 @@ def _kernel_inputs(name: str, kernel: str, head_dims: tuple, q, k, v, mask_bias,
 def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask_bias, num_heads=num_heads)
-    global LAUNCHES, TP_LAUNCHES
+    global LAUNCHES, TP_LAUNCHES, FWD_IN_PLACE_LAUNCHES
     b, s, h = q.shape
     bias, dev, width = _kernel_inputs("flash_attention", "K2", FWD_HEAD_DIMS, q, k, v, mask_bias,
                                       num_heads)
@@ -257,6 +258,7 @@ def _forward(q, k, v, mask_bias, num_heads: int, tp: bool = False) -> torch.Tens
         LAUNCHES += 1
         TP_LAUNCHES += tp
         WIDTH_LAUNCHES[h] += 1
+        FWD_IN_PLACE_LAUNCHES += in_place and head_dim != width
     return out
 
 
@@ -277,7 +279,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias, dev, width = _kernel_inputs("flash_attention_bwd", "K10", BWD_HEAD_DIMS, q, k, v,
                                       mask_bias, num_heads, dout)
     head_dim = h // num_heads
-    in_place = bwd_reads_in_place(head_dim, s, h)
+    in_place = bwd_reads_in_place(head_dim, h)
     if not in_place:
         q, k, v, dout = (pad_heads(t, num_heads, width) for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -192,10 +192,11 @@ K6_SHAPES = (("K6 table", 128, 102400, "bf16", 24, "grid"),
              ("backends", 9, 4096, "bf16", 24, "grid"),
              ("k=128", 128, 102400, "bf16", 128, "grid"),
              ("ascending", 128, 16384, "bf16", 24, "ascending"))
-# (label, B, S, pads, query heads, kv heads, head_dim) of K9: at the
+# (label, B, S, pads, query heads, kv heads, head_dim[, dtype]) of K9: at the
 # Qwen2-0.5B head shape (14 / 2 heads of 64), then at heads of 128 (Qwen2-1.5B's
 # 12 / 2 at the served answer prompt and at pad 0, Qwen2-7B's 28 / 4,
-# Llama-3-8B's 32 / 8)
+# Llama-3-8B's 32 / 8), the generic route's heads (100, 96, 80), 32 / 32
+# heads of 64 and 128, and f32 (LLM_DTYPE=float32) at 100, 64 and 128
 K9_SHAPES = (("answer prompt", 1, 4096, (1100,), 14, 2, 64), ("normaliser", 1, 128, (60,), 14, 2, 64),
              ("generate_many", 3, 1024, (0, 300, 1023), 14, 2, 64),
              ("Qwen2-1.5B answer prompt", 1, 4096, (1100,), 12, 2, 128),
@@ -207,7 +208,10 @@ K9_SHAPES = (("answer prompt", 1, 4096, (1100,), 14, 2, 64), ("normaliser", 1, 1
              ("heads of 80", 1, 4096, (1100,), 32, 32, 80),
              ("open_llama_3b f32 normaliser", 1, 128, (60,), 32, 32, 100, "f32"),
              ("heads of 64 at 32 / 32", 1, 4096, (1100,), 32, 32, 64),
-             ("heads of 128 at 32 / 32", 1, 4096, (1100,), 32, 32, 128))
+             ("heads of 128 at 32 / 32", 1, 4096, (1100,), 32, 32, 128),
+             ("f32 answer prompt", 1, 4096, (1100,), 14, 2, 64, "f32"),
+             ("f32 normaliser", 1, 128, (60,), 14, 2, 64, "f32"),
+             ("Qwen2-1.5B f32 answer prompt", 1, 4096, (1100,), 12, 2, 128, "f32"))
 # the K9 rows whose heads are narrower than a built width, also run as the
 # kernel alone on inputs padded once beforehand
 K9_GENERIC_LABELS = ("open_llama_3b answer prompt", "heads of 96", "heads of 80",
@@ -244,7 +248,7 @@ def build_library(csrc: Path, out_dir: Path):
     # before the rule: every narrower head is padded in a copy)
     attention = tree_module(csrc, "flash_attention")
     lib.fwd_in_place = getattr(attention, "fwd_reads_in_place", lambda head_dim, s, h: False)
-    lib.bwd_in_place = getattr(attention, "bwd_reads_in_place", lambda head_dim, s, h: False)
+    lib.bwd_in_place = getattr(attention, "bwd_reads_in_place", lambda head_dim, h: False)
     lib.causal_in_place = getattr(tree_module(csrc, "causal_flash"), "causal_reads_in_place",
                                   lambda head_dim, hq, hkv, dtype: False)
     for name in ("frag_pool_norm", "frag_flash_attention", "frag_fused_ffn", "frag_packed_topk",
@@ -713,7 +717,7 @@ def k10_call(lib, b: int, s: int, heads: int, head_dim: int, gen, padded: bool =
     width = built_head_dim(head_dim, BWD_HEAD_DIMS)
     if prepadded:
         q, k, v, do = (pad_heads(t, heads, width) for t in (q, k, v, do))
-    direct = prepadded or lib.bwd_in_place(head_dim, s, heads * head_dim)
+    direct = prepadded or lib.bwd_in_place(head_dim, heads * head_dim)
     outs = [torch.empty_like(q) for _ in range(3)]
     stats = torch.empty(3, b, heads, s, device="cuda")
     run = padded_run(lib, "frag_flash_attention_bwd", [q, k, v, do], outs, [heads] * 4, head_dim,

@@ -784,7 +784,7 @@ def test_flash_attention_bwd_reads_narrow_heads_in_place(gen, monkeypatch, head_
     head_dim), a padded row and a fully masked one, dq, dk and dv within
     2^-6 of every (position, head) row's largest value of the plain
     version, masked keys' dk and dv exactly zero, the same bits twice."""
-    assert fa.bwd_reads_in_place(head_dim, s, 12 * head_dim)
+    assert fa.bwd_reads_in_place(head_dim, 12 * head_dim)
     _no_bwd_pad_copies(monkeypatch)
     heads, h = 12, 12 * head_dim
     q, k, v, do = (_randn(gen, b, s, h, dtype=torch.bfloat16) for _ in range(4))

@@ -446,7 +446,7 @@ def _c_rule(source: str, name: str):
 def test_k10_route_rule_mirrors_the_cuda_entry():
     """bwd_reads_in_place names exactly the widths the C entry's check
     (``bwd_reads_in_place`` in csrc/flash_attention_bwd.cu) reads in place,
-    at every head_dim 1-64 over 1-16 heads and any S: every multiple of 8
+    at every head_dim 1-64 over 1-16 heads (S does not enter): every multiple of 8
     (16, 32, 48, 64 among them), 26 and 28 at head counts whose rows are
     whole 16-byte chunks (12, 8, 4: not 3 or 6, K11's local heads of
     TinyBERT-L-4 at tp 4 or 2), never 30, an odd width or an even one above
@@ -456,12 +456,11 @@ def test_k10_route_rule_mirrors_the_cuda_entry():
     c_rule = _c_rule("flash_attention_bwd.cu", "bwd_reads_in_place")
     for d in range(1, 65):
         for heads in range(1, 17):
-            for s in (64, 128, 512):
-                assert fa.bwd_reads_in_place(d, s, heads * d) == c_rule(d, heads * d), (d, heads)
+            assert fa.bwd_reads_in_place(d, heads * d) == c_rule(d, heads * d), (d, heads)
     for d in (16, 26, 28, 32, 48, 64):
-        assert fa.bwd_reads_in_place(d, 512, 12 * d), d
+        assert fa.bwd_reads_in_place(d, 12 * d), d
     for d, heads in ((26, 3), (26, 6), (30, 12), (25, 12), (50, 12), (62, 12)):
-        assert not fa.bwd_reads_in_place(d, 512, heads * d), (d, heads)
+        assert not fa.bwd_reads_in_place(d, heads * d), (d, heads)
     for d in (26, 28):
         assert max(g * d % 8 for g in range(64)) + d <= 32
 
@@ -559,6 +558,66 @@ def test_k9_wrapper_passes_heads_in_place(monkeypatch, d, hq, hkv, dtype, in_pla
     assert args[5:] == [1, s, hq, hkv, d if in_place else width,
                         1 if dtype == torch.bfloat16 else 0, d]
     assert pads == ([] if in_place else [width] * 3)
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kernel,head_dim,heads,route", [
+    ("K2", 26, 12, "in place"), ("K2", 30, 12, "copy"), ("K10", 16, 12, "in place"),
+    ("K10", 26, 12, "in place"), ("K10", 26, 6, "copy"), ("K9", 100, 32, "in place"),
+    ("K9", 80, 32, "in place"), ("K9", 52, 8, "copy")])
+def test_chip_smoke_reads_each_generic_route_from_the_launch_counts(monkeypatch, kernel, head_dim,
+                                                                    heads, route):
+    """chip_smoke names a generic case's route from its kernel's count of
+    launches on heads read where they lie, read around every wrapper call
+    (``RoutedRun``), not from the rule: through the real wrappers (the
+    launch captured, meta tensors) every call of a width the rule reads in
+    place counts (``in place``), none of a padded one does (``copy``), and
+    the rule's route is the one expected. A count that moves on some calls
+    only reads ``mixed``, and a count that never moves ``copy``, whatever
+    the rule says: each would fail the case on the card."""
+    smoke = _chip_smoke()
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    s = 64
+    _capture_launches(monkeypatch, fa if kernel != "K9" else k9)
+    bias = torch.zeros(2, s, device="meta")
+    if kernel == "K9":
+        q = torch.empty(1, s, heads * head_dim, **meta)
+        pad = torch.zeros(1, dtype=torch.int32, device="meta")
+        run = lambda: k9.causal_flash_prefill(q, q, q, pad, num_q_heads=heads,   # noqa: E731
+                                              num_kv_heads=heads)
+        count = lambda: k9.IN_PLACE_LAUNCHES[head_dim]   # noqa: E731
+        rule = k9.causal_reads_in_place(head_dim, heads, heads, torch.bfloat16)
+    else:
+        q = torch.empty(2, s, heads * head_dim, **meta)
+        if kernel == "K2":
+            run = lambda: fa.flash_attention(q, q, q, bias, num_heads=heads)   # noqa: E731
+            count = lambda: fa.FWD_IN_PLACE_LAUNCHES   # noqa: E731
+            rule = fa.fwd_reads_in_place(head_dim, s, heads * head_dim)
+        else:
+            run = lambda: fa.flash_attention_bwd(q, q, q, bias, q, num_heads=heads)   # noqa: E731
+            count = lambda: fa.BWD_IN_PLACE_LAUNCHES   # noqa: E731
+            rule = fa.bwd_reads_in_place(head_dim, heads * head_dim)
+    (name, shape, routed, plain), = smoke.routed([("k", "shape", run, None)], count,
+                                                  lambda shape: rule)
+    for _ in range(3):
+        routed()
+    assert (routed.calls, routed.route, routed.expected) == (3, route, route)
+    flips = iter([0, 1, 1, 1])
+    mixed = smoke.RoutedRun(lambda: None, lambda: next(flips), "in place")
+    mixed(), mixed()
+    assert mixed.route == "mixed"
+    still = smoke.RoutedRun(lambda: None, lambda: 0, "in place")
+    still()
+    assert still.route == "copy" != still.expected
 
 
 def test_pad_heads_round_trips_and_leaves_built_widths_alone():
